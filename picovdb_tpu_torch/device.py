@@ -17,6 +17,7 @@ dispatch decisions can be compared one to one.
 
 from __future__ import annotations
 
+import logging
 import os as _os
 import threading
 from typing import Optional, Tuple
@@ -35,6 +36,8 @@ from .ops.scan import (
 )
 from .utils import round_up
 
+_log = logging.getLogger("picovdb_tpu_torch")
+
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -49,6 +52,16 @@ def _pad_rows(arr: np.ndarray, cap: int, fill=0) -> np.ndarray:
     pad = cap - arr.shape[0]
     widths = ((0, pad),) + ((0, 0),) * (arr.ndim - 1)
     return np.pad(arr, widths, constant_values=fill)
+
+
+def _pad_to(t: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
+    """A copy of `t` zero-padded to `rows` rows on its device (None stays
+    None). The one allocation `grow` makes per plane."""
+    if t is None:
+        return None
+    out = t.new_zeros((rows,) + tuple(t.shape[1:]))
+    out[: t.shape[0]] = t
+    return out
 
 
 def default_device() -> torch.device:
@@ -180,26 +193,51 @@ class DeviceIndex:
 
     def grow(self, n: int) -> bool:
         """Grow padded capacity on device to hold `n` rows (device copies,
-        no host traffic), with max(ROW_PAD, n/64) rows of slack."""
+        no host traffic), with max(ROW_PAD, n/64) rows of slack.
+
+        Peak device memory is the old plus the new plane. When an
+        allocation fails (`torch.cuda.OutOfMemoryError`, nothing else) the
+        store stays consistent, as in picovdb_tpu:
+          * the corpus pad fails: nothing changed, returns False;
+          * a later core pad fails (`active`): every plane is dropped and
+            False returned, so the engine's sync re-uploads all of them
+            at one capacity;
+          * an optional mirror (bf16, int8 + scales) fails: that mirror
+            alone is dropped (its routes stand down) and True returned.
+        """
         if self.vectors is None:
             return False
         new_cap = max(self.cap, self._padded_cap(n + max(ROW_PAD, n // 64)))
         if new_cap <= self.cap:
             return True
-
-        def pad_rows(t):
-            if t is None:
-                return None
-            out = t.new_zeros((new_cap,) + tuple(t.shape[1:]))
-            out[: t.shape[0]] = t
-            return out
-
-        self.vectors = pad_rows(self.vectors)
-        self.active = pad_rows(self.active)
-        self.vectors_lp = pad_rows(self.vectors_lp)
-        self.vectors_i8 = pad_rows(self.vectors_i8)
-        self.vscale = pad_rows(self.vscale)
+        try:
+            vectors = _pad_to(self.vectors, new_cap)
+        except torch.cuda.OutOfMemoryError:
+            _log.warning("device grow %d -> %d rows ran out of device "
+                         "memory; store unchanged", self.cap, new_cap)
+            return False
+        self.vectors = vectors
+        try:
+            self.active = _pad_to(self.active, new_cap)
+        except torch.cuda.OutOfMemoryError:
+            # the corpus is at new_cap, the mask is not: drop every plane
+            # so no route pairs mismatched shapes
+            _log.warning("device grow %d -> %d rows ran out of device "
+                         "memory; device planes dropped", self.cap, new_cap)
+            self.vectors = self.active = None
+            self.vectors_lp = self.vectors_i8 = self.vscale = None
+            self._mask_cache.clear()
+            return False
         self.cap = new_cap
+        try:
+            self.vectors_lp = _pad_to(self.vectors_lp, new_cap)
+        except torch.cuda.OutOfMemoryError:
+            self.vectors_lp = None
+        try:
+            self.vectors_i8 = _pad_to(self.vectors_i8, new_cap)
+            self.vscale = _pad_to(self.vscale, new_cap)
+        except torch.cuda.OutOfMemoryError:
+            self.vectors_i8 = self.vscale = None
         self._mask_cache.clear()
         self.last_sync_mode = "grow"
         return True
