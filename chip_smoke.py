@@ -4,13 +4,17 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `picovdb_tpu_torch/csrc`, checks each
-one against its plain PyTorch version on the card, then drives the exact
-scan serving path through the public `PicoVectorDB` API on a 1M x 1024
-float32 store and checks what comes back. Every phase prints one line;
-any failure raises and the script exits non-zero without a result line.
-It imports neither JAX nor picovdb_tpu, and refuses to run without a card.
+one against its plain PyTorch version on the card, then drives the serving
+paths through the public `PicoVectorDB` API and checks what comes back:
+a 1M x 1024 float32 store (phase 3), a 1M x 1024 int8 store with the
+host-f64 rescore and a quantized checkpoint (phase 4), a device-born
+16M x 1024 int4 store (phase 5, an 8 GB packed plane) and a 262,144 x 1024
+bfloat16 store (phase 6). Launch counts are zeroed just before each path
+and read just after it. Every phase prints its lines; any failure raises
+and the script exits non-zero without a result line. It imports neither
+JAX nor picovdb_tpu, and refuses to run without a card.
 
-Output, in order: one line per phase, the card's name and power limit as
+Output, in order: the phase lines, the card's name and power limit as
 `nvidia-smi` reports them, one JSON object with the per-kernel record, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -30,20 +34,29 @@ import numpy as np
 SEED = 1234
 DIM = 1024
 PHASE2_CAP = 131_072
-MAIN_N = 1_000_000
+MAIN_N = 1_000_000  # float32 store, phase 3
+I8_N = 1_000_000  # int8 store, phase 4
+I4_N = 1 << 24  # int4 store, phase 5: 16,777,216 rows, 8 GB packed
+I4_CHUNK = 262_144  # rows generated and quantized on the card at a time
+BF16_N = 262_144  # bfloat16 store, phase 6
 TOL_SCORE = 1e-5  # rescored scores: both sides are float32 dot products
 TOL_GAP = 1e-4  # id sets must agree where the k-th/(k+1)-th gap exceeds it
 
 KERNELS = {
-    # name: (launch-counter key, source, TPU kernel it replaces)
+    # name: (launch-counter key, source, TPU kernel it replaces, the phase
+    # whose serving path must launch it)
     "segmax_scan": ("segmax", "picovdb_tpu_torch/csrc/segmax.cu",
-                    "picovdb_tpu/ops/pallas_scan.py:443"),
+                    "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "topk_packed_keys": ("topk_keys", "picovdb_tpu_torch/csrc/topk_keys.cu",
-                         "picovdb_tpu/ops/pallas_scan.py:536"),
+                         "picovdb_tpu/ops/pallas_scan.py:536", 3),
     "fused_topk_i8": ("scan_topk_i8", "picovdb_tpu_torch/csrc/scan_topk.cu",
-                      "picovdb_tpu/ops/pallas_scan.py:865"),
+                      "picovdb_tpu/ops/pallas_scan.py:865", 3),
     "fused_topk": ("scan_topk", "picovdb_tpu_torch/csrc/scan_topk.cu",
-                   "picovdb_tpu/ops/pallas_scan.py:226"),
+                   "picovdb_tpu/ops/pallas_scan.py:226", 3),
+    "segmax_scan_i8": ("segmax_i8", "picovdb_tpu_torch/csrc/segmax.cu",
+                       "picovdb_tpu/ops/pallas_scan.py:960", 4),
+    "fused_topk_i4": ("scan_topk_i4", "picovdb_tpu_torch/csrc/scan_topk.cu",
+                      "picovdb_tpu/ops/pallas_scan.py:1315", 5),
 }
 
 
@@ -147,12 +160,44 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     log(f"phase 2: K1 segmax_scan + K2 topk_packed_keys agree at Q=2048 "
         f"k={k} cap={cap} (K1 max |dkey value| {err1:.3g}, K2 exact)")
 
-    def check_scan(name, qq, vv, scale, msk, ksel, rescore_q):
-        if scale is None:
+    # K5 over the int8 rows at Q = 2048, k = 10 (segmax_i8stor: k_sel 16).
+    # The int32 sums are exact and each key is one float32 conversion and
+    # one multiply, so the keys must agree bit for bit.
+    q8, _ = scan.quantize_rows_i8(q)
+    keys = scan.segmax_scan_i8(q8, v8, vs, mask)
+    keys_p = scan.segmax_scan_i8_plain(q8, v8, vs, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(keys == scan.KEY_MIN, keys_p == scan.KEY_MIN)
+    err5 = float((key_vals(keys) - key_vals(keys_p)).abs().max())
+    assert err5 <= 1e-4, f"segmax_scan_i8 keys differ by {err5}"
+
+    def decode_rescore_i8(tk, ti):
+        gidx = (ti // 2) * scan.SEG + (tk & (scan.SEG - 1))
+        empty = tk == scan.KEY_MIN
+        vals = torch.where(empty, float("-inf"), 0.0)
+        return scan.rescore_exact_i8r(q, v8, vs, vals,
+                                      torch.where(empty, 0, gidx))
+
+    ex_k, id_k = decode_rescore_i8(*scan.topk_packed_keys(keys, k + 6))
+    ex_p, id_p = decode_rescore_i8(*scan.topk_packed_keys_plain(keys_p, k + 6))
+    assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= TOL_SCORE
+    assert ids_agree(torch, id_k, id_p, ex_p, k) == 0.0
+    rec["segmax_scan_i8"] = (
+        err5, cuda_ms(torch, lambda: scan.segmax_scan_i8(q8, v8, vs, mask)),
+        cuda_ms(torch, lambda: scan.segmax_scan_i8_plain(q8, v8, vs, mask)))
+    del keys, keys_p
+    log(f"phase 2: K5 segmax_scan_i8 agrees at Q=2048 k={k} cap={cap} "
+        f"(max |dkey value| {err5:.3g}; {rec['segmax_scan_i8'][1]:.4f} ms, "
+        f"plain {rec['segmax_scan_i8'][2]:.4f} ms)")
+
+    def check_scan(name, qq, vv, scale, msk, ksel, rescore_q, int4=False):
+        if int4:
+            got = scan.fused_topk_i4(qq, vv, scale, msk, ksel)
+        elif scale is None:
             got = scan.fused_topk(qq, vv, msk, ksel)
         else:
             got = scan.fused_topk_i8(qq, vv, scale, msk, ksel)
-        ref = scan.scan_topk_plain(qq, vv, scale, msk, ksel + 1)
+        ref = scan.scan_topk_plain(qq, vv, scale, msk, ksel + 1, int4=int4)
         torch.cuda.synchronize()
         err = float((got[0] - ref[0][:, :ksel]).abs().max())
         assert err <= TOL_SCORE, f"{name} scores differ by {err}"
@@ -197,7 +242,33 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     log(f"phase 2: K4 fused_topk agrees: bf16 Q=64 k_sel=36 filtered "
         f"{ms_bf:.4f} ms (plain {pms_bf:.4f}); f32 Q=16 k_sel=1024 "
         f"{ms_f32:.4f} ms (plain {pms_f32:.4f})")
-    del corpus, lp, v8, vs
+
+    # K6 over the packed int4 rows at Q = 1, 8, 16, k_sel = 14 (i4stor_fused
+    # at k = 10) and Q = 16, k_sel = 1024 (the widest the kernel serves)
+    v4, vs4 = scan.quantize_rows_i4(corpus)
+    errs, ms, pms = [], [], []
+    for nq in (1, 8, 16):
+        qf = normalize_on_device(
+            torch.from_numpy(rng.standard_normal((nq, dim), dtype=np.float32))
+            .to(device))
+        q8, _ = scan.quantize_rows_i8(qf)
+        errs.append(check_scan("fused_topk_i4", q8, v4, vs4, mask, 14, qf,
+                               int4=True))
+        ms.append(cuda_ms(torch, lambda: scan.fused_topk_i4(q8, v4, vs4, mask, 14)))
+        pms.append(cuda_ms(torch, lambda: scan.scan_topk_plain(
+            q8, v4, vs4, mask, 14, int4=True)))
+    q8, _ = scan.quantize_rows_i8(q64[:16])
+    errs.append(check_scan("fused_topk_i4 wide", q8, v4, vs4, mask, 1024,
+                           q64[:16], int4=True))
+    ms_w = cuda_ms(torch, lambda: scan.fused_topk_i4(q8, v4, vs4, mask, 1024))
+    pms_w = cuda_ms(torch, lambda: scan.scan_topk_plain(
+        q8, v4, vs4, mask, 1024, int4=True))
+    rec["fused_topk_i4"] = (max(errs), ms[0], pms[0])
+    log(f"phase 2: K6 fused_topk_i4 agrees at Q=1,8,16 k_sel=14 "
+        f"(ms {', '.join(f'{m:.4f}' for m in ms)}; plain "
+        f"{', '.join(f'{m:.4f}' for m in pms)}) and Q=16 k_sel=1024 "
+        f"({ms_w:.4f} ms, plain {pms_w:.4f})")
+    del corpus, lp, v8, vs, v4, vs4
     torch.cuda.empty_cache()
     return rec
 
@@ -265,18 +336,32 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str,
     assert len(res) == 10
     q1_ms = cuda_ms(torch, lambda: db.query(one, top_k=10), reps=50)
 
-    # filtered batch and wide-k batch: K4 over the bf16 mirror
+    # filtered batches: a wide filter (100k survivors) rides K1 + K2 over
+    # its compacted view; a narrow one (3000 ids, the view refused) and a
+    # wide-k batch take K4 over the bf16 mirror
     q64 = qdev[:64].cpu().numpy()
-    res = db.query(q64, top_k=10, where={"tag": 3})
+    res_f = db.query(q64, top_k=10, where={"tag": 3})
+    assert db.last_query_debug()["strategy"] == "fview_segmax"
+    assert all(r["tag"] == 3 for hits in res_f for r in hits)
+    assert all(len(hits) == 10 for hits in res_f)
+    allow = [f"v{i}" for i in rng.choice(n, 3000, replace=False)]
+    res = db.query(q64, top_k=10, ids=allow)
     assert db.last_query_debug()["strategy"] == "mixed_fused_batch_filtered"
-    assert all(r["tag"] == 3 for hits in res for r in hits)
-    assert all(len(hits) == 10 for hits in res)
+    assert all(r["_id_"] in set(allow) for hits in res for r in hits)
     res = db.query(q64, top_k=32)
     assert db.last_query_debug()["strategy"] == "mixed_fused_batch"
     assert all(len(hits) == 32 for hits in res)
 
-    # recall@10 against a float64 oracle on 64 queries
+    # recall@10 against a float64 oracle on 64 queries, and of the
+    # filter-view route against the filtered oracle
     corpus_dev = torch.from_numpy(corpus).to(device)
+    tag3 = torch.from_numpy(np.arange(n) % 10 == 3).to(device)
+    truth_f = oracle_top10(torch, corpus_dev, qdev[:64], tag3)
+    recall_f = np.mean([
+        len({int(h["_id_"][1:]) for h in res_f[i]} & set(truth_f[i].tolist()))
+        / 10 for i in range(64)
+    ])
+    assert recall_f >= 0.99, recall_f
     live = torch.ones(n, dtype=torch.bool, device=device)
     truth = oracle_top10(torch, corpus_dev, qdev[:64], live)
     got, _ = db.query_columnar(qdev[:64], top_k=10)
@@ -293,11 +378,14 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str,
     back, _ = db.query_columnar(corpus[gone_rows[:256]], top_k=10)
     assert not (set(back[back != None].tolist()) & set(gone))  # noqa: E711
     counts = dict(scan.LAUNCHES)
-    for name, (key, _, _) in KERNELS.items():
-        assert counts[key] > 0, f"{name} never launched on the main path"
+    for name, (key, _, _, phase) in KERNELS.items():
+        if phase == 3:
+            assert counts[key] > 0, f"{name} never launched on the main path"
     log(f"phase 3: main path at {n} x {dim}: routes segmax_mixed_stream, "
-        f"i8_fused_smallq, mixed_fused_batch_filtered, mixed_fused_batch; "
-        f"recall@10 {recall:.4f} vs float64; delete ok; launches {counts}")
+        f"i8_fused_smallq, fview_segmax, mixed_fused_batch_filtered, "
+        f"mixed_fused_batch; recall@10 {recall:.4f} vs float64 (filter view "
+        f"{recall_f:.4f} vs the filtered oracle); delete ok; launches "
+        f"{counts}")
 
     # save, reload into a fresh instance, same answers
     probe = qdev[64:72].cpu().numpy()
@@ -316,6 +404,264 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str,
         f"card {card}")
     shutil.rmtree(tmp)
     return counts
+
+
+def recall_at_10(got_ids, truth, prefix: str) -> float:
+    """Mean overlap of returned ids ("<prefix><row>") with oracle rows."""
+    return float(np.mean([
+        len({int(x[len(prefix):]) for x in got_ids[i] if x is not None}
+            & set(truth[i].tolist())) / 10
+        for i in range(truth.shape[0])
+    ]))
+
+
+def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
+               **db_kwargs):
+    """int8 storage, host-born: the host-f64 rescore at small batches, K5
+    + K2 for 2048-query chunks, K3 for Q = 1 at device precision, and a
+    quantized checkpoint."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import exact_topk_i8r, normalize_on_device
+
+    corpus = rng.standard_normal((n, dim), dtype=np.float32)
+    ids = [f"v{i}" for i in range(n)]
+    meta = [{"tag": i % 10} for i in range(n)]
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    base = os.path.join(tmp, "store_i8")
+    scan.reset_launch_counts()  # count this path's launches only
+
+    db = PicoVectorDB(embedding_dim=dim, index="exact", storage_file=base,
+                      device=device, storage_dtype="int8", **db_kwargs)
+    t0 = time.perf_counter()
+    db.upsert_columnar(corpus, ids=ids, metadata=meta, copy=False)
+    db.rebuild_index()  # quantized upload, part of the insert
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    assert db.last_query_debug()["mirrors"] == {"bf16": False, "int8": False}
+    near = corpus[rng.integers(0, n, 4096)]
+    qdev = torch.from_numpy(
+        near + 0.01 * rng.standard_normal(near.shape, dtype=np.float32)
+    ).to(device)
+    corpus_dev = torch.from_numpy(corpus).to(device)
+
+    # Q = 1 and a filtered Q = 64 batch: k + 128 candidates from K3, then
+    # the host-f64 rescore on the authentic float32 rows
+    one = qdev[0].cpu().numpy()
+    res = db.query(one, top_k=10)
+    dbg = db.last_query_debug()
+    assert dbg["strategy"] == "i8stor_fused_exact" and dbg["rescore"] == "host"
+    assert len(res) == 10
+    q1_ms = cuda_ms(torch, lambda: db.query(one, top_k=10), reps=20)
+    q64 = qdev[:64].cpu().numpy()
+    res = db.query(q64, top_k=10, where={"tag": 3})
+    dbg = db.last_query_debug()
+    assert dbg["strategy"] == "i8stor_fused_exact" and dbg["rescore"] == "host"
+    assert all(len(h) == 10 and all(r["tag"] == 3 for r in h) for h in res)
+    tag3 = torch.from_numpy(np.arange(n) % 10 == 3).to(device)
+    truth_f = oracle_top10(torch, corpus_dev, qdev[:64], tag3)
+    recall_f = recall_at_10([[r["_id_"] for r in h] for h in res], truth_f, "v")
+    got, _ = db.query_columnar(q64, top_k=10)
+    assert db.last_query_debug()["rescore"] == "host"
+    live = torch.ones(n, dtype=torch.bool, device=device)
+    truth = oracle_top10(torch, corpus_dev, qdev[:64], live)
+    recall = recall_at_10(got, truth, "v")
+    assert recall >= 0.99 and recall_f >= 0.99, (recall, recall_f)
+
+    # 2048-query chunks of CUDA-resident queries: K5 + K2, then the
+    # dequantizing rescore (storage precision: no host rescore for tensors)
+    out_ids, _ = db.query_columnar(qdev, top_k=10, batch_size=2048)
+    assert db.last_query_debug()["strategy"] == "segmax_i8stor_stream"
+    assert (out_ids != None).all()  # noqa: E711
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.query_columnar(qdev, top_k=10, batch_size=2048)
+    batch_s = time.perf_counter() - t0
+    recall_dev = recall_at_10(out_ids[:64], truth, "v")
+    # against the plain dense scan of the same int8 plane, wherever the
+    # k-th/(k+1)-th gap passes the storage noise (3x the int8 tier's
+    # score-noise rms: inside it the quantized selections may differ)
+    dev = db._dev
+    pv, pi = exact_topk_i8r(normalize_on_device(qdev[:256]), dev.vectors,
+                            dev.vstore_scale, dev.active, 11)
+    pv, pi = pv.cpu().numpy(), pi.cpu().numpy()
+    noise = 3.0 * scan._tie_margin("i8", dim, 1.0)
+    bad = 0
+    for i in range(256):
+        if pv[i, 9] - pv[i, 10] > noise:
+            bad += {int(x[1:]) for x in out_ids[i]} != set(pi[i, :10].tolist())
+    assert bad == 0, f"{bad} of 256 segmax_i8stor_stream id sets differ"
+    del corpus_dev
+
+    # a quantized checkpoint, reloaded lazily (device precision); Q = 1 at
+    # rescore="device" takes the K3 small-batch route
+    probe = qdev[64:320]
+    before, _ = db.query_columnar(probe, top_k=10)
+    db.save(quantized=True)
+    del db
+    db2 = PicoVectorDB(embedding_dim=dim, index="exact", storage_file=base,
+                       device=device, storage_dtype="int8", rescore="device",
+                       **db_kwargs)
+    assert db2.count() == n
+    after, _ = db2.query_columnar(probe, top_k=10)
+    assert (after == before).all(), "reloaded int8 store answers differently"
+    res = db2.query(one, top_k=10)
+    assert db2.last_query_debug()["strategy"] == "i8stor_fused_smallq"
+    assert len(res) == 10 and res[0]["_id_"] == out_ids[0][0]
+    counts = dict(scan.LAUNCHES)
+    assert counts["segmax_i8"] > 0, "segmax_scan_i8 never launched"
+    log(f"phase 4: int8 storage at {n} x {dim}: routes i8stor_fused_exact "
+        f"(host rescore), segmax_i8stor_stream, i8stor_fused_smallq; "
+        f"recall@10 vs float64 {recall:.4f} (filtered {recall_f:.4f}) with "
+        f"the host rescore, {recall_dev:.4f} at storage precision; "
+        f"segmax_i8stor_stream ids = plain exact_topk_i8r outside the gap; "
+        f"save(quantized=True) + reload ok; launches {counts}")
+    log(f"phase 4: insert {n / insert_s:.1f} vec/s; batch "
+        f"{4096 / batch_s:.1f} QPS (query_columnar, 4096 queries); Q=1 "
+        f"latency {q1_ms:.4f} ms with the host rescore; card {card}")
+    del db2
+    shutil.rmtree(tmp)
+    return counts
+
+
+def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
+               **db_kwargs):
+    """int4 storage, device-born: rows made on the card from a seeded
+    generator, quantized and packed per chunk, adopted by ingest_device;
+    every route is K6. The host keeps ids and metadata only."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    def rows_chunks():
+        g = torch.Generator(device=device).manual_seed(SEED)
+        for s in range(0, n, I4_CHUNK):
+            yield s, normalize_on_device(torch.randn(
+                min(I4_CHUNK, n - s), dim, generator=g, device=device))
+
+    t0 = time.perf_counter()
+    packed = torch.empty((n, dim // 2), dtype=torch.int8, device=device)
+    scales = torch.empty((n,), dtype=torch.float32, device=device)
+    for s, rows in rows_chunks():
+        packed[s:s + rows.shape[0]], scales[s:s + rows.shape[0]] = \
+            scan.quantize_rows_i4(rows)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    ids = [f"w{i}" for i in range(n)]
+    scan.reset_launch_counts()  # count this path's launches only
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(os.getcwd(), "picovdb_smoke_i4"),
+                      storage_dtype="int4", **db_kwargs)
+    t0 = time.perf_counter()
+    db.ingest_device(packed, ids, scales=scales, normalize=False)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    del packed, scales, ids
+    torch.cuda.empty_cache()
+    dev = db._dev
+    assert dev.vectors.shape[1] == dim // 2 and db.count() == n
+
+    def dequant(slots):
+        t = torch.from_numpy(slots).to(device)
+        return scan.unpack_i4(dev.vectors[t]).float() * dev.vstore_scale[t, None]
+
+    src = rng.integers(0, n, 2048)
+    qdev = dequant(src)
+    qdev = qdev + 0.01 * torch.randn(qdev.shape, device=device,
+                                     generator=torch.Generator(
+                                         device=device).manual_seed(SEED + 1))
+    one = qdev[0].cpu().numpy()
+    res = db.query(one, top_k=10)
+    assert db.last_query_debug()["strategy"] == "i4stor_fused"
+    assert res[0]["_id_"] == f"w{src[0]}", res[0]
+    q1_ms = cuda_ms(torch, lambda: db.query(one, top_k=10), reps=10)
+    out_ids, out_sc = db.query_columnar(qdev, top_k=10, batch_size=2048)
+    assert db.last_query_debug()["strategy"] == "i4stor_fused"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.query_columnar(qdev, top_k=10, batch_size=2048)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+
+    # float64 oracles over the first 64 queries: the dequantized rows (the
+    # ids must agree outside the gap) and the original float rows (recall)
+    m = 64
+    q = qdev[:m].double()
+    q = q / q.norm(dim=1, keepdim=True)
+    best = {"deq": (torch.full((m, 11), float("-inf"), dtype=torch.float64,
+                               device=device),
+                    torch.zeros((m, 11), dtype=torch.int64, device=device)),
+            "orig": (torch.full((m, 11), float("-inf"), dtype=torch.float64,
+                                device=device),
+                     torch.zeros((m, 11), dtype=torch.int64, device=device))}
+    for s, rows in rows_chunks():
+        e = s + rows.shape[0]
+        deq = (scan.unpack_i4(dev.vectors[s:e]).double()
+               * dev.vstore_scale[s:e, None].double())
+        for name, r in (("deq", deq), ("orig", rows.double())):
+            sc = q @ r.T
+            v, i = best[name]
+            v, pos = torch.topk(torch.cat([v, sc], 1), 11, dim=1)
+            cat_i = torch.cat([i, torch.arange(s, e, device=device)
+                               .expand(m, -1)], 1)
+            best[name] = (v, torch.gather(cat_i, 1, pos))
+    dv, di = (t.cpu().numpy() for t in best["deq"])
+    bad = sum(
+        {int(x[1:]) for x in out_ids[i]} != set(di[i, :10].tolist())
+        for i in range(m) if dv[i, 9] - dv[i, 10] > TOL_GAP)
+    assert bad == 0, f"{bad} of {m} int4 id sets differ from the oracle"
+    recall = recall_at_10(out_ids[:m], best["orig"][1][:, :10].cpu().numpy(),
+                          "w")
+
+    # delete 1000 ids: none of them comes back
+    gone = rng.choice(n, 1000, replace=False)
+    assert len(db.delete([f"w{i}" for i in gone])) == 1000
+    back, _ = db.query_columnar(dequant(gone[:256]), top_k=10)
+    assert not (set(back[back != None].tolist())  # noqa: E711
+                & {f"w{i}" for i in gone})
+    counts = dict(scan.LAUNCHES)
+    assert counts["scan_topk_i4"] > 0, "fused_topk_i4 never launched"
+    gb = dev.vectors.numel() / 2**30
+    log(f"phase 5: int4 storage, device-born, {n} x {dim} ({gb:.2f} GiB "
+        f"packed plane): route i4stor_fused at Q=1 and 2048; ids = float64 "
+        f"oracle over the dequantized rows outside the gap; recall@10 "
+        f"{recall:.4f} vs the original float rows; delete ok; launches "
+        f"{counts}")
+    log(f"phase 5: rows made + packed on the card in {make_s:.2f} s, "
+        f"ingest_device {ingest_s:.2f} s; Q=1 latency {q1_ms:.4f} ms; batch "
+        f"{2048 / batch_s:.1f} QPS (query_columnar, 2048 queries); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
+        f" card {card}")
+    del db
+    return counts
+
+
+def phase_bf16(torch, scan, device, n: int, dim: int, rng, **db_kwargs):
+    """bfloat16 storage: batches take K4 over the bf16 rows
+    (`pallas_fused`), Q = 1 the route picovdb_tpu picks (`xla_topk`)."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    corpus = rng.standard_normal((n, dim), dtype=np.float32)
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(os.getcwd(), "picovdb_smoke_bf"),
+                      storage_dtype="bfloat16", **db_kwargs)
+    db.upsert_columnar(corpus, ids=[f"b{i}" for i in range(n)], copy=False)
+    before = scan.LAUNCHES["scan_topk"]
+    q = corpus[rng.integers(0, n, 64)] + 0.01 * rng.standard_normal(
+        (64, dim), dtype=np.float32)
+    got, _ = db.query_columnar(q, top_k=10)
+    dbg = db.last_query_debug()
+    assert dbg["strategy"] == "pallas_fused" and dbg["rescore"] == "host"
+    assert scan.LAUNCHES["scan_topk"] > before
+    truth = oracle_top10(torch, torch.from_numpy(corpus).to(device),
+                         torch.from_numpy(q).to(device),
+                         torch.ones(n, dtype=torch.bool, device=device))
+    recall = recall_at_10(got, truth, "b")
+    assert recall >= 0.99, recall
+    db.query(q[0], top_k=10)
+    assert db.last_query_debug()["strategy"] == "xla_topk"
+    log(f"phase 6: bfloat16 storage at {n} x {dim}: Q=64 pallas_fused (K4 "
+        f"over bf16 rows) + host rescore, recall@10 {recall:.4f}; Q=1 "
+        f"xla_topk")
+    del db
 
 
 def main() -> int:
@@ -337,13 +683,19 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     rec = phase_kernels(torch, scan, device, PHASE2_CAP, DIM, rng)
-    counts = phase_main(torch, scan, device, MAIN_N, DIM, rng, card)
+    counts = {3: phase_main(torch, scan, device, MAIN_N, DIM, rng, card)}
+    torch.cuda.empty_cache()
+    counts[4] = phase_int8(torch, scan, device, I8_N, DIM, rng, card)
+    torch.cuda.empty_cache()
+    counts[5] = phase_int4(torch, scan, device, I4_N, DIM, rng, card)
+    torch.cuda.empty_cache()
+    phase_bf16(torch, scan, device, BF16_N, DIM, rng)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[key], "max_abs_err": rec[name][0],
+         "launches": counts[phase][key], "max_abs_err": rec[name][0],
          "ms": rec[name][1], "plain_ms": rec[name][2]}
-        for name, (key, src, rep) in KERNELS.items()
+        for name, (key, src, rep, phase) in KERNELS.items()
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

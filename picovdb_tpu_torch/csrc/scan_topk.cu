@@ -1,26 +1,39 @@
-// K3 fused_topk_i8 and K4 fused_topk: exact masked top-k_sel over a
-// corpus in float32, bfloat16, or int8 with a per-row scale.
+// K3 fused_topk_i8, K4 fused_topk and K6 fused_topk_i4: exact masked
+// top-k_sel over a corpus in float32, bfloat16, int8 with a per-row scale,
+// or packed int4 with a per-row scale.
 //
-// Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk (`_scan_kernel`, K4)
-// and fused_topk_i8 (`_scan_kernel_i8`, K3). Both compute, per query, the
-// k_sel best masked rows by score q . v (int8: s8 . s8 -> s32, times the
-// row's scale); rows that no round could select come out as -inf / row 0.
+// Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk (`_scan_kernel`, K4),
+// fused_topk_i8 (`_scan_kernel_i8`, K3) and fused_topk_i4
+// (`_scan_kernel_i4`, K6). All compute, per query, the k_sel best masked
+// rows by score q . v (int8: s8 . s8 -> s32, times the row's scale; int4:
+// see below); rows that no round could select come out as -inf / row 0.
 // Selection is exact on the float32 scores (the TPU ladder quantizes them
-// through its packed key); callers rescore the winners in float32 anyway.
+// through its packed key); callers rescore the winners anyway.
 // k_sel <= 1024 is served here, so the exact retry never needs a dense
 // (Q, cap) score matrix; wider k goes to the plain exact scan.
 //
-// What bounds it on the H100: on the main path Q <= 16 (K3, 1 B/element)
-// or Q = 64 (K4 on the 2 B bf16 mirror), so arithmetic per corpus byte is
-// low and the sweep of the mirror from device memory (1 GB or 2 GB at
-// 1M x 1024) is the floor. The TPU kernel sweeps the corpus serially per
-// query tile, which at Q <= 16 would be one block; here the corpus is
-// split into chunks across all SMs: each block scores a tile of queries
-// against its chunk with CUDA-core FMAs (int8: __dp4a) from shared-memory
-// tiles, keeps a per-query candidate buffer in shared memory behind a
-// running k-th-best threshold, and writes its chunk's top-k_sel. A second
-// launch (launch_topk_merge) merges the chunks' winners per query.
+// What bounds it on the H100: on the main path Q <= 16 (K3, 1 B/element;
+// K6, 0.5 B/element) or Q = 64 (K4 on the 2 B bf16 mirror), so arithmetic
+// per corpus byte is low and the sweep of the corpus from device memory
+// (1 GB int8 or 8 GB int4 at 16M x 1024) is the floor. The TPU kernel
+// sweeps the corpus serially per query tile, which at Q <= 16 would be one
+// block; here the corpus is split into chunks across all SMs: each block
+// scores a tile of queries against its chunk with CUDA-core FMAs (int8 and
+// int4: __dp4a) from shared-memory tiles, keeps a per-query candidate
+// buffer in shared memory behind a running k-th-best threshold, and writes
+// its chunk's top-k_sel. A second launch (launch_topk_merge) merges the
+// chunks' winners per query.
+//
+// int4 (K6): a row is dim/2 bytes; byte j holds element j (low nibble)
+// and element j + dim/2 (high nibble), each stored as value + 8 in
+// [1, 15]. Four packed bytes load as one 32-bit word; w & 0x0F0F0F0F and
+// (w >> 4) & 0x0F0F0F0F are the two biased planes (safe as signed bytes),
+// and score = dp4a(lo, q[j..j+3]) + dp4a(hi, q[d/2 + j..]) summed, minus
+// 8 * sum(q) (once per query), times the row scale. The unpacked corpus
+// never exists: the sweep reads 0.5 B/element.
 // A first, simple kernel: no tensor cores, no TMA, no pipelining yet.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -31,22 +44,33 @@ constexpr int THREADS = 256;
 constexpr int TR = 128;  // corpus rows per tile
 constexpr int KCW = 16;  // 32-bit words of each row per k-step
 
+struct Int4 {};  // corpus kind tag: packed two-plane nibbles (int8 bytes)
+
 template <typename T>
 struct Elem;
 template <>
 struct Elem<float> {
-  static constexpr int EPW = 1;  // elements per 32-bit word
+  static constexpr int EPW = 1;  // corpus elements per 32-bit word
   typedef float QT;              // query element type
+  typedef float VT;              // corpus storage type
 };
 template <>
 struct Elem<__nv_bfloat16> {
   static constexpr int EPW = 2;
   typedef float QT;
+  typedef __nv_bfloat16 VT;
 };
 template <>
 struct Elem<int8_t> {
   static constexpr int EPW = 4;
   typedef int8_t QT;
+  typedef int8_t VT;
+};
+template <>
+struct Elem<Int4> {
+  static constexpr int EPW = 4;  // packed bytes per word (8 elements)
+  typedef int8_t QT;
+  typedef int8_t VT;
 };
 
 // One 32-bit word of `EPW` elements starting at element `e` of a row of
@@ -71,36 +95,50 @@ __device__ __forceinline__ uint32_t load_word(const T* row, int e, int dim,
 }
 
 // QT queries x one corpus chunk per block; BUF candidate slots per query.
+// `dim` is the query width; a corpus row holds dim elements (dim / 2
+// bytes for int4).
 template <typename T, int QT, int BUF>
 __global__ void __launch_bounds__(THREADS)
 scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
-                 const T* __restrict__ v, const float* __restrict__ vscale,
+                 const typename Elem<T>::VT* __restrict__ v,
+                 const float* __restrict__ vscale,
                  const uint8_t* __restrict__ mask, u64* __restrict__ partial,
                  int Q, long cap, int dim, int k, long chunk, int nchunks) {
   constexpr int EPW = Elem<T>::EPW;
-  constexpr bool I8 = EPW == 4;
+  constexpr bool I4 = std::is_same<T, Int4>::value;
+  constexpr bool I8 = std::is_same<T, int8_t>::value;
   constexpr int TPQ = THREADS / QT;  // threads per query
   constexpr int RPT = TR / TPQ;      // tile rows per thread
-  constexpr int KE = KCW * EPW;      // elements per k-step
-  // Query tile: float per element (f32 / bf16 corpora) or packed int8
-  // words (int8 corpus).
-  constexpr int QWORDS = I8 ? QT * KCW : QT * KE;
+  constexpr int KE = KCW * EPW;      // row elements (int4: bytes) per k-step
+  // Query tile: float per element (f32 / bf16 corpora), packed int8 words
+  // (int8), or packed int8 words of both query halves (int4).
+  constexpr int QWORDS = I4 ? QT * 2 * KCW : (I8 ? QT * KCW : QT * KE);
 
   __shared__ uint32_t Vs[TR * (KCW + 1)];
   __shared__ uint32_t Qs[QWORDS];
   __shared__ u64 buf[QT * BUF];
   __shared__ int cnt[QT];
   __shared__ u64 tau[QT];
+  __shared__ int qsum[QT];  // int4: sum of each query's int8 elements
 
   const int q0 = blockIdx.x * QT;
   const int c = blockIdx.y;
   const long rbeg = (long)c * chunk;
   const long rend = (rbeg + chunk < cap) ? rbeg + chunk : cap;
   const int qi = threadIdx.x / TPQ, rsub = threadIdx.x % TPQ;
-  const bool aligned = (dim % EPW) == 0;
+  const int vdim = I4 ? dim / 2 : dim;
+  const bool aligned = (vdim % EPW) == 0;
   if (threadIdx.x < QT) {
     cnt[threadIdx.x] = 0;
     tau[threadIdx.x] = 0ull;
+    qsum[threadIdx.x] = 0;
+  }
+  if (I4) {
+    __syncthreads();
+    int part = 0;
+    if (q0 + qi < Q)
+      for (int e = rsub; e < dim; e += TPQ) part += q[(long)(q0 + qi) * dim + e];
+    atomicAdd(&qsum[qi], part);
   }
 
   for (long t0 = rbeg; t0 < rend; t0 += TR) {
@@ -111,15 +149,22 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
       facc[j] = 0.0f;
       iacc[j] = 0;
     }
-    for (int k0 = 0; k0 < dim; k0 += KE) {
+    for (int k0 = 0; k0 < vdim; k0 += KE) {
       for (int i = threadIdx.x; i < TR * KCW; i += THREADS) {
         const int r = i / KCW, w = i % KCW;
         const long gr = t0 + r;
         Vs[r * (KCW + 1) + w] =
-            gr < rend ? load_word(v + gr * dim, k0 + w * EPW, dim, aligned) : 0u;
+            gr < rend ? load_word(v + gr * vdim, k0 + w * EPW, vdim, aligned) : 0u;
       }
       for (int i = threadIdx.x; i < QWORDS; i += THREADS) {
-        if (I8) {
+        if (I4) {
+          // word w of plane p: query elements p * dim/2 + k0 + 4w .. + 3
+          const int qq = i / (2 * KCW), p = (i / KCW) % 2, w = i % KCW;
+          Qs[i] = q0 + qq < Q
+                      ? load_word(q + (long)(q0 + qq) * dim + p * vdim,
+                                  k0 + w * EPW, vdim, aligned)
+                      : 0u;
+        } else if (I8) {
           const int qq = i / KCW, w = i % KCW;
           Qs[i] = q0 + qq < Q
                       ? load_word(q + (long)(q0 + qq) * dim, k0 + w * EPW, dim, aligned)
@@ -137,7 +182,12 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
           const uint32_t word = Vs[(rsub + TPQ * j) * (KCW + 1) + w];
-          if (I8) {
+          if (I4) {
+            const uint32_t lo = word & 0x0F0F0F0Fu;
+            const uint32_t hi = (word >> 4) & 0x0F0F0F0Fu;
+            iacc[j] = __dp4a((int)lo, (int)Qs[qi * 2 * KCW + w], iacc[j]);
+            iacc[j] = __dp4a((int)hi, (int)Qs[qi * 2 * KCW + KCW + w], iacc[j]);
+          } else if (I8) {
             iacc[j] = __dp4a((int)word, (int)Qs[qi * KCW + w], iacc[j]);
           } else if (EPW == 2) {
             const float2 f = __bfloat1622float2(
@@ -157,7 +207,9 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
       for (int j = 0; j < RPT; ++j) {
         const long row = t0 + rsub + TPQ * j;
         if (row < rend && mask[row]) {
-          const float s = I8 ? (float)iacc[j] * vscale[row] : facc[j];
+          float s = facc[j];
+          if (I4) s = __fmul_rn(__int2float_rn(iacc[j] - 8 * qsum[qi]), vscale[row]);
+          if (I8) s = __fmul_rn(__int2float_rn(iacc[j]), vscale[row]);
           const u64 key = row_key(s, (uint32_t)row);
           if (key > tau[qi]) buf[qi * BUF + atomicAdd(&cnt[qi], 1)] = key;
         }
@@ -184,17 +236,18 @@ cudaError_t launch_scan(const void* q, const void* v, const void* vscale,
                         const void* mask, u64* partial, int Q, long cap,
                         int dim, int k, long chunk, cudaStream_t stream) {
   typedef typename Elem<T>::QT QE;
+  typedef typename Elem<T>::VT VE;
   const int nchunks = (int)((cap + chunk - 1) / chunk);
   if (k <= 128) {
     dim3 grid((Q + 15) / 16, nchunks);
     scan_topk_kernel<T, 16, 256><<<grid, THREADS, 0, stream>>>(
-        static_cast<const QE*>(q), static_cast<const T*>(v),
+        static_cast<const QE*>(q), static_cast<const VE*>(v),
         static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
         partial, Q, cap, dim, k, chunk, nchunks);
   } else {
     dim3 grid((Q + 1) / 2, nchunks);
     scan_topk_kernel<T, 2, 2048><<<grid, THREADS, 0, stream>>>(
-        static_cast<const QE*>(q), static_cast<const T*>(v),
+        static_cast<const QE*>(q), static_cast<const VE*>(v),
         static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
         partial, Q, cap, dim, k, chunk, nchunks);
   }
@@ -205,7 +258,8 @@ cudaError_t launch_scan(const void* q, const void* v, const void* vscale,
 }  // namespace pv
 
 // kind 0: v float32, q float32; 1: v bfloat16, q float32; 2: v int8 with
-// vscale (cap,) float32, q int8. mask (cap,) uint8. `partial` is scratch of
+// vscale (cap,) float32, q int8; 3: v (cap, dim / 2) packed int4 with
+// vscale (cap,) float32, q int8 (dim even). mask (cap,) uint8. `partial` is scratch of
 // Q * ceil(cap / chunk) * k uint64 (chunk % 128 == 0); vals (Q, k) float32
 // and idx (Q, k) int32 receive the result. k <= 1024.
 extern "C" int pv_scan_topk(int kind, const void* q, const void* v,
@@ -224,6 +278,8 @@ extern "C" int pv_scan_topk(int kind, const void* q, const void* v,
     err = launch_scan<__nv_bfloat16>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, s);
   else if (kind == 2)
     err = launch_scan<int8_t>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, s);
+  else if (kind == 3)
+    err = launch_scan<Int4>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;

@@ -21,6 +21,8 @@
 // (classic / stream) are the same launch here; query tiles vary fastest
 // so the blocks reading one segment run together and share it in L2.
 // A first, simple kernel: no TMA, no wgmma, no pipelining yet.
+//
+// K5 segmax_scan_i8 (below) is the same kernel over a per-row int8 corpus.
 
 #include <mma.h>
 
@@ -64,6 +66,59 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+// Epilogue of K1 and K5: the block's (BQ, 128) score tile in shared memory
+// -> each query's two largest packed keys of the segment. Scores are the
+// float tile `fs`, or the int32 tile `is` times the row scales `vscale`
+// (K5; the integer sum converted to float32, then one multiply, exactly as
+// the plain version and the TPU kernel compute it). Lane l of a warp owns
+// segment lanes l, l+32, l+64, l+96; one warp per query row.
+__device__ __forceinline__ void segment_top2(
+    const float* fs, const int* is, const float* __restrict__ vscale,
+    const uint8_t* __restrict__ mask, int* __restrict__ keys, int Q,
+    long cap, int q0, long seg) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long r0 = seg * BN;
+  bool live[4];
+  float scale[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    live[c] = mask[r0 + lane + 32 * c] != 0;
+    scale[c] = is ? vscale[r0 + lane + 32 * c] : 1.0f;
+  }
+  const long ncol = 2 * (cap / SEG);
+  for (int r = warp; r < BQ; r += THREADS / 32) {
+    const int qi = q0 + r;
+    if (qi >= Q) break;  // uniform across the warp
+    int m1 = KEY_MIN, m2 = KEY_MIN;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int ln = lane + 32 * c;
+      const float s = is ? __fmul_rn(__int2float_rn(is[r * LDS + ln]), scale[c])
+                         : fs[r * LDS + ln];
+      int key = (to_sortable(__float_as_int(s)) & ~(SEG - 1)) | ln;
+      if (!live[c]) key = KEY_MIN;  // after packing, as the TPU kernel does
+      if (key > m1) {
+        m2 = m1;
+        m1 = key;
+      } else if (key > m2) {
+        m2 = key;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      int o1 = __shfl_xor_sync(0xffffffffu, m1, off);
+      int o2 = __shfl_xor_sync(0xffffffffu, m2, off);
+      int n2 = max(min(m1, o1), max(m2, o2));
+      m1 = max(m1, o1);
+      m2 = n2;
+    }
+    if (lane == 0) {
+      keys[(long)qi * ncol + 2 * seg] = m1;
+      keys[(long)qi * ncol + 2 * seg + 1] = m2;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 segmax_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ v,
@@ -79,7 +134,7 @@ segmax_kernel(const __nv_bfloat16* __restrict__ q,
   const long seg = blockIdx.x / q_tiles;
   const int q0 = qt * BQ;
   const long r0 = seg * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;
   const bool vec = (dim % 8) == 0;
 
@@ -113,40 +168,127 @@ segmax_kernel(const __nv_bfloat16* __restrict__ q,
                             LDS, wmma::mem_row_major);
   __syncthreads();
 
-  // Epilogue: lane l owns lanes l, l+32, l+64, l+96 of the segment.
-  bool live[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) live[c] = mask[r0 + lane + 32 * c] != 0;
-  const long ncol = 2 * (cap / SEG);
-  for (int r = warp; r < BQ; r += THREADS / 32) {
-    const int qi = q0 + r;
-    if (qi >= Q) break;  // uniform across the warp
-    int m1 = KEY_MIN, m2 = KEY_MIN;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int ln = lane + 32 * c;
-      int key = (to_sortable(__float_as_int(Ss[r * LDS + ln])) & ~(SEG - 1)) | ln;
-      if (!live[c]) key = KEY_MIN;  // after packing, as the TPU kernel does
-      if (key > m1) {
-        m2 = m1;
-        m1 = key;
-      } else if (key > m2) {
-        m2 = key;
-      }
+  segment_top2(Ss, nullptr, nullptr, mask, keys, Q, cap, q0, seg);
+}
+
+// ---------------------------------------------------------------------------
+// K5 segmax_scan_i8: K1 over a per-row int8 corpus.
+//
+// Replaces picovdb_tpu/ops/pallas_scan.py:segmax_scan_i8
+// (`_segmax_kernel_i8`). The block shape, output layout and epilogue are
+// K1's; the product is s8 x s8 -> s32 on the tensor cores with
+// mma.sync.m16n8k32 (fragments loaded by hand from shared memory: each
+// thread's A and B registers are 4 consecutive bytes of one row, so every
+// fragment register is one 32-bit shared load), and the epilogue scales
+// the exact int32 sums by the row scales before packing the keys.
+//
+// What bounds it on the H100: at the main-path shape (Q = 2048 per chunk,
+// 1024-wide rows) it is a 4.3 TOP integer product whose output is 2/128 of
+// the score matrix, bound by tensor-core issue rate as K1 is; the corpus
+// is 1 B/element, half of K1's bf16 mirror, but this first kernel feeds
+// the tensor cores from unpipelined shared-memory tiles like K1, so it
+// should run near K1's time, not half of it. No TMA, no wgmma yet.
+// ---------------------------------------------------------------------------
+
+constexpr int KC8 = 128;        // int8 elements per k-step
+constexpr int LDA8 = KC8 + 16;  // padded row (bytes): 36 words, so the 8
+                                // rows a fragment load touches hit 8
+                                // different 4-bank groups
+
+__device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* src,
+                                             long row0, long nrows, int rows,
+                                             int k0, int dim, bool vec) {
+  if (vec) {  // dim % 16 == 0: 16-byte loads
+    constexpr int VPR = KC8 / 16;
+    for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
+      int r = i / VPR, c = (i % VPR) * 16;
+      long gr = row0 + r;
+      int gk = k0 + c;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < nrows && gk < dim)
+        val = *reinterpret_cast<const uint4*>(src + gr * dim + gk);
+      *reinterpret_cast<uint4*>(dst + r * LDA8 + c) = val;
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      int o1 = __shfl_xor_sync(0xffffffffu, m1, off);
-      int o2 = __shfl_xor_sync(0xffffffffu, m2, off);
-      int n2 = max(min(m1, o1), max(m2, o2));
-      m1 = max(m1, o1);
-      m2 = n2;
-    }
-    if (lane == 0) {
-      keys[(long)qi * ncol + 2 * seg] = m1;
-      keys[(long)qi * ncol + 2 * seg + 1] = m2;
+  } else {
+    for (int i = threadIdx.x; i < rows * KC8; i += THREADS) {
+      int r = i / KC8, c = i % KC8;
+      long gr = row0 + r;
+      int gk = k0 + c;
+      dst[r * LDA8 + c] = (gr < nrows && gk < dim) ? src[gr * dim + gk] : 0;
     }
   }
+}
+
+__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__global__ void __launch_bounds__(THREADS)
+segmax_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
+                 const float* __restrict__ vscale,
+                 const uint8_t* __restrict__ mask, int* __restrict__ keys,
+                 int Q, long cap, int dim, int q_tiles) {
+  // A/B operand tiles during the k-loop, then the int32 score tile.
+  __shared__ __align__(128) unsigned char smem[BQ * LDS * sizeof(int)];
+  int8_t* As = reinterpret_cast<int8_t*>(smem);
+  int8_t* Bs = As + BQ * LDA8;
+  int* Ss = reinterpret_cast<int*>(smem);
+
+  const int qt = blockIdx.x % q_tiles;
+  const long seg = blockIdx.x / q_tiles;
+  const int q0 = qt * BQ;
+  const long r0 = seg * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;  // 16 queries x 64 rows per warp
+  const int g = lane >> 2, t = lane & 3;   // mma groupID, thread in group
+  const bool vec = (dim % 16) == 0;
+
+  int acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+
+  for (int k0 = 0; k0 < dim; k0 += KC8) {
+    load_tile_i8(As, q, q0, Q, BQ, k0, dim, vec);
+    load_tile_i8(Bs, v, r0, cap, BN, k0, dim, vec);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KC8; kk += 32) {
+      // A (16 x 32, row-major): rows g and g + 8, bytes 4t..4t+3 and
+      // 16 + 4t..16 + 4t + 3
+      const int8_t* a = As + (wm * 16 + g) * LDA8 + kk + 4 * t;
+      const uint32_t a0 = lds32(a), a1 = lds32(a + 8 * LDA8);
+      const uint32_t a2 = lds32(a + 16), a3 = lds32(a + 8 * LDA8 + 16);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // B = v^T (32 x 8, col-major): corpus row n = g of the n-tile,
+        // bytes 4t..4t+3 and 16 + 4t..16 + 4t + 3
+        const int8_t* b = Bs + (wn * 64 + j * 8 + g) * LDA8 + kk + 4 * t;
+        const uint32_t b0 = lds32(b), b1 = lds32(b + 16);
+        asm volatile(
+            "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+r"(acc[j][0]), "+r"(acc[j][1]), "+r"(acc[j][2]),
+              "+r"(acc[j][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      }
+    }
+    __syncthreads();
+  }
+  // accumulator (16 x 8 per n-tile): c0, c1 at row g, columns 2t, 2t+1;
+  // c2, c3 at row g + 8
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    int* s = Ss + (wm * 16 + g) * LDS + wn * 64 + j * 8 + 2 * t;
+    s[0] = acc[j][0];
+    s[1] = acc[j][1];
+    s[8 * LDS] = acc[j][2];
+    s[8 * LDS + 1] = acc[j][3];
+  }
+  __syncthreads();
+  segment_top2(nullptr, Ss, vscale, mask, keys, Q, cap, q0, seg);
 }
 
 }  // namespace
@@ -165,6 +307,24 @@ extern "C" int pv_segmax_scan(const void* q, const void* v, const void* mask,
   segmax_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<int*>(keys), Q, (long)cap, dim, q_tiles);
+  return (int)cudaGetLastError();
+}
+
+// q (Q, dim) int8, v (cap, dim) int8 with cap % 128 == 0, vscale (cap,)
+// float32, mask (cap,) uint8 -> keys (Q, 2 * cap / 128) int32, K1's
+// layout. Returns the cudaError_t of the launch.
+extern "C" int pv_segmax_scan_i8(const void* q, const void* v,
+                                 const void* vscale, const void* mask,
+                                 void* keys, int Q, long long cap, int dim,
+                                 void* stream) {
+  using namespace pv;
+  const int q_tiles = (Q + BQ - 1) / BQ;
+  const long long blocks = (long long)q_tiles * (cap / SEG);
+  if (Q <= 0 || cap <= 0) return (int)cudaSuccess;
+  segmax_i8_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(v),
+      static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
       static_cast<int*>(keys), Q, (long)cap, dim, q_tiles);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,15 @@
 """Device-resident corpus mirror and query dispatch (PyTorch).
 
-Counterpart of picovdb_tpu/device.py for one device and float32 storage:
-the corpus lives on the device as a padded (cap, dim) float32 tensor plus
-a boolean active mask, next to two selection mirrors derived on device (a
-bfloat16 copy for the batch segmax tier, and per-row int8 + scales for the
-small-batch tier). Mutations are applied in place (`index_copy_`), which is
-what the JAX package's buffer donation approximated.
+Counterpart of picovdb_tpu/device.py for one device: the corpus lives on
+the device as a padded (cap, dim) tensor in its storage dtype plus a
+boolean active mask. A float32 (or bfloat16) store keeps two selection
+mirrors derived on device next to it (a bfloat16 copy for the batch
+segmax tier, and per-row int8 + scales for the small-batch tier); an int8
+or int4 store IS its quantized tier: per-row int8 rows, or two-plane
+packed int4 rows (dim / 2 bytes), with their per-row scales
+(`vstore_scale`), and no mirrors. Mutations are applied in place
+(`index_copy_`), which is what the JAX package's buffer donation
+approximated.
 
 Host state (ids, docs, free slots) stays authoritative in
 `picovdb_tpu_torch.engine`; the mirror is synchronized lazily before a
@@ -26,17 +30,28 @@ import numpy as np
 import torch
 
 from .constants import Float, ROW_PAD
-from .ops.exact import make_exact_topk
+from .ops.exact import (
+    make_exact_topk,
+    make_exact_topk_i4r,
+    make_exact_topk_i8r,
+    normalize_on_device,
+)
 from .ops.scan import (
     make_fused_topk,
+    make_fused_topk_i4,
     make_fused_topk_i8,
     make_mixed_fused_topk,
     make_segmax_topk,
+    make_segmax_topk_i8,
+    quantize_rows_i4,
     quantize_rows_i8,
+    unpack_i4_np_into,
 )
 from .utils import round_up
 
 _log = logging.getLogger("picovdb_tpu_torch")
+
+_FVIEW_MISS = object()  # distinguishes 'not cached' from a cached refusal
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -64,13 +79,23 @@ def _pad_to(t: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
     return out
 
 
+def _cache_put(cache: dict, key, value, limit: int) -> None:
+    """FIFO insert; concurrent readers may evict the same entry."""
+    if len(cache) >= limit:
+        try:
+            cache.pop(next(iter(cache)), None)
+        except (StopIteration, RuntimeError):
+            pass
+    cache[key] = value
+
+
 def default_device() -> torch.device:
     return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
 
 
 class DeviceIndex:
-    """Device-resident (cap, dim) float32 corpus + active mask with routed
-    masked top-k dispatch (single device)."""
+    """Device-resident (cap, dim) corpus + active mask with routed masked
+    top-k dispatch (single device)."""
 
     def __init__(
         self,
@@ -89,14 +114,16 @@ class DeviceIndex:
             raise _not_in_slice("mesh= (multi-device stores)",
                                 "item 8, multi-GPU")
         self.storage_dtype = storage_dtype or "float32"
-        if self.storage_dtype != "float32":
-            if self.storage_dtype not in ("bfloat16", "int8", "int4"):
-                raise ValueError(
-                    "storage_dtype must be one of float32/bfloat16/int8/int4;"
-                    f" got {self.storage_dtype!r}"
-                )
-            raise _not_in_slice(f"storage_dtype={self.storage_dtype!r}",
-                                "item 6, storage tiers")
+        if self.storage_dtype not in ("float32", "bfloat16", "int8", "int4"):
+            raise ValueError(
+                "storage_dtype must be one of float32/bfloat16/int8/int4; "
+                f"got {self.storage_dtype!r}"
+            )
+        if self.storage_dtype == "int4" and dim % 2:
+            raise ValueError(
+                "int4 storage packs two elements per byte and needs an "
+                f"even embedding_dim; got {dim}"
+            )
         if scan_mode not in ("auto", "mixed", "fused", "approx", "xla"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
         if scan_mode == "approx":
@@ -107,31 +134,37 @@ class DeviceIndex:
                 raise _not_in_slice(env, "item 9, opt-in tiers")
         self.dim = dim
         self.cap = 0
-        self.vectors: Optional[torch.Tensor] = None  # (cap, dim) f32
+        # (cap, dim) in the storage dtype; (cap, dim / 2) packed for int4
+        self.vectors: Optional[torch.Tensor] = None
+        self.vstore_scale: Optional[torch.Tensor] = None  # int8/int4 rows
         self.vectors_lp: Optional[torch.Tensor] = None  # bf16 scan mirror
         self.vectors_i8: Optional[torch.Tensor] = None  # int8 mirror
         self.vscale: Optional[torch.Tensor] = None  # (cap,) its row scales
         self.active: Optional[torch.Tensor] = None  # (cap,) bool
+        if compute_dtype is None and self.storage_dtype == "bfloat16":
+            compute_dtype = "bfloat16"
         self.compute_dtype = compute_dtype
         self._device = (torch.device(device) if device is not None
                         else default_device())
         on_card = self._device.type == "cuda"
+        f32_store = self.storage_dtype == "float32"
         # The hand-written kernels, the bf16 mirror and the int8 mirror
         # default on for the card and off elsewhere, as the JAX package
-        # turns them on for its TPU.
+        # turns them on for its TPU; the mirrors only for float32 storage
+        # (a lossy store is its own selection tier).
         if use_pallas is None:
             use_pallas = on_card
         self.use_pallas = use_pallas
         self.scan_mode = scan_mode
         if mixed_precision is None:
-            mixed_precision = on_card or scan_mode == "mixed"
+            mixed_precision = (on_card and f32_store) or scan_mode == "mixed"
         self.mixed_precision = bool(mixed_precision)
         if int8_tier is None:
             env = _os.getenv("PICOVDB_INT8_TIER")
             if env is not None:
                 int8_tier = env not in ("0", "false", "False", "")
             else:
-                int8_tier = on_card
+                int8_tier = on_card and f32_store
         self.int8_tier = bool(int8_tier)
         # PICOVDB_SEGMAX_STREAM in {auto, 0, 1}: the grid-order choice of
         # the TPU kernel. Blocks carry no state here, so both orders are
@@ -150,6 +183,11 @@ class DeviceIndex:
         # filter spec + mutation epoch; cleared on any mirror mutation.
         self._mask_cache: dict = {}
         self.MASK_CACHE_MAX = 32
+        # Compacted filtered-corpus views (surviving rows gathered dense
+        # from the bf16 mirror) for the filtered big-batch segmax route,
+        # keyed like _mask_cache; big, so the bound is small.
+        self._fview_cache: dict = {}
+        self.FVIEW_CACHE_MAX = 2
 
     @property
     def last_strategy(self) -> Optional[str]:
@@ -181,6 +219,8 @@ class DeviceIndex:
     SEGMAX_MAX_K = 16
     SEGMAX_MIN_CAP = 32_768
     STREAM_CHUNK_ROWS = 262_144
+    # Rows per device gather in fetch_rows.
+    FETCH_CHUNK_ROWS = 262_144
 
     # f32 corpus + mirrors = 7 bytes/row/dim; above this the mirrors are
     # skipped. Kept at the JAX package's value (PICOVDB_MIXED_BUDGET_GB
@@ -188,8 +228,39 @@ class DeviceIndex:
     # torch.cuda.mem_get_info is a ROADMAP item.
     MIXED_HBM_BUDGET = 12 * 2**30
 
+    @property
+    def quantized(self) -> bool:
+        return self.storage_dtype in ("int8", "int4")
+
+    def _cols(self) -> int:
+        return self.dim // 2 if self.storage_dtype == "int4" else self.dim
+
+    def _quantize(self, rows: torch.Tensor):
+        """Float rows -> (int8 or packed int4 rows, row scales) on device."""
+        if self.storage_dtype == "int4":
+            return quantize_rows_i4(rows)
+        return quantize_rows_i8(rows)
+
+    def _plane_dtype(self) -> torch.dtype:
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
+            self.storage_dtype, torch.int8)
+
     def _host_tensor(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self._device)
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:  # e.g. a read-only checkpoint memmap
+            arr = arr.copy()
+        return torch.from_numpy(arr).to(self._device)
+
+    def _commit(self, vectors, vstore_scale, active, cap: int) -> None:
+        """Install freshly built planes and derive the mirrors."""
+        self.vectors = vectors
+        self.vstore_scale = vstore_scale
+        self.active = active
+        self.cap = cap
+        self._refresh_lp_mirror()
+        self._mask_cache.clear()
+        self._fview_cache.clear()
+        self.last_sync_mode = "full"
 
     def grow(self, n: int) -> bool:
         """Grow padded capacity on device to hold `n` rows (device copies,
@@ -199,9 +270,9 @@ class DeviceIndex:
         allocation fails (`torch.cuda.OutOfMemoryError`, nothing else) the
         store stays consistent, as in picovdb_tpu:
           * the corpus pad fails: nothing changed, returns False;
-          * a later core pad fails (`active`): every plane is dropped and
-            False returned, so the engine's sync re-uploads all of them
-            at one capacity;
+          * a later core pad fails (`active`, the int8/int4 row scales):
+            every plane is dropped and False returned, so the engine's
+            sync re-uploads all of them at one capacity;
           * an optional mirror (bf16, int8 + scales) fails: that mirror
             alone is dropped (its routes stand down) and True returned.
         """
@@ -219,14 +290,16 @@ class DeviceIndex:
         self.vectors = vectors
         try:
             self.active = _pad_to(self.active, new_cap)
+            self.vstore_scale = _pad_to(self.vstore_scale, new_cap)
         except torch.cuda.OutOfMemoryError:
             # the corpus is at new_cap, the mask is not: drop every plane
             # so no route pairs mismatched shapes
             _log.warning("device grow %d -> %d rows ran out of device "
                          "memory; device planes dropped", self.cap, new_cap)
-            self.vectors = self.active = None
+            self.vectors = self.active = self.vstore_scale = None
             self.vectors_lp = self.vectors_i8 = self.vscale = None
             self._mask_cache.clear()
+            self._fview_cache.clear()
             return False
         self.cap = new_cap
         try:
@@ -239,38 +312,142 @@ class DeviceIndex:
         except torch.cuda.OutOfMemoryError:
             self.vectors_i8 = self.vscale = None
         self._mask_cache.clear()
+        self._fview_cache.clear()
         self.last_sync_mode = "grow"
         return True
 
     def full_upload(self, host_vectors: np.ndarray, active_np: np.ndarray) -> None:
-        """Upload the whole corpus, growing padded capacity as needed.
-        Large corpora stream in STREAM_CHUNK_ROWS pieces, so the host never
-        holds a padded copy."""
+        """Upload the whole corpus in STREAM_CHUNK_ROWS pieces, so the host
+        never holds a padded copy; an int8/int4 store quantizes (and
+        packs) each chunk on device, so its float32 form never exists
+        there whole."""
         n = host_vectors.shape[0]
         cap = self._cap_with_headroom(n)
-        buf = torch.zeros((cap, self.dim), dtype=torch.float32,
+        buf = torch.zeros((cap, self._cols()), dtype=self._plane_dtype(),
                           device=self._device)
+        scales = (torch.zeros((cap,), dtype=torch.float32, device=self._device)
+                  if self.quantized else None)
         for start in range(0, n, self.STREAM_CHUNK_ROWS):
-            rows = np.asarray(host_vectors[start:start + self.STREAM_CHUNK_ROWS],
-                              dtype=Float)
-            buf[start:start + rows.shape[0]] = self._host_tensor(rows)
-        self.vectors = buf
-        self.active = self._host_tensor(
+            rows = self._host_tensor(np.asarray(
+                host_vectors[start:start + self.STREAM_CHUNK_ROWS], dtype=Float))
+            end = start + rows.shape[0]
+            if scales is not None:
+                buf[start:end], scales[start:end] = self._quantize(rows)
+            else:
+                buf[start:end] = rows.to(buf.dtype)
+        active = self._host_tensor(
             _pad_rows(np.asarray(active_np, dtype=bool), cap))
-        self.cap = cap
-        self._refresh_lp_mirror()
-        self._mask_cache.clear()
-        self.last_sync_mode = "full"
+        self._commit(buf, scales, active, cap)
 
-    def from_numpy_state(self, vectors: np.ndarray, active: np.ndarray) -> None:
-        """Adopt a host (n, dim) corpus and (n,) active mask exactly as
-        given: the test hook that hands both packages the same state."""
-        self.full_upload(np.asarray(vectors, dtype=Float),
-                         np.asarray(active, dtype=bool))
+    def from_numpy_state(self, vectors: np.ndarray, active: np.ndarray,
+                         vstore_scale: Optional[np.ndarray] = None) -> None:
+        """Adopt host state exactly as given: a (n, dim) float corpus, or,
+        with `vstore_scale`, an int8/int4 store's quantized plane and row
+        scales as picovdb_tpu holds them. The test hook that hands both
+        packages the same state."""
+        if vstore_scale is not None:
+            self.upload_prequantized(np.asarray(vectors), np.asarray(vstore_scale),
+                                     np.asarray(active, dtype=bool))
+        else:
+            self.full_upload(np.asarray(vectors, dtype=Float),
+                             np.asarray(active, dtype=bool))
 
-    def adopt(self, *args, **kwargs):
-        raise _not_in_slice("DeviceIndex.adopt (device-born ingestion)",
-                            "item 6, storage tiers and serving extras")
+    def upload_prequantized(self, plane: np.ndarray, scales: np.ndarray,
+                            active_np: np.ndarray) -> None:
+        """Build an int8/int4 corpus from a host quantized plane ((n, dim)
+        int8, or (n, dim / 2) packed int4) and its (n,) row scales, e.g. a
+        read-only memmap of a quantized checkpoint, one chunk at a time:
+        host memory stays one chunk and no float32 corpus exists."""
+        n = plane.shape[0]
+        cols = self._cols()
+        if not self.quantized:
+            raise ValueError(
+                "upload_prequantized requires int8/int4 storage; "
+                f"this store is {self.storage_dtype!r}"
+            )
+        if plane.ndim != 2 or plane.shape[1] != cols:
+            raise ValueError(
+                f"quantized plane has shape {plane.shape}; expected "
+                f"(*, {cols}) for {self.storage_dtype} at dim {self.dim}"
+            )
+        if scales.shape[0] != n:
+            raise ValueError(f"{scales.shape[0]} scales for {n} plane rows")
+        cap = self._cap_with_headroom(n)
+        buf = torch.zeros((cap, cols), dtype=torch.int8, device=self._device)
+        sc = torch.zeros((cap,), dtype=torch.float32, device=self._device)
+        step = self.STREAM_CHUNK_ROWS
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            buf[s:e] = self._host_tensor(np.asarray(plane[s:e], dtype=np.int8))
+            sc[s:e] = self._host_tensor(np.asarray(scales[s:e], dtype=np.float32))
+        active = self._host_tensor(
+            _pad_rows(np.asarray(active_np, dtype=bool), cap))
+        self._commit(buf, sc, active, cap)
+
+    def adopt(self, vectors_dev: torch.Tensor, n: int, normalize: bool = False,
+              scales: Optional[torch.Tensor] = None,
+              want_shadow: bool = False) -> Optional[np.ndarray]:
+        """Adopt a (n, dim) tensor already on this store's device as the
+        whole corpus (device-born ingestion: nothing crosses from the
+        host). Normalization (optional), the storage-dtype cast or
+        quantization, and the capacity pad run on device, chunk by chunk.
+
+        With `scales` the input is pre-quantized: int8 rows, or packed
+        (n, dim / 2) int4 rows in `quantize_rows_i4`'s layout, with their
+        (n,) row scales. The input is not consumed (the JAX package
+        donates it): when it already has the padded capacity, the storage
+        dtype and a contiguous layout, the store takes it as its plane
+        without a copy and the caller must not write to it afterwards;
+        otherwise it is copied and stays the caller's.
+
+        `want_shadow=True` returns the normalized float32 rows as a host
+        array, fetched before the storage cast (the engine's `host_shadow`:
+        authentic rows for the host-f64 rescore). Not available with
+        `scales`, whose float32 form never existed. Returns None otherwise.
+        """
+        x = vectors_dev
+        if x.device != self._device:
+            raise ValueError(
+                f"adopt expects a tensor on {self._device}; got {x.device}")
+        shadow = None
+        if want_shadow and scales is None:
+            x = x.float()
+            if normalize:
+                x = normalize_on_device(x)
+                normalize = False
+            shadow = x.cpu().numpy().copy()
+        cap = self._cap_with_headroom(n)
+        active = torch.arange(cap, device=self._device) < n
+        if self.quantized and scales is not None:
+            if x.dtype != torch.int8 or x.shape != (n, self._cols()):
+                raise ValueError(
+                    f"pre-quantized {self.storage_dtype} rows must be int8 "
+                    f"of shape ({n}, {self._cols()}); got {x.dtype} "
+                    f"{tuple(x.shape)}")
+            sc = scales.to(device=self._device, dtype=torch.float32)
+            if cap != n or not x.is_contiguous():
+                x, sc = _pad_to(x.contiguous(), cap), _pad_to(sc, cap)
+            self._commit(x, sc.contiguous(), active, cap)
+            return shadow
+        if (cap == n and not normalize and x.dtype == self._plane_dtype()
+                and x.is_contiguous()):
+            self._commit(x, None, active, cap)
+            return shadow
+        buf = torch.zeros((cap, self._cols()), dtype=self._plane_dtype(),
+                          device=self._device)
+        sc = (torch.zeros((cap,), dtype=torch.float32, device=self._device)
+              if self.quantized else None)
+        for s in range(0, n, self.STREAM_CHUNK_ROWS):
+            e = min(n, s + self.STREAM_CHUNK_ROWS)
+            rows = x[s:e]
+            if normalize:
+                rows = normalize_on_device(rows)
+            if sc is not None:
+                buf[s:e], sc[s:e] = self._quantize(rows)
+            else:
+                buf[s:e] = rows.to(buf.dtype)
+        self._commit(buf, sc, active, cap)
+        return shadow
 
     def _mirror_budget(self) -> tuple:
         """(device budget bytes, bytes/element across resident planes)."""
@@ -281,9 +458,11 @@ class DeviceIndex:
         return budget, bpe
 
     def _refresh_lp_mirror(self) -> None:
-        """(Re)build the bf16 and int8 selection mirrors on device."""
+        """(Re)build the bf16 and int8 selection mirrors on device (an
+        int8/int4 store is its own selection tier: no mirrors)."""
         budget, bpe = self._mirror_budget()
-        fits = self.vectors is not None and self.cap * self.dim * bpe <= budget
+        fits = (not self.quantized and self.vectors is not None
+                and self.cap * self.dim * bpe <= budget)
         self.vectors_lp = (self.vectors.to(torch.bfloat16)
                            if fits and self.mixed_precision else None)
         if fits and self.int8_tier:
@@ -296,26 +475,77 @@ class DeviceIndex:
         """Apply a small mutation set in place.
 
         `rows` may be None for delete-only updates: the mask excludes
-        deleted slots from scoring, so their rows can stay stale."""
+        deleted slots from scoring, so their rows can stay stale. An
+        int8/int4 store quantizes the rows on device with their own row
+        scales, so mutations are exact per row."""
         if self.vectors is None:
             raise RuntimeError("scatter before any upload")
         if idxs.shape[0] == 0:
             return
         dev_idx = self._host_tensor(np.asarray(idxs, dtype=np.int64))
         if rows is not None:
-            dev_rows = self._host_tensor(np.asarray(rows, dtype=Float))
-            self.vectors.index_copy_(0, dev_idx, dev_rows)
-            if self.vectors_lp is not None:
-                self.vectors_lp.index_copy_(0, dev_idx,
-                                            dev_rows.to(torch.bfloat16))
-            if self.vectors_i8 is not None:
-                q_rows, q_scale = quantize_rows_i8(dev_rows)
-                self.vectors_i8.index_copy_(0, dev_idx, q_rows)
-                self.vscale.index_copy_(0, dev_idx, q_scale)
+            f_rows = self._host_tensor(np.asarray(rows, dtype=Float))
+            if self.quantized:
+                q_rows, q_scale = self._quantize(f_rows)
+                self.vectors.index_copy_(0, dev_idx, q_rows)
+                self.vstore_scale.index_copy_(0, dev_idx, q_scale)
+            else:
+                dev_rows = f_rows.to(self.vectors.dtype)
+                self.vectors.index_copy_(0, dev_idx, dev_rows)
+                if self.vectors_lp is not None:
+                    self.vectors_lp.index_copy_(0, dev_idx,
+                                                dev_rows.to(torch.bfloat16))
+                if self.vectors_i8 is not None:
+                    q_rows, q_scale = quantize_rows_i8(dev_rows)
+                    self.vectors_i8.index_copy_(0, dev_idx, q_rows)
+                    self.vscale.index_copy_(0, dev_idx, q_scale)
         self.active.index_copy_(
             0, dev_idx, self._host_tensor(np.asarray(active_vals, dtype=bool)))
         self._mask_cache.clear()
+        self._fview_cache.clear()
         self.last_sync_mode = "scatter"
+
+    # -- reading the store back ----------------------------------------------
+
+    def fetch_rows(self, idxs: np.ndarray) -> np.ndarray:
+        """Dequantized float32 host rows by slot id: one device gather and
+        one transfer per FETCH_CHUNK_ROWS chunk. The transfer carries the
+        storage bytes (packed int4 rows: 1/8 of float32) and the dequant
+        runs on the host, int4 through `unpack_i4_np_into` (no (n, dim)
+        integer temporary)."""
+        if self.vectors is None:
+            raise RuntimeError("fetch_rows before any upload")
+        idxs = np.asarray(idxs, dtype=np.int64)
+        m = idxs.shape[0]
+        out = np.empty((m, self.dim), dtype=np.float32)
+        step = self.FETCH_CHUNK_ROWS
+        for s in range(0, m, step):
+            e = min(m, s + step)
+            ci = self._host_tensor(idxs[s:e])
+            raw = self.vectors[ci]
+            if self.storage_dtype == "bfloat16":
+                raw = raw.float()
+            raw = raw.cpu().numpy()
+            if self.storage_dtype == "int4":
+                unpack_i4_np_into(raw, out[s:e])
+            else:
+                out[s:e] = raw
+            if self.quantized:
+                out[s:e] *= self.vstore_scale[ci].cpu().numpy()[:, None]
+        return out
+
+    def iter_store_chunks(self, n: int, chunk: Optional[int] = None):
+        """Yield the first n rows of an int8/int4 store as host
+        (quantized rows, scales) chunks: the quantized checkpoint writer
+        streams them to disk, so host memory stays one chunk."""
+        if self.vectors is None or self.vstore_scale is None:
+            raise RuntimeError(
+                "iter_store_chunks requires a quantized device store")
+        step = chunk or self.STREAM_CHUNK_ROWS
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            yield (self.vectors[s:e].cpu().numpy(),
+                   self.vstore_scale[s:e].cpu().numpy())
 
     # -- query -----------------------------------------------------------------
 
@@ -326,11 +556,12 @@ class DeviceIndex:
         return torch.cat([vals.view(torch.int32), idxs], dim=1)
 
     def snapshot(self):
-        """Handles to the current corpus tensors. Unlike JAX arrays these
-        are mutated in place by `scatter`, so a re-dispatch through them
-        (the engine's exact retry) must run under the engine's read lock,
-        which the port's engine holds through its retries."""
-        return (self.vectors, self.active)
+        """Handles to the current corpus tensors (vectors, active, row
+        scales or None). Unlike JAX arrays these are mutated in place by
+        `scatter`, so a re-dispatch through them (the engine's exact
+        retry) must run under the engine's read lock, which the port's
+        engine holds through its retries."""
+        return (self.vectors, self.active, self.vstore_scale)
 
     def _query_tensor(self, qnorm) -> torch.Tensor:
         """Queries as a float32 tensor on the device (the int16 / f16 /
@@ -342,16 +573,31 @@ class DeviceIndex:
 
     def query_exact_snapshot(self, snap, qnorm, k):
         """Exact masked top-k against a captured `snapshot()` (blocking);
-        host (vals, idxs) of (Q, min(k, cap)). Streams through K4 for
-        k + 4 <= 1024 on the card, never a dense (Q, cap) score matrix."""
-        vectors, active = snap
+        host (vals, idxs) of (Q, min(k, cap)). On the card it streams
+        through K3/K4/K6 (k + 4 <= 1024), never a dense (Q, cap) score
+        matrix; int8/int4 stores rank their dequantized rows."""
+        vectors, active, vscale = snap
         q = self._query_tensor(qnorm)
         k_eff = min(k, vectors.shape[0])
-        if self._device.type == "cuda" and k_eff + 4 <= 1024:
-            fn = make_fused_topk(k_eff, self.compute_dtype)
+        on_card = self._device.type == "cuda"
+        if vscale is not None and self.storage_dtype == "int4":
+            fn4 = (make_fused_topk_i4(k_eff) if on_card
+                   else make_exact_topk_i4r(k_eff))
+            vals, idxs = fn4(q, vectors, vscale, active)
+        elif vscale is not None:
+            if on_card and k_eff + 4 <= 1024:
+                fn8 = make_fused_topk_i8(k_eff, rescore_dequant=True,
+                                         tie_scale=0.0)
+                vals, idxs = fn8(q, vectors, vscale, vectors, active)
+            else:
+                vals, idxs = make_exact_topk_i8r(k_eff)(q, vectors, vscale,
+                                                        active)
+        elif on_card and k_eff + 4 <= 1024:
+            vals, idxs = make_fused_topk(k_eff, self.compute_dtype)(
+                q, vectors, active)
         else:
-            fn = make_exact_topk(k_eff, self.compute_dtype)
-        vals, idxs = fn(q, vectors, active)
+            vals, idxs = make_exact_topk(k_eff, self.compute_dtype)(
+                q, vectors, active)
         return vals.cpu().numpy(), idxs.cpu().numpy()
 
     def query(self, qnorm, k: int, filter_mask: Optional[np.ndarray] = None,
@@ -373,13 +619,58 @@ class DeviceIndex:
         m = self._host_tensor(
             _pad_rows(np.ascontiguousarray(filter_mask, dtype=bool), self.cap))
         if mask_key is not None:
-            if len(self._mask_cache) >= self.MASK_CACHE_MAX:
-                try:  # concurrent readers may evict the same entry
-                    self._mask_cache.pop(next(iter(self._mask_cache)), None)
-                except (StopIteration, RuntimeError):
-                    pass
-            self._mask_cache[mask_key] = m
+            _cache_put(self._mask_cache, mask_key, m, self.MASK_CACHE_MAX)
         return m
+
+    def _filter_view(self, mask_key, filter_mask):
+        """Get or build the compacted view of a filter: (slots (capf,)
+        int64 corpus slot per view row, view (capf, dim) bf16 rows gathered
+        on device from the mirror, active (capf,) bool), or None when the
+        survivors are too few for segmax to pay (< SEGMAX_MIN_CAP) or the
+        view would pass PICOVDB_FVIEW_BUDGET_GB (default 4).
+
+        Compaction makes segmax sound under a filter: a clustered filter
+        can pack many true winners into one 128-row segment of the full
+        corpus, but in the view the survivors spread over its segments
+        as an unfiltered corpus of n_f rows does.
+
+        Views and refusals (None) are cached per mask_key: every chunk of
+        a filtered batch asks again. Both take the same bounded eviction
+        (refusals leave first), so rotating refused filters cannot grow
+        the cache (picovdb_tpu caches refusals without evicting)."""
+        cached = self._fview_cache.get(mask_key, _FVIEW_MISS)
+        if cached is not _FVIEW_MISS:
+            return cached
+        n_f = int(filter_mask.sum())
+        out = None
+        if n_f >= self.SEGMAX_MIN_CAP and self._fview_budget_ok(n_f):
+            rows = np.nonzero(filter_mask)[0].astype(np.int64)
+            capf = round_up(n_f, ROW_PAD)
+            slots = self._host_tensor(_pad_rows(rows, capf))
+            out = (slots, self.vectors_lp[slots],
+                   torch.arange(capf, device=self._device) < n_f)
+        cache = self._fview_cache
+        while len(cache) >= self.FVIEW_CACHE_MAX:
+            try:
+                snap = list(cache.items())
+                victim = next((key for key, v in snap if v is None), snap[0][0])
+                cache.pop(victim, None)
+            except (IndexError, RuntimeError):
+                break
+        cache[mask_key] = out
+        return out
+
+    def _fview_budget_ok(self, n_f: int) -> bool:
+        try:
+            budget_gb = float(_os.getenv("PICOVDB_FVIEW_BUDGET_GB", "4") or 4)
+        except ValueError:
+            budget_gb = 4.0
+        return n_f * self.dim * 2.0 <= budget_gb * 2**30
+
+    def _stream_name(self, num_q: int) -> bool:
+        # stream iff the padded batch spans more than one 256-query tile,
+        # exactly the JAX package's route choice
+        return num_q > 256 if self.segmax_stream is None else self.segmax_stream
 
     def query_async(self, qnorm, k: int,
                     filter_mask: Optional[np.ndarray] = None,
@@ -389,17 +680,18 @@ class DeviceIndex:
 
         `qnorm` may be raw (normalization runs on device) and may already
         be a tensor on the device, in which case nothing crosses from the
-        host. The compacted filter view of the JAX package (route
-        `fview_segmax`) is not ported yet: filtered batches take the
-        routes that package takes with its view refused."""
+        host. Routes are decided on the unpadded batch, as the JAX package
+        decides them (it pads queries for its kernels' tiles; these
+        kernels take any Q)."""
         if self.vectors is None or self.cap == 0:
             raise RuntimeError("query before any upload")
         num_q = qnorm.shape[0]
         k_eff = min(k, self.cap)
+        i8s = self.storage_dtype == "int8"
+        i4s = self.storage_dtype == "int4"
         unfiltered = filter_mask is None and not force_exact
-        use_segmax = (
-            self.vectors_lp is not None
-            and unfiltered
+        segmax_ok = (
+            unfiltered
             and self.scan_mode in ("auto", "mixed")
             and k_eff <= self.SEGMAX_MAX_K
             and self.cap >= self.SEGMAX_MIN_CAP
@@ -407,23 +699,68 @@ class DeviceIndex:
         )
         small_auto = (unfiltered and self.scan_mode == "auto"
                       and num_q <= self.SMALL_Q_XLA and k_eff + 4 <= 16)
+        i8s_segmax = i8s and segmax_ok
+        i8s_smallq = i8s and not i8s_segmax and small_auto
+        use_segmax = self.vectors_lp is not None and segmax_ok
+        fview = None
+        if (filter_mask is not None and mask_key is not None
+                and not force_exact and self.vectors_lp is not None
+                and self.scan_mode in ("auto", "mixed")
+                and k_eff <= self.SEGMAX_MAX_K and num_q > self.SMALL_Q_XLA):
+            fview = self._filter_view(mask_key, filter_mask)
         small_q_i8 = small_auto and self.vectors_i8 is not None
         small_q_mixed = (small_auto and not small_q_i8
                          and self.vectors_lp is not None)
-        small_q_xla = (self.scan_mode == "auto" and not use_segmax
-                       and not small_q_i8 and not small_q_mixed
-                       and num_q <= self.SMALL_Q_XLA)
+        small_q_xla = (not i8s and not i4s and self.scan_mode == "auto"
+                       and not use_segmax and not small_q_i8
+                       and not small_q_mixed and num_q <= self.SMALL_Q_XLA)
         q = self._query_tensor(qnorm)
-        mask = self._mask_tensor(filter_mask, mask_key)
+        # the compacted view carries its own mask: the filter never ships
+        mask = None if fview is not None else self._mask_tensor(filter_mask,
+                                                                mask_key)
+        v, vs = self.vectors, self.vstore_scale
         f32, lp = self.vectors, self.vectors_lp
-        if use_segmax:
-            # stream iff the padded batch spans more than one 256-query
-            # tile, exactly the JAX package's route choice
-            stream = (num_q > 256 if self.segmax_stream is None
-                      else self.segmax_stream)
-            seg_fn = make_segmax_topk(k_eff)
-            vals, idxs = seg_fn(q, lp, f32, mask)
-            self.last_strategy = ("segmax_mixed_stream" if stream
+        if i8s_segmax:
+            # tie_scale=0 on every int8/int4 storage route: no finer tier
+            # exists for a crowding mark to retry into (the exact retry
+            # ranks the same quantized rows); segmax underfill still
+            # retries
+            vals, idxs = make_segmax_topk_i8(
+                k_eff, rescore_dequant=True, tie_scale=0.0)(q, v, vs, v, mask)
+            self.last_strategy = ("segmax_i8stor_stream"
+                                  if self._stream_name(num_q)
+                                  else "segmax_i8stor")
+        elif i8s_smallq or (i8s and self.use_pallas and k_eff + 4 <= 1024):
+            # small batches, and on the kernel path every filtered, wide-k
+            # or retried int8 batch: K3 streams the corpus, never a (Q,
+            # cap) score matrix
+            vals, idxs = make_fused_topk_i8(
+                k_eff, rescore_dequant=True, tie_scale=0.0)(q, v, vs, v, mask)
+            self.last_strategy = ("i8stor_fused_smallq" if i8s_smallq
+                                  else "i8stor_fused_exact")
+        elif i8s:
+            vals, idxs = make_exact_topk_i8r(k_eff)(q, v, vs, mask)
+            self.last_strategy = "i8stor_xla"
+        elif i4s and self.use_pallas:
+            # every int4 route: K6 over the packed rows (filter honored)
+            vals, idxs = make_fused_topk_i4(k_eff)(q, v, vs, mask)
+            self.last_strategy = "i4stor_fused"
+        elif i4s:
+            vals, idxs = make_exact_topk_i4r(k_eff)(q, v, vs, mask)
+            self.last_strategy = "i4stor_xla"
+        elif fview is not None:
+            # tie_scale=0: the engine's snapshot retry re-serves without
+            # the filter, so filtered results must never carry a mark
+            slots, view, view_active = fview
+            vals, idxs = make_segmax_topk(k_eff, tie_scale=0.0)(
+                q, view, f32, view_active, slots)
+            self.last_strategy = ("fview_segmax_stream"
+                                  if self._stream_name(num_q)
+                                  else "fview_segmax")
+        elif use_segmax:
+            vals, idxs = make_segmax_topk(k_eff)(q, lp, f32, mask)
+            self.last_strategy = ("segmax_mixed_stream"
+                                  if self._stream_name(num_q)
                                   else "segmax_mixed")
         elif small_q_i8:
             i8_fn = make_fused_topk_i8(k_eff)
@@ -456,28 +793,43 @@ class DeviceIndex:
 
     def query_serial_loop(self, queries, k: int):
         """Run M independent Q=1 queries one after another through the
-        small-batch route (int8 mirror when present, else the bf16 ladder,
-        else the exact scan); host ((M, k) f32 exact scores, (M, k) int32
-        slot ids). No crowding mark: no retry wraps this lane."""
+        small-batch route (int8 storage or mirror when present, else the
+        bf16 ladder, else the int4 / exact scan); host ((M, k) f32 scores,
+        (M, k) int32 slot ids). No crowding mark: no retry wraps this
+        lane."""
         if self.vectors is None:
             raise ValueError(
                 "empty device mirror; sync first (or use "
                 "PicoVectorDB.query_serial_loop, which does)"
             )
         k_eff = min(k, self.cap)
-        if self.vectors_i8 is not None and k_eff + 4 <= 16:
+        v, vs, act = self.vectors, self.vstore_scale, self.active
+        if self.storage_dtype == "int8" and k_eff + 4 <= 16:
+            f8s = make_fused_topk_i8(k_eff, rescore_dequant=True, tie_scale=0.0)
+            inner = lambda q: f8s(q, v, vs, v, act)  # noqa: E731
+            self.last_strategy = "i8stor_fused_smallq_loop"
+        elif self.vectors_i8 is not None and k_eff + 4 <= 16:
             f8 = make_fused_topk_i8(k_eff, tie_scale=0.0)
             inner = lambda q: f8(q, self.vectors_i8, self.vscale,  # noqa: E731
-                                 self.vectors, self.active)
+                                 v, act)
             self.last_strategy = "i8_fused_smallq_loop"
         elif self.vectors_lp is not None and k_eff + 4 <= 16:
             fm = make_mixed_fused_topk(k_eff, tie_scale=0.0)
-            inner = lambda q: fm(q, self.vectors_lp,  # noqa: E731
-                                 self.vectors, self.active)
+            inner = lambda q: fm(q, self.vectors_lp, v, act)  # noqa: E731
             self.last_strategy = "mixed_fused_smallq_loop"
+        elif self.storage_dtype == "int4":
+            f4 = (make_fused_topk_i4(k_eff) if self.use_pallas
+                  else make_exact_topk_i4r(k_eff))
+            inner = lambda q: f4(q, v, vs, act)  # noqa: E731
+            self.last_strategy = ("i4stor_fused_loop" if self.use_pallas
+                                  else "i4stor_xla_loop")
+        elif self.storage_dtype == "int8":
+            x8 = make_exact_topk_i8r(k_eff)
+            inner = lambda q: x8(q, v, vs, act)  # noqa: E731
+            self.last_strategy = "i8stor_xla_loop"
         else:
             fx = make_exact_topk(k_eff, self.compute_dtype)
-            inner = lambda q: fx(q, self.vectors, self.active)  # noqa: E731
+            inner = lambda q: fx(q, v, act)  # noqa: E731
             self.last_strategy = "xla_topk_loop"
         qs = self._query_tensor(queries)
         vals = torch.empty((qs.shape[0], k_eff), dtype=torch.float32,

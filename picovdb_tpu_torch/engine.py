@@ -1,24 +1,30 @@
 """PicoVectorDB — the public engine, on PyTorch.
 
 Counterpart of picovdb_tpu/engine.py for the exact scan over a
-single-device float32 store: the same API, record keys, md5 content IDs,
+single-device store: the same API, record keys, md5 content IDs,
 insert/update report, ValueError texts, DeprecationWarnings, PICOVDB_*
-knobs and on-disk format (a store saved by either package loads in the
-other).
+knobs and on-disk formats (a store saved by either package, float32 or
+quantized, loads in the other).
 
 Host state (ids, docs, id -> slot map, free slots) is authoritative and
 guarded by a reader-writer lock; the corpus is mirrored on the device
-(`device.DeviceIndex`) and queried through routed masked top-k kernels.
-Mutations mark the mirror dirty; the next query synchronizes it lazily —
-scatter for small change sets, full re-upload past
+(`device.DeviceIndex`) in its storage dtype (float32, bfloat16, int8 or
+packed int4) and queried through routed masked top-k kernels. Mutations
+mark the mirror dirty; the next query synchronizes it lazily — scatter
+for small change sets, full re-upload past
 `faiss_incremental_threshold_ratio`.
 
+Lossy storage dtypes re-rank on the host: the device selects a guard
+band of candidates and the host scores them against the authentic
+float32 rows in float64 (`_rescored_dispatch`). Device-born stores
+(`ingest_device`) and quantized checkpoints keep the host matrix lazy:
+mutations land in an exact-row overlay, and only paths that need the
+whole matrix materialize it from the device.
+
 Not in this slice, and raising NotImplementedError with the ROADMAP item
-that brings them: `mesh=` and multi-process loads, `index="ivf"`, storage
-dtypes other than float32 (and the quantized checkpoint format),
-`ingest_device`, `scan_mode="approx"`, the opt-in int8 tiers, and the
-`query_wire="int8_rescore"` lane. `index="auto"` serves the exact scan
-until the IVF tier is ported.
+that brings them: `mesh=` and multi-process loads, `index="ivf"`,
+`scan_mode="approx"` and the opt-in int8 tiers. `index="auto"` serves the
+exact scan until the IVF tier is ported.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from .constants import (
     ENV_COMPUTE_DTYPE,
     ENV_QUERY_WIRE,
     ENV_RESCORE,
+    ENV_RESCORE_GUARD,
+    ENV_RESCORE_MAX_Q,
     ENV_USE_PALLAS,
     ENV_WRITER_PRIORITY,
     K_ID,
@@ -47,6 +55,8 @@ from .constants import (
     K_VECTOR,
     QUERY_WIRE,
     QUERY_WIRE_MIN_Q,
+    RESCORE_GUARD,
+    RESCORE_MAX_Q,
     Float,
 )
 from .device import DeviceIndex, _not_in_slice
@@ -116,6 +126,13 @@ class PicoVectorDB:
 
         # host-authoritative parallel state ----------------------------------
         self._host_vectors: np.ndarray = np.empty((0, self.dim), dtype=Float)
+        # A device-born store (`ingest_device`) or a quantized checkpoint
+        # leaves the host matrix unmaterialized: row mutations land in
+        # `_host_overlay` (slot -> exact f32 row; zeros for deletions),
+        # which the device sync scatters from, and paths that read the
+        # whole matrix call `_ensure_host_vectors()` first.
+        self._host_lazy: bool = False
+        self._host_overlay: dict[int, np.ndarray] = {}
         self._ids: list[Optional[str]] = []
         self._docs: list[Optional[dict]] = []
         self._free: list[int] = []
@@ -162,8 +179,8 @@ class PicoVectorDB:
             raise ValueError(
                 f"rescore must be 'auto', 'host' or 'device'; got {rescore!r}"
             )
-        # (the host-f64 rescore serves lossy storage dtypes only, so on a
-        # float32 store every valid mode behaves the same)
+        # host-f64 rescore of lossy storage dtypes (`_rescored_dispatch`)
+        self._rescore_mode: str = rescore
 
         if query_wire is None:
             query_wire = os.getenv(ENV_QUERY_WIRE) or QUERY_WIRE
@@ -181,10 +198,31 @@ class PicoVectorDB:
                 "'float16', 'bfloat16', 'int8' or 'int8_rescore'; "
                 f"got {query_wire!r}"
             )
-        if query_wire == "int8_rescore":
-            raise _not_in_slice('query_wire="int8_rescore"',
-                                "item 6, storage tiers and serving extras")
         self._query_wire: str = query_wire
+        # int8_rescore: candidates selected past top_k on the 1 B wire,
+        # then re-ranked exactly on the host f32 rows (query_batched)
+        try:
+            self._wire_guard: int = int(
+                os.getenv("PICOVDB_WIRE_RESCORE_GUARD", "22"))
+        except ValueError:
+            self._wire_guard = 22
+        rg_env = os.getenv(ENV_RESCORE_GUARD)
+        if rg_env:
+            self._rescore_guard: int = int(rg_env)
+        elif storage_dtype == "int4":
+            # int4's ~18x int8 quantization step packs ~4x the near-ties
+            # into the band; the JAX package measured the default guard
+            # saturating most int4 dispatches, so int4 selects 4x wider
+            self._rescore_guard = 4 * RESCORE_GUARD
+        else:
+            self._rescore_guard = RESCORE_GUARD
+        rq_env = os.getenv(ENV_RESCORE_MAX_Q)
+        self._rescore_max_q: int = int(rq_env) if rq_env else RESCORE_MAX_Q
+        # True once the host matrix was materialized from a lossy device
+        # plane: rescoring against it cannot recover f32 precision, so the
+        # host rescore stands down
+        self._host_f32_lossy: bool = False
+        self._last_rescore: Optional[str] = None
 
         self._dev = DeviceIndex(
             self.dim,
@@ -208,6 +246,9 @@ class PicoVectorDB:
         self._last_k_eff: Optional[int] = None
         # exact re-serves triggered by segmax underfill or the crowding mark
         self._exact_retries: int = 0
+        # queries whose rescore guard band saturated and re-dispatched
+        # wider (see _rescored_dispatch)
+        self._rescore_escalations: int = 0
         self._last_sync_mode: Optional[str] = None
 
         self._load_or_init()
@@ -238,9 +279,10 @@ class PicoVectorDB:
         if not persistence.exists(self._path):
             self._init_fresh()
             return
-        if persistence.has_quantized(self._path):
-            raise _not_in_slice("loading a quantized checkpoint",
-                                "item 6, storage tiers")
+        qinfo = persistence.load_quantized(self._path)
+        if qinfo is not None:
+            self._load_quantized(qinfo)
+            return
         logger.info("Loading existing DB …")
         self._ids = persistence.load_ids(self._path)
         count = len(self._ids)
@@ -253,6 +295,17 @@ class PicoVectorDB:
                 f"expected (*, {self.dim}) — wrong embedding_dim for this "
                 f"store?"
             )
+        self._load_slots(count)
+        if self._active_indices.size:
+            self._dev.full_upload(self._host_vectors, self._active_mask)
+            self._last_sync_mode = "full"
+        self._dirty = False
+        logger.info("Loaded %d active / %d total vectors",
+                    int(self._active_indices.size), count)
+
+    def _load_slots(self, count: int) -> None:
+        """Docs and additional data of a checkpoint with `count` slots,
+        and the free / active slot bookkeeping derived from them."""
         self._docs, self._additional = persistence.load_meta(self._path, count)
         if len(self._docs) < count:
             self._docs = list(self._docs) + [None] * (count - len(self._docs))
@@ -267,11 +320,49 @@ class PicoVectorDB:
         self._active_indices = np.asarray(actives, dtype=np.int64)
         self._active_mask[self._active_indices] = True
         self._tag_index.resize(count)
-        if self._active_indices.size:
-            self._dev.full_upload(self._host_vectors, self._active_mask)
+
+    def _load_quantized(self, q: dict) -> None:
+        """Open a quantized checkpoint (packed plane + row scales,
+        persistence.save_quantized_atomic). The store comes back lazy, as
+        a device-born store lives: the plane streams from its disk memmap
+        to the device chunk by chunk and the float32 matrix never exists
+        on either side. Overlay rows (mutations made while lazy before
+        the save) are restored."""
+        sd = self._dev.storage_dtype
+        if sd != q["storage_dtype"]:
+            raise ValueError(
+                f"store at {self._path!r} was saved with storage_dtype="
+                f"{q['storage_dtype']!r}; construct PicoVectorDB with "
+                f"storage_dtype={q['storage_dtype']!r} (got {sd!r})"
+            )
+        if q["dim"] != self.dim:
+            raise ValueError(
+                f"quantized store has dim {q['dim']}; expected {self.dim} — "
+                "wrong embedding_dim for this store?"
+            )
+        if self._use_memmap:
+            raise ValueError(
+                "use_memmap does not apply to quantized stores: the packed "
+                "plane itself loads memmapped and streams to the device"
+            )
+        logger.info("Loading existing DB (quantized %s plane) …", sd)
+        self._ids = persistence.load_ids(self._path)
+        count = len(self._ids)
+        if count != q["rows"]:
+            raise ValueError(
+                f"ids file has {count} slots but the quantized plane has "
+                f"{q['rows']} rows — mismatched checkpoint generation"
+            )
+        self._load_slots(count)
+        self._host_vectors = None
+        self._host_lazy = True
+        self._host_overlay = dict(q["overlay"])
+        if count:
+            self._dev.upload_prequantized(q["plane"], q["scales"],
+                                          self._active_mask)
             self._last_sync_mode = "full"
         self._dirty = False
-        logger.info("Loaded %d active / %d total vectors",
+        logger.info("Loaded %d active / %d total vectors (quantized)",
                     int(self._active_indices.size), count)
 
     def _init_fresh(self) -> None:
@@ -322,14 +413,28 @@ class PicoVectorDB:
 
         `shards=N` writes the matrix as N row-contiguous files; the default
         is the reference's single-file format. Loading auto-detects either.
-        `quantized=True` needs a quantized storage dtype, which this port
-        does not have yet.
+
+        `quantized=True` (int8/int4 stores only) writes the storage plane
+        and its row scales instead of a float32 matrix, streamed device ->
+        disk chunk by chunk, so host memory stays one chunk. The default
+        (None) takes that path for lazy (device-born or quantized-loaded)
+        int8/int4 stores whose float32 matrix would pass
+        PICOVDB_QSAVE_AUTO_GB (default 2); `quantized=False` forces the
+        reference-compatible float32 format.
         """
-        if quantized:
-            raise _not_in_slice("save(quantized=True)", "item 6, storage tiers")
         with self._rwlock.write_lock():
             if self._dirty:
                 self._sync_device_locked()
+            if self._quantized_save_applies(quantized, shards):
+                n = len(self._ids)
+                persistence.save_quantized_atomic(
+                    self._path, self._ids, self._docs, self._additional,
+                    self._dev.iter_store_chunks(n), n, self._dev._cols(),
+                    self._dev.storage_dtype, self.dim,
+                    overlay=self._host_overlay if self._host_lazy else None,
+                )
+                return
+            self._ensure_host_vectors()
             if (shards is not None and shards > 1
                     and isinstance(self._host_vectors, np.memmap)):
                 # a sharded save replaces the single-file matrix; memmap
@@ -344,6 +449,38 @@ class PicoVectorDB:
                 self._path, self._ids, self._docs, self._additional,
                 self._host_vectors, self.dim, n_shards=shards,
             )
+
+    def _quantized_save_applies(self, quantized: Optional[bool],
+                                shards: Optional[int]) -> bool:
+        """Resolve the save format (see `save`). Caller holds the write
+        lock and has synced the device, so when this returns True the
+        resident plane is the authoritative corpus."""
+        sd = self._dev.storage_dtype
+        if quantized is False:
+            return False
+        if shards is not None and shards > 1:
+            if quantized:
+                raise ValueError(
+                    "quantized save does not compose with shards=N; the "
+                    "plane is one file (load streams it chunk by chunk)"
+                )
+            return False
+        if quantized:
+            if sd not in ("int8", "int4"):
+                raise ValueError(
+                    "quantized save requires int8/int4 storage; this "
+                    f"store is {sd or 'float32'!r}"
+                )
+            return self._dev.vectors is not None and len(self._ids) > 0
+        if sd not in ("int8", "int4") or not self._host_lazy:
+            return False
+        if self._dev.vectors is None or not self._ids:
+            return False
+        try:
+            auto_gb = float(os.getenv("PICOVDB_QSAVE_AUTO_GB", "2") or 2)
+        except ValueError:
+            auto_gb = 2.0
+        return len(self._ids) * self.dim * 4.0 > auto_gb * 2**30
 
     def flush(self) -> None:
         """If using memmap, flush changes to disk. No-op otherwise."""
@@ -495,7 +632,7 @@ class PicoVectorDB:
                     new_rows[pos] = j
                     new_docs[pos] = meta
                 else:
-                    self._host_vectors[idx] = norm[j]
+                    self._write_host_row(idx, norm[j])
                     self._docs[idx] = meta
                     self._pending_add.add(idx)
                     touched_idx.append(idx)
@@ -504,7 +641,7 @@ class PicoVectorDB:
             else:
                 if self._free:
                     idx = self._free.pop()
-                    self._host_vectors[idx] = norm[j]
+                    self._write_host_row(idx, norm[j])
                     self._ids[idx] = item_id
                     self._docs[idx] = meta
                     new_active.append(idx)
@@ -522,7 +659,13 @@ class PicoVectorDB:
                 report["insert"].append(item_id)
         if new_rows:
             stacked = norm[new_rows] if len(new_rows) != n else norm
-            if not n_slots:
+            if self._host_lazy:
+                # appended rows live in the overlay until a full
+                # materialization; the device sync scatters them from it
+                for t in range(len(new_rows)):
+                    self._host_overlay[n_slots + t] = np.array(
+                        stacked[t], dtype=Float)
+            elif not n_slots:
                 self._host_vectors = to_c_f32(stacked)
             else:
                 if self._use_memmap and isinstance(self._host_vectors, np.memmap):
@@ -559,10 +702,162 @@ class PicoVectorDB:
         self._dirty = True
         return report
 
-    def ingest_device(self, *args, **kwargs):
-        """Device-born bulk load: not in this slice."""
-        raise _not_in_slice("ingest_device", "item 6, storage tiers and "
-                            "serving extras")
+    def ingest_device(
+        self,
+        vectors: torch.Tensor,
+        ids: list[str],
+        metadata: Optional[list[Optional[dict]]] = None,
+        normalize: bool = True,
+        scales: Optional[torch.Tensor] = None,
+        host_shadow: bool = False,
+    ) -> dict[str, list[str]]:
+        """Bulk-load a (n, dim) tensor already on the store's device into a
+        fresh store: the device-born counterpart of `upsert_columnar`
+        (e.g. embeddings from an on-card encoder). Normalization, the
+        storage-dtype cast or quantization, and the capacity pad run on
+        the device; the host keeps ids and metadata only and the host
+        matrix stays lazy (see `_ensure_host_vectors`).
+
+        Requires an empty store (no rows, no fixed `capacity`, not
+        memmapped) and explicit unique ids. The input is not consumed;
+        `DeviceIndex.adopt` says when the store takes it without a copy
+        (then the caller must not write to it).
+
+        `scales=` takes pre-quantized int8/int4 input (`normalize=False`,
+        rows normalized then quantized by `quantize_rows_i8` / `_i4`; int4
+        rows packed, (n, dim / 2)), for corpora whose float32 form would
+        not fit the device. `host_shadow=True` (lossy storage) fetches the
+        normalized float32 rows to host before the cast and keeps them as
+        the authentic host matrix, so the host-f64 rescore serves exact
+        ranking; not with `scales=`. Without it a lossy device-born store
+        ranks at storage precision.
+        """
+        if not isinstance(vectors, torch.Tensor):
+            raise ValueError(
+                "ingest_device expects a tensor on the store's device; for "
+                "host numpy data use upsert_columnar"
+            )
+        quantized = self._dev.storage_dtype in ("int8", "int4")
+        want_dim = (self.dim // 2 if self._dev.storage_dtype == "int4"
+                    and scales is not None else self.dim)
+        if vectors.ndim != 2 or vectors.shape[1] != want_dim:
+            raise ValueError(
+                f"ingest_device expects a 2D array with last dim {want_dim};"
+                f" got shape {tuple(vectors.shape)}"
+            )
+        n = vectors.shape[0]
+        if scales is not None:
+            if not quantized:
+                raise ValueError(
+                    "scales= is only meaningful for int8/int4 storage; "
+                    f"this store is {self._dev.storage_dtype!r}"
+                )
+            if normalize:
+                raise ValueError(
+                    "pre-quantized ingest (scales=...) requires "
+                    "normalize=False: rows must already be "
+                    "normalized-then-quantized (quantize_rows_i8/_i4)"
+                )
+            if vectors.dtype != torch.int8:
+                raise ValueError(
+                    "pre-quantized ingest expects int8 rows (packed bytes "
+                    f"for int4 storage); got dtype {vectors.dtype}"
+                )
+            if getattr(scales, "ndim", 1) != 1 or scales.shape[0] != n:
+                raise ValueError(
+                    f"scales must be a ({n},) array (one per row); got "
+                    f"shape {tuple(getattr(scales, 'shape', ()))}"
+                )
+        if host_shadow and scales is not None:
+            raise ValueError(
+                "host_shadow=True needs the f32 rows, which pre-quantized "
+                "ingest (scales=...) never materializes; quantize on "
+                "device without scales= or keep host_shadow=False"
+            )
+        if n == 0:
+            return {"update": [], "insert": []}
+        if ids is None or len(ids) != n:
+            raise ValueError(
+                f"ingest_device needs exactly one id per row; got "
+                f"{0 if ids is None else len(ids)} ids for {n} rows"
+            )
+        if len(set(ids)) != n:
+            raise ValueError("ingest_device ids must be unique")
+        if metadata is not None and len(metadata) != n:
+            raise ValueError(
+                f"metadata length {len(metadata)} != number of vectors {n}"
+            )
+        with self._rwlock.write_lock():
+            if self._ids or self._free or self._use_memmap:
+                raise ValueError(
+                    "ingest_device requires an empty, non-memmap store; "
+                    "use upsert/upsert_columnar on populated stores"
+                )
+            if self._capacity is not None:
+                raise ValueError(
+                    "ingest_device does not support fixed-capacity stores"
+                )
+            shadow = self._dev.adopt(vectors, n, normalize=normalize,
+                                     scales=scales, want_shadow=host_shadow)
+            if shadow is not None:
+                self._host_vectors = shadow
+                self._host_lazy = False
+                self._host_f32_lossy = False
+            else:
+                self._host_vectors = None
+                self._host_lazy = True
+            self._host_overlay = {}
+            self._ids = list(ids)
+            if metadata is None:
+                self._docs = [{K_ID: _id} for _id in ids]
+            else:
+                self._docs = [
+                    {**(m or {}), K_ID: _id} for m, _id in zip(metadata, ids)
+                ]
+            self._id2idx = None
+            self._active_indices = np.arange(n, dtype=np.int64)
+            self._active_mask = np.ones(n, dtype=bool)
+            self._tag_index.resize(n)
+            self._ids_np = None
+            self._pending_add.clear()
+            self._pending_remove.clear()
+            self._pending_full = False
+            self._filter_epoch += 1
+            self._last_sync_mode = "full"
+            self._dirty = False
+            return {"update": [], "insert": list(ids)}
+
+    def _write_host_row(self, idx: int, row: np.ndarray) -> None:
+        """Record one mutated host row: lazy stores keep the exact f32 row
+        in the overlay (O(changed) memory) instead of materializing."""
+        if self._host_lazy:
+            self._host_overlay[idx] = np.array(row, dtype=Float)
+        else:
+            self._host_vectors[idx] = row
+
+    def _ensure_host_vectors(self) -> None:
+        """Materialize the host matrix of a lazy store from the device
+        (caller holds the write lock): one chunked device->host pass,
+        int4 unpacked and int8 dequantized on the host, then the overlay
+        rows on top. Rows that round-tripped a lossy plane are not
+        authentic float32, so the host rescore stands down afterwards."""
+        if not self._host_lazy:
+            return
+        n = len(self._ids)
+        rows = np.zeros((n, self.dim), dtype=Float)
+        dev = self._dev
+        avail = min(n, dev.cap) if dev.vectors is not None else 0
+        step = dev.STREAM_CHUNK_ROWS
+        for s in range(0, avail, step):
+            e = min(avail, s + step)
+            rows[s:e] = dev.fetch_rows(np.arange(s, e))
+        for idx, row in self._host_overlay.items():
+            rows[idx] = row
+        self._host_overlay.clear()
+        self._host_vectors = rows
+        if n and dev.storage_dtype != "float32":
+            self._host_f32_lossy = True
+        self._host_lazy = False
 
     def delete(self, ids: list[str]) -> list[str]:
         """Soft-delete vectors by ID; returns the IDs actually deleted."""
@@ -573,7 +868,10 @@ class PicoVectorDB:
                 idx = self._id2idx.pop(_id, None)
                 if idx is not None:
                     self._docs[idx] = None
-                    self._host_vectors[idx].fill(0)
+                    if self._host_lazy:
+                        self._host_overlay[idx] = np.zeros(self.dim, Float)
+                    else:
+                        self._host_vectors[idx].fill(0)
                     self._free.append(idx)
                     removed_idxs.append(idx)
                     removed.append(_id)
@@ -612,6 +910,7 @@ class PicoVectorDB:
                 return
             # compaction remaps slots: every cached filter mask misses
             self._filter_epoch += 1
+            self._ensure_host_vectors()
             active = np.sort(self._active_indices).tolist()
             n = len(active)
             if self._capacity is not None:
@@ -654,9 +953,13 @@ class PicoVectorDB:
     def rebuild_index(self) -> None:
         """Force a full device mirror refresh immediately."""
         with self._rwlock.write_lock():
-            if len(self._ids):
+            if len(self._ids) and not self._host_lazy:
                 self._dev.full_upload(self._host_vectors, self._active_mask)
                 self._last_sync_mode = "full"
+            elif self._dirty:
+                # a lazy store's device plane is the corpus: apply its
+                # pending overlay rows and deletes instead of re-uploading
+                self._sync_device_locked()
             self._pending_add.clear()
             self._pending_remove.clear()
             self._pending_full = False
@@ -721,8 +1024,17 @@ class PicoVectorDB:
             base = top_k + self._adaptive_buffer if callable(where) else top_k
             k_eff = min(base, n_cand)
             self._last_k_eff = int(k_eff)
-            vals, idxs = self._dispatch_query(
-                vecs, k_eff, filter_mask, mask_key=self._mask_key(where, ids))
+            mask_key = self._mask_key(where, ids)
+            rescore = self._host_rescore_applies(num_q)
+            if rescore:
+                # inside the read lock: host rows mutate in place under
+                # the write lock, so the gather sees one snapshot
+                vals, idxs = self._rescored_dispatch(
+                    vecs, k_eff, n_cand, filter_mask, mask_key)
+            else:
+                vals, idxs = self._dispatch_query(
+                    vecs, k_eff, filter_mask, mask_key=mask_key)
+            self._last_rescore = "host" if rescore else None
             if num_q * k_eff <= 4096:
                 # small result sets assemble inside the read lock against
                 # the live docs list (no O(corpus) snapshot per call)
@@ -821,29 +1133,41 @@ class PicoVectorDB:
             )
         return vecs
 
-    def _serve_chunks(self, vecs, k_eff, filter_mask, mask_key, batch_size):
+    def _serve_chunks(self, vecs, k_eff, filter_mask, mask_key, batch_size,
+                      k_sel=None, wvecs=None):
         """Dispatch every chunk, then fetch each one, re-serving exactly
         the chunks whose route may carry a retry mark and did (-inf).
         Caller holds the read lock for the whole call: the mirror mutates
-        in place, so the retry must see the dispatch-time state."""
+        in place, so the retry must see the dispatch-time state.
+
+        `k_sel` (>= k_eff) selects a wider band per chunk for the host
+        re-rank of the int8 wire (`wvecs`, the encoded batch; `vecs` is
+        the float32 batch it re-ranks against); each chunk then comes back
+        re-ranked and cut to k_eff."""
         num_q = vecs.shape[0]
-        wvecs = self._wire_encode(vecs, num_q)
+        k_sel = k_eff if k_sel is None else k_sel
+        if wvecs is None:
+            wvecs = self._wire_encode(vecs, num_q)
         pending = []
         for start in range(0, num_q, batch_size):
             chunk = wvecs[start:start + batch_size]
             vd, xd, nq, ke = self._dev.query_async(
-                chunk, k_eff, filter_mask, mask_key=mask_key)
+                chunk, k_sel, filter_mask, mask_key=mask_key)
             # a small tail chunk may route differently: record each one's
-            pending.append((chunk, vd, xd, nq, ke,
+            pending.append((start, chunk, vd, xd, nq, ke,
                             _needs_exact_retry(self._dev.last_strategy)))
         self._last_topk_strategy = self._dev.last_strategy
         snap = self._dev.snapshot()
-        for chunk, vd, xd, nq, ke, retryable in pending:
+        for start, chunk, vd, xd, nq, ke, retryable in pending:
             vals = vd.cpu().numpy()[:nq, :ke]
             idxs = xd.cpu().numpy()[:nq, :ke]
             if retryable and np.isneginf(vals).any():
-                vals, idxs = self._dev.query_exact_snapshot(snap, chunk, k_eff)
+                vals, idxs = self._dev.query_exact_snapshot(snap, chunk, k_sel)
                 self._exact_retries += 1
+            if k_sel != k_eff:
+                vals, idxs = self._host_rescore(vals, idxs,
+                                                vecs[start:start + nq])
+                vals, idxs = vals[:, :k_eff], idxs[:, :k_eff]
             yield vals, idxs
 
     def query_batched(
@@ -860,9 +1184,18 @@ class PicoVectorDB:
         """Throughput-mode batch query: splits a (Q, dim) batch into
         device-sized chunks, dispatches them all, then assembles. Same
         result contract as `query` with a 2-D input. `query_vecs` may be a
-        tensor already on the device."""
+        tensor already on the device.
+
+        Small host batches of a lossy-storage store take `query` (its
+        host rescore). With `query_wire="int8_rescore"`, host batches of
+        QUERY_WIRE_MIN_Q or more ship on the 1 B wire, the device selects
+        top-(k + PICOVDB_WIRE_RESCORE_GUARD), and the host re-ranks those
+        candidates exactly on the authentic float32 rows."""
         vecs = self._as_query_batch(query_vecs, "query_batched")
         num_q = vecs.shape[0]
+        if isinstance(vecs, np.ndarray) and self._host_rescore_applies(num_q):
+            return self.query(vecs, top_k=top_k, better_than=better_than,
+                              where=where, ids=ids)
         out: list[list[dict[str, Any]]] = []
         with self._synced_read():
             if not self._active_indices.size:
@@ -876,9 +1209,18 @@ class PicoVectorDB:
             base = top_k + self._adaptive_buffer if callable(where) else top_k
             k_eff = min(base, n_cand)
             self._last_k_eff = int(k_eff)
+            # judged inside the lock: a writer may have swapped the corpus
+            # (e.g. ingest_device dropping the authentic host rows)
+            wire_rescore = (isinstance(vecs, np.ndarray)
+                            and self._wire_rescore_applies(num_q))
+            k_sel, wvecs = k_eff, None
+            if wire_rescore:
+                k_sel = min(k_eff + self._wire_guard, n_cand)
+                wvecs = self._wire_encode(vecs, num_q, rescore=True)
             results = list(self._serve_chunks(
                 vecs, k_eff, filter_mask, self._mask_key(where, ids),
-                batch_size))
+                batch_size, k_sel=k_sel, wvecs=wvecs))
+            self._last_rescore = "host-wire" if wire_rescore else None
             docs_ref = list(self._docs)
         for vals, idxs in results:
             out.extend(self._assemble(vals, idxs, docs_ref, top_k,
@@ -901,7 +1243,8 @@ class PicoVectorDB:
         Returns `(ids, scores)`: an (Q, top_k) object array of string IDs
         (None marks missing/filtered positions) and an (Q, top_k) float32
         score matrix; no per-hit dicts. `query_vecs` may be a tensor
-        already on the device."""
+        already on the device. Small host batches of a lossy-storage
+        store re-rank on the host (`_rescored_dispatch`) chunk by chunk."""
         vecs = self._as_query_batch(query_vecs, "query_columnar")
         num_q = vecs.shape[0]
         out_ids = np.full((num_q, top_k), None, dtype=object)
@@ -917,12 +1260,20 @@ class PicoVectorDB:
                 return out_ids, out_scores
             k_eff = min(top_k, n_cand)
             self._last_k_eff = int(k_eff)
+            mask_key = self._mask_key(where, ids)
+            rescore = (isinstance(vecs, np.ndarray)
+                       and self._host_rescore_applies(num_q))
+            if rescore:
+                chunks = [self._rescored_dispatch(
+                    vecs[s:s + batch_size], k_eff, n_cand, filter_mask,
+                    mask_key) for s in range(0, num_q, batch_size)]
+            else:
+                chunks = self._serve_chunks(vecs, k_eff, filter_mask,
+                                            mask_key, batch_size)
             ids_arr = self._ids_array()
             docs_len = len(self._docs)
             row = 0
-            for vals, idxs in self._serve_chunks(
-                    vecs, k_eff, filter_mask, self._mask_key(where, ids),
-                    batch_size):
+            for vals, idxs in chunks:
                 nq, ke = vals.shape
                 valid = np.isfinite(vals) & (idxs >= 0) & (idxs < docs_len)
                 if better_than is not None:
@@ -932,6 +1283,7 @@ class PicoVectorDB:
                 out_ids[row:row + nq, :ke] = mapped
                 out_scores[row:row + nq, :ke] = np.where(valid, vals, -np.inf)
                 row += nq
+            self._last_rescore = "host" if rescore else None
         return out_ids, out_scores
 
     def _ids_array(self) -> np.ndarray:
@@ -951,23 +1303,42 @@ class PicoVectorDB:
     ) -> Union[Optional[dict[str, Any]], list[dict[str, Any]]]:
         """Get records by ID or IDs (missing IDs are skipped in list form)."""
         with self._rwlock.read_lock():
-            if isinstance(ids, str):
-                idx = self._id2idx.get(ids)
-                if idx is None:
-                    return None
-                return self._record(idx, ids, include_vector)
-            out: list[dict[str, Any]] = []
-            for _id in ids:
+            single = isinstance(ids, str)
+            recs: list[dict[str, Any]] = []
+            slots: list[int] = []
+            for _id in [ids] if single else ids:
                 idx = self._id2idx.get(_id)
                 if idx is not None:
-                    out.append(self._record(idx, _id, include_vector))
-            return out
+                    recs.append(dict(self._docs[idx] or {K_ID: _id}))
+                    slots.append(idx)
+            self._attach_vectors(recs, slots, include_vector)
+            if single:
+                return recs[0] if recs else None
+            return recs
 
-    def _record(self, idx: int, _id: str, include_vector: bool) -> dict[str, Any]:
-        rec = dict(self._docs[idx] or {K_ID: _id})
-        if include_vector:
-            rec[K_VECTOR] = np.array(self._host_vectors[idx], dtype=Float)
-        return rec
+    def _attach_vectors(self, recs: list, slots: list,
+                        include_vector: bool) -> None:
+        """Add each record's float32 row, fetched in one batch."""
+        if include_vector and slots:
+            for rec, row in zip(recs, self._host_rows_batch(slots)):
+                rec[K_VECTOR] = row
+
+    def _host_rows_batch(self, idxs: list[int]) -> np.ndarray:
+        """Float32 rows by slot: from the host matrix, or for a lazy store
+        by one chunked, dequantizing device gather (`fetch_rows`) with the
+        overlay rows (mutations made while lazy: exact, and fresher than
+        the device until the next sync) on top."""
+        arr = np.asarray(idxs, dtype=np.int64)
+        if not self._host_lazy:
+            return np.asarray(self._host_vectors)[arr].astype(Float, copy=True)
+        # slots past the device rows (appends not yet synced) always live
+        # in the overlay; clip the gather and let the overlay win below
+        rows = self._dev.fetch_rows(np.minimum(arr, self._dev.cap - 1))
+        for pos, i in enumerate(arr.tolist()):
+            cached = self._host_overlay.get(i)
+            if cached is not None:
+                rows[pos] = cached
+        return rows
 
     def get_by_id(
         self, sid: str, include_vector: bool = False
@@ -987,14 +1358,15 @@ class PicoVectorDB:
         `include_deleted=True`."""
         with self._rwlock.read_lock():
             docs: list[dict[str, Any]] = []
+            live: list[dict[str, Any]] = []
+            slots: list[int] = []
             if include_deleted:
                 for idx, (_id, doc) in enumerate(zip(self._ids, self._docs)):
                     if doc is not None:
                         rec = dict(doc)
                         rec[K_ID] = _id
-                        if include_vector:
-                            rec[K_VECTOR] = np.array(self._host_vectors[idx],
-                                                     dtype=Float)
+                        live.append(rec)
+                        slots.append(idx)
                         docs.append(rec)
                     else:
                         docs.append({K_ID: _id})
@@ -1005,10 +1377,10 @@ class PicoVectorDB:
                         continue
                     rec = dict(doc)
                     rec[K_ID] = _id
-                    if include_vector:
-                        rec[K_VECTOR] = np.array(self._host_vectors[idx],
-                                                 dtype=Float)
+                    live.append(rec)
+                    slots.append(idx)
                     docs.append(rec)
+            self._attach_vectors(live, slots, include_vector)
             return docs
 
     def last_query_debug(self) -> dict[str, Any]:
@@ -1028,7 +1400,7 @@ class PicoVectorDB:
                 },
                 "index_kind": self._index_kind,
                 "ann_active": False,
-                "rescore": None,
+                "rescore": self._last_rescore,
             }
 
     def profile_trace(self, log_dir: str):
@@ -1064,6 +1436,15 @@ class PicoVectorDB:
                 "last_topk_strategy": self._last_topk_strategy,
                 "exact_retries": self._exact_retries,
                 "storage_dtype": self._dev.storage_dtype,
+                # host-f64 rescore of lossy storage: mode, guard band,
+                # last query's application
+                "rescore": {
+                    "mode": self._rescore_mode,
+                    "guard": self._rescore_guard,
+                    "max_q": self._rescore_max_q,
+                    "last": self._last_rescore,
+                },
+                "rescore_escalations": self._rescore_escalations,
                 "mirrors": {
                     "bf16": self._dev.vectors_lp is not None,
                     "int8_rows": self._dev.vectors_i8 is not None,
@@ -1109,22 +1490,34 @@ class PicoVectorDB:
         except TypeError:
             return None
 
-    def _wire_encode(self, vecs, num_q: int):
+    def _wire_encode(self, vecs, num_q: int, rescore: bool = False):
         """Compact upload dtype for a host query batch (the int16 wire from
         QUERY_WIRE_MIN_Q queries under "auto"); tensors pass through. The
-        device widens to float32 and normalizes, so the ranking holds."""
+        device widens to float32 and normalizes, so the ranking holds.
+        "int8_rescore" ships the 1 B wire only to a caller that re-ranks
+        on the host (`rescore`, query_batched) and can (authentic rows);
+        otherwise it falls back to the int16 wire."""
         if not isinstance(vecs, np.ndarray) or vecs.dtype != Float:
             return vecs
         mode = self._query_wire
         if mode == "float32":
             return vecs
-        if mode == "auto":
+        if mode in ("auto", "int8_rescore"):
             if num_q < QUERY_WIRE_MIN_Q:
                 return vecs
-            mode = "int16"
+            mode = ("int8" if mode == "int8_rescore" and rescore
+                    and self._wire_rescore_applies(num_q) else "int16")
         from .utils import encode_query_wire
 
         return encode_query_wire(vecs, mode)
+
+    def _wire_rescore_applies(self, num_q: int) -> bool:
+        """Whether the int8 wire + host exact re-rank lane runs: opted in,
+        a wire-sized host batch, and authentic float32 host rows."""
+        return (self._query_wire == "int8_rescore"
+                and num_q >= QUERY_WIRE_MIN_Q
+                and not self._host_lazy
+                and not self._host_f32_lossy)
 
     _IDS_MASK_CACHE_MAX = 4
     _IDS_MASK_CACHE_MIN_LEN = 64
@@ -1195,6 +1588,137 @@ class PicoVectorDB:
             mask = mask & wmask
         return mask
 
+    def _host_rescore_applies(self, num_q: int) -> bool:
+        """Whether this query re-ranks on authentic host float32 rows:
+        lossy storage only (bfloat16 / int8 / int4 selection loses the
+        near-ties), never when the host copy itself came from the lossy
+        plane (lazy or materialized device-born stores); "auto" up to
+        `_rescore_max_q` queries, "host" always, "device" never."""
+        mode = self._rescore_mode
+        if mode == "device" or self._dev.storage_dtype == "float32":
+            return False
+        if self._host_lazy or self._host_f32_lossy:
+            return False
+        return mode == "host" or num_q <= self._rescore_max_q
+
+    def _rescored_dispatch(self, vecs, k_eff, n_cand, filter_mask,
+                           mask_key=None):
+        """Device dispatch of a guard-widened candidate band + host-f64
+        rescore + one saturation escalation (caller holds the read lock).
+        Returns (vals, idxs) with k_eff columns, exactly ranked against
+        the authentic float32 rows.
+
+        The band can saturate: a near-duplicate corpus may pack more
+        near-ties than `_rescore_guard` candidates. Every unselected row
+        has a selection score <= the band's bottom a_min, so its exact
+        score is <= a_min + eps (eps = 3x the tier's quantization noise,
+        ops/scan._tie_margin). Where a_min + eps reaches the exact k-th
+        score the true top-k may extend past the band: those queries
+        re-dispatch once at 4x the width (at most 4096; counted in
+        `stats()["rescore_escalations"]`)."""
+        k_req = min(k_eff + self._rescore_guard, n_cand)
+        vals_a, idxs = self._dispatch_query(vecs, k_req, filter_mask,
+                                            mask_key=mask_key)
+        vals, idxs = self._host_rescore(vals_a, idxs, vecs)
+        if k_req < n_cand:
+            sat = self._rescore_saturated(vals_a, vals, k_eff)
+            k2 = min(max(4 * k_req, 1024), n_cand, 4096)
+            if sat.any() and k2 > k_req:
+                self._rescore_escalations += int(sat.sum())
+                sub = np.ascontiguousarray(np.asarray(vecs)[sat])
+                v2a, i2 = self._dispatch_query(sub, k2, filter_mask,
+                                               mask_key=mask_key)
+                v2, i2 = self._host_rescore(v2a, i2, sub)
+                vals = vals[:, :k_eff].copy()
+                idxs = idxs[:, :k_eff].copy()
+                vals[sat] = v2[:, :k_eff]
+                idxs[sat] = i2[:, :k_eff]
+                return vals, idxs
+        return vals[:, :k_eff], idxs[:, :k_eff]
+
+    def _rescore_saturated(self, vals_approx, vals_exact, k_eff):
+        """(Q,) bool: queries whose guard band may be cut mid-tie (see
+        _rescored_dispatch); vals_approx are the device's selection
+        scores, vals_exact the rescored, sorted exact scores."""
+        from .ops.scan import _tie_margin
+
+        va = np.asarray(vals_approx, dtype=np.float32)
+        finite = np.isfinite(va)
+        a_min = np.where(finite, va, np.inf).min(axis=1)
+        ve = np.asarray(vals_exact)
+        kth = ve[:, min(k_eff, ve.shape[1]) - 1]
+        kind = {"bfloat16": "bf16", "int4": "int4"}.get(
+            self._dev.storage_dtype, "int8")
+        eps = 3.0 * _tie_margin(kind, self.dim, 1.0)
+        return finite.any(axis=1) & np.isfinite(kth) & (a_min + eps >= kth)
+
+    def _host_rescore(self, vals, idxs, vecs):
+        """Exact re-rank of device candidates on the host float32 rows
+        (caller holds the read lock).
+
+        Each unique candidate row is read once; scores run in float32
+        BLAS, and queries whose adjacent float32 gaps fall under 1e-5
+        (too tight to rank reliably) are re-scored in float64. Invalid
+        slots (-inf / NaN scores, out-of-range rows) sink to the tail as
+        -inf, and a row the selection returned twice keeps its best-ranked
+        copy only. Returned scores are float32."""
+        vals = np.asarray(vals, dtype=np.float32)
+        idxs = np.asarray(idxs, dtype=np.int64)
+        n_rows = self._host_vectors.shape[0]
+        valid = (idxs >= 0) & (idxs < n_rows) & np.isfinite(vals)
+        if not valid.any():
+            return vals, idxs
+        q32 = normalize_batch(np.asarray(vecs, dtype=Float))
+        nq, kr = idxs.shape
+        flat = np.where(valid, idxs, 0)
+        uniq, inv = np.unique(flat.ravel(), return_inverse=True)
+        rows_u = np.ascontiguousarray(
+            np.asarray(self._host_vectors[uniq], dtype=np.float32))
+        inv = inv.reshape(nq, kr)
+        ex = np.empty((nq, kr), dtype=np.float32)
+        step = max(1, (1 << 22) // max(1, kr * self.dim))  # ~16 MB buffer
+        buf = np.empty((step * kr, self.dim), dtype=np.float32)
+        for s in range(0, nq, step):
+            e = min(nq, s + step)
+            m = e - s
+            np.take(rows_u, inv[s:e].ravel(), axis=0, out=buf[: m * kr])
+            ex[s:e] = np.einsum("qd,qkd->qk", q32[s:e],
+                                buf[: m * kr].reshape(m, kr, self.dim),
+                                optimize=True)
+        ex = np.where(valid, ex.astype(np.float64), -np.inf)
+        order = np.argsort(-ex, axis=1, kind="stable")
+        exs = np.take_along_axis(ex, order, axis=1)
+        if kr > 1:
+            # nan gaps (two invalid slots), +inf (valid over invalid) and
+            # zero gaps between copies of one row are no ambiguity
+            gaps = exs[:, :-1] - exs[:, 1:]
+            ids_sorted = np.take_along_axis(idxs, order, axis=1)
+            dup = ids_sorted[:, :-1] == ids_sorted[:, 1:]
+            ambiguous = ((np.nan_to_num(gaps, nan=1.0, posinf=1.0) < 1e-5)
+                         & ~dup).any(axis=1)
+            if ambiguous.any():
+                qa = q32[ambiguous].astype(np.float64)
+                rowsa = rows_u[inv[ambiguous].ravel()].astype(np.float64)
+                exa = np.einsum("qd,qkd->qk", qa,
+                                rowsa.reshape(qa.shape[0], kr, self.dim))
+                ex[ambiguous] = np.where(valid[ambiguous], exa, -np.inf)
+                order = np.argsort(-ex, axis=1, kind="stable")
+                exs = np.take_along_axis(ex, order, axis=1)
+        # sink duplicate rows: keep the best-ranked copy, re-sort stably
+        ids_sorted = np.take_along_axis(idxs, order, axis=1)
+        bys = np.argsort(ids_sorted, axis=1, kind="stable")
+        s_by = np.take_along_axis(ids_sorted, bys, axis=1)
+        dup_by = np.zeros(ids_sorted.shape, dtype=bool)
+        dup_by[:, 1:] = (s_by[:, 1:] == s_by[:, :-1]) & (s_by[:, 1:] >= 0)
+        if dup_by.any():
+            dup_sorted = np.zeros_like(dup_by)
+            np.put_along_axis(dup_sorted, bys, dup_by, axis=1)
+            exs = np.where(dup_sorted, -np.inf, exs)
+            reorder = np.argsort(-exs, axis=1, kind="stable")
+            exs = np.take_along_axis(exs, reorder, axis=1)
+            order = np.take_along_axis(order, reorder, axis=1)
+        return exs.astype(np.float32), np.take_along_axis(idxs, order, axis=1)
+
     def _dispatch_query(self, vecs, k_eff, filter_mask, mask_key=None):
         """Exact routed scan, with the underfill/crowding retry: a -inf in
         a result whose route may mark one (segmax truncation or a crowded
@@ -1215,7 +1739,9 @@ class PicoVectorDB:
         """Apply pending mutations to the device mirror (caller holds the
         write lock): scatter small change sets, re-upload past the
         `faiss_incremental_threshold_ratio` (the reference's
-        incremental-vs-full rebuild rule)."""
+        incremental-vs-full rebuild rule). A lazy store scatters from its
+        overlay at any ratio: its re-upload would first materialize the
+        host matrix."""
         size = len(self._ids)
         if size == 0:
             self._dirty = False
@@ -1223,7 +1749,9 @@ class PicoVectorDB:
         changed = sorted(self._pending_add | self._pending_remove)
         if (not self._pending_full and changed
                 and self._dev.vectors is not None and size > self._dev.cap):
-            # append epoch crossed a capacity bucket: grow on device
+            # append epoch crossed a capacity bucket: grow on device; a
+            # grow that ran out of memory returns False and leaves the
+            # store to the full re-upload below
             self._dev.grow(size)
         dev_rows = self._dev.cap
         need_full = (
@@ -1232,17 +1760,25 @@ class PicoVectorDB:
             or size > dev_rows
             or not changed  # unknown change set -> be safe
         )
-        if not need_full:
+        if not need_full and not self._host_lazy:
             ratio = len(changed) / float(max(1, min(size, dev_rows)))
             need_full = ratio > max(0.0, self._incr_threshold_ratio)
         if need_full:
+            self._ensure_host_vectors()
             self._dev.full_upload(
                 np.asarray(self._host_vectors[:size]), self._active_mask)
             self._last_sync_mode = "full"
         else:
             idxs = np.asarray(changed, dtype=np.int64)
-            rows = np.ascontiguousarray(
-                np.asarray(self._host_vectors)[idxs], dtype=Float)
+            if self._host_lazy:
+                # adds are in the overlay by construction; removed slots
+                # may not be (mask False -> row content is irrelevant)
+                zero = np.zeros(self.dim, dtype=Float)
+                rows = np.stack([self._host_overlay.get(i, zero)
+                                 for i in changed]).astype(Float, copy=False)
+            else:
+                rows = np.ascontiguousarray(
+                    np.asarray(self._host_vectors)[idxs], dtype=Float)
             self._dev.scatter(idxs, rows, self._active_mask[idxs])
             self._last_sync_mode = "incremental"
         self._pending_add.clear()

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels (`csrc/*.cu`).
 
 `nvcc` compiles every source of `picovdb_tpu_torch/csrc/` for `sm_90a`
+(one process per source, all started together) and links the objects
 into one shared library with a plain C interface, which `ctypes` loads.
 The library lands in a build directory keyed by a hash of the sources
 (`<checkout>/build/kernels/<hash>/`, or `$PICOVDB_KERNEL_BUILD_DIR`), is
@@ -24,8 +25,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
@@ -36,6 +38,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # q, v, mask, keys, Q, cap, dim, stream
     "pv_segmax_scan": [_P, _P, _P, _P, _I, _L, _I, _P],
+    # q, v, vscale, mask, keys, Q, cap, dim, stream
+    "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     # keys, out_keys, out_cols, Q, C, k, stream
     "pv_topk_packed_keys": [_P, _P, _P, _I, _L, _I, _P],
     # kind, q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, chunk,
@@ -75,25 +79,44 @@ def build() -> Path:
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out_dir = _build_dir(h.hexdigest()[:16])
     lib = out_dir / "libpicovdb_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libpicovdb_kernels.so.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
-           *[str(p) for p in srcs if p.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out_dir / f"libpicovdb_kernels.so.{tag}"
+    nvcc = _nvcc()
+    # one nvcc per source, all at once, then one link
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (p for p in srcs if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{os.getpid()}.o"  # nvcc goes by suffix
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + out[-4000:])
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(proc.stdout)
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + proc.stdout[-4000:])
     build_seconds = time.perf_counter() - t0
-    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    (out_dir / "ptxas.log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            "kernel build failed:\n" + " ".join(cmd) + "\n"
-            + (proc.stderr or proc.stdout)[-4000:]
-        )
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent builder races benignly
     return lib
 

@@ -86,3 +86,66 @@ def make_exact_topk(k: int, compute_dtype_name: Optional[str] = None,
         return exact_topk(queries, vectors, mask, k, compute_dtype_name)
 
     return fn
+
+
+def _quantized_topk(scores, rescore_fn, mask, k: int, guard: int):
+    """Masked top-(k + guard) of dense selection scores, rescored by
+    `rescore_fn(vals, idx)` and cut to k."""
+    scores = scores.masked_fill(~mask[None, :], NEG_INF)
+    k_sel = min(k + guard, scores.shape[1])
+    vals, idx = torch.topk(scores, k_sel, dim=1)
+    vals, idx = rescore_fn(vals, idx.to(torch.int32))
+    return vals[:, :k], idx[:, :k]
+
+
+def exact_topk_i8r(queries, v_i8, vscale, mask, k: int, guard: int = 4):
+    """Masked top-k over a per-ROW-quantized int8 STORAGE corpus.
+
+    Selection: the int8 query against the int8 rows (exact integer sums)
+    times the row scale; ranking: the dequantizing rescore of the
+    k + guard winners, so scores carry the storage quantization. The
+    plain route (CPU, wide k) of `storage_dtype="int8"`; it builds the
+    dense (Q, cap) score matrix."""
+    from .scan import _i8_scores, quantize_rows_i8, rescore_exact_i8r
+
+    q_i8, _ = quantize_rows_i8(queries)
+    return _quantized_topk(
+        _i8_scores(q_i8, v_i8, vscale),
+        lambda v, i: rescore_exact_i8r(queries, v_i8, vscale, v, i),
+        mask, k, guard)
+
+
+def exact_topk_i4r(queries, v_i4, vscale, mask, k: int, guard: int = 4):
+    """`exact_topk_i8r` for a packed int4 STORAGE corpus (two nibble
+    planes, see ops/scan.py): the selection scores equal the unpacked
+    int8 dot product times the row scale; ranking is the dequantizing
+    int4 rescore."""
+    from .scan import _i4_scores, quantize_rows_i8, rescore_exact_i4r
+
+    q_i8, _ = quantize_rows_i8(queries)
+    return _quantized_topk(
+        _i4_scores(q_i8, v_i4, vscale),
+        lambda v, i: rescore_exact_i4r(queries, v_i4, vscale, v, i),
+        mask, k, guard)
+
+
+def make_exact_topk_i8r(k: int, normalize: bool = True):
+    """fn(queries, v_i8, vscale, mask) -> (vals, idx)."""
+
+    def fn(queries, v_i8, vscale, mask):
+        if normalize:
+            queries = normalize_on_device(queries)
+        return exact_topk_i8r(queries, v_i8, vscale, mask, k)
+
+    return fn
+
+
+def make_exact_topk_i4r(k: int, normalize: bool = True):
+    """fn(queries, v_i4, vscale, mask) -> (vals, idx)."""
+
+    def fn(queries, v_i4, vscale, mask):
+        if normalize:
+            queries = normalize_on_device(queries)
+        return exact_topk_i4r(queries, v_i4, vscale, mask, k)
+
+    return fn

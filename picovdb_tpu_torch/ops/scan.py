@@ -1,27 +1,31 @@
 """Selection kernels of the exact scan, their plain versions, and the
 routes built from them.
 
-Counterpart of picovdb_tpu/ops/pallas_scan.py for the float32 main path.
-Four hand-written CUDA kernels (`csrc/`) take the place of the four Pallas
-kernels the path runs:
+Counterpart of picovdb_tpu/ops/pallas_scan.py for the float32 main path
+and the quantized storage tiers. Six hand-written CUDA kernels (`csrc/`)
+take the place of the six Pallas kernels those paths run:
 
   K1 `segmax_scan`      csrc/segmax.cu     per-128-row-segment top-2 keys
   K2 `topk_packed_keys` csrc/topk_keys.cu  per-query top-k_sel of the keys
-  K3 `fused_topk_i8`    csrc/scan_topk.cu  exact top-k over the int8 mirror
+  K3 `fused_topk_i8`    csrc/scan_topk.cu  exact top-k over per-row int8
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
+  K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
+  K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
 
 Each wrapper checks its inputs, allocates the outputs, and for a CUDA
 tensor launches its kernel on the current stream (raising on a launch
 error) and adds one to `LAUNCHES[name]`. For a CPU tensor it runs the
 kernel's plain PyTorch version beside it, which follows the kernel's
-decomposition (per-segment top-2 on packed keys for K1, chunked partial
-top-k plus merge for K3/K4) so the CPU tests exercise the key packing,
+decomposition (per-segment top-2 on packed keys for K1/K5, chunked
+partial top-k plus merge for K3/K4/K6, the two nibble planes and the
+8 * sum(q) bias fold for K6) so the CPU tests exercise the key packing,
 decode and merge logic the kernels rely on. There is no fallback from a
 CUDA tensor to a plain version.
 
 The `make_*` factories compose the kernels into the serving routes
-(normalize -> select -> exact float32 rescore -> crowding mark), as the
-JAX package's factories do; they return plain closures.
+(normalize -> select -> exact float32 or dequantizing rescore ->
+crowding mark), as the JAX package's factories do; they return plain
+closures.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import _build
@@ -41,14 +46,15 @@ SEG = 128  # rows per segmax segment
 
 # Kernel launches made through the wrappers, by kernel. Comparing a kernel
 # with its plain version does not go through a wrapper's counted path.
-LAUNCHES = {"segmax": 0, "topk_keys": 0, "scan_topk": 0, "scan_topk_i8": 0}
+LAUNCHES = {"segmax": 0, "topk_keys": 0, "scan_topk": 0, "scan_topk_i8": 0,
+            "segmax_i8": 0, "scan_topk_i4": 0}
 # Requests whose k_sel exceeded SCAN_KSEL_MAX and went to the plain exact
-# scan instead of K3/K4 (the JAX package's `k > bn` fallback).
-WIDE_K_FALLBACKS = {"scan_topk": 0, "scan_topk_i8": 0}
+# scan instead of K3/K4/K6 (the JAX package's `k > bn` fallback).
+WIDE_K_FALLBACKS = {"scan_topk": 0, "scan_topk_i8": 0, "scan_topk_i4": 0}
 
 TOPK_KEYS_MAX = 32  # K2's k_sel bound (segmax k + guard <= 22)
-SCAN_KSEL_MAX = 1024  # K3/K4's k_sel bound
-_PLAIN_CHUNK = 4096  # corpus rows per partial top-k in the plain K3/K4
+SCAN_KSEL_MAX = 1024  # K3/K4/K6's k_sel bound
+_PLAIN_CHUNK = 4096  # corpus rows per partial top-k in the plain K3/K4/K6
 
 
 def reset_launch_counts() -> None:
@@ -79,6 +85,82 @@ def quantize_rows_i8(v: torch.Tensor):
     return torch.clamp(q, -127, 127).to(torch.int8), s
 
 
+# ---------------------------------------------------------------------------
+# int4 storage: two-plane nibble packing, 0.5 B/element
+#
+# Element j < dim/2 lives in the LOW nibble of byte j, element j + dim/2 in
+# the HIGH nibble; both nibbles store value + 8 (unsigned 1..15), so the
+# int4 dot is q[:, :d/2] . lo + q[:, d/2:] . hi - 8 * sum(q). Bit for bit
+# the layout of picovdb_tpu's quantize_rows_i4.
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows_i4(v: torch.Tensor):
+    """Per-row symmetric int4 quantization: (packed int8 (n, dim/2),
+    scales f32 (n,)).
+
+    scales[r] = max|v[r]| / 7 (floored like `quantize_rows_i8`; the
+    division is a multiplication by float32(1/7), as XLA compiles it);
+    nibbles are clip(round(v / s), -7, 7) + 8. `dim` must be even."""
+    f = v.float()
+    half = f.shape[1] // 2
+    s = torch.clamp(f.abs().amax(dim=1), min=1e-30) * (1.0 / 7.0)
+    q = torch.clamp(torch.round(f / s[:, None]), -7, 7).to(torch.int32) + 8
+    packed = q[:, :half] | (q[:, half:] << 4)
+    # the byte as a signed int8 (XLA's int32 -> int8 keeps the low 8 bits)
+    packed = torch.where(packed > 127, packed - 256, packed)
+    return packed.to(torch.int8), s
+
+
+def unpack_i4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., dim/2) packed int8 -> (..., dim) int8 values in [-7, 7]
+    (unscaled; multiply by the row scales to dequantize)."""
+    p = packed.to(torch.int32) & 255
+    return torch.cat([(p & 15) - 8, ((p >> 4) & 15) - 8], dim=-1).to(torch.int8)
+
+
+def unpack_i4_np_into(packed: np.ndarray, out: np.ndarray) -> None:
+    """NumPy `unpack_i4` for host paths, writing the unscaled values into
+    a caller-provided (n, dim) buffer (no (n, dim) integer temporary)."""
+    half = packed.shape[1]
+    p = packed.astype(np.int16) & 255
+    out[:, :half] = (p & 15) - 8
+    out[:, half:] = ((p >> 4) & 15) - 8
+
+
+def _int_acc(dim: int, bound: int) -> torch.dtype:
+    """Float type in which integer dot products with |sum| <= bound * dim
+    stay exact: float32 below 2^24, float64 above."""
+    return torch.float64 if bound * dim >= 2**24 else torch.float32
+
+
+def _i4_planes(packed: torch.Tensor, dtype: torch.dtype):
+    """The biased nibble planes (values 1..15; 0 in zero padding)."""
+    p = packed.to(torch.int32) & 255
+    return (p & 15).to(dtype), ((p >> 4) & 15).to(dtype)
+
+
+def _i4_scores(q_i8: torch.Tensor, v_i4: torch.Tensor,
+               vscale: torch.Tensor) -> torch.Tensor:
+    """Scaled int4 scores as K6 computes them: the two half-width integer
+    products minus the 8 * sum(q) bias, exact, then times the row scale."""
+    dim = q_i8.shape[1]
+    half = dim // 2
+    acc = _int_acc(dim, 127 * 23)
+    q = q_i8.to(acc)
+    lo, hi = _i4_planes(v_i4, acc)
+    s = q[:, :half] @ lo.T + q[:, half:] @ hi.T - 8 * q.sum(dim=1, keepdim=True)
+    return s.float() * vscale
+
+
+def _i8_scores(q_i8: torch.Tensor, v_i8: torch.Tensor,
+               vscale: torch.Tensor) -> torch.Tensor:
+    """Scaled int8 scores: the exact integer dot product, then times the
+    row scale in float32 (the kernels' int32 sum, converted, scaled)."""
+    acc = _int_acc(q_i8.shape[1], 127 * 127)
+    return (q_i8.to(acc) @ v_i8.to(acc).T).float() * vscale
+
+
 def rescore_exact(queries, vectors, vals, idxs):
     """Replace selection scores with exact float32 dot products.
 
@@ -86,6 +168,34 @@ def rescore_exact(queries, vectors, vals, idxs):
     keeps -inf padding markers, and re-sorts by the exact scores."""
     gathered = vectors[idxs.long()].float()  # (Q, k, dim)
     exact = torch.einsum("qd,qkd->qk", queries.float(), gathered)
+    return _pin_and_sort(exact, vals, idxs)
+
+
+def rescore_exact_i8r(queries, v_i8, vscale, vals, idxs):
+    """Dequantizing rescore against a per-row int8 STORAGE corpus: the
+    winners are reconstructed as v_i8[row] * vscale[row], the best the
+    store holds; scores carry the storage quantization."""
+    idx = idxs.long()
+    exact = torch.einsum("qd,qkd->qk", queries.float(), v_i8[idx].float())
+    return _pin_and_sort(exact * vscale[idx], vals, idxs)
+
+
+def rescore_exact_i4r(queries, v_i4, vscale, vals, idxs):
+    """`rescore_exact_i8r` for the packed int4 layout: the winners unpack
+    to [-7, 7] and reconstruct as nibble * vscale[row]."""
+    idx = idxs.long()
+    g = v_i4[idx].to(torch.int32) & 255
+    lo = ((g & 15) - 8).float()
+    hi = (((g >> 4) & 15) - 8).float()
+    half = v_i4.shape[1]
+    q = queries.float()
+    exact = (torch.einsum("qd,qkd->qk", q[:, :half], lo)
+             + torch.einsum("qd,qkd->qk", q[:, half:], hi))
+    return _pin_and_sort(exact * vscale[idx], vals, idxs)
+
+
+def _pin_and_sort(exact, vals, idxs):
+    """-inf where the selection was empty, then a stable descending sort."""
     exact = torch.where(torch.isneginf(vals), float("-inf"), exact)
     order = torch.argsort(-exact, dim=1, stable=True)
     return exact.gather(1, order), idxs.gather(1, order)
@@ -132,8 +242,19 @@ def _require(cond: bool, msg: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K1 segmax_scan
+# K1 segmax_scan, K5 segmax_scan_i8
 # ---------------------------------------------------------------------------
+
+
+def _segmax_checks(name, queries, vectors, mask):
+    num_q, dim = queries.shape
+    cap = vectors.shape[0]
+    _require(vectors.ndim == 2 and vectors.shape[1] == dim,
+             f"{name}: vectors {tuple(vectors.shape)} vs dim {dim}")
+    _require(cap % SEG == 0, f"{name}: cap {cap} is not a multiple of {SEG}")
+    _require(mask.shape == (cap,) and mask.dtype == torch.bool,
+             f"{name}: mask must be (cap,) bool")
+    return num_q, cap, dim
 
 
 def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
@@ -146,13 +267,7 @@ def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
     float32 sums) with its low 7 bits replaced by the row's lane; masked
     rows carry KEY_MIN. Row of a key in column c: (c // 2) * 128 +
     (key & 127)."""
-    num_q, dim = queries.shape
-    cap = vectors.shape[0]
-    _require(vectors.ndim == 2 and vectors.shape[1] == dim,
-             f"segmax_scan: vectors {tuple(vectors.shape)} vs dim {dim}")
-    _require(cap % SEG == 0, f"segmax_scan: cap {cap} is not a multiple of {SEG}")
-    _require(mask.shape == (cap,) and mask.dtype == torch.bool,
-             "segmax_scan: mask must be (cap,) bool")
+    num_q, cap, dim = _segmax_checks("segmax_scan", queries, vectors, mask)
     if not queries.is_cuda:
         return segmax_scan_plain(queries, vectors, mask)
     _require(queries.dtype == torch.bfloat16 and vectors.dtype == torch.bfloat16,
@@ -171,12 +286,10 @@ def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
     return keys
 
 
-def segmax_scan_plain(queries, vectors, mask):
-    """Plain version of K1: the same keys from a dense score matrix."""
-    num_q = queries.shape[0]
-    cap = vectors.shape[0]
+def _segmax_keys(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(Q, cap) float32 scores -> the (Q, 2 * cap / 128) segment keys."""
+    num_q, cap = scores.shape
     nseg = cap // SEG
-    scores = queries.to(vectors.dtype).float() @ vectors.float().T
     keys = _to_sortable(scores.view(torch.int32)).reshape(num_q, nseg, SEG)
     lane = torch.arange(SEG, dtype=torch.int32, device=keys.device)
     keys = (keys & ~(SEG - 1)) | lane
@@ -186,6 +299,47 @@ def segmax_scan_plain(queries, vectors, mask):
     m1 = keys.amax(dim=2)
     m2 = torch.where(keys == m1[:, :, None], KEY_MIN, keys).amax(dim=2)
     return torch.stack([m1, m2], dim=2).reshape(num_q, 2 * nseg)
+
+
+def segmax_scan_plain(queries, vectors, mask):
+    """Plain version of K1: the same keys from a dense score matrix."""
+    scores = queries.to(vectors.dtype).float() @ vectors.float().T
+    return _segmax_keys(scores, mask)
+
+
+def segmax_scan_i8(q_i8: torch.Tensor, v_i8: torch.Tensor,
+                   vscale: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K1 over a per-row int8 corpus (K5): the same (Q, 2 * cap / 128)
+    key slab, from scores (q_i8 . v_i8, an exact integer sum) * vscale[row]
+    in float32. The query's own scale is a positive per-query constant and
+    cannot change its ranking, so it is not applied."""
+    num_q, cap, dim = _segmax_checks("segmax_scan_i8", q_i8, v_i8, mask)
+    _require(vscale.shape == (cap,), "segmax_scan_i8: vscale must be (cap,)")
+    if not q_i8.is_cuda:
+        return segmax_scan_i8_plain(q_i8, v_i8, vscale, mask)
+    _require(q_i8.dtype == torch.int8 and v_i8.dtype == torch.int8
+             and vscale.dtype == torch.float32,
+             "segmax_scan_i8: takes int8 queries and vectors, f32 scales")
+    _require(v_i8.is_cuda and mask.is_cuda and vscale.is_cuda,
+             "segmax_scan_i8: mixed devices")
+    q = q_i8.contiguous()
+    _require(v_i8.is_contiguous() and mask.is_contiguous()
+             and vscale.is_contiguous(),
+             "segmax_scan_i8: vectors, scales and mask must be contiguous")
+    keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
+                       device=q.device)
+    err = _build.library().pv_segmax_scan_i8(
+        q.data_ptr(), v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
+        keys.data_ptr(), num_q, cap, dim, _stream(q))
+    _build.check(err, "segmax_scan_i8")
+    LAUNCHES["segmax_i8"] += 1
+    return keys
+
+
+def segmax_scan_i8_plain(q_i8, v_i8, vscale, mask):
+    """Plain version of K5: exact integer products, scaled, then K1's
+    key packing."""
+    return _segmax_keys(_i8_scores(q_i8, v_i8, vscale), mask)
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +377,11 @@ def topk_packed_keys_plain(keys, k_sel):
 
 
 # ---------------------------------------------------------------------------
-# K3 fused_topk_i8 / K4 fused_topk
+# K3 fused_topk_i8 / K4 fused_topk / K6 fused_topk_i4
 # ---------------------------------------------------------------------------
+
+# pv_scan_topk's corpus kinds
+_KIND_F32, _KIND_BF16, _KIND_I8, _KIND_I4 = 0, 1, 2, 3
 
 
 def _scan_chunk(cap: int, q_tiles: int, num_q: int, k: int,
@@ -238,22 +395,26 @@ def _scan_chunk(cap: int, q_tiles: int, num_q: int, k: int,
     return -(-chunk // SEG) * SEG
 
 
-def _scan_topk(queries, vectors, vscale, mask, k: int, name: str):
+def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
+               int4: bool = False):
     num_q, dim = queries.shape
     cap = vectors.shape[0]
-    _require(vectors.ndim == 2 and vectors.shape[1] == dim,
-             f"{name}: vectors {tuple(vectors.shape)} vs dim {dim}")
+    vdim = dim // 2 if int4 else dim
+    _require(vectors.ndim == 2 and vectors.shape[1] == vdim
+             and (not int4 or dim % 2 == 0),
+             f"{name}: vectors {tuple(vectors.shape)} vs query dim {dim}")
     _require(mask.shape == (cap,) and mask.dtype == torch.bool,
              f"{name}: mask must be (cap,) bool")
     _require(0 < k <= SCAN_KSEL_MAX, f"{name}: k {k} outside 1..{SCAN_KSEL_MAX}")
     if not queries.is_cuda:
-        return scan_topk_plain(queries, vectors, vscale, mask, k)
+        return scan_topk_plain(queries, vectors, vscale, mask, k, int4=int4)
     if vscale is None:
-        kind = {torch.float32: 0, torch.bfloat16: 1}.get(vectors.dtype)
+        kind = {torch.float32: _KIND_F32,
+                torch.bfloat16: _KIND_BF16}.get(vectors.dtype)
         _require(kind is not None and queries.dtype == torch.float32,
                  f"{name}: takes float32 queries over float32/bf16 vectors")
     else:
-        kind = 2
+        kind = _KIND_I4 if int4 else _KIND_I8
         _require(vectors.dtype == torch.int8 and queries.dtype == torch.int8
                  and vscale.dtype == torch.float32 and vscale.shape == (cap,),
                  f"{name}: takes int8 queries, int8 vectors, (cap,) f32 scales")
@@ -281,24 +442,26 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str):
 
 
 def scan_topk_plain(queries, vectors, vscale, mask, k: int,
-                    chunk: int = _PLAIN_CHUNK):
-    """Plain version of K3/K4: per-chunk partial top-k, then a merge.
+                    chunk: int = _PLAIN_CHUNK, int4: bool = False):
+    """Plain version of K3/K4/K6: per-chunk partial top-k, then a merge.
 
-    int8 products are summed in float32 while they stay exact integers
-    (|sum| < 2^24, i.e. dim <= 1040) and in float64 beyond, so they equal
-    the kernel's int32 sums before the row scale."""
+    Integer products (int8, and int4's two nibble planes minus the
+    8 * sum(q) bias) are summed exactly, in float32 while |sum| < 2^24 and
+    in float64 beyond, so they equal the kernels' int32 sums before the
+    row scale."""
     num_q = queries.shape[0]
-    cap, dim = vectors.shape
-    acc = (torch.float64 if vscale is not None and 127 * 127 * dim >= 2**24
-           else torch.float32)
-    qf = queries.to(acc)
+    cap = vectors.shape[0]
+    if vscale is None:
+        qf = queries.float()
     cand_v, cand_i = [], []
     for s in range(0, cap, chunk):
         e = min(cap, s + chunk)
-        sc = qf @ vectors[s:e].to(acc).T
-        sc = sc.float()
-        if vscale is not None:
-            sc = sc * vscale[s:e]
+        if int4:
+            sc = _i4_scores(queries, vectors[s:e], vscale[s:e])
+        elif vscale is not None:
+            sc = _i8_scores(queries, vectors[s:e], vscale[s:e])
+        else:
+            sc = qf @ vectors[s:e].float().T
         sc = sc.masked_fill(~mask[s:e], float("-inf"))
         tv, ti = torch.topk(sc, min(k, e - s), dim=1)
         cand_v.append(tv)
@@ -311,6 +474,13 @@ def scan_topk_plain(queries, vectors, vscale, mask, k: int,
         vals = torch.cat([vals, vals.new_full((num_q, k - kk), float("-inf"))], 1)
         idx = torch.cat([idx, idx.new_zeros((num_q, k - kk))], 1)
     idx = torch.where(torch.isneginf(vals), 0, idx)
+    return vals, idx.to(torch.int32)
+
+
+def _dense_topk(scores, mask, k: int):
+    """Masked dense top-k of a (Q, cap) score matrix (the wide-k path)."""
+    scores = scores.masked_fill(~mask[None, :], float("-inf"))
+    vals, idx = torch.topk(scores, min(k, scores.shape[1]), dim=1)
     return vals, idx.to(torch.int32)
 
 
@@ -334,11 +504,22 @@ def fused_topk_i8(q_i8, v_i8, vscale, mask, k: int):
     positive per-query constant and cannot change its ranking."""
     if k > SCAN_KSEL_MAX:
         WIDE_K_FALLBACKS["scan_topk_i8"] += 1
-        sc = (q_i8.float() @ v_i8.float().T) * vscale[None, :]
-        sc = sc.masked_fill(~mask[None, :], float("-inf"))
-        vals, idx = torch.topk(sc, min(k, v_i8.shape[0]), dim=1)
-        return vals, idx.to(torch.int32)
+        return _dense_topk(_i8_scores(q_i8, v_i8, vscale), mask, k)
     return _scan_topk(q_i8, v_i8, vscale, mask, k, "scan_topk_i8")
+
+
+def fused_topk_i4(q_i8, v_i4, vscale, mask, k: int):
+    """Exact masked top-k over a packed int4 corpus (K6).
+
+    q_i8 (Q, dim) int8, v_i4 (cap, dim / 2) packed nibbles (the
+    `quantize_rows_i4` layout), vscale (cap,) f32, mask (cap,) bool ->
+    ((Q, k) scaled scores, (Q, k) int32 rows). The unpacked corpus is
+    never materialized; k beyond SCAN_KSEL_MAX takes the plain dense scan
+    of `exact_topk_i4r`'s selection."""
+    if k > SCAN_KSEL_MAX:
+        WIDE_K_FALLBACKS["scan_topk_i4"] += 1
+        return _dense_topk(_i4_scores(q_i8, v_i4, vscale), mask, k)
+    return _scan_topk(q_i8, v_i4, vscale, mask, k, "scan_topk_i4", int4=True)
 
 
 # ---------------------------------------------------------------------------
@@ -346,48 +527,96 @@ def fused_topk_i8(q_i8, v_i8, vscale, mask, k: int):
 # ---------------------------------------------------------------------------
 
 
-def segmax_topk(queries, scan_vectors, rescore_vectors, mask, k: int,
-                guard: int = 6, normalize: bool = True,
-                tie_scale: Optional[float] = None):
-    """Batch route: segmax candidates (K1) -> top-k_sel of the keys (K2) ->
-    exact float32 rescore -> crowding mark.
-
-    queries (Q, dim) f32, scan_vectors (cap, dim) bf16 mirror,
-    rescore_vectors (cap, dim) f32, mask (cap,) bool -> ((Q, k) exact
-    scores, (Q, k) int32 rows). The rescore uses the float32 queries."""
-    if tie_scale is None:
-        tie_scale = _tie_scale_env()
-    if normalize:
-        queries = normalize_on_device(queries)
-    keys = segmax_scan(queries.to(scan_vectors.dtype), scan_vectors, mask)
+def _segmax_finish(queries, keys, rescore_vectors, k: int, guard: int,
+                   margin: float, vscale=None, slots=None):
+    """The tail shared by the segmax routes: top-k_sel of the key slab
+    (K2), decode to rows, (view row -> corpus slot through `slots`),
+    exact rescore (times the row scale for int8 storage), crowding mark."""
     k_sel = min(k + guard, keys.shape[1])
     tk, ti = topk_packed_keys(keys, k_sel)
     gidx = (ti // 2) * SEG + (tk & (SEG - 1))
     empty = tk == KEY_MIN
     gidx = torch.where(empty, 0, gidx)
+    if slots is not None:
+        gidx = slots[gidx.long()]
     gathered = rescore_vectors[gidx.long()].float()
     exact = torch.einsum("qd,qkd->qk", queries, gathered)
+    if vscale is not None:
+        exact = exact * vscale[gidx.long()]
     exact = torch.where(empty, float("-inf"), exact)
     order = torch.argsort(-exact, dim=1, stable=True)
     vals_full = exact.gather(1, order)
-    vals = _mark_crowded(vals_full[:, :k], vals_full, k,
-                         _tie_margin("bf16", queries.shape[1], tie_scale))
+    vals = _mark_crowded(vals_full[:, :k], vals_full, k, margin)
     return vals, gidx.gather(1, order)[:, :k].to(torch.int32)
+
+
+def segmax_topk(queries, scan_vectors, rescore_vectors, mask, k: int,
+                guard: int = 6, normalize: bool = True,
+                tie_scale: Optional[float] = None, slots=None):
+    """Batch route: segmax candidates (K1) -> top-k_sel of the keys (K2) ->
+    exact float32 rescore -> crowding mark.
+
+    queries (Q, dim) f32, scan_vectors (cap, dim) bf16 mirror,
+    rescore_vectors (cap, dim) f32, mask (cap,) bool -> ((Q, k) exact
+    scores, (Q, k) int32 rows). The rescore uses the float32 queries.
+
+    `slots` serves a compacted corpus view (the filtered-batch route,
+    DeviceIndex._filter_view): scan_vectors and mask are the view's, and
+    `slots[view_row]` is the row's corpus slot. Candidates translate
+    before the rescore, which reads the full-capacity corpus, and the
+    returned rows are corpus slots."""
+    if tie_scale is None:
+        tie_scale = _tie_scale_env()
+    if normalize:
+        queries = normalize_on_device(queries)
+    keys = segmax_scan(queries.to(scan_vectors.dtype), scan_vectors, mask)
+    return _segmax_finish(queries, keys, rescore_vectors, k, guard,
+                          _tie_margin("bf16", queries.shape[1], tie_scale),
+                          slots=slots)
 
 
 def make_segmax_topk(k: int, guard: int = 6, normalize: bool = True,
                      tie_scale: Optional[float] = None):
-    """fn(queries, scan_vectors, rescore_vectors, mask) -> (vals, idx)."""
-    return lambda q, sv, rv, m: segmax_topk(q, sv, rv, m, k, guard,
-                                            normalize, tie_scale)
+    """fn(queries, scan_vectors, rescore_vectors, mask[, slots]) ->
+    (vals, idx)."""
+    return lambda q, sv, rv, m, slots=None: segmax_topk(
+        q, sv, rv, m, k, guard, normalize, tie_scale, slots)
+
+
+def make_segmax_topk_i8(k: int, guard: int = 6, normalize: bool = True,
+                        tie_scale: Optional[float] = None,
+                        rescore_dequant: bool = False):
+    """Batch route over a per-row int8 corpus: K5 segment keys -> K2 ->
+    exact rescore -> crowding mark.
+
+    fn(queries f32, v_i8, vscale, rescore_vectors, mask) -> (vals, idx).
+    `rescore_dequant=True` serves int8 STORAGE: rescore_vectors is the
+    int8 corpus itself and the winners are reconstructed through the row
+    scales (see rescore_exact_i8r); otherwise it is the float32 corpus."""
+    if tie_scale is None:
+        tie_scale = _tie_scale_env()
+
+    def fn(queries, v_i8, vscale, rescore_vectors, mask):
+        if normalize:
+            queries = normalize_on_device(queries)
+        q_i8, _ = quantize_rows_i8(queries)
+        keys = segmax_scan_i8(q_i8, v_i8, vscale, mask)
+        return _segmax_finish(
+            queries, keys, rescore_vectors, k, guard,
+            _tie_margin("i8", queries.shape[1], tie_scale),
+            vscale=vscale if rescore_dequant else None)
+
+    return fn
 
 
 def make_fused_topk_i8(k: int, guard: int = 4, normalize: bool = True,
-                       tie_scale: Optional[float] = None):
-    """Small-batch route: exact selection over the int8 mirror (K3) +
-    exact float32 rescore + crowding mark.
+                       tie_scale: Optional[float] = None,
+                       rescore_dequant: bool = False):
+    """Small-batch route: exact selection over a per-row int8 corpus (K3)
+    + exact float32 (or, for int8 storage, dequantizing) rescore +
+    crowding mark.
 
-    fn(queries f32, v_i8, vscale, rescore_vectors f32, mask) -> (vals, idx)
+    fn(queries f32, v_i8, vscale, rescore_vectors, mask) -> (vals, idx)
     """
     if tie_scale is None:
         tie_scale = _tie_scale_env()
@@ -397,10 +626,34 @@ def make_fused_topk_i8(k: int, guard: int = 4, normalize: bool = True,
             queries = normalize_on_device(queries)
         q_i8, _ = quantize_rows_i8(queries)
         vals, idx = fused_topk_i8(q_i8, v_i8, vscale, mask, k + max(0, guard))
-        vals, idx = rescore_exact(queries, rescore_vectors, vals, idx)
+        if rescore_dequant:
+            vals, idx = rescore_exact_i8r(queries, v_i8, vscale, vals, idx)
+        else:
+            vals, idx = rescore_exact(queries, rescore_vectors, vals, idx)
         out = _mark_crowded(vals[:, :k], vals, k,
                             _tie_margin("i8", queries.shape[1], tie_scale))
         return out, idx[:, :k]
+
+    return fn
+
+
+def make_fused_topk_i4(k: int, guard: int = 4, normalize: bool = True,
+                       tie_scale: Optional[float] = None):
+    """int4-storage route: exact selection over the packed corpus (K6) +
+    dequantizing rescore. Never marked crowded (`tie_scale` is accepted
+    for signature parity): no finer device tier exists to retry into;
+    exact ranking of host-born stores comes from the engine's host rescore.
+
+    fn(queries f32, v_i4, vscale, mask) -> (vals, idx)"""
+    del tie_scale
+
+    def fn(queries, v_i4, vscale, mask):
+        if normalize:
+            queries = normalize_on_device(queries)
+        q_i8, _ = quantize_rows_i8(queries)
+        vals, idx = fused_topk_i4(q_i8, v_i4, vscale, mask, k + max(0, guard))
+        vals, idx = rescore_exact_i4r(queries, v_i4, vscale, vals, idx)
+        return vals[:, :k], idx[:, :k]
 
     return fn
 
@@ -432,7 +685,8 @@ def make_fused_topk(k: int, compute_dtype_name: Optional[str] = None,
     """Exact selection over the corpus itself (K4) + exact rescore.
 
     fn(queries, vectors, mask) -> (vals, idx). With compute_dtype_name
-    "bfloat16" the selection reads bf16 copies of the queries and rows."""
+    "bfloat16" the selection reads bf16 copies of the queries and rows
+    (a bf16 corpus is read as it is)."""
     k_sel = k + max(0, guard) if rescore else k
 
     def fn(queries, vectors, mask):

@@ -223,11 +223,195 @@ def save_atomic(
                     pass
 
 
-def has_quantized(base: str) -> bool:
-    """Whether `base` holds a quantized checkpoint (packed plane, scales
-    and info file), the format of picovdb_tpu's quantized storage tiers."""
-    return all(os.path.exists(p) for p in
-               (qvecs_path(base), qscale_path(base), qinfo_path(base)))
+def save_quantized_atomic(
+    base: str,
+    ids: list,
+    docs: list,
+    additional: dict,
+    chunk_iter,
+    n_rows: int,
+    cols: int,
+    storage_dtype: str,
+    embedding_dim: int,
+    overlay: Optional[dict] = None,
+    ann_blob: Optional[dict] = None,
+) -> None:
+    """Persist a quantized capacity-tier store WITHOUT an f32 matrix.
+
+    The int8 / packed-int4 storage tiers hold corpora whose float32 form
+    outgrows host memory (a 16M x 1024 store is 64 GB as float32), so the
+    reference's f32 checkpoint (picovdb/pico_vdb.py:330-393) would have to
+    materialize it. This writes the packed storage plane + the per-row
+    scales, streamed chunk by chunk from `chunk_iter` (yields host
+    (packed_rows, scales) pairs) into disk-backed memmaps — peak host RSS
+    is one chunk + the page cache, never the corpus. The format is
+    picovdb_tpu's: a checkpoint written by either package loads in the
+    other.
+
+    Layout next to the reference-compatible files:
+      <base>.vecs.q.npy       int8 plane ((n, dim) int8 / (n, dim//2) int4)
+      <base>.vecs.qscale.npy  (n,) float32 per-row dequantization scales
+      <base>.vecs.q.json      {"storage_dtype", "rows", "dim"}
+      <base>.vecs.overlay.npz exact f32 rows mutated while lazy (optional)
+
+    Atomicity matches `save_atomic`: tmp files + os.replace, stragglers
+    removed on failure. A previous f32 matrix / shard set for the same
+    base is removed after the replace so a reload cannot pair stale f32
+    rows with fresh ids.
+    """
+    ids_file, mfile = ids_path(base), meta_path(base)
+    qfile, sfile, ifile = qvecs_path(base), qscale_path(base), qinfo_path(base)
+    ofile = overlay_path(base)
+    ann_file = ann_path(base)
+    tmp = {
+        "ids": f"{ids_file}.tmp", "meta": f"{mfile}.tmp",
+        "q": f"{qfile}.tmp.npy", "s": f"{sfile}.tmp.npy",
+        "info": f"{ifile}.tmp", "ovl": f"{ofile}.tmp",
+        "ann": f"{ann_file}.tmp",
+    }
+    try:
+        with open(tmp["ids"], "w", encoding="utf-8") as f:
+            json.dump(ids, f, ensure_ascii=False)
+        plane = np.lib.format.open_memmap(
+            tmp["q"], mode="w+", dtype=np.int8, shape=(n_rows, cols)
+        )
+        scales = np.lib.format.open_memmap(
+            tmp["s"], mode="w+", dtype=np.float32, shape=(n_rows,)
+        )
+        row = 0
+        for pc, sc in chunk_iter:
+            m = pc.shape[0]
+            plane[row : row + m] = pc
+            scales[row : row + m] = sc
+            row += m
+        if row != n_rows:
+            raise ValueError(
+                f"quantized save streamed {row} rows, expected {n_rows}"
+            )
+        plane.flush()
+        scales.flush()
+        del plane, scales
+        with open(tmp["info"], "w", encoding="utf-8") as f:
+            json.dump(
+                {"storage_dtype": storage_dtype, "rows": n_rows,
+                 "dim": embedding_dim}, f,
+            )
+        with open(tmp["meta"], "w", encoding="utf-8") as f:
+            json.dump(
+                {"embedding_dim": embedding_dim, "data": docs,
+                 "additional_data": additional}, f, ensure_ascii=False,
+            )
+        if overlay:
+            idx = np.fromiter(overlay.keys(), dtype=np.int64,
+                              count=len(overlay))
+            rows = np.stack([np.asarray(overlay[int(i)], dtype=Float)
+                             for i in idx])
+            with open(tmp["ovl"], "wb") as f:
+                np.savez(f, idx=idx, rows=rows)
+        if ann_blob is not None:
+            with open(tmp["ann"], "wb") as f:
+                np.savez(f, **ann_blob)
+
+        os.replace(tmp["ids"], ids_file)
+        os.replace(tmp["q"], qfile)
+        os.replace(tmp["s"], sfile)
+        os.replace(tmp["info"], ifile)
+        os.replace(tmp["meta"], mfile)
+        if overlay:
+            os.replace(tmp["ovl"], ofile)
+        elif os.path.exists(ofile):
+            os.remove(ofile)  # stale overlay from a previous save
+        if ann_blob is not None:
+            os.replace(tmp["ann"], ann_file)
+        # a stale f32 matrix / shard set must not shadow the fresh plane
+        if os.path.exists(vecs_path(base)):
+            os.remove(vecs_path(base))
+        for stale in find_shards(base):
+            try:
+                os.remove(stale)
+            except OSError:
+                logger.warning("Could not remove stale shard %s", stale)
+        logger.info("Saved %d vectors (quantized %s plane)",
+                    len(ids), storage_dtype)
+    finally:
+        for t in tmp.values():
+            if os.path.exists(t):
+                try:
+                    os.remove(t)
+                except OSError:
+                    pass
+
+
+def save_ids_meta_atomic(
+    base: str,
+    ids: list,
+    docs: list,
+    additional: dict,
+    embedding_dim: int,
+    ann_blob: Optional[dict] = None,
+) -> None:
+    """Atomically write the ids/meta (+ optional ANN) files only — the
+    multi-process saver writes vector shards per process and has the
+    coordinator call this for the shared metadata."""
+    ids_file, mfile = ids_path(base), meta_path(base)
+    ann_file = ann_path(base)
+    tmp_ids, tmp_meta, tmp_ann = (
+        f"{ids_file}.tmp", f"{mfile}.tmp", f"{ann_file}.tmp"
+    )
+    try:
+        with open(tmp_ids, "w", encoding="utf-8") as f:
+            json.dump(ids, f, ensure_ascii=False)
+        with open(tmp_meta, "w", encoding="utf-8") as f:
+            json.dump(
+                {"embedding_dim": embedding_dim, "data": docs,
+                 "additional_data": additional}, f, ensure_ascii=False,
+            )
+        if ann_blob is not None:
+            with open(tmp_ann, "wb") as f:
+                np.savez(f, **ann_blob)
+        os.replace(tmp_ids, ids_file)
+        os.replace(tmp_meta, mfile)
+        if ann_blob is not None:
+            os.replace(tmp_ann, ann_file)
+    finally:
+        for t in (tmp_ids, tmp_meta, tmp_ann):
+            if os.path.exists(t):
+                try:
+                    os.remove(t)
+                except OSError:
+                    pass
+
+
+def load_quantized(base: str) -> Optional[dict]:
+    """Read a quantized store's plane/scales (memmapped, read-only) plus
+    the exact-row overlay; None when this base has no quantized plane."""
+    qfile, sfile, ifile = qvecs_path(base), qscale_path(base), qinfo_path(base)
+    if not (os.path.exists(qfile) and os.path.exists(sfile)
+            and os.path.exists(ifile)):
+        return None
+    with open(ifile, "r", encoding="utf-8") as f:
+        info = json.load(f)
+    plane = np.load(qfile, mmap_mode="r")
+    scales = np.load(sfile, mmap_mode="r")
+    if plane.ndim != 2 or plane.shape[0] != int(info["rows"]):
+        raise ValueError(
+            f"quantized plane shape {plane.shape} disagrees with "
+            f"{ifile} rows={info['rows']}"
+        )
+    overlay: dict[int, np.ndarray] = {}
+    ofile = overlay_path(base)
+    if os.path.exists(ofile):
+        with np.load(ofile, allow_pickle=False) as z:
+            for i, r in zip(z["idx"], z["rows"]):
+                overlay[int(i)] = np.array(r, dtype=Float)
+    return {
+        "storage_dtype": str(info["storage_dtype"]),
+        "rows": int(info["rows"]),
+        "dim": int(info["dim"]),
+        "plane": plane,
+        "scales": scales,
+        "overlay": overlay,
+    }
 
 
 def shard_path(base: str, i: int, n: int) -> str:

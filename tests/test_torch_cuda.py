@@ -6,8 +6,9 @@ present (the CPU test runs), and runs on the card with
     python -m pytest tests/test_torch_cuda.py -q
 
 Shapes are small; `chip_smoke.py` checks the same kernels at the main
-path's shapes. Tolerances: keys and int8 scores are exact (integer sums);
-float32 / bf16 scores within 1e-5 (summation order).
+path's shapes. Tolerances: K5 keys and int8 / int4 scores are exact
+(integer sums, one float32 conversion and one multiply); float32 / bf16
+scores within 1e-5 (summation order).
 """
 
 import pytest
@@ -76,12 +77,48 @@ def test_scan_topk(dev, kind, k, dim):
     assert bool(mask[got[1].long()].all())
 
 
+@pytest.mark.parametrize("dim", [96, 50, 1024])
+def test_segmax_scan_i8_keys_exact(dev, dim):
+    q, v, mask = _data(dev, dim=dim, nq=200)
+    q8, _ = scan.quantize_rows_i8(q)
+    v8, vs = scan.quantize_rows_i8(v)
+    before = scan.LAUNCHES["segmax_i8"]
+    keys = scan.segmax_scan_i8(q8, v8, vs, mask)
+    assert scan.LAUNCHES["segmax_i8"] == before + 1
+    ref = scan.segmax_scan_i8_plain(q8, v8, vs, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref)
+
+
+@pytest.mark.parametrize("dim", [96, 50, 1024])
+@pytest.mark.parametrize("nq,k", [(1, 14), (16, 14), (16, 526), (40, 100)])
+def test_fused_topk_i4_exact(dev, dim, nq, k):
+    if dim % 2:
+        dim += 1  # int4 packs two elements per byte
+    q, v, mask = _data(dev, dim=dim, nq=nq)
+    q8, _ = scan.quantize_rows_i8(q)
+    v4, vs = scan.quantize_rows_i4(v)
+    before = scan.LAUNCHES["scan_topk_i4"]
+    got = scan.fused_topk_i4(q8, v4, vs, mask, k)
+    assert scan.LAUNCHES["scan_topk_i4"] == before + 1
+    ref = scan.scan_topk_plain(q8, v4, vs, mask, k, int4=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    assert bool(mask[got[1].long()].all())
+
+
 def test_unsupported_input_raises(dev):
     q, v, mask = _data(dev)
     with pytest.raises(ValueError):
         scan.segmax_scan(q, v, mask)  # the kernel takes bf16 only
     with pytest.raises(ValueError):
         scan.fused_topk(q.half(), v, mask, 10)
+    with pytest.raises(ValueError):  # K5 takes int8 only
+        scan.segmax_scan_i8(q, v, v[:, 0].contiguous(), mask)
+    v4, vs = scan.quantize_rows_i4(v)
+    with pytest.raises(ValueError):  # K6: packed rows are dim / 2 wide
+        scan.fused_topk_i4(scan.quantize_rows_i8(q)[0], v4[:, :10].contiguous(),
+                           vs, mask, 10)
 
 
 def test_engine_segmax_underfill_retries_on_card(dev, tmp_path):
@@ -110,3 +147,35 @@ def test_engine_segmax_underfill_retries_on_card(dev, tmp_path):
     assert (ids != None).sum(axis=1).tolist() == [k, k]  # noqa: E711
     assert scan.LAUNCHES["scan_topk"] == before + 1
     assert db.stats()["exact_retries"] >= 2
+
+
+def test_int4_engine_round_trip_on_card(dev, tmp_path):
+    """An int4 store on the card: device-born ingest of pre-quantized
+    rows, K6 on every route, deletes honored, and a quantized checkpoint
+    that reloads with the same answers."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, dim = 20_000, 128
+    rows = torch.nn.functional.normalize(
+        torch.randn(n, dim, generator=g, device=dev), dim=1)
+    v4, vs = scan.quantize_rows_i4(rows)
+    ids = [f"r{i}" for i in range(n)]
+    base = str(tmp_path / "i4")
+    db = PicoVectorDB(embedding_dim=dim, storage_file=base,
+                      storage_dtype="int4", device=dev)
+    db.ingest_device(v4, ids, scales=vs, normalize=False)
+    before = scan.LAUNCHES["scan_topk_i4"]
+    q = rows[:64].cpu().numpy()
+    got, _ = db.query_columnar(q, top_k=5)
+    assert db.last_query_debug()["strategy"] == "i4stor_fused"
+    assert scan.LAUNCHES["scan_topk_i4"] > before
+    assert (got[:, 0] == [f"r{i}" for i in range(64)]).mean() >= 0.9
+    db.delete([f"r{i}" for i in range(10)])
+    back, _ = db.query_columnar(q[:10], top_k=5)
+    assert not set(back.ravel().tolist()) & {f"r{i}" for i in range(10)}
+    db.save(quantized=True)
+    db2 = PicoVectorDB(embedding_dim=dim, storage_file=base,
+                       storage_dtype="int4", device=dev)
+    again, _ = db2.query_columnar(q, top_k=5)
+    assert (again == db.query_columnar(q, top_k=5)[0]).all()

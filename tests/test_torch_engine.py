@@ -3,9 +3,8 @@
 One sequence of operations is replayed through both packages'
 `PicoVectorDB`, built with `mixed_precision=True, int8_tier=True,
 use_pallas=True` so both take the kernel routes on the CPU (JAX: Pallas
-interpret mode; port: the kernels' plain versions). The JAX side runs with
-PICOVDB_FVIEW_BUDGET_GB=0, the compacted filter view the port has not
-ported yet. Per query the routes (`last_strategy`) must be identical,
+interpret mode; port: the kernels' plain versions), the compacted filter
+view included. Per query the routes (`last_strategy`) must be identical,
 scores agree within TOL_SCORE (float32 dot products summed in different
 orders) and id sets agree wherever the exact k-th/(k+1)-th gap exceeds
 TOL_GAP (inside it either pick is a correct top-k).
@@ -43,12 +42,7 @@ def _build(tmp, rng_seed=7):
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
-    mp = pytest.MonkeyPatch()
-    mp.setenv("PICOVDB_FVIEW_BUDGET_GB", "0")
-    try:
-        yield _build(tmp_path_factory.mktemp("engine"))
-    finally:
-        mp.undo()
+    return _build(tmp_path_factory.mktemp("engine"))
 
 
 def _oracle(vecs, live, q, k):
@@ -134,10 +128,9 @@ def test_query_columnar_and_batched_match(pair):
     _compare(bj, bt, gaps[:40])
 
 
-def test_mutation_sequence_matches(tmp_path, monkeypatch):
+def test_mutation_sequence_matches(tmp_path):
     """upsert -> query -> delete -> query -> upsert into freed slots ->
     vacuum -> query, compared step by step."""
-    monkeypatch.setenv("PICOVDB_FVIEW_BUDGET_GB", "0")
     dbs, vecs = _build(str(tmp_path), rng_seed=11)
     rng = np.random.default_rng(5)
     live = np.ones(N, bool)

@@ -103,11 +103,9 @@ def test_no_source_file_imports_jax():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"index": "ivf"}, "item 7"),
-    ({"storage_dtype": "int8"}, "item 6"),
-    ({"storage_dtype": "bfloat16"}, "item 6"),
     ({"scan_mode": "approx"}, "item 9"),
     ({"mesh": object()}, "item 8"),
-    ({"query_wire": "int8_rescore"}, "item 6"),
+    ({"storage_dtype": "int8", "mesh": object()}, "item 8"),
 ])
 def test_out_of_slice_entry_points_raise(tmp_path, kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -116,11 +114,14 @@ def test_out_of_slice_entry_points_raise(tmp_path, kwargs, item):
 
 
 def test_out_of_slice_calls_raise(tmp_path, monkeypatch):
+    """The storage-tier entry points serve now and refuse what the JAX
+    package refuses (a quantized save of a float32 store, host data to
+    ingest_device); the f32 opt-in int8 segmax stays item 9."""
     db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM,
                                         storage_file=str(tmp_path / "s"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        db.ingest_device(None, ids=[])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="device"):
+        db.ingest_device(np.zeros((2, DIM), np.float32), ids=["a", "b"])
+    with pytest.raises(ValueError, match="int8/int4"):
         db.save(quantized=True)
     monkeypatch.setenv("PICOVDB_SEGMAX_I8", "1")
     with pytest.raises(NotImplementedError, match="item 9"):
