@@ -79,16 +79,6 @@ def _pad_to(t: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
     return out
 
 
-def _cache_put(cache: dict, key, value, limit: int) -> None:
-    """FIFO insert; concurrent readers may evict the same entry."""
-    if len(cache) >= limit:
-        try:
-            cache.pop(next(iter(cache)), None)
-        except (StopIteration, RuntimeError):
-            pass
-    cache[key] = value
-
-
 def default_device() -> torch.device:
     return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
 
@@ -232,7 +222,9 @@ class DeviceIndex:
     def quantized(self) -> bool:
         return self.storage_dtype in ("int8", "int4")
 
-    def _cols(self) -> int:
+    @property
+    def plane_cols(self) -> int:
+        """Columns of the storage plane: dim, or dim / 2 packed int4."""
         return self.dim // 2 if self.storage_dtype == "int4" else self.dim
 
     def _quantize(self, rows: torch.Tensor):
@@ -323,7 +315,7 @@ class DeviceIndex:
         there whole."""
         n = host_vectors.shape[0]
         cap = self._cap_with_headroom(n)
-        buf = torch.zeros((cap, self._cols()), dtype=self._plane_dtype(),
+        buf = torch.zeros((cap, self.plane_cols), dtype=self._plane_dtype(),
                           device=self._device)
         scales = (torch.zeros((cap,), dtype=torch.float32, device=self._device)
                   if self.quantized else None)
@@ -359,7 +351,7 @@ class DeviceIndex:
         read-only memmap of a quantized checkpoint, one chunk at a time:
         host memory stays one chunk and no float32 corpus exists."""
         n = plane.shape[0]
-        cols = self._cols()
+        cols = self.plane_cols
         if not self.quantized:
             raise ValueError(
                 "upload_prequantized requires int8/int4 storage; "
@@ -419,21 +411,21 @@ class DeviceIndex:
         cap = self._cap_with_headroom(n)
         active = torch.arange(cap, device=self._device) < n
         if self.quantized and scales is not None:
-            if x.dtype != torch.int8 or x.shape != (n, self._cols()):
+            if x.dtype != torch.int8 or x.shape != (n, self.plane_cols):
                 raise ValueError(
                     f"pre-quantized {self.storage_dtype} rows must be int8 "
-                    f"of shape ({n}, {self._cols()}); got {x.dtype} "
+                    f"of shape ({n}, {self.plane_cols}); got {x.dtype} "
                     f"{tuple(x.shape)}")
             sc = scales.to(device=self._device, dtype=torch.float32)
             if cap != n or not x.is_contiguous():
                 x, sc = _pad_to(x.contiguous(), cap), _pad_to(sc, cap)
             self._commit(x, sc.contiguous(), active, cap)
             return shadow
-        if (cap == n and not normalize and x.dtype == self._plane_dtype()
-                and x.is_contiguous()):
+        if (not self.quantized and cap == n and not normalize
+                and x.dtype == self._plane_dtype() and x.is_contiguous()):
             self._commit(x, None, active, cap)
             return shadow
-        buf = torch.zeros((cap, self._cols()), dtype=self._plane_dtype(),
+        buf = torch.zeros((cap, self.plane_cols), dtype=self._plane_dtype(),
                           device=self._device)
         sc = (torch.zeros((cap,), dtype=torch.float32, device=self._device)
               if self.quantized else None)
@@ -619,7 +611,12 @@ class DeviceIndex:
         m = self._host_tensor(
             _pad_rows(np.ascontiguousarray(filter_mask, dtype=bool), self.cap))
         if mask_key is not None:
-            _cache_put(self._mask_cache, mask_key, m, self.MASK_CACHE_MAX)
+            if len(self._mask_cache) >= self.MASK_CACHE_MAX:
+                try:  # concurrent readers may evict the same entry
+                    self._mask_cache.pop(next(iter(self._mask_cache)), None)
+                except (StopIteration, RuntimeError):
+                    pass
+            self._mask_cache[mask_key] = m
         return m
 
     def _filter_view(self, mask_key, filter_mask):

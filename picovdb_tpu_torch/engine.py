@@ -429,7 +429,7 @@ class PicoVectorDB:
                 n = len(self._ids)
                 persistence.save_quantized_atomic(
                     self._path, self._ids, self._docs, self._additional,
-                    self._dev.iter_store_chunks(n), n, self._dev._cols(),
+                    self._dev.iter_store_chunks(n), n, self._dev.plane_cols,
                     self._dev.storage_dtype, self.dim,
                     overlay=self._host_overlay if self._host_lazy else None,
                 )
@@ -737,7 +737,6 @@ class PicoVectorDB:
                 "ingest_device expects a tensor on the store's device; for "
                 "host numpy data use upsert_columnar"
             )
-        quantized = self._dev.storage_dtype in ("int8", "int4")
         want_dim = (self.dim // 2 if self._dev.storage_dtype == "int4"
                     and scales is not None else self.dim)
         if vectors.ndim != 2 or vectors.shape[1] != want_dim:
@@ -747,7 +746,7 @@ class PicoVectorDB:
             )
         n = vectors.shape[0]
         if scales is not None:
-            if not quantized:
+            if not self._dev.quantized:
                 raise ValueError(
                     "scales= is only meaningful for int8/int4 storage; "
                     f"this store is {self._dev.storage_dtype!r}"

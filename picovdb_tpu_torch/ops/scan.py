@@ -134,12 +134,6 @@ def _int_acc(dim: int, bound: int) -> torch.dtype:
     return torch.float64 if bound * dim >= 2**24 else torch.float32
 
 
-def _i4_planes(packed: torch.Tensor, dtype: torch.dtype):
-    """The biased nibble planes (values 1..15; 0 in zero padding)."""
-    p = packed.to(torch.int32) & 255
-    return (p & 15).to(dtype), ((p >> 4) & 15).to(dtype)
-
-
 def _i4_scores(q_i8: torch.Tensor, v_i4: torch.Tensor,
                vscale: torch.Tensor) -> torch.Tensor:
     """Scaled int4 scores as K6 computes them: the two half-width integer
@@ -148,7 +142,8 @@ def _i4_scores(q_i8: torch.Tensor, v_i4: torch.Tensor,
     half = dim // 2
     acc = _int_acc(dim, 127 * 23)
     q = q_i8.to(acc)
-    lo, hi = _i4_planes(v_i4, acc)
+    p = v_i4.to(torch.int32) & 255  # the biased nibble planes, 1..15
+    lo, hi = (p & 15).to(acc), ((p >> 4) & 15).to(acc)
     s = q[:, :half] @ lo.T + q[:, half:] @ hi.T - 8 * q.sum(dim=1, keepdim=True)
     return s.float() * vscale
 

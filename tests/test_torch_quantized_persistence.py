@@ -86,8 +86,9 @@ def test_quantized_checkpoint_loads_in_the_other_package(tmp_path, rng,
 def test_quantized_load_checks_and_auto_format(tmp_path, rng, monkeypatch):
     """Loading refuses a mismatched storage dtype or dim; the default save
     of a lazy quantized store writes the plane past
-    PICOVDB_QSAVE_AUTO_GB and float32 below it (as picovdb_tpu does);
-    save(quantized=False) writes float32, which a float32 store reads."""
+    PICOVDB_QSAVE_AUTO_GB and a float32 matrix below it (as picovdb_tpu
+    does), which a float32 store reads; a quantized save refuses
+    shards."""
     base = str(tmp_path / "q")
     db = _open("torch", base, "int8")
     db.upsert_columnar(rng.normal(size=(300, DIM)).astype(np.float32),

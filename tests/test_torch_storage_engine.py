@@ -47,9 +47,8 @@ def _build(tmp, storage, n=N, rng_seed=7, **kw):
     return dbs, vecs
 
 
-def _stored_rows(jdb):
-    """The rows the device ranks: the JAX store's plane, dequantized."""
-    dev = jdb._dev
+def _stored_rows(dev):
+    """The rows a JAX DeviceIndex ranks: its plane, dequantized."""
     plane = np.asarray(dev.vectors)
     if dev.storage_dtype == "int4":
         rows = np.empty((plane.shape[0], 2 * plane.shape[1]), np.float32)
@@ -146,7 +145,7 @@ def test_device_routes_match(stores, storage, case):
     got = _query_both(dbs, q if nq > 1 else q[0], top_k=k, **kw)
     assert got["torch_route"] == route
     _compare(got["jax"], got["torch"],
-             _gaps(_stored_rows(dbs["jax"]), live, q, k))
+             _gaps(_stored_rows(dbs["jax"]._dev), live, q, k))
 
 
 @pytest.mark.parametrize("storage,route", [("int8", "i8stor_xla"),
@@ -167,7 +166,7 @@ def test_plain_routes_match(tmp_path, storage, route):
     got = _query_both(dbs, q, top_k=20)
     assert got["torch_route"] == route
     _compare(got["jax"], got["torch"],
-             _gaps(_stored_rows(dbs["jax"]), np.ones(3000, bool), q, 20))
+             _gaps(_stored_rows(dbs["jax"]._dev), np.ones(3000, bool), q, 20))
     loops = {n: db.query_serial_loop(q, 5) for n, db in dbs.items()}
     np.testing.assert_array_equal(loops["torch"][1], loops["jax"][1])
 
@@ -182,7 +181,7 @@ def test_batch_lanes_match(stores):
          + 0.3 * rng.normal(size=(300, DIM))).astype(np.float32)
     cols = {n: db.query_columnar(q, top_k=10, batch_size=256)
             for n, db in dbs.items()}
-    gaps = _gaps(_stored_rows(dbs["jax"]), np.ones(N, bool), q, 10)
+    gaps = _gaps(_stored_rows(dbs["jax"]._dev), np.ones(N, bool), q, 10)
     routes = {n: db.last_query_debug()["strategy"] for n, db in dbs.items()}
     assert routes["jax"] == routes["torch"] == "segmax_i8stor", routes
     (ij, sj), (it, st) = cols["jax"], cols["torch"]
@@ -293,7 +292,7 @@ def test_mutation_sequence_matches(tmp_path, storage):
              + 0.3 * rng.normal(size=(nq, DIM))).astype(np.float32)
         got = _query_both(dbs, q, top_k=k)
         _compare(got["jax"], got["torch"],
-                 _gaps(_stored_rows(dbs["jax"]), rows_live, q, k))
+                 _gaps(_stored_rows(dbs["jax"]._dev), rows_live, q, k))
 
     check(64, 10, live)
     gone = rng.choice(n, 700, replace=False)
@@ -353,7 +352,7 @@ def test_ingest_device_prequantized_matches(tmp_path, storage):
     live = np.ones(5000, bool)
     got = _query_both(dbs, q, top_k=10)
     _compare(got["jax"], got["torch"],
-             _gaps(_stored_rows(dbs["jax"]), live, q, 10))
+             _gaps(_stored_rows(dbs["jax"]._dev), live, q, 10))
     for db in dbs.values():
         assert db.last_query_debug()["rescore"] is None  # lazy: device only
     gj = dbs["jax"].get([f"g{i}" for i in range(20)], include_vector=True)
@@ -479,3 +478,51 @@ def test_refused_filter_views_stay_bounded(tmp_path, monkeypatch):
     assert got["torch_route"] == "fview_segmax"
     assert len(dev._fview_cache) == dev.FVIEW_CACHE_MAX
     assert sum(v is not None for v in dev._fview_cache.values()) == 1
+
+
+@pytest.mark.parametrize("storage", ["int8", "int4"])
+def test_device_index_takes_the_jax_quantized_state(storage):
+    """DeviceIndex.from_numpy_state adopts picovdb_tpu's quantized plane
+    and row scales as they are; the port's own full_upload builds the
+    same plane bit for bit; both answer like the JAX DeviceIndex on the
+    dispatch path, the exact snapshot and the serial loop."""
+    from picovdb_tpu.device import DeviceIndex as JaxDeviceIndex
+    from picovdb_tpu_torch.device import DeviceIndex
+
+    rng = np.random.default_rng(13)
+    n = 8000
+    vecs = normalize_batch(rng.normal(size=(n, DIM)).astype(np.float32))
+    active = rng.random(n) > 0.1
+    jdev = JaxDeviceIndex(DIM, storage_dtype=storage, use_pallas=True)
+    jdev.full_upload(vecs, active)
+    plane = np.asarray(jdev.vectors)[:n]
+    scale = np.asarray(jdev.vstore_scale)[:n]
+    tdev = DeviceIndex(DIM, storage_dtype=storage, use_pallas=True)
+    tdev.from_numpy_state(plane, active, scale)
+    own = DeviceIndex(DIM, storage_dtype=storage, use_pallas=True)
+    own.full_upload(vecs, active)
+    for dev in (tdev, own):
+        np.testing.assert_array_equal(dev.vectors[:n].numpy(), plane)
+        np.testing.assert_array_equal(dev.vstore_scale[:n].numpy(), scale)
+        assert dev.cap == jdev.cap
+    q = vecs[:24] + 0.1 * rng.normal(size=(24, DIM)).astype(np.float32)
+    rows = _stored_rows(jdev)[:n]
+    for nq, k in ((8, 10), (24, 10)):
+        jv, ji = jdev.query(q[:nq], k)
+        tv, ti = tdev.query(q[:nq], k)
+        assert tdev.last_strategy == jdev.last_strategy
+        _compare_arrays(jv, ji, tv, ti, _gaps(rows, active, q[:nq], k))
+    jv, ji = jdev.query_exact_snapshot(jdev.snapshot(), q, 12)
+    tv, ti = tdev.query_exact_snapshot(tdev.snapshot(), q, 12)
+    _compare_arrays(jv, ji, tv, ti, _gaps(rows, active, q, 12))
+    jv, ji = jdev.query_serial_loop(q[:4], 5)
+    tv, ti = tdev.query_serial_loop(q[:4], 5)
+    assert tdev.last_strategy == jdev.last_strategy
+    _compare_arrays(jv, ji, tv, ti, _gaps(rows, active, q[:4], 5))
+
+
+def _compare_arrays(jv, ji, tv, ti, gaps):
+    np.testing.assert_allclose(tv, jv, rtol=0, atol=TOL_SCORE)
+    for i in range(jv.shape[0]):
+        if gaps[i] > TOL_GAP:
+            assert set(ti[i].tolist()) == set(np.asarray(ji)[i].tolist()), i
