@@ -42,8 +42,8 @@ _SIGNATURES = {
     "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     # keys, out_keys, out_cols, Q, C, k, stream
     "pv_topk_packed_keys": [_P, _P, _P, _I, _L, _I, _P],
-    # kind, q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, chunk,
-    # stream
+    # kind (0 f32, 1 bf16, 2 int8: K3/K4; 3 packed int4: K6), q, v, vscale,
+    # mask, partial, vals, idx, Q, cap, dim, k, chunk, stream
     "pv_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
 }
 
