@@ -8,8 +8,11 @@ one against its plain PyTorch version on the card, then drives the serving
 paths through the public `PicoVectorDB` API and checks what comes back:
 a 1M x 1024 float32 store (phase 3), a 1M x 1024 int8 store with the
 host-f64 rescore and a quantized checkpoint (phase 4), a device-born
-16M x 1024 int4 store (phase 5, an 8 GB packed plane) and a 262,144 x 1024
-bfloat16 store (phase 6). Launch counts are zeroed just before each path
+16M x 1024 int4 store (phase 5, an 8 GB packed plane), a 262,144 x 1024
+bfloat16 store (phase 6), the IVF tier's classic layout over a clustered
+2M x 1024 float32 store under index="auto" (phase 7), its int8-only
+layout over a device-born, clustered 8M x 1024 int4 store and a sidecar
+round trip (phase 8). Launch counts are zeroed just before each path
 and read just after it. Every phase prints its lines; any failure raises
 and the script exits non-zero without a result line. It imports neither
 JAX nor picovdb_tpu, and refuses to run without a card.
@@ -39,6 +42,11 @@ I8_N = 1_000_000  # int8 store, phase 4
 I4_N = 1 << 24  # int4 store, phase 5: 16,777,216 rows, 8 GB packed
 I4_CHUNK = 262_144  # rows generated and quantized on the card at a time
 BF16_N = 262_144  # bfloat16 store, phase 6
+IVF_N = 2_000_000  # float32 store, index="auto", phase 7 (8 GB of corpus)
+IVF_I4_N = 8_000_000  # int4 store, index="ivf", device-born, phase 8
+SIDECAR_N = 262_144  # float32 store, index="ivf", sidecar round trip
+MIX_CENTRES = 4096  # gaussian-mixture centres of the IVF phases' data
+MIX_SIGMA = 0.03  # per-coordinate noise: |noise| ~ 0.96 beside unit centres
 TOL_SCORE = 1e-5  # rescored scores: both sides are float32 dot products
 TOL_GAP = 1e-4  # id sets must agree where the k-th/(k+1)-th gap exceeds it
 
@@ -57,6 +65,10 @@ KERNELS = {
                        "picovdb_tpu/ops/pallas_scan.py:960", 4),
     "fused_topk_i4": ("scan_topk_i4", "picovdb_tpu_torch/csrc/scan_topk.cu",
                       "picovdb_tpu/ops/pallas_scan.py:1315", 5),
+    "ivf_scan_topk": ("ivf_scan_topk", "picovdb_tpu_torch/csrc/scan_topk.cu",
+                      "picovdb_tpu/ops/ivf.py:1237", 7),
+    "ivf_segmax_scan": ("ivf_segmax", "picovdb_tpu_torch/csrc/segmax.cu",
+                        "picovdb_tpu/ops/ivf.py:1492", 7),
 }
 
 
@@ -271,6 +283,107 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     del corpus, lp, v8, vs, v4, vs4
     torch.cuda.empty_cache()
     return rec
+
+
+def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
+    """K7 and K8 against their plain versions over cap x dim IVF postings
+    in each kind (float32, bf16, column-scaled int8), with a hot table of
+    64 of the cap / 1024 tiles of which the first 40 are live, so dead
+    steps occur. Adds the two kernels to `rec`."""
+    from picovdb_tpu_torch.ops import ivf
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    bn = ivf.IVF_BN
+    n_tiles = cap // bn
+    post = normalize_on_device(
+        torch.from_numpy(rng.standard_normal((cap, dim), dtype=np.float32))
+        .to(device))
+    mask = torch.from_numpy(rng.random(cap) >= 0.1).to(device)
+    hot = torch.from_numpy(np.sort(rng.choice(n_tiles, 64, replace=False))
+                           .astype(np.int32)).to(device)
+    n_hot = torch.tensor([40], dtype=torch.int32, device=device)
+    live_rows = torch.zeros(cap, dtype=torch.bool, device=device)
+    for t in hot[:40].tolist():
+        live_rows[t * bn:(t + 1) * bn] = True
+    v8, cs = scan.quantize_cols_i8(post)
+    kinds = {"f32": post, "bf16": post.to(torch.bfloat16), "i8c": v8}
+
+    def scan_inputs(kind, q):
+        if kind == "i8c":
+            return scan.fold_queries_i8(q, cs)
+        return q.to(kinds[kind].dtype)
+
+    # K7 at Q = 1 and 16 with k_sel 14 and 32 (the float and int8 guard
+    # bands at k = 10), and Q = 16, k_sel 544 (the int4 host-rescore band)
+    errs, lines, first = [], [], None
+    for kind in kinds:
+        for nq, k in ((1, 14), (16, 14), (1, 32), (16, 32), (16, 544)):
+            qf = normalize_on_device(torch.from_numpy(
+                rng.standard_normal((nq, dim), dtype=np.float32)).to(device))
+            qs, vv = scan_inputs(kind, qf), kinds[kind]
+            vals, idx = ivf.ivf_scan_topk(qs, vv, mask, hot, n_hot, k)
+            rv, ri = ivf.ivf_scan_topk_plain(qs, vv, mask, hot, n_hot, k + 1)
+            torch.cuda.synchronize()
+            assert torch.equal(torch.isneginf(vals), torch.isneginf(rv[:, :k]))
+            if kind == "i8c":  # integer scores, ties to the lower row
+                assert torch.equal(vals, rv[:, :k]) and torch.equal(idx, ri[:, :k])
+                err = 0.0
+            else:
+                fin = torch.isfinite(vals)
+                err = float((vals[fin] - rv[:, :k][fin]).abs().max())
+                assert err <= TOL_SCORE, f"K7 {kind} scores differ by {err}"
+                assert ids_agree(torch, idx, ri, rv, k) == 0.0, f"K7 {kind}"
+            got = idx[torch.isfinite(vals)].long()
+            assert bool((mask & live_rows)[got].all()), f"K7 {kind} dead row"
+            errs.append(err)
+            ms = cuda_ms(torch, lambda: ivf.ivf_scan_topk(qs, vv, mask, hot,
+                                                          n_hot, k))
+            pms = cuda_ms(torch, lambda: ivf.ivf_scan_topk_plain(
+                qs, vv, mask, hot, n_hot, k))
+            first = first or (ms, pms)
+            lines.append(f"{kind} Q={nq} k_sel={k} {ms:.4f} ms (plain "
+                         f"{pms:.4f})")
+    rec["ivf_scan_topk"] = (max(errs), first[0], first[1])
+    log(f"phase 2: K7 ivf_scan_topk agrees over {cap} x {dim} postings, 40 "
+        f"of 64 hot tiles live: " + "; ".join(lines))
+
+    # K8 at Q = 64 with per_seg 4 and 8
+    q64 = normalize_on_device(torch.from_numpy(
+        rng.standard_normal((64, dim), dtype=np.float32)).to(device))
+    ns = bn // scan.SEG
+
+    def dec(kk):
+        return scan._from_sortable(kk & ~(scan.SEG - 1)).view(torch.float32)
+
+    errs, lines, first = [], [], None
+    for kind in kinds:
+        for per_seg in (4, 8):
+            qs, vv = scan_inputs(kind, q64), kinds[kind]
+            keys = ivf.ivf_segmax_scan(qs, vv, mask, hot, n_hot, per_seg)
+            ref = ivf.ivf_segmax_scan_plain(qs, vv, mask, hot, n_hot, per_seg)
+            torch.cuda.synchronize()
+            live = keys != scan.KEY_MIN
+            assert torch.equal(live, ref != scan.KEY_MIN), f"K8 {kind}"
+            assert not bool(live[:, 40 * per_seg * ns:].any()), "K8 dead step"
+            if kind == "i8c":
+                assert torch.equal(keys, ref), "K8 i8c keys differ"
+                err = 0.0
+            else:
+                err = float((dec(keys)[live] - dec(ref)[live]).abs().max())
+                assert err <= 1e-4, f"K8 {kind} keys differ by {err}"
+            errs.append(err)
+            ms = cuda_ms(torch, lambda: ivf.ivf_segmax_scan(qs, vv, mask, hot,
+                                                            n_hot, per_seg))
+            pms = cuda_ms(torch, lambda: ivf.ivf_segmax_scan_plain(
+                qs, vv, mask, hot, n_hot, per_seg))
+            first = first or (ms, pms)
+            lines.append(f"{kind} per_seg={per_seg} {ms:.4f} ms (plain "
+                         f"{pms:.4f})")
+    rec["ivf_segmax_scan"] = (max(errs), first[0], first[1])
+    log(f"phase 2: K8 ivf_segmax_scan agrees at Q=64 (max |dkey value| "
+        f"{max(errs):.3g}): " + "; ".join(lines))
+    del post, v8, kinds
+    torch.cuda.empty_cache()
 
 
 def oracle_top10(torch, corpus_dev, queries_dev, live_rows):
@@ -634,6 +747,297 @@ def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
     return counts
 
 
+def mixture_chunks(torch, device, n: int, dim: int, seed: int,
+                   chunk: int = 262_144):
+    """A seeded gaussian mixture made on the card, chunk by chunk: rows =
+    one of MIX_CENTRES unit centres + MIX_SIGMA * noise, normalized
+    (picovdb_tpu's IVF calibration shape). Yields (start, rows f32)."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    centres = normalize_on_device(
+        torch.randn(MIX_CENTRES, dim, generator=g, device=device))
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        lab = torch.randint(0, MIX_CENTRES, (m,), generator=g, device=device)
+        yield s, normalize_on_device(
+            centres[lab] + MIX_SIGMA * torch.randn(m, dim, generator=g,
+                                                   device=device))
+
+
+def probed_slots(torch, db, qn, n_slots: int):
+    """(n_slots,) bool: the corpus slots the IVF kernels scan for the
+    batch `qn` (normalized, on the card): the probe preamble's row mask
+    cut to the hot tiles it keeps."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    x = db._ivf
+    npb = tivf.ef_to_nprobe(db._ef_search, x.nlist)
+    row_mask, hot, n_hot, _ = tivf._probe_preamble(
+        qn, x.centroids, x.active, x.seg_starts, x.cluster2tile, nprobe=npb,
+        nlist=x.nlist, g_tiles=x.g_tiles(qn.shape[0], npb),
+        cap_ivf=x.active.shape[0], n_tiles=x.n_tiles, bn=tivf.IVF_BN)
+    tiles = torch.zeros(x.n_tiles, dtype=torch.bool, device=qn.device)
+    tiles[hot[: int(n_hot)].long()] = True
+    scanned = row_mask & tiles.repeat_interleave(tivf.IVF_BN)
+    m = torch.zeros(n_slots, dtype=torch.bool, device=qn.device)
+    m[x.slots[scanned]] = True
+    return m
+
+
+def oracle_masked(torch, chunks, queries, masks, k: int = 11):
+    """Float64 top-k (scores, rows) per query over row chunks [(start,
+    rows)], query i restricted to masks[i] (masks None: every row)."""
+    q = queries.double()
+    q = q / q.norm(dim=1, keepdim=True)
+    best_v = torch.full((q.shape[0], k), float("-inf"), dtype=torch.float64,
+                        device=q.device)
+    best_i = torch.zeros((q.shape[0], k), dtype=torch.int64, device=q.device)
+    for s, rows in chunks:
+        sc = q @ rows.double().T
+        if masks is not None:
+            sc = sc.masked_fill(~masks[:, s:s + rows.shape[0]], float("-inf"))
+        v = torch.cat([best_v, sc], 1)
+        i = torch.cat([best_i, torch.arange(s, s + sc.shape[1], device=q.device)
+                       .expand(q.shape[0], -1)], 1)
+        best_v, pos = torch.topk(v, k, dim=1)
+        best_i = torch.gather(i, 1, pos)
+    return best_v.cpu().numpy(), best_i.cpu().numpy()
+
+
+def ids_off_oracle(got_ids, prefix: str, ov, oi, k: int = 10) -> int:
+    """Queries whose returned id set differs from the oracle's although
+    the oracle's k-th/(k+1)-th gap exceeds TOL_GAP."""
+    bad = 0
+    for i in range(ov.shape[0]):
+        if ov[i, k - 1] - ov[i, k] > TOL_GAP:
+            got = {int(x[len(prefix):]) for x in got_ids[i] if x is not None}
+            bad += got != set(oi[i, :k].tolist())
+    return bad
+
+
+def serve_singles(db, qs, strategy: str, k: int = 10):
+    """Each query alone through PicoVectorDB.query; (Q, k) ids."""
+    out = np.full((qs.shape[0], k), None, dtype=object)
+    for i in range(qs.shape[0]):
+        hits = db.query(qs[i], top_k=k)
+        assert db.last_query_debug()["strategy"] == strategy
+        out[i, :len(hits)] = [h["_id_"] for h in hits]
+    return out
+
+
+def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str):
+    """The IVF tier's classic layout: a clustered n x dim float32 store
+    under index="auto" builds the tier at the sync after its bulk load;
+    Q = 1 serves through K7 (route ivf), 32-query chunks through K8,
+    256-query batches stay exact; then 1000 upserts take the incremental
+    path and are found."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    corpus = np.empty((n, dim), dtype=np.float32)
+    for s, rows in mixture_chunks(torch, device, n, dim, SEED + 7):
+        corpus[s:s + rows.shape[0]] = rows.cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    scan.reset_launch_counts()  # count this path's launches only
+    db = PicoVectorDB(embedding_dim=dim, index="auto", device=device,
+                      storage_file=os.path.join(tmp, "ivf"))
+    db.upsert_columnar(corpus, ids=[f"p{i}" for i in range(n)], copy=False)
+    qs = (corpus[rng.integers(0, n, 1024)] + 0.01 * rng.standard_normal(
+        (1024, dim), dtype=np.float32))
+    t0 = time.perf_counter()
+    db.query(qs[0], top_k=10)  # the first sync: upload + IVF build
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    dbg = db.last_query_debug()
+    op, bp = dbg["ann_operating_point"], dbg["ann_build_params"]
+    assert dbg["ann_active"] and dbg["strategy"] == "ivf", dbg
+    assert op["layout"] == "classic" and op["postings"] == "float32", op
+    got1 = serve_singles(db, qs[:64], "ivf")  # K7
+    q1_ms = cuda_ms(torch, lambda: db.query(qs[0], top_k=10), reps=50)
+    gotb, _ = db.query_columnar(qs[:128], top_k=10, batch_size=32)  # K8
+    assert db.last_query_debug()["strategy"] == "ivf"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.query_columnar(qs, top_k=10, batch_size=32)
+    batch_s = time.perf_counter() - t0
+    db.query_columnar(qs[:256], top_k=10, batch_size=256)
+    exact_route = db.last_query_debug()["strategy"]
+    assert not exact_route.startswith("ivf"), exact_route  # union > 0.22
+    counts = dict(scan.LAUNCHES)
+    for name, (key, _, _, phase) in KERNELS.items():
+        if phase == 7:
+            assert counts[key] > 0, f"{name} never launched on the IVF path"
+
+    # float64 oracles: restricted to the rows each dispatch scanned (the
+    # ids must agree outside the gap), and over every row (recall)
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    chunks = [(s, corpus_dev[s:s + 131_072]) for s in range(0, n, 131_072)]
+    qn = normalize_on_device(torch.from_numpy(qs[:128]).to(device))
+    m1 = torch.stack([probed_slots(torch, db, qn[i:i + 1], n)
+                      for i in range(64)])
+    bad1 = ids_off_oracle(got1, "p", *oracle_masked(torch, chunks, qn[:64], m1))
+    assert bad1 == 0, f"{bad1} of 64 K7-route id sets differ (restricted)"
+    mb = torch.cat([probed_slots(torch, db, qn[c:c + 32], n)[None]
+                    .expand(32, -1) for c in range(0, 128, 32)])
+    badb = ids_off_oracle(gotb, "p", *oracle_masked(torch, chunks, qn, mb))
+    assert badb <= 0.01 * 128, f"{badb} of 128 K8-route id sets differ"
+    _, oi = oracle_masked(torch, chunks, qn[:64], None)
+    recall = recall_at_10(got1, oi[:, :10], "p")
+    assert recall >= 0.95, recall
+    del corpus_dev, chunks, m1, mb
+
+    # 1000 upserts: the incremental path, and the new rows are found
+    new = np.concatenate([r.cpu().numpy() for _, r in mixture_chunks(
+        torch, device, 1000, dim, SEED + 8)])
+    db.upsert_columnar(new, ids=[f"n{i}" for i in range(1000)])
+    back = db.query(new[:8], top_k=3)
+    dbg2 = db.last_query_debug()
+    assert dbg2["ann_rebuild_mode"] == "incremental", dbg2
+    assert dbg2["strategy"] == "ivf", dbg2
+    assert [h[0]["_id_"] for h in back] == [f"n{i}" for i in range(8)]
+    log(f"phase 7: IVF classic layout at {n} x {dim} float32, index=auto: "
+        f"built at the first sync ({first_s:.2f} s incl. the device upload)"
+        f", nlist {op['nlist']}, nprobe {op['nprobe_default']}, postings "
+        f"{op['postings']}, build params {bp}; Q=1 route ivf (K7), 32-query "
+        f"chunks ivf (K8), Q=256 {exact_route}; ids = restricted float64 "
+        f"oracle outside the gap on 64/64 (K7) and {128 - badb}/128 (K8); "
+        f"recall@10 {recall:.4f} at nprobe {op['nprobe_default']}; 1000 "
+        f"upserts incremental and found; launches {counts}")
+    log(f"phase 7: Q=1 latency {q1_ms:.4f} ms (CUDA events around "
+        f"PicoVectorDB.query); batch {1024 / batch_s:.1f} QPS "
+        f"(query_columnar, 1024 queries in 32-query chunks); card {card}")
+    del db, corpus
+    shutil.rmtree(tmp)
+    return counts
+
+
+def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str):
+    """The IVF tier's int8-only layout over a device-born, clustered
+    n x dim int4 store (index="ivf"): the postings are column-scaled int8,
+    the rescore reads the packed plane by slot; Q = 1 through K7 and
+    32-query chunks through K8, both on int8 postings (route ivf_i8)."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    torch.cuda.reset_peak_memory_stats()
+    packed = torch.empty((n, dim // 2), dtype=torch.int8, device=device)
+    scales = torch.empty((n,), dtype=torch.float32, device=device)
+    for s, rows in mixture_chunks(torch, device, n, dim, SEED + 9):
+        packed[s:s + rows.shape[0]], scales[s:s + rows.shape[0]] = \
+            scan.quantize_rows_i4(rows)
+    scan.reset_launch_counts()
+    db = PicoVectorDB(embedding_dim=dim, index="ivf", device=device,
+                      storage_file=os.path.join(os.getcwd(), "picovdb_smoke_i4ivf"),
+                      storage_dtype="int4")
+    db.ingest_device(packed, [f"w{i}" for i in range(n)], scales=scales,
+                     normalize=False)
+    del packed, scales
+    torch.cuda.empty_cache()
+    dev = db._dev
+    src = rng.integers(0, n, 1024)
+    sl = torch.from_numpy(src).to(device)
+    qdev = (scan.unpack_i4(dev.vectors[sl]).float() * dev.vstore_scale[sl, None])
+    qdev = qdev + 0.01 * torch.randn(qdev.shape, device=device,
+                                     generator=torch.Generator(
+                                         device=device).manual_seed(SEED + 10))
+    qs = qdev.cpu().numpy()
+    t0 = time.perf_counter()
+    db.query(qs[0], top_k=10)  # the first sync builds the postings
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    dbg = db.last_query_debug()
+    op = dbg["ann_operating_point"]
+    assert dbg["strategy"] == "ivf_i8" and op["layout"] == "int8_only", dbg
+    got1 = serve_singles(db, qs[:64], "ivf_i8")  # K7, int8 postings
+    q1_ms = cuda_ms(torch, lambda: db.query(qs[0], top_k=10), reps=20)
+    gotb, _ = db.query_columnar(qs[:128], top_k=10, batch_size=32)  # K8
+    assert db.last_query_debug()["strategy"] == "ivf_i8"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.query_columnar(qs, top_k=10, batch_size=32)
+    batch_s = time.perf_counter() - t0
+    counts = dict(scan.LAUNCHES)
+    assert counts["ivf_scan_topk"] > 0 and counts["ivf_segmax"] > 0, counts
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    step = 131_072
+
+    def dequant_chunks():
+        for s in range(0, n, step):
+            e = min(n, s + step)
+            yield s, (scan.unpack_i4(dev.vectors[s:e]).double()
+                      * dev.vstore_scale[s:e, None].double())
+
+    qn = normalize_on_device(qdev[:128])
+    m1 = torch.stack([probed_slots(torch, db, qn[i:i + 1], n)
+                      for i in range(64)])
+    bad1 = ids_off_oracle(got1, "w", *oracle_masked(torch, dequant_chunks(),
+                                                    qn[:64], m1))
+    assert bad1 <= 0.01 * 64, f"{bad1} of 64 K7-route id sets differ"
+    del m1
+    mb = torch.cat([probed_slots(torch, db, qn[c:c + 32], n)[None]
+                    .expand(32, -1) for c in range(0, 128, 32)])
+    badb = ids_off_oracle(gotb, "w", *oracle_masked(torch, dequant_chunks(),
+                                                    qn, mb))
+    assert badb <= 0.01 * 128, f"{badb} of 128 K8-route id sets differ"
+    del mb
+    _, oi = oracle_masked(torch, mixture_chunks(torch, device, n, dim, SEED + 9),
+                          qn[:64], None)
+    recall = recall_at_10(got1, oi[:, :10], "w")
+    log(f"phase 8: IVF int8-only layout over a device-born {n} x {dim} int4 "
+        f"store, index=ivf: built at the first sync ({first_s:.2f} s), nlist "
+        f"{op['nlist']}, nprobe {op['nprobe_default']}, postings "
+        f"{op['postings']}; routes ivf_i8 at Q=1 (K7) and in 32-query chunks "
+        f"(K8); ids = restricted float64 oracle over the dequantized rows "
+        f"outside the gap on {64 - bad1}/64 (K7) and {128 - badb}/128 (K8); "
+        f"recall@10 {recall:.4f} vs the original float rows; launches {counts}")
+    log(f"phase 8: Q=1 latency {q1_ms:.4f} ms; batch {1024 / batch_s:.1f} QPS "
+        f"(query_columnar, 1024 queries in 32-query chunks); peak device "
+        f"memory {peak:.2f} GiB; card {card}")
+    del db, dev
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_sidecar(torch, device, n: int, dim: int):
+    """An index="ivf" float32 store saved with its .ivf.npz sidecar and
+    reopened: the tier comes back from the sidecar (same centroids, no
+    k-means), answers the same, and `persistence.load_ann` reads it."""
+    from picovdb_tpu_torch import PicoVectorDB, persistence
+
+    corpus = np.concatenate([r.cpu().numpy() for _, r in mixture_chunks(
+        torch, device, n, dim, SEED + 11)])
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    base = os.path.join(tmp, "side")
+    db = PicoVectorDB(embedding_dim=dim, index="ivf", device=device,
+                      storage_file=base)
+    db.upsert_columnar(corpus, ids=[f"s{i}" for i in range(n)], copy=False)
+    probe = corpus[:16]
+    before, _ = db.query_columnar(probe, top_k=10)
+    assert db.last_query_debug()["strategy"] == "ivf"
+    cent = db._ivf.centroids.cpu().numpy()
+    db.save()
+    blob = persistence.load_ann(base)
+    assert blob is not None and np.array_equal(blob["centroids"],
+                                               cent[: int(blob["nlist"])])
+    del db
+    t0 = time.perf_counter()
+    db2 = PicoVectorDB(embedding_dim=dim, index="ivf", device=device,
+                       storage_file=base)
+    load_s = time.perf_counter() - t0
+    dbg = db2.last_query_debug()
+    assert dbg["ann_build_params"]["warm"] == "sidecar", dbg
+    assert np.array_equal(db2._ivf.centroids.cpu().numpy(), cent)
+    after, _ = db2.query_columnar(probe, top_k=10)
+    assert (after == before).all(), "reopened IVF store answers differently"
+    log(f"phase 8: sidecar round trip at {n} x {dim}: reopened from the "
+        f".ivf.npz without k-means in {load_s:.2f} s (same centroids, same "
+        f"ids); persistence.load_ann reads nlist {int(blob['nlist'])}")
+    del db2
+    shutil.rmtree(tmp)
+
+
 def phase_bf16(torch, scan, device, n: int, dim: int, rng, **db_kwargs):
     """bfloat16 storage: batches take K4 over the bf16 rows
     (`pallas_fused`), Q = 1 the route picovdb_tpu picks (`xla_topk`)."""
@@ -683,6 +1087,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     rec = phase_kernels(torch, scan, device, PHASE2_CAP, DIM, rng)
+    phase_ivf_kernels(torch, scan, device, PHASE2_CAP, DIM, rng, rec)
     counts = {3: phase_main(torch, scan, device, MAIN_N, DIM, rng, card)}
     torch.cuda.empty_cache()
     counts[4] = phase_int8(torch, scan, device, I8_N, DIM, rng, card)
@@ -690,6 +1095,12 @@ def main() -> int:
     counts[5] = phase_int4(torch, scan, device, I4_N, DIM, rng, card)
     torch.cuda.empty_cache()
     phase_bf16(torch, scan, device, BF16_N, DIM, rng)
+    torch.cuda.empty_cache()
+    counts[7] = phase_ivf_f32(torch, scan, device, IVF_N, DIM, rng, card)
+    torch.cuda.empty_cache()
+    counts[8] = phase_ivf_int4(torch, scan, device, IVF_I4_N, DIM, rng, card)
+    torch.cuda.empty_cache()
+    phase_sidecar(torch, device, SIDECAR_N, DIM)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -43,6 +43,18 @@ __device__ __forceinline__ u64 row_key(float score, uint32_t row) {
   return ((u64)float_order(score) << 32) | (u64)(0xFFFFFFFFu - row);
 }
 
+// Selection key of a row ranked on an int32 score (K7's column-scaled
+// int8 postings): the sign-flipped int32 orders as unsigned, so the integer
+// itself ranks, never a float32 rounding of it.
+__device__ __forceinline__ u64 int_row_key(int score, uint32_t row) {
+  return ((u64)((uint32_t)score ^ 0x80000000u) << 32) | (u64)(0xFFFFFFFFu - row);
+}
+
+__device__ __forceinline__ float int_row_key_score(u64 key) {
+  return key ? (float)(int)((uint32_t)(key >> 32) ^ 0x80000000u)
+             : -__int_as_float(0x7f800000);
+}
+
 __device__ __forceinline__ float row_key_score(u64 key) {
   return key ? order_float((uint32_t)(key >> 32)) : -__int_as_float(0x7f800000);
 }
@@ -95,8 +107,10 @@ __device__ __forceinline__ void compact_buffers(u64* buf, int* cnt, u64* tau,
 // Top-k merge of per-chunk partial selections: `partial` holds, for each
 // of `nrows` queries, `L` 64-bit selection keys (0 = empty); the k best
 // per query come out decoded as float32 scores (-inf when empty) and
-// int32 rows (0 when empty). Launched by pv_scan_topk after the scan.
+// int32 rows (0 when empty). Launched by pv_scan_topk after the scan, and
+// by pv_ivf_scan_topk (`int_scores`: keys made by int_row_key).
 cudaError_t launch_topk_merge(const u64* partial, float* vals, int* idx,
-                              int nrows, int L, int k, cudaStream_t stream);
+                              int nrows, int L, int k, cudaStream_t stream,
+                              bool int_scores = false);
 
 }  // namespace pv

@@ -32,6 +32,24 @@
 // 8 * sum(q) (once per query), times the row scale. The unpacked corpus
 // never exists: the sweep reads 0.5 B/element.
 // A first, simple kernel: no tensor cores, no TMA, no pipelining yet.
+//
+// K7 ivf_scan_topk (pv_ivf_scan_topk, below) is the same kernel over the
+// IVF tier's hot tiles. It replaces picovdb_tpu/ops/ivf.py:probe_scan_local
+// (`_ivf_kernel`, `_ivf_kernel_i8c`): a "chunk" is one postings tile of
+// `bn` rows, named by the device table hot[c]; blocks with c >= *n_hot
+// (read on the device) score nothing and write an empty partial, which
+// the merge reads like any other. Row ids are hot[c] * bn + lane. A tile
+// spreads over `split` blocks of bn / split rows each (chunk c covers
+// part c % split of tile hot[c / split]): a probe has tens of live tiles
+// at Q = 1, which as one block each would leave most SMs idle. Kinds:
+// float32 rows and queries; bfloat16 rows against bfloat16 queries (the
+// TPU kernel casts q to the postings' dtype); column-scaled int8 rows
+// against folded int8 queries, ranked on the raw int32 sum itself (its
+// selection key's high word is the int32 with the sign bit flipped, so
+// scores past 2^24 never round through float32). What bounds it on the
+// H100: at Q <= 16 the hot tiles' bytes (4 / 2 / 1 B per element), as for
+// K3/K4; a probe reads a few hundred 1024-row tiles, so the grid is
+// q_tiles x grid_b blocks.
 
 #include <type_traits>
 
@@ -44,7 +62,9 @@ constexpr int THREADS = 256;
 constexpr int TR = 128;  // corpus rows per tile
 constexpr int KCW = 16;  // 32-bit words of each row per k-step
 
-struct Int4 {};  // corpus kind tag: packed two-plane nibbles (int8 bytes)
+struct Int4 {};   // corpus kind tag: packed two-plane nibbles (int8 bytes)
+struct Bf16Q {};  // bf16 rows x bf16 queries (the IVF probe's bf16 postings)
+struct Int8C {};  // column-scaled int8 rows: raw int32 scores, no row scale
 
 template <typename T>
 struct Elem;
@@ -67,11 +87,28 @@ struct Elem<int8_t> {
   typedef int8_t VT;
 };
 template <>
+struct Elem<Bf16Q> {
+  static constexpr int EPW = 2;
+  typedef __nv_bfloat16 QT;
+  typedef __nv_bfloat16 VT;
+};
+template <>
+struct Elem<Int8C> {
+  static constexpr int EPW = 4;
+  typedef int8_t QT;
+  typedef int8_t VT;
+};
+template <>
 struct Elem<Int4> {
   static constexpr int EPW = 4;  // packed bytes per word (8 elements)
   typedef int8_t QT;
   typedef int8_t VT;
 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 // One 32-bit word of `EPW` elements starting at element `e` of a row of
 // `dim` elements; elements past the row are zero.
@@ -96,17 +133,22 @@ __device__ __forceinline__ uint32_t load_word(const T* row, int e, int dim,
 
 // QT queries x one corpus chunk per block; BUF candidate slots per query.
 // `dim` is the query width; a corpus row holds dim elements (dim / 2
-// bytes for int4).
+// bytes for int4). With `hot` (K7) chunk c is rows hot[c / split] *
+// chunk * split + (c % split) * chunk + [0, chunk), and chunks with
+// c / split >= *n_hot are empty.
 template <typename T, int QT, int BUF>
 __global__ void __launch_bounds__(THREADS)
 scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
                  const typename Elem<T>::VT* __restrict__ v,
                  const float* __restrict__ vscale,
                  const uint8_t* __restrict__ mask, u64* __restrict__ partial,
-                 int Q, long cap, int dim, int k, long chunk, int nchunks) {
+                 int Q, long cap, int dim, int k, long chunk, int nchunks,
+                 const int* __restrict__ hot, const int* __restrict__ n_hot,
+                 int split) {
   constexpr int EPW = Elem<T>::EPW;
   constexpr bool I4 = std::is_same<T, Int4>::value;
-  constexpr bool I8 = std::is_same<T, int8_t>::value;
+  constexpr bool RAW = std::is_same<T, Int8C>::value;
+  constexpr bool I8 = std::is_same<T, int8_t>::value || RAW;
   constexpr int TPQ = THREADS / QT;  // threads per query
   constexpr int RPT = TR / TPQ;      // tile rows per thread
   constexpr int KE = KCW * EPW;      // row elements (int4: bytes) per k-step
@@ -123,8 +165,10 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
 
   const int q0 = blockIdx.x * QT;
   const int c = blockIdx.y;
-  const long rbeg = (long)c * chunk;
-  const long rend = (rbeg + chunk < cap) ? rbeg + chunk : cap;
+  const long rbeg = hot ? ((long)hot[c / split] * split + c % split) * chunk
+                        : (long)c * chunk;
+  long rend = (rbeg + chunk < cap) ? rbeg + chunk : cap;
+  if (hot && c / split >= *n_hot) rend = rbeg;  // dead step: empty partial
   const int qi = threadIdx.x / TPQ, rsub = threadIdx.x % TPQ;
   const int vdim = I4 ? dim / 2 : dim;
   const bool aligned = (vdim % EPW) == 0;
@@ -133,7 +177,7 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
     tau[threadIdx.x] = 0ull;
     qsum[threadIdx.x] = 0;
   }
-  if (I4) {
+  if constexpr (I4) {
     __syncthreads();
     int part = 0;
     if (q0 + qi < Q)
@@ -157,14 +201,14 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
             gr < rend ? load_word(v + gr * vdim, k0 + w * EPW, vdim, aligned) : 0u;
       }
       for (int i = threadIdx.x; i < QWORDS; i += THREADS) {
-        if (I4) {
+        if constexpr (I4) {
           // word w of plane p: query elements p * dim/2 + k0 + 4w .. + 3
           const int qq = i / (2 * KCW), p = (i / KCW) % 2, w = i % KCW;
           Qs[i] = q0 + qq < Q
                       ? load_word(q + (long)(q0 + qq) * dim + p * vdim,
                                   k0 + w * EPW, vdim, aligned)
                       : 0u;
-        } else if (I8) {
+        } else if constexpr (I8) {
           const int qq = i / KCW, w = i % KCW;
           Qs[i] = q0 + qq < Q
                       ? load_word(q + (long)(q0 + qq) * dim, k0 + w * EPW, dim, aligned)
@@ -172,7 +216,7 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
         } else {
           const int qq = i / KE, e = k0 + i % KE;
           const float x = (q0 + qq < Q && e < dim)
-                              ? (float)q[(long)(q0 + qq) * dim + e] : 0.0f;
+                              ? to_float(q[(long)(q0 + qq) * dim + e]) : 0.0f;
           Qs[i] = __float_as_uint(x);
         }
       }
@@ -209,8 +253,9 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
         if (row < rend && mask[row]) {
           float s = facc[j];
           if (I4) s = __fmul_rn(__int2float_rn(iacc[j] - 8 * qsum[qi]), vscale[row]);
-          if (I8) s = __fmul_rn(__int2float_rn(iacc[j]), vscale[row]);
-          const u64 key = row_key(s, (uint32_t)row);
+          if (I8 && !RAW) s = __fmul_rn(__int2float_rn(iacc[j]), vscale[row]);
+          const u64 key = RAW ? int_row_key(iacc[j], (uint32_t)row)
+                              : row_key(s, (uint32_t)row);
           if (key > tau[qi]) buf[qi * BUF + atomicAdd(&cnt[qi], 1)] = key;
         }
       }
@@ -234,22 +279,23 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
 template <typename T>
 cudaError_t launch_scan(const void* q, const void* v, const void* vscale,
                         const void* mask, u64* partial, int Q, long cap,
-                        int dim, int k, long chunk, cudaStream_t stream) {
+                        int dim, int k, long chunk, int nchunks,
+                        const int* hot, const int* n_hot, int split,
+                        cudaStream_t stream) {
   typedef typename Elem<T>::QT QE;
   typedef typename Elem<T>::VT VE;
-  const int nchunks = (int)((cap + chunk - 1) / chunk);
   if (k <= 128) {
     dim3 grid((Q + 15) / 16, nchunks);
     scan_topk_kernel<T, 16, 256><<<grid, THREADS, 0, stream>>>(
         static_cast<const QE*>(q), static_cast<const VE*>(v),
         static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
-        partial, Q, cap, dim, k, chunk, nchunks);
+        partial, Q, cap, dim, k, chunk, nchunks, hot, n_hot, split);
   } else {
     dim3 grid((Q + 1) / 2, nchunks);
     scan_topk_kernel<T, 2, 2048><<<grid, THREADS, 0, stream>>>(
         static_cast<const QE*>(q), static_cast<const VE*>(v),
         static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
-        partial, Q, cap, dim, k, chunk, nchunks);
+        partial, Q, cap, dim, k, chunk, nchunks, hot, n_hot, split);
   }
   return cudaGetLastError();
 }
@@ -271,19 +317,57 @@ extern "C" int pv_scan_topk(int kind, const void* q, const void* v,
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   u64* part = static_cast<u64*>(partial);
+  const int nc = (int)((cap + chunk - 1) / chunk);
   cudaError_t err;
   if (kind == 0)
-    err = launch_scan<float>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, s);
+    err = launch_scan<float>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, nc, nullptr, nullptr, 1, s);
   else if (kind == 1)
-    err = launch_scan<__nv_bfloat16>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, s);
+    err = launch_scan<__nv_bfloat16>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, nc, nullptr, nullptr, 1, s);
   else if (kind == 2)
-    err = launch_scan<int8_t>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, s);
+    err = launch_scan<int8_t>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, nc, nullptr, nullptr, 1, s);
   else if (kind == 3)
-    err = launch_scan<Int4>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, s);
+    err = launch_scan<Int4>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, nc, nullptr, nullptr, 1, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  const int nchunks = (int)((cap + chunk - 1) / chunk);
   return (int)launch_topk_merge(part, static_cast<float*>(vals),
-                                static_cast<int*>(idx), Q, nchunks * k, k, s);
+                                static_cast<int*>(idx), Q, nc * k, k, s);
+}
+
+// K7. kind 0: postings and q float32; 1: both bfloat16; 2: column-scaled
+// int8 postings and folded int8 q (raw int32 scores; vals carry them as
+// float32, only their -inf-ness is read). postings (cap, dim) with
+// cap % bn == 0, mask (cap,) uint8, hot (grid_b,) int32 tile ids in
+// [0, cap / bn), n_hot (1,) int32 on the device; each tile spreads over
+// `split` blocks (bn % split == 0). `partial` is scratch of
+// Q * grid_b * split * k uint64; vals (Q, k) float32 and idx (Q, k) int32
+// receive the result (-inf / 0 where empty). k <= 1024.
+extern "C" int pv_ivf_scan_topk(int kind, const void* q, const void* v,
+                                const void* mask, const void* hot,
+                                const void* n_hot, void* partial, void* vals,
+                                void* idx, int Q, long long cap, int dim,
+                                int k, long long bn, int grid_b, int split,
+                                void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0 || grid_b <= 0) return (int)cudaSuccess;
+  if (split < 1 || bn % split) return (int)cudaErrorInvalidValue;
+  const long chunk = (long)(bn / split);
+  const int nc = grid_b * split;
+  cudaStream_t s = (cudaStream_t)stream;
+  u64* part = static_cast<u64*>(partial);
+  const int* h = static_cast<const int*>(hot);
+  const int* nh = static_cast<const int*>(n_hot);
+  cudaError_t err;
+  if (kind == 0)
+    err = launch_scan<float>(q, v, nullptr, mask, part, Q, cap, dim, k, chunk, nc, h, nh, split, s);
+  else if (kind == 1)
+    err = launch_scan<Bf16Q>(q, v, nullptr, mask, part, Q, cap, dim, k, chunk, nc, h, nh, split, s);
+  else if (kind == 2)
+    err = launch_scan<Int8C>(q, v, nullptr, mask, part, Q, cap, dim, k, chunk, nc, h, nh, split, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_topk_merge(part, static_cast<float*>(vals),
+                                static_cast<int*>(idx), Q, nc * k, k, s,
+                                kind == 2);
 }

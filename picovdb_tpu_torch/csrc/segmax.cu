@@ -119,21 +119,16 @@ __device__ __forceinline__ void segment_top2(
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-segmax_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ v,
-              const uint8_t* __restrict__ mask, int* __restrict__ keys,
-              int Q, long cap, int dim, int q_tiles) {
-  // A/B operand tiles during the k-loop, then the f32 score tile.
-  __shared__ __align__(128) unsigned char smem[BQ * LDS * sizeof(float)];
+// The (BQ, 128) score tile of queries q0.. against corpus rows r0.. with
+// bf16 wmma, left as float32 in `smem` (BQ x LDS), which during the k-loop
+// holds the A/B operand tiles. Ends with a barrier.
+__device__ __forceinline__ void score_tile_bf16(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ v, int q0, int Q, long r0, long cap,
+    int dim) {
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Bs = As + BQ * LDA;
   float* Ss = reinterpret_cast<float*>(smem);
-
-  const int qt = blockIdx.x % q_tiles;
-  const long seg = blockIdx.x / q_tiles;
-  const int q0 = qt * BQ;
-  const long r0 = seg * BN;
   const int warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;
   const bool vec = (dim % 8) == 0;
@@ -167,8 +162,21 @@ segmax_kernel(const __nv_bfloat16* __restrict__ q,
     wmma::store_matrix_sync(Ss + (wm * 16) * LDS + wn * 64 + j * 16, acc[j],
                             LDS, wmma::mem_row_major);
   __syncthreads();
+}
 
-  segment_top2(Ss, nullptr, nullptr, mask, keys, Q, cap, q0, seg);
+__global__ void __launch_bounds__(THREADS)
+segmax_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ v,
+              const uint8_t* __restrict__ mask, int* __restrict__ keys,
+              int Q, long cap, int dim, int q_tiles) {
+  // A/B operand tiles during the k-loop, then the f32 score tile.
+  __shared__ __align__(128) unsigned char smem[BQ * LDS * sizeof(float)];
+  const int qt = blockIdx.x % q_tiles;
+  const long seg = blockIdx.x / q_tiles;
+  const int q0 = qt * BQ;
+  score_tile_bf16(smem, q, v, q0, Q, seg * BN, cap, dim);
+  segment_top2(reinterpret_cast<float*>(smem), nullptr, nullptr, mask, keys,
+               Q, cap, q0, seg);
 }
 
 // ---------------------------------------------------------------------------
@@ -223,21 +231,15 @@ __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__global__ void __launch_bounds__(THREADS)
-segmax_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
-                 const float* __restrict__ vscale,
-                 const uint8_t* __restrict__ mask, int* __restrict__ keys,
-                 int Q, long cap, int dim, int q_tiles) {
-  // A/B operand tiles during the k-loop, then the int32 score tile.
-  __shared__ __align__(128) unsigned char smem[BQ * LDS * sizeof(int)];
+// The (BQ, 128) int32 score tile of int8 queries q0.. against int8 rows
+// r0.. with mma.sync s8, left in `smem` (BQ x LDS ints). Ends with a
+// barrier.
+__device__ __forceinline__ void score_tile_i8(
+    unsigned char* smem, const int8_t* __restrict__ q,
+    const int8_t* __restrict__ v, int q0, int Q, long r0, long cap, int dim) {
   int8_t* As = reinterpret_cast<int8_t*>(smem);
   int8_t* Bs = As + BQ * LDA8;
   int* Ss = reinterpret_cast<int*>(smem);
-
-  const int qt = blockIdx.x % q_tiles;
-  const long seg = blockIdx.x / q_tiles;
-  const int q0 = qt * BQ;
-  const long r0 = seg * BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 2, wn = warp % 2;  // 16 queries x 64 rows per warp
   const int g = lane >> 2, t = lane & 3;   // mma groupID, thread in group
@@ -288,7 +290,159 @@ segmax_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
     s[8 * LDS + 1] = acc[j][3];
   }
   __syncthreads();
-  segment_top2(nullptr, Ss, vscale, mask, keys, Q, cap, q0, seg);
+}
+
+__global__ void __launch_bounds__(THREADS)
+segmax_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
+                 const float* __restrict__ vscale,
+                 const uint8_t* __restrict__ mask, int* __restrict__ keys,
+                 int Q, long cap, int dim, int q_tiles) {
+  // A/B operand tiles during the k-loop, then the int32 score tile.
+  __shared__ __align__(128) unsigned char smem[BQ * LDS * sizeof(int)];
+  const int qt = blockIdx.x % q_tiles;
+  const long seg = blockIdx.x / q_tiles;
+  const int q0 = qt * BQ;
+  score_tile_i8(smem, q, v, q0, Q, seg * BN, cap, dim);
+  segment_top2(nullptr, reinterpret_cast<int*>(smem), vscale, mask, keys, Q,
+               cap, q0, seg);
+}
+
+// ---------------------------------------------------------------------------
+// K8 ivf_segmax_scan: per 128-row segment of each IVF hot tile, the top
+// `per_seg` packed keys.
+//
+// Replaces picovdb_tpu/ops/ivf.py:probe_scan_segmax (`_ivf_segmax_kernel`,
+// `_ivf_segmax_kernel_i8c`). A block scores BQ queries against segment s of
+// postings tile hot[b] (rows hot[b] * bn + s * 128 ..), the tile named by a
+// device table, and keeps each query's `per_seg` (<= 8) largest keys of
+// the segment. Keys are K1's: sortable float32 bits (the int8 kind: the
+// raw int32 score) with the low 7 bits replaced by the lane; masked rows,
+// exhausted ranks and dead steps (b >= *n_hot, read on the device) carry
+// KEY_MIN. The slab is (Q, grid_b * per_seg * ns), column
+// b * per_seg * ns + r * ns + s, picovdb_tpu's slab transposed; the
+// route decodes it. Products: float32 postings with float32 FMAs on the
+// CUDA cores (a tensor-core f32 product would be TF32, whose 10-bit
+// mantissa can reach clustered top-10 gaps), bf16 postings with K1's wmma,
+// int8 postings with K5's mma.sync s8. What bounds it on the H100: the hot
+// tiles' bytes at Q <= 64 for f32 (4 B per element), tensor-core issue for
+// the others, as K1/K5; a first kernel: no TMA, no pipelining.
+// ---------------------------------------------------------------------------
+
+constexpr int KCF = 32;       // float32 elements per k-step
+constexpr int LDF = KCF + 1;  // padded row (floats)
+
+// The (BQ, 128) float32 score tile with CUDA-core FMAs: thread (ty, tx)
+// owns queries 4 ty .. 4 ty + 3 and rows tx + 16 j, j < 8.
+__device__ __forceinline__ void score_tile_f32(
+    unsigned char* smem, const float* __restrict__ q,
+    const float* __restrict__ v, int q0, int Q, long r0, long cap, int dim) {
+  float* As = reinterpret_cast<float*>(smem);
+  float* Bs = As + BQ * LDF;
+  float* Ss = reinterpret_cast<float*>(smem);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int k0 = 0; k0 < dim; k0 += KCF) {
+    for (int i = threadIdx.x; i < BQ * KCF; i += THREADS) {
+      const int r = i / KCF, c = i % KCF, gk = k0 + c;
+      As[r * LDF + c] = (q0 + r < Q && gk < dim) ? q[(long)(q0 + r) * dim + gk] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < BN * KCF; i += THREADS) {
+      const int r = i / KCF, c = i % KCF, gk = k0 + c;
+      const long gr = r0 + r;
+      Bs[r * LDF + c] = (gr < cap && gk < dim) ? v[gr * dim + gk] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < KCF; ++kk) {
+      float a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[(ty * 4 + i) * LDF + kk];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = Bs[(tx + 16 * j) * LDF + kk];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) Ss[(ty * 4 + i) * LDS + tx + 16 * j] = acc[i][j];
+  __syncthreads();
+}
+
+// Epilogue of K8: each query's `per_seg` largest keys of the segment, by
+// `per_seg` warp-wide max passes (a lane holds 4 keys; keys are distinct by
+// their lane bits, so the one owner clears each winner). One warp per
+// query row; writes keys[qi * ncol + col0 + r * rstride].
+__device__ __forceinline__ void segment_topn(
+    const float* fs, const int* is, const uint8_t* __restrict__ mask,
+    long r0, bool dead, int* __restrict__ keys, int Q, long ncol, int q0,
+    long col0, int rstride, int per_seg) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bool live[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    live[c] = !dead && mask[r0 + lane + 32 * c] != 0;
+  for (int r = warp; r < BQ; r += THREADS / 32) {
+    const int qi = q0 + r;
+    if (qi >= Q) break;  // uniform across the warp
+    int key[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int ln = lane + 32 * c;
+      const int raw = is ? is[r * LDS + ln] : to_sortable(__float_as_int(fs[r * LDS + ln]));
+      key[c] = live[c] ? ((raw & ~(SEG - 1)) | ln) : KEY_MIN;
+    }
+    for (int t = 0; t < per_seg; ++t) {
+      int m = max(max(key[0], key[1]), max(key[2], key[3]));
+      m = __reduce_max_sync(0xffffffffu, m);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (key[c] == m) key[c] = KEY_MIN;
+      if (lane == 0) keys[(long)qi * ncol + col0 + (long)t * rstride] = m;
+    }
+  }
+}
+
+// KIND 0: float32 postings and q; 1: bf16; 2: column-scaled int8.
+template <int KIND>
+__global__ void __launch_bounds__(THREADS)
+ivf_segmax_kernel(const void* __restrict__ q, const void* __restrict__ v,
+                  const uint8_t* __restrict__ mask,
+                  const int* __restrict__ hot, const int* __restrict__ n_hot,
+                  int* __restrict__ keys, int Q, long cap, int dim, int bn,
+                  int grid_b, int per_seg, int q_tiles) {
+  __shared__ __align__(128) unsigned char smem[BQ * LDS * sizeof(float)];
+  const int ns = bn / SEG;
+  const int qt = blockIdx.x % q_tiles;
+  const long rest = blockIdx.x / q_tiles;
+  const int b = (int)(rest / ns), s = (int)(rest % ns);
+  const int q0 = qt * BQ;
+  const bool dead = b >= *n_hot;  // uniform across the block
+  const long r0 = (long)hot[b] * bn + (long)s * SEG;
+  if (!dead) {
+    if (KIND == 0)
+      score_tile_f32(smem, static_cast<const float*>(q),
+                     static_cast<const float*>(v), q0, Q, r0, cap, dim);
+    else if (KIND == 1)
+      score_tile_bf16(smem, static_cast<const __nv_bfloat16*>(q),
+                      static_cast<const __nv_bfloat16*>(v), q0, Q, r0, cap, dim);
+    else
+      score_tile_i8(smem, static_cast<const int8_t*>(q),
+                    static_cast<const int8_t*>(v), q0, Q, r0, cap, dim);
+  }
+  const long ncol = (long)grid_b * per_seg * ns;
+  segment_topn(KIND == 2 ? nullptr : reinterpret_cast<const float*>(smem),
+               KIND == 2 ? reinterpret_cast<const int*>(smem) : nullptr, mask,
+               r0, dead, keys, Q, ncol, q0, (long)b * per_seg * ns + s, ns,
+               per_seg);
 }
 
 }  // namespace
@@ -326,5 +480,40 @@ extern "C" int pv_segmax_scan_i8(const void* q, const void* v,
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(v),
       static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
       static_cast<int*>(keys), Q, (long)cap, dim, q_tiles);
+  return (int)cudaGetLastError();
+}
+
+// K8. kind 0: postings and q float32; 1: both bfloat16; 2: column-scaled
+// int8 postings and folded int8 q. postings (cap, dim) with cap % bn == 0
+// and bn % 128 == 0, mask (cap,) uint8, hot (grid_b,) int32 tile ids in
+// [0, cap / bn), n_hot (1,) int32 on the device -> keys (Q, grid_b *
+// per_seg * bn / 128) int32. per_seg in 1..8. Returns the cudaError_t of
+// the launch.
+extern "C" int pv_ivf_segmax(int kind, const void* q, const void* v,
+                             const void* mask, const void* hot,
+                             const void* n_hot, void* keys, int Q,
+                             long long cap, int dim, int bn, int grid_b,
+                             int per_seg, void* stream) {
+  using namespace pv;
+  if (Q <= 0 || grid_b <= 0) return (int)cudaSuccess;
+  if (bn % SEG || per_seg < 1 || per_seg > 8) return (int)cudaErrorInvalidValue;
+  const int q_tiles = (Q + BQ - 1) / BQ;
+  const long long blocks = (long long)q_tiles * grid_b * (bn / SEG);
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const int* h = static_cast<const int*>(hot);
+  const int* nh = static_cast<const int*>(n_hot);
+  int* out = static_cast<int*>(keys);
+  if (kind == 0)
+    ivf_segmax_kernel<0><<<(unsigned)blocks, THREADS, 0, s>>>(
+        q, v, m, h, nh, out, Q, (long)cap, dim, bn, grid_b, per_seg, q_tiles);
+  else if (kind == 1)
+    ivf_segmax_kernel<1><<<(unsigned)blocks, THREADS, 0, s>>>(
+        q, v, m, h, nh, out, Q, (long)cap, dim, bn, grid_b, per_seg, q_tiles);
+  else if (kind == 2)
+    ivf_segmax_kernel<2><<<(unsigned)blocks, THREADS, 0, s>>>(
+        q, v, m, h, nh, out, Q, (long)cap, dim, bn, grid_b, per_seg, q_tiles);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

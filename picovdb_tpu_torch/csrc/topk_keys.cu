@@ -29,6 +29,7 @@ constexpr int THREADS = 256;
 //         and columns.
 // MODE 1: 64-bit selection keys of scan_topk's partial results; writes
 //         decoded scores and rows.
+// MODE 2: MODE 1 over int_row_key keys (int32 scores).
 template <int BUF, int MODE>
 __global__ void __launch_bounds__(THREADS)
 row_topk_kernel(const void* __restrict__ in, long L, int k, void* out_a,
@@ -67,7 +68,8 @@ row_topk_kernel(const void* __restrict__ in, long L, int k, void* out_a,
           (int)((uint32_t)(key >> 32) ^ 0x80000000u);
       static_cast<int*>(out_b)[row * k + j] = (int)(uint32_t)key;
     } else {
-      static_cast<float*>(out_a)[row * k + j] = row_key_score(key);
+      static_cast<float*>(out_a)[row * k + j] =
+          MODE == 2 ? int_row_key_score(key) : row_key_score(key);
       static_cast<int*>(out_b)[row * k + j] = row_key_row(key);
     }
   }
@@ -76,10 +78,17 @@ row_topk_kernel(const void* __restrict__ in, long L, int k, void* out_a,
 }  // namespace
 
 cudaError_t launch_topk_merge(const u64* partial, float* vals, int* idx,
-                              int nrows, int L, int k, cudaStream_t stream) {
-  if (k <= 128)
+                              int nrows, int L, int k, cudaStream_t stream,
+                              bool int_scores) {
+  if (k <= 128 && int_scores)
+    row_topk_kernel<512, 2><<<nrows, THREADS, 0, stream>>>(partial, L, k,
+                                                           vals, idx);
+  else if (k <= 128)
     row_topk_kernel<512, 1><<<nrows, THREADS, 0, stream>>>(partial, L, k,
                                                            vals, idx);
+  else if (int_scores)
+    row_topk_kernel<2048, 2><<<nrows, THREADS, 0, stream>>>(partial, L, k,
+                                                            vals, idx);
   else
     row_topk_kernel<2048, 1><<<nrows, THREADS, 0, stream>>>(partial, L, k,
                                                             vals, idx);

@@ -21,10 +21,15 @@ float32 rows in float64 (`_rescored_dispatch`). Device-born stores
 mutations land in an exact-row overlay, and only paths that need the
 whole matrix materialize it from the device.
 
+The IVF tier (`ops/ivf.py`) is the ANN path: `index="ivf"` always
+builds and probes it, `index="auto"` builds it at the first sync after a
+bulk load once the exact sweep reads >= 2 GiB (`should_build`) and routes
+unfiltered batches to it while their probed-cluster union stays small.
+Its sidecar (`<base>.vecs.npy.ivf.npz`) is picovdb_tpu's format.
+
 Not in this slice, and raising NotImplementedError with the ROADMAP item
-that brings them: `mesh=` and multi-process loads, `index="ivf"`,
-`scan_mode="approx"` and the opt-in int8 tiers. `index="auto"` serves the
-exact scan until the IVF tier is ported.
+that brings them: `mesh=` and multi-process loads, `scan_mode="approx"`
+and the opt-in int8 tiers.
 """
 
 from __future__ import annotations
@@ -50,6 +55,9 @@ from .constants import (
     ENV_RESCORE_MAX_Q,
     ENV_USE_PALLAS,
     ENV_WRITER_PRIORITY,
+    HNSW_EFC,
+    HNSW_EFS,
+    HNSW_M,
     K_ID,
     K_METRICS,
     K_VECTOR,
@@ -59,9 +67,10 @@ from .constants import (
     RESCORE_MAX_Q,
     Float,
 )
-from .device import DeviceIndex, _not_in_slice
+from .device import DeviceIndex
 from .filters import TagIndex, compile_where_mask
 from .locking import RWLock
+from .ops import ivf as ivf_ops
 from .utils import hash_vec, normalize_batch, timed, to_c_f32
 
 logger = logging.getLogger("picovdb_tpu_torch")
@@ -112,8 +121,6 @@ class PicoVectorDB:
             Literal["auto", "float32", "float16", "bfloat16"]
         ] = None,
     ) -> None:
-        if index == "ivf" and not no_faiss:
-            raise _not_in_slice('index="ivf"', "item 7, IVF tier")
         if writer_priority is None:
             wp_env = os.getenv(ENV_WRITER_PRIORITY)
             writer_priority = wp_env not in (None, "0", "false", "False", "")
@@ -164,14 +171,33 @@ class PicoVectorDB:
         if compute_dtype is None and cd_env:
             compute_dtype = cd_env
 
-        # ANN and argsort knobs of the reference are accepted for API
-        # parity and have no effect until the IVF tier is ported
-        _ = (faiss_threads, ivf_nlist, ivf_nprobe, hnsw_m,
-             hnsw_ef_construction, ef_search_default, hnsw_ef_search_default,
-             argsort_threshold)
+        # ANN knobs, resolved as picovdb_tpu resolves them: hnsw_m scales
+        # the IVF partition count and hnsw_ef_construction the k-means
+        # effort (_ivf_build_params), ef_search maps to nprobe. faiss_threads
+        # and argsort_threshold are accepted for API parity (no host thread
+        # pool, no argsort choice); so is PICOVDB_WARM_UPDATES (nothing to
+        # pre-compile in eager PyTorch).
+        _ = faiss_threads, argsort_threshold
+        self._hnsw_m = int(hnsw_m) if hnsw_m is not None else HNSW_M
+        self._hnsw_efc = (int(hnsw_ef_construction)
+                          if hnsw_ef_construction is not None else HNSW_EFC)
+        if hnsw_ef_search_default is not None:
+            self._ef_search = int(hnsw_ef_search_default)
+        elif ef_search_default is not None:
+            self._ef_search = int(ef_search_default)
+        else:
+            self._ef_search = HNSW_EFS
         self._incr_threshold_ratio = float(faiss_incremental_threshold_ratio)
-        # "auto" serves the exact scan until the IVF tier is ported
         self._index_kind = "exact" if no_faiss or index == "exact" else index
+        self._ivf_nlist = ivf_nlist
+        self._ivf_nprobe = ivf_nprobe
+        self._ivf = None  # the IVF tier (ops/ivf.IVFIndex), built lazily
+        # construction point of the last build (last_query_debug)
+        self._ann_build_params: Optional[dict] = None
+        # warm centroids of an IVF freed to let a device grow succeed
+        self._ivf_warm_blob: Optional[dict] = None
+        # "incremental" | "full" | None: how the last sync kept the tier
+        self._last_ann_rebuild_mode: Optional[str] = None
 
         if rescore is None:
             rescore = os.getenv(ENV_RESCORE) or "auto"
@@ -299,9 +325,32 @@ class PicoVectorDB:
         if self._active_indices.size:
             self._dev.full_upload(self._host_vectors, self._active_mask)
             self._last_sync_mode = "full"
+            self._load_ann_sidecar(np.asarray(self._host_vectors))
+            if self._ivf is None and self._index_kind == "ivf":
+                logger.warning("ANN sidecar missing or stale; rebuilding")
+                self._rebuild_ann()
         self._dirty = False
         logger.info("Loaded %d active / %d total vectors",
                     int(self._active_indices.size), count)
+
+    def _load_ann_sidecar(self, host_vectors: Optional[np.ndarray]) -> None:
+        """Adopt a persisted IVF sidecar that still matches the active rows
+        (k-means is not retrained; the layout is rebuilt from the device
+        corpus). A stale or unreadable sidecar leaves the tier unbuilt."""
+        if self._index_kind == "exact" or not self._active_indices.size:
+            return
+        blob = persistence.load_ann(self._path)
+        if blob is None:
+            return
+        self._ivf = ivf_ops.IVFIndex.from_blob(
+            blob, host_vectors, self._active_mask, self.dim,
+            dev_vectors=self._dev.vectors,
+            storage_dtype=self._dev.storage_dtype,
+            i8_only=self._ivf_i8_only(),
+            dequant_scale=self._dev.vstore_scale)
+        if self._ivf is not None:
+            self._ann_build_params = {"nlist_requested": self._ivf.nlist,
+                                      "kmeans_iters": 0, "warm": "sidecar"}
 
     def _load_slots(self, count: int) -> None:
         """Docs and additional data of a checkpoint with `count` slots,
@@ -361,7 +410,11 @@ class PicoVectorDB:
             self._dev.upload_prequantized(q["plane"], q["scales"],
                                           self._active_mask)
             self._last_sync_mode = "full"
-        self._dirty = False
+        # the int8-only layout trains straight off the resident plane: a
+        # missing or stale sidecar defers the build to the first query's
+        # sync, which sees the mirror current (no host materialization)
+        self._load_ann_sidecar(None)
+        self._dirty = self._ivf is None and self._ann_build_due()
         logger.info("Loaded %d active / %d total vectors (quantized)",
                     int(self._active_indices.size), count)
 
@@ -432,6 +485,7 @@ class PicoVectorDB:
                     self._dev.iter_store_chunks(n), n, self._dev.plane_cols,
                     self._dev.storage_dtype, self.dim,
                     overlay=self._host_overlay if self._host_lazy else None,
+                    ann_blob=self._ann_blob(),
                 )
                 return
             self._ensure_host_vectors()
@@ -447,7 +501,8 @@ class PicoVectorDB:
                 self._use_memmap = False
             persistence.save_atomic(
                 self._path, self._ids, self._docs, self._additional,
-                self._host_vectors, self.dim, n_shards=shards,
+                self._host_vectors, self.dim, ann_blob=self._ann_blob(),
+                n_shards=shards,
             )
 
     def _quantized_save_applies(self, quantized: Optional[bool],
@@ -823,7 +878,10 @@ class PicoVectorDB:
             self._pending_full = False
             self._filter_epoch += 1
             self._last_sync_mode = "full"
-            self._dirty = False
+            self._ivf = None
+            # the tier builds at the first query's sync, which finds the
+            # device-born mirror current and uploads nothing
+            self._dirty = self._ann_build_due()
             return {"update": [], "insert": list(ids)}
 
     def _write_host_row(self, idx: int, row: np.ndarray) -> None:
@@ -942,15 +1000,17 @@ class PicoVectorDB:
                 self._pending_full = False
                 self._dev.full_upload(self._host_vectors, self._active_mask)
                 self._last_sync_mode = "full"
+                self._rebuild_ann()  # compaction remapped every slot
                 self._dirty = False
             else:
                 # zero actives: the device mask may still mark old rows
                 # active; the next query's sync re-uploads the cleared mask
+                self._ivf = None
                 self._pending_full = self._dev.vectors is not None
                 self._dirty = self._pending_full
 
     def rebuild_index(self) -> None:
-        """Force a full device mirror refresh immediately."""
+        """Force a full device mirror refresh (+ ANN rebuild) immediately."""
         with self._rwlock.write_lock():
             if len(self._ids) and not self._host_lazy:
                 self._dev.full_upload(self._host_vectors, self._active_mask)
@@ -962,6 +1022,7 @@ class PicoVectorDB:
             self._pending_add.clear()
             self._pending_remove.clear()
             self._pending_full = False
+            self._rebuild_ann()
             self._dirty = False
 
     # ------------------------------------------------------------------
@@ -982,8 +1043,8 @@ class PicoVectorDB:
         """Cosine top-k query (single vector or batch).
 
         Filters compile to a boolean slot mask applied inside the scan.
-        `ef_search` / `hnsw_ef_search` are accepted for API parity; the
-        exact scan ignores them.
+        `ef_search` / `hnsw_ef_search` scale the IVF tier's probe width
+        when it serves; the exact tiers ignore them.
         """
         raw = np.ascontiguousarray(query_vecs, dtype=Float)
         if raw.ndim == 1:
@@ -1029,10 +1090,12 @@ class PicoVectorDB:
                 # inside the read lock: host rows mutate in place under
                 # the write lock, so the gather sees one snapshot
                 vals, idxs = self._rescored_dispatch(
-                    vecs, k_eff, n_cand, filter_mask, mask_key)
+                    vecs, k_eff, n_cand, filter_mask, ef_search,
+                    hnsw_ef_search, mask_key)
             else:
                 vals, idxs = self._dispatch_query(
-                    vecs, k_eff, filter_mask, mask_key=mask_key)
+                    vecs, k_eff, filter_mask, ef_search, hnsw_ef_search,
+                    mask_key=mask_key)
             self._last_rescore = "host" if rescore else None
             if num_q * k_eff <= 4096:
                 # small result sets assemble inside the read lock against
@@ -1133,11 +1196,16 @@ class PicoVectorDB:
         return vecs
 
     def _serve_chunks(self, vecs, k_eff, filter_mask, mask_key, batch_size,
-                      k_sel=None, wvecs=None):
+                      k_sel=None, wvecs=None, ef=None):
         """Dispatch every chunk, then fetch each one, re-serving exactly
         the chunks whose route may carry a retry mark and did (-inf).
         Caller holds the read lock for the whole call: the mirror mutates
         in place, so the retry must see the dispatch-time state.
+
+        Unfiltered chunks go to the IVF tier under `query`'s rule
+        (index="ivf" always; "auto" while the chunk's probed-cluster union
+        stays small, `_ann_routes_batch`); a chunk whose probed clusters
+        were all empty is re-served by the exact scan.
 
         `k_sel` (>= k_eff) selects a wider band per chunk for the host
         re-rank of the int8 wire (`wvecs`, the encoded batch; `vecs` is
@@ -1147,20 +1215,29 @@ class PicoVectorDB:
         k_sel = k_eff if k_sel is None else k_sel
         if wvecs is None:
             wvecs = self._wire_encode(vecs, num_q)
+        ef = self._ef_search if ef is None else ef
+        ann_ok = filter_mask is None and self._ann_admits_k(k_sel)
         pending = []
         for start in range(0, num_q, batch_size):
             chunk = wvecs[start:start + batch_size]
+            if ann_ok and self._ann_routes_batch(chunk.shape[0], ef):
+                vd, xd, nq = self._ivf.search_async(
+                    chunk, k_sel, ef, self._dev, nprobe=self._ivf_nprobe)
+                pending.append((start, chunk, vd, xd, nq, k_sel, False, True))
+                self._last_topk_strategy = self._ivf_strategy_name()
+                continue
             vd, xd, nq, ke = self._dev.query_async(
                 chunk, k_sel, filter_mask, mask_key=mask_key)
             # a small tail chunk may route differently: record each one's
             pending.append((start, chunk, vd, xd, nq, ke,
-                            _needs_exact_retry(self._dev.last_strategy)))
-        self._last_topk_strategy = self._dev.last_strategy
+                            _needs_exact_retry(self._dev.last_strategy), False))
+            self._last_topk_strategy = self._dev.last_strategy
         snap = self._dev.snapshot()
-        for start, chunk, vd, xd, nq, ke, retryable in pending:
+        for start, chunk, vd, xd, nq, ke, retryable, is_ivf in pending:
             vals = vd.cpu().numpy()[:nq, :ke]
             idxs = xd.cpu().numpy()[:nq, :ke]
-            if retryable and np.isneginf(vals).any():
+            if ((retryable and np.isneginf(vals).any())
+                    or (is_ivf and not np.isfinite(vals).any())):
                 vals, idxs = self._dev.query_exact_snapshot(snap, chunk, k_sel)
                 self._exact_retries += 1
             if k_sel != k_eff:
@@ -1183,7 +1260,8 @@ class PicoVectorDB:
         """Throughput-mode batch query: splits a (Q, dim) batch into
         device-sized chunks, dispatches them all, then assembles. Same
         result contract as `query` with a 2-D input. `query_vecs` may be a
-        tensor already on the device.
+        tensor already on the device. Unfiltered chunks route to the IVF
+        tier per chunk, under `query`'s rule.
 
         Small host batches of a lossy-storage store take `query` (its
         host rescore). With `query_wire="int8_rescore"`, host batches of
@@ -1194,7 +1272,8 @@ class PicoVectorDB:
         num_q = vecs.shape[0]
         if isinstance(vecs, np.ndarray) and self._host_rescore_applies(num_q):
             return self.query(vecs, top_k=top_k, better_than=better_than,
-                              where=where, ids=ids)
+                              where=where, ids=ids, ef_search=ef_search,
+                              hnsw_ef_search=hnsw_ef_search)
         out: list[list[dict[str, Any]]] = []
         with self._synced_read():
             if not self._active_indices.size:
@@ -1218,7 +1297,8 @@ class PicoVectorDB:
                 wvecs = self._wire_encode(vecs, num_q, rescore=True)
             results = list(self._serve_chunks(
                 vecs, k_eff, filter_mask, self._mask_key(where, ids),
-                batch_size, k_sel=k_sel, wvecs=wvecs))
+                batch_size, k_sel=k_sel, wvecs=wvecs,
+                ef=self._resolve_ef(ef_search, hnsw_ef_search)))
             self._last_rescore = "host-wire" if wire_rescore else None
             docs_ref = list(self._docs)
         for vals, idxs in results:
@@ -1265,10 +1345,12 @@ class PicoVectorDB:
             if rescore:
                 chunks = [self._rescored_dispatch(
                     vecs[s:s + batch_size], k_eff, n_cand, filter_mask,
-                    mask_key) for s in range(0, num_q, batch_size)]
+                    ef_search, hnsw_ef_search, mask_key)
+                    for s in range(0, num_q, batch_size)]
             else:
-                chunks = self._serve_chunks(vecs, k_eff, filter_mask,
-                                            mask_key, batch_size)
+                chunks = self._serve_chunks(
+                    vecs, k_eff, filter_mask, mask_key, batch_size,
+                    ef=self._resolve_ef(ef_search, hnsw_ef_search))
             ids_arr = self._ids_array()
             docs_len = len(self._docs)
             row = 0
@@ -1398,9 +1480,32 @@ class PicoVectorDB:
                     "int8": self._dev.vectors_i8 is not None,
                 },
                 "index_kind": self._index_kind,
-                "ann_active": False,
+                "ann_active": self._ivf is not None,
+                "ann_rebuild_mode": self._last_ann_rebuild_mode,
+                # what the IVF tier would serve with right now
+                "ann_operating_point": self._ann_operating_point(),
+                # the construction point the last build resolved to
+                "ann_build_params": self._ann_build_params,
                 "rescore": self._last_rescore,
             }
+
+    def _ann_operating_point(self) -> Optional[dict]:
+        ivf = self._ivf
+        if ivf is None:
+            return None
+        return {
+            "nlist": int(ivf.nlist),
+            "nprobe_default": int(
+                self._ivf_nprobe
+                or ivf_ops.ef_to_nprobe(self._ef_search, ivf.nlist)),
+            "layout": "int8_only" if ivf.vectors is None else "classic",
+            "postings": ("int8" if ivf.vectors_i8c is not None
+                         else str(ivf.vectors.dtype).replace("torch.", "")),
+            # rows in the always-probed overflow region since the last
+            # full build, and the last requantize-on-append's clip rate
+            "overflow_fraction": float(ivf.overflow_fraction),
+            "last_update_clip_fraction": ivf.last_update_clip_fraction,
+        }
 
     def profile_trace(self, log_dir: str):
         """Context manager capturing a torch.profiler trace (CPU and, on
@@ -1424,7 +1529,8 @@ class PicoVectorDB:
                 "deleted": total - active,
                 "total": total,
                 "dim": self.dim,
-                "faiss": False,  # back-compat key: no ANN tier yet
+                # back-compat key: truthy when an ANN tier exists
+                "faiss": self._ivf is not None,
                 "memmap": self._use_memmap,
                 "file_sizes": persistence.file_sizes(self._path),
                 "device": str(self._dev._device),
@@ -1448,6 +1554,11 @@ class PicoVectorDB:
                     "bf16": self._dev.vectors_lp is not None,
                     "int8_rows": self._dev.vectors_i8 is not None,
                 },
+                "ann_postings": (
+                    None if self._ivf is None
+                    else "int8-only" if self._ivf.vectors is None
+                    else "storage+int8" if self._ivf.vectors_i8c is not None
+                    else "storage"),
             }
 
     # ------------------------------------------------------------------
@@ -1601,6 +1712,7 @@ class PicoVectorDB:
         return mode == "host" or num_q <= self._rescore_max_q
 
     def _rescored_dispatch(self, vecs, k_eff, n_cand, filter_mask,
+                           ef_search=None, hnsw_ef_search=None,
                            mask_key=None):
         """Device dispatch of a guard-widened candidate band + host-f64
         rescore + one saturation escalation (caller holds the read lock).
@@ -1617,6 +1729,7 @@ class PicoVectorDB:
         `stats()["rescore_escalations"]`)."""
         k_req = min(k_eff + self._rescore_guard, n_cand)
         vals_a, idxs = self._dispatch_query(vecs, k_req, filter_mask,
+                                            ef_search, hnsw_ef_search,
                                             mask_key=mask_key)
         vals, idxs = self._host_rescore(vals_a, idxs, vecs)
         if k_req < n_cand:
@@ -1626,6 +1739,7 @@ class PicoVectorDB:
                 self._rescore_escalations += int(sat.sum())
                 sub = np.ascontiguousarray(np.asarray(vecs)[sat])
                 v2a, i2 = self._dispatch_query(sub, k2, filter_mask,
+                                               ef_search, hnsw_ef_search,
                                                mask_key=mask_key)
                 v2, i2 = self._host_rescore(v2a, i2, sub)
                 vals = vals[:, :k_eff].copy()
@@ -1718,10 +1832,49 @@ class PicoVectorDB:
             order = np.take_along_axis(order, reorder, axis=1)
         return exs.astype(np.float32), np.take_along_axis(idxs, order, axis=1)
 
-    def _dispatch_query(self, vecs, k_eff, filter_mask, mask_key=None):
-        """Exact routed scan, with the underfill/crowding retry: a -inf in
+    def _resolve_ef(self, ef_search: Optional[int],
+                    hnsw_ef_search: Optional[int]) -> int:
+        """Per-call ef: hnsw_ef_search -> ef_search -> the ctor default."""
+        if hnsw_ef_search is not None:
+            return int(hnsw_ef_search)
+        if ef_search is not None:
+            return int(ef_search)
+        return self._ef_search
+
+    def _ivf_strategy_name(self) -> str:
+        return "ivf_i8" if self._ivf.vectors_i8c is not None else "ivf"
+
+    def _ann_admits_k(self, k_eff: int) -> bool:
+        """Whether the IVF tier can serve this k: K7's running top-k is
+        bounded by its tile (k + 4 <= IVF_BN); wider k goes exact."""
+        if self._ivf is None or self._index_kind == "exact":
+            return False
+        return k_eff + 4 <= ivf_ops.IVF_BN
+
+    def _ann_routes_batch(self, num_q: int, ef: Optional[int] = None) -> bool:
+        """index="ivf" always probes; "auto" probes while the batch's
+        expected probed-cluster union nlist * (1 - (1 - nprobe/nlist)^Q)
+        stays <= 0.22 of the lists (picovdb_tpu's measured crossover on
+        clustered 2M x 1024 data; not re-measured on the H100)."""
+        if self._index_kind != "auto":
+            return True
+        e = int(ef) if ef is not None else self._ef_search
+        npb = self._ivf_nprobe or ivf_ops.ef_to_nprobe(e, self._ivf.nlist)
+        return 1.0 - (1.0 - npb / self._ivf.nlist) ** num_q <= 0.22
+
+    def _dispatch_query(self, vecs, k_eff, filter_mask, ef_search=None,
+                        hnsw_ef_search=None, mask_key=None):
+        """Route to the IVF tier (unfiltered, see `_ann_routes_batch`) or
+        the exact routed scan, with the underfill/crowding retry: a -inf in
         a result whose route may mark one (segmax truncation or a crowded
         guard band; k_eff <= candidates by construction) re-runs exact."""
+        if filter_mask is None and self._ann_admits_k(k_eff):
+            ef = self._resolve_ef(ef_search, hnsw_ef_search)
+            if self._ann_routes_batch(vecs.shape[0], ef):
+                vals, idxs = self._ivf.search(vecs, k_eff, ef, self._dev,
+                                              nprobe=self._ivf_nprobe)
+                self._last_topk_strategy = self._ivf_strategy_name()
+                return vals, idxs
         vals, idxs = self._dev.query(vecs, k_eff, filter_mask,
                                      mask_key=mask_key)
         self._last_topk_strategy = self._dev.last_strategy
@@ -1740,29 +1893,39 @@ class PicoVectorDB:
         `faiss_incremental_threshold_ratio` (the reference's
         incremental-vs-full rebuild rule). A lazy store scatters from its
         overlay at any ratio: its re-upload would first materialize the
-        host matrix."""
+        host matrix. Then the IVF tier: small change sets append to its
+        overflow region in place, anything else rebuilds it; `"auto"`
+        builds it here once `should_build` holds."""
         size = len(self._ids)
         if size == 0:
             self._dirty = False
             return
-        changed = sorted(self._pending_add | self._pending_remove)
-        if (not self._pending_full and changed
+        # a device-born (lazy) store with no mutation since: the mirror is
+        # the corpus, and the dirty flag only deferred the IVF build
+        mirror_current = (
+            self._host_lazy and not self._pending_add
+            and not self._pending_remove and not self._pending_full
+            and self._dev.vectors is not None and self._dev.cap >= size)
+        changed = ([] if mirror_current
+                   else sorted(self._pending_add | self._pending_remove))
+        if (not mirror_current and not self._pending_full and changed
                 and self._dev.vectors is not None and size > self._dev.cap):
-            # append epoch crossed a capacity bucket: grow on device; a
-            # grow that ran out of memory returns False and leaves the
-            # store to the full re-upload below
-            self._dev.grow(size)
+            # append epoch crossed a capacity bucket: grow on device
+            self._grow_device(size)
         dev_rows = self._dev.cap
-        need_full = (
+        need_full = not mirror_current and (
             self._pending_full
             or self._dev.vectors is None
             or size > dev_rows
             or not changed  # unknown change set -> be safe
         )
-        if not need_full and not self._host_lazy:
+        if not need_full and not mirror_current and not self._host_lazy:
             ratio = len(changed) / float(max(1, min(size, dev_rows)))
             need_full = ratio > max(0.0, self._incr_threshold_ratio)
-        if need_full:
+        ann_rows = None
+        if mirror_current:
+            pass
+        elif need_full:
             self._ensure_host_vectors()
             self._dev.full_upload(
                 np.asarray(self._host_vectors[:size]), self._active_mask)
@@ -1780,10 +1943,187 @@ class PicoVectorDB:
                     np.asarray(self._host_vectors)[idxs], dtype=Float)
             self._dev.scatter(idxs, rows, self._active_mask[idxs])
             self._last_sync_mode = "incremental"
+            ann_rows = (idxs, rows)
         self._pending_add.clear()
         self._pending_remove.clear()
         self._pending_full = False
+        if self._ivf is not None or self._ann_build_due():
+            done = False
+            if (self._ivf is not None and ann_rows is not None
+                    and self._ivf.overflow_fraction
+                    <= max(0.0, self._incr_threshold_ratio)):
+                idxs, rows = ann_rows
+                done = self._ivf.update(idxs, rows, self._active_mask[idxs])
+            if done:
+                self._last_ann_rebuild_mode = "incremental"
+            else:
+                self._rebuild_ann()
+                self._last_ann_rebuild_mode = (
+                    "full" if self._ivf is not None else None)
         self._dirty = False
+
+    def _grow_device(self, size: int) -> None:
+        """Grow the device planes to `size` rows. At the memory ceiling
+        with the IVF postings resident, free them (their centroids stay in
+        `_ivf_warm_blob` for a warm rebuild) and retry once; a grow that
+        still fails leaves the store to the sync's full re-upload."""
+        if self._dev.grow(size) or self._ivf is None:
+            return
+        logger.warning("device grow to %d rows ran out of device memory; "
+                       "freeing the IVF postings and retrying", size)
+        self._ivf_warm_blob = self._ivf._host_blob
+        self._ivf = None
+        if self._dev._device.type == "cuda":
+            torch.cuda.empty_cache()
+        if not self._dev.grow(size):
+            logger.warning("device grow retry failed after freeing the IVF "
+                           "postings; falling back to the full re-upload")
+
+    # ------------------------------------------------------------------
+    # IVF tier: layout choice, fit, construction point, (re)build
+    # ------------------------------------------------------------------
+
+    def _ann_build_due(self) -> bool:
+        """Whether the IVF tier should exist: index="ivf" always, "auto"
+        once the exact sweep is large enough (`should_build`)."""
+        n = int(self._active_indices.size)
+        if not n or self._index_kind == "exact":
+            return False
+        if self._index_kind == "ivf":
+            return True
+        return ivf_ops.should_build(n, self.dim,
+                            _storage_itemsize(self._dev.storage_dtype))
+
+    def _ann_blob(self) -> Optional[dict]:
+        return self._ivf.to_blob() if self._ivf is not None else None
+
+    def _ivf_i8_only(self) -> bool:
+        """The int8-only postings layout: always for int8/int4 storage (raw
+        rows cannot be scored without their row scales), and for float
+        stores whose classic layout (a storage-dtype postings mirror beside
+        the corpus) would pass the device budget (`_ivf_budget_bytes`).
+        PICOVDB_IVF_I8ONLY forces it on (1) or off (0)."""
+        if self._dev.storage_dtype in ("int8", "int4"):
+            return True
+        env = os.getenv("PICOVDB_IVF_I8ONLY", "auto").strip().lower()
+        if env in ("0", "false", "off", "no"):
+            return False
+        if env in ("1", "true", "on", "yes"):
+            return ivf_ops._ivf_i8_enabled(self.dim)
+        if not ivf_ops._ivf_i8_enabled(self.dim):
+            return False
+        item = _storage_itemsize(self._dev.storage_dtype)
+        n = max(int(self._active_indices.size), 1)
+        corpus_b = self._dev.cap * self.dim * item
+        mirror_b = int(1.05 * n) * self.dim * (item + 1)
+        return corpus_b + mirror_b > self._ivf_budget_bytes()
+
+    def _ivf_fits(self, n_active: int) -> bool:
+        """Whether the postings fit beside the corpus: ~1.05 n rows at
+        1 B/element (int8-only) or at the storage width plus an int8
+        mirror (classic), within the budget plus 1 GiB."""
+        item = _storage_itemsize(self._dev.storage_dtype)
+        corpus_b = max(self._dev.cap, n_active) * self.dim * item
+        if self._ivf_i8_only():
+            post_b = int(1.05 * n_active) * self.dim
+        else:
+            post_b = int(1.05 * n_active) * self.dim * (item + 1)
+        return corpus_b + post_b <= self._ivf_budget_bytes() + 2**30
+
+    def _ivf_budget_bytes(self) -> float:
+        """Device bytes the corpus and the IVF postings may take together:
+        PICOVDB_IVF_BUDGET_GB, else 13/16 of the card's memory (the share
+        picovdb_tpu's 13 GB leaves of a 16 GB v5e), else 13 GiB off the
+        card."""
+        env = os.getenv("PICOVDB_IVF_BUDGET_GB")
+        if env:
+            try:
+                return float(env) * 2**30
+            except ValueError:
+                pass
+        if self._dev._device.type == "cuda":
+            total = torch.cuda.mem_get_info(self._dev._device)[1]
+            return total * 13.0 / 16.0
+        return 13.0 * 2**30
+
+    def _ivf_build_params(self, n_active: int, warm: bool) -> tuple:
+        """(nlist, k-means iterations) of the next build. Explicit
+        `ivf_nlist` wins; otherwise `hnsw_m` scales the partition count
+        (default_nlist(N) * m / 32) and `hnsw_ef_construction` the k-means
+        effort (8 * efc / 40, clamped to [4, 32]); the defaults leave the
+        tuned build as it is."""
+        nlist: Optional[int] = self._ivf_nlist
+        if nlist is None and self._hnsw_m != HNSW_M:
+            nlist = int(max(8, min(4096, round(
+                ivf_ops.default_nlist(n_active) * self._hnsw_m / HNSW_M))))
+        iters = 8
+        if self._hnsw_efc != HNSW_EFC:
+            iters = int(max(4, min(32, round(8 * self._hnsw_efc / HNSW_EFC))))
+        self._ann_build_params = {
+            "nlist_requested": nlist,
+            "kmeans_iters": iters,
+            "hnsw_m": self._hnsw_m,
+            "hnsw_ef_construction": self._hnsw_efc,
+            "warm": "centroids" if warm else None,
+        }
+        return nlist, iters
+
+    @timed("rebuild_ann")
+    def _rebuild_ann(self) -> None:
+        """(Re)build the IVF tier when it is due and fits (caller holds the
+        write lock and has synced the device mirror, so the build reads
+        the device corpus). Running out of device memory leaves the store
+        exact; any other error raises."""
+        if not self._ann_build_due():
+            self._ivf = None
+            return
+        n_active = int(self._active_indices.size)
+        if self._dev.quantized and not ivf_ops._ivf_i8_enabled(self.dim):
+            # quantized storage has only the int8 postings layout, whose
+            # column quantization stacks on the storage quantization below
+            # IVF_I8_MIN_DIM: serve exact
+            if self._index_kind == "ivf":
+                logger.warning(
+                    "index='ivf' with %s storage needs dim >= %d (or "
+                    "PICOVDB_IVF_I8=1); serving exact",
+                    self._dev.storage_dtype, ivf_ops.IVF_I8_MIN_DIM)
+            self._ivf = None
+            return
+        if not self._ivf_fits(n_active):
+            if self._index_kind == "ivf":
+                logger.warning("IVF postings (%d rows) cannot fit device "
+                               "memory beside the corpus; serving exact",
+                               n_active)
+            self._ivf = None
+            return
+        warm_blob = (self._ivf._host_blob
+                     if self._ivf is not None and self._ivf._host_blob
+                     else self._ivf_warm_blob)
+        warm = warm_blob["centroids"] if warm_blob else None
+        self._ivf_warm_blob = None
+        # free the old postings first: two corpus-sized mirrors may not fit
+        self._ivf = None
+        dev_vectors = (self._dev.vectors
+                       if self._dev.vectors is not None
+                       and self._dev.cap >= len(self._ids) else None)
+        if dev_vectors is None:
+            self._ensure_host_vectors()
+        nlist, iters = self._ivf_build_params(n_active, warm is not None)
+        try:
+            self._ivf = ivf_ops.IVFIndex.build(
+                np.asarray(self._host_vectors[: len(self._ids)])
+                if dev_vectors is None else None,
+                self._active_mask, nlist=nlist, iters=iters, dim=self.dim,
+                warm_centroids=warm, dev_vectors=dev_vectors,
+                storage_dtype=self._dev.storage_dtype,
+                i8_only=self._ivf_i8_only(),
+                dequant_scale=(self._dev.vstore_scale
+                               if dev_vectors is not None else None),
+                device=self._dev._device)
+        except torch.cuda.OutOfMemoryError:
+            logger.warning("IVF build ran out of device memory; serving "
+                           "exact", exc_info=True)
+            self._ivf = None
 
 
 # Routes whose results may carry a -inf retry mark: segmax underfill
@@ -1794,6 +2134,12 @@ class PicoVectorDB:
 _RETRY_PREFIXES = (
     "segmax", "mixed_fused_smallq", "i8_fused_smallq", "i8c_fused_smallq"
 )
+
+
+def _storage_itemsize(storage_dtype: Optional[str]) -> float:
+    """Bytes per corpus element as the exact sweep reads it."""
+    return {"bfloat16": 2.0, "int8": 1.0, "int4": 0.5}.get(
+        storage_dtype or "float32", 4.0)
 
 
 def _needs_exact_retry(strategy) -> bool:

@@ -45,6 +45,13 @@ _SIGNATURES = {
     # kind (0 f32, 1 bf16, 2 int8: K3/K4; 3 packed int4: K6), q, v, vscale,
     # mask, partial, vals, idx, Q, cap, dim, k, chunk, stream
     "pv_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
+    # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
+    "pv_ivf_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                         _L, _I, _I, _P],
+    # kind, q, v, mask, hot, n_hot, keys, Q, cap, dim, bn, grid_b, per_seg,
+    # stream
+    "pv_ivf_segmax": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
 }
 
 

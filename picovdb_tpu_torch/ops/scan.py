@@ -47,7 +47,8 @@ SEG = 128  # rows per segmax segment
 # Kernel launches made through the wrappers, by kernel. Comparing a kernel
 # with its plain version does not go through a wrapper's counted path.
 LAUNCHES = {"segmax": 0, "topk_keys": 0, "scan_topk": 0, "scan_topk_i8": 0,
-            "segmax_i8": 0, "scan_topk_i4": 0}
+            "segmax_i8": 0, "scan_topk_i4": 0,
+            "ivf_scan_topk": 0, "ivf_segmax": 0}  # K7, K8: ops/ivf.py
 # Requests whose k_sel exceeded SCAN_KSEL_MAX and went to the plain exact
 # scan instead of K3/K4/K6 (the JAX package's `k > bn` fallback).
 WIDE_K_FALLBACKS = {"scan_topk": 0, "scan_topk_i8": 0, "scan_topk_i4": 0}
@@ -83,6 +84,42 @@ def quantize_rows_i8(v: torch.Tensor):
     s = torch.clamp(f.abs().amax(dim=1), min=1e-30) * (1.0 / 127.0)
     q = torch.round(f / s[:, None])  # round half to even, like jnp.round
     return torch.clamp(q, -127, 127).to(torch.int8), s
+
+
+# ---------------------------------------------------------------------------
+# Column-scaled int8 (the IVF tier's int8 postings): one scale per column,
+# folded into the query, so selection ranks raw int32 products.
+# ---------------------------------------------------------------------------
+
+
+def colmax_abs(v: torch.Tensor) -> torch.Tensor:
+    """Per-column abs-max in float32 (the reduction half of the chunked
+    column quantization)."""
+    return v.float().abs().amax(dim=0)
+
+
+def quantize_cols_scaled_i8(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Column-quantize against given (dim,) scales: clip(round(v / s))."""
+    q = torch.round(v.float() / s[None, :])
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def quantize_cols_i8(v: torch.Tensor):
+    """Per-column symmetric int8 quantization: (rows int8, col scales f32).
+
+    scales[d] = max_r |v[r, d]| / 127, floored so all-zero columns stay
+    finite; the division by 127 is a multiplication by float32(1/127), as
+    XLA compiles it (bit-identical to picovdb_tpu's quantize_cols_i8)."""
+    s = torch.clamp(colmax_abs(v), min=1e-30) * (1.0 / 127.0)
+    return quantize_cols_scaled_i8(v, s), s
+
+
+def fold_queries_i8(queries: torch.Tensor, cscale: torch.Tensor) -> torch.Tensor:
+    """Fold the corpus column scales into the queries, then quantize them
+    per row. The per-query scale is a positive constant that cannot change
+    the query's ranking, so it is dropped."""
+    q, _ = quantize_rows_i8(queries.float() * cscale[None, :])
+    return q
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import json
 import logging
 import os
 import re
+import zipfile
 from typing import Optional
 
 import numpy as np
@@ -557,6 +558,20 @@ def load_vectors_sharded(base: str, dim: int) -> Optional[np.ndarray]:
                 f"shard {p} has shape {arr.shape}; expected (*, {dim})"
             )
     return to_c_f32(np.concatenate(parts, axis=0)) if len(parts) > 1 else to_c_f32(parts[0])
+
+
+def load_ann(base: str) -> Optional[dict]:
+    """The ANN sidecar (`<base>.vecs.npy.ivf.npz`, picovdb_tpu's format) as
+    a dict of arrays; None when absent or unreadable (the caller retrains)."""
+    path = ann_path(base)
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    except (OSError, ValueError, EOFError, zipfile.BadZipFile):
+        logger.warning("Failed to read ANN sidecar; will rebuild")
+        return None
 
 
 def file_sizes(base: str) -> dict[str, int]:

@@ -179,3 +179,102 @@ def test_int4_engine_round_trip_on_card(dev, tmp_path):
                        storage_dtype="int4", device=dev)
     again, _ = db2.query_columnar(q, top_k=5)
     assert (again == db.query_columnar(q, top_k=5)[0]).all()
+
+
+def _ivf_data(dev, kind, dim, nq, n_tiles=16, grid_b=10, n_hot=7, seed=1):
+    """Postings of n_tiles IVF tiles in the kernel's dtype, a row mask, and
+    a hot table of grid_b tiles of which the first n_hot are live."""
+    from picovdb_tpu_torch.ops import ivf
+
+    q, v, mask = _data(dev, cap=n_tiles * ivf.IVF_BN, dim=dim, nq=nq, seed=seed)
+    if kind == "i8c":
+        v, cs = scan.quantize_cols_i8(v)
+        q = scan.fold_queries_i8(q, cs)
+    elif kind == "bf16":
+        q, v = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    g = torch.Generator().manual_seed(seed)
+    hot = torch.randperm(n_tiles, generator=g)[:grid_b].sort().values
+    hot = hot.to(torch.int32).to(dev)
+    return q, v, mask, hot, torch.tensor([n_hot], dtype=torch.int32, device=dev)
+
+
+# (kind, Q, k): both K7 configurations (k <= 128: 16-query tiles; wider:
+# 2-query tiles), all three kinds, a query count that is not a tile multiple
+@pytest.mark.parametrize("dim", DIMS)
+@pytest.mark.parametrize("kind,nq,k", [("f32", 1, 14), ("bf16", 16, 32),
+                                       ("i8c", 16, 36), ("f32", 16, 300),
+                                       ("i8c", 3, 544), ("bf16", 5, 200)])
+def test_ivf_scan_topk(dev, kind, nq, k, dim):
+    from picovdb_tpu_torch.ops import ivf
+
+    q, v, mask, hot, n_hot = _ivf_data(dev, kind, dim, nq)
+    before = scan.LAUNCHES["ivf_scan_topk"]
+    vals, idx = ivf.ivf_scan_topk(q, v, mask, hot, n_hot, k)
+    assert scan.LAUNCHES["ivf_scan_topk"] == before + 1
+    rv, ri = ivf.ivf_scan_topk_plain(q, v, mask, hot, n_hot, k)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(vals), torch.isneginf(rv))
+    if kind == "i8c":  # integer scores, ties to the lower row: exact
+        assert torch.equal(vals, rv) and torch.equal(idx, ri)
+    else:
+        fin = torch.isfinite(rv)
+        assert float((vals[fin] - rv[fin]).abs().max()) <= 1e-5
+    live_tiles = set(hot[: int(n_hot)].tolist())
+    got = idx[torch.isfinite(vals)].long()
+    assert bool(mask[got].all())
+    assert set((got // ivf.IVF_BN).tolist()) <= live_tiles  # no dead step
+
+
+@pytest.mark.parametrize("kind", ["f32", "i8c"])
+def test_ivf_scan_topk_no_hot_tile(dev, kind):
+    """n_hot = 0 (every probed cluster empty): every step is dead and the
+    whole result is empty."""
+    from picovdb_tpu_torch.ops import ivf
+
+    q, v, mask, hot, _ = _ivf_data(dev, kind, 64, 4)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    vals, idx = ivf.ivf_scan_topk(q, v, mask, hot, zero, 20)
+    keys = ivf.ivf_segmax_scan(q, v, mask, hot, zero, 4)
+    torch.cuda.synchronize()
+    assert bool(torch.isneginf(vals).all()) and int(idx.abs().sum()) == 0
+    assert bool((keys == scan.KEY_MIN).all())
+
+
+@pytest.mark.parametrize("dim", DIMS + [1024])
+@pytest.mark.parametrize("kind,nq,per_seg", [("f32", 64, 4), ("bf16", 64, 8),
+                                             ("i8c", 70, 4), ("f32", 3, 8),
+                                             ("i8c", 16, 8)])
+def test_ivf_segmax_scan(dev, kind, nq, per_seg, dim):
+    from picovdb_tpu_torch.ops import ivf
+
+    q, v, mask, hot, n_hot = _ivf_data(dev, kind, dim, nq)
+    before = scan.LAUNCHES["ivf_segmax"]
+    keys = ivf.ivf_segmax_scan(q, v, mask, hot, n_hot, per_seg)
+    assert scan.LAUNCHES["ivf_segmax"] == before + 1
+    ref = ivf.ivf_segmax_scan_plain(q, v, mask, hot, n_hot, per_seg)
+    torch.cuda.synchronize()
+    assert keys.shape == ref.shape
+    if kind == "i8c":  # raw int32 scores: bit for bit
+        assert torch.equal(keys, ref)
+        return
+    live = keys != scan.KEY_MIN
+    assert torch.equal(live, ref != scan.KEY_MIN)
+    dec = lambda k: scan._from_sortable(k & ~127).view(torch.float32)  # noqa: E731
+    assert float((dec(keys)[live] - dec(ref)[live]).abs().max()) <= 1e-4
+    # dead steps (columns of hot[b] with b >= n_hot) are all KEY_MIN
+    ns = ivf.IVF_BN // scan.SEG
+    assert not bool(live[:, int(n_hot) * per_seg * ns:].any())
+
+
+@pytest.mark.parametrize("kind", ["f32", "i8c"])
+def test_ivf_scan_topk_bounded_partials(dev, kind, monkeypatch):
+    """A small partial-result bound forces fewer blocks per tile and query
+    groups; the answer must not change."""
+    from picovdb_tpu_torch.ops import ivf
+
+    q, v, mask, hot, n_hot = _ivf_data(dev, kind, 96, 40)
+    want = ivf.ivf_scan_topk(q, v, mask, hot, n_hot, 200)
+    monkeypatch.setattr(ivf, "_PARTIAL_BYTES", 10 * 200 * 8 * 3)
+    got = ivf.ivf_scan_topk(q, v, mask, hot, n_hot, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
