@@ -47,7 +47,7 @@ IVF_I4_N = 8_000_000  # int4 store, index="ivf", device-born, phase 8
 SIDECAR_N = 262_144  # float32 store, index="ivf", sidecar round trip
 MIX_CENTRES = 4096  # gaussian-mixture centres of the IVF phases' data
 MIX_SIGMA = 0.03  # per-coordinate noise: |noise| ~ 0.96 beside unit centres
-TOL_SCORE = 1e-5  # rescored scores: both sides are float32 dot products
+TOL_SCORE = 1e-5  # float32 scores and K8's float keys: summation order only
 TOL_GAP = 1e-4  # id sets must agree where the k-th/(k+1)-th gap exceeds it
 
 KERNELS = {
@@ -355,6 +355,13 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
     def dec(kk):
         return scan._from_sortable(kk & ~(scan.SEG - 1)).view(torch.float32)
 
+    def key_err(keys, ref, live):
+        return float((dec(keys)[live] - dec(ref)[live]).abs().max())
+
+    # Float keys must agree within TOL_SCORE: the sums differ only in their
+    # order, which moves a key by at most one 128-ulp quantum (1.9e-6 below
+    # a score of 0.25). A TF32 product (10-bit mantissa) would be off by
+    # more; the plain version run in TF32 on the same inputs shows it does.
     errs, lines, first = [], [], None
     for kind in kinds:
         for per_seg in (4, 8):
@@ -369,8 +376,8 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
                 assert torch.equal(keys, ref), "K8 i8c keys differ"
                 err = 0.0
             else:
-                err = float((dec(keys)[live] - dec(ref)[live]).abs().max())
-                assert err <= 1e-4, f"K8 {kind} keys differ by {err}"
+                err = key_err(keys, ref, live)
+                assert err <= TOL_SCORE, f"K8 {kind} keys differ by {err}"
             errs.append(err)
             ms = cuda_ms(torch, lambda: ivf.ivf_segmax_scan(qs, vv, mask, hot,
                                                             n_hot, per_seg))
@@ -380,8 +387,23 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
             lines.append(f"{kind} per_seg={per_seg} {ms:.4f} ms (plain "
                          f"{pms:.4f})")
     rec["ivf_segmax_scan"] = (max(errs), first[0], first[1])
+    # what the limit must reject: the f32 plain version in TF32, and over
+    # bf16-rounded inputs, against the f32 plain version
+    ref = ivf.ivf_segmax_scan_plain(q64, post, mask, hot, n_hot, 8)
+    live = ref != scan.KEY_MIN
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = ivf.ivf_segmax_scan_plain(q64, post, mask, hot, n_hot, 8)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err_tf32 = key_err(tf32, ref, live)
+    err_bf16 = key_err(ivf.ivf_segmax_scan_plain(
+        q64.to(torch.bfloat16), kinds["bf16"], mask, hot, n_hot, 8), ref, live)
+    assert err_tf32 > TOL_SCORE, f"a TF32 K8 would pass: {err_tf32}"
     log(f"phase 2: K8 ivf_segmax_scan agrees at Q=64 (max |dkey value| "
-        f"{max(errs):.3g}): " + "; ".join(lines))
+        f"{max(errs):.3g}, limit {TOL_SCORE:g}; plain f32 in TF32 "
+        f"{err_tf32:.3g}, over bf16 inputs {err_bf16:.3g}): "
+        + "; ".join(lines))
     del post, v8, kinds
     torch.cuda.empty_cache()
 

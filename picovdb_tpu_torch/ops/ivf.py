@@ -59,6 +59,8 @@ from .scan import (
     quantize_cols_i8,
     quantize_cols_scaled_i8,
     rescore_exact,
+    rescore_exact_i4r,
+    rescore_exact_i8r,
     unpack_i4,
 )
 
@@ -70,6 +72,14 @@ IVF_BN = int(os.getenv("PICOVDB_IVF_BN", "1024") or 1024)
 # on clustered data (picovdb_tpu measured exact-probe top-1 misses at
 # dim 16), so the storage-dtype postings serve instead.
 IVF_I8_MIN_DIM = 256
+
+# Keys K8 keeps per 128-row segment on the segmax route. Not picovdb_tpu's
+# max(4, min(8, need)): a query's top-k is a random subset of its cluster,
+# not spread evenly over the cluster's segments, so depth 4 truncates
+# clustered top-10 sets (tests/test_torch_ivf.py::
+# test_segmax_depth_4_truncates_clustered_top_k shows it on picovdb_tpu's
+# own route); depth 8 loses none there.
+SEGMAX_DEPTH = 8
 
 
 def _ivf_i8_enabled(dim: int) -> bool:
@@ -427,23 +437,26 @@ def _probe_preamble(q, centroids, active, seg_starts, cluster2tile, *,
 def _rescore_by_slot(q, corpus, slots, vals, idxs, k, corpus_scale=None,
                      packed_i4: bool = False):
     """Exact rescore for the int8-only layout: winner IVF rows -> engine
-    slot ids -> the slot-indexed corpus rows (unpacked for int4, times the
-    row scale for int8/int4 storage) -> re-rank. -inf / pad candidates
+    slot ids -> `rescore_exact*` over the slot-indexed corpus (float, or
+    int8 / packed int4 storage times its row scale). -inf / pad candidates
     stay -inf with slot -1."""
     sl = slots[idxs.long()]
-    safe = torch.clamp(sl, min=0)
-    gathered = corpus[safe]
+    vals = torch.where(sl < 0, float("-inf"), vals)
+    sl = torch.clamp(sl, min=0)
     if packed_i4:
-        gathered = unpack_i4(gathered)
-    exact = torch.einsum("qd,qkd->qk", q.float(), gathered.float())
-    if corpus_scale is not None:
-        exact = exact * corpus_scale[safe]
-    exact = torch.where(torch.isneginf(vals) | (sl < 0), float("-inf"), exact)
-    order = torch.argsort(-exact, dim=1, stable=True)
-    out_vals = exact.gather(1, order)[:, :k]
-    out_slots = sl.gather(1, order)[:, :k]
-    out_slots = torch.where(torch.isneginf(out_vals), -1, out_slots)
-    return out_vals, out_slots.to(torch.int32)
+        vals, sl = rescore_exact_i4r(q, corpus, corpus_scale, vals, sl)
+    elif corpus_scale is not None:
+        vals, sl = rescore_exact_i8r(q, corpus, corpus_scale, vals, sl)
+    else:
+        vals, sl = rescore_exact(q, corpus, vals, sl)
+    return _cut_to_slots(vals, sl, k)
+
+
+def _cut_to_slots(vals, slot_ids, k):
+    """The first k of a rescored band; -1 where the score is -inf."""
+    vals = vals[:, :k]
+    slot_ids = torch.where(torch.isneginf(vals), -1, slot_ids[:, :k])
+    return vals, slot_ids.to(torch.int32)
 
 
 def _scan_inputs(q, vectors, vectors_i8, cscale):
@@ -483,14 +496,13 @@ def probe_scan_local(q, centroids, vectors, slots, seg_starts, active,
                                 corpus_scale=rescore_scale,
                                 packed_i4=rescore_packed_i4)
     vals, idxs = rescore_exact(q, vectors, vals, idxs)
-    vals, idxs = vals[:, :k], idxs[:, :k]
-    slot_ids = torch.where(torch.isneginf(vals), -1, slots[idxs.long()])
-    return vals, slot_ids.to(torch.int32)
+    return _cut_to_slots(vals, slots[idxs.long()], k)
 
 
 def probe_scan_segmax(q, centroids, vectors, slots, seg_starts, active,
                       cluster2tile, *, k: int, k_sel: int, nprobe: int,
-                      nlist: int, g_tiles: Optional[int], per_seg: int = 4,
+                      nlist: int, g_tiles: Optional[int],
+                      per_seg: int = SEGMAX_DEPTH,
                       vectors_i8=None, cscale=None,
                       rescore_by_slot: bool = False, rescore_scale=None,
                       rescore_packed_i4: bool = False):
@@ -513,23 +525,18 @@ def probe_scan_segmax(q, centroids, vectors, slots, seg_starts, active,
     gidx = (hot.long()[step] * ns + s) * SEG + (tk & (SEG - 1)).long()
     empty = tk == KEY_MIN
     gidx = torch.where(empty, 0, gidx)
+    marker = torch.where(empty, float("-inf"), 0.0)
     if rescore_by_slot:
-        marker = torch.where(empty, float("-inf"), 0.0)
         return _rescore_by_slot(q, vectors, slots, marker, gidx, k,
                                 corpus_scale=rescore_scale,
                                 packed_i4=rescore_packed_i4)
-    exact = torch.einsum("qd,qkd->qk", q, vectors[gidx].float())
-    exact = torch.where(empty, float("-inf"), exact)
-    order = torch.argsort(-exact, dim=1, stable=True)
-    vals = exact.gather(1, order)[:, :k]
-    idxs = gidx.gather(1, order)[:, :k]
-    slot_ids = torch.where(torch.isneginf(vals), -1, slots[idxs])
-    return vals, slot_ids.to(torch.int32)
+    vals, idxs = rescore_exact(q, vectors, marker, gidx)
+    return _cut_to_slots(vals, slots[idxs], k)
 
 
 def _make_ivf_search(k: int, nprobe: int, nlist: int,
                      g_tiles: Optional[int] = None, style: str = "ladder",
-                     per_seg: int = 4, slot_rescore: bool = False,
+                     per_seg: int = SEGMAX_DEPTH, slot_rescore: bool = False,
                      k_sel: Optional[int] = None, packed_i4: bool = False):
     """The probed search as a plain closure: normalize on the device, then
     `probe_scan_local` (K7, "ladder") or `probe_scan_segmax` (K8).
@@ -988,14 +995,6 @@ class IVFIndex:
         k_sel = k + _ivf_guard(use_i8_sel, self.dim)
         span_segs = max(1e-6, (postings.shape[0] / max(1, self.nlist)) / SEG)
         need = math.ceil(1.5 * k_sel / span_segs)
-        # Depth 8, not picovdb_tpu's max(4, need): a query's top-k is a
-        # random subset of its cluster, not spread evenly over the
-        # cluster's segments, and depth 4 truncated 14 of 128 clustered
-        # top-10 sets (100k x 64 mixture, ~709-row clusters, CPU; 18 of
-        # 128 at 2M x 1024 on the H100) where depth 8 lost none. The
-        # extra ranks cost nothing measurable in K8 (f32, Q = 64: 0.344
-        # vs 0.365 ms, H100 80GB HBM3 at 700 W).
-        per_seg = 8
         style = os.getenv("PICOVDB_IVF_STYLE", "") or (
             "segmax" if num_q > 1 and k_sel <= 64 and need <= 8 else "ladder")
         if slot_rescore:
@@ -1008,8 +1007,9 @@ class IVFIndex:
             packed_i4 = getattr(dev, "storage_dtype", None) == "int4"
         else:
             rescore_v, rescore_scale, packed_i4 = self.vectors, None, False
-        fn = _make_ivf_search(k, nprobe, self.nlist, g_tiles, style, per_seg,
-                              slot_rescore, k_sel, packed_i4)
+        fn = _make_ivf_search(k, nprobe, self.nlist, g_tiles, style,
+                              slot_rescore=slot_rescore, k_sel=k_sel,
+                              packed_i4=packed_i4)
         vals, slot_ids = fn(self._query_tensor(queries), self.centroids,
                             rescore_v, self.slots, self.seg_starts, self.active,
                             self.cluster2tile, self.vectors_i8c, self.cscale,

@@ -8,7 +8,10 @@ present (the CPU test runs), and runs on the card with
 Shapes are small; `chip_smoke.py` checks the same kernels at the main
 path's shapes. Tolerances: K5 keys and int8 / int4 scores are exact
 (integer sums, one float32 conversion and one multiply); float32 / bf16
-scores within 1e-5 (summation order).
+scores within 1e-5 (summation order). K8's float keys also within 1e-5:
+unit-vector scores stay below 1, where summation order moves a key by at
+most one 128-ulp quantum (7.6e-6), while a TF32 product would be off by
+several 1e-5 at these widths.
 """
 
 import pytest
@@ -260,7 +263,7 @@ def test_ivf_segmax_scan(dev, kind, nq, per_seg, dim):
     live = keys != scan.KEY_MIN
     assert torch.equal(live, ref != scan.KEY_MIN)
     dec = lambda k: scan._from_sortable(k & ~127).view(torch.float32)  # noqa: E731
-    assert float((dec(keys)[live] - dec(ref)[live]).abs().max()) <= 1e-4
+    assert float((dec(keys)[live] - dec(ref)[live]).abs().max()) <= 1e-5
     # dead steps (columns of hot[b] with b >= n_hot) are all KEY_MIN
     ns = ivf.IVF_BN // scan.SEG
     assert not bool(live[:, int(n_hot) * per_seg * ns:].any())

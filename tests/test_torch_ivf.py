@@ -308,6 +308,57 @@ def test_slot_rescore_routes_match_jax(monkeypatch, style, storage):
     assert_same(*jr, *tr, _gaps(rows * scale[:, None], q, k))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_segmax_depth_4_truncates_clustered_top_k(monkeypatch, seed):
+    """Clusters of 768 rows span 6 segments, so picovdb_tpu's search sizes
+    the segmax depth max(4, min(8, need)) at 4. A query's top-10 is a
+    random subset of its cluster; where more than 4 of its top-14 fall in
+    one segment, depth 4 drops them. Every cluster is probed, so a miss
+    against the float64 oracle is the depth's alone: picovdb_tpu's route
+    misses, the port's route at the same depth misses the same queries,
+    and at SEGMAX_DEPTH (8) it misses none."""
+    monkeypatch.setenv("PICOVDB_IVF_STYLE", "segmax")
+    rng = np.random.default_rng(seed)
+    n_clusters, per_cluster, nq, k = 16, 768, 32, 10
+    centres = normalize_batch(rng.normal(size=(n_clusters, DIM)).astype(np.float32))
+    lab = rng.permutation(np.repeat(np.arange(n_clusters), per_cluster))
+    n = len(lab)
+    v = normalize_batch((centres[lab] + 0.35 / np.sqrt(DIM)
+                         * rng.normal(size=(n, DIM))).astype(np.float32))
+    j = jivf.IVFIndex.build(v, np.ones(n, bool), nlist=n_clusters, dim=DIM,
+                            iters=0, warm_centroids=centres)
+    t = port_of(j)
+    q = normalize_batch(v[rng.integers(0, n, nq)]
+                        + 0.01 * rng.normal(size=(nq, DIM))).astype(np.float32)
+    depths = []
+    make = jivf._make_ivf_search
+
+    def record(*args, **kw):
+        depths.append(args[8])  # per_seg, by position in search_async's call
+        return make(*args, **kw)
+
+    monkeypatch.setattr(jivf, "_make_ivf_search", record)
+    _, js = j.search(q, k, 64, None, nprobe=n_clusters)
+    assert depths == [4]
+    _, ts = t.search(q, k, 64, None, nprobe=n_clusters)
+    fn4 = tivf._make_ivf_search(k, n_clusters, n_clusters,
+                                t.g_tiles(nq, n_clusters), "segmax",
+                                per_seg=4, k_sel=k + 4)
+    _, ts4 = fn4(_t(q), t.centroids, t.vectors, t.slots, t.seg_starts,
+                 t.active, t.cluster2tile)
+    order = np.argsort(-(q.astype(np.float64) @ v.astype(np.float64).T), 1)
+    gaps = _gaps(v, q, k)
+
+    def misses(ids):
+        ids = np.asarray(ids)
+        return [i for i in range(nq)
+                if gaps[i] > TOL_GAP and set(ids[i]) != set(order[i, :k])]
+
+    assert misses(js), "depth 4 truncated nothing: the witness is void"
+    assert misses(ts4.numpy()) == misses(js)
+    assert misses(ts) == []
+
+
 def _hot_case(kind, seed=3):
     rng = np.random.default_rng(seed)
     bn = tivf.IVF_BN
