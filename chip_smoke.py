@@ -12,14 +12,18 @@ host-f64 rescore and a quantized checkpoint (phase 4), a device-born
 bfloat16 store (phase 6), the IVF tier's classic layout over a clustered
 2M x 1024 float32 store under index="auto" (phase 7), its int8-only
 layout over a device-born, clustered 8M x 1024 int4 store and a sidecar
-round trip (phase 8). Launch counts are zeroed just before each path
-and read just after it. Every phase prints its lines; any failure raises
-and the script exits non-zero without a result line. It imports neither
-JAX nor picovdb_tpu, and refuses to run without a card.
+round trip (phase 8), the opt-in selection tiers A/B over one 1M x 1024
+float32 corpus (phase 9: defaults, PICOVDB_SEGMAX_I8, the column-scaled
+int8 routes, scan_mode="approx"), and the two bench probes (phase 10).
+Launch counts are zeroed just before each path and read just after it.
+Every phase prints its lines; any failure raises and the script exits
+non-zero without a result line. It imports neither JAX nor picovdb_tpu,
+and refuses to run without a card.
 
-Output, in order: the phase lines, the card's name and power limit as
-`nvidia-smi` reports them, one JSON object with the per-kernel record, and
-last `{"ok": true, "device": {...}}`.
+Output, in order: the phase lines (phase 10 adds one JSON line per
+probe), the card's name and power limit as `nvidia-smi` reports them,
+one JSON object with the per-kernel record (time, plain time, bound,
+library call, launches), and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -45,10 +49,16 @@ BF16_N = 262_144  # bfloat16 store, phase 6
 IVF_N = 2_000_000  # float32 store, index="auto", phase 7 (8 GB of corpus)
 IVF_I4_N = 8_000_000  # int4 store, index="ivf", device-born, phase 8
 SIDECAR_N = 262_144  # float32 store, index="ivf", sidecar round trip
+TIERS_N = 1_000_000  # float32 store, the opt-in tiers' A/B, phase 9
 MIX_CENTRES = 4096  # gaussian-mixture centres of the IVF phases' data
 MIX_SIGMA = 0.03  # per-coordinate noise: |noise| ~ 0.96 beside unit centres
 TOL_SCORE = 1e-5  # float32 scores and K8's float keys: summation order only
 TOL_GAP = 1e-4  # id sets must agree where the k-th/(k+1)-th gap exceeds it
+# The least time the card could take (bound_ms): bytes over the HBM rate,
+# operations over the peak for their type (NVIDIA H100 SXM data sheet,
+# dense rates at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 KERNELS = {
     # name: (launch-counter key, source, TPU kernel it replaces, the phase
@@ -69,7 +79,26 @@ KERNELS = {
                       "picovdb_tpu/ops/ivf.py:1237", 7),
     "ivf_segmax_scan": ("ivf_segmax", "picovdb_tpu_torch/csrc/segmax.cu",
                         "picovdb_tpu/ops/ivf.py:1492", 7),
+    "fused_topk_i8c": ("scan_topk_i8c", "picovdb_tpu_torch/csrc/scan_topk.cu",
+                       "picovdb_tpu/ops/pallas_scan.py:1705", 9),
+    "segmax_scan_i8c": ("segmax_i8c", "picovdb_tpu_torch/csrc/segmax.cu",
+                        "picovdb_tpu/ops/pallas_scan.py:1528", 9),
+    "dot_rowmax": ("dot_rowmax", "picovdb_tpu_torch/csrc/probe.cu",
+                   "bench/segmax_sweep_probe.py:73", 10),
 }
+
+
+def entry(err, ms, plain_ms, nbytes, ops, kind, library_ms=None) -> dict:
+    """One kernel's record at the shape it was timed: agreement with its
+    plain version, times, and what its least time is computed from (bytes
+    each input read once and each output written once; operations of
+    type `kind`), counting only the rows this run's mask leaves live."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
 
 
 def log(msg: str) -> None:
@@ -86,18 +115,9 @@ def card_line() -> str:
 
 def cuda_ms(torch, fn, reps: int = 10) -> float:
     """Median per-call time of `fn` over `reps` runs, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    from picovdb_tpu_torch.probes import cuda_ms as timed
+
+    return timed(fn, reps)
 
 
 def ids_agree(torch, ids_a, ids_b, vals_b, k: int) -> float:
@@ -115,6 +135,16 @@ def ids_agree(torch, ids_a, ids_b, vals_b, k: int) -> float:
     return bad / a.shape[0]
 
 
+def exact_err(torch, got, ref) -> float:
+    """Max |got - ref| over two key slabs or score arrays whose -inf
+    entries coincide, in float64 (exact for int32 keys and sums); 0.0 for
+    equal tensors."""
+    g, r = got.double(), ref.double()
+    fin = torch.isfinite(r)
+    assert torch.equal(fin, torch.isfinite(g)), "-inf entries differ"
+    return float((g[fin] - r[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
 def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     """Each kernel against its plain version on the card, at main-path
     shapes; returns {kernel: (max_abs_err, ms, plain_ms)}."""
@@ -127,6 +157,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     v8, vs = scan.quantize_rows_i8(corpus)
     mask = torch.from_numpy(rng.random(cap) >= 0.1).to(device)
     rec = {}
+    live = int(mask.sum())  # rows a kernel must read and score
 
     # K1 + K2 at Q = 2048, k = 10 (segmax route: k_sel = k + 6)
     k = 10
@@ -162,12 +193,17 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     ex_p, id_p = decode_rescore(*scan.topk_packed_keys_plain(keys_p, k + 6))
     assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= TOL_SCORE
     assert ids_agree(torch, id_k, id_p, ex_p, k) == 0.0
-    rec["segmax_scan"] = (
+    nq = q.shape[0]
+    slab = nq * 2 * (cap // scan.SEG) * 4
+    rec["segmax_scan"] = entry(
         err1, cuda_ms(torch, lambda: scan.segmax_scan(qb, lp, mask)),
-        cuda_ms(torch, lambda: scan.segmax_scan_plain(qb, lp, mask)))
-    rec["topk_packed_keys"] = (
+        cuda_ms(torch, lambda: scan.segmax_scan_plain(qb, lp, mask)),
+        nq * dim * 2 + live * dim * 2 + cap + slab, 2 * nq * live * dim, "bf16")
+    rec["topk_packed_keys"] = entry(
         err2, cuda_ms(torch, lambda: scan.topk_packed_keys(keys, k + 6)),
-        cuda_ms(torch, lambda: scan.topk_packed_keys_plain(keys, k + 6)))
+        cuda_ms(torch, lambda: scan.topk_packed_keys_plain(keys, k + 6)),
+        slab + nq * (k + 6) * 8, 0, "int8",
+        cuda_ms(torch, lambda: torch.topk(keys, k + 6, dim=1)))
     del keys, keys_p
     log(f"phase 2: K1 segmax_scan + K2 topk_packed_keys agree at Q=2048 "
         f"k={k} cap={cap} (K1 max |dkey value| {err1:.3g}, K2 exact)")
@@ -194,13 +230,60 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     ex_p, id_p = decode_rescore_i8(*scan.topk_packed_keys_plain(keys_p, k + 6))
     assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= TOL_SCORE
     assert ids_agree(torch, id_k, id_p, ex_p, k) == 0.0
-    rec["segmax_scan_i8"] = (
+    rec["segmax_scan_i8"] = entry(
         err5, cuda_ms(torch, lambda: scan.segmax_scan_i8(q8, v8, vs, mask)),
-        cuda_ms(torch, lambda: scan.segmax_scan_i8_plain(q8, v8, vs, mask)))
+        cuda_ms(torch, lambda: scan.segmax_scan_i8_plain(q8, v8, vs, mask)),
+        nq * dim + live * (dim + 4) + cap + slab, 2 * nq * live * dim, "int8")
     del keys, keys_p
     log(f"phase 2: K5 segmax_scan_i8 agrees at Q=2048 k={k} cap={cap} "
-        f"(max |dkey value| {err5:.3g}; {rec['segmax_scan_i8'][1]:.4f} ms, "
-        f"plain {rec['segmax_scan_i8'][2]:.4f} ms)")
+        f"(max |dkey value| {err5:.3g}; {rec['segmax_scan_i8']['ms']:.4f} ms, "
+        f"plain {rec['segmax_scan_i8']['plain_ms']:.4f} ms)")
+
+    # K10 over the column-scaled int8 mirror at Q = 2048 (segmax_i8c: the
+    # same keys route through K2 at k_sel = k + 8): integer keys, so bit
+    # for bit the plain version's
+    v8c, cs = scan.quantize_cols_i8(corpus)
+    q8c = scan.fold_queries_i8(q, cs)
+    keys = scan.segmax_scan_i8c(q8c, v8c, mask)
+    keys_p = scan.segmax_scan_i8c_plain(q8c, v8c, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, keys_p), "segmax_scan_i8c keys differ"
+    err10 = exact_err(torch, keys, keys_p)
+    tk, ti = scan.topk_packed_keys(keys, k + 8)
+    assert torch.equal(tk, scan.topk_packed_keys_plain(keys, k + 8)[0])
+    rec["segmax_scan_i8c"] = entry(
+        err10, cuda_ms(torch, lambda: scan.segmax_scan_i8c(q8c, v8c, mask)),
+        cuda_ms(torch, lambda: scan.segmax_scan_i8c_plain(q8c, v8c, mask)),
+        nq * dim + live * dim + cap + slab, 2 * nq * live * dim, "int8")
+    del keys, keys_p
+    log(f"phase 2: K10 segmax_scan_i8c keys = plain bit for bit at Q=2048 "
+        f"cap={cap} ({rec['segmax_scan_i8c']['ms']:.4f} ms, plain "
+        f"{rec['segmax_scan_i8c']['plain_ms']:.4f} ms; K5 "
+        f"{rec['segmax_scan_i8']['ms']:.4f}, K1 {rec['segmax_scan']['ms']:.4f})")
+
+    # P1 over the whole corpus at Q = 2048: the product alone. int8 row
+    # maxima (here over the column-scaled mirror) are integers: bit for
+    # bit; bf16 maxima within TOL_SCORE (summation order only)
+    from picovdb_tpu_torch import probes
+
+    got = probes.dot_rowmax(q8c, v8c)
+    assert torch.equal(got, probes.dot_rowmax_plain(q8c, v8c)), "P1 int8"
+    got = probes.rowmax_value(probes.dot_rowmax(qb, lp))
+    ref = probes.rowmax_value(probes.dot_rowmax_plain(qb, lp))
+    torch.cuda.synchronize()
+    err_p1 = float((got - ref).abs().max())
+    assert err_p1 <= TOL_SCORE, f"dot_rowmax bf16 maxima differ by {err_p1}"
+    rec["dot_rowmax"] = entry(
+        err_p1, cuda_ms(torch, lambda: probes.dot_rowmax(qb, lp)),
+        cuda_ms(torch, lambda: probes.dot_rowmax_plain(qb, lp)),
+        nq * dim * 2 + cap * dim * 2 + nq * 4, 2 * nq * cap * dim, "bf16",
+        cuda_ms(torch, lambda: torch.matmul(qb, lp.T)))
+    p1_i8 = cuda_ms(torch, lambda: probes.dot_rowmax(q8c, v8c))
+    int_mm = cuda_ms(torch, lambda: torch._int_mm(q8c, v8c.T))
+    log(f"phase 2: P1 dot_rowmax agrees at Q=2048 cap={cap}: bf16 "
+        f"{rec['dot_rowmax']['ms']:.4f} ms (max |d| {err_p1:.3g}; torch.matmul "
+        f"{rec['dot_rowmax']['library_ms']:.4f} ms), int8 {p1_i8:.4f} ms "
+        f"(bit for bit; torch._int_mm {int_mm:.4f} ms)")
 
     def check_scan(name, qq, vv, scale, msk, ksel, rescore_q, int4=False):
         if int4:
@@ -231,7 +314,9 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         errs.append(check_scan("fused_topk_i8", q8, v8, vs, mask, 14, qf))
         ms.append(cuda_ms(torch, lambda: scan.fused_topk_i8(q8, v8, vs, mask, 14)))
         pms.append(cuda_ms(torch, lambda: scan.scan_topk_plain(q8, v8, vs, mask, 14)))
-    rec["fused_topk_i8"] = (max(errs), ms[0], pms[0])
+    rec["fused_topk_i8"] = entry(max(errs), ms[0], pms[0],
+                                 dim + live * (dim + 4) + cap + 14 * 8,
+                                 2 * live * dim, "int8")
     log(f"phase 2: K3 fused_topk_i8 agrees at Q=1,8,16 k_sel=14 "
         f"(ms {', '.join(f'{m:.4f}' for m in ms)}; plain "
         f"{', '.join(f'{m:.4f}' for m in pms)})")
@@ -250,7 +335,10 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     ms_f32 = cuda_ms(torch, lambda: scan.fused_topk(q64[:16], corpus, mask, 1024))
     pms_f32 = cuda_ms(
         torch, lambda: scan.scan_topk_plain(q64[:16], corpus, None, mask, 1024))
-    rec["fused_topk"] = (max(e_bf, e_f32), ms_bf, pms_bf)
+    flive = int(fmask.sum())
+    rec["fused_topk"] = entry(max(e_bf, e_f32), ms_bf, pms_bf,
+                              64 * dim * 4 + flive * dim * 2 + cap + 64 * 36 * 8,
+                              2 * 64 * flive * dim, "bf16")
     log(f"phase 2: K4 fused_topk agrees: bf16 Q=64 k_sel=36 filtered "
         f"{ms_bf:.4f} ms (plain {pms_bf:.4f}); f32 Q=16 k_sel=1024 "
         f"{ms_f32:.4f} ms (plain {pms_f32:.4f})")
@@ -275,12 +363,40 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     ms_w = cuda_ms(torch, lambda: scan.fused_topk_i4(q8, v4, vs4, mask, 1024))
     pms_w = cuda_ms(torch, lambda: scan.scan_topk_plain(
         q8, v4, vs4, mask, 1024, int4=True))
-    rec["fused_topk_i4"] = (max(errs), ms[0], pms[0])
+    rec["fused_topk_i4"] = entry(max(errs), ms[0], pms[0],
+                                 dim + live * (dim // 2 + 4) + cap + 14 * 8,
+                                 2 * live * dim, "int8")
     log(f"phase 2: K6 fused_topk_i4 agrees at Q=1,8,16 k_sel=14 "
         f"(ms {', '.join(f'{m:.4f}' for m in ms)}; plain "
         f"{', '.join(f'{m:.4f}' for m in pms)}) and Q=16 k_sel=1024 "
         f"({ms_w:.4f} ms, plain {pms_w:.4f})")
-    del corpus, lp, v8, vs, v4, vs4
+
+    # K9 over the column-scaled int8 mirror at Q = 1, 8, 16, k_sel 16
+    # (i8c_fused_smallq at k = 10: guard 6). It ranks the exact int32
+    # sums, ties to the lower row: bit for bit the plain version.
+    errs, ms, pms = [], [], []
+    for nq1 in (1, 8, 16):
+        qf = normalize_on_device(
+            torch.from_numpy(rng.standard_normal((nq1, dim), dtype=np.float32))
+            .to(device))
+        q8 = scan.fold_queries_i8(qf, cs)
+        got = scan.fused_topk_i8c(q8, v8c, mask, 16)
+        ref = scan.fused_topk_i8c_plain(q8, v8c, mask, 16)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+            f"fused_topk_i8c differs at Q={nq1}"
+        errs.append(exact_err(torch, got[0], ref[0]))
+        ms.append(cuda_ms(torch, lambda: scan.fused_topk_i8c(q8, v8c, mask, 16)))
+        pms.append(cuda_ms(torch, lambda: scan.fused_topk_i8c_plain(
+            q8, v8c, mask, 16)))
+    rec["fused_topk_i8c"] = entry(max(errs), ms[0], pms[0],
+                                  dim + live * dim + cap + 16 * 8,
+                                  2 * live * dim, "int8")
+    log(f"phase 2: K9 fused_topk_i8c = plain bit for bit at Q=1,8,16 "
+        f"k_sel=16 (ms {', '.join(f'{m:.4f}' for m in ms)}; plain "
+        f"{', '.join(f'{m:.4f}' for m in pms)}; K3 at Q=1 "
+        f"{rec['fused_topk_i8']['ms']:.4f})")
+    del corpus, lp, v8, vs, v4, vs4, v8c
     torch.cuda.empty_cache()
     return rec
 
@@ -343,7 +459,10 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
             first = first or (ms, pms)
             lines.append(f"{kind} Q={nq} k_sel={k} {ms:.4f} ms (plain "
                          f"{pms:.4f})")
-    rec["ivf_scan_topk"] = (max(errs), first[0], first[1])
+    hot_live = int((mask & live_rows).sum())  # the live hot tiles' live rows
+    rec["ivf_scan_topk"] = entry(max(errs), first[0], first[1],
+                                 dim * 4 + hot_live * dim * 4 + cap + 14 * 8,
+                                 2 * hot_live * dim, "f32")
     log(f"phase 2: K7 ivf_scan_topk agrees over {cap} x {dim} postings, 40 "
         f"of 64 hot tiles live: " + "; ".join(lines))
 
@@ -386,7 +505,10 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
             first = first or (ms, pms)
             lines.append(f"{kind} per_seg={per_seg} {ms:.4f} ms (plain "
                          f"{pms:.4f})")
-    rec["ivf_segmax_scan"] = (max(errs), first[0], first[1])
+    rec["ivf_segmax_scan"] = entry(
+        max(errs), first[0], first[1],
+        64 * dim * 4 + hot_live * dim * 4 + cap + 64 * 64 * 4 * ns * 4,
+        2 * 64 * hot_live * dim, "f32")
     # what the limit must reject: the f32 plain version in TF32, and over
     # bf16-rounded inputs, against the f32 plain version
     ref = ivf.ivf_segmax_scan_plain(q64, post, mask, hot, n_hot, 8)
@@ -1090,6 +1212,244 @@ def phase_bf16(torch, scan, device, n: int, dim: int, rng, **db_kwargs):
     del db
 
 
+# The opt-in selection tiers of phase 9: (name, environment, PicoVectorDB
+# keywords, batch route, Q = 1 route, counter keys the path must launch)
+TIERS = [
+    ("a defaults", {}, {}, "segmax_mixed_stream", "i8_fused_smallq",
+     ("segmax", "topk_keys", "scan_topk_i8")),
+    ("b PICOVDB_SEGMAX_I8=1", {"PICOVDB_SEGMAX_I8": "1"}, {},
+     "segmax_i8_stream", "i8_fused_smallq",
+     ("segmax_i8", "topk_keys", "scan_topk_i8")),
+    ("c PICOVDB_SEGMAX_I8C=1 PICOVDB_SMALLQ_I8C=1",
+     {"PICOVDB_SEGMAX_I8C": "1", "PICOVDB_SMALLQ_I8C": "1"}, {},
+     "segmax_i8c_stream", "i8c_fused_smallq",
+     ("segmax_i8c", "topk_keys", "scan_topk_i8c")),
+    ("d scan_mode=approx", {}, {"scan_mode": "approx"}, "xla_approx",
+     "xla_approx", ()),
+]
+
+
+def route_kernel_ms(torch, scan, dev, qdev, name: str):
+    """The batch route's key kernel on the store's planes at one
+    2048-query chunk, and the Q = 1 route's selection kernel (k_sel of
+    k = 10 with the route's guard); (None, None) for the dense route."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    qn = normalize_on_device(qdev[:2048])
+    q1 = qn[:1]
+    act = dev.active
+    if name.startswith("a"):
+        qb = qn.to(torch.bfloat16)
+        q8, _ = scan.quantize_rows_i8(q1)
+        return (cuda_ms(torch, lambda: scan.segmax_scan(qb, dev.vectors_lp, act)),
+                cuda_ms(torch, lambda: scan.fused_topk_i8(
+                    q8, dev.vectors_i8, dev.vscale, act, 14)))
+    if name.startswith("b"):
+        qq, _ = scan.quantize_rows_i8(qn)
+        return (cuda_ms(torch, lambda: scan.segmax_scan_i8(
+            qq, dev.vectors_i8, dev.vscale, act)), None)
+    if name.startswith("c"):
+        qq = scan.fold_queries_i8(qn, dev.cscale)
+        return (cuda_ms(torch, lambda: scan.segmax_scan_i8c(qq, dev.vectors_i8c, act)),
+                cuda_ms(torch, lambda: scan.fused_topk_i8c(
+                    qq[:1], dev.vectors_i8c, act, 16)))
+    return None, None
+
+
+def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
+    """K10 on one 2048-query chunk and K9 at Q = 1 and 16 (k_sel 16) over
+    store (c)'s own column-scaled mirror, the planes its routes read,
+    against their plain versions: integer keys and sums, so bit for bit.
+    The plain K10 runs over 131,072-row slices (its keys are per 128-row
+    segment). Raises each kernel's max_abs_err in `rec` to what it saw."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    qq = scan.fold_queries_i8(normalize_on_device(qdev[:2048]), dev.cscale)
+    v8c, act = dev.vectors_i8c, dev.active
+    keys = scan.segmax_scan_i8c(qq, v8c, act)
+    err10, step = 0.0, 131_072
+    for s in range(0, v8c.shape[0], step):
+        ref = scan.segmax_scan_i8c_plain(qq, v8c[s:s + step], act[s:s + step])
+        got = keys[:, 2 * s // scan.SEG:][:, :ref.shape[1]]
+        assert torch.equal(got, ref), f"K10 keys differ in rows {s}.."
+        err10 = max(err10, exact_err(torch, got, ref))
+    del keys
+    err9 = 0.0
+    for nq in (1, 16):
+        got = scan.fused_topk_i8c(qq[:nq], v8c, act, 16)
+        ref = scan.fused_topk_i8c_plain(qq[:nq], v8c, act, 16)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+            f"K9 differs at Q={nq} on the store's mirror"
+        err9 = max(err9, exact_err(torch, got[0], ref[0]))
+    for name, err in (("segmax_scan_i8c", err10), ("fused_topk_i8c", err9)):
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+    return (f"; K10 keys (2048 queries) and K9 (Q=1, 16, k_sel 16) = plain "
+            f"bit for bit over the store's {v8c.shape[0]}-row mirror")
+
+
+def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
+                **db_kwargs):
+    """The opt-in selection tiers A/B: one seeded n x dim float32 corpus and
+    one query set, served by one store at a time through the public API
+    under (a) the defaults, (b) PICOVDB_SEGMAX_I8=1, (c) the column-scaled
+    int8 routes, (d) scan_mode="approx". Per store: routes, launches,
+    recall@10 against a float64 oracle, batch QPS, Q = 1 latency and the
+    route's kernel time. Store (c) also takes 1,000 upserts with one row
+    past its column maxima (the mirror is requantized at the next
+    dispatch), runs the serial Q = 1 loop, and holds K10 and K9 against
+    their plain versions on its mirror (`check_i8c_on_store`, into
+    `rec`)."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    corpus = rng.standard_normal((n, dim), dtype=np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    ids = [f"t{i}" for i in range(n)]
+    near = corpus[rng.integers(0, n, 8192)]
+    qdev = torch.from_numpy(
+        near + 0.01 * rng.standard_normal(near.shape, dtype=np.float32)
+    ).to(device)
+    one = qdev[0].cpu().numpy()
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    chunks = [(s, corpus_dev[s:s + 131_072]) for s in range(0, n, 131_072)]
+    ov, oi = oracle_masked(torch, chunks, qdev[:64], None)  # top-11
+    del chunks, corpus_dev
+    torch.cuda.empty_cache()
+    new = rng.standard_normal((1000, dim), dtype=np.float32)
+    new[0] = 0.0
+    new[0, 0] = 1.0  # unit norm, past column 0's maximum (~0.17 at dim 1024)
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    out = {}
+    for name, envs, kw, batch_route, q1_route, keys in TIERS:
+        saved = {e: os.environ.get(e) for e in envs}
+        os.environ.update(envs)
+        try:
+            scan.reset_launch_counts()  # count this store's path only
+            db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                              storage_file=os.path.join(tmp, name[0]), **kw,
+                              **db_kwargs)
+            t0 = time.perf_counter()
+            db.upsert_columnar(corpus, ids=ids)
+            db.rebuild_index()
+            torch.cuda.synchronize()
+            insert_s = time.perf_counter() - t0
+            got, _ = db.query_columnar(qdev, top_k=10, batch_size=2048)
+            assert db.last_query_debug()["strategy"] == batch_route, name
+            assert (got != None).all()  # noqa: E711
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            db.query_columnar(qdev, top_k=10, batch_size=2048)
+            batch_s = time.perf_counter() - t0
+            res = db.query(one, top_k=10)
+            assert db.last_query_debug()["strategy"] == q1_route, name
+            assert len(res) == 10
+            q1_ms = cuda_ms(torch, lambda: db.query(one, top_k=10), reps=50)
+            recall = recall_at_10(got[:64], oi[:, :10], "t")
+            assert recall >= 0.99, (name, recall)
+            extra = ""
+            if name.startswith("c"):
+                extra = tiers_mutations(torch, db, new, qdev[:64], ov, oi)
+            counts = dict(scan.LAUNCHES)
+            for key in keys:
+                assert counts[key] > 0, f"{key} never launched on store {name}"
+            k_ms, q1_k_ms = route_kernel_ms(torch, scan, db._dev, qdev, name)
+            if name.startswith("c"):  # after the count: not the path's
+                extra += check_i8c_on_store(torch, scan, db._dev, qdev, rec)
+        finally:
+            for e, v in saved.items():
+                if v is None:
+                    os.environ.pop(e, None)
+                else:
+                    os.environ[e] = v
+        out[name[0]] = {"qps": 8192 / batch_s, "q1_ms": q1_ms,
+                        "recall": recall, "kernel_ms": k_ms,
+                        "q1_kernel_ms": q1_k_ms, "counts": counts}
+        fmt = lambda x: "n/a" if x is None else f"{x:.4f}"  # noqa: E731
+        log(f"phase 9: store ({name}) at {n} x {dim} float32: routes "
+            f"{batch_route} (8192 queries, 2048-query chunks) and {q1_route}"
+            f" (Q=1); recall@10 {recall:.4f} vs float64; batch "
+            f"{8192 / batch_s:.1f} QPS; Q=1 latency {q1_ms:.4f} ms; route "
+            f"kernel {fmt(k_ms)} ms per 2048-query chunk, Q=1 selection "
+            f"kernel {fmt(q1_k_ms)} ms; insert {n / insert_s:.1f} vec/s"
+            f"{extra}; launches {counts}")
+        del db
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    a = out["a"]
+    rel = lambda x, y: f"{x / y:.3f}x"  # noqa: E731
+    wins_batch = [t for t in "bcd" if out[t]["qps"] > a["qps"]]
+    wins_q1 = [t for t in "bcd" if out[t]["q1_ms"] < a["q1_ms"]]
+    log(f"phase 9 A/B (do the opt-in tiers win on Hopper? card {card}): batch "
+        f"QPS a {a['qps']:.1f}, b {out['b']['qps']:.1f} "
+        f"({rel(out['b']['qps'], a['qps'])} of a), c {out['c']['qps']:.1f} "
+        f"({rel(out['c']['qps'], a['qps'])}), d {out['d']['qps']:.1f} "
+        f"({rel(out['d']['qps'], a['qps'])}); Q=1 ms a {a['q1_ms']:.4f}, b "
+        f"{out['b']['q1_ms']:.4f}, c {out['c']['q1_ms']:.4f}, d "
+        f"{out['d']['q1_ms']:.4f}; batch key kernel per chunk K1 "
+        f"{a['kernel_ms']:.4f} ms, K5 {out['b']['kernel_ms']:.4f}, K10 "
+        f"{out['c']['kernel_ms']:.4f}; Q=1 selection K3 "
+        f"{a['q1_kernel_ms']:.4f} ms, K9 {out['c']['q1_kernel_ms']:.4f}; "
+        f"faster than the defaults: batch {wins_batch or 'none'}, Q=1 "
+        f"{wins_q1 or 'none'}")
+    return {t: v["counts"] for t, v in out.items()}
+
+
+def tiers_mutations(torch, db, new, q64, ov, oi) -> str:
+    """Store (c): 1,000 upserts, one of them past the column maxima, drop
+    the column-scaled mirror; the next dispatch requantizes it (timed) and
+    every new row is found at rank 1. Then the serial Q = 1 loop, whose
+    ids must equal the per-call route's outside the oracle's gap."""
+    dev = db._dev
+    cmax = float(dev.cscale.max())
+    db.upsert_columnar(new, ids=[f"u{i}" for i in range(new.shape[0])])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hits = db.query(new[0], top_k=1)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    assert db.last_query_debug()["strategy"] == "i8c_fused_smallq"
+    assert hits[0]["_id_"] == "u0" and float(dev.cscale.max()) > cmax
+    back, _ = db.query_columnar(new, top_k=1)
+    assert db.last_query_debug()["strategy"] == "segmax_i8c_stream"
+    assert [r[0] for r in back] == [f"u{i}" for i in range(new.shape[0])]
+    vals, slots = db.query_serial_loop(q64.cpu().numpy(), top_k=10)
+    assert dev.last_strategy == "i8c_fused_smallq_loop"
+    loop_ids = [[db._ids[s] for s in row] for row in slots]
+    per_call = [[h["_id_"] for h in db.query(q, top_k=10)]
+                for q in q64.cpu().numpy()]
+    bad = sum(set(loop_ids[i]) != set(per_call[i])
+              for i in range(64) if ov[i, 9] - ov[i, 10] > TOL_GAP)
+    assert bad == 0, f"{bad} of 64 serial-loop id sets differ from per-call"
+    return (f"; 1000 upserts (one row past the column maxima): mirror "
+            f"requantized by the next dispatch in {rebuild_s:.3f} s (Q=1 "
+            f"incl. the scatter), every new row found at rank 1; "
+            f"query_serial_loop i8c_fused_smallq_loop ids = per-call route "
+            f"on 64/64")
+
+
+def phase_probes(torch, scan, device, card: str):
+    """The two bench probes at their shape (8192 x 102,400 x 1024), one
+    JSON line each; P1's agreement with its plain version is checked."""
+    from picovdb_tpu_torch import probes
+
+    scan.reset_launch_counts()
+    sweep = probes.segmax_sweep(device)
+    stages = probes.i8c_stages(device)
+    counts = dict(scan.LAUNCHES)
+    assert counts["dot_rowmax"] > 0, "dot_rowmax never launched by the probes"
+    assert sweep["p1_i8_equal_plain"], "P1 int8 maxima differ from plain"
+    # unnormalized gaussian data: maxima near 140, so a relative limit; a
+    # TF32 product would miss it by ~10x (2^-11 per product)
+    assert sweep["p1_bf16_max_rel_err"] <= 1e-5, sweep["p1_bf16_max_rel_err"]
+    for name, res in (("segmax_sweep", sweep), ("i8c_stages", stages)):
+        print(json.dumps({"phase": 10, "probe": name, "card": card, **res}),
+              flush=True)
+    log(f"phase 10: P1 is {sweep['p1_bf16_ms'] / sweep['k1_segmax_bf16_ms']:.3f}"
+        f" of K1's time (bf16), {sweep['p1_i8_ms'] / sweep['k10_segmax_i8c_ms']:.3f}"
+        f" of K10's (int8); full i8c route {stages['full_i8c_ms']:.4f} ms vs "
+        f"bf16 {stages['full_bf16_ms']:.4f} ms; launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1123,11 +1483,15 @@ def main() -> int:
     counts[8] = phase_ivf_int4(torch, scan, device, IVF_I4_N, DIM, rng, card)
     torch.cuda.empty_cache()
     phase_sidecar(torch, device, SIDECAR_N, DIM)
+    torch.cuda.empty_cache()
+    counts[9] = phase_tiers(torch, scan, device, TIERS_N, DIM, rng, card,
+                           rec)["c"]
+    torch.cuda.empty_cache()
+    counts[10] = phase_probes(torch, scan, device, card)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[phase][key], "max_abs_err": rec[name][0],
-         "ms": rec[name][1], "plain_ms": rec[name][2]}
+         "launches": counts[phase][key], **rec[name]}
         for name, (key, src, rep, phase) in KERNELS.items()
     ]
     print(card)

@@ -50,6 +50,15 @@
 // H100: at Q <= 16 the hot tiles' bytes (4 / 2 / 1 B per element), as for
 // K3/K4; a probe reads a few hundred 1024-row tiles, so the grid is
 // q_tiles x grid_b blocks.
+//
+// K9 fused_topk_i8c (pv_scan_topk kind 4) is K3 over the column-scaled
+// int8 mirror. It replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i8c
+// (`_scan_kernel_i8c`): folded int8 queries against int8 rows with no row
+// scale, ranked on the raw int32 sum by K7's Int8C key (ties to the lower
+// row). The TPU kernel ranks (s & ~0xFFF) | lane (bn = 4096), so the two
+// selections agree except on near-ties, and the rescored top-k is the
+// same. What bounds it on the H100: the 1 B/element sweep at Q <= 16, as
+// K3; it saves K3's row-scale read and multiply.
 
 #include <type_traits>
 
@@ -305,7 +314,9 @@ cudaError_t launch_scan(const void* q, const void* v, const void* vscale,
 
 // kind 0: v float32, q float32; 1: v bfloat16, q float32; 2: v int8 with
 // vscale (cap,) float32, q int8; 3: v (cap, dim / 2) packed int4 with
-// vscale (cap,) float32, q int8 (dim even). mask (cap,) uint8. `partial` is scratch of
+// vscale (cap,) float32, q int8 (dim even); 4 (K9): column-scaled int8 v
+// and folded int8 q, no vscale (raw int32 scores; vals carry them as
+// float32). mask (cap,) uint8. `partial` is scratch of
 // Q * ceil(cap / chunk) * k uint64 (chunk % 128 == 0); vals (Q, k) float32
 // and idx (Q, k) int32 receive the result. k <= 1024.
 extern "C" int pv_scan_topk(int kind, const void* q, const void* v,
@@ -327,11 +338,14 @@ extern "C" int pv_scan_topk(int kind, const void* q, const void* v,
     err = launch_scan<int8_t>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, nc, nullptr, nullptr, 1, s);
   else if (kind == 3)
     err = launch_scan<Int4>(q, v, vscale, mask, part, Q, cap, dim, k, chunk, nc, nullptr, nullptr, 1, s);
+  else if (kind == 4)
+    err = launch_scan<Int8C>(q, v, nullptr, mask, part, Q, cap, dim, k, chunk, nc, nullptr, nullptr, 1, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)launch_topk_merge(part, static_cast<float*>(vals),
-                                static_cast<int*>(idx), Q, nc * k, k, s);
+                                static_cast<int*>(idx), Q, nc * k, k, s,
+                                kind == 4);
 }
 
 // K7. kind 0: postings and q float32; 1: both bfloat16; 2: column-scaled

@@ -22,56 +22,23 @@
 // so the blocks reading one segment run together and share it in L2.
 // A first, simple kernel: no TMA, no wgmma, no pipelining yet.
 //
-// K5 segmax_scan_i8 (below) is the same kernel over a per-row int8 corpus.
+// K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are the same kernel
+// over a per-row int8 corpus and over the column-scaled int8 mirror. The
+// score tiles live in tiles.cuh, shared with the dot-floor probe P1.
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "tiles.cuh"
 
 namespace pv {
 namespace {
 
-constexpr int BQ = 64;        // queries per block
-constexpr int BN = SEG;       // corpus rows per block (one segment)
-constexpr int KC = 64;        // bf16 elements per k-step
-constexpr int LDA = KC + 8;   // padded smem row (elements), wmma ldm % 8 == 0
-constexpr int LDS = BN + 4;   // padded f32 score row, wmma ldm % 4 == 0
-constexpr int THREADS = 256;  // 8 warps: 4 (query) x 2 (row halves)
-
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long row0, long nrows, int rows,
-                                          int k0, int dim, bool vec) {
-  if (vec) {  // dim % 8 == 0: 16-byte loads
-    constexpr int VPR = KC / 8;
-    for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
-      int r = i / VPR, c = (i % VPR) * 8;
-      long gr = row0 + r;
-      int gk = k0 + c;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < nrows && gk < dim)
-        val = *reinterpret_cast<const uint4*>(src + gr * dim + gk);
-      *reinterpret_cast<uint4*>(dst + r * LDA + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * KC; i += THREADS) {
-      int r = i / KC, c = i % KC;
-      long gr = row0 + r;
-      int gk = k0 + c;
-      dst[r * LDA + c] = (gr < nrows && gk < dim) ? src[gr * dim + gk]
-                                                  : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-// Epilogue of K1 and K5: the block's (BQ, 128) score tile in shared memory
-// -> each query's two largest packed keys of the segment. Scores are the
-// float tile `fs`, or the int32 tile `is` times the row scales `vscale`
+// Epilogue of K1, K5 and K10: the block's (BQ, 128) score tile in shared
+// memory -> each query's two largest packed keys of the segment. Scores are
+// the float tile `fs`, or the int32 tile `is` times the row scales `vscale`
 // (K5; the integer sum converted to float32, then one multiply, exactly as
-// the plain version and the TPU kernel compute it). Lane l of a warp owns
-// segment lanes l, l+32, l+64, l+96; one warp per query row.
+// the plain version and the TPU kernel compute it), or with `vscale` null
+// the raw int32 sums themselves (K10: the key is (s & ~127) | lane, no
+// conversion). Lane l of a warp owns segment lanes l, l+32, l+64, l+96;
+// one warp per query row.
 __device__ __forceinline__ void segment_top2(
     const float* fs, const int* is, const float* __restrict__ vscale,
     const uint8_t* __restrict__ mask, int* __restrict__ keys, int Q,
@@ -83,7 +50,7 @@ __device__ __forceinline__ void segment_top2(
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     live[c] = mask[r0 + lane + 32 * c] != 0;
-    scale[c] = is ? vscale[r0 + lane + 32 * c] : 1.0f;
+    scale[c] = vscale ? vscale[r0 + lane + 32 * c] : 1.0f;
   }
   const long ncol = 2 * (cap / SEG);
   for (int r = warp; r < BQ; r += THREADS / 32) {
@@ -93,9 +60,15 @@ __device__ __forceinline__ void segment_top2(
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int ln = lane + 32 * c;
-      const float s = is ? __fmul_rn(__int2float_rn(is[r * LDS + ln]), scale[c])
-                         : fs[r * LDS + ln];
-      int key = (to_sortable(__float_as_int(s)) & ~(SEG - 1)) | ln;
+      int raw;
+      if (!is)
+        raw = to_sortable(__float_as_int(fs[r * LDS + ln]));
+      else if (vscale)
+        raw = to_sortable(__float_as_int(
+            __fmul_rn(__int2float_rn(is[r * LDS + ln]), scale[c])));
+      else
+        raw = is[r * LDS + ln];
+      int key = (raw & ~(SEG - 1)) | ln;
       if (!live[c]) key = KEY_MIN;  // after packing, as the TPU kernel does
       if (key > m1) {
         m2 = m1;
@@ -117,51 +90,6 @@ __device__ __forceinline__ void segment_top2(
       keys[(long)qi * ncol + 2 * seg + 1] = m2;
     }
   }
-}
-
-// The (BQ, 128) score tile of queries q0.. against corpus rows r0.. with
-// bf16 wmma, left as float32 in `smem` (BQ x LDS), which during the k-loop
-// holds the A/B operand tiles. Ends with a barrier.
-__device__ __forceinline__ void score_tile_bf16(
-    unsigned char* smem, const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ v, int q0, int Q, long r0, long cap,
-    int dim) {
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BQ * LDA;
-  float* Ss = reinterpret_cast<float*>(smem);
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const bool vec = (dim % 8) == 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int k0 = 0; k0 < dim; k0 += KC) {
-    load_tile(As, q, q0, Q, BQ, k0, dim, vec);
-    load_tile(Bs, v, r0, cap, BN, k0, dim, vec);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a;
-      wmma::load_matrix_sync(a, As + (wm * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // B = v^T: element (k, n) sits at Bs[n * LDA + k] -> col_major
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> b;
-        wmma::load_matrix_sync(b, Bs + (wn * 64 + j * 16) * LDA + kk, LDA);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(Ss + (wm * 16) * LDS + wn * 64 + j * 16, acc[j],
-                            LDS, wmma::mem_row_major);
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -198,100 +126,6 @@ segmax_kernel(const __nv_bfloat16* __restrict__ q,
 // should run near K1's time, not half of it. No TMA, no wgmma yet.
 // ---------------------------------------------------------------------------
 
-constexpr int KC8 = 128;        // int8 elements per k-step
-constexpr int LDA8 = KC8 + 16;  // padded row (bytes): 36 words, so the 8
-                                // rows a fragment load touches hit 8
-                                // different 4-bank groups
-
-__device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* src,
-                                             long row0, long nrows, int rows,
-                                             int k0, int dim, bool vec) {
-  if (vec) {  // dim % 16 == 0: 16-byte loads
-    constexpr int VPR = KC8 / 16;
-    for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
-      int r = i / VPR, c = (i % VPR) * 16;
-      long gr = row0 + r;
-      int gk = k0 + c;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < nrows && gk < dim)
-        val = *reinterpret_cast<const uint4*>(src + gr * dim + gk);
-      *reinterpret_cast<uint4*>(dst + r * LDA8 + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * KC8; i += THREADS) {
-      int r = i / KC8, c = i % KC8;
-      long gr = row0 + r;
-      int gk = k0 + c;
-      dst[r * LDA8 + c] = (gr < nrows && gk < dim) ? src[gr * dim + gk] : 0;
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The (BQ, 128) int32 score tile of int8 queries q0.. against int8 rows
-// r0.. with mma.sync s8, left in `smem` (BQ x LDS ints). Ends with a
-// barrier.
-__device__ __forceinline__ void score_tile_i8(
-    unsigned char* smem, const int8_t* __restrict__ q,
-    const int8_t* __restrict__ v, int q0, int Q, long r0, long cap, int dim) {
-  int8_t* As = reinterpret_cast<int8_t*>(smem);
-  int8_t* Bs = As + BQ * LDA8;
-  int* Ss = reinterpret_cast<int*>(smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 2, wn = warp % 2;  // 16 queries x 64 rows per warp
-  const int g = lane >> 2, t = lane & 3;   // mma groupID, thread in group
-  const bool vec = (dim % 16) == 0;
-
-  int acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-
-  for (int k0 = 0; k0 < dim; k0 += KC8) {
-    load_tile_i8(As, q, q0, Q, BQ, k0, dim, vec);
-    load_tile_i8(Bs, v, r0, cap, BN, k0, dim, vec);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC8; kk += 32) {
-      // A (16 x 32, row-major): rows g and g + 8, bytes 4t..4t+3 and
-      // 16 + 4t..16 + 4t + 3
-      const int8_t* a = As + (wm * 16 + g) * LDA8 + kk + 4 * t;
-      const uint32_t a0 = lds32(a), a1 = lds32(a + 8 * LDA8);
-      const uint32_t a2 = lds32(a + 16), a3 = lds32(a + 8 * LDA8 + 16);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        // B = v^T (32 x 8, col-major): corpus row n = g of the n-tile,
-        // bytes 4t..4t+3 and 16 + 4t..16 + 4t + 3
-        const int8_t* b = Bs + (wn * 64 + j * 8 + g) * LDA8 + kk + 4 * t;
-        const uint32_t b0 = lds32(b), b1 = lds32(b + 16);
-        asm volatile(
-            "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+r"(acc[j][0]), "+r"(acc[j][1]), "+r"(acc[j][2]),
-              "+r"(acc[j][3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-      }
-    }
-    __syncthreads();
-  }
-  // accumulator (16 x 8 per n-tile): c0, c1 at row g, columns 2t, 2t+1;
-  // c2, c3 at row g + 8
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    int* s = Ss + (wm * 16 + g) * LDS + wn * 64 + j * 8 + 2 * t;
-    s[0] = acc[j][0];
-    s[1] = acc[j][1];
-    s[8 * LDS] = acc[j][2];
-    s[8 * LDS + 1] = acc[j][3];
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(THREADS)
 segmax_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
                  const float* __restrict__ vscale,
@@ -304,6 +138,35 @@ segmax_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
   const int q0 = qt * BQ;
   score_tile_i8(smem, q, v, q0, Q, seg * BN, cap, dim);
   segment_top2(nullptr, reinterpret_cast<int*>(smem), vscale, mask, keys, Q,
+               cap, q0, seg);
+}
+
+// ---------------------------------------------------------------------------
+// K10 segmax_scan_i8c: K5 over the column-scaled int8 mirror.
+//
+// Replaces picovdb_tpu/ops/pallas_scan.py:segmax_scan_i8c
+// (`_segmax_kernel_i8c`). The column scales are folded into the int8
+// queries by the caller, so the int32 sum ranks a query's rows as the true
+// score does: the epilogue packs the raw sum (s & ~127) | lane, with no
+// conversion and no scale, masks after packing and keeps the segment's top
+// two. These are integer keys, bit for bit the TPU kernel's (its slab is
+// (n_tiles * 2 * ns, Q), per tile ns first-best rows then ns second-best;
+// here K1's (Q, 2 * cap / 128) layout, column 2 * seg + r). |s| <=
+// 127 * 127 * dim < 2^31 keeps every key above KEY_MIN. What bounds it on
+// the H100: as K5, the tensor cores' issue rate, fed from unpipelined
+// shared-memory tiles; it drops K5's row-scale read and float epilogue.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS)
+segmax_i8c_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
+                  const uint8_t* __restrict__ mask, int* __restrict__ keys,
+                  int Q, long cap, int dim, int q_tiles) {
+  __shared__ __align__(128) unsigned char smem[BQ * LDS * sizeof(int)];
+  const int qt = blockIdx.x % q_tiles;
+  const long seg = blockIdx.x / q_tiles;
+  const int q0 = qt * BQ;
+  score_tile_i8(smem, q, v, q0, Q, seg * BN, cap, dim);
+  segment_top2(nullptr, reinterpret_cast<int*>(smem), nullptr, mask, keys, Q,
                cap, q0, seg);
 }
 
@@ -480,6 +343,23 @@ extern "C" int pv_segmax_scan_i8(const void* q, const void* v,
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(v),
       static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
       static_cast<int*>(keys), Q, (long)cap, dim, q_tiles);
+  return (int)cudaGetLastError();
+}
+
+// K10. q (Q, dim) folded int8, v (cap, dim) column-scaled int8 with
+// cap % 128 == 0, mask (cap,) uint8 -> keys (Q, 2 * cap / 128) int32, K1's
+// layout. Returns the cudaError_t of the launch.
+extern "C" int pv_segmax_scan_i8c(const void* q, const void* v,
+                                  const void* mask, void* keys, int Q,
+                                  long long cap, int dim, void* stream) {
+  using namespace pv;
+  const int q_tiles = (Q + BQ - 1) / BQ;
+  const long long blocks = (long long)q_tiles * (cap / SEG);
+  if (Q <= 0 || cap <= 0) return (int)cudaSuccess;
+  segmax_i8c_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<int*>(keys), Q,
+      (long)cap, dim, q_tiles);
   return (int)cudaGetLastError();
 }
 

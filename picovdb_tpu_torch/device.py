@@ -4,12 +4,13 @@ Counterpart of picovdb_tpu/device.py for one device: the corpus lives on
 the device as a padded (cap, dim) tensor in its storage dtype plus a
 boolean active mask. A float32 (or bfloat16) store keeps two selection
 mirrors derived on device next to it (a bfloat16 copy for the batch
-segmax tier, and per-row int8 + scales for the small-batch tier); an int8
-or int4 store IS its quantized tier: per-row int8 rows, or two-plane
-packed int4 rows (dim / 2 bytes), with their per-row scales
-(`vstore_scale`), and no mirrors. Mutations are applied in place
-(`index_copy_`), which is what the JAX package's buffer donation
-approximated.
+segmax tier, and per-row int8 + scales for the small-batch tier), and
+builds a third on demand for the opt-in column-scaled int8 routes
+(`ensure_i8c_mirror`); an int8 or int4 store IS its quantized tier:
+per-row int8 rows, or two-plane packed int4 rows (dim / 2 bytes), with
+their per-row scales (`vstore_scale`), and no mirrors. Mutations are
+applied in place (`index_copy_`), which is what the JAX package's buffer
+donation approximated.
 
 Host state (ids, docs, free slots) stays authoritative in
 `picovdb_tpu_torch.engine`; the mirror is synchronized lazily before a
@@ -31,6 +32,7 @@ import torch
 
 from .constants import Float, ROW_PAD
 from .ops.exact import (
+    make_approx_topk,
     make_exact_topk,
     make_exact_topk_i4r,
     make_exact_topk_i8r,
@@ -40,9 +42,12 @@ from .ops.scan import (
     make_fused_topk,
     make_fused_topk_i4,
     make_fused_topk_i8,
+    make_fused_topk_i8c,
     make_mixed_fused_topk,
     make_segmax_topk,
     make_segmax_topk_i8,
+    make_segmax_topk_i8c,
+    quantize_cols_i8,
     quantize_rows_i4,
     quantize_rows_i8,
     unpack_i4_np_into,
@@ -52,6 +57,7 @@ from .utils import round_up
 _log = logging.getLogger("picovdb_tpu_torch")
 
 _FVIEW_MISS = object()  # distinguishes 'not cached' from a cached refusal
+_OFF = ("0", "false", "False")
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
@@ -116,12 +122,6 @@ class DeviceIndex:
             )
         if scan_mode not in ("auto", "mixed", "fused", "approx", "xla"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
-        if scan_mode == "approx":
-            raise _not_in_slice('scan_mode="approx"', "item 9, opt-in tiers")
-        for env in ("PICOVDB_SEGMAX_I8", "PICOVDB_INT8C_TIER",
-                    "PICOVDB_SEGMAX_I8C", "PICOVDB_SMALLQ_I8C"):
-            if _os.getenv(env, "") not in ("", "0", "false", "False", "auto"):
-                raise _not_in_slice(env, "item 9, opt-in tiers")
         self.dim = dim
         self.cap = 0
         # (cap, dim) in the storage dtype; (cap, dim / 2) packed for int4
@@ -130,6 +130,11 @@ class DeviceIndex:
         self.vectors_lp: Optional[torch.Tensor] = None  # bf16 scan mirror
         self.vectors_i8: Optional[torch.Tensor] = None  # int8 mirror
         self.vscale: Optional[torch.Tensor] = None  # (cap,) its row scales
+        # column-scaled int8 mirror + its (dim,) column scales, built on
+        # demand (ensure_i8c_mirror) while _i8c_budget_ok
+        self.vectors_i8c: Optional[torch.Tensor] = None
+        self.cscale: Optional[torch.Tensor] = None
+        self._i8c_budget_ok = False
         self.active: Optional[torch.Tensor] = None  # (cap,) bool
         if compute_dtype is None and self.storage_dtype == "bfloat16":
             compute_dtype = "bfloat16"
@@ -156,6 +161,24 @@ class DeviceIndex:
             else:
                 int8_tier = on_card and f32_store
         self.int8_tier = bool(int8_tier)
+        # The opt-in selection tiers, read as the JAX package reads them.
+        # PICOVDB_SEGMAX_I8: the batch segmax over the per-row int8 mirror.
+        # PICOVDB_INT8C_TIER (default: the int8 tier) places the lazily
+        # built column-scaled int8 mirror; PICOVDB_SEGMAX_I8C /
+        # PICOVDB_SMALLQ_I8C route batches (K10) and Q <= 16 (K9) to it.
+        self.segmax_i8 = self.int8_tier and _os.getenv(
+            "PICOVDB_SEGMAX_I8", "") not in ("",) + _OFF
+        env_i8c = _os.getenv("PICOVDB_INT8C_TIER", "auto")
+        self.i8c_tier = (self.int8_tier if env_i8c in ("auto", "")
+                         else env_i8c not in _OFF)
+        env_seg_i8c = _os.getenv("PICOVDB_SEGMAX_I8C", "auto")
+        self.segmax_i8c = self.i8c_tier and (
+            self.SEGMAX_I8C_DEFAULT if env_seg_i8c in ("auto", "")
+            else env_seg_i8c not in _OFF)
+        env_smq_i8c = _os.getenv("PICOVDB_SMALLQ_I8C", "auto")
+        self.smallq_i8c = self.i8c_tier and (
+            self.SMALLQ_I8C_DEFAULT if env_smq_i8c in ("auto", "")
+            else env_smq_i8c not in _OFF)
         # PICOVDB_SEGMAX_STREAM in {auto, 0, 1}: the grid-order choice of
         # the TPU kernel. Blocks carry no state here, so both orders are
         # the same launch; the knob only selects the route's name.
@@ -209,11 +232,15 @@ class DeviceIndex:
     SEGMAX_MAX_K = 16
     SEGMAX_MIN_CAP = 32_768
     STREAM_CHUNK_ROWS = 262_144
+    # The column-scaled int8 routes stay opt-in, as in the JAX package;
+    # whether they win on the H100 is measured by chip_smoke.py phase 9.
+    SEGMAX_I8C_DEFAULT = False
+    SMALLQ_I8C_DEFAULT = False
     # Rows per device gather in fetch_rows.
     FETCH_CHUNK_ROWS = 262_144
 
-    # f32 corpus + mirrors = 7 bytes/row/dim; above this the mirrors are
-    # skipped. Kept at the JAX package's value (PICOVDB_MIXED_BUDGET_GB
+    # f32 corpus + mirrors = up to 8 bytes/row/dim; above this the mirrors
+    # are skipped. Kept at the JAX package's value (PICOVDB_MIXED_BUDGET_GB
     # overrides) so both packages route alike; deriving it from
     # torch.cuda.mem_get_info is a ROADMAP item.
     MIXED_HBM_BUDGET = 12 * 2**30
@@ -267,6 +294,7 @@ class DeviceIndex:
             sync re-uploads all of them at one capacity;
           * an optional mirror (bf16, int8 + scales) fails: that mirror
             alone is dropped (its routes stand down) and True returned.
+        The lazy column-scaled int8 mirror is dropped in every case.
         """
         if self.vectors is None:
             return False
@@ -290,6 +318,7 @@ class DeviceIndex:
                          "memory; device planes dropped", self.cap, new_cap)
             self.vectors = self.active = self.vstore_scale = None
             self.vectors_lp = self.vectors_i8 = self.vscale = None
+            self.vectors_i8c = self.cscale = None
             self._mask_cache.clear()
             self._fview_cache.clear()
             return False
@@ -303,6 +332,13 @@ class DeviceIndex:
             self.vscale = _pad_to(self.vscale, new_cap)
         except torch.cuda.OutOfMemoryError:
             self.vectors_i8 = self.vscale = None
+        # the column-scaled mirror stays lazy: dropped, and its budget
+        # re-gated at the new capacity, so ensure_i8c_mirror cannot build
+        # an over-budget mirror later
+        self.vectors_i8c = self.cscale = None
+        if self.i8c_tier:
+            budget, bpe = self._mirror_budget()
+            self._i8c_budget_ok = self.cap * self.dim * bpe <= budget
         self._mask_cache.clear()
         self._fview_cache.clear()
         self.last_sync_mode = "grow"
@@ -446,12 +482,19 @@ class DeviceIndex:
         budget = int(
             float(_os.getenv("PICOVDB_MIXED_BUDGET_GB", "0") or 0) * 2**30
         ) or self.MIXED_HBM_BUDGET
-        bpe = 4 + (2 if self.mixed_precision else 0) + (1 if self.int8_tier else 0)
+        # f32 corpus, bf16 mirror, int8 rows (+ 4/dim for the scales), and
+        # the column-scaled int8 mirror whenever its tier is on, built or
+        # not, exactly as the JAX package counts them
+        bpe = (4 + (2 if self.mixed_precision else 0)
+               + (1 if self.int8_tier else 0) + (1 if self.i8c_tier else 0))
         return budget, bpe
 
     def _refresh_lp_mirror(self) -> None:
         """(Re)build the bf16 and int8 selection mirrors on device (an
-        int8/int4 store is its own selection tier: no mirrors)."""
+        int8/int4 store is its own selection tier: no mirrors). The
+        column-scaled mirror is dropped and its budget re-gated; it is
+        rebuilt by `ensure_i8c_mirror` at the first dispatch that routes
+        to it."""
         budget, bpe = self._mirror_budget()
         fits = (not self.quantized and self.vectors is not None
                 and self.cap * self.dim * bpe <= budget)
@@ -461,6 +504,21 @@ class DeviceIndex:
             self.vectors_i8, self.vscale = quantize_rows_i8(self.vectors)
         else:
             self.vectors_i8 = self.vscale = None
+        self.vectors_i8c = self.cscale = None
+        self._i8c_budget_ok = (not self.quantized and self.i8c_tier
+                               and self.cap * self.dim * bpe <= budget)
+
+    def ensure_i8c_mirror(self) -> bool:
+        """Build the column-scaled int8 mirror on demand; True if usable."""
+        if self.vectors_i8c is not None:
+            return True
+        if not self.i8c_tier or self.vectors is None or not self._i8c_budget_ok:
+            return False
+        v8, cs = quantize_cols_i8(self.vectors)
+        # scales first: a concurrent reader that sees the mirror sees them
+        self.cscale = cs
+        self.vectors_i8c = v8
+        return True
 
     def scatter(self, idxs: np.ndarray, rows: Optional[np.ndarray],
                 active_vals: np.ndarray) -> None:
@@ -491,6 +549,10 @@ class DeviceIndex:
                     q_rows, q_scale = quantize_rows_i8(dev_rows)
                     self.vectors_i8.index_copy_(0, dev_idx, q_rows)
                     self.vscale.index_copy_(0, dev_idx, q_scale)
+                # column scales are corpus-global: a new row can exceed a
+                # column max, so the mirror is dropped and requantized at
+                # the next dispatch that routes to it
+                self.vectors_i8c = self.cscale = None
         self.active.index_copy_(
             0, dev_idx, self._host_tensor(np.asarray(active_vals, dtype=bool)))
         self._mask_cache.clear()
@@ -698,19 +760,29 @@ class DeviceIndex:
                       and num_q <= self.SMALL_Q_XLA and k_eff + 4 <= 16)
         i8s_segmax = i8s and segmax_ok
         i8s_smallq = i8s and not i8s_segmax and small_auto
-        use_segmax = self.vectors_lp is not None and segmax_ok
+        use_segmax = segmax_ok and (
+            self.vectors_lp is not None
+            or (self.segmax_i8 and self.vectors_i8 is not None)
+            or (self.segmax_i8c and self._i8c_budget_ok))
         fview = None
         if (filter_mask is not None and mask_key is not None
                 and not force_exact and self.vectors_lp is not None
                 and self.scan_mode in ("auto", "mixed")
                 and k_eff <= self.SEGMAX_MAX_K and num_q > self.SMALL_Q_XLA):
             fview = self._filter_view(mask_key, filter_mask)
-        small_q_i8 = small_auto and self.vectors_i8 is not None
-        small_q_mixed = (small_auto and not small_q_i8
+        # small batches take the narrowest mirror: the column-scaled int8
+        # ladder when opted in (guard 6), the per-row int8 ladder, bf16
+        small_q_i8c = (self.smallq_i8c and self._i8c_budget_ok and unfiltered
+                       and self.scan_mode == "auto"
+                       and num_q <= self.SMALL_Q_XLA and k_eff + 6 <= 16)
+        small_q_i8 = (small_auto and not small_q_i8c
+                      and self.vectors_i8 is not None)
+        small_q_mixed = (small_auto and not small_q_i8 and not small_q_i8c
                          and self.vectors_lp is not None)
         small_q_xla = (not i8s and not i4s and self.scan_mode == "auto"
                        and not use_segmax and not small_q_i8
-                       and not small_q_mixed and num_q <= self.SMALL_Q_XLA)
+                       and not small_q_i8c and not small_q_mixed
+                       and num_q <= self.SMALL_Q_XLA)
         q = self._query_tensor(qnorm)
         # the compacted view carries its own mask: the filter never ships
         mask = None if fview is not None else self._mask_tensor(filter_mask,
@@ -754,11 +826,27 @@ class DeviceIndex:
             self.last_strategy = ("fview_segmax_stream"
                                   if self._stream_name(num_q)
                                   else "fview_segmax")
+        elif use_segmax and self.segmax_i8c and self.ensure_i8c_mirror():
+            vals, idxs = make_segmax_topk_i8c(k_eff)(
+                q, self.vectors_i8c, self.cscale, f32, mask)
+            self.last_strategy = ("segmax_i8c_stream"
+                                  if self._stream_name(num_q)
+                                  else "segmax_i8c")
+        elif use_segmax and self.segmax_i8 and self.vectors_i8 is not None:
+            vals, idxs = make_segmax_topk_i8(k_eff)(
+                q, self.vectors_i8, self.vscale, f32, mask)
+            self.last_strategy = ("segmax_i8_stream"
+                                  if self._stream_name(num_q)
+                                  else "segmax_i8")
         elif use_segmax:
             vals, idxs = make_segmax_topk(k_eff)(q, lp, f32, mask)
             self.last_strategy = ("segmax_mixed_stream"
                                   if self._stream_name(num_q)
                                   else "segmax_mixed")
+        elif small_q_i8c and self.ensure_i8c_mirror():
+            vals, idxs = make_fused_topk_i8c(k_eff)(
+                q, self.vectors_i8c, self.cscale, f32, mask)
+            self.last_strategy = "i8c_fused_smallq"
         elif small_q_i8:
             i8_fn = make_fused_topk_i8(k_eff)
             vals, idxs = i8_fn(q, self.vectors_i8, self.vscale, f32, mask)
@@ -766,6 +854,12 @@ class DeviceIndex:
         elif small_q_mixed:
             vals, idxs = make_mixed_fused_topk(k_eff)(q, lp, f32, mask)
             self.last_strategy = "mixed_fused_smallq"
+        elif self.scan_mode == "approx":
+            # the TPU's approximate top-k maps to the exact top-k_sel of
+            # the dense product + the exact rescore (what JAX runs off-TPU)
+            vals, idxs = make_approx_topk(k_eff, self.compute_dtype)(
+                q, f32, mask)
+            self.last_strategy = "xla_approx"
         elif (self.scan_mode == "auto" and self.use_pallas
               and not small_q_xla and not force_exact and lp is not None):
             # Batches segmax declined (filtered, or k past SEGMAX_MAX_K):
@@ -790,10 +884,10 @@ class DeviceIndex:
 
     def query_serial_loop(self, queries, k: int):
         """Run M independent Q=1 queries one after another through the
-        small-batch route (int8 storage or mirror when present, else the
-        bf16 ladder, else the int4 / exact scan); host ((M, k) f32 scores,
-        (M, k) int32 slot ids). No crowding mark: no retry wraps this
-        lane."""
+        small-batch route (int8 storage, the opted-in column-scaled or the
+        per-row int8 mirror when present, else the bf16 ladder, else the
+        int4 / exact scan); host ((M, k) f32 scores, (M, k) int32 slot
+        ids). No crowding mark: no retry wraps this lane."""
         if self.vectors is None:
             raise ValueError(
                 "empty device mirror; sync first (or use "
@@ -805,6 +899,12 @@ class DeviceIndex:
             f8s = make_fused_topk_i8(k_eff, rescore_dequant=True, tie_scale=0.0)
             inner = lambda q: f8s(q, v, vs, v, act)  # noqa: E731
             self.last_strategy = "i8stor_fused_smallq_loop"
+        elif (self.smallq_i8c and k_eff + 6 <= 16
+              and self.ensure_i8c_mirror()):
+            f8c = make_fused_topk_i8c(k_eff, tie_scale=0.0)
+            inner = lambda q: f8c(q, self.vectors_i8c,  # noqa: E731
+                                  self.cscale, v, act)
+            self.last_strategy = "i8c_fused_smallq_loop"
         elif self.vectors_i8 is not None and k_eff + 4 <= 16:
             f8 = make_fused_topk_i8(k_eff, tie_scale=0.0)
             inner = lambda q: f8(q, self.vectors_i8, self.vscale,  # noqa: E731

@@ -27,9 +27,14 @@ bulk load once the exact sweep reads >= 2 GiB (`should_build`) and routes
 unfiltered batches to it while their probed-cluster union stays small.
 Its sidecar (`<base>.vecs.npy.ivf.npz`) is picovdb_tpu's format.
 
+The opt-in selection tiers serve as in picovdb_tpu: `PICOVDB_SEGMAX_I8`
+(batch segmax over the per-row int8 mirror), the column-scaled int8
+mirror (`PICOVDB_INT8C_TIER`, `PICOVDB_SEGMAX_I8C`, `PICOVDB_SMALLQ_I8C`)
+and `scan_mode="approx"`, whose TPU-only approximate top-k maps to the
+exact top-k_sel of the dense product plus the exact rescore.
+
 Not in this slice, and raising NotImplementedError with the ROADMAP item
-that brings them: `mesh=` and multi-process loads, `scan_mode="approx"`
-and the opt-in int8 tiers.
+that brings it: `mesh=` and multi-process loads.
 """
 
 from __future__ import annotations
@@ -1553,6 +1558,7 @@ class PicoVectorDB:
                 "mirrors": {
                     "bf16": self._dev.vectors_lp is not None,
                     "int8_rows": self._dev.vectors_i8 is not None,
+                    "int8_cols": self._dev.vectors_i8c is not None,
                 },
                 "ann_postings": (
                     None if self._ivf is None

@@ -40,10 +40,13 @@ _SIGNATURES = {
     "pv_segmax_scan": [_P, _P, _P, _P, _I, _L, _I, _P],
     # q, v, vscale, mask, keys, Q, cap, dim, stream
     "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
+    # q, v, mask, keys, Q, cap, dim, stream (K10)
+    "pv_segmax_scan_i8c": [_P, _P, _P, _P, _I, _L, _I, _P],
     # keys, out_keys, out_cols, Q, C, k, stream
     "pv_topk_packed_keys": [_P, _P, _P, _I, _L, _I, _P],
-    # kind (0 f32, 1 bf16, 2 int8: K3/K4; 3 packed int4: K6), q, v, vscale,
-    # mask, partial, vals, idx, Q, cap, dim, k, chunk, stream
+    # kind (0 f32, 1 bf16, 2 int8: K3/K4; 3 packed int4: K6; 4 column-scaled
+    # int8: K9), q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k,
+    # chunk, stream
     "pv_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
@@ -52,6 +55,8 @@ _SIGNATURES = {
     # kind, q, v, mask, hot, n_hot, keys, Q, cap, dim, bn, grid_b, per_seg,
     # stream
     "pv_ivf_segmax": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
+    # kind (0 bf16, 1 int8), q, v, out, Q, cap, dim, stream (P1)
+    "pv_dot_rowmax": [_I, _P, _P, _P, _I, _L, _I, _P],
 }
 
 

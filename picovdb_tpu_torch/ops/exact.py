@@ -2,9 +2,9 @@
 
 Counterpart of picovdb_tpu/ops/exact.py: `scores = Q @ V.T`, inactive or
 filtered-out rows masked to -inf, top-k on the device. This is the plain
-route (`xla_topk`) and the fallback for k past the hand-written kernels'
-reach; it materializes the (Q, cap) score matrix, so callers keep it for
-small batches and wide k.
+route (`xla_topk`), the `scan_mode="approx"` route (`xla_approx`) and the
+fallback for k past the hand-written kernels' reach; it materializes the
+(Q, cap) score matrix, so callers keep it for small batches and wide k.
 
 Float32 products here run in full float32: the module turns TF32 off for
 CUDA matmuls (`torch.backends.cuda.matmul.allow_tf32 = False`), because the
@@ -84,6 +84,43 @@ def make_exact_topk(k: int, compute_dtype_name: Optional[str] = None,
         if normalize:
             queries = normalize_on_device(queries)
         return exact_topk(queries, vectors, mask, k, compute_dtype_name)
+
+    return fn
+
+
+def approx_topk_rescored(queries, vectors, mask, k: int, k_sel: int,
+                         compute_dtype: Optional[str] = None):
+    """Masked top-k of `scan_mode="approx"`.
+
+    Counterpart of picovdb_tpu.ops.exact.approx_topk_rescored. Its
+    `lax.approx_max_k` exists only on the TPU (off it, JAX takes the exact
+    top-k), so the candidates here are the exact top-k_sel: what the JAX
+    package computes on the CPU. With float32 products that top-k is
+    already exact and comes back as it is; with bfloat16 products its
+    k_sel candidates are rescored in float32 and cut to k. Materializes
+    the (Q, cap) score matrix, so callers chunk Q."""
+    cap = vectors.shape[0]
+    if _dtype(compute_dtype) is None:
+        return exact_topk(queries, vectors, mask, min(k, cap))
+    from .scan import rescore_exact
+
+    vals, idx = exact_topk(queries, vectors, mask, min(k_sel, cap),
+                           compute_dtype)
+    vals, idx = rescore_exact(queries, vectors, vals, idx)
+    return vals[:, :k], idx[:, :k]
+
+
+def make_approx_topk(k: int, compute_dtype_name: Optional[str] = None,
+                     normalize: bool = True):
+    """fn(queries, vectors, mask) -> (vals, idx): `approx_topk_rescored`
+    with k_sel = max(2k, k + 16), as the JAX factory chooses it."""
+    k_sel = max(2 * k, k + 16)
+
+    def fn(queries, vectors, mask):
+        if normalize:
+            queries = normalize_on_device(queries)
+        return approx_topk_rescored(queries, vectors, mask, k, k_sel,
+                                    compute_dtype_name)
 
     return fn
 

@@ -46,12 +46,14 @@ from . import _build
 from . import scan as _scan
 from .exact import normalize_on_device
 from .scan import (
+    _I64_MIN,
     KEY_MIN,
     SCAN_KSEL_MAX,
     SEG,
-    _from_sortable,
     _int_acc,
+    _merge_sel_keys,
     _require,
+    _sel_keys,
     _stream,
     _to_sortable,
     colmax_abs,
@@ -201,7 +203,6 @@ def _reorder_pad(vecs: torch.Tensor, order: torch.Tensor, cap_ivf: int,
 _KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _PLAIN_TILES = 64  # hot tiles per step of the plain versions
 _PARTIAL_BYTES = 256 << 20  # bound of K7's per-block partial results
-_I64_MIN = -(2**63)
 
 
 def _ivf_checks(name, q, postings, mask, hot, n_hot, bn):
@@ -241,15 +242,6 @@ def _tile_scores(q, postings, hot_b, bn):
     return sc, rows
 
 
-def _sel_keys(sc, rows):
-    """(score, row) selection keys as int64: higher score first, then the
-    lower row, exactly the kernels' 64-bit key order (int scores ranked
-    as integers, float scores by their sortable bits)."""
-    hi = sc if sc.dtype == torch.int64 else _to_sortable(
-        sc.contiguous().view(torch.int32)).to(torch.int64)
-    return (hi << 32) | (0xFFFFFFFF - rows)[None, :]
-
-
 def ivf_scan_topk_plain(q, postings, mask, hot, n_hot, k: int,
                         bn: int = IVF_BN):
     """Plain version of K7: per hot tile (dead steps b >= n_hot score
@@ -267,20 +259,7 @@ def ivf_scan_topk_plain(q, postings, mask, hot, n_hot, k: int,
         keys = torch.where(live[None, :], _sel_keys(sc, rows), _I64_MIN)
         cand.append(torch.topk(keys.view(num_q, t, bn), kt, dim=2)
                     .values.reshape(num_q, t * kt))
-    keys = torch.cat(cand, dim=1)
-    kk = min(k, keys.shape[1])
-    top = torch.topk(keys, kk, dim=1).values
-    if kk < k:
-        top = torch.cat([top, top.new_full((num_q, k - kk), _I64_MIN)], 1)
-    empty = top == _I64_MIN
-    hi = (top >> 32).to(torch.int32)
-    if q.dtype == torch.int8:
-        vals = hi.float()
-    else:
-        vals = _from_sortable(hi).view(torch.float32)
-    vals = torch.where(empty, float("-inf"), vals)
-    idx = torch.where(empty, 0, 0xFFFFFFFF - (top & 0xFFFFFFFF))
-    return vals, idx.to(torch.int32)
+    return _merge_sel_keys(cand, k, int_scores=q.dtype == torch.int8)
 
 
 def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):

@@ -1,9 +1,10 @@
 """Selection kernels of the exact scan, their plain versions, and the
 routes built from them.
 
-Counterpart of picovdb_tpu/ops/pallas_scan.py for the float32 main path
-and the quantized storage tiers. Six hand-written CUDA kernels (`csrc/`)
-take the place of the six Pallas kernels those paths run:
+Counterpart of picovdb_tpu/ops/pallas_scan.py for the float32 main path,
+the quantized storage tiers and the opt-in column-scaled int8 tier. Eight
+hand-written CUDA kernels (`csrc/`) take the place of the eight Pallas
+kernels those paths run:
 
   K1 `segmax_scan`      csrc/segmax.cu     per-128-row-segment top-2 keys
   K2 `topk_packed_keys` csrc/topk_keys.cu  per-query top-k_sel of the keys
@@ -11,6 +12,8 @@ take the place of the six Pallas kernels those paths run:
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
+  K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
+  K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
 
 Each wrapper checks its inputs, allocates the outputs, and for a CUDA
 tensor launches its kernel on the current stream (raising on a launch
@@ -48,14 +51,17 @@ SEG = 128  # rows per segmax segment
 # with its plain version does not go through a wrapper's counted path.
 LAUNCHES = {"segmax": 0, "topk_keys": 0, "scan_topk": 0, "scan_topk_i8": 0,
             "segmax_i8": 0, "scan_topk_i4": 0,
-            "ivf_scan_topk": 0, "ivf_segmax": 0}  # K7, K8: ops/ivf.py
+            "ivf_scan_topk": 0, "ivf_segmax": 0,  # K7, K8: ops/ivf.py
+            "scan_topk_i8c": 0, "segmax_i8c": 0,
+            "dot_rowmax": 0}  # P1: probes.py
 # Requests whose k_sel exceeded SCAN_KSEL_MAX and went to the plain exact
 # scan instead of K3/K4/K6 (the JAX package's `k > bn` fallback).
 WIDE_K_FALLBACKS = {"scan_topk": 0, "scan_topk_i8": 0, "scan_topk_i4": 0}
 
 TOPK_KEYS_MAX = 32  # K2's k_sel bound (segmax k + guard <= 22)
-SCAN_KSEL_MAX = 1024  # K3/K4/K6's k_sel bound
-_PLAIN_CHUNK = 4096  # corpus rows per partial top-k in the plain K3/K4/K6
+SCAN_KSEL_MAX = 1024  # K3/K4/K6/K9's k_sel bound
+_PLAIN_CHUNK = 4096  # corpus rows per partial top-k in the plain K3/K4/K6/K9
+_I64_MIN = -(2**63)  # empty 64-bit selection key
 
 
 def reset_launch_counts() -> None:
@@ -185,12 +191,25 @@ def _i4_scores(q_i8: torch.Tensor, v_i4: torch.Tensor,
     return s.float() * vscale
 
 
+def _int_dot(q_i8: torch.Tensor, v_i8: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The exact int8 x int8 dot products (the kernels' int32 sums) as
+    `dtype`: summed in a float type that holds them exactly."""
+    acc = _int_acc(q_i8.shape[1], 127 * 127)
+    return (q_i8.to(acc) @ v_i8.to(acc).T).to(dtype)
+
+
 def _i8_scores(q_i8: torch.Tensor, v_i8: torch.Tensor,
                vscale: torch.Tensor) -> torch.Tensor:
     """Scaled int8 scores: the exact integer dot product, then times the
     row scale in float32 (the kernels' int32 sum, converted, scaled)."""
-    acc = _int_acc(q_i8.shape[1], 127 * 127)
-    return (q_i8.to(acc) @ v_i8.to(acc).T).float() * vscale
+    return _int_dot(q_i8, v_i8, torch.float32) * vscale
+
+
+def _require_i32_keys(name: str, dim: int) -> None:
+    """Raw int32 sums must stay above KEY_MIN: |s| <= 127 * 127 * dim."""
+    _require(127 * 127 * dim < 2**31,
+             f"{name}: dim {dim} overflows the int32 score keys")
 
 
 def rescore_exact(queries, vectors, vals, idxs):
@@ -320,9 +339,15 @@ def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
 
 def _segmax_keys(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(Q, cap) float32 scores -> the (Q, 2 * cap / 128) segment keys."""
-    num_q, cap = scores.shape
+    return _segment_top2(_to_sortable(scores.view(torch.int32)), mask)
+
+
+def _segment_top2(raw: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(Q, cap) int32 order-preserving scores -> per 128-row segment the
+    two largest packed keys (raw & ~127) | lane, column 2 * seg + r."""
+    num_q, cap = raw.shape
     nseg = cap // SEG
-    keys = _to_sortable(scores.view(torch.int32)).reshape(num_q, nseg, SEG)
+    keys = raw.reshape(num_q, nseg, SEG)
     lane = torch.arange(SEG, dtype=torch.int32, device=keys.device)
     keys = (keys & ~(SEG - 1)) | lane
     # mask AFTER packing, or a masked lane's sentinel would get its lane
@@ -374,6 +399,39 @@ def segmax_scan_i8_plain(q_i8, v_i8, vscale, mask):
     return _segmax_keys(_i8_scores(q_i8, v_i8, vscale), mask)
 
 
+def segmax_scan_i8c(q_i8: torch.Tensor, v_i8: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """K1 over the column-scaled int8 mirror (K10): the (Q, 2 * cap / 128)
+    key slab of the raw int32 sums q_i8 . v_i8, key (s & ~127) | lane, no
+    conversion, no scale. `q_i8` must be `fold_queries_i8(queries,
+    cscale)` for the mirror's column scales, so the integer sum ranks a
+    query's rows as the true score does. Integer keys: bit for bit the TPU
+    kernel's, in K1's layout."""
+    num_q, cap, dim = _segmax_checks("segmax_scan_i8c", q_i8, v_i8, mask)
+    _require_i32_keys("segmax_scan_i8c", dim)
+    if not q_i8.is_cuda:
+        return segmax_scan_i8c_plain(q_i8, v_i8, mask)
+    _require(q_i8.dtype == torch.int8 and v_i8.dtype == torch.int8,
+             "segmax_scan_i8c: takes int8 queries and vectors")
+    _require(v_i8.is_cuda and mask.is_cuda, "segmax_scan_i8c: mixed devices")
+    q = q_i8.contiguous()
+    _require(v_i8.is_contiguous() and mask.is_contiguous(),
+             "segmax_scan_i8c: vectors and mask must be contiguous")
+    keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
+                       device=q.device)
+    err = _build.library().pv_segmax_scan_i8c(
+        q.data_ptr(), v_i8.data_ptr(), mask.data_ptr(), keys.data_ptr(),
+        num_q, cap, dim, _stream(q))
+    _build.check(err, "segmax_scan_i8c")
+    LAUNCHES["segmax_i8c"] += 1
+    return keys
+
+
+def segmax_scan_i8c_plain(q_i8, v_i8, mask):
+    """Plain version of K10: the exact int32 sums packed as keys."""
+    return _segment_top2(_int_dot(q_i8, v_i8, torch.int32), mask)
+
+
 # ---------------------------------------------------------------------------
 # K2 topk_packed_keys
 # ---------------------------------------------------------------------------
@@ -413,7 +471,7 @@ def topk_packed_keys_plain(keys, k_sel):
 # ---------------------------------------------------------------------------
 
 # pv_scan_topk's corpus kinds
-_KIND_F32, _KIND_BF16, _KIND_I8, _KIND_I4 = 0, 1, 2, 3
+_KIND_F32, _KIND_BF16, _KIND_I8, _KIND_I4, _KIND_I8C = 0, 1, 2, 3, 4
 
 
 def _scan_chunk(cap: int, q_tiles: int, num_q: int, k: int,
@@ -428,7 +486,7 @@ def _scan_chunk(cap: int, q_tiles: int, num_q: int, k: int,
 
 
 def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
-               int4: bool = False):
+               int4: bool = False, i8c: bool = False):
     num_q, dim = queries.shape
     cap = vectors.shape[0]
     vdim = dim // 2 if int4 else dim
@@ -439,8 +497,14 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
              f"{name}: mask must be (cap,) bool")
     _require(0 < k <= SCAN_KSEL_MAX, f"{name}: k {k} outside 1..{SCAN_KSEL_MAX}")
     if not queries.is_cuda:
+        if i8c:
+            return fused_topk_i8c_plain(queries, vectors, mask, k)
         return scan_topk_plain(queries, vectors, vscale, mask, k, int4=int4)
-    if vscale is None:
+    if i8c:
+        kind = _KIND_I8C
+        _require(vectors.dtype == torch.int8 and queries.dtype == torch.int8,
+                 f"{name}: takes int8 queries and column-scaled int8 vectors")
+    elif vscale is None:
         kind = {torch.float32: _KIND_F32,
                 torch.bfloat16: _KIND_BF16}.get(vectors.dtype)
         _require(kind is not None and queries.dtype == torch.float32,
@@ -509,6 +573,48 @@ def scan_topk_plain(queries, vectors, vscale, mask, k: int,
     return vals, idx.to(torch.int32)
 
 
+def _sel_keys(sc, rows):
+    """(score, row) selection keys as int64: higher score first, then the
+    lower row, exactly the kernels' 64-bit key order (int scores ranked
+    as integers, float scores by their sortable bits)."""
+    hi = sc if sc.dtype == torch.int64 else _to_sortable(
+        sc.contiguous().view(torch.int32)).to(torch.int64)
+    return (hi << 32) | (0xFFFFFFFF - rows)[None, :]
+
+
+def _merge_sel_keys(cand, k: int, int_scores: bool):
+    """The kernels' merge of partial selections: the k best of the
+    candidate key blocks, decoded to ((Q, k) float32 scores, -inf where
+    empty; (Q, k) int32 rows, 0 where empty)."""
+    keys = torch.cat(cand, dim=1)
+    kk = min(k, keys.shape[1])
+    top = torch.topk(keys, kk, dim=1).values
+    if kk < k:
+        top = torch.cat([top, top.new_full((top.shape[0], k - kk), _I64_MIN)], 1)
+    empty = top == _I64_MIN
+    hi = (top >> 32).to(torch.int32)
+    vals = hi.float() if int_scores else _from_sortable(hi).view(torch.float32)
+    vals = torch.where(empty, float("-inf"), vals)
+    idx = torch.where(empty, 0, 0xFFFFFFFF - (top & 0xFFFFFFFF))
+    return vals, idx.to(torch.int32)
+
+
+def fused_topk_i8c_plain(q_i8, v_i8, mask, k: int, chunk: int = _PLAIN_CHUNK):
+    """Plain version of K9: per-chunk partial top-k on 64-bit (int32 sum,
+    row) keys, then the merge: the kernel's order, ties to the lower row.
+    Scores come out as the int32 sums in float32 (-inf / row 0 where
+    empty)."""
+    cap = v_i8.shape[0]
+    cand = []
+    for s in range(0, cap, chunk):
+        e = min(cap, s + chunk)
+        rows = torch.arange(s, e, device=q_i8.device)
+        keys = _sel_keys(_int_dot(q_i8, v_i8[s:e], torch.int64), rows)
+        keys = torch.where(mask[s:e][None, :], keys, _I64_MIN)
+        cand.append(torch.topk(keys, min(k, e - s), dim=1).values)
+    return _merge_sel_keys(cand, k, int_scores=True)
+
+
 def _dense_topk(scores, mask, k: int):
     """Masked dense top-k of a (Q, cap) score matrix (the wide-k path)."""
     scores = scores.masked_fill(~mask[None, :], float("-inf"))
@@ -538,6 +644,20 @@ def fused_topk_i8(q_i8, v_i8, vscale, mask, k: int):
         WIDE_K_FALLBACKS["scan_topk_i8"] += 1
         return _dense_topk(_i8_scores(q_i8, v_i8, vscale), mask, k)
     return _scan_topk(q_i8, v_i8, vscale, mask, k, "scan_topk_i8")
+
+
+def fused_topk_i8c(q_i8, v_i8, mask, k: int):
+    """Exact masked top-k over the column-scaled int8 mirror (K9).
+
+    q_i8 (Q, dim) = `fold_queries_i8(queries, cscale)`, v_i8 (cap, dim) the
+    mirror's rows, mask (cap,) bool -> ((Q, k) float32 raw int32 sums,
+    ranking-faithful but not cosines: rescore for real scores; (Q, k)
+    int32 rows). Selection ranks the exact int32 sum, ties to the lower
+    row (the TPU kernel ranks (s & ~0xFFF) | lane: the sets agree except
+    on near-ties). Its routes keep k_sel <= 16; k beyond SCAN_KSEL_MAX is
+    refused."""
+    _require_i32_keys("fused_topk_i8c", q_i8.shape[1])
+    return _scan_topk(q_i8, v_i8, None, mask, k, "scan_topk_i8c", i8c=True)
 
 
 def fused_topk_i4(q_i8, v_i4, vscale, mask, k: int):
@@ -662,6 +782,52 @@ def make_fused_topk_i8(k: int, guard: int = 4, normalize: bool = True,
             vals, idx = rescore_exact_i8r(queries, v_i8, vscale, vals, idx)
         else:
             vals, idx = rescore_exact(queries, rescore_vectors, vals, idx)
+        out = _mark_crowded(vals[:, :k], vals, k,
+                            _tie_margin("i8", queries.shape[1], tie_scale))
+        return out, idx[:, :k]
+
+    return fn
+
+
+def make_segmax_topk_i8c(k: int, guard: int = 8, normalize: bool = True,
+                         tie_scale: Optional[float] = None):
+    """Batch route over the column-scaled int8 mirror: fold the column
+    scales into the queries, K10 integer segment keys -> K2 -> exact
+    float32 rescore -> crowding mark. The guard is one notch wider than
+    the bf16 tier's (8 vs 6): column-scaled noise depends on the data.
+
+    fn(queries f32, v_i8, cscale, rescore_vectors f32, mask) -> (vals, idx)
+    """
+    if tie_scale is None:
+        tie_scale = _tie_scale_env()
+
+    def fn(queries, v_i8, cscale, rescore_vectors, mask):
+        if normalize:
+            queries = normalize_on_device(queries)
+        keys = segmax_scan_i8c(fold_queries_i8(queries, cscale), v_i8, mask)
+        return _segmax_finish(queries, keys, rescore_vectors, k, guard,
+                              _tie_margin("i8", queries.shape[1], tie_scale))
+
+    return fn
+
+
+def make_fused_topk_i8c(k: int, guard: int = 6, normalize: bool = True,
+                        tie_scale: Optional[float] = None):
+    """Small-batch route over the column-scaled int8 mirror: exact
+    selection on the raw int32 sums (K9, k + guard) + exact float32
+    rescore + crowding mark.
+
+    fn(queries f32, v_i8, cscale, rescore_vectors f32, mask) -> (vals, idx)
+    """
+    if tie_scale is None:
+        tie_scale = _tie_scale_env()
+
+    def fn(queries, v_i8, cscale, rescore_vectors, mask):
+        if normalize:
+            queries = normalize_on_device(queries)
+        q_i8 = fold_queries_i8(queries, cscale)
+        vals, idx = fused_topk_i8c(q_i8, v_i8, mask, k + max(0, guard))
+        vals, idx = rescore_exact(queries, rescore_vectors, vals, idx)
         out = _mark_crowded(vals[:, :k], vals, k,
                             _tie_margin("i8", queries.shape[1], tie_scale))
         return out, idx[:, :k]

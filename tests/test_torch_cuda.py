@@ -6,9 +6,10 @@ present (the CPU test runs), and runs on the card with
     python -m pytest tests/test_torch_cuda.py -q
 
 Shapes are small; `chip_smoke.py` checks the same kernels at the main
-path's shapes. Tolerances: K5 keys and int8 / int4 scores are exact
-(integer sums, one float32 conversion and one multiply); float32 / bf16
-scores within 1e-5 (summation order). K8's float keys also within 1e-5:
+path's shapes. Tolerances: K5 / K10 keys, K9 and P1 int8 results and
+int8 / int4 scores are exact (integer sums, at most one float32
+conversion and one multiply); float32 / bf16 scores within 1e-5
+(summation order). K8's float keys also within 1e-5:
 unit-vector scores stay below 1, where summation order moves a key by at
 most one 128-ulp quantum (7.6e-6), while a TF32 product would be off by
 several 1e-5 at these widths.
@@ -18,6 +19,9 @@ import pytest
 import torch
 
 from picovdb_tpu_torch.ops import scan
+from torch_port_setup import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.cuda
 
@@ -281,3 +285,51 @@ def test_ivf_scan_topk_bounded_partials(dev, kind, monkeypatch):
     got = ivf.ivf_scan_topk(q, v, mask, hot, n_hot, 200)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dim", DIMS + [1024])
+@pytest.mark.parametrize("nq,k", [(1, 16), (16, 12), (5, 300)])
+def test_fused_topk_i8c_exact(dev, dim, nq, k):
+    """K9 ranks the raw int32 sums, ties to the lower row: bit for bit its
+    plain version."""
+    q, v, mask = _data(dev, dim=dim, nq=nq)
+    v8, cs = scan.quantize_cols_i8(v)
+    q8 = scan.fold_queries_i8(q, cs)
+    before = scan.LAUNCHES["scan_topk_i8c"]
+    vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
+    assert scan.LAUNCHES["scan_topk_i8c"] == before + 1
+    rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, k)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+
+
+@pytest.mark.parametrize("dim", DIMS + [1024])
+def test_segmax_scan_i8c_keys_exact(dev, dim):
+    q, v, mask = _data(dev, dim=dim, nq=200)
+    v8, cs = scan.quantize_cols_i8(v)
+    q8 = scan.fold_queries_i8(q, cs)
+    before = scan.LAUNCHES["segmax_i8c"]
+    keys = scan.segmax_scan_i8c(q8, v8, mask)
+    assert scan.LAUNCHES["segmax_i8c"] == before + 1
+    ref = scan.segmax_scan_i8c_plain(q8, v8, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref)
+
+
+@pytest.mark.parametrize("dim", DIMS + [1024])
+def test_dot_rowmax(dev, dim):
+    """P1: int8 row maxima bit for bit; bf16 maxima within 1e-5 (float32
+    sums of exact bf16 products, in another order)."""
+    from picovdb_tpu_torch import probes
+
+    q, v, _ = _data(dev, dim=dim, nq=130)
+    q8, v8 = scan.quantize_rows_i8(q)[0], scan.quantize_rows_i8(v)[0]
+    before = scan.LAUNCHES["dot_rowmax"]
+    got = probes.dot_rowmax(q8, v8)
+    assert scan.LAUNCHES["dot_rowmax"] == before + 1
+    assert torch.equal(got, probes.dot_rowmax_plain(q8, v8))
+    qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    got = probes.rowmax_value(probes.dot_rowmax(qb, vb))
+    ref = probes.rowmax_value(probes.dot_rowmax_plain(qb, vb))
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5

@@ -17,6 +17,9 @@ import torch
 import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu.utils import normalize_batch
+from torch_port_setup import cap_torch_threads
+
+cap_torch_threads()
 
 K_ID, K_METRICS = picovdb_tpu.K_ID, picovdb_tpu.K_METRICS
 TOL_SCORE = 1e-5

@@ -19,6 +19,9 @@ import torch
 import picovdb_tpu_torch
 from picovdb_tpu_torch import K_ID, K_METRICS
 from picovdb_tpu_torch import device as tdevice
+from torch_port_setup import cap_torch_threads
+
+cap_torch_threads()
 
 DIM = 32
 KNOBS = dict(mixed_precision=True, int8_tier=True, use_pallas=True)

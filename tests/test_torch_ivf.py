@@ -28,6 +28,9 @@ from picovdb_tpu.ops import pallas_scan as jps
 from picovdb_tpu.utils import normalize_batch
 from picovdb_tpu_torch.ops import ivf as tivf
 from picovdb_tpu_torch.ops import scan as tscan
+from torch_port_setup import cap_torch_threads
+
+cap_torch_threads()
 
 TOL_SCORE = 1e-5
 TOL_GAP = 1e-4

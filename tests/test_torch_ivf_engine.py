@@ -28,6 +28,9 @@ import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu.utils import normalize_batch
 from picovdb_tpu_torch.ops import ivf as tivf
+from torch_port_setup import cap_torch_threads
+
+cap_torch_threads()
 
 K_ID, K_METRICS = picovdb_tpu.K_ID, picovdb_tpu.K_METRICS
 PACKAGES = {"jax": picovdb_tpu, "torch": picovdb_tpu_torch}
@@ -362,11 +365,21 @@ def test_build_failures(tmp_path, monkeypatch, failure):
 
 @pytest.mark.parametrize("env", ["PICOVDB_SEGMAX_I8C", "PICOVDB_SMALLQ_I8C"])
 def test_out_of_slice_paths_still_raise(tmp_path, monkeypatch, env):
+    """`mesh=` still raises (item 8); the opt-in column-scaled tiers
+    (item 9) serve beside the IVF tier: an index="ivf" store answers from
+    the tier, and its exact lanes may take the column-scaled mirror."""
     with pytest.raises(NotImplementedError, match="item 8"):
         picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, mesh=object(),
                                        index="ivf",
                                        storage_file=f"{tmp_path}/m")
     monkeypatch.setenv(env, "1")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, index="ivf",
-                                       storage_file=f"{tmp_path}/o")
+    db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, index="ivf",
+                                        int8_tier=True,
+                                        storage_file=f"{tmp_path}/o")
+    vecs = clustered(np.random.default_rng(3), N)
+    db.upsert_columnar(vecs, ids=[f"d{i}" for i in range(N)])
+    assert db.query(vecs[7], top_k=3)[0][K_ID] == "d7"
+    assert db.last_query_debug()["strategy"] == "ivf"
+    flag = {"PICOVDB_SEGMAX_I8C": "segmax_i8c",
+            "PICOVDB_SMALLQ_I8C": "smallq_i8c"}[env]
+    assert getattr(db._dev, flag)

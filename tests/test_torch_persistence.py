@@ -20,6 +20,9 @@ import pytest
 import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu_torch.device import DeviceIndex
+from torch_port_setup import cap_torch_threads
+
+cap_torch_threads()
 
 K_ID, K_METRICS, K_VECTOR = (picovdb_tpu.K_ID, picovdb_tpu.K_METRICS,
                              picovdb_tpu.K_VECTOR)
@@ -109,17 +112,19 @@ def test_no_source_file_imports_jax():
 ])
 def test_out_of_slice_entry_points_raise(tmp_path, kwargs, item):
     """Entry points of later ROADMAP items raise NotImplementedError
-    naming their item. Item 7's (index="ivf") is ported: it serves."""
+    naming their item. Items 7 (index="ivf") and 9 (scan_mode="approx")
+    are ported: they serve."""
     def make():
         return picovdb_tpu_torch.PicoVectorDB(
             embedding_dim=DIM, storage_file=str(tmp_path / "s"), **kwargs)
 
-    if item == "item 7":
+    if item in ("item 7", "item 9"):
         db = make()
         vecs = np.random.default_rng(0).normal(size=(300, DIM)).astype(np.float32)
         db.upsert_columnar(vecs, ids=[str(i) for i in range(300)])
         assert db.query(vecs[17], top_k=1)[0][picovdb_tpu_torch.K_ID] == "17"
-        assert db.last_query_debug()["strategy"] == "ivf"
+        route = {"item 7": "ivf", "item 9": "xla_approx"}[item]
+        assert db.last_query_debug()["strategy"] == route
         return
     with pytest.raises(NotImplementedError, match=item):
         make()
@@ -128,7 +133,7 @@ def test_out_of_slice_entry_points_raise(tmp_path, kwargs, item):
 def test_out_of_slice_calls_raise(tmp_path, monkeypatch):
     """The storage-tier entry points serve now and refuse what the JAX
     package refuses (a quantized save of a float32 store, host data to
-    ingest_device); the f32 opt-in int8 segmax stays item 9."""
+    ingest_device); the f32 opt-in int8 segmax (item 9) serves too."""
     db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM,
                                         storage_file=str(tmp_path / "s"))
     with pytest.raises(ValueError, match="device"):
@@ -136,8 +141,8 @@ def test_out_of_slice_calls_raise(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="int8/int4"):
         db.save(quantized=True)
     monkeypatch.setenv("PICOVDB_SEGMAX_I8", "1")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DeviceIndex(DIM)
+    dev = DeviceIndex(DIM, int8_tier=True)
+    assert dev.segmax_i8 and not DeviceIndex(DIM, int8_tier=False).segmax_i8
 
 
 def test_index_auto_serves_exact_and_cpu_defaults(tmp_path, rng):

@@ -15,6 +15,9 @@ import pytest
 import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu_torch import persistence as tpersist
+from torch_port_setup import cap_torch_threads
+
+cap_torch_threads()
 
 K_ID, K_METRICS, K_VECTOR = (picovdb_tpu.K_ID, picovdb_tpu.K_METRICS,
                              picovdb_tpu.K_VECTOR)

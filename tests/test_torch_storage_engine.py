@@ -23,6 +23,9 @@ import picovdb_tpu_torch
 from picovdb_tpu.ops import pallas_scan as jps
 from picovdb_tpu.utils import normalize_batch
 from picovdb_tpu_torch.ops import scan as tscan
+from torch_port_setup import cap_torch_threads
+
+cap_torch_threads()
 
 K_ID, K_METRICS, K_VECTOR = (picovdb_tpu.K_ID, picovdb_tpu.K_METRICS,
                              picovdb_tpu.K_VECTOR)
