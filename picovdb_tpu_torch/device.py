@@ -32,6 +32,7 @@ import torch
 
 from .constants import Float, ROW_PAD
 from .ops.exact import (
+    default_device,
     make_approx_topk,
     make_exact_topk,
     make_exact_topk_i4r,
@@ -83,10 +84,6 @@ def _pad_to(t: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
     out = t.new_zeros((rows,) + tuple(t.shape[1:]))
     out[: t.shape[0]] = t
     return out
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
 
 
 class DeviceIndex:

@@ -352,7 +352,7 @@ class PicoVectorDB:
             dev_vectors=self._dev.vectors,
             storage_dtype=self._dev.storage_dtype,
             i8_only=self._ivf_i8_only(),
-            dequant_scale=self._dev.vstore_scale)
+            dequant_scale=self._dev.vstore_scale, device=self._dev._device)
         if self._ivf is not None:
             self._ann_build_params = {"nlist_requested": self._ivf.nlist,
                                       "kmeans_iters": 0, "warm": "sidecar"}

@@ -24,6 +24,18 @@ NEG_INF = float("-inf")
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def default_device() -> torch.device:
+    """The device a store or index lives on when the caller names none: the
+    card, cuda:0. Without a usable CUDA device this raises instead of
+    quietly serving from the host; run on the CPU by passing
+    device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device=\"cpu\" to run on the "
+            "host")
+    return torch.device("cuda:0")
+
+
 def normalize_on_device(q: torch.Tensor) -> torch.Tensor:
     """Zero-safe L2 normalization (zero rows -> e0), in float32.
 

@@ -44,7 +44,7 @@ from ..constants import Float
 from ..utils import next_pow2, round_up
 from . import _build
 from . import scan as _scan
-from .exact import normalize_on_device
+from .exact import default_device, normalize_on_device
 from .scan import (
     _I64_MIN,
     KEY_MIN,
@@ -143,10 +143,6 @@ def should_build(n_active: int, dim: Optional[int] = None,
     if dim:
         return n_active * dim * itemsize >= 2 * 2**30
     return n_active >= 2_000_000
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ import torch
 import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu.utils import normalize_batch
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import cap_torch_threads, cpu_kw
 
 cap_torch_threads()
 
@@ -37,7 +37,7 @@ def _build(tmp, rng_seed=7):
     dbs = {}
     for name, pkg in (("jax", picovdb_tpu), ("torch", picovdb_tpu_torch)):
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_file=f"{tmp}/{name}",
-                              **KNOBS)
+                              **KNOBS, **cpu_kw(pkg))
         db.upsert_columnar(vecs, ids=ids, metadata=meta)
         dbs[name] = db
     return dbs, vecs
@@ -180,7 +180,8 @@ def test_append_past_capacity_grows_on_device(tmp_path):
     dbs = {}
     for name, pkg in (("jax", picovdb_tpu), ("torch", picovdb_tpu_torch)):
         db = pkg.PicoVectorDB(embedding_dim=DIM,
-                              storage_file=f"{tmp_path}/{name}", **KNOBS)
+                              storage_file=f"{tmp_path}/{name}", **KNOBS,
+                              **cpu_kw(pkg))
         db.upsert_columnar(base, ids=[f"b{i}" for i in range(8000)])
         db.query(base[0], top_k=3)
         cap0 = db.last_query_debug()["device_capacity"]
@@ -220,7 +221,7 @@ def test_concurrent_readers_and_writer(tmp_path):
     # writer, the reference's documented semantics
     db = picovdb_tpu_torch.PicoVectorDB(
         embedding_dim=DIM, storage_file=str(tmp_path / "c"),
-        writer_priority=True, **KNOBS)
+        writer_priority=True, device="cpu", **KNOBS)
     db.upsert_columnar(vecs, ids=[f"c{i}" for i in range(4000)])
     gone: set = set()
     gone_lock = threading.Lock()
@@ -265,3 +266,31 @@ def test_concurrent_readers_and_writer(tmp_path):
     assert not w.is_alive() and not any(t.is_alive() for t in readers)
     assert not errors, errors[:3]
     assert db.count() == 3700
+
+
+@pytest.mark.parametrize("build", ["store", "device_index", "ivf_index"])
+def test_no_device_named_and_no_card_raises(tmp_path, monkeypatch, build):
+    """Without device= a store or index goes to the card; where there is
+    none it raises naming device="cpu" instead of serving from the host."""
+    from picovdb_tpu_torch.device import DeviceIndex
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vecs = normalize_batch(np.random.default_rng(4).normal(size=(64, DIM))
+                           .astype(np.float32))
+    make = {
+        "store": lambda: picovdb_tpu_torch.PicoVectorDB(
+            embedding_dim=DIM, storage_file=str(tmp_path / "s")),
+        "device_index": lambda: DeviceIndex(DIM),
+        "ivf_index": lambda: tivf.IVFIndex.build(
+            vecs, np.ones(64, bool), nlist=4, dim=DIM),
+    }[build]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make()
+
+
+def test_default_device_is_the_card(monkeypatch):
+    from picovdb_tpu_torch.ops.exact import default_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert default_device() == torch.device("cuda:0")

@@ -49,7 +49,7 @@ def _failing_pad(which):
 def test_grow_end_states(rng, monkeypatch, which):
     vecs = rng.normal(size=(8000, DIM)).astype(np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
-    dev = tdevice.DeviceIndex(DIM, **KNOBS)
+    dev = tdevice.DeviceIndex(DIM, device="cpu", **KNOBS)
     dev.from_numpy_state(vecs, np.ones(8000, bool))
     cap0, corpus0 = dev.cap, dev.vectors
     monkeypatch.setattr(tdevice, "_pad_to", _failing_pad(which))
@@ -72,7 +72,8 @@ def test_grow_end_states(rng, monkeypatch, which):
 
 def _engine(tmp, name, base, extra):
     db = picovdb_tpu_torch.PicoVectorDB(
-        embedding_dim=DIM, storage_file=f"{tmp}/{name}", **KNOBS)
+        embedding_dim=DIM, storage_file=f"{tmp}/{name}", device="cpu",
+        **KNOBS)
     db.upsert_columnar(base, ids=[f"b{i}" for i in range(len(base))])
     db.query(base[0], top_k=3)  # first sync: the store is on the device
     db.upsert_columnar(extra, ids=[f"e{i}" for i in range(len(extra))])

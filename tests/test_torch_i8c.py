@@ -35,7 +35,7 @@ from picovdb_tpu_torch import probes
 from picovdb_tpu_torch.device import DeviceIndex as TorchIndex
 from picovdb_tpu_torch.ops import exact as texact
 from picovdb_tpu_torch.ops import scan as tscan
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import cap_torch_threads, cpu_kw
 
 cap_torch_threads()
 
@@ -106,7 +106,7 @@ def test_mirror_budget_counts_the_i8c_byte(monkeypatch, i8c_env):
     q = v[:nq] + 0.05 * rng.normal(size=(nq, dim)).astype(np.float32)
     seen = {}
     for name, cls in (("jax", JaxIndex), ("torch", TorchIndex)):
-        dev = cls(dim, int8_tier=True, mixed_precision=True)
+        dev = cls(dim, int8_tier=True, mixed_precision=True, **cpu_kw(cls))
         dev.full_upload(v, np.ones(n, bool))
         vals, idx = dev.query(q, k)
         seen[name] = (dev.last_strategy, dev.vectors_lp is None,
@@ -122,7 +122,8 @@ def test_mirror_budget_counts_the_i8c_byte(monkeypatch, i8c_env):
 def test_stats_mirror_keys_match(tmp_path):
     dbs = {}
     for name, pkg in PACKAGES.items():
-        db = pkg.PicoVectorDB(embedding_dim=16, storage_file=str(tmp_path / name))
+        db = pkg.PicoVectorDB(embedding_dim=16, storage_file=str(tmp_path / name),
+                              **cpu_kw(pkg))
         db.upsert([{K_ID: "a", K_VECTOR: np.ones(16, np.float32)}])
         db.query(np.ones(16, np.float32), top_k=1)
         dbs[name] = db.stats()["mirrors"]
@@ -279,7 +280,7 @@ def test_tier_flags_read_alike(monkeypatch, envs, int8_tier):
         monkeypatch.setenv(env, val)
     flags = ("segmax_i8", "i8c_tier", "segmax_i8c", "smallq_i8c")
     j = JaxIndex(16, int8_tier=int8_tier)
-    t = TorchIndex(16, int8_tier=int8_tier)
+    t = TorchIndex(16, int8_tier=int8_tier, device="cpu")
     assert [getattr(j, f) for f in flags] == [getattr(t, f) for f in flags]
 
 
@@ -294,7 +295,7 @@ def test_grow_drops_the_i8c_mirror_and_regates(monkeypatch):
                         .astype(np.float32))
     seen = {}
     for name, cls in (("jax", JaxIndex), ("torch", TorchIndex)):
-        dev = cls(dim, int8_tier=True, mixed_precision=True)
+        dev = cls(dim, int8_tier=True, mixed_precision=True, **cpu_kw(cls))
         dev.full_upload(v, np.ones(n, bool))
         assert dev.ensure_i8c_mirror() and dev.vectors_i8c is not None
         assert dev.grow(2 * n)
@@ -308,7 +309,7 @@ def test_scatter_drops_the_i8c_mirror_delete_keeps_it():
     dim, n = 16, 8192
     v = normalize_batch(np.random.default_rng(1).normal(size=(n, dim))
                         .astype(np.float32))
-    dev = TorchIndex(dim, int8_tier=True)
+    dev = TorchIndex(dim, int8_tier=True, device="cpu")
     dev.full_upload(v, np.ones(n, bool))
     assert dev.ensure_i8c_mirror()
     dev.scatter(np.array([3]), None, np.array([False]))
@@ -325,7 +326,7 @@ def test_quantized_store_has_no_i8c_tier(monkeypatch):
     monkeypatch.setenv("PICOVDB_SMALLQ_I8C", "1")
     routes = []
     for cls in (JaxIndex, TorchIndex):
-        dev = cls(16, storage_dtype="int8")
+        dev = cls(16, storage_dtype="int8", **cpu_kw(cls))
         dev.full_upload(np.eye(16, dtype=np.float32), np.ones(16, bool))
         assert not dev.ensure_i8c_mirror()
         dev.query(np.eye(16, dtype=np.float32)[:1], 3)
@@ -355,7 +356,7 @@ def _build(tmp, monkeypatch, envs, **kw):
     dbs = {}
     for name, pkg in PACKAGES.items():
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_file=f"{tmp}/{name}",
-                              int8_tier=True, **kw)
+                              int8_tier=True, **kw, **cpu_kw(pkg))
         db.upsert_columnar(vecs, ids=[f"d{i}" for i in range(N)],
                            metadata=[{"tag": i % 5} for i in range(N)])
         dbs[name] = db

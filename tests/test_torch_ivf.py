@@ -197,7 +197,8 @@ def test_build_from_warm_centroids_identical():
     t = tivf.IVFIndex.build(v, mask, nlist=20, dim=DIM, iters=0,
                             warm_centroids=warm, device="cpu")
     td = tivf.IVFIndex.build(None, mask, nlist=20, dim=DIM, iters=0,
-                             warm_centroids=warm, dev_vectors=_t(v))
+                             warm_centroids=warm, dev_vectors=_t(v),
+                             device="cpu")
     for x in (t, td):
         np.testing.assert_array_equal(x.slots.numpy(), np.asarray(j.slots))
         np.testing.assert_array_equal(x.seg_starts.numpy(),
@@ -496,9 +497,10 @@ def test_blob_round_trip_both_ways():
     # a changed active set makes the blob stale: the caller retrains
     mask2 = mask.copy()
     mask2[5] = False
-    assert tivf.IVFIndex.from_blob(t.to_blob(), v, mask2, DIM) is None
+    assert tivf.IVFIndex.from_blob(t.to_blob(), v, mask2, DIM,
+                                   device="cpu") is None
     assert tivf.IVFIndex.from_blob({"centroids": np.zeros((3, 7))}, v, mask,
-                                   DIM) is None
+                                   DIM, device="cpu") is None
     # after an update the refreshed blob covers the live rows
     assert t.update(np.array([0, 3000]), np.stack([v[0], v[1]]),
                     np.array([False, True]))

@@ -28,7 +28,7 @@ import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu.utils import normalize_batch
 from picovdb_tpu_torch.ops import ivf as tivf
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import cap_torch_threads, cpu_kw
 
 cap_torch_threads()
 
@@ -58,7 +58,7 @@ def _build(tmp, vecs, n=N, **kw):
     dbs = {}
     for name, pkg in PACKAGES.items():
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_file=f"{tmp}/{name}",
-                              **kw)
+                              **kw, **cpu_kw(pkg))
         db.upsert_columnar(vecs[:n], ids=[f"d{i}" for i in range(n)],
                            metadata=[{"tag": i % 5} for i in range(n)])
         dbs[name] = db
@@ -191,7 +191,8 @@ def test_sidecar_cross_load(tmp_path, monkeypatch, storage, writer):
         monkeypatch.setenv("PICOVDB_IVF_I8", "1")
         monkeypatch.setenv("PICOVDB_IVF_GUARD", "40")
     src = PACKAGES[writer].PicoVectorDB(embedding_dim=DIM,
-                                        storage_file=f"{tmp_path}/s", **kw)
+                                        storage_file=f"{tmp_path}/s", **kw,
+                                        **cpu_kw(PACKAGES[writer]))
     src.upsert_columnar(vecs, ids=[f"d{i}" for i in range(N)])
     q = (vecs[:6] + 0.02 * rng.normal(size=(6, DIM))).astype(np.float32)
     before = src.query(q, top_k=10)
@@ -199,7 +200,7 @@ def test_sidecar_cross_load(tmp_path, monkeypatch, storage, writer):
     src.save(quantized=True) if storage else src.save()
     other = PACKAGES["torch" if writer == "jax" else "jax"]
     dst = other.PicoVectorDB(embedding_dim=DIM, storage_file=f"{tmp_path}/s",
-                             **kw)
+                             **kw, **cpu_kw(other))
     dst.query(q[0], top_k=3)  # a deferred (lazy) load builds at this sync
     assert dst._ivf is not None
     np.testing.assert_array_equal(np.asarray(dst._ivf.centroids)[:16],
@@ -250,7 +251,8 @@ def test_device_born_build_needs_no_host_matrix(tmp_path, monkeypatch):
     dbs = {}
     for name, pkg in PACKAGES.items():
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_file=f"{tmp_path}/{name}",
-                              index="ivf", ivf_nlist=16, storage_dtype="int8")
+                              index="ivf", ivf_nlist=16, storage_dtype="int8",
+                              **cpu_kw(pkg))
         arr = jnp.asarray(vecs) if name == "jax" else torch.from_numpy(vecs)
         db.ingest_device(arr, ids, normalize=False)
         dbs[name] = db
@@ -273,7 +275,7 @@ def test_auto_builds_at_the_first_sync_after_a_bulk_load(tmp_path, monkeypatch):
     rng = np.random.default_rng(7)
     vecs = clustered(rng, N)
     ids = [f"d{i}" for i in range(N)]
-    small = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM,
+    small = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, device="cpu",
                                            storage_file=f"{tmp_path}/s")
     small.upsert_columnar(vecs, ids=ids)
     small.query(vecs[0], top_k=3)
@@ -281,7 +283,7 @@ def test_auto_builds_at_the_first_sync_after_a_bulk_load(tmp_path, monkeypatch):
     monkeypatch.setattr(tivf, "should_build", lambda *a, **k: True)
     for i, how in enumerate(("host", "device")):
         db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, ivf_nlist=32,
-                                            ivf_nprobe=1,
+                                            ivf_nprobe=1, device="cpu",
                                             storage_file=f"{tmp_path}/a{i}")
         if how == "host":
             db.upsert_columnar(vecs, ids=ids)
@@ -310,7 +312,7 @@ def test_grow_retry_frees_the_ivf_and_rebuilds_warm(tmp_path, monkeypatch):
     vecs = clustered(rng, n)
     db = picovdb_tpu_torch.PicoVectorDB(
         embedding_dim=DIM, storage_file=f"{tmp_path}/g", index="ivf",
-        storage_dtype="int8", ivf_nlist=16)
+        storage_dtype="int8", ivf_nlist=16, device="cpu")
     db.ingest_device(torch.from_numpy(vecs), [str(i) for i in range(n)],
                      normalize=False)
     db.rebuild_index()
@@ -353,6 +355,7 @@ def test_build_failures(tmp_path, monkeypatch, failure):
 
     monkeypatch.setattr(tivf.IVFIndex, "build", classmethod(boom))
     db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, index="ivf",
+                                        device="cpu",
                                         storage_file=f"{tmp_path}/f")
     db.upsert_columnar(vecs, ids=[f"d{i}" for i in range(N)])
     if failure == "other":
@@ -370,11 +373,11 @@ def test_out_of_slice_paths_still_raise(tmp_path, monkeypatch, env):
     the tier, and its exact lanes may take the column-scaled mirror."""
     with pytest.raises(NotImplementedError, match="item 8"):
         picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, mesh=object(),
-                                       index="ivf",
+                                       index="ivf", device="cpu",
                                        storage_file=f"{tmp_path}/m")
     monkeypatch.setenv(env, "1")
     db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, index="ivf",
-                                        int8_tier=True,
+                                        int8_tier=True, device="cpu",
                                         storage_file=f"{tmp_path}/o")
     vecs = clustered(np.random.default_rng(3), N)
     db.upsert_columnar(vecs, ids=[f"d{i}" for i in range(N)])

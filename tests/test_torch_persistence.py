@@ -20,7 +20,7 @@ import pytest
 import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu_torch.device import DeviceIndex
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import cap_torch_threads, cpu_kw
 
 cap_torch_threads()
 
@@ -46,10 +46,12 @@ def _populate(db, rng):
 def test_store_loads_in_the_other_package(tmp_path, rng, writer, reader,
                                           shards):
     base = str(tmp_path / "store")
-    w = PACKAGES[writer].PicoVectorDB(embedding_dim=DIM, storage_file=base)
+    w = PACKAGES[writer].PicoVectorDB(embedding_dim=DIM, storage_file=base,
+                                      **cpu_kw(PACKAGES[writer]))
     vecs = _populate(w, rng)
     w.save(shards=shards)
-    r = PACKAGES[reader].PicoVectorDB(embedding_dim=DIM, storage_file=base)
+    r = PACKAGES[reader].PicoVectorDB(embedding_dim=DIM, storage_file=base,
+                                      **cpu_kw(PACKAGES[reader]))
     assert r.count() == w.count()
     assert r.get_additional_data() == w.get_additional_data()
     a = w.get_all(include_vector=True, include_deleted=True)
@@ -116,7 +118,8 @@ def test_out_of_slice_entry_points_raise(tmp_path, kwargs, item):
     are ported: they serve."""
     def make():
         return picovdb_tpu_torch.PicoVectorDB(
-            embedding_dim=DIM, storage_file=str(tmp_path / "s"), **kwargs)
+            embedding_dim=DIM, storage_file=str(tmp_path / "s"), device="cpu",
+            **kwargs)
 
     if item in ("item 7", "item 9"):
         db = make()
@@ -134,21 +137,22 @@ def test_out_of_slice_calls_raise(tmp_path, monkeypatch):
     """The storage-tier entry points serve now and refuse what the JAX
     package refuses (a quantized save of a float32 store, host data to
     ingest_device); the f32 opt-in int8 segmax (item 9) serves too."""
-    db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM,
+    db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, device="cpu",
                                         storage_file=str(tmp_path / "s"))
     with pytest.raises(ValueError, match="device"):
         db.ingest_device(np.zeros((2, DIM), np.float32), ids=["a", "b"])
     with pytest.raises(ValueError, match="int8/int4"):
         db.save(quantized=True)
     monkeypatch.setenv("PICOVDB_SEGMAX_I8", "1")
-    dev = DeviceIndex(DIM, int8_tier=True)
-    assert dev.segmax_i8 and not DeviceIndex(DIM, int8_tier=False).segmax_i8
+    dev = DeviceIndex(DIM, int8_tier=True, device="cpu")
+    assert dev.segmax_i8
+    assert not DeviceIndex(DIM, int8_tier=False, device="cpu").segmax_i8
 
 
 def test_index_auto_serves_exact_and_cpu_defaults(tmp_path, rng):
     """`index="auto"` serves the exact scan; on the CPU the mirrors and the
     kernel routes default off, as the JAX package's do off its TPU."""
-    db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM,
+    db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, device="cpu",
                                         storage_file=str(tmp_path / "s"))
     vecs = _populate(db, rng)
     hits = db.query(vecs[1], top_k=3)
@@ -167,7 +171,7 @@ def test_query_serial_loop_and_from_numpy_state(rng, monkeypatch):
     vecs = rng.normal(size=(5000, DIM)).astype(np.float32)
     vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
     active = rng.random(5000) > 0.2
-    dev = DeviceIndex(DIM, mixed_precision=True, int8_tier=True)
+    dev = DeviceIndex(DIM, mixed_precision=True, int8_tier=True, device="cpu")
     dev.from_numpy_state(vecs, active)
     q = vecs[:6]
     lv, li = dev.query_serial_loop(q, 5)

@@ -15,7 +15,7 @@ import pytest
 import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu_torch import persistence as tpersist
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import cap_torch_threads, cpu_kw
 
 cap_torch_threads()
 
@@ -28,7 +28,7 @@ DIM = 32
 def _open(pkg, base, storage):
     return PACKAGES[pkg].PicoVectorDB(embedding_dim=DIM, storage_file=base,
                                       storage_dtype=storage, use_pallas=True,
-                                      rescore="device")
+                                      rescore="device", **cpu_kw(PACKAGES[pkg]))
 
 
 def _same_listing(a_db, b_db):
@@ -101,7 +101,7 @@ def test_quantized_load_checks_and_auto_format(tmp_path, rng, monkeypatch):
         _open("torch", base, "int4")
     with pytest.raises(ValueError, match="dim"):
         picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM + 2, storage_file=base,
-                                       storage_dtype="int8")
+                                       storage_dtype="int8", device="cpu")
     lazy = _open("torch", base, "int8")
     monkeypatch.setenv("PICOVDB_QSAVE_AUTO_GB", "0")
     lazy.save()

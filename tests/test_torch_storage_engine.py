@@ -23,7 +23,7 @@ import picovdb_tpu_torch
 from picovdb_tpu.ops import pallas_scan as jps
 from picovdb_tpu.utils import normalize_batch
 from picovdb_tpu_torch.ops import scan as tscan
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import cap_torch_threads, cpu_kw
 
 cap_torch_threads()
 
@@ -44,7 +44,8 @@ def _build(tmp, storage, n=N, rng_seed=7, **kw):
     dbs = {}
     for name, pkg in PACKAGES.items():
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_file=f"{tmp}/{name}",
-                              storage_dtype=storage, use_pallas=True, **kw)
+                              storage_dtype=storage, use_pallas=True, **kw,
+                              **cpu_kw(pkg))
         db.upsert_columnar(vecs, ids=ids, metadata=meta)
         dbs[name] = db
     return dbs, vecs
@@ -162,7 +163,8 @@ def test_plain_routes_match(tmp_path, storage, route):
     for name, pkg in PACKAGES.items():
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_dtype=storage,
                               storage_file=f"{tmp_path}/{name}",
-                              use_pallas=False, rescore="device")
+                              use_pallas=False, rescore="device",
+                              **cpu_kw(pkg))
         db.upsert_columnar(vecs, ids=[f"d{i}" for i in range(3000)])
         dbs[name] = db
     q = vecs[:8] + 0.2 * rng.normal(size=(8, DIM)).astype(np.float32)
@@ -214,7 +216,7 @@ def _pair(tmp, data, storage, **kw):
     for name, pkg in PACKAGES.items():
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_dtype=storage,
                               storage_file=f"{tmp}/{name}", use_pallas=True,
-                              **kw)
+                              **kw, **cpu_kw(pkg))
         db.upsert_columnar(data, ids=[str(i) for i in range(len(data))])
         dbs[name] = db
     return dbs
@@ -324,7 +326,8 @@ def _ingest_both(tmp, storage, rows, prequantized=False, **kw):
     dbs = {}
     for name, pkg in PACKAGES.items():
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_dtype=storage,
-                              storage_file=f"{tmp}/{name}", use_pallas=True)
+                              storage_file=f"{tmp}/{name}", use_pallas=True,
+                              **cpu_kw(pkg))
         if prequantized:
             if name == "jax":
                 quant = (jps.quantize_rows_i4 if storage == "int4"
@@ -377,7 +380,8 @@ def test_ingest_device_prequantized_matches(tmp_path, storage):
     for writer, reader in (("jax", "torch"), ("torch", "jax")):
         r = PACKAGES[reader].PicoVectorDB(
             embedding_dim=DIM, storage_dtype=storage,
-            storage_file=f"{tmp_path}/{writer}", use_pallas=True)
+            storage_file=f"{tmp_path}/{writer}", use_pallas=True,
+            **cpu_kw(PACKAGES[reader]))
         # listing order follows slot reuse, so compare by id
         a = {x[K_ID]: x for x in dbs[writer].get_all(include_vector=True)}
         b = {x[K_ID]: x for x in r.get_all(include_vector=True)}
@@ -406,7 +410,8 @@ def test_ingest_device_host_shadow_matches(tmp_path, storage):
 
 def test_ingest_device_rejects_bad_inputs(tmp_path):
     db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, storage_dtype="int4",
-                                        storage_file=str(tmp_path / "s"))
+                                        storage_file=str(tmp_path / "s"),
+                                        device="cpu")
     rows = torch.nn.functional.normalize(torch.randn(10, DIM), dim=1)
     v4, vs = tscan.quantize_rows_i4(rows)
     ids = [str(i) for i in range(10)]
@@ -435,7 +440,7 @@ def _fview_pair(tmp, n=9000):
     for name, pkg in PACKAGES.items():
         db = pkg.PicoVectorDB(embedding_dim=DIM, storage_file=f"{tmp}/{name}",
                               mixed_precision=True, int8_tier=True,
-                              use_pallas=True)
+                              use_pallas=True, **cpu_kw(pkg))
         db._dev.SEGMAX_MIN_CAP = 1024  # segmax otherwise needs 32k rows
         db.upsert_columnar(vecs, ids=[f"d{i}" for i in range(n)],
                            metadata=[{"tag": i % 2, "t5": i % 5}
@@ -500,9 +505,9 @@ def test_device_index_takes_the_jax_quantized_state(storage):
     jdev.full_upload(vecs, active)
     plane = np.asarray(jdev.vectors)[:n]
     scale = np.asarray(jdev.vstore_scale)[:n]
-    tdev = DeviceIndex(DIM, storage_dtype=storage, use_pallas=True)
+    tdev = DeviceIndex(DIM, storage_dtype=storage, use_pallas=True, device="cpu")
     tdev.from_numpy_state(plane, active, scale)
-    own = DeviceIndex(DIM, storage_dtype=storage, use_pallas=True)
+    own = DeviceIndex(DIM, storage_dtype=storage, use_pallas=True, device="cpu")
     own.full_upload(vecs, active)
     for dev in (tdev, own):
         np.testing.assert_array_equal(dev.vectors[:n].numpy(), plane)
