@@ -6,7 +6,9 @@
 Builds the hand-written kernels from `picovdb_tpu_torch/csrc`, checks each
 one against its plain PyTorch version on the card, then drives the serving
 paths through the public `PicoVectorDB` API and checks what comes back:
-a 1M x 1024 float32 store (phase 3), a 1M x 1024 int8 store with the
+a 1M x 1024 float32 store (phase 3), a 131,072 x 1020 float32 store whose
+rows TMA cannot read, served by K1's wmma tile (phase 3b), a 1M x 1024
+int8 store with the
 host-f64 rescore and a quantized checkpoint (phase 4), a device-born
 16M x 1024 int4 store (phase 5, an 8 GB packed plane), a 262,144 x 1024
 bfloat16 store (phase 6), the IVF tier's classic layout over a clustered
@@ -42,6 +44,7 @@ SEED = 1234
 DIM = 1024
 PHASE2_CAP = 131_072
 MAIN_N = 1_000_000  # float32 store, phase 3
+WMMA_N = 131_072  # float32 store at dim 1020, phase 3b (K1's wmma tile)
 I8_N = 1_000_000  # int8 store, phase 4
 I4_N = 1 << 24  # int4 store, phase 5: 16,777,216 rows, 8 GB packed
 I4_CHUNK = 262_144  # rows generated and quantized on the card at a time
@@ -62,9 +65,14 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 KERNELS = {
     # name: (launch-counter key, source, TPU kernel it replaces, the phase
-    # whose serving path must launch it)
-    "segmax_scan": ("segmax", "picovdb_tpu_torch/csrc/segmax.cu",
+    # whose serving path must launch it). K1 is two kernels: the TMA +
+    # wgmma mainloop (csrc/wgmma_bf16.cuh) wherever dim % 8 == 0, and the
+    # wmma tile it keeps for other widths, which phase 3b's dim-1020 store
+    # drives ("segmax_wmma": K1 launches less the wgmma ones).
+    "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
+    "segmax_scan_wmma": ("segmax_wmma", "picovdb_tpu_torch/csrc/segmax.cu",
+                         "picovdb_tpu/ops/pallas_scan.py:443", "3b"),
     "topk_packed_keys": ("topk_keys", "picovdb_tpu_torch/csrc/topk_keys.cu",
                          "picovdb_tpu/ops/pallas_scan.py:536", 3),
     "fused_topk_i8": ("scan_topk_i8", "picovdb_tpu_torch/csrc/scan_topk.cu",
@@ -165,7 +173,9 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         torch.from_numpy(rng.standard_normal((2048, dim), dtype=np.float32))
         .to(device))
     qb = q.to(torch.bfloat16)
+    before = scan.LAUNCHES["segmax_wgmma"]
     keys = scan.segmax_scan(qb, lp, mask)
+    assert scan.LAUNCHES["segmax_wgmma"] == before + 1, "K1 missed wgmma"
     keys_p = scan.segmax_scan_plain(qb, lp, mask)
     torch.cuda.synchronize()
     assert keys.shape == keys_p.shape, (keys.shape, keys_p.shape)
@@ -174,25 +184,32 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         f = scan._from_sortable(kk & ~(scan.SEG - 1)).view(torch.float32)
         return torch.where(kk == scan.KEY_MIN, 0.0, f)
 
-    assert torch.equal(keys == scan.KEY_MIN, keys_p == scan.KEY_MIN)
-    err1 = float((key_vals(keys) - key_vals(keys_p)).abs().max())
-    assert err1 <= 1e-4, f"segmax keys differ by {err1}"
-    tk, ti = scan.topk_packed_keys(keys, k + 6)
-    tk_p, ti_p = scan.topk_packed_keys_plain(keys, k + 6)
-    assert torch.equal(tk, tk_p), "topk_packed_keys keys differ"
-    assert torch.equal(torch.gather(keys, 1, ti.long()), tk), "bad columns"
-    err2 = float((key_vals(tk) - key_vals(tk_p)).abs().max())
+    def check_k1(keys, keys_p, qf, rows, what):
+        """KEY_MIN pattern equal, decoded values within 1e-4, K2 equal,
+        and the rows K2 picks (decoded (c // 2) * 128 + (key & 127))
+        rescoring equal to the plain slab's outside the TOL_GAP gap."""
+        assert torch.equal(keys == scan.KEY_MIN, keys_p == scan.KEY_MIN), what
+        err = float((key_vals(keys) - key_vals(keys_p)).abs().max())
+        assert err <= 1e-4, f"{what} keys differ by {err}"
+        tk, ti = scan.topk_packed_keys(keys, k + 6)
+        tk_p, _ = scan.topk_packed_keys_plain(keys, k + 6)
+        assert torch.equal(tk, tk_p), "topk_packed_keys keys differ"
+        assert torch.equal(torch.gather(keys, 1, ti.long()), tk), "bad columns"
 
-    def decode_rescore(tk, ti):
-        gidx = (ti // 2) * scan.SEG + (tk & (scan.SEG - 1))
-        empty = tk == scan.KEY_MIN
-        vals = torch.where(empty, float("-inf"), 0.0)
-        return scan.rescore_exact(q, corpus, vals, torch.where(empty, 0, gidx))
+        def decode_rescore(tk, ti):
+            gidx = (ti // 2) * scan.SEG + (tk & (scan.SEG - 1))
+            empty = tk == scan.KEY_MIN
+            vals = torch.where(empty, float("-inf"), 0.0)
+            return scan.rescore_exact(qf, rows, vals,
+                                      torch.where(empty, 0, gidx))
 
-    ex_k, id_k = decode_rescore(tk, ti)
-    ex_p, id_p = decode_rescore(*scan.topk_packed_keys_plain(keys_p, k + 6))
-    assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= TOL_SCORE
-    assert ids_agree(torch, id_k, id_p, ex_p, k) == 0.0
+        ex_k, id_k = decode_rescore(tk, ti)
+        ex_p, id_p = decode_rescore(*scan.topk_packed_keys_plain(keys_p, k + 6))
+        assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= TOL_SCORE, what
+        assert ids_agree(torch, id_k, id_p, ex_p, k) == 0.0, what
+        return err, float((key_vals(tk) - key_vals(tk_p)).abs().max())
+
+    err1, err2 = check_k1(keys, keys_p, q, corpus, "K1 (wgmma)")
     nq = q.shape[0]
     slab = nq * 2 * (cap // scan.SEG) * 4
     rec["segmax_scan"] = entry(
@@ -205,8 +222,33 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         slab + nq * (k + 6) * 8, 0, "int8",
         cuda_ms(torch, lambda: torch.topk(keys, k + 6, dim=1)))
     del keys, keys_p
-    log(f"phase 2: K1 segmax_scan + K2 topk_packed_keys agree at Q=2048 "
-        f"k={k} cap={cap} (K1 max |dkey value| {err1:.3g}, K2 exact)")
+    log(f"phase 2: K1 segmax_scan (TMA + wgmma) + K2 topk_packed_keys agree "
+        f"at Q=2048 k={k} cap={cap} (K1 max |dkey value| {err1:.3g}, K2 "
+        f"exact, rescored rows = plain outside the gap; K1 "
+        f"{rec['segmax_scan']['ms']:.4f} ms, plain "
+        f"{rec['segmax_scan']['plain_ms']:.4f} ms, bound "
+        f"{rec['segmax_scan']['bound_ms']:.4f} ms)")
+
+    # K1's retained wmma tile, at a width TMA cannot read (dim 1020, rows
+    # of 2040 bytes): the same checks, and its own row in the record
+    d2 = dim - 4
+    q2, c2 = normalize_on_device(q[:, :d2]), normalize_on_device(corpus[:, :d2])
+    q2b, lp2 = q2.to(torch.bfloat16), c2.to(torch.bfloat16)
+    before = dict(scan.LAUNCHES)
+    keys = scan.segmax_scan(q2b, lp2, mask)
+    assert scan.LAUNCHES["segmax"] == before["segmax"] + 1
+    assert scan.LAUNCHES["segmax_wgmma"] == before["segmax_wgmma"], "dim 1020"
+    keys_p = scan.segmax_scan_plain(q2b, lp2, mask)
+    torch.cuda.synchronize()
+    err_w, _ = check_k1(keys, keys_p, q2, c2, "K1 (wmma, dim 1020)")
+    rec["segmax_scan_wmma"] = entry(
+        err_w, cuda_ms(torch, lambda: scan.segmax_scan(q2b, lp2, mask)),
+        cuda_ms(torch, lambda: scan.segmax_scan_plain(q2b, lp2, mask)),
+        nq * d2 * 2 + live * d2 * 2 + cap + slab, 2 * nq * live * d2, "bf16")
+    del keys, keys_p, q2, c2, q2b, lp2
+    log(f"phase 2: K1's wmma tile agrees at dim {d2} Q=2048 cap={cap} (max "
+        f"|dkey value| {err_w:.3g}; {rec['segmax_scan_wmma']['ms']:.4f} ms, "
+        f"plain {rec['segmax_scan_wmma']['plain_ms']:.4f} ms)")
 
     # K5 over the int8 rows at Q = 2048, k = 10 (segmax_i8stor: k_sel 16).
     # The int32 sums are exact and each key is one float32 conversion and
@@ -268,7 +310,9 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
 
     got = probes.dot_rowmax(q8c, v8c)
     assert torch.equal(got, probes.dot_rowmax_plain(q8c, v8c)), "P1 int8"
+    before = scan.LAUNCHES["dot_rowmax_wgmma"]
     got = probes.rowmax_value(probes.dot_rowmax(qb, lp))
+    assert scan.LAUNCHES["dot_rowmax_wgmma"] == before + 1, "P1 missed wgmma"
     ref = probes.rowmax_value(probes.dot_rowmax_plain(qb, lp))
     torch.cuda.synchronize()
     err_p1 = float((got - ref).abs().max())
@@ -280,7 +324,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         cuda_ms(torch, lambda: torch.matmul(qb, lp.T)))
     p1_i8 = cuda_ms(torch, lambda: probes.dot_rowmax(q8c, v8c))
     int_mm = cuda_ms(torch, lambda: torch._int_mm(q8c, v8c.T))
-    log(f"phase 2: P1 dot_rowmax agrees at Q=2048 cap={cap}: bf16 "
+    log(f"phase 2: P1 dot_rowmax agrees at Q=2048 cap={cap}: bf16 (wgmma) "
         f"{rec['dot_rowmax']['ms']:.4f} ms (max |d| {err_p1:.3g}; torch.matmul "
         f"{rec['dot_rowmax']['library_ms']:.4f} ms), int8 {p1_i8:.4f} ms "
         f"(bit for bit; torch._int_mm {int_mm:.4f} ms)")
@@ -554,6 +598,7 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str,
     """The serving path through the public API on an n x dim store
     (`db_kwargs` go to every PicoVectorDB this phase builds)."""
     from picovdb_tpu_torch import K_ID, PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
 
     corpus = rng.standard_normal((n, dim), dtype=np.float32)
     ids = [f"v{i}" for i in range(n)]
@@ -638,6 +683,14 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str,
     for name, (key, _, _, phase) in KERNELS.items():
         if phase == 3:
             assert counts[key] > 0, f"{name} never launched on the main path"
+    # K1 alone at one 2048-query chunk on the store's own mirror (after the
+    # count: not the path's), beside the chunk's wall time
+    dev = db._dev
+    qb = normalize_on_device(qdev[:2048]).to(torch.bfloat16)
+    k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(qb, dev.vectors_lp,
+                                                    dev.active))
+    chunk_ms = batch_s / 4 * 1e3
+    del qb
     log(f"phase 3: main path at {n} x {dim}: routes segmax_mixed_stream, "
         f"i8_fused_smallq, fview_segmax, mixed_fused_batch_filtered, "
         f"mixed_fused_batch; recall@10 {recall:.4f} vs float64 (filter view "
@@ -656,10 +709,46 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str,
     assert after == before, "reloaded store answers differently"
     log("phase 3: save + reload ok (same ids)")
     log(f"phase 3: insert {n / insert_s:.1f} vec/s; batch "
-        f"{8192 / batch_s:.1f} QPS (query_columnar, 8192 queries); Q=1 "
-        f"latency {q1_ms:.4f} ms (CUDA events around PicoVectorDB.query); "
-        f"card {card}")
+        f"{8192 / batch_s:.1f} QPS (query_columnar, 8192 queries); a "
+        f"2048-query chunk {chunk_ms:.3f} ms of wall, K1 {k1_ms:.4f} ms of it "
+        f"({100 * k1_ms / chunk_ms:.1f} %, CUDA events on the store's "
+        f"{dev.vectors_lp.shape[0]}-row bf16 mirror); Q=1 latency "
+        f"{q1_ms:.4f} ms (CUDA events around PicoVectorDB.query); card {card}")
     shutil.rmtree(tmp)
+    return counts
+
+
+def phase_wmma_store(torch, scan, device, n: int, dim: int, rng,
+                     **db_kwargs):
+    """A float32 store whose width TMA cannot read (dim % 8 != 0): its
+    2048-query chunks take segmax_mixed_stream through K1's wmma tile;
+    recall@10 against a float64 oracle."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    corpus = rng.standard_normal((n, dim), dtype=np.float32)
+    near = corpus[rng.integers(0, n, 2048)]
+    qdev = torch.from_numpy(
+        near + 0.01 * rng.standard_normal(near.shape, dtype=np.float32)
+    ).to(device)
+    scan.reset_launch_counts()  # count this path's launches only
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(os.getcwd(), "picovdb_smoke_w"),
+                      **db_kwargs)
+    db.upsert_columnar(corpus, ids=[f"w{i}" for i in range(n)], copy=False)
+    got, _ = db.query_columnar(qdev, top_k=10, batch_size=2048)
+    assert db.last_query_debug()["strategy"] == "segmax_mixed_stream"
+    counts = dict(scan.LAUNCHES)
+    counts["segmax_wmma"] = counts["segmax"] - counts["segmax_wgmma"]
+    assert counts["segmax_wmma"] > 0 and counts["segmax_wgmma"] == 0, counts
+    truth = oracle_top10(torch, torch.from_numpy(corpus).to(device),
+                         qdev[:64], torch.ones(n, dtype=torch.bool,
+                                               device=device))
+    recall = recall_at_10(got[:64], truth, "w")
+    assert recall >= 0.99, recall
+    log(f"phase 3b: a {n} x {dim} float32 store (bf16 mirror rows of "
+        f"{dim * 2} bytes, not a multiple of 16): route segmax_mixed_stream through "
+        f"K1's wmma tile, recall@10 {recall:.4f} vs float64; launches {counts}")
+    del db
     return counts
 
 
@@ -1471,6 +1560,8 @@ def main() -> int:
     rec = phase_kernels(torch, scan, device, PHASE2_CAP, DIM, rng)
     phase_ivf_kernels(torch, scan, device, PHASE2_CAP, DIM, rng, rec)
     counts = {3: phase_main(torch, scan, device, MAIN_N, DIM, rng, card)}
+    torch.cuda.empty_cache()
+    counts["3b"] = phase_wmma_store(torch, scan, device, WMMA_N, DIM - 4, rng)
     torch.cuda.empty_cache()
     counts[4] = phase_int8(torch, scan, device, I8_N, DIM, rng, card)
     torch.cuda.empty_cache()

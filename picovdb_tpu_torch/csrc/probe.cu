@@ -4,12 +4,16 @@
 // Replaces the Pallas kernel `dot_only` of bench/segmax_sweep_probe.py
 // (`_dot_kernel`, `_dot_kernel_i8`), which times the matrix product of the
 // batch segmax sweep at K1's tiling without its epilogue. Here the product
-// is K1's / K5's score tile (tiles.cuh: 64 queries x one 128-row segment per
-// block, bf16 wmma -> f32 or int8 mma.sync -> s32), and the epilogue keeps
-// only each query's maximum over all rows: the warp's maximum of the
-// block's tile row, combined across blocks by atomicMax on the sortable key
-// (float32: to_sortable of its bits; int8: the int32 sum itself) into a
-// (Q,) int32 output that the caller fills with KEY_MIN first.
+// is K1's: for bf16 with dim % 8 == 0 the persistent TMA + wgmma mainloop
+// of wgmma_bf16.cuh (128 queries x 256 rows per tile), whose epilogue
+// `RowmaxTileEpi` keeps each query's maximum over the tile in registers
+// (a thread's 64 scores of the row, then its quad by shuffles); for int8,
+// and bf16 at other widths, K5's / K1's first score tile (tiles.cuh: 64
+// queries x one 128-row segment per block, mma.sync s8 -> s32 or wmma bf16
+// -> f32) and a warp's maximum of each tile row. Either way the maxima
+// combine across blocks by atomicMax on the sortable key (float32:
+// to_sortable of its bits; int8: the int32 sum itself) into a (Q,) int32
+// output that the caller fills with KEY_MIN first.
 //
 // This deviates from the TPU kernel, which keeps only the maximum of its
 // last corpus tile, a guard against dead-code elimination. Over all rows
@@ -21,9 +25,44 @@
 // measures: the time K1 / K5 / K10 would take with a free epilogue.
 
 #include "tiles.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace pv {
 namespace {
+
+// P1's epilogue on the wgmma accumulators (layout: wgmma_bf16.cuh): per
+// row the largest sortable key over the tile's columns inside cap (cap %
+// 256 == 128 leaves a last tile's second segment out), the quad's
+// maximum, one atomicMax per row below Q.
+struct RowmaxTileEpi {
+  int* __restrict__ out;
+
+  __device__ __forceinline__ void tile(float (&acc)[wg::ACC], int q0, long r0,
+                                       int Q, long cap) const {
+    const int lane = threadIdx.x % 32;
+    const int row = q0 + 64 * (threadIdx.x / 128) +
+                    16 * ((threadIdx.x / 32) % 4) + lane / 4;
+    const int nseg = r0 + SEG < cap ? 2 : 1;  // uniform across the CTA
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int m = KEY_MIN;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (s >= nseg) break;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            m = max(m, to_sortable(__float_as_int(
+                           acc[4 * (16 * s + j) + 2 * h + e])));
+      }
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const int q = row + 8 * h;
+      if (lane % 4 == 0 && q < Q) atomicMax(&out[q], m);
+    }
+  }
+};
 
 // The block's (BQ, 128) tile -> per query the maximum key, one warp per
 // query row, merged into out[qi] with atomicMax.
@@ -95,4 +134,16 @@ extern "C" int pv_dot_rowmax(int kind, const void* q, const void* v,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// P1's bf16 kind on the TMA + wgmma mainloop: pv_dot_rowmax's kind 0
+// contract, for dim % 8 == 0 and 16-byte aligned q and v. Returns 0, a
+// cudaError_t, or minus the CUresult of a refused tensor-map encode.
+extern "C" int pv_dot_rowmax_wgmma(const void* q, const void* v, void* out,
+                                   int Q, long long cap, int dim,
+                                   void* stream) {
+  using namespace pv;
+  if (cap % SEG) return (int)cudaErrorInvalidValue;
+  return wg::launch_bf16_tiles(q, v, RowmaxTileEpi{static_cast<int*>(out)}, Q,
+                               cap, dim, (cudaStream_t)stream);
 }

@@ -13,23 +13,94 @@
 // What bounds it on the H100: at the main-path shape (Q = 2048 per chunk,
 // 1M x 1024 bf16 mirror) it is a 4.3 TFLOP matrix product whose output is
 // 2/128 of the score matrix, so it is bound by tensor-core throughput,
-// not by bytes. The design keeps the score tile out of device memory:
-// one block scores 64 queries x one 128-row segment with mma.sync (wmma
-// bf16 16x16x16 -> f32) from shared-memory tiles, and reduces the tile to
-// its two keys per query in the epilogue (one warp per query row, warp
-// shuffles). Blocks carry no state, so the TPU's two grid orders
+// not by bytes. Where TMA can read the operands (dim % 8 == 0, 16-byte
+// aligned bases) the product is the persistent TMA + wgmma mainloop of
+// wgmma_bf16.cuh (128 queries x 256 rows per tile, a 4-stage ring, two
+// consumer warpgroups), and `SegmaxTileEpi` reduces each thread's
+// accumulator registers to the two keys per query and segment: the
+// thread's top 2 of its 32 scores, merged across the quad of lanes that
+// share the row by shuffles. No score leaves the registers. Other widths
+// keep the first kernel, `segmax_kernel`: one block scores 64 queries x
+// one 128-row segment with wmma bf16 16x16x16 from unpipelined
+// shared-memory tiles (tiles.cuh) and reduces the tile in shared memory.
+// Neither carries state between tiles, so the TPU's two grid orders
 // (classic / stream) are the same launch here; query tiles vary fastest
 // so the blocks reading one segment run together and share it in L2.
-// A first, simple kernel: no TMA, no wgmma, no pipelining yet.
 //
-// K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are the same kernel
+// K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are the wmma kernel
 // over a per-row int8 corpus and over the column-scaled int8 mirror. The
-// score tiles live in tiles.cuh, shared with the dot-floor probe P1.
+// wmma and mma.sync score tiles live in tiles.cuh, shared with K8 and the
+// dot-floor probe P1, whose bf16 kind also runs on wgmma_bf16.cuh.
 
 #include "tiles.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace pv {
 namespace {
+
+// K1's epilogue on the wgmma accumulators (layout: wgmma_bf16.cuh). For
+// each of its two rows and each segment of the tile that lies inside cap
+// (cap % 256 == 128 leaves a last tile's second segment out), a thread
+// packs its 32 scores of the segment (key (to_sortable(bits) & ~127) |
+// lane, KEY_MIN for masked rows after packing, as segment_top2 and the TPU
+// kernel do), keeps its top 2, merges them with the three other lanes of
+// its quad and the quad leader writes keys[q, 2 seg] and [q, 2 seg + 1].
+// Rows past Q write nothing.
+struct SegmaxTileEpi {
+  const uint8_t* __restrict__ mask;
+  int* __restrict__ keys;
+  long ncol;  // 2 * cap / 128
+
+  __device__ __forceinline__ void tile(float (&acc)[wg::ACC], int q0, long r0,
+                                       int Q, long cap) const {
+    const int lane = threadIdx.x % 32, quad = lane % 4;
+    const int row = q0 + 64 * (threadIdx.x / 128) +
+                    16 * ((threadIdx.x / 32) % 4) + lane / 4;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const long seg = r0 / SEG + s;
+      if (seg * SEG >= cap) break;  // uniform across the CTA
+      uint32_t live = 0;  // bit 2 j + e: segment lane 8 j + 2 quad + e
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          live |= (uint32_t)(mask[seg * SEG + 8 * j + 2 * quad + e] != 0)
+                  << (2 * j + e);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int m1 = KEY_MIN, m2 = KEY_MIN;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float sc = acc[4 * (16 * s + j) + 2 * h + e];
+            int key = (to_sortable(__float_as_int(sc)) & ~(SEG - 1)) |
+                      (8 * j + 2 * quad + e);
+            if (!((live >> (2 * j + e)) & 1u)) key = KEY_MIN;
+            if (key > m1) {
+              m2 = m1;
+              m1 = key;
+            } else if (key > m2) {
+              m2 = key;
+            }
+          }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const int o1 = __shfl_xor_sync(0xffffffffu, m1, off);
+          const int o2 = __shfl_xor_sync(0xffffffffu, m2, off);
+          const int n2 = max(min(m1, o1), max(m2, o2));
+          m1 = max(m1, o1);
+          m2 = n2;
+        }
+        const int q = row + 8 * h;
+        if (quad == 0 && q < Q)
+          *reinterpret_cast<int2*>(keys + (long)q * ncol + 2 * seg) =
+              make_int2(m1, m2);
+      }
+    }
+  }
+};
 
 // Epilogue of K1, K5 and K10: the block's (BQ, 128) score tile in shared
 // memory -> each query's two largest packed keys of the segment. Scores are
@@ -112,7 +183,8 @@ segmax_kernel(const __nv_bfloat16* __restrict__ q,
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:segmax_scan_i8
 // (`_segmax_kernel_i8`). The block shape, output layout and epilogue are
-// K1's; the product is s8 x s8 -> s32 on the tensor cores with
+// those of K1's wmma kernel; the product is s8 x s8 -> s32 on the tensor
+// cores with
 // mma.sync.m16n8k32 (fragments loaded by hand from shared memory: each
 // thread's A and B registers are 4 consecutive bytes of one row, so every
 // fragment register is one 32-bit shared load), and the epilogue scales
@@ -122,8 +194,9 @@ segmax_kernel(const __nv_bfloat16* __restrict__ q,
 // 1024-wide rows) it is a 4.3 TOP integer product whose output is 2/128 of
 // the score matrix, bound by tensor-core issue rate as K1 is; the corpus
 // is 1 B/element, half of K1's bf16 mirror, but this first kernel feeds
-// the tensor cores from unpipelined shared-memory tiles like K1, so it
-// should run near K1's time, not half of it. No TMA, no wgmma yet.
+// the tensor cores from unpipelined shared-memory tiles (tiles.cuh), so it
+// runs at half the wmma K1's time, far from K1's TMA + wgmma mainloop. No
+// TMA, no wgmma yet.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
@@ -326,6 +399,19 @@ extern "C" int pv_segmax_scan(const void* q, const void* v, const void* mask,
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
       static_cast<int*>(keys), Q, (long)cap, dim, q_tiles);
   return (int)cudaGetLastError();
+}
+
+// K1 on the TMA + wgmma mainloop: pv_segmax_scan's contract, for dim % 8
+// == 0 and 16-byte aligned q and v. Returns 0, a cudaError_t, or minus the
+// CUresult of a refused tensor-map encode.
+extern "C" int pv_segmax_scan_wgmma(const void* q, const void* v,
+                                    const void* mask, void* keys, int Q,
+                                    long long cap, int dim, void* stream) {
+  using namespace pv;
+  if (cap % SEG) return (int)cudaErrorInvalidValue;
+  const SegmaxTileEpi epi{static_cast<const uint8_t*>(mask),
+                          static_cast<int*>(keys), (long)(2 * (cap / SEG))};
+  return wg::launch_bf16_tiles(q, v, epi, Q, cap, dim, (cudaStream_t)stream);
 }
 
 // q (Q, dim) int8, v (cap, dim) int8 with cap % 128 == 0, vscale (cap,)

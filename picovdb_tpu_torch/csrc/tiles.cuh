@@ -1,8 +1,12 @@
-// Score tiles shared by the segment kernels (K1, K5, K8, K10) and the
+// The first, unpipelined score tiles of the segment kernels and the
 // dot-floor probe P1: one block scores BQ = 64 queries against one 128-row
-// corpus segment from shared-memory tiles on the tensor cores (bf16 wmma
-// 16x16x16 -> f32, or int8 mma.sync m16n8k32 -> s32) and leaves the
-// (BQ, 128) score tile in shared memory for the caller's epilogue.
+// corpus segment from shared-memory tiles that all 256 threads load with
+// synchronous 16-byte copies, on the tensor cores (bf16 wmma 16x16x16 ->
+// f32, or int8 mma.sync m16n8k32 -> s32), and leaves the (BQ, 128) score
+// tile in shared memory for the caller's epilogue. The int8 tile serves
+// K5, K10, K8's int8 kind and P1's int8 kind; the bf16 tile serves K8's
+// bf16 kind and K1 / P1-bf16 at widths TMA cannot read (dim % 8 != 0).
+// K1 and P1-bf16 otherwise run the TMA + wgmma mainloop of wgmma_bf16.cuh.
 #pragma once
 
 #include <mma.h>
@@ -25,7 +29,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           long row0, long nrows, int rows,
                                           int k0, int dim, bool vec) {
-  if (vec) {  // dim % 8 == 0: 16-byte loads
+  if (vec) {  // 16-byte aligned rows: 16-byte loads
     constexpr int VPR = KC / 8;
     for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
       int r = i / VPR, c = (i % VPR) * 8;
@@ -59,7 +63,8 @@ __device__ __forceinline__ void score_tile_bf16(
   float* Ss = reinterpret_cast<float*>(smem);
   const int warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;
-  const bool vec = (dim % 8) == 0;
+  // 16-byte loads need 16-byte rows and bases (a view may start anywhere)
+  const bool vec = dim % 8 == 0 && ((uintptr_t)q | (uintptr_t)v) % 16 == 0;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
 #pragma unroll
@@ -100,7 +105,7 @@ constexpr int LDA8 = KC8 + 16;  // padded row (bytes): 36 words, so the 8
 __device__ __forceinline__ void load_tile_i8(int8_t* dst, const int8_t* src,
                                              long row0, long nrows, int rows,
                                              int k0, int dim, bool vec) {
-  if (vec) {  // dim % 16 == 0: 16-byte loads
+  if (vec) {  // 16-byte aligned rows: 16-byte loads
     constexpr int VPR = KC8 / 16;
     for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
       int r = i / VPR, c = (i % VPR) * 16;
@@ -137,7 +142,7 @@ __device__ __forceinline__ void score_tile_i8(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 2, wn = warp % 2;  // 16 queries x 64 rows per warp
   const int g = lane >> 2, t = lane & 3;   // mma groupID, thread in group
-  const bool vec = (dim % 16) == 0;
+  const bool vec = dim % 16 == 0 && ((uintptr_t)q | (uintptr_t)v) % 16 == 0;
 
   int acc[8][4];
 #pragma unroll

@@ -36,8 +36,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # q, v, mask, keys, Q, cap, dim, stream
+    # q, v, mask, keys, Q, cap, dim, stream (K1: the wmma tile, and the
+    # TMA + wgmma mainloop)
     "pv_segmax_scan": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "pv_segmax_scan_wgmma": [_P, _P, _P, _P, _I, _L, _I, _P],
     # q, v, vscale, mask, keys, Q, cap, dim, stream
     "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     # q, v, mask, keys, Q, cap, dim, stream (K10)
@@ -57,6 +59,8 @@ _SIGNATURES = {
     "pv_ivf_segmax": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
     # kind (0 bf16, 1 int8), q, v, out, Q, cap, dim, stream (P1)
     "pv_dot_rowmax": [_I, _P, _P, _P, _I, _L, _I, _P],
+    # q, v, out, Q, cap, dim, stream (P1 bf16 on the wgmma mainloop)
+    "pv_dot_rowmax_wgmma": [_P, _P, _P, _I, _L, _I, _P],
 }
 
 
@@ -147,6 +151,10 @@ def library() -> ctypes.CDLL:
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+    """Raise if a launcher returned an error: a cudaError_t, or (negative)
+    minus the CUresult of a refused TMA tensor-map encode."""
+    if err < 0:
+        raise RuntimeError(
+            f"{what}: cuTensorMapEncodeTiled failed: CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError_t {err}")

@@ -7,6 +7,7 @@ hand-written CUDA kernels (`csrc/`) take the place of the eight Pallas
 kernels those paths run:
 
   K1 `segmax_scan`      csrc/segmax.cu     per-128-row-segment top-2 keys
+                        (product: csrc/wgmma_bf16.cuh, see `wgmma_ready`)
   K2 `topk_packed_keys` csrc/topk_keys.cu  per-query top-k_sel of the keys
   K3 `fused_topk_i8`    csrc/scan_topk.cu  exact top-k over per-row int8
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
@@ -49,11 +50,13 @@ SEG = 128  # rows per segmax segment
 
 # Kernel launches made through the wrappers, by kernel. Comparing a kernel
 # with its plain version does not go through a wrapper's counted path.
-LAUNCHES = {"segmax": 0, "topk_keys": 0, "scan_topk": 0, "scan_topk_i8": 0,
-            "segmax_i8": 0, "scan_topk_i4": 0,
+# "segmax" and "dot_rowmax" count K1 / P1 on either product; the "_wgmma"
+# keys count the TMA + wgmma mainloop alone (see `wgmma_ready`).
+LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "topk_keys": 0, "scan_topk": 0,
+            "scan_topk_i8": 0, "segmax_i8": 0, "scan_topk_i4": 0,
             "ivf_scan_topk": 0, "ivf_segmax": 0,  # K7, K8: ops/ivf.py
             "scan_topk_i8c": 0, "segmax_i8c": 0,
-            "dot_rowmax": 0}  # P1: probes.py
+            "dot_rowmax": 0, "dot_rowmax_wgmma": 0}  # P1: probes.py
 # Requests whose k_sel exceeded SCAN_KSEL_MAX and went to the plain exact
 # scan instead of K3/K4/K6 (the JAX package's `k > bn` fallback).
 WIDE_K_FALLBACKS = {"scan_topk": 0, "scan_topk_i8": 0, "scan_topk_i4": 0}
@@ -297,6 +300,15 @@ def _require(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    """Whether K1 / P1-bf16 run the TMA + wgmma mainloop
+    (csrc/wgmma_bf16.cuh) on these contiguous bf16 operands: TMA needs a
+    row stride that is a multiple of 16 bytes (dim % 8 == 0) and 16-byte
+    aligned bases. Otherwise they run the wmma tile (csrc/tiles.cuh)."""
+    return (queries.shape[1] % 8 == 0 and queries.data_ptr() % 16 == 0
+            and vectors.data_ptr() % 16 == 0)
+
+
 def _segmax_checks(name, queries, vectors, mask):
     num_q, dim = queries.shape
     cap = vectors.shape[0]
@@ -329,11 +341,14 @@ def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
              "segmax_scan: vectors and mask must be contiguous")
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
                        device=q.device)
-    err = _build.library().pv_segmax_scan(
-        q.data_ptr(), vectors.data_ptr(), mask.data_ptr(), keys.data_ptr(),
-        num_q, cap, dim, _stream(q))
+    wgmma = wgmma_ready(q, vectors)
+    launch = (_build.library().pv_segmax_scan_wgmma if wgmma
+              else _build.library().pv_segmax_scan)
+    err = launch(q.data_ptr(), vectors.data_ptr(), mask.data_ptr(),
+                 keys.data_ptr(), num_q, cap, dim, _stream(q))
     _build.check(err, "segmax_scan")
     LAUNCHES["segmax"] += 1
+    LAUNCHES["segmax_wgmma"] += wgmma
     return keys
 
 

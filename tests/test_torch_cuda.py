@@ -6,7 +6,10 @@ present (the CPU test runs), and runs on the card with
     python -m pytest tests/test_torch_cuda.py -q
 
 Shapes are small; `chip_smoke.py` checks the same kernels at the main
-path's shapes. Tolerances: K5 / K10 keys, K9 and P1 int8 results and
+path's shapes. K1's keys (either product: the TMA + wgmma mainloop at
+dim % 8 == 0, the wmma tile otherwise) decode within 1e-4 of the plain
+version's, and the rows K2 picks from them rescore equal to the plain
+version's outside a 1e-4 k/k+1 gap. Tolerances: K5 / K10 keys, K9 and P1 int8 results and
 int8 / int4 scores are exact (integer sums, at most one float32
 conversion and one multiply); float32 / bf16 scores within 1e-5
 (summation order). K8's float keys also within 1e-5:
@@ -45,24 +48,88 @@ def _data(dev, cap=8192, dim=96, nq=16, seed=0):
 # load paths (dim not a multiple of 8, 4 or 2)
 DIMS = [96, 50]
 
+# K1 cases (dim, Q, cap): dims that are multiples of 8 run the TMA + wgmma
+# mainloop (1024: 16 full k-stages; 768; 96: a half-filled second stage),
+# 50 the wmma tile. Q = 17 and 200 leave a partial 128-query tile, 2048 is
+# the serving chunk; cap % 256 == 128 (8320, 4224) leaves the last tile's
+# second segment past the end.
+SEGMAX_CASES = [(96, 200, 8192), (50, 200, 8192), (1024, 17, 8320),
+                (768, 200, 4224), (1024, 2048, 16384), (96, 2048, 8320),
+                (50, 17, 4224)]
 
-@pytest.mark.parametrize("dim", DIMS)
-def test_segmax_and_topk_keys(dev, dim):
-    q, v, mask = _data(dev, dim=dim, nq=200)
+
+def _dec(keys):
+    return scan._from_sortable(keys & ~127).view(torch.float32)
+
+
+def _decode_rescore(q, v, keys, k_sel):
+    """K2's top-k_sel of a key slab, rows decoded as (c // 2) * 128 +
+    (key & 127), rescored exactly against the float32 rows."""
+    tk, tc = scan.topk_packed_keys(keys, k_sel)
+    rows = (tc // 2) * scan.SEG + (tk & (scan.SEG - 1))
+    empty = tk == scan.KEY_MIN
+    vals = torch.where(empty, float("-inf"), 0.0)
+    return scan.rescore_exact(q, v, vals, torch.where(empty, 0, rows))
+
+
+@pytest.mark.parametrize("dim,nq,cap", SEGMAX_CASES)
+def test_segmax_and_topk_keys(dev, dim, nq, cap):
+    """K1 against its plain version: the same KEY_MIN pattern (fully
+    masked segments included), decoded values within 1e-4 (bf16 products
+    summed in another order), K2 equal on both slabs, and the decoded,
+    rescored rows equal wherever the k-th/(k+1)-th exact gap exceeds 1e-4
+    (a wrong lane or column mapping fails here, not in the values)."""
+    q, v, mask = _data(dev, cap=cap, dim=dim, nq=nq)
+    mask[128:256] = False  # a fully masked segment, and the last one
+    mask[cap - 128:] = False
     qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
-    before = scan.LAUNCHES["segmax"]
+    before = dict(scan.LAUNCHES)
     keys = scan.segmax_scan(qb, vb, mask)
-    assert scan.LAUNCHES["segmax"] == before + 1
+    assert scan.LAUNCHES["segmax"] == before["segmax"] + 1
+    assert (scan.LAUNCHES["segmax_wgmma"] - before["segmax_wgmma"]
+            == (dim % 8 == 0))
     ref = scan.segmax_scan_plain(qb, vb, mask)
     torch.cuda.synchronize()
-    dec = lambda k: scan._from_sortable(k & ~127).view(torch.float32)  # noqa: E731
+    assert keys.shape == ref.shape == (nq, 2 * cap // scan.SEG)
     live = keys != scan.KEY_MIN
     assert torch.equal(live, ref != scan.KEY_MIN)
-    assert float((dec(keys)[live] - dec(ref)[live]).abs().max()) <= 1e-4
+    assert not bool(live[:, 2:4].any()) and not bool(live[:, -2:].any())
+    assert float((_dec(keys)[live] - _dec(ref)[live]).abs().max()) <= 1e-4
     tk, tc = scan.topk_packed_keys(keys, 16)
     rk, _ = scan.topk_packed_keys_plain(keys, 16)
     assert torch.equal(tk, rk)
     assert torch.equal(torch.gather(keys, 1, tc.long()), tk)
+    tk, _ = scan.topk_packed_keys(ref, 16)
+    assert torch.equal(tk, scan.topk_packed_keys_plain(ref, 16)[0])
+    k = 10
+    ex_k, id_k = _decode_rescore(q, v, keys, k + 6)
+    ex_p, id_p = _decode_rescore(q, v, ref, k + 6)
+    assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= 1e-5
+    gap = (ex_p[:, k - 1] - ex_p[:, k]).cpu()
+    a, b = id_k[:, :k].cpu(), id_p[:, :k].cpu()
+    for i in range(nq):
+        if gap[i] > 1e-4:
+            assert set(a[i].tolist()) == set(b[i].tolist()), i
+    assert bool(mask[id_k[:, :k].long()].all())
+
+
+def test_segmax_misaligned_view_takes_wmma(dev):
+    """A bf16 corpus whose base is 2 bytes off a 16-byte boundary: TMA
+    cannot read it, so K1 runs the wmma tile, with the same keys."""
+    q, v, mask = _data(dev, cap=4096, dim=96, nq=64)
+    qb = q.to(torch.bfloat16)
+    flat = torch.empty(v.numel() + 8, dtype=torch.bfloat16, device=dev)
+    vb = flat[1:1 + v.numel()].view(v.shape)
+    vb.copy_(v)
+    assert not scan.wgmma_ready(qb, vb)
+    before = scan.LAUNCHES["segmax_wgmma"]
+    keys = scan.segmax_scan(qb, vb, mask)
+    assert scan.LAUNCHES["segmax_wgmma"] == before
+    ref = scan.segmax_scan(qb, v.to(torch.bfloat16), mask)
+    torch.cuda.synchronize()
+    live = keys != scan.KEY_MIN
+    assert torch.equal(live, ref != scan.KEY_MIN)
+    assert float((_dec(keys)[live] - _dec(ref)[live]).abs().max()) <= 1e-4
 
 
 @pytest.mark.parametrize("dim", DIMS)
@@ -316,20 +383,25 @@ def test_segmax_scan_i8c_keys_exact(dev, dim):
     assert torch.equal(keys, ref)
 
 
-@pytest.mark.parametrize("dim", DIMS + [1024])
-def test_dot_rowmax(dev, dim):
+@pytest.mark.parametrize("dim,nq,cap", [(96, 130, 8192), (50, 130, 8192),
+                                        (1024, 130, 8192), (768, 17, 4224),
+                                        (1024, 2048, 8320)])
+def test_dot_rowmax(dev, dim, nq, cap):
     """P1: int8 row maxima bit for bit; bf16 maxima within 1e-5 (float32
-    sums of exact bf16 products, in another order)."""
+    sums of exact bf16 products, in another order), through the TMA +
+    wgmma mainloop wherever dim % 8 == 0."""
     from picovdb_tpu_torch import probes
 
-    q, v, _ = _data(dev, dim=dim, nq=130)
+    q, v, _ = _data(dev, cap=cap, dim=dim, nq=nq)
     q8, v8 = scan.quantize_rows_i8(q)[0], scan.quantize_rows_i8(v)[0]
-    before = scan.LAUNCHES["dot_rowmax"]
+    before = dict(scan.LAUNCHES)
     got = probes.dot_rowmax(q8, v8)
-    assert scan.LAUNCHES["dot_rowmax"] == before + 1
+    assert scan.LAUNCHES["dot_rowmax"] == before["dot_rowmax"] + 1
     assert torch.equal(got, probes.dot_rowmax_plain(q8, v8))
     qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
     got = probes.rowmax_value(probes.dot_rowmax(qb, vb))
+    assert (scan.LAUNCHES["dot_rowmax_wgmma"] - before["dot_rowmax_wgmma"]
+            == (dim % 8 == 0))
     ref = probes.rowmax_value(probes.dot_rowmax_plain(qb, vb))
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-5
