@@ -1,5 +1,10 @@
 // The bf16 product of K1 segmax_scan and of P1 dot_rowmax's bf16 kind:
 // one persistent, warp-specialised mainloop on Hopper's TMA and wgmma.
+// Both replace picovdb_tpu's Pallas products (`_segmax_kernel` in
+// ops/pallas_scan.py, `_dot_kernel` in bench/segmax_sweep_probe.py) and
+// are bound by the tensor cores (2 Q cap dim operations against operands
+// read about once), so the design keeps them fed: copies run ahead of
+// the products and the epilogue never leaves the registers.
 //
 // A CTA holds three warpgroups. Warpgroup 2 is the producer: one elected
 // thread keeps a ring of STAGES shared-memory stages filled with TMA
@@ -28,7 +33,7 @@
 // dim % 8 == 0; other widths take the wmma tile of tiles.cuh.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda call is linked
 
 #include <algorithm>
 
@@ -255,7 +260,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// 0, or a cudaError_t when the driver has no cuTensorMapEncodeTiled.
+// 0, or a cudaError_t when libcuda has no cuTensorMapEncodeTiled.
 inline int encoder(EncodeTiled* out) {
   static EncodeTiled fn = nullptr;
   if (!fn) {
