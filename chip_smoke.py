@@ -153,6 +153,41 @@ def exact_err(torch, got, ref) -> float:
     return float((g[fin] - r[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def key_values(torch, scan, kk):
+    """Decoded float32 values of packed keys, 0 where a key is KEY_MIN."""
+    f = scan._from_sortable(kk & ~(scan.SEG - 1)).view(torch.float32)
+    return torch.where(kk == scan.KEY_MIN, 0.0, f)
+
+
+def check_segmax_keys(torch, scan, keys, keys_p, qf, rows, k: int, what):
+    """K1's keys against the plain slab: KEY_MIN pattern equal, decoded
+    values within 1e-4, K2 (k_sel = k + 6) equal to its plain version, and
+    the rows K2 picks (decoded (c // 2) * 128 + (key & 127)) rescoring
+    equal to the plain slab's outside the TOL_GAP gap. Returns K1's and
+    K2's max |dkey value|."""
+    assert torch.equal(keys == scan.KEY_MIN, keys_p == scan.KEY_MIN), what
+    err = float((key_values(torch, scan, keys)
+                 - key_values(torch, scan, keys_p)).abs().max())
+    assert err <= 1e-4, f"{what} keys differ by {err}"
+    tk, ti = scan.topk_packed_keys(keys, k + 6)
+    tk_p, _ = scan.topk_packed_keys_plain(keys, k + 6)
+    assert torch.equal(tk, tk_p), "topk_packed_keys keys differ"
+    assert torch.equal(torch.gather(keys, 1, ti.long()), tk), "bad columns"
+
+    def decode_rescore(tk, ti):
+        gidx = (ti // 2) * scan.SEG + (tk & (scan.SEG - 1))
+        empty = tk == scan.KEY_MIN
+        vals = torch.where(empty, float("-inf"), 0.0)
+        return scan.rescore_exact(qf, rows, vals, torch.where(empty, 0, gidx))
+
+    ex_k, id_k = decode_rescore(tk, ti)
+    ex_p, id_p = decode_rescore(*scan.topk_packed_keys_plain(keys_p, k + 6))
+    assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= TOL_SCORE, what
+    assert ids_agree(torch, id_k, id_p, ex_p, k) == 0.0, what
+    return err, float((key_values(torch, scan, tk)
+                       - key_values(torch, scan, tk_p)).abs().max())
+
+
 def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     """Each kernel against its plain version on the card, at main-path
     shapes; returns {kernel: (max_abs_err, ms, plain_ms)}."""
@@ -181,33 +216,10 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     assert keys.shape == keys_p.shape, (keys.shape, keys_p.shape)
 
     def key_vals(kk):
-        f = scan._from_sortable(kk & ~(scan.SEG - 1)).view(torch.float32)
-        return torch.where(kk == scan.KEY_MIN, 0.0, f)
+        return key_values(torch, scan, kk)
 
     def check_k1(keys, keys_p, qf, rows, what):
-        """KEY_MIN pattern equal, decoded values within 1e-4, K2 equal,
-        and the rows K2 picks (decoded (c // 2) * 128 + (key & 127))
-        rescoring equal to the plain slab's outside the TOL_GAP gap."""
-        assert torch.equal(keys == scan.KEY_MIN, keys_p == scan.KEY_MIN), what
-        err = float((key_vals(keys) - key_vals(keys_p)).abs().max())
-        assert err <= 1e-4, f"{what} keys differ by {err}"
-        tk, ti = scan.topk_packed_keys(keys, k + 6)
-        tk_p, _ = scan.topk_packed_keys_plain(keys, k + 6)
-        assert torch.equal(tk, tk_p), "topk_packed_keys keys differ"
-        assert torch.equal(torch.gather(keys, 1, ti.long()), tk), "bad columns"
-
-        def decode_rescore(tk, ti):
-            gidx = (ti // 2) * scan.SEG + (tk & (scan.SEG - 1))
-            empty = tk == scan.KEY_MIN
-            vals = torch.where(empty, float("-inf"), 0.0)
-            return scan.rescore_exact(qf, rows, vals,
-                                      torch.where(empty, 0, gidx))
-
-        ex_k, id_k = decode_rescore(tk, ti)
-        ex_p, id_p = decode_rescore(*scan.topk_packed_keys_plain(keys_p, k + 6))
-        assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= TOL_SCORE, what
-        assert ids_agree(torch, id_k, id_p, ex_p, k) == 0.0, what
-        return err, float((key_vals(tk) - key_vals(tk_p)).abs().max())
+        return check_segmax_keys(torch, scan, keys, keys_p, qf, rows, k, what)
 
     err1, err2 = check_k1(keys, keys_p, q, corpus, "K1 (wgmma)")
     nq = q.shape[0]
@@ -593,10 +605,11 @@ def oracle_top10(torch, corpus_dev, queries_dev, live_rows):
     return best_i.cpu().numpy()
 
 
-def phase_main(torch, scan, device, n: int, dim: int, rng, card: str,
+def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
                **db_kwargs):
     """The serving path through the public API on an n x dim store
-    (`db_kwargs` go to every PicoVectorDB this phase builds)."""
+    (`db_kwargs` go to every PicoVectorDB this phase builds). Raises K1's
+    max_abs_err in `rec` to what it saw on the store's mirror."""
     from picovdb_tpu_torch import K_ID, PicoVectorDB
     from picovdb_tpu_torch.ops.exact import normalize_on_device
 
@@ -683,19 +696,39 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str,
     for name, (key, _, _, phase) in KERNELS.items():
         if phase == 3:
             assert counts[key] > 0, f"{name} never launched on the main path"
-    # K1 alone at one 2048-query chunk on the store's own mirror (after the
-    # count: not the path's), beside the chunk's wall time
+    # K1 alone at one 2048-query chunk on the store's own mirror and mask
+    # (after the count: not the path's): held against its plain version,
+    # run over 131,072-row slices (its keys are per 128-row segment), and
+    # timed beside the chunk's wall time
     dev = db._dev
-    qb = normalize_on_device(qdev[:2048]).to(torch.bfloat16)
+    qf = normalize_on_device(qdev[:2048])
+    qb = qf.to(torch.bfloat16)
+    keys = scan.segmax_scan(qb, dev.vectors_lp, dev.active)
+    step = 131_072
+    keys_p = torch.cat([
+        scan.segmax_scan_plain(qb, dev.vectors_lp[s:s + step],
+                               dev.active[s:s + step])
+        for s in range(0, dev.vectors_lp.shape[0], step)], 1)
+    torch.cuda.synchronize()
+    assert keys.shape == keys_p.shape, (keys.shape, keys_p.shape)
+    err1, _ = check_segmax_keys(torch, scan, keys, keys_p, qf, dev.vectors,
+                                10, "K1 (wgmma) on the store's mirror")
+    rec["segmax_scan"]["max_abs_err"] = max(rec["segmax_scan"]["max_abs_err"],
+                                            err1)
+    del keys, keys_p
     k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(qb, dev.vectors_lp,
                                                     dev.active))
     chunk_ms = batch_s / 4 * 1e3
-    del qb
+    del qb, qf
     log(f"phase 3: main path at {n} x {dim}: routes segmax_mixed_stream, "
         f"i8_fused_smallq, fview_segmax, mixed_fused_batch_filtered, "
         f"mixed_fused_batch; recall@10 {recall:.4f} vs float64 (filter view "
         f"{recall_f:.4f} vs the filtered oracle); delete ok; launches "
         f"{counts}")
+    log(f"phase 3: K1 (wgmma) keys at Q=2048 over the store's "
+        f"{dev.vectors_lp.shape[0]}-row mirror agree with the plain version "
+        f"(max |dkey value| {err1:.3g}, KEY_MIN pattern equal, K2 + rescored "
+        f"rows = plain outside the gap)")
 
     # save, reload into a fresh instance, same answers
     probe = qdev[64:72].cpu().numpy()
@@ -1559,7 +1592,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     rec = phase_kernels(torch, scan, device, PHASE2_CAP, DIM, rng)
     phase_ivf_kernels(torch, scan, device, PHASE2_CAP, DIM, rng, rec)
-    counts = {3: phase_main(torch, scan, device, MAIN_N, DIM, rng, card)}
+    counts = {3: phase_main(torch, scan, device, MAIN_N, DIM, rng, card, rec)}
     torch.cuda.empty_cache()
     counts["3b"] = phase_wmma_store(torch, scan, device, WMMA_N, DIM - 4, rng)
     torch.cuda.empty_cache()

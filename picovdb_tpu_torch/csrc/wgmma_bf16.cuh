@@ -253,6 +253,9 @@ bf16_tiles_kernel(const __grid_constant__ CUtensorMap tq,
 
 // cuTensorMapEncodeTiled, reached through the runtime so the library needs
 // no -lcuda.
+#if CUDART_VERSION < 12050
+#error "wgmma_bf16.cuh needs CUDA 12.5 or later (cudaGetDriverEntryPointByVersion)"
+#endif
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -266,13 +269,8 @@ inline int encoder(EncodeTiled* out) {
   if (!fn) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
     cudaError_t e = cudaGetDriverEntryPointByVersion(
         "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
     if (e != cudaSuccess) return (int)e;
     if (found != cudaDriverEntryPointSuccess || !p)
       return (int)cudaErrorNotSupported;
@@ -319,16 +317,11 @@ int launch_bf16_tiles(const void* q, const void* v, const Epi& epi, int Q,
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  static bool sized[64] = {};  // once per kernel and device: > 48 KB
-  if (!sized[dev]) {
+  if (e == cudaSuccess)  // > 48 KB of dynamic shared memory
     e = cudaFuncSetAttribute(bf16_tiles_kernel<Epi>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    sized[dev] = true;
-  }
+  if (e != cudaSuccess) return (int)e;
   const long long tiles = (long long)((Q + BM - 1) / BM) * ((cap + BN - 1) / BN);
   if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;  // int tile ids
   const int grid = (int)std::min<long long>(tiles, sms);
