@@ -42,7 +42,6 @@ import torch
 
 from ..constants import Float
 from ..utils import next_pow2, round_up
-from . import _build
 from . import scan as _scan
 from .exact import default_device, normalize_on_device
 from .scan import (
@@ -51,10 +50,10 @@ from .scan import (
     SCAN_KSEL_MAX,
     SEG,
     _int_acc,
+    _launch,
     _merge_sel_keys,
     _require,
     _sel_keys,
-    _stream,
     _to_sortable,
     colmax_abs,
     fold_queries_i8,
@@ -289,15 +288,13 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
                           device=q.device)
     vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
-    lib = _build.library()
     for g0 in range(0, num_q, group):
         nq = min(group, num_q - g0)
-        err = lib.pv_ivf_scan_topk(
-            _KINDS[q.dtype], q[g0].data_ptr(), postings.data_ptr(),
-            mask.data_ptr(), hot.data_ptr(), n_hot.data_ptr(),
-            partial.data_ptr(), vals[g0].data_ptr(), idx[g0].data_ptr(), nq,
-            cap, dim, k, bn, grid_b, split, _stream(q))
-        _build.check(err, "ivf_scan_topk")
+        _launch(q, "ivf_scan_topk", "pv_ivf_scan_topk", _KINDS[q.dtype],
+                q[g0].data_ptr(), postings.data_ptr(), mask.data_ptr(),
+                hot.data_ptr(), n_hot.data_ptr(), partial.data_ptr(),
+                vals[g0].data_ptr(), idx[g0].data_ptr(), nq, cap, dim, k, bn,
+                grid_b, split)
     _scan.LAUNCHES["ivf_scan_topk"] += 1
     return vals, idx
 
@@ -351,11 +348,10 @@ def ivf_segmax_scan(q, postings, mask, hot, n_hot, per_seg: int,
     grid_b = hot.shape[0]
     keys = torch.empty((num_q, grid_b * per_seg * (bn // SEG)),
                        dtype=torch.int32, device=q.device)
-    err = _build.library().pv_ivf_segmax(
-        _KINDS[q.dtype], q.data_ptr(), postings.data_ptr(), mask.data_ptr(),
-        hot.data_ptr(), n_hot.data_ptr(), keys.data_ptr(), num_q, cap, dim,
-        bn, grid_b, per_seg, _stream(q))
-    _build.check(err, "ivf_segmax_scan")
+    _launch(q, "ivf_segmax_scan", "pv_ivf_segmax", _KINDS[q.dtype],
+            q.data_ptr(), postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
+            n_hot.data_ptr(), keys.data_ptr(), num_q, cap, dim, bn, grid_b,
+            per_seg)
     _scan.LAUNCHES["ivf_segmax"] += 1
     return keys
 

@@ -17,8 +17,8 @@ kernels those paths run:
   K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
 
 Each wrapper checks its inputs, allocates the outputs, and for a CUDA
-tensor launches its kernel on the current stream (raising on a launch
-error) and adds one to `LAUNCHES[name]`. For a CPU tensor it runs the
+tensor launches its kernel on that tensor's device and its current stream
+(`_launch`, raising on a launch error) and adds one to `LAUNCHES[name]`. For a CPU tensor it runs the
 kernel's plain PyTorch version beside it, which follows the kernel's
 decomposition (per-segment top-2 on packed keys for K1/K5, chunked
 partial top-k plus merge for K3/K4/K6, the two nibble planes and the
@@ -290,6 +290,18 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(t: torch.Tensor, name: str, entry: str, *args) -> None:
+    """Call the kernel library's `entry(*args, stream)` on `t`'s card: under
+    `torch.cuda.device(t.device)`, so the launcher's `cudaGetDevice` (SM
+    count, shared-memory attribute) and its `<<<>>>` launch address the
+    tensor's own device whatever the current one is, with that device's
+    current stream as the last argument; raises on the returned code. Every
+    launch of the port goes through here."""
+    with torch.cuda.device(t.device):
+        err = getattr(_build.library(), entry)(*args, _stream(t))
+    _build.check(err, name)
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -342,11 +354,10 @@ def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
                        device=q.device)
     wgmma = wgmma_ready(q, vectors)
-    launch = (_build.library().pv_segmax_scan_wgmma if wgmma
-              else _build.library().pv_segmax_scan)
-    err = launch(q.data_ptr(), vectors.data_ptr(), mask.data_ptr(),
-                 keys.data_ptr(), num_q, cap, dim, _stream(q))
-    _build.check(err, "segmax_scan")
+    _launch(q, "segmax_scan",
+            "pv_segmax_scan_wgmma" if wgmma else "pv_segmax_scan",
+            q.data_ptr(), vectors.data_ptr(), mask.data_ptr(),
+            keys.data_ptr(), num_q, cap, dim)
     LAUNCHES["segmax"] += 1
     LAUNCHES["segmax_wgmma"] += wgmma
     return keys
@@ -400,10 +411,9 @@ def segmax_scan_i8(q_i8: torch.Tensor, v_i8: torch.Tensor,
              "segmax_scan_i8: vectors, scales and mask must be contiguous")
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
                        device=q.device)
-    err = _build.library().pv_segmax_scan_i8(
-        q.data_ptr(), v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
-        keys.data_ptr(), num_q, cap, dim, _stream(q))
-    _build.check(err, "segmax_scan_i8")
+    _launch(q, "segmax_scan_i8", "pv_segmax_scan_i8", q.data_ptr(),
+            v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
+            keys.data_ptr(), num_q, cap, dim)
     LAUNCHES["segmax_i8"] += 1
     return keys
 
@@ -434,10 +444,9 @@ def segmax_scan_i8c(q_i8: torch.Tensor, v_i8: torch.Tensor,
              "segmax_scan_i8c: vectors and mask must be contiguous")
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
                        device=q.device)
-    err = _build.library().pv_segmax_scan_i8c(
-        q.data_ptr(), v_i8.data_ptr(), mask.data_ptr(), keys.data_ptr(),
-        num_q, cap, dim, _stream(q))
-    _build.check(err, "segmax_scan_i8c")
+    _launch(q, "segmax_scan_i8c", "pv_segmax_scan_i8c", q.data_ptr(),
+            v_i8.data_ptr(), mask.data_ptr(), keys.data_ptr(), num_q, cap,
+            dim)
     LAUNCHES["segmax_i8c"] += 1
     return keys
 
@@ -467,10 +476,8 @@ def topk_packed_keys(keys: torch.Tensor, k_sel: int):
     keys = keys.contiguous()
     out_k = torch.empty((num_q, k_sel), dtype=torch.int32, device=keys.device)
     out_c = torch.empty_like(out_k)
-    err = _build.library().pv_topk_packed_keys(
-        keys.data_ptr(), out_k.data_ptr(), out_c.data_ptr(), num_q, c, k_sel,
-        _stream(keys))
-    _build.check(err, "topk_packed_keys")
+    _launch(keys, "topk_packed_keys", "pv_topk_packed_keys", keys.data_ptr(),
+            out_k.data_ptr(), out_c.data_ptr(), num_q, c, k_sel)
     LAUNCHES["topk_keys"] += 1
     return out_k, out_c
 
@@ -542,12 +549,10 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
                           device=q.device)
     vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
-    err = _build.library().pv_scan_topk(
-        kind, q.data_ptr(), vectors.data_ptr(),
-        vscale.data_ptr() if vscale is not None else None,
-        mask.data_ptr(), partial.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        num_q, cap, dim, k, chunk, _stream(q))
-    _build.check(err, name)
+    _launch(q, name, "pv_scan_topk", kind, q.data_ptr(), vectors.data_ptr(),
+            vscale.data_ptr() if vscale is not None else None,
+            mask.data_ptr(), partial.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), num_q, cap, dim, k, chunk)
     LAUNCHES[name] += 1
     return vals, idx
 
