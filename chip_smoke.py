@@ -66,9 +66,11 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 KERNELS = {
     # name: (launch-counter key, source, TPU kernel it replaces, the phase
     # whose serving path must launch it). K1 is two kernels: the TMA +
-    # wgmma mainloop (csrc/wgmma_bf16.cuh) wherever dim % 8 == 0, and the
+    # wgmma mainloop (csrc/wgmma_tiles.cuh) wherever dim % 8 == 0, and the
     # wmma tile it keeps for other widths, which phase 3b's dim-1020 store
-    # drives ("segmax_wmma": K1 launches less the wgmma ones).
+    # drives ("segmax_wmma": K1 launches less the wgmma ones). P1 has a row
+    # per kind, both on the mainloop; K9's row is its one-query sweep
+    # (csrc/sweep_topk.cu), which serves every Q <= 16 call of phase 9.
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "segmax_scan_wmma": ("segmax_wmma", "picovdb_tpu_torch/csrc/segmax.cu",
@@ -87,12 +89,15 @@ KERNELS = {
                       "picovdb_tpu/ops/ivf.py:1237", 7),
     "ivf_segmax_scan": ("ivf_segmax", "picovdb_tpu_torch/csrc/segmax.cu",
                         "picovdb_tpu/ops/ivf.py:1492", 7),
-    "fused_topk_i8c": ("scan_topk_i8c", "picovdb_tpu_torch/csrc/scan_topk.cu",
+    "fused_topk_i8c": ("scan_topk_i8c_sweep",
+                       "picovdb_tpu_torch/csrc/sweep_topk.cu",
                        "picovdb_tpu/ops/pallas_scan.py:1705", 9),
     "segmax_scan_i8c": ("segmax_i8c", "picovdb_tpu_torch/csrc/segmax.cu",
                         "picovdb_tpu/ops/pallas_scan.py:1528", 9),
-    "dot_rowmax": ("dot_rowmax", "picovdb_tpu_torch/csrc/probe.cu",
+    "dot_rowmax": ("dot_rowmax_wgmma", "picovdb_tpu_torch/csrc/probe.cu",
                    "bench/segmax_sweep_probe.py:73", 10),
+    "dot_rowmax_i8": ("dot_rowmax_i8_wgmma", "picovdb_tpu_torch/csrc/probe.cu",
+                      "bench/segmax_sweep_probe.py:73", 10),
 }
 
 
@@ -320,8 +325,14 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     # bit; bf16 maxima within TOL_SCORE (summation order only)
     from picovdb_tpu_torch import probes
 
+    before = scan.LAUNCHES["dot_rowmax_i8_wgmma"]
     got = probes.dot_rowmax(q8c, v8c)
-    assert torch.equal(got, probes.dot_rowmax_plain(q8c, v8c)), "P1 int8"
+    assert scan.LAUNCHES["dot_rowmax_i8_wgmma"] == before + 1, "P1 int8 wgmma"
+    ref_i8 = probes.dot_rowmax_plain(q8c, v8c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref_i8), "P1 int8"
+    err_p1i = exact_err(torch, got, ref_i8)
+    del ref_i8
     before = scan.LAUNCHES["dot_rowmax_wgmma"]
     got = probes.rowmax_value(probes.dot_rowmax(qb, lp))
     assert scan.LAUNCHES["dot_rowmax_wgmma"] == before + 1, "P1 missed wgmma"
@@ -334,12 +345,18 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         cuda_ms(torch, lambda: probes.dot_rowmax_plain(qb, lp)),
         nq * dim * 2 + cap * dim * 2 + nq * 4, 2 * nq * cap * dim, "bf16",
         cuda_ms(torch, lambda: torch.matmul(qb, lp.T)))
-    p1_i8 = cuda_ms(torch, lambda: probes.dot_rowmax(q8c, v8c))
-    int_mm = cuda_ms(torch, lambda: torch._int_mm(q8c, v8c.T))
+    rec["dot_rowmax_i8"] = entry(
+        err_p1i, cuda_ms(torch, lambda: probes.dot_rowmax(q8c, v8c)),
+        cuda_ms(torch, lambda: probes.dot_rowmax_plain(q8c, v8c)),
+        nq * dim + cap * dim + nq * 4, 2 * nq * cap * dim, "int8",
+        cuda_ms(torch, lambda: torch._int_mm(q8c, v8c.T)))
+    p1i = rec["dot_rowmax_i8"]
     log(f"phase 2: P1 dot_rowmax agrees at Q=2048 cap={cap}: bf16 (wgmma) "
         f"{rec['dot_rowmax']['ms']:.4f} ms (max |d| {err_p1:.3g}; torch.matmul "
-        f"{rec['dot_rowmax']['library_ms']:.4f} ms), int8 {p1_i8:.4f} ms "
-        f"(bit for bit; torch._int_mm {int_mm:.4f} ms)")
+        f"{rec['dot_rowmax']['library_ms']:.4f} ms), int8 (wgmma s8) "
+        f"{p1i['ms']:.4f} ms (bit for bit; bound {p1i['bound_ms']:.4f} ms, "
+        f"torch._int_mm {p1i['library_ms']:.4f} ms, plain "
+        f"{p1i['plain_ms']:.4f} ms)")
 
     def check_scan(name, qq, vv, scale, msk, ksel, rescore_q, int4=False):
         if int4:
@@ -436,7 +453,10 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             torch.from_numpy(rng.standard_normal((nq1, dim), dtype=np.float32))
             .to(device))
         q8 = scan.fold_queries_i8(qf, cs)
+        before = scan.LAUNCHES["scan_topk_i8c_sweep"]
         got = scan.fused_topk_i8c(q8, v8c, mask, 16)
+        assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before + 1, \
+            f"K9 missed the sweep at Q={nq1}"
         ref = scan.fused_topk_i8c_plain(q8, v8c, mask, 16)
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
@@ -448,8 +468,9 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["fused_topk_i8c"] = entry(max(errs), ms[0], pms[0],
                                   dim + live * dim + cap + 16 * 8,
                                   2 * live * dim, "int8")
-    log(f"phase 2: K9 fused_topk_i8c = plain bit for bit at Q=1,8,16 "
-        f"k_sel=16 (ms {', '.join(f'{m:.4f}' for m in ms)}; plain "
+    log(f"phase 2: K9 fused_topk_i8c (one-query sweep) = plain bit for bit "
+        f"at Q=1,8,16 k_sel=16 (ms {', '.join(f'{m:.4f}' for m in ms)}; "
+        f"bound {rec['fused_topk_i8c']['bound_ms']:.4f} ms at Q=1; plain "
         f"{', '.join(f'{m:.4f}' for m in pms)}; K3 at Q=1 "
         f"{rec['fused_topk_i8']['ms']:.4f})")
     del corpus, lp, v8, vs, v4, vs4, v8c
@@ -1398,15 +1419,18 @@ def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
     del keys
     err9 = 0.0
     for nq in (1, 16):
+        before = scan.LAUNCHES["scan_topk_i8c_sweep"]
         got = scan.fused_topk_i8c(qq[:nq], v8c, act, 16)
+        assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before + 1
         ref = scan.fused_topk_i8c_plain(qq[:nq], v8c, act, 16)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
             f"K9 differs at Q={nq} on the store's mirror"
         err9 = max(err9, exact_err(torch, got[0], ref[0]))
     for name, err in (("segmax_scan_i8c", err10), ("fused_topk_i8c", err9)):
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-    return (f"; K10 keys (2048 queries) and K9 (Q=1, 16, k_sel 16) = plain "
-            f"bit for bit over the store's {v8c.shape[0]}-row mirror")
+    return (f"; K10 keys (2048 queries) and K9 (one-query sweep, Q=1, 16, "
+            f"k_sel 16) = plain bit for bit over the store's "
+            f"{v8c.shape[0]}-row mirror")
 
 
 def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
@@ -1461,9 +1485,13 @@ def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
             t0 = time.perf_counter()
             db.query_columnar(qdev, top_k=10, batch_size=2048)
             batch_s = time.perf_counter() - t0
+            before = scan.LAUNCHES["scan_topk_i8c_sweep"]
             res = db.query(one, top_k=10)
             assert db.last_query_debug()["strategy"] == q1_route, name
             assert len(res) == 10
+            if name.startswith("c"):
+                assert scan.LAUNCHES["scan_topk_i8c_sweep"] > before, \
+                    "i8c_fused_smallq missed K9's sweep"
             q1_ms = cuda_ms(torch, lambda: db.query(one, top_k=10), reps=50)
             recall = recall_at_10(got[:64], oi[:, :10], "t")
             assert recall >= 0.99, (name, recall)
@@ -1519,7 +1547,11 @@ def tiers_mutations(torch, db, new, q64, ov, oi) -> str:
     """Store (c): 1,000 upserts, one of them past the column maxima, drop
     the column-scaled mirror; the next dispatch requantizes it (timed) and
     every new row is found at rank 1. Then the serial Q = 1 loop, whose
-    ids must equal the per-call route's outside the oracle's gap."""
+    ids must equal the per-call route's outside the oracle's gap and whose
+    every query must launch K9's sweep; it is timed beside the cost of the
+    device guard each launch runs under."""
+    from picovdb_tpu_torch.ops import scan
+
     dev = db._dev
     cmax = float(dev.cscale.max())
     db.upsert_columnar(new, ids=[f"u{i}" for i in range(new.shape[0])])
@@ -1533,8 +1565,24 @@ def tiers_mutations(torch, db, new, q64, ov, oi) -> str:
     back, _ = db.query_columnar(new, top_k=1)
     assert db.last_query_debug()["strategy"] == "segmax_i8c_stream"
     assert [r[0] for r in back] == [f"u{i}" for i in range(new.shape[0])]
+    before = dict(scan.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     vals, slots = db.query_serial_loop(q64.cpu().numpy(), top_k=10)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / q64.shape[0]
     assert dev.last_strategy == "i8c_fused_smallq_loop"
+    sweeps = scan.LAUNCHES["scan_topk_i8c_sweep"] - before["scan_topk_i8c_sweep"]
+    assert sweeps == q64.shape[0], f"serial loop: {sweeps} sweep launches"
+    launches = sum(v - before[key] for key, v in scan.LAUNCHES.items()
+                   if not key.endswith(("_sweep", "_wgmma")))  # _launch calls
+    # what the device guard (torch.cuda.device around each launch) costs
+    n_guard = 20_000
+    t0 = time.perf_counter()
+    for _ in range(n_guard):
+        with torch.cuda.device(dev.active.device):
+            pass
+    guard_us = (time.perf_counter() - t0) * 1e6 / n_guard
     loop_ids = [[db._ids[s] for s in row] for row in slots]
     per_call = [[h["_id_"] for h in db.query(q, top_k=10)]
                 for q in q64.cpu().numpy()]
@@ -1545,7 +1593,11 @@ def tiers_mutations(torch, db, new, q64, ov, oi) -> str:
             f"requantized by the next dispatch in {rebuild_s:.3f} s (Q=1 "
             f"incl. the scatter), every new row found at rank 1; "
             f"query_serial_loop i8c_fused_smallq_loop ids = per-call route "
-            f"on 64/64")
+            f"on 64/64, {loop_ms:.4f} ms a query (host clock), K9's sweep "
+            f"once a query, {launches / q64.shape[0]:.0f} counted launch(es) "
+            f"a query, each under a device guard of {guard_us:.2f} us "
+            f"(torch.cuda.device entered and left, host clock, "
+            f"{n_guard} times)")
 
 
 def phase_probes(torch, scan, device, card: str):
@@ -1559,6 +1611,8 @@ def phase_probes(torch, scan, device, card: str):
     counts = dict(scan.LAUNCHES)
     assert counts["dot_rowmax"] > 0, "dot_rowmax never launched by the probes"
     assert sweep["p1_i8_equal_plain"], "P1 int8 maxima differ from plain"
+    assert sweep["p1_i8_wgmma"] and counts["dot_rowmax_i8_wgmma"] > 0, \
+        "P1 int8 missed the wgmma mainloop"
     # unnormalized gaussian data: maxima near 140, so a relative limit; a
     # TF32 product would miss it by ~10x (2^-11 per product)
     assert sweep["p1_bf16_max_rel_err"] <= 1e-5, sweep["p1_bf16_max_rel_err"]

@@ -4,16 +4,16 @@
 // Replaces the Pallas kernel `dot_only` of bench/segmax_sweep_probe.py
 // (`_dot_kernel`, `_dot_kernel_i8`), which times the matrix product of the
 // batch segmax sweep at K1's tiling without its epilogue. Here the product
-// is K1's: for bf16 with dim % 8 == 0 the persistent TMA + wgmma mainloop
-// of wgmma_bf16.cuh (128 queries x 256 rows per tile), whose epilogue
-// `RowmaxTileEpi` keeps each query's maximum over the tile in registers
-// (a thread's 64 scores of the row, then its quad by shuffles); for int8,
-// and bf16 at other widths, K5's / K1's first score tile (tiles.cuh: 64
-// queries x one 128-row segment per block, mma.sync s8 -> s32 or wmma bf16
-// -> f32) and a warp's maximum of each tile row. Either way the maxima
-// combine across blocks by atomicMax on the sortable key (float32:
-// to_sortable of its bits; int8: the int32 sum itself) into a (Q,) int32
-// output that the caller fills with KEY_MIN first.
+// is K1's: the persistent TMA + wgmma mainloop of wgmma_tiles.cuh (128
+// queries x 256 rows per tile) for bf16 with dim % 8 == 0 and for int8
+// with dim % 16 == 0, whose epilogue `RowmaxTileEpi` keeps each query's
+// maximum over the tile in registers (a thread's 64 scores of the row, then
+// its quad by shuffles); at other widths K5's / K1's first score tile
+// (tiles.cuh: 64 queries x one 128-row segment per block, mma.sync s8 ->
+// s32 or wmma bf16 -> f32) and a warp's maximum of each tile row. Either
+// way the maxima combine across blocks by atomicMax on the sortable key
+// (float32: to_sortable of its bits; int8: the int32 sum itself) into a
+// (Q,) int32 output that the caller fills with KEY_MIN first.
 //
 // This deviates from the TPU kernel, which keeps only the maximum of its
 // last corpus tile, a guard against dead-code elimination. Over all rows
@@ -22,22 +22,30 @@
 //
 // What bounds it on the H100: the tensor cores' issue rate (2 Q cap dim
 // operations against a few hundred MB of operands), which is what it
-// measures: the time K1 / K5 / K10 would take with a free epilogue.
+// measures: the time K1 / K5 / K10 would take with a free epilogue. The
+// int8 kind runs the mainloop K5 and K10 are to move onto.
 
 #include "tiles.cuh"
-#include "wgmma_bf16.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace pv {
 namespace {
 
-// P1's epilogue on the wgmma accumulators (layout: wgmma_bf16.cuh): per
-// row the largest sortable key over the tile's columns inside cap (cap %
-// 256 == 128 leaves a last tile's second segment out), the quad's
-// maximum, one atomicMax per row below Q.
+__device__ __forceinline__ int rowmax_key(float s) {
+  return to_sortable(__float_as_int(s));
+}
+__device__ __forceinline__ int rowmax_key(int s) { return s; }
+
+// P1's epilogue on the wgmma accumulators (layout: wgmma_tiles.cuh), for
+// either kind: per row the largest key (float32: sortable bits; int32: the
+// raw sum) over the tile's columns inside cap (cap % 256 == 128 leaves a
+// last tile's second segment out: its zero-filled rows must not enter the
+// max), the quad's maximum, one atomicMax per row below Q.
 struct RowmaxTileEpi {
   int* __restrict__ out;
 
-  __device__ __forceinline__ void tile(float (&acc)[wg::ACC], int q0, long r0,
+  template <class A>
+  __device__ __forceinline__ void tile(A (&acc)[wg::ACC], int q0, long r0,
                                        int Q, long cap) const {
     const int lane = threadIdx.x % 32;
     const int row = q0 + 64 * (threadIdx.x / 128) +
@@ -53,8 +61,7 @@ struct RowmaxTileEpi {
         for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            m = max(m, to_sortable(__float_as_int(
-                           acc[4 * (16 * s + j) + 2 * h + e])));
+            m = max(m, rowmax_key(acc[4 * (16 * s + j) + 2 * h + e]));
       }
       m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
       m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
@@ -136,14 +143,18 @@ extern "C" int pv_dot_rowmax(int kind, const void* q, const void* v,
   return (int)cudaGetLastError();
 }
 
-// P1's bf16 kind on the TMA + wgmma mainloop: pv_dot_rowmax's kind 0
-// contract, for dim % 8 == 0 and 16-byte aligned q and v. Returns 0, a
-// cudaError_t, or minus the CUresult of a refused tensor-map encode.
-extern "C" int pv_dot_rowmax_wgmma(const void* q, const void* v, void* out,
-                                   int Q, long long cap, int dim,
+// P1 on the TMA + wgmma mainloop: pv_dot_rowmax's contract, kind 0 (bf16)
+// for dim % 8 == 0, kind 1 (int8) for dim % 16 == 0, 16-byte aligned q and
+// v. Returns 0, a cudaError_t, or minus the CUresult of a refused
+// tensor-map encode.
+extern "C" int pv_dot_rowmax_wgmma(int kind, const void* q, const void* v,
+                                   void* out, int Q, long long cap, int dim,
                                    void* stream) {
   using namespace pv;
   if (cap % SEG) return (int)cudaErrorInvalidValue;
-  return wg::launch_bf16_tiles(q, v, RowmaxTileEpi{static_cast<int*>(out)}, Q,
-                               cap, dim, (cudaStream_t)stream);
+  const RowmaxTileEpi epi{static_cast<int*>(out)};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 0) return wg::launch_tiles<wg::Bf16>(q, v, epi, Q, cap, dim, s);
+  if (kind == 1) return wg::launch_tiles<wg::Int8>(q, v, epi, Q, cap, dim, s);
+  return (int)cudaErrorInvalidValue;
 }

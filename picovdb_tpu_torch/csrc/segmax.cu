@@ -15,7 +15,7 @@
 // 2/128 of the score matrix, so it is bound by tensor-core throughput,
 // not by bytes. Where TMA can read the operands (dim % 8 == 0, 16-byte
 // aligned bases) the product is the persistent TMA + wgmma mainloop of
-// wgmma_bf16.cuh (128 queries x 256 rows per tile, a 4-stage ring, two
+// wgmma_tiles.cuh (128 queries x 256 rows per tile, a 4-stage ring, two
 // consumer warpgroups), and `SegmaxTileEpi` reduces each thread's
 // accumulator registers to the two keys per query and segment: the
 // thread's top 2 of its 32 scores, merged across the quad of lanes that
@@ -30,15 +30,17 @@
 // K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are the wmma kernel
 // over a per-row int8 corpus and over the column-scaled int8 mirror. The
 // wmma and mma.sync score tiles live in tiles.cuh, shared with K8 and the
-// dot-floor probe P1, whose bf16 kind also runs on wgmma_bf16.cuh.
+// dot-floor probe P1, whose two kinds also run on wgmma_tiles.cuh (bf16
+// and int8 instantiations of one mainloop, the int8 one the product K5 and
+// K10 are to move onto).
 
 #include "tiles.cuh"
-#include "wgmma_bf16.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace pv {
 namespace {
 
-// K1's epilogue on the wgmma accumulators (layout: wgmma_bf16.cuh). For
+// K1's epilogue on the wgmma accumulators (layout: wgmma_tiles.cuh). For
 // each of its two rows and each segment of the tile that lies inside cap
 // (cap % 256 == 128 leaves a last tile's second segment out), a thread
 // packs its 32 scores of the segment (key (to_sortable(bits) & ~127) |
@@ -411,7 +413,8 @@ extern "C" int pv_segmax_scan_wgmma(const void* q, const void* v,
   if (cap % SEG) return (int)cudaErrorInvalidValue;
   const SegmaxTileEpi epi{static_cast<const uint8_t*>(mask),
                           static_cast<int*>(keys), (long)(2 * (cap / SEG))};
-  return wg::launch_bf16_tiles(q, v, epi, Q, cap, dim, (cudaStream_t)stream);
+  return wg::launch_tiles<wg::Bf16>(q, v, epi, Q, cap, dim,
+                                    (cudaStream_t)stream);
 }
 
 // q (Q, dim) int8, v (cap, dim) int8 with cap % 128 == 0, vscale (cap,)

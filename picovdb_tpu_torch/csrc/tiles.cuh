@@ -4,9 +4,10 @@
 // synchronous 16-byte copies, on the tensor cores (bf16 wmma 16x16x16 ->
 // f32, or int8 mma.sync m16n8k32 -> s32), and leaves the (BQ, 128) score
 // tile in shared memory for the caller's epilogue. The int8 tile serves
-// K5, K10, K8's int8 kind and P1's int8 kind; the bf16 tile serves K8's
-// bf16 kind and K1 / P1-bf16 at widths TMA cannot read (dim % 8 != 0).
-// K1 and P1-bf16 otherwise run the TMA + wgmma mainloop of wgmma_bf16.cuh.
+// K5, K10, K8's int8 kind and P1-int8 at widths TMA cannot read (dim % 16
+// != 0); the bf16 tile serves K8's bf16 kind and K1 / P1-bf16 at widths
+// TMA cannot read (dim % 8 != 0). K1 and P1 otherwise run the TMA + wgmma
+// mainloop of wgmma_tiles.cuh.
 #pragma once
 
 #include <mma.h>

@@ -50,6 +50,9 @@ _SIGNATURES = {
     # int8: K9), q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k,
     # chunk, stream
     "pv_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    # q, v, mask, partial, vals, idx, Q, cap, dim, k, chunk, stream (K9's
+    # one-query sweep: Q <= 16, k <= 128, dim % 16 == 0)
+    "pv_sweep_topk_i8c": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
     "pv_ivf_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
@@ -59,8 +62,9 @@ _SIGNATURES = {
     "pv_ivf_segmax": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
     # kind (0 bf16, 1 int8), q, v, out, Q, cap, dim, stream (P1)
     "pv_dot_rowmax": [_I, _P, _P, _P, _I, _L, _I, _P],
-    # q, v, out, Q, cap, dim, stream (P1 bf16 on the wgmma mainloop)
-    "pv_dot_rowmax_wgmma": [_P, _P, _P, _I, _L, _I, _P],
+    # kind (0 bf16, 1 int8), q, v, out, Q, cap, dim, stream (P1 on the TMA +
+    # wgmma mainloop)
+    "pv_dot_rowmax_wgmma": [_I, _P, _P, _P, _I, _L, _I, _P],
 }
 
 

@@ -7,13 +7,14 @@ hand-written CUDA kernels (`csrc/`) take the place of the eight Pallas
 kernels those paths run:
 
   K1 `segmax_scan`      csrc/segmax.cu     per-128-row-segment top-2 keys
-                        (product: csrc/wgmma_bf16.cuh, see `wgmma_ready`)
+                        (product: csrc/wgmma_tiles.cuh, see `wgmma_ready`)
   K2 `topk_packed_keys` csrc/topk_keys.cu  per-query top-k_sel of the keys
   K3 `fused_topk_i8`    csrc/scan_topk.cu  exact top-k over per-row int8
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
+                        (Q <= 16: csrc/sweep_topk.cu, see `sweep_ready`)
   K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
 
 Each wrapper checks its inputs, allocates the outputs, and for a CUDA
@@ -50,13 +51,17 @@ SEG = 128  # rows per segmax segment
 
 # Kernel launches made through the wrappers, by kernel. Comparing a kernel
 # with its plain version does not go through a wrapper's counted path.
-# "segmax" and "dot_rowmax" count K1 / P1 on either product; the "_wgmma"
-# keys count the TMA + wgmma mainloop alone (see `wgmma_ready`).
+# "segmax" and "dot_rowmax" count K1 / P1 (both kinds) on either product;
+# the "_wgmma" keys count the TMA + wgmma mainloop alone (see `wgmma_ready`,
+# `wgmma_i8_ready`): "dot_rowmax_wgmma" P1-bf16's, "dot_rowmax_i8_wgmma"
+# P1-int8's. "scan_topk_i8c" counts every K9 launch, "scan_topk_i8c_sweep"
+# those of its one-query sweep (see `sweep_ready`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "topk_keys": 0, "scan_topk": 0,
             "scan_topk_i8": 0, "segmax_i8": 0, "scan_topk_i4": 0,
             "ivf_scan_topk": 0, "ivf_segmax": 0,  # K7, K8: ops/ivf.py
-            "scan_topk_i8c": 0, "segmax_i8c": 0,
-            "dot_rowmax": 0, "dot_rowmax_wgmma": 0}  # P1: probes.py
+            "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
+            "dot_rowmax": 0, "dot_rowmax_wgmma": 0,  # P1: probes.py
+            "dot_rowmax_i8_wgmma": 0}
 # Requests whose k_sel exceeded SCAN_KSEL_MAX and went to the plain exact
 # scan instead of K3/K4/K6 (the JAX package's `k > bn` fallback).
 WIDE_K_FALLBACKS = {"scan_topk": 0, "scan_topk_i8": 0, "scan_topk_i4": 0}
@@ -312,13 +317,26 @@ def _require(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _tma_ready(queries, vectors, dim_multiple: int) -> bool:
+    return (queries.shape[1] % dim_multiple == 0
+            and queries.data_ptr() % 16 == 0 and vectors.data_ptr() % 16 == 0)
+
+
 def wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
     """Whether K1 / P1-bf16 run the TMA + wgmma mainloop
-    (csrc/wgmma_bf16.cuh) on these contiguous bf16 operands: TMA needs a
+    (csrc/wgmma_tiles.cuh) on these contiguous bf16 operands: TMA needs a
     row stride that is a multiple of 16 bytes (dim % 8 == 0) and 16-byte
     aligned bases. Otherwise they run the wmma tile (csrc/tiles.cuh)."""
-    return (queries.shape[1] % 8 == 0 and queries.data_ptr() % 16 == 0
-            and vectors.data_ptr() % 16 == 0)
+    return _tma_ready(queries, vectors, 8)
+
+
+def wgmma_i8_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    """Whether P1-int8 runs the mainloop's int8 instantiation on these
+    contiguous int8 operands: rows of int8 are a multiple of 16 bytes at
+    dim % 16 == 0, and both bases 16-byte aligned. Otherwise it runs the
+    mma.sync tile (csrc/tiles.cuh `score_tile_i8`, which K5, K8 and K10
+    still use)."""
+    return _tma_ready(queries, vectors, 16)
 
 
 def _segmax_checks(name, queries, vectors, mask):
@@ -542,19 +560,58 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     _require(vectors.is_contiguous() and mask.is_contiguous(),
              f"{name}: vectors and mask must be contiguous")
     q = queries.contiguous()
-    q_tiles = -(-num_q // (16 if k <= 128 else 2))
-    chunk = _scan_chunk(cap, q_tiles, num_q, k, q.device)
-    nchunks = -(-cap // chunk)
+    sweep = i8c and sweep_ready(q, vectors, k)
+    if sweep:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        chunk, nchunks = sweep_partition(cap, sms)
+    else:
+        q_tiles = -(-num_q // (16 if k <= 128 else 2))
+        chunk = _scan_chunk(cap, q_tiles, num_q, k, q.device)
+        nchunks = -(-cap // chunk)
     partial = torch.empty((num_q * nchunks * k,), dtype=torch.int64,
                           device=q.device)
     vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
-    _launch(q, name, "pv_scan_topk", kind, q.data_ptr(), vectors.data_ptr(),
-            vscale.data_ptr() if vscale is not None else None,
-            mask.data_ptr(), partial.data_ptr(), vals.data_ptr(),
-            idx.data_ptr(), num_q, cap, dim, k, chunk)
+    if sweep:
+        _launch(q, name, "pv_sweep_topk_i8c", q.data_ptr(), vectors.data_ptr(),
+                mask.data_ptr(), partial.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), num_q, cap, dim, k, chunk)
+        LAUNCHES["scan_topk_i8c_sweep"] += 1
+    else:
+        _launch(q, name, "pv_scan_topk", kind, q.data_ptr(),
+                vectors.data_ptr(),
+                vscale.data_ptr() if vscale is not None else None,
+                mask.data_ptr(), partial.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), num_q, cap, dim, k, chunk)
     LAUNCHES[name] += 1
     return vals, idx
+
+
+# K9's one-query sweep (csrc/sweep_topk.cu): its shapes and row ranges
+SWEEP_Q_MAX = 16  # query tile sized to Q: 1, 2, 4, 8 or 16
+SWEEP_K_MAX = 128
+SWEEP_DIM_MAX = 4096  # the CTA's query block (<= 64 KB) in shared memory
+SWEEP_CTAS_PER_SM = 2
+
+
+def sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether K9 runs its one-query sweep on these contiguous operands:
+    Q <= 16, k <= 128, rows of 16-byte words (dim % 16 == 0, dim <= 4096)
+    and 16-byte aligned bases. Other shapes keep `pv_scan_topk` kind 4."""
+    num_q, dim = q_i8.shape
+    return (num_q <= SWEEP_Q_MAX and k <= SWEEP_K_MAX and dim % 16 == 0
+            and dim <= SWEEP_DIM_MAX and q_i8.data_ptr() % 16 == 0
+            and v_i8.data_ptr() % 16 == 0)
+
+
+def sweep_partition(cap: int, sms: int):
+    """The sweep's row ranges on a card of `sms` SMs: (chunk, n), CTA c
+    reading rows [c * chunk, min(cap, (c + 1) * chunk)). chunk is a
+    multiple of 128, n <= SWEEP_CTAS_PER_SM * sms CTAs (at least one: a
+    range may be empty or ragged at the end)."""
+    segs = max(1, -(-cap // SEG))
+    chunk = -(-segs // min(SWEEP_CTAS_PER_SM * sms, segs)) * SEG
+    return chunk, max(1, -(-cap // chunk))
 
 
 def scan_topk_plain(queries, vectors, vscale, mask, k: int,

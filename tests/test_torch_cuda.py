@@ -359,16 +359,90 @@ def test_ivf_scan_topk_bounded_partials(dev, kind, monkeypatch):
 @pytest.mark.parametrize("nq,k", [(1, 16), (16, 12), (5, 300)])
 def test_fused_topk_i8c_exact(dev, dim, nq, k):
     """K9 ranks the raw int32 sums, ties to the lower row: bit for bit its
-    plain version."""
+    plain version, on the one-query sweep wherever `sweep_ready` holds
+    (Q <= 16, k <= 128, dim % 16 == 0: here dim 96 and 1024 at k 16 and
+    12), else on the template."""
     q, v, mask = _data(dev, dim=dim, nq=nq)
     v8, cs = scan.quantize_cols_i8(v)
     q8 = scan.fold_queries_i8(q, cs)
-    before = scan.LAUNCHES["scan_topk_i8c"]
+    before = dict(scan.LAUNCHES)
     vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
-    assert scan.LAUNCHES["scan_topk_i8c"] == before + 1
+    assert scan.LAUNCHES["scan_topk_i8c"] == before["scan_topk_i8c"] + 1
+    assert (scan.LAUNCHES["scan_topk_i8c_sweep"]
+            - before["scan_topk_i8c_sweep"] == (dim % 16 == 0 and k <= 128))
     rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, k)
     torch.cuda.synchronize()
     assert torch.equal(vals, rv) and torch.equal(idx, ri)
+
+
+def _sweep_case(dev, dim, nq, cap, seed):
+    """Column-scaled rows and folded queries with the sweep's edges: two
+    equal rows on either side of a CTA range boundary c, both 127 *
+    sign(q8[0]), the largest sum query 0 can reach (so its top two, lower
+    row first), and one whole range masked. Returns q8, v8, mask, c."""
+    q, v, mask = _data(dev, cap=cap, dim=dim, nq=nq, seed=seed)
+    v8, cs = scan.quantize_cols_i8(v)
+    q8 = scan.fold_queries_i8(q, cs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, n = scan.sweep_partition(cap, sms)
+    assert n >= 3, (chunk, n)
+    c = chunk  # the boundary between ranges 0 and 1
+    best = torch.where(q8[0] >= 0, 127, -127).to(torch.int8)
+    v8[c - 1] = v8[c] = best
+    mask[c - 1] = mask[c] = True
+    mask[2 * chunk:3 * chunk] = False  # range 2 has no live row
+    return q8, v8, mask, c
+
+
+@pytest.mark.parametrize("dim", [1024, 96])
+@pytest.mark.parametrize("nq", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_fused_topk_i8c_sweep(dev, dim, nq, k):
+    """K9's one-query sweep, bit for bit its plain version, with ties
+    across a range boundary (the lower row first) and a range with no live
+    row; the sweep's counter moves."""
+    q8, v8, mask, c = _sweep_case(dev, dim, nq, 300 * 128 + 40, nq + k)
+    assert scan.sweep_ready(q8, v8, k)
+    before = scan.LAUNCHES["scan_topk_i8c_sweep"]
+    vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
+    assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before + 1
+    rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, k)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+    assert idx[0, :2].tolist()[:k] == [c - 1, c][:k]  # the tie, lower first
+
+
+@pytest.mark.parametrize("nq,k,dim", [(17, 16, 1024), (1, 16, 50),
+                                      (4, 300, 1024)])
+def test_fused_topk_i8c_template_shapes(dev, nq, k, dim):
+    """Q = 17, dim 50 and k 300 are not the sweep's: K9 keeps the
+    template, bit for bit."""
+    q, v, mask = _data(dev, dim=dim, nq=nq)
+    v8, cs = scan.quantize_cols_i8(v)
+    q8 = scan.fold_queries_i8(q, cs)
+    assert not scan.sweep_ready(q8, v8, k)
+    before = dict(scan.LAUNCHES)
+    vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
+    assert scan.LAUNCHES["scan_topk_i8c"] == before["scan_topk_i8c"] + 1
+    assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before["scan_topk_i8c_sweep"]
+    rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, k)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+
+
+def test_fused_topk_i8c_sweep_few_live_rows(dev):
+    """k above the live count: the sweep's empty partials merge to -inf /
+    row 0 past the live rows, as the plain version."""
+    q, v, _ = _data(dev, cap=20_000, dim=128, nq=3)
+    v8, cs = scan.quantize_cols_i8(v)
+    q8 = scan.fold_queries_i8(q, cs)
+    mask = torch.zeros(20_000, dtype=torch.bool, device=dev)
+    mask[[7, 9000, 19_999]] = True
+    vals, idx = scan.fused_topk_i8c(q8, v8, mask, 16)
+    rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+    assert bool(torch.isneginf(vals[:, 3:]).all()) and not bool(idx[:, 3:].any())
 
 
 @pytest.mark.parametrize("dim", DIMS + [1024])
@@ -388,9 +462,12 @@ def test_segmax_scan_i8c_keys_exact(dev, dim):
                                         (1024, 130, 8192), (768, 17, 4224),
                                         (1024, 2048, 8320)])
 def test_dot_rowmax(dev, dim, nq, cap):
-    """P1: int8 row maxima bit for bit; bf16 maxima within 1e-5 (float32
-    sums of exact bf16 products, in another order), through the TMA +
-    wgmma mainloop wherever dim % 8 == 0."""
+    """P1: int8 row maxima bit for bit, through the mainloop's int8
+    instantiation wherever dim % 16 == 0 (dim 50: the mma.sync tile; cap
+    % 256 == 128 leaves the last tile's zero-filled segment out of the
+    max); bf16 maxima within 1e-5 (float32 sums of exact bf16 products,
+    in another order), through the TMA + wgmma mainloop wherever dim % 8
+    == 0."""
     from picovdb_tpu_torch import probes
 
     q, v, _ = _data(dev, cap=cap, dim=dim, nq=nq)
@@ -398,6 +475,8 @@ def test_dot_rowmax(dev, dim, nq, cap):
     before = dict(scan.LAUNCHES)
     got = probes.dot_rowmax(q8, v8)
     assert scan.LAUNCHES["dot_rowmax"] == before["dot_rowmax"] + 1
+    assert (scan.LAUNCHES["dot_rowmax_i8_wgmma"]
+            - before["dot_rowmax_i8_wgmma"] == (dim % 16 == 0))
     assert torch.equal(got, probes.dot_rowmax_plain(q8, v8))
     qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
     got = probes.rowmax_value(probes.dot_rowmax(qb, vb))
@@ -406,3 +485,71 @@ def test_dot_rowmax(dev, dim, nq, cap):
     ref = probes.rowmax_value(probes.dot_rowmax_plain(qb, vb))
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_dot_rowmax_i8_edges(dev):
+    """P1-int8 on the mainloop where every sum is negative, at cap % 256
+    == 128 and Q = 17: the zero-filled rows past cap and past Q (sums of
+    0) must never enter a maximum. A view 1 byte off 16-byte alignment
+    takes the mma.sync tile; both bit for bit the plain version."""
+    from picovdb_tpu_torch import probes
+
+    q, v, _ = _data(dev, cap=4224, dim=768, nq=17)
+    q8 = -scan.quantize_rows_i8(q)[0].abs()
+    v8 = scan.quantize_rows_i8(v)[0].abs()
+    v8[:, 0] = 1  # every row meets a query's -127 at least once: sums < 0
+    q8[:, 0] = -127
+    ref = probes.dot_rowmax_plain(q8, v8)
+    assert bool((ref < 0).all())
+    before = scan.LAUNCHES["dot_rowmax_i8_wgmma"]
+    got = probes.dot_rowmax(q8, v8)
+    assert scan.LAUNCHES["dot_rowmax_i8_wgmma"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    flat = torch.empty(v8.numel() + 16, dtype=torch.int8, device=dev)
+    vm = flat[1:1 + v8.numel()].view(v8.shape)
+    vm.copy_(v8)
+    assert not scan.wgmma_i8_ready(q8, vm)
+    got = probes.dot_rowmax(q8, vm)
+    assert scan.LAUNCHES["dot_rowmax_i8_wgmma"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes.dot_rowmax_plain(q8, vm))
+
+
+@pytest.mark.parametrize("smallq_i8c", [False, True])
+def test_store_on_second_card(dev, tmp_path, monkeypatch, smallq_i8c):
+    """A store on cuda:1 while the current device is 0 serves a batch
+    (K1 + K2) and a Q = 1 query (K3, or with PICOVDB_SMALLQ_I8C=1 K9's
+    sweep) through kernels launched on its own card, equal to the same
+    store on cuda:0. Skips on a machine with one card."""
+    import numpy as np
+
+    from picovdb_tpu_torch import PicoVectorDB
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    if smallq_i8c:
+        monkeypatch.setenv("PICOVDB_SMALLQ_I8C", "1")
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(7)
+    n, dim = 40_960, 128
+    vecs = rng.normal(size=(n, dim)).astype(np.float32)
+    q = vecs[:64] + 0.01 * rng.normal(size=(64, dim)).astype(np.float32)
+    out = {}
+    for name in ("cuda:0", "cuda:1"):
+        db = PicoVectorDB(embedding_dim=dim, device=name,
+                          storage_file=str(tmp_path / name.replace(":", "")))
+        db.upsert_columnar(vecs, ids=[str(i) for i in range(n)])
+        before = dict(scan.LAUNCHES)
+        ids, scores = db.query_columnar(q, top_k=10)
+        batch = db.last_query_debug()["strategy"]
+        one = db.query(q[0], top_k=10)
+        single = db.last_query_debug()["strategy"]
+        assert torch.cuda.current_device() == 0
+        assert scan.LAUNCHES["segmax"] > before["segmax"]
+        key = "scan_topk_i8c_sweep" if smallq_i8c else "scan_topk_i8"
+        assert scan.LAUNCHES[key] > before[key], (name, single)
+        out[name] = (ids, scores, batch, [h["_id_"] for h in one], single)
+    a, b = out["cuda:0"], out["cuda:1"]
+    assert (a[0] == b[0]).all() and np.array_equal(a[1], b[1])
+    assert a[2:] == b[2:]
