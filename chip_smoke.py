@@ -193,6 +193,33 @@ def check_segmax_keys(torch, scan, keys, keys_p, qf, rows, k: int, what):
                        - key_values(torch, scan, tk_p)).abs().max())
 
 
+def k9_template_ms(torch, scan, q8, v8, mask, k: int) -> float:
+    """K9's template (`pv_scan_topk` kind 4), which its one-query sweep
+    replaced on these shapes, run on the same inputs: held to the plain
+    version bit for bit (it still serves Q > 16, k > 128 and other
+    widths) and timed, the yardstick of the sweep's times. Its launches
+    are not counted."""
+    num_q, dim = q8.shape
+    cap = v8.shape[0]
+    chunk = scan._scan_chunk(cap, 1, num_q, k, q8.device)  # one 16-query tile
+    n = -(-cap // chunk)
+    partial = torch.empty((num_q * n * k,), dtype=torch.int64, device=q8.device)
+    vals = torch.empty((num_q, k), dtype=torch.float32, device=q8.device)
+    idx = torch.empty((num_q, k), dtype=torch.int32, device=q8.device)
+
+    def run():
+        scan._launch(q8, "fused_topk_i8c", "pv_scan_topk", scan._KIND_I8C,
+                     q8.data_ptr(), v8.data_ptr(), None, mask.data_ptr(),
+                     partial.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     num_q, cap, dim, k, chunk)
+
+    run()
+    ref = scan.fused_topk_i8c_plain(q8, v8, mask, k)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, ref[0]) and torch.equal(idx, ref[1]), "template"
+    return cuda_ms(torch, run)
+
+
 def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     """Each kernel against its plain version on the card, at main-path
     shapes; returns {kernel: (max_abs_err, ms, plain_ms)}."""
@@ -447,7 +474,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     # K9 over the column-scaled int8 mirror at Q = 1, 8, 16, k_sel 16
     # (i8c_fused_smallq at k = 10: guard 6). It ranks the exact int32
     # sums, ties to the lower row: bit for bit the plain version.
-    errs, ms, pms = [], [], []
+    errs, ms, pms, tms = [], [], [], []
     for nq1 in (1, 8, 16):
         qf = normalize_on_device(
             torch.from_numpy(rng.standard_normal((nq1, dim), dtype=np.float32))
@@ -465,12 +492,14 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         ms.append(cuda_ms(torch, lambda: scan.fused_topk_i8c(q8, v8c, mask, 16)))
         pms.append(cuda_ms(torch, lambda: scan.fused_topk_i8c_plain(
             q8, v8c, mask, 16)))
+        tms.append(k9_template_ms(torch, scan, q8, v8c, mask, 16))
     rec["fused_topk_i8c"] = entry(max(errs), ms[0], pms[0],
                                   dim + live * dim + cap + 16 * 8,
                                   2 * live * dim, "int8")
     log(f"phase 2: K9 fused_topk_i8c (one-query sweep) = plain bit for bit "
         f"at Q=1,8,16 k_sel=16 (ms {', '.join(f'{m:.4f}' for m in ms)}; "
-        f"bound {rec['fused_topk_i8c']['bound_ms']:.4f} ms at Q=1; plain "
+        f"bound {rec['fused_topk_i8c']['bound_ms']:.4f} ms at Q=1; the "
+        f"template it replaced {', '.join(f'{m:.4f}' for m in tms)}; plain "
         f"{', '.join(f'{m:.4f}' for m in pms)}; K3 at Q=1 "
         f"{rec['fused_topk_i8']['ms']:.4f})")
     del corpus, lp, v8, vs, v4, vs4, v8c
@@ -1417,7 +1446,7 @@ def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
         assert torch.equal(got, ref), f"K10 keys differ in rows {s}.."
         err10 = max(err10, exact_err(torch, got, ref))
     del keys
-    err9 = 0.0
+    err9, sweep_ms, tmpl_ms = 0.0, [], []
     for nq in (1, 16):
         before = scan.LAUNCHES["scan_topk_i8c_sweep"]
         got = scan.fused_topk_i8c(qq[:nq], v8c, act, 16)
@@ -1426,11 +1455,17 @@ def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
             f"K9 differs at Q={nq} on the store's mirror"
         err9 = max(err9, exact_err(torch, got[0], ref[0]))
+        q1 = qq[:nq]
+        sweep_ms.append(cuda_ms(torch, lambda: scan.fused_topk_i8c(q1, v8c, act,
+                                                                   16)))
+        tmpl_ms.append(k9_template_ms(torch, scan, q1, v8c, act, 16))
     for name, err in (("segmax_scan_i8c", err10), ("fused_topk_i8c", err9)):
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
     return (f"; K10 keys (2048 queries) and K9 (one-query sweep, Q=1, 16, "
             f"k_sel 16) = plain bit for bit over the store's "
-            f"{v8c.shape[0]}-row mirror")
+            f"{v8c.shape[0]}-row mirror, K9 at Q=1, 16 {sweep_ms[0]:.4f}, "
+            f"{sweep_ms[1]:.4f} ms, the template it replaced "
+            f"{tmpl_ms[0]:.4f}, {tmpl_ms[1]:.4f} ms")
 
 
 def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
