@@ -19,13 +19,13 @@ kernels those paths run:
 
 Each wrapper checks its inputs, allocates the outputs, and for a CUDA
 tensor launches its kernel on that tensor's device and its current stream
-(`_launch`, raising on a launch error) and adds one to `LAUNCHES[name]`. For a CPU tensor it runs the
-kernel's plain PyTorch version beside it, which follows the kernel's
-decomposition (per-segment top-2 on packed keys for K1/K5, chunked
-partial top-k plus merge for K3/K4/K6, the two nibble planes and the
-8 * sum(q) bias fold for K6) so the CPU tests exercise the key packing,
-decode and merge logic the kernels rely on. There is no fallback from a
-CUDA tensor to a plain version.
+(`_launch`, raising on a launch error) and adds one to `LAUNCHES[name]`.
+For a CPU tensor it runs the kernel's plain PyTorch version beside it,
+which follows the kernel's decomposition (per-segment top-2 on packed
+keys for K1/K5, chunked partial top-k plus merge for K3/K4/K6, the two
+nibble planes and the 8 * sum(q) bias fold for K6) so the CPU tests
+exercise the key packing, decode and merge logic the kernels rely on.
+There is no fallback from a CUDA tensor to a plain version.
 
 The `make_*` factories compose the kernels into the serving routes
 (normalize -> select -> exact float32 or dequantizing rescore ->
@@ -564,26 +564,22 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     if sweep:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
         chunk, nchunks = sweep_partition(cap, sms)
+        entry, head = "pv_sweep_topk_i8c", (q.data_ptr(), vectors.data_ptr())
     else:
         q_tiles = -(-num_q // (16 if k <= 128 else 2))
         chunk = _scan_chunk(cap, q_tiles, num_q, k, q.device)
         nchunks = -(-cap // chunk)
+        entry, head = "pv_scan_topk", (
+            kind, q.data_ptr(), vectors.data_ptr(),
+            vscale.data_ptr() if vscale is not None else None)
     partial = torch.empty((num_q * nchunks * k,), dtype=torch.int64,
                           device=q.device)
     vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
-    if sweep:
-        _launch(q, name, "pv_sweep_topk_i8c", q.data_ptr(), vectors.data_ptr(),
-                mask.data_ptr(), partial.data_ptr(), vals.data_ptr(),
-                idx.data_ptr(), num_q, cap, dim, k, chunk)
-        LAUNCHES["scan_topk_i8c_sweep"] += 1
-    else:
-        _launch(q, name, "pv_scan_topk", kind, q.data_ptr(),
-                vectors.data_ptr(),
-                vscale.data_ptr() if vscale is not None else None,
-                mask.data_ptr(), partial.data_ptr(), vals.data_ptr(),
-                idx.data_ptr(), num_q, cap, dim, k, chunk)
+    _launch(q, name, entry, *head, mask.data_ptr(), partial.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, chunk)
     LAUNCHES[name] += 1
+    LAUNCHES["scan_topk_i8c_sweep"] += sweep
     return vals, idx
 
 

@@ -356,20 +356,22 @@ def test_ivf_scan_topk_bounded_partials(dev, kind, monkeypatch):
 
 
 @pytest.mark.parametrize("dim", DIMS + [1024])
-@pytest.mark.parametrize("nq,k", [(1, 16), (16, 12), (5, 300)])
+@pytest.mark.parametrize("nq,k", [(1, 16), (16, 12), (5, 300), (17, 16)])
 def test_fused_topk_i8c_exact(dev, dim, nq, k):
     """K9 ranks the raw int32 sums, ties to the lower row: bit for bit its
     plain version, on the one-query sweep wherever `sweep_ready` holds
-    (Q <= 16, k <= 128, dim % 16 == 0: here dim 96 and 1024 at k 16 and
-    12), else on the template."""
+    (Q <= 16, k <= 128, dim % 16 == 0: here dim 96 and 1024 at Q 1 and
+    16), else on the template (dim 50, k 300, Q 17)."""
     q, v, mask = _data(dev, dim=dim, nq=nq)
     v8, cs = scan.quantize_cols_i8(v)
     q8 = scan.fold_queries_i8(q, cs)
+    sweep = nq <= 16 and dim % 16 == 0 and k <= 128
+    assert scan.sweep_ready(q8, v8, k) == sweep
     before = dict(scan.LAUNCHES)
     vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
     assert scan.LAUNCHES["scan_topk_i8c"] == before["scan_topk_i8c"] + 1
     assert (scan.LAUNCHES["scan_topk_i8c_sweep"]
-            - before["scan_topk_i8c_sweep"] == (dim % 16 == 0 and k <= 128))
+            - before["scan_topk_i8c_sweep"] == sweep)
     rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, k)
     torch.cuda.synchronize()
     assert torch.equal(vals, rv) and torch.equal(idx, ri)
@@ -410,24 +412,6 @@ def test_fused_topk_i8c_sweep(dev, dim, nq, k):
     torch.cuda.synchronize()
     assert torch.equal(vals, rv) and torch.equal(idx, ri)
     assert idx[0, :2].tolist()[:k] == [c - 1, c][:k]  # the tie, lower first
-
-
-@pytest.mark.parametrize("nq,k,dim", [(17, 16, 1024), (1, 16, 50),
-                                      (4, 300, 1024)])
-def test_fused_topk_i8c_template_shapes(dev, nq, k, dim):
-    """Q = 17, dim 50 and k 300 are not the sweep's: K9 keeps the
-    template, bit for bit."""
-    q, v, mask = _data(dev, dim=dim, nq=nq)
-    v8, cs = scan.quantize_cols_i8(v)
-    q8 = scan.fold_queries_i8(q, cs)
-    assert not scan.sweep_ready(q8, v8, k)
-    before = dict(scan.LAUNCHES)
-    vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
-    assert scan.LAUNCHES["scan_topk_i8c"] == before["scan_topk_i8c"] + 1
-    assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before["scan_topk_i8c_sweep"]
-    rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, k)
-    torch.cuda.synchronize()
-    assert torch.equal(vals, rv) and torch.equal(idx, ri)
 
 
 def test_fused_topk_i8c_sweep_few_live_rows(dev):
