@@ -23,18 +23,13 @@
 // What bounds it on the H100: the tensor cores' issue rate (2 Q cap dim
 // operations against a few hundred MB of operands), which is what it
 // measures: the time K1 / K5 / K10 would take with a free epilogue. The
-// int8 kind runs the mainloop K5 and K10 are to move onto.
+// int8 kind runs the mainloop K10 runs on (and K5 is to move onto).
 
 #include "tiles.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace pv {
 namespace {
-
-__device__ __forceinline__ int rowmax_key(float s) {
-  return to_sortable(__float_as_int(s));
-}
-__device__ __forceinline__ int rowmax_key(int s) { return s; }
 
 // P1's epilogue on the wgmma accumulators (layout: wgmma_tiles.cuh), for
 // either kind: per row the largest key (float32: sortable bits; int32: the
@@ -61,7 +56,7 @@ struct RowmaxTileEpi {
         for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            m = max(m, rowmax_key(acc[4 * (16 * s + j) + 2 * h + e]));
+            m = max(m, wg::order_key(acc[4 * (16 * s + j) + 2 * h + e]));
       }
       m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
       m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));

@@ -27,12 +27,12 @@
 // (classic / stream) are the same launch here; query tiles vary fastest
 // so the blocks reading one segment run together and share it in L2.
 //
-// K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are the wmma kernel
-// over a per-row int8 corpus and over the column-scaled int8 mirror. The
-// wmma and mma.sync score tiles live in tiles.cuh, shared with K8 and the
-// dot-floor probe P1, whose two kinds also run on wgmma_tiles.cuh (bf16
-// and int8 instantiations of one mainloop, the int8 one the product K5 and
-// K10 are to move onto).
+// K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are K1 over a per-row
+// int8 corpus and over the column-scaled int8 mirror. K10 runs the int8
+// instantiation of the same mainloop with SegmaxTileEpi<int>; K5, and K10
+// at widths TMA cannot read, keep the mma.sync score tile. The wmma and
+// mma.sync score tiles live in tiles.cuh, shared with K8 and the dot-floor
+// probe P1, whose two kinds also run on wgmma_tiles.cuh.
 
 #include "tiles.cuh"
 #include "wgmma_tiles.cuh"
@@ -40,20 +40,23 @@
 namespace pv {
 namespace {
 
-// K1's epilogue on the wgmma accumulators (layout: wgmma_tiles.cuh). For
-// each of its two rows and each segment of the tile that lies inside cap
-// (cap % 256 == 128 leaves a last tile's second segment out), a thread
-// packs its 32 scores of the segment (key (to_sortable(bits) & ~127) |
-// lane, KEY_MIN for masked rows after packing, as segment_top2 and the TPU
-// kernel do), keeps its top 2, merges them with the three other lanes of
-// its quad and the quad leader writes keys[q, 2 seg] and [q, 2 seg + 1].
-// Rows past Q write nothing.
+// The epilogue of K1 (float accumulators) and K10 (int32 accumulators) on
+// the wgmma accumulators (layout: wgmma_tiles.cuh). For each of its two
+// rows and each segment of the tile that lies inside cap (cap % 256 == 128
+// leaves a last tile's second segment out: its zero-filled rows score 0,
+// which would beat an all-negative segment), a thread packs its 32 scores
+// of the segment (key (order_key(acc) & ~127) | lane: K1 the sortable
+// float32 bits, K10 the raw int32 sum; KEY_MIN for masked rows after
+// packing, as segment_top2 and the TPU kernels do), keeps its top 2,
+// merges them with the three other lanes of its quad and the quad leader
+// writes keys[q, 2 seg] and [q, 2 seg + 1]. Rows past Q write nothing.
+template <class A>
 struct SegmaxTileEpi {
   const uint8_t* __restrict__ mask;
   int* __restrict__ keys;
   long ncol;  // 2 * cap / 128
 
-  __device__ __forceinline__ void tile(float (&acc)[wg::ACC], int q0, long r0,
+  __device__ __forceinline__ void tile(A (&acc)[wg::ACC], int q0, long r0,
                                        int Q, long cap) const {
     const int lane = threadIdx.x % 32, quad = lane % 4;
     const int row = q0 + 64 * (threadIdx.x / 128) +
@@ -76,8 +79,8 @@ struct SegmaxTileEpi {
         for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float sc = acc[4 * (16 * s + j) + 2 * h + e];
-            int key = (to_sortable(__float_as_int(sc)) & ~(SEG - 1)) |
+            int key = (wg::order_key(acc[4 * (16 * s + j) + 2 * h + e]) &
+                       ~(SEG - 1)) |
                       (8 * j + 2 * quad + e);
             if (!((live >> (2 * j + e)) & 1u)) key = KEY_MIN;
             if (key > m1) {
@@ -227,9 +230,17 @@ segmax_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
 // two. These are integer keys, bit for bit the TPU kernel's (its slab is
 // (n_tiles * 2 * ns, Q), per tile ns first-best rows then ns second-best;
 // here K1's (Q, 2 * cap / 128) layout, column 2 * seg + r). |s| <=
-// 127 * 127 * dim < 2^31 keeps every key above KEY_MIN. What bounds it on
-// the H100: as K5, the tensor cores' issue rate, fed from unpipelined
-// shared-memory tiles; it drops K5's row-scale read and float epilogue.
+// 127 * 127 * dim < 2^31 keeps every key above KEY_MIN.
+//
+// What bounds it on the H100: at the main-path shape (Q = 2048 per chunk,
+// 1M x 1024 mirror) a 4.3 TOP int8 product whose output is 2/128 of the
+// score matrix: the tensor cores' int8 rate (1,979 TOP/s), twice K1's.
+// Where TMA can read the operands (dim % 16 == 0, 16-byte aligned bases)
+// it runs the int8 instantiation of K1's mainloop (wgmma_tiles.cuh,
+// wgmma.m64n256k32 s8 -> s32, exact sums) with K1's register epilogue
+// over the int32 accumulators, SegmaxTileEpi<int>
+// (pv_segmax_scan_i8c_wgmma). Other widths keep this first kernel: K5's
+// block over unpipelined shared-memory tiles, without the row scale.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
@@ -411,8 +422,9 @@ extern "C" int pv_segmax_scan_wgmma(const void* q, const void* v,
                                     long long cap, int dim, void* stream) {
   using namespace pv;
   if (cap % SEG) return (int)cudaErrorInvalidValue;
-  const SegmaxTileEpi epi{static_cast<const uint8_t*>(mask),
-                          static_cast<int*>(keys), (long)(2 * (cap / SEG))};
+  const SegmaxTileEpi<float> epi{static_cast<const uint8_t*>(mask),
+                                 static_cast<int*>(keys),
+                                 (long)(2 * (cap / SEG))};
   return wg::launch_tiles<wg::Bf16>(q, v, epi, Q, cap, dim,
                                     (cudaStream_t)stream);
 }
@@ -450,6 +462,21 @@ extern "C" int pv_segmax_scan_i8c(const void* q, const void* v,
       static_cast<const uint8_t*>(mask), static_cast<int*>(keys), Q,
       (long)cap, dim, q_tiles);
   return (int)cudaGetLastError();
+}
+
+// K10 on the int8 TMA + wgmma mainloop: pv_segmax_scan_i8c's contract, for
+// dim % 16 == 0 and 16-byte aligned q and v. Returns 0, a cudaError_t, or
+// minus the CUresult of a refused tensor-map encode.
+extern "C" int pv_segmax_scan_i8c_wgmma(const void* q, const void* v,
+                                        const void* mask, void* keys, int Q,
+                                        long long cap, int dim, void* stream) {
+  using namespace pv;
+  if (cap % SEG) return (int)cudaErrorInvalidValue;
+  const SegmaxTileEpi<int> epi{static_cast<const uint8_t*>(mask),
+                               static_cast<int*>(keys),
+                               (long)(2 * (cap / SEG))};
+  return wg::launch_tiles<wg::Int8>(q, v, epi, Q, cap, dim,
+                                    (cudaStream_t)stream);
 }
 
 // K8. kind 0: postings and q float32; 1: both bfloat16; 2: column-scaled

@@ -1,42 +1,59 @@
-// K9 fused_topk_i8c at its serving shapes (Q <= 16, k <= 128, dim % 16 ==
-// 0): a one-query sweep of the column-scaled int8 mirror at HBM rate.
+// One-query sweeps of K9 fused_topk_i8c and K7 ivf_scan_topk at their
+// serving shapes (Q <= 16, k <= 128, rows of 16-byte words): every row
+// read once from device memory, at HBM rate.
 //
-// Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i8c
-// (`_scan_kernel_i8c`) on the shapes its routes use (`i8c_fused_smallq`,
-// Q <= 16 at k_sel = k + 6, and the serial Q = 1 loop). It computes what
-// pv_scan_topk kind 4 computes: per query the k best masked rows by the
-// raw int32 sum q_i8 . v_i8, ranked by int_row_key (ties to the lower
-// row), one partial of k keys per CTA, merged by launch_topk_merge. Bit
-// for bit fused_topk_i8c_plain: the keys are distinct per row, so the
-// merged set does not depend on the row ranges.
+// Replaces, on those shapes:
+//  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i8c (`_scan_kernel_i8c`,
+//    K9), on the routes `i8c_fused_smallq` (Q <= 16 at k_sel = k + 6) and
+//    the serial Q = 1 loop; pv_scan_topk kind 4 serves its other shapes;
+//  * picovdb_tpu/ops/ivf.py:probe_scan_local (`_ivf_kernel`,
+//    `_ivf_kernel_i8c`, K7), the IVF ladder over the hot tiles that a
+//    device table names, at Q <= 16 (a Q = 1 probe and the small batches);
+//    pv_ivf_scan_topk (scan_topk.cu) serves k > 128 and Q > 16.
+// Both compute what their templates compute: per query the k best masked
+// rows, one partial of k keys per CTA, merged by launch_topk_merge. Three
+// element kinds: column-scaled int8 rows x folded int8 queries ranked on
+// the raw int32 sum (int_row_key, ties to the lower row; bit for bit the
+// plain versions, whose keys are distinct per row, so the merged set does
+// not depend on the row shares); float32 rows x float32 queries and bf16
+// rows x bf16 queries (the TPU kernel casts q to the postings' dtype),
+// float32 sums ranked by row_key.
 //
-// What bounds it on the H100: the bytes. At Q = 1 a row of dim bytes is
-// dim / 4 dp4a, so the sweep of the mirror from device memory (1 GB at
-// 1M x 1024, 0.31 ms at 3.35 TB/s) is the floor; at Q = 16 the 16 dp4a
-// per 4 bytes take about as long on the integer pipes. The template kernel
-// (scan_topk.cu) it replaces here held one live query in a 16-query tile,
-// so at Q = 1 15/16 of its arithmetic was wasted, and staged the corpus
-// through shared memory with two barriers per 64-byte k-step.
+// What bounds it on the H100: the bytes. At Q = 1 a 16-byte word of a row
+// is 4 FMAs (f32), 8 (bf16) or 4 __dp4a (int8), so the sweep of the rows
+// from device memory is the floor (K7 at phase 2: 40 live 1,024-row tiles
+// of 4 KB rows, 168 MB, 0.05 ms at 3.35 TB/s). The template kernel
+// (scan_topk.cu) it replaces held one live query in a 16-query tile, so at
+// Q = 1 15/16 of its arithmetic was wasted, and staged the rows through
+// shared memory with two barriers per 64-byte k-step; for K7 it also
+// launched a block for every step of the padded hot table, dead or not,
+// and merged grid_b x 8 x k keys a query.
 //
 // Design:
 //  * The query tile is sized to Q: QT = 1, 2, 4, 8 or 16, the smallest
 //    >= Q, so no lane computes for an absent query. The CTA loads its QT x
-//    dim query block once, into shared memory.
-//  * A grid of CTAS_PER_SM CTAs per SM takes contiguous 128-row-aligned
-//    row ranges (ops/scan.py::sweep_partition). A warp owns groups of RW
-//    rows: every lane reads 16-byte words of each row with non-coherent
-//    loads, two per row issued together (at dim 1024: 8 per lane, 4 KB a
-//    warp, up to 64 KB an SM across its 16 warps, above the ~25 KB that
-//    covers device-memory latency at 3.35 TB/s), skips the loads of masked
-//    rows, runs one __dp4a per 4 bytes per query, and sums each (query,
-//    row) over the warp with one __reduce_add_sync. A warp reads the mask
-//    of its 16 rows of a tile at once (one ballot). No barrier inside a
-//    128-row tile.
+//    dim query block once, into shared memory (<= QBLOCK_BYTES).
+//  * A grid of CTAS_PER_SM CTAs per SM; each takes its rows from `Rows`:
+//    K9 contiguous 128-row-aligned ranges (ops/scan.py::sweep_partition),
+//    K7 a share of the live hot tiles' rows, a pure function of (n_hot,
+//    bn, CTAs) that every CTA evaluates after reading n_hot on the device
+//    (ops/ivf.py::ivf_sweep_partition): dead steps cost no CTA, and a
+//    query merges CTAs x k keys.
+//  * A warp owns groups of RW rows: every lane reads 16-byte words of each
+//    row with non-coherent loads, two per row issued together, skips the
+//    loads of masked rows, runs the kind's products per query, and sums
+//    each (query, row) over the warp (__reduce_add_sync, or five xor
+//    shuffles for float sums). A warp reads the mask of its 16 rows of a
+//    128-row tile at once (one ballot). No barrier inside a tile. A K7
+//    group maps to physical rows through the table once: shares start on
+//    a multiple of SHARE rows, so a group never crosses a hot tile.
 //  * Selection behind a threshold: per query a shared buffer of BUF keys
 //    admits only keys above the running k-th best (`tau`); after each tile
 //    the CTA compacts (compact_buffers) when a buffer could overflow in
 //    the next, and at the end writes its k best per query (0 where empty:
-//    a range with no live row writes an empty partial).
+//    a CTA with no live row writes an empty partial).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -49,50 +66,141 @@ constexpr int TR = 128;          // rows per tile between the CTA's barriers
 constexpr int WARP_ROWS = TR / SW_WARPS;  // 16 rows of a tile per warp
 constexpr int BUF = 256;         // candidate slots per query (>= k + TR)
 constexpr int CTAS_PER_SM = 2;   // ops/scan.py SWEEP_CTAS_PER_SM
-constexpr int DIM_MAX = 4096;    // ops/scan.py SWEEP_DIM_MAX
+constexpr int QBLOCK_BYTES = 65536;  // ops/scan.py SWEEP_QBLOCK_BYTES
+constexpr int SHARE = 16;        // ops/ivf.py IVF_SWEEP_SHARE: K7's share unit
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ uint4 ldg16(const int8_t* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-__device__ __forceinline__ int dot16(uint4 a, uint4 b, int acc) {
-  acc = __dp4a((int)a.x, (int)b.x, acc);
-  acc = __dp4a((int)a.y, (int)b.y, acc);
-  acc = __dp4a((int)a.z, (int)b.z, acc);
-  return __dp4a((int)a.w, (int)b.w, acc);
-}
-
-// Rows per warp step: 4 while the query tile is small, 2 at QT >= 8 so the
-// QT x RW sums and the loaded words stay in registers.
-template <int QT>
-struct Sweep {
-  static constexpr int RW = QT <= 4 ? 4 : 2;
-  static constexpr size_t smem(int dim) {
-    return (size_t)QT * dim + (size_t)QT * BUF * 8 + QT * 8 + QT * 4;
+// Element kinds: a 16-byte word of a row holds EPW elements; `dot` adds a
+// row word times a query word to a lane's sum, `sum` totals a (query, row)
+// over the warp, `key` is the row's selection key.
+struct Int8C {  // column-scaled int8 rows, folded int8 queries
+  typedef int Acc;
+  static constexpr int EPW = 16;
+  static __device__ __forceinline__ int dot(uint4 a, uint4 b, int acc) {
+    acc = __dp4a((int)a.x, (int)b.x, acc);
+    acc = __dp4a((int)a.y, (int)b.y, acc);
+    acc = __dp4a((int)a.z, (int)b.z, acc);
+    return __dp4a((int)a.w, (int)b.w, acc);
+  }
+  static __device__ __forceinline__ int sum(int s) {
+    return __reduce_add_sync(FULL, s);
+  }
+  static __device__ __forceinline__ u64 key(int s, uint32_t row) {
+    return int_row_key(s, row);
   }
 };
 
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+  return s;
+}
+
+struct F32 {  // float32 rows and queries
+  typedef float Acc;
+  static constexpr int EPW = 4;
+  static __device__ __forceinline__ float dot(uint4 a, uint4 b, float acc) {
+    acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
+    acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+    acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+    return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
+  }
+  static __device__ __forceinline__ float sum(float s) { return warp_sum(s); }
+  static __device__ __forceinline__ u64 key(float s, uint32_t row) {
+    return row_key(s, row);
+  }
+};
+
+// bf16 -> float32 is exact: the low or high half of a word, shifted into
+// the high 16 bits; the product of two bf16 is exact in float32.
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ float bf_fma2(uint32_t a, uint32_t b, float acc) {
+  return fmaf(bf_hi(a), bf_hi(b), fmaf(bf_lo(a), bf_lo(b), acc));
+}
+
+struct Bf16 {  // bf16 rows and queries, float32 sums
+  typedef float Acc;
+  static constexpr int EPW = 8;
+  static __device__ __forceinline__ float dot(uint4 a, uint4 b, float acc) {
+    acc = bf_fma2(a.x, b.x, acc);
+    acc = bf_fma2(a.y, b.y, acc);
+    acc = bf_fma2(a.z, b.z, acc);
+    return bf_fma2(a.w, b.w, acc);
+  }
+  static __device__ __forceinline__ float sum(float s) { return warp_sum(s); }
+  static __device__ __forceinline__ u64 key(float s, uint32_t row) {
+    return row_key(s, row);
+  }
+};
+
+// Which rows CTA c of n reads, as logical rows [beg, end) and their
+// physical rows. K9 (hot null): logical = physical, the range [c chunk,
+// min(cap, (c + 1) chunk)). K7: logical row i is lane i % bn of hot step
+// i / bn, physical row hot[i / bn] * bn + i % bn, for the live steps below
+// min(*n_hot, grid_b) (n_hot read on the device); CTA c takes the units
+// [c U / n, (c + 1) U / n) of SHARE rows, U = live steps * bn / SHARE, so
+// the shares cover the live rows once and differ by at most one unit.
+struct Rows {
+  const int* hot;
+  const int* n_hot;
+  long cap, chunk;  // K9
+  int bn, grid_b;   // K7
+
+  __device__ __forceinline__ void range(int c, int n, long* beg,
+                                        long* end) const {
+    if (!hot) {
+      *beg = (long)c * chunk;
+      *end = *beg + chunk < cap ? *beg + chunk : cap;
+      return;
+    }
+    const int live = max(0, min(*n_hot, grid_b));
+    const long units = (long)live * (bn / SHARE);
+    *beg = SHARE * ((long)c * units / n);
+    *end = SHARE * ((long)(c + 1) * units / n);
+  }
+
+  // (K7's logical rows stay below grid_b * bn <= cap < 2^31: int division)
+  __device__ __forceinline__ long phys(long i) const {
+    if (!hot) return i;
+    const int ii = (int)i;
+    return (long)hot[ii / bn] * bn + ii % bn;
+  }
+};
+
+// Rows per warp step: 4 while the query tile is small, 2 at QT >= 8 so the
+// QT x RW sums and the loaded words stay in registers. Shared memory, for
+// rows of `cpr` 16-byte words: the query block, then the buffers.
 template <int QT>
+struct Sweep {
+  static constexpr int RW = QT <= 4 ? 4 : 2;
+  static_assert(SHARE % RW == 0 && WARP_ROWS % RW == 0, "row groups");
+  static constexpr size_t smem(int cpr) {
+    return (size_t)QT * cpr * 16 + (size_t)QT * BUF * 8 + QT * 8 + QT * 4;
+  }
+};
+
+template <class K, int QT>
 __global__ void __launch_bounds__(SW_THREADS, CTAS_PER_SM)
-sweep_topk_i8c_kernel(const int8_t* __restrict__ q,
-                      const int8_t* __restrict__ v,
-                      const uint8_t* __restrict__ mask,
-                      u64* __restrict__ partial, int Q, long cap, int dim,
-                      int k, long chunk, int nchunks) {
+sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
+                  const uint8_t* __restrict__ mask, const Rows rows,
+                  u64* __restrict__ partial, int Q, int cpr, int k) {
+  typedef typename K::Acc Acc;
   constexpr int RW = Sweep<QT>::RW;
   constexpr int GROUPS = WARP_ROWS / RW;  // a warp's row groups per tile
   extern __shared__ __align__(16) unsigned char smem[];
-  const int cpr = dim / 16;  // 16-byte words per row
   uint4* qs = reinterpret_cast<uint4*>(smem);        // QT x cpr words
   u64* buf = reinterpret_cast<u64*>(qs + QT * cpr);  // QT x BUF keys
   u64* tau = buf + QT * BUF;
   int* cnt = reinterpret_cast<int*>(tau + QT);
 
-  for (int i = threadIdx.x; i < QT * cpr; i += SW_THREADS) {
-    const int qq = i / cpr;
-    qs[i] = qq < Q ? ldg16(q + (long)qq * dim + 16 * (i % cpr))
-                   : make_uint4(0u, 0u, 0u, 0u);
-  }
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < QT * cpr; i += SW_THREADS)
+    qs[i] = i / cpr < Q ? __ldg(q + i) : zero;
   if (threadIdx.x < QT) {
     cnt[threadIdx.x] = 0;
     tau[threadIdx.x] = 0ull;
@@ -100,24 +208,23 @@ sweep_topk_i8c_kernel(const int8_t* __restrict__ q,
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const long rbeg = (long)blockIdx.x * chunk;
-  const long rend = rbeg + chunk < cap ? rbeg + chunk : cap;
+  long rbeg, rend;
+  rows.range(blockIdx.x, gridDim.x, &rbeg, &rend);
   for (long t0 = rbeg; t0 < rend; t0 += TR) {
-    // the warp's rows of this tile: group g, row r is
+    // the warp's rows of this tile: group g, row r is logical row
     // t0 + g * SW_WARPS * RW + warp * RW + r; bit g * RW + r of `live`
     uint32_t live;
     {
-      const long row = t0 + (lane / RW) * SW_WARPS * RW + warp * RW + lane % RW;
-      live = __ballot_sync(0xffffffffu,
-                           lane < WARP_ROWS && row < rend && mask[row] != 0);
+      const long i = t0 + (lane / RW) * SW_WARPS * RW + warp * RW + lane % RW;
+      live = __ballot_sync(
+          FULL, lane < WARP_ROWS && i < rend && mask[rows.phys(i)] != 0);
     }
 #pragma unroll 1
     for (int g = 0; g < GROUPS; ++g) {
-      const long r0 = t0 + (long)g * SW_WARPS * RW + warp * RW;
       const uint32_t gl = (live >> (g * RW)) & ((1u << RW) - 1);
       if (!gl) continue;  // uniform: no live row in the group
-      int acc[QT][RW];
+      const long p0 = rows.phys(t0 + (long)g * SW_WARPS * RW + warp * RW);
+      Acc acc[QT][RW];
 #pragma unroll
       for (int qq = 0; qq < QT; ++qq)
 #pragma unroll
@@ -127,10 +234,10 @@ sweep_topk_i8c_kernel(const int8_t* __restrict__ q,
         uint4 x0[RW], x1[RW];
 #pragma unroll
         for (int r = 0; r < RW; ++r) {
-          const int8_t* row = v + (r0 + r) * dim + 16 * c;
+          const uint4* row = v + (p0 + r) * cpr + c;
           const bool on = (gl >> r) & 1u;
-          x0[r] = on ? ldg16(row) : zero;
-          x1[r] = on && two ? ldg16(row + 512) : zero;
+          x0[r] = on ? __ldg(row) : zero;
+          x1[r] = on && two ? __ldg(row + 32) : zero;
         }
 #pragma unroll
         for (int qq = 0; qq < QT; ++qq) {
@@ -138,7 +245,7 @@ sweep_topk_i8c_kernel(const int8_t* __restrict__ q,
           const uint4 w1 = two ? qs[qq * cpr + c + 32] : zero;
 #pragma unroll
           for (int r = 0; r < RW; ++r)
-            acc[qq][r] = dot16(x1[r], w1, dot16(x0[r], w0, acc[qq][r]));
+            acc[qq][r] = K::dot(x1[r], w1, K::dot(x0[r], w0, acc[qq][r]));
         }
       }
       // each (query, row) sum over the warp; lane (qq RW + r) % 32 admits it
@@ -146,9 +253,9 @@ sweep_topk_i8c_kernel(const int8_t* __restrict__ q,
       for (int qq = 0; qq < QT; ++qq)
 #pragma unroll
         for (int r = 0; r < RW; ++r) {
-          const int s = __reduce_add_sync(0xffffffffu, acc[qq][r]);
+          const Acc s = K::sum(acc[qq][r]);
           if (lane == (qq * RW + r) % 32 && ((gl >> r) & 1u) && qq < Q) {
-            const u64 key = int_row_key(s, (uint32_t)(r0 + r));
+            const u64 key = K::key(s, (uint32_t)(p0 + r));
             if (key > tau[qq]) buf[qq * BUF + atomicAdd(&cnt[qq], 1)] = key;
           }
         }
@@ -165,24 +272,55 @@ sweep_topk_i8c_kernel(const int8_t* __restrict__ q,
   for (int i = threadIdx.x; i < QT * k; i += SW_THREADS) {
     const int qq = i / k, j = i % k;
     if (qq < Q)
-      partial[((long)qq * nchunks + blockIdx.x) * k + j] = buf[qq * BUF + j];
+      partial[((long)qq * gridDim.x + blockIdx.x) * k + j] = buf[qq * BUF + j];
   }
 }
 
-template <int QT>
-cudaError_t launch_sweep(const void* q, const void* v, const void* mask,
-                         u64* partial, int Q, long cap, int dim, int k,
-                         long chunk, int nchunks, cudaStream_t stream) {
-  const size_t smem = Sweep<QT>::smem(dim);
+template <class K, int QT>
+cudaError_t launch_qt(const void* q, const void* v, const void* mask,
+                      const Rows& rows, u64* partial, int Q, int cpr, int k,
+                      int ctas, cudaStream_t stream) {
+  const size_t smem = Sweep<QT>::smem(cpr);
   const cudaError_t e = cudaFuncSetAttribute(
-      sweep_topk_i8c_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sweep_topk_kernel<K, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  sweep_topk_i8c_kernel<QT><<<nchunks, SW_THREADS, smem, stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(v),
-      static_cast<const uint8_t*>(mask), partial, Q, cap, dim, k, chunk,
-      nchunks);
+  sweep_topk_kernel<K, QT><<<ctas, SW_THREADS, smem, stream>>>(
+      static_cast<const uint4*>(q), static_cast<const uint4*>(v),
+      static_cast<const uint8_t*>(mask), rows, partial, Q, cpr, k);
   return cudaGetLastError();
+}
+
+// The sweep of kind K with the query tile sized to Q, then the merge of
+// the CTAs' partials into vals / idx. Refuses (cudaErrorInvalidValue) what
+// the sweep does not take: Q > 16, k > 128, rows that are not whole
+// 16-byte words, misaligned q or v, a query block above QBLOCK_BYTES.
+template <class K>
+cudaError_t sweep(const void* q, const void* v, const void* mask,
+                  const Rows& rows, void* partial, void* vals, void* idx,
+                  int Q, int dim, int k, int ctas, cudaStream_t s) {
+  if (Q > 16 || k > 128 || ctas <= 0 || dim <= 0 || dim % K::EPW ||
+      ((uintptr_t)q | (uintptr_t)v) % 16)
+    return cudaErrorInvalidValue;
+  const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
+  const int cpr = dim / K::EPW;
+  if ((long)qt * cpr * 16 > QBLOCK_BYTES) return cudaErrorInvalidValue;
+  u64* part = static_cast<u64*>(partial);
+  cudaError_t err;
+  if (qt == 1)
+    err = launch_qt<K, 1>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+  else if (qt == 2)
+    err = launch_qt<K, 2>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+  else if (qt == 4)
+    err = launch_qt<K, 4>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+  else if (qt == 8)
+    err = launch_qt<K, 8>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+  else
+    err = launch_qt<K, 16>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+  if (err != cudaSuccess) return err;
+  return launch_topk_merge(part, static_cast<float*>(vals),
+                           static_cast<int*>(idx), Q, ctas * k, k, s,
+                           std::is_same<K, Int8C>::value);
 }
 
 }  // namespace
@@ -190,39 +328,57 @@ cudaError_t launch_sweep(const void* q, const void* v, const void* mask,
 
 // K9 on the one-query sweep: q (Q, dim) folded int8 queries, v (cap, dim)
 // column-scaled int8 rows, mask (cap,) uint8; Q <= 16, k <= 128,
-// dim % 16 == 0 and <= 4096, 16-byte aligned q and v. CTA c reads rows
-// [c * chunk, min(cap, (c + 1) * chunk)) (chunk % 128 == 0; max(1,
-// ceil(cap / chunk)) CTAs); `partial` is scratch of that many * Q * k
-// uint64; vals (Q, k) float32 (the int32 sums) and idx (Q, k) int32
-// receive the result (-inf / 0 where empty). Returns the cudaError_t of
-// the launches.
+// dim % 16 == 0 with the query block (QT x dim bytes) <= 64 KB, 16-byte
+// aligned q and v. CTA c reads rows [c * chunk, min(cap, (c + 1) * chunk))
+// (chunk % 128 == 0; max(1, ceil(cap / chunk)) CTAs); `partial` is scratch
+// of that many * Q * k uint64; vals (Q, k) float32 (the int32 sums) and
+// idx (Q, k) int32 receive the result (-inf / 0 where empty). Returns the
+// cudaError_t of the launches.
 extern "C" int pv_sweep_topk_i8c(const void* q, const void* v,
                                  const void* mask, void* partial, void* vals,
                                  void* idx, int Q, long long cap, int dim,
                                  int k, long long chunk, void* stream) {
   using namespace pv;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
-  if (Q > 16 || k > 128 || cap < 0 || dim <= 0 || dim % 16 ||
-      dim > DIM_MAX || chunk <= 0 || chunk % SEG ||
-      ((uintptr_t)q | (uintptr_t)v) % 16)
-    return (int)cudaErrorInvalidValue;
+  if (cap < 0 || chunk <= 0 || chunk % SEG) return (int)cudaErrorInvalidValue;
   const long long n = (cap + chunk - 1) / chunk;
-  const int nc = n > 1 ? (int)n : 1;
+  const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
+  return (int)sweep<Int8C>(q, v, mask, rows, partial, vals, idx, Q, dim, k,
+                           n > 1 ? (int)n : 1, (cudaStream_t)stream);
+}
+
+// K7 on the one-query sweep. kind 0: postings and q float32; 1: both
+// bfloat16; 2: column-scaled int8 postings and folded int8 q (raw int32
+// scores; vals carry them as float32). postings (cap, dim) with
+// cap % bn == 0 and bn % 16 == 0, mask (cap,) uint8, hot (grid_b,) int32
+// tile ids in [0, cap / bn), n_hot (1,) int32 on the device (steps b >=
+// n_hot are dead); Q <= 16, k <= 128, rows of 16-byte words with the query
+// block (QT x dim elements) <= 64 KB, 16-byte aligned q and postings.
+// `ctas` CTAs share the live rows (ops/ivf.py::ivf_sweep_partition);
+// `partial` is scratch of Q * ctas * k uint64; vals (Q, k) float32 and idx
+// (Q, k) int32 receive the result (-inf / 0 where empty). Returns the
+// cudaError_t of the launches.
+extern "C" int pv_ivf_sweep_topk(int kind, const void* q, const void* v,
+                                 const void* mask, const void* hot,
+                                 const void* n_hot, void* partial, void* vals,
+                                 void* idx, int Q, long long cap, int dim,
+                                 int k, int bn, int grid_b, int ctas,
+                                 void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (bn <= 0 || bn % SHARE || grid_b <= 0 || cap % bn)
+    return (int)cudaErrorInvalidValue;
+  const Rows rows{static_cast<const int*>(hot), static_cast<const int*>(n_hot),
+                  (long)cap, 0, bn, grid_b};
   cudaStream_t s = (cudaStream_t)stream;
-  u64* part = static_cast<u64*>(partial);
-  cudaError_t err;
-  if (Q == 1)
-    err = launch_sweep<1>(q, v, mask, part, Q, cap, dim, k, chunk, nc, s);
-  else if (Q == 2)
-    err = launch_sweep<2>(q, v, mask, part, Q, cap, dim, k, chunk, nc, s);
-  else if (Q <= 4)
-    err = launch_sweep<4>(q, v, mask, part, Q, cap, dim, k, chunk, nc, s);
-  else if (Q <= 8)
-    err = launch_sweep<8>(q, v, mask, part, Q, cap, dim, k, chunk, nc, s);
-  else
-    err = launch_sweep<16>(q, v, mask, part, Q, cap, dim, k, chunk, nc, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_topk_merge(part, static_cast<float*>(vals),
-                                static_cast<int*>(idx), Q, nc * k, k, s,
-                                true);
+  if (kind == 0)
+    return (int)sweep<F32>(q, v, mask, rows, partial, vals, idx, Q, dim, k,
+                           ctas, s);
+  if (kind == 1)
+    return (int)sweep<Bf16>(q, v, mask, rows, partial, vals, idx, Q, dim, k,
+                            ctas, s);
+  if (kind == 2)
+    return (int)sweep<Int8C>(q, v, mask, rows, partial, vals, idx, Q, dim, k,
+                             ctas, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
-// The tensor-core product of K1 segmax_scan and of P1 dot_rowmax (bf16 and
-// int8 kinds): one persistent, warp-specialised mainloop on Hopper's TMA
-// and wgmma, over either operand type. Both replace picovdb_tpu's Pallas
-// products (`_segmax_kernel` in ops/pallas_scan.py, `_dot_kernel` and
+// The tensor-core product of K1 segmax_scan, K10 segmax_scan_i8c and P1
+// dot_rowmax (bf16 and int8 kinds): one persistent, warp-specialised
+// mainloop on Hopper's TMA and wgmma, over either operand type. They
+// replace picovdb_tpu's Pallas products (`_segmax_kernel` and
+// `_segmax_kernel_i8c` in ops/pallas_scan.py, `_dot_kernel` and
 // `_dot_kernel_i8` in bench/segmax_sweep_probe.py) and are bound by the
 // tensor cores (2 Q cap dim operations against operands read about once),
 // so the design keeps them fed: copies run ahead of the products and the
@@ -152,6 +153,13 @@ struct Int8 {
 #undef PV_WG_ACC16
 #undef PV_WG_ACC4
 #undef PV_WG_D128
+
+// The int32 whose order is an accumulator's: float32's sortable bits, or
+// the int32 sum itself (the epilogues' raw key before any lane bits).
+__device__ __forceinline__ int order_key(float s) {
+  return to_sortable(__float_as_int(s));
+}
+__device__ __forceinline__ int order_key(int s) { return s; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -42,8 +42,10 @@ _SIGNATURES = {
     "pv_segmax_scan_wgmma": [_P, _P, _P, _P, _I, _L, _I, _P],
     # q, v, vscale, mask, keys, Q, cap, dim, stream
     "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
-    # q, v, mask, keys, Q, cap, dim, stream (K10)
+    # q, v, mask, keys, Q, cap, dim, stream (K10: the mma.sync tile, and
+    # the int8 TMA + wgmma mainloop)
     "pv_segmax_scan_i8c": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "pv_segmax_scan_i8c_wgmma": [_P, _P, _P, _P, _I, _L, _I, _P],
     # keys, out_keys, out_cols, Q, C, k, stream
     "pv_topk_packed_keys": [_P, _P, _P, _I, _L, _I, _P],
     # kind (0 f32, 1 bf16, 2 int8: K3/K4; 3 packed int4: K6; 4 column-scaled
@@ -57,6 +59,10 @@ _SIGNATURES = {
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
     "pv_ivf_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                          _L, _I, _I, _P],
+    # kind, q, v, mask, hot, n_hot, partial, vals, idx, Q, cap, dim, k, bn,
+    # grid_b, ctas, stream (K7's one-query sweep: Q <= 16, k <= 128)
+    "pv_ivf_sweep_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                          _I, _I, _I, _P],
     # kind, q, v, mask, hot, n_hot, keys, Q, cap, dim, bn, grid_b, per_seg,
     # stream
     "pv_ivf_segmax": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],

@@ -17,6 +17,8 @@ re-designed for a device-resident layout):
     hot tiles:
 
       K7 `ivf_scan_topk`   csrc/scan_topk.cu  exact top-k_run per query
+                           (Q <= 16: csrc/sweep_topk.cu, see
+                           `ivf_sweep_ready`)
       K8 `ivf_segmax_scan` csrc/segmax.cu     top-`per_seg` keys per segment
 
     followed by an exact rescore (of the storage-dtype postings, or, in
@@ -222,25 +224,87 @@ def _ivf_checks(name, q, postings, mask, hot, n_hot, bn):
     return num_q, cap, dim
 
 
-def _tile_scores(q, postings, hot_b, bn):
-    """Scores of the queries against the rows of the given hot tiles, as
-    the kernels compute them: float32 sums of float32 (or bf16) products,
-    exact integer sums (int64) for int8. Returns (scores, rows)."""
-    rows = (hot_b.long()[:, None] * bn
-            + torch.arange(bn, device=q.device)).reshape(-1)
+def _row_scores(q, postings, rows):
+    """Scores of the queries against the given postings rows, as the
+    kernels compute them: float32 sums of float32 (or bf16) products,
+    exact integer sums (int64) for int8."""
     v = postings[rows]
     if q.dtype == torch.int8:
         acc = _int_acc(q.shape[1], 127 * 127)
-        sc = (q.to(acc) @ v.to(acc).T).to(torch.int64)
-    else:
-        sc = q.float() @ v.float().T
-    return sc, rows
+        return (q.to(acc) @ v.to(acc).T).to(torch.int64)
+    return q.float() @ v.float().T
+
+
+def _tile_scores(q, postings, hot_b, bn):
+    """Scores of the queries against the rows of the given hot tiles.
+    Returns (scores, rows)."""
+    rows = (hot_b.long()[:, None] * bn
+            + torch.arange(bn, device=q.device)).reshape(-1)
+    return _row_scores(q, postings, rows), rows
+
+
+# K7's one-query sweep (csrc/sweep_topk.cu SHARE): a CTA's share of the
+# live hot tiles' rows is whole units of this many rows
+IVF_SWEEP_SHARE = 16
+
+
+def ivf_sweep_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
+    """Whether K7 runs the one-query sweep (csrc/sweep_topk.cu) on these
+    contiguous operands: Q <= 16, k <= 128, rows of whole 16-byte words
+    (dim % 4 for float32, % 8 for bf16, % 16 for int8), 16-byte aligned
+    bases, and the CTA's query block (the query tile `scan.sweep_tile(Q)`
+    times a row's bytes) within `scan.SWEEP_QBLOCK_BYTES` (float32 at Q =
+    16: dim <= 1024). Other shapes (the k_sel = 544 host-rescore band,
+    groups above 16 queries) keep the template, `pv_ivf_scan_topk`."""
+    num_q, dim = q.shape
+    row_bytes = dim * q.element_size()
+    return (num_q <= _scan.SWEEP_Q_MAX and k <= _scan.SWEEP_K_MAX
+            and row_bytes % 16 == 0
+            and _scan.sweep_tile(num_q) * row_bytes <= _scan.SWEEP_QBLOCK_BYTES
+            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
+
+
+def ivf_sweep_partition(n_hot: int, bn: int, ctas: int):
+    """The sweep's shares: CTA c of `ctas` reads the logical rows [beg, end)
+    of the `n_hot` live hot steps (logical row i is row i % bn of tile
+    hot[i // bn]), whole units of IVF_SWEEP_SHARE rows dealt by integer
+    division. Together the shares cover [0, n_hot * bn) once, never reach a
+    dead step, and differ by at most one unit. The kernel evaluates the
+    same function on the device (csrc/sweep_topk.cu `Rows::range`).
+    Returns [(beg, end)] for c = 0 .. ctas - 1."""
+    units = max(0, n_hot) * (bn // IVF_SWEEP_SHARE)
+    return [(IVF_SWEEP_SHARE * (c * units // ctas),
+             IVF_SWEEP_SHARE * ((c + 1) * units // ctas)) for c in range(ctas)]
+
+
+def _plain_over_shares(q, postings, mask, hot, n_hot, k: int, bn: int,
+                       ctas: int):
+    """K7's plain version with the sweep's partials: one partial top-k per
+    share of `ivf_sweep_partition` (reads n_hot on the host), then the
+    merge."""
+    n_live = min(int(n_hot.reshape(-1)[0]), hot.shape[0])
+    cand = [torch.full((q.shape[0], 1), _I64_MIN, dtype=torch.int64,
+                       device=q.device)]  # what a CTA with no live row adds
+    for beg, end in ivf_sweep_partition(n_live, bn, ctas):
+        if beg == end:
+            continue
+        i = torch.arange(beg, end, device=q.device)
+        rows = hot.long()[i // bn] * bn + i % bn
+        keys = torch.where(mask[rows][None, :],
+                           _sel_keys(_row_scores(q, postings, rows), rows),
+                           _I64_MIN)
+        cand.append(torch.topk(keys, min(k, end - beg), dim=1).values)
+    return _merge_sel_keys(cand, k, int_scores=q.dtype == torch.int8)
 
 
 def ivf_scan_topk_plain(q, postings, mask, hot, n_hot, k: int,
-                        bn: int = IVF_BN):
+                        bn: int = IVF_BN, ctas: Optional[int] = None):
     """Plain version of K7: per hot tile (dead steps b >= n_hot score
-    nothing) a partial top-k on (score, row) keys, then the merge."""
+    nothing) a partial top-k on (score, row) keys, then the merge. With
+    `ctas`, the partials are those of the one-query sweep's `ctas` shares
+    instead (the same result: every key is distinct per row)."""
+    if ctas is not None:
+        return _plain_over_shares(q, postings, mask, hot, n_hot, k, bn, ctas)
     num_q = q.shape[0]
     grid_b = hot.shape[0]
     live_b = torch.arange(grid_b, device=q.device) < n_hot
@@ -266,14 +330,45 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
     steps b >= n_hot read nothing. Returns ((Q, k) float32 scores, -inf
     where empty; (Q, k) int32 IVF rows hot[b] * bn + lane, 0 where
     empty). Selection is exact on the scores (int8: the int32 sums), ties
-    to the lower row."""
-    num_q, cap, dim = _ivf_checks("ivf_scan_topk", q, postings, mask, hot,
-                                  n_hot, bn)
+    to the lower row. Runs the one-query sweep where `ivf_sweep_ready`
+    holds, else the template."""
+    _ivf_checks("ivf_scan_topk", q, postings, mask, hot, n_hot, bn)
     _require(0 < k <= SCAN_KSEL_MAX,
              f"ivf_scan_topk: k {k} outside 1..{SCAN_KSEL_MAX}")
     if not q.is_cuda:
         return ivf_scan_topk_plain(q, postings, mask, hot, n_hot, k, bn)
     q = q.contiguous()
+    sweep = ivf_sweep_ready(q, postings, k)
+    launch = _ivf_sweep_launch if sweep else _ivf_template_launch
+    vals, idx = launch(q, postings, mask, hot, n_hot, k, bn)
+    _scan.LAUNCHES["ivf_scan_topk"] += 1
+    _scan.LAUNCHES["ivf_scan_topk_sweep"] += sweep
+    return vals, idx
+
+
+def _ivf_sweep_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
+    """K7's one-query sweep on checked CUDA operands, uncounted:
+    SWEEP_CTAS_PER_SM CTAs per SM share the live rows."""
+    num_q, dim = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    ctas = _scan.SWEEP_CTAS_PER_SM * sms
+    partial = torch.empty((num_q * ctas * k,), dtype=torch.int64,
+                          device=q.device)
+    vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
+    _launch(q, "ivf_scan_topk", "pv_ivf_sweep_topk", _KINDS[q.dtype],
+            q.data_ptr(), postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
+            n_hot.data_ptr(), partial.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), num_q, postings.shape[0], dim, k, bn,
+            hot.shape[0], ctas)
+    return vals, idx
+
+
+def _ivf_template_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
+    """K7's template (csrc/scan_topk.cu) on checked CUDA operands,
+    uncounted: every step of the hot table over `split` blocks."""
+    num_q, dim = q.shape
+    cap = postings.shape[0]
     grid_b = hot.shape[0]
     # each tile over `split` blocks (k <= 128: 16-query tiles, few blocks
     # per probe otherwise; wider k runs 2-query tiles, whose per-block
@@ -295,7 +390,6 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
                 hot.data_ptr(), n_hot.data_ptr(), partial.data_ptr(),
                 vals[g0].data_ptr(), idx[g0].data_ptr(), nq, cap, dim, k, bn,
                 grid_b, split)
-    _scan.LAUNCHES["ivf_scan_topk"] += 1
     return vals, idx
 
 

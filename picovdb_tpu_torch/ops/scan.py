@@ -16,6 +16,7 @@ kernels those paths run:
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
                         (Q <= 16: csrc/sweep_topk.cu, see `sweep_ready`)
   K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
+                        (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`)
 
 Each wrapper checks its inputs, allocates the outputs, and for a CUDA
 tensor launches its kernel on that tensor's device and its current stream
@@ -54,12 +55,17 @@ SEG = 128  # rows per segmax segment
 # "segmax" and "dot_rowmax" count K1 / P1 (both kinds) on either product;
 # the "_wgmma" keys count the TMA + wgmma mainloop alone (see `wgmma_ready`,
 # `wgmma_i8_ready`): "dot_rowmax_wgmma" P1-bf16's, "dot_rowmax_i8_wgmma"
-# P1-int8's. "scan_topk_i8c" counts every K9 launch, "scan_topk_i8c_sweep"
-# those of its one-query sweep (see `sweep_ready`).
+# P1-int8's, "segmax_i8c_wgmma" K10's ("segmax_i8c" counts every K10
+# launch). "scan_topk_i8c" counts every K9 launch, "scan_topk_i8c_sweep"
+# those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
+# K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
+# `ivf_sweep_ready`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "topk_keys": 0, "scan_topk": 0,
             "scan_topk_i8": 0, "segmax_i8": 0, "scan_topk_i4": 0,
-            "ivf_scan_topk": 0, "ivf_segmax": 0,  # K7, K8: ops/ivf.py
+            "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
+            "ivf_segmax": 0,  # K8: ops/ivf.py
             "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
+            "segmax_i8c_wgmma": 0,
             "dot_rowmax": 0, "dot_rowmax_wgmma": 0,  # P1: probes.py
             "dot_rowmax_i8_wgmma": 0}
 # Requests whose k_sel exceeded SCAN_KSEL_MAX and went to the plain exact
@@ -331,11 +337,11 @@ def wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
 
 
 def wgmma_i8_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
-    """Whether P1-int8 runs the mainloop's int8 instantiation on these
-    contiguous int8 operands: rows of int8 are a multiple of 16 bytes at
-    dim % 16 == 0, and both bases 16-byte aligned. Otherwise it runs the
-    mma.sync tile (csrc/tiles.cuh `score_tile_i8`, which K5, K8 and K10
-    still use)."""
+    """Whether K10 and P1-int8 run the mainloop's int8 instantiation on
+    these contiguous int8 operands: rows of int8 are a multiple of 16 bytes
+    at dim % 16 == 0, and both bases 16-byte aligned. Otherwise they run
+    the mma.sync tile (csrc/tiles.cuh `score_tile_i8`, which K5 and K8
+    still use everywhere)."""
     return _tma_ready(queries, vectors, 16)
 
 
@@ -460,12 +466,24 @@ def segmax_scan_i8c(q_i8: torch.Tensor, v_i8: torch.Tensor,
     q = q_i8.contiguous()
     _require(v_i8.is_contiguous() and mask.is_contiguous(),
              "segmax_scan_i8c: vectors and mask must be contiguous")
+    wgmma = wgmma_i8_ready(q, v_i8)
+    keys = _segmax_i8c_launch(q, v_i8, mask, wgmma)
+    LAUNCHES["segmax_i8c"] += 1
+    LAUNCHES["segmax_i8c_wgmma"] += wgmma
+    return keys
+
+
+def _segmax_i8c_launch(q, v_i8, mask, wgmma: bool) -> torch.Tensor:
+    """K10's launch on checked CUDA operands, uncounted: the int8 TMA +
+    wgmma mainloop (`wgmma`) or the mma.sync tile."""
+    num_q, dim = q.shape
+    cap = v_i8.shape[0]
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
                        device=q.device)
-    _launch(q, "segmax_scan_i8c", "pv_segmax_scan_i8c", q.data_ptr(),
-            v_i8.data_ptr(), mask.data_ptr(), keys.data_ptr(), num_q, cap,
-            dim)
-    LAUNCHES["segmax_i8c"] += 1
+    _launch(q, "segmax_scan_i8c",
+            "pv_segmax_scan_i8c_wgmma" if wgmma else "pv_segmax_scan_i8c",
+            q.data_ptr(), v_i8.data_ptr(), mask.data_ptr(), keys.data_ptr(),
+            num_q, cap, dim)
     return keys
 
 
@@ -583,11 +601,19 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     return vals, idx
 
 
-# K9's one-query sweep (csrc/sweep_topk.cu): its shapes and row ranges
+# The one-query sweep of K9 and K7 (csrc/sweep_topk.cu): its shapes and
+# K9's row ranges (K7's shares: ops/ivf.py::ivf_sweep_partition)
 SWEEP_Q_MAX = 16  # query tile sized to Q: 1, 2, 4, 8 or 16
 SWEEP_K_MAX = 128
-SWEEP_DIM_MAX = 4096  # the CTA's query block (<= 64 KB) in shared memory
+SWEEP_QBLOCK_BYTES = 65536  # the CTA's query block in shared memory
+SWEEP_DIM_MAX = SWEEP_QBLOCK_BYTES // SWEEP_Q_MAX  # K9: int8 at Q = 16
 SWEEP_CTAS_PER_SM = 2
+
+
+def sweep_tile(num_q: int) -> int:
+    """The sweep's query tile for `num_q` queries: 1, 2, 4, 8 or 16, the
+    smallest >= num_q."""
+    return min(SWEEP_Q_MAX, 1 << max(0, num_q - 1).bit_length())
 
 
 def sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:

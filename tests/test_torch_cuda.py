@@ -9,13 +9,13 @@ Shapes are small; `chip_smoke.py` checks the same kernels at the main
 path's shapes. K1's keys (either product: the TMA + wgmma mainloop at
 dim % 8 == 0, the wmma tile otherwise) decode within 1e-4 of the plain
 version's, and the rows K2 picks from them rescore equal to the plain
-version's outside a 1e-4 k/k+1 gap. Tolerances: K5 / K10 keys, K9 and P1 int8 results and
-int8 / int4 scores are exact (integer sums, at most one float32
-conversion and one multiply); float32 / bf16 scores within 1e-5
-(summation order). K8's float keys also within 1e-5:
-unit-vector scores stay below 1, where summation order moves a key by at
-most one 128-ulp quantum (7.6e-6), while a TF32 product would be off by
-several 1e-5 at these widths.
+version's outside a 1e-4 k/k+1 gap. Tolerances: K5 / K10 keys, K9 and
+P1 int8 results, int8 / int4 scores, and K7's sweep on scores that are
+exact in float32 are exact (integer sums, at most one float32 conversion
+and one multiply); float32 / bf16 scores within 1e-5 (summation order).
+K8's float keys also within 1e-5: unit-vector scores stay below 1, where
+summation order moves a key by at most one 128-ulp quantum (7.6e-6),
+while a TF32 product would be off by several 1e-5 at these widths.
 """
 
 import pytest
@@ -273,19 +273,25 @@ def _ivf_data(dev, kind, dim, nq, n_tiles=16, grid_b=10, n_hot=7, seed=1):
     return q, v, mask, hot, torch.tensor([n_hot], dtype=torch.int32, device=dev)
 
 
-# (kind, Q, k): both K7 configurations (k <= 128: 16-query tiles; wider:
-# 2-query tiles), all three kinds, a query count that is not a tile multiple
+# (kind, Q, k): K7's one-query sweep where `ivf_sweep_ready` holds (Q <=
+# 16, k <= 128, dim 96; dim 50 rows are not whole 16-byte words) and its
+# template otherwise (k 300 / 544 / 200, Q 17), all three kinds
 @pytest.mark.parametrize("dim", DIMS)
 @pytest.mark.parametrize("kind,nq,k", [("f32", 1, 14), ("bf16", 16, 32),
                                        ("i8c", 16, 36), ("f32", 16, 300),
-                                       ("i8c", 3, 544), ("bf16", 5, 200)])
+                                       ("i8c", 3, 544), ("bf16", 5, 200),
+                                       ("i8c", 17, 14), ("f32", 17, 14)])
 def test_ivf_scan_topk(dev, kind, nq, k, dim):
     from picovdb_tpu_torch.ops import ivf
 
     q, v, mask, hot, n_hot = _ivf_data(dev, kind, dim, nq)
-    before = scan.LAUNCHES["ivf_scan_topk"]
+    sweep = nq <= 16 and k <= 128 and dim % 16 == 0
+    assert ivf.ivf_sweep_ready(q, v, k) == sweep
+    before = dict(scan.LAUNCHES)
     vals, idx = ivf.ivf_scan_topk(q, v, mask, hot, n_hot, k)
-    assert scan.LAUNCHES["ivf_scan_topk"] == before + 1
+    assert scan.LAUNCHES["ivf_scan_topk"] == before["ivf_scan_topk"] + 1
+    assert (scan.LAUNCHES["ivf_scan_topk_sweep"]
+            - before["ivf_scan_topk_sweep"] == sweep)
     rv, ri = ivf.ivf_scan_topk_plain(q, v, mask, hot, n_hot, k)
     torch.cuda.synchronize()
     assert torch.equal(torch.isneginf(vals), torch.isneginf(rv))
@@ -339,6 +345,77 @@ def test_ivf_segmax_scan(dev, kind, nq, per_seg, dim):
     # dead steps (columns of hot[b] with b >= n_hot) are all KEY_MIN
     ns = ivf.IVF_BN // scan.SEG
     assert not bool(live[:, int(n_hot) * per_seg * ns:].any())
+
+
+def _sweep_ivf_case(dev, kind, nq, n_hot, seed, dim=96, n_tiles=16,
+                    grid_b=10):
+    """Postings whose scores are exact in float32 in every kind (multiples
+    of 1/16 in [-1, 1]; int8: integers), so the sweep must equal the plain
+    version bit for bit and its many ties go to the lower row; an
+    unsorted hot table of grid_b tiles, the first n_hot live. Query 0's
+    largest reachable score is planted on the two rows on either side of
+    the first share boundary of the card's CTAs and of the first hot-tile
+    boundary. Returns the inputs and the two pairs of physical rows."""
+    from picovdb_tpu_torch.ops import ivf
+
+    g = torch.Generator().manual_seed(seed)
+    cap = n_tiles * ivf.IVF_BN
+    if kind == "i8c":
+        v = torch.randint(-127, 128, (cap, dim), generator=g, dtype=torch.int8)
+        q = torch.randint(-127, 128, (nq, dim), generator=g, dtype=torch.int8)
+        best = torch.where(q[0] >= 0, 127, -127).to(torch.int8)
+    else:
+        dt = torch.float32 if kind == "f32" else torch.bfloat16
+        v = (torch.randint(-16, 17, (cap, dim), generator=g) / 16).to(dt)
+        q = (torch.randint(-16, 17, (nq, dim), generator=g) / 16).to(dt)
+        best = torch.where(q[0] >= 0, 1.0, -1.0).to(dt)
+    mask = torch.rand(cap, generator=g) > 0.2
+    hot = torch.randperm(n_tiles, generator=g)[:grid_b].to(torch.int32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    live = n_hot * ivf.IVF_BN
+    ends = [e for _, e in ivf.ivf_sweep_partition(
+        n_hot, ivf.IVF_BN, scan.SWEEP_CTAS_PER_SM * sms) if 0 < e < live]
+    pairs = []
+    for b in ends[:1] + ([ivf.IVF_BN] if n_hot >= 2 else []):
+        rows = [int(hot[i // ivf.IVF_BN]) * ivf.IVF_BN + i % ivf.IVF_BN
+                for i in (b - 1, b)]
+        v[rows] = best
+        mask[rows] = True
+        pairs.append(sorted(rows))
+    n = torch.tensor([n_hot], dtype=torch.int32)
+    return (q.to(dev), v.to(dev), mask.to(dev), hot.to(dev), n.to(dev)), pairs
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "i8c"])
+@pytest.mark.parametrize("nq", [1, 8, 16])
+@pytest.mark.parametrize("k", [1, 14, 128])
+@pytest.mark.parametrize("n_hot", [0, 1, 7, 10])
+def test_ivf_scan_topk_sweep(dev, kind, nq, k, n_hot):
+    """K7's one-query sweep, bit for bit its plain version on exact scores
+    (ties to the lower row, across a share boundary of the card's CTAs and
+    across a tile boundary of the unsorted hot table), dead steps never
+    read (n_hot 0: -inf / row 0 everywhere; 10 = grid_b: none dead); the
+    sweep's counter moves."""
+    from picovdb_tpu_torch.ops import ivf
+
+    args, pairs = _sweep_ivf_case(dev, kind, nq, n_hot, seed=nq + k + n_hot)
+    assert ivf.ivf_sweep_ready(args[0], args[1], k)
+    before = scan.LAUNCHES["ivf_scan_topk_sweep"]
+    vals, idx = ivf.ivf_scan_topk(*args, k)
+    assert scan.LAUNCHES["ivf_scan_topk_sweep"] == before + 1
+    rv, ri = ivf.ivf_scan_topk_plain(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, rv) and torch.equal(idx, ri)
+    if n_hot == 0:
+        assert bool(torch.isneginf(vals).all()) and not bool(idx.any())
+    hot, mask = args[3], args[2]
+    got = idx[torch.isfinite(vals)].long()
+    assert bool(mask[got].all())
+    live_tiles = set(hot[:n_hot].tolist())
+    assert set((got // ivf.IVF_BN).tolist()) <= live_tiles
+    if pairs:  # query 0's planted ties, the lowest rows first
+        tops = sorted(r for p in pairs for r in p)[:k]
+        assert idx[0, :len(tops)].tolist() == tops
 
 
 @pytest.mark.parametrize("kind", ["f32", "i8c"])
@@ -431,13 +508,66 @@ def test_fused_topk_i8c_sweep_few_live_rows(dev):
 
 @pytest.mark.parametrize("dim", DIMS + [1024])
 def test_segmax_scan_i8c_keys_exact(dev, dim):
+    """K10's keys bit for bit the plain version's: on the int8 mainloop at
+    dim % 16 == 0 (96, 1024), on the mma.sync tile at dim 50."""
     q, v, mask = _data(dev, dim=dim, nq=200)
     v8, cs = scan.quantize_cols_i8(v)
     q8 = scan.fold_queries_i8(q, cs)
-    before = scan.LAUNCHES["segmax_i8c"]
+    before = dict(scan.LAUNCHES)
     keys = scan.segmax_scan_i8c(q8, v8, mask)
-    assert scan.LAUNCHES["segmax_i8c"] == before + 1
+    assert scan.LAUNCHES["segmax_i8c"] == before["segmax_i8c"] + 1
+    assert (scan.LAUNCHES["segmax_i8c_wgmma"] - before["segmax_i8c_wgmma"]
+            == (dim % 16 == 0))
     ref = scan.segmax_scan_i8c_plain(q8, v8, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref)
+
+
+@pytest.mark.parametrize("dim", [1024, 96])
+@pytest.mark.parametrize("nq", [17, 200, 2048])
+def test_segmax_scan_i8c_wgmma(dev, dim, nq):
+    """K10 on the int8 mainloop: partial 128-query tiles (17, 200) and the
+    serving chunk (2048), cap % 256 == 128 (the last tile's second segment
+    lies past cap), a fully masked segment; keys bit for bit the plain
+    version's."""
+    q, v, mask = _data(dev, cap=8320, dim=dim, nq=nq, seed=nq)
+    mask[256:384] = False
+    v8, cs = scan.quantize_cols_i8(v)
+    q8 = scan.fold_queries_i8(q, cs)
+    assert scan.wgmma_i8_ready(q8, v8)
+    before = scan.LAUNCHES["segmax_i8c_wgmma"]
+    keys = scan.segmax_scan_i8c(q8, v8, mask)
+    assert scan.LAUNCHES["segmax_i8c_wgmma"] == before + 1
+    ref = scan.segmax_scan_i8c_plain(q8, v8, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref)
+    assert bool((keys[:, 4:6] == scan.KEY_MIN).all())
+
+
+def test_segmax_scan_i8c_all_negative(dev):
+    """Every sum negative, at cap % 256 == 128 and Q = 17: the zero-filled
+    rows past cap and past Q (sums of 0) must never enter a key. A view 1
+    byte off 16-byte alignment takes the mma.sync tile; both bit for bit
+    the plain version."""
+    q, v, mask = _data(dev, cap=4224, dim=768, nq=17)
+    q8 = -scan.quantize_rows_i8(q)[0].abs()
+    v8 = scan.quantize_rows_i8(v)[0].abs()
+    v8[:, 0] = 1  # every row meets a query's -127 at least once: sums < 0
+    q8[:, 0] = -127
+    ref = scan.segmax_scan_i8c_plain(q8, v8, mask)
+    live = ref != scan.KEY_MIN
+    assert bool((ref[live] < 0).all())
+    before = scan.LAUNCHES["segmax_i8c_wgmma"]
+    keys = scan.segmax_scan_i8c(q8, v8, mask)
+    assert scan.LAUNCHES["segmax_i8c_wgmma"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref)
+    flat = torch.empty(v8.numel() + 16, dtype=torch.int8, device=dev)
+    vm = flat[1:1 + v8.numel()].view(v8.shape)
+    vm.copy_(v8)
+    assert not scan.wgmma_i8_ready(q8, vm)
+    keys = scan.segmax_scan_i8c(q8, vm, mask)
+    assert scan.LAUNCHES["segmax_i8c_wgmma"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(keys, ref)
 
