@@ -18,7 +18,9 @@ round trip (phase 8), the opt-in selection tiers A/B over one 1M x 1024
 float32 corpus (phase 9: defaults, PICOVDB_SEGMAX_I8, the column-scaled
 int8 routes, scan_mode="approx"), and the two bench probes (phase 10).
 Launch counts are zeroed just before each path and read just after it.
-Every phase prints its lines; any failure raises and the script exits
+Where a kernel was redesigned, the kernel it replaced at those shapes is
+held to the same plain version and timed beside it on the same inputs
+(K9, K7: the template; K10: the mma.sync tile). Every phase prints its lines; any failure raises and the script exits
 non-zero without a result line. It imports neither JAX nor picovdb_tpu,
 and refuses to run without a card.
 
@@ -69,8 +71,10 @@ KERNELS = {
     # wgmma mainloop (csrc/wgmma_tiles.cuh) wherever dim % 8 == 0, and the
     # wmma tile it keeps for other widths, which phase 3b's dim-1020 store
     # drives ("segmax_wmma": K1 launches less the wgmma ones). P1 has a row
-    # per kind, both on the mainloop; K9's row is its one-query sweep
-    # (csrc/sweep_topk.cu), which serves every Q <= 16 call of phase 9.
+    # per kind, both on the mainloop, and so does K10 (its int8
+    # instantiation). K9's and K7's rows are their one-query sweep
+    # (csrc/sweep_topk.cu), which serves every Q <= 16 call of phases 9 and
+    # 7 / 8.
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "segmax_scan_wmma": ("segmax_wmma", "picovdb_tpu_torch/csrc/segmax.cu",
@@ -85,14 +89,15 @@ KERNELS = {
                        "picovdb_tpu/ops/pallas_scan.py:960", 4),
     "fused_topk_i4": ("scan_topk_i4", "picovdb_tpu_torch/csrc/scan_topk.cu",
                       "picovdb_tpu/ops/pallas_scan.py:1315", 5),
-    "ivf_scan_topk": ("ivf_scan_topk", "picovdb_tpu_torch/csrc/scan_topk.cu",
+    "ivf_scan_topk": ("ivf_scan_topk_sweep",
+                      "picovdb_tpu_torch/csrc/sweep_topk.cu",
                       "picovdb_tpu/ops/ivf.py:1237", 7),
     "ivf_segmax_scan": ("ivf_segmax", "picovdb_tpu_torch/csrc/segmax.cu",
                         "picovdb_tpu/ops/ivf.py:1492", 7),
     "fused_topk_i8c": ("scan_topk_i8c_sweep",
                        "picovdb_tpu_torch/csrc/sweep_topk.cu",
                        "picovdb_tpu/ops/pallas_scan.py:1705", 9),
-    "segmax_scan_i8c": ("segmax_i8c", "picovdb_tpu_torch/csrc/segmax.cu",
+    "segmax_scan_i8c": ("segmax_i8c_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                         "picovdb_tpu/ops/pallas_scan.py:1528", 9),
     "dot_rowmax": ("dot_rowmax_wgmma", "picovdb_tpu_torch/csrc/probe.cu",
                    "bench/segmax_sweep_probe.py:73", 10),
@@ -126,11 +131,77 @@ def card_line() -> str:
     return out[0].strip()
 
 
+# The instantiations whose registers and spills phase 1 reports: the
+# mainloop's (K1, K10, P1) and the one-query sweep's (K9, K7)
+PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel")
+
+
+def ptxas_report(log_path) -> str:
+    """Registers and spill bytes of each PTXAS_KERNELS instantiation, from
+    the kernel build's `-Xptxas -v` report (ops/_build.py keeps it beside
+    the library), and the count of C7514 warnings (wgmma serialised)."""
+    text = open(log_path).read()
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line and name:
+            parts = line.replace(",", "").split()
+            spill = int(parts[parts.index("spill") - 2]) + int(
+                parts[parts.index("loads") - 3])
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            if any(k in name for k in PTXAS_KERNELS):
+                rows.append((name, regs, spill))
+            name = None
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    names = [r[0] for r in rows]
+    if os.path.exists(filt) and names:
+        out = subprocess.run([filt, *names], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(out) == len(names):
+            names = [n.replace("pv::<unnamed>::", "").replace("(int)", "")
+                     .replace("wg::", "").removeprefix("void ")
+                     .split(">(")[0] + ">" for n in out]
+    parts = [f"{n} {regs} registers / {sp} spill bytes"
+             for n, (_, regs, sp) in zip(names, rows)]
+    return (f"{'; '.join(parts)}; C7514 warnings "
+            f"{text.count('C7514')}")
+
+
 def cuda_ms(torch, fn, reps: int = 10) -> float:
     """Median per-call time of `fn` over `reps` runs, by CUDA events."""
     from picovdb_tpu_torch.probes import cuda_ms as timed
 
     return timed(fn, reps)
+
+
+def device_split(torch, fn, reps: int = 20) -> str:
+    """The device time a call of `fn` spends in each kernel, by kernel
+    name, from torch.profiler's CUDA activity over `reps` calls after a
+    warm-up; what is left of `cuda_ms`'s time a call is the host's
+    enqueue and the gaps it leaves. "not measured" where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        if us > 0:
+            head = ev.key.split("<")[0].replace("(anonymous namespace)", "")
+            words = head.split("(")[0].split("::")[-1].split()
+            name = words[-1] if words else ev.key[:40]
+            per[name] = per.get(name, 0.0) + us / reps
+    if not per:
+        return "device split not measured"
+    return ("device us a call (torch.profiler): "
+            + ", ".join(f"{n} {us:.1f}" for n, us in sorted(per.items())))
 
 
 def ids_agree(torch, ids_a, ids_b, vals_b, k: int) -> float:
@@ -326,14 +397,20 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         f"plain {rec['segmax_scan_i8']['plain_ms']:.4f} ms)")
 
     # K10 over the column-scaled int8 mirror at Q = 2048 (segmax_i8c: the
-    # same keys route through K2 at k_sel = k + 8): integer keys, so bit
-    # for bit the plain version's
+    # same keys route through K2 at k_sel = k + 8) on the int8 mainloop:
+    # integer keys, so bit for bit the plain version's. The mma.sync tile
+    # it replaced at these widths is held to the same keys and timed on the
+    # same inputs (uncounted).
     v8c, cs = scan.quantize_cols_i8(corpus)
     q8c = scan.fold_queries_i8(q, cs)
+    before = scan.LAUNCHES["segmax_i8c_wgmma"]
     keys = scan.segmax_scan_i8c(q8c, v8c, mask)
+    assert scan.LAUNCHES["segmax_i8c_wgmma"] == before + 1, "K10 missed wgmma"
     keys_p = scan.segmax_scan_i8c_plain(q8c, v8c, mask)
+    keys_t = scan._segmax_i8c_launch(q8c, v8c, mask, False)
     torch.cuda.synchronize()
     assert torch.equal(keys, keys_p), "segmax_scan_i8c keys differ"
+    assert torch.equal(keys_t, keys_p), "K10's mma.sync tile keys differ"
     err10 = exact_err(torch, keys, keys_p)
     tk, ti = scan.topk_packed_keys(keys, k + 8)
     assert torch.equal(tk, scan.topk_packed_keys_plain(keys, k + 8)[0])
@@ -341,10 +418,14 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         err10, cuda_ms(torch, lambda: scan.segmax_scan_i8c(q8c, v8c, mask)),
         cuda_ms(torch, lambda: scan.segmax_scan_i8c_plain(q8c, v8c, mask)),
         nq * dim + live * dim + cap + slab, 2 * nq * live * dim, "int8")
-    del keys, keys_p
-    log(f"phase 2: K10 segmax_scan_i8c keys = plain bit for bit at Q=2048 "
-        f"cap={cap} ({rec['segmax_scan_i8c']['ms']:.4f} ms, plain "
-        f"{rec['segmax_scan_i8c']['plain_ms']:.4f} ms; K5 "
+    tile_ms = cuda_ms(torch, lambda: scan._segmax_i8c_launch(q8c, v8c, mask,
+                                                             False))
+    del keys, keys_p, keys_t
+    k10 = rec["segmax_scan_i8c"]
+    log(f"phase 2: K10 segmax_scan_i8c (int8 TMA + wgmma) keys = plain bit "
+        f"for bit at Q=2048 cap={cap} ({k10['ms']:.4f} ms, bound "
+        f"{k10['bound_ms']:.4f} ms; the mma.sync tile it replaced "
+        f"{tile_ms:.4f} ms, same keys; plain {k10['plain_ms']:.4f} ms; K5 "
         f"{rec['segmax_scan_i8']['ms']:.4f}, K1 {rec['segmax_scan']['ms']:.4f})")
 
     # P1 over the whole corpus at Q = 2048: the product alone. int8 row
@@ -493,6 +574,9 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         pms.append(cuda_ms(torch, lambda: scan.fused_topk_i8c_plain(
             q8, v8c, mask, 16)))
         tms.append(k9_template_ms(torch, scan, q8, v8c, mask, 16))
+        if nq1 == 1:
+            split9 = device_split(torch, lambda: scan.fused_topk_i8c(
+                q8, v8c, mask, 16))
     rec["fused_topk_i8c"] = entry(max(errs), ms[0], pms[0],
                                   dim + live * dim + cap + 16 * 8,
                                   2 * live * dim, "int8")
@@ -501,7 +585,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         f"bound {rec['fused_topk_i8c']['bound_ms']:.4f} ms at Q=1; the "
         f"template it replaced {', '.join(f'{m:.4f}' for m in tms)}; plain "
         f"{', '.join(f'{m:.4f}' for m in pms)}; K3 at Q=1 "
-        f"{rec['fused_topk_i8']['ms']:.4f})")
+        f"{rec['fused_topk_i8']['ms']:.4f}; at Q=1 {split9})")
     del corpus, lp, v8, vs, v4, vs4, v8c
     torch.cuda.empty_cache()
     return rec
@@ -536,41 +620,73 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
         return q.to(kinds[kind].dtype)
 
     # K7 at Q = 1 and 16 with k_sel 14 and 32 (the float and int8 guard
-    # bands at k = 10), and Q = 16, k_sel 544 (the int4 host-rescore band)
-    errs, lines, first = [], [], None
+    # bands at k = 10) on its one-query sweep, and Q = 16, k_sel 544 (the
+    # int4 host-rescore band) on its template. Where the sweep serves, the
+    # template it replaced is held to the same plain result and timed on
+    # the same inputs (uncounted).
+    def check_k7(kind, vals, idx, rv, ri, k, what):
+        assert torch.equal(torch.isneginf(vals), torch.isneginf(rv[:, :k])), what
+        if kind == "i8c":  # integer scores, ties to the lower row
+            assert torch.equal(vals, rv[:, :k]) and torch.equal(idx, ri[:, :k]), what
+            err = 0.0
+        else:
+            fin = torch.isfinite(vals)
+            err = float((vals[fin] - rv[:, :k][fin]).abs().max())
+            assert err <= TOL_SCORE, f"{what} scores differ by {err}"
+            assert ids_agree(torch, idx, ri, rv, k) == 0.0, what
+        got = idx[torch.isfinite(vals)].long()
+        assert bool((mask & live_rows)[got].all()), f"{what}: dead row"
+        return err
+
+    errs, lines, first = [], [], {}
     for kind in kinds:
         for nq, k in ((1, 14), (16, 14), (1, 32), (16, 32), (16, 544)):
             qf = normalize_on_device(torch.from_numpy(
                 rng.standard_normal((nq, dim), dtype=np.float32)).to(device))
             qs, vv = scan_inputs(kind, qf), kinds[kind]
+            sweep = k <= scan.SWEEP_K_MAX
+            before = scan.LAUNCHES["ivf_scan_topk_sweep"]
             vals, idx = ivf.ivf_scan_topk(qs, vv, mask, hot, n_hot, k)
+            assert scan.LAUNCHES["ivf_scan_topk_sweep"] == before + sweep, \
+                f"K7 {kind} Q={nq} k_sel={k}: sweep {sweep} expected"
             rv, ri = ivf.ivf_scan_topk_plain(qs, vv, mask, hot, n_hot, k + 1)
             torch.cuda.synchronize()
-            assert torch.equal(torch.isneginf(vals), torch.isneginf(rv[:, :k]))
-            if kind == "i8c":  # integer scores, ties to the lower row
-                assert torch.equal(vals, rv[:, :k]) and torch.equal(idx, ri[:, :k])
-                err = 0.0
-            else:
-                fin = torch.isfinite(vals)
-                err = float((vals[fin] - rv[:, :k][fin]).abs().max())
-                assert err <= TOL_SCORE, f"K7 {kind} scores differ by {err}"
-                assert ids_agree(torch, idx, ri, rv, k) == 0.0, f"K7 {kind}"
-            got = idx[torch.isfinite(vals)].long()
-            assert bool((mask & live_rows)[got].all()), f"K7 {kind} dead row"
-            errs.append(err)
+            errs.append(check_k7(kind, vals, idx, rv, ri, k, f"K7 {kind}"))
             ms = cuda_ms(torch, lambda: ivf.ivf_scan_topk(qs, vv, mask, hot,
                                                           n_hot, k))
             pms = cuda_ms(torch, lambda: ivf.ivf_scan_topk_plain(
                 qs, vv, mask, hot, n_hot, k))
-            first = first or (ms, pms)
-            lines.append(f"{kind} Q={nq} k_sel={k} {ms:.4f} ms (plain "
-                         f"{pms:.4f})")
+            line = f"{kind} Q={nq} k_sel={k} {ms:.4f} ms"
+            if (nq, k) == (1, 14):
+                line += " [" + device_split(torch, lambda: ivf.ivf_scan_topk(
+                    qs, vv, mask, hot, n_hot, k)) + "]"
+            if sweep:
+                def tmpl():
+                    return ivf._ivf_template_launch(qs, vv, mask, hot, n_hot,
+                                                    k, bn)
+                tv, ti = tmpl()
+                torch.cuda.synchronize()
+                check_k7(kind, tv, ti, rv, ri, k, f"K7's template {kind}")
+                line += f" (template {cuda_ms(torch, tmpl):.4f})"
+            else:
+                line += " (template)"
+            lines.append(f"{line}, plain {pms:.4f}")
+            first.setdefault(kind, (ms, pms))
     hot_live = int((mask & live_rows).sum())  # the live hot tiles' live rows
-    rec["ivf_scan_topk"] = entry(max(errs), first[0], first[1],
-                                 dim * 4 + hot_live * dim * 4 + cap + 14 * 8,
-                                 2 * hot_live * dim, "f32")
+
+    def k7_entry(kind, err):  # the Q = 1, k_sel 14 call of one kind
+        es = kinds[kind].element_size()
+        return entry(err, *first[kind],
+                     dim * es + hot_live * dim * es + cap + 14 * 8,
+                     2 * hot_live * dim, {"f32": "f32", "bf16": "bf16",
+                                          "i8c": "int8"}[kind])
+
+    rec["ivf_scan_topk"] = k7_entry("f32", max(errs))
+    bounds = ", ".join(f"{kind} {k7_entry(kind, 0.0)['bound_ms']:.4f}"
+                       for kind in kinds)
     log(f"phase 2: K7 ivf_scan_topk agrees over {cap} x {dim} postings, 40 "
-        f"of 64 hot tiles live: " + "; ".join(lines))
+        f"of 64 hot tiles live (bound ms at Q=1 k_sel=14: {bounds}): "
+        + "; ".join(lines))
 
     # K8 at Q = 64 with per_seg 4 and 8
     q64 = normalize_on_device(torch.from_numpy(
@@ -765,11 +881,22 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
                                 10, "K1 (wgmma) on the store's mirror")
     rec["segmax_scan"]["max_abs_err"] = max(rec["segmax_scan"]["max_abs_err"],
                                             err1)
+    # K2 on this chunk's slab (k_sel 16) and K4 on the unfiltered Q = 64,
+    # top-32 batch (k_sel 36 over the bf16 mirror), at this phase's shapes
+    cap3, live3 = dev.active.shape[0], int(dev.active.sum())
+    k2_ms = cuda_ms(torch, lambda: scan.topk_packed_keys(keys, 16))
+    k2_bound = entry(0.0, 0, 0, keys.numel() * 4 + 2048 * 16 * 8, 0,
+                     "int8")["bound_ms"]
+    q64f = qf[:64].contiguous()
+    k4_ms = cuda_ms(torch, lambda: scan.fused_topk(q64f, dev.vectors_lp,
+                                                   dev.active, 36))
+    k4_bound = entry(0.0, 0, 0, 64 * dim * 4 + live3 * dim * 2 + cap3
+                     + 64 * 36 * 8, 2 * 64 * live3 * dim, "bf16")["bound_ms"]
     del keys, keys_p
     k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(qb, dev.vectors_lp,
                                                     dev.active))
     chunk_ms = batch_s / 4 * 1e3
-    del qb, qf
+    del qb, qf, q64f
     log(f"phase 3: main path at {n} x {dim}: routes segmax_mixed_stream, "
         f"i8_fused_smallq, fview_segmax, mixed_fused_batch_filtered, "
         f"mixed_fused_batch; recall@10 {recall:.4f} vs float64 (filter view "
@@ -778,7 +905,9 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     log(f"phase 3: K1 (wgmma) keys at Q=2048 over the store's "
         f"{dev.vectors_lp.shape[0]}-row mirror agree with the plain version "
         f"(max |dkey value| {err1:.3g}, KEY_MIN pattern equal, K2 + rescored "
-        f"rows = plain outside the gap)")
+        f"rows = plain outside the gap); at this phase's shapes K2 "
+        f"{k2_ms:.4f} ms (bound {k2_bound:.4f}) on the chunk's slab, K4 "
+        f"{k4_ms:.4f} ms (bound {k4_bound:.4f}) at Q=64 k_sel=36")
 
     # save, reload into a fresh instance, same answers
     probe = qdev[64:72].cpu().numpy()
@@ -1048,6 +1177,15 @@ def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
                 & {f"w{i}" for i in gone})
     counts = dict(scan.LAUNCHES)
     assert counts["scan_topk_i4"] > 0, "fused_topk_i4 never launched"
+    # K6 alone at this phase's Q = 1 shape (k_sel = k + 4 over the packed
+    # plane), after the count
+    q8_1, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:1]))
+    k6_ms = cuda_ms(torch, lambda: scan.fused_topk_i4(
+        q8_1, dev.vectors, dev.vstore_scale, dev.active, 14))
+    live5 = int(dev.active.sum())
+    k6_bound = entry(0.0, 0, 0, dim + live5 * (dim // 2 + 4)
+                     + dev.active.shape[0] + 14 * 8,
+                     2 * live5 * dim, "int8")["bound_ms"]
     gb = dev.vectors.numel() / 2**30
     log(f"phase 5: int4 storage, device-born, {n} x {dim} ({gb:.2f} GiB "
         f"packed plane): route i4stor_fused at Q=1 and 2048; ids = float64 "
@@ -1055,7 +1193,8 @@ def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
         f"{recall:.4f} vs the original float rows; delete ok; launches "
         f"{counts}")
     log(f"phase 5: rows made + packed on the card in {make_s:.2f} s, "
-        f"ingest_device {ingest_s:.2f} s; Q=1 latency {q1_ms:.4f} ms; batch "
+        f"ingest_device {ingest_s:.2f} s; Q=1 latency {q1_ms:.4f} ms (K6 "
+        f"alone {k6_ms:.4f} ms, bound {k6_bound:.4f}); batch "
         f"{2048 / batch_s:.1f} QPS (query_columnar, 2048 queries); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
         f" card {card}")
@@ -1081,24 +1220,105 @@ def mixture_chunks(torch, device, n: int, dim: int, seed: int,
                                                    device=device))
 
 
-def probed_slots(torch, db, qn, n_slots: int):
-    """(n_slots,) bool: the corpus slots the IVF kernels scan for the
-    batch `qn` (normalized, on the card): the probe preamble's row mask
-    cut to the hot tiles it keeps."""
+def store_probe(db, qn):
+    """The probe preamble of the IVF store `db` for the batch `qn`
+    (normalized, on the card), as its route runs it: (row_mask, hot,
+    n_hot, grid_b)."""
     from picovdb_tpu_torch.ops import ivf as tivf
 
     x = db._ivf
     npb = tivf.ef_to_nprobe(db._ef_search, x.nlist)
-    row_mask, hot, n_hot, _ = tivf._probe_preamble(
+    return tivf._probe_preamble(
         qn, x.centroids, x.active, x.seg_starts, x.cluster2tile, nprobe=npb,
         nlist=x.nlist, g_tiles=x.g_tiles(qn.shape[0], npb),
         cap_ivf=x.active.shape[0], n_tiles=x.n_tiles, bn=tivf.IVF_BN)
-    tiles = torch.zeros(x.n_tiles, dtype=torch.bool, device=qn.device)
+
+
+def scanned_rows(torch, db, row_mask, hot, n_hot):
+    """(cap_ivf,) bool: the postings rows the IVF kernels scan, the probe's
+    row mask cut to the live hot tiles."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    tiles = torch.zeros(db._ivf.n_tiles, dtype=torch.bool,
+                        device=row_mask.device)
     tiles[hot[: int(n_hot)].long()] = True
-    scanned = row_mask & tiles.repeat_interleave(tivf.IVF_BN)
+    return row_mask & tiles.repeat_interleave(tivf.IVF_BN)
+
+
+def probed_slots(torch, db, qn, n_slots: int):
+    """(n_slots,) bool: the corpus slots the IVF kernels scan for the
+    batch `qn` (normalized, on the card)."""
+    row_mask, hot, n_hot, _ = store_probe(db, qn)
+    scanned = scanned_rows(torch, db, row_mask, hot, n_hot)
     m = torch.zeros(n_slots, dtype=torch.bool, device=qn.device)
-    m[x.slots[scanned]] = True
+    m[db._ivf.slots[scanned]] = True
     return m
+
+
+def ivf_kernels_on_store(torch, scan, db, qn) -> str:
+    """K7 on one Q = 1 call's own inputs on the IVF store `db`: the probe
+    preamble's hot table for the first of the normalized queries `qn`, the
+    postings and query the route scans, k_sel of k = 10 with the route's
+    guard. The sweep (the route's kernel) and the template it replaced are
+    held to the plain version (int8 postings: bit for bit) and timed; then
+    K8 is timed on the first 32-query chunk's own inputs. Returns the
+    phase line's text. Run after the path's count."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    x = db._ivf
+    q1 = qn[:1]
+    row_mask, hot, n_hot, grid_b = store_probe(db, q1)
+    qs, vs = tivf._scan_inputs(q1, x.vectors, x.vectors_i8c, x.cscale)
+    k = 10 + tivf._ivf_guard(x.vectors_i8c is not None, x.dim)
+
+    def sweep():
+        return tivf.ivf_scan_topk(qs, vs, row_mask, hot, n_hot, k)
+
+    def template():
+        return tivf._ivf_template_launch(qs, vs, row_mask, hot, n_hot, k,
+                                         tivf.IVF_BN)
+
+    before = scan.LAUNCHES["ivf_scan_topk_sweep"]
+    got = {"sweep": sweep(), "template": template()}
+    assert scan.LAUNCHES["ivf_scan_topk_sweep"] == before + 1, "K7 sweep"
+    rv, ri = tivf.ivf_scan_topk_plain(qs, vs, row_mask, hot, n_hot, k + 1)
+    torch.cuda.synchronize()
+    for what, (vals, idx) in got.items():
+        assert torch.equal(torch.isneginf(vals), torch.isneginf(rv[:, :k]))
+        if vs.dtype == torch.int8:
+            assert torch.equal(vals, rv[:, :k]) and torch.equal(idx, ri[:, :k]), what
+        else:
+            fin = torch.isfinite(vals)
+            err = float((vals[fin] - rv[:, :k][fin]).abs().max())
+            assert err <= TOL_SCORE, f"K7 {what} on the store: {err}"
+            assert ids_agree(torch, idx, ri, rv, k) == 0.0, what
+    ms, tms = cuda_ms(torch, sweep), cuda_ms(torch, template)
+    split = device_split(torch, sweep)
+    pms = cuda_ms(torch, lambda: tivf.ivf_scan_topk_plain(
+        qs, vs, row_mask, hot, n_hot, k))
+    live = int(scanned_rows(torch, db, row_mask, hot, n_hot).sum())
+    es, dim = vs.element_size(), vs.shape[1]
+    kind = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+    bound = entry(0.0, ms, pms, dim * es + live * dim * es + vs.shape[0]
+                  + k * 8, 2 * live * dim, kind[vs.dtype])["bound_ms"]
+    # K8 on the first 32-query chunk's own inputs (the segmax route's
+    # depth, keys out)
+    m8, h8, n8, g8 = store_probe(db, qn[:32])
+    q32, _ = tivf._scan_inputs(qn[:32], x.vectors, x.vectors_i8c, x.cscale)
+    k8_ms = cuda_ms(torch, lambda: tivf.ivf_segmax_scan(
+        q32, vs, m8, h8, n8, tivf.SEGMAX_DEPTH))
+    live8 = int(scanned_rows(torch, db, m8, h8, n8).sum())
+    ncol = g8 * tivf.SEGMAX_DEPTH * (tivf.IVF_BN // scan.SEG)
+    k8_bound = entry(0.0, 0, 0, 32 * dim * es + live8 * dim * es
+                     + vs.shape[0] + 32 * ncol * 4, 2 * 32 * live8 * dim,
+                     kind[vs.dtype])["bound_ms"]
+    return (f"; K7 on a Q=1 call's own hot table (grid_b {grid_b}, n_hot "
+            f"{int(n_hot)}, {live} live rows, {kind[vs.dtype]} postings, "
+            f"k_sel {k}): sweep {ms:.4f} ms [{split}], the template it "
+            f"replaced {tms:.4f} ms, plain {pms:.4f} ms, bound {bound:.4f} "
+            f"ms; K8 on a 32-query chunk's own hot table (grid_b {g8}, n_hot "
+            f"{int(n8)}, {live8} live rows): {k8_ms:.4f} ms, bound "
+            f"{k8_bound:.4f} ms")
 
 
 def oracle_masked(torch, chunks, queries, masks, k: int = 11):
@@ -1202,6 +1422,7 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str):
     recall = recall_at_10(got1, oi[:, :10], "p")
     assert recall >= 0.95, recall
     del corpus_dev, chunks, m1, mb
+    k7 = ivf_kernels_on_store(torch, scan, db, qn)
 
     # 1000 upserts: the incremental path, and the new rows are found
     new = np.concatenate([r.cpu().numpy() for _, r in mixture_chunks(
@@ -1222,7 +1443,7 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str):
         f"upserts incremental and found; launches {counts}")
     log(f"phase 7: Q=1 latency {q1_ms:.4f} ms (CUDA events around "
         f"PicoVectorDB.query); batch {1024 / batch_s:.1f} QPS "
-        f"(query_columnar, 1024 queries in 32-query chunks); card {card}")
+        f"(query_columnar, 1024 queries in 32-query chunks){k7}; card {card}")
     del db, corpus
     shutil.rmtree(tmp)
     return counts
@@ -1274,7 +1495,8 @@ def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str):
     db.query_columnar(qs, top_k=10, batch_size=32)
     batch_s = time.perf_counter() - t0
     counts = dict(scan.LAUNCHES)
-    assert counts["ivf_scan_topk"] > 0 and counts["ivf_segmax"] > 0, counts
+    for key in ("ivf_scan_topk", "ivf_scan_topk_sweep", "ivf_segmax"):
+        assert counts[key] > 0, f"{key} never launched on the IVF path"
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     step = 131_072
@@ -1301,6 +1523,7 @@ def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str):
     _, oi = oracle_masked(torch, mixture_chunks(torch, device, n, dim, SEED + 9),
                           qn[:64], None)
     recall = recall_at_10(got1, oi[:, :10], "w")
+    k7 = ivf_kernels_on_store(torch, scan, db, qn)
     log(f"phase 8: IVF int8-only layout over a device-born {n} x {dim} int4 "
         f"store, index=ivf: built at the first sync ({first_s:.2f} s), nlist "
         f"{op['nlist']}, nprobe {op['nprobe_default']}, postings "
@@ -1310,7 +1533,7 @@ def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str):
         f"recall@10 {recall:.4f} vs the original float rows; launches {counts}")
     log(f"phase 8: Q=1 latency {q1_ms:.4f} ms; batch {1024 / batch_s:.1f} QPS "
         f"(query_columnar, 1024 queries in 32-query chunks); peak device "
-        f"memory {peak:.2f} GiB; card {card}")
+        f"memory {peak:.2f} GiB{k7}; card {card}")
     del db, dev
     torch.cuda.empty_cache()
     return counts
@@ -1395,10 +1618,32 @@ TIERS = [
     ("c PICOVDB_SEGMAX_I8C=1 PICOVDB_SMALLQ_I8C=1",
      {"PICOVDB_SEGMAX_I8C": "1", "PICOVDB_SMALLQ_I8C": "1"}, {},
      "segmax_i8c_stream", "i8c_fused_smallq",
-     ("segmax_i8c", "topk_keys", "scan_topk_i8c")),
+     ("segmax_i8c", "segmax_i8c_wgmma", "topk_keys", "scan_topk_i8c",
+      "scan_topk_i8c_sweep")),
     ("d scan_mode=approx", {}, {"scan_mode": "approx"}, "xla_approx",
      "xla_approx", ()),
 ]
+
+
+def route_bounds(dev, name: str) -> str:
+    """The least times (bound_ms, by `entry`) of the store's route kernels
+    at its own shapes: the batch kernel at one 2048-query chunk, the Q = 1
+    kernel at k_sel of k = 10 with the route's guard, over the live rows;
+    the yardstick beside `route_kernel_ms`."""
+    cap, dim = dev.active.shape[0], dev.vectors.shape[1]
+    live = int(dev.active.sum())
+    slab, nq, ops = 2048 * 2 * (cap // 128) * 4, 2048, 2 * 2048 * live * dim
+    rows = {"a": [("K1", nq * dim * 2 + live * dim * 2 + cap + slab, ops,
+                   "bf16"),
+                  ("K3", dim + live * (dim + 4) + cap + 14 * 8,
+                   2 * live * dim, "int8")],
+            "b": [("K5", nq * dim + live * (dim + 4) + cap + slab, ops,
+                   "int8")],
+            "c": [("K10", nq * dim + live * dim + cap + slab, ops, "int8"),
+                  ("K9", dim + live * dim + cap + 16 * 8, 2 * live * dim,
+                   "int8")]}.get(name[0], [])
+    return ", ".join(f"{k} {entry(0.0, 0.0, 0.0, b, o, t)['bound_ms']:.4f}"
+                     for k, b, o, t in rows) or "n/a"
 
 
 def route_kernel_ms(torch, scan, dev, qdev, name: str):
@@ -1438,14 +1683,20 @@ def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
 
     qq = scan.fold_queries_i8(normalize_on_device(qdev[:2048]), dev.cscale)
     v8c, act = dev.vectors_i8c, dev.active
+    before = scan.LAUNCHES["segmax_i8c_wgmma"]
     keys = scan.segmax_scan_i8c(qq, v8c, act)
+    assert scan.LAUNCHES["segmax_i8c_wgmma"] == before + 1, "K10 missed wgmma"
     err10, step = 0.0, 131_072
     for s in range(0, v8c.shape[0], step):
         ref = scan.segmax_scan_i8c_plain(qq, v8c[s:s + step], act[s:s + step])
         got = keys[:, 2 * s // scan.SEG:][:, :ref.shape[1]]
         assert torch.equal(got, ref), f"K10 keys differ in rows {s}.."
         err10 = max(err10, exact_err(torch, got, ref))
+    # the mma.sync tile K10 ran before, on the same chunk (uncounted)
+    assert torch.equal(scan._segmax_i8c_launch(qq, v8c, act, False), keys)
     del keys
+    tile_ms = cuda_ms(torch, lambda: scan._segmax_i8c_launch(qq, v8c, act,
+                                                             False))
     err9, sweep_ms, tmpl_ms = 0.0, [], []
     for nq in (1, 16):
         before = scan.LAUNCHES["scan_topk_i8c_sweep"]
@@ -1461,9 +1712,11 @@ def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
         tmpl_ms.append(k9_template_ms(torch, scan, q1, v8c, act, 16))
     for name, err in (("segmax_scan_i8c", err10), ("fused_topk_i8c", err9)):
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-    return (f"; K10 keys (2048 queries) and K9 (one-query sweep, Q=1, 16, "
-            f"k_sel 16) = plain bit for bit over the store's "
-            f"{v8c.shape[0]}-row mirror, K9 at Q=1, 16 {sweep_ms[0]:.4f}, "
+    return (f"; K10 keys (2048 queries, int8 TMA + wgmma) and K9 (one-query "
+            f"sweep, Q=1, 16, k_sel 16) = plain bit for bit over the store's "
+            f"{v8c.shape[0]}-row mirror, the mma.sync tile K10 replaced "
+            f"{tile_ms:.4f} ms a chunk (same keys), K9 at Q=1, 16 "
+            f"{sweep_ms[0]:.4f}, "
             f"{sweep_ms[1]:.4f} ms, the template it replaced "
             f"{tmpl_ms[0]:.4f}, {tmpl_ms[1]:.4f} ms")
 
@@ -1538,6 +1791,10 @@ def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
                 assert counts[key] > 0, f"{key} never launched on store {name}"
             k_ms, q1_k_ms = route_kernel_ms(torch, scan, db._dev, qdev, name)
             if name.startswith("c"):  # after the count: not the path's
+                chunk_ms = batch_s / 4 * 1e3
+                extra += (f"; K10 {k_ms:.4f} ms of a {chunk_ms:.3f} ms "
+                          f"2048-query chunk of wall "
+                          f"({100 * k_ms / chunk_ms:.1f} %)")
                 extra += check_i8c_on_store(torch, scan, db._dev, qdev, rec)
         finally:
             for e, v in saved.items():
@@ -1554,7 +1811,8 @@ def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
             f" (Q=1); recall@10 {recall:.4f} vs float64; batch "
             f"{8192 / batch_s:.1f} QPS; Q=1 latency {q1_ms:.4f} ms; route "
             f"kernel {fmt(k_ms)} ms per 2048-query chunk, Q=1 selection "
-            f"kernel {fmt(q1_k_ms)} ms; insert {n / insert_s:.1f} vec/s"
+            f"kernel {fmt(q1_k_ms)} ms (bound ms at these shapes: "
+            f"{route_bounds(db._dev, name)}); insert {n / insert_s:.1f} vec/s"
             f"{extra}; launches {counts}")
         del db
         torch.cuda.empty_cache()
@@ -1677,6 +1935,7 @@ def main() -> int:
     _build.library()
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.2f} s"
         f" (nvcc {_build.build_seconds if _build.build_seconds else 0.0:.2f} s)")
+    log(f"phase 1: ptxas: {ptxas_report(_build.build().parent / 'ptxas.log')}")
 
     rng = np.random.default_rng(SEED)
     rec = phase_kernels(torch, scan, device, PHASE2_CAP, DIM, rng)
