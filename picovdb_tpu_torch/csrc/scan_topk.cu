@@ -34,8 +34,10 @@
 // A first, simple kernel: no tensor cores, no TMA, no pipelining yet.
 //
 // K7 ivf_scan_topk (pv_ivf_scan_topk, below) is the same kernel over the
-// IVF tier's hot tiles. It replaces picovdb_tpu/ops/ivf.py:probe_scan_local
-// (`_ivf_kernel`, `_ivf_kernel_i8c`): a "chunk" is one postings tile of
+// IVF tier's hot tiles, for the shapes its one-query sweep (sweep_topk.cu:
+// Q <= 16, k <= 128, rows of 16-byte words) does not take. It replaces
+// picovdb_tpu/ops/ivf.py:probe_scan_local (`_ivf_kernel`,
+// `_ivf_kernel_i8c`): a "chunk" is one postings tile of
 // `bn` rows, named by the device table hot[c]; blocks with c >= *n_hot
 // (read on the device) score nothing and write an empty partial, which
 // the merge reads like any other. Row ids are hot[c] * bn + lane. A tile
