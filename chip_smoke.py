@@ -20,7 +20,7 @@ int8 routes, scan_mode="approx"), and the two bench probes (phase 10).
 Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
-(K9, K7: the template; K10: the mma.sync tile). Every phase prints its lines; any failure raises and the script exits
+(K9, K7, K6: the template; K10: the mma.sync tile). Every phase prints its lines; any failure raises and the script exits
 non-zero without a result line. It imports neither JAX nor picovdb_tpu,
 and refuses to run without a card.
 
@@ -74,7 +74,9 @@ KERNELS = {
     # per kind, both on the mainloop, and so does K10 (its int8
     # instantiation). K9's and K7's rows are their one-query sweep
     # (csrc/sweep_topk.cu), which serves every Q <= 16 call of phases 9 and
-    # 7 / 8.
+    # 7 / 8. K6 has a row per kernel: the sweep's int4 kind serves phase
+    # 5's Q = 1 calls, the tensor-core scan (csrc/scan_i4_wgmma.cu) its
+    # 2048- and 256-query batches.
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "segmax_scan_wmma": ("segmax_wmma", "picovdb_tpu_torch/csrc/segmax.cu",
@@ -87,8 +89,12 @@ KERNELS = {
                    "picovdb_tpu/ops/pallas_scan.py:226", 3),
     "segmax_scan_i8": ("segmax_i8", "picovdb_tpu_torch/csrc/segmax.cu",
                        "picovdb_tpu/ops/pallas_scan.py:960", 4),
-    "fused_topk_i4": ("scan_topk_i4", "picovdb_tpu_torch/csrc/scan_topk.cu",
+    "fused_topk_i4": ("scan_topk_i4_sweep",
+                      "picovdb_tpu_torch/csrc/sweep_topk.cu",
                       "picovdb_tpu/ops/pallas_scan.py:1315", 5),
+    "fused_topk_i4_wgmma": ("scan_topk_i4_wgmma",
+                            "picovdb_tpu_torch/csrc/scan_i4_wgmma.cu",
+                            "picovdb_tpu/ops/pallas_scan.py:1315", 5),
     "ivf_scan_topk": ("ivf_scan_topk_sweep",
                       "picovdb_tpu_torch/csrc/sweep_topk.cu",
                       "picovdb_tpu/ops/ivf.py:1237", 7),
@@ -119,6 +125,14 @@ def entry(err, ms, plain_ms, nbytes, ops, kind, library_ms=None) -> dict:
             "library_ms": library_ms}
 
 
+def launch_counts(scan) -> dict:
+    """The launch counters, with each kernel's launches by shape under
+    "shapes" (ops/scan.py::LAUNCH_SHAPES): rule 2 weighs a launch at the
+    shape it was made at."""
+    return {**scan.LAUNCHES,
+            "shapes": {k: dict(v) for k, v in scan.LAUNCH_SHAPES.items()}}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -132,8 +146,9 @@ def card_line() -> str:
 
 
 # The instantiations whose registers and spills phase 1 reports: the
-# mainloop's (K1, K10, P1) and the one-query sweep's (K9, K7)
-PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel")
+# mainloop's (K1, K10, P1), the one-query sweep's (K9, K7, K6 at Q <= 16)
+# and K6's tensor-core scan's
+PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel")
 
 
 def ptxas_report(log_path) -> str:
@@ -161,7 +176,7 @@ def ptxas_report(log_path) -> str:
                              timeout=60).stdout.splitlines()
         if len(out) == len(names):
             names = [n.replace("pv::<unnamed>::", "").replace("(int)", "")
-                     .replace("wg::", "").removeprefix("void ")
+                     .replace("wg::", "").replace("i4::", "").removeprefix("void ")
                      .split(">(")[0] + ">" for n in out]
     parts = [f"{n} {regs} registers / {sp} spill bytes"
              for n, (_, regs, sp) in zip(names, rows)]
@@ -270,21 +285,11 @@ def k9_template_ms(torch, scan, q8, v8, mask, k: int) -> float:
     version bit for bit (it still serves Q > 16, k > 128 and other
     widths) and timed, the yardstick of the sweep's times. Its launches
     are not counted."""
-    num_q, dim = q8.shape
-    cap = v8.shape[0]
-    chunk = scan._scan_chunk(cap, 1, num_q, k, q8.device)  # one 16-query tile
-    n = -(-cap // chunk)
-    partial = torch.empty((num_q * n * k,), dtype=torch.int64, device=q8.device)
-    vals = torch.empty((num_q, k), dtype=torch.float32, device=q8.device)
-    idx = torch.empty((num_q, k), dtype=torch.int32, device=q8.device)
-
     def run():
-        scan._launch(q8, "fused_topk_i8c", "pv_scan_topk", scan._KIND_I8C,
-                     q8.data_ptr(), v8.data_ptr(), None, mask.data_ptr(),
-                     partial.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                     num_q, cap, dim, k, chunk)
+        return scan._template_launch(q8, v8, None, mask, k, scan._KIND_I8C,
+                                     "fused_topk_i8c")
 
-    run()
+    vals, idx = run()
     ref = scan.fused_topk_i8c_plain(q8, v8, mask, k)
     torch.cuda.synchronize()
     assert torch.equal(vals, ref[0]) and torch.equal(idx, ref[1]), "template"
@@ -524,20 +529,42 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         f"{ms_bf:.4f} ms (plain {pms_bf:.4f}); f32 Q=16 k_sel=1024 "
         f"{ms_f32:.4f} ms (plain {pms_f32:.4f})")
 
-    # K6 over the packed int4 rows at Q = 1, 8, 16, k_sel = 14 (i4stor_fused
-    # at k = 10) and Q = 16, k_sel = 1024 (the widest the kernel serves)
+    # K6 over the packed int4 rows at k_sel = 14 (i4stor_fused at k = 10):
+    # Q = 1, 8, 16 on the one-query sweep's int4 kind, Q = 2048 (a
+    # query_columnar batch) on the tensor-core scan, both bit for bit the
+    # plain version (exact int32 sums, one conversion and one multiply,
+    # ties to the lower row), with the template they replaced held to the
+    # same result and timed on the same inputs (uncounted); and Q = 16,
+    # k_sel = 1024 (the widest the template serves)
     v4, vs4 = scan.quantize_rows_i4(corpus)
-    errs, ms, pms = [], [], []
-    for nq in (1, 8, 16):
-        qf = normalize_on_device(
+    errs, ms, pms, tms = [], [], [], []
+    for nq in (1, 8, 16, 2048):
+        qf = q if nq == 2048 else normalize_on_device(
             torch.from_numpy(rng.standard_normal((nq, dim), dtype=np.float32))
             .to(device))
         q8, _ = scan.quantize_rows_i8(qf)
-        errs.append(check_scan("fused_topk_i4", q8, v4, vs4, mask, 14, qf,
-                               int4=True))
-        ms.append(cuda_ms(torch, lambda: scan.fused_topk_i4(q8, v4, vs4, mask, 14)))
+        key = "scan_topk_i4_wgmma" if nq > 16 else "scan_topk_i4_sweep"
+        before = scan.LAUNCHES[key]
+        got = scan.fused_topk_i4(q8, v4, vs4, mask, 14)
+        assert scan.LAUNCHES[key] == before + 1, f"K6 missed {key} at Q={nq}"
+        ref = scan.scan_topk_plain(q8, v4, vs4, mask, 14, int4=True)
+        tmpl = scan._template_launch(q8, v4, vs4, mask, 14, scan._KIND_I4)
+        torch.cuda.synchronize()
+        for what, r in (("K6", ref), ("K6's template", tmpl)):
+            assert torch.equal(got[0], r[0]) and torch.equal(got[1], r[1]), \
+                f"{what} differs from the plain version at Q={nq}"
+        assert bool(mask[got[1].long()].all()), "K6 returned masked rows"
+        errs.append(exact_err(torch, got[0], ref[0]))
+        reps = 10 if nq <= 16 else 5
+        ms.append(cuda_ms(torch, lambda: scan.fused_topk_i4(
+            q8, v4, vs4, mask, 14), reps))
         pms.append(cuda_ms(torch, lambda: scan.scan_topk_plain(
-            q8, v4, vs4, mask, 14, int4=True)))
+            q8, v4, vs4, mask, 14, int4=True), reps))
+        tms.append(cuda_ms(torch, lambda: scan._template_launch(
+            q8, v4, vs4, mask, 14, scan._KIND_I4), reps))
+        if nq == 1:
+            split6 = device_split(torch, lambda: scan.fused_topk_i4(
+                q8, v4, vs4, mask, 14))
     q8, _ = scan.quantize_rows_i8(q64[:16])
     errs.append(check_scan("fused_topk_i4 wide", q8, v4, vs4, mask, 1024,
                            q64[:16], int4=True))
@@ -547,10 +574,19 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["fused_topk_i4"] = entry(max(errs), ms[0], pms[0],
                                  dim + live * (dim // 2 + 4) + cap + 14 * 8,
                                  2 * live * dim, "int8")
-    log(f"phase 2: K6 fused_topk_i4 agrees at Q=1,8,16 k_sel=14 "
-        f"(ms {', '.join(f'{m:.4f}' for m in ms)}; plain "
-        f"{', '.join(f'{m:.4f}' for m in pms)}) and Q=16 k_sel=1024 "
-        f"({ms_w:.4f} ms, plain {pms_w:.4f})")
+    nq = 2048
+    rec["fused_topk_i4_wgmma"] = entry(
+        max(errs), ms[3], pms[3],
+        nq * dim + live * (dim // 2 + 4) + cap + nq * 14 * 8,
+        2 * nq * live * dim, "int8")
+    log(f"phase 2: K6 fused_topk_i4 = plain bit for bit at k_sel=14: the "
+        f"sweep at Q=1,8,16 ({', '.join(f'{m:.4f}' for m in ms[:3])} ms; "
+        f"bound {rec['fused_topk_i4']['bound_ms']:.4f} ms at Q=1), the "
+        f"tensor-core scan at Q=2048 ({ms[3]:.4f} ms, bound "
+        f"{rec['fused_topk_i4_wgmma']['bound_ms']:.4f}); the template they "
+        f"replaced {', '.join(f'{m:.4f}' for m in tms)}; plain "
+        f"{', '.join(f'{m:.4f}' for m in pms)}; template at Q=16 "
+        f"k_sel=1024 {ms_w:.4f} ms (plain {pms_w:.4f}); at Q=1 {split6})")
 
     # K9 over the column-scaled int8 mirror at Q = 1, 8, 16, k_sel 16
     # (i8c_fused_smallq at k = 10: guard 6). It ranks the exact int32
@@ -858,7 +894,7 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     gone_rows = np.asarray([int(g[1:]) for g in gone])
     back, _ = db.query_columnar(corpus[gone_rows[:256]], top_k=10)
     assert not (set(back[back != None].tolist()) & set(gone))  # noqa: E711
-    counts = dict(scan.LAUNCHES)
+    counts = launch_counts(scan)
     for name, (key, _, _, phase) in KERNELS.items():
         if phase == 3:
             assert counts[key] > 0, f"{name} never launched on the main path"
@@ -949,7 +985,7 @@ def phase_wmma_store(torch, scan, device, n: int, dim: int, rng,
     db.upsert_columnar(corpus, ids=[f"w{i}" for i in range(n)], copy=False)
     got, _ = db.query_columnar(qdev, top_k=10, batch_size=2048)
     assert db.last_query_debug()["strategy"] == "segmax_mixed_stream"
-    counts = dict(scan.LAUNCHES)
+    counts = launch_counts(scan)
     counts["segmax_wmma"] = counts["segmax"] - counts["segmax_wgmma"]
     assert counts["segmax_wmma"] > 0 and counts["segmax_wgmma"] == 0, counts
     truth = oracle_top10(torch, torch.from_numpy(corpus).to(device),
@@ -1065,7 +1101,7 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     res = db2.query(one, top_k=10)
     assert db2.last_query_debug()["strategy"] == "i8stor_fused_smallq"
     assert len(res) == 10 and res[0]["_id_"] == out_ids[0][0]
-    counts = dict(scan.LAUNCHES)
+    counts = launch_counts(scan)
     assert counts["segmax_i8"] > 0, "segmax_scan_i8 never launched"
     log(f"phase 4: int8 storage at {n} x {dim}: routes i8stor_fused_exact "
         f"(host rescore), segmax_i8stor_stream, i8stor_fused_smallq; "
@@ -1172,29 +1208,63 @@ def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
     # delete 1000 ids: none of them comes back
     gone = rng.choice(n, 1000, replace=False)
     assert len(db.delete([f"w{i}" for i in gone])) == 1000
-    back, _ = db.query_columnar(dequant(gone[:256]), top_k=10)
+    q256 = dequant(gone[:256])
+    back, _ = db.query_columnar(q256, top_k=10)
     assert not (set(back[back != None].tolist())  # noqa: E711
                 & {f"w{i}" for i in gone})
-    counts = dict(scan.LAUNCHES)
-    assert counts["scan_topk_i4"] > 0, "fused_topk_i4 never launched"
-    # K6 alone at this phase's Q = 1 shape (k_sel = k + 4 over the packed
-    # plane), after the count
-    q8_1, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:1]))
-    k6_ms = cuda_ms(torch, lambda: scan.fused_topk_i4(
-        q8_1, dev.vectors, dev.vstore_scale, dev.active, 14))
+    counts = launch_counts(scan)
+    # K6's launches by shape, from the calls above: Q = 1 by db.query once
+    # and cuda_ms's warm-up + 10 reps (the sweep), Q = 2048 by the two
+    # query_columnar calls and Q = 256 by the delete check (one launch a
+    # call each, on the tensor-core scan)
+    shapes = {1: 12, 2048: 2, 256: 1}
+    assert counts["scan_topk_i4"] == sum(shapes.values()), counts
+    assert counts["scan_topk_i4_sweep"] == shapes[1], "Q=1 missed the sweep"
+    assert counts["scan_topk_i4_wgmma"] == shapes[2048] + shapes[256], \
+        "the batches missed the tensor-core scan"
+    # K6 alone at each shape, after the count (k_sel = k + 4 over the
+    # packed plane, the phase's own queries and mask), beside the template
+    # it replaced there on the same inputs (uncounted; bit for bit the
+    # same result: both are exact)
     live5 = int(dev.active.sum())
-    k6_bound = entry(0.0, 0, 0, dim + live5 * (dim // 2 + 4)
-                     + dev.active.shape[0] + 14 * 8,
-                     2 * live5 * dim, "int8")["bound_ms"]
+    cap5 = dev.active.shape[0]
+    k6 = {}
+    # (and at Q = 16, which this phase does not launch: the sweep's widest
+    # tile against the template over the 16M rows)
+    for nq, qq in ((1, qdev[:1]), (16, qdev[:16]), (256, q256), (2048, qdev)):
+        q8s, _ = scan.quantize_rows_i8(normalize_on_device(qq))
+        got = scan.fused_topk_i4(q8s, dev.vectors, dev.vstore_scale,
+                                 dev.active, 14)
+        tmpl = scan._template_launch(q8s, dev.vectors, dev.vstore_scale,
+                                     dev.active, 14, scan._KIND_I4)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], tmpl[0]) and torch.equal(got[1], tmpl[1]), \
+            f"K6 and its template differ at Q={nq}"
+        k6[nq] = (
+            cuda_ms(torch, lambda: scan.fused_topk_i4(
+                q8s, dev.vectors, dev.vstore_scale, dev.active, 14),
+                reps=10 if nq <= 16 else 5),
+            cuda_ms(torch, lambda: scan._template_launch(
+                q8s, dev.vectors, dev.vstore_scale, dev.active, 14,
+                scan._KIND_I4), reps=10 if nq <= 16 else 3),
+            entry(0.0, 0, 0, nq * dim + live5 * (dim // 2 + 4) + cap5
+                  + nq * 14 * 8, 2 * nq * live5 * dim, "int8")["bound_ms"])
+    k6_line = "; ".join(
+        f"Q={nq} ({shapes.get(nq, 0)} launches, "
+        f"{'sweep' if nq <= 16 else 'tensor-core scan'}) {ms:.4f} ms, "
+        f"template {tm:.4f} ms, bound {bd:.4f} ms"
+        for nq, (ms, tm, bd) in k6.items())
     gb = dev.vectors.numel() / 2**30
     log(f"phase 5: int4 storage, device-born, {n} x {dim} ({gb:.2f} GiB "
         f"packed plane): route i4stor_fused at Q=1 and 2048; ids = float64 "
         f"oracle over the dequantized rows outside the gap; recall@10 "
         f"{recall:.4f} vs the original float rows; delete ok; launches "
         f"{counts}")
+    log(f"phase 5: K6 fused_topk_i4 at its shapes, k_sel=14, {live5} live "
+        f"rows: {k6_line}")
     log(f"phase 5: rows made + packed on the card in {make_s:.2f} s, "
         f"ingest_device {ingest_s:.2f} s; Q=1 latency {q1_ms:.4f} ms (K6 "
-        f"alone {k6_ms:.4f} ms, bound {k6_bound:.4f}); batch "
+        f"alone {k6[1][0]:.4f} ms, bound {k6[1][2]:.4f}); batch "
         f"{2048 / batch_s:.1f} QPS (query_columnar, 2048 queries); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
         f" card {card}")
@@ -1400,7 +1470,7 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str):
     db.query_columnar(qs[:256], top_k=10, batch_size=256)
     exact_route = db.last_query_debug()["strategy"]
     assert not exact_route.startswith("ivf"), exact_route  # union > 0.22
-    counts = dict(scan.LAUNCHES)
+    counts = launch_counts(scan)
     for name, (key, _, _, phase) in KERNELS.items():
         if phase == 7:
             assert counts[key] > 0, f"{name} never launched on the IVF path"
@@ -1494,7 +1564,7 @@ def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str):
     t0 = time.perf_counter()
     db.query_columnar(qs, top_k=10, batch_size=32)
     batch_s = time.perf_counter() - t0
-    counts = dict(scan.LAUNCHES)
+    counts = launch_counts(scan)
     for key in ("ivf_scan_topk", "ivf_scan_topk_sweep", "ivf_segmax"):
         assert counts[key] > 0, f"{key} never launched on the IVF path"
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1786,7 +1856,7 @@ def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
             extra = ""
             if name.startswith("c"):
                 extra = tiers_mutations(torch, db, new, qdev[:64], ov, oi)
-            counts = dict(scan.LAUNCHES)
+            counts = launch_counts(scan)
             for key in keys:
                 assert counts[key] > 0, f"{key} never launched on store {name}"
             k_ms, q1_k_ms = route_kernel_ms(torch, scan, db._dev, qdev, name)
@@ -1901,7 +1971,7 @@ def phase_probes(torch, scan, device, card: str):
     scan.reset_launch_counts()
     sweep = probes.segmax_sweep(device)
     stages = probes.i8c_stages(device)
-    counts = dict(scan.LAUNCHES)
+    counts = launch_counts(scan)
     assert counts["dot_rowmax"] > 0, "dot_rowmax never launched by the probes"
     assert sweep["p1_i8_equal_plain"], "P1 int8 maxima differ from plain"
     assert sweep["p1_i8_wgmma"] and counts["dot_rowmax_i8_wgmma"] > 0, \

@@ -1,8 +1,12 @@
-// One-query sweeps of K9 fused_topk_i8c and K7 ivf_scan_topk at their
-// serving shapes (Q <= 16, k <= 128, rows of 16-byte words): every row
-// read once from device memory, at HBM rate.
+// One-query sweeps of K9 fused_topk_i8c, K7 ivf_scan_topk and K6
+// fused_topk_i4 at their serving shapes (Q <= 16, k <= 128, rows of
+// 16-byte words): every row read once from device memory, at HBM rate.
 //
 // Replaces, on those shapes:
+//  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i4 (`_scan_kernel_i4`,
+//    K6), the int4 store's Q = 1 query and small batches (route
+//    `i4stor_fused` at k_sel = k + 4); pv_scan_topk kind 3 serves k > 128
+//    and widths the sweep does not take, scan_i4_wgmma.cu Q > 16;
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i8c (`_scan_kernel_i8c`,
 //    K9), on the routes `i8c_fused_smallq` (Q <= 16 at k_sel = k + 6) and
 //    the serial Q = 1 loop; pv_scan_topk kind 4 serves its other shapes;
@@ -10,18 +14,19 @@
 //    `_ivf_kernel_i8c`, K7), the IVF ladder over the hot tiles that a
 //    device table names, at Q <= 16 (a Q = 1 probe and the small batches);
 //    pv_ivf_scan_topk (scan_topk.cu) serves k > 128 and Q > 16.
-// Both compute what their templates compute: per query the k best masked
-// rows, one partial of k keys per CTA, merged by launch_topk_merge. Three
+// All compute what their templates compute: per query the k best masked
+// rows, one partial of k keys per CTA, merged by launch_topk_merge. Four
 // element kinds: column-scaled int8 rows x folded int8 queries ranked on
 // the raw int32 sum (int_row_key, ties to the lower row; bit for bit the
 // plain versions, whose keys are distinct per row, so the merged set does
 // not depend on the row shares); float32 rows x float32 queries and bf16
 // rows x bf16 queries (the TPU kernel casts q to the postings' dtype),
-// float32 sums ranked by row_key.
+// float32 sums ranked by row_key; packed int4 rows x int8 queries, the
+// template's scaled score ranked by row_key (see `Int4`).
 //
 // What bounds it on the H100: the bytes. At Q = 1 a 16-byte word of a row
-// is 4 FMAs (f32), 8 (bf16) or 4 __dp4a (int8), so the sweep of the rows
-// from device memory is the floor (K7 at phase 2: 40 live 1,024-row tiles
+// is 4 FMAs (f32), 8 (bf16), 4 __dp4a (int8) or 8 (int4), so the sweep of
+// the rows from device memory is the floor (K7 at phase 2: 40 live 1,024-row tiles
 // of 4 KB rows, 168 MB, 0.05 ms at 3.35 TB/s). The template kernel
 // (scan_topk.cu) it replaces held one live query in a 16-query tile, so at
 // Q = 1 15/16 of its arithmetic was wasted, and staged the rows through
@@ -34,13 +39,15 @@
 //    >= Q, so no lane computes for an absent query. The CTA loads its QT x
 //    dim query block once, into shared memory (<= QBLOCK_BYTES).
 //  * A grid of CTAS_PER_SM CTAs per SM; each takes its rows from `Rows`:
-//    K9 contiguous 128-row-aligned ranges (ops/scan.py::sweep_partition),
+//    K9 and K6 contiguous 128-row-aligned ranges (ops/scan.py::
+//    sweep_partition),
 //    K7 a share of the live hot tiles' rows, a pure function of (n_hot,
 //    bn, CTAs) that every CTA evaluates after reading n_hot on the device
 //    (ops/ivf.py::ivf_sweep_partition): dead steps cost no CTA, and a
 //    query merges CTAs x k keys.
 //  * A warp owns groups of RW rows: every lane reads 16-byte words of each
-//    row with non-coherent loads, two per row issued together, skips the
+//    row with non-coherent loads, two per row issued together (Int4: one,
+//    its two nibble planes split once for every query), skips the
 //    loads of masked rows, runs the kind's products per query, and sums
 //    each (query, row) over the warp (__reduce_add_sync, or five xor
 //    shuffles for float sums). A warp reads the mask of its 16 rows of a
@@ -76,6 +83,7 @@ constexpr unsigned FULL = 0xffffffffu;
 struct Int8C {  // column-scaled int8 rows, folded int8 queries
   typedef int Acc;
   static constexpr int EPW = 16;
+  static constexpr int QW = 1;  // query words a row word meets
   static __device__ __forceinline__ int dot(uint4 a, uint4 b, int acc) {
     acc = __dp4a((int)a.x, (int)b.x, acc);
     acc = __dp4a((int)a.y, (int)b.y, acc);
@@ -99,6 +107,7 @@ __device__ __forceinline__ float warp_sum(float s) {
 struct F32 {  // float32 rows and queries
   typedef float Acc;
   static constexpr int EPW = 4;
+  static constexpr int QW = 1;
   static __device__ __forceinline__ float dot(uint4 a, uint4 b, float acc) {
     acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
     acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
@@ -126,6 +135,7 @@ __device__ __forceinline__ float bf_fma2(uint32_t a, uint32_t b, float acc) {
 struct Bf16 {  // bf16 rows and queries, float32 sums
   typedef float Acc;
   static constexpr int EPW = 8;
+  static constexpr int QW = 1;
   static __device__ __forceinline__ float dot(uint4 a, uint4 b, float acc) {
     acc = bf_fma2(a.x, b.x, acc);
     acc = bf_fma2(a.y, b.y, acc);
@@ -135,6 +145,44 @@ struct Bf16 {  // bf16 rows and queries, float32 sums
   static __device__ __forceinline__ float sum(float s) { return warp_sum(s); }
   static __device__ __forceinline__ u64 key(float s, uint32_t row) {
     return row_key(s, row);
+  }
+};
+
+// Packed int4 rows (K6) against int8 queries: a 16-byte row word holds 16
+// packed bytes, 32 elements. Byte b of word c carries element 16 c + b of
+// the row's first half in its low nibble and element dim/2 + 16 c + b in
+// its high nibble, both biased by +8 (1..15), so row word c meets query
+// word c (the low plane) and query word cpr + c (the high plane): QW = 2
+// query words a row word. The masked planes are non-negative bytes, safe
+// as __dp4a's signed operand. The key is the template's: (sum - 8 sum(q))
+// converted once, times the row's scale, ranked by row_key.
+struct Int4 {
+  typedef int Acc;
+  static constexpr int EPW = 32;
+  static constexpr int QW = 2;
+  // the planes of a row word, split once and met by every query
+  static __device__ __forceinline__ uint4 low(uint4 a) {
+    const uint32_t m = 0x0F0F0F0Fu;
+    return make_uint4(a.x & m, a.y & m, a.z & m, a.w & m);
+  }
+  static __device__ __forceinline__ uint4 high(uint4 a) {
+    const uint32_t m = 0x0F0F0F0Fu;
+    return make_uint4((a.x >> 4) & m, (a.y >> 4) & m, (a.z >> 4) & m,
+                      (a.w >> 4) & m);
+  }
+  static __device__ __forceinline__ int dot(uint4 lo, uint4 hi, uint4 qlo,
+                                            uint4 qhi, int acc) {
+    acc = __dp4a((int)lo.x, (int)qlo.x, acc);
+    acc = __dp4a((int)lo.y, (int)qlo.y, acc);
+    acc = __dp4a((int)lo.z, (int)qlo.z, acc);
+    acc = __dp4a((int)lo.w, (int)qlo.w, acc);
+    acc = __dp4a((int)hi.x, (int)qhi.x, acc);
+    acc = __dp4a((int)hi.y, (int)qhi.y, acc);
+    acc = __dp4a((int)hi.z, (int)qhi.z, acc);
+    return __dp4a((int)hi.w, (int)qhi.w, acc);
+  }
+  static __device__ __forceinline__ int sum(int s) {
+    return __reduce_add_sync(FULL, s);
   }
 };
 
@@ -179,28 +227,34 @@ template <int QT>
 struct Sweep {
   static constexpr int RW = QT <= 4 ? 4 : 2;
   static_assert(SHARE % RW == 0 && WARP_ROWS % RW == 0, "row groups");
-  static constexpr size_t smem(int cpr) {
-    return (size_t)QT * cpr * 16 + (size_t)QT * BUF * 8 + QT * 8 + QT * 4;
+  // (qw query words a row word; Int4 adds each query's int8 sum)
+  static constexpr size_t smem(int cpr, int qw) {
+    return (size_t)QT * qw * cpr * 16 + (size_t)QT * BUF * 8 + QT * 8 +
+           QT * 4 + (qw == 2 ? QT * 4 : 0);
   }
 };
 
 template <class K, int QT>
 __global__ void __launch_bounds__(SW_THREADS, CTAS_PER_SM)
 sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
+                  const float* __restrict__ vscale,
                   const uint8_t* __restrict__ mask, const Rows rows,
                   u64* __restrict__ partial, int Q, int cpr, int k) {
   typedef typename K::Acc Acc;
   constexpr int RW = Sweep<QT>::RW;
   constexpr int GROUPS = WARP_ROWS / RW;  // a warp's row groups per tile
+  constexpr bool I4 = K::QW == 2;
+  const int qwords = K::QW * cpr;  // 16-byte words of a query row
   extern __shared__ __align__(16) unsigned char smem[];
-  uint4* qs = reinterpret_cast<uint4*>(smem);        // QT x cpr words
-  u64* buf = reinterpret_cast<u64*>(qs + QT * cpr);  // QT x BUF keys
+  uint4* qs = reinterpret_cast<uint4*>(smem);           // QT x qwords
+  u64* buf = reinterpret_cast<u64*>(qs + QT * qwords);  // QT x BUF keys
   u64* tau = buf + QT * BUF;
   int* cnt = reinterpret_cast<int*>(tau + QT);
+  int* qsum = cnt + QT;  // Int4: each query's int8 sum
 
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < QT * cpr; i += SW_THREADS)
-    qs[i] = i / cpr < Q ? __ldg(q + i) : zero;
+  for (int i = threadIdx.x; i < QT * qwords; i += SW_THREADS)
+    qs[i] = i / qwords < Q ? __ldg(q + i) : zero;
   if (threadIdx.x < QT) {
     cnt[threadIdx.x] = 0;
     tau[threadIdx.x] = 0ull;
@@ -208,6 +262,21 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if constexpr (I4) {  // warp w sums queries w, w + 8 from the block
+    for (int qq = warp; qq < QT; qq += SW_WARPS) {
+      int s = 0;
+      for (int c = lane; c < qwords; c += 32) {
+        const uint4 w = qs[qq * qwords + c];
+        s = __dp4a((int)w.x, 0x01010101, s);
+        s = __dp4a((int)w.y, 0x01010101, s);
+        s = __dp4a((int)w.z, 0x01010101, s);
+        s = __dp4a((int)w.w, 0x01010101, s);
+      }
+      s = __reduce_add_sync(FULL, s);
+      if (lane == 0) qsum[qq] = s;
+    }
+    __syncthreads();
+  }
   long rbeg, rend;
   rows.range(blockIdx.x, gridDim.x, &rbeg, &rend);
   for (long t0 = rbeg; t0 < rend; t0 += TR) {
@@ -224,28 +293,56 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
       const uint32_t gl = (live >> (g * RW)) & ((1u << RW) - 1);
       if (!gl) continue;  // uniform: no live row in the group
       const long p0 = rows.phys(t0 + (long)g * SW_WARPS * RW + warp * RW);
+      // Int4: the scale of the row this lane admits for (lane % RW),
+      // loaded before the products hide its latency
+      float sc = 0.0f;
+      if constexpr (I4)
+        if ((gl >> (lane % RW)) & 1u) sc = vscale[p0 + lane % RW];
       Acc acc[QT][RW];
 #pragma unroll
       for (int qq = 0; qq < QT; ++qq)
 #pragma unroll
         for (int r = 0; r < RW; ++r) acc[qq][r] = 0;
-      for (int c = lane; c < cpr; c += 64) {
-        const bool two = c + 32 < cpr;
-        uint4 x0[RW], x1[RW];
+      if constexpr (I4) {
+        // a packed row is half as long: one word a lane per row, its
+        // planes split once, row word c meeting query words c and cpr + c
+        for (int c = lane; c < cpr; c += 32) {
+          uint4 lo[RW], hi[RW];
 #pragma unroll
-        for (int r = 0; r < RW; ++r) {
-          const uint4* row = v + (p0 + r) * cpr + c;
-          const bool on = (gl >> r) & 1u;
-          x0[r] = on ? __ldg(row) : zero;
-          x1[r] = on && two ? __ldg(row + 32) : zero;
+          for (int r = 0; r < RW; ++r) {
+            const uint4 x =
+                (gl >> r) & 1u ? __ldg(v + (p0 + r) * cpr + c) : zero;
+            lo[r] = K::low(x);
+            hi[r] = K::high(x);
+          }
+#pragma unroll
+          for (int qq = 0; qq < QT; ++qq) {
+            const uint4 w = qs[qq * qwords + c];
+            const uint4 h = qs[qq * qwords + cpr + c];
+#pragma unroll
+            for (int r = 0; r < RW; ++r)
+              acc[qq][r] = K::dot(lo[r], hi[r], w, h, acc[qq][r]);
+          }
         }
+      } else {
+        for (int c = lane; c < cpr; c += 64) {
+          const bool two = c + 32 < cpr;
+          uint4 x0[RW], x1[RW];
 #pragma unroll
-        for (int qq = 0; qq < QT; ++qq) {
-          const uint4 w0 = qs[qq * cpr + c];
-          const uint4 w1 = two ? qs[qq * cpr + c + 32] : zero;
+          for (int r = 0; r < RW; ++r) {
+            const uint4* row = v + (p0 + r) * cpr + c;
+            const bool on = (gl >> r) & 1u;
+            x0[r] = on ? __ldg(row) : zero;
+            x1[r] = on && two ? __ldg(row + 32) : zero;
+          }
 #pragma unroll
-          for (int r = 0; r < RW; ++r)
-            acc[qq][r] = K::dot(x1[r], w1, K::dot(x0[r], w0, acc[qq][r]));
+          for (int qq = 0; qq < QT; ++qq) {
+            const uint4 w0 = qs[qq * qwords + c];
+            const uint4 w1 = two ? qs[qq * qwords + c + 32] : zero;
+#pragma unroll
+            for (int r = 0; r < RW; ++r)
+              acc[qq][r] = K::dot(x1[r], w1, K::dot(x0[r], w0, acc[qq][r]));
+          }
         }
       }
       // each (query, row) sum over the warp; lane (qq RW + r) % 32 admits it
@@ -255,7 +352,12 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
         for (int r = 0; r < RW; ++r) {
           const Acc s = K::sum(acc[qq][r]);
           if (lane == (qq * RW + r) % 32 && ((gl >> r) & 1u) && qq < Q) {
-            const u64 key = K::key(s, (uint32_t)(p0 + r));
+            u64 key;
+            if constexpr (I4)  // the template's line (scan_topk.cu)
+              key = row_key(__fmul_rn(__int2float_rn(s - 8 * qsum[qq]), sc),
+                            (uint32_t)(p0 + r));
+            else
+              key = K::key(s, (uint32_t)(p0 + r));
             if (key > tau[qq]) buf[qq * BUF + atomicAdd(&cnt[qq], 1)] = key;
           }
         }
@@ -277,17 +379,18 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
 }
 
 template <class K, int QT>
-cudaError_t launch_qt(const void* q, const void* v, const void* mask,
-                      const Rows& rows, u64* partial, int Q, int cpr, int k,
-                      int ctas, cudaStream_t stream) {
-  const size_t smem = Sweep<QT>::smem(cpr);
+cudaError_t launch_qt(const void* q, const void* v, const void* vscale,
+                      const void* mask, const Rows& rows, u64* partial, int Q,
+                      int cpr, int k, int ctas, cudaStream_t stream) {
+  const size_t smem = Sweep<QT>::smem(cpr, K::QW);
   const cudaError_t e = cudaFuncSetAttribute(
       sweep_topk_kernel<K, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   sweep_topk_kernel<K, QT><<<ctas, SW_THREADS, smem, stream>>>(
       static_cast<const uint4*>(q), static_cast<const uint4*>(v),
-      static_cast<const uint8_t*>(mask), rows, partial, Q, cpr, k);
+      static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
+      rows, partial, Q, cpr, k);
   return cudaGetLastError();
 }
 
@@ -296,27 +399,29 @@ cudaError_t launch_qt(const void* q, const void* v, const void* mask,
 // the sweep does not take: Q > 16, k > 128, rows that are not whole
 // 16-byte words, misaligned q or v, a query block above QBLOCK_BYTES.
 template <class K>
-cudaError_t sweep(const void* q, const void* v, const void* mask,
-                  const Rows& rows, void* partial, void* vals, void* idx,
-                  int Q, int dim, int k, int ctas, cudaStream_t s) {
+cudaError_t sweep(const void* q, const void* v, const void* vscale,
+                  const void* mask, const Rows& rows, void* partial,
+                  void* vals, void* idx, int Q, int dim, int k, int ctas,
+                  cudaStream_t s) {
   if (Q > 16 || k > 128 || ctas <= 0 || dim <= 0 || dim % K::EPW ||
       ((uintptr_t)q | (uintptr_t)v) % 16)
     return cudaErrorInvalidValue;
   const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
   const int cpr = dim / K::EPW;
-  if ((long)qt * cpr * 16 > QBLOCK_BYTES) return cudaErrorInvalidValue;
+  if ((long)qt * K::QW * cpr * 16 > QBLOCK_BYTES) return cudaErrorInvalidValue;
   u64* part = static_cast<u64*>(partial);
+  const void* vs = vscale;
   cudaError_t err;
   if (qt == 1)
-    err = launch_qt<K, 1>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+    err = launch_qt<K, 1>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
   else if (qt == 2)
-    err = launch_qt<K, 2>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+    err = launch_qt<K, 2>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
   else if (qt == 4)
-    err = launch_qt<K, 4>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+    err = launch_qt<K, 4>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
   else if (qt == 8)
-    err = launch_qt<K, 8>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+    err = launch_qt<K, 8>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
   else
-    err = launch_qt<K, 16>(q, v, mask, rows, part, Q, cpr, k, ctas, s);
+    err = launch_qt<K, 16>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
   if (err != cudaSuccess) return err;
   return launch_topk_merge(part, static_cast<float*>(vals),
                            static_cast<int*>(idx), Q, ctas * k, k, s,
@@ -343,8 +448,31 @@ extern "C" int pv_sweep_topk_i8c(const void* q, const void* v,
   if (cap < 0 || chunk <= 0 || chunk % SEG) return (int)cudaErrorInvalidValue;
   const long long n = (cap + chunk - 1) / chunk;
   const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
-  return (int)sweep<Int8C>(q, v, mask, rows, partial, vals, idx, Q, dim, k,
-                           n > 1 ? (int)n : 1, (cudaStream_t)stream);
+  return (int)sweep<Int8C>(q, v, nullptr, mask, rows, partial, vals, idx, Q,
+                           dim, k, n > 1 ? (int)n : 1, (cudaStream_t)stream);
+}
+
+// K6 on the one-query sweep: q (Q, dim) int8 queries, v (cap, dim / 2)
+// packed int4 rows (the two-plane nibble layout), vscale (cap,) float32,
+// mask (cap,) uint8; Q <= 16, k <= 128, dim % 32 == 0 with the query block
+// (QT x dim bytes) <= 64 KB, 16-byte aligned q and v. Rows as K9's: CTA c
+// reads [c * chunk, min(cap, (c + 1) * chunk)) (chunk % 128 == 0);
+// `partial` is scratch of max(1, ceil(cap / chunk)) * Q * k uint64; vals
+// (Q, k) float32 (the scaled scores) and idx (Q, k) int32 receive the
+// result (-inf / 0 where empty). Returns the cudaError_t of the launches.
+extern "C" int pv_sweep_topk_i4(const void* q, const void* v,
+                                const void* vscale, const void* mask,
+                                void* partial, void* vals, void* idx, int Q,
+                                long long cap, int dim, int k,
+                                long long chunk, void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (cap < 0 || chunk <= 0 || chunk % SEG || !vscale)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (cap + chunk - 1) / chunk;
+  const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
+  return (int)sweep<Int4>(q, v, vscale, mask, rows, partial, vals, idx, Q,
+                          dim, k, n > 1 ? (int)n : 1, (cudaStream_t)stream);
 }
 
 // K7 on the one-query sweep. kind 0: postings and q float32; 1: both
@@ -372,13 +500,13 @@ extern "C" int pv_ivf_sweep_topk(int kind, const void* q, const void* v,
                   (long)cap, 0, bn, grid_b};
   cudaStream_t s = (cudaStream_t)stream;
   if (kind == 0)
-    return (int)sweep<F32>(q, v, mask, rows, partial, vals, idx, Q, dim, k,
+    return (int)sweep<F32>(q, v, nullptr, mask, rows, partial, vals, idx, Q, dim, k,
                            ctas, s);
   if (kind == 1)
-    return (int)sweep<Bf16>(q, v, mask, rows, partial, vals, idx, Q, dim, k,
+    return (int)sweep<Bf16>(q, v, nullptr, mask, rows, partial, vals, idx, Q, dim, k,
                             ctas, s);
   if (kind == 2)
-    return (int)sweep<Int8C>(q, v, mask, rows, partial, vals, idx, Q, dim, k,
+    return (int)sweep<Int8C>(q, v, nullptr, mask, rows, partial, vals, idx, Q, dim, k,
                              ctas, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -55,6 +55,12 @@ _SIGNATURES = {
     # q, v, mask, partial, vals, idx, Q, cap, dim, k, chunk, stream (K9's
     # one-query sweep: Q <= 16, k <= 128, dim % 16 == 0)
     "pv_sweep_topk_i8c": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    # q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, chunk, stream
+    # (K6's one-query sweep: Q <= 16, k <= 128, dim % 32 == 0)
+    "pv_sweep_topk_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    # q_perm, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream
+    # (K6's tensor-core scan: Q > 16, k <= 128, dim % 128 == 0)
+    "pv_scan_topk_i4_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
     # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
     "pv_ivf_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,

@@ -13,6 +13,8 @@ kernels those paths run:
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
+                        (Q <= 16: csrc/sweep_topk.cu, see `i4_sweep_ready`;
+                        Q > 16: csrc/scan_i4_wgmma.cu, `i4_wgmma_ready`)
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
                         (Q <= 16: csrc/sweep_topk.cu, see `sweep_ready`)
   K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
@@ -59,9 +61,12 @@ SEG = 128  # rows per segmax segment
 # launch). "scan_topk_i8c" counts every K9 launch, "scan_topk_i8c_sweep"
 # those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
 # K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
-# `ivf_sweep_ready`).
+# `ivf_sweep_ready`); "scan_topk_i4" every K6 launch, "scan_topk_i4_sweep"
+# those of the sweep's int4 kind (`i4_sweep_ready`), "scan_topk_i4_wgmma"
+# those of its tensor-core scan (`i4_wgmma_ready`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "topk_keys": 0, "scan_topk": 0,
             "scan_topk_i8": 0, "segmax_i8": 0, "scan_topk_i4": 0,
+            "scan_topk_i4_sweep": 0, "scan_topk_i4_wgmma": 0,
             "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
             "ivf_segmax": 0,  # K8: ops/ivf.py
             "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
@@ -78,10 +83,27 @@ _PLAIN_CHUNK = 4096  # corpus rows per partial top-k in the plain K3/K4/K6/K9
 _I64_MIN = -(2**63)  # empty 64-bit selection key
 
 
+# Each kernel's launches by shape, e.g. LAUNCH_SHAPES["scan_topk_i4"]
+# ["Q=2048 k=14"]: the split of LAUNCHES[name] (not of its sub-kernel
+# keys) by the launch's query count and k_sel (per_seg for K8), so a cost
+# per launch is weighed at the shape the launch was made at.
+LAUNCH_SHAPES: dict = {}
+
+
 def reset_launch_counts() -> None:
     for d in (LAUNCHES, WIDE_K_FALLBACKS):
         for name in d:
             d[name] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def _count(name: str, num_q: int, **shape) -> None:
+    """One launch of kernel `name` with `num_q` queries (and `shape`'s
+    other parameters): LAUNCHES and LAUNCH_SHAPES."""
+    LAUNCHES[name] += 1
+    key = " ".join([f"Q={num_q}"] + [f"{a}={b}" for a, b in shape.items()])
+    per = LAUNCH_SHAPES.setdefault(name, {})
+    per[key] = per.get(key, 0) + 1
 
 
 def _to_sortable(bits: torch.Tensor) -> torch.Tensor:
@@ -382,7 +404,7 @@ def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
             "pv_segmax_scan_wgmma" if wgmma else "pv_segmax_scan",
             q.data_ptr(), vectors.data_ptr(), mask.data_ptr(),
             keys.data_ptr(), num_q, cap, dim)
-    LAUNCHES["segmax"] += 1
+    _count("segmax", num_q)
     LAUNCHES["segmax_wgmma"] += wgmma
     return keys
 
@@ -438,7 +460,7 @@ def segmax_scan_i8(q_i8: torch.Tensor, v_i8: torch.Tensor,
     _launch(q, "segmax_scan_i8", "pv_segmax_scan_i8", q.data_ptr(),
             v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
             keys.data_ptr(), num_q, cap, dim)
-    LAUNCHES["segmax_i8"] += 1
+    _count("segmax_i8", num_q)
     return keys
 
 
@@ -468,7 +490,7 @@ def segmax_scan_i8c(q_i8: torch.Tensor, v_i8: torch.Tensor,
              "segmax_scan_i8c: vectors and mask must be contiguous")
     wgmma = wgmma_i8_ready(q, v_i8)
     keys = _segmax_i8c_launch(q, v_i8, mask, wgmma)
-    LAUNCHES["segmax_i8c"] += 1
+    _count("segmax_i8c", num_q)
     LAUNCHES["segmax_i8c_wgmma"] += wgmma
     return keys
 
@@ -514,7 +536,7 @@ def topk_packed_keys(keys: torch.Tensor, k_sel: int):
     out_c = torch.empty_like(out_k)
     _launch(keys, "topk_packed_keys", "pv_topk_packed_keys", keys.data_ptr(),
             out_k.data_ptr(), out_c.data_ptr(), num_q, c, k_sel)
-    LAUNCHES["topk_keys"] += 1
+    _count("topk_keys", num_q, k=k_sel)
     return out_k, out_c
 
 
@@ -578,26 +600,87 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     _require(vectors.is_contiguous() and mask.is_contiguous(),
              f"{name}: vectors and mask must be contiguous")
     q = queries.contiguous()
-    sweep = i8c and sweep_ready(q, vectors, k)
-    if sweep:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        chunk, nchunks = sweep_partition(cap, sms)
-        entry, head = "pv_sweep_topk_i8c", (q.data_ptr(), vectors.data_ptr())
+    # the ready rules are the only switch between kernels: the one-query
+    # sweep, else (int4) the tensor-core scan, else the template
+    if i8c and sweep_ready(q, vectors, k):
+        vals, idx = _sweep_launch(q, vectors, None, mask, k, name)
+        LAUNCHES["scan_topk_i8c_sweep"] += 1
+    elif int4 and i4_sweep_ready(q, vectors, k):
+        vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
+        LAUNCHES["scan_topk_i4_sweep"] += 1
+    elif int4 and i4_wgmma_ready(q, vectors, k):
+        vals, idx = _i4_wgmma_launch(q, vectors, vscale, mask, k, name)
+        LAUNCHES["scan_topk_i4_wgmma"] += 1
     else:
-        q_tiles = -(-num_q // (16 if k <= 128 else 2))
-        chunk = _scan_chunk(cap, q_tiles, num_q, k, q.device)
-        nchunks = -(-cap // chunk)
-        entry, head = "pv_scan_topk", (
-            kind, q.data_ptr(), vectors.data_ptr(),
-            vscale.data_ptr() if vscale is not None else None)
+        vals, idx = _template_launch(q, vectors, vscale, mask, k, kind, name)
+    _count(name, num_q, k=k)
+    return vals, idx
+
+
+def _outputs(num_q: int, k: int, device):
+    return (torch.empty((num_q, k), dtype=torch.float32, device=device),
+            torch.empty((num_q, k), dtype=torch.int32, device=device))
+
+
+def _template_launch(q, vectors, vscale, mask, k: int, kind: int,
+                     name: str = "scan_topk"):
+    """`pv_scan_topk` (csrc/scan_topk.cu) on checked CUDA operands,
+    uncounted: the 16-query template (2 queries at k > 128) over chunks
+    spread across every SM, then the merge."""
+    num_q, dim = q.shape
+    cap = vectors.shape[0]
+    q_tiles = -(-num_q // (16 if k <= 128 else 2))
+    chunk = _scan_chunk(cap, q_tiles, num_q, k, q.device)
+    nchunks = -(-cap // chunk)
     partial = torch.empty((num_q * nchunks * k,), dtype=torch.int64,
                           device=q.device)
-    vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
-    idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
+    vals, idx = _outputs(num_q, k, q.device)
+    _launch(q, name, "pv_scan_topk", kind, q.data_ptr(), vectors.data_ptr(),
+            vscale.data_ptr() if vscale is not None else None,
+            mask.data_ptr(), partial.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), num_q, cap, dim, k, chunk)
+    return vals, idx
+
+
+def _sweep_launch(q, vectors, vscale, mask, k: int, name: str):
+    """The one-query sweep (csrc/sweep_topk.cu) on checked CUDA operands,
+    uncounted: K9 (`vscale` None, column-scaled int8 rows) or K6 (packed
+    int4 rows with their scales), CTAs over `sweep_partition`'s ranges."""
+    num_q, dim = q.shape
+    cap = vectors.shape[0]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk, nchunks = sweep_partition(cap, sms)
+    partial = torch.empty((num_q * nchunks * k,), dtype=torch.int64,
+                          device=q.device)
+    vals, idx = _outputs(num_q, k, q.device)
+    head = (q.data_ptr(), vectors.data_ptr())
+    if vscale is None:
+        entry = "pv_sweep_topk_i8c"
+    else:
+        entry, head = "pv_sweep_topk_i4", head + (vscale.data_ptr(),)
     _launch(q, name, entry, *head, mask.data_ptr(), partial.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, chunk)
-    LAUNCHES[name] += 1
-    LAUNCHES["scan_topk_i8c_sweep"] += sweep
+    return vals, idx
+
+
+def _i4_wgmma_launch(q, v_i4, vscale, mask, k: int,
+                     name: str = "scan_topk_i4"):
+    """K6's tensor-core scan (csrc/scan_i4_wgmma.cu) on checked CUDA
+    operands, uncounted: the queries' columns permuted once
+    (`permute_i4_queries`), CTAs over `i4_wgmma_partition`'s (query tile,
+    corpus range) pairs, then the merge."""
+    num_q, dim = q.shape
+    cap = v_i4.shape[0]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    _, ranges = i4_wgmma_partition(num_q, cap, sms)
+    q_perm = permute_i4_queries(q)
+    partial = torch.empty((num_q * ranges * k,), dtype=torch.int64,
+                          device=q.device)
+    vals, idx = _outputs(num_q, k, q.device)
+    _launch(q, name, "pv_scan_topk_i4_wgmma", q_perm.data_ptr(),
+            v_i4.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
+            partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
+            dim, k)
     return vals, idx
 
 
@@ -636,6 +719,74 @@ def sweep_partition(cap: int, sms: int):
     return chunk, max(1, -(-cap // chunk))
 
 
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def i4_sweep_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
+    """Whether K6 runs the one-query sweep's int4 kind on these contiguous
+    operands: Q <= 16, k <= 128, packed rows of whole 16-byte words (dim %
+    32 == 0: 32 elements a word), the query block (sweep_tile(Q) x dim
+    bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned bases."""
+    num_q, dim = q_i8.shape
+    return (num_q <= SWEEP_Q_MAX and k <= SWEEP_K_MAX and dim % 32 == 0
+            and sweep_tile(num_q) * dim <= SWEEP_QBLOCK_BYTES
+            and _aligned(q_i8, v_i4))
+
+
+# K6's tensor-core scan (csrc/scan_i4_wgmma.cu): a CTA holds 64 queries and
+# walks a contiguous range of 256-row corpus tiles
+I4_WGMMA_BM = 64
+I4_WGMMA_BN = 256
+I4_WGMMA_K_MAX = 128
+I4_WGMMA_DIM_MULTIPLE = 128  # a k-stage: 64 packed bytes, 128 expanded
+
+
+def i4_wgmma_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
+    """Whether K6 runs the tensor-core scan on these contiguous operands:
+    Q > 16 (smaller batches take the sweep), k <= 128, dim % 128 == 0 (a
+    k-stage is 64 packed bytes of a row, so the packed row is whole stages
+    and the permuted query row whole 128-byte TMA boxes), 16-byte aligned
+    bases."""
+    num_q, dim = q_i8.shape
+    return (num_q > SWEEP_Q_MAX and k <= I4_WGMMA_K_MAX
+            and dim % I4_WGMMA_DIM_MULTIPLE == 0 and _aligned(q_i8, v_i4))
+
+
+def i4_wgmma_partition(num_q: int, cap: int, sms: int):
+    """The tensor-core scan's grid on a card of `sms` SMs: (q_tiles,
+    ranges). CTA c takes query tile c % q_tiles and corpus range c //
+    q_tiles of `ranges` equal shares of the ceil(cap / 256) tiles, so the
+    q_tiles CTAs of one range walk it together and read each packed tile
+    from device memory about once. Mirrors the kernel's own computation."""
+    q_tiles = -(-num_q // I4_WGMMA_BM)
+    tiles = max(1, -(-cap // I4_WGMMA_BN))
+    return q_tiles, max(1, min(tiles, sms // q_tiles))
+
+
+def permute_i4_queries(q_i8: torch.Tensor) -> torch.Tensor:
+    """The int8 queries with their columns reordered for the tensor-core
+    scan: k-stage j (128 bytes) is q[:, 64 j:64 j + 64] then q[:, dim/2 +
+    64 j:dim/2 + 64 j + 64], the elements that the low and the high
+    nibbles of packed bytes [64 j, 64 j + 64) hold (dim % 128 == 0)."""
+    num_q, dim = q_i8.shape
+    return (q_i8.reshape(num_q, 2, dim // 128, 64).transpose(1, 2)
+            .reshape(num_q, dim).contiguous())
+
+
+def expand_i4_stages(v_i4: torch.Tensor) -> torch.Tensor:
+    """Plain version of the scan's in-shared-memory expansion: each packed
+    64-byte slice [64 j, 64 j + 64) of a row becomes the 128-byte stage
+    [low nibbles | high nibbles], the biased planes as int8 1..15 (0 for
+    a zero byte). `permute_i4_queries(q) @ expand_i4_stages(v).T` is the
+    biased int4 sum (before - 8 sum(q))."""
+    cap, half = v_i4.shape
+    p = v_i4.to(torch.int32) & 255
+    lo = (p & 15).reshape(cap, half // 64, 64)
+    hi = ((p >> 4) & 15).reshape(cap, half // 64, 64)
+    return torch.cat([lo, hi], dim=2).reshape(cap, 2 * half).to(torch.int8)
+
+
 def scan_topk_plain(queries, vectors, vscale, mask, k: int,
                     chunk: int = _PLAIN_CHUNK, int4: bool = False):
     """Plain version of K3/K4/K6: per-chunk partial top-k, then a merge.
@@ -643,17 +794,27 @@ def scan_topk_plain(queries, vectors, vscale, mask, k: int,
     Integer products (int8, and int4's two nibble planes minus the
     8 * sum(q) bias) are summed exactly, in float32 while |sum| < 2^24 and
     in float64 beyond, so they equal the kernels' int32 sums before the
-    row scale."""
+    row scale. int4 selects on the kernels' 64-bit (score, row) keys:
+    ties go to the lower row, so K6's three kernels equal it bit for bit
+    whatever their row partition."""
     num_q = queries.shape[0]
     cap = vectors.shape[0]
+    if int4:
+        cand = []
+        for s in range(0, cap, chunk):
+            e = min(cap, s + chunk)
+            rows = torch.arange(s, e, device=queries.device)
+            keys = _sel_keys(_i4_scores(queries, vectors[s:e], vscale[s:e]),
+                             rows)
+            keys = torch.where(mask[s:e][None, :], keys, _I64_MIN)
+            cand.append(torch.topk(keys, min(k, e - s), dim=1).values)
+        return _merge_sel_keys(cand, k, int_scores=False)
     if vscale is None:
         qf = queries.float()
     cand_v, cand_i = [], []
     for s in range(0, cap, chunk):
         e = min(cap, s + chunk)
-        if int4:
-            sc = _i4_scores(queries, vectors[s:e], vscale[s:e])
-        elif vscale is not None:
+        if vscale is not None:
             sc = _i8_scores(queries, vectors[s:e], vscale[s:e])
         else:
             sc = qf @ vectors[s:e].float().T

@@ -58,7 +58,7 @@ def dot_rowmax(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                  "pv_dot_rowmax_wgmma" if wgmma else "pv_dot_rowmax",
                  _KINDS[q.dtype], q.data_ptr(), v.data_ptr(), out.data_ptr(),
                  num_q, cap, dim)
-    scan.LAUNCHES["dot_rowmax"] += 1
+    scan._count("dot_rowmax", num_q)
     scan.LAUNCHES["dot_rowmax_i8_wgmma" if int8 else "dot_rowmax_wgmma"] += wgmma
     return out
 

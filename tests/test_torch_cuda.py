@@ -13,6 +13,9 @@ version's outside a 1e-4 k/k+1 gap. Tolerances: K5 / K10 keys, K9 and
 P1 int8 results, int8 / int4 scores, and K7's sweep on scores that are
 exact in float32 are exact (integer sums, at most one float32 conversion
 and one multiply); float32 / bf16 scores within 1e-5 (summation order).
+K6's sweep and tensor-core scan equal the plain version bit for bit, vals
+and idx (exact int32 sums, one conversion, one multiply, ties to the
+lower row), over repeated launches.
 K8's float keys also within 1e-5: unit-vector scores stay below 1, where
 summation order moves a key by at most one 128-ulp quantum (7.6e-6),
 while a TF32 product would be off by several 1e-5 at these widths.
@@ -180,6 +183,95 @@ def test_fused_topk_i4_exact(dev, dim, nq, k):
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0])
     assert bool(mask[got[1].long()].all())
+
+
+def _i4_store(dev, cap, dim, nq, seed=0, negative=False):
+    """Packed int4 rows with ties (rows 5 and 6 are row 1's copies, one
+    across a 128-row boundary at 130), a masked block, and int8 queries.
+    `negative`: non-negative rows against non-positive queries, so every
+    score is <= 0 and a zero-filled row past cap (its sum 0 - 8 sum(q) > 0
+    before the scale) would beat them all if it were not skipped."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randn(cap, dim, generator=g)
+    q = torch.randn(nq, dim, generator=g)
+    if negative:
+        v, q = v.abs(), -q.abs()
+    v[5], v[6], v[130] = v[1], v[1], v[1]
+    v = torch.nn.functional.normalize(v, dim=1)
+    mask = torch.rand(cap, generator=g) > 0.2
+    mask[1] = mask[5] = mask[130] = True
+    mask[256:512] = False
+    q8, _ = scan.quantize_rows_i8(torch.nn.functional.normalize(q, dim=1))
+    v4, vs = scan.quantize_rows_i4(v)
+    return q8.to(dev), v4.to(dev), vs.to(dev), mask.to(dev)
+
+
+def _i4_exact(q8, v4, vs, mask, k, key, repeats=1):
+    """K6 on the kernel that `key` counts, `repeats` launches in a row,
+    each bit for bit the plain version (vals and idx)."""
+    ref = scan.scan_topk_plain(q8, v4, vs, mask, k, int4=True)
+    for _ in range(repeats):
+        before = dict(scan.LAUNCHES)
+        got = scan.fused_topk_i4(q8, v4, vs, mask, k)
+        assert scan.LAUNCHES[key] == before[key] + 1, key
+        assert scan.LAUNCHES["scan_topk_i4"] == before["scan_topk_i4"] + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    return got
+
+
+# (cap, dim): ragged caps (not a multiple of 128 or of 256)
+I4_SHAPES = [(8195, 1024), (4100, 128)]
+
+
+@pytest.mark.parametrize("cap,dim", I4_SHAPES + [(3001, 96)])
+@pytest.mark.parametrize("k", [1, 14, 128])
+@pytest.mark.parametrize("nq", [1, 2, 5, 16])
+def test_fused_topk_i4_sweep_exact(dev, nq, k, cap, dim):
+    """K6's one-query sweep (int4 kind) = the plain version bit for bit,
+    ties to the lower row, on `scan_topk_i4_sweep`."""
+    q8, v4, vs, mask = _i4_store(dev, cap, dim, nq, seed=nq + k)
+    assert scan.i4_sweep_ready(q8, v4, k)
+    _i4_exact(q8, v4, vs, mask, k, "scan_topk_i4_sweep")
+
+
+@pytest.mark.parametrize("cap,dim", I4_SHAPES)
+@pytest.mark.parametrize("k", [1, 14, 128])
+@pytest.mark.parametrize("nq", [17, 64, 130, 2048])
+def test_fused_topk_i4_wgmma_exact(dev, nq, k, cap, dim):
+    """K6's tensor-core scan = the plain version bit for bit over ragged
+    caps, three launches in a row (a missing proxy fence between the
+    expansion's shared-memory writes and wgmma shows as a rare wrong
+    result)."""
+    q8, v4, vs, mask = _i4_store(dev, cap, dim, nq, seed=nq + k)
+    assert scan.i4_wgmma_ready(q8, v4, k)
+    _i4_exact(q8, v4, vs, mask, k, "scan_topk_i4_wgmma", repeats=3)
+
+
+@pytest.mark.parametrize("nq,key", [(1, "scan_topk_i4_sweep"),
+                                    (16, "scan_topk_i4_sweep"),
+                                    (17, "scan_topk_i4_wgmma"),
+                                    (200, "scan_topk_i4_wgmma")])
+def test_fused_topk_i4_negative_scores_beside_rows_past_cap(dev, nq, key):
+    """Every score <= 0 and cap % 256 == 129: the rows the tensor-core
+    scan's last tile holds past cap (zero bytes, whose sum before the
+    scale is positive) and the sweep's ragged range never surface."""
+    q8, v4, vs, mask = _i4_store(dev, 4225, 1024, nq, negative=True)
+    ref = scan.scan_topk_plain(q8, v4, vs, mask, 14, int4=True)
+    assert bool((ref[0] <= 0).all())
+    got = _i4_exact(q8, v4, vs, mask, 14, key, repeats=2)
+    assert int(got[1].max()) < 4225
+
+
+def test_fused_topk_i4_repeated_batches_agree(dev):
+    """Twenty launches of the tensor-core scan at Q = 256 over 64 Ki rows,
+    every one the first one's result bit for bit."""
+    q8, v4, vs, mask = _i4_store(dev, 65536, 1024, 256, seed=3)
+    first = _i4_exact(q8, v4, vs, mask, 14, "scan_topk_i4_wgmma")
+    outs = [scan.fused_topk_i4(q8, v4, vs, mask, 14) for _ in range(20)]
+    torch.cuda.synchronize()
+    for vals, idx in outs:
+        assert torch.equal(vals, first[0]) and torch.equal(idx, first[1])
 
 
 def test_unsupported_input_raises(dev):
