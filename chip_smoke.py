@@ -64,6 +64,12 @@ TOL_GAP = 1e-4  # id sets must agree where the k-th/(k+1)-th gap exceeds it
 # dense rates at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# The query counts phase 5 holds and times K6 at: those its path launches
+# (1, 256, 2048) and those around the ready rules' limits
+K6_SHAPES = (1, 2, 4, 5, 8, 16, 17, 64, 256, 2048)
+# K6's kernels besides its template, by their launch counters
+K6_KERNELS = {"sweep": "scan_topk_i4_sweep",
+              "tensor-core scan": "scan_topk_i4_wgmma"}
 
 KERNELS = {
     # name: (launch-counter key, source, TPU kernel it replaces, the phase
@@ -127,10 +133,12 @@ def entry(err, ms, plain_ms, nbytes, ops, kind, library_ms=None) -> dict:
 
 def launch_counts(scan) -> dict:
     """The launch counters, with each kernel's launches by shape under
-    "shapes" (ops/scan.py::LAUNCH_SHAPES): rule 2 weighs a launch at the
-    shape it was made at."""
-    return {**scan.LAUNCHES,
-            "shapes": {k: dict(v) for k, v in scan.LAUNCH_SHAPES.items()}}
+    "shapes" ("Q=2048 k=14", from ops/scan.py::LAUNCH_SHAPES): rule 2
+    weighs a launch at the shape it was made at."""
+    return {**scan.LAUNCHES, "shapes": {
+        name: {f"Q={q}" + ("" if k is None else f" k={k}"): n
+               for (q, k), n in per.items()}
+        for name, per in scan.LAUNCH_SHAPES.items()}}
 
 
 def log(msg: str) -> None:
@@ -146,7 +154,7 @@ def card_line() -> str:
 
 
 # The instantiations whose registers and spills phase 1 reports: the
-# mainloop's (K1, K10, P1), the one-query sweep's (K9, K7, K6 at Q <= 16)
+# mainloop's (K1, K10, P1), the one-query sweep's (K9, K7, K6 at small Q)
 # and K6's tensor-core scan's
 PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel")
 
@@ -294,6 +302,32 @@ def k9_template_ms(torch, scan, q8, v8, mask, k: int) -> float:
     torch.cuda.synchronize()
     assert torch.equal(vals, ref[0]) and torch.equal(idx, ref[1]), "template"
     return cuda_ms(torch, run)
+
+
+def k6_timed(torch, scan, args, ref, reps: int):
+    """K6 on `args` (int8 queries, packed plane, scales, mask, k_sel): the
+    dispatch's result and each kernel that can take these operands,
+    launched uncounted (the sweep's int4 kind at Q <= 16, the tensor-core
+    scan, the template), held bit for bit to `ref`, the plain version's
+    result. Returns the kernel the dispatch chose, each kernel's time and
+    the dispatch's max |error| (0.0)."""
+    q8, k = args[0], args[4]
+    before = dict(scan.LAUNCHES)
+    got = scan.fused_topk_i4(*args)
+    served = next((name for name, key in K6_KERNELS.items()
+                   if scan.LAUNCHES[key] > before[key]), "template")
+    runs = {}
+    if q8.shape[0] <= scan.SWEEP_Q_MAX and k <= scan.SWEEP_K_MAX:
+        runs["sweep"] = lambda: scan._sweep_launch(*args, "fused_topk_i4")
+    if k <= scan.I4_WGMMA_K_MAX:
+        runs["tensor-core scan"] = lambda: scan._i4_wgmma_launch(*args)
+    runs["template"] = lambda: scan._template_launch(*args, scan._KIND_I4)
+    for name, out in [("dispatch", got)] + [(n, r()) for n, r in runs.items()]:
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), \
+            f"K6's {name} differs from the plain version at Q={q8.shape[0]}"
+    times = {name: cuda_ms(torch, run, reps) for name, run in runs.items()}
+    return served, times, exact_err(torch, got[0], ref[0])
 
 
 def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
@@ -530,63 +564,52 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         f"{ms_f32:.4f} ms (plain {pms_f32:.4f})")
 
     # K6 over the packed int4 rows at k_sel = 14 (i4stor_fused at k = 10):
-    # Q = 1, 8, 16 on the one-query sweep's int4 kind, Q = 2048 (a
-    # query_columnar batch) on the tensor-core scan, both bit for bit the
-    # plain version (exact int32 sums, one conversion and one multiply,
-    # ties to the lower row), with the template they replaced held to the
-    # same result and timed on the same inputs (uncounted); and Q = 16,
-    # k_sel = 1024 (the widest the template serves)
+    # Q = 1, 8, 16 and Q = 2048 (a query_columnar batch), the dispatch and
+    # each kernel that can take the shape (the one-query sweep's int4 kind,
+    # the tensor-core scan, the template) bit for bit the plain version
+    # (exact int32 sums, one conversion and one multiply, ties to the
+    # lower row) and timed on the same inputs; and Q = 16, k_sel = 1024
+    # (the widest the template serves)
     v4, vs4 = scan.quantize_rows_i4(corpus)
-    errs, ms, pms, tms = [], [], [], []
+    errs, k6, pms = [], {}, []
     for nq in (1, 8, 16, 2048):
         qf = q if nq == 2048 else normalize_on_device(
             torch.from_numpy(rng.standard_normal((nq, dim), dtype=np.float32))
             .to(device))
         q8, _ = scan.quantize_rows_i8(qf)
-        key = "scan_topk_i4_wgmma" if nq > 16 else "scan_topk_i4_sweep"
-        before = scan.LAUNCHES[key]
-        got = scan.fused_topk_i4(q8, v4, vs4, mask, 14)
-        assert scan.LAUNCHES[key] == before + 1, f"K6 missed {key} at Q={nq}"
-        ref = scan.scan_topk_plain(q8, v4, vs4, mask, 14, int4=True)
-        tmpl = scan._template_launch(q8, v4, vs4, mask, 14, scan._KIND_I4)
-        torch.cuda.synchronize()
-        for what, r in (("K6", ref), ("K6's template", tmpl)):
-            assert torch.equal(got[0], r[0]) and torch.equal(got[1], r[1]), \
-                f"{what} differs from the plain version at Q={nq}"
-        assert bool(mask[got[1].long()].all()), "K6 returned masked rows"
-        errs.append(exact_err(torch, got[0], ref[0]))
-        reps = 10 if nq <= 16 else 5
-        ms.append(cuda_ms(torch, lambda: scan.fused_topk_i4(
-            q8, v4, vs4, mask, 14), reps))
+        args = (q8, v4, vs4, mask, 14)
+        ref = scan.scan_topk_plain(*args, int4=True)
+        k6[nq] = k6_timed(torch, scan, args, ref, reps=10 if nq <= 16 else 5)
+        assert bool(mask[ref[1].long()].all()), "K6 returned masked rows"
+        errs.append(k6[nq][2])
         pms.append(cuda_ms(torch, lambda: scan.scan_topk_plain(
-            q8, v4, vs4, mask, 14, int4=True), reps))
-        tms.append(cuda_ms(torch, lambda: scan._template_launch(
-            q8, v4, vs4, mask, 14, scan._KIND_I4), reps))
+            *args, int4=True), reps=10 if nq <= 16 else 5))
         if nq == 1:
-            split6 = device_split(torch, lambda: scan.fused_topk_i4(
-                q8, v4, vs4, mask, 14))
+            split6 = device_split(torch, lambda: scan.fused_topk_i4(*args))
+    assert k6[1][0] == "sweep" and k6[2048][0] == "tensor-core scan", k6
     q8, _ = scan.quantize_rows_i8(q64[:16])
     errs.append(check_scan("fused_topk_i4 wide", q8, v4, vs4, mask, 1024,
                            q64[:16], int4=True))
     ms_w = cuda_ms(torch, lambda: scan.fused_topk_i4(q8, v4, vs4, mask, 1024))
     pms_w = cuda_ms(torch, lambda: scan.scan_topk_plain(
         q8, v4, vs4, mask, 1024, int4=True))
-    rec["fused_topk_i4"] = entry(max(errs), ms[0], pms[0],
+    rec["fused_topk_i4"] = entry(max(errs), k6[1][1]["sweep"], pms[0],
                                  dim + live * (dim // 2 + 4) + cap + 14 * 8,
                                  2 * live * dim, "int8")
     nq = 2048
     rec["fused_topk_i4_wgmma"] = entry(
-        max(errs), ms[3], pms[3],
+        max(errs), k6[nq][1]["tensor-core scan"], pms[3],
         nq * dim + live * (dim // 2 + 4) + cap + nq * 14 * 8,
         2 * nq * live * dim, "int8")
-    log(f"phase 2: K6 fused_topk_i4 = plain bit for bit at k_sel=14: the "
-        f"sweep at Q=1,8,16 ({', '.join(f'{m:.4f}' for m in ms[:3])} ms; "
-        f"bound {rec['fused_topk_i4']['bound_ms']:.4f} ms at Q=1), the "
-        f"tensor-core scan at Q=2048 ({ms[3]:.4f} ms, bound "
-        f"{rec['fused_topk_i4_wgmma']['bound_ms']:.4f}); the template they "
-        f"replaced {', '.join(f'{m:.4f}' for m in tms)}; plain "
-        f"{', '.join(f'{m:.4f}' for m in pms)}; template at Q=16 "
-        f"k_sel=1024 {ms_w:.4f} ms (plain {pms_w:.4f}); at Q=1 {split6})")
+    log(f"phase 2: K6 fused_topk_i4 = plain bit for bit at k_sel=14 "
+        f"(bound {rec['fused_topk_i4']['bound_ms']:.4f} ms at Q=1, "
+        f"{rec['fused_topk_i4_wgmma']['bound_ms']:.4f} at Q=2048; the kernel "
+        f"the dispatch chose, then each kernel's ms): "
+        + "; ".join(f"Q={n} {served}: " + ", ".join(
+            f"{name} {t:.4f}" for name, t in times.items())
+            for n, (served, times, _) in k6.items())
+        + f"; plain {', '.join(f'{m:.4f}' for m in pms)}; template at Q=16 "
+        f"k_sel=1024 {ms_w:.4f} ms (plain {pms_w:.4f}); at Q=1 {split6}")
 
     # K9 over the column-scaled int8 mirror at Q = 1, 8, 16, k_sel 16
     # (i8c_fused_smallq at k = 10: guard 6). It ranks the exact int32
@@ -1217,54 +1240,48 @@ def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
     # and cuda_ms's warm-up + 10 reps (the sweep), Q = 2048 by the two
     # query_columnar calls and Q = 256 by the delete check (one launch a
     # call each, on the tensor-core scan)
-    shapes = {1: 12, 2048: 2, 256: 1}
-    assert counts["scan_topk_i4"] == sum(shapes.values()), counts
-    assert counts["scan_topk_i4_sweep"] == shapes[1], "Q=1 missed the sweep"
-    assert counts["scan_topk_i4_wgmma"] == shapes[2048] + shapes[256], \
+    shapes = counts["shapes"]["scan_topk_i4"]
+    assert shapes == {"Q=1 k=14": 12, "Q=2048 k=14": 2, "Q=256 k=14": 1}, \
+        shapes
+    assert counts["scan_topk_i4_sweep"] == 12, "Q=1 missed the sweep"
+    assert counts["scan_topk_i4_wgmma"] == 3, \
         "the batches missed the tensor-core scan"
-    # K6 alone at each shape, after the count (k_sel = k + 4 over the
-    # packed plane, the phase's own queries and mask), beside the template
-    # it replaced there on the same inputs (uncounted; bit for bit the
-    # same result: both are exact)
+    # K6 after the count, at k_sel = k + 4 over the store's own plane,
+    # scales and mask, at the shapes above and at those between them that
+    # place the ready rules' limits: what the dispatch returns, bit for bit
+    # the plain version, and every kernel that can take the shape
+    # (uncounted) held to it and timed on the same inputs
     live5 = int(dev.active.sum())
     cap5 = dev.active.shape[0]
     k6 = {}
-    # (and at Q = 16, which this phase does not launch: the sweep's widest
-    # tile against the template over the 16M rows)
-    for nq, qq in ((1, qdev[:1]), (16, qdev[:16]), (256, q256), (2048, qdev)):
+    for nq in K6_SHAPES:
+        qq = q256 if nq == 256 else qdev[:nq]
         q8s, _ = scan.quantize_rows_i8(normalize_on_device(qq))
-        got = scan.fused_topk_i4(q8s, dev.vectors, dev.vstore_scale,
-                                 dev.active, 14)
-        tmpl = scan._template_launch(q8s, dev.vectors, dev.vstore_scale,
-                                     dev.active, 14, scan._KIND_I4)
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], tmpl[0]) and torch.equal(got[1], tmpl[1]), \
-            f"K6 and its template differ at Q={nq}"
-        k6[nq] = (
-            cuda_ms(torch, lambda: scan.fused_topk_i4(
-                q8s, dev.vectors, dev.vstore_scale, dev.active, 14),
-                reps=10 if nq <= 16 else 5),
-            cuda_ms(torch, lambda: scan._template_launch(
-                q8s, dev.vectors, dev.vstore_scale, dev.active, 14,
-                scan._KIND_I4), reps=10 if nq <= 16 else 3),
-            entry(0.0, 0, 0, nq * dim + live5 * (dim // 2 + 4) + cap5
-                  + nq * 14 * 8, 2 * nq * live5 * dim, "int8")["bound_ms"])
+        args = (q8s, dev.vectors, dev.vstore_scale, dev.active, 14)
+        ref = scan.scan_topk_plain(*args, int4=True)
+        served, times, _ = k6_timed(torch, scan, args, ref,
+                                    reps=3 if nq >= 256 else 5)
+        k6[nq] = (served, times, entry(
+            0.0, 0, 0, nq * dim + live5 * (dim // 2 + 4) + cap5
+            + nq * 14 * 8, 2 * nq * live5 * dim, "int8")["bound_ms"])
     k6_line = "; ".join(
-        f"Q={nq} ({shapes.get(nq, 0)} launches, "
-        f"{'sweep' if nq <= 16 else 'tensor-core scan'}) {ms:.4f} ms, "
-        f"template {tm:.4f} ms, bound {bd:.4f} ms"
-        for nq, (ms, tm, bd) in k6.items())
+        f"Q={nq} ({shapes.get(f'Q={nq} k=14', 0)} launches, {served}): "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
+        + f" ms, bound {bd:.4f} ms"
+        for nq, (served, times, bd) in k6.items())
     gb = dev.vectors.numel() / 2**30
     log(f"phase 5: int4 storage, device-born, {n} x {dim} ({gb:.2f} GiB "
         f"packed plane): route i4stor_fused at Q=1 and 2048; ids = float64 "
         f"oracle over the dequantized rows outside the gap; recall@10 "
         f"{recall:.4f} vs the original float rows; delete ok; launches "
         f"{counts}")
-    log(f"phase 5: K6 fused_topk_i4 at its shapes, k_sel=14, {live5} live "
-        f"rows: {k6_line}")
+    log(f"phase 5: K6 fused_topk_i4 = plain bit for bit at k_sel=14, "
+        f"{live5} live rows (launches, the kernel the dispatch chose): "
+        f"{k6_line}")
+    served1, times1, bound1 = k6[1]
     log(f"phase 5: rows made + packed on the card in {make_s:.2f} s, "
         f"ingest_device {ingest_s:.2f} s; Q=1 latency {q1_ms:.4f} ms (K6 "
-        f"alone {k6[1][0]:.4f} ms, bound {k6[1][2]:.4f}); batch "
+        f"alone {times1[served1]:.4f} ms, bound {bound1:.4f}); batch "
         f"{2048 / batch_s:.1f} QPS (query_columnar, 2048 queries); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
         f" card {card}")

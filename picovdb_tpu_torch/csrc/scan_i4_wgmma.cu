@@ -1,9 +1,9 @@
-// K6 fused_topk_i4 at batch sizes (Q > 16, k <= 128) on Hopper's tensor
+// K6 fused_topk_i4 at batch sizes (Q > 4, k <= 128) on Hopper's tensor
 // cores: exact masked top-k over a packed int4 corpus with a per-row scale.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i4
 // (`_scan_kernel_i4`) on the int4 store's batches (route `i4stor_fused`,
-// every `query_columnar` chunk of more than 16 queries). The TPU kernel
+// every `query_columnar` chunk of more than 4 queries). The TPU kernel
 // unpacks the nibbles into two biased int8 planes in VMEM, runs two int8
 // matrix-unit products per tile, then its k-pass ladder and a merge into
 // the running top-k. This kernel computes the same function: the biased
@@ -51,11 +51,14 @@
 //    s = float(acc - 8 sum(q)) * vscale[row] and row_key(s, row), admitted
 //    for a live row below cap whose key beats the query's running k-th
 //    best (`tau`) into that query's shared buffer of BUF keys (an atomic
-//    slot). The expanders put each tile's row scales in shared memory (-1
-//    for a masked row or one past cap) when they expand its first stage,
-//    and a key is built only where s reaches tau's score, so the common
-//    rejection is four instructions and no load from device memory. An admission that finds the buffer full keeps its key in a
-//    pending bit; the consumers then compact (a sort of every buffer to
+//    slot). The expanders put each tile's row scales and a bit a row
+//    (live: unmasked and below cap) in shared memory when they expand its
+//    first stage, so whether a row is admitted depends on mask and index
+//    alone, never on its scale's value; a key is built only where s
+//    reaches tau's score, so the common rejection is a few instructions
+//    and no load from device memory. An admission that finds the buffer
+//    full keeps its key in a pending bit; the consumers then compact (a
+//    sort of every buffer to
 //    its best k, behind a named barrier the producer never joins) and
 //    re-admit the pending keys against the raised tau, inside the same
 //    epilogue. Rows past cap are zero filled and skipped by index, never
@@ -98,11 +101,13 @@ constexpr int ACC = NW / 2;     // accumulators a thread (m64n128)
 constexpr int CONSUMER_BAR = 1;  // named barrier of the consumers alone
 constexpr int ITEMS = BN * (PACKED / 16);  // 16-byte chunks of a slice
 constexpr int PER = (ITEMS + EXPANDERS - 1) / EXPANDERS;  // an expander's
-// Tiles whose live-row scales (vscale, or -1 for a masked row or one past
-// cap) sit in shared memory for the epilogue: the expanders write a
-// tile's at its first stage, at most three tiles ahead of the epilogue
-// that reads them (the B ring holds at most three stages).
+// Tiles whose row scales and live bits (bit r % 32 of word r / 32: row r
+// of the tile is unmasked and below cap) sit in shared memory for the
+// epilogue: the expanders write a tile's at its first stage, at most three
+// tiles ahead of the epilogue that reads them (the B ring holds at most
+// three stages).
 constexpr int MSC_TILES = 4;
+constexpr int LIVE_WORDS = BN / 32;  // live bits of a tile
 
 // S1 TMA slots (A and the packed slice), S2 expanded B tiles, BUF keys a
 // query. With S2 == 1 the consumers release a stage as soon as its
@@ -114,7 +119,8 @@ struct Ring {
   static constexpr int P_OFF = B_OFF + S2 * B_BYTES;
   static constexpr int BAR_OFF = P_OFF + S1 * P_BYTES;
   static constexpr int MSC_OFF = BAR_OFF + 8 * (2 * S1 + 2 * S2);
-  static constexpr int TAU_OFF = MSC_OFF + MSC_TILES * BN * 4;
+  static constexpr int LIVE_OFF = MSC_OFF + MSC_TILES * BN * 4;
+  static constexpr int TAU_OFF = LIVE_OFF + MSC_TILES * LIVE_WORDS * 4;
   static constexpr int BUF_OFF = TAU_OFF + BM * 8;
   static constexpr int CNT_OFF = BUF_OFF + BM * BUF * 8;
   // 1 KB to align the ring (swizzle atoms are 1024 B)
@@ -240,6 +246,7 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t loaded = base + R::BAR_OFF, empty1 = loaded + 8 * S1;
   const uint32_t full2 = empty1 + 8 * S1, empty2 = full2 + 8 * S2;
   float* msc = reinterpret_cast<float*>(sm + R::MSC_OFF);
+  uint32_t* mlive = reinterpret_cast<uint32_t*>(sm + R::LIVE_OFF);
   u64* tau = reinterpret_cast<u64*>(sm + R::TAU_OFF);
   u64* buf = reinterpret_cast<u64*>(sm + R::BUF_OFF);
   int* cnt = reinterpret_cast<int*>(sm + R::CNT_OFF);
@@ -299,11 +306,17 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
       const bool first = n % k_iters == 0;
       const long tile = tb + n / k_iters;
       float sc[(BN + EXPANDERS - 1) / EXPANDERS];
+      uint32_t lw[(BN + EXPANDERS - 1) / EXPANDERS];
 #pragma unroll
       for (int m = 0; m * EXPANDERS < BN; ++m) {
         const long row = tile * BN + e + m * EXPANDERS;
-        if (first && e + m * EXPANDERS < BN)
-          sc[m] = row < cap && mask[row] ? vscale[row] : -1.0f;
+        // warp-uniform (EXPANDERS and BN are multiples of 32): a warp's
+        // ballot is the live word of its 32 rows
+        if (first && e + m * EXPANDERS < BN) {
+          const bool live = row < cap && mask[row];
+          sc[m] = live ? vscale[row] : 0.0f;
+          lw[m] = __ballot_sync(0xffffffffu, live);
+        }
       }
       const unsigned char* pt = sm + R::P_OFF + s1 * P_BYTES;
       unsigned char* bt = sm + R::B_OFF + s2 * B_BYTES;
@@ -327,9 +340,13 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
       }
       if (first) {
         float* ms = msc + (int)(tile % MSC_TILES) * BN;
+        uint32_t* lv = mlive + (int)(tile % MSC_TILES) * LIVE_WORDS;
 #pragma unroll
         for (int m = 0; m * EXPANDERS < BN; ++m)
-          if (e + m * EXPANDERS < BN) ms[e + m * EXPANDERS] = sc[m];
+          if (e + m * EXPANDERS < BN) {
+            ms[e + m * EXPANDERS] = sc[m];
+            if (e % 32 == 0) lv[(e + m * EXPANDERS) / 32] = lw[m];
+          }
       }
       // the B tile, written through the generic proxy, is read by wgmma
       // through the async proxy
@@ -417,6 +434,12 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
 
     // epilogue: admit, and compact + re-admit while an admission failed
     const float* ms = msc + (int)(tile % MSC_TILES) * BN + g * NW + 2 * (l % 4);
+    // row 8 j + 2 (l % 4) + e of the warpgroup's 128: bit 8 (j % 4) +
+    // 2 (l % 4) + e of its live word j / 4
+    uint32_t live[NW / 32];
+#pragma unroll
+    for (int i = 0; i < NW / 32; ++i)
+      live[i] = mlive[(int)(tile % MSC_TILES) * LIVE_WORDS + g * (NW / 32) + i];
     const long r0 = tile * BN + g * NW + 2 * (l % 4);
     uint64_t pend = ~0ull;  // bit 4 j + 2 h + e: not yet admitted or dropped
     for (;;) {
@@ -426,13 +449,15 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
         const float2 sc2 = *reinterpret_cast<const float2*>(ms + 8 * j);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float sc = e ? sc2.y : sc2.x;  // -1: a dead row
+          const float sc = e ? sc2.y : sc2.x;
+          const bool row_live =
+              (live[j / 4] >> (8 * (j % 4) + 2 * (l % 4) + e)) & 1u;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int i = 4 * j + 2 * h + e;
             if (!((pend >> i) & 1ull)) continue;
             bool keep = false;
-            if (qlive[h] && sc > 0.0f) {
+            if (qlive[h] && row_live) {
               const float s = __fmul_rn(__int2float_rn(acc[i] - bias[h]), sc);
               if (s >= ts[h]) {
                 const u64 key = row_key(s, (uint32_t)(r0 + 8 * j + e));

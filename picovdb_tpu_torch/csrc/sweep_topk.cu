@@ -5,8 +5,9 @@
 // Replaces, on those shapes:
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i4 (`_scan_kernel_i4`,
 //    K6), the int4 store's Q = 1 query and small batches (route
-//    `i4stor_fused` at k_sel = k + 4); pv_scan_topk kind 3 serves k > 128
-//    and widths the sweep does not take, scan_i4_wgmma.cu Q > 16;
+//    `i4stor_fused` at k_sel = k + 4; served at Q <= 4, where it beats
+//    scan_i4_wgmma.cu, which takes larger Q); pv_scan_topk kind 3 serves
+//    k > 128 and widths neither takes;
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i8c (`_scan_kernel_i8c`,
 //    K9), on the routes `i8c_fused_smallq` (Q <= 16 at k_sel = k + 6) and
 //    the serial Q = 1 loop; pv_scan_topk kind 4 serves its other shapes;

@@ -56,10 +56,12 @@ _SIGNATURES = {
     # one-query sweep: Q <= 16, k <= 128, dim % 16 == 0)
     "pv_sweep_topk_i8c": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     # q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, chunk, stream
-    # (K6's one-query sweep: Q <= 16, k <= 128, dim % 32 == 0)
+    # (K6's one-query sweep: Q <= 16, k <= 128, dim % 32 == 0; served at
+    # Q <= scan.I4_SWEEP_Q_MAX)
     "pv_sweep_topk_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     # q_perm, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream
-    # (K6's tensor-core scan: Q > 16, k <= 128, dim % 128 == 0)
+    # (K6's tensor-core scan: any Q, k <= 128, dim % 128 == 0; served at
+    # Q > scan.I4_SWEEP_Q_MAX)
     "pv_scan_topk_i4_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
     # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream

@@ -341,7 +341,7 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
     sweep = ivf_sweep_ready(q, postings, k)
     launch = _ivf_sweep_launch if sweep else _ivf_template_launch
     vals, idx = launch(q, postings, mask, hot, n_hot, k, bn)
-    _scan._count("ivf_scan_topk", q.shape[0], k=k)
+    _scan._count("ivf_scan_topk", q.shape[0], k)
     _scan.LAUNCHES["ivf_scan_topk_sweep"] += sweep
     return vals, idx
 
@@ -446,7 +446,7 @@ def ivf_segmax_scan(q, postings, mask, hot, n_hot, per_seg: int,
             q.data_ptr(), postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
             n_hot.data_ptr(), keys.data_ptr(), num_q, cap, dim, bn, grid_b,
             per_seg)
-    _scan._count("ivf_segmax", num_q, per_seg=per_seg)
+    _scan._count("ivf_segmax", num_q, per_seg)
     return keys
 
 

@@ -13,8 +13,8 @@ kernels those paths run:
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
-                        (Q <= 16: csrc/sweep_topk.cu, see `i4_sweep_ready`;
-                        Q > 16: csrc/scan_i4_wgmma.cu, `i4_wgmma_ready`)
+                        (Q <= 4: csrc/sweep_topk.cu, see `i4_sweep_ready`;
+                        Q > 4: csrc/scan_i4_wgmma.cu, `i4_wgmma_ready`)
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
                         (Q <= 16: csrc/sweep_topk.cu, see `sweep_ready`)
   K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
@@ -84,9 +84,10 @@ _I64_MIN = -(2**63)  # empty 64-bit selection key
 
 
 # Each kernel's launches by shape, e.g. LAUNCH_SHAPES["scan_topk_i4"]
-# ["Q=2048 k=14"]: the split of LAUNCHES[name] (not of its sub-kernel
-# keys) by the launch's query count and k_sel (per_seg for K8), so a cost
-# per launch is weighed at the shape the launch was made at.
+# [(2048, 14)]: the split of LAUNCHES[name] (not of its sub-kernel keys)
+# by the launch's query count and k (k_sel; per_seg for K8; None where a
+# kernel takes no k), so a cost per launch is weighed at the shape the
+# launch was made at.
 LAUNCH_SHAPES: dict = {}
 
 
@@ -97,13 +98,12 @@ def reset_launch_counts() -> None:
     LAUNCH_SHAPES.clear()
 
 
-def _count(name: str, num_q: int, **shape) -> None:
-    """One launch of kernel `name` with `num_q` queries (and `shape`'s
-    other parameters): LAUNCHES and LAUNCH_SHAPES."""
+def _count(name: str, num_q: int, k: int | None = None) -> None:
+    """One launch of kernel `name` with `num_q` queries and `k`: LAUNCHES
+    and LAUNCH_SHAPES."""
     LAUNCHES[name] += 1
-    key = " ".join([f"Q={num_q}"] + [f"{a}={b}" for a, b in shape.items()])
     per = LAUNCH_SHAPES.setdefault(name, {})
-    per[key] = per.get(key, 0) + 1
+    per[num_q, k] = per.get((num_q, k), 0) + 1
 
 
 def _to_sortable(bits: torch.Tensor) -> torch.Tensor:
@@ -536,7 +536,7 @@ def topk_packed_keys(keys: torch.Tensor, k_sel: int):
     out_c = torch.empty_like(out_k)
     _launch(keys, "topk_packed_keys", "pv_topk_packed_keys", keys.data_ptr(),
             out_k.data_ptr(), out_c.data_ptr(), num_q, c, k_sel)
-    _count("topk_keys", num_q, k=k_sel)
+    _count("topk_keys", num_q, k_sel)
     return out_k, out_c
 
 
@@ -613,7 +613,7 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
         LAUNCHES["scan_topk_i4_wgmma"] += 1
     else:
         vals, idx = _template_launch(q, vectors, vscale, mask, k, kind, name)
-    _count(name, num_q, k=k)
+    _count(name, num_q, k)
     return vals, idx
 
 
@@ -723,13 +723,24 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+# K6's sweep limit: up to this many queries the sweep's int4 kind beats
+# the tensor-core scan over the same rows. chip_smoke.py phase 5 times
+# both at Q = 1 ... 64 over 16M rows: on an H100 80GB HBM3 at 700 W the
+# sweep takes 3.26 / 4.59 / 5.88 / 11.08 ms at Q = 1 / 2 / 4 / 8, the
+# scan 5.9-6.6 ms at every Q <= 64. Over 131,072 rows (phase 2) the sweep
+# still wins at Q = 8 (0.196 against 0.243 ms): the limit follows the
+# large store, where the difference is milliseconds, not tens of us.
+I4_SWEEP_Q_MAX = 4
+
+
 def i4_sweep_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
     """Whether K6 runs the one-query sweep's int4 kind on these contiguous
-    operands: Q <= 16, k <= 128, packed rows of whole 16-byte words (dim %
-    32 == 0: 32 elements a word), the query block (sweep_tile(Q) x dim
-    bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned bases."""
+    operands: Q <= I4_SWEEP_Q_MAX, k <= 128, packed rows of whole 16-byte
+    words (dim % 32 == 0: 32 elements a word), the query block
+    (sweep_tile(Q) x dim bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned
+    bases."""
     num_q, dim = q_i8.shape
-    return (num_q <= SWEEP_Q_MAX and k <= SWEEP_K_MAX and dim % 32 == 0
+    return (num_q <= I4_SWEEP_Q_MAX and k <= SWEEP_K_MAX and dim % 32 == 0
             and sweep_tile(num_q) * dim <= SWEEP_QBLOCK_BYTES
             and _aligned(q_i8, v_i4))
 
@@ -744,12 +755,12 @@ I4_WGMMA_DIM_MULTIPLE = 128  # a k-stage: 64 packed bytes, 128 expanded
 
 def i4_wgmma_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
     """Whether K6 runs the tensor-core scan on these contiguous operands:
-    Q > 16 (smaller batches take the sweep), k <= 128, dim % 128 == 0 (a
-    k-stage is 64 packed bytes of a row, so the packed row is whole stages
-    and the permuted query row whole 128-byte TMA boxes), 16-byte aligned
-    bases."""
+    Q > I4_SWEEP_Q_MAX (smaller batches take the sweep), k <= 128, dim %
+    128 == 0 (a k-stage is 64 packed bytes of a row, so the packed row is
+    whole stages and the permuted query row whole 128-byte TMA boxes),
+    16-byte aligned bases."""
     num_q, dim = q_i8.shape
-    return (num_q > SWEEP_Q_MAX and k <= I4_WGMMA_K_MAX
+    return (num_q > I4_SWEEP_Q_MAX and k <= I4_WGMMA_K_MAX
             and dim % I4_WGMMA_DIM_MULTIPLE == 0 and _aligned(q_i8, v_i4))
 
 
@@ -772,19 +783,6 @@ def permute_i4_queries(q_i8: torch.Tensor) -> torch.Tensor:
     num_q, dim = q_i8.shape
     return (q_i8.reshape(num_q, 2, dim // 128, 64).transpose(1, 2)
             .reshape(num_q, dim).contiguous())
-
-
-def expand_i4_stages(v_i4: torch.Tensor) -> torch.Tensor:
-    """Plain version of the scan's in-shared-memory expansion: each packed
-    64-byte slice [64 j, 64 j + 64) of a row becomes the 128-byte stage
-    [low nibbles | high nibbles], the biased planes as int8 1..15 (0 for
-    a zero byte). `permute_i4_queries(q) @ expand_i4_stages(v).T` is the
-    biased int4 sum (before - 8 sum(q))."""
-    cap, half = v_i4.shape
-    p = v_i4.to(torch.int32) & 255
-    lo = (p & 15).reshape(cap, half // 64, 64)
-    hi = ((p >> 4) & 15).reshape(cap, half // 64, 64)
-    return torch.cat([lo, hi], dim=2).reshape(cap, 2 * half).to(torch.int8)
 
 
 def scan_topk_plain(queries, vectors, vscale, mask, k: int,

@@ -226,18 +226,25 @@ I4_SHAPES = [(8195, 1024), (4100, 128)]
 
 @pytest.mark.parametrize("cap,dim", I4_SHAPES + [(3001, 96)])
 @pytest.mark.parametrize("k", [1, 14, 128])
-@pytest.mark.parametrize("nq", [1, 2, 5, 16])
+@pytest.mark.parametrize("nq", [1, 2, 4, 5, 16])
 def test_fused_topk_i4_sweep_exact(dev, nq, k, cap, dim):
     """K6's one-query sweep (int4 kind) = the plain version bit for bit,
-    ties to the lower row, on `scan_topk_i4_sweep`."""
+    ties to the lower row: on `scan_topk_i4_sweep` up to I4_SWEEP_Q_MAX
+    queries, launched directly past it (chip_smoke times it there)."""
     q8, v4, vs, mask = _i4_store(dev, cap, dim, nq, seed=nq + k)
-    assert scan.i4_sweep_ready(q8, v4, k)
-    _i4_exact(q8, v4, vs, mask, k, "scan_topk_i4_sweep")
+    if nq <= scan.I4_SWEEP_Q_MAX:
+        assert scan.i4_sweep_ready(q8, v4, k)
+        _i4_exact(q8, v4, vs, mask, k, "scan_topk_i4_sweep")
+        return
+    got = scan._sweep_launch(q8, v4, vs, mask, k, "fused_topk_i4")
+    ref = scan.scan_topk_plain(q8, v4, vs, mask, k, int4=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.parametrize("cap,dim", I4_SHAPES)
 @pytest.mark.parametrize("k", [1, 14, 128])
-@pytest.mark.parametrize("nq", [17, 64, 130, 2048])
+@pytest.mark.parametrize("nq", [5, 16, 17, 64, 130, 2048])
 def test_fused_topk_i4_wgmma_exact(dev, nq, k, cap, dim):
     """K6's tensor-core scan = the plain version bit for bit over ragged
     caps, three launches in a row (a missing proxy fence between the
@@ -249,8 +256,8 @@ def test_fused_topk_i4_wgmma_exact(dev, nq, k, cap, dim):
 
 
 @pytest.mark.parametrize("nq,key", [(1, "scan_topk_i4_sweep"),
-                                    (16, "scan_topk_i4_sweep"),
-                                    (17, "scan_topk_i4_wgmma"),
+                                    (4, "scan_topk_i4_sweep"),
+                                    (5, "scan_topk_i4_wgmma"),
                                     (200, "scan_topk_i4_wgmma")])
 def test_fused_topk_i4_negative_scores_beside_rows_past_cap(dev, nq, key):
     """Every score <= 0 and cap % 256 == 129: the rows the tensor-core
@@ -261,6 +268,27 @@ def test_fused_topk_i4_negative_scores_beside_rows_past_cap(dev, nq, key):
     assert bool((ref[0] <= 0).all())
     got = _i4_exact(q8, v4, vs, mask, 14, key, repeats=2)
     assert int(got[1].max()) < 4225
+
+
+@pytest.mark.parametrize("nq,key", [(1, "scan_topk_i4_sweep"),
+                                    (64, "scan_topk_i4_wgmma")])
+def test_fused_topk_i4_ranks_live_rows_whatever_their_scale(dev, nq, key):
+    """Whether a row is ranked depends on its mask bit and index alone: live
+    rows with a scale of 0 or below (ingest_device takes the caller's
+    scales) score float(sum) x scale, ties to the lower row, as the plain
+    version ranks them, beside masked rows and rows past cap."""
+    # every sum <= 0: rows of scale 0 (the even ones) score 0 and beat the
+    # other positive-scale rows; three odd rows of negative scale score
+    # above 0 and come first
+    q8, v4, vs, mask = _i4_store(dev, 4225, 1024, nq, seed=9, negative=True)
+    rows = torch.arange(4225, device=dev)
+    vs = torch.where(rows % 2 == 0, 0.0, vs)
+    neg = torch.tensor([3, 1001, 4001], device=dev)
+    vs[neg], mask[neg] = -vs[neg], True
+    ref = scan.scan_topk_plain(q8, v4, vs, mask, 128, int4=True)
+    assert bool((ref[1][:, :3].sort(dim=1).values == neg.int()).all())
+    assert bool((ref[0][:, 3:] == 0).all())
+    _i4_exact(q8, v4, vs, mask, 128, key, repeats=2)
 
 
 def test_fused_topk_i4_repeated_batches_agree(dev):

@@ -1,8 +1,8 @@
 """K6's two Hopper kernels, checked on the CPU.
 
 * Which kernel K6 launches: the rules `i4_sweep_ready` (the one-query
-  sweep's int4 kind, Q <= 16) and `i4_wgmma_ready` (the tensor-core scan,
-  Q > 16), clause by clause, and the dispatch order (the sweep, then the
+  sweep's int4 kind, Q <= I4_SWEEP_Q_MAX) and `i4_wgmma_ready` (the
+  tensor-core scan, larger Q), clause by clause, and the dispatch order (the sweep, then the
   tensor-core scan, then the template) with the entry points and
   arguments the wrapper passes, recorded by a stand-in for `scan._launch`
   on CPU tensors that report themselves as CUDA tensors.
@@ -185,9 +185,20 @@ def _tma_unswizzle(tile):
     return tile[o ^ (((o >> 7) & 7) << 4)].reshape(-1, 128)
 
 
+def _expand_stages(v4):
+    """The expansion in shared memory: each packed 64-byte slice [64 j,
+    64 j + 64) of a row becomes the 128-byte stage [low nibbles | high
+    nibbles], the biased planes as bytes 1..15 (0 for a zero byte)."""
+    cap, half = v4.shape
+    p = v4.astype(np.uint8)
+    lo = (p & 15).reshape(cap, half // 64, 64)
+    hi = (p >> 4).reshape(cap, half // 64, 64)
+    return np.concatenate([lo, hi], axis=2).reshape(cap, 2 * half)
+
+
 def _wgmma_emulated(q8, v4, vs, mask, k, sms):
     q_perm = tscan.permute_i4_queries(_t(q8)).numpy().astype(np.int64)
-    b = tscan.expand_i4_stages(_t(v4)).numpy().astype(np.int64)
+    b = _expand_stages(v4).astype(np.int64)
     cap = v4.shape[0]
     q_tiles, ranges = tscan.i4_wgmma_partition(len(q8), cap, sms)
     tiles = -(-cap // tscan.I4_WGMMA_BN)
@@ -263,13 +274,13 @@ def test_wgmma_emulation_equals_plain(cap, nq, k, sms):
 
 @pytest.mark.parametrize("dim", [128, 256, 1024])
 def test_permuted_stages_give_the_i4_sum(dim):
-    """permute_i4_queries(q) . expand_i4_stages(v) - 8 sum(q) is
+    """permute_i4_queries(q) . _expand_stages(v) - 8 sum(q) is
     `_i4_scores`'s exact integer sum; stage j of a row is its packed bytes
     [64 j, 64 j + 64): low nibbles, then high."""
     rng = np.random.default_rng(dim)
     v, v4, vs, mask = _store(rng, 48, dim)
     q8 = _queries(rng, v, 5)
-    b = tscan.expand_i4_stages(_t(v4)).numpy()
+    b = _expand_stages(v4)
     p = v4.astype(np.uint8)
     for j in range(dim // 128):
         np.testing.assert_array_equal(b[:, 128 * j:128 * j + 64],
@@ -293,7 +304,7 @@ def test_stage_expansion_matches_the_tma_swizzle():
     packed = rng.integers(-128, 128, size=(256, 64)).astype(np.int8)
     got = _tma_unswizzle(_stage_write(_tma_swizzle64(packed)))
     np.testing.assert_array_equal(
-        got, tscan.expand_i4_stages(_t(packed)).numpy().astype(np.uint8))
+        got, _expand_stages(packed))
 
 
 def test_plain_rounds_the_int32_sum_as_the_kernels_past_float32():
@@ -342,7 +353,8 @@ def _operands(nq, dim, offset=0, rows=256):
 
 
 def test_i4_sweep_ready_rule():
-    for nq in (1, 2, 5, 16):
+    top = tscan.I4_SWEEP_Q_MAX
+    for nq in sorted({1, 2, top}):
         q, v = _operands(nq, 96)
         assert tscan.i4_sweep_ready(q, v, 1)
         assert tscan.i4_sweep_ready(q, v, 128)
@@ -351,17 +363,18 @@ def test_i4_sweep_ready_rule():
         assert not tscan.i4_sweep_ready(*_operands(nq, 96, offset=1), 14)
         q2, _ = _operands(nq, 96)
         assert not tscan.i4_sweep_ready(q2[:, 1:65], v, 14)  # q 1 byte off
-    assert not tscan.i4_sweep_ready(*_operands(17, 96), 14)
+    assert not tscan.i4_sweep_ready(*_operands(top + 1, 96), 14)
     # the query block: sweep_tile(Q) x dim bytes within 64 KB
-    assert tscan.i4_sweep_ready(*_operands(16, 4096, rows=4), 14)
-    assert not tscan.i4_sweep_ready(*_operands(16, 4128, rows=4), 14)
-    assert tscan.i4_sweep_ready(*_operands(8, 8192, rows=4), 14)
-    assert not tscan.i4_sweep_ready(*_operands(9, 8192, rows=4), 14)
-    assert tscan.i4_sweep_ready(*_operands(1, 65536, rows=1), 14)
+    for nq in sorted({1, 2, top}):
+        widest = tscan.SWEEP_QBLOCK_BYTES // tscan.sweep_tile(nq)
+        assert tscan.i4_sweep_ready(*_operands(nq, widest, rows=1), 14)
+        assert not tscan.i4_sweep_ready(*_operands(nq, widest + 32, rows=1),
+                                        14)
 
 
 def test_i4_wgmma_ready_rule():
-    for nq in (17, 64, 130, 2048):
+    top = tscan.I4_SWEEP_Q_MAX
+    for nq in (top + 1, 16, 17, 64, 130, 2048):
         q, v = _operands(nq, 1024, rows=4)
         assert tscan.i4_wgmma_ready(q, v, 1)
         assert tscan.i4_wgmma_ready(q, v, 128)
@@ -369,8 +382,8 @@ def test_i4_wgmma_ready_rule():
         assert not tscan.i4_wgmma_ready(*_operands(nq, 1056, rows=4), 14)
         assert not tscan.i4_wgmma_ready(*_operands(nq, 1024, offset=8,
                                                    rows=4), 14)
-    assert tscan.i4_wgmma_ready(*_operands(17, 128), 14)
-    assert not tscan.i4_wgmma_ready(*_operands(16, 1024), 14)
+    assert tscan.i4_wgmma_ready(*_operands(top + 1, 128), 14)
+    assert not tscan.i4_wgmma_ready(*_operands(top, 1024), 14)
     assert not tscan.i4_wgmma_ready(*_operands(64, 96), 14)
 
 
@@ -416,12 +429,13 @@ def recorded(monkeypatch):
 
 
 # (Q, dim, k, offset, kernel): the sweep first, then the tensor-core scan,
-# then the template
-DISPATCH = [(1, 1024, 14, 0, "sweep"), (16, 96, 128, 0, "sweep"),
-            (16, 4096, 14, 0, "sweep"), (16, 8192, 14, 0, "template"),
+# then the template (the sweep up to I4_SWEEP_Q_MAX = 4 queries)
+DISPATCH = [(1, 1024, 14, 0, "sweep"), (4, 96, 128, 0, "sweep"),
+            (4, 16384, 14, 0, "sweep"), (4, 16416, 14, 0, "template"),
             (5, 1024, 1024, 0, "template"), (1, 80, 14, 0, "template"),
+            (5, 1024, 14, 0, "wgmma"), (16, 1024, 14, 0, "wgmma"),
             (17, 1024, 14, 0, "wgmma"), (2048, 1024, 128, 0, "wgmma"),
-            (64, 96, 14, 0, "template"), (256, 1024, 129, 0, "template"),
+            (16, 96, 14, 0, "template"), (256, 1024, 129, 0, "template"),
             (130, 1024, 14, 8, "template"), (4, 1024, 14, 8, "template")]
 
 
@@ -462,7 +476,7 @@ def test_launch_shapes_split_the_count(recorded):
         q, v = _operands(nq, 1024)
         tscan.fused_topk_i4(_as_cuda(q), _as_cuda(v), vs, mask, k)
     assert tscan.LAUNCH_SHAPES["scan_topk_i4"] == {
-        "Q=1 k=14": 2, "Q=2048 k=14": 1, "Q=256 k=14": 1, "Q=16 k=1024": 1}
+        (1, 14): 2, (2048, 14): 1, (256, 14): 1, (16, 1024): 1}
     assert tscan.LAUNCHES["scan_topk_i4"] == 5
     tscan.reset_launch_counts()
     assert tscan.LAUNCH_SHAPES == {} and tscan.LAUNCHES["scan_topk_i4"] == 0
