@@ -20,7 +20,8 @@ int8 routes, scan_mode="approx"), and the two bench probes (phase 10).
 Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
-(K9, K7, K6: the template; K10: the mma.sync tile). Every phase prints its lines; any failure raises and the script exits
+(K9, K7, K6, K3: the template; K10: the mma.sync tile; K8: its first
+kernel). Every phase prints its lines; any failure raises and the script exits
 non-zero without a result line. It imports neither JAX nor picovdb_tpu,
 and refuses to run without a card.
 
@@ -63,13 +64,22 @@ TOL_GAP = 1e-4  # id sets must agree where the k-th/(k+1)-th gap exceeds it
 # operations over the peak for their type (NVIDIA H100 SXM data sheet,
 # dense rates at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# "f32" is the CUDA cores' float32 rate, "tf32" the tensor cores' TF32
+# rate (495 TFLOP/s).
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+                  "tf32": 495e12}
 # The query counts phase 5 holds and times K6 at: those its path launches
 # (1, 256, 2048) and those around the ready rules' limits
 K6_SHAPES = (1, 2, 4, 5, 8, 16, 17, 64, 256, 2048)
 # K6's kernels besides its template, by their launch counters
 K6_KERNELS = {"sweep": "scan_topk_i4_sweep",
               "tensor-core scan": "scan_topk_i4_wgmma"}
+# K3's kernels besides its template, by their launch counters
+K3_KERNELS = {"sweep": "scan_topk_i8_sweep"}
+# The (Q, k_sel) shapes phase 3 holds and times K3 at on the store's int8
+# mirror: its Q = 1 route (k = 10 + 4), the small batches around the
+# sweep's limit, and the host-rescore band (k + 128 + 4)
+K3_SHAPES = tuple((nq, k) for k in (14, 142) for nq in (1, 2, 4, 8, 16))
 
 KERNELS = {
     # name: (launch-counter key, source, TPU kernel it replaces, the phase
@@ -82,14 +92,19 @@ KERNELS = {
     # (csrc/sweep_topk.cu), which serves every Q <= 16 call of phases 9 and
     # 7 / 8. K6 has a row per kernel: the sweep's int4 kind serves phase
     # 5's Q = 1 calls, the tensor-core scan (csrc/scan_i4_wgmma.cu) its
-    # 2048- and 256-query batches.
+    # 2048- and 256-query batches. K3's row is the sweep's row-scaled int8
+    # kind, which serves phase 3's Q = 1 calls (and phase 4's host-rescore
+    # band). K8 has a row per postings kind, both on its tensor-core
+    # segment scan (csrc/ivf_segmax_wgmma.cu): float32 on phase 7's
+    # 32-query chunks, int8 on phase 8's.
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "segmax_scan_wmma": ("segmax_wmma", "picovdb_tpu_torch/csrc/segmax.cu",
                          "picovdb_tpu/ops/pallas_scan.py:443", "3b"),
     "topk_packed_keys": ("topk_keys", "picovdb_tpu_torch/csrc/topk_keys.cu",
                          "picovdb_tpu/ops/pallas_scan.py:536", 3),
-    "fused_topk_i8": ("scan_topk_i8", "picovdb_tpu_torch/csrc/scan_topk.cu",
+    "fused_topk_i8": ("scan_topk_i8_sweep",
+                      "picovdb_tpu_torch/csrc/sweep_topk.cu",
                       "picovdb_tpu/ops/pallas_scan.py:865", 3),
     "fused_topk": ("scan_topk", "picovdb_tpu_torch/csrc/scan_topk.cu",
                    "picovdb_tpu/ops/pallas_scan.py:226", 3),
@@ -104,8 +119,12 @@ KERNELS = {
     "ivf_scan_topk": ("ivf_scan_topk_sweep",
                       "picovdb_tpu_torch/csrc/sweep_topk.cu",
                       "picovdb_tpu/ops/ivf.py:1237", 7),
-    "ivf_segmax_scan": ("ivf_segmax", "picovdb_tpu_torch/csrc/segmax.cu",
+    "ivf_segmax_scan": ("ivf_segmax_wgmma",
+                        "picovdb_tpu_torch/csrc/ivf_segmax_wgmma.cu",
                         "picovdb_tpu/ops/ivf.py:1492", 7),
+    "ivf_segmax_scan_i8c": ("ivf_segmax_wgmma",
+                            "picovdb_tpu_torch/csrc/ivf_segmax_wgmma.cu",
+                            "picovdb_tpu/ops/ivf.py:1492", 8),
     "fused_topk_i8c": ("scan_topk_i8c_sweep",
                        "picovdb_tpu_torch/csrc/sweep_topk.cu",
                        "picovdb_tpu/ops/pallas_scan.py:1705", 9),
@@ -131,6 +150,17 @@ def entry(err, ms, plain_ms, nbytes, ops, kind, library_ms=None) -> dict:
             "library_ms": library_ms}
 
 
+def k8_ops(torch, nq: int, live: int, dim: int, dtype):
+    """K8's operations at nq queries over `live` rows and their type:
+    float32 postings run 3xTF32 on the tensor cores (three products of
+    2 nq live dim at the TF32 rate), bf16 and int8 postings one product at
+    their own rate."""
+    ops = 2 * nq * live * dim
+    if dtype == torch.float32:
+        return 3 * ops, "tf32"
+    return ops, "bf16" if dtype == torch.bfloat16 else "int8"
+
+
 def launch_counts(scan) -> dict:
     """The launch counters, with each kernel's launches by shape under
     "shapes" ("Q=2048 k=14", from ops/scan.py::LAUNCH_SHAPES): rule 2
@@ -154,9 +184,10 @@ def card_line() -> str:
 
 
 # The instantiations whose registers and spills phase 1 reports: the
-# mainloop's (K1, K10, P1), the one-query sweep's (K9, K7, K6 at small Q)
-# and K6's tensor-core scan's
-PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel")
+# mainloop's (K1, K10, P1), the one-query sweep's (K9, K7, K6 and K3 at
+# small Q), K6's tensor-core scan's and K8's tensor-core segment scan's
+PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel",
+                 "ivf_segmax_wgmma_kernel")
 
 
 def ptxas_report(log_path) -> str:
@@ -184,7 +215,7 @@ def ptxas_report(log_path) -> str:
                              timeout=60).stdout.splitlines()
         if len(out) == len(names):
             names = [n.replace("pv::<unnamed>::", "").replace("(int)", "")
-                     .replace("wg::", "").replace("i4::", "").removeprefix("void ")
+                     .replace("wg::", "").replace("i4::", "").replace("sg::", "").removeprefix("void ")
                      .split(">(")[0] + ">" for n in out]
     parts = [f"{n} {regs} registers / {sp} spill bytes"
              for n, (_, regs, sp) in zip(names, rows)]
@@ -197,6 +228,23 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
     from picovdb_tpu_torch.probes import cuda_ms as timed
 
     return timed(fn, reps)
+
+
+def host_us(torch, fn, n: int = 20, groups: int = 5) -> float:
+    """The host's time a call of `fn` takes to enqueue its work: wall
+    clock over `n` calls made back to back without synchronizing (the
+    device works behind them), after a warm-up; the median of `groups`
+    such groups, since other work on the host's cores lands in some."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(groups):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e6 / n)
+        torch.cuda.synchronize()
+    return float(np.median(per))
 
 
 def device_split(torch, fn, reps: int = 20) -> str:
@@ -328,6 +376,51 @@ def k6_timed(torch, scan, args, ref, reps: int):
             f"K6's {name} differs from the plain version at Q={q8.shape[0]}"
     times = {name: cuda_ms(torch, run, reps) for name, run in runs.items()}
     return served, times, exact_err(torch, got[0], ref[0])
+
+
+def k3_timed(torch, scan, args, reps: int):
+    """K3 on `args` (int8 queries, int8 rows, row scales, mask, k_sel):
+    the dispatch's result and each kernel that can take these operands,
+    launched uncounted (the sweep's row-scaled int8 kind at Q <= 16, k <=
+    384; the template), held bit for bit to the plain version's result
+    (exact int32 sums, one conversion, one multiply, ties to the lower
+    row). Returns the kernel the dispatch chose and each kernel's time."""
+    q8, k = args[0], args[4]
+    before = dict(scan.LAUNCHES)
+    got = scan.fused_topk_i8(*args)
+    served = next((name for name, key in K3_KERNELS.items()
+                   if scan.LAUNCHES[key] > before[key]), "template")
+    ref = scan.scan_topk_plain(*args)
+    runs = {}
+    if q8.shape[0] <= scan.SWEEP_Q_MAX and k <= scan.I8_SWEEP_K_MAX:
+        runs["sweep"] = lambda: scan._sweep_launch(*args, "fused_topk_i8")
+    runs["template"] = lambda: scan._template_launch(*args, scan._KIND_I8,
+                                                     "scan_topk_i8")
+    for name, out in [("dispatch", got)] + [(n, r()) for n, r in runs.items()]:
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), \
+            f"K3's {name} differs from the plain version at Q={args[0].shape[0]}"
+    return served, {name: cuda_ms(torch, run, reps) for name, run in runs.items()}
+
+
+def k3_table(torch, scan, queries, v8, vs, mask, shapes, reps: int = 5) -> str:
+    """K3 at each (Q, k_sel) of `shapes` over one int8 plane (`k3_timed`
+    on the first Q of the normalized `queries`, quantized as the routes
+    quantize them), each kernel's time beside the bound."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    live, cap, dim = int(mask.sum()), mask.shape[0], v8.shape[1]
+    parts = []
+    for nq, k in shapes:
+        q8, _ = scan.quantize_rows_i8(normalize_on_device(queries[:nq]))
+        served, times = k3_timed(torch, scan, (q8, v8, vs, mask, k), reps)
+        # the queries, the live rows and their scales, the mask, the keys
+        bound = entry(0.0, 0, 0, nq * dim + live * (dim + 4) + cap
+                      + nq * k * 8, 2 * nq * live * dim, "int8")["bound_ms"]
+        parts.append(f"Q={nq} k_sel={k} ({served}): " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in times.items())
+            + f" ms, bound {bound:.4f}")
+    return "; ".join(parts)
 
 
 def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
@@ -524,22 +617,33 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         assert float((ex_k - ex_p).abs().max()) <= TOL_SCORE, name
         return err
 
-    # K3 at Q = 1, 8, 16, k = 10 (small-batch route: k_sel = k + 4)
-    errs, ms, pms = [], [], []
+    # K3 at Q = 1, 8, 16, k = 10 (small-batch route: k_sel = k + 4): the
+    # dispatch bit for bit the plain version, and the sweep and the
+    # template it replaced held to it and timed on the same inputs
+    errs, k3, pms = [], {}, []
     for nq in (1, 8, 16):
         qf = normalize_on_device(
             torch.from_numpy(rng.standard_normal((nq, dim), dtype=np.float32))
             .to(device))
         q8, _ = scan.quantize_rows_i8(qf)
         errs.append(check_scan("fused_topk_i8", q8, v8, vs, mask, 14, qf))
-        ms.append(cuda_ms(torch, lambda: scan.fused_topk_i8(q8, v8, vs, mask, 14)))
+        k3[nq] = k3_timed(torch, scan, (q8, v8, vs, mask, 14), reps=10)
         pms.append(cuda_ms(torch, lambda: scan.scan_topk_plain(q8, v8, vs, mask, 14)))
-    rec["fused_topk_i8"] = entry(max(errs), ms[0], pms[0],
+        if nq == 1:
+            ms1 = cuda_ms(torch, lambda: scan.fused_topk_i8(q8, v8, vs, mask, 14))
+            split3 = device_split(torch, lambda: scan.fused_topk_i8(
+                q8, v8, vs, mask, 14))
+    assert k3[1][0] == "sweep", k3
+    rec["fused_topk_i8"] = entry(max(errs), ms1, pms[0],
                                  dim + live * (dim + 4) + cap + 14 * 8,
                                  2 * live * dim, "int8")
-    log(f"phase 2: K3 fused_topk_i8 agrees at Q=1,8,16 k_sel=14 "
-        f"(ms {', '.join(f'{m:.4f}' for m in ms)}; plain "
-        f"{', '.join(f'{m:.4f}' for m in pms)})")
+    log(f"phase 2: K3 fused_topk_i8 = plain bit for bit at Q=1,8,16 "
+        f"k_sel=14 (bound {rec['fused_topk_i8']['bound_ms']:.4f} ms at Q=1; "
+        f"the kernel the dispatch chose, then each kernel's ms): "
+        + "; ".join(f"Q={n} {served}: " + ", ".join(
+            f"{name} {t:.4f}" for name, t in times.items())
+            for n, (served, times) in k3.items())
+        + f"; plain {', '.join(f'{m:.4f}' for m in pms)}; at Q=1 {split3}")
 
     # K4 on the bf16 mirror at Q = 64, k = 32 (k_sel 36) with a filter
     q64 = normalize_on_device(
@@ -593,6 +697,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     ms_w = cuda_ms(torch, lambda: scan.fused_topk_i4(q8, v4, vs4, mask, 1024))
     pms_w = cuda_ms(torch, lambda: scan.scan_topk_plain(
         q8, v4, vs4, mask, 1024, int4=True))
+    bound_w = entry(0.0, 0, 0, 16 * dim + live * (dim // 2 + 4) + cap
+                    + 16 * 1024 * 8, 2 * 16 * live * dim, "int8")["bound_ms"]
     rec["fused_topk_i4"] = entry(max(errs), k6[1][1]["sweep"], pms[0],
                                  dim + live * (dim // 2 + 4) + cap + 14 * 8,
                                  2 * live * dim, "int8")
@@ -609,7 +715,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             f"{name} {t:.4f}" for name, t in times.items())
             for n, (served, times, _) in k6.items())
         + f"; plain {', '.join(f'{m:.4f}' for m in pms)}; template at Q=16 "
-        f"k_sel=1024 {ms_w:.4f} ms (plain {pms_w:.4f}); at Q=1 {split6}")
+        f"k_sel=1024 {ms_w:.4f} ms (bound {bound_w:.4f}, plain {pms_w:.4f}); "
+        f"at Q=1 {split6}")
 
     # K9 over the column-scaled int8 mirror at Q = 1, 8, 16, k_sel 16
     # (i8c_fused_smallq at k = 10: guard 6). It ranks the exact int32
@@ -762,34 +869,43 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
     # order, which moves a key by at most one 128-ulp quantum (1.9e-6 below
     # a score of 0.25). A TF32 product (10-bit mantissa) would be off by
     # more; the plain version run in TF32 on the same inputs shows it does.
-    errs, lines, first = [], [], None
+    errs, lines, first = {}, [], {}
     for kind in kinds:
         for per_seg in (4, 8):
             qs, vv = scan_inputs(kind, q64), kinds[kind]
+            before = scan.LAUNCHES["ivf_segmax_wgmma"]
             keys = ivf.ivf_segmax_scan(qs, vv, mask, hot, n_hot, per_seg)
+            assert scan.LAUNCHES["ivf_segmax_wgmma"] == before + 1, \
+                f"K8 {kind} missed the tensor-core segment scan"
             ref = ivf.ivf_segmax_scan_plain(qs, vv, mask, hot, n_hot, per_seg)
             torch.cuda.synchronize()
             live = keys != scan.KEY_MIN
-            assert torch.equal(live, ref != scan.KEY_MIN), f"K8 {kind}"
             assert not bool(live[:, 40 * per_seg * ns:].any()), "K8 dead step"
-            if kind == "i8c":
-                assert torch.equal(keys, ref), "K8 i8c keys differ"
-                err = 0.0
-            else:
-                err = key_err(keys, ref, live)
-                assert err <= TOL_SCORE, f"K8 {kind} keys differ by {err}"
-            errs.append(err)
+            err = check_k8_keys(torch, scan, keys, ref, kind == "i8c",
+                                f"K8 {kind} per_seg={per_seg}")
+            errs[kind] = max(errs.get(kind, 0.0), err)
+
+            def first_kernel():  # the kernel the segment scan replaced
+                return ivf._ivf_segmax_launch(qs, vv, mask, hot, n_hot,
+                                              per_seg, bn, False)
+
+            check_k8_keys(torch, scan, first_kernel(), ref, kind == "i8c",
+                          f"K8's first kernel {kind} per_seg={per_seg}")
             ms = cuda_ms(torch, lambda: ivf.ivf_segmax_scan(qs, vv, mask, hot,
                                                             n_hot, per_seg))
             pms = cuda_ms(torch, lambda: ivf.ivf_segmax_scan_plain(
                 qs, vv, mask, hot, n_hot, per_seg))
-            first = first or (ms, pms)
-            lines.append(f"{kind} per_seg={per_seg} {ms:.4f} ms (plain "
+            first.setdefault(kind, (ms, pms))
+            lines.append(f"{kind} per_seg={per_seg} {ms:.4f} ms (the first "
+                         f"kernel {cuda_ms(torch, first_kernel):.4f}, plain "
                          f"{pms:.4f})")
-    rec["ivf_segmax_scan"] = entry(
-        max(errs), first[0], first[1],
-        64 * dim * 4 + hot_live * dim * 4 + cap + 64 * 64 * 4 * ns * 4,
-        2 * 64 * hot_live * dim, "f32")
+    for name, kind in (("ivf_segmax_scan", "f32"),
+                       ("ivf_segmax_scan_i8c", "i8c")):
+        es = kinds[kind].element_size()
+        rec[name] = entry(
+            errs[kind], *first[kind],
+            64 * dim * es + hot_live * dim * es + cap + 64 * 64 * 4 * ns * 4,
+            *k8_ops(torch, 64, hot_live, dim, kinds[kind].dtype))
     # what the limit must reject: the f32 plain version in TF32, and over
     # bf16-rounded inputs, against the f32 plain version
     ref = ivf.ivf_segmax_scan_plain(q64, post, mask, hot, n_hot, 8)
@@ -804,11 +920,28 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
         q64.to(torch.bfloat16), kinds["bf16"], mask, hot, n_hot, 8), ref, live)
     assert err_tf32 > TOL_SCORE, f"a TF32 K8 would pass: {err_tf32}"
     log(f"phase 2: K8 ivf_segmax_scan agrees at Q=64 (max |dkey value| "
-        f"{max(errs):.3g}, limit {TOL_SCORE:g}; plain f32 in TF32 "
+        f"{max(errs.values()):.3g}, limit {TOL_SCORE:g}; plain f32 in TF32 "
         f"{err_tf32:.3g}, over bf16 inputs {err_bf16:.3g}): "
         + "; ".join(lines))
     del post, v8, kinds
     torch.cuda.empty_cache()
+
+
+def check_k8_keys(torch, scan, keys, ref, exact: bool, what: str) -> float:
+    """K8's key slab against its plain version's: the same KEY_MIN pattern,
+    and the keys bit for bit (`exact`: int8 postings, integer sums) or
+    decoded within TOL_SCORE. Returns the max |dkey value|."""
+    live = keys != scan.KEY_MIN
+    assert torch.equal(live, ref != scan.KEY_MIN), f"{what}: KEY_MIN pattern"
+    if exact:
+        assert torch.equal(keys, ref), f"{what}: keys differ"
+        return 0.0
+    if not bool(live.any()):
+        return 0.0
+    err = float((key_values(torch, scan, keys)[live]
+                 - key_values(torch, scan, ref)[live]).abs().max())
+    assert err <= TOL_SCORE, f"{what}: keys differ by {err}"
+    return err
 
 
 def oracle_top10(torch, corpus_dev, queries_dev, live_rows):
@@ -955,7 +1088,37 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(qb, dev.vectors_lp,
                                                     dev.active))
     chunk_ms = batch_s / 4 * 1e3
-    del qb, qf, q64f
+    # the path's other launch shapes: K1 + K2 (k_sel 16) at Q = 64 and
+    # 256 over the mirror, K4 at Q = 64, k_sel 14 under the 3,000-id
+    # filter, K3 at K3_SHAPES over the int8 mirror (the crossover behind
+    # K3's sweep serving every Q <= scan.SWEEP_Q_MAX)
+    other = []
+    for nq in (64, 256):
+        qbn = qb[:nq].contiguous()
+        kk = scan.segmax_scan(qbn, dev.vectors_lp, dev.active)
+        b1 = entry(0.0, 0, 0, nq * dim * 2 + live3 * dim * 2 + cap3
+                   + kk.numel() * 4, 2 * nq * live3 * dim, "bf16")["bound_ms"]
+        b2 = entry(0.0, 0, 0, kk.numel() * 4 + nq * 16 * 8, 0,
+                   "int8")["bound_ms"]
+        other.append(
+            f"K1 Q={nq} {cuda_ms(torch, lambda: scan.segmax_scan(qbn, dev.vectors_lp, dev.active)):.4f} "
+            f"ms (bound {b1:.4f}), K2 Q={nq} k_sel=16 "
+            f"{cuda_ms(torch, lambda: scan.topk_packed_keys(kk, 16)):.4f} ms "
+            f"(bound {b2:.4f})")
+        del kk
+    fmask = torch.zeros_like(dev.active)
+    fmask[torch.from_numpy(np.asarray([int(a[1:]) for a in allow])).to(
+        device)] = True
+    fmask &= dev.active
+    flive = int(fmask.sum())
+    b4 = entry(0.0, 0, 0, 64 * dim * 4 + flive * dim * 2 + cap3 + 64 * 14 * 8,
+               2 * 64 * flive * dim, "bf16")["bound_ms"]
+    other.append(f"K4 Q=64 k_sel=14 over {flive} filtered rows "
+                 f"{cuda_ms(torch, lambda: scan.fused_topk(q64f, dev.vectors_lp, fmask, 14)):.4f}"
+                 f" ms (bound {b4:.4f})")
+    k3_line = k3_table(torch, scan, qdev, dev.vectors_i8, dev.vscale,
+                       dev.active, K3_SHAPES)
+    del qb, qf, q64f, fmask
     log(f"phase 3: main path at {n} x {dim}: routes segmax_mixed_stream, "
         f"i8_fused_smallq, fview_segmax, mixed_fused_batch_filtered, "
         f"mixed_fused_batch; recall@10 {recall:.4f} vs float64 (filter view "
@@ -966,7 +1129,11 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
         f"(max |dkey value| {err1:.3g}, KEY_MIN pattern equal, K2 + rescored "
         f"rows = plain outside the gap); at this phase's shapes K2 "
         f"{k2_ms:.4f} ms (bound {k2_bound:.4f}) on the chunk's slab, K4 "
-        f"{k4_ms:.4f} ms (bound {k4_bound:.4f}) at Q=64 k_sel=36")
+        f"{k4_ms:.4f} ms (bound {k4_bound:.4f}) at Q=64 k_sel=36; "
+        + "; ".join(other))
+    log(f"phase 3: K3 fused_topk_i8 = plain bit for bit over the store's "
+        f"{dev.vectors_i8.shape[0]}-row int8 mirror, {live3} live rows "
+        f"(the kernel the dispatch chose, then each kernel's ms): {k3_line}")
 
     # save, reload into a fresh instance, same answers
     probe = qdev[64:72].cpu().numpy()
@@ -1126,6 +1293,26 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     assert len(res) == 10 and res[0]["_id_"] == out_ids[0][0]
     counts = launch_counts(scan)
     assert counts["segmax_i8"] > 0, "segmax_scan_i8 never launched"
+    shapes4 = counts["shapes"]["scan_topk_i8"]
+    assert counts["scan_topk_i8_sweep"] >= shapes4.get("Q=1 k=142", 0) > 0, \
+        "the host-rescore band's Q = 1 calls missed K3's sweep"
+    # after the count: K3 at the host-rescore band's launch shapes (Q = 1
+    # and the Q = 64 batches, k_sel 142) and K5 at Q = 256, on the store's
+    # own plane, scales and mask
+    d2 = db2._dev
+    cap4, live4 = d2.active.shape[0], int(d2.active.sum())
+    k3_line = k3_table(torch, scan, qdev, d2.vectors, d2.vstore_scale,
+                       d2.active, ((1, 142), (64, 142)))
+    q8_256, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:256]))
+    k5_ms = cuda_ms(torch, lambda: scan.segmax_scan_i8(
+        q8_256, d2.vectors, d2.vstore_scale, d2.active))
+    k5_bound = entry(0.0, 0, 0, 256 * dim + live4 * (dim + 4) + cap4
+                     + 256 * 2 * (cap4 // 128) * 4, 2 * 256 * live4 * dim,
+                     "int8")["bound_ms"]
+    log(f"phase 4: K3 fused_topk_i8 = plain bit for bit on the store's "
+        f"{cap4}-row plane (the kernel the dispatch chose, then each "
+        f"kernel's ms): {k3_line}; K5 segmax_scan_i8 at Q=256 {k5_ms:.4f} ms "
+        f"(bound {k5_bound:.4f})")
     log(f"phase 4: int8 storage at {n} x {dim}: routes i8stor_fused_exact "
         f"(host rescore), segmax_i8stor_stream, i8stor_fused_smallq; "
         f"recall@10 vs float64 {recall:.4f} (filtered {recall_f:.4f}) with "
@@ -1342,7 +1529,7 @@ def probed_slots(torch, db, qn, n_slots: int):
     return m
 
 
-def ivf_kernels_on_store(torch, scan, db, qn) -> str:
+def ivf_kernels_on_store(torch, scan, db, qn, rec) -> str:
     """K7 on one Q = 1 call's own inputs on the IVF store `db`: the probe
     preamble's hot table for the first of the normalized queries `qn`, the
     postings and query the route scans, k_sel of k = 10 with the route's
@@ -1389,23 +1576,140 @@ def ivf_kernels_on_store(torch, scan, db, qn) -> str:
     bound = entry(0.0, ms, pms, dim * es + live * dim * es + vs.shape[0]
                   + k * 8, 2 * live * dim, kind[vs.dtype])["bound_ms"]
     # K8 on the first 32-query chunk's own inputs (the segmax route's
-    # depth, keys out)
+    # depth, keys out), held to its plain version
     m8, h8, n8, g8 = store_probe(db, qn[:32])
     q32, _ = tivf._scan_inputs(qn[:32], x.vectors, x.vectors_i8c, x.cscale)
+    depth, bn = tivf.SEGMAX_DEPTH, tivf.IVF_BN
+    before = scan.LAUNCHES["ivf_segmax_wgmma"]
+    keys = tivf.ivf_segmax_scan(q32, vs, m8, h8, n8, depth)
+    assert scan.LAUNCHES["ivf_segmax_wgmma"] == before + 1, "K8 segment scan"
+    ref = tivf.ivf_segmax_scan_plain(q32, vs, m8, h8, n8, depth)
+
+    def first_kernel():  # the kernel the segment scan replaced, uncounted
+        return tivf._ivf_segmax_launch(q32, vs, m8, h8, n8, depth, bn, False)
+
+    old = first_kernel()
+    torch.cuda.synchronize()
+    err8 = check_k8_keys(torch, scan, keys, ref, vs.dtype == torch.int8,
+                         "K8 on the store's chunk")
+    check_k8_keys(torch, scan, old, ref, vs.dtype == torch.int8,
+                  "K8's first kernel on the store's chunk")
+    del old
+    name8 = "ivf_segmax_scan_i8c" if vs.dtype == torch.int8 else "ivf_segmax_scan"
+    rec[name8]["max_abs_err"] = max(rec[name8]["max_abs_err"], err8)
+    del keys, ref
     k8_ms = cuda_ms(torch, lambda: tivf.ivf_segmax_scan(
-        q32, vs, m8, h8, n8, tivf.SEGMAX_DEPTH))
+        q32, vs, m8, h8, n8, depth))
+    k8_first_ms = cuda_ms(torch, first_kernel)
+    k8_host = host_us(torch, lambda: tivf.ivf_segmax_scan(q32, vs, m8, h8, n8,
+                                                          depth))
+    k8_first_host = host_us(torch, first_kernel)
+    split_host = ""
+    if q32.dtype == torch.float32:
+        us = host_us(torch, lambda: tivf.split_tf32(q32))
+        split_host = f", of which the query split {us:.1f}"
     live8 = int(scanned_rows(torch, db, m8, h8, n8).sum())
-    ncol = g8 * tivf.SEGMAX_DEPTH * (tivf.IVF_BN // scan.SEG)
+    ncol = g8 * depth * (bn // scan.SEG)
     k8_bound = entry(0.0, 0, 0, 32 * dim * es + live8 * dim * es
-                     + vs.shape[0] + 32 * ncol * 4, 2 * 32 * live8 * dim,
-                     kind[vs.dtype])["bound_ms"]
+                     + vs.shape[0] + 32 * ncol * 4,
+                     *k8_ops(torch, 32, live8, dim, vs.dtype))["bound_ms"]
+    # what a kernel that skips dead segments must read: the live steps'
+    # 128-row segments that hold at least one live row
+    nl = int(n8)
+    rows = (h8[:nl].long()[:, None] * bn
+            + torch.arange(bn, device=m8.device)).reshape(-1)
+    seg_live = m8[rows].view(-1, scan.SEG).any(1)
+    seg_bytes = int(seg_live.sum()) * scan.SEG * dim * es
     return (f"; K7 on a Q=1 call's own hot table (grid_b {grid_b}, n_hot "
             f"{int(n_hot)}, {live} live rows, {kind[vs.dtype]} postings, "
             f"k_sel {k}): sweep {ms:.4f} ms [{split}], the template it "
             f"replaced {tms:.4f} ms, plain {pms:.4f} ms, bound {bound:.4f} "
             f"ms; K8 on a 32-query chunk's own hot table (grid_b {g8}, n_hot "
-            f"{int(n8)}, {live8} live rows): {k8_ms:.4f} ms, bound "
-            f"{k8_bound:.4f} ms")
+            f"{nl}, {live8} live rows) = plain (max |dkey value| {err8:.3g}), "
+            f"the first kernel too: segment scan {k8_ms:.4f} ms, the first "
+            f"kernel {k8_first_ms:.4f} ms (host us a call to enqueue: "
+            f"{k8_host:.1f}{split_host}, {k8_first_host:.1f}), bound "
+            f"{k8_bound:.4f} ms; "
+            f"{int((~seg_live).sum())} of the {seg_live.numel()} live steps' "
+            f"segments hold no live row, the others {seg_bytes} bytes "
+            f"({seg_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s)")
+
+
+def trace_call(torch, fn, reps: int = 5):
+    """One call of `fn`: its wall ms (host clock over `reps` calls, each
+    synchronizing as a query does), its device ms (torch.profiler's CUDA
+    activity over `reps` more calls: the durations of its kernels and
+    copies, which run on one stream, so their sum is the busy time) and
+    {kernel name: device us} a call; device ms None where the profiler
+    records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        head = ev.name.replace("(anonymous namespace)", "").split("<")[0]
+        name = head.split("(")[0].split("::")[-1].split()
+        name = name[-1] if name else ev.name[:40]
+        us, n = per.get(name, (0.0, 0))
+        per[name] = (us + ev.time_range.elapsed_us() / reps, n + 1)
+    busy = sum(us for us, _ in per.values()) / 1e3 if per else None
+    return wall, busy, per
+
+
+def chunk_ab(torch, db, q32) -> str:
+    """One 32-query chunk of the IVF store `db` (`query_columnar`, the
+    segmax route) traced by `trace_call`, K8 on the tensor-core segment
+    scan against K8 on its first kernel (`ivf_segmax_ready` made false:
+    the route as it ran before the segment scan), alternated twice in one
+    process. Run after the path's count."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    ready = tivf.ivf_segmax_ready
+
+    def chunk():
+        return db.query_columnar(q32, top_k=10, batch_size=32)
+
+    out, reps = {"segment scan": [], "first kernel": []}, 5
+    try:
+        for _ in range(2):
+            for what in out:
+                tivf.ivf_segmax_ready = (ready if what == "segment scan"
+                                         else lambda q, p: False)
+                out[what].append(trace_call(torch, chunk, reps))
+    finally:
+        tivf.ivf_segmax_ready = ready
+    parts = []
+    for what, runs in out.items():
+        text = []
+        for wall, busy, per in runs:
+            if busy is None:
+                text.append(f"wall {wall:.4f} ms, device not measured")
+                continue
+            k8 = [v for n, v in per.items() if n.startswith("ivf_segmax")]
+            top = sorted(per.items(), key=lambda kv: -kv[1][0])[:3]
+            text.append(
+                f"wall {wall:.4f} ms, device {busy:.4f} ms (idle "
+                f"{1 - busy / wall:.3f}; K8 {sum(us for us, _ in k8):.1f} us"
+                f", {sum(n for _, n in k8)} of its {reps} launches in the trace; "
+                f"{sum(n for _, n in per.values())} device events; top "
+                + ", ".join(f"{n} {us:.1f}" for n, (us, _) in top) + ")")
+        parts.append(f"{what}: " + " | ".join(text))
+    return ("; a 32-query chunk traced (torch.profiler, device time a "
+            "chunk against its wall time), " + "; ".join(parts))
 
 
 def oracle_masked(torch, chunks, queries, masks, k: int = 11):
@@ -1449,7 +1753,8 @@ def serve_singles(db, qs, strategy: str, k: int = 10):
     return out
 
 
-def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str):
+def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str,
+                  rec):
     """The IVF tier's classic layout: a clustered n x dim float32 store
     under index="auto" builds the tier at the sync after its bulk load;
     Q = 1 serves through K7 (route ivf), 32-query chunks through K8,
@@ -1509,7 +1814,23 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str):
     recall = recall_at_10(got1, oi[:, :10], "p")
     assert recall >= 0.95, recall
     del corpus_dev, chunks, m1, mb
-    k7 = ivf_kernels_on_store(torch, scan, db, qn)
+    k7 = ivf_kernels_on_store(torch, scan, db, qn, rec)
+    k7 += chunk_ab(torch, db, qs[:32])
+    # K4 at the exact route's Q = 256, k_sel 14 (after the count), over
+    # the rows it selects on: the bf16 mirror, or the float32 rows where
+    # the store keeps no mirror
+    dev = db._dev
+    sel = dev.vectors if dev.vectors_lp is None else dev.vectors_lp
+    q256 = normalize_on_device(torch.from_numpy(qs[:256]).to(device))
+    live7, es7 = int(dev.active.sum()), sel.element_size()
+    k4_ms = cuda_ms(torch, lambda: scan.fused_topk(q256, sel, dev.active, 14))
+    k4_bound = entry(0.0, 0, 0, 256 * dim * 4 + live7 * dim * es7
+                     + dev.active.shape[0] + 256 * 14 * 8,
+                     2 * 256 * live7 * dim,
+                     "bf16" if es7 == 2 else "f32")["bound_ms"]
+    k7 += (f"; K4 at the {exact_route} route's Q=256 k_sel=14 over "
+           f"{sel.dtype} rows {k4_ms:.4f} ms (bound {k4_bound:.4f})")
+    del q256, dev, sel
 
     # 1000 upserts: the incremental path, and the new rows are found
     new = np.concatenate([r.cpu().numpy() for _, r in mixture_chunks(
@@ -1536,7 +1857,8 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str):
     return counts
 
 
-def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str):
+def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str,
+                   rec):
     """The IVF tier's int8-only layout over a device-born, clustered
     n x dim int4 store (index="ivf"): the postings are column-scaled int8,
     the rescore reads the packed plane by slot; Q = 1 through K7 and
@@ -1582,7 +1904,8 @@ def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str):
     db.query_columnar(qs, top_k=10, batch_size=32)
     batch_s = time.perf_counter() - t0
     counts = launch_counts(scan)
-    for key in ("ivf_scan_topk", "ivf_scan_topk_sweep", "ivf_segmax"):
+    for key in ("ivf_scan_topk", "ivf_scan_topk_sweep", "ivf_segmax",
+                "ivf_segmax_wgmma"):
         assert counts[key] > 0, f"{key} never launched on the IVF path"
     peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1610,7 +1933,8 @@ def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str):
     _, oi = oracle_masked(torch, mixture_chunks(torch, device, n, dim, SEED + 9),
                           qn[:64], None)
     recall = recall_at_10(got1, oi[:, :10], "w")
-    k7 = ivf_kernels_on_store(torch, scan, db, qn)
+    k7 = ivf_kernels_on_store(torch, scan, db, qn, rec)
+    k7 += chunk_ab(torch, db, qs[:32])
     log(f"phase 8: IVF int8-only layout over a device-born {n} x {dim} int4 "
         f"store, index=ivf: built at the first sync ({first_s:.2f} s), nlist "
         f"{op['nlist']}, nprobe {op['nprobe_default']}, postings "
@@ -1760,7 +2084,7 @@ def route_kernel_ms(torch, scan, dev, qdev, name: str):
     return None, None
 
 
-def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
+def check_i8c_on_store(torch, scan, dev, qdev, new, rec) -> str:
     """K10 on one 2048-query chunk and K9 at Q = 1 and 16 (k_sel 16) over
     store (c)'s own column-scaled mirror, the planes its routes read,
     against their plain versions: integer keys and sums, so bit for bit.
@@ -1784,6 +2108,15 @@ def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
     del keys
     tile_ms = cuda_ms(torch, lambda: scan._segmax_i8c_launch(qq, v8c, act,
                                                              False))
+    # K10 at the 1,000-upsert check's Q = 1000 (one chunk)
+    q1000 = scan.fold_queries_i8(normalize_on_device(
+        torch.from_numpy(new).to(qq.device)), dev.cscale)
+    live9, cap9 = int(act.sum()), act.shape[0]
+    k10_1000 = cuda_ms(torch, lambda: scan.segmax_scan_i8c(q1000, v8c, act))
+    k10_bound = entry(0.0, 0, 0, 1000 * v8c.shape[1] + live9 * v8c.shape[1]
+                      + cap9 + 1000 * 2 * (cap9 // scan.SEG) * 4,
+                      2 * 1000 * live9 * v8c.shape[1], "int8")["bound_ms"]
+    del q1000
     err9, sweep_ms, tmpl_ms = 0.0, [], []
     for nq in (1, 16):
         before = scan.LAUNCHES["scan_topk_i8c_sweep"]
@@ -1805,7 +2138,8 @@ def check_i8c_on_store(torch, scan, dev, qdev, rec) -> str:
             f"{tile_ms:.4f} ms a chunk (same keys), K9 at Q=1, 16 "
             f"{sweep_ms[0]:.4f}, "
             f"{sweep_ms[1]:.4f} ms, the template it replaced "
-            f"{tmpl_ms[0]:.4f}, {tmpl_ms[1]:.4f} ms")
+            f"{tmpl_ms[0]:.4f}, {tmpl_ms[1]:.4f} ms; K10 at Q=1000 "
+            f"{k10_1000:.4f} ms (bound {k10_bound:.4f})")
 
 
 def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
@@ -1882,7 +2216,8 @@ def phase_tiers(torch, scan, device, n: int, dim: int, rng, card: str, rec,
                 extra += (f"; K10 {k_ms:.4f} ms of a {chunk_ms:.3f} ms "
                           f"2048-query chunk of wall "
                           f"({100 * k_ms / chunk_ms:.1f} %)")
-                extra += check_i8c_on_store(torch, scan, db._dev, qdev, rec)
+                extra += check_i8c_on_store(torch, scan, db._dev, qdev, new,
+                                            rec)
         finally:
             for e, v in saved.items():
                 if v is None:
@@ -2037,9 +2372,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_bf16(torch, scan, device, BF16_N, DIM, rng)
     torch.cuda.empty_cache()
-    counts[7] = phase_ivf_f32(torch, scan, device, IVF_N, DIM, rng, card)
+    counts[7] = phase_ivf_f32(torch, scan, device, IVF_N, DIM, rng, card,
+                             rec)
     torch.cuda.empty_cache()
-    counts[8] = phase_ivf_int4(torch, scan, device, IVF_I4_N, DIM, rng, card)
+    counts[8] = phase_ivf_int4(torch, scan, device, IVF_I4_N, DIM, rng,
+                              card, rec)
     torch.cuda.empty_cache()
     phase_sidecar(torch, device, SIDECAR_N, DIM)
     torch.cuda.empty_cache()

@@ -1,0 +1,521 @@
+// K8 ivf_segmax_scan on Hopper's tensor cores: per 128-row segment of each
+// live hot tile, the top `per_seg` packed keys, reading only the segments
+// that hold a live row.
+//
+// Replaces picovdb_tpu/ops/ivf.py:probe_scan_segmax (`_ivf_segmax_kernel`,
+// `_ivf_segmax_kernel_i8c`) wherever TMA can read the operands
+// (ops/ivf.py::ivf_segmax_ready: rows of whole 16 bytes, 16-byte aligned
+// bases); segmax.cu's `ivf_segmax_kernel` keeps the other widths. It
+// computes pv_ivf_segmax's function and slab: (Q, grid_b * per_seg * ns)
+// int32 keys, column b * per_seg * ns + r * ns + s for the r-th best of
+// segment s of hot tile hot[b]; a key is the score's order-preserving
+// int32 (float32: sortable bits; int8 postings: the raw int32 sum) with its
+// low 7 bits replaced by the row's lane; masked rows, exhausted ranks and
+// dead steps (b >= *n_hot, read on the device) carry KEY_MIN.
+//
+// What bounds it on the H100: the bytes of the segments it must read. At
+// the route's 32-query chunks a float32 segment is 512 KB for 2 x 32 x 128
+// x 1024 operations, far below the tensor cores' rate, so the kernel reads
+// each live segment once at HBM rate and skips the rest. The kernel it
+// replaces scored float32 rows with CUDA-core FMAs through unpipelined
+// shared-memory tiles, launched a block for every step of the padded hot
+// table (dead or not), and read every row of a segment the probe's mask
+// had emptied.
+//
+// Design:
+//  * Rows as M, queries as N. A segment is two m64 tiles, one per consumer
+//    warpgroup; the query tile is N = 32 (Q <= 32, the route's chunks) or
+//    64 (more queries take further query tiles), so no wgmma is wasted on
+//    absent corpus rows. Both operands are K-major as they lie (rows and
+//    queries contiguous in dim) and arrive by TMA in 128-byte k-stages,
+//    128B-swizzled (32 float32, 64 bf16 or 128 int8 elements).
+//  * Float32 postings run 3xTF32: x = hi + lo with hi = x with its low 13
+//    mantissa bits cleared (exact in TF32) and lo = x - hi (exact in
+//    float32); the product is hi.hi + hi.lo + lo.hi in the float32
+//    accumulator (lo.lo, below 2^-20 of sum |q v| <= 1, is dropped). The
+//    launcher splits the queries once (two planes, two TMA boxes a stage);
+//    each consumer warpgroup splits its m64 tile of a stage in shared
+//    memory, element by element at the same swizzled offsets (hi in
+//    place, lo into its own buffer, once its four warps have waited for
+//    the last stage's wgmmas), fences the writes for the async proxy and
+//    syncs its four warps before the wgmmas. TF32 alone (hi.hi) misses
+//    the 1e-5 key limit on clustered unit vectors. The tensor cores' float32
+//    sum rounds toward zero at each wgmma: over the 384 wgmmas of a
+//    1024-wide row it moved scores near 1 by 384 ulps (2.3e-5) on phase 7's
+//    clustered store. So each k-stage's 12 wgmmas sum into an accumulator
+//    of their own (scale_d = 0 at its first), which one round-to-nearest
+//    add per register folds into the row's sum: 32 truncating steps on
+//    partial sums of 1/32 the size, and 32 rounded adds. bf16 postings
+//    run bf16 wgmma (64 wgmmas a 1024-wide row, one accumulator),
+//    column-scaled int8 postings s8 wgmma with exact int32 sums.
+//  * Only live segments. A persistent grid (as many CTAs as fit, at most
+//    two an SM) shares the items (query tile, segment) of the live steps
+//    min(*n_hot, grid_b) x ns x q_tiles, query tiles fastest so the CTAs
+//    that read one segment run together and share it in L2, and then the
+//    dead steps' segments, each CTA computing its shares from n_hot on the
+//    device (`share`). A segment whose 128 mask
+//    bytes are all zero issues no copy: producer and consumers both read
+//    the mask (one warp ballot) and skip it alike, and the consumers write
+//    its KEY_MIN columns, as those of dead steps. No second launch.
+//  * A CTA holds two consumer warpgroups and one producer warp, whose lane
+//    0 keeps a ring of STAGES stages filled (the segment's 128 rows, the
+//    query tile's planes) behind full / empty mbarriers.
+//  * Epilogue: after a segment's last k-stage each consumer writes its
+//    accumulators as packed keys into a (N, 132) int32 tile in shared
+//    memory (conflict-free), then a warp per query runs `per_seg` warp-wide
+//    max passes over the segment's 128 keys (a lane holds 4; masked lanes
+//    KEY_MIN) and writes the slab, as segment.cu's segment_topn does.
+
+#include <atomic>
+
+#include "wgmma_tiles.cuh"
+
+namespace pv {
+namespace {
+namespace sg {
+
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::smem_u32;
+using wg::sw128_desc;
+using wg::tma_load_2d;
+
+constexpr int ROWS = SEG;                     // a segment: two m64 tiles
+constexpr int ROW_BYTES = 128;                // bytes of a row per k-stage
+constexpr int A_BYTES = ROWS * ROW_BYTES;     // 16 KB
+constexpr int HALF_BYTES = A_BYTES / 2;       // a warpgroup's m64 tile
+constexpr int STAGES = 3;
+constexpr int CONSUMERS = 256;                // warpgroups 0 and 1
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = CONSUMERS + 32;       // and one producer warp
+constexpr int LDS = ROWS + 4;                 // score tile row, in ints
+constexpr unsigned FULL = 0xffffffffu;
+
+// Element kinds: BK elements a k-stage, the TMA type, and the query planes
+// (float32: hi and lo).
+struct F32 {
+  typedef float Acc;
+  static constexpr int BK = 32, ELEM_BYTES = 4, PLANES = 2;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+struct Bf16 {
+  typedef float Acc;
+  static constexpr int BK = 64, ELEM_BYTES = 2, PLANES = 1;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+struct Int8 {
+  typedef int Acc;
+  static constexpr int BK = 128, ELEM_BYTES = 1, PLANES = 1;
+  // bytes copy as they are; the out-of-bounds zero fill is int8 0
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
+
+// Shared memory of kind T at query tile N: the ring (A, then the planes of
+// B), F32's two lo buffers, the score tile, the barriers; 1 KB to align the
+// ring (swizzle atoms are 1024 B).
+template <class T, int N>
+struct Smem {
+  static constexpr int B_BYTES = T::PLANES * N * ROW_BYTES;
+  static constexpr int A_OFF = 0;
+  static constexpr int B_OFF = STAGES * A_BYTES;
+  static constexpr int LO_OFF = B_OFF + STAGES * B_BYTES;
+  static constexpr int S_OFF = LO_OFF + (T::PLANES == 2 ? 2 * HALF_BYTES : 0);
+  static constexpr int BAR_OFF = S_OFF + N * LDS * 4;
+  static constexpr int BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;
+  static constexpr uint32_t TX = A_BYTES + B_BYTES;  // a stage's TMA bytes
+  static_assert(BYTES <= 232448, "shared memory of one CTA");
+};
+
+// The accumulator registers of an m64nNk wgmma (N / 2 a thread).
+#define PV_SG_D16                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define PV_SG_D32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define PV_SG_ACC8(C, i)                                                    \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
+      C(d[i + 6]), C(d[i + 7])
+#define PV_SG_ACC16(C) PV_SG_ACC8(C, 0), PV_SG_ACC8(C, 8)
+#define PV_SG_ACC32(C) PV_SG_ACC16(C), PV_SG_ACC8(C, 16), PV_SG_ACC8(C, 24)
+// D (64 x N) (+)= A (64 x k) . B (N x k)^T, both K-major in 128B-swizzled
+// shared memory; scale_d = 0 overwrites D. DESC and PRED: the operand
+// numbers of the descriptors and the predicate, after the N / 2
+// accumulators.
+#define PV_SG_MMA(NAME, ACC, ACCN, INSTR, DREGS, DESC, PRED, TAIL, CONS)   \
+  __device__ __forceinline__ void NAME(ACC (&d)[ACCN], uint64_t da,        \
+                                       uint64_t db, int scale_d) {         \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"         \
+                 "wgmma.mma_async.sync.aligned." INSTR " " DREGS ", " DESC  \
+                 ", p" TAIL ";\n}\n"                                        \
+                 : CONS                                                    \
+                 : "l"(da), "l"(db), "r"(scale_d));                        \
+  }
+
+PV_SG_MMA(mma_tf32, float, 16, "m64n32k8.f32.tf32.tf32", PV_SG_D16,
+          "%16, %17", "%18", ", 1, 1", PV_SG_ACC16("+f"))
+PV_SG_MMA(mma_tf32, float, 32, "m64n64k8.f32.tf32.tf32", PV_SG_D32,
+          "%32, %33", "%34", ", 1, 1", PV_SG_ACC32("+f"))
+PV_SG_MMA(mma_bf16, float, 16, "m64n32k16.f32.bf16.bf16", PV_SG_D16,
+          "%16, %17", "%18", ", 1, 1, 0, 0", PV_SG_ACC16("+f"))
+PV_SG_MMA(mma_bf16, float, 32, "m64n64k16.f32.bf16.bf16", PV_SG_D32,
+          "%32, %33", "%34", ", 1, 1, 0, 0", PV_SG_ACC32("+f"))
+PV_SG_MMA(mma_s8, int, 16, "m64n32k32.s32.s8.s8", PV_SG_D16, "%16, %17",
+          "%18", "", PV_SG_ACC16("+r"))
+PV_SG_MMA(mma_s8, int, 32, "m64n64k32.s32.s8.s8", PV_SG_D32, "%32, %33",
+          "%34", "", PV_SG_ACC32("+r"))
+
+#undef PV_SG_MMA
+#undef PV_SG_ACC32
+#undef PV_SG_ACC16
+#undef PV_SG_ACC8
+#undef PV_SG_D32
+#undef PV_SG_D16
+
+template <int A>
+__device__ __forceinline__ void mma(float (&d)[A], uint64_t da, uint64_t db,
+                                    int scale_d, F32) {
+  mma_tf32(d, da, db, scale_d);
+}
+template <int A>
+__device__ __forceinline__ void mma(float (&d)[A], uint64_t da, uint64_t db,
+                                    int scale_d, Bf16) {
+  mma_bf16(d, da, db, scale_d);
+}
+template <int A>
+__device__ __forceinline__ void mma(int (&d)[A], uint64_t da, uint64_t db,
+                                    int scale_d, Int8) {
+  mma_s8(d, da, db, scale_d);
+}
+
+// After wait_group 0 only: keeps the epilogue's reads of the accumulators
+// below the wait that completes them.
+template <int A>
+__device__ __forceinline__ void fence_acc(float (&d)[A]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int A>
+__device__ __forceinline__ void fence_acc(int (&d)[A]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The lane's four rows of the segment at r0 (lane, +32, +64, +96): whether
+// each is live, and whether any row of the segment is (warp-uniform).
+__device__ __forceinline__ bool segment_live(const uint8_t* __restrict__ mask,
+                                             long r0, int lane, bool (&live)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) live[c] = mask[r0 + lane + 32 * c] != 0;
+  return __any_sync(FULL, live[0] | live[1] | live[2] | live[3]);
+}
+
+// This CTA's share [*beg, *end) of `units` items among the grid's CTAs.
+__device__ __forceinline__ void share(long units, long* beg, long* end) {
+  *beg = (long)blockIdx.x * units / gridDim.x;
+  *end = (long)(blockIdx.x + 1) * units / gridDim.x;
+}
+
+// tv: TMA map of the postings (cap, dim), boxes of 128 bytes x 128 rows;
+// tq / tq_lo: of the query planes (Q, dim), boxes of 128 bytes x N rows
+// (float32: hi and lo; other kinds read tq alone); both 128B-swizzled.
+// mask (cap,) uint8, hot (grid_b,) int32, n_hot (1,) int32 on the device;
+// keys (Q, grid_b * per_seg * bn / 128) int32.
+template <class T, int N>
+__global__ void __launch_bounds__(THREADS, 2)
+ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tq_lo,
+                        const uint8_t* __restrict__ mask,
+                        const int* __restrict__ hot,
+                        const int* __restrict__ n_hot, int* __restrict__ keys,
+                        int Q, int bn, int grid_b, int per_seg, int q_tiles,
+                        int k_iters) {
+  typedef Smem<T, N> L;
+  typedef typename T::Acc Acc;
+  constexpr int ACC = N / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t a_ring = base + L::A_OFF, b_ring = base + L::B_OFF;
+  const uint32_t full = base + L::BAR_OFF, empty = full + 8 * STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);  // the producer's expect_tx arrival
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int ns = bn / SEG;
+  const int live_steps = max(0, min(*n_hot, grid_b));
+  const long ncol = (long)grid_b * per_seg * ns;
+  long ub, ue;  // items u: query tile u % q_tiles, live segment u / q_tiles
+  share((long)live_steps * ns * q_tiles, &ub, &ue);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp
+    uint32_t n = 0;
+    for (long u = ub; u < ue; ++u) {
+      const int seg = (int)(u / q_tiles), q0 = (int)(u % q_tiles) * N;
+      const long r0 = (long)hot[seg / ns] * bn + (long)(seg % ns) * SEG;
+      bool live[4];
+      if (!segment_live(mask, r0, lane, live)) continue;
+      if (lane == 0)
+        for (int k = 0; k < k_iters; ++k, ++n) {
+          const int st = (int)(n % STAGES);
+          mbar_wait(empty + 8 * st, ((n / STAGES) & 1) ^ 1);  // first lap: free
+          mbar_expect_tx(full + 8 * st, L::TX);
+          const uint32_t b = b_ring + st * L::B_BYTES;
+          tma_load_2d(a_ring + st * A_BYTES, &tv, full + 8 * st, k * T::BK,
+                      (int)r0);
+          tma_load_2d(b, &tq, full + 8 * st, k * T::BK, q0);
+          if constexpr (T::PLANES == 2)
+            tma_load_2d(b + N * ROW_BYTES, &tq_lo, full + 8 * st, k * T::BK,
+                        q0);
+        }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // consumers: warpgroup g multiplies rows 64 g .. 64 g + 63 of the
+  // segment by the query tile. Lane l of warp w holds rows 64 g + 16 w +
+  // l / 4 (+ 8) at queries 8 j + 2 (l % 4) + e, in acc[4 j + 2 h + e].
+  const int g = threadIdx.x / 128, w = (threadIdx.x / 32) % 4;
+  const int warp = threadIdx.x / 32;
+  int* tile = reinterpret_cast<int*>(sm + L::S_OFF);
+  const uint32_t lo_buf = base + L::LO_OFF + g * HALF_BYTES;
+  uint32_t n = 0;
+  for (long u = ub; u < ue; ++u) {
+    const int seg = (int)(u / q_tiles), q0 = (int)(u % q_tiles) * N;
+    const int b = seg / ns, s = seg % ns;
+    const long r0 = (long)hot[b] * bn + (long)s * SEG;
+    const long col0 = (long)b * per_seg * ns + s;
+    bool live[4];
+    if (!segment_live(mask, r0, lane, live)) {  // no copy: KEY_MIN columns
+      for (int i = threadIdx.x; i < N * per_seg; i += CONSUMERS) {
+        const int qq = i / per_seg, t = i % per_seg;
+        if (q0 + qq < Q) keys[(long)(q0 + qq) * ncol + col0 + (long)t * ns] = KEY_MIN;
+      }
+      continue;
+    }
+    Acc acc[ACC], part[ACC];  // part: F32's sum of one k-stage
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = part[i] = 0;
+    for (int k = 0; k < k_iters; ++k, ++n) {
+      const int st = (int)(n % STAGES);
+      mbar_wait(full + 8 * st, (n / STAGES) & 1);
+      const uint32_t a = a_ring + st * A_BYTES + g * HALF_BYTES;
+      const uint32_t bq = b_ring + st * L::B_BYTES;
+      if constexpr (T::PLANES == 2) {
+        // hi = x with the low 13 bits cleared (in place), lo = x - hi, at
+        // the same swizzled offsets of the warpgroup's lo buffer, which the
+        // last stage's wgmmas read: its four warps have all waited for them
+        named_sync(2 + g, 128);
+        float4* x = reinterpret_cast<float4*>(sm + L::A_OFF + st * A_BYTES +
+                                              g * HALF_BYTES);
+        float4* lo = reinterpret_cast<float4*>(sm + L::LO_OFF + g * HALF_BYTES);
+#pragma unroll
+        for (int j = 0; j < HALF_BYTES / 16 / 128; ++j) {
+          const int i = threadIdx.x % 128 + 128 * j;
+          const float4 v = x[i];
+          const float4 h = make_float4(
+              __uint_as_float(__float_as_uint(v.x) & 0xffffe000u),
+              __uint_as_float(__float_as_uint(v.y) & 0xffffe000u),
+              __uint_as_float(__float_as_uint(v.z) & 0xffffe000u),
+              __uint_as_float(__float_as_uint(v.w) & 0xffffe000u));
+          x[i] = h;
+          lo[i] = make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
+        }
+        // the generic-proxy writes are read by wgmma through the async
+        // proxy; the warpgroup's four warps wrote the tile together
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        named_sync(2 + g, 128);
+      }
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < ROW_BYTES / 32; ++kk) {
+        const uint64_t da = sw128_desc(a) + 2 * kk;
+        const uint64_t db = sw128_desc(bq) + 2 * kk;
+        if constexpr (T::PLANES == 2) {
+          mma(part, da, db, kk != 0, T());
+          mma(part, da, sw128_desc(bq + N * ROW_BYTES) + 2 * kk, 1, T());
+          mma(part, sw128_desc(lo_buf) + 2 * kk, db, 1, T());
+        } else {
+          mma(acc, da, db, (k | kk) != 0, T());
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+      if constexpr (T::PLANES == 2) {
+        fence_acc(part);
+#pragma unroll
+        for (int i = 0; i < ACC; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+      }
+    }
+    fence_acc(acc);
+
+    // epilogue: the segment's packed keys into the score tile, then per
+    // query `per_seg` warp-wide max passes
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = 64 * g + 16 * w + lane / 4 + 8 * h;
+          const int qq = 8 * j + 2 * (lane % 4) + e;
+          tile[qq * LDS + m] =
+              (wg::order_key(acc[4 * j + 2 * h + e]) & ~(SEG - 1)) | m;
+        }
+    named_sync(1, CONSUMERS);
+    for (int qq = warp; qq < N && q0 + qq < Q; qq += CONSUMER_WARPS) {
+      int key[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        key[c] = live[c] ? tile[qq * LDS + lane + 32 * c] : KEY_MIN;
+      int* out = keys + (long)(q0 + qq) * ncol + col0;
+      for (int t = 0; t < per_seg; ++t) {
+        int mx = max(max(key[0], key[1]), max(key[2], key[3]));
+        mx = __reduce_max_sync(FULL, mx);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (key[c] == mx) key[c] = KEY_MIN;  // keys are distinct by lane
+        if (lane == 0) out[(long)t * ns] = mx;
+      }
+    }
+    named_sync(1, CONSUMERS);  // the tile is free for the next segment
+  }
+
+  // the dead steps' segments: KEY_MIN in every query's columns
+  long db, de;
+  share((long)(grid_b - live_steps) * ns, &db, &de);
+  for (long d = db; d < de; ++d) {
+    const int b = live_steps + (int)(d / ns), s = (int)(d % ns);
+    const long col0 = (long)b * per_seg * ns + s;
+    for (int i = threadIdx.x; i < Q * per_seg; i += CONSUMERS)
+      keys[(long)(i / per_seg) * ncol + col0 + (long)(i % per_seg) * ns] =
+          KEY_MIN;
+  }
+}
+
+// The persistent grid's CTAs on the current device: as many as fit an SM
+// (at most two: launch bounds) times the SM count. Worked out at a
+// device's first launch of <T, N> and kept: the attribute and occupancy
+// queries take the host longer than the launch itself.
+template <class T, int N>
+int grid_ctas(int* ctas) {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<int> known[MAX_DEVICES];  // 0: not yet worked out
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < MAX_DEVICES && (*ctas = known[dev].load()) > 0) return 0;
+  constexpr int smem = Smem<T, N>::BYTES;
+  auto kernel = ivf_segmax_wgmma_kernel<T, N>;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                      smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  *ctas = std::min(per_sm, 2) * sms;
+  if (dev < MAX_DEVICES) known[dev].store(*ctas);
+  return 0;
+}
+
+// Encodes the maps (tv: boxes of 128 bytes x 128 rows; tq and, for
+// float32, tq_lo: 128 bytes x N rows) and launches the persistent grid.
+template <class T, int N>
+int launch(const void* q, const void* q_lo, const void* v, const void* mask,
+           const void* hot, const void* n_hot, void* keys, int Q,
+           long long cap, int dim, int bn, int grid_b, int per_seg,
+           cudaStream_t stream) {
+  wg::EncodeTiled enc;
+  int err = wg::encoder(&enc);
+  if (err) return err;
+  CUtensorMap tv, tq, tq_lo;
+  if ((err = wg::encode_rows<T>(enc, &tv, v, cap, dim, ROWS))) return err;
+  if ((err = wg::encode_rows<T>(enc, &tq, q, Q, dim, N))) return err;
+  if constexpr (T::PLANES == 2) {
+    if ((err = wg::encode_rows<T>(enc, &tq_lo, q_lo, Q, dim, N))) return err;
+  } else {
+    tq_lo = tq;  // not read
+  }
+  int ctas = 0;
+  if ((err = grid_ctas<T, N>(&ctas))) return err;
+  const int q_tiles = (Q + N - 1) / N;
+  const int k_iters = (dim * T::ELEM_BYTES + ROW_BYTES - 1) / ROW_BYTES;
+  ivf_segmax_wgmma_kernel<T, N><<<ctas, THREADS, Smem<T, N>::BYTES, stream>>>(
+      tv, tq, tq_lo, static_cast<const uint8_t*>(mask),
+      static_cast<const int*>(hot), static_cast<const int*>(n_hot),
+      static_cast<int*>(keys), Q, bn, grid_b, per_seg, q_tiles, k_iters);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_kind(const void* q, const void* q_lo, const void* v,
+                const void* mask, const void* hot, const void* n_hot,
+                void* keys, int Q, long long cap, int dim, int bn, int grid_b,
+                int per_seg, cudaStream_t s) {
+  if ((long long)dim * T::ELEM_BYTES % 16 ||
+      ((uintptr_t)q | (uintptr_t)v | (uintptr_t)(T::PLANES == 2 ? q_lo : q)) % 16)
+    return (int)cudaErrorInvalidValue;
+  return Q <= 32 ? launch<T, 32>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
+                                 dim, bn, grid_b, per_seg, s)
+                 : launch<T, 64>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
+                                 dim, bn, grid_b, per_seg, s);
+}
+
+}  // namespace sg
+}  // namespace
+}  // namespace pv
+
+// K8 on the tensor cores: pv_ivf_segmax's contract (ops/ivf.py::
+// ivf_segmax_scan), for rows of whole 16 bytes and 16-byte aligned bases.
+// kind 0: float32 postings, q the queries' hi plane and q_lo their lo
+// plane (ops/ivf.py::split_tf32); 1: bf16 postings and q; 2: column-scaled
+// int8 postings and folded int8 q (q_lo unused). postings (cap, dim) with
+// cap % bn == 0 and bn % 128 == 0, mask (cap,) uint8, hot (grid_b,) int32
+// tile ids in [0, cap / bn), n_hot (1,) int32 on the device -> keys (Q,
+// grid_b * per_seg * bn / 128) int32; per_seg in 1..8. Returns 0, a
+// cudaError_t, or minus the CUresult of a refused tensor-map encode.
+extern "C" int pv_ivf_segmax_wgmma(int kind, const void* q, const void* q_lo,
+                                   const void* v, const void* mask,
+                                   const void* hot, const void* n_hot,
+                                   void* keys, int Q, long long cap, int dim,
+                                   int bn, int grid_b, int per_seg,
+                                   void* stream) {
+  using namespace pv;
+  using namespace pv::sg;
+  if (Q <= 0 || grid_b <= 0) return (int)cudaSuccess;
+  if (bn <= 0 || bn % SEG || cap % bn || per_seg < 1 || per_seg > 8 ||
+      dim <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 0)
+    return q_lo ? launch_kind<F32>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
+                                   dim, bn, grid_b, per_seg, s)
+                : (int)cudaErrorInvalidValue;
+  if (kind == 1)
+    return launch_kind<Bf16>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap, dim,
+                             bn, grid_b, per_seg, s);
+  if (kind == 2)
+    return launch_kind<Int8>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap, dim,
+                             bn, grid_b, per_seg, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,8 +1,15 @@
-// One-query sweeps of K9 fused_topk_i8c, K7 ivf_scan_topk and K6
-// fused_topk_i4 at their serving shapes (Q <= 16, k <= 128, rows of
-// 16-byte words): every row read once from device memory, at HBM rate.
+// One-query sweeps of K9 fused_topk_i8c, K7 ivf_scan_topk, K6
+// fused_topk_i4 and K3 fused_topk_i8 at their serving shapes (Q <= 16,
+// k <= 128; K3 k <= 384; rows of 16-byte words): every row read once from
+// device memory, at HBM rate.
 //
 // Replaces, on those shapes:
+//  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i8 (`_scan_kernel_i8`,
+//    K3), the default float32 store's Q = 1 route `i8_fused_smallq`
+//    (k_sel = k + 4) and the int8 store's host-rescore band
+//    `i8stor_fused_exact` (k + 128 + 4: 142 at k = 10), at every Q <= 16;
+//    pv_scan_topk kind 2 serves larger Q,
+//    k > 384 and widths the sweep does not take;
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i4 (`_scan_kernel_i4`,
 //    K6), the int4 store's Q = 1 query and small batches (route
 //    `i4stor_fused` at k_sel = k + 4; served at Q <= 4, where it beats
@@ -16,14 +23,15 @@
 //    device table names, at Q <= 16 (a Q = 1 probe and the small batches);
 //    pv_ivf_scan_topk (scan_topk.cu) serves k > 128 and Q > 16.
 // All compute what their templates compute: per query the k best masked
-// rows, one partial of k keys per CTA, merged by launch_topk_merge. Four
+// rows, one partial of k keys per CTA, merged by launch_topk_merge. Five
 // element kinds: column-scaled int8 rows x folded int8 queries ranked on
 // the raw int32 sum (int_row_key, ties to the lower row; bit for bit the
 // plain versions, whose keys are distinct per row, so the merged set does
 // not depend on the row shares); float32 rows x float32 queries and bf16
 // rows x bf16 queries (the TPU kernel casts q to the postings' dtype),
-// float32 sums ranked by row_key; packed int4 rows x int8 queries, the
-// template's scaled score ranked by row_key (see `Int4`).
+// float32 sums ranked by row_key; packed int4 rows x int8 queries and
+// per-row-scaled int8 rows x int8 queries, the template's scaled score
+// ranked by row_key (see `Int4`, `Int8R`).
 //
 // What bounds it on the H100: the bytes. At Q = 1 a 16-byte word of a row
 // is 4 FMAs (f32), 8 (bf16), 4 __dp4a (int8) or 8 (int4), so the sweep of
@@ -59,7 +67,11 @@
 //    admits only keys above the running k-th best (`tau`); after each tile
 //    the CTA compacts (compact_buffers) when a buffer could overflow in
 //    the next, and at the end writes its k best per query (0 where empty:
-//    a CTA with no live row writes an empty partial).
+//    a CTA with no live row writes an empty partial). BUF = 256 serves k
+//    <= 128; K3's `Int8R` also has BUF = 512 for 128 < k <= 384 (the
+//    host-rescore band): its buffers take 64 KB at QT = 16, so the query
+//    block and the buffers stay within 80 KB at dim 1024 and two CTAs
+//    still share an SM.
 
 #include <type_traits>
 
@@ -72,7 +84,8 @@ constexpr int SW_THREADS = 256;
 constexpr int SW_WARPS = SW_THREADS / 32;
 constexpr int TR = 128;          // rows per tile between the CTA's barriers
 constexpr int WARP_ROWS = TR / SW_WARPS;  // 16 rows of a tile per warp
-constexpr int BUF = 256;         // candidate slots per query (>= k + TR)
+constexpr int BUF_K128 = 256;    // candidate slots per query (>= k + TR)
+constexpr int BUF_K384 = 512;    // Int8R's, for 128 < k <= 384 (>= k + TR)
 constexpr int CTAS_PER_SM = 2;   // ops/scan.py SWEEP_CTAS_PER_SM
 constexpr int QBLOCK_BYTES = 65536;  // ops/scan.py SWEEP_QBLOCK_BYTES
 constexpr int SHARE = 16;        // ops/ivf.py IVF_SWEEP_SHARE: K7's share unit
@@ -85,6 +98,8 @@ struct Int8C {  // column-scaled int8 rows, folded int8 queries
   typedef int Acc;
   static constexpr int EPW = 16;
   static constexpr int QW = 1;  // query words a row word meets
+  static constexpr bool ROW_SCALE = false;  // the key scales by vscale[row]
+  static constexpr int K_MAX = 128;
   static __device__ __forceinline__ int dot(uint4 a, uint4 b, int acc) {
     acc = __dp4a((int)a.x, (int)b.x, acc);
     acc = __dp4a((int)a.y, (int)b.y, acc);
@@ -109,6 +124,8 @@ struct F32 {  // float32 rows and queries
   typedef float Acc;
   static constexpr int EPW = 4;
   static constexpr int QW = 1;
+  static constexpr bool ROW_SCALE = false;
+  static constexpr int K_MAX = 128;
   static __device__ __forceinline__ float dot(uint4 a, uint4 b, float acc) {
     acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
     acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
@@ -137,6 +154,8 @@ struct Bf16 {  // bf16 rows and queries, float32 sums
   typedef float Acc;
   static constexpr int EPW = 8;
   static constexpr int QW = 1;
+  static constexpr bool ROW_SCALE = false;
+  static constexpr int K_MAX = 128;
   static __device__ __forceinline__ float dot(uint4 a, uint4 b, float acc) {
     acc = bf_fma2(a.x, b.x, acc);
     acc = bf_fma2(a.y, b.y, acc);
@@ -161,6 +180,8 @@ struct Int4 {
   typedef int Acc;
   static constexpr int EPW = 32;
   static constexpr int QW = 2;
+  static constexpr bool ROW_SCALE = true;
+  static constexpr int K_MAX = 128;
   // the planes of a row word, split once and met by every query
   static __device__ __forceinline__ uint4 low(uint4 a) {
     const uint32_t m = 0x0F0F0F0Fu;
@@ -185,6 +206,15 @@ struct Int4 {
   static __device__ __forceinline__ int sum(int s) {
     return __reduce_add_sync(FULL, s);
   }
+};
+
+// Per-row-scaled int8 rows (K3: the float32 store's int8 mirror, the int8
+// store's plane) against int8 queries: Int8C's word products and warp sum,
+// and the template's key (scan_topk.cu): the int32 sum converted once,
+// times the row's scale, ranked by row_key, ties to the lower row.
+struct Int8R : Int8C {
+  static constexpr bool ROW_SCALE = true;
+  static constexpr int K_MAX = 384;
 };
 
 // Which rows CTA c of n reads, as logical rows [beg, end) and their
@@ -229,13 +259,13 @@ struct Sweep {
   static constexpr int RW = QT <= 4 ? 4 : 2;
   static_assert(SHARE % RW == 0 && WARP_ROWS % RW == 0, "row groups");
   // (qw query words a row word; Int4 adds each query's int8 sum)
-  static constexpr size_t smem(int cpr, int qw) {
-    return (size_t)QT * qw * cpr * 16 + (size_t)QT * BUF * 8 + QT * 8 +
+  static constexpr size_t smem(int cpr, int qw, int buf) {
+    return (size_t)QT * qw * cpr * 16 + (size_t)QT * buf * 8 + QT * 8 +
            QT * 4 + (qw == 2 ? QT * 4 : 0);
   }
 };
 
-template <class K, int QT>
+template <class K, int QT, int BUF>
 __global__ void __launch_bounds__(SW_THREADS, CTAS_PER_SM)
 sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
                   const float* __restrict__ vscale,
@@ -294,10 +324,10 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
       const uint32_t gl = (live >> (g * RW)) & ((1u << RW) - 1);
       if (!gl) continue;  // uniform: no live row in the group
       const long p0 = rows.phys(t0 + (long)g * SW_WARPS * RW + warp * RW);
-      // Int4: the scale of the row this lane admits for (lane % RW),
-      // loaded before the products hide its latency
+      // Int4, Int8R: the scale of the row this lane admits for (lane %
+      // RW), loaded before the products hide its latency
       float sc = 0.0f;
-      if constexpr (I4)
+      if constexpr (K::ROW_SCALE)
         if ((gl >> (lane % RW)) & 1u) sc = vscale[p0 + lane % RW];
       Acc acc[QT][RW];
 #pragma unroll
@@ -354,8 +384,9 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
           const Acc s = K::sum(acc[qq][r]);
           if (lane == (qq * RW + r) % 32 && ((gl >> r) & 1u) && qq < Q) {
             u64 key;
-            if constexpr (I4)  // the template's line (scan_topk.cu)
-              key = row_key(__fmul_rn(__int2float_rn(s - 8 * qsum[qq]), sc),
+            if constexpr (K::ROW_SCALE)  // the template's line (scan_topk.cu)
+              key = row_key(__fmul_rn(__int2float_rn(I4 ? s - 8 * qsum[qq] : s),
+                                      sc),
                             (uint32_t)(p0 + r));
             else
               key = K::key(s, (uint32_t)(p0 + r));
@@ -379,50 +410,64 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
   }
 }
 
-template <class K, int QT>
+template <class K, int QT, int BUF>
 cudaError_t launch_qt(const void* q, const void* v, const void* vscale,
                       const void* mask, const Rows& rows, u64* partial, int Q,
                       int cpr, int k, int ctas, cudaStream_t stream) {
-  const size_t smem = Sweep<QT>::smem(cpr, K::QW);
+  const size_t smem = Sweep<QT>::smem(cpr, K::QW, BUF);
   const cudaError_t e = cudaFuncSetAttribute(
-      sweep_topk_kernel<K, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      sweep_topk_kernel<K, QT, BUF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  sweep_topk_kernel<K, QT><<<ctas, SW_THREADS, smem, stream>>>(
+  sweep_topk_kernel<K, QT, BUF><<<ctas, SW_THREADS, smem, stream>>>(
       static_cast<const uint4*>(q), static_cast<const uint4*>(v),
       static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
       rows, partial, Q, cpr, k);
   return cudaGetLastError();
 }
 
+// The query tile sized to Q (qt: 1, 2, 4, 8 or 16), BUF slots a query.
+template <class K, int BUF>
+cudaError_t launch_buf(int qt, const void* q, const void* v,
+                       const void* vs, const void* mask, const Rows& rows,
+                       u64* part, int Q, int cpr, int k, int ctas,
+                       cudaStream_t s) {
+  if (qt == 1)
+    return launch_qt<K, 1, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
+  if (qt == 2)
+    return launch_qt<K, 2, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
+  if (qt == 4)
+    return launch_qt<K, 4, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
+  if (qt == 8)
+    return launch_qt<K, 8, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
+  return launch_qt<K, 16, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
+}
+
 // The sweep of kind K with the query tile sized to Q, then the merge of
 // the CTAs' partials into vals / idx. Refuses (cudaErrorInvalidValue) what
-// the sweep does not take: Q > 16, k > 128, rows that are not whole
+// the sweep does not take: Q > 16, k > K::K_MAX, rows that are not whole
 // 16-byte words, misaligned q or v, a query block above QBLOCK_BYTES.
 template <class K>
 cudaError_t sweep(const void* q, const void* v, const void* vscale,
                   const void* mask, const Rows& rows, void* partial,
                   void* vals, void* idx, int Q, int dim, int k, int ctas,
                   cudaStream_t s) {
-  if (Q > 16 || k > 128 || ctas <= 0 || dim <= 0 || dim % K::EPW ||
+  if (Q > 16 || k > K::K_MAX || ctas <= 0 || dim <= 0 || dim % K::EPW ||
       ((uintptr_t)q | (uintptr_t)v) % 16)
     return cudaErrorInvalidValue;
   const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
   const int cpr = dim / K::EPW;
   if ((long)qt * K::QW * cpr * 16 > QBLOCK_BYTES) return cudaErrorInvalidValue;
   u64* part = static_cast<u64*>(partial);
-  const void* vs = vscale;
   cudaError_t err;
-  if (qt == 1)
-    err = launch_qt<K, 1>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
-  else if (qt == 2)
-    err = launch_qt<K, 2>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
-  else if (qt == 4)
-    err = launch_qt<K, 4>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
-  else if (qt == 8)
-    err = launch_qt<K, 8>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
+  if constexpr (K::K_MAX > 128)
+    err = k <= 128 ? launch_buf<K, BUF_K128>(qt, q, v, vscale, mask, rows, part,
+                                             Q, cpr, k, ctas, s)
+                   : launch_buf<K, BUF_K384>(qt, q, v, vscale, mask, rows, part,
+                                             Q, cpr, k, ctas, s);
   else
-    err = launch_qt<K, 16>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
+    err = launch_buf<K, BUF_K128>(qt, q, v, vscale, mask, rows, part, Q, cpr,
+                                  k, ctas, s);
   if (err != cudaSuccess) return err;
   return launch_topk_merge(part, static_cast<float*>(vals),
                            static_cast<int*>(idx), Q, ctas * k, k, s,
@@ -474,6 +519,29 @@ extern "C" int pv_sweep_topk_i4(const void* q, const void* v,
   const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
   return (int)sweep<Int4>(q, v, vscale, mask, rows, partial, vals, idx, Q,
                           dim, k, n > 1 ? (int)n : 1, (cudaStream_t)stream);
+}
+
+// K3 on the one-query sweep: q (Q, dim) int8 queries, v (cap, dim) int8
+// rows, vscale (cap,) float32 row scales, mask (cap,) uint8; Q <= 16,
+// k <= 384, dim % 16 == 0 with the query block (QT x dim bytes) <= 64 KB,
+// 16-byte aligned q and v. Rows as K9's: CTA c reads [c * chunk,
+// min(cap, (c + 1) * chunk)) (chunk % 128 == 0); `partial` is scratch of
+// max(1, ceil(cap / chunk)) * Q * k uint64; vals (Q, k) float32 (the
+// scaled scores) and idx (Q, k) int32 receive the result (-inf / 0 where
+// empty). Returns the cudaError_t of the launches.
+extern "C" int pv_sweep_topk_i8(const void* q, const void* v,
+                                const void* vscale, const void* mask,
+                                void* partial, void* vals, void* idx, int Q,
+                                long long cap, int dim, int k,
+                                long long chunk, void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (cap < 0 || chunk <= 0 || chunk % SEG || !vscale)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (cap + chunk - 1) / chunk;
+  const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
+  return (int)sweep<Int8R>(q, v, vscale, mask, rows, partial, vals, idx, Q,
+                           dim, k, n > 1 ? (int)n : 1, (cudaStream_t)stream);
 }
 
 // K7 on the one-query sweep. kind 0: postings and q float32; 1: both

@@ -59,6 +59,9 @@ _SIGNATURES = {
     # (K6's one-query sweep: Q <= 16, k <= 128, dim % 32 == 0; served at
     # Q <= scan.I4_SWEEP_Q_MAX)
     "pv_sweep_topk_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    # the same for K3's one-query sweep over per-row-scaled int8 rows (Q <=
+    # 16, k <= 384, dim % 16 == 0)
+    "pv_sweep_topk_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     # q_perm, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream
     # (K6's tensor-core scan: any Q, k <= 128, dim % 128 == 0; served at
     # Q > scan.I4_SWEEP_Q_MAX)
@@ -74,6 +77,11 @@ _SIGNATURES = {
     # kind, q, v, mask, hot, n_hot, keys, Q, cap, dim, bn, grid_b, per_seg,
     # stream
     "pv_ivf_segmax": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
+    # kind, q (float32: its hi plane), q_lo (float32: the lo plane, else
+    # null), v, mask, hot, n_hot, keys, Q, cap, dim, bn, grid_b, per_seg,
+    # stream (K8's tensor-core segment scan)
+    "pv_ivf_segmax_wgmma": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                            _I, _I, _P],
     # kind (0 bf16, 1 int8), q, v, out, Q, cap, dim, stream (P1)
     "pv_dot_rowmax": [_I, _P, _P, _P, _I, _L, _I, _P],
     # kind (0 bf16, 1 int8), q, v, out, Q, cap, dim, stream (P1 on the TMA +

@@ -20,6 +20,8 @@ re-designed for a device-resident layout):
                            (Q <= 16: csrc/sweep_topk.cu, see
                            `ivf_sweep_ready`)
       K8 `ivf_segmax_scan` csrc/segmax.cu     top-`per_seg` keys per segment
+                           (rows TMA can read: csrc/ivf_segmax_wgmma.cu,
+                           see `ivf_segmax_ready`)
 
     followed by an exact rescore (of the storage-dtype postings, or, in
     the int8-only layout, of the engine corpus by slot id).
@@ -422,6 +424,24 @@ def ivf_segmax_scan_plain(q, postings, mask, hot, n_hot, per_seg: int,
     return torch.cat(out, dim=1)
 
 
+def ivf_segmax_ready(q: torch.Tensor, postings: torch.Tensor) -> bool:
+    """Whether K8 runs the tensor-core segment scan
+    (csrc/ivf_segmax_wgmma.cu) on these contiguous operands: TMA needs a
+    row stride of whole 16 bytes (dim % 4 == 0 for float32, % 8 for bf16,
+    % 16 for int8) and 16-byte aligned bases. Other widths keep the first
+    kernel, `pv_ivf_segmax` (csrc/segmax.cu)."""
+    return ((q.shape[1] * q.element_size()) % 16 == 0
+            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
+
+
+def split_tf32(q: torch.Tensor):
+    """float32 -> (hi, lo): hi = q with the low 13 mantissa bits cleared
+    (exact in TF32), lo = q - hi (exact in float32). The tensor-core
+    segment scan's 3xTF32 product is hi.hi + hi.lo + lo.hi."""
+    hi = (q.view(torch.int32) & -8192).view(torch.float32)
+    return hi, q - hi
+
+
 def ivf_segmax_scan(q, postings, mask, hot, n_hot, per_seg: int,
                     bn: int = IVF_BN):
     """Per 128-row segment of each hot tile, its top-`per_seg` packed keys
@@ -432,21 +452,39 @@ def ivf_segmax_scan(q, postings, mask, hot, n_hot, per_seg: int,
     segment s of hot tile hot[b]. A key is the sortable float32 bits of
     the score (int8: the raw int32 score) with its low 7 bits replaced by
     the row's lane; masked rows, exhausted ranks and dead steps b >= n_hot
-    carry KEY_MIN."""
-    num_q, cap, dim = _ivf_checks("ivf_segmax_scan", q, postings, mask, hot,
-                                  n_hot, bn)
+    carry KEY_MIN. Runs the tensor-core segment scan where
+    `ivf_segmax_ready` holds, else the first kernel."""
+    _ivf_checks("ivf_segmax_scan", q, postings, mask, hot, n_hot, bn)
     _require(1 <= per_seg <= 8, f"ivf_segmax_scan: per_seg {per_seg} not in 1..8")
     if not q.is_cuda:
         return ivf_segmax_scan_plain(q, postings, mask, hot, n_hot, per_seg, bn)
     q = q.contiguous()
+    tc = ivf_segmax_ready(q, postings)
+    keys = _ivf_segmax_launch(q, postings, mask, hot, n_hot, per_seg, bn, tc)
+    _scan._count("ivf_segmax", q.shape[0], per_seg)
+    _scan.LAUNCHES["ivf_segmax_wgmma"] += tc
+    return keys
+
+
+def _ivf_segmax_launch(q, postings, mask, hot, n_hot, per_seg: int, bn: int,
+                       tc: bool):
+    """K8 on checked CUDA operands, uncounted: the tensor-core segment scan
+    (`tc`; float32 queries split by `split_tf32`) or the first kernel."""
+    num_q, dim = q.shape
     grid_b = hot.shape[0]
     keys = torch.empty((num_q, grid_b * per_seg * (bn // SEG)),
                        dtype=torch.int32, device=q.device)
-    _launch(q, "ivf_segmax_scan", "pv_ivf_segmax", _KINDS[q.dtype],
-            q.data_ptr(), postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
-            n_hot.data_ptr(), keys.data_ptr(), num_q, cap, dim, bn, grid_b,
-            per_seg)
-    _scan._count("ivf_segmax", num_q, per_seg)
+    tail = (mask.data_ptr(), hot.data_ptr(), n_hot.data_ptr(), keys.data_ptr(),
+            num_q, postings.shape[0], dim, bn, grid_b, per_seg)
+    if not tc:
+        _launch(q, "ivf_segmax_scan", "pv_ivf_segmax", _KINDS[q.dtype],
+                q.data_ptr(), postings.data_ptr(), *tail)
+        return keys
+    planes = split_tf32(q) if q.dtype == torch.float32 else (q, None)
+    _launch(q, "ivf_segmax_scan", "pv_ivf_segmax_wgmma", _KINDS[q.dtype],
+            planes[0].data_ptr(),
+            None if planes[1] is None else planes[1].data_ptr(),
+            postings.data_ptr(), *tail)
     return keys
 
 

@@ -10,6 +10,8 @@ kernels those paths run:
                         (product: csrc/wgmma_tiles.cuh, see `wgmma_ready`)
   K2 `topk_packed_keys` csrc/topk_keys.cu  per-query top-k_sel of the keys
   K3 `fused_topk_i8`    csrc/scan_topk.cu  exact top-k over per-row int8
+                        (Q <= 16, k <= 384: csrc/sweep_topk.cu,
+                        see `i8_sweep_ready`)
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
@@ -63,12 +65,16 @@ SEG = 128  # rows per segmax segment
 # K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
 # `ivf_sweep_ready`); "scan_topk_i4" every K6 launch, "scan_topk_i4_sweep"
 # those of the sweep's int4 kind (`i4_sweep_ready`), "scan_topk_i4_wgmma"
-# those of its tensor-core scan (`i4_wgmma_ready`).
+# those of its tensor-core scan (`i4_wgmma_ready`); "scan_topk_i8" every K3
+# launch, "scan_topk_i8_sweep" those of the sweep's row-scaled int8 kind
+# (`i8_sweep_ready`); "ivf_segmax" every K8 launch, "ivf_segmax_wgmma"
+# those of its tensor-core segment scan (ops/ivf.py::`ivf_segmax_ready`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "topk_keys": 0, "scan_topk": 0,
-            "scan_topk_i8": 0, "segmax_i8": 0, "scan_topk_i4": 0,
-            "scan_topk_i4_sweep": 0, "scan_topk_i4_wgmma": 0,
+            "scan_topk_i8": 0, "scan_topk_i8_sweep": 0, "segmax_i8": 0,
+            "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
+            "scan_topk_i4_wgmma": 0,
             "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
-            "ivf_segmax": 0,  # K8: ops/ivf.py
+            "ivf_segmax": 0, "ivf_segmax_wgmma": 0,  # K8: ops/ivf.py
             "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
             "segmax_i8c_wgmma": 0,
             "dot_rowmax": 0, "dot_rowmax_wgmma": 0,  # P1: probes.py
@@ -605,6 +611,9 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     if i8c and sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, None, mask, k, name)
         LAUNCHES["scan_topk_i8c_sweep"] += 1
+    elif kind == _KIND_I8 and i8_sweep_ready(q, vectors, k):
+        vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
+        LAUNCHES["scan_topk_i8_sweep"] += 1
     elif int4 and i4_sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i4_sweep"] += 1
@@ -644,8 +653,9 @@ def _template_launch(q, vectors, vscale, mask, k: int, kind: int,
 
 def _sweep_launch(q, vectors, vscale, mask, k: int, name: str):
     """The one-query sweep (csrc/sweep_topk.cu) on checked CUDA operands,
-    uncounted: K9 (`vscale` None, column-scaled int8 rows) or K6 (packed
-    int4 rows with their scales), CTAs over `sweep_partition`'s ranges."""
+    uncounted: K9 (`vscale` None, column-scaled int8 rows), K6 (packed
+    int4 rows, half the queries' width, with their scales) or K3 (int8
+    rows with their scales), CTAs over `sweep_partition`'s ranges."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -657,7 +667,8 @@ def _sweep_launch(q, vectors, vscale, mask, k: int, name: str):
     if vscale is None:
         entry = "pv_sweep_topk_i8c"
     else:
-        entry, head = "pv_sweep_topk_i4", head + (vscale.data_ptr(),)
+        entry = "pv_sweep_topk_i8" if vectors.shape[1] == dim else "pv_sweep_topk_i4"
+        head = head + (vscale.data_ptr(),)
     _launch(q, name, entry, *head, mask.data_ptr(), partial.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, chunk)
     return vals, idx
@@ -745,6 +756,25 @@ def i4_sweep_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
             and _aligned(q_i8, v_i4))
 
 
+# K3's sweep limit on k: 384, its second buffer size, for the int8 store's
+# host-rescore band of k + 128 + 4. It serves every Q the sweep takes
+# (SWEEP_Q_MAX): on a 1M-row int8 store it beats the template at each Q
+# <= 16 (the crossover table in PERF.md, from chip_smoke.py's phase 3).
+I8_SWEEP_K_MAX = 384
+
+
+def i8_sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether K3 runs the one-query sweep's row-scaled int8 kind on these
+    contiguous operands: Q <= SWEEP_Q_MAX, k <= I8_SWEEP_K_MAX, rows of
+    whole 16-byte words (dim % 16 == 0), the query block (sweep_tile(Q) x
+    dim bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned bases. Other
+    shapes keep the template, `pv_scan_topk` kind 2."""
+    num_q, dim = q_i8.shape
+    return (num_q <= SWEEP_Q_MAX and k <= I8_SWEEP_K_MAX and dim % 16 == 0
+            and sweep_tile(num_q) * dim <= SWEEP_QBLOCK_BYTES
+            and _aligned(q_i8, v_i8))
+
+
 # K6's tensor-core scan (csrc/scan_i4_wgmma.cu): a CTA holds 64 queries and
 # walks a contiguous range of 256-row corpus tiles
 I4_WGMMA_BM = 64
@@ -792,30 +822,26 @@ def scan_topk_plain(queries, vectors, vscale, mask, k: int,
     Integer products (int8, and int4's two nibble planes minus the
     8 * sum(q) bias) are summed exactly, in float32 while |sum| < 2^24 and
     in float64 beyond, so they equal the kernels' int32 sums before the
-    row scale. int4 selects on the kernels' 64-bit (score, row) keys:
-    ties go to the lower row, so K6's three kernels equal it bit for bit
-    whatever their row partition."""
+    row scale. The row-scaled kinds (int8, int4) select on the kernels'
+    64-bit (score, row) keys: ties go to the lower row, so K3's and K6's
+    kernels equal it bit for bit whatever their row partition."""
     num_q = queries.shape[0]
     cap = vectors.shape[0]
-    if int4:
+    if vscale is not None:
+        scores = _i4_scores if int4 else _i8_scores
         cand = []
         for s in range(0, cap, chunk):
             e = min(cap, s + chunk)
             rows = torch.arange(s, e, device=queries.device)
-            keys = _sel_keys(_i4_scores(queries, vectors[s:e], vscale[s:e]),
-                             rows)
+            keys = _sel_keys(scores(queries, vectors[s:e], vscale[s:e]), rows)
             keys = torch.where(mask[s:e][None, :], keys, _I64_MIN)
             cand.append(torch.topk(keys, min(k, e - s), dim=1).values)
         return _merge_sel_keys(cand, k, int_scores=False)
-    if vscale is None:
-        qf = queries.float()
+    qf = queries.float()
     cand_v, cand_i = [], []
     for s in range(0, cap, chunk):
         e = min(cap, s + chunk)
-        if vscale is not None:
-            sc = _i8_scores(queries, vectors[s:e], vscale[s:e])
-        else:
-            sc = qf @ vectors[s:e].float().T
+        sc = qf @ vectors[s:e].float().T
         sc = sc.masked_fill(~mask[s:e], float("-inf"))
         tv, ti = torch.topk(sc, min(k, e - s), dim=1)
         cand_v.append(tv)

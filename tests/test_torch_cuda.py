@@ -18,7 +18,10 @@ and idx (exact int32 sums, one conversion, one multiply, ties to the
 lower row), over repeated launches.
 K8's float keys also within 1e-5: unit-vector scores stay below 1, where
 summation order moves a key by at most one 128-ulp quantum (7.6e-6),
-while a TF32 product would be off by several 1e-5 at these widths.
+while a TF32 product would be off by several 1e-5 at these widths; its
+tensor-core segment scan (3xTF32 for float32 postings) is held to the
+same limit, and its int8 keys bit for bit. K3's sweep (the row-scaled
+int8 kind) equals the plain version bit for bit, vals and idx.
 """
 
 import pytest
@@ -787,3 +790,154 @@ def test_store_on_second_card(dev, tmp_path, monkeypatch, smallq_i8c):
     a, b = out["cuda:0"], out["cuda:1"]
     assert (a[0] == b[0]).all() and np.array_equal(a[1], b[1])
     assert a[2:] == b[2:]
+
+
+# --------------------------------------------------------------------------
+# K3's one-query sweep (row-scaled int8 kind) and K8's tensor-core segment
+# scan
+# --------------------------------------------------------------------------
+
+
+def _i8_store(dev, cap, dim, nq, seed):
+    """Per-row int8 rows and int8 queries with ties (row 1 copied to rows
+    5, 6 and 130, across the sweep's 128-row units, with equal scales),
+    masked rows and a masked 256-row block, and live rows 600-639 of
+    scale 0 and < 0 (they rank like any other score)."""
+    g = torch.Generator().manual_seed(seed)
+    v = torch.nn.functional.normalize(torch.randn(cap, dim, generator=g), dim=1)
+    v[5], v[6], v[130] = v[1], v[1], v[1]
+    q = torch.nn.functional.normalize(torch.randn(nq, dim, generator=g), dim=1)
+    q[0] = v[1]
+    v8, vs = scan.quantize_rows_i8(v)
+    vs[600:620] = 0.0
+    vs[620:640] = -vs[620:640]
+    mask = torch.rand(cap, generator=g) > 0.2
+    mask[256:512] = False
+    mask[[1, 5, 6, 130]] = True
+    mask[600:640] = True
+    q8, _ = scan.quantize_rows_i8(q)
+    return q8.to(dev), v8.to(dev), vs.to(dev), mask.to(dev)
+
+
+@pytest.mark.parametrize("cap,dim", [(8195, 1024), (3001, 96), (70_001, 128)])
+@pytest.mark.parametrize("k", [1, 14, 142, 384])
+@pytest.mark.parametrize("nq", [1, 2, 4, 8, 16])
+def test_fused_topk_i8_sweep_exact(dev, nq, k, cap, dim):
+    """K3's sweep = the plain version bit for bit (ties to the lower row)
+    through the dispatch at every Q it serves; two launches in a row."""
+    q8, v8, vs, mask = _i8_store(dev, cap, dim, nq, seed=nq + k)
+    ref = scan.scan_topk_plain(q8, v8, vs, mask, k)
+    assert scan.i8_sweep_ready(q8, v8, k)
+    for _ in range(2):
+        before = scan.LAUNCHES["scan_topk_i8_sweep"]
+        got = scan.fused_topk_i8(q8, v8, vs, mask, k)
+        assert scan.LAUNCHES["scan_topk_i8_sweep"] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if k >= 4:
+        assert got[1][0, :4].tolist() == [1, 5, 6, 130]
+
+
+def test_fused_topk_i8_sweep_few_live_rows(dev):
+    """Fewer live rows than k: the sweep pads with -inf / row 0 as the
+    plain version does."""
+    q8, v8, vs, mask = _i8_store(dev, 4096, 96, 3, seed=7)
+    mask = torch.zeros_like(mask)
+    mask[[9, 2000, 4095]] = True
+    got = scan.fused_topk_i8(q8, v8, vs, mask, 142)
+    ref = scan.scan_topk_plain(q8, v8, vs, mask, 142)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert bool(torch.isneginf(got[0][:, 3:]).all())
+
+
+@pytest.mark.parametrize("nq", [1, 16])
+@pytest.mark.parametrize("k", [14, 142])
+def test_fused_topk_i8_sweep_nonpositive_scores(dev, nq, k):
+    """k reaches past the live rows of positive score into those of score
+    0 (scale 0) and below (scale < 0, and rows scored against the query's
+    negation), then past every live row into the -inf padding: the sweep
+    ranks them, and pads, as the plain version does."""
+    q8, v8, vs, mask = _i8_store(dev, 4096, 96, nq, seed=nq + k)
+    keep = torch.zeros_like(mask)
+    keep[[1, 5]] = True
+    keep[600:640] = True  # scales 0 and < 0
+    v8[700] = -v8[1]  # the query's negation: a negative sum
+    keep[700] = True
+    got = scan.fused_topk_i8(q8, v8, vs, keep, k)
+    ref = scan.scan_topk_plain(q8, v8, vs, keep, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    live = min(k, 43)
+    rows = set(got[1][0, :live].tolist())
+    assert rows <= set(keep.nonzero().flatten().tolist())
+    if k >= 43:  # every live row, those of score <= 0 among them
+        assert 700 in rows and bool((got[0][0, :live] <= 0).any())
+    assert bool(torch.isfinite(got[0][:, :live]).all())
+    assert bool(torch.isneginf(got[0][:, live:]).all())
+
+
+def _k8_case(dev, kind, dim, nq, n_hot, seed, grid_b=10):
+    """_ivf_data's postings with the first live hot tile's first two
+    segments masked out entirely (no copy, KEY_MIN columns)."""
+    from picovdb_tpu_torch.ops import ivf
+
+    q, v, mask, hot, _ = _ivf_data(dev, kind, dim, nq, grid_b=grid_b,
+                                   n_hot=n_hot, seed=seed)
+    t0 = int(hot[0]) * ivf.IVF_BN
+    mask[t0:t0 + 2 * scan.SEG] = False
+    n = torch.tensor([n_hot], dtype=torch.int32, device=dev)
+    return q, v, mask, hot, n
+
+
+def _k8_agrees(keys, ref, kind):
+    live = keys != scan.KEY_MIN
+    assert torch.equal(live, ref != scan.KEY_MIN)
+    if kind == "i8c":  # raw int32 scores: bit for bit
+        assert torch.equal(keys, ref)
+    elif bool(live.any()):
+        assert float((_dec(keys)[live] - _dec(ref)[live]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "i8c"])
+@pytest.mark.parametrize("dim", [1024, 96])
+@pytest.mark.parametrize("nq,per_seg", [(3, 8), (32, 8), (33, 4), (70, 1),
+                                        (130, 8)])
+@pytest.mark.parametrize("n_hot", [0, 7, 10])
+def test_ivf_segmax_wgmma(dev, kind, dim, nq, per_seg, n_hot):
+    """K8's tensor-core segment scan against the plain version (float keys
+    within 1e-5, int8 bit for bit), with all-masked segments, dead steps
+    and n_hot = 0; the first kernel, launched uncounted on the same
+    inputs, agrees too."""
+    from picovdb_tpu_torch.ops import ivf
+
+    q, v, mask, hot, n = _k8_case(dev, kind, dim, nq, n_hot, seed=nq + dim)
+    assert ivf.ivf_segmax_ready(q, v)
+    before = dict(scan.LAUNCHES)
+    keys = ivf.ivf_segmax_scan(q, v, mask, hot, n, per_seg)
+    assert scan.LAUNCHES["ivf_segmax_wgmma"] == before["ivf_segmax_wgmma"] + 1
+    assert scan.LAUNCHES["ivf_segmax"] == before["ivf_segmax"] + 1
+    ref = ivf.ivf_segmax_scan_plain(q, v, mask, hot, n, per_seg)
+    old = ivf._ivf_segmax_launch(q, v, mask, hot, n, per_seg, ivf.IVF_BN,
+                                 False)
+    torch.cuda.synchronize()
+    assert keys.shape == ref.shape
+    _k8_agrees(keys, ref, kind)
+    _k8_agrees(old, ref, kind)
+    ns = ivf.IVF_BN // scan.SEG
+    assert bool((keys[:, n_hot * per_seg * ns:] == scan.KEY_MIN).all())
+    if n_hot:  # hot[0]'s first two segments are masked out entirely
+        for s in (0, 1):
+            assert bool((keys[:, s:per_seg * ns:ns] == scan.KEY_MIN).all())
+
+
+def test_ivf_segmax_wgmma_repeated_launches_agree(dev):
+    """Ten launches of the float32 kind at the route's Q = 32 give the same
+    keys (a missing proxy fence between the split's shared-memory writes
+    and wgmma shows as a rare difference)."""
+    from picovdb_tpu_torch.ops import ivf
+
+    q, v, mask, hot, n = _k8_case(dev, "f32", 1024, 32, 10, seed=3)
+    first = ivf.ivf_segmax_scan(q, v, mask, hot, n, 8)
+    for _ in range(9):
+        assert torch.equal(ivf.ivf_segmax_scan(q, v, mask, hot, n, 8), first)
