@@ -20,8 +20,10 @@ int8 routes, scan_mode="approx"), and the two bench probes (phase 10).
 Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
-(K9, K7, K6, K3: the template; K10: the mma.sync tile; K8: its first
-kernel). Every phase prints its lines; any failure raises and the script exits
+(K9, K7, K6, K3, K4: the template; K10, K5: the mma.sync tile; K8: its
+first kernel); phases 3 and 7 also time K4's tensor-core scan and its
+template at Q = 1 ... 256 (the crossover behind its ready rule). Every
+phase prints its lines; any failure raises and the script exits
 non-zero without a result line. It imports neither JAX nor picovdb_tpu,
 and refuses to run without a card.
 
@@ -80,6 +82,11 @@ K3_KERNELS = {"sweep": "scan_topk_i8_sweep"}
 # mirror: its Q = 1 route (k = 10 + 4), the small batches around the
 # sweep's limit, and the host-rescore band (k + 128 + 4)
 K3_SHAPES = tuple((nq, k) for k in (14, 142) for nq in (1, 2, 4, 8, 16))
+# The (Q, k_sel) shapes phases 3 and 7 time K4's tensor-core scan and its
+# template at, on the 1M bf16 mirror and the 2M float32 rows: the batch
+# routes' guard bands at k = 10 and 32, Q from 1 to the exact route's 256
+K4_SHAPES = tuple((nq, k) for k in (14, 36)
+                  for nq in (1, 2, 4, 8, 16, 32, 64, 256))
 
 KERNELS = {
     # name: (launch-counter key, source, TPU kernel it replaces, the phase
@@ -96,7 +103,10 @@ KERNELS = {
     # kind, which serves phase 3's Q = 1 calls (and phase 4's host-rescore
     # band). K8 has a row per postings kind, both on its tensor-core
     # segment scan (csrc/ivf_segmax_wgmma.cu): float32 on phase 7's
-    # 32-query chunks, int8 on phase 8's.
+    # 32-query chunks, int8 on phase 8's. K4's row is its tensor-core scan
+    # (csrc/scan_topk_wgmma.cu), which serves phase 3's Q = 64 batches and
+    # phase 7's Q = 256 batch; K5's the int8 instantiation of the
+    # mainloop, which serves phase 4's chunks.
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "segmax_scan_wmma": ("segmax_wmma", "picovdb_tpu_torch/csrc/segmax.cu",
@@ -106,9 +116,10 @@ KERNELS = {
     "fused_topk_i8": ("scan_topk_i8_sweep",
                       "picovdb_tpu_torch/csrc/sweep_topk.cu",
                       "picovdb_tpu/ops/pallas_scan.py:865", 3),
-    "fused_topk": ("scan_topk", "picovdb_tpu_torch/csrc/scan_topk.cu",
+    "fused_topk": ("scan_topk_wgmma",
+                   "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
                    "picovdb_tpu/ops/pallas_scan.py:226", 3),
-    "segmax_scan_i8": ("segmax_i8", "picovdb_tpu_torch/csrc/segmax.cu",
+    "segmax_scan_i8": ("segmax_i8_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                        "picovdb_tpu/ops/pallas_scan.py:960", 4),
     "fused_topk_i4": ("scan_topk_i4_sweep",
                       "picovdb_tpu_torch/csrc/sweep_topk.cu",
@@ -150,15 +161,18 @@ def entry(err, ms, plain_ms, nbytes, ops, kind, library_ms=None) -> dict:
             "library_ms": library_ms}
 
 
-def k8_ops(torch, nq: int, live: int, dim: int, dtype):
-    """K8's operations at nq queries over `live` rows and their type:
-    float32 postings run 3xTF32 on the tensor cores (three products of
-    2 nq live dim at the TF32 rate), bf16 and int8 postings one product at
-    their own rate."""
+def tc_ops(torch, nq: int, live: int, dim: int, dtype, bf16_planes: int = 1):
+    """The tensor-core scans' operations at nq queries over `live` rows,
+    and their type: float32 rows run 3xTF32 (three products of 2 nq live
+    dim at the TF32 rate: K8, K4), bf16 rows `bf16_planes` products at the
+    bf16 rate (K8 one; K4 three, the float32 query's bf16 planes), int8
+    rows one."""
     ops = 2 * nq * live * dim
     if dtype == torch.float32:
         return 3 * ops, "tf32"
-    return ops, "bf16" if dtype == torch.bfloat16 else "int8"
+    if dtype == torch.bfloat16:
+        return bf16_planes * ops, "bf16"
+    return ops, "int8"
 
 
 def launch_counts(scan) -> dict:
@@ -184,10 +198,11 @@ def card_line() -> str:
 
 
 # The instantiations whose registers and spills phase 1 reports: the
-# mainloop's (K1, K10, P1), the one-query sweep's (K9, K7, K6 and K3 at
-# small Q), K6's tensor-core scan's and K8's tensor-core segment scan's
+# mainloop's (K1, K5, K10, P1), the one-query sweep's (K9, K7, K6 and K3
+# at small Q), K6's tensor-core scan's, K8's tensor-core segment scan's
+# and K4's tensor-core scan's
 PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel",
-                 "ivf_segmax_wgmma_kernel")
+                 "ivf_segmax_wgmma_kernel", "scan_topk_wgmma_kernel")
 
 
 def ptxas_report(log_path) -> str:
@@ -215,7 +230,8 @@ def ptxas_report(log_path) -> str:
                              timeout=60).stdout.splitlines()
         if len(out) == len(names):
             names = [n.replace("pv::<unnamed>::", "").replace("(int)", "")
-                     .replace("wg::", "").replace("i4::", "").replace("sg::", "").removeprefix("void ")
+                     .replace("wg::", "").replace("i4::", "").replace("sg::", "")
+                     .replace("tk::", "").removeprefix("void ")
                      .split(">(")[0] + ">" for n in out]
     parts = [f"{n} {regs} registers / {sp} spill bytes"
              for n, (_, regs, sp) in zip(names, rows)]
@@ -423,6 +439,85 @@ def k3_table(torch, scan, queries, v8, vs, mask, shapes, reps: int = 5) -> str:
     return "; ".join(parts)
 
 
+def k4_check(torch, got, ref, mask, k: int, what: str) -> float:
+    """K4's (vals, idx) against the plain version's top-(k + 1) `ref`: the
+    same -inf slots, scores within TOL_SCORE, the same ids wherever the
+    k-th / (k + 1)-th gap exceeds TOL_GAP, only masked-in rows. Returns the
+    max |dscore|."""
+    vals, idx = got
+    fin = torch.isfinite(vals)
+    assert torch.equal(fin, torch.isfinite(ref[0][:, :k])), f"{what}: -inf"
+    err = (float((vals[fin] - ref[0][:, :k][fin]).abs().max())
+           if bool(fin.any()) else 0.0)
+    assert err <= TOL_SCORE, f"{what} scores differ by {err}"
+    assert ids_agree(torch, idx, ref[1], ref[0], k) == 0.0, what
+    assert bool(mask[idx[fin].long()].all()), f"{what} returned masked rows"
+    return err
+
+
+def k4_timed(torch, scan, q, rows, mask, k: int, reps: int):
+    """K4 on float32 queries `q` over `rows` (float32 or bf16): the
+    dispatch's result, and each kernel that can take these operands
+    launched uncounted (the tensor-core scan at k <= 128, the template),
+    held to the plain version (run over 131,072-row slices) by `k4_check`
+    and timed. Returns the kernel the dispatch chose, each kernel's time
+    and the max |dscore|."""
+    before = scan.LAUNCHES["scan_topk_wgmma"]
+    got = scan.fused_topk(q, rows, mask, k)
+    served = ("tensor-core scan" if scan.LAUNCHES["scan_topk_wgmma"] > before
+              else "template")
+    ref = scan.scan_topk_plain(q, rows, None, mask, k + 1, chunk=131_072)
+    kind = scan._KIND_F32 if rows.dtype == torch.float32 else scan._KIND_BF16
+    runs = {}
+    if k <= scan.TOPK_WGMMA_K_MAX:
+        runs["tensor-core scan"] = lambda: scan._topk_wgmma_launch(q, rows,
+                                                                   mask, k)
+    runs["template"] = lambda: scan._template_launch(q, rows, None, mask, k,
+                                                     kind)
+    what = f"K4 {rows.dtype} Q={q.shape[0]} k_sel={k}"
+    err = k4_check(torch, got, ref, mask, k, f"{what} (dispatch)")
+    for name, run in runs.items():
+        out = run()
+        torch.cuda.synchronize()
+        err = max(err, k4_check(torch, out, ref, mask, k, f"{what} ({name})"))
+    return served, {n: cuda_ms(torch, r, reps) for n, r in runs.items()}, err
+
+
+def k4_table(torch, scan, queries, rows, mask, shapes, reps: int = 3):
+    """K4 at each (Q, k_sel) of `shapes` over one corpus (`k4_timed` on the
+    first Q of the normalized `queries`), each kernel's time beside the
+    bound (the live rows' bytes, or the tensor-core scan's three
+    products). Returns the line and the max |dscore|."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    live, cap, dim = int(mask.sum()), mask.shape[0], rows.shape[1]
+    es = rows.element_size()
+    parts, errs = [], [0.0]
+    for nq, k in shapes:
+        q = normalize_on_device(queries[:nq])
+        served, times, err = k4_timed(torch, scan, q, rows, mask, k, reps)
+        errs.append(err)
+        bound = entry(0.0, 0, 0, nq * dim * 4 + live * dim * es + cap
+                      + nq * k * 8, *tc_ops(torch, nq, live, dim, rows.dtype,
+                                            3))["bound_ms"]
+        parts.append(f"Q={nq} k_sel={k} ({served}): " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in times.items())
+            + f" ms, bound {bound:.4f}")
+    return "; ".join(parts), max(errs)
+
+
+def k4_launches_ok(scan, counts) -> bool:
+    """Whether a path's K4 launches at Q >= TOPK_WGMMA_Q_MIN and k_sel <=
+    128 (its `launch_counts` shapes, "Q=.. k=..") went through the
+    tensor-core scan, and only those (the paths' rows are of whole 16
+    bytes)."""
+    want = 0
+    for shape, n in counts["shapes"].get("scan_topk", {}).items():
+        q, k = (int(part.split("=")[1]) for part in shape.split())
+        want += n if q >= scan.TOPK_WGMMA_Q_MIN and k <= 128 else 0
+    return counts["scan_topk_wgmma"] == want
+
+
 def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     """Each kernel against its plain version on the card, at main-path
     shapes; returns {kernel: (max_abs_err, ms, plain_ms)}."""
@@ -449,9 +544,6 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     keys_p = scan.segmax_scan_plain(qb, lp, mask)
     torch.cuda.synchronize()
     assert keys.shape == keys_p.shape, (keys.shape, keys_p.shape)
-
-    def key_vals(kk):
-        return key_values(torch, scan, kk)
 
     def check_k1(keys, keys_p, qf, rows, what):
         return check_segmax_keys(torch, scan, keys, keys_p, qf, rows, k, what)
@@ -497,16 +589,21 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         f"|dkey value| {err_w:.3g}; {rec['segmax_scan_wmma']['ms']:.4f} ms, "
         f"plain {rec['segmax_scan_wmma']['plain_ms']:.4f} ms)")
 
-    # K5 over the int8 rows at Q = 2048, k = 10 (segmax_i8stor: k_sel 16).
-    # The int32 sums are exact and each key is one float32 conversion and
-    # one multiply, so the keys must agree bit for bit.
+    # K5 over the int8 rows at Q = 2048, k = 10 (segmax_i8stor: k_sel 16)
+    # on the int8 mainloop. The int32 sums are exact and each key is one
+    # float32 conversion and one multiply, so the keys must agree bit for
+    # bit. The mma.sync tile it replaced at these widths is held to the
+    # same keys and timed on the same inputs (uncounted).
     q8, _ = scan.quantize_rows_i8(q)
+    before = scan.LAUNCHES["segmax_i8_wgmma"]
     keys = scan.segmax_scan_i8(q8, v8, vs, mask)
+    assert scan.LAUNCHES["segmax_i8_wgmma"] == before + 1, "K5 missed wgmma"
     keys_p = scan.segmax_scan_i8_plain(q8, v8, vs, mask)
+    keys_t = scan._segmax_i8_launch(q8, v8, vs, mask, False)
     torch.cuda.synchronize()
-    assert torch.equal(keys == scan.KEY_MIN, keys_p == scan.KEY_MIN)
-    err5 = float((key_vals(keys) - key_vals(keys_p)).abs().max())
-    assert err5 <= 1e-4, f"segmax_scan_i8 keys differ by {err5}"
+    assert torch.equal(keys, keys_p), "segmax_scan_i8 keys differ"
+    assert torch.equal(keys_t, keys_p), "K5's mma.sync tile keys differ"
+    err5 = exact_err(torch, keys, keys_p)
 
     def decode_rescore_i8(tk, ti):
         gidx = (ti // 2) * scan.SEG + (tk & (scan.SEG - 1))
@@ -523,10 +620,14 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         err5, cuda_ms(torch, lambda: scan.segmax_scan_i8(q8, v8, vs, mask)),
         cuda_ms(torch, lambda: scan.segmax_scan_i8_plain(q8, v8, vs, mask)),
         nq * dim + live * (dim + 4) + cap + slab, 2 * nq * live * dim, "int8")
-    del keys, keys_p
-    log(f"phase 2: K5 segmax_scan_i8 agrees at Q=2048 k={k} cap={cap} "
-        f"(max |dkey value| {err5:.3g}; {rec['segmax_scan_i8']['ms']:.4f} ms, "
-        f"plain {rec['segmax_scan_i8']['plain_ms']:.4f} ms)")
+    tile5_ms = cuda_ms(torch, lambda: scan._segmax_i8_launch(q8, v8, vs, mask,
+                                                             False))
+    del keys, keys_p, keys_t
+    k5 = rec["segmax_scan_i8"]
+    log(f"phase 2: K5 segmax_scan_i8 (int8 TMA + wgmma) keys = plain bit for "
+        f"bit at Q=2048 k={k} cap={cap} ({k5['ms']:.4f} ms, bound "
+        f"{k5['bound_ms']:.4f} ms; the mma.sync tile it replaced "
+        f"{tile5_ms:.4f} ms, same keys; plain {k5['plain_ms']:.4f} ms)")
 
     # K10 over the column-scaled int8 mirror at Q = 2048 (segmax_i8c: the
     # same keys route through K2 at k_sel = k + 8) on the int8 mainloop:
@@ -645,27 +746,63 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             for n, (served, times) in k3.items())
         + f"; plain {', '.join(f'{m:.4f}' for m in pms)}; at Q=1 {split3}")
 
-    # K4 on the bf16 mirror at Q = 64, k = 32 (k_sel 36) with a filter
+    # K4 at Q = 64 and 256, k_sel 14 and 36 (the batch routes' guard bands
+    # at k = 10 and 32), over the float32 rows and the bf16 mirror, and at
+    # Q = 64, k_sel 36 over the mirror under a 30 % filter: the dispatch,
+    # the tensor-core scan and the template it replaced held to the plain
+    # version and timed on the same inputs (`k4_timed`). The 64 queries and
+    # the filter are drawn from `rng` as before the tensor-core scan, so
+    # the later phases' data stay what they were; the other 192 queries of
+    # Q = 256 come from a generator of their own.
     q64 = normalize_on_device(
         torch.from_numpy(rng.standard_normal((64, dim), dtype=np.float32))
         .to(device))
     fmask = mask & torch.from_numpy(rng.random(cap) < 0.3).to(device)
-    e_bf = check_scan("fused_topk bf16", q64, lp, None, fmask, 36, q64)
-    ms_bf = cuda_ms(torch, lambda: scan.fused_topk(q64, lp, fmask, 36))
-    pms_bf = cuda_ms(torch, lambda: scan.scan_topk_plain(q64, lp, None, fmask, 36))
-    # K4 on the f32 corpus at k_sel = 1024 (the exact retry's widest)
+    q256 = torch.cat([q64, normalize_on_device(torch.from_numpy(
+        np.random.default_rng(SEED + 2).standard_normal((192, dim),
+                                                        dtype=np.float32))
+        .to(device))])
+    k4, errs = {}, []
+    for rows in (corpus, lp):
+        for nq4 in (64, 256):
+            for ksel in (14, 36):
+                served, times, err = k4_timed(torch, scan, q256[:nq4], rows,
+                                              mask, ksel, reps=5)
+                assert served == ("tensor-core scan" if nq4 >=
+                                  scan.TOPK_WGMMA_Q_MIN else "template")
+                k4[str(rows.dtype).split(".")[1], nq4, ksel] = times
+                errs.append(err)
+    served, times, err = k4_timed(torch, scan, q64, lp, fmask, 36, reps=5)
+    k4["bfloat16 filtered", 64, 36] = times
+    errs.append(err)
+    pms_bf = cuda_ms(torch, lambda: scan.scan_topk_plain(q64, lp, None, mask, 36))
+    # K4's template at k_sel = 1024 (the exact retry's widest)
     e_f32 = check_scan("fused_topk f32", q64[:16], corpus, None, mask, 1024,
                        q64[:16])
     ms_f32 = cuda_ms(torch, lambda: scan.fused_topk(q64[:16], corpus, mask, 1024))
     pms_f32 = cuda_ms(
         torch, lambda: scan.scan_topk_plain(q64[:16], corpus, None, mask, 1024))
-    flive = int(fmask.sum())
-    rec["fused_topk"] = entry(max(e_bf, e_f32), ms_bf, pms_bf,
-                              64 * dim * 4 + flive * dim * 2 + cap + 64 * 36 * 8,
-                              2 * 64 * flive * dim, "bf16")
-    log(f"phase 2: K4 fused_topk agrees: bf16 Q=64 k_sel=36 filtered "
-        f"{ms_bf:.4f} ms (plain {pms_bf:.4f}); f32 Q=16 k_sel=1024 "
-        f"{ms_f32:.4f} ms (plain {pms_f32:.4f})")
+    rec["fused_topk"] = entry(
+        max(errs + [e_f32]), k4["bfloat16", 64, 36]["tensor-core scan"], pms_bf,
+        64 * dim * 4 + live * dim * 2 + cap + 64 * 36 * 8,
+        *tc_ops(torch, 64, live, dim, torch.bfloat16, 3))
+    bounds4 = {
+        (dt, nq4): entry(0.0, 0, 0, nq4 * dim * 4 + live * dim * es + cap
+                         + nq4 * 36 * 8, *tc_ops(torch, nq4, live, dim, dtype,
+                                                 3))["bound_ms"]
+        for dt, dtype, es in (("float32", torch.float32, 4),
+                              ("bfloat16", torch.bfloat16, 2))
+        for nq4 in (64, 256)}
+    log(f"phase 2: K4 fused_topk (tensor-core scan) agrees within "
+        f"{max(errs):.3g} (limit {TOL_SCORE:g}), ids = plain outside the gap "
+        f"(each kernel's ms): " + "; ".join(
+            f"{dt} Q={nq4} k_sel={ksel}: " + ", ".join(
+                f"{name} {t:.4f}" for name, t in times.items())
+            + (f" (bound {bounds4[dt, nq4]:.4f} at k_sel 36)"
+               if (dt, nq4) in bounds4 else "")
+            for (dt, nq4, ksel), times in k4.items())
+        + f"; plain bf16 Q=64 k_sel=36 {pms_bf:.4f}; the template at f32 Q=16 "
+        f"k_sel=1024 {ms_f32:.4f} ms (plain {pms_f32:.4f})")
 
     # K6 over the packed int4 rows at k_sel = 14 (i4stor_fused at k = 10):
     # Q = 1, 8, 16 and Q = 2048 (a query_columnar batch), the dispatch and
@@ -905,7 +1042,7 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
         rec[name] = entry(
             errs[kind], *first[kind],
             64 * dim * es + hot_live * dim * es + cap + 64 * 64 * 4 * ns * 4,
-            *k8_ops(torch, 64, hot_live, dim, kinds[kind].dtype))
+            *tc_ops(torch, 64, hot_live, dim, kinds[kind].dtype))
     # what the limit must reject: the f32 plain version in TF32, and over
     # bf16-rounded inputs, against the f32 plain version
     ref = ivf.ivf_segmax_scan_plain(q64, post, mask, hot, n_hot, 8)
@@ -1054,6 +1191,7 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     for name, (key, _, _, phase) in KERNELS.items():
         if phase == 3:
             assert counts[key] > 0, f"{name} never launched on the main path"
+    assert k4_launches_ok(scan, counts), "a K4 launch missed the tensor-core scan"
     # K1 alone at one 2048-query chunk on the store's own mirror and mask
     # (after the count: not the path's): held against its plain version,
     # run over 131,072-row slices (its keys are per 128-row segment), and
@@ -1073,25 +1211,19 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
                                 10, "K1 (wgmma) on the store's mirror")
     rec["segmax_scan"]["max_abs_err"] = max(rec["segmax_scan"]["max_abs_err"],
                                             err1)
-    # K2 on this chunk's slab (k_sel 16) and K4 on the unfiltered Q = 64,
-    # top-32 batch (k_sel 36 over the bf16 mirror), at this phase's shapes
+    # K2 on this chunk's slab (k_sel 16), at this phase's shape
     cap3, live3 = dev.active.shape[0], int(dev.active.sum())
     k2_ms = cuda_ms(torch, lambda: scan.topk_packed_keys(keys, 16))
     k2_bound = entry(0.0, 0, 0, keys.numel() * 4 + 2048 * 16 * 8, 0,
                      "int8")["bound_ms"]
     q64f = qf[:64].contiguous()
-    k4_ms = cuda_ms(torch, lambda: scan.fused_topk(q64f, dev.vectors_lp,
-                                                   dev.active, 36))
-    k4_bound = entry(0.0, 0, 0, 64 * dim * 4 + live3 * dim * 2 + cap3
-                     + 64 * 36 * 8, 2 * 64 * live3 * dim, "bf16")["bound_ms"]
     del keys, keys_p
     k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(qb, dev.vectors_lp,
                                                     dev.active))
     chunk_ms = batch_s / 4 * 1e3
     # the path's other launch shapes: K1 + K2 (k_sel 16) at Q = 64 and
-    # 256 over the mirror, K4 at Q = 64, k_sel 14 under the 3,000-id
-    # filter, K3 at K3_SHAPES over the int8 mirror (the crossover behind
-    # K3's sweep serving every Q <= scan.SWEEP_Q_MAX)
+    # 256 over the mirror, K3 at K3_SHAPES over the int8 mirror (the
+    # crossover behind K3's sweep serving every Q <= scan.SWEEP_Q_MAX)
     other = []
     for nq in (64, 256):
         qbn = qb[:nq].contiguous()
@@ -1106,18 +1238,41 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
             f"{cuda_ms(torch, lambda: scan.topk_packed_keys(kk, 16)):.4f} ms "
             f"(bound {b2:.4f})")
         del kk
+    k3_line = k3_table(torch, scan, qdev, dev.vectors_i8, dev.vscale,
+                       dev.active, K3_SHAPES)
+    # K4 at the path's two launch shapes over the store's own bf16 mirror
+    # (`k4_timed`: the plain version over 131,072-row slices): Q = 64,
+    # k_sel 36 (mixed_fused_batch) and k_sel 14 under the 3,000-id filter
+    # (mixed_fused_batch_filtered), whose bound counts its live rows and
+    # beside it the bytes of the segments that hold one; then K4_SHAPES,
+    # the crossover behind TOPK_WGMMA_Q_MIN
     fmask = torch.zeros_like(dev.active)
     fmask[torch.from_numpy(np.asarray([int(a[1:]) for a in allow])).to(
         device)] = True
     fmask &= dev.active
     flive = int(fmask.sum())
-    b4 = entry(0.0, 0, 0, 64 * dim * 4 + flive * dim * 2 + cap3 + 64 * 14 * 8,
-               2 * 64 * flive * dim, "bf16")["bound_ms"]
-    other.append(f"K4 Q=64 k_sel=14 over {flive} filtered rows "
-                 f"{cuda_ms(torch, lambda: scan.fused_topk(q64f, dev.vectors_lp, fmask, 14)):.4f}"
-                 f" ms (bound {b4:.4f})")
-    k3_line = k3_table(torch, scan, qdev, dev.vectors_i8, dev.vscale,
-                       dev.active, K3_SHAPES)
+    fsegs = int(fmask.view(-1, scan.SEG).any(dim=1).sum())
+    k4 = {}
+    for what, msk, ksel in (("Q=64 k_sel=36", dev.active, 36),
+                            (f"Q=64 k_sel=14 over {flive} filtered rows "
+                             f"({fsegs} of {cap3 // scan.SEG} segments live, "
+                             f"{fsegs * scan.SEG * dim * 2 / 1e6:.1f} MB: "
+                             f"{fsegs * scan.SEG * dim * 2 / HBM_BYTES_PER_S * 1e3:.4f}"
+                             f" ms at HBM rate)", fmask, 14)):
+        served, times, err = k4_timed(torch, scan, q64f, dev.vectors_lp, msk,
+                                      ksel, reps=10)
+        nlive = int(msk.sum())
+        bound = entry(0.0, 0, 0, 64 * dim * 4 + nlive * dim * 2 + cap3
+                      + 64 * ksel * 8, *tc_ops(torch, 64, nlive, dim,
+                                               torch.bfloat16, 3))["bound_ms"]
+        rec["fused_topk"]["max_abs_err"] = max(rec["fused_topk"]["max_abs_err"],
+                                               err)
+        k4[what] = (f"{what} ({served}): " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in times.items())
+            + f" ms, bound {bound:.4f}")
+    k4_line, err = k4_table(torch, scan, qdev, dev.vectors_lp, dev.active,
+                            K4_SHAPES)
+    rec["fused_topk"]["max_abs_err"] = max(rec["fused_topk"]["max_abs_err"], err)
     del qb, qf, q64f, fmask
     log(f"phase 3: main path at {n} x {dim}: routes segmax_mixed_stream, "
         f"i8_fused_smallq, fview_segmax, mixed_fused_batch_filtered, "
@@ -1128,9 +1283,14 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
         f"{dev.vectors_lp.shape[0]}-row mirror agree with the plain version "
         f"(max |dkey value| {err1:.3g}, KEY_MIN pattern equal, K2 + rescored "
         f"rows = plain outside the gap); at this phase's shapes K2 "
-        f"{k2_ms:.4f} ms (bound {k2_bound:.4f}) on the chunk's slab, K4 "
-        f"{k4_ms:.4f} ms (bound {k4_bound:.4f}) at Q=64 k_sel=36; "
+        f"{k2_ms:.4f} ms (bound {k2_bound:.4f}) on the chunk's slab; "
         + "; ".join(other))
+    log(f"phase 3: K4 fused_topk over the store's {cap3}-row bf16 mirror "
+        f"within {rec['fused_topk']['max_abs_err']:.3g} of the plain version, "
+        f"ids = plain outside the gap (the kernel the dispatch chose, then "
+        f"each kernel's ms): " + "; ".join(k4.values()))
+    log(f"phase 3: K4's crossover over the store's bf16 mirror, {live3} live "
+        f"rows: {k4_line}")
     log(f"phase 3: K3 fused_topk_i8 = plain bit for bit over the store's "
         f"{dev.vectors_i8.shape[0]}-row int8 mirror, {live3} live rows "
         f"(the kernel the dispatch chose, then each kernel's ms): {k3_line}")
@@ -1292,27 +1452,46 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     assert db2.last_query_debug()["strategy"] == "i8stor_fused_smallq"
     assert len(res) == 10 and res[0]["_id_"] == out_ids[0][0]
     counts = launch_counts(scan)
-    assert counts["segmax_i8"] > 0, "segmax_scan_i8 never launched"
+    assert counts["segmax_i8_wgmma"] == counts["segmax_i8"] > 0, \
+        "a K5 launch missed the int8 mainloop"
     shapes4 = counts["shapes"]["scan_topk_i8"]
     assert counts["scan_topk_i8_sweep"] >= shapes4.get("Q=1 k=142", 0) > 0, \
         "the host-rescore band's Q = 1 calls missed K3's sweep"
     # after the count: K3 at the host-rescore band's launch shapes (Q = 1
-    # and the Q = 64 batches, k_sel 142) and K5 at Q = 256, on the store's
-    # own plane, scales and mask
+    # and the Q = 64 batches, k_sel 142), and K5 at the path's Q = 2048 and
+    # 256 on the store's own plane, scales and mask: bit for bit the plain
+    # version (over 131,072-row slices) and the mma.sync tile it replaced,
+    # both timed
     d2 = db2._dev
     cap4, live4 = d2.active.shape[0], int(d2.active.sum())
     k3_line = k3_table(torch, scan, qdev, d2.vectors, d2.vstore_scale,
                        d2.active, ((1, 142), (64, 142)))
-    q8_256, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:256]))
-    k5_ms = cuda_ms(torch, lambda: scan.segmax_scan_i8(
-        q8_256, d2.vectors, d2.vstore_scale, d2.active))
-    k5_bound = entry(0.0, 0, 0, 256 * dim + live4 * (dim + 4) + cap4
-                     + 256 * 2 * (cap4 // 128) * 4, 2 * 256 * live4 * dim,
-                     "int8")["bound_ms"]
+    args = (d2.vectors, d2.vstore_scale, d2.active)
+    q8_2048, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:2048]))
+    keys = scan.segmax_scan_i8(q8_2048, *args)
+    step = 131_072
+    for s in range(0, cap4, step):
+        ref = scan.segmax_scan_i8_plain(q8_2048, *(a[s:s + step] for a in args))
+        got = keys[:, 2 * s // scan.SEG:][:, :ref.shape[1]]
+        assert torch.equal(got, ref), f"K5 keys differ in rows {s}.."
+    assert torch.equal(scan._segmax_i8_launch(q8_2048, *args, False), keys), \
+        "K5's mma.sync tile differs on the store's plane"
+    del keys, ref, got
+    k5 = []
+    for nq in (2048, 256):
+        q8n = q8_2048[:nq].contiguous()
+        bound = entry(0.0, 0, 0, nq * dim + live4 * (dim + 4) + cap4
+                      + nq * 2 * (cap4 // 128) * 4, 2 * nq * live4 * dim,
+                      "int8")["bound_ms"]
+        k5.append(
+            f"Q={nq} {cuda_ms(torch, lambda: scan.segmax_scan_i8(q8n, *args)):.4f}"
+            f" ms (the mma.sync tile "
+            f"{cuda_ms(torch, lambda: scan._segmax_i8_launch(q8n, *args, False)):.4f}"
+            f", bound {bound:.4f})")
     log(f"phase 4: K3 fused_topk_i8 = plain bit for bit on the store's "
         f"{cap4}-row plane (the kernel the dispatch chose, then each "
-        f"kernel's ms): {k3_line}; K5 segmax_scan_i8 at Q=256 {k5_ms:.4f} ms "
-        f"(bound {k5_bound:.4f})")
+        f"kernel's ms): {k3_line}; K5 segmax_scan_i8 (int8 TMA + wgmma) keys "
+        f"= plain bit for bit at Q=2048 on the plane: " + ", ".join(k5))
     log(f"phase 4: int8 storage at {n} x {dim}: routes i8stor_fused_exact "
         f"(host rescore), segmax_i8stor_stream, i8stor_fused_smallq; "
         f"recall@10 vs float64 {recall:.4f} (filtered {recall_f:.4f}) with "
@@ -1612,7 +1791,7 @@ def ivf_kernels_on_store(torch, scan, db, qn, rec) -> str:
     ncol = g8 * depth * (bn // scan.SEG)
     k8_bound = entry(0.0, 0, 0, 32 * dim * es + live8 * dim * es
                      + vs.shape[0] + 32 * ncol * 4,
-                     *k8_ops(torch, 32, live8, dim, vs.dtype))["bound_ms"]
+                     *tc_ops(torch, 32, live8, dim, vs.dtype))["bound_ms"]
     # what a kernel that skips dead segments must read: the live steps'
     # 128-row segments that hold at least one live row
     nl = int(n8)
@@ -1796,6 +1975,7 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str,
     for name, (key, _, _, phase) in KERNELS.items():
         if phase == 7:
             assert counts[key] > 0, f"{name} never launched on the IVF path"
+    assert k4_launches_ok(scan, counts), "a K4 launch missed the tensor-core scan"
 
     # float64 oracles: restricted to the rows each dispatch scanned (the
     # ids must agree outside the gap), and over every row (recall)
@@ -1818,18 +1998,27 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str,
     k7 += chunk_ab(torch, db, qs[:32])
     # K4 at the exact route's Q = 256, k_sel 14 (after the count), over
     # the rows it selects on: the bf16 mirror, or the float32 rows where
-    # the store keeps no mirror
+    # the store keeps no mirror. Held to the plain version (over 131,072-row
+    # slices) with the template it replaced (`k4_timed`), then K4_SHAPES
+    # over the same rows
     dev = db._dev
     sel = dev.vectors if dev.vectors_lp is None else dev.vectors_lp
     q256 = normalize_on_device(torch.from_numpy(qs[:256]).to(device))
-    live7, es7 = int(dev.active.sum()), sel.element_size()
-    k4_ms = cuda_ms(torch, lambda: scan.fused_topk(q256, sel, dev.active, 14))
-    k4_bound = entry(0.0, 0, 0, 256 * dim * 4 + live7 * dim * es7
+    live7 = int(dev.active.sum())
+    served, times, err = k4_timed(torch, scan, q256, sel, dev.active, 14, 5)
+    k4_bound = entry(0.0, 0, 0, 256 * dim * 4 + live7 * dim * sel.element_size()
                      + dev.active.shape[0] + 256 * 14 * 8,
-                     2 * 256 * live7 * dim,
-                     "bf16" if es7 == 2 else "f32")["bound_ms"]
+                     *tc_ops(torch, 256, live7, dim, sel.dtype, 3))["bound_ms"]
+    k4_line, err_t = k4_table(torch, scan, torch.from_numpy(qs).to(device),
+                              sel, dev.active, K4_SHAPES)
+    rec["fused_topk"]["max_abs_err"] = max(rec["fused_topk"]["max_abs_err"],
+                                           err, err_t)
     k7 += (f"; K4 at the {exact_route} route's Q=256 k_sel=14 over "
-           f"{sel.dtype} rows {k4_ms:.4f} ms (bound {k4_bound:.4f})")
+           f"{sel.dtype} rows within {max(err, err_t):.3g} of the plain "
+           f"version, ids = plain outside the gap ({served}): " + ", ".join(
+               f"{name} {ms:.4f}" for name, ms in times.items())
+           + f" ms (bound {k4_bound:.4f}); K4's crossover over these rows: "
+           + k4_line)
     del q256, dev, sel
 
     # 1000 upserts: the incremental path, and the new rows are found
@@ -2025,7 +2214,7 @@ TIERS = [
      ("segmax", "topk_keys", "scan_topk_i8")),
     ("b PICOVDB_SEGMAX_I8=1", {"PICOVDB_SEGMAX_I8": "1"}, {},
      "segmax_i8_stream", "i8_fused_smallq",
-     ("segmax_i8", "topk_keys", "scan_topk_i8")),
+     ("segmax_i8", "segmax_i8_wgmma", "topk_keys", "scan_topk_i8")),
     ("c PICOVDB_SEGMAX_I8C=1 PICOVDB_SMALLQ_I8C=1",
      {"PICOVDB_SEGMAX_I8C": "1", "PICOVDB_SMALLQ_I8C": "1"}, {},
      "segmax_i8c_stream", "i8c_fused_smallq",

@@ -65,10 +65,12 @@
 //    memory (conflict-free), then a warp per query runs `per_seg` warp-wide
 //    max passes over the segment's 128 keys (a lane holds 4; masked lanes
 //    KEY_MIN) and writes the slab, as segment.cu's segment_topn does.
+//  * The wgmma wrappers, the row split and the mask read are
+//    wgmma_scan.cuh's, shared with K4's tensor-core scan.
 
 #include <atomic>
 
-#include "wgmma_tiles.cuh"
+#include "wgmma_scan.cuh"
 
 namespace pv {
 namespace {
@@ -81,6 +83,13 @@ using wg::mbar_wait;
 using wg::smem_u32;
 using wg::sw128_desc;
 using wg::tma_load_2d;
+using ws::fence_acc;
+using ws::FULL;
+using ws::mma_bf16;
+using ws::mma_s8;
+using ws::mma_tf32;
+using ws::named_sync;
+using ws::segment_live;
 
 constexpr int ROWS = SEG;                     // a segment: two m64 tiles
 constexpr int ROW_BYTES = 128;                // bytes of a row per k-stage
@@ -91,7 +100,6 @@ constexpr int CONSUMERS = 256;                // warpgroups 0 and 1
 constexpr int CONSUMER_WARPS = 8;
 constexpr int THREADS = CONSUMERS + 32;       // and one producer warp
 constexpr int LDS = ROWS + 4;                 // score tile row, in ints
-constexpr unsigned FULL = 0xffffffffu;
 
 // Element kinds: BK elements a k-stage, the TMA type, and the query planes
 // (float32: hi and lo).
@@ -128,52 +136,6 @@ struct Smem {
   static_assert(BYTES <= 232448, "shared memory of one CTA");
 };
 
-// The accumulator registers of an m64nNk wgmma (N / 2 a thread).
-#define PV_SG_D16                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define PV_SG_D32                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define PV_SG_ACC8(C, i)                                                    \
-  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), \
-      C(d[i + 6]), C(d[i + 7])
-#define PV_SG_ACC16(C) PV_SG_ACC8(C, 0), PV_SG_ACC8(C, 8)
-#define PV_SG_ACC32(C) PV_SG_ACC16(C), PV_SG_ACC8(C, 16), PV_SG_ACC8(C, 24)
-// D (64 x N) (+)= A (64 x k) . B (N x k)^T, both K-major in 128B-swizzled
-// shared memory; scale_d = 0 overwrites D. DESC and PRED: the operand
-// numbers of the descriptors and the predicate, after the N / 2
-// accumulators.
-#define PV_SG_MMA(NAME, ACC, ACCN, INSTR, DREGS, DESC, PRED, TAIL, CONS)   \
-  __device__ __forceinline__ void NAME(ACC (&d)[ACCN], uint64_t da,        \
-                                       uint64_t db, int scale_d) {         \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"         \
-                 "wgmma.mma_async.sync.aligned." INSTR " " DREGS ", " DESC  \
-                 ", p" TAIL ";\n}\n"                                        \
-                 : CONS                                                    \
-                 : "l"(da), "l"(db), "r"(scale_d));                        \
-  }
-
-PV_SG_MMA(mma_tf32, float, 16, "m64n32k8.f32.tf32.tf32", PV_SG_D16,
-          "%16, %17", "%18", ", 1, 1", PV_SG_ACC16("+f"))
-PV_SG_MMA(mma_tf32, float, 32, "m64n64k8.f32.tf32.tf32", PV_SG_D32,
-          "%32, %33", "%34", ", 1, 1", PV_SG_ACC32("+f"))
-PV_SG_MMA(mma_bf16, float, 16, "m64n32k16.f32.bf16.bf16", PV_SG_D16,
-          "%16, %17", "%18", ", 1, 1, 0, 0", PV_SG_ACC16("+f"))
-PV_SG_MMA(mma_bf16, float, 32, "m64n64k16.f32.bf16.bf16", PV_SG_D32,
-          "%32, %33", "%34", ", 1, 1, 0, 0", PV_SG_ACC32("+f"))
-PV_SG_MMA(mma_s8, int, 16, "m64n32k32.s32.s8.s8", PV_SG_D16, "%16, %17",
-          "%18", "", PV_SG_ACC16("+r"))
-PV_SG_MMA(mma_s8, int, 32, "m64n64k32.s32.s8.s8", PV_SG_D32, "%32, %33",
-          "%34", "", PV_SG_ACC32("+r"))
-
-#undef PV_SG_MMA
-#undef PV_SG_ACC32
-#undef PV_SG_ACC16
-#undef PV_SG_ACC8
-#undef PV_SG_D32
-#undef PV_SG_D16
-
 template <int A>
 __device__ __forceinline__ void mma(float (&d)[A], uint64_t da, uint64_t db,
                                     int scale_d, F32) {
@@ -188,32 +150,6 @@ template <int A>
 __device__ __forceinline__ void mma(int (&d)[A], uint64_t da, uint64_t db,
                                     int scale_d, Int8) {
   mma_s8(d, da, db, scale_d);
-}
-
-// After wait_group 0 only: keeps the epilogue's reads of the accumulators
-// below the wait that completes them.
-template <int A>
-__device__ __forceinline__ void fence_acc(float (&d)[A]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int A>
-__device__ __forceinline__ void fence_acc(int (&d)[A]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// The lane's four rows of the segment at r0 (lane, +32, +64, +96): whether
-// each is live, and whether any row of the segment is (warp-uniform).
-__device__ __forceinline__ bool segment_live(const uint8_t* __restrict__ mask,
-                                             long r0, int lane, bool (&live)[4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) live[c] = mask[r0 + lane + 32 * c] != 0;
-  return __any_sync(FULL, live[0] | live[1] | live[2] | live[3]);
 }
 
 // This CTA's share [*beg, *end) of `units` items among the grid's CTAs.
@@ -268,7 +204,7 @@ ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
       const int seg = (int)(u / q_tiles), q0 = (int)(u % q_tiles) * N;
       const long r0 = (long)hot[seg / ns] * bn + (long)(seg % ns) * SEG;
       bool live[4];
-      if (!segment_live(mask, r0, lane, live)) continue;
+      if (!segment_live(mask, r0, r0 + SEG, lane, live)) continue;
       if (lane == 0)
         for (int k = 0; k < k_iters; ++k, ++n) {
           const int st = (int)(n % STAGES);
@@ -301,7 +237,7 @@ ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
     const long r0 = (long)hot[b] * bn + (long)s * SEG;
     const long col0 = (long)b * per_seg * ns + s;
     bool live[4];
-    if (!segment_live(mask, r0, lane, live)) {  // no copy: KEY_MIN columns
+    if (!segment_live(mask, r0, r0 + SEG, lane, live)) {  // no copy: KEY_MIN columns
       for (int i = threadIdx.x; i < N * per_seg; i += CONSUMERS) {
         const int qq = i / per_seg, t = i % per_seg;
         if (q0 + qq < Q) keys[(long)(q0 + qq) * ncol + col0 + (long)t * ns] = KEY_MIN;
@@ -316,31 +252,9 @@ ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
       mbar_wait(full + 8 * st, (n / STAGES) & 1);
       const uint32_t a = a_ring + st * A_BYTES + g * HALF_BYTES;
       const uint32_t bq = b_ring + st * L::B_BYTES;
-      if constexpr (T::PLANES == 2) {
-        // hi = x with the low 13 bits cleared (in place), lo = x - hi, at
-        // the same swizzled offsets of the warpgroup's lo buffer, which the
-        // last stage's wgmmas read: its four warps have all waited for them
-        named_sync(2 + g, 128);
-        float4* x = reinterpret_cast<float4*>(sm + L::A_OFF + st * A_BYTES +
-                                              g * HALF_BYTES);
-        float4* lo = reinterpret_cast<float4*>(sm + L::LO_OFF + g * HALF_BYTES);
-#pragma unroll
-        for (int j = 0; j < HALF_BYTES / 16 / 128; ++j) {
-          const int i = threadIdx.x % 128 + 128 * j;
-          const float4 v = x[i];
-          const float4 h = make_float4(
-              __uint_as_float(__float_as_uint(v.x) & 0xffffe000u),
-              __uint_as_float(__float_as_uint(v.y) & 0xffffe000u),
-              __uint_as_float(__float_as_uint(v.z) & 0xffffe000u),
-              __uint_as_float(__float_as_uint(v.w) & 0xffffe000u));
-          x[i] = h;
-          lo[i] = make_float4(v.x - h.x, v.y - h.y, v.z - h.z, v.w - h.w);
-        }
-        // the generic-proxy writes are read by wgmma through the async
-        // proxy; the warpgroup's four warps wrote the tile together
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        named_sync(2 + g, 128);
-      }
+      if constexpr (T::PLANES == 2)  // 3xTF32: split the warpgroup's rows
+        ws::split_tf32<HALF_BYTES>(sm + L::A_OFF + st * A_BYTES + g * HALF_BYTES,
+                                   sm + L::LO_OFF + g * HALF_BYTES, 2 + g);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < ROW_BYTES / 32; ++kk) {
@@ -488,7 +402,7 @@ int launch_kind(const void* q, const void* q_lo, const void* v,
 // K8 on the tensor cores: pv_ivf_segmax's contract (ops/ivf.py::
 // ivf_segmax_scan), for rows of whole 16 bytes and 16-byte aligned bases.
 // kind 0: float32 postings, q the queries' hi plane and q_lo their lo
-// plane (ops/ivf.py::split_tf32); 1: bf16 postings and q; 2: column-scaled
+// plane (ops/scan.py::split_tf32); 1: bf16 postings and q; 2: column-scaled
 // int8 postings and folded int8 q (q_lo unused). postings (cap, dim) with
 // cap % bn == 0 and bn % 128 == 0, mask (cap,) uint8, hot (grid_b,) int32
 // tile ids in [0, cap / bn), n_hot (1,) int32 on the device -> keys (Q,

@@ -71,7 +71,7 @@
 //    and buffers of 64 keys; k <= 128 two slots, one B tile (the
 //    expansion and the products take turns) and buffers of 256.
 
-#include "wgmma_tiles.cuh"
+#include "wgmma_scan.cuh"
 
 namespace pv {
 namespace {
@@ -84,6 +84,7 @@ using wg::mbar_wait;
 using wg::smem_u32;
 using wg::sw128_desc;
 using wg::tma_load_2d;
+using ws::fence_acc;
 
 constexpr int BM = 64;          // queries per CTA: one m64 A tile
 constexpr int BN = 256;         // corpus rows per tile
@@ -154,60 +155,6 @@ __device__ __forceinline__ void mma(int (&d)[ACC], uint64_t da, uint64_t db,
 
 #undef PV_I4_ACC8
 #undef PV_I4_D64
-
-// After wait_group 0 only (see wg::Int8::fence).
-__device__ __forceinline__ void fence_acc(int (&d)[ACC]) {
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync %0, %1;\n" ::"n"(CONSUMER_BAR), "n"(CONSUMERS)
-               : "memory");
-}
-
-// Whether any consumer thread passes `x` (a consumer barrier too).
-__device__ __forceinline__ bool consumers_any(bool x) {
-  uint32_t r;
-  asm volatile(
-      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
-      "bar.red.or.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
-      : "=r"(r)
-      : "r"((uint32_t)x), "n"(CONSUMER_BAR), "n"(CONSUMERS)
-      : "memory");
-  return r != 0;
-}
-
-// compact_buffers (common.cuh) run by the consumers alone: every buffer
-// sorted descending, its best k kept, tau raised to its k-th key.
-template <int BUF>
-__device__ __forceinline__ void compact(u64* buf, int* cnt, u64* tau, int k) {
-  const int tid = threadIdx.x;
-  for (int t = tid; t < BM * BUF; t += CONSUMERS)
-    if (t % BUF >= cnt[t / BUF]) buf[t] = 0;
-  consumer_sync();
-  for (int size = 2; size <= BUF; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < BM * BUF / 2; t += CONSUMERS) {
-        const int i = 2 * stride * (t / stride) + (t % stride);
-        const int j = i + stride;
-        const bool desc = ((i & (BUF - 1) & size) == 0);
-        const u64 a = buf[i], b = buf[j];
-        if (desc ? (a < b) : (a > b)) {
-          buf[i] = b;
-          buf[j] = a;
-        }
-      }
-      consumer_sync();
-    }
-  }
-  if (tid < BM) {
-    const int c = min(cnt[tid], k);
-    cnt[tid] = c;
-    tau[tid] = c >= k ? buf[tid * BUF + k - 1] : 0ull;
-  }
-  consumer_sync();
-}
 
 // The biased nibble planes of a packed word, as non-negative bytes.
 __device__ __forceinline__ uint4 low_plane(uint4 x) {
@@ -472,8 +419,8 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
           }
         }
       }
-      if (!consumers_any(pend != 0)) break;
-      compact<BUF>(buf, cnt, tau, k);
+      if (!ws::any_of(pend != 0, CONSUMER_BAR, CONSUMERS)) break;
+      ws::compact<BM, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         tk[h] = tau[qi[h]];
@@ -481,8 +428,8 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
-  consumer_sync();
-  compact<BUF>(buf, cnt, tau, k);
+  ws::named_sync(CONSUMER_BAR, CONSUMERS);
+  ws::compact<BM, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
   for (int i = threadIdx.x; i < BM * k; i += CONSUMERS) {
     const int qq = i / k, j = i % k;
     if (q0 + qq < Q)

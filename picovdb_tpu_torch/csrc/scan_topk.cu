@@ -12,6 +12,12 @@
 // k_sel <= 1024 is served here, so the exact retry never needs a dense
 // (Q, cap) score matrix; wider k goes to the plain exact scan.
 //
+// Where they were redesigned, these templates keep the other shapes: K4
+// runs the tensor-core scan scan_topk_wgmma.cu where ops/scan.py::
+// topk_wgmma_ready holds (k <= 128, rows of whole 16 bytes, the batch at
+// or above its measured crossover), K3 the sweep's row-scaled int8 kind
+// and K6 the sweep's int4 kind or scan_i4_wgmma.cu (sweep_topk.cu).
+//
 // What bounds it on the H100: on the main path Q <= 16 (K3, 1 B/element;
 // K6, 0.5 B/element) or Q = 64 (K4 on the 2 B bf16 mirror), so arithmetic
 // per corpus byte is low and the sweep of the corpus from device memory

@@ -1,0 +1,429 @@
+// K4 fused_topk on Hopper's tensor cores: exact masked top-k over float32
+// or bfloat16 rows against float32 queries, reading only the 128-row
+// segments that hold a live row.
+//
+// Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk (`_scan_kernel`)
+// wherever TMA can read the rows and k <= 128 (ops/scan.py::
+// topk_wgmma_ready); scan_topk.cu's template keeps k > 128 (the exact
+// retry up to k_sel 1024), other widths and small batches. It computes
+// pv_scan_topk's kinds 0 and 1: per query the k best masked rows by the
+// float32 score q . v, as (Q, k) float32 scores (-inf where a slot is
+// empty) and (Q, k) int32 rows (0 where empty), ties to the lower row.
+//
+// What bounds it on the H100: float32 rows run three TF32 products (2 Q
+// cap dim operations each at 495 T/s: 6.4 ms at Q = 256 over 2M x 1024
+// rows, above their 8 GB at 3.35 TB/s, 2.4 ms); bf16 rows at the route's
+// Q = 64 are bound by their bytes (1M x 1024: 0.61 ms; three bf16 products
+// 0.40 ms), and under a sparse filter by the bytes of the segments that
+// hold a live row. The template it replaces scored with CUDA-core FMAs
+// through unpipelined shared-memory tiles, re-read the corpus once per
+// 16-query tile and read every row whatever the mask.
+//
+// Design:
+//  * Rows as M, queries as N = 64. A 128-row segment is two m64 tiles, one
+//    per consumer warpgroup; both operands are K-major as they lie and
+//    arrive by TMA in 128-byte k-stages, 128B-swizzled (32 float32 or 64
+//    bf16 elements). One producer warp's lane 0 keeps a ring of S stages
+//    filled (the segment's rows, the query tile's planes) behind full /
+//    empty mbarriers.
+//  * Float32 rows run 3xTF32 as K8 does (hi.hi + hi.lo + lo.hi): the
+//    launcher splits the queries once into hi and lo planes, each consumer
+//    warpgroup splits its m64 tile of a stage in shared memory
+//    (wgmma_scan.cuh). bf16 rows keep the float32 query: the launcher
+//    splits it into three bf16 planes q1 = bf16(q), q2 = bf16(q - q1),
+//    q3 = bf16(q - q1 - q2), which rebuild it exactly, and each plane's
+//    product with a bf16 row is exact in float32 (a bf16 query alone
+//    would move scores by ~1e-3). Either way a k-stage runs 12 wgmmas
+//    (m64n64, three products of four steps) into an accumulator of its
+//    own, folded into the row's sum by one round-to-nearest add a
+//    register: the tensor cores' float32 sum rounds toward zero at every
+//    wgmma (as K8 found), so one accumulator over a 1024-wide row (384 /
+//    192 wgmmas) would drift past the 1e-5 score limit. A one-stage lag:
+//    a warpgroup issues stage m + 1 (for float32 rows, split into the
+//    second of its two lo buffers) before it waits for stage m's wgmmas,
+//    the two stages' sums in two register arrays.
+//  * Only live segments. Producer and consumers read a segment's 128 mask
+//    bytes (one warp ballot, rows past cap dead) and skip a segment with
+//    no live row alike: no copy, no product.
+//  * The selection, as K6's tensor-core scan keeps it: CTA c owns query
+//    tile c % q_tiles and walks the contiguous segment range c / q_tiles
+//    of `ranges` (ops/scan.py::topk_wgmma_partition), so the q_tiles CTAs
+//    of one range read each segment from device memory about once even at
+//    Q = 256. After a segment's last stage each thread holds 2 rows x 16
+//    queries in registers; a live row of a live query whose score reaches
+//    the query's running k-th best score (`ts`, kept in registers) builds
+//    row_key(s, row) and, if it beats the query's tau, takes an atomic
+//    slot of that query's shared buffer of BUF keys. An admission that
+//    finds the buffer full keeps its key in a pending bit; the consumers
+//    then compact every buffer to its best k (behind a named barrier the
+//    producer never joins) and re-admit the pending keys against the
+//    raised tau, in the same epilogue. Each CTA writes its k best keys per
+//    query as a partial; launch_topk_merge merges the ranges' partials.
+//  * Ring and buffers within a CTA's 227 KB. A float32 stage is 16 KB of
+//    rows and two 8 KB query planes, beside four 8 KB lo buffers (two a
+//    warpgroup); a bf16 stage 16 KB of rows and three planes (40 KB). The
+//    buffers take 64 x BUF x 8 bytes: k <= 32 three stages and BUF 64
+//    (f32 162 KB, bf16 154 KB), k <= 64 three stages and BUF 128 (194 /
+//    186 KB), k <= 128 two stages and BUF 256 (226 / 210 KB). One CTA an
+//    SM.
+
+#include "wgmma_scan.cuh"
+
+namespace pv {
+namespace {
+namespace tk {
+
+using wg::mbar_arrive;
+using wg::mbar_expect_tx;
+using wg::mbar_init;
+using wg::mbar_wait;
+using wg::smem_u32;
+using wg::sw128_desc;
+using wg::tma_load_2d;
+
+constexpr int ROWS = SEG;                      // a segment: two m64 tiles
+constexpr int N = 64;                          // queries a CTA (wgmma n)
+constexpr int ROW_BYTES = 128;                 // bytes of a row per k-stage
+constexpr int A_BYTES = ROWS * ROW_BYTES;      // 16 KB
+constexpr int HALF_BYTES = A_BYTES / 2;        // a warpgroup's m64 tile
+constexpr int PLANE_BYTES = N * ROW_BYTES;     // 8 KB: a query plane
+constexpr int CONSUMERS = 256;                 // warpgroups 0 and 1
+constexpr int CONSUMER_WARPS = 8;
+constexpr int THREADS = CONSUMERS + 32;        // and one producer warp
+constexpr int ACC = N / 2;                     // accumulators a thread
+constexpr int CONSUMER_BAR = 1;  // named barriers: 1 the consumers, 2 + g
+                                 // warpgroup g's split
+
+// Row kinds: BK elements a k-stage, the TMA type, the query planes.
+struct F32 {  // 3xTF32: query planes hi, lo
+  static constexpr int BK = 32, ELEM_BYTES = 4, PLANES = 2;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+struct Bf16 {  // three bf16 planes of the float32 query
+  static constexpr int BK = 64, ELEM_BYTES = 2, PLANES = 3;
+  static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+// Shared memory of kind T with S stages and BUF keys a query: the ring
+// (rows, then the query planes), F32's lo buffers (two a warpgroup), the
+// barriers, then
+// the selection (tau, the buffers, their counts); 1 KB to align the ring
+// (swizzle atoms are 1024 B).
+template <class T, int S, int BUF>
+struct Smem {
+  static constexpr int B_BYTES = T::PLANES * PLANE_BYTES;
+  static constexpr int A_OFF = 0;
+  static constexpr int B_OFF = S * A_BYTES;
+  static constexpr int LO_OFF = B_OFF + S * B_BYTES;
+  static constexpr int BAR_OFF = LO_OFF + (T::PLANES == 2 ? 4 * HALF_BYTES : 0);
+  static constexpr int TAU_OFF = BAR_OFF + 2 * S * 8;
+  static constexpr int BUF_OFF = TAU_OFF + N * 8;
+  static constexpr int CNT_OFF = BUF_OFF + N * BUF * 8;
+  static constexpr int BYTES = 1024 + CNT_OFF + N * 4;
+  static constexpr uint32_t TX = A_BYTES + B_BYTES;  // a stage's TMA bytes
+  static_assert(BYTES <= 232448, "shared memory of one CTA");
+};
+
+// Consumer warpgroup g's k-stage n (of the CTA's run): wait for its slot,
+// (F32) split the warpgroup's rows into lo buffer n % 2 of its two, and
+// issue the stage's 12 wgmmas into `part` as one commit group. The other
+// lo buffer and the previous slot are still read by stage n - 1's wgmmas.
+template <class T, int S, int BUF>
+__device__ __forceinline__ void issue(float (&part)[ACC], uint32_t n,
+                                      unsigned char* sm, int g) {
+  typedef Smem<T, S, BUF> L;
+  const int st = (int)(n % S);
+  const uint32_t base = smem_u32(sm);
+  mbar_wait(base + L::BAR_OFF + 8 * st, (n / S) & 1);
+  const int a_off = L::A_OFF + st * A_BYTES + g * HALF_BYTES;
+  const int lo_off = L::LO_OFF + (2 * g + (int)(n % 2)) * HALF_BYTES;
+  const uint32_t bq = base + L::B_OFF + st * L::B_BYTES;
+  if constexpr (T::PLANES == 2)  // 3xTF32: split the warpgroup's rows
+    ws::split_tf32<HALF_BYTES>(sm + a_off, sm + lo_off, 2 + g);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s4 = 0; s4 < ROW_BYTES / 32; ++s4) {
+    const uint64_t da = sw128_desc(base + a_off) + 2 * s4;
+    const uint64_t d0 = sw128_desc(bq) + 2 * s4;
+    const uint64_t d1 = sw128_desc(bq + PLANE_BYTES) + 2 * s4;
+    if constexpr (T::PLANES == 2) {  // hi.hi + hi.lo + lo.hi
+      ws::mma_tf32(part, da, d0, s4 != 0);
+      ws::mma_tf32(part, da, d1, 1);
+      ws::mma_tf32(part, sw128_desc(base + lo_off) + 2 * s4, d0, 1);
+    } else {  // v.q1 + v.q2 + v.q3
+      ws::mma_bf16(part, da, d0, s4 != 0);
+      ws::mma_bf16(part, da, d1, 1);
+      ws::mma_bf16(part, da, sw128_desc(bq + 2 * PLANE_BYTES) + 2 * s4, 1);
+    }
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Retires stage n once at most W commit groups are pending (W = 1: all
+// but the stage issued after it): frees its slot and folds its sum into
+// the row's with one round-to-nearest add a register.
+template <int S, int W>
+__device__ __forceinline__ void retire(float (&part)[ACC], float (&acc)[ACC],
+                                       uint32_t n, uint32_t empty, int lane) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(W) : "memory");
+  if (lane == 0) mbar_arrive(empty + 8 * (int)(n % S));
+  ws::fence_acc(part);
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+}
+
+// tv: TMA map of the rows (cap, dim), boxes of 128 bytes x 128 rows; tq0
+// .. tq2: of the query planes (Q, dim), boxes of 128 bytes x 64 rows (F32
+// reads two); all 128B-swizzled. mask (cap,) uint8. `partial` receives,
+// per query of this CTA's tile, k keys at ((q * ranges + range) * k).
+template <class T, int S, int BUF>
+__global__ void __launch_bounds__(THREADS, 1)
+scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tq0,
+                       const __grid_constant__ CUtensorMap tq1,
+                       const __grid_constant__ CUtensorMap tq2,
+                       const uint8_t* __restrict__ mask,
+                       u64* __restrict__ partial, int Q, long cap, int k,
+                       int q_tiles, int ranges, int k_iters) {
+  typedef Smem<T, S, BUF> L;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t a_ring = base + L::A_OFF, b_ring = base + L::B_OFF;
+  const uint32_t full = base + L::BAR_OFF, empty = full + 8 * S;
+  u64* tau = reinterpret_cast<u64*>(sm + L::TAU_OFF);
+  u64* buf = reinterpret_cast<u64*>(sm + L::BUF_OFF);
+  int* cnt = reinterpret_cast<int*>(sm + L::CNT_OFF);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);  // the producer's expect_tx arrival
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < N) {
+    cnt[threadIdx.x] = 0;
+    tau[threadIdx.x] = 0ull;
+  }
+  __syncthreads();
+
+  const int q0 = (blockIdx.x % q_tiles) * N, range = blockIdx.x / q_tiles;
+  const long segs = (cap + ROWS - 1) / ROWS;  // none when cap == 0
+  const long sb = range * segs / ranges, se = (range + 1) * segs / ranges;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp
+    uint32_t n = 0;
+    for (long seg = sb; seg < se; ++seg) {
+      const long r0 = seg * ROWS;
+      bool live[4];
+      if (!ws::segment_live(mask, r0, cap, lane, live)) continue;
+      if (lane == 0)
+        for (int kk = 0; kk < k_iters; ++kk, ++n) {
+          const int st = (int)(n % S);
+          mbar_wait(empty + 8 * st, ((n / S) & 1) ^ 1);  // first lap: free
+          mbar_expect_tx(full + 8 * st, L::TX);
+          const uint32_t b = b_ring + st * L::B_BYTES;
+          tma_load_2d(a_ring + st * A_BYTES, &tv, full + 8 * st, kk * T::BK,
+                      (int)r0);
+          tma_load_2d(b, &tq0, full + 8 * st, kk * T::BK, q0);
+          tma_load_2d(b + PLANE_BYTES, &tq1, full + 8 * st, kk * T::BK, q0);
+          if constexpr (T::PLANES == 3)
+            tma_load_2d(b + 2 * PLANE_BYTES, &tq2, full + 8 * st, kk * T::BK,
+                        q0);
+        }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // consumers: warpgroup g multiplies rows 64 g .. 64 g + 63 of the
+  // segment by the query tile. Lane l of warp w holds rows 64 g + 16 w +
+  // l / 4 (+ 8 h) at queries 8 j + 2 (l % 4) + e, in acc[4 j + 2 h + e];
+  // ts[2 j + e] is that query's running k-th best score (a key scored
+  // below it cannot beat tau).
+  const int g = threadIdx.x / 128, w = (threadIdx.x / 32) % 4;
+  const int m0 = 64 * g + 16 * w + lane / 4;  // the thread's first row
+  float ts[N / 4];
+  uint32_t qlive = 0;  // bit 2 j + e: query 8 j + 2 (l % 4) + e < Q
+#pragma unroll
+  for (int t = 0; t < N / 4; ++t) {
+    ts[t] = -__int_as_float(0x7f800000);
+    qlive |= (uint32_t)(q0 + 8 * (t / 2) + 2 * (lane % 4) + t % 2 < Q) << t;
+  }
+  uint32_t n = 0;
+  for (long seg = sb; seg < se; ++seg) {
+    const long r0 = seg * ROWS;
+    bool live[4];
+    if (!ws::segment_live(mask, r0, cap, lane, live)) continue;
+    // a one-stage lag: stage m + 1 is issued before stage m is retired,
+    // its sum alternating between p0 and p1
+    float acc[ACC], p0[ACC], p1[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
+    const uint32_t n0 = n;
+    issue<T, S, BUF>(p0, n0, sm, g);
+    int kk = 1;
+    for (; kk + 1 < k_iters; kk += 2) {
+      issue<T, S, BUF>(p1, n0 + kk, sm, g);
+      retire<S, 1>(p0, acc, n0 + kk - 1, empty, lane);
+      issue<T, S, BUF>(p0, n0 + kk + 1, sm, g);
+      retire<S, 1>(p1, acc, n0 + kk, empty, lane);
+    }
+    if (kk < k_iters) {  // an even count: the last stage in p1
+      issue<T, S, BUF>(p1, n0 + kk, sm, g);
+      retire<S, 1>(p0, acc, n0 + kk - 1, empty, lane);
+      retire<S, 0>(p1, acc, n0 + kk, empty, lane);
+    } else {
+      retire<S, 0>(p0, acc, n0 + kk - 1, empty, lane);
+    }
+    n = n0 + k_iters;
+
+    // epilogue: admit, and compact + re-admit while an admission failed.
+    // pend bit 4 j + 2 h + e: a live (row, query) not yet admitted or
+    // dropped
+    uint32_t pend = 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long r = r0 + m0 + 8 * h;  // the thread's row h
+      if (r < cap && mask[r])
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            pend |= ((qlive >> (2 * j + e)) & 1u) << (4 * j + 2 * h + e);
+    }
+    for (;;) {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            if (!((pend >> i) & 1u)) continue;
+            bool keep = false;
+            const float s = acc[i];
+            if (s >= ts[2 * j + e]) {
+              const int qq = 8 * j + 2 * (lane % 4) + e;
+              const u64 key = row_key(s, (uint32_t)(r0 + m0 + 8 * h));
+              if (key > tau[qq]) {
+                const int slot = atomicAdd(&cnt[qq], 1);
+                if (slot < BUF) buf[qq * BUF + slot] = key;
+                else keep = true;
+              }
+            }
+            if (!keep) pend &= ~(1u << i);
+          }
+      if (!ws::any_of(pend != 0, CONSUMER_BAR, CONSUMERS)) break;
+      ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+#pragma unroll
+      for (int t = 0; t < N / 4; ++t)
+        ts[t] = row_key_score(tau[8 * (t / 2) + 2 * (lane % 4) + t % 2]);
+    }
+  }
+  ws::named_sync(CONSUMER_BAR, CONSUMERS);
+  ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+  for (int i = threadIdx.x; i < N * k; i += CONSUMERS) {
+    const int qq = i / k, j = i % k;
+    if (q0 + qq < Q)
+      partial[((long)(q0 + qq) * ranges + range) * k + j] = buf[qq * BUF + j];
+  }
+}
+
+template <class T, int S, int BUF>
+int launch(const CUtensorMap& tv, const CUtensorMap (&tq)[3],
+           const void* mask, u64* partial, int Q, long long cap, int k,
+           int q_tiles, int ranges, int k_iters, cudaStream_t stream) {
+  constexpr int smem = Smem<T, S, BUF>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      scan_topk_wgmma_kernel<T, S, BUF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  scan_topk_wgmma_kernel<T, S, BUF><<<q_tiles * ranges, THREADS, smem, stream>>>(
+      tv, tq[0], tq[1], tq[2], static_cast<const uint8_t*>(mask), partial, Q,
+      (long)cap, k, q_tiles, ranges, k_iters);
+  return (int)cudaGetLastError();
+}
+
+// Encodes the maps, sizes the grid (ops/scan.py::topk_wgmma_partition),
+// launches the scan with the ring and buffers of k's range, then the merge.
+template <class T>
+int launch_kind(const void* planes, const void* v, const void* mask,
+                void* partial, void* vals, void* idx, int Q, long long cap,
+                int dim, int k, cudaStream_t s) {
+  if ((long long)dim * T::ELEM_BYTES % 16 ||
+      ((uintptr_t)planes | (uintptr_t)v) % 16)
+    return (int)cudaErrorInvalidValue;
+  wg::EncodeTiled enc;
+  int err = wg::encoder(&enc);
+  if (err) return err;
+  CUtensorMap tv{}, tq[3]{};
+  if (cap > 0 && (err = wg::encode_rows<T>(enc, &tv, v, cap, dim, ROWS)))
+    return err;
+  const size_t plane = (size_t)Q * dim * T::ELEM_BYTES;  // bytes of a plane
+  for (int p = 0; p < 3; ++p) {
+    const int pp = p < T::PLANES ? p : 0;  // F32 reads two planes
+    if ((err = wg::encode_rows<T>(
+             enc, &tq[p], static_cast<const unsigned char*>(planes) + pp * plane,
+             Q, dim, N)))
+      return err;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int q_tiles = (Q + N - 1) / N;
+  const long long segs = std::max(1LL, (cap + ROWS - 1) / ROWS);
+  const int ranges =
+      (int)std::max(1LL, std::min(segs, (long long)(sms / q_tiles)));
+  if ((long long)q_tiles * ranges > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const int k_iters = (dim * T::ELEM_BYTES + ROW_BYTES - 1) / ROW_BYTES;
+  u64* part = static_cast<u64*>(partial);
+  err = k <= 32    ? launch<T, 3, 64>(tv, tq, mask, part, Q, cap, k, q_tiles,
+                                      ranges, k_iters, s)
+        : k <= 64  ? launch<T, 3, 128>(tv, tq, mask, part, Q, cap, k, q_tiles,
+                                       ranges, k_iters, s)
+                   : launch<T, 2, 256>(tv, tq, mask, part, Q, cap, k, q_tiles,
+                                       ranges, k_iters, s);
+  if (err) return err;
+  return (int)launch_topk_merge(part, static_cast<float*>(vals),
+                                static_cast<int*>(idx), Q, ranges * k, k, s,
+                                false);
+}
+
+}  // namespace tk
+}  // namespace
+}  // namespace pv
+
+// K4 on the tensor cores: pv_scan_topk's kinds 0 and 1 for k <= 128, rows
+// of whole 16 bytes (float32 dim % 4, bf16 dim % 8) and 16-byte aligned
+// bases. kind 0: v (cap, dim) float32 and `planes` (2, Q, dim) float32,
+// the queries' hi and lo (ops/scan.py::split_tf32); 1: v bfloat16 and
+// `planes` (3, Q, dim) bfloat16, the queries' three bf16 planes
+// (ops/scan.py::split_bf16). mask (cap,) uint8. The grid is q_tiles =
+// ceil(Q / 64) query tiles x `ranges` = max(1, min(ceil(cap / 128), SMs /
+// q_tiles)) segment ranges (ops/scan.py::topk_wgmma_partition); `partial`
+// is scratch of Q * ranges * k uint64; vals (Q, k) float32 and idx (Q, k)
+// int32 receive the result (-inf / 0 where empty). Launches on the current
+// device. Returns 0, a cudaError_t, or minus the CUresult of a refused
+// tensor-map encode.
+extern "C" int pv_scan_topk_wgmma(int kind, const void* planes, const void* v,
+                                  const void* mask, void* partial, void* vals,
+                                  void* idx, int Q, long long cap, int dim,
+                                  int k, void* stream) {
+  using namespace pv;
+  using namespace pv::tk;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (k > 128 || cap < 0 || dim <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 0)
+    return launch_kind<F32>(planes, v, mask, partial, vals, idx, Q, cap, dim,
+                            k, s);
+  if (kind == 1)
+    return launch_kind<Bf16>(planes, v, mask, partial, vals, idx, Q, cap, dim,
+                             k, s);
+  return (int)cudaErrorInvalidValue;
+}

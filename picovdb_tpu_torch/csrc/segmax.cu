@@ -28,9 +28,10 @@
 // so the blocks reading one segment run together and share it in L2.
 //
 // K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are K1 over a per-row
-// int8 corpus and over the column-scaled int8 mirror. K10 runs the int8
-// instantiation of the same mainloop with SegmaxTileEpi<int>; K5, and K10
-// at widths TMA cannot read, keep the mma.sync score tile. The wmma and
+// int8 corpus and over the column-scaled int8 mirror. Both run the int8
+// instantiation of the same mainloop, K10 with SegmaxTileEpi<int>, K5 with
+// SegmaxTileEpi<int, true> (the row scales); at widths TMA cannot read
+// they keep the mma.sync score tile. The wmma and
 // mma.sync score tiles live in tiles.cuh, shared with K8 and the dot-floor
 // probe P1, whose two kinds also run on wgmma_tiles.cuh.
 
@@ -40,21 +41,26 @@
 namespace pv {
 namespace {
 
-// The epilogue of K1 (float accumulators) and K10 (int32 accumulators) on
-// the wgmma accumulators (layout: wgmma_tiles.cuh). For each of its two
-// rows and each segment of the tile that lies inside cap (cap % 256 == 128
-// leaves a last tile's second segment out: its zero-filled rows score 0,
-// which would beat an all-negative segment), a thread packs its 32 scores
-// of the segment (key (order_key(acc) & ~127) | lane: K1 the sortable
-// float32 bits, K10 the raw int32 sum; KEY_MIN for masked rows after
-// packing, as segment_top2 and the TPU kernels do), keeps its top 2,
-// merges them with the three other lanes of its quad and the quad leader
-// writes keys[q, 2 seg] and [q, 2 seg + 1]. Rows past Q write nothing.
-template <class A>
+// The epilogue of K1 (float accumulators), K10 (int32 accumulators) and K5
+// (int32 accumulators with `SCALED` row scales) on the wgmma accumulators
+// (layout: wgmma_tiles.cuh). For each of its two rows and each segment of
+// the tile that lies inside cap (cap % 256 == 128 leaves a last tile's
+// second segment out: its zero-filled rows score 0, which would beat an
+// all-negative segment), a thread packs its 32 scores of the segment (key
+// (order_key(s) & ~127) | lane: K1 the sortable float32 bits, K10 the raw
+// int32 sum, K5 the sortable bits of the sum converted to float32 and
+// times the row's scale, one rounding each as segment_top2 and the TPU
+// kernel compute it; KEY_MIN for masked rows after packing), keeps its top
+// 2, merges them with the three other lanes of its quad and the quad
+// leader writes keys[q, 2 seg] and [q, 2 seg + 1]. A thread loads each of
+// its 32 rows' mask byte and scale once a segment, for both of its query
+// rows. Rows past Q write nothing.
+template <class A, bool SCALED = false>
 struct SegmaxTileEpi {
   const uint8_t* __restrict__ mask;
   int* __restrict__ keys;
   long ncol;  // 2 * cap / 128
+  const float* __restrict__ vscale;  // (cap,): K5's row scales
 
   __device__ __forceinline__ void tile(A (&acc)[wg::ACC], int q0, long r0,
                                        int Q, long cap) const {
@@ -65,43 +71,51 @@ struct SegmaxTileEpi {
     for (int s = 0; s < 2; ++s) {
       const long seg = r0 / SEG + s;
       if (seg * SEG >= cap) break;  // uniform across the CTA
-      uint32_t live = 0;  // bit 2 j + e: segment lane 8 j + 2 quad + e
+      int m1[2] = {KEY_MIN, KEY_MIN}, m2[2] = {KEY_MIN, KEY_MIN};
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < 16; ++j) {
+        // segment lanes 8 j + 2 quad + e
+        const long r = seg * SEG + 8 * j + 2 * quad;
+        const bool live[2] = {mask[r] != 0, mask[r + 1] != 0};
+        float sc[2] = {1.0f, 1.0f};
+        if constexpr (SCALED) {
+          sc[0] = vscale[r];
+          sc[1] = vscale[r + 1];
+        }
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          live |= (uint32_t)(mask[seg * SEG + 8 * j + 2 * quad + e] != 0)
-                  << (2 * j + e);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int m1 = KEY_MIN, m2 = KEY_MIN;
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            int key = (wg::order_key(acc[4 * (16 * s + j) + 2 * h + e]) &
-                       ~(SEG - 1)) |
-                      (8 * j + 2 * quad + e);
-            if (!((live >> (2 * j + e)) & 1u)) key = KEY_MIN;
-            if (key > m1) {
-              m2 = m1;
-              m1 = key;
-            } else if (key > m2) {
-              m2 = key;
+            const A a = acc[4 * (16 * s + j) + 2 * h + e];
+            int raw;
+            if constexpr (SCALED)
+              raw = wg::order_key(__fmul_rn(__int2float_rn(a), sc[e]));
+            else
+              raw = wg::order_key(a);
+            int key = (raw & ~(SEG - 1)) | (8 * j + 2 * quad + e);
+            if (!live[e]) key = KEY_MIN;
+            if (key > m1[h]) {
+              m2[h] = m1[h];
+              m1[h] = key;
+            } else if (key > m2[h]) {
+              m2[h] = key;
             }
           }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
 #pragma unroll
         for (int off = 1; off < 4; off <<= 1) {
-          const int o1 = __shfl_xor_sync(0xffffffffu, m1, off);
-          const int o2 = __shfl_xor_sync(0xffffffffu, m2, off);
-          const int n2 = max(min(m1, o1), max(m2, o2));
-          m1 = max(m1, o1);
-          m2 = n2;
+          const int o1 = __shfl_xor_sync(0xffffffffu, m1[h], off);
+          const int o2 = __shfl_xor_sync(0xffffffffu, m2[h], off);
+          const int n2 = max(min(m1[h], o1), max(m2[h], o2));
+          m1[h] = max(m1[h], o1);
+          m2[h] = n2;
         }
         const int q = row + 8 * h;
         if (quad == 0 && q < Q)
           *reinterpret_cast<int2*>(keys + (long)q * ncol + 2 * seg) =
-              make_int2(m1, m2);
+              make_int2(m1[h], m2[h]);
       }
     }
   }
@@ -197,11 +211,13 @@ segmax_kernel(const __nv_bfloat16* __restrict__ q,
 //
 // What bounds it on the H100: at the main-path shape (Q = 2048 per chunk,
 // 1024-wide rows) it is a 4.3 TOP integer product whose output is 2/128 of
-// the score matrix, bound by tensor-core issue rate as K1 is; the corpus
-// is 1 B/element, half of K1's bf16 mirror, but this first kernel feeds
-// the tensor cores from unpipelined shared-memory tiles (tiles.cuh), so it
-// runs at half the wmma K1's time, far from K1's TMA + wgmma mainloop. No
-// TMA, no wgmma yet.
+// the score matrix, bound by the tensor cores' int8 rate (1,979 TOP/s) as
+// K10 is. Where TMA can read the operands (dim % 16 == 0, 16-byte aligned
+// bases) it runs K10's int8 TMA + wgmma mainloop (wgmma_tiles.cuh) with
+// SegmaxTileEpi<int, true>, whose keys are the int32 sum converted to
+// float32 and times the row's scale, bit for bit this first kernel's
+// (pv_segmax_scan_i8_wgmma). Other widths keep this first kernel, which
+// feeds the tensor cores from unpipelined shared-memory tiles (tiles.cuh).
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
@@ -424,7 +440,7 @@ extern "C" int pv_segmax_scan_wgmma(const void* q, const void* v,
   if (cap % SEG) return (int)cudaErrorInvalidValue;
   const SegmaxTileEpi<float> epi{static_cast<const uint8_t*>(mask),
                                  static_cast<int*>(keys),
-                                 (long)(2 * (cap / SEG))};
+                                 (long)(2 * (cap / SEG)), nullptr};
   return wg::launch_tiles<wg::Bf16>(q, v, epi, Q, cap, dim,
                                     (cudaStream_t)stream);
 }
@@ -445,6 +461,23 @@ extern "C" int pv_segmax_scan_i8(const void* q, const void* v,
       static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
       static_cast<int*>(keys), Q, (long)cap, dim, q_tiles);
   return (int)cudaGetLastError();
+}
+
+// K5 on the int8 TMA + wgmma mainloop: pv_segmax_scan_i8's contract, for
+// dim % 16 == 0 and 16-byte aligned q and v. Returns 0, a cudaError_t, or
+// minus the CUresult of a refused tensor-map encode.
+extern "C" int pv_segmax_scan_i8_wgmma(const void* q, const void* v,
+                                       const void* vscale, const void* mask,
+                                       void* keys, int Q, long long cap,
+                                       int dim, void* stream) {
+  using namespace pv;
+  if (cap % SEG) return (int)cudaErrorInvalidValue;
+  const SegmaxTileEpi<int, true> epi{static_cast<const uint8_t*>(mask),
+                                     static_cast<int*>(keys),
+                                     (long)(2 * (cap / SEG)),
+                                     static_cast<const float*>(vscale)};
+  return wg::launch_tiles<wg::Int8>(q, v, epi, Q, cap, dim,
+                                    (cudaStream_t)stream);
 }
 
 // K10. q (Q, dim) folded int8, v (cap, dim) column-scaled int8 with
@@ -474,7 +507,7 @@ extern "C" int pv_segmax_scan_i8c_wgmma(const void* q, const void* v,
   if (cap % SEG) return (int)cudaErrorInvalidValue;
   const SegmaxTileEpi<int> epi{static_cast<const uint8_t*>(mask),
                                static_cast<int*>(keys),
-                               (long)(2 * (cap / SEG))};
+                               (long)(2 * (cap / SEG)), nullptr};
   return wg::launch_tiles<wg::Int8>(q, v, epi, Q, cap, dim,
                                     (cudaStream_t)stream);
 }

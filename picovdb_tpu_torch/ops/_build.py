@@ -40,8 +40,10 @@ _SIGNATURES = {
     # TMA + wgmma mainloop)
     "pv_segmax_scan": [_P, _P, _P, _P, _I, _L, _I, _P],
     "pv_segmax_scan_wgmma": [_P, _P, _P, _P, _I, _L, _I, _P],
-    # q, v, vscale, mask, keys, Q, cap, dim, stream
+    # q, v, vscale, mask, keys, Q, cap, dim, stream (K5: the mma.sync tile,
+    # and the int8 TMA + wgmma mainloop)
     "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
+    "pv_segmax_scan_i8_wgmma": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     # q, v, mask, keys, Q, cap, dim, stream (K10: the mma.sync tile, and
     # the int8 TMA + wgmma mainloop)
     "pv_segmax_scan_i8c": [_P, _P, _P, _P, _I, _L, _I, _P],
@@ -66,6 +68,10 @@ _SIGNATURES = {
     # (K6's tensor-core scan: any Q, k <= 128, dim % 128 == 0; served at
     # Q > scan.I4_SWEEP_Q_MAX)
     "pv_scan_topk_i4_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+    # kind (0 f32, 1 bf16), query planes, v, mask, partial, vals, idx, Q,
+    # cap, dim, k, stream (K4's tensor-core scan: k <= 128, rows of whole
+    # 16 bytes; served at Q >= scan.TOPK_WGMMA_Q_MIN)
+    "pv_scan_topk_wgmma": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
     # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
     "pv_ivf_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,

@@ -66,6 +66,7 @@ from .scan import (
     rescore_exact,
     rescore_exact_i4r,
     rescore_exact_i8r,
+    split_tf32,
     unpack_i4,
 )
 
@@ -432,14 +433,6 @@ def ivf_segmax_ready(q: torch.Tensor, postings: torch.Tensor) -> bool:
     kernel, `pv_ivf_segmax` (csrc/segmax.cu)."""
     return ((q.shape[1] * q.element_size()) % 16 == 0
             and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
-
-
-def split_tf32(q: torch.Tensor):
-    """float32 -> (hi, lo): hi = q with the low 13 mantissa bits cleared
-    (exact in TF32), lo = q - hi (exact in float32). The tensor-core
-    segment scan's 3xTF32 product is hi.hi + hi.lo + lo.hi."""
-    hi = (q.view(torch.int32) & -8192).view(torch.float32)
-    return hi, q - hi
 
 
 def ivf_segmax_scan(q, postings, mask, hot, n_hot, per_seg: int,

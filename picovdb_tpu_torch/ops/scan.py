@@ -13,7 +13,10 @@ kernels those paths run:
                         (Q <= 16, k <= 384: csrc/sweep_topk.cu,
                         see `i8_sweep_ready`)
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
+                        (k <= 128: csrc/scan_topk_wgmma.cu,
+                        see `topk_wgmma_ready`)
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
+                        (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`)
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
                         (Q <= 4: csrc/sweep_topk.cu, see `i4_sweep_ready`;
                         Q > 4: csrc/scan_i4_wgmma.cu, `i4_wgmma_ready`)
@@ -60,8 +63,10 @@ SEG = 128  # rows per segmax segment
 # the "_wgmma" keys count the TMA + wgmma mainloop alone (see `wgmma_ready`,
 # `wgmma_i8_ready`): "dot_rowmax_wgmma" P1-bf16's, "dot_rowmax_i8_wgmma"
 # P1-int8's, "segmax_i8c_wgmma" K10's ("segmax_i8c" counts every K10
-# launch). "scan_topk_i8c" counts every K9 launch, "scan_topk_i8c_sweep"
-# those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
+# launch), "segmax_i8_wgmma" K5's ("segmax_i8" every K5 launch).
+# "scan_topk" counts every K4 launch, "scan_topk_wgmma" those of its
+# tensor-core scan (`topk_wgmma_ready`). "scan_topk_i8c" counts every K9
+# launch, "scan_topk_i8c_sweep" those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
 # K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
 # `ivf_sweep_ready`); "scan_topk_i4" every K6 launch, "scan_topk_i4_sweep"
 # those of the sweep's int4 kind (`i4_sweep_ready`), "scan_topk_i4_wgmma"
@@ -70,7 +75,9 @@ SEG = 128  # rows per segmax segment
 # (`i8_sweep_ready`); "ivf_segmax" every K8 launch, "ivf_segmax_wgmma"
 # those of its tensor-core segment scan (ops/ivf.py::`ivf_segmax_ready`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "topk_keys": 0, "scan_topk": 0,
+            "scan_topk_wgmma": 0,
             "scan_topk_i8": 0, "scan_topk_i8_sweep": 0, "segmax_i8": 0,
+            "segmax_i8_wgmma": 0,
             "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
             "scan_topk_i4_wgmma": 0,
             "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
@@ -365,11 +372,10 @@ def wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
 
 
 def wgmma_i8_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
-    """Whether K10 and P1-int8 run the mainloop's int8 instantiation on
+    """Whether K5, K10 and P1-int8 run the mainloop's int8 instantiation on
     these contiguous int8 operands: rows of int8 are a multiple of 16 bytes
     at dim % 16 == 0, and both bases 16-byte aligned. Otherwise they run
-    the mma.sync tile (csrc/tiles.cuh `score_tile_i8`, which K5 and K8
-    still use everywhere)."""
+    the mma.sync tile (csrc/tiles.cuh `score_tile_i8`)."""
     return _tma_ready(queries, vectors, 16)
 
 
@@ -461,12 +467,24 @@ def segmax_scan_i8(q_i8: torch.Tensor, v_i8: torch.Tensor,
     _require(v_i8.is_contiguous() and mask.is_contiguous()
              and vscale.is_contiguous(),
              "segmax_scan_i8: vectors, scales and mask must be contiguous")
+    wgmma = wgmma_i8_ready(q, v_i8)
+    keys = _segmax_i8_launch(q, v_i8, vscale, mask, wgmma)
+    _count("segmax_i8", num_q)
+    LAUNCHES["segmax_i8_wgmma"] += wgmma
+    return keys
+
+
+def _segmax_i8_launch(q, v_i8, vscale, mask, wgmma: bool) -> torch.Tensor:
+    """K5's launch on checked CUDA operands, uncounted: the int8 TMA +
+    wgmma mainloop (`wgmma`) or the mma.sync tile."""
+    num_q, dim = q.shape
+    cap = v_i8.shape[0]
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
                        device=q.device)
-    _launch(q, "segmax_scan_i8", "pv_segmax_scan_i8", q.data_ptr(),
-            v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
+    _launch(q, "segmax_scan_i8",
+            "pv_segmax_scan_i8_wgmma" if wgmma else "pv_segmax_scan_i8",
+            q.data_ptr(), v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
             keys.data_ptr(), num_q, cap, dim)
-    _count("segmax_i8", num_q)
     return keys
 
 
@@ -607,7 +625,8 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
              f"{name}: vectors and mask must be contiguous")
     q = queries.contiguous()
     # the ready rules are the only switch between kernels: the one-query
-    # sweep, else (int4) the tensor-core scan, else the template
+    # sweep, else (int4, f32 / bf16 rows) the tensor-core scan, else the
+    # template
     if i8c and sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, None, mask, k, name)
         LAUNCHES["scan_topk_i8c_sweep"] += 1
@@ -620,6 +639,9 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     elif int4 and i4_wgmma_ready(q, vectors, k):
         vals, idx = _i4_wgmma_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i4_wgmma"] += 1
+    elif kind in (_KIND_F32, _KIND_BF16) and topk_wgmma_ready(q, vectors, k):
+        vals, idx = _topk_wgmma_launch(q, vectors, mask, k, name)
+        LAUNCHES["scan_topk_wgmma"] += 1
     else:
         vals, idx = _template_launch(q, vectors, vscale, mask, k, kind, name)
     _count(name, num_q, k)
@@ -693,6 +715,89 @@ def _i4_wgmma_launch(q, v_i4, vscale, mask, k: int,
             partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
             dim, k)
     return vals, idx
+
+
+def _topk_wgmma_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
+    """K4's tensor-core scan (csrc/scan_topk_wgmma.cu) on checked CUDA
+    operands, uncounted: the float32 queries split once into the planes
+    the rows' kind multiplies (`split_tf32` / `split_bf16`), CTAs over
+    `topk_wgmma_partition`'s (query tile, segment range) pairs, then the
+    merge."""
+    num_q, dim = q.shape
+    cap = vectors.shape[0]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    _, ranges = topk_wgmma_partition(num_q, cap, sms)
+    if vectors.dtype == torch.float32:
+        kind, planes = _KIND_F32, torch.stack(split_tf32(q))
+    else:
+        kind, planes = _KIND_BF16, torch.stack(split_bf16(q))
+    partial = torch.empty((num_q * ranges * k,), dtype=torch.int64,
+                          device=q.device)
+    vals, idx = _outputs(num_q, k, q.device)
+    _launch(q, name, "pv_scan_topk_wgmma", kind, planes.data_ptr(),
+            vectors.data_ptr(), mask.data_ptr(), partial.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k)
+    return vals, idx
+
+
+def split_tf32(q: torch.Tensor):
+    """float32 -> (hi, lo): hi = q with the low 13 mantissa bits cleared
+    (exact in TF32), lo = q - hi (exact in float32). K4's and K8's 3xTF32
+    product is hi.hi + hi.lo + lo.hi."""
+    hi = (q.view(torch.int32) & -8192).view(torch.float32)
+    return hi, q - hi
+
+
+def split_bf16(q: torch.Tensor):
+    """float32 -> three bf16 planes q1 = bf16(q), q2 = bf16(q - q1), q3 =
+    bf16(q - q1 - q2), whose sum is q exactly for normal values (8 + 8 + 8
+    bits of its 24-bit significand; each residual is exact in float32). K4
+    multiplies bf16 rows by each plane, products exact in float32, so the
+    score keeps the float32 query."""
+    q1 = q.to(torch.bfloat16)
+    r = q - q1.float()
+    q2 = r.to(torch.bfloat16)
+    return q1, q2, (r - q2.float()).to(torch.bfloat16)
+
+
+# K4's tensor-core scan (csrc/scan_topk_wgmma.cu): a CTA holds 64 queries
+# and walks a contiguous range of 128-row segments
+TOPK_WGMMA_QTILE = 64
+TOPK_WGMMA_K_MAX = 128
+# K4's crossover: from this many queries on the tensor-core scan beats the
+# template. chip_smoke.py times both at Q = 1 ... 256, k_sel 14 and 36, on
+# phase 3's 1M x 1024 bf16 mirror and phase 7's 2M x 1024 float32 rows:
+# on an H100 80GB HBM3 at 700 W the scan wins at every Q (1M bf16, Q = 1:
+# 1.85 against 4.07 ms; 2M f32, Q = 1: 4.01 against 11.33), so it takes
+# every batch.
+TOPK_WGMMA_Q_MIN = 1
+
+
+def topk_wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor,
+                     k: int) -> bool:
+    """Whether K4 runs the tensor-core scan on these contiguous operands:
+    float32 or bf16 rows (float32 queries), k <= 128, rows of whole 16
+    bytes (float32 dim % 4 == 0, bf16 dim % 8 == 0), a 16-byte aligned
+    base of the rows (the query planes are the launcher's own), and Q >=
+    TOPK_WGMMA_Q_MIN. Other shapes keep the template, `pv_scan_topk`
+    kinds 0 and 1."""
+    num_q, dim = queries.shape
+    words = {torch.float32: 4, torch.bfloat16: 8}.get(vectors.dtype)
+    return (words is not None and queries.dtype == torch.float32
+            and k <= TOPK_WGMMA_K_MAX and dim % words == 0
+            and vectors.data_ptr() % 16 == 0 and num_q >= TOPK_WGMMA_Q_MIN)
+
+
+def topk_wgmma_partition(num_q: int, cap: int, sms: int):
+    """The tensor-core scan's grid on a card of `sms` SMs: (q_tiles,
+    ranges). CTA c takes query tile c % q_tiles and segment range c //
+    q_tiles of `ranges` equal shares of the ceil(cap / 128) segments
+    (range r: segments [r S // ranges, (r + 1) S // ranges)), so the
+    q_tiles CTAs of one range walk it together and read each segment from
+    device memory about once. Mirrors the kernel's own computation."""
+    q_tiles = -(-num_q // TOPK_WGMMA_QTILE)
+    segs = max(1, -(-cap // SEG))
+    return q_tiles, max(1, min(segs, sms // q_tiles))
 
 
 # The one-query sweep of K9 and K7 (csrc/sweep_topk.cu): its shapes and

@@ -941,3 +941,216 @@ def test_ivf_segmax_wgmma_repeated_launches_agree(dev):
     first = ivf.ivf_segmax_scan(q, v, mask, hot, n, 8)
     for _ in range(9):
         assert torch.equal(ivf.ivf_segmax_scan(q, v, mask, hot, n, 8), first)
+
+
+# --------------------------------------------------------------------------
+# K4's tensor-core scan and K5 on the int8 mainloop
+# --------------------------------------------------------------------------
+
+
+def _k4_case(dev, kind, cap, dim, nq, seed, negative=False):
+    """Unit rows (float32 or bf16) and queries, ~20 % masked; `negative`
+    makes every score of segment 1 negative (its rows the queries'
+    negated mean)."""
+    q, v, mask = _data(dev, cap=cap, dim=dim, nq=nq, seed=seed)
+    if negative:
+        v[128:256] = -torch.nn.functional.normalize(
+            q.mean(0, keepdim=True) + 0.01 * v[128:256], dim=1)
+    return q, (v.to(torch.bfloat16) if kind == "bf16" else v), mask
+
+
+def _k4_agrees(got, ref, mask, k):
+    """K4's (vals, idx) against the plain version's top-(k + 1): the same
+    -inf slots, scores within 1e-5, the same id set wherever the k-th /
+    (k + 1)-th gap exceeds 1e-4, only masked-in rows."""
+    vals, idx = got
+    fin = torch.isfinite(vals)
+    assert torch.equal(fin, torch.isfinite(ref[0][:, :k]))
+    if bool(fin.any()):
+        err = float((vals[fin] - ref[0][:, :k][fin]).abs().max())
+        assert err <= 1e-5, err
+    assert bool(mask[idx[fin].long()].all())
+    gap = (ref[0][:, k - 1] - ref[0][:, k]).cpu()
+    for i in range(vals.shape[0]):
+        if not gap[i] > 1e-4:
+            continue
+        assert set(idx[i].tolist()) == set(ref[1][i, :k].tolist()), i
+
+
+def _k4_launch(q, v, mask, k):
+    before = dict(scan.LAUNCHES)
+    got = scan.fused_topk(q, v, mask, k)
+    tc = scan.LAUNCHES["scan_topk_wgmma"] - before["scan_topk_wgmma"]
+    assert scan.LAUNCHES["scan_topk"] == before["scan_topk"] + 1
+    return got, tc
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("cap,dim", [(8320, 1024), (4224, 96)])
+@pytest.mark.parametrize("k", [1, 14, 36, 128])
+@pytest.mark.parametrize("nq", [1, 5, 64, 65, 130])
+def test_fused_topk_wgmma(dev, kind, cap, dim, k, nq):
+    """K4's tensor-core scan against the plain version: Q off the 64-query
+    tile, cap % 256 == 128, k at each ring size's edge, and two segments
+    masked out entirely (skipped: no copy, no product)."""
+    q, v, mask = _k4_case(dev, kind, cap, dim, nq, seed=nq + k)
+    mask[:128] = False
+    mask[1024:1152] = False
+    assert scan.topk_wgmma_ready(q, v, k) == (nq >= scan.TOPK_WGMMA_Q_MIN)
+    got, tc = _k4_launch(q, v, mask, k)
+    assert tc == (nq >= scan.TOPK_WGMMA_Q_MIN)
+    ref = scan.scan_topk_plain(q, v, None, mask, k + 1)
+    torch.cuda.synchronize()
+    _k4_agrees(got, ref, mask, k)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_fused_topk_wgmma_at_the_crossover(dev, kind):
+    """The ready rule's Q limit: from TOPK_WGMMA_Q_MIN queries on the
+    tensor-core scan, below it the template; both agree with the plain
+    version, and so does the tensor-core scan launched (uncounted) below
+    the limit."""
+    lim = scan.TOPK_WGMMA_Q_MIN
+    for nq in sorted({max(1, lim - 1), lim}):
+        q, v, mask = _k4_case(dev, kind, 8320, 1024, nq, seed=nq)
+        got, tc = _k4_launch(q, v, mask, 14)
+        assert tc == (nq >= lim)
+        ref = scan.scan_topk_plain(q, v, None, mask, 15)
+        direct = scan._topk_wgmma_launch(q, v, mask, 14)
+        torch.cuda.synchronize()
+        _k4_agrees(got, ref, mask, 14)
+        _k4_agrees(direct, ref, mask, 14)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("k", [1, 14, 128])
+def test_fused_topk_wgmma_sparse_masks(dev, kind, k):
+    """Masks that leave one live row, a few rows in a few segments (the id
+    filter's case: most segments skipped), and a segment whose every score
+    is negative beside empty ones: the slots past the live rows come out
+    -inf / 0."""
+    q, v, mask = _k4_case(dev, kind, 8320, 1024, 70, seed=k, negative=True)
+    cases = {"one": [77], "few": [5, 900, 901, 5000, 8319],
+             "negative": list(range(128, 256))}
+    for name, rows in cases.items():
+        keep = torch.zeros_like(mask)
+        keep[rows] = True
+        got, tc = _k4_launch(q, v, keep, k)
+        assert tc == 1
+        ref = scan.scan_topk_plain(q, v, None, keep, k + 1)
+        torch.cuda.synchronize()
+        _k4_agrees(got, ref, keep, k)
+        live = min(k, len(rows))
+        assert bool(torch.isfinite(got[0][:, :live]).all()), name
+        assert bool(torch.isneginf(got[0][:, live:]).all()), name
+        assert bool((got[1][:, live:] == 0).all()), name
+        if name == "negative":
+            assert bool((got[0][:, :live] < 0).all())
+
+
+def test_fused_topk_wgmma_repeated_launches_agree(dev):
+    """Ten launches of the float32 kind at Q = 256 give the same result
+    (the split's proxy fence, the buffers' atomics)."""
+    q, v, mask = _k4_case(dev, "f32", 8320, 1024, 256, seed=5)
+    first = scan.fused_topk(q, v, mask, 36)
+    for _ in range(9):
+        got = scan.fused_topk(q, v, mask, 36)
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+
+
+def test_fused_topk_wgmma_ready_edges(dev):
+    """k 129, a row stride off 16 bytes and a misaligned view take the
+    template; all agree with the plain version."""
+    q, v, mask = _k4_case(dev, "f32", 4224, 96, 64, seed=2)
+    assert scan.topk_wgmma_ready(q, v, 128)
+    assert not scan.topk_wgmma_ready(q, v, 129)
+    flat = torch.empty(v.numel() + 4, device=dev)
+    vm = flat[1:1 + v.numel()].view(v.shape)
+    vm.copy_(v)
+    assert not scan.topk_wgmma_ready(q, vm, 14)
+    q2, v2 = q[:, :94].contiguous(), v[:, :94].contiguous()
+    assert not scan.topk_wgmma_ready(q2, v2, 14)
+    for qq, vv, k in ((q, v, 129), (q, vm, 14), (q2, v2, 14)):
+        got, tc = _k4_launch(qq, vv, mask, k)
+        assert tc == 0
+        ref = scan.scan_topk_plain(qq, vv, None, mask, k + 1)
+        torch.cuda.synchronize()
+        _k4_agrees(got, ref, mask, k)
+
+
+@pytest.mark.parametrize("dim", [1024, 96])
+@pytest.mark.parametrize("nq", [17, 200, 2048])
+def test_segmax_scan_i8_wgmma(dev, dim, nq):
+    """K5 on the int8 mainloop: partial 128-query tiles (17, 200) and the
+    serving chunk (2048), cap % 256 == 128, a fully masked segment; keys
+    bit for bit the plain version's, and the mma.sync tile's (launched
+    uncounted on the same inputs)."""
+    q, v, mask = _data(dev, cap=8320, dim=dim, nq=nq, seed=nq)
+    mask[256:384] = False
+    q8, _ = scan.quantize_rows_i8(q)
+    v8, vs = scan.quantize_rows_i8(v)
+    assert scan.wgmma_i8_ready(q8, v8)
+    before = dict(scan.LAUNCHES)
+    keys = scan.segmax_scan_i8(q8, v8, vs, mask)
+    assert scan.LAUNCHES["segmax_i8_wgmma"] == before["segmax_i8_wgmma"] + 1
+    assert scan.LAUNCHES["segmax_i8"] == before["segmax_i8"] + 1
+    ref = scan.segmax_scan_i8_plain(q8, v8, vs, mask)
+    tile = scan._segmax_i8_launch(q8, v8, vs, mask, False)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref)
+    assert torch.equal(tile, ref)
+    assert bool((keys[:, 4:6] == scan.KEY_MIN).all())
+
+
+def test_segmax_scan_i8_all_negative(dev):
+    """Every scaled score negative, at cap % 256 == 128 and Q = 17: the
+    zero-filled rows past cap and past Q never enter a key. A view 1 byte
+    off 16-byte alignment takes the mma.sync tile; both bit for bit the
+    plain version."""
+    q, v, mask = _data(dev, cap=4224, dim=768, nq=17)
+    q8 = -scan.quantize_rows_i8(q)[0].abs()
+    v8, vs = scan.quantize_rows_i8(v)
+    v8 = v8.abs()
+    v8[:, 0] = 1
+    q8[:, 0] = -127
+    ref = scan.segmax_scan_i8_plain(q8, v8, vs, mask)
+    live = ref != scan.KEY_MIN
+    assert bool((ref[live] < 0).all())
+    before = scan.LAUNCHES["segmax_i8_wgmma"]
+    keys = scan.segmax_scan_i8(q8, v8, vs, mask)
+    assert scan.LAUNCHES["segmax_i8_wgmma"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref)
+    flat = torch.empty(v8.numel() + 16, dtype=torch.int8, device=dev)
+    vm = flat[1:1 + v8.numel()].view(v8.shape)
+    vm.copy_(v8)
+    assert not scan.wgmma_i8_ready(q8, vm)
+    keys = scan.segmax_scan_i8(q8, vm, vs, mask)
+    assert scan.LAUNCHES["segmax_i8_wgmma"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref)
+
+
+def test_k4_k5_on_second_card(dev):
+    """K4's tensor-core scan and K5's mainloop on tensors of cuda:1 while
+    the current device is 0: launched on their own card, equal to the same
+    call on cuda:0. Skips on a machine with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    q, v, mask = _k4_case(dev, "bf16", 8320, 1024, 64, seed=9)
+    q8, _ = scan.quantize_rows_i8(q)
+    v8, vs = scan.quantize_rows_i8(v.float())
+    out = {}
+    for name in ("cuda:0", "cuda:1"):
+        d = torch.device(name)
+        before = dict(scan.LAUNCHES)
+        got = scan.fused_topk(q.to(d), v.to(d), mask.to(d), 36)
+        keys = scan.segmax_scan_i8(q8.to(d), v8.to(d), vs.to(d), mask.to(d))
+        assert torch.cuda.current_device() == 0
+        assert scan.LAUNCHES["scan_topk_wgmma"] == before["scan_topk_wgmma"] + 1
+        assert scan.LAUNCHES["segmax_i8_wgmma"] == before["segmax_i8_wgmma"] + 1
+        torch.cuda.synchronize(d)
+        out[name] = (got[0].cpu(), got[1].cpu(), keys.cpu())
+    for a, b in zip(out["cuda:0"], out["cuda:1"]):
+        assert torch.equal(a, b)

@@ -28,6 +28,9 @@ from picovdb_tpu_torch.ops import _build
 from picovdb_tpu_torch.ops import ivf as tivf
 from picovdb_tpu_torch.ops import scan as tscan
 from torch_port_setup import cap_torch_threads
+from torch_port_setup import clustered_unit as _clustered
+from torch_port_setup import tf32_hi as _hi
+from torch_port_setup import toward_zero as _toward_zero
 
 cap_torch_threads()
 
@@ -40,19 +43,6 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i8c": torch.int8}
 # --------------------------------------------------------------------------
 # 3xTF32
 # --------------------------------------------------------------------------
-
-
-def _hi(x):
-    """x with its low 13 mantissa bits cleared: the TF32 part of float32."""
-    return (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def _clustered(rng, n, dim, centres=16, sigma=0.03):
-    c = rng.standard_normal((centres, dim)).astype(np.float32)
-    c /= np.linalg.norm(c, axis=1, keepdims=True)
-    x = c[rng.integers(0, centres, n)] + sigma * rng.standard_normal(
-        (n, dim)).astype(np.float32)
-    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
 def _key_values(s):
@@ -80,14 +70,6 @@ def test_3xtf32_keys_within_limit_where_tf32_misses():
     err1 = np.abs(_key_values(qh @ vh.T) - exact).max()
     assert err1 > TOL_SCORE, err1
     assert exact.max() > 0.9  # clustered: the top scores sit near 1
-
-
-def _toward_zero(x):
-    """float64 -> float32 rounded toward zero."""
-    f = x.astype(np.float32)
-    over = np.abs(f.astype(np.float64)) > np.abs(x)
-    f[over] = np.nextafter(f[over], np.float32(0))
-    return f
 
 
 def test_stage_accumulators_hold_the_limit_under_truncating_sums():

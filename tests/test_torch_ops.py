@@ -248,6 +248,27 @@ def test_mixed_fused_topk_matches_jax(rng, k, filt, zero):
     assert_same_topk(jv, ji, tv, ti, _oracle_sorted(q, v, mask), k)
 
 
+@pytest.mark.parametrize("k,n_ids", [(10, 12), (10, 40), (32, 200)])
+def test_mixed_fused_topk_sparse_filter_matches_jax(rng, k, n_ids):
+    """An `ids`-style filter of a few rows: most 128-row segments hold no
+    live row (the segments K4's tensor-core scan skips), and with n_ids
+    below k + guard the selection runs out of live rows (-inf slots)."""
+    v = _corpus(rng, CAP, DIM)
+    q = rng.normal(size=(8, DIM)).astype(np.float32)
+    # the ids fall in 12 of the 64 segments
+    segs = rng.choice(CAP // tscan.SEG, 12, replace=False)
+    rows = (segs[:, None] * tscan.SEG + np.arange(tscan.SEG)).ravel()
+    mask = np.zeros(CAP, bool)
+    mask[rng.choice(rows, n_ids, replace=False)] = True
+    assert mask.reshape(-1, tscan.SEG).any(axis=1).sum() <= 12
+    lp_j = jnp.asarray(v).astype(jnp.bfloat16)
+    jv, ji = jps.make_mixed_fused_topk(k, interpret=True)(q, lp_j, v, mask)
+    tv, ti = tscan.make_mixed_fused_topk(k)(
+        _t(q), _t(v).to(torch.bfloat16), _t(v), _t(mask))
+    assert_same_topk(jv, ji, tv, ti, _oracle_sorted(q, v, mask), k)
+    assert mask[ti.numpy()[np.isfinite(tv.numpy())]].all()
+
+
 @pytest.mark.parametrize("k,filt,zero", LADDER_CASES)
 def test_fused_topk_f32_matches_jax(rng, k, filt, zero):
     q, v, mask = _ladder_case(rng, filt, zero)

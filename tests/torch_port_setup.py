@@ -15,6 +15,7 @@ another device, and raise where there is none; the CPU tests name it
 
 import types
 
+import numpy as np
 import torch
 
 TORCH_THREADS = 2  # per worker process: leaves the JAX rendezvous room
@@ -30,3 +31,31 @@ def cpu_kw(pkg) -> dict:
     host already."""
     mod = pkg.__name__ if isinstance(pkg, types.ModuleType) else pkg.__module__
     return {"device": "cpu"} if mod.startswith("picovdb_tpu_torch") else {}
+
+
+# numpy stand-ins for the tensor cores' float32 arithmetic, shared by the
+# emulations of K8's and K4's tensor-core scans
+
+
+def tf32_hi(x):
+    """x (float32) with its low 13 mantissa bits cleared: the TF32 part."""
+    return (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def toward_zero(x):
+    """float64 -> float32 rounded toward zero (how the tensor cores add a
+    wgmma's products into a float32 accumulator)."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def clustered_unit(rng, n, dim, centres=16, sigma=0.03):
+    """n unit rows around `centres` random unit centres: neighbours score
+    near 1, where a float32 key's ulp is largest."""
+    c = rng.standard_normal((centres, dim)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    x = c[rng.integers(0, centres, n)] + sigma * rng.standard_normal(
+        (n, dim)).astype(np.float32)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
