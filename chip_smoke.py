@@ -7,9 +7,10 @@ Builds the hand-written kernels from `picovdb_tpu_torch/csrc`, checks each
 one against its plain PyTorch version on the card, then drives the serving
 paths through the public `PicoVectorDB` API and checks what comes back:
 a 1M x 1024 float32 store (phase 3), a 131,072 x 1020 float32 store whose
-rows TMA cannot read, served by K1's wmma tile (phase 3b), a 1M x 1024
-int8 store with the
-host-f64 rescore and a quantized checkpoint (phase 4), a device-born
+rows TMA cannot read, served by K1's mainloop fed by cp.async, and a
+131,072 x 1019 one served by K1's wmma tile (phase 3b), a 1M x 1024 int8
+store with the host-f64 rescore and a quantized checkpoint (phase 4, its
+Q = 64 batches on K3's tensor-core scan), a device-born
 16M x 1024 int4 store (phase 5, an 8 GB packed plane), a 262,144 x 1024
 bfloat16 store (phase 6), the IVF tier's classic layout over a clustered
 2M x 1024 float32 store under index="auto" (phase 7), its int8-only
@@ -21,8 +22,13 @@ Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
 (K9, K7, K6, K3, K4: the template; K10, K5: the mma.sync tile; K8: its
-first kernel); phases 3 and 7 also time K4's tensor-core scan and its
-template at Q = 1 ... 256 (the crossover behind its ready rule). Every
+first kernel; K1 at dim 1020: the wmma tile); phases 3 and 7 also time
+K4's tensor-core scan and its template at Q = 1 ... 256, and phase 4 K3's
+sweep and tensor-core scan at Q = 1 ... 64 (the crossovers behind their
+ready rules). `python3 chip_smoke.py --q64-latency` times only the int8
+store's Q = 64 host-rescored batches through the public API, on a store
+of its own, so that a checkout without this script's other phases can be
+timed beside this one. Every
 phase prints its lines; any failure raises and the script exits
 non-zero without a result line. It imports neither JAX nor picovdb_tpu,
 and refuses to run without a card.
@@ -35,6 +41,7 @@ library call, launches), and last `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -49,7 +56,8 @@ SEED = 1234
 DIM = 1024
 PHASE2_CAP = 131_072
 MAIN_N = 1_000_000  # float32 store, phase 3
-WMMA_N = 131_072  # float32 store at dim 1020, phase 3b (K1's wmma tile)
+WMMA_N = 131_072  # float32 stores at dim 1020 (K1's cp.async producer) and
+ODD_DIM = 1019  # 1019 (K1's wmma tile), phase 3b
 I8_N = 1_000_000  # int8 store, phase 4
 I4_N = 1 << 24  # int4 store, phase 5: 16,777,216 rows, 8 GB packed
 I4_CHUNK = 262_144  # rows generated and quantized on the card at a time
@@ -77,11 +85,23 @@ K6_SHAPES = (1, 2, 4, 5, 8, 16, 17, 64, 256, 2048)
 K6_KERNELS = {"sweep": "scan_topk_i4_sweep",
               "tensor-core scan": "scan_topk_i4_wgmma"}
 # K3's kernels besides its template, by their launch counters
-K3_KERNELS = {"sweep": "scan_topk_i8_sweep"}
+K3_KERNELS = {"sweep": "scan_topk_i8_sweep",
+              "tensor-core scan": "scan_topk_i8_wgmma"}
 # The (Q, k_sel) shapes phase 3 holds and times K3 at on the store's int8
 # mirror: its Q = 1 route (k = 10 + 4), the small batches around the
 # sweep's limit, and the host-rescore band (k + 128 + 4)
 K3_SHAPES = tuple((nq, k) for k in (14, 142) for nq in (1, 2, 4, 8, 16))
+# The (Q, k_sel) shapes phase 4 holds and times K3 at on the int8 store's
+# own plane: the host-rescore band's launches (Q = 1 and the Q = 64
+# batches at k_sel 142) and Q = 17 / 128 around them, the small-batch band
+# (k_sel 14) at Q = 64 and a 2048-query batch, then the crossover between
+# the sweep and the tensor-core scan (Q = 1 ... 64, k_sel 14 and 142)
+K3_PHASE4 = ((1, 142), (17, 142), (64, 142), (128, 142), (64, 14),
+             (2048, 14))
+K3_CROSSOVER = tuple((nq, k) for k in (14, 142)
+                     for nq in (1, 2, 4, 8, 16, 17, 32, 64))
+# A kernel slower than this (ms) on its first timed run is timed once
+SLOW_MS = 100.0
 # The (Q, k_sel) shapes phases 3 and 7 time K4's tensor-core scan and its
 # template at, on the 1M bf16 mirror and the 2M float32 rows: the batch
 # routes' guard bands at k = 10 and 32, Q from 1 to the exact route's 256
@@ -90,10 +110,12 @@ K4_SHAPES = tuple((nq, k) for k in (14, 36)
 
 KERNELS = {
     # name: (launch-counter key, source, TPU kernel it replaces, the phase
-    # whose serving path must launch it). K1 is two kernels: the TMA +
-    # wgmma mainloop (csrc/wgmma_tiles.cuh) wherever dim % 8 == 0, and the
-    # wmma tile it keeps for other widths, which phase 3b's dim-1020 store
-    # drives ("segmax_wmma": K1 launches less the wgmma ones). P1 has a row
+    # whose serving path must launch it). K1 is three kernels: the TMA +
+    # wgmma mainloop (csrc/wgmma_tiles.cuh) wherever dim % 8 == 0, the same
+    # mainloop fed by cp.async at other even widths, which phase 3b's
+    # dim-1020 store drives, and the wmma tile it keeps for odd widths,
+    # which phase 3b's dim-1019 store drives ("segmax_wmma": K1 launches
+    # less the other two's). P1 has a row
     # per kind, both on the mainloop, and so does K10 (its int8
     # instantiation). K9's and K7's rows are their one-query sweep
     # (csrc/sweep_topk.cu), which serves every Q <= 16 call of phases 9 and
@@ -101,7 +123,9 @@ KERNELS = {
     # 5's Q = 1 calls, the tensor-core scan (csrc/scan_i4_wgmma.cu) its
     # 2048- and 256-query batches. K3's row is the sweep's row-scaled int8
     # kind, which serves phase 3's Q = 1 calls (and phase 4's host-rescore
-    # band). K8 has a row per postings kind, both on its tensor-core
+    # band at Q = 1), and its tensor-core scan's int8 kind
+    # (csrc/scan_topk_wgmma.cu), which serves phase 4's Q = 64 batches of
+    # the host-rescore band. K8 has a row per postings kind, both on its tensor-core
     # segment scan (csrc/ivf_segmax_wgmma.cu): float32 on phase 7's
     # 32-query chunks, int8 on phase 8's. K4's row is its tensor-core scan
     # (csrc/scan_topk_wgmma.cu), which serves phase 3's Q = 64 batches and
@@ -109,6 +133,9 @@ KERNELS = {
     # mainloop, which serves phase 4's chunks.
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
+    "segmax_scan_cpasync": ("segmax_cpasync",
+                            "picovdb_tpu_torch/csrc/segmax.cu",
+                            "picovdb_tpu/ops/pallas_scan.py:443", "3b"),
     "segmax_scan_wmma": ("segmax_wmma", "picovdb_tpu_torch/csrc/segmax.cu",
                          "picovdb_tpu/ops/pallas_scan.py:443", "3b"),
     "topk_packed_keys": ("topk_keys", "picovdb_tpu_torch/csrc/topk_keys.cu",
@@ -116,6 +143,9 @@ KERNELS = {
     "fused_topk_i8": ("scan_topk_i8_sweep",
                       "picovdb_tpu_torch/csrc/sweep_topk.cu",
                       "picovdb_tpu/ops/pallas_scan.py:865", 3),
+    "fused_topk_i8_wgmma": ("scan_topk_i8_wgmma",
+                            "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
+                            "picovdb_tpu/ops/pallas_scan.py:865", 4),
     "fused_topk": ("scan_topk_wgmma",
                    "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
                    "picovdb_tpu/ops/pallas_scan.py:226", 3),
@@ -351,6 +381,25 @@ def check_segmax_keys(torch, scan, keys, keys_p, qf, rows, k: int, what):
                        - key_values(torch, scan, tk_p)).abs().max())
 
 
+def k1_on_mirror(torch, scan, dev, qf, qb, what: str):
+    """K1 on a store's own bf16 mirror and mask (`dev`, a DeviceIndex) at
+    the bf16 queries `qb` (`qf` their float32 form), held by
+    `check_segmax_keys` to its plain version run over 131,072-row slices
+    (the keys are per 128-row segment). Returns the keys and the max
+    |dkey value|."""
+    keys = scan.segmax_scan(qb, dev.vectors_lp, dev.active)
+    step = 131_072
+    keys_p = torch.cat([
+        scan.segmax_scan_plain(qb, dev.vectors_lp[s:s + step],
+                               dev.active[s:s + step])
+        for s in range(0, dev.vectors_lp.shape[0], step)], 1)
+    torch.cuda.synchronize()
+    assert keys.shape == keys_p.shape, (keys.shape, keys_p.shape)
+    err, _ = check_segmax_keys(torch, scan, keys, keys_p, qf, dev.vectors,
+                               10, what)
+    return keys, err
+
+
 def k9_template_ms(torch, scan, q8, v8, mask, k: int) -> float:
     """K9's template (`pv_scan_topk` kind 4), which its one-query sweep
     replaced on these shapes, run on the same inputs: held to the plain
@@ -394,29 +443,47 @@ def k6_timed(torch, scan, args, ref, reps: int):
     return served, times, exact_err(torch, got[0], ref[0])
 
 
+def timed_ms(torch, run, reps: int) -> float:
+    """`cuda_ms` of `run`, or one run's time by CUDA events where that one
+    run (after a warm-up) takes over SLOW_MS."""
+    run()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    run()
+    b.record()
+    b.synchronize()
+    one = a.elapsed_time(b)
+    return one if one > SLOW_MS else cuda_ms(torch, run, reps)
+
+
 def k3_timed(torch, scan, args, reps: int):
     """K3 on `args` (int8 queries, int8 rows, row scales, mask, k_sel):
     the dispatch's result and each kernel that can take these operands,
     launched uncounted (the sweep's row-scaled int8 kind at Q <= 16, k <=
-    384; the template), held bit for bit to the plain version's result
-    (exact int32 sums, one conversion, one multiply, ties to the lower
-    row). Returns the kernel the dispatch chose and each kernel's time."""
+    384; the tensor-core scan's int8 kind at k <= 384, any Q; the
+    template), held bit for bit to the plain version's result (exact int32
+    sums, one conversion, one multiply, ties to the lower row; over
+    131,072-row slices, then the merge). Returns the kernel the dispatch
+    chose and each kernel's time (`timed_ms`)."""
     q8, k = args[0], args[4]
     before = dict(scan.LAUNCHES)
     got = scan.fused_topk_i8(*args)
     served = next((name for name, key in K3_KERNELS.items()
                    if scan.LAUNCHES[key] > before[key]), "template")
-    ref = scan.scan_topk_plain(*args)
+    ref = scan.scan_topk_plain(*args, chunk=131_072)
     runs = {}
     if q8.shape[0] <= scan.SWEEP_Q_MAX and k <= scan.I8_SWEEP_K_MAX:
         runs["sweep"] = lambda: scan._sweep_launch(*args, "fused_topk_i8")
+    if k <= scan.I8_WGMMA_K_MAX:
+        runs["tensor-core scan"] = lambda: scan._i8_wgmma_launch(*args)
     runs["template"] = lambda: scan._template_launch(*args, scan._KIND_I8,
                                                      "scan_topk_i8")
     for name, out in [("dispatch", got)] + [(n, r()) for n, r in runs.items()]:
         torch.cuda.synchronize()
         assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), \
             f"K3's {name} differs from the plain version at Q={args[0].shape[0]}"
-    return served, {name: cuda_ms(torch, run, reps) for name, run in runs.items()}
+    return served, {name: timed_ms(torch, run, reps)
+                    for name, run in runs.items()}
 
 
 def k3_table(torch, scan, queries, v8, vs, mask, shapes, reps: int = 5) -> str:
@@ -437,6 +504,47 @@ def k3_table(torch, scan, queries, v8, vs, mask, shapes, reps: int = 5) -> str:
             f"{name} {ms:.4f}" for name, ms in times.items())
             + f" ms, bound {bound:.4f}")
     return "; ".join(parts)
+
+
+def k3_launches_ok(scan, counts) -> bool:
+    """Whether a path's K3 launches at Q > I8_SWEEP_Q_MAX and k_sel <=
+    I8_WGMMA_K_MAX (its `launch_counts` shapes, "Q=.. k=..") went through
+    the tensor-core scan, and only those (the path's rows are of whole 16
+    bytes)."""
+    want = 0
+    for shape, n in counts["shapes"].get("scan_topk_i8", {}).items():
+        q, k = (int(part.split("=")[1]) for part in shape.split())
+        want += n if (q > scan.I8_SWEEP_Q_MAX
+                      and k <= scan.I8_WGMMA_K_MAX) else 0
+    return counts["scan_topk_i8_wgmma"] == want
+
+
+@contextlib.contextmanager
+def uncounted(scan):
+    """Launches made inside (timing a path's calls) are not the path's:
+    the launch counters are restored on the way out."""
+    launches = dict(scan.LAUNCHES)
+    shapes = {name: dict(per) for name, per in scan.LAUNCH_SHAPES.items()}
+    try:
+        yield
+    finally:
+        scan.LAUNCHES.update(launches)
+        scan.LAUNCH_SHAPES.clear()
+        scan.LAUNCH_SHAPES.update(shapes)
+
+
+def q64_latency(torch, db, q64, reps: int = 10):
+    """The int8 store's Q = 64 host-rescored batches through the public
+    API, by CUDA events around the call (median of `reps`): a
+    `query_columnar` of 64 host queries and a `query` of them under the
+    `{"tag": 3}` filter. Returns (columnar ms, filtered ms)."""
+    col = cuda_ms(torch, lambda: db.query_columnar(q64, top_k=10), reps)
+    dbg = db.last_query_debug()
+    assert dbg["strategy"] == "i8stor_fused_exact" and dbg["rescore"] == "host"
+    filt = cuda_ms(torch, lambda: db.query(q64, top_k=10, where={"tag": 3}),
+                   reps)
+    assert db.last_query_debug()["strategy"] == "i8stor_fused_exact"
+    return col, filt
 
 
 def k4_check(torch, got, ref, mask, k: int, what: str) -> float:
@@ -568,26 +676,47 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         f"{rec['segmax_scan']['plain_ms']:.4f} ms, bound "
         f"{rec['segmax_scan']['bound_ms']:.4f} ms)")
 
-    # K1's retained wmma tile, at a width TMA cannot read (dim 1020, rows
-    # of 2040 bytes): the same checks, and its own row in the record
-    d2 = dim - 4
-    q2, c2 = normalize_on_device(q[:, :d2]), normalize_on_device(corpus[:, :d2])
-    q2b, lp2 = q2.to(torch.bfloat16), c2.to(torch.bfloat16)
-    before = dict(scan.LAUNCHES)
-    keys = scan.segmax_scan(q2b, lp2, mask)
-    assert scan.LAUNCHES["segmax"] == before["segmax"] + 1
-    assert scan.LAUNCHES["segmax_wgmma"] == before["segmax_wgmma"], "dim 1020"
-    keys_p = scan.segmax_scan_plain(q2b, lp2, mask)
-    torch.cuda.synchronize()
-    err_w, _ = check_k1(keys, keys_p, q2, c2, "K1 (wmma, dim 1020)")
-    rec["segmax_scan_wmma"] = entry(
-        err_w, cuda_ms(torch, lambda: scan.segmax_scan(q2b, lp2, mask)),
-        cuda_ms(torch, lambda: scan.segmax_scan_plain(q2b, lp2, mask)),
-        nq * d2 * 2 + live * d2 * 2 + cap + slab, 2 * nq * live * d2, "bf16")
-    del keys, keys_p, q2, c2, q2b, lp2
-    log(f"phase 2: K1's wmma tile agrees at dim {d2} Q=2048 cap={cap} (max "
-        f"|dkey value| {err_w:.3g}; {rec['segmax_scan_wmma']['ms']:.4f} ms, "
-        f"plain {rec['segmax_scan_wmma']['plain_ms']:.4f} ms)")
+    # K1 at widths TMA cannot read: dim 1020 (rows of 2040 bytes) on the
+    # mainloop fed by cp.async (8-byte pieces), with the wmma tile it
+    # replaced there held to the same plain version and timed (uncounted),
+    # and dim 1019 (rows of 2038 bytes) on the wmma tile it keeps for odd
+    # widths: the same checks, and a row each in the record
+    k1w = {}
+    for d2, key, name in ((dim - 4, "segmax_cpasync", "segmax_scan_cpasync"),
+                          (ODD_DIM, None, "segmax_scan_wmma")):
+        q2 = normalize_on_device(q[:, :d2])
+        c2 = normalize_on_device(corpus[:, :d2])
+        q2b, lp2 = q2.to(torch.bfloat16), c2.to(torch.bfloat16)
+        before = dict(scan.LAUNCHES)
+        keys = scan.segmax_scan(q2b, lp2, mask)
+        assert scan.LAUNCHES["segmax"] == before["segmax"] + 1
+        assert scan.LAUNCHES["segmax_wgmma"] == before["segmax_wgmma"], d2
+        assert (scan.LAUNCHES["segmax_cpasync"] - before["segmax_cpasync"]
+                == (key is not None)), f"dim {d2}"
+        keys_p = scan.segmax_scan_plain(q2b, lp2, mask)
+        torch.cuda.synchronize()
+        err_w, _ = check_k1(keys, keys_p, q2, c2, f"K1 ({name}, dim {d2})")
+        rec[name] = entry(
+            err_w, cuda_ms(torch, lambda: scan.segmax_scan(q2b, lp2, mask)),
+            cuda_ms(torch, lambda: scan.segmax_scan_plain(q2b, lp2, mask)),
+            nq * d2 * 2 + live * d2 * 2 + cap + slab, 2 * nq * live * d2,
+            "bf16")
+        if key is not None:
+            keys = scan._segmax_launch(q2b, lp2, mask, "pv_segmax_scan")
+            torch.cuda.synchronize()
+            check_k1(keys, keys_p, q2, c2, f"K1 (wmma tile, dim {d2})")
+            k1w[d2] = cuda_ms(torch, lambda: scan._segmax_launch(
+                q2b, lp2, mask, "pv_segmax_scan"))
+        del keys, keys_p, q2, c2, q2b, lp2
+    cp, wm = rec["segmax_scan_cpasync"], rec["segmax_scan_wmma"]
+    log(f"phase 2: K1 at widths TMA cannot read agrees at Q=2048 cap={cap}: "
+        f"dim {dim - 4} on the mainloop fed by cp.async (max |dkey value| "
+        f"{cp['max_abs_err']:.3g}; {cp['ms']:.4f} ms, bound "
+        f"{cp['bound_ms']:.4f} ms; the wmma tile it replaced "
+        f"{k1w[dim - 4]:.4f} ms, same checks; plain {cp['plain_ms']:.4f} ms), "
+        f"dim {ODD_DIM} on the wmma tile (max |dkey value| "
+        f"{wm['max_abs_err']:.3g}; {wm['ms']:.4f} ms, bound "
+        f"{wm['bound_ms']:.4f} ms; plain {wm['plain_ms']:.4f} ms)")
 
     # K5 over the int8 rows at Q = 2048, k = 10 (segmax_i8stor: k_sel 16)
     # on the int8 mainloop. The int32 sums are exact and each key is one
@@ -738,6 +867,23 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["fused_topk_i8"] = entry(max(errs), ms1, pms[0],
                                  dim + live * (dim + 4) + cap + 14 * 8,
                                  2 * live * dim, "int8")
+    # K3's tensor-core scan at the host-rescore band's batch (Q = 64,
+    # k_sel 142), the small-batch band's k_sel 14, and a 2048-query batch
+    # (the first queries of `q`: no new draw): the dispatch, the scan and
+    # the template bit for bit the plain version, each timed
+    k3b = {}
+    q8b, _ = scan.quantize_rows_i8(q)
+    for nq3, ksel in ((64, 142), (64, 14), (2048, 14)):
+        args3 = (q8b[:nq3].contiguous(), v8, vs, mask, ksel)
+        k3b[nq3, ksel] = k3_timed(torch, scan, args3, reps=5)
+        assert k3b[nq3, ksel][0] == "tensor-core scan", k3b
+        if (nq3, ksel) == (64, 142):
+            pms3 = cuda_ms(torch, lambda: scan.scan_topk_plain(*args3), reps=5)
+    rec["fused_topk_i8_wgmma"] = entry(
+        0.0, k3b[64, 142][1]["tensor-core scan"], pms3,
+        64 * dim + live * (dim + 4) + cap + 64 * 142 * 8,
+        2 * 64 * live * dim, "int8")
+    del q8b
     log(f"phase 2: K3 fused_topk_i8 = plain bit for bit at Q=1,8,16 "
         f"k_sel=14 (bound {rec['fused_topk_i8']['bound_ms']:.4f} ms at Q=1; "
         f"the kernel the dispatch chose, then each kernel's ms): "
@@ -745,6 +891,13 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             f"{name} {t:.4f}" for name, t in times.items())
             for n, (served, times) in k3.items())
         + f"; plain {', '.join(f'{m:.4f}' for m in pms)}; at Q=1 {split3}")
+    log(f"phase 2: K3 fused_topk_i8 (tensor-core scan) = plain bit for bit "
+        f"(bound {rec['fused_topk_i8_wgmma']['bound_ms']:.4f} ms at Q=64 "
+        f"k_sel=142; the kernel the dispatch chose, then each kernel's ms): "
+        + "; ".join(f"Q={n} k_sel={kk} {served}: " + ", ".join(
+            f"{name} {t:.4f}" for name, t in times.items())
+            for (n, kk), (served, times) in k3b.items())
+        + f"; plain at Q=64 k_sel=142 {pms3:.4f}")
 
     # K4 at Q = 64 and 256, k_sel 14 and 36 (the batch routes' guard bands
     # at k = 10 and 32), over the float32 rows and the bf16 mirror, and at
@@ -1199,16 +1352,8 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     dev = db._dev
     qf = normalize_on_device(qdev[:2048])
     qb = qf.to(torch.bfloat16)
-    keys = scan.segmax_scan(qb, dev.vectors_lp, dev.active)
-    step = 131_072
-    keys_p = torch.cat([
-        scan.segmax_scan_plain(qb, dev.vectors_lp[s:s + step],
-                               dev.active[s:s + step])
-        for s in range(0, dev.vectors_lp.shape[0], step)], 1)
-    torch.cuda.synchronize()
-    assert keys.shape == keys_p.shape, (keys.shape, keys_p.shape)
-    err1, _ = check_segmax_keys(torch, scan, keys, keys_p, qf, dev.vectors,
-                                10, "K1 (wgmma) on the store's mirror")
+    keys, err1 = k1_on_mirror(torch, scan, dev, qf, qb,
+                              "K1 (wgmma) on the store's mirror")
     rec["segmax_scan"]["max_abs_err"] = max(rec["segmax_scan"]["max_abs_err"],
                                             err1)
     # K2 on this chunk's slab (k_sel 16), at this phase's shape
@@ -1217,13 +1362,13 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     k2_bound = entry(0.0, 0, 0, keys.numel() * 4 + 2048 * 16 * 8, 0,
                      "int8")["bound_ms"]
     q64f = qf[:64].contiguous()
-    del keys, keys_p
+    del keys
     k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(qb, dev.vectors_lp,
                                                     dev.active))
     chunk_ms = batch_s / 4 * 1e3
     # the path's other launch shapes: K1 + K2 (k_sel 16) at Q = 64 and
     # 256 over the mirror, K3 at K3_SHAPES over the int8 mirror (the
-    # crossover behind K3's sweep serving every Q <= scan.SWEEP_Q_MAX)
+    # sweep against the tensor-core scan, behind scan.I8_SWEEP_Q_MAX)
     other = []
     for nq in (64, 256):
         qbn = qb[:nq].contiguous()
@@ -1316,37 +1461,104 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     return counts
 
 
-def phase_wmma_store(torch, scan, device, n: int, dim: int, rng,
-                     **db_kwargs):
-    """A float32 store whose width TMA cannot read (dim % 8 != 0): its
-    2048-query chunks take segmax_mixed_stream through K1's wmma tile;
-    recall@10 against a float64 oracle."""
+def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
+                        **db_kwargs):
+    """Two float32 stores whose widths TMA cannot read, their 2048-query
+    chunks on segmax_mixed_stream: at `dim` (even: 1020) through K1's
+    mainloop fed by cp.async, at ODD_DIM (1019, data from a generator of
+    its own) through K1's wmma tile; recall@10 against a float64 oracle
+    for each, and (after each store's count) K1 on the store's own mirror
+    held to the plain version. The cp.async store's K1 is timed beside the
+    wmma tile on the same inputs, and its chunks timed (median of 7
+    passes). Raises the rows' max_abs_err in `rec`; returns the launches
+    of the two paths (each counted alone): the first store's, with
+    "segmax_wmma" from the second."""
     from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    def serve(corpus, qdev, prefix, path):
+        nn, d = corpus.shape
+        scan.reset_launch_counts()  # count this path's launches only
+        db = PicoVectorDB(embedding_dim=d, index="exact", device=device,
+                          storage_file=os.path.join(os.getcwd(), path),
+                          **db_kwargs)
+        db.upsert_columnar(corpus, ids=[f"{prefix}{i}" for i in range(nn)],
+                           copy=False)
+        got, _ = db.query_columnar(qdev, top_k=10, batch_size=2048)
+        assert db.last_query_debug()["strategy"] == "segmax_mixed_stream"
+        counts = launch_counts(scan)
+        counts["segmax_wmma"] = (counts["segmax"] - counts["segmax_wgmma"]
+                                 - counts["segmax_cpasync"])
+        truth = oracle_top10(torch, torch.from_numpy(corpus).to(device),
+                             qdev[:64], torch.ones(nn, dtype=torch.bool,
+                                                   device=device))
+        recall = recall_at_10(got[:64], truth, prefix)
+        assert recall >= 0.99, recall
+        # after the count: K1 at one 2048-query chunk on the store's own
+        # mirror, held to the plain version
+        qf = normalize_on_device(qdev[:2048])
+        qb = qf.to(torch.bfloat16)
+        _, err = k1_on_mirror(torch, scan, db._dev, qf, qb,
+                              f"K1 on the dim-{d} store's mirror")
+        return db, counts, recall, err, qb
 
     corpus = rng.standard_normal((n, dim), dtype=np.float32)
     near = corpus[rng.integers(0, n, 2048)]
     qdev = torch.from_numpy(
         near + 0.01 * rng.standard_normal(near.shape, dtype=np.float32)
     ).to(device)
-    scan.reset_launch_counts()  # count this path's launches only
-    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
-                      storage_file=os.path.join(os.getcwd(), "picovdb_smoke_w"),
-                      **db_kwargs)
-    db.upsert_columnar(corpus, ids=[f"w{i}" for i in range(n)], copy=False)
-    got, _ = db.query_columnar(qdev, top_k=10, batch_size=2048)
-    assert db.last_query_debug()["strategy"] == "segmax_mixed_stream"
-    counts = launch_counts(scan)
-    counts["segmax_wmma"] = counts["segmax"] - counts["segmax_wgmma"]
-    assert counts["segmax_wmma"] > 0 and counts["segmax_wgmma"] == 0, counts
-    truth = oracle_top10(torch, torch.from_numpy(corpus).to(device),
-                         qdev[:64], torch.ones(n, dtype=torch.bool,
-                                               device=device))
-    recall = recall_at_10(got[:64], truth, "w")
-    assert recall >= 0.99, recall
+    db, counts, recall, err, qb = serve(corpus, qdev, "w", "picovdb_smoke_w")
+    assert counts["segmax_cpasync"] == counts["segmax"] > 0, counts
+    assert counts["segmax_wgmma"] == 0, counts
+    cp = rec["segmax_scan_cpasync"]
+    cp["max_abs_err"] = max(cp["max_abs_err"], err)
+    dev = db._dev
+    cap, live = dev.active.shape[0], int(dev.active.sum())
+    args = (qb, dev.vectors_lp, dev.active)
+    k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(*args))
+    tile_ms = cuda_ms(torch, lambda: scan._segmax_launch(*args,
+                                                         "pv_segmax_scan"))
+    bound = entry(0.0, 0, 0, 2048 * dim * 2 + live * dim * 2 + cap
+                  + 2048 * 2 * (cap // scan.SEG) * 4, 2 * 2048 * live * dim,
+                  "bf16")["bound_ms"]
+    passes = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db.query_columnar(qdev, top_k=10, batch_size=2048)
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+    chunk_s = float(np.median(passes))
+    del db, args, qb
     log(f"phase 3b: a {n} x {dim} float32 store (bf16 mirror rows of "
-        f"{dim * 2} bytes, not a multiple of 16): route segmax_mixed_stream through "
-        f"K1's wmma tile, recall@10 {recall:.4f} vs float64; launches {counts}")
-    del db
+        f"{dim * 2} bytes, not a multiple of 16): route segmax_mixed_stream "
+        f"through K1's mainloop fed by cp.async, recall@10 {recall:.4f} vs "
+        f"float64; K1 keys on the store's mirror agree with the plain "
+        f"version (max |dkey value| {err:.3g}, KEY_MIN pattern equal, K2 + "
+        f"rescored rows = plain outside the gap); K1 at Q=2048 {k1_ms:.4f} "
+        f"ms (the wmma tile it replaced {tile_ms:.4f} ms, bound "
+        f"{bound:.4f}); a 2048-query chunk {chunk_s * 1e3:.3f} ms of wall, "
+        f"{2048 / chunk_s:.1f} QPS (query_columnar, median of 7 passes; "
+        f"{', '.join(f'{2048 / t:.1f}' for t in passes)}); launches {counts}")
+
+    g = np.random.default_rng(SEED + 12)
+    corpus = g.standard_normal((n, ODD_DIM), dtype=np.float32)
+    near = corpus[g.integers(0, n, 2048)]
+    qdev = torch.from_numpy(
+        near + 0.01 * g.standard_normal(near.shape, dtype=np.float32)
+    ).to(device)
+    db, odd, recall, err, qb = serve(corpus, qdev, "o", "picovdb_smoke_o")
+    assert odd["segmax_wmma"] > 0, odd
+    assert odd["segmax_wgmma"] == odd["segmax_cpasync"] == 0, odd
+    wm = rec["segmax_scan_wmma"]
+    wm["max_abs_err"] = max(wm["max_abs_err"], err)
+    del db, qb
+    log(f"phase 3b: a {n} x {ODD_DIM} float32 store (rows of "
+        f"{ODD_DIM * 2} bytes, odd): route segmax_mixed_stream through K1's "
+        f"wmma tile, recall@10 {recall:.4f} vs float64; K1 keys on the "
+        f"store's mirror agree with the plain version (max |dkey value| "
+        f"{err:.3g}); launches {odd}")
+    counts["segmax_wmma"] = odd["segmax_wmma"]
     return counts
 
 
@@ -1410,6 +1622,8 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     truth = oracle_top10(torch, corpus_dev, qdev[:64], live)
     recall = recall_at_10(got, truth, "v")
     assert recall >= 0.99 and recall_f >= 0.99, (recall, recall_f)
+    with uncounted(scan):  # the Q = 64 batches' latency, not the path's
+        lat = q64_latency(torch, db, q64)
 
     # 2048-query chunks of CUDA-resident queries: K5 + K2, then the
     # dequantizing rescore (storage precision: no host rescore for tensors)
@@ -1457,15 +1671,27 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     shapes4 = counts["shapes"]["scan_topk_i8"]
     assert counts["scan_topk_i8_sweep"] >= shapes4.get("Q=1 k=142", 0) > 0, \
         "the host-rescore band's Q = 1 calls missed K3's sweep"
-    # after the count: K3 at the host-rescore band's launch shapes (Q = 1
-    # and the Q = 64 batches, k_sel 142), and K5 at the path's Q = 2048 and
-    # 256 on the store's own plane, scales and mask: bit for bit the plain
-    # version (over 131,072-row slices) and the mma.sync tile it replaced,
-    # both timed
+    assert shapes4.get("Q=64 k=142", 0) > 0 and k3_launches_ok(scan, counts), \
+        "a K3 launch at Q > I8_SWEEP_Q_MAX missed the tensor-core scan"
+    # after the count: K3 at K3_PHASE4 (the host-rescore band's launch
+    # shapes, Q = 1 and the Q = 64 batches at k_sel 142, and those around
+    # them) and at K3_CROSSOVER (the sweep against the tensor-core scan,
+    # behind I8_SWEEP_Q_MAX), and K5 at the path's Q = 2048 and 256, on the
+    # store's own plane, scales and mask: bit for bit the plain version
+    # (over 131,072-row slices) and the kernels they replaced, all timed
     d2 = db2._dev
     cap4, live4 = d2.active.shape[0], int(d2.active.sum())
     k3_line = k3_table(torch, scan, qdev, d2.vectors, d2.vstore_scale,
-                       d2.active, ((1, 142), (64, 142)))
+                       d2.active, K3_PHASE4)
+    k3_cross = k3_table(torch, scan, qdev, d2.vectors, d2.vstore_scale,
+                        d2.active, K3_CROSSOVER, reps=3)
+    # the tensor-core scan's device time by kernel (the scan, the merge) at
+    # the host-rescore band's batch and at k_sel 14
+    k3_split = {}
+    for ksel in (142, 14):
+        q8s, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:64]))
+        k3_split[ksel] = device_split(torch, lambda: scan._i8_wgmma_launch(
+            q8s, d2.vectors, d2.vstore_scale, d2.active, ksel))
     args = (d2.vectors, d2.vstore_scale, d2.active)
     q8_2048, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:2048]))
     keys = scan.segmax_scan_i8(q8_2048, *args)
@@ -1492,6 +1718,10 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
         f"{cap4}-row plane (the kernel the dispatch chose, then each "
         f"kernel's ms): {k3_line}; K5 segmax_scan_i8 (int8 TMA + wgmma) keys "
         f"= plain bit for bit at Q=2048 on the plane: " + ", ".join(k5))
+    log(f"phase 4: K3's crossover on the store's plane, {live4} live rows "
+        f"(sweep limit I8_SWEEP_Q_MAX = {scan.I8_SWEEP_Q_MAX}): {k3_cross}; "
+        f"the tensor-core scan at Q=64: " + "; ".join(
+            f"k_sel={ksel} {split}" for ksel, split in k3_split.items()))
     log(f"phase 4: int8 storage at {n} x {dim}: routes i8stor_fused_exact "
         f"(host rescore), segmax_i8stor_stream, i8stor_fused_smallq; "
         f"recall@10 vs float64 {recall:.4f} (filtered {recall_f:.4f}) with "
@@ -1500,7 +1730,9 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
         f"save(quantized=True) + reload ok; launches {counts}")
     log(f"phase 4: insert {n / insert_s:.1f} vec/s; batch "
         f"{4096 / batch_s:.1f} QPS (query_columnar, 4096 queries); Q=1 "
-        f"latency {q1_ms:.4f} ms with the host rescore; card {card}")
+        f"latency {q1_ms:.4f} ms with the host rescore; Q=64 with the host "
+        f"rescore (CUDA events, median of 10): query_columnar {lat[0]:.4f} "
+        f"ms, query under the tag filter {lat[1]:.4f} ms; card {card}")
     del db2
     shutil.rmtree(tmp)
     return counts
@@ -2530,6 +2762,36 @@ def phase_probes(torch, scan, device, card: str):
     return counts
 
 
+def q64_latency_main(torch, n: int, dim: int) -> int:
+    """`--q64-latency`: an n x dim int8 store with the host rescore, made
+    from a generator of its own (SEED + 13), and `q64_latency` on 64 of its
+    rows plus noise, through the public API alone (so that any checkout of
+    the package can be timed by this script)."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    device = torch.device("cuda:0")
+    g = np.random.default_rng(SEED + 13)
+    corpus = g.standard_normal((n, dim), dtype=np.float32)
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(tmp, "store_i8"),
+                      storage_dtype="int8")
+    db.upsert_columnar(corpus, ids=[f"v{i}" for i in range(n)],
+                       metadata=[{"tag": i % 10} for i in range(n)],
+                       copy=False)
+    db.rebuild_index()
+    near = corpus[g.integers(0, n, 64)]
+    q64 = near + 0.01 * g.standard_normal(near.shape, dtype=np.float32)
+    col, filt = q64_latency(torch, db, q64)
+    del db
+    shutil.rmtree(tmp)
+    print(card_line())
+    print(json.dumps({"q64_latency_ms": {"query_columnar": col,
+                                         "query_filtered": filt},
+                      "store": f"{n} x {dim} int8, host rescore"}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2537,6 +2799,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--q64-latency"]:
+        return q64_latency_main(torch, I8_N, DIM)
     from picovdb_tpu_torch.ops import _build, scan
 
     device = torch.device("cuda:0")
@@ -2553,7 +2817,8 @@ def main() -> int:
     phase_ivf_kernels(torch, scan, device, PHASE2_CAP, DIM, rng, rec)
     counts = {3: phase_main(torch, scan, device, MAIN_N, DIM, rng, card, rec)}
     torch.cuda.empty_cache()
-    counts["3b"] = phase_wmma_store(torch, scan, device, WMMA_N, DIM - 4, rng)
+    counts["3b"] = phase_narrow_stores(torch, scan, device, WMMA_N, DIM - 4,
+                                       rng, rec)
     torch.cuda.empty_cache()
     counts[4] = phase_int8(torch, scan, device, I8_N, DIM, rng, card)
     torch.cuda.empty_cache()

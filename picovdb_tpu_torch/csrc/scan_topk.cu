@@ -188,7 +188,9 @@ scan_topk_kernel(const typename Elem<T>::QT* __restrict__ q,
   if (hot && c / split >= *n_hot) rend = rbeg;  // dead step: empty partial
   const int qi = threadIdx.x / TPQ, rsub = threadIdx.x % TPQ;
   const int vdim = I4 ? dim / 2 : dim;
-  const bool aligned = (vdim % EPW) == 0;
+  // whole-word loads need 4-byte aligned rows: a view may start anywhere
+  const bool aligned =
+      (vdim % EPW) == 0 && ((uintptr_t)q | (uintptr_t)v) % 4 == 0;
   if (threadIdx.x < QT) {
     cnt[threadIdx.x] = 0;
     tau[threadIdx.x] = 0ull;

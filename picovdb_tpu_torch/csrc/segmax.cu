@@ -19,8 +19,11 @@
 // consumer warpgroups), and `SegmaxTileEpi` reduces each thread's
 // accumulator registers to the two keys per query and segment: the
 // thread's top 2 of its 32 scores, merged across the quad of lanes that
-// share the row by shuffles. No score leaves the registers. Other widths
-// keep the first kernel, `segmax_kernel`: one block scores 64 queries x
+// share the row by shuffles. No score leaves the registers. At even
+// widths TMA cannot read (dim 1020, 300, 100, 50, or 4- / 8-byte aligned
+// views) the same mainloop runs with its cp.async producer
+// (pv_segmax_scan_cpasync). Odd widths and 2-byte aligned views keep the
+// first kernel, `segmax_kernel`: one block scores 64 queries x
 // one 128-row segment with wmma bf16 16x16x16 from unpipelined
 // shared-memory tiles (tiles.cuh) and reduces the tile in shared memory.
 // Neither carries state between tiles, so the TPU's two grid orders
@@ -443,6 +446,27 @@ extern "C" int pv_segmax_scan_wgmma(const void* q, const void* v,
                                  (long)(2 * (cap / SEG)), nullptr};
   return wg::launch_tiles<wg::Bf16>(q, v, epi, Q, cap, dim,
                                     (cudaStream_t)stream);
+}
+
+// K1 on the same mainloop fed by cp.async, at widths TMA cannot read:
+// pv_segmax_scan's contract for an even dim with q and v 4-byte aligned
+// (8-byte pieces where the row bytes and both bases are multiples of 8,
+// else 4-byte pieces). Returns 0 or a cudaError_t.
+extern "C" int pv_segmax_scan_cpasync(const void* q, const void* v,
+                                      const void* mask, void* keys, int Q,
+                                      long long cap, int dim, void* stream) {
+  using namespace pv;
+  if (cap % SEG) return (int)cudaErrorInvalidValue;
+  const SegmaxTileEpi<float> epi{static_cast<const uint8_t*>(mask),
+                                 static_cast<int*>(keys),
+                                 (long)(2 * (cap / SEG)), nullptr};
+  const uintptr_t bits = (uintptr_t)q | (uintptr_t)v | (uintptr_t)(2 * dim);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bits % 8 == 0)
+    return wg::launch_tiles<wg::Bf16, SegmaxTileEpi<float>, 8>(q, v, epi, Q,
+                                                              cap, dim, s);
+  return wg::launch_tiles<wg::Bf16, SegmaxTileEpi<float>, 4>(q, v, epi, Q,
+                                                            cap, dim, s);
 }
 
 // q (Q, dim) int8, v (cap, dim) int8 with cap % 128 == 0, vscale (cap,)

@@ -38,10 +38,22 @@
 // Out-of-range rows (past Q, past cap) and columns (past dim) are zero
 // filled by TMA (bf16 +0.0, int8 0), so the epilogue only has to skip
 // writing them. TMA needs the row stride and both base addresses 16-byte
-// aligned: dim % 8 == 0 for bf16, dim % 16 == 0 for int8; other widths
-// take the first score tiles of tiles.cuh. The launcher reads the current
-// device (SM count, shared-memory attribute): callers launch under their
-// tensors' device.
+// aligned: dim % 8 == 0 for bf16, dim % 16 == 0 for int8. At other widths
+// the same mainloop takes a second producer (PIECE > 0): the whole
+// producer warpgroup copies each stage with cp.async in pieces of PIECE
+// bytes (8 where the row bytes and both bases are multiples of 8, else 4),
+// to the very offsets TMA's 128B swizzle gives them, zero-filling the
+// pieces past dim, Q and cap (src-size 0) as TMA does; a piece never
+// crosses a row's end, since PIECE divides the row bytes. Each producer
+// thread signals the stage's full barrier with
+// cp.async.mbarrier.arrive.noinc once its copies have landed (the
+// barrier counts 128 arrivals in place of one expect_tx), and the
+// consumers fence the copies (generic proxy) for wgmma's async proxy
+// after the wait. K1 takes it at even bf16 widths TMA cannot read
+// (dim 1020, 300, 100, 50); K1's odd widths, P1-bf16 and the int8 kinds
+// at widths TMA cannot read keep the first score tiles of tiles.cuh. The
+// launcher reads the current device (SM count,
+// shared-memory attribute): callers launch under their tensors' device.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda call is linked
@@ -94,7 +106,6 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 struct Bf16 {
   typedef float Acc;
   static constexpr int BK = 64;       // elements per k-stage (128 B)
-  static constexpr int DIM_ALIGN = 8;  // dim % 8 == 0: 16-byte row stride
   static constexpr int ELEM_BYTES = 2;
   static constexpr CUtensorMapDataType TMA_TYPE =
       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -126,7 +137,6 @@ struct Bf16 {
 struct Int8 {
   typedef int Acc;
   static constexpr int BK = 128;       // elements per k-stage (128 B)
-  static constexpr int DIM_ALIGN = 16;  // dim % 16 == 0: 16-byte row stride
   static constexpr int ELEM_BYTES = 1;
   // TMA has no signed 8-bit type; bytes copy as they are and the
   // out-of-bounds zero fill is int8 0
@@ -220,16 +230,73 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// One cp.async of PIECE (4 or 8) bytes from global `src` to shared `dst`;
+// src_bytes 0 reads nothing and zero-fills the piece.
+template <int PIECE>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(PIECE), "r"(src_bytes)
+               : "memory");
+}
+
+// An arrival on `bar` once every cp.async this thread issued has landed;
+// the barrier's count includes it (noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Thread t (of the producer warpgroup's 128) of the cp.async producer:
+// bytes [128 k, 128 k + 128) of the ROWS rows from `src` on (of which
+// `rows_left` exist) of a row-major matrix with rows of `row_bytes` bytes,
+// into the stage at `dst` as TMA's 128B swizzle lays a box of 128-byte
+// rows out: row r at r * 128, its 16-byte chunk c at chunk c ^ (r % 8)
+// (the ring's stages are 1024-byte aligned). The thread copies piece
+// t % (128 / PIECE) of rows t / (128 / PIECE), + 128 / (128 / PIECE), ...:
+// neighbouring threads read neighbouring pieces of a row. Pieces past
+// row_bytes or past rows_left read nothing and are zero-filled. One
+// pointer and one shared address stepped a row group at a time keep the
+// producer within its 40 registers.
+template <int PIECE, int ROWS>
+__device__ __forceinline__ void cp_stage(uint32_t dst,
+                                         const unsigned char* src,
+                                         long rows_left, long row_bytes,
+                                         int k, int t) {
+  constexpr int PER_ROW = ROW_BYTES / PIECE;  // pieces a row: 16 or 32
+  constexpr int ROW_STEP = 128 / PER_ROW;     // rows a pass: 8 or 4
+  const int b = (t % PER_ROW) * PIECE;        // the piece's byte in the row
+  const int r0 = t / PER_ROW;
+  const long col = (long)k * ROW_BYTES + b;
+  // rows this thread copies from: none where its piece lies past the row
+  const int lim =
+      col >= row_bytes ? 0 : rows_left < ROWS ? (int)rows_left : ROWS;
+  const unsigned char* s = src + r0 * row_bytes + col;
+  uint32_t d = dst + r0 * ROW_BYTES + (b & 15);
+#pragma unroll 1
+  for (int r = r0; r < ROWS; r += ROW_STEP) {
+    const bool ok = r < lim;
+    cp_async<PIECE>(d + (((b >> 4) ^ (r & 7)) << 4), ok ? s : src,
+                    ok ? PIECE : 0);
+    s += ROW_STEP * row_bytes;
+    d += ROW_STEP * ROW_BYTES;
+  }
+}
+
 // The mainloop. `Epi::tile(acc, q0, r0, Q, cap)` runs in each consumer
 // thread once per output tile (queries q0.., corpus rows r0..). Fragment
 // layout of `acc` (wgmma's accumulator, f32 of m64nNk16 and s32 of
 // m64nNk32 alike): lane l of warp w of consumer warpgroup g holds tile
 // rows 64 g + 16 w + l / 4 (h = 0) and + 8 (h = 1), at columns
-// 8 j + 2 (l % 4) + e, in acc[4 j + 2 h + e].
-template <class T, class Epi>
+// 8 j + 2 (l % 4) + e, in acc[4 j + 2 h + e]. PIECE 0: the TMA producer
+// (maps tq, tv); 4 or 8: the cp.async producer (pointers qp, vp).
+template <class T, class Epi, int PIECE>
 __global__ void __launch_bounds__(THREADS, 1)
 tiles_kernel(const __grid_constant__ CUtensorMap tq,
-             const __grid_constant__ CUtensorMap tv, const Epi epi, int Q,
+             const __grid_constant__ CUtensorMap tv,
+             const unsigned char* __restrict__ qp,
+             const unsigned char* __restrict__ vp, const Epi epi, int Q,
              long cap, int dim) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -237,7 +304,9 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t full = base + STAGES * STAGE_BYTES, empty = full + 8 * STAGES;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);  // the producer's expect_tx arrival
+      // the TMA producer's one expect_tx arrival, or the cp.async
+      // producer's 128 threads' arrivals
+      mbar_init(full + 8 * s, PIECE ? 128 : 1);
       mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -249,7 +318,27 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x >= 2 * 128) {  // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 2 * 128) {
+    if constexpr (PIECE > 0) {
+      const int t = threadIdx.x - 2 * 128;
+      const long row_bytes = (long)dim * T::ELEM_BYTES;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int q0 = (tile % q_tiles) * BM, r0 = (tile / q_tiles) * BN;
+        for (int k = 0; k < k_iters; ++k) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);  // first lap: free
+          cp_stage<PIECE, BM>(a_ring + stage * A_BYTES, qp + q0 * row_bytes,
+                              Q - q0, row_bytes, k, t);
+          cp_stage<PIECE, BN>(b_ring + stage * B_BYTES, vp + r0 * row_bytes,
+                              cap - r0, row_bytes, k, t);
+          cp_async_arrive(full + 8 * stage);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x == 2 * 128) {
       int stage = 0;
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -281,6 +370,8 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
       int prev = 0;
       for (int k = 0; k < k_iters; ++k) {
         mbar_wait(full + 8 * stage, phase);
+        if constexpr (PIECE > 0)  // cp.async wrote in the generic proxy
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         const uint64_t da = sw128_desc(a_ring + stage * A_BYTES + a_half);
         const uint64_t db = sw128_desc(b_ring + stage * B_BYTES);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -352,36 +443,43 @@ int encode_rows(EncodeTiled enc, CUtensorMap* map, const void* ptr,
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
-// Encodes q (Q, dim) and v (cap, dim), both of T's type, and launches the
-// persistent kernel on the current device (one CTA per SM, fewer when
-// there are fewer tiles). Returns 0, a cudaError_t, or minus a CUresult of
-// the encode.
-template <class T, class Epi>
+// Launches the persistent kernel on q (Q, dim) and v (cap, dim), both of
+// T's type, on the current device (one CTA per SM, fewer when there are
+// fewer tiles): PIECE 0 encodes their TMA maps (rows of whole 16 bytes,
+// 16-byte aligned bases), PIECE 4 or 8 feeds the ring by cp.async (the row
+// bytes and both bases multiples of PIECE). Returns 0, a cudaError_t, or
+// minus a CUresult of the encode.
+template <class T, class Epi, int PIECE = 0>
 int launch_tiles(const void* q, const void* v, const Epi& epi, int Q,
                  long long cap, int dim, cudaStream_t stream) {
   if (Q <= 0 || cap <= 0) return (int)cudaSuccess;
-  if (dim <= 0 || dim % T::DIM_ALIGN || ((uintptr_t)q | (uintptr_t)v) % 16)
+  const int align = PIECE ? PIECE : 16;
+  if (dim <= 0 || (long long)dim * T::ELEM_BYTES % align ||
+      ((uintptr_t)q | (uintptr_t)v) % align)
     return (int)cudaErrorInvalidValue;
-  EncodeTiled enc;
-  int err = encoder(&enc);
-  if (err) return err;
-  CUtensorMap tq, tv;
-  if ((err = encode_rows<T>(enc, &tq, q, Q, dim, BM))) return err;
-  if ((err = encode_rows<T>(enc, &tv, v, cap, dim, BN))) return err;
+  CUtensorMap tq{}, tv{};
+  if constexpr (PIECE == 0) {
+    EncodeTiled enc;
+    int err = encoder(&enc);
+    if (err) return err;
+    if ((err = encode_rows<T>(enc, &tq, q, Q, dim, BM))) return err;
+    if ((err = encode_rows<T>(enc, &tv, v, cap, dim, BN))) return err;
+  }
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)  // > 48 KB of dynamic shared memory
-    e = cudaFuncSetAttribute(tiles_kernel<T, Epi>,
+    e = cudaFuncSetAttribute(tiles_kernel<T, Epi, PIECE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
   const long long tiles = (long long)((Q + BM - 1) / BM) * ((cap + BN - 1) / BN);
   if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;  // int tile ids
   const int grid = (int)std::min<long long>(tiles, sms);
-  tiles_kernel<T, Epi><<<grid, THREADS, SMEM_BYTES, stream>>>(tq, tv, epi, Q,
-                                                              (long)cap, dim);
+  tiles_kernel<T, Epi, PIECE><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      tq, tv, static_cast<const unsigned char*>(q),
+      static_cast<const unsigned char*>(v), epi, Q, (long)cap, dim);
   return (int)cudaGetLastError();
 }
 

@@ -36,10 +36,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # q, v, mask, keys, Q, cap, dim, stream (K1: the wmma tile, and the
-    # TMA + wgmma mainloop)
+    # q, v, mask, keys, Q, cap, dim, stream (K1: the wmma tile, the TMA +
+    # wgmma mainloop, and the mainloop fed by cp.async)
     "pv_segmax_scan": [_P, _P, _P, _P, _I, _L, _I, _P],
     "pv_segmax_scan_wgmma": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "pv_segmax_scan_cpasync": [_P, _P, _P, _P, _I, _L, _I, _P],
     # q, v, vscale, mask, keys, Q, cap, dim, stream (K5: the mma.sync tile,
     # and the int8 TMA + wgmma mainloop)
     "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
@@ -62,7 +63,7 @@ _SIGNATURES = {
     # Q <= scan.I4_SWEEP_Q_MAX)
     "pv_sweep_topk_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     # the same for K3's one-query sweep over per-row-scaled int8 rows (Q <=
-    # 16, k <= 384, dim % 16 == 0)
+    # 16, k <= 384, dim % 16 == 0; served at Q <= scan.I8_SWEEP_Q_MAX)
     "pv_sweep_topk_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     # q_perm, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream
     # (K6's tensor-core scan: any Q, k <= 128, dim % 128 == 0; served at
@@ -72,6 +73,11 @@ _SIGNATURES = {
     # cap, dim, k, stream (K4's tensor-core scan: k <= 128, rows of whole
     # 16 bytes; served at Q >= scan.TOPK_WGMMA_Q_MIN)
     "pv_scan_topk_wgmma": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+    # q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream (K3's
+    # tensor-core scan: k <= 384, dim % 16 == 0; served at Q >
+    # scan.I8_SWEEP_Q_MAX)
+    "pv_scan_topk_i8_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                              _P],
     # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
     "pv_ivf_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,

@@ -7,11 +7,13 @@ hand-written CUDA kernels (`csrc/`) take the place of the eight Pallas
 kernels those paths run:
 
   K1 `segmax_scan`      csrc/segmax.cu     per-128-row-segment top-2 keys
-                        (product: csrc/wgmma_tiles.cuh, see `wgmma_ready`)
+                        (product: csrc/wgmma_tiles.cuh, see `wgmma_ready`;
+                        fed by cp.async, see `cpasync_ready`)
   K2 `topk_packed_keys` csrc/topk_keys.cu  per-query top-k_sel of the keys
   K3 `fused_topk_i8`    csrc/scan_topk.cu  exact top-k over per-row int8
-                        (Q <= 16, k <= 384: csrc/sweep_topk.cu,
-                        see `i8_sweep_ready`)
+                        (small Q, k <= 384: csrc/sweep_topk.cu,
+                        see `i8_sweep_ready`; larger Q, k <= 384:
+                        csrc/scan_topk_wgmma.cu, see `i8_wgmma_ready`)
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
                         (k <= 128: csrc/scan_topk_wgmma.cu,
                         see `topk_wgmma_ready`)
@@ -61,7 +63,8 @@ SEG = 128  # rows per segmax segment
 # with its plain version does not go through a wrapper's counted path.
 # "segmax" and "dot_rowmax" count K1 / P1 (both kinds) on either product;
 # the "_wgmma" keys count the TMA + wgmma mainloop alone (see `wgmma_ready`,
-# `wgmma_i8_ready`): "dot_rowmax_wgmma" P1-bf16's, "dot_rowmax_i8_wgmma"
+# `wgmma_i8_ready`), "segmax_cpasync" K1 on the mainloop fed by cp.async
+# (`cpasync_ready`): "dot_rowmax_wgmma" P1-bf16's, "dot_rowmax_i8_wgmma"
 # P1-int8's, "segmax_i8c_wgmma" K10's ("segmax_i8c" counts every K10
 # launch), "segmax_i8_wgmma" K5's ("segmax_i8" every K5 launch).
 # "scan_topk" counts every K4 launch, "scan_topk_wgmma" those of its
@@ -72,11 +75,13 @@ SEG = 128  # rows per segmax segment
 # those of the sweep's int4 kind (`i4_sweep_ready`), "scan_topk_i4_wgmma"
 # those of its tensor-core scan (`i4_wgmma_ready`); "scan_topk_i8" every K3
 # launch, "scan_topk_i8_sweep" those of the sweep's row-scaled int8 kind
-# (`i8_sweep_ready`); "ivf_segmax" every K8 launch, "ivf_segmax_wgmma"
+# (`i8_sweep_ready`), "scan_topk_i8_wgmma" those of the tensor-core scan's
+# int8 kind (`i8_wgmma_ready`); "ivf_segmax" every K8 launch, "ivf_segmax_wgmma"
 # those of its tensor-core segment scan (ops/ivf.py::`ivf_segmax_ready`).
-LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "topk_keys": 0, "scan_topk": 0,
-            "scan_topk_wgmma": 0,
-            "scan_topk_i8": 0, "scan_topk_i8_sweep": 0, "segmax_i8": 0,
+LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
+            "topk_keys": 0, "scan_topk": 0, "scan_topk_wgmma": 0,
+            "scan_topk_i8": 0, "scan_topk_i8_sweep": 0,
+            "scan_topk_i8_wgmma": 0, "segmax_i8": 0,
             "segmax_i8_wgmma": 0,
             "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
             "scan_topk_i4_wgmma": 0,
@@ -367,8 +372,28 @@ def wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
     """Whether K1 / P1-bf16 run the TMA + wgmma mainloop
     (csrc/wgmma_tiles.cuh) on these contiguous bf16 operands: TMA needs a
     row stride that is a multiple of 16 bytes (dim % 8 == 0) and 16-byte
-    aligned bases. Otherwise they run the wmma tile (csrc/tiles.cuh)."""
+    aligned bases. Otherwise K1 takes `cpasync_ready`'s producer or the
+    wmma tile (csrc/tiles.cuh), P1-bf16 the wmma tile."""
     return _tma_ready(queries, vectors, 8)
+
+
+def cpasync_piece(queries: torch.Tensor, vectors: torch.Tensor) -> int:
+    """The bytes a cp.async copy of the mainloop's second producer moves
+    on these bf16 operands: 8 where the row bytes (2 dim) and both bases
+    are multiples of 8, 4 where they are multiples of 4 (dim even), 0
+    where neither holds. Mirrors pv_segmax_scan_cpasync's choice."""
+    bits = 2 * queries.shape[1] | queries.data_ptr() | vectors.data_ptr()
+    return 8 if bits % 8 == 0 else 4 if bits % 4 == 0 else 0
+
+
+def cpasync_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    """Whether K1 runs the TMA + wgmma mainloop fed by its cp.async
+    producer on these contiguous bf16 operands: TMA cannot read them
+    (`wgmma_ready` fails), yet cp.async can copy their rows in 8- or
+    4-byte pieces (an even dim, 4-byte aligned bases; `cpasync_piece`).
+    Odd widths and 2-byte aligned views keep the wmma tile."""
+    return (not wgmma_ready(queries, vectors)
+            and cpasync_piece(queries, vectors) > 0)
 
 
 def wgmma_i8_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
@@ -409,15 +434,27 @@ def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
     q = queries.contiguous()
     _require(vectors.is_contiguous() and mask.is_contiguous(),
              "segmax_scan: vectors and mask must be contiguous")
-    keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
-                       device=q.device)
     wgmma = wgmma_ready(q, vectors)
-    _launch(q, "segmax_scan",
-            "pv_segmax_scan_wgmma" if wgmma else "pv_segmax_scan",
-            q.data_ptr(), vectors.data_ptr(), mask.data_ptr(),
-            keys.data_ptr(), num_q, cap, dim)
+    cpasync = cpasync_ready(q, vectors)
+    keys = _segmax_launch(q, vectors, mask, "pv_segmax_scan_wgmma" if wgmma
+                          else "pv_segmax_scan_cpasync" if cpasync
+                          else "pv_segmax_scan")
     _count("segmax", num_q)
     LAUNCHES["segmax_wgmma"] += wgmma
+    LAUNCHES["segmax_cpasync"] += cpasync
+    return keys
+
+
+def _segmax_launch(q, vectors, mask, entry: str) -> torch.Tensor:
+    """K1's launch on checked CUDA operands through `entry`, uncounted: the
+    TMA mainloop (`pv_segmax_scan_wgmma`), the mainloop fed by cp.async
+    (`pv_segmax_scan_cpasync`) or the wmma tile (`pv_segmax_scan`)."""
+    num_q, dim = q.shape
+    cap = vectors.shape[0]
+    keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
+                       device=q.device)
+    _launch(q, "segmax_scan", entry, q.data_ptr(), vectors.data_ptr(),
+            mask.data_ptr(), keys.data_ptr(), num_q, cap, dim)
     return keys
 
 
@@ -625,14 +662,16 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
              f"{name}: vectors and mask must be contiguous")
     q = queries.contiguous()
     # the ready rules are the only switch between kernels: the one-query
-    # sweep, else (int4, f32 / bf16 rows) the tensor-core scan, else the
-    # template
+    # sweep, else the tensor-core scan, else the template
     if i8c and sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, None, mask, k, name)
         LAUNCHES["scan_topk_i8c_sweep"] += 1
     elif kind == _KIND_I8 and i8_sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i8_sweep"] += 1
+    elif kind == _KIND_I8 and i8_wgmma_ready(q, vectors, k):
+        vals, idx = _i8_wgmma_launch(q, vectors, vscale, mask, k, name)
+        LAUNCHES["scan_topk_i8_wgmma"] += 1
     elif int4 and i4_sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i4_sweep"] += 1
@@ -740,6 +779,24 @@ def _topk_wgmma_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
     return vals, idx
 
 
+def _i8_wgmma_launch(q, v_i8, vscale, mask, k: int,
+                     name: str = "scan_topk_i8"):
+    """K3's tensor-core scan (csrc/scan_topk_wgmma.cu, the int8 kind) on
+    checked CUDA operands, uncounted: CTAs over `i8_wgmma_partition`'s
+    (query tile, segment range) pairs, then the merge."""
+    num_q, dim = q.shape
+    cap = v_i8.shape[0]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    _, ranges = i8_wgmma_partition(num_q, cap, sms, k)
+    partial = torch.empty((num_q * ranges * k,), dtype=torch.int64,
+                          device=q.device)
+    vals, idx = _outputs(num_q, k, q.device)
+    _launch(q, name, "pv_scan_topk_i8_wgmma", q.data_ptr(), v_i8.data_ptr(),
+            vscale.data_ptr(), mask.data_ptr(), partial.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k)
+    return vals, idx
+
+
 def split_tf32(q: torch.Tensor):
     """float32 -> (hi, lo): hi = q with the low 13 mantissa bits cleared
     (exact in TF32), lo = q - hi (exact in float32). K4's and K8's 3xTF32
@@ -788,14 +845,16 @@ def topk_wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor,
             and vectors.data_ptr() % 16 == 0 and num_q >= TOPK_WGMMA_Q_MIN)
 
 
-def topk_wgmma_partition(num_q: int, cap: int, sms: int):
+def topk_wgmma_partition(num_q: int, cap: int, sms: int,
+                         qtile: int = TOPK_WGMMA_QTILE):
     """The tensor-core scan's grid on a card of `sms` SMs: (q_tiles,
-    ranges). CTA c takes query tile c % q_tiles and segment range c //
-    q_tiles of `ranges` equal shares of the ceil(cap / 128) segments
-    (range r: segments [r S // ranges, (r + 1) S // ranges)), so the
-    q_tiles CTAs of one range walk it together and read each segment from
-    device memory about once. Mirrors the kernel's own computation."""
-    q_tiles = -(-num_q // TOPK_WGMMA_QTILE)
+    ranges). CTA c takes query tile c % q_tiles (of `qtile` queries) and
+    segment range c // q_tiles of `ranges` equal shares of the ceil(cap /
+    128) segments (range r: segments [r S // ranges, (r + 1) S //
+    ranges)), so the q_tiles CTAs of one range walk it together and read
+    each segment from device memory about once. Mirrors the kernel's own
+    computation."""
+    q_tiles = -(-num_q // qtile)
     segs = max(1, -(-cap // SEG))
     return q_tiles, max(1, min(segs, sms // q_tiles))
 
@@ -862,22 +921,53 @@ def i4_sweep_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
 
 
 # K3's sweep limit on k: 384, its second buffer size, for the int8 store's
-# host-rescore band of k + 128 + 4. It serves every Q the sweep takes
-# (SWEEP_Q_MAX): on a 1M-row int8 store it beats the template at each Q
-# <= 16 (the crossover table in PERF.md, from chip_smoke.py's phase 3).
+# host-rescore band of k + 128 + 4. The tensor-core scan's int8 kind takes
+# the same k (its buffers of 512 keys at a 32-query tile).
 I8_SWEEP_K_MAX = 384
+I8_WGMMA_K_MAX = 384
+# K3's sweep limit on Q: up to this many queries the one-query sweep beats
+# the tensor-core scan's int8 kind over the same rows; past it the scan
+# takes every batch. chip_smoke.py phase 4 times both at Q = 1 ... 64,
+# k_sel 14 and 142, on its 1M-row int8 plane: on an H100 80GB HBM3 at
+# 700 W the sweep takes 0.42 / 0.43 / 0.50 / 0.78 ms at Q = 1 / 2 / 4 / 8
+# (k_sel 14; 0.56 / 0.58 / 0.69 / 1.02 at k_sel 142), the scan 0.53-0.56
+# (k_sel 14; 0.99-1.01 at k_sel 142) at every Q <= 32; the sweep's
+# 8-query tile serves Q = 5 ... 8 at its Q = 8 time.
+I8_SWEEP_Q_MAX = 4
 
 
 def i8_sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
     """Whether K3 runs the one-query sweep's row-scaled int8 kind on these
-    contiguous operands: Q <= SWEEP_Q_MAX, k <= I8_SWEEP_K_MAX, rows of
+    contiguous operands: Q <= I8_SWEEP_Q_MAX, k <= I8_SWEEP_K_MAX, rows of
     whole 16-byte words (dim % 16 == 0), the query block (sweep_tile(Q) x
-    dim bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned bases. Other
-    shapes keep the template, `pv_scan_topk` kind 2."""
+    dim bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned bases. Larger
+    batches take `i8_wgmma_ready`'s scan; other shapes keep the template,
+    `pv_scan_topk` kind 2."""
     num_q, dim = q_i8.shape
-    return (num_q <= SWEEP_Q_MAX and k <= I8_SWEEP_K_MAX and dim % 16 == 0
+    return (num_q <= I8_SWEEP_Q_MAX and k <= I8_SWEEP_K_MAX
+            and dim % 16 == 0
             and sweep_tile(num_q) * dim <= SWEEP_QBLOCK_BYTES
             and _aligned(q_i8, v_i8))
+
+
+def i8_wgmma_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether K3 runs the tensor-core scan's row-scaled int8 kind
+    (csrc/scan_topk_wgmma.cu) on these contiguous operands: Q >
+    I8_SWEEP_Q_MAX (smaller batches take the sweep), k <= I8_WGMMA_K_MAX,
+    rows of whole 16 bytes (dim % 16 == 0) and 16-byte aligned bases of
+    both (TMA reads the queries and the rows as they lie). Other shapes
+    keep the template, `pv_scan_topk` kind 2."""
+    num_q, dim = q_i8.shape
+    return (num_q > I8_SWEEP_Q_MAX and k <= I8_WGMMA_K_MAX
+            and dim % 16 == 0 and _aligned(q_i8, v_i8))
+
+
+def i8_wgmma_partition(num_q: int, cap: int, sms: int, k: int):
+    """The int8 scan's grid: `topk_wgmma_partition` at its query tile, 64
+    queries a CTA, and 32 past k = 128, where each query's buffer takes
+    512 keys (csrc/scan_topk_wgmma.cu)."""
+    qtile = TOPK_WGMMA_QTILE if k <= TOPK_WGMMA_K_MAX else 32
+    return topk_wgmma_partition(num_q, cap, sms, qtile)
 
 
 # K6's tensor-core scan (csrc/scan_i4_wgmma.cu): a CTA holds 64 queries and

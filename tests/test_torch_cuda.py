@@ -6,8 +6,9 @@ present (the CPU test runs), and runs on the card with
     python -m pytest tests/test_torch_cuda.py -q
 
 Shapes are small; `chip_smoke.py` checks the same kernels at the main
-path's shapes. K1's keys (either product: the TMA + wgmma mainloop at
-dim % 8 == 0, the wmma tile otherwise) decode within 1e-4 of the plain
+path's shapes. K1's keys (any product: the TMA + wgmma mainloop at
+dim % 8 == 0, the mainloop fed by cp.async at other even widths, the wmma
+tile at odd widths) decode within 1e-4 of the plain
 version's, and the rows K2 picks from them rescore equal to the plain
 version's outside a 1e-4 k/k+1 gap. Tolerances: K5 / K10 keys, K9 and
 P1 int8 results, int8 / int4 scores, and K7's sweep on scores that are
@@ -21,7 +22,8 @@ summation order moves a key by at most one 128-ulp quantum (7.6e-6),
 while a TF32 product would be off by several 1e-5 at these widths; its
 tensor-core segment scan (3xTF32 for float32 postings) is held to the
 same limit, and its int8 keys bit for bit. K3's sweep (the row-scaled
-int8 kind) equals the plain version bit for bit, vals and idx.
+int8 kind) and its tensor-core scan's int8 kind equal the plain version
+bit for bit, vals and idx.
 """
 
 import pytest
@@ -56,7 +58,7 @@ DIMS = [96, 50]
 
 # K1 cases (dim, Q, cap): dims that are multiples of 8 run the TMA + wgmma
 # mainloop (1024: 16 full k-stages; 768; 96: a half-filled second stage),
-# 50 the wmma tile. Q = 17 and 200 leave a partial 128-query tile, 2048 is
+# 50 the mainloop fed by cp.async (4-byte pieces). Q = 17 and 200 leave a partial 128-query tile, 2048 is
 # the serving chunk; cap % 256 == 128 (8320, 4224) leaves the last tile's
 # second segment past the end.
 SEGMAX_CASES = [(96, 200, 8192), (50, 200, 8192), (1024, 17, 8320),
@@ -824,16 +826,22 @@ def _i8_store(dev, cap, dim, nq, seed):
 @pytest.mark.parametrize("nq", [1, 2, 4, 8, 16])
 def test_fused_topk_i8_sweep_exact(dev, nq, k, cap, dim):
     """K3's sweep = the plain version bit for bit (ties to the lower row)
-    through the dispatch at every Q it serves; two launches in a row."""
+    at every query tile it has, through the dispatch where Q <=
+    I8_SWEEP_Q_MAX and launched uncounted past it (the dispatch then takes
+    the tensor-core scan, held to the same result); two launches in a
+    row."""
     q8, v8, vs, mask = _i8_store(dev, cap, dim, nq, seed=nq + k)
     ref = scan.scan_topk_plain(q8, v8, vs, mask, k)
-    assert scan.i8_sweep_ready(q8, v8, k)
+    served = scan.i8_sweep_ready(q8, v8, k)
+    assert served == (nq <= scan.I8_SWEEP_Q_MAX)
     for _ in range(2):
         before = scan.LAUNCHES["scan_topk_i8_sweep"]
         got = scan.fused_topk_i8(q8, v8, vs, mask, k)
-        assert scan.LAUNCHES["scan_topk_i8_sweep"] == before + 1
+        assert scan.LAUNCHES["scan_topk_i8_sweep"] == before + served
+        sweep = scan._sweep_launch(q8, v8, vs, mask, k, "fused_topk_i8")
         torch.cuda.synchronize()
-        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        for out in (got, sweep):
+            assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     if k >= 4:
         assert got[1][0, :4].tolist() == [1, 5, 6, 130]
 
@@ -857,17 +865,21 @@ def test_fused_topk_i8_sweep_nonpositive_scores(dev, nq, k):
     """k reaches past the live rows of positive score into those of score
     0 (scale 0) and below (scale < 0, and rows scored against the query's
     negation), then past every live row into the -inf padding: the sweep
-    ranks them, and pads, as the plain version does."""
+    (launched uncounted, at Q = 16 too) and the dispatch's kernel rank
+    them, and pad, as the plain version does."""
     q8, v8, vs, mask = _i8_store(dev, 4096, 96, nq, seed=nq + k)
     keep = torch.zeros_like(mask)
     keep[[1, 5]] = True
     keep[600:640] = True  # scales 0 and < 0
     v8[700] = -v8[1]  # the query's negation: a negative sum
     keep[700] = True
-    got = scan.fused_topk_i8(q8, v8, vs, keep, k)
+    got = scan._sweep_launch(q8, v8, vs, keep, k, "fused_topk_i8")
     ref = scan.scan_topk_plain(q8, v8, vs, keep, k)
     torch.cuda.synchronize()
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    disp = scan.fused_topk_i8(q8, v8, vs, keep, k)  # the sweep, or the scan
+    torch.cuda.synchronize()
+    assert torch.equal(disp[0], ref[0]) and torch.equal(disp[1], ref[1])
     live = min(k, 43)
     rows = set(got[1][0, :live].tolist())
     assert rows <= set(keep.nonzero().flatten().tolist())
@@ -1154,3 +1166,273 @@ def test_k4_k5_on_second_card(dev):
         out[name] = (got[0].cpu(), got[1].cpu(), keys.cpu())
     for a, b in zip(out["cuda:0"], out["cuda:1"]):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# K3's tensor-core scan (int8 kind) and K1's mainloop fed by cp.async
+# --------------------------------------------------------------------------
+
+
+def _k3_launch(q8, v8, vs, mask, k):
+    before = dict(scan.LAUNCHES)
+    got = scan.fused_topk_i8(q8, v8, vs, mask, k)
+    tc = scan.LAUNCHES["scan_topk_i8_wgmma"] - before["scan_topk_i8_wgmma"]
+    assert scan.LAUNCHES["scan_topk_i8"] == before["scan_topk_i8"] + 1
+    return got, tc
+
+
+def _k3_equal(got, ref):
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("cap,dim", [(8320, 1024), (4224, 96)])
+@pytest.mark.parametrize("k", [1, 14, 128, 129, 142, 384])
+@pytest.mark.parametrize("nq", [17, 64, 128, 256, 2048])
+def test_fused_topk_i8_wgmma_exact(dev, nq, k, cap, dim):
+    """K3's tensor-core scan = the plain version bit for bit, vals and idx
+    (exact int32 sums, one conversion, one multiply, ties to the lower
+    row): Q past the sweep's limit and off the query tile, k at each
+    buffer size's edge (N = 32 past 128), cap % 256 == 128, live rows of
+    scale 0 and < 0, a masked 256-row block (two dead segments)."""
+    q8, v8, vs, mask = _i8_store(dev, cap, dim, nq, seed=nq + k)
+    assert scan.i8_wgmma_ready(q8, v8, k)
+    got, tc = _k3_launch(q8, v8, vs, mask, k)
+    assert tc == 1
+    ref = scan.scan_topk_plain(q8, v8, vs, mask, k)
+    torch.cuda.synchronize()
+    _k3_equal(got, ref)
+    if k >= 4:
+        assert got[1][0, :4].tolist() == [1, 5, 6, 130]
+
+
+@pytest.mark.parametrize("k", [14, 142])
+def test_fused_topk_i8_wgmma_sparse_masks(dev, k):
+    """A ~1 % mask with most segments dead, one live row, and only live
+    rows of scale <= 0 (a negative scale times a negative sum ranks high):
+    the slots past the live rows come out -inf / 0, as in the plain
+    version."""
+    q8, v8, vs, mask = _i8_store(dev, 70_016, 128, 64, seed=k)
+    g = torch.Generator().manual_seed(k)
+    sparse = (torch.rand(70_016, generator=g) < 0.01).to(dev)
+    sparse[:128 * 100] = False  # the first 100 segments dead
+    cases = {"sparse": sparse, "one": [77], "nonpositive": list(range(600, 640))}
+    for name, rows in cases.items():
+        keep = rows if name == "sparse" else torch.zeros_like(mask)
+        if name != "sparse":
+            keep[rows] = True
+        got, tc = _k3_launch(q8, v8, vs, keep, k)
+        assert tc == 1
+        ref = scan.scan_topk_plain(q8, v8, vs, keep, k)
+        torch.cuda.synchronize()
+        _k3_equal(got, ref)
+        live = min(k, int(keep.sum()))
+        assert bool(torch.isfinite(got[0][:, :live]).all()), name
+        assert bool(torch.isneginf(got[0][:, live:]).all()), name
+        assert bool((got[1][:, live:] == 0).all()), name
+        if name == "nonpositive":  # the twenty rows of scale 0
+            assert bool((got[0][:, :live] == 0).any())
+
+
+@pytest.mark.parametrize("k", [14, 142])
+def test_fused_topk_i8_wgmma_all_negative(dev, k):
+    """Non-negative rows against non-positive queries: every score < 0,
+    and a ragged last segment (cap 4229) whose zero-filled rows past cap
+    (score 0) would beat them all were they admitted."""
+    g = torch.Generator().manual_seed(k)
+    cap, dim = 4229, 96
+    v8 = torch.randint(1, 128, (cap, dim), generator=g, dtype=torch.int8)
+    q8 = -torch.randint(1, 128, (64, dim), generator=g, dtype=torch.int8)
+    vs = torch.rand(cap, generator=g) * 0.01 + 1e-3
+    mask = torch.rand(cap, generator=g) > 0.2
+    q8, v8, vs, mask = (t.to(dev) for t in (q8, v8, vs, mask))
+    got, tc = _k3_launch(q8, v8, vs, mask, k)
+    assert tc == 1
+    ref = scan.scan_topk_plain(q8, v8, vs, mask, k)
+    torch.cuda.synchronize()
+    _k3_equal(got, ref)
+    assert bool((got[0] < 0).all()) and bool((got[1] < cap).all())
+
+
+def test_fused_topk_i8_wgmma_ready_edges(dev):
+    """k 385, a row stride off 16 bytes, a misaligned view and Q at the
+    sweep's limit leave the scan (the template, the sweep); all equal the
+    plain version; the scan launched (uncounted) at Q = 1 does too."""
+    q8, v8, vs, mask = _i8_store(dev, 4224, 96, 64, seed=3)
+    lim = scan.I8_SWEEP_Q_MAX
+    assert scan.i8_wgmma_ready(q8, v8, 384)
+    assert not scan.i8_wgmma_ready(q8, v8, 385)
+    flat = torch.empty(v8.numel() + 16, dtype=torch.int8, device=dev)
+    vm = flat[1:1 + v8.numel()].view(v8.shape)
+    vm.copy_(v8)
+    q2, v2 = q8[:, :88].contiguous(), v8[:, :88].contiguous()
+    assert not scan.i8_wgmma_ready(q8, vm, 14)
+    assert not scan.i8_wgmma_ready(q2, v2, 14)
+    assert not scan.i8_wgmma_ready(q8[:lim], v8, 14)
+    assert scan.i8_wgmma_ready(q8[:lim + 1].contiguous(), v8, 14)
+    for qq, vv, k in ((q8, v8, 385), (q8, vm, 14), (q2, v2, 14),
+                      (q8[:lim].contiguous(), v8, 14)):
+        got, tc = _k3_launch(qq, vv, vs, mask, k)
+        assert tc == 0
+        torch.cuda.synchronize()
+        _k3_equal(got, scan.scan_topk_plain(qq, vv, vs, mask, k))
+    for nq in (1, lim):
+        qq = q8[:nq].contiguous()
+        got = scan._i8_wgmma_launch(qq, v8, vs, mask, 142)
+        torch.cuda.synchronize()
+        _k3_equal(got, scan.scan_topk_plain(qq, v8, vs, mask, 142))
+
+
+def test_fused_topk_i8_wgmma_repeated_launches_agree(dev):
+    """Ten launches at Q = 256, k_sel 142 give the same result (the
+    buffers' atomics, the compaction and re-admission)."""
+    q8, v8, vs, mask = _i8_store(dev, 70_016, 1024, 256, seed=5)
+    first = scan.fused_topk_i8(q8, v8, vs, mask, 142)
+    for _ in range(9):
+        _k3_equal(scan.fused_topk_i8(q8, v8, vs, mask, 142), first)
+
+
+def test_k3_k1_on_second_card(dev):
+    """K3's int8 scan and K1's cp.async mainloop on tensors of cuda:1
+    while the current device is 0: launched on their own card, equal to
+    the same call on cuda:0. Skips on a machine with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    q8, v8, vs, mask = _i8_store(torch.device("cpu"), 8320, 1024, 64, seed=9)
+    q, v, m1 = _data(torch.device("cpu"), cap=8192, dim=1020, nq=200)
+    out = {}
+    for name in ("cuda:0", "cuda:1"):
+        d = torch.device(name)
+        before = dict(scan.LAUNCHES)
+        got = scan.fused_topk_i8(q8.to(d), v8.to(d), vs.to(d), mask.to(d),
+                                 142)
+        keys = scan.segmax_scan(q.to(d, torch.bfloat16),
+                                v.to(d, torch.bfloat16), m1.to(d))
+        assert torch.cuda.current_device() == 0
+        assert (scan.LAUNCHES["scan_topk_i8_wgmma"]
+                == before["scan_topk_i8_wgmma"] + 1)
+        assert scan.LAUNCHES["segmax_cpasync"] == before["segmax_cpasync"] + 1
+        torch.cuda.synchronize(d)
+        out[name] = (got[0].cpu(), got[1].cpu(), keys.cpu())
+    for a, b in zip(out["cuda:0"], out["cuda:1"]):
+        assert torch.equal(a, b)
+
+
+def _k1_agrees(q, v, mask, keys, ref, k=10):
+    """K1's keys against the plain slab as `test_segmax_and_topk_keys`
+    holds them: KEY_MIN pattern equal, decoded values within 1e-4, K2
+    equal on both slabs, the decoded rows rescored equal outside a 1e-4
+    k / k+1 gap, only masked-in rows."""
+    live = keys != scan.KEY_MIN
+    assert torch.equal(live, ref != scan.KEY_MIN)
+    assert float((_dec(keys)[live] - _dec(ref)[live]).abs().max()) <= 1e-4
+    tk, tc = scan.topk_packed_keys(keys, k + 6)
+    assert torch.equal(tk, scan.topk_packed_keys_plain(keys, k + 6)[0])
+    assert torch.equal(torch.gather(keys, 1, tc.long()), tk)
+    ex_k, id_k = _decode_rescore(q, v, keys, k + 6)
+    ex_p, id_p = _decode_rescore(q, v, ref, k + 6)
+    assert float((ex_k[:, :k] - ex_p[:, :k]).abs().max()) <= 1e-5
+    gap = (ex_p[:, k - 1] - ex_p[:, k]).cpu()
+    a, b = id_k[:, :k].cpu(), id_p[:, :k].cpu()
+    for i in range(q.shape[0]):
+        if gap[i] > 1e-4:
+            assert set(a[i].tolist()) == set(b[i].tolist()), i
+    assert bool(mask[id_k[:, :k].long()].all())
+
+
+def _k1_launch(qb, vb, mask):
+    before = dict(scan.LAUNCHES)
+    keys = scan.segmax_scan(qb, vb, mask)
+    assert scan.LAUNCHES["segmax"] == before["segmax"] + 1
+    return keys, {key: scan.LAUNCHES[key] - before[key]
+                  for key in ("segmax_wgmma", "segmax_cpasync")}
+
+
+@pytest.mark.parametrize("dim", [1020, 1018, 300, 100, 50])
+@pytest.mark.parametrize("nq,cap", [(17, 8320), (200, 8192), (2048, 16384)])
+def test_segmax_cpasync(dev, dim, nq, cap):
+    """K1 on the mainloop fed by cp.async at even widths TMA cannot read
+    (8-byte pieces at dim % 4 == 0, 4-byte pieces otherwise): Q off the
+    128-query tile, cap % 256 == 128, a fully masked segment and the last
+    one, held by `_k1_agrees`."""
+    q, v, mask = _data(dev, cap=cap, dim=dim, nq=nq, seed=dim + nq)
+    mask[128:256] = False
+    mask[cap - 128:] = False
+    qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    assert scan.cpasync_ready(qb, vb) and not scan.wgmma_ready(qb, vb)
+    assert scan.cpasync_piece(qb, vb) == (8 if dim % 4 == 0 else 4)
+    keys, n = _k1_launch(qb, vb, mask)
+    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 1}
+    ref = scan.segmax_scan_plain(qb, vb, mask)
+    torch.cuda.synchronize()
+    assert keys.shape == ref.shape == (nq, 2 * cap // scan.SEG)
+    assert not bool((keys[:, 2:4] != scan.KEY_MIN).any())
+    _k1_agrees(q, v, mask, keys, ref)
+
+
+@pytest.mark.parametrize("offset,piece", [(4, 8), (2, 4)])
+def test_segmax_cpasync_aligned_view(dev, offset, piece):
+    """A dim-1024 bf16 corpus whose base is 8 (4) bytes off a 16-byte
+    boundary: TMA cannot read it, cp.async can in pieces of 8 (4) bytes,
+    with the plain version's keys."""
+    q, v, mask = _data(dev, cap=8192, dim=1024, nq=200, seed=offset)
+    qb = q.to(torch.bfloat16)
+    flat = torch.empty(v.numel() + 8, dtype=torch.bfloat16, device=dev)
+    vb = flat[offset:offset + v.numel()].view(v.shape)
+    vb.copy_(v)
+    assert not scan.wgmma_ready(qb, vb) and scan.cpasync_ready(qb, vb)
+    assert scan.cpasync_piece(qb, vb) == piece
+    keys, n = _k1_launch(qb, vb, mask)
+    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 1}
+    ref = scan.segmax_scan_plain(qb, vb, mask)
+    torch.cuda.synchronize()
+    _k1_agrees(q, v, mask, keys, ref)
+
+
+def test_segmax_cpasync_repeated_launches_agree(dev):
+    """Ten launches at dim 1020, Q = 2048 give the same keys (the full
+    barrier's 128 arrivals, the proxy fence)."""
+    q, v, mask = _data(dev, cap=16384, dim=1020, nq=2048, seed=1)
+    qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    first = scan.segmax_scan(qb, vb, mask)
+    for _ in range(9):
+        assert torch.equal(scan.segmax_scan(qb, vb, mask), first)
+
+
+@pytest.mark.parametrize("nq", [17, 2048])
+def test_segmax_odd_width_takes_wmma(dev, nq):
+    """dim 97 (rows of 194 bytes): neither TMA nor cp.async, so K1 runs
+    the wmma tile, with the plain version's keys."""
+    q, v, mask = _data(dev, cap=8320, dim=97, nq=nq, seed=nq)
+    qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    assert not scan.wgmma_ready(qb, vb) and not scan.cpasync_ready(qb, vb)
+    keys, n = _k1_launch(qb, vb, mask)
+    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 0}
+    ref = scan.segmax_scan_plain(qb, vb, mask)
+    torch.cuda.synchronize()
+    _k1_agrees(q, v, mask, keys, ref)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_template_misaligned_views(dev, offset):
+    """Rows whose base is `offset` bytes off a 4-byte boundary (int8) or 2
+    bytes off (bf16) go through the template, whose word loads then read
+    element by element: the plain version's result, no misaligned-address
+    fault."""
+    q8, v8, vs, mask = _i8_store(dev, 4224, 96, 20, seed=offset)
+    flat = torch.empty(v8.numel() + 16, dtype=torch.int8, device=dev)
+    vm = flat[offset:offset + v8.numel()].view(v8.shape)
+    vm.copy_(v8)
+    for k in (14, 142):
+        got = scan.fused_topk_i8(q8, vm, vs, mask, k)
+        torch.cuda.synchronize()
+        _k3_equal(got, scan.scan_topk_plain(q8, vm, vs, mask, k))
+    q, v, m = _k4_case(dev, "bf16", 4224, 96, 64, seed=offset)
+    fb = torch.empty(v.numel() + 8, dtype=torch.bfloat16, device=dev)
+    vb = fb[1:1 + v.numel()].view(v.shape)
+    vb.copy_(v)
+    got, tc = _k4_launch(q, vb, m, 14)
+    assert tc == 0
+    ref = scan.scan_topk_plain(q, vb, None, m, 15)
+    torch.cuda.synchronize()
+    _k4_agrees(got, ref, m, 14)

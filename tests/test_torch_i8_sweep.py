@@ -50,7 +50,7 @@ def _operands(dim, nq=1, offset=0, rows=512):
 
 
 def test_i8_sweep_ready_rule():
-    qmax = tscan.SWEEP_Q_MAX
+    qmax = tscan.I8_SWEEP_Q_MAX
     for nq in sorted({1, 2, qmax}):
         q, v = _operands(96, nq)
         for k in (1, 14, 128, 142, tscan.I8_SWEEP_K_MAX):
@@ -100,14 +100,19 @@ def recorded(monkeypatch):
 def test_k3_dispatch_by_i8_sweep_ready(recorded, nq, k, dim, offset):
     """K3 takes the sweep's row-scaled int8 kind where `i8_sweep_ready`
     holds, over `sweep_partition`'s ranges with a partial of k keys a
-    CTA, and the template (`pv_scan_topk` kind 2) otherwise;
-    "scan_topk_i8" counts both, "scan_topk_i8_sweep" the sweep."""
+    CTA, the tensor-core scan's int8 kind where `i8_wgmma_ready` holds
+    (Q past the sweep's limit), and the template (`pv_scan_topk` kind 2)
+    otherwise; "scan_topk_i8" counts all three, "scan_topk_i8_sweep" the
+    sweep."""
     q, v = _operands(dim, nq, offset, rows=4096)
     vs = torch.ones(4096)
     mask = torch.ones(4096, dtype=torch.bool)
     sweep = tscan.i8_sweep_ready(q, v, k)
-    assert sweep == (nq <= tscan.SWEEP_Q_MAX and k <= 384
+    assert sweep == (nq <= tscan.I8_SWEEP_Q_MAX and k <= 384
                      and dim % 16 == 0 and offset == 0)
+    tc = tscan.i8_wgmma_ready(q, v, k)
+    assert tc == (nq > tscan.I8_SWEEP_Q_MAX and k <= 384
+                  and dim % 16 == 0 and offset == 0)
     before = dict(tscan.LAUNCHES)
     vals, idx = tscan.fused_topk_i8(*map(_as_cuda, (q, v, vs, mask)), k)
     assert vals.shape == idx.shape == (nq, k)
@@ -116,6 +121,9 @@ def test_k3_dispatch_by_i8_sweep_ready(recorded, nq, k, dim, offset):
         chunk, n = tscan.sweep_partition(4096, 132)
         assert entry == "pv_sweep_topk_i8"
         assert args[7:] == (nq, 4096, dim, k, chunk)
+    elif tc:
+        assert entry == "pv_scan_topk_i8_wgmma"
+        assert args[7:] == (nq, 4096, dim, k)
     else:
         assert entry == "pv_scan_topk" and args[0] == tscan._KIND_I8
     assert tscan.LAUNCHES["scan_topk_i8"] == before["scan_topk_i8"] + 1
@@ -195,19 +203,27 @@ def _oracle_sorted(q, v, mask):
     return -np.sort(-s, axis=1)
 
 
-@pytest.mark.parametrize("k,guard,filt", [(10, 4, False), (10, 132, False),
-                                          (20, 132, True)])
-def test_int8_route_matches_jax(k, guard, filt):
+@pytest.mark.parametrize("k,guard,filt,nq", [
+    pytest.param(10, 4, False, 8, id="10-4-False"),
+    pytest.param(10, 132, False, 8, id="10-132-False"),
+    pytest.param(20, 132, True, 8, id="20-132-True"),
+    pytest.param(10, 132, False, 17, id="10-132-False-17"),
+    pytest.param(10, 132, True, 17, id="10-132-True-17"),
+    pytest.param(10, 132, False, 64, id="10-132-False-64"),
+    pytest.param(10, 132, True, 64, id="10-132-True-64")])
+def test_int8_route_matches_jax(k, guard, filt, nq):
     """make_fused_topk_i8 with the dequantizing rescore (the int8 store's
-    route) at k_sel = k + 4 and at the host-rescore band k + 128 + 4: the
-    port's plain selection and JAX's kernel in interpret mode return the
-    same scores within TOL_SCORE and the same ids outside a TOL_GAP gap
-    of the exact (dequantized) scores."""
+    route) at k_sel = k + 4 and at the host-rescore band k + 128 + 4, at
+    Q = 8 (the sweep's batches on the card) and Q = 17 / 64 (the
+    tensor-core scan's), filtered and not: the port's plain selection and
+    JAX's kernel in interpret mode return the same scores within
+    TOL_SCORE and the same ids outside a TOL_GAP gap of the exact
+    (dequantized) scores."""
     rng = np.random.default_rng(5)
     cap, dim = 2048, 64
     v = normalize_batch(rng.normal(size=(cap, dim)).astype(np.float32))
     v8, vs = map(np.asarray, jps.quantize_rows_i8(jnp.asarray(v)))
-    q = rng.normal(size=(8, dim)).astype(np.float32)
+    q = rng.normal(size=(nq, dim)).astype(np.float32)
     mask = rng.random(cap) > 0.1
     if filt:
         mask &= rng.random(cap) < 0.3

@@ -1,5 +1,7 @@
 """K1 `segmax_scan`'s key slab: the port's plain version against the TPU
-kernel on the CPU, and the dispatch between the port's two products.
+kernel on the CPU (at dims 100 and 300 too, the widths the card serves
+through the mainloop fed by cp.async), and the dispatch between the
+port's products.
 
 The same seeded numpy inputs go through picovdb_tpu's `segmax_scan`
 (Pallas interpret mode, its transposed (C, Q) slab mapped to the port's
@@ -95,7 +97,7 @@ def _assert_slab_agrees(keys, ref_keys, ranks, ref_vals=None):
 
 @pytest.mark.parametrize("nq", [16, 200])
 @pytest.mark.parametrize("cap", [1024, 3072])
-@pytest.mark.parametrize("dim", [96, 256])
+@pytest.mark.parametrize("dim", [96, 256, 100, 300])
 def test_segmax_keys_match_tpu_slab(rng, nq, cap, dim):
     q, v, mask = _inputs(rng, nq, cap, dim)
     keys_t, ns = jps.segmax_scan(jnp.asarray(q, jnp.bfloat16),
