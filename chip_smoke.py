@@ -8,7 +8,8 @@ one against its plain PyTorch version on the card, then drives the serving
 paths through the public `PicoVectorDB` API and checks what comes back:
 a 1M x 1024 float32 store (phase 3), a 131,072 x 1020 float32 store whose
 rows TMA cannot read, served by K1's mainloop fed by cp.async, and a
-131,072 x 1019 one served by K1's wmma tile (phase 3b), a 1M x 1024 int8
+131,072 x 1019 one (odd width) served by K1's mainloop fed by its
+realigning producer (phase 3b), a 1M x 1024 int8
 store with the host-f64 rescore and a quantized checkpoint (phase 4, its
 Q = 64 batches on K3's tensor-core scan), a device-born
 16M x 1024 int4 store (phase 5, an 8 GB packed plane), a 262,144 x 1024
@@ -22,7 +23,8 @@ Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
 (K9, K7, K6, K3, K4: the template; K10, K5: the mma.sync tile; K8: its
-first kernel; K1 at dim 1020: the wmma tile); phases 3 and 7 also time
+first kernel; K1 at dims 1020 and 1019: the wmma tile); K2 is timed
+beside torch.topk at its launch shapes; phases 3 and 7 also time
 K4's tensor-core scan and its template at Q = 1 ... 256, and phase 4 K3's
 sweep and tensor-core scan at Q = 1 ... 64 (the crossovers behind their
 ready rules). `python3 chip_smoke.py --q64-latency` times only the int8
@@ -113,9 +115,9 @@ KERNELS = {
     # whose serving path must launch it). K1 is three kernels: the TMA +
     # wgmma mainloop (csrc/wgmma_tiles.cuh) wherever dim % 8 == 0, the same
     # mainloop fed by cp.async at other even widths, which phase 3b's
-    # dim-1020 store drives, and the wmma tile it keeps for odd widths,
-    # which phase 3b's dim-1019 store drives ("segmax_wmma": K1 launches
-    # less the other two's). P1 has a row
+    # dim-1020 store drives, and fed by its realigning producer at odd
+    # widths (and 2-byte aligned views), which phase 3b's dim-1019 store
+    # drives. K2's row is its split-row warp select. P1 has a row
     # per kind, both on the mainloop, and so does K10 (its int8
     # instantiation). K9's and K7's rows are their one-query sweep
     # (csrc/sweep_topk.cu), which serves every Q <= 16 call of phases 9 and
@@ -136,8 +138,9 @@ KERNELS = {
     "segmax_scan_cpasync": ("segmax_cpasync",
                             "picovdb_tpu_torch/csrc/segmax.cu",
                             "picovdb_tpu/ops/pallas_scan.py:443", "3b"),
-    "segmax_scan_wmma": ("segmax_wmma", "picovdb_tpu_torch/csrc/segmax.cu",
-                         "picovdb_tpu/ops/pallas_scan.py:443", "3b"),
+    "segmax_scan_realign": ("segmax_realign",
+                            "picovdb_tpu_torch/csrc/segmax.cu",
+                            "picovdb_tpu/ops/pallas_scan.py:443", "3b"),
     "topk_packed_keys": ("topk_keys", "picovdb_tpu_torch/csrc/topk_keys.cu",
                          "picovdb_tpu/ops/pallas_scan.py:536", 3),
     "fused_topk_i8": ("scan_topk_i8_sweep",
@@ -229,10 +232,11 @@ def card_line() -> str:
 
 # The instantiations whose registers and spills phase 1 reports: the
 # mainloop's (K1, K5, K10, P1), the one-query sweep's (K9, K7, K6 and K3
-# at small Q), K6's tensor-core scan's, K8's tensor-core segment scan's
-# and K4's tensor-core scan's
+# at small Q), K6's tensor-core scan's, K8's tensor-core segment scan's,
+# K4's tensor-core scan's and K2's split-row warp select's
 PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel",
-                 "ivf_segmax_wgmma_kernel", "scan_topk_wgmma_kernel")
+                 "ivf_segmax_wgmma_kernel", "scan_topk_wgmma_kernel",
+                 "warp_select_kernel")
 
 
 def ptxas_report(log_path) -> str:
@@ -385,8 +389,8 @@ def k1_on_mirror(torch, scan, dev, qf, qb, what: str):
     """K1 on a store's own bf16 mirror and mask (`dev`, a DeviceIndex) at
     the bf16 queries `qb` (`qf` their float32 form), held by
     `check_segmax_keys` to its plain version run over 131,072-row slices
-    (the keys are per 128-row segment). Returns the keys and the max
-    |dkey value|."""
+    (the keys are per 128-row segment). Returns the keys, the plain keys
+    and the max |dkey value|."""
     keys = scan.segmax_scan(qb, dev.vectors_lp, dev.active)
     step = 131_072
     keys_p = torch.cat([
@@ -397,7 +401,36 @@ def k1_on_mirror(torch, scan, dev, qf, qb, what: str):
     assert keys.shape == keys_p.shape, (keys.shape, keys_p.shape)
     err, _ = check_segmax_keys(torch, scan, keys, keys_p, qf, dev.vectors,
                                10, what)
-    return keys, err
+    return keys, keys_p, err
+
+
+def k2_timed(torch, scan, keys, k: int, split: bool = False) -> str:
+    """K2 on a key slab at one of its launch shapes: its keys equal
+    torch.topk's bit for bit and its columns are the tie rule's (equal
+    keys: the larger column first), then its time beside torch.topk's (the
+    library call, `library_ms`) and its bound (the slab read once, k keys
+    and columns written); with `split`, also the device time a call by
+    kernel (torch.profiler), beside which the rest of the call's time is
+    the host's."""
+    nq, c = keys.shape
+    tk, tc = scan.topk_packed_keys(keys, k)
+    rk = torch.topk(keys, k, dim=1)[0]
+    vals, pos = torch.sort(keys.flip(1), dim=1, descending=True, stable=True)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, rk), f"K2 keys differ from torch.topk at Q={nq}"
+    assert torch.equal(tc.long(), c - 1 - pos[:, :k]), \
+        f"K2 columns break the tie rule at Q={nq}"
+    del vals, pos, rk
+    ms = cuda_ms(torch, lambda: scan.topk_packed_keys(keys, k))
+    lib = cuda_ms(torch, lambda: torch.topk(keys, k, dim=1))
+    bound = entry(0.0, 0, 0, keys.numel() * 4 + nq * k * 8, 0,
+                  "int8")["bound_ms"]
+    line = (f"K2 Q={nq} k_sel={k} over {c} keys {ms:.4f} ms (torch.topk "
+            f"{lib:.4f}, bound {bound:.4f}")
+    if split:
+        line += "; " + device_split(
+            torch, lambda: scan.topk_packed_keys(keys, k))
+    return line + ")"
 
 
 def k9_template_ms(torch, scan, q8, v8, mask, k: int) -> float:
@@ -677,22 +710,24 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         f"{rec['segmax_scan']['bound_ms']:.4f} ms)")
 
     # K1 at widths TMA cannot read: dim 1020 (rows of 2040 bytes) on the
-    # mainloop fed by cp.async (8-byte pieces), with the wmma tile it
-    # replaced there held to the same plain version and timed (uncounted),
-    # and dim 1019 (rows of 2038 bytes) on the wmma tile it keeps for odd
-    # widths: the same checks, and a row each in the record
+    # mainloop fed by cp.async (8-byte pieces), and dim 1019 (rows of 2038
+    # bytes) on the mainloop fed by its realigning producer: the same
+    # checks, a row each in the record, and beside each (uncounted, held to
+    # the same plain version) the wmma tile that served both widths before
+    # and the other producer that could take the width (the realigning one
+    # at dim 1020: the crossover behind cpasync_ready)
     k1w = {}
     for d2, key, name in ((dim - 4, "segmax_cpasync", "segmax_scan_cpasync"),
-                          (ODD_DIM, None, "segmax_scan_wmma")):
+                          (ODD_DIM, "segmax_realign", "segmax_scan_realign")):
         q2 = normalize_on_device(q[:, :d2])
         c2 = normalize_on_device(corpus[:, :d2])
         q2b, lp2 = q2.to(torch.bfloat16), c2.to(torch.bfloat16)
         before = dict(scan.LAUNCHES)
         keys = scan.segmax_scan(q2b, lp2, mask)
-        assert scan.LAUNCHES["segmax"] == before["segmax"] + 1
-        assert scan.LAUNCHES["segmax_wgmma"] == before["segmax_wgmma"], d2
-        assert (scan.LAUNCHES["segmax_cpasync"] - before["segmax_cpasync"]
-                == (key is not None)), f"dim {d2}"
+        for k1 in ("segmax", "segmax_wgmma", "segmax_cpasync",
+                   "segmax_realign"):
+            assert (scan.LAUNCHES[k1] - before[k1]
+                    == (k1 in ("segmax", key))), f"dim {d2}: {k1}"
         keys_p = scan.segmax_scan_plain(q2b, lp2, mask)
         torch.cuda.synchronize()
         err_w, _ = check_k1(keys, keys_p, q2, c2, f"K1 ({name}, dim {d2})")
@@ -701,22 +736,27 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             cuda_ms(torch, lambda: scan.segmax_scan_plain(q2b, lp2, mask)),
             nq * d2 * 2 + live * d2 * 2 + cap + slab, 2 * nq * live * d2,
             "bf16")
-        if key is not None:
-            keys = scan._segmax_launch(q2b, lp2, mask, "pv_segmax_scan")
+        others = ["pv_segmax_scan"] + (["pv_segmax_scan_realign"]
+                                       if key == "segmax_cpasync" else [])
+        for other in others:
+            keys = scan._segmax_launch(q2b, lp2, mask, other)
             torch.cuda.synchronize()
-            check_k1(keys, keys_p, q2, c2, f"K1 (wmma tile, dim {d2})")
-            k1w[d2] = cuda_ms(torch, lambda: scan._segmax_launch(
-                q2b, lp2, mask, "pv_segmax_scan"))
+            check_k1(keys, keys_p, q2, c2, f"K1 ({other}, dim {d2})")
+            k1w[d2, other] = cuda_ms(torch, lambda: scan._segmax_launch(
+                q2b, lp2, mask, other))
         del keys, keys_p, q2, c2, q2b, lp2
-    cp, wm = rec["segmax_scan_cpasync"], rec["segmax_scan_wmma"]
+    cp, ra = rec["segmax_scan_cpasync"], rec["segmax_scan_realign"]
     log(f"phase 2: K1 at widths TMA cannot read agrees at Q=2048 cap={cap}: "
         f"dim {dim - 4} on the mainloop fed by cp.async (max |dkey value| "
         f"{cp['max_abs_err']:.3g}; {cp['ms']:.4f} ms, bound "
-        f"{cp['bound_ms']:.4f} ms; the wmma tile it replaced "
-        f"{k1w[dim - 4]:.4f} ms, same checks; plain {cp['plain_ms']:.4f} ms), "
-        f"dim {ODD_DIM} on the wmma tile (max |dkey value| "
-        f"{wm['max_abs_err']:.3g}; {wm['ms']:.4f} ms, bound "
-        f"{wm['bound_ms']:.4f} ms; plain {wm['plain_ms']:.4f} ms)")
+        f"{cp['bound_ms']:.4f} ms; the realigning producer "
+        f"{k1w[dim - 4, 'pv_segmax_scan_realign']:.4f} ms and the wmma tile "
+        f"{k1w[dim - 4, 'pv_segmax_scan']:.4f} ms, same checks; plain "
+        f"{cp['plain_ms']:.4f} ms), dim {ODD_DIM} on the mainloop fed by the "
+        f"realigning producer (max |dkey value| {ra['max_abs_err']:.3g}; "
+        f"{ra['ms']:.4f} ms, bound {ra['bound_ms']:.4f} ms; the wmma tile it "
+        f"replaced {k1w[ODD_DIM, 'pv_segmax_scan']:.4f} ms, same checks; "
+        f"plain {ra['plain_ms']:.4f} ms)")
 
     # K5 over the int8 rows at Q = 2048, k = 10 (segmax_i8stor: k_sel 16)
     # on the int8 mainloop. The int32 sums are exact and each key is one
@@ -1352,15 +1392,14 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     dev = db._dev
     qf = normalize_on_device(qdev[:2048])
     qb = qf.to(torch.bfloat16)
-    keys, err1 = k1_on_mirror(torch, scan, dev, qf, qb,
-                              "K1 (wgmma) on the store's mirror")
+    keys, keys_p, err1 = k1_on_mirror(torch, scan, dev, qf, qb,
+                                      "K1 (wgmma) on the store's mirror")
+    del keys_p
     rec["segmax_scan"]["max_abs_err"] = max(rec["segmax_scan"]["max_abs_err"],
                                             err1)
     # K2 on this chunk's slab (k_sel 16), at this phase's shape
     cap3, live3 = dev.active.shape[0], int(dev.active.sum())
-    k2_ms = cuda_ms(torch, lambda: scan.topk_packed_keys(keys, 16))
-    k2_bound = entry(0.0, 0, 0, keys.numel() * 4 + 2048 * 16 * 8, 0,
-                     "int8")["bound_ms"]
+    k2_line = k2_timed(torch, scan, keys, 16, split=True)
     q64f = qf[:64].contiguous()
     del keys
     k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(qb, dev.vectors_lp,
@@ -1375,13 +1414,10 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
         kk = scan.segmax_scan(qbn, dev.vectors_lp, dev.active)
         b1 = entry(0.0, 0, 0, nq * dim * 2 + live3 * dim * 2 + cap3
                    + kk.numel() * 4, 2 * nq * live3 * dim, "bf16")["bound_ms"]
-        b2 = entry(0.0, 0, 0, kk.numel() * 4 + nq * 16 * 8, 0,
-                   "int8")["bound_ms"]
         other.append(
             f"K1 Q={nq} {cuda_ms(torch, lambda: scan.segmax_scan(qbn, dev.vectors_lp, dev.active)):.4f} "
-            f"ms (bound {b1:.4f}), K2 Q={nq} k_sel=16 "
-            f"{cuda_ms(torch, lambda: scan.topk_packed_keys(kk, 16)):.4f} ms "
-            f"(bound {b2:.4f})")
+            f"ms (bound {b1:.4f}), " + k2_timed(torch, scan, kk, 16,
+                                                split=nq == 64))
         del kk
     k3_line = k3_table(torch, scan, qdev, dev.vectors_i8, dev.vscale,
                        dev.active, K3_SHAPES)
@@ -1427,9 +1463,8 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     log(f"phase 3: K1 (wgmma) keys at Q=2048 over the store's "
         f"{dev.vectors_lp.shape[0]}-row mirror agree with the plain version "
         f"(max |dkey value| {err1:.3g}, KEY_MIN pattern equal, K2 + rescored "
-        f"rows = plain outside the gap); at this phase's shapes K2 "
-        f"{k2_ms:.4f} ms (bound {k2_bound:.4f}) on the chunk's slab; "
-        + "; ".join(other))
+        f"rows = plain outside the gap); at this phase's shapes, on the "
+        f"chunk's slab {k2_line}; " + "; ".join(other))
     log(f"phase 3: K4 fused_topk over the store's {cap3}-row bf16 mirror "
         f"within {rec['fused_topk']['max_abs_err']:.3g} of the plain version, "
         f"ids = plain outside the gap (the kernel the dispatch chose, then "
@@ -1466,13 +1501,15 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
     """Two float32 stores whose widths TMA cannot read, their 2048-query
     chunks on segmax_mixed_stream: at `dim` (even: 1020) through K1's
     mainloop fed by cp.async, at ODD_DIM (1019, data from a generator of
-    its own) through K1's wmma tile; recall@10 against a float64 oracle
-    for each, and (after each store's count) K1 on the store's own mirror
-    held to the plain version. The cp.async store's K1 is timed beside the
-    wmma tile on the same inputs, and its chunks timed (median of 7
-    passes). Raises the rows' max_abs_err in `rec`; returns the launches
-    of the two paths (each counted alone): the first store's, with
-    "segmax_wmma" from the second."""
+    its own) through the mainloop fed by K1's realigning producer;
+    recall@10 against a float64 oracle for each, and (after each store's
+    count) K1 on the store's own mirror held to the plain version and
+    timed beside the wmma tile that served both widths before (and, on
+    the even store, beside the realigning producer), with its bound. The
+    cp.async store's chunks are timed (median of 7 passes). Raises the
+    rows' max_abs_err in `rec`; returns the launches of the two paths
+    (each counted alone): the first store's, with "segmax_realign" from
+    the second."""
     from picovdb_tpu_torch import PicoVectorDB
     from picovdb_tpu_torch.ops.exact import normalize_on_device
 
@@ -1487,40 +1524,58 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
         got, _ = db.query_columnar(qdev, top_k=10, batch_size=2048)
         assert db.last_query_debug()["strategy"] == "segmax_mixed_stream"
         counts = launch_counts(scan)
+        # K1 launches that took none of the mainloop's three producers
+        # (the wmma tile): none may
         counts["segmax_wmma"] = (counts["segmax"] - counts["segmax_wgmma"]
-                                 - counts["segmax_cpasync"])
+                                 - counts["segmax_cpasync"]
+                                 - counts["segmax_realign"])
+        assert counts["segmax_wmma"] == 0, counts
         truth = oracle_top10(torch, torch.from_numpy(corpus).to(device),
                              qdev[:64], torch.ones(nn, dtype=torch.bool,
                                                    device=device))
         recall = recall_at_10(got[:64], truth, prefix)
         assert recall >= 0.99, recall
         # after the count: K1 at one 2048-query chunk on the store's own
-        # mirror, held to the plain version
+        # mirror, held to the plain version, and timed beside the kernels
+        # that could serve it there, with its bound
         qf = normalize_on_device(qdev[:2048])
         qb = qf.to(torch.bfloat16)
-        _, err = k1_on_mirror(torch, scan, db._dev, qf, qb,
-                              f"K1 on the dim-{d} store's mirror")
-        return db, counts, recall, err, qb
+        dev = db._dev
+        _, keys_p, err = k1_on_mirror(torch, scan, dev, qf, qb,
+                                      f"K1 on the dim-{d} store's mirror")
+        args = (qb, dev.vectors_lp, dev.active)
+        cap, live = dev.active.shape[0], int(dev.active.sum())
+        times = {"K1": cuda_ms(torch, lambda: scan.segmax_scan(*args))}
+        for other, what in (("pv_segmax_scan_realign", "realigning producer"),
+                            ("pv_segmax_scan", "wmma tile")):
+            if other == "pv_segmax_scan_realign" and d % 2:
+                continue  # it is K1 here
+            keys = scan._segmax_launch(*args, other)
+            torch.cuda.synchronize()
+            check_segmax_keys(torch, scan, keys, keys_p, qf, dev.vectors, 10,
+                              f"{what} on the dim-{d} mirror")
+            del keys
+            times[what] = cuda_ms(torch, lambda: scan._segmax_launch(*args,
+                                                                     other))
+        bound = entry(0.0, 0, 0, 2048 * d * 2 + live * d * 2 + cap
+                      + 2048 * 2 * (cap // scan.SEG) * 4, 2 * 2048 * live * d,
+                      "bf16")["bound_ms"]
+        k1_line = (", ".join(f"{what} {ms:.4f}" for what, ms in times.items())
+                   + f" ms, bound {bound:.4f}")
+        del keys_p
+        return db, counts, recall, err, k1_line
 
     corpus = rng.standard_normal((n, dim), dtype=np.float32)
     near = corpus[rng.integers(0, n, 2048)]
     qdev = torch.from_numpy(
         near + 0.01 * rng.standard_normal(near.shape, dtype=np.float32)
     ).to(device)
-    db, counts, recall, err, qb = serve(corpus, qdev, "w", "picovdb_smoke_w")
+    db, counts, recall, err, k1_line = serve(corpus, qdev, "w",
+                                             "picovdb_smoke_w")
     assert counts["segmax_cpasync"] == counts["segmax"] > 0, counts
-    assert counts["segmax_wgmma"] == 0, counts
+    assert counts["segmax_wgmma"] == counts["segmax_realign"] == 0, counts
     cp = rec["segmax_scan_cpasync"]
     cp["max_abs_err"] = max(cp["max_abs_err"], err)
-    dev = db._dev
-    cap, live = dev.active.shape[0], int(dev.active.sum())
-    args = (qb, dev.vectors_lp, dev.active)
-    k1_ms = cuda_ms(torch, lambda: scan.segmax_scan(*args))
-    tile_ms = cuda_ms(torch, lambda: scan._segmax_launch(*args,
-                                                         "pv_segmax_scan"))
-    bound = entry(0.0, 0, 0, 2048 * dim * 2 + live * dim * 2 + cap
-                  + 2048 * 2 * (cap // scan.SEG) * 4, 2 * 2048 * live * dim,
-                  "bf16")["bound_ms"]
     passes = []
     for _ in range(7):
         torch.cuda.synchronize()
@@ -1529,15 +1584,14 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
         torch.cuda.synchronize()
         passes.append(time.perf_counter() - t0)
     chunk_s = float(np.median(passes))
-    del db, args, qb
+    del db
     log(f"phase 3b: a {n} x {dim} float32 store (bf16 mirror rows of "
         f"{dim * 2} bytes, not a multiple of 16): route segmax_mixed_stream "
         f"through K1's mainloop fed by cp.async, recall@10 {recall:.4f} vs "
         f"float64; K1 keys on the store's mirror agree with the plain "
         f"version (max |dkey value| {err:.3g}, KEY_MIN pattern equal, K2 + "
-        f"rescored rows = plain outside the gap); K1 at Q=2048 {k1_ms:.4f} "
-        f"ms (the wmma tile it replaced {tile_ms:.4f} ms, bound "
-        f"{bound:.4f}); a 2048-query chunk {chunk_s * 1e3:.3f} ms of wall, "
+        f"rescored rows = plain outside the gap); at Q=2048 {k1_line}; a "
+        f"2048-query chunk {chunk_s * 1e3:.3f} ms of wall, "
         f"{2048 / chunk_s:.1f} QPS (query_columnar, median of 7 passes; "
         f"{', '.join(f'{2048 / t:.1f}' for t in passes)}); launches {counts}")
 
@@ -1547,18 +1601,21 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
     qdev = torch.from_numpy(
         near + 0.01 * g.standard_normal(near.shape, dtype=np.float32)
     ).to(device)
-    db, odd, recall, err, qb = serve(corpus, qdev, "o", "picovdb_smoke_o")
-    assert odd["segmax_wmma"] > 0, odd
+    db, odd, recall, err, k1_line = serve(corpus, qdev, "o", "picovdb_smoke_o")
+    # every K1 launch of the odd store's path took the realigning producer
+    assert odd["segmax_realign"] == odd["segmax"] > 0, odd
     assert odd["segmax_wgmma"] == odd["segmax_cpasync"] == 0, odd
-    wm = rec["segmax_scan_wmma"]
-    wm["max_abs_err"] = max(wm["max_abs_err"], err)
-    del db, qb
+    ra = rec["segmax_scan_realign"]
+    ra["max_abs_err"] = max(ra["max_abs_err"], err)
+    del db
     log(f"phase 3b: a {n} x {ODD_DIM} float32 store (rows of "
         f"{ODD_DIM * 2} bytes, odd): route segmax_mixed_stream through K1's "
-        f"wmma tile, recall@10 {recall:.4f} vs float64; K1 keys on the "
-        f"store's mirror agree with the plain version (max |dkey value| "
-        f"{err:.3g}); launches {odd}")
-    counts["segmax_wmma"] = odd["segmax_wmma"]
+        f"mainloop fed by its realigning producer, recall@10 {recall:.4f} vs "
+        f"float64; K1 keys on the store's mirror agree with the plain "
+        f"version (max |dkey value| {err:.3g}, KEY_MIN pattern equal, K2 + "
+        f"rescored rows = plain outside the gap); at Q=2048 {k1_line}; "
+        f"launches {odd}")
+    counts["segmax_realign"] = odd["segmax_realign"]
     return counts
 
 
@@ -1702,6 +1759,8 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
         assert torch.equal(got, ref), f"K5 keys differ in rows {s}.."
     assert torch.equal(scan._segmax_i8_launch(q8_2048, *args, False), keys), \
         "K5's mma.sync tile differs on the store's plane"
+    # K2 after a K5 chunk (segmax_i8stor: k_sel 16) on that chunk's slab
+    k2_line = k2_timed(torch, scan, keys, 16)
     del keys, ref, got
     k5 = []
     for nq in (2048, 256):
@@ -1717,7 +1776,8 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     log(f"phase 4: K3 fused_topk_i8 = plain bit for bit on the store's "
         f"{cap4}-row plane (the kernel the dispatch chose, then each "
         f"kernel's ms): {k3_line}; K5 segmax_scan_i8 (int8 TMA + wgmma) keys "
-        f"= plain bit for bit at Q=2048 on the plane: " + ", ".join(k5))
+        f"= plain bit for bit at Q=2048 on the plane: " + ", ".join(k5)
+        + f"; on K5's 2048-query slab {k2_line}")
     log(f"phase 4: K3's crossover on the store's plane, {live4} live rows "
         f"(sweep limit I8_SWEEP_Q_MAX = {scan.I8_SWEEP_Q_MAX}): {k3_cross}; "
         f"the tensor-core scan at Q=64: " + "; ".join(

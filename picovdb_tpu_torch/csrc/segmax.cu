@@ -22,13 +22,19 @@
 // share the row by shuffles. No score leaves the registers. At even
 // widths TMA cannot read (dim 1020, 300, 100, 50, or 4- / 8-byte aligned
 // views) the same mainloop runs with its cp.async producer
-// (pv_segmax_scan_cpasync). Odd widths and 2-byte aligned views keep the
-// first kernel, `segmax_kernel`: one block scores 64 queries x
-// one 128-row segment with wmma bf16 16x16x16 from unpipelined
-// shared-memory tiles (tiles.cuh) and reduces the tile in shared memory.
-// Neither carries state between tiles, so the TPU's two grid orders
-// (classic / stream) are the same launch here; query tiles vary fastest
-// so the blocks reading one segment run together and share it in L2.
+// (pv_segmax_scan_cpasync), and at odd widths and on 2-byte aligned views
+// with its realigning producer (pv_segmax_scan_realign: TMA stages each
+// row's aligned span, rows j, j + 8, ... read as one 2D tensor whose
+// 8-row stride TMA can take, and the producer warpgroup shifts the slices
+// into the swizzled ring in shared memory). The first kernel,
+// `segmax_kernel` (one block scores 64 queries x one 128-row segment with
+// wmma bf16 16x16x16 from unpipelined shared-memory tiles, tiles.cuh, and
+// reduces the tile in shared memory), serves no dispatch any more; it
+// stays as pv_segmax_scan, the kernel the realigning producer replaced,
+// timed beside it. No kernel carries state between tiles, so the TPU's
+// two grid orders (classic / stream) are the same launch here; query
+// tiles vary fastest so the blocks reading one segment run together and
+// share it in L2.
 //
 // K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are K1 over a per-row
 // int8 corpus and over the column-scaled int8 mirror. Both run the int8
@@ -467,6 +473,23 @@ extern "C" int pv_segmax_scan_cpasync(const void* q, const void* v,
                                                               cap, dim, s);
   return wg::launch_tiles<wg::Bf16, SegmaxTileEpi<float>, 4>(q, v, epi, Q,
                                                             cap, dim, s);
+}
+
+// K1 on the same mainloop fed by its realigning producer, for the rows
+// neither TMA's plain maps nor cp.async can read: pv_segmax_scan's
+// contract for any dim, q and v 2-byte aligned (odd widths, 2-byte aligned
+// views). Returns 0, a cudaError_t, or minus the CUresult of a refused
+// tensor-map encode.
+extern "C" int pv_segmax_scan_realign(const void* q, const void* v,
+                                      const void* mask, void* keys, int Q,
+                                      long long cap, int dim, void* stream) {
+  using namespace pv;
+  if (cap % SEG) return (int)cudaErrorInvalidValue;
+  const SegmaxTileEpi<float> epi{static_cast<const uint8_t*>(mask),
+                                 static_cast<int*>(keys),
+                                 (long)(2 * (cap / SEG)), nullptr};
+  return wg::launch_tiles<wg::Bf16, SegmaxTileEpi<float>, 2>(
+      q, v, epi, Q, cap, dim, (cudaStream_t)stream);
 }
 
 // q (Q, dim) int8, v (cap, dim) int8 with cap % 128 == 0, vscale (cap,)

@@ -39,26 +39,40 @@
 // filled by TMA (bf16 +0.0, int8 0), so the epilogue only has to skip
 // writing them. TMA needs the row stride and both base addresses 16-byte
 // aligned: dim % 8 == 0 for bf16, dim % 16 == 0 for int8. At other widths
-// the same mainloop takes a second producer (PIECE > 0): the whole
-// producer warpgroup copies each stage with cp.async in pieces of PIECE
-// bytes (8 where the row bytes and both bases are multiples of 8, else 4),
-// to the very offsets TMA's 128B swizzle gives them, zero-filling the
-// pieces past dim, Q and cap (src-size 0) as TMA does; a piece never
-// crosses a row's end, since PIECE divides the row bytes. Each producer
-// thread signals the stage's full barrier with
-// cp.async.mbarrier.arrive.noinc once its copies have landed (the
-// barrier counts 128 arrivals in place of one expect_tx), and the
-// consumers fence the copies (generic proxy) for wgmma's async proxy
-// after the wait. K1 takes it at even bf16 widths TMA cannot read
-// (dim 1020, 300, 100, 50); K1's odd widths, P1-bf16 and the int8 kinds
-// at widths TMA cannot read keep the first score tiles of tiles.cuh. The
-// launcher reads the current device (SM count,
-// shared-memory attribute): callers launch under their tensors' device.
+// the same mainloop takes one of two other producers, whose threads write
+// the stage themselves, 128 arrivals on its full barrier in place of one
+// expect_tx, the consumers fencing the writes (generic proxy) for wgmma's
+// async proxy after the wait:
+//  * PIECE 2, the realigning producer, for bf16 rows that are only 2-byte
+//    aligned (odd widths, 2-byte aligned views): TMA loads each row's
+//    aligned 144-byte span of the k-slice into a staging slot, rows j, j +
+//    8, ... read as one 2D tensor (a stride of 8 rows is a multiple of 16
+//    bytes) from row j's start aligned down (see ClassMaps), and the
+//    producer warpgroup shifts each slice into the ring's swizzled stage
+//    in shared memory; its 128 threads then arrive as below. Two ring
+//    stages and two staging slots fill the shared memory. K1 takes it:
+//    cp.async has no 2-byte copy, a box must start on a 16-byte boundary,
+//    and producers that moved the bytes from device memory through the
+//    threads measured 6-8 ms where TMA takes 0.9.
+//  * PIECE 8 or 4, the cp.async producer: the whole producer warpgroup
+//    copies each stage in pieces of PIECE bytes (8 where the row bytes and
+//    both bases are multiples of 8, else 4) to the very offsets TMA's 128B
+//    swizzle gives them, zero-filling the pieces past dim, Q and cap
+//    (src-size 0) as TMA does; a piece never crosses a row's end, since
+//    PIECE divides the row bytes. Each producer thread arrives with
+//    cp.async.mbarrier.arrive.noinc once its copies have landed. K1 takes
+//    it at even bf16 widths TMA cannot read directly (dim 1020, 300, 100,
+//    50; 4- and 8-byte aligned views).
+// P1-bf16 and the int8 kinds at widths TMA cannot read keep the first
+// score tiles of tiles.cuh. The launcher reads the current device (SM
+// count, shared-memory attribute): callers launch under their tensors'
+// device.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda call is linked
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -284,31 +298,158 @@ __device__ __forceinline__ void cp_stage(uint32_t dst,
   }
 }
 
+// The realigning producer (PIECE 2) reads rows that are only 2-byte
+// aligned. TMA cannot read them as one 2D tensor (their stride is no
+// multiple of 16 bytes), and a box must start on a 16-byte boundary. But
+// rows j, j + CLASSES, j + 2 CLASSES, ... of a matrix of even row bytes
+// form a 2D tensor whose row stride, CLASSES x row bytes, is a multiple of
+// 16 bytes; its map is based at row j's start aligned down to 16 bytes
+// (`off` elements before it). One box of 72 elements (STAGE_ROW = 144
+// bytes) at column 64 k of that map holds each of the class's rows' 128-
+// byte slice k at byte 2 off, and zeros past the row's end and past the
+// class's rows; TMA reads no 16-byte chunk that holds no byte of a row.
+// Per stage the producer's elected thread loads the classes' boxes into a
+// staging slot (no swizzle; two slots), and the 128 threads of the
+// producer warpgroup move each row's slice out of it into the ring's
+// swizzled stage, in the rows' own order, by two 16-byte shared loads, a
+// shift by 2 off bytes and one 16-byte store a piece.
+constexpr int CLASSES = 8;
+constexpr int STAGE_ROW = 144;             // bytes of a staged row's span
+constexpr int SLOT_A = BM * STAGE_ROW;     // a slot's A boxes: 18 KB
+constexpr int SLOT_BYTES = SLOT_A + BN * STAGE_ROW;  // 54 KB
+constexpr int SLOTS = 2;
+constexpr int REALIGN_STAGES = 2;          // ring stages beside the slots
+static_assert(REALIGN_STAGES * STAGE_BYTES + SLOTS * SLOT_BYTES + 1024 +
+                  8 * (2 * REALIGN_STAGES + SLOTS) <= 232448,
+              "the realigning producer's shared memory");
+
+struct TileMaps {  // the TMA producer's: q and v
+  CUtensorMap q, v;
+};
+
+struct ClassMaps {  // the realigning producer's: classes of q and of v
+  CUtensorMap q[CLASSES], v[CLASSES];
+  int qoff[CLASSES], voff[CLASSES];  // off of each class; -1: no such row
+  uint32_t slot_bytes;  // bytes of a slot's boxes (classes that hold a row)
+};
+
+template <int PIECE>
+using MapsOf =
+    typename std::conditional<PIECE == 2, ClassMaps, TileMaps>::type;
+
+// The 16 bytes at byte `off` (even, 0..14) of the 32 bytes lo | hi, as
+// four words (little endian: byte i of the pair is byte i % 4 of word
+// i / 4). Selects, not an indexed array, so nothing goes to local memory.
+__device__ __forceinline__ uint4 shift_pair(uint4 lo, uint4 hi, int off) {
+  const uint32_t z[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const bool w1 = off & 4, w2 = off & 8;
+  uint32_t t[7], u[5];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) t[i] = w1 ? z[i + 1] : z[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) u[i] = w2 ? t[i + 2] : t[i];
+  const uint32_t sh = (off & 2) * 8;  // 0 or 16 bits
+  return make_uint4(__funnelshift_r(u[0], u[1], sh),
+                    __funnelshift_r(u[1], u[2], sh),
+                    __funnelshift_r(u[2], u[3], sh),
+                    __funnelshift_r(u[3], u[4], sh));
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+
+// Thread t (of the producer warpgroup's 128) moves 16-byte piece c = t % 8
+// of rows t / 8, + 16, ... of a box of ROWS rows from the staging slot at
+// `src` (class j's box of ROWS / CLASSES rows at j ROWS / CLASSES
+// STAGE_ROW) to the stage at `dst`, swizzled as TMA's 128B swizzle lays a
+// box of 128-byte rows out. A thread's rows are all of class (t / 8) % 8,
+// so one offset `off` (bytes: 2 off elements; < 0 where the class has no
+// row, whose pieces are zero) serves them all.
+template <int ROWS>
+__device__ __forceinline__ void realign_box(uint32_t dst, uint32_t src, int t,
+                                            int off) {
+  constexpr int PER = ROWS / CLASSES;  // rows of a class in the box
+  constexpr int BATCH = 4;             // passes whose loads issue together
+  const int c = t % 8, r0 = t / 8, j = r0 % CLASSES;
+  const uint32_t from =
+      src + (j * PER + r0 / CLASSES) * STAGE_ROW + 16 * c;
+#pragma unroll
+  for (int p0 = 0; p0 < ROWS / 16; p0 += BATCH) {
+    uint4 lo[BATCH], hi[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {  // row r / 8 of its class: r0 / 8 + 2 p
+      const uint32_t a = from + 2 * (p0 + u) * STAGE_ROW;
+      lo[u] = ld_shared_v4(a);
+      hi[u] = ld_shared_v4(a + 16);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int r = r0 + 16 * (p0 + u);
+      const uint4 v = off >= 0 ? shift_pair(lo[u], hi[u], off)
+                               : make_uint4(0, 0, 0, 0);
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       dst + r * ROW_BYTES + ((c ^ (r & 7)) << 4)),
+                   "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                   : "memory");
+    }
+  }
+}
+
+// The realigning producer's elected thread: the classes' boxes of tile
+// `tile`'s k-stage k into the slot at `slot`, reported to `bar`.
+__device__ __forceinline__ void stage_boxes(const ClassMaps& maps,
+                                            uint32_t slot, uint32_t bar,
+                                            int tile, int k, int q_tiles) {
+  const int m_q = (tile % q_tiles) * (BM / CLASSES);
+  const int m_v = (tile / q_tiles) * (BN / CLASSES);
+  mbar_expect_tx(bar, maps.slot_bytes);
+#pragma unroll
+  for (int c = 0; c < CLASSES; ++c) {
+    if (maps.qoff[c] >= 0)
+      tma_load_2d(slot + c * (BM / CLASSES) * STAGE_ROW, &maps.q[c], bar,
+                  k * 64, m_q);
+    tma_load_2d(slot + SLOT_A + c * (BN / CLASSES) * STAGE_ROW, &maps.v[c],
+                bar, k * 64, m_v);
+  }
+}
+
 // The mainloop. `Epi::tile(acc, q0, r0, Q, cap)` runs in each consumer
 // thread once per output tile (queries q0.., corpus rows r0..). Fragment
 // layout of `acc` (wgmma's accumulator, f32 of m64nNk16 and s32 of
 // m64nNk32 alike): lane l of warp w of consumer warpgroup g holds tile
 // rows 64 g + 16 w + l / 4 (h = 0) and + 8 (h = 1), at columns
 // 8 j + 2 (l % 4) + e, in acc[4 j + 2 h + e]. PIECE 0: the TMA producer
-// (maps tq, tv); 4 or 8: the cp.async producer (pointers qp, vp).
+// (maps.q, maps.v); 2: the realigning producer (ClassMaps; bf16 only);
+// 4 or 8: the cp.async producer (pointers qp, vp).
 template <class T, class Epi, int PIECE>
 __global__ void __launch_bounds__(THREADS, 1)
-tiles_kernel(const __grid_constant__ CUtensorMap tq,
-             const __grid_constant__ CUtensorMap tv,
+tiles_kernel(const __grid_constant__ MapsOf<PIECE> maps,
              const unsigned char* __restrict__ qp,
              const unsigned char* __restrict__ vp, const Epi epi, int Q,
              long cap, int dim) {
+  constexpr bool CP = PIECE == 4 || PIECE == 8;  // the cp.async producer
+  constexpr bool RA = PIECE == 2;                // the realigning producer
+  constexpr int NS = RA ? REALIGN_STAGES : STAGES;  // ring stages
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t a_ring = base, b_ring = base + STAGES * A_BYTES;
-  const uint32_t full = base + STAGES * STAGE_BYTES, empty = full + 8 * STAGES;
+  const uint32_t a_ring = base, b_ring = base + NS * A_BYTES;
+  const uint32_t slots = base + NS * STAGE_BYTES;  // RA: the staging slots
+  const uint32_t full = slots + (RA ? SLOTS * SLOT_BYTES : 0);
+  const uint32_t empty = full + 8 * NS, staged = empty + 8 * NS;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      // the TMA producer's one expect_tx arrival, or the cp.async
-      // producer's 128 threads' arrivals
+    for (int s = 0; s < NS; ++s) {
+      // the TMA producer's one expect_tx arrival, or the 128 threads'
+      // arrivals of the cp.async and realigning producers
       mbar_init(full + 8 * s, PIECE ? 128 : 1);
       mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
+    if (RA)
+      for (int s = 0; s < SLOTS; ++s) mbar_init(staged + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -316,9 +457,64 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
   const int tiles = q_tiles * (int)((cap + BN - 1) / BN);
   const int k_iters = (dim + T::BK - 1) / T::BK;
 
+  // registers a thread keeps: the producer's, each consumer's (P + 2 C =
+  // 504, the 168 x 3 the launch gives); the realigning producer's batched
+  // shared loads take a larger share
+  constexpr int PREGS = RA ? 72 : 40, CREGS = (504 - PREGS) / 2;
   if (threadIdx.x >= 2 * 128) {  // producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if constexpr (PIECE > 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PREGS));
+    if constexpr (RA) {
+      const int t = threadIdx.x - 2 * 128;
+      // this thread's rows are of class (t / 8) % 8: their offsets (bytes)
+      const int cls = (t / 8) % CLASSES;
+      const int qoff = maps.qoff[cls] < 0 ? -1 : 2 * maps.qoff[cls];
+      const int voff = 2 * maps.voff[cls];
+      // the elected thread runs SLOTS stages ahead: (next_tile, next_k)
+      int next_tile = blockIdx.x, next_k = 0;
+      if (t == 0)
+        for (int s = 0; s < SLOTS && next_tile < tiles; ++s) {
+          stage_boxes(maps, slots + s * SLOT_BYTES, staged + 8 * s,
+                      next_tile, next_k, q_tiles);
+          if (++next_k == k_iters) {
+            next_k = 0;
+            next_tile += gridDim.x;
+          }
+        }
+      int stage = 0, slot = 0;
+      uint32_t phase = 0, sphase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int k = 0; k < k_iters; ++k) {
+          const uint32_t from = slots + slot * SLOT_BYTES;
+          mbar_wait(staged + 8 * slot, sphase);     // the boxes have landed
+          mbar_wait(empty + 8 * stage, phase ^ 1);  // first lap: free
+          realign_box<BM>(a_ring + stage * A_BYTES, from, t, qoff);
+          realign_box<BN>(b_ring + stage * B_BYTES, from + SLOT_A, t, voff);
+          // the stores, for wgmma's async proxy, then this thread's arrival
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(full + 8 * stage);
+          // every thread has read the slot: refill it
+          asm volatile("bar.sync 1, 128;\n" ::: "memory");
+          if (t == 0 && next_tile < tiles) {
+            // the slot's generic reads before TMA's writes (async proxy)
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            stage_boxes(maps, from, staged + 8 * slot, next_tile, next_k,
+                        q_tiles);
+            if (++next_k == k_iters) {
+              next_k = 0;
+              next_tile += gridDim.x;
+            }
+          }
+          if (++stage == NS) {
+            stage = 0;
+            phase ^= 1;
+          }
+          if (++slot == SLOTS) {
+            slot = 0;
+            sphase ^= 1;
+          }
+        }
+      }
+    } else if constexpr (CP) {
       const int t = threadIdx.x - 2 * 128;
       const long row_bytes = (long)dim * T::ELEM_BYTES;
       int stage = 0;
@@ -346,9 +542,9 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
         for (int k = 0; k < k_iters; ++k) {
           mbar_wait(empty + 8 * stage, phase ^ 1);  // first lap: free
           mbar_expect_tx(full + 8 * stage, STAGE_BYTES);
-          tma_load_2d(a_ring + stage * A_BYTES, &tq, full + 8 * stage,
+          tma_load_2d(a_ring + stage * A_BYTES, &maps.q, full + 8 * stage,
                       k * T::BK, q0);
-          tma_load_2d(b_ring + stage * B_BYTES, &tv, full + 8 * stage,
+          tma_load_2d(b_ring + stage * B_BYTES, &maps.v, full + 8 * stage,
                       k * T::BK, r0);
           if (++stage == STAGES) {
             stage = 0;
@@ -358,7 +554,7 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   } else {  // consumer warpgroups
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CREGS));
     const uint32_t a_half = (threadIdx.x / 128) * (A_BYTES / 2);
     const bool leader = threadIdx.x % 32 == 0;
     typename T::Acc acc[ACC];
@@ -370,7 +566,7 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
       int prev = 0;
       for (int k = 0; k < k_iters; ++k) {
         mbar_wait(full + 8 * stage, phase);
-        if constexpr (PIECE > 0)  // cp.async wrote in the generic proxy
+        if constexpr (PIECE > 0)  // threads wrote in the generic proxy
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         const uint64_t da = sw128_desc(a_ring + stage * A_BYTES + a_half);
         const uint64_t db = sw128_desc(b_ring + stage * B_BYTES);
@@ -383,7 +579,7 @@ tiles_kernel(const __grid_constant__ CUtensorMap tq,
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         if (k > 0 && leader) mbar_arrive(empty + 8 * prev);
         prev = stage;
-        if (++stage == STAGES) {
+        if (++stage == NS) {
           stage = 0;
           phase ^= 1;
         }
@@ -443,12 +639,47 @@ int encode_rows(EncodeTiled enc, CUtensorMap* map, const void* ptr,
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
+// The map of class j of a (rows, dim) row-major matrix of T's elements at
+// `ptr` (even row bytes, a 2-byte aligned base): rows j, j + CLASSES, ...
+// as a 2D tensor (see ClassMaps) from row j's start aligned down to 16
+// bytes, read in boxes of STAGE_ROW bytes x box_rows rows, unswizzled,
+// out-of-bounds elements zero; `*off` the elements between its base and
+// row j's start, -1 (and no map) where the matrix has no row j. 0, or
+// minus the CUresult of a refused encode.
+template <class T>
+int encode_class(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                 long long rows, int dim, int j, int box_rows, int* off) {
+  if (rows <= j) {
+    *off = -1;
+    return 0;
+  }
+  const long long row_bytes = (long long)dim * T::ELEM_BYTES;
+  const uintptr_t start = (uintptr_t)ptr + j * row_bytes;
+  const uintptr_t base = start & ~(uintptr_t)15;
+  *off = (int)((start - base) / T::ELEM_BYTES);
+  const cuuint64_t gdim[2] = {
+      (cuuint64_t)(dim + *off),
+      (cuuint64_t)((rows - j + CLASSES - 1) / CLASSES)};
+  const cuuint64_t gstride[1] = {(cuuint64_t)(CLASSES * row_bytes)};
+  const cuuint32_t box[2] = {(cuuint32_t)(STAGE_ROW / T::ELEM_BYTES),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = enc(map, T::TMA_TYPE, 2, reinterpret_cast<void*>(base),
+                         gdim, gstride, box, estride,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
 // Launches the persistent kernel on q (Q, dim) and v (cap, dim), both of
 // T's type, on the current device (one CTA per SM, fewer when there are
 // fewer tiles): PIECE 0 encodes their TMA maps (rows of whole 16 bytes,
-// 16-byte aligned bases), PIECE 4 or 8 feeds the ring by cp.async (the row
-// bytes and both bases multiples of PIECE). Returns 0, a cudaError_t, or
-// minus a CUresult of the encode.
+// 16-byte aligned bases), PIECE 2 their class maps for the realigning
+// producer (bf16: even row bytes, 2-byte aligned bases), PIECE 4 or 8
+// feeds the ring by cp.async (the row bytes and both bases multiples of
+// PIECE). Returns 0, a cudaError_t, or minus a CUresult of the encode.
 template <class T, class Epi, int PIECE = 0>
 int launch_tiles(const void* q, const void* v, const Epi& epi, int Q,
                  long long cap, int dim, cudaStream_t stream) {
@@ -457,28 +688,48 @@ int launch_tiles(const void* q, const void* v, const Epi& epi, int Q,
   if (dim <= 0 || (long long)dim * T::ELEM_BYTES % align ||
       ((uintptr_t)q | (uintptr_t)v) % align)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap tq{}, tv{};
-  if constexpr (PIECE == 0) {
+  MapsOf<PIECE> maps{};
+  if constexpr (PIECE == 0 || PIECE == 2) {
     EncodeTiled enc;
     int err = encoder(&enc);
     if (err) return err;
-    if ((err = encode_rows<T>(enc, &tq, q, Q, dim, BM))) return err;
-    if ((err = encode_rows<T>(enc, &tv, v, cap, dim, BN))) return err;
+    if constexpr (PIECE == 0) {
+      if ((err = encode_rows<T>(enc, &maps.q, q, Q, dim, BM))) return err;
+      if ((err = encode_rows<T>(enc, &maps.v, v, cap, dim, BN))) return err;
+    } else {
+      static_assert(PIECE != 2 || T::ELEM_BYTES == 2, "bf16 rows");
+      maps.slot_bytes = BN * STAGE_ROW;
+      for (int j = 0; j < CLASSES; ++j) {
+        if ((err = encode_class<T>(enc, &maps.q[j], q, Q, dim, j,
+                                   BM / CLASSES, &maps.qoff[j])))
+          return err;
+        if ((err = encode_class<T>(enc, &maps.v[j], v, cap, dim, j,
+                                   BN / CLASSES, &maps.voff[j])))
+          return err;
+        if (maps.qoff[j] >= 0) maps.slot_bytes += BM / CLASSES * STAGE_ROW;
+      }
+    }
   }
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // the ring, 1 KB to align it, the barriers; the realigning producer's
+  // ring of REALIGN_STAGES and its slots
+  constexpr int smem =
+      PIECE == 2 ? REALIGN_STAGES * STAGE_BYTES + SLOTS * SLOT_BYTES + 1024 +
+                       8 * (2 * REALIGN_STAGES + SLOTS)
+                 : SMEM_BYTES;
   if (e == cudaSuccess)  // > 48 KB of dynamic shared memory
     e = cudaFuncSetAttribute(tiles_kernel<T, Epi, PIECE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
+                             smem);
   if (e != cudaSuccess) return (int)e;
   const long long tiles = (long long)((Q + BM - 1) / BM) * ((cap + BN - 1) / BN);
   if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;  // int tile ids
   const int grid = (int)std::min<long long>(tiles, sms);
-  tiles_kernel<T, Epi, PIECE><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      tq, tv, static_cast<const unsigned char*>(q),
+  tiles_kernel<T, Epi, PIECE><<<grid, THREADS, smem, stream>>>(
+      maps, static_cast<const unsigned char*>(q),
       static_cast<const unsigned char*>(v), epi, Q, (long)cap, dim);
   return (int)cudaGetLastError();
 }

@@ -37,10 +37,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # q, v, mask, keys, Q, cap, dim, stream (K1: the wmma tile, the TMA +
-    # wgmma mainloop, and the mainloop fed by cp.async)
+    # wgmma mainloop, and the mainloop fed by cp.async or by the
+    # realigning producer)
     "pv_segmax_scan": [_P, _P, _P, _P, _I, _L, _I, _P],
     "pv_segmax_scan_wgmma": [_P, _P, _P, _P, _I, _L, _I, _P],
     "pv_segmax_scan_cpasync": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "pv_segmax_scan_realign": [_P, _P, _P, _P, _I, _L, _I, _P],
     # q, v, vscale, mask, keys, Q, cap, dim, stream (K5: the mma.sync tile,
     # and the int8 TMA + wgmma mainloop)
     "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
@@ -49,8 +51,9 @@ _SIGNATURES = {
     # the int8 TMA + wgmma mainloop)
     "pv_segmax_scan_i8c": [_P, _P, _P, _P, _I, _L, _I, _P],
     "pv_segmax_scan_i8c_wgmma": [_P, _P, _P, _P, _I, _L, _I, _P],
-    # keys, out_keys, out_cols, Q, C, k, stream
-    "pv_topk_packed_keys": [_P, _P, _P, _I, _L, _I, _P],
+    # keys, out_keys, out_cols, scratch (null where a row is one chunk), Q,
+    # C, k, chunk, stream (K2's split-row warp select)
+    "pv_topk_packed_keys": [_P, _P, _P, _P, _I, _L, _I, _L, _P],
     # kind (0 f32, 1 bf16, 2 int8: K3/K4; 3 packed int4: K6; 4 column-scaled
     # int8: K9), q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k,
     # chunk, stream

@@ -8,7 +8,8 @@ kernels those paths run:
 
   K1 `segmax_scan`      csrc/segmax.cu     per-128-row-segment top-2 keys
                         (product: csrc/wgmma_tiles.cuh, see `wgmma_ready`;
-                        fed by cp.async, see `cpasync_ready`)
+                        fed by cp.async, see `cpasync_ready`; by the
+                        realigning producer, see `realign_ready`)
   K2 `topk_packed_keys` csrc/topk_keys.cu  per-query top-k_sel of the keys
   K3 `fused_topk_i8`    csrc/scan_topk.cu  exact top-k over per-row int8
                         (small Q, k <= 384: csrc/sweep_topk.cu,
@@ -64,9 +65,11 @@ SEG = 128  # rows per segmax segment
 # "segmax" and "dot_rowmax" count K1 / P1 (both kinds) on either product;
 # the "_wgmma" keys count the TMA + wgmma mainloop alone (see `wgmma_ready`,
 # `wgmma_i8_ready`), "segmax_cpasync" K1 on the mainloop fed by cp.async
-# (`cpasync_ready`): "dot_rowmax_wgmma" P1-bf16's, "dot_rowmax_i8_wgmma"
-# P1-int8's, "segmax_i8c_wgmma" K10's ("segmax_i8c" counts every K10
-# launch), "segmax_i8_wgmma" K5's ("segmax_i8" every K5 launch).
+# (`cpasync_ready`), "segmax_realign" K1 on the mainloop fed by its
+# realigning producer (`realign_ready`): "dot_rowmax_wgmma" P1-bf16's,
+# "dot_rowmax_i8_wgmma" P1-int8's, "segmax_i8c_wgmma" K10's ("segmax_i8c"
+# counts every K10 launch), "segmax_i8_wgmma" K5's ("segmax_i8" every K5
+# launch).
 # "scan_topk" counts every K4 launch, "scan_topk_wgmma" those of its
 # tensor-core scan (`topk_wgmma_ready`). "scan_topk_i8c" counts every K9
 # launch, "scan_topk_i8c_sweep" those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
@@ -79,6 +82,7 @@ SEG = 128  # rows per segmax segment
 # int8 kind (`i8_wgmma_ready`); "ivf_segmax" every K8 launch, "ivf_segmax_wgmma"
 # those of its tensor-core segment scan (ops/ivf.py::`ivf_segmax_ready`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
+            "segmax_realign": 0,
             "topk_keys": 0, "scan_topk": 0, "scan_topk_wgmma": 0,
             "scan_topk_i8": 0, "scan_topk_i8_sweep": 0,
             "scan_topk_i8_wgmma": 0, "segmax_i8": 0,
@@ -372,8 +376,8 @@ def wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
     """Whether K1 / P1-bf16 run the TMA + wgmma mainloop
     (csrc/wgmma_tiles.cuh) on these contiguous bf16 operands: TMA needs a
     row stride that is a multiple of 16 bytes (dim % 8 == 0) and 16-byte
-    aligned bases. Otherwise K1 takes `cpasync_ready`'s producer or the
-    wmma tile (csrc/tiles.cuh), P1-bf16 the wmma tile."""
+    aligned bases. Otherwise K1 takes `cpasync_ready`'s producer or
+    `realign_ready`'s, P1-bf16 the wmma tile (csrc/tiles.cuh)."""
     return _tma_ready(queries, vectors, 8)
 
 
@@ -391,9 +395,25 @@ def cpasync_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
     producer on these contiguous bf16 operands: TMA cannot read them
     (`wgmma_ready` fails), yet cp.async can copy their rows in 8- or
     4-byte pieces (an even dim, 4-byte aligned bases; `cpasync_piece`).
-    Odd widths and 2-byte aligned views keep the wmma tile."""
+    Odd widths and 2-byte aligned views take `realign_ready`'s producer."""
     return (not wgmma_ready(queries, vectors)
             and cpasync_piece(queries, vectors) > 0)
+
+
+def realign_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    """Whether K1 runs the TMA + wgmma mainloop fed by its realigning
+    producer on these contiguous bf16 operands: every pair the other two
+    producers refuse (an odd dim, or a base only 2-byte aligned). TMA
+    stages each row's aligned span (rows j, j + 8, ... as one 2D tensor
+    each, whose stride of 8 rows, 16 dim bytes, TMA can take, from row
+    j's start aligned down to 16 bytes) and the producer warpgroup shifts
+    the slices into place in shared memory. At dim 1020 it took 2.26-2.41
+    ms where cp.async took 1.53-1.65 (H100 80GB HBM3, 700 W; PERF.md), so
+    even widths keep `cpasync_ready`. bf16 bases are always 2-byte
+    aligned, so with `wgmma_ready` and `cpasync_ready` it covers every
+    pair, and K1 never dispatches to the wmma tile."""
+    return (not wgmma_ready(queries, vectors)
+            and not cpasync_ready(queries, vectors))
 
 
 def wgmma_i8_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
@@ -438,17 +458,20 @@ def segmax_scan(queries: torch.Tensor, vectors: torch.Tensor,
     cpasync = cpasync_ready(q, vectors)
     keys = _segmax_launch(q, vectors, mask, "pv_segmax_scan_wgmma" if wgmma
                           else "pv_segmax_scan_cpasync" if cpasync
-                          else "pv_segmax_scan")
+                          else "pv_segmax_scan_realign")
     _count("segmax", num_q)
     LAUNCHES["segmax_wgmma"] += wgmma
     LAUNCHES["segmax_cpasync"] += cpasync
+    LAUNCHES["segmax_realign"] += not (wgmma or cpasync)
     return keys
 
 
 def _segmax_launch(q, vectors, mask, entry: str) -> torch.Tensor:
     """K1's launch on checked CUDA operands through `entry`, uncounted: the
     TMA mainloop (`pv_segmax_scan_wgmma`), the mainloop fed by cp.async
-    (`pv_segmax_scan_cpasync`) or the wmma tile (`pv_segmax_scan`)."""
+    (`pv_segmax_scan_cpasync`) or by its realigning producer
+    (`pv_segmax_scan_realign`), or the wmma tile the last replaced
+    (`pv_segmax_scan`, served by no dispatch)."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
@@ -580,12 +603,36 @@ def segmax_scan_i8c_plain(q_i8, v_i8, mask):
 # ---------------------------------------------------------------------------
 
 
+# K2's split-row warp select (csrc/topk_keys.cu): one warp a chunk of a
+# row, chunks of whole TOPK_KEYS_STEP keys (32 lanes x 4 keys x 4 loads in
+# flight), sized so that a launch holds about TOPK_KEYS_WARPS warps (~8 an
+# SM of 132) and a row is cut no finer than that needs: over phase 3's
+# 15,872-key rows Q = 64 takes 16 chunks a row, Q = 256 four, Q = 2048 one
+# (no merge). 1,024 measured best of 1,024 / 2,048 / 4,096 / 8,192 there,
+# weighed by the route's launches (H100 80GB HBM3, 700 W; PERF.md).
+TOPK_KEYS_STEP = 512
+TOPK_KEYS_WARPS = 1024
+
+
+def topk_keys_chunk(num_q: int, c: int) -> int:
+    """Keys a warp of K2's select reads from its row: about
+    TOPK_KEYS_WARPS / num_q chunks a row, rounded up to whole
+    TOPK_KEYS_STEP keys. A row of more than one chunk has its chunks'
+    lists merged by its last warp."""
+    want = max(1, -(-TOPK_KEYS_WARPS // max(1, num_q)))
+    chunk = -(-c // want)
+    return -(-chunk // TOPK_KEYS_STEP) * TOPK_KEYS_STEP
+
+
 def topk_packed_keys(keys: torch.Tensor, k_sel: int):
     """Per-row top-k_sel of a (Q, C) int32 key slab, descending.
 
     Returns (keys (Q, k_sel) int32, columns (Q, k_sel) int32). Equal keys
     leave one per round (multiplicity as in `torch.topk`); the kernel
-    takes the larger column first."""
+    takes the larger column first. On a CUDA tensor: the split-row warp
+    select (csrc/topk_keys.cu), one warp a chunk of `topk_keys_chunk`
+    keys of a row, the chunks' lists merged by the row's last warp in the
+    same launch (scratch and tickets only where a row has several)."""
     num_q, c = keys.shape
     _require(keys.dtype == torch.int32, "topk_packed_keys: keys must be int32")
     _require(0 < k_sel <= min(c, TOPK_KEYS_MAX),
@@ -593,16 +640,26 @@ def topk_packed_keys(keys: torch.Tensor, k_sel: int):
     if not keys.is_cuda:
         return topk_packed_keys_plain(keys, k_sel)
     keys = keys.contiguous()
-    out_k = torch.empty((num_q, k_sel), dtype=torch.int32, device=keys.device)
-    out_c = torch.empty_like(out_k)
+    out_k, out_c = torch.empty((2, num_q, k_sel), dtype=torch.int32,
+                               device=keys.device)
+    chunk = topk_keys_chunk(num_q, c)
+    chunks = -(-c // chunk)
+    # where a row has several chunks: their lists, then the rows' tickets
+    # (zeroed by the launcher)
+    scratch = (torch.empty(num_q * chunks * k_sel + (num_q + 1) // 2,
+                           dtype=torch.int64, device=keys.device)
+               if chunks > 1 else None)
     _launch(keys, "topk_packed_keys", "pv_topk_packed_keys", keys.data_ptr(),
-            out_k.data_ptr(), out_c.data_ptr(), num_q, c, k_sel)
+            out_k.data_ptr(), out_c.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), num_q, c, k_sel,
+            chunk)
     _count("topk_keys", num_q, k_sel)
     return out_k, out_c
 
 
 def topk_packed_keys_plain(keys, k_sel):
-    """Plain version of K2."""
+    """Plain version of K2 (`torch.topk`: the same keys; among equal keys
+    its columns may leave in another order than the kernel's)."""
     tk, ti = torch.topk(keys, k_sel, dim=1)
     return tk, ti.to(torch.int32)
 

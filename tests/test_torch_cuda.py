@@ -7,10 +7,13 @@ present (the CPU test runs), and runs on the card with
 
 Shapes are small; `chip_smoke.py` checks the same kernels at the main
 path's shapes. K1's keys (any product: the TMA + wgmma mainloop at
-dim % 8 == 0, the mainloop fed by cp.async at other even widths, the wmma
-tile at odd widths) decode within 1e-4 of the plain
+dim % 8 == 0, the mainloop fed by cp.async at other even widths, by its
+realigning producer at odd widths and on 2-byte aligned views, and the
+wmma tile those replaced) decode within 1e-4 of the plain
 version's, and the rows K2 picks from them rescore equal to the plain
-version's outside a 1e-4 k/k+1 gap. Tolerances: K5 / K10 keys, K9 and
+version's outside a 1e-4 k/k+1 gap. K2's split-row warp select returns
+`torch.topk`'s keys bit for bit, its columns by the tie rule (equal keys:
+the larger column first). Tolerances: K5 / K10 keys, K9 and
 P1 int8 results, int8 / int4 scores, and K7's sweep on scores that are
 exact in float32 are exact (integer sums, at most one float32 conversion
 and one multiply); float32 / bf16 scores within 1e-5 (summation order).
@@ -122,18 +125,20 @@ def test_segmax_and_topk_keys(dev, dim, nq, cap):
 
 
 def test_segmax_misaligned_view_takes_wmma(dev):
-    """A bf16 corpus whose base is 2 bytes off a 16-byte boundary: TMA
-    cannot read it, so K1 runs the wmma tile, with the plain version's
-    keys."""
+    """A bf16 corpus whose base is 2 bytes off a 16-byte boundary: neither
+    TMA nor cp.async can read it, so K1 runs the mainloop fed by its
+    realigning producer (until it came, the wmma tile), with the plain
+    version's keys."""
     q, v, mask = _data(dev, cap=4096, dim=96, nq=64)
     qb = q.to(torch.bfloat16)
     flat = torch.empty(v.numel() + 8, dtype=torch.bfloat16, device=dev)
     vb = flat[1:1 + v.numel()].view(v.shape)
     vb.copy_(v)
-    assert not scan.wgmma_ready(qb, vb)
-    before = scan.LAUNCHES["segmax_wgmma"]
+    assert not scan.wgmma_ready(qb, vb) and scan.realign_ready(qb, vb)
+    before = dict(scan.LAUNCHES)
     keys = scan.segmax_scan(qb, vb, mask)
-    assert scan.LAUNCHES["segmax_wgmma"] == before
+    assert scan.LAUNCHES["segmax_wgmma"] == before["segmax_wgmma"]
+    assert scan.LAUNCHES["segmax_realign"] == before["segmax_realign"] + 1
     ref = scan.segmax_scan_plain(qb, vb, mask)
     torch.cuda.synchronize()
     live = keys != scan.KEY_MIN
@@ -1345,7 +1350,8 @@ def _k1_launch(qb, vb, mask):
     keys = scan.segmax_scan(qb, vb, mask)
     assert scan.LAUNCHES["segmax"] == before["segmax"] + 1
     return keys, {key: scan.LAUNCHES[key] - before[key]
-                  for key in ("segmax_wgmma", "segmax_cpasync")}
+                  for key in ("segmax_wgmma", "segmax_cpasync",
+                              "segmax_realign")}
 
 
 @pytest.mark.parametrize("dim", [1020, 1018, 300, 100, 50])
@@ -1362,7 +1368,7 @@ def test_segmax_cpasync(dev, dim, nq, cap):
     assert scan.cpasync_ready(qb, vb) and not scan.wgmma_ready(qb, vb)
     assert scan.cpasync_piece(qb, vb) == (8 if dim % 4 == 0 else 4)
     keys, n = _k1_launch(qb, vb, mask)
-    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 1}
+    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 1, "segmax_realign": 0}
     ref = scan.segmax_scan_plain(qb, vb, mask)
     torch.cuda.synchronize()
     assert keys.shape == ref.shape == (nq, 2 * cap // scan.SEG)
@@ -1383,7 +1389,7 @@ def test_segmax_cpasync_aligned_view(dev, offset, piece):
     assert not scan.wgmma_ready(qb, vb) and scan.cpasync_ready(qb, vb)
     assert scan.cpasync_piece(qb, vb) == piece
     keys, n = _k1_launch(qb, vb, mask)
-    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 1}
+    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 1, "segmax_realign": 0}
     ref = scan.segmax_scan_plain(qb, vb, mask)
     torch.cuda.synchronize()
     _k1_agrees(q, v, mask, keys, ref)
@@ -1402,15 +1408,20 @@ def test_segmax_cpasync_repeated_launches_agree(dev):
 @pytest.mark.parametrize("nq", [17, 2048])
 def test_segmax_odd_width_takes_wmma(dev, nq):
     """dim 97 (rows of 194 bytes): neither TMA nor cp.async, so K1 runs
-    the wmma tile, with the plain version's keys."""
+    the mainloop fed by its realigning producer (until it came, the wmma
+    tile, which is held to the same keys here), with the plain version's
+    keys."""
     q, v, mask = _data(dev, cap=8320, dim=97, nq=nq, seed=nq)
     qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
     assert not scan.wgmma_ready(qb, vb) and not scan.cpasync_ready(qb, vb)
     keys, n = _k1_launch(qb, vb, mask)
-    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 0}
+    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 0, "segmax_realign": 1}
     ref = scan.segmax_scan_plain(qb, vb, mask)
     torch.cuda.synchronize()
     _k1_agrees(q, v, mask, keys, ref)
+    tile = scan._segmax_launch(qb, vb, mask, "pv_segmax_scan")
+    torch.cuda.synchronize()
+    _k1_agrees(q, v, mask, tile, ref)
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -1436,3 +1447,153 @@ def test_template_misaligned_views(dev, offset):
     ref = scan.scan_topk_plain(q, vb, None, m, 15)
     torch.cuda.synchronize()
     _k4_agrees(got, ref, m, 14)
+
+
+# --------------------------------------------------------------------------
+# K1 fed by its realigning producer; K2's split-row warp select
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dim", [1019, 1021, 97, 1])
+@pytest.mark.parametrize("nq,cap", [(17, 8320), (200, 8192), (2048, 16384)])
+def test_segmax_realign(dev, dim, nq, cap):
+    """K1 on the mainloop fed by its realigning producer at odd widths
+    (rows of 2038 / 2042 / 194 / 2 bytes: every 2-byte offset of a row
+    start modulo 16 occurs): Q off the 128-query tile, cap % 256 == 128, a
+    fully masked segment and the last one, held by `_k1_agrees`."""
+    q, v, mask = _data(dev, cap=cap, dim=dim, nq=nq, seed=dim + nq)
+    mask[128:256] = False
+    mask[cap - 128:] = False
+    qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    assert scan.realign_ready(qb, vb)
+    keys, n = _k1_launch(qb, vb, mask)
+    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 0, "segmax_realign": 1}
+    ref = scan.segmax_scan_plain(qb, vb, mask)
+    torch.cuda.synchronize()
+    assert keys.shape == ref.shape == (nq, 2 * cap // scan.SEG)
+    assert not bool((keys[:, 2:4] != scan.KEY_MIN).any())
+    _k1_agrees(q, v, mask, keys, ref)
+
+
+def _view_at(t, offset_elems):
+    """A contiguous copy of `t` whose base lies `offset_elems` elements
+    past an allocation's (16-byte aligned) start."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = flat[offset_elems:offset_elems + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dim", [1024, 1020, 300, 1019])
+@pytest.mark.parametrize("q_off,v_off", [(0, 1), (1, 0), (3, 5), (7, 7)])
+def test_segmax_realign_aligned_views(dev, dim, q_off, v_off):
+    """Queries and rows whose bases lie an odd number of bf16 elements (2,
+    6, 10, 14 bytes) past a 16-byte boundary: only the realigning producer
+    can read them, at even widths too; the plain version's keys."""
+    q, v, mask = _data(dev, cap=8320, dim=dim, nq=200, seed=dim + q_off)
+    qb = _view_at(q.to(torch.bfloat16), q_off)
+    vb = _view_at(v.to(torch.bfloat16), v_off)
+    assert scan.realign_ready(qb, vb)
+    keys, n = _k1_launch(qb, vb, mask)
+    assert n == {"segmax_wgmma": 0, "segmax_cpasync": 0, "segmax_realign": 1}
+    ref = scan.segmax_scan_plain(qb, vb, mask)
+    torch.cuda.synchronize()
+    _k1_agrees(q, v, mask, keys, ref)
+
+
+def test_segmax_realign_all_masked_and_negative(dev):
+    """Every segment masked but one, whose live rows all score below 0
+    (the zeros past cap and dim must not win): the plain keys."""
+    q, v, mask = _data(dev, cap=8320, dim=1019, nq=130, seed=3)
+    v = -v.abs()
+    q = q.abs()
+    mask[:] = False
+    mask[8192:8200] = True
+    qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    keys, n = _k1_launch(qb, vb, mask)
+    assert n["segmax_realign"] == 1
+    ref = scan.segmax_scan_plain(qb, vb, mask)
+    torch.cuda.synchronize()
+    live = keys != scan.KEY_MIN
+    assert torch.equal(live, ref != scan.KEY_MIN)
+    assert float((_dec(keys)[live] - _dec(ref)[live]).abs().max()) <= 1e-4
+    assert bool((_dec(keys)[live] < 0).all())
+
+
+def test_segmax_realign_repeated_launches_agree(dev):
+    """Ten launches at dim 1019, Q = 2048 give the same keys (the full
+    barrier's 128 arrivals, the proxy fences)."""
+    q, v, mask = _data(dev, cap=16384, dim=1019, nq=2048, seed=2)
+    qb, vb = q.to(torch.bfloat16), v.to(torch.bfloat16)
+    first = scan.segmax_scan(qb, vb, mask)
+    for _ in range(9):
+        assert torch.equal(scan.segmax_scan(qb, vb, mask), first)
+
+
+def _k2_reference(keys, k):
+    """The top-k of each row by (key, column) descending: the kernel's tie
+    rule (equal keys, the larger column first), on the CPU."""
+    flipped = keys.cpu().flip(1)
+    vals, pos = torch.sort(flipped, dim=1, descending=True, stable=True)
+    cols = keys.shape[1] - 1 - pos[:, :k]
+    return vals[:, :k], cols.to(torch.int32)
+
+
+def _k2_check(keys, k):
+    before = dict(scan.LAUNCHES)
+    tk, tc = scan.topk_packed_keys(keys, k)
+    assert scan.LAUNCHES["topk_keys"] == before["topk_keys"] + 1
+    torch.cuda.synchronize()
+    rk, rc = _k2_reference(keys, k)
+    assert torch.equal(tk.cpu(), rk)
+    assert torch.equal(tk, torch.topk(keys, k, dim=1)[0])
+    assert torch.equal(tc.cpu(), rc)
+
+
+@pytest.mark.parametrize("nq", [1, 64, 256, 2048])
+@pytest.mark.parametrize("c", [2, 6, 130, 1002, 4096, 15872, 16384])
+@pytest.mark.parametrize("k", [1, 16, 22, 32])
+def test_topk_packed_keys(dev, nq, c, k):
+    """Random int32 keys with KEY_MIN runs and repeated values: keys bit
+    for bit `torch.topk`'s, columns by the tie rule, at every chunking
+    `scan.topk_keys_chunk` gives (one chunk a row at small C, up to 31)."""
+    if k > c:
+        pytest.skip("k_sel > C is refused")
+    g = torch.Generator().manual_seed(nq * 7 + c + k)
+    keys = torch.randint(-2**31, 2**31 - 1, (nq, c), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    keys[:, ::7] = scan.KEY_MIN
+    n = keys[:, 2::5].shape[1]
+    keys[:, 1:1 + 5 * n:5] = keys[:, 2::5]  # each a repeat of its neighbour
+    _k2_check(keys.to(dev), k)
+
+
+@pytest.mark.parametrize("case", ["all_equal", "key_min", "dup_max",
+                                  "c_is_k", "ragged_chunk", "offset_base"])
+@pytest.mark.parametrize("nq", [1, 64, 2048])
+@pytest.mark.parametrize("k", [1, 16, 22, 32])
+def test_topk_packed_keys_ties(dev, case, nq, k):
+    """Crafted ties: rows of one key value, rows of KEY_MIN (column 0's
+    KEY_MIN is the empty slot's pattern), the row maximum repeated on both
+    sides of every chunk boundary, C == k_sel, C one key past whole
+    chunks, and a slab 4 bytes off a 16-byte boundary (element loads)."""
+    c = {"c_is_k": k, "ragged_chunk": 4 * 512 + 2}.get(case, 15872)
+    g = torch.Generator().manual_seed(nq + k)
+    keys = torch.randint(-2**30, 2**30, (nq, c), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    if case == "all_equal":
+        keys[:] = 12345
+    elif case == "key_min":
+        keys[:] = scan.KEY_MIN
+        keys[1::2, 5] = 7
+    elif case == "dup_max":
+        chunk = scan.topk_keys_chunk(nq, c)
+        for b in range(0, c, chunk):
+            for col in (b - 1, b, b + 1):
+                if 0 <= col < c:
+                    keys[:, col] = 2**31 - 1
+    keys = keys.to(dev)
+    if case == "offset_base":
+        keys = _view_at(keys, 1)
+        assert keys.data_ptr() % 16 == 4
+    _k2_check(keys, k)

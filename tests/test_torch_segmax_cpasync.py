@@ -12,9 +12,10 @@
   products read, so the keys are the plain version's.
 * The ready rule (`cpasync_ready`, `cpasync_piece`) at dims 1020 / 1018 /
   300 / 100 / 50 / 97 and 8- / 4- / 2-byte aligned views, and K1's
-  dispatch between its three products, recorded on CPU tensors posing as
-  CUDA tensors against `_build._SIGNATURES`; on the CPU the counters stay
-  0.
+  dispatch between its three producers (odd widths and 2-byte aligned
+  views: the realigning one, `realign_ready`), recorded on CPU tensors
+  posing as CUDA tensors against `_build._SIGNATURES`; on the CPU the
+  counters stay 0.
 """
 
 import numpy as np
@@ -23,7 +24,7 @@ import torch
 
 from picovdb_tpu_torch.ops import _build
 from picovdb_tpu_torch.ops import scan as tscan
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import bf16_bytes, cap_torch_threads, tma_box
 
 cap_torch_threads()
 
@@ -58,29 +59,6 @@ def _cp_stage(mat, row0, k, rows_total, piece, nrows):
     return stage, writes
 
 
-def _tma_box(mat, row0, k, rows_total, nrows):
-    """The box TMA writes: 128 bytes x nrows from (row row0, byte 128 k),
-    out-of-bounds bytes zero, 128B-swizzled (Swizzle<3, 4, 3>)."""
-    row_bytes = mat.shape[1]
-    logical = np.zeros((nrows, ROW_BYTES), dtype=np.uint8)
-    for r in range(nrows):
-        gr = row0 + r
-        if gr >= rows_total:
-            continue
-        c0 = k * ROW_BYTES
-        n = max(0, min(ROW_BYTES, row_bytes - c0))
-        logical[r, :n] = mat[gr, c0:c0 + n]
-    addr = np.arange(nrows * ROW_BYTES)
-    out = np.zeros(nrows * ROW_BYTES, dtype=np.uint8)
-    out[addr ^ (((addr >> 7) & 7) << 4)] = logical.reshape(-1)
-    return out
-
-
-def _bf16_bytes(rng, rows, dim):
-    x = torch.from_numpy(rng.standard_normal((rows, dim)).astype(np.float32))
-    return x.to(torch.bfloat16).view(torch.uint8).numpy().reshape(rows, 2 * dim)
-
-
 @pytest.mark.parametrize("dim,piece", [(1020, 8), (1018, 4), (300, 8),
                                        (100, 8), (50, 4), (1024, 8),
                                        (1024, 4)])
@@ -91,14 +69,14 @@ def test_cp_stage_lands_where_tma_puts_it(dim, piece, nrows):
     exist, every byte written exactly once."""
     rng = np.random.default_rng(dim + piece + nrows)
     rows = nrows + 37  # the second tile holds 37 rows
-    mat = _bf16_bytes(rng, rows, dim)
+    mat = bf16_bytes(rng, rows, dim)
     assert mat.shape[1] % piece == 0
     k_iters = -(-mat.shape[1] // ROW_BYTES)
     for row0 in (0, nrows):
         for k in range(k_iters):
             got, writes = _cp_stage(mat, row0, k, rows, piece, nrows)
             assert (writes == 1).all()
-            np.testing.assert_array_equal(got, _tma_box(mat, row0, k, rows,
+            np.testing.assert_array_equal(got, tma_box(mat, row0, k, rows,
                                                         nrows))
     # the last stage of a row carries zeros past dim: 2 dim % 128 bytes
     last, _ = _cp_stage(mat, 0, k_iters - 1, rows, piece, nrows)
@@ -179,17 +157,18 @@ def _operands(dim, offset=0, nq=16, rows=256):
 
 @pytest.mark.parametrize("dim,offset,want", [
     (1024, 0, "tma"), (1020, 0, 8), (1018, 0, 4), (300, 0, 8), (100, 0, 8),
-    (50, 0, 4), (97, 0, "wmma"), (1019, 0, "wmma"), (1024, 8, 8),
-    (1024, 4, 4), (1024, 2, "wmma"), (1020, 4, 4), (1020, 2, "wmma"),
-    (50, 2, "wmma")])
+    (50, 0, 4), (97, 0, "realign"), (1019, 0, "realign"), (1024, 8, 8),
+    (1024, 4, 4), (1024, 2, "realign"), (1020, 4, 4), (1020, 2, "realign"),
+    (50, 2, "realign")])
 def test_cpasync_ready_rule(dim, offset, want):
     """TMA at rows of whole 16 bytes and 16-byte aligned bases; else
     cp.async in 8-byte pieces where the row bytes and the bases are
     multiples of 8, in 4-byte pieces where they are multiples of 4; else
-    (odd dim, 2-byte aligned views) the wmma tile."""
+    (odd dim, 2-byte aligned views) the realigning producer."""
     q, v = _operands(dim, offset)
     assert tscan.wgmma_ready(q, v) == (want == "tma")
     assert tscan.cpasync_ready(q, v) == (want in (8, 4))
+    assert tscan.realign_ready(q, v) == (want == "realign")
     if want in (8, 4):
         assert tscan.cpasync_piece(q, v) == want
 
@@ -222,13 +201,13 @@ def recorded(monkeypatch):
 @pytest.mark.parametrize("dim,offset,entry", [
     (1024, 0, "pv_segmax_scan_wgmma"), (1020, 0, "pv_segmax_scan_cpasync"),
     (1018, 0, "pv_segmax_scan_cpasync"), (300, 0, "pv_segmax_scan_cpasync"),
-    (1024, 8, "pv_segmax_scan_cpasync"), (97, 0, "pv_segmax_scan"),
-    (1024, 2, "pv_segmax_scan")])
+    (1024, 8, "pv_segmax_scan_cpasync"), (97, 0, "pv_segmax_scan_realign"),
+    (1024, 2, "pv_segmax_scan_realign")])
 def test_k1_dispatch_by_ready_rules(recorded, dim, offset, entry):
-    """K1 takes the TMA mainloop, the cp.async one or the wmma tile by the
-    ready rules, with the same arguments (q, v, mask, keys, Q, cap, dim);
-    "segmax" counts all three, "segmax_wgmma" and "segmax_cpasync" their
-    own."""
+    """K1 takes the TMA mainloop, the cp.async one or the realigning one by
+    the ready rules, with the same arguments (q, v, mask, keys, Q, cap,
+    dim); "segmax" counts all three, "segmax_wgmma", "segmax_cpasync" and
+    "segmax_realign" their own; the wmma tile is never dispatched."""
     q, v = _operands(dim, offset, nq=17, rows=2 * SEG)
     mask = torch.ones(2 * SEG, dtype=torch.bool)
     before = dict(tscan.LAUNCHES)
@@ -243,6 +222,8 @@ def test_k1_dispatch_by_ready_rules(recorded, dim, offset, entry):
             == (entry == "pv_segmax_scan_wgmma"))
     assert (tscan.LAUNCHES["segmax_cpasync"] - before["segmax_cpasync"]
             == (entry == "pv_segmax_scan_cpasync"))
+    assert (tscan.LAUNCHES["segmax_realign"] - before["segmax_realign"]
+            == (entry == "pv_segmax_scan_realign"))
 
 
 def test_counters_stay_zero_on_the_cpu():

@@ -59,3 +59,29 @@ def clustered_unit(rng, n, dim, centres=16, sigma=0.03):
     x = c[rng.integers(0, centres, n)] + sigma * rng.standard_normal(
         (n, dim)).astype(np.float32)
     return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+# The TMA box the wgmma mainloop's producers must reproduce, shared by the
+# emulations of K1's cp.async and realigning producers
+
+
+def tma_box(mat, row0, k, rows_total, nrows):
+    """The box TMA writes from a (rows, row bytes) uint8 matrix it can
+    read: 128 bytes x nrows from (row row0, byte 128 k), out-of-bounds
+    bytes zero, 128B-swizzled (Swizzle<3, 4, 3>: the address's bits 4-6
+    XORed with its bits 7-9)."""
+    logical = np.zeros((nrows, 128), dtype=np.uint8)
+    for r in range(nrows):
+        if row0 + r < rows_total:
+            tail = mat[row0 + r, 128 * k:128 * k + 128]
+            logical[r, :tail.size] = tail
+    addr = np.arange(nrows * 128)
+    out = np.zeros(nrows * 128, dtype=np.uint8)
+    out[addr ^ (((addr >> 7) & 7) << 4)] = logical.reshape(-1)
+    return out
+
+
+def bf16_bytes(rng, rows, dim):
+    """A (rows, dim) standard normal matrix as bf16, viewed as its bytes."""
+    x = torch.from_numpy(rng.standard_normal((rows, dim)).astype(np.float32))
+    return x.to(torch.bfloat16).view(torch.uint8).numpy().reshape(rows, 2 * dim)
