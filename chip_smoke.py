@@ -18,7 +18,14 @@ bfloat16 store (phase 6), the IVF tier's classic layout over a clustered
 layout over a device-born, clustered 8M x 1024 int4 store and a sidecar
 round trip (phase 8), the opt-in selection tiers A/B over one 1M x 1024
 float32 corpus (phase 9: defaults, PICOVDB_SEGMAX_I8, the column-scaled
-int8 routes, scan_mode="approx"), and the two bench probes (phase 10).
+int8 routes, scan_mode="approx"), the two bench probes (phase 10), and
+last the mesh stores (phase 11, its own generator): `mesh=` over four
+devices (cuda:i % count: four shards on one card, one a card on four),
+2M x 1024 float32 with K4 on every shard beside the one-device store,
+the plain sharded scan and a dp = 2 x 2 mesh; int8 / int4 storage with K3
+/ K6 on every shard and the host rescore; a clustered 2M x 1024
+index="ivf" store (ShardedIVF, K7 on every shard). Each mesh store's
+launches must equal shards x the row-calls it made.
 Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
@@ -30,7 +37,9 @@ sweep and tensor-core scan at Q = 1 ... 64 (the crossovers behind their
 ready rules). `python3 chip_smoke.py --q64-latency` times only the int8
 store's Q = 64 host-rescored batches through the public API, on a store
 of its own, so that a checkout without this script's other phases can be
-timed beside this one. Every
+timed beside this one; `--mesh` runs the build and phase 11 alone (the
+pass with one shard a card on a four-card machine, where only phase 11
+uses more than one card). Every
 phase prints its lines; any failure raises and the script exits
 non-zero without a result line. It imports neither JAX nor picovdb_tpu,
 and refuses to run without a card.
@@ -38,7 +47,8 @@ and refuses to run without a card.
 Output, in order: the phase lines (phase 10 adds one JSON line per
 probe), the card's name and power limit as `nvidia-smi` reports them,
 one JSON object with the per-kernel record (time, plain time, bound,
-library call, launches), and last `{"ok": true, "device": {...}}`.
+library call, launches; K3 / K4 / K6 / K7 also `mesh_launches`, phase
+11's), and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2822,6 +2832,409 @@ def phase_probes(torch, scan, device, card: str):
     return counts
 
 
+# the KERNELS rows phase 11 drives on every shard: K4, K3, K6, K7
+MESH_ROWS = ("fused_topk", "fused_topk_i8", "fused_topk_i8_wgmma",
+             "fused_topk_i4", "fused_topk_i4_wgmma", "ivf_scan_topk")
+MESH_N = 2_000_000  # rows of phase 11's stores (512K a shard at 4 shards)
+MESH_SHARDS = 4
+MESH_Q = 8192  # batch-served queries a store, in 2048-query chunks
+MESH_ORACLE_Q = 512  # queries held to the float64 oracle
+MESH_ATOL = 1e-5  # kernel route vs plain route, both rescored in float32
+# each storage's kernel family (every launch of K4 / K3 / K6 / K7)
+MESH_FAMILY = {"float32": "scan_topk", "int8": "scan_topk_i8",
+               "int4": "scan_topk_i4", "ivf": "ivf_scan_topk"}
+
+
+def mesh_grid(torch, dp: int = 1):
+    """Phase 11's mesh: four devices, cuda:i % count (one shard a card on a
+    four-card machine, four shards on cuda:0 on one card), as dp rows."""
+    from picovdb_tpu_torch.parallel import make_mesh
+
+    count = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % count) for i in range(MESH_SHARDS)]
+    return make_mesh(MESH_SHARDS // dp, devices=devs, dp=dp)
+
+
+@contextlib.contextmanager
+def dispatch_log(db):
+    """Record the query count of every sharded dispatch `db` makes (the
+    exact mesh routes, and the sharded IVF searches) while inside."""
+    seen = []
+    dev = db._dev
+    real = dev._mesh_dispatch
+    dev._mesh_dispatch = lambda q, k, *a: (
+        seen.append(("scan", q.shape[0], k)), real(q, k, *a))[1]
+    ivf = db._ivf
+    if ivf is not None:
+        real_ivf = ivf.search_async
+        ivf.search_async = lambda q, k, *a, **kw: (
+            seen.append(("ivf", q.shape[0], k)), real_ivf(q, k, *a, **kw))[1]
+    try:
+        yield seen
+    finally:
+        del dev._mesh_dispatch
+        if ivf is not None:
+            del ivf.search_async
+
+
+def mesh_launches_ok(scan, mesh, family: str, seen) -> str:
+    """Every dispatch launched its kernel once a shard per mesh row it used
+    (a dp mesh splits Q over its rows): the counted launches must equal
+    shards x sum(min(dp, Q)) over the dispatches, leaving out those whose
+    k_sel passed SCAN_KSEL_MAX (the host rescore's saturation escalation
+    at k = 4 x the band: the plain exact scan, counted in
+    WIDE_K_FALLBACKS)."""
+    shards, dp = mesh.shape["shard"], mesh.shape["dp"]
+    wide = sum(kind == "scan" and k + 4 > scan.SCAN_KSEL_MAX
+               for kind, _, k in seen)
+    want = sum(shards * (1 if kind == "ivf" else min(dp, nq))
+               for kind, nq, k in seen
+               if kind == "ivf" or k + 4 <= scan.SCAN_KSEL_MAX)
+    got = scan.LAUNCHES[family]
+    assert got == want and want > 0, (
+        f"{family}: {got} launches for {len(seen)} dispatches (want {want})")
+    return (f"{family} {got} = {shards} shards x {want // shards} row-calls"
+            + (f" (+{wide} wide-k escalations on the plain scan)"
+               if wide else ""))
+
+
+def mesh_serve(torch, scan, db, qdev, qhost, rescored: bool):
+    """The counted serving of one store: Q = 1 (host and CUDA-resident:
+    a lossy store rescores only the host query) and Q = 64 (a lossy store
+    also CUDA-resident), then MESH_Q CUDA-resident queries in 2048-query
+    chunks; a lossy store also serves the oracle's queries from the host
+    in 128-query batches (its host rescore). Returns (ids of the oracle's
+    queries, the CUDA-resident answers as [(queries, (ids, scores))], the
+    dispatch log)."""
+    with dispatch_log(db) as seen:
+        db.query_columnar(qhost[:1], top_k=10)
+        # Q = 1 at k 10: the sweeps
+        served = [(qdev[:1], db.query_columnar(qdev[:1], top_k=10))]
+        db.query_columnar(qhost[:64], top_k=10)
+        if rescored:
+            served.append((qdev[:64], db.query_columnar(qdev[:64], top_k=10)))
+        out = db.query_columnar(qdev, top_k=10, batch_size=2048)
+        served.append((qdev, out))
+        got = out[0][:MESH_ORACLE_Q]
+        if rescored:  # host batches up to RESCORE_MAX_Q rescore on the host
+            got = np.concatenate([
+                db.query_columnar(qhost[s:s + 128], top_k=10)[0]
+                for s in range(0, MESH_ORACLE_Q, 128)])
+            assert db.last_query_debug()["rescore"] == "host"
+        torch.cuda.synchronize()
+    assert (out[0] != None).all()  # noqa: E711
+    return got, served, list(seen)
+
+
+def mesh_plain_check(torch, scan, db, served, storage: str) -> str:
+    """Hold a quantized mesh store's kernel route (K3 / K6 on every shard,
+    at the shard's shapes) to its plain version on the same store: the
+    answers served at storage precision (CUDA-resident Q = 1, Q = 64 and
+    2048-query chunks) against `make_sharded_topk(use_pallas=False)`,
+    exact_topk_i8r / _i4r on every shard, merged. Both select on the int8
+    query's scores and rescore with rescore_exact_i8r / _i4r, so scores
+    agree within MESH_ATOL and ids wherever the plain route's k-th /
+    (k+1)-th gap exceeds TOL_GAP."""
+    from picovdb_tpu_torch.parallel import sharded_query as tsq
+
+    dev = db._dev
+    fn = tsq.make_sharded_topk(dev.mesh, dev.shard_axis, 11,
+                               storage_i8=storage == "int8",
+                               storage_i4=storage == "int4")
+    planes = [dev.mesh_planes(p)
+              for p in (dev.vectors, dev.vstore_scale, dev.active)]
+    slot_ids = np.asarray(db._ids, dtype=object)
+    held, total, worst = 0, 0, 0.0
+    with uncounted(scan):
+        for q, (ids, scores) in served:
+            for s in range(0, q.shape[0], 1024):
+                pv, pi = (t.cpu().numpy() for t in fn(q[s:s + 1024], *planes))
+                for r in range(pv.shape[0]):
+                    total += 1
+                    want = set(slot_ids[pi[r, :10]])
+                    if set(ids[s + r]) != want:
+                        assert pv[r, 9] - pv[r, 10] <= TOL_GAP, (
+                            f"{storage}: query {s + r} of {q.shape[0]}: ids "
+                            f"differ from the plain route outside the gap")
+                        continue
+                    held += 1
+                    worst = max(worst, float(np.abs(
+                        np.sort(scores[s + r]) - np.sort(pv[r, :10])).max()))
+    assert worst <= MESH_ATOL, f"{storage}: scores off by {worst}"
+    return (f"= the plain sharded route (exact_topk_i{storage[-1]}r a shard) "
+            f"on {held}/{total} (the rest inside the gap), scores within "
+            f"{worst:.3g}")
+
+
+def mesh_times(torch, db, qdev, qhost) -> dict:
+    """Q = 1 and Q = 64 latency (CUDA events around query_columnar of
+    host queries, median of 10) and batch QPS (MESH_Q CUDA-resident
+    queries in 2048-query chunks, wall clock after a warm run)."""
+    one = cuda_ms(torch, lambda: db.query_columnar(qhost[:1], top_k=10), 10)
+    q64 = cuda_ms(torch, lambda: db.query_columnar(qhost[:64], top_k=10), 10)
+    db.query_columnar(qdev, top_k=10, batch_size=2048)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.query_columnar(qdev, top_k=10, batch_size=2048)
+    qps = qdev.shape[0] / (time.perf_counter() - t0)
+    return {"q1_ms": one, "q64_ms": q64, "qps": qps}
+
+
+def fmt_times(t: dict) -> str:
+    return (f"{t['qps']:.1f} QPS, Q=1 {t['q1_ms']:.4f} ms, "
+            f"Q=64 {t['q64_ms']:.4f} ms")
+
+
+def merge_share(torch, scan, db, qdev) -> str:
+    """The merge's share of one 2048-query chunk on the K4 mesh route: the
+    route timed whole, and `merge_topk` alone on the chunk's own per-shard
+    slabs (CUDA events, median of 10; launches uncounted)."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+    from picovdb_tpu_torch.parallel import sharded_query as tsq
+
+    dev = db._dev
+    q = normalize_on_device(qdev[:2048])
+    fn = tsq.make_sharded_topk(dev.mesh, dev.shard_axis, 10, use_pallas=True,
+                               normalize=False)
+    with uncounted(scan):
+        route = cuda_ms(torch, lambda: fn(q, [dev.vectors], [dev.active]))
+        vals, slots = [], []
+        for s, d in enumerate(dev.shard_devices):
+            v, i = tsq._local_float(q.to(d), dev.vectors[s], dev.active[s],
+                                    10, True, None)
+            vals.append(v)
+            slots.append(i + s * dev.shard_rows)
+        merge = cuda_ms(torch, lambda: tsq.merge_topk(vals, slots, 10,
+                                                      dev.shard_devices[0]))
+    return (f"2048-query chunk {route:.4f} ms on the K4 mesh route, merge "
+            f"{merge:.4f} ms of it ({100 * merge / route:.2f} %)")
+
+
+def ivf_scanned(torch, tivf, x, qn, nprobe: int, n: int, device):
+    """(n,) bool on `device`: the rows a ShardedIVF search of the batch
+    `qn` scans, shard by shard (the route's own preamble: the batch's hot
+    tiles, bounded by g_tiles of its size, and their active rows)."""
+    rows = torch.zeros(n, dtype=torch.bool, device=device)
+    for s, d in enumerate(x.devices):
+        row_mask, hot, n_hot, _ = tivf._probe_preamble(
+            qn.to(d), x.centroids[s], x.active[s], x.seg_starts[s],
+            x.cluster2tile[s], nprobe=nprobe, nlist=x.nlist,
+            g_tiles=x.g_tiles(qn.shape[0], nprobe), cap_ivf=x.cap_shard,
+            n_tiles=x.n_tiles, bn=tivf.IVF_BN)
+        tiles = torch.zeros(x.n_tiles, dtype=torch.bool, device=d)
+        tiles[hot[: int(n_hot)].long()] = True
+        scanned = row_mask & tiles.repeat_interleave(tivf.IVF_BN)
+        rows[x.slots[s][scanned].to(device)] = True
+    return rows
+
+
+def mesh_oracle_check(got, ov, oi, what: str, floor: float) -> str:
+    recall = recall_at_10(got, oi[:, :10], "m")
+    assert recall >= floor, f"{what}: recall@10 {recall} < {floor}"
+    return f"recall@10 {recall:.4f}"
+
+
+def phase_mesh(torch, scan, device, rng, card: str) -> dict:
+    """Phase 11: mesh stores (`mesh=`) of four shards, one at a time, each
+    beside the same store on one device. 11a: 2M x 1024 float32, K4 on
+    every shard (scan_mode="fused"), the plain sharded scan, and a dp = 2
+    x 2-shard mesh; 11b / 11c: int8 / int4 storage, K3 / K6 on every
+    shard, with the host rescore, and their answers at storage precision
+    held to the plain sharded route on the same store; 11d: a clustered
+    2M x 1024 store, index="ivf", ShardedIVF with K7 on every shard, every
+    default-probe answer held to the float64 oracle restricted to the rows
+    its batch scanned. Returns the launches of the counted sections,
+    summed."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops import ivf as tivf
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    t_phase = time.perf_counter()
+    n, dim = MESH_N, DIM
+    dev0 = device
+    where = ("one shard a card" if torch.cuda.device_count() >= MESH_SHARDS
+             else f"{MESH_SHARDS} shards on one card")
+    total = {}
+
+    def add(counts):
+        for key, v in counts.items():
+            if key != "shapes":
+                total[key] = total.get(key, 0) + v
+
+    corpus = rng.standard_normal((n, dim), dtype=np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    ids = [f"m{i}" for i in range(n)]
+    near = corpus[rng.integers(0, n, MESH_Q)]
+    qhost = near + 0.01 * rng.standard_normal(near.shape, dtype=np.float32)
+    qdev = torch.from_numpy(qhost).to(dev0)
+    corpus_dev = torch.from_numpy(corpus).to(dev0)
+    chunks = [(s, corpus_dev[s:s + 131_072]) for s in range(0, n, 131_072)]
+    ov, oi = oracle_masked(torch, chunks, qdev[:MESH_ORACLE_Q], None)
+    del chunks, corpus_dev
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+
+    def line(text):
+        log(f"phase 11: {text}; card {card}")
+
+    def store(name, **kw):
+        db = PicoVectorDB(embedding_dim=dim, index="exact",
+                          storage_file=os.path.join(tmp, name), **kw)
+        db.upsert_columnar(corpus, ids=ids, copy=False)
+        db.rebuild_index()
+        torch.cuda.synchronize()
+        return db
+
+    # 11a: float32, K4 on every shard, beside one device and the plain scan
+    single = store("single", device=dev0, scan_mode="fused")
+    s_ids, _, _ = mesh_serve(torch, scan, single, qdev, qhost, False)
+    assert single.last_query_debug()["strategy"] == "pallas_fused"
+    s_times = mesh_times(torch, single, qdev, qhost)
+    del single
+    torch.cuda.empty_cache()
+    for dp in (1, 2):
+        mesh = mesh_grid(torch, dp)
+        db = store(f"mesh_dp{dp}", mesh=mesh, scan_mode="fused")
+        scan.reset_launch_counts()  # count this path's launches only
+        got, _, seen = mesh_serve(torch, scan, db, qdev, qhost, False)
+        counts = launch_counts(scan)
+        assert db.last_query_debug()["strategy"] == "sharded_scan_pallas"
+        assert k4_launches_ok(scan, counts), "a K4 launch missed the wgmma scan"
+        launches = mesh_launches_ok(scan, mesh, "scan_topk", seen)
+        add(counts)
+        rec_s = mesh_oracle_check(got, ov, oi, f"11a dp={dp}", 0.99)
+        bad = ids_off_oracle(got, "m", ov, oi)
+        same = sum(set(a) != set(b) for a, b, v in zip(got, s_ids, ov)
+                   if v[9] - v[10] > TOL_GAP)
+        assert bad == 0 and same == 0, (bad, same)
+        t = mesh_times(torch, db, qdev, qhost)
+        extra = ""
+        if dp == 1:
+            extra = "; " + merge_share(torch, scan, db, qdev)
+            db._dev.use_pallas, db._dev.scan_mode = False, "auto"
+            with uncounted(scan):
+                db.query_columnar(qhost[:1], top_k=10)
+                assert db.last_query_debug()["strategy"] == "sharded_scan"
+                extra += ("; the plain sharded scan (route sharded_scan) "
+                          + fmt_times(mesh_times(torch, db, qdev, qhost)))
+        line(
+            f"11a {n} x {dim} float32 on a {dp} x {mesh.shape['shard']} mesh"
+            f" ({where}), route sharded_scan_pallas (K4 a shard): {rec_s}, "
+            f"ids = float64 oracle and = the one-device store outside the "
+            f"gap on {MESH_ORACLE_Q}/{MESH_ORACLE_Q}; {fmt_times(t)} (one "
+            f"device, route pallas_fused: {fmt_times(s_times)}); launches "
+            f"{launches}{extra}")
+        del db
+        torch.cuda.empty_cache()
+
+    # 11b / 11c: int8 / int4 storage, K3 / K6 on every shard, host rescore
+    for sd in ("int8", "int4"):
+        single = store(f"single_{sd}", device=dev0, storage_dtype=sd,
+                       scan_mode="fused")
+        s_times = mesh_times(torch, single, qdev, qhost)
+        s_route = single.last_query_debug()["strategy"]
+        del single
+        torch.cuda.empty_cache()
+        mesh = mesh_grid(torch)
+        db = store(f"mesh_{sd}", mesh=mesh, storage_dtype=sd,
+                   scan_mode="fused")
+        scan.reset_launch_counts()
+        got, served, seen = mesh_serve(torch, scan, db, qdev, qhost, True)
+        counts = launch_counts(scan)
+        route = db.last_query_debug()["strategy"]
+        assert route == f"sharded_scan_i{sd[-1]}stor_pallas", route
+        launches = mesh_launches_ok(scan, mesh, MESH_FAMILY[sd], seen)
+        add(counts)
+        plain = mesh_plain_check(torch, scan, db, served, sd)
+        rec_s = mesh_oracle_check(got, ov, oi, f"11 {sd}", 0.99)
+        rec_dev = recall_at_10(served[-1][1][0][:MESH_ORACLE_Q], oi[:, :10],
+                               "m")
+        t = mesh_times(torch, db, qdev, qhost)
+        line(
+            f"11{'b' if sd == 'int8' else 'c'} {n} x {dim} {sd} on a 1 x "
+            f"{MESH_SHARDS} mesh ({where}), route {route}: host-rescored "
+            f"{rec_s} (2048-query chunks at storage precision: "
+            f"{rec_dev:.4f}); Q = 1, Q = 64 and the chunks at storage "
+            f"precision {plain}; {fmt_times(t)} (one device, route {s_route}: "
+            f"{fmt_times(s_times)}); launches {launches}, by shape "
+            f"{counts['shapes'].get(MESH_FAMILY[sd])}")
+        del db
+        torch.cuda.empty_cache()
+    del corpus, ids
+
+    # 11d: clustered 2M x 1024, index="ivf": ShardedIVF, K7 on every shard
+    seed = int(rng.integers(1 << 31))
+    mix = np.empty((n, dim), dtype=np.float32)
+    for s, rows in mixture_chunks(torch, dev0, n, dim, seed):
+        mix[s:s + rows.shape[0]] = rows.cpu().numpy()
+    qi = mix[rng.integers(0, n, 2048)] + 0.01 * rng.standard_normal(
+        (2048, dim), dtype=np.float32)
+    mesh = mesh_grid(torch)
+    db = PicoVectorDB(embedding_dim=dim, index="ivf", mesh=mesh,
+                      storage_file=os.path.join(tmp, "mesh_ivf"))
+    db.upsert_columnar(mix, ids=[f"m{i}" for i in range(n)], copy=False)
+    t0 = time.perf_counter()
+    db.rebuild_index()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    op = db.last_query_debug()["ann_operating_point"]
+    assert type(db._ivf).__name__ == "ShardedIVF" and op["layout"] == "classic"
+    scan.reset_launch_counts()
+    with dispatch_log(db) as seen:
+        hits1 = db.query(qi[0], top_k=10)  # Q = 1: K7's sweep on every shard
+        got1, _ = db.query_columnar(qi[:64], top_k=10)
+        assert db.last_query_debug()["strategy"] == "ivf"
+        gotb, _ = db.query_columnar(qi, top_k=10, batch_size=512)
+        full, _ = db.query_columnar(qi[:64], top_k=10, ef_search=10**6)
+        assert db.last_query_debug()["strategy"] == "ivf"
+        torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    launches = mesh_launches_ok(scan, mesh, "ivf_scan_topk", seen)
+    assert [nq for kind, nq, _ in seen] == [1, 64] + [512] * 4 + [64], seen
+    add(counts)
+    mix_dev = torch.from_numpy(mix).to(dev0)
+    chunks = [(s, mix_dev[s:s + 131_072]) for s in range(0, n, 131_072)]
+    qn = normalize_on_device(torch.from_numpy(qi).to(dev0))
+    fv, fi = oracle_masked(torch, chunks, qn[:64], None)
+    bad_full = ids_off_oracle(full, "m", fv, fi)
+    assert bad_full == 0, f"{bad_full} of 64 full-probe id sets differ"
+    recall = recall_at_10(got1, fi[:, :10], "m")
+    assert recall >= 0.95, f"11d recall@10 {recall} < 0.95"
+    # every default-probe answer (Q = 1, Q = 64 and the 512-query batches)
+    # against the oracle restricted to the rows its batch scanned
+    x = db._ivf
+    npb = tivf.ef_to_nprobe(db._ef_search, x.nlist)
+    ids1 = np.array([[h["_id_"] for h in hits1]], dtype=object)
+    bad = 0
+    for lo, hi, got in ((0, 1, ids1), (0, 64, got1), *(
+            (b, b + 512, gotb[b:b + 512]) for b in range(0, 2048, 512))):
+        rows = ivf_scanned(torch, tivf, x, qn[lo:hi], npb, n, dev0)
+        bad += ids_off_oracle(got, "m", *oracle_masked(
+            torch, chunks, qn[lo:hi], rows.expand(hi - lo, n)))
+    assert bad == 0, f"{bad} default-probe id sets differ (restricted)"
+    del mix_dev, chunks
+    t = mesh_times(torch, db, torch.from_numpy(qi).to(dev0), qi)
+    line(
+        f"11d clustered {n} x {dim} float32, index=ivf on a 1 x "
+        f"{MESH_SHARDS} mesh ({where}): ShardedIVF built in {build_s:.2f} s,"
+        f" nlist {op['nlist']}, nprobe {op['nprobe_default']}, {x.n_tiles} "
+        f"tiles a shard; full probe = float64 oracle outside the gap on "
+        f"64/64; default probe recall@10 {recall:.4f}, ids = the oracle "
+        f"restricted to each batch's scanned rows on 1 + 64 + 2048 queries "
+        f"(Q = 1, Q = 64, 512-query batches); {fmt_times(t)} (2048 "
+        f"queries in 2048-query chunks); launches {launches}, by shape "
+        f"{counts['shapes'].get('ivf_scan_topk')}")
+    del db, x, mix
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    scope = ("" if torch.cuda.device_count() >= MESH_SHARDS else
+             ": a run on one card checks the sharding, routing, per-shard "
+             "launches and the merge, not scaling across cards")
+    log(f"phase 11: mesh stores done in {time.perf_counter() - t_phase:.1f} s"
+        f" ({where}{scope})")
+    return total
+
+
 def q64_latency_main(torch, n: int, dim: int) -> int:
     """`--q64-latency`: an n x dim int8 store with the host rescore, made
     from a generator of its own (SEED + 13), and `q64_latency` on 64 of its
@@ -2861,6 +3274,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--q64-latency"]:
         return q64_latency_main(torch, I8_N, DIM)
+    mesh_only = sys.argv[1:] == ["--mesh"]
+    t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
     device = torch.device("cuda:0")
@@ -2872,6 +3287,12 @@ def main() -> int:
         f" (nvcc {_build.build_seconds if _build.build_seconds else 0.0:.2f} s)")
     log(f"phase 1: ptxas: {ptxas_report(_build.build().parent / 'ptxas.log')}")
 
+    if mesh_only:  # phase 11 alone, for iterating on it
+        counts = phase_mesh(torch, scan, device,
+                            np.random.default_rng(SEED + 11), card)
+        log(f"phase 11: launches {counts}")
+        print(card)
+        return 0
     rng = np.random.default_rng(SEED)
     rec = phase_kernels(torch, scan, device, PHASE2_CAP, DIM, rng)
     phase_ivf_kernels(torch, scan, device, PHASE2_CAP, DIM, rng, rec)
@@ -2898,10 +3319,19 @@ def main() -> int:
                            rec)["c"]
     torch.cuda.empty_cache()
     counts[10] = phase_probes(torch, scan, device, card)
+    torch.cuda.empty_cache()
+    before_s = time.perf_counter() - t_start
+    counts[11] = phase_mesh(torch, scan, device,
+                            np.random.default_rng(SEED + 11), card)
+    log(f"smoke wall time: {time.perf_counter() - t_start:.1f} s, of which "
+        f"phases 1-10 {before_s:.1f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[phase][key], **rec[name]}
+         "launches": counts[phase][key], **rec[name],
+         # phase 11's launches of the row's kernel (the mesh stores)
+         **({"mesh_launches": counts[11].get(key, 0)}
+            if name in MESH_ROWS else {})}
         for name, (key, src, rep, phase) in KERNELS.items()
     ]
     print(card)

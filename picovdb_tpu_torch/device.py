@@ -16,6 +16,13 @@ Host state (ids, docs, free slots) stays authoritative in
 `picovdb_tpu_torch.engine`; the mirror is synchronized lazily before a
 query: small mutation sets scatter, large ones re-upload.
 
+Under a mesh (`mesh=`, parallel/mesh.py) the rows split over the devices
+of the mesh's first row: `vectors`, `vstore_scale` and `active` (and the
+cached filter masks) are lists of per-shard tensors of cap / shards rows,
+each on its shard's device; a slot's owner shard is slot // (cap /
+shards). The mirrors and the routes built on them are off there, and
+every query takes the sharded routes (parallel/sharded_query.py).
+
 Route names (`last_strategy`) are the JAX package's, so the two packages'
 dispatch decisions can be compared one to one.
 """
@@ -86,9 +93,29 @@ def _pad_to(t: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
     return out
 
 
+def _reshard(planes: list, rows: int, devices: list) -> list:
+    """Per-shard planes re-split at `rows` rows a shard (>= the current
+    rows a shard): shard s of the result holds global rows [s * rows,
+    (s + 1) * rows), copied from whichever old shards held them, zeros
+    past the old capacity. One allocation per shard; the old planes stay
+    untouched, so a failure leaves them as they were."""
+    old = planes[0].shape[0]
+    out = []
+    for s, dev in enumerate(devices):
+        t = planes[0].new_zeros((rows,) + tuple(planes[0].shape[1:]),
+                                device=dev)
+        lo, hi = s * rows, (s + 1) * rows
+        for o in range(lo // old, min(len(planes), -(-hi // old))):
+            a, b = max(lo, o * old), min(hi, (o + 1) * old)
+            if a < b:
+                t[a - lo:b - lo] = planes[o][a - o * old:b - o * old].to(dev)
+        out.append(t)
+    return out
+
+
 class DeviceIndex:
     """Device-resident (cap, dim) corpus + active mask with routed masked
-    top-k dispatch (single device)."""
+    top-k dispatch, on one device or row-sharded over a mesh."""
 
     def __init__(
         self,
@@ -103,9 +130,13 @@ class DeviceIndex:
         mixed_precision: Optional[bool] = None,
         int8_tier: Optional[bool] = None,
     ) -> None:
-        if mesh is not None:
-            raise _not_in_slice("mesh= (multi-device stores)",
-                                "item 8, multi-GPU")
+        # A mesh (parallel.make_mesh) splits the corpus rows over the
+        # devices of its first row: every plane is then a list of per-shard
+        # tensors of cap / shards rows, each on its shard's device, and
+        # queries take the sharded routes (parallel/sharded_query.py).
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self.nshards = int(mesh.shape[shard_axis]) if mesh is not None else 1
         self.storage_dtype = storage_dtype or "float32"
         if self.storage_dtype not in ("float32", "bfloat16", "int8", "int4"):
             raise ValueError(
@@ -136,28 +167,34 @@ class DeviceIndex:
         if compute_dtype is None and self.storage_dtype == "bfloat16":
             compute_dtype = "bfloat16"
         self.compute_dtype = compute_dtype
-        self._device = (torch.device(device) if device is not None
-                        else default_device())
+        if device is not None:
+            self._device = torch.device(device)
+        elif mesh is not None:
+            self._device = mesh.first  # merged results and replicated state
+        else:
+            self._device = default_device()
         on_card = self._device.type == "cuda"
         f32_store = self.storage_dtype == "float32"
         # The hand-written kernels, the bf16 mirror and the int8 mirror
         # default on for the card and off elsewhere, as the JAX package
         # turns them on for its TPU; the mirrors only for float32 storage
-        # (a lossy store is its own selection tier).
+        # (a lossy store is its own selection tier). Under a mesh the
+        # mirrors and the routes built on them are off, as in picovdb_tpu:
+        # the sharded routes scan the storage planes.
         if use_pallas is None:
             use_pallas = on_card
         self.use_pallas = use_pallas
         self.scan_mode = scan_mode
         if mixed_precision is None:
             mixed_precision = (on_card and f32_store) or scan_mode == "mixed"
-        self.mixed_precision = bool(mixed_precision)
+        self.mixed_precision = bool(mixed_precision) and mesh is None
         if int8_tier is None:
             env = _os.getenv("PICOVDB_INT8_TIER")
             if env is not None:
                 int8_tier = env not in ("0", "false", "False", "")
             else:
                 int8_tier = on_card and f32_store
-        self.int8_tier = bool(int8_tier)
+        self.int8_tier = bool(int8_tier) and mesh is None
         # The opt-in selection tiers, read as the JAX package reads them.
         # PICOVDB_SEGMAX_I8: the batch segmax over the per-row int8 mirror.
         # PICOVDB_INT8C_TIER (default: the int8 tier) places the lazily
@@ -167,7 +204,7 @@ class DeviceIndex:
             "PICOVDB_SEGMAX_I8", "") not in ("",) + _OFF
         env_i8c = _os.getenv("PICOVDB_INT8C_TIER", "auto")
         self.i8c_tier = (self.int8_tier if env_i8c in ("auto", "")
-                         else env_i8c not in _OFF)
+                         else env_i8c not in _OFF and mesh is None)
         env_seg_i8c = _os.getenv("PICOVDB_SEGMAX_I8C", "auto")
         self.segmax_i8c = self.i8c_tier and (
             self.SEGMAX_I8C_DEFAULT if env_seg_i8c in ("auto", "")
@@ -198,6 +235,8 @@ class DeviceIndex:
         # keyed like _mask_cache; big, so the bound is small.
         self._fview_cache: dict = {}
         self.FVIEW_CACHE_MAX = 2
+        # a dp mesh's per-row copies of the planes (mesh_planes)
+        self._replicas: dict = {}
 
     @property
     def last_strategy(self) -> Optional[str]:
@@ -213,7 +252,9 @@ class DeviceIndex:
     # -- placement -----------------------------------------------------------
 
     def _padded_cap(self, n: int) -> int:
-        return round_up(max(n, 1), ROW_PAD)
+        # a mesh rounds to ROW_PAD * shards, so every shard holds an equal,
+        # ROW_PAD-aligned block of rows
+        return round_up(max(n, 1), ROW_PAD * self.nshards)
 
     def _cap_with_headroom(self, n: int) -> int:
         """Padded capacity plus ~n/64 append headroom on stores of >= 1M
@@ -261,11 +302,11 @@ class DeviceIndex:
         return {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
             self.storage_dtype, torch.int8)
 
-    def _host_tensor(self, arr: np.ndarray) -> torch.Tensor:
+    def _host_tensor(self, arr: np.ndarray, device=None) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)
         if not arr.flags.writeable:  # e.g. a read-only checkpoint memmap
             arr = arr.copy()
-        return torch.from_numpy(arr).to(self._device)
+        return torch.from_numpy(arr).to(device or self._device)
 
     def _commit(self, vectors, vstore_scale, active, cap: int) -> None:
         """Install freshly built planes and derive the mirrors."""
@@ -274,9 +315,121 @@ class DeviceIndex:
         self.active = active
         self.cap = cap
         self._refresh_lp_mirror()
+        self._planes_changed()
+        self.last_sync_mode = "full"
+
+    def _planes_changed(self) -> None:
+        """Drop what was derived from the planes' contents: the filter
+        masks, the compacted views and a mesh's replicas."""
         self._mask_cache.clear()
         self._fview_cache.clear()
-        self.last_sync_mode = "full"
+        self._replicas.clear()
+
+    # -- mesh stores: per-shard planes ---------------------------------------
+
+    @property
+    def shard_devices(self) -> list:
+        """The device of each shard (the mesh's first row)."""
+        return self.mesh.row(0) if self.mesh is not None else [self._device]
+
+    @property
+    def shard_rows(self) -> int:
+        """Rows per shard (cap on one device)."""
+        return self.cap // self.nshards
+
+    def _mesh_fill(self, n: int, cap: int, fill, active_np=None) -> None:
+        """Build every per-shard plane of a mesh store at `cap` rows and
+        commit them: `fill(lo, hi, device)` returns global rows [lo, hi)
+        on `device` as (plane rows, row scales or None); the active mask is
+        `active_np`, or rows < n. Rows [lo, hi) of a shard go in
+        STREAM_CHUNK_ROWS pieces, so no more than one chunk exists outside
+        its owner shard."""
+        rl = cap // self.nshards
+        bufs, scales = [], []
+        acts = (None if active_np is None
+                else self._split_mask(active_np, cap))
+        for s, dev in enumerate(self.shard_devices):
+            buf = torch.zeros((rl, self.plane_cols), dtype=self._plane_dtype(),
+                              device=dev)
+            sc = (torch.zeros((rl,), dtype=torch.float32, device=dev)
+                  if self.quantized else None)
+            lo, hi = s * rl, min(n, (s + 1) * rl)
+            for a in range(lo, hi, self.STREAM_CHUNK_ROWS):
+                b = min(hi, a + self.STREAM_CHUNK_ROWS)
+                rows, rs = fill(a, b, dev)
+                buf[a - lo:b - lo] = rows
+                if sc is not None:
+                    sc[a - lo:b - lo] = rs
+            bufs.append(buf)
+            scales.append(sc)
+        if acts is None:
+            acts = [torch.arange(s * rl, (s + 1) * rl, device=dev) < n
+                    for s, dev in enumerate(self.shard_devices)]
+        self._commit(bufs, scales if self.quantized else None, acts, cap)
+
+    def _mesh_store_rows(self, rows: torch.Tensor):
+        """Float rows on a shard's device -> (plane rows, scales or None)."""
+        if self.quantized:
+            return self._quantize(rows)
+        return rows.to(self._plane_dtype()), None
+
+    def _split_mask(self, mask_np: np.ndarray,
+                    cap: Optional[int] = None) -> list:
+        """A (<= cap,) host bool mask as per-shard device tensors."""
+        cap = cap or self.cap
+        m = _pad_rows(np.ascontiguousarray(mask_np, dtype=bool), cap)
+        rl = cap // self.nshards
+        return [self._host_tensor(m[s * rl:(s + 1) * rl], dev)
+                for s, dev in enumerate(self.shard_devices)]
+
+    def _by_shard(self, idxs: np.ndarray):
+        """Group global slots by owner shard: yields (shard, positions in
+        `idxs`, local rows as an int64 tensor on the shard's device)."""
+        rl = self.shard_rows
+        owner = idxs // rl
+        for s in np.unique(owner).tolist():
+            pos = np.nonzero(owner == s)[0]
+            yield s, pos, self._host_tensor(idxs[pos] - s * rl,
+                                            self.shard_devices[s])
+
+    def _row_differs(self, r: int) -> bool:
+        """Whether mesh row r's devices differ from the shards' (row 0's):
+        such a row serves its part of a batch from its own copy."""
+        return self.mesh.row(r) != self.shard_devices
+
+    def mesh_planes(self, plane):
+        """A per-shard plane as one list per mesh row: row 0 holds the
+        store's tensors, and so does every row on the same devices; a dp
+        row on other devices holds a copy, made at its first use and kept
+        current by `scatter` (the query batch splits over the rows,
+        parallel/sharded_query.py)."""
+        if plane is None or self.mesh is None:
+            return plane
+        dp = self.mesh.devices.shape[0]
+        differs = [False] + [self._row_differs(r) for r in range(1, dp)]
+        if not any(differs):
+            return [plane] * dp
+        hit = self._replicas.get(id(plane))
+        if hit is None or hit[0] is not plane:
+            rows = [[t.to(d, copy=True)
+                     for t, d in zip(plane, self.mesh.row(r))]
+                    if differs[r] else plane for r in range(dp)]
+            core = {id(self.vectors), id(self.vstore_scale), id(self.active)}
+            while len(self._replicas) >= self.MASK_CACHE_MAX + 4:
+                victim = next((key for key in self._replicas
+                               if key not in core), None)
+                if victim is None:
+                    break
+                del self._replicas[victim]
+            hit = self._replicas[id(plane)] = (plane, rows)
+        return hit[1]
+
+    def _copies(self, plane) -> list:
+        """`plane` and each dp row's own copy of it."""
+        hit = self._replicas.get(id(plane))
+        if hit is None or hit[0] is not plane:
+            return [plane]
+        return [plane] + [row for row in hit[1] if row is not plane]
 
     def grow(self, n: int) -> bool:
         """Grow padded capacity on device to hold `n` rows (device copies,
@@ -298,6 +451,8 @@ class DeviceIndex:
         new_cap = max(self.cap, self._padded_cap(n + max(ROW_PAD, n // 64)))
         if new_cap <= self.cap:
             return True
+        if self.mesh is not None:
+            return self._mesh_grow(new_cap)
         try:
             vectors = _pad_to(self.vectors, new_cap)
         except torch.cuda.OutOfMemoryError:
@@ -316,8 +471,7 @@ class DeviceIndex:
             self.vectors = self.active = self.vstore_scale = None
             self.vectors_lp = self.vectors_i8 = self.vscale = None
             self.vectors_i8c = self.cscale = None
-            self._mask_cache.clear()
-            self._fview_cache.clear()
+            self._planes_changed()
             return False
         self.cap = new_cap
         try:
@@ -336,8 +490,37 @@ class DeviceIndex:
         if self.i8c_tier:
             budget, bpe = self._mirror_budget()
             self._i8c_budget_ok = self.cap * self.dim * bpe <= budget
-        self._mask_cache.clear()
-        self._fview_cache.clear()
+        self._planes_changed()
+        self.last_sync_mode = "grow"
+        return True
+
+    def _mesh_grow(self, new_cap: int) -> bool:
+        """`grow` of a mesh store. Shard boundaries move with the
+        capacity, so each plane is re-split (`_reshard`: rows copied to
+        their new owner shard); peak memory is the old plus the new
+        planes. Out of device memory it ends as `grow` does: the corpus
+        fails -> nothing changed, False; the mask or the scales fail ->
+        every plane dropped, False."""
+        rl = new_cap // self.nshards
+        try:
+            vectors = _reshard(self.vectors, rl, self.shard_devices)
+        except torch.cuda.OutOfMemoryError:
+            _log.warning("mesh grow %d -> %d rows ran out of device memory; "
+                         "store unchanged", self.cap, new_cap)
+            return False
+        try:
+            active = _reshard(self.active, rl, self.shard_devices)
+            scales = (None if self.vstore_scale is None else
+                      _reshard(self.vstore_scale, rl, self.shard_devices))
+        except torch.cuda.OutOfMemoryError:
+            _log.warning("mesh grow %d -> %d rows ran out of device memory; "
+                         "device planes dropped", self.cap, new_cap)
+            self.vectors = self.active = self.vstore_scale = None
+            self._planes_changed()
+            return False
+        self.vectors, self.active, self.vstore_scale = vectors, active, scales
+        self.cap = new_cap
+        self._planes_changed()
         self.last_sync_mode = "grow"
         return True
 
@@ -348,6 +531,12 @@ class DeviceIndex:
         there whole."""
         n = host_vectors.shape[0]
         cap = self._cap_with_headroom(n)
+        if self.mesh is not None:
+            # each row is quantized (or cast) on its owner shard's device
+            self._mesh_fill(n, cap, lambda a, b, dev: self._mesh_store_rows(
+                self._host_tensor(np.asarray(host_vectors[a:b], dtype=Float),
+                                  dev)), active_np)
+            return
         buf = torch.zeros((cap, self.plane_cols), dtype=self._plane_dtype(),
                           device=self._device)
         scales = (torch.zeros((cap,), dtype=torch.float32, device=self._device)
@@ -398,6 +587,12 @@ class DeviceIndex:
         if scales.shape[0] != n:
             raise ValueError(f"{scales.shape[0]} scales for {n} plane rows")
         cap = self._cap_with_headroom(n)
+        if self.mesh is not None:
+            self._mesh_fill(n, cap, lambda a, b, dev: (
+                self._host_tensor(np.asarray(plane[a:b], dtype=np.int8), dev),
+                self._host_tensor(np.asarray(scales[a:b], dtype=np.float32),
+                                  dev)), active_np)
+            return
         buf = torch.zeros((cap, cols), dtype=torch.int8, device=self._device)
         sc = torch.zeros((cap,), dtype=torch.float32, device=self._device)
         step = self.STREAM_CHUNK_ROWS
@@ -442,6 +637,8 @@ class DeviceIndex:
                 normalize = False
             shadow = x.cpu().numpy().copy()
         cap = self._cap_with_headroom(n)
+        if self.mesh is not None:
+            return self._mesh_adopt(x, n, cap, normalize, scales, shadow)
         active = torch.arange(cap, device=self._device) < n
         if self.quantized and scales is not None:
             if x.dtype != torch.int8 or x.shape != (n, self.plane_cols):
@@ -472,6 +669,30 @@ class DeviceIndex:
             else:
                 buf[s:e] = rows.to(buf.dtype)
         self._commit(buf, sc, active, cap)
+        return shadow
+
+    def _mesh_adopt(self, x, n, cap, normalize, scales, shadow):
+        """`adopt` of a mesh store: each shard's rows are copied from the
+        input to the shard's device, then normalized, cast or quantized
+        there (pre-quantized rows and their scales are copied as they
+        are). The input is never taken as a plane."""
+        if scales is not None:
+            if x.dtype != torch.int8 or x.shape != (n, self.plane_cols):
+                raise ValueError(
+                    f"pre-quantized {self.storage_dtype} rows must be int8 "
+                    f"of shape ({n}, {self.plane_cols}); got {x.dtype} "
+                    f"{tuple(x.shape)}")
+            sc = scales.to(dtype=torch.float32)
+
+            def fill(a, b, dev):
+                return x[a:b].to(dev), sc[a:b].to(dev)
+        else:
+            def fill(a, b, dev):
+                rows = x[a:b].to(dev)
+                if normalize:
+                    rows = normalize_on_device(rows)
+                return self._mesh_store_rows(rows)
+        self._mesh_fill(n, cap, fill)
         return shadow
 
     def _mirror_budget(self) -> tuple:
@@ -529,6 +750,10 @@ class DeviceIndex:
             raise RuntimeError("scatter before any upload")
         if idxs.shape[0] == 0:
             return
+        if self.mesh is not None:
+            self._mesh_scatter(np.asarray(idxs, dtype=np.int64), rows,
+                               np.asarray(active_vals, dtype=bool))
+            return
         dev_idx = self._host_tensor(np.asarray(idxs, dtype=np.int64))
         if rows is not None:
             f_rows = self._host_tensor(np.asarray(rows, dtype=Float))
@@ -552,8 +777,33 @@ class DeviceIndex:
                 self.vectors_i8c = self.cscale = None
         self.active.index_copy_(
             0, dev_idx, self._host_tensor(np.asarray(active_vals, dtype=bool)))
-        self._mask_cache.clear()
-        self._fview_cache.clear()
+        self._planes_changed()
+        self.last_sync_mode = "scatter"
+
+    def _mesh_scatter(self, idxs, rows, active_vals) -> None:
+        """`scatter` of a mesh store: each slot goes to its owner shard
+        (slot // shard_rows), rows quantized or cast on that device, and
+        the same rows to each dp row's copy of the planes."""
+        writes = []  # (plane, shard, local rows, new values)
+        for s, pos, local in self._by_shard(idxs):
+            dev = self.shard_devices[s]
+            if rows is not None:
+                q_rows, q_scale = self._mesh_store_rows(self._host_tensor(
+                    np.asarray(rows[pos], dtype=Float), dev))
+                writes.append((self.vectors, s, local, q_rows))
+                if q_scale is not None:
+                    writes.append((self.vstore_scale, s, local, q_scale))
+            writes.append((self.active, s, local,
+                           self._host_tensor(active_vals[pos], dev)))
+        for plane, s, local, new in writes:
+            for row in self._copies(plane):
+                t = row[s]
+                t.index_copy_(0, local.to(t.device), new.to(t.device))
+        kept = {id(p): self._replicas[id(p)]
+                for p in (self.vectors, self.vstore_scale, self.active)
+                if id(p) in self._replicas}
+        self._planes_changed()
+        self._replicas.update(kept)
         self.last_sync_mode = "scatter"
 
     # -- reading the store back ----------------------------------------------
@@ -570,20 +820,37 @@ class DeviceIndex:
         m = idxs.shape[0]
         out = np.empty((m, self.dim), dtype=np.float32)
         step = self.FETCH_CHUNK_ROWS
+        if self.mesh is not None:
+            # one gather per owner shard, on its device
+            for sh, pos, local in self._by_shard(idxs):
+                scales = (None if self.vstore_scale is None
+                          else self.vstore_scale[sh])
+                for a in range(0, pos.shape[0], step):
+                    sel = pos[a:a + step]
+                    rows = np.empty((sel.shape[0], self.dim), np.float32)
+                    self._dequant_into(self.vectors[sh], scales,
+                                       local[a:a + step], rows)
+                    out[sel] = rows
+            return out
         for s in range(0, m, step):
             e = min(m, s + step)
-            ci = self._host_tensor(idxs[s:e])
-            raw = self.vectors[ci]
-            if self.storage_dtype == "bfloat16":
-                raw = raw.float()
-            raw = raw.cpu().numpy()
-            if self.storage_dtype == "int4":
-                unpack_i4_np_into(raw, out[s:e])
-            else:
-                out[s:e] = raw
-            if self.quantized:
-                out[s:e] *= self.vstore_scale[ci].cpu().numpy()[:, None]
+            self._dequant_into(self.vectors, self.vstore_scale,
+                               self._host_tensor(idxs[s:e]), out[s:e])
         return out
+
+    def _dequant_into(self, plane, scales, ci, out) -> None:
+        """Rows `ci` of one device plane, dequantized into the float32
+        host rows `out`."""
+        raw = plane[ci]
+        if self.storage_dtype == "bfloat16":
+            raw = raw.float()
+        raw = raw.cpu().numpy()
+        if self.storage_dtype == "int4":
+            unpack_i4_np_into(raw, out)
+        else:
+            out[:] = raw
+        if scales is not None:
+            out *= scales[ci].cpu().numpy()[:, None]
 
     def iter_store_chunks(self, n: int, chunk: Optional[int] = None):
         """Yield the first n rows of an int8/int4 store as host
@@ -593,6 +860,15 @@ class DeviceIndex:
             raise RuntimeError(
                 "iter_store_chunks requires a quantized device store")
         step = chunk or self.STREAM_CHUNK_ROWS
+        if self.mesh is not None:
+            rl = self.shard_rows
+            for sh in range(self.nshards):
+                for s in range(sh * rl, min(n, (sh + 1) * rl), step):
+                    e = min(n, (sh + 1) * rl, s + step)
+                    yield (self.vectors[sh][s - sh * rl:e - sh * rl].cpu().numpy(),
+                           self.vstore_scale[sh][s - sh * rl:e - sh * rl]
+                           .cpu().numpy())
+            return
         for s in range(0, n, step):
             e = min(n, s + step)
             yield (self.vectors[s:e].cpu().numpy(),
@@ -629,6 +905,9 @@ class DeviceIndex:
         matrix; int8/int4 stores rank their dequantized rows."""
         vectors, active, vscale = snap
         q = self._query_tensor(qnorm)
+        if self.mesh is not None:
+            vals, idxs = self._mesh_dispatch(q, k, vectors, vscale, active)
+            return vals.cpu().numpy(), idxs.cpu().numpy()
         k_eff = min(k, vectors.shape[0])
         on_card = self._device.type == "cuda"
         if vscale is not None and self.storage_dtype == "int4":
@@ -667,8 +946,11 @@ class DeviceIndex:
         cached = self._mask_cache.get(mask_key) if mask_key is not None else None
         if cached is not None:
             return cached
-        m = self._host_tensor(
-            _pad_rows(np.ascontiguousarray(filter_mask, dtype=bool), self.cap))
+        if self.mesh is not None:
+            m = self._split_mask(filter_mask)  # per-shard tensors
+        else:
+            m = self._host_tensor(_pad_rows(
+                np.ascontiguousarray(filter_mask, dtype=bool), self.cap))
         if mask_key is not None:
             if len(self._mask_cache) >= self.MASK_CACHE_MAX:
                 try:  # concurrent readers may evict the same entry
@@ -743,6 +1025,11 @@ class DeviceIndex:
             raise RuntimeError("query before any upload")
         num_q = qnorm.shape[0]
         k_eff = min(k, self.cap)
+        if self.mesh is not None:
+            vals, idxs = self._mesh_dispatch(
+                self._query_tensor(qnorm), k_eff, self.vectors,
+                self.vstore_scale, self._mask_tensor(filter_mask, mask_key))
+            return vals, idxs, num_q, k_eff
         i8s = self.storage_dtype == "int8"
         i4s = self.storage_dtype == "int4"
         unfiltered = filter_mask is None and not force_exact
@@ -879,12 +1166,41 @@ class DeviceIndex:
             self.last_strategy = "xla_topk"
         return vals, idxs, num_q, k_eff
 
+    def _mesh_dispatch(self, q, k: int, vectors, vscale, mask):
+        """The sharded routes (parallel/sharded_query.py) over per-shard
+        planes: the plain exact scan on each shard ("sharded_scan"), or
+        with the kernels on (`use_pallas`, scan_mode="fused") K4 / K3 / K6
+        on each shard ("sharded_scan_pallas", "sharded_scan_i8stor_pallas",
+        "sharded_scan_i4stor_pallas"). Returns (vals, idxs) on the mesh's
+        first device."""
+        from .parallel.sharded_query import make_sharded_topk
+
+        use_pallas = self.use_pallas or self.scan_mode == "fused"
+        planes = [self.mesh_planes(vectors)]
+        if self.quantized:
+            i4 = self.storage_dtype == "int4"
+            planes.append(self.mesh_planes(vscale))
+            stor = "i4stor" if i4 else "i8stor"
+            fn = make_sharded_topk(self.mesh, self.shard_axis, k,
+                                   use_pallas=use_pallas,
+                                   storage_i8=not i4, storage_i4=i4)
+            name = f"sharded_scan_{stor}"
+        else:
+            fn = make_sharded_topk(self.mesh, self.shard_axis, k,
+                                   self.compute_dtype, use_pallas=use_pallas)
+            name = "sharded_scan"
+        self.last_strategy = name + ("_pallas" if use_pallas else "")
+        return fn(q, *planes, self.mesh_planes(mask))
+
     def query_serial_loop(self, queries, k: int):
         """Run M independent Q=1 queries one after another through the
         small-batch route (int8 storage, the opted-in column-scaled or the
         per-row int8 mirror when present, else the bf16 ladder, else the
         int4 / exact scan); host ((M, k) f32 scores, (M, k) int32 slot
-        ids). No crowding mark: no retry wraps this lane."""
+        ids). No crowding mark: no retry wraps this lane. Single-device
+        stores only."""
+        if self.mesh is not None:
+            raise ValueError("query_serial_loop is single-device only")
         if self.vectors is None:
             raise ValueError(
                 "empty device mirror; sync first (or use "

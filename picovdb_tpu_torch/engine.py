@@ -33,8 +33,14 @@ mirror (`PICOVDB_INT8C_TIER`, `PICOVDB_SEGMAX_I8C`, `PICOVDB_SMALLQ_I8C`)
 and `scan_mode="approx"`, whose TPU-only approximate top-k maps to the
 exact top-k_sel of the dense product plus the exact rescore.
 
+`mesh=` (parallel/make_mesh) row-shards the store over the devices of
+one process: the exact scan runs on every shard and merges on the mesh's
+first device (parallel/sharded_query.py), and the IVF tier becomes
+`parallel/ivf_mesh.ShardedIVF` (shared centroids, per-shard postings).
 Not in this slice, and raising NotImplementedError with the ROADMAP item
-that brings it: `mesh=` and multi-process loads.
+that brings it: a mesh store in a multi-process program
+(`torch.distributed` initialised with more than one process: item 8's
+multi-process part, with its distributed loads and saves).
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ from .constants import (
     RESCORE_MAX_Q,
     Float,
 )
-from .device import DeviceIndex
+from .device import DeviceIndex, _not_in_slice
 from .filters import TagIndex, compile_where_mask
 from .locking import RWLock
 from .ops import ivf as ivf_ops
@@ -255,6 +261,12 @@ class PicoVectorDB:
         self._host_f32_lossy: bool = False
         self._last_rescore: Optional[str] = None
 
+        if (mesh is not None and torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            raise _not_in_slice(
+                "a mesh store across processes (torch.distributed world "
+                "size > 1)", "item 8, multi-GPU: the multi-process part")
         self._dev = DeviceIndex(
             self.dim,
             device=device,
@@ -344,15 +356,28 @@ class PicoVectorDB:
         corpus). A stale or unreadable sidecar leaves the tier unbuilt."""
         if self._index_kind == "exact" or not self._active_indices.size:
             return
+        if self._dev.mesh is not None and host_vectors is None:
+            return  # the sharded build is fed from the host: lazily, at sync
         blob = persistence.load_ann(self._path)
         if blob is None:
             return
-        self._ivf = ivf_ops.IVFIndex.from_blob(
-            blob, host_vectors, self._active_mask, self.dim,
-            dev_vectors=self._dev.vectors,
-            storage_dtype=self._dev.storage_dtype,
-            i8_only=self._ivf_i8_only(),
-            dequant_scale=self._dev.vstore_scale, device=self._dev._device)
+        if self._dev.mesh is not None:
+            from .parallel.ivf_mesh import ShardedIVF
+
+            i8o = self._ivf_i8_only()
+            self._ivf = ShardedIVF.from_blob(
+                blob, host_vectors, self._active_mask, self.dim,
+                mesh=self._dev.mesh, shard_axis=self._dev.shard_axis,
+                storage_dtype=self._dev.storage_dtype, i8_only=i8o,
+                corpus_cap=self._dev.cap if i8o else None)
+        else:
+            self._ivf = ivf_ops.IVFIndex.from_blob(
+                blob, host_vectors, self._active_mask, self.dim,
+                dev_vectors=self._dev.vectors,
+                storage_dtype=self._dev.storage_dtype,
+                i8_only=self._ivf_i8_only(),
+                dequant_scale=self._dev.vstore_scale,
+                device=self._dev._device)
         if self._ivf is not None:
             self._ann_build_params = {"nlist_requested": self._ivf.nlist,
                                       "kmeans_iters": 0, "warm": "sidecar"}
@@ -1505,7 +1530,9 @@ class PicoVectorDB:
                 or ivf_ops.ef_to_nprobe(self._ef_search, ivf.nlist)),
             "layout": "int8_only" if ivf.vectors is None else "classic",
             "postings": ("int8" if ivf.vectors_i8c is not None
-                         else str(ivf.vectors.dtype).replace("torch.", "")),
+                         else str((ivf.vectors[0] if isinstance(
+                             ivf.vectors, list) else ivf.vectors).dtype
+                         ).replace("torch.", "")),
             # rows in the always-probed overflow region since the last
             # full build, and the last requantize-on-append's clip rate
             "overflow_fraction": float(ivf.overflow_fraction),
@@ -1541,7 +1568,7 @@ class PicoVectorDB:
                 "device": str(self._dev._device),
                 "device_capacity": self._dev.cap,
                 "index_kind": self._index_kind,
-                "sharded": False,
+                "sharded": self._dev.mesh is not None,
                 "last_sync_mode": self._last_sync_mode,
                 "last_topk_strategy": self._last_topk_strategy,
                 "exact_retries": self._exact_retries,
@@ -2018,16 +2045,22 @@ class PicoVectorDB:
             return ivf_ops._ivf_i8_enabled(self.dim)
         if not ivf_ops._ivf_i8_enabled(self.dim):
             return False
+        # a mesh holds 1 / shards of the corpus and of the postings on each
+        # device, so the budget applies per shard
+        shards = self._dev.nshards
         item = _storage_itemsize(self._dev.storage_dtype)
         n = max(int(self._active_indices.size), 1)
-        corpus_b = self._dev.cap * self.dim * item
-        mirror_b = int(1.05 * n) * self.dim * (item + 1)
+        corpus_b = self._dev.cap * self.dim * item // shards
+        mirror_b = int(1.05 * n) * self.dim * (item + 1) // shards
         return corpus_b + mirror_b > self._ivf_budget_bytes()
 
     def _ivf_fits(self, n_active: int) -> bool:
         """Whether the postings fit beside the corpus: ~1.05 n rows at
         1 B/element (int8-only) or at the storage width plus an int8
-        mirror (classic), within the budget plus 1 GiB."""
+        mirror (classic), within the budget plus 1 GiB. A mesh store's
+        tier sizes itself per shard (`_ivf_i8_only`): it always fits."""
+        if self._dev.mesh is not None:
+            return True
         item = _storage_itemsize(self._dev.storage_dtype)
         corpus_b = max(self._dev.cap, n_active) * self.dim * item
         if self._ivf_i8_only():
@@ -2109,6 +2142,26 @@ class PicoVectorDB:
         self._ivf_warm_blob = None
         # free the old postings first: two corpus-sized mirrors may not fit
         self._ivf = None
+        if self._dev.mesh is not None:
+            # the sharded tier is laid out from the host corpus
+            from .parallel.ivf_mesh import ShardedIVF
+
+            self._ensure_host_vectors()
+            nlist, iters = self._ivf_build_params(n_active, warm is not None)
+            i8o = self._ivf_i8_only()
+            try:
+                self._ivf = ShardedIVF.build(
+                    np.asarray(self._host_vectors[: len(self._ids)]),
+                    self._active_mask, self._dev.mesh,
+                    shard_axis=self._dev.shard_axis, nlist=nlist,
+                    iters=iters, dim=self.dim, warm_centroids=warm,
+                    storage_dtype=self._dev.storage_dtype, i8_only=i8o,
+                    corpus_cap=self._dev.cap if i8o else None)
+            except torch.cuda.OutOfMemoryError:
+                logger.warning("sharded IVF build ran out of device memory; "
+                               "serving exact", exc_info=True)
+                self._ivf = None
+            return
         dev_vectors = (self._dev.vectors
                        if self._dev.vectors is not None
                        and self._dev.cap >= len(self._ids) else None)

@@ -368,13 +368,19 @@ def test_build_failures(tmp_path, monkeypatch, failure):
 
 @pytest.mark.parametrize("env", ["PICOVDB_SEGMAX_I8C", "PICOVDB_SMALLQ_I8C"])
 def test_out_of_slice_paths_still_raise(tmp_path, monkeypatch, env):
-    """`mesh=` still raises (item 8); the opt-in column-scaled tiers
-    (item 9) serve beside the IVF tier: an index="ivf" store answers from
-    the tier, and its exact lanes may take the column-scaled mirror."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, mesh=object(),
-                                       index="ivf", device="cpu",
-                                       storage_file=f"{tmp_path}/m")
+    """A mesh store across processes still raises (item 8's
+    multi-process part); the opt-in column-scaled tiers (item 9) serve
+    beside the IVF tier: an index="ivf" store answers from the tier, and
+    its exact lanes may take the column-scaled mirror."""
+    from picovdb_tpu_torch.parallel import make_mesh
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.distributed, "is_initialized", lambda: True)
+        m.setattr(torch.distributed, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            picovdb_tpu_torch.PicoVectorDB(
+                embedding_dim=DIM, mesh=make_mesh(devices=["cpu"] * 4),
+                index="ivf", device="cpu", storage_file=f"{tmp_path}/m")
     monkeypatch.setenv(env, "1")
     db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, index="ivf",
                                         int8_tier=True, device="cpu",

@@ -15,6 +15,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import torch
 import pytest
 
 import picovdb_tpu
@@ -109,28 +110,38 @@ def test_no_source_file_imports_jax():
 @pytest.mark.parametrize("kwargs,item", [
     ({"index": "ivf"}, "item 7"),
     ({"scan_mode": "approx"}, "item 9"),
-    ({"mesh": object()}, "item 8"),
-    ({"storage_dtype": "int8", "mesh": object()}, "item 8"),
+    ({"mesh": "cpu x 4"}, "item 8"),
+    ({"storage_dtype": "int8", "mesh": "cpu x 4"}, "item 8"),
 ])
-def test_out_of_slice_entry_points_raise(tmp_path, kwargs, item):
+def test_out_of_slice_entry_points_raise(tmp_path, monkeypatch, kwargs, item):
     """Entry points of later ROADMAP items raise NotImplementedError
-    naming their item. Items 7 (index="ivf") and 9 (scan_mode="approx")
-    are ported: they serve."""
+    naming their item. Items 7 (index="ivf"), 9 (scan_mode="approx") and
+    8's single-process mesh are ported: they serve; a mesh store in a
+    multi-process program (item 8's rest) raises."""
+    if "mesh" in kwargs:
+        from picovdb_tpu_torch.parallel import make_mesh
+
+        kwargs = {**kwargs, "mesh": make_mesh(devices=["cpu"] * 4)}
+
     def make():
         return picovdb_tpu_torch.PicoVectorDB(
             embedding_dim=DIM, storage_file=str(tmp_path / "s"), device="cpu",
             **kwargs)
 
-    if item in ("item 7", "item 9"):
-        db = make()
-        vecs = np.random.default_rng(0).normal(size=(300, DIM)).astype(np.float32)
-        db.upsert_columnar(vecs, ids=[str(i) for i in range(300)])
-        assert db.query(vecs[17], top_k=1)[0][picovdb_tpu_torch.K_ID] == "17"
-        route = {"item 7": "ivf", "item 9": "xla_approx"}[item]
-        assert db.last_query_debug()["strategy"] == route
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+    db = make()
+    vecs = np.random.default_rng(0).normal(size=(300, DIM)).astype(np.float32)
+    db.upsert_columnar(vecs, ids=[str(i) for i in range(300)])
+    assert db.query(vecs[17], top_k=1)[0][picovdb_tpu_torch.K_ID] == "17"
+    route = {"item 7": "ivf", "item 9": "xla_approx",
+             "item 8": "sharded_scan"}[item]
+    if "storage_dtype" in kwargs:
+        route += "_i8stor"
+    assert db.last_query_debug()["strategy"] == route
+    if item == "item 8":
+        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match=item):
+            make()
 
 
 def test_out_of_slice_calls_raise(tmp_path, monkeypatch):
