@@ -25,7 +25,16 @@ devices (cuda:i % count: four shards on one card, one a card on four),
 the plain sharded scan and a dp = 2 x 2 mesh; int8 / int4 storage with K3
 / K6 on every shard and the host rescore; a clustered 2M x 1024
 index="ivf" store (ShardedIVF, K7 on every shard). Each mesh store's
-launches must equal shards x the row-calls it made.
+launches must equal shards x the row-calls it made. Phase 12 (its own
+generator) serves one store across processes: the script starts its
+ranks (`--mp-rank`), one a card under NCCL on two or more cards, else two
+on cuda:0 under gloo, and every rank must pass: 12a a 2M x 1024 float32
+checkpoint loaded distributed (each rank reads its own file), K4 a local
+shard, a mutation epoch, the distributed save and reload; 12b int8
+storage upserted on every rank (K3 a local shard, host rescore); 12c 4M
+packed int4 rows through make_sharded_topk (K6 a local shard); 12d
+ShardedIVF across ranks (K7 a local shard). Launches are local shards x
+calls on every rank.
 Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
@@ -39,7 +48,11 @@ store's Q = 64 host-rescored batches through the public API, on a store
 of its own, so that a checkout without this script's other phases can be
 timed beside this one; `--mesh` runs the build and phase 11 alone (the
 pass with one shard a card on a four-card machine, where only phase 11
-uses more than one card). Every
+uses more than one card); `--multiprocess` runs the build and phase 12
+alone (one rank a card on a machine of several) with a trace of each
+rank's 12a chunks, and `--trace-mesh`
+traces phase 11a's store's 2048-query chunks with torch.profiler (where
+each card's scans run, and which host step waits). Every
 phase prints its lines; any failure raises and the script exits
 non-zero without a result line. It imports neither JAX nor picovdb_tpu,
 and refuses to run without a card.
@@ -48,7 +61,8 @@ Output, in order: the phase lines (phase 10 adds one JSON line per
 probe), the card's name and power limit as `nvidia-smi` reports them,
 one JSON object with the per-kernel record (time, plain time, bound,
 library call, launches; K3 / K4 / K6 / K7 also `mesh_launches`, phase
-11's), and last `{"ok": true, "device": {...}}`.
+11's, and `mp_launches`, phase 12's summed over the ranks), and last
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2884,7 +2898,8 @@ def mesh_launches_ok(scan, mesh, family: str, seen) -> str:
     k_sel passed SCAN_KSEL_MAX (the host rescore's saturation escalation
     at k = 4 x the band: the plain exact scan, counted in
     WIDE_K_FALLBACKS)."""
-    shards, dp = mesh.shape["shard"], mesh.shape["dp"]
+    # a mesh across processes: this rank's shards
+    shards, dp = len(mesh.local_shards), mesh.shape["dp"]
     wide = sum(kind == "scan" and k + 4 > scan.SCAN_KSEL_MAX
                for kind, _, k in seen)
     want = sum(shards * (1 if kind == "ivf" else min(dp, nq))
@@ -2927,14 +2942,14 @@ def mesh_serve(torch, scan, db, qdev, qhost, rescored: bool):
 
 
 def mesh_plain_check(torch, scan, db, served, storage: str) -> str:
-    """Hold a quantized mesh store's kernel route (K3 / K6 on every shard,
-    at the shard's shapes) to its plain version on the same store: the
+    """Hold a mesh store's kernel route (K4 / K3 / K6 on every shard, at
+    the shard's shapes) to its plain version on the same store: the
     answers served at storage precision (CUDA-resident Q = 1, Q = 64 and
     2048-query chunks) against `make_sharded_topk(use_pallas=False)`,
-    exact_topk_i8r / _i4r on every shard, merged. Both select on the int8
-    query's scores and rescore with rescore_exact_i8r / _i4r, so scores
-    agree within MESH_ATOL and ids wherever the plain route's k-th /
-    (k+1)-th gap exceeds TOL_GAP."""
+    exact_topk / exact_topk_i8r / _i4r on every shard, merged. The
+    quantized routes both select on the int8 query's scores and rescore
+    with rescore_exact_i8r / _i4r, so scores agree within MESH_ATOL and
+    ids wherever the plain route's k-th / (k+1)-th gap exceeds TOL_GAP."""
     from picovdb_tpu_torch.parallel import sharded_query as tsq
 
     dev = db._dev
@@ -2942,7 +2957,8 @@ def mesh_plain_check(torch, scan, db, served, storage: str) -> str:
                                storage_i8=storage == "int8",
                                storage_i4=storage == "int4")
     planes = [dev.mesh_planes(p)
-              for p in (dev.vectors, dev.vstore_scale, dev.active)]
+              for p in (dev.vectors, dev.vstore_scale, dev.active)
+              if p is not None]
     slot_ids = np.asarray(db._ids, dtype=object)
     held, total, worst = 0, 0, 0.0
     with uncounted(scan):
@@ -2961,9 +2977,10 @@ def mesh_plain_check(torch, scan, db, served, storage: str) -> str:
                     worst = max(worst, float(np.abs(
                         np.sort(scores[s + r]) - np.sort(pv[r, :10])).max()))
     assert worst <= MESH_ATOL, f"{storage}: scores off by {worst}"
-    return (f"= the plain sharded route (exact_topk_i{storage[-1]}r a shard) "
-            f"on {held}/{total} (the rest inside the gap), scores within "
-            f"{worst:.3g}")
+    plain = ("exact_topk" if storage == "float32"
+             else f"exact_topk_i{storage[-1]}r")
+    return (f"= the plain sharded route ({plain} a shard) on {held}/{total} "
+            f"(the rest inside the gap), scores within {worst:.3g}")
 
 
 def mesh_times(torch, db, qdev, qhost) -> dict:
@@ -3235,6 +3252,739 @@ def phase_mesh(torch, scan, device, rng, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: one store across processes (parallel/multihost.py)
+# ---------------------------------------------------------------------------
+
+MP_N = MESH_N  # 12a: float32 rows, in save(shards=world) files (8.4 GB)
+MP_I8_N = 1_000_000  # 12b: int8 storage, upserted on every rank
+MP_I4_N = 1 << 22  # 12c: 4,194,304 packed int4 rows, a shard a rank
+MP_IVF_N = 2_000_000  # 12d: ShardedIVF over a gaussian mixture
+MP_CHUNK = 262_144  # rows a seeded generator makes at a time
+MP_TIMEOUT_S = 900  # every rank of phase 12 must end within this
+
+
+def seeded_chunks(torch, device, seed: int, lo: int, hi: int, dim: int):
+    """Unit rows [lo, hi) of a corpus made on `device` MP_CHUNK rows at a
+    time, chunk c from a generator of its own (seed + c), so that any
+    process makes any range of it alike. Yields (start, rows f32)."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    for c in range(lo // MP_CHUNK, -(-hi // MP_CHUNK)):
+        g = torch.Generator(device=device).manual_seed(seed + c)
+        rows = normalize_on_device(torch.randn(MP_CHUNK, dim, generator=g,
+                                               device=device))
+        a, b = max(lo, c * MP_CHUNK), min(hi, (c + 1) * MP_CHUNK)
+        yield a, rows[a - c * MP_CHUNK:b - c * MP_CHUNK]
+
+
+def host_rows(torch, chunks, n: int, dim: int) -> np.ndarray:
+    out = np.empty((n, dim), dtype=np.float32)
+    for a, rows in chunks:
+        out[a:a + rows.shape[0]] = rows.cpu().numpy()
+    return out
+
+
+def mp_checkpoint(torch, device, base: str, n: int, dim: int, world: int,
+                  seed: int, rng):
+    """Write 12a's checkpoint once, chunk by chunk, in save(shards=world)'s
+    layout (file f: rows [f * per, (f + 1) * per), ids "m<row>"), and the
+    queries (MESH_Q rows plus noise) with their float64 top-13 over the
+    first MESH_ORACLE_Q. Returns (queries, oracle scores, oracle rows)."""
+    from picovdb_tpu_torch import K_ID, persistence
+
+    per = persistence.shard_split_rows(n, world)
+    files = [np.lib.format.open_memmap(
+        persistence.shard_path(base, f, world), mode="w+", dtype=np.float32,
+        shape=(max(0, min(n, (f + 1) * per) - f * per), dim))
+        for f in range(world)]
+    pick = np.sort(rng.integers(0, n, MESH_Q))
+    near = np.empty((MESH_Q, dim), dtype=np.float32)
+    for a, rows in seeded_chunks(torch, device, seed, 0, n, dim):
+        host = rows.cpu().numpy()
+        b = a + host.shape[0]
+        for f in range(world):
+            lo, hi = max(a, f * per), min(b, (f + 1) * per)
+            if lo < hi:
+                files[f][lo - f * per:hi - f * per] = host[lo - a:hi - a]
+        sel = (pick >= a) & (pick < b)
+        near[sel] = host[pick[sel] - a]
+    for f in files:
+        f.flush()
+    del files
+    ids = [f"m{i}" for i in range(n)]
+    persistence.save_ids_meta_atomic(base, ids, [{K_ID: i} for i in ids], {},
+                                     dim)
+    qhost = near + 0.01 * rng.standard_normal(near.shape, dtype=np.float32)
+    ov, oi = oracle_masked(
+        torch, seeded_chunks(torch, device, seed, 0, n, dim),
+        torch.from_numpy(qhost[:MESH_ORACLE_Q]).to(device), None, k=13)
+    return qhost, ov, oi
+
+
+def phase_multiprocess(torch, scan, card: str, trace_dir=None) -> dict:
+    """Phase 12: one store across processes. The parent writes 12a's
+    checkpoint and spawns the ranks (`--mp-rank`), one a card under NCCL
+    on two or more cards, else two on cuda:0 under gloo (NCCL refuses two
+    ranks on one device); each rank runs `mp_rank_main` and any rank's
+    failure or a timeout fails the phase. Returns the launches summed over
+    the ranks."""
+    count = torch.cuda.device_count()
+    world, backend = (count, "nccl") if count >= 2 else (2, "gloo")
+    where = ("one rank a card" if backend == "nccl" else
+             "two ranks on cuda:0, collectives staged through host memory")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 12)
+    seeds = {key: int(rng.integers(1 << 30)) for key in "abcdm"}
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_mp_", dir=os.getcwd())
+    base = os.path.join(tmp, "a")
+    t0 = time.perf_counter()
+    qhost, ov, oi = mp_checkpoint(torch, torch.device("cuda:0"), base, MP_N,
+                                  DIM, world, seeds["a"], rng)
+    np.savez(os.path.join(tmp, "q12a.npz"), q=qhost, ov=ov, oi=oi)
+    log(f"phase 12: 12a's checkpoint, {MP_N} x {DIM} float32 in {world} "
+        f"shard files, written in {time.perf_counter() - t0:.2f} s")
+    cfg = {"world": world, "backend": backend, "tmp": tmp, "base": base,
+           "device": "cuda:0" if backend == "gloo" else None, "dim": DIM,
+           "n": [MP_N, MP_I8_N, MP_I4_N, MP_IVF_N], "seeds": seeds,
+           "trace_dir": trace_dir}
+    cfg_path = os.path.join(tmp, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    results = run_ranks(world, backend, cfg_path, tmp)
+    shutil.rmtree(tmp)
+    scope = ("" if backend == "nccl" else
+             ": two ranks time-slice one card, so its times check the "
+             "path, not the deployment")
+    log(f"phase 12: stores across {world} processes done in "
+        f"{time.perf_counter() - t_phase:.1f} s ({where}{scope}); launches "
+        f"by rank {results}")
+    return {key: sum(r.get(key, 0) for r in results)
+            for key in set().union(*results)}
+
+
+def run_ranks(world: int, backend: str, cfg_path: str, tmp: str) -> list:
+    """Start `world` ranks of this script (`--mp-rank r port cfg`), each
+    writing its output to a file, wait for all of them within
+    MP_TIMEOUT_S, forward their lines, and return each rank's launches.
+    Raises if a rank fails or the time runs out (every rank is killed)."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, LOCAL_RANK=str(r))
+        logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-rank", str(r),
+             str(port), cfg_path], stdout=logs[-1],
+            stderr=subprocess.STDOUT, env=env))
+    deadline = time.perf_counter() + MP_TIMEOUT_S
+    timed_out = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, f in enumerate(logs):
+        f.seek(0)
+        for text in f.read().splitlines():
+            log(text)
+        f.close()
+    assert not timed_out, f"phase 12: a rank ran past {MP_TIMEOUT_S} s"
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"phase 12: rank {r} exited {p.returncode}"
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mp_rank_main(torch, rank: int, port: int, cfg_path: str) -> int:
+    """One rank of phase 12: join the group, build the pod mesh over this
+    rank's card and serve 12a-12d on it, writing its launches."""
+    import torch.distributed as dist
+
+    from picovdb_tpu_torch.ops import scan
+    from picovdb_tpu_torch.parallel.multihost import (
+        barrier,
+        init_distributed,
+        pod_mesh,
+    )
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    world, backend = cfg["world"], cfg["backend"]
+    init_distributed(f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
+                     backend=backend, timeout_s=MP_TIMEOUT_S)
+    mesh = pod_mesh(devices=None if cfg["device"] is None
+                    else [torch.device(cfg["device"])])
+    tag = f"phase 12 [rank {rank}/{world}, {backend}]"
+    card = card_line() if mesh.first.type == "cuda" else "cpu"
+
+    def say(text):
+        log(f"{tag} {text}; card {card}")
+
+    total = {}
+    for run in (mp_f32, mp_int8, mp_int4, mp_ivf):
+        counts = run(torch, scan, mesh, cfg, say)
+        for key, v in counts.items():
+            if key != "shapes":
+                total[key] = total.get(key, 0) + v
+        torch.cuda.empty_cache()
+    with open(os.path.join(cfg["tmp"], f"rank{rank}.json"), "w") as f:
+        json.dump(total, f)
+    barrier(mesh)
+    dist.destroy_process_group()
+    return 0
+
+
+def mp_same_everywhere(mesh, arr) -> bool:
+    """Whether every rank holds the same `arr` (a digest, all-gathered)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    digest = hashlib.md5(np.asarray(arr).astype(str).tobytes()).hexdigest()
+    every = [None] * mesh.world_size
+    dist.all_gather_object(every, digest)
+    return len(set(every)) == 1
+
+
+def mp_sync(torch, mesh) -> None:
+    from picovdb_tpu_torch.parallel.multihost import barrier
+
+    if mesh.first.type == "cuda":
+        torch.cuda.synchronize(mesh.first)
+    barrier(mesh)
+
+
+def mp_times(torch, mesh, db, qdev, qhost) -> dict:
+    """Q = 1 and Q = 64 latency (CUDA events around query_columnar of host
+    queries, median of 10, every rank calling) and batch QPS: the
+    CUDA-resident queries in 2048-query chunks between two barriers, on
+    this rank's clock, after a warm run."""
+    one = cuda_ms(torch, lambda: db.query_columnar(qhost[:1], top_k=10), 10)
+    q64 = cuda_ms(torch, lambda: db.query_columnar(qhost[:64], top_k=10), 10)
+    db.query_columnar(qdev, top_k=10, batch_size=2048)
+    mp_sync(torch, mesh)
+    t0 = time.perf_counter()
+    db.query_columnar(qdev, top_k=10, batch_size=2048)
+    mp_sync(torch, mesh)
+    return {"q1_ms": one, "q64_ms": q64,
+            "qps": qdev.shape[0] / (time.perf_counter() - t0)}
+
+
+def oracle_update(ov, oi, qn, drop, add_rows, add_ids, k: int = 11):
+    """A float64 top-k after a mutation epoch, from the old top-13 (ov,
+    oi): the dropped rows leave, the added rows (new or rewritten) enter
+    with their exact scores. Exact while the drops leave k of the 13."""
+    v = np.where(np.isin(oi, drop), -np.inf, ov)
+    add = qn.astype(np.float64) @ add_rows.astype(np.float64).T
+    v = np.concatenate([v, add], 1)
+    i = np.concatenate([oi, np.broadcast_to(add_ids, add.shape)], 1)
+    order = np.lexsort((i, -v), axis=1)[:, :k]
+    return np.take_along_axis(v, order, 1), np.take_along_axis(i, order, 1)
+
+
+def own_shard_k4(torch, scan, db, q) -> str:
+    """K4 on this rank's first shard (Q = 64, k_sel 14) against its plain
+    version on the same inputs, both timed (launches uncounted)."""
+    dev = db._dev
+    s = dev.mesh.local_shards[0]
+    v, m = dev.vectors[s], dev.active[s]
+    with uncounted(scan):
+        got = scan.fused_topk(q, v, m, 14)
+        ref = scan.scan_topk_plain(q, v, None, m, 14)
+        err = exact_err(torch, got[0], ref[0])
+        assert err <= TOL_SCORE, f"K4 off its plain version by {err}"
+        ms = cuda_ms(torch, lambda: scan.fused_topk(q, v, m, 14))
+        plain = cuda_ms(torch, lambda: scan.scan_topk_plain(q, v, None, m,
+                                                            14), 3)
+    return (f"K4 on its own shard ({v.shape[0]} rows, Q = {q.shape[0]}, "
+            f"k_sel 14) {ms:.4f} ms, its plain version {plain:.4f} ms, max "
+            f"|err| {err:.3g}")
+
+
+def mp_f32(torch, scan, mesh, cfg, say) -> dict:
+    """12a: the checkpoint loads distributed (each rank reads its file),
+    serves with K4 a local shard, takes a mutation epoch, saves
+    distributed and reloads."""
+    from picovdb_tpu_torch import K_ID, K_VECTOR, PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+    from picovdb_tpu_torch.parallel import sharded_query as tsq
+
+    n, dim = cfg["n"][0], cfg["dim"]
+    z = np.load(os.path.join(cfg["tmp"], "q12a.npz"))
+    qhost, ov, oi = z["q"], z["ov"], z["oi"]
+    mp_sync(torch, mesh)
+    t0 = time.perf_counter()
+
+    def load():
+        return PicoVectorDB(embedding_dim=dim, index="exact", mesh=mesh,
+                            storage_file=cfg["base"], scan_mode="fused")
+
+    db = load()
+    mp_sync(torch, mesh)
+    load_s = time.perf_counter() - t0
+    assert db._host_lazy and db.count() == n
+    resident = sum(t.numel() * t.element_size()
+                   for t in db._dev.vectors + db._dev.active if t is not None)
+    qdev = torch.from_numpy(qhost).to(mesh.first)
+    scan.reset_launch_counts()  # count this path's launches only
+    got, served, seen = mesh_serve(torch, scan, db, qdev, qhost, False)
+    counts = launch_counts(scan)
+    assert db.last_query_debug()["strategy"] == "sharded_scan_pallas"
+    assert k4_launches_ok(scan, counts), "a K4 launch missed the wgmma scan"
+    launches = mesh_launches_ok(scan, mesh, "scan_topk", seen)
+    rec = mesh_oracle_check(got, ov, oi, "12a", 0.99)
+    bad = ids_off_oracle(got, "m", ov, oi)
+    assert bad == 0, f"12a: {bad} id sets differ from the oracle"
+    assert mp_same_everywhere(mesh, served[-1][1][0]), "ranks disagree"
+    plain = mesh_plain_check(torch, scan, db, served, "float32")
+    t = mp_times(torch, mesh, db, qdev, qhost)
+    q = normalize_on_device(qdev[:2048])
+    fn = tsq.make_sharded_topk(mesh, "shard", 10, use_pallas=True,
+                               normalize=False)
+    dev = db._dev
+    with uncounted(scan):
+        route = cuda_ms(torch, lambda: fn(q, [dev.vectors], [dev.active]), 3)
+        v, i = fn(q, [dev.vectors], [dev.active])
+        merge = cuda_ms(torch, lambda: tsq.merge_ranks(mesh, v, i, 10))
+    own = own_shard_k4(torch, scan, db, q[:64])
+    if cfg.get("trace_dir"):  # `--multiprocess`: where a rank's chunk waits
+        with uncounted(scan):
+            trace = trace_chunks(
+                torch, lambda: db.query_columnar(qdev[:2048], top_k=10),
+                path=os.path.join(cfg["trace_dir"],
+                                  f"trace_mp_rank{mesh.rank}.json"))
+    say(f"12a {n} x {dim} float32 loaded from this rank's file in "
+        f"{load_s:.2f} s, {resident / 2**30:.2f} GiB resident here, route "
+        f"sharded_scan_pallas (K4 a local shard): {rec}, ids = the float64 "
+        f"oracle on {MESH_ORACLE_Q}/{MESH_ORACLE_Q} and the same on every "
+        f"rank; {plain}; {fmt_times(t)}; a 2048-query chunk {route:.4f} ms, "
+        f"all_gather + merge {merge:.4f} ms of it "
+        f"({100 * merge / route:.2f} %); {own}; launches {launches}")
+    if cfg.get("trace_dir"):
+        say(f"12a {trace}")
+
+    mg = np.random.default_rng(cfg["seeds"]["m"])
+    newv = mg.standard_normal((5, dim)).astype(np.float32)
+    newv /= np.linalg.norm(newv, axis=1, keepdims=True)
+    db.upsert([{K_ID: "m2", K_VECTOR: newv[0]}]
+              + [{K_ID: f"m{n + j}", K_VECTOR: newv[1 + j]} for j in range(4)])
+    db.delete(["m5"])
+    qn = qhost[:MESH_ORACLE_Q] / np.linalg.norm(qhost[:MESH_ORACLE_Q], axis=1,
+                                                keepdims=True)
+    ov2, oi2 = oracle_update(ov, oi, qn, [2, 5], newv,
+                             np.array([2] + [n + j for j in range(4)]))
+    want = db.query_columnar(qhost[:MESH_ORACLE_Q], top_k=10)
+    bad = ids_off_oracle(want[0], "m", ov2, oi2)
+    assert bad == 0, f"12a after the mutation epoch: {bad} id sets differ"
+    assert db.query(newv[1], top_k=1)[0][K_ID] == f"m{n}"
+    mode = db._last_sync_mode
+    mp_sync(torch, mesh)
+    t0 = time.perf_counter()
+    db.save()
+    save_s = time.perf_counter() - t0
+    del db
+    torch.cuda.empty_cache()
+    mp_sync(torch, mesh)
+    t0 = time.perf_counter()
+    db = load()
+    mp_sync(torch, mesh)
+    reload_s = time.perf_counter() - t0
+    assert db.count() == n + 3
+    again = db.query_columnar(qhost[:MESH_ORACLE_Q], top_k=10)
+    assert (again[0] == want[0]).all(), "the reloaded store answers otherwise"
+    np.testing.assert_allclose(again[1], want[1], rtol=0, atol=1e-6)
+    say(f"12a mutation epoch (update 1, delete 1, append 4; sync {mode}): "
+        f"ids = the updated oracle on {MESH_ORACLE_Q}/{MESH_ORACLE_Q}; "
+        f"distributed save {save_s:.2f} s, reload {reload_s:.2f} s, the "
+        f"reloaded store answers the same")
+    del db
+    return counts
+
+
+def mp_int8(torch, scan, mesh, cfg, say) -> dict:
+    """12b: int8 storage upserted on every rank (each holds the host
+    matrix), K3 a local shard under the host rescore, the storage-precision
+    answers held to the plain sharded route, and the distributed save's
+    dequantized float32 shards."""
+    from picovdb_tpu_torch import K_ID, PicoVectorDB, persistence
+
+    n, dim, world = cfg["n"][1], cfg["dim"], mesh.world_size
+    seed = cfg["seeds"]["b"]
+    corpus = host_rows(torch, seeded_chunks(torch, mesh.first, seed, 0, n,
+                                            dim), n, dim)
+    mg = np.random.default_rng(seed)
+    near = corpus[mg.integers(0, n, 2048)]
+    qhost = near + 0.01 * mg.standard_normal(near.shape, dtype=np.float32)
+    qdev = torch.from_numpy(qhost).to(mesh.first)
+    base = os.path.join(cfg["tmp"], "b")
+    db = PicoVectorDB(embedding_dim=dim, index="exact", mesh=mesh,
+                      storage_file=base, storage_dtype="int8",
+                      scan_mode="fused")
+    db.upsert_columnar(corpus, ids=[f"b{i}" for i in range(n)], copy=False)
+    db.rebuild_index()
+    ov, oi = oracle_masked(torch, ((s, torch.from_numpy(
+        corpus[s:s + MP_CHUNK]).to(mesh.first)) for s in range(0, n,
+                                                                MP_CHUNK)),
+        qdev[:128], None)
+    scan.reset_launch_counts()
+    with dispatch_log(db) as seen:
+        db.query_columnar(qhost[:1], top_k=10)  # the sweep, host rescore
+        assert db.last_query_debug()["rescore"] == "host"
+        db.query_columnar(qhost[:64], top_k=10)  # the tensor-core scan
+        got = db.query_columnar(qhost[:128], top_k=10)[0]
+        served = [(qdev[:1], db.query_columnar(qdev[:1], top_k=10)),
+                  (qdev[:64], db.query_columnar(qdev[:64], top_k=10)),
+                  (qdev, db.query_columnar(qdev, top_k=10, batch_size=2048))]
+        torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    assert db.last_query_debug()["strategy"] == "sharded_scan_i8stor_pallas"
+    launches = mesh_launches_ok(scan, mesh, "scan_topk_i8", seen)
+    assert (counts["scan_topk_i8_sweep"] > 0
+            and counts["scan_topk_i8_wgmma"] > 0), counts
+    rec = mesh_oracle_check(got, ov, oi, "12b", 0.99)
+    assert ids_off_oracle(got, "b", ov, oi) == 0
+    plain = mesh_plain_check(torch, scan, db, served, "int8")
+    assert mp_same_everywhere(mesh, served[-1][1][0]), "ranks disagree"
+    t0 = time.perf_counter()
+    db.save()
+    save_s = time.perf_counter() - t0
+    per = persistence.shard_split_rows(n, world)
+    mine = np.load(persistence.shard_path(base, mesh.rank, world))
+    lo = mesh.rank * per
+    err = float(np.abs(mine - corpus[lo:lo + mine.shape[0]]).max())
+    assert err <= 2e-2, f"12b: the saved shard is off its rows by {err}"
+    del db
+    torch.cuda.empty_cache()
+    db = PicoVectorDB(embedding_dim=dim, index="exact", mesh=mesh,
+                      storage_file=base)
+    checked = (0, n // 2 + 3, n - 1)
+    for i in checked:
+        assert db.query(corpus[i], top_k=1)[0][K_ID] == f"b{i}", i
+    say(f"12b {n} x {dim} int8 upserted on every rank, route "
+        f"sharded_scan_i8stor_pallas (K3 a local shard: the sweep at Q = 1, "
+        f"the tensor-core scan at Q = 64): host-rescored {rec}; Q = 1, "
+        f"Q = 64 and the chunks at storage precision {plain}; save {save_s:.2f}"
+        f" s, this rank's float32 shard within {err:.4f} of its rows, the "
+        f"reload ranks rows {checked} first; launches {launches}, by shape "
+        f"{counts['shapes'].get('scan_topk_i8')}")
+    del db, corpus
+    return counts
+
+
+@contextlib.contextmanager
+def plain_k6(scan, tsq):
+    """K6's plain version in the sharded route's place (its selection
+    only; the rescore stays)."""
+    real = tsq.fused_topk_i4
+    tsq.fused_topk_i4 = lambda q8, v, s, m, k: scan.scan_topk_plain(
+        q8, v, s, m, k, int4=True)
+    try:
+        yield
+    finally:
+        tsq.fused_topk_i4 = real
+
+
+def mp_int4(torch, scan, mesh, cfg, say) -> dict:
+    """12c: packed int4 rows, a shard a rank made on its card, through
+    make_sharded_topk(storage_i4=True): K6 a local shard at Q = 1 and
+    Q = 2048, the answers bit for bit the route with K6's plain version."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+    from picovdb_tpu_torch.parallel import sharded_query as tsq
+
+    n, dim = cfg["n"][2], cfg["dim"]
+    shards = mesh.shape["shard"]
+    rl = n // shards
+    v4, sc, mk = ([None] * shards for _ in range(3))
+    for s in mesh.local_shards:
+        dev = mesh.row(0)[s]
+        v4[s] = torch.empty((rl, dim // 2), dtype=torch.int8, device=dev)
+        sc[s] = torch.empty((rl,), dtype=torch.float32, device=dev)
+        for a, rows in seeded_chunks(torch, dev, cfg["seeds"]["c"], s * rl,
+                                     (s + 1) * rl, dim):
+            b = a - s * rl + rows.shape[0]
+            v4[s][a - s * rl:b], sc[s][a - s * rl:b] = \
+                scan.quantize_rows_i4(rows)
+        mk[s] = torch.ones(rl, dtype=torch.bool, device=dev)
+    g = torch.Generator(device=mesh.first).manual_seed(cfg["seeds"]["c"] - 1)
+    q = normalize_on_device(torch.randn(2048, dim, generator=g,
+                                        device=mesh.first))
+    fn = tsq.make_sharded_topk(mesh, "shard", 10, use_pallas=True,
+                               storage_i4=True)
+    scan.reset_launch_counts()
+    outs = [fn(q[:1], [v4], [sc], [mk]), fn(q, [v4], [sc], [mk])]
+    torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    local = len(mesh.local_shards)
+    assert counts["scan_topk_i4"] == 2 * local, counts["scan_topk_i4"]
+    assert (counts["scan_topk_i4_sweep"] == local
+            and counts["scan_topk_i4_wgmma"] == local), counts
+    with uncounted(scan):
+        ms = cuda_ms(torch, lambda: fn(q, [v4], [sc], [mk]), 3)
+        with plain_k6(scan, tsq):
+            refs = [fn(q[:1], [v4], [sc], [mk]), fn(q, [v4], [sc], [mk])]
+            t0 = time.perf_counter()
+            fn(q, [v4], [sc], [mk])
+            mp_sync(torch, mesh)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+    for (gv, gi), (rv, ri) in zip(outs, refs):
+        assert torch.equal(gv, rv) and torch.equal(gi, ri), \
+            "12c: K6's route differs from the plain version's"
+    assert mp_same_everywhere(mesh, outs[1][1].cpu().numpy())
+    say(f"12c {n} x {dim} int4 ({rl} packed rows a shard), "
+        f"make_sharded_topk(storage_i4=True) with K6 a local shard (the "
+        f"sweep at Q = 1, the tensor-core scan at Q = 2048): scores and rows "
+        f"bit for bit the route with K6's plain version; Q = 2048 "
+        f"{ms:.4f} ms (plain version {plain_ms:.1f} ms, one run); launches "
+        f"{counts['scan_topk_i4']} = {local} local shards x 2 calls")
+    del v4, sc, mk
+    return counts
+
+
+@contextlib.contextmanager
+def plain_k7(tivf):
+    real = tivf.ivf_scan_topk
+    tivf.ivf_scan_topk = tivf.ivf_scan_topk_plain
+    try:
+        yield
+    finally:
+        tivf.ivf_scan_topk = real
+
+
+def mp_ivf(torch, scan, mesh, cfg, say) -> dict:
+    """12d: ShardedIVF over a clustered corpus, every rank building from
+    the host matrix and uploading its own shards: K7 a local shard; the
+    full probe equals the float64 oracle, before and after one
+    incremental update epoch; K7's answers equal its plain version's."""
+    from picovdb_tpu_torch.constants import HNSW_EFS
+    from picovdb_tpu_torch.ops import ivf as tivf
+    from picovdb_tpu_torch.parallel.ivf_mesh import ShardedIVF
+
+    n, dim = cfg["n"][3], cfg["dim"]
+    seed = cfg["seeds"]["d"]
+    mix = host_rows(torch, mixture_chunks(torch, mesh.first, n, dim, seed),
+                    n, dim)
+    mg = np.random.default_rng(seed)
+    qi = mix[mg.integers(0, n, 64)] + 0.01 * mg.standard_normal(
+        (64, dim), dtype=np.float32)
+    qn = qi / np.linalg.norm(qi, axis=1, keepdims=True)
+    mp_sync(torch, mesh)
+    t0 = time.perf_counter()
+    x = ShardedIVF.build(mix, np.ones(n, dtype=bool), mesh, dim=dim)
+    mp_sync(torch, mesh)
+    build_s = time.perf_counter() - t0
+
+    def chunks(rows):
+        return ((s, torch.from_numpy(rows[s:s + MP_CHUNK]).to(mesh.first))
+                for s in range(0, rows.shape[0], MP_CHUNK))
+
+    ov, oi = oracle_masked(torch, chunks(mix), torch.from_numpy(qi).to(
+        mesh.first), None, k=13)
+    searches = ((qi[:1], HNSW_EFS),  # Q = 1: K7's sweep
+                (qi, HNSW_EFS),  # Q = 64 at the default probe: its template
+                (qi, 10**6))  # the full probe
+    scan.reset_launch_counts()
+    got = [x.search(q, 10, ef=ef, dev=None) for q, ef in searches]
+    torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    local = len(mesh.local_shards)
+    assert counts["ivf_scan_topk"] == 3 * local, counts["ivf_scan_topk"]
+    assert counts["ivf_scan_topk_sweep"] == local, counts
+    fs = got[2][1]
+    bad = ids_off_oracle(np.array([[f"d{j}" for j in r] for r in fs]), "d",
+                         ov, oi)
+    assert bad == 0, f"12d: {bad} full-probe id sets differ from the oracle"
+    with uncounted(scan), plain_k7(tivf):
+        refs = [x.search(q, 10, ef=ef, dev=None) for q, ef in searches]
+    err = 0.0
+    for (gv, gs), (pv, ps), (q, ef) in zip(got, refs, searches):
+        err = max(err, float(np.abs(pv - gv).max()))
+        assert err <= TOL_SCORE and (ps == gs).all(), \
+            f"12d: K7 differs from its plain version (Q = {q.shape[0]}, " \
+            f"ef {ef})"
+    one = cuda_ms(torch, lambda: x.search(qi[:1], 10, ef=HNSW_EFS, dev=None))
+    q64 = cuda_ms(torch, lambda: x.search(qi, 10, ef=HNSW_EFS, dev=None))
+    rows = np.random.default_rng(seed + 1).standard_normal(
+        (2, dim)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    ok = x.update(np.array([int(oi[0, 0]), n, n + 1]),
+                  np.vstack([np.zeros((1, dim), np.float32), rows]),
+                  np.array([False, True, True]))
+    assert ok, "12d: the incremental update was refused"
+    ov2, oi2 = oracle_update(ov, oi, qn, [int(oi[0, 0])], rows,
+                             np.array([n, n + 1]))
+    fv2, fs2 = x.search(qi, 10, ef=10**6, dev=None)
+    bad2 = ids_off_oracle(np.array([[f"d{j}" for j in r] for r in fs2]), "d",
+                          ov2, oi2)
+    assert bad2 == 0, f"12d after the update: {bad2} id sets differ"
+    assert x.search(rows[:1], 1, ef=10**6, dev=None)[1][0, 0] == n
+    say(f"12d clustered {n} x {dim}, ShardedIVF built on every rank in "
+        f"{build_s:.2f} s (nlist {x.nlist}, {x.n_tiles} tiles a shard): full "
+        f"probe = the float64 oracle on 64/64, and after an incremental "
+        f"update (delete 1, append 2) again; K7 = its plain version (Q = 1 "
+        f"and Q = 64 at the default probe, Q = 64 full) within "
+        f"{err:.3g}; Q = 1 {one:.4f} ms, Q = 64 {q64:.4f} ms at the default "
+        f"probe; launches {counts['ivf_scan_topk']} = {local} local shards x"
+        f" 3 searches, by shape {counts['shapes'].get('ivf_scan_topk')}")
+    del x, mix
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Where a mesh store's chunk waits (`--trace-mesh`, and phase 12a's ranks)
+# ---------------------------------------------------------------------------
+
+TRACE_RANGES = (("_local_float", "shard scan"), ("_local_quant", "shard scan"),
+                ("merge_topk", "merge_topk"), ("merge_ranks", "merge_ranks"),
+                ("normalize_on_device", "normalize"))
+
+
+@contextlib.contextmanager
+def traced_ranges(torch):
+    """The sharded route's steps (parallel/sharded_query.py: the shard
+    scans, the merges, the query normalization) wrapped in
+    torch.profiler.record_function ranges, so a trace shows which host
+    step waits."""
+    from torch.profiler import record_function
+
+    from picovdb_tpu_torch.parallel import sharded_query as tsq
+
+    saved = []
+    for fn_name, label in TRACE_RANGES:
+        real = getattr(tsq, fn_name, None)
+        if real is None:
+            continue
+
+        def wrap(*a, _r=real, _l=label, **kw):
+            with record_function(_l):
+                return _r(*a, **kw)
+
+        saved.append((fn_name, real))
+        setattr(tsq, fn_name, wrap)
+    try:
+        yield
+    finally:
+        for fn_name, real in saved:
+            setattr(tsq, fn_name, real)
+
+
+def trace_chunks(torch, run, reps: int = 4, path=None) -> str:
+    """torch.profiler over `reps` calls of `run` (each ended by a device
+    synchronize, inside a "chunk" range), after a warm call; the chrome
+    trace goes to `path` when given. Returns `trace_summary` of it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    run()
+    torch.cuda.synchronize()
+    with traced_ranges(torch), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            with record_function("chunk"):
+                run()
+                torch.cuda.synchronize()
+    fd, tmp = tempfile.mkstemp(suffix=".json", dir=os.getcwd())
+    os.close(fd)
+    prof.export_chrome_trace(tmp)
+    with open(tmp) as f:
+        events = json.load(f)["traceEvents"]
+    if path:
+        shutil.move(tmp, path)
+    else:
+        os.remove(tmp)
+    return trace_summary(events)
+
+
+def trace_summary(events) -> str:
+    """Medians over the traced chunks after the first (the profiler's own
+    start lands in it): the chunk's wall time, each card's busy time and
+    the span of its scan kernels (ms from the chunk's start), and the
+    host time in each traced step."""
+    chunks = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("name") == "chunk" and e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation")[1:]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not chunks or not kernels:
+        return "trace: not measured (the profiler recorded no device time)"
+    walls, busy, starts, ends, host = [], {}, {}, {}, {}
+    for lo, hi in chunks:
+        walls.append((hi - lo) / 1e3)
+        b, s0, s1, h = {}, {}, {}, {}
+        for e in kernels:
+            a, z = e["ts"], e["ts"] + e["dur"]
+            if lo <= a <= hi:
+                dev = e.get("args", {}).get("device", -1)
+                b[dev] = b.get(dev, 0.0) + e["dur"] / 1e3
+                if "scan" in e["name"] or "sweep" in e["name"]:
+                    s0[dev] = min(s0.get(dev, 1e30), (a - lo) / 1e3)
+                    s1[dev] = max(s1.get(dev, 0.0), (z - lo) / 1e3)
+        for e in events:
+            if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e.get("name") != "chunk" and lo <= e["ts"] <= hi):
+                h[e["name"]] = h.get(e["name"], 0.0) + e["dur"] / 1e3
+        for src, dst in ((b, busy), (s0, starts), (s1, ends), (h, host)):
+            for key, v in src.items():
+                dst.setdefault(key, []).append(v)
+    cards = "; ".join(
+        f"card {d}: busy {np.median(busy[d]):.2f} ms"
+        + (f", scans {np.median(starts[d]):.2f}-{np.median(ends[d]):.2f} ms"
+           if d in starts else "")
+        for d in sorted(busy))
+    steps = ", ".join(f"{n} {np.median(v):.2f}"
+                      for n, v in sorted(host.items()))
+    return (f"trace: chunk {np.median(walls):.2f} ms (median of "
+            f"{len(chunks)}); {cards} (scan spans from the chunk's start); "
+            f"host ms a chunk: {steps}")
+
+
+def trace_mesh_main(torch, card: str) -> int:
+    """`--trace-mesh`: phase 11a's store (MESH_N x DIM float32, K4 a shard,
+    `mesh_grid`: one shard a card on four cards) and a trace of its
+    2048-query chunks (`trace_chunks`), the chrome traces kept under
+    traces/. Uses nothing of the multi-process layer, so the script can
+    trace a checkout of the package from before it too."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    rng = np.random.default_rng(SEED + 11)
+    n, dim = MESH_N, DIM
+    corpus = rng.standard_normal((n, dim), dtype=np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    q = torch.from_numpy(corpus[:2048] + 0.01 * rng.standard_normal(
+        (2048, dim), dtype=np.float32)).to("cuda:0")
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    out = os.path.join(os.getcwd(), "traces")
+    os.makedirs(out, exist_ok=True)
+    for dp in (1, 2):
+        db = PicoVectorDB(embedding_dim=dim, index="exact", scan_mode="fused",
+                          mesh=mesh_grid(torch, dp),
+                          storage_file=os.path.join(tmp, f"t{dp}"))
+        db.upsert_columnar(corpus, ids=[f"m{i}" for i in range(n)],
+                           copy=False)
+        db.rebuild_index()
+        line = trace_chunks(torch, lambda: db.query_columnar(q, top_k=10),
+                            path=os.path.join(out, f"trace_mesh_dp{dp}.json"))
+        log(f"trace-mesh: {n} x {dim} float32 on a {dp} x "
+            f"{MESH_SHARDS // dp} mesh over {torch.cuda.device_count()} "
+            f"card(s), 2048-query chunks: {line}; card {card}")
+        del db
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    print(card)
+    return 0
+
+
 def q64_latency_main(torch, n: int, dim: int) -> int:
     """`--q64-latency`: an n x dim int8 store with the host rescore, made
     from a generator of its own (SEED + 13), and `q64_latency` on 64 of its
@@ -3274,7 +4024,12 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--q64-latency"]:
         return q64_latency_main(torch, I8_N, DIM)
+    if sys.argv[1:2] == ["--mp-rank"]:  # one rank of phase 12
+        return mp_rank_main(torch, int(sys.argv[2]), int(sys.argv[3]),
+                            sys.argv[4])
     mesh_only = sys.argv[1:] == ["--mesh"]
+    mp_only = sys.argv[1:] == ["--multiprocess"]
+    trace_only = sys.argv[1:] == ["--trace-mesh"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -3287,10 +4042,19 @@ def main() -> int:
         f" (nvcc {_build.build_seconds if _build.build_seconds else 0.0:.2f} s)")
     log(f"phase 1: ptxas: {ptxas_report(_build.build().parent / 'ptxas.log')}")
 
+    if trace_only:
+        return trace_mesh_main(torch, card)
     if mesh_only:  # phase 11 alone, for iterating on it
         counts = phase_mesh(torch, scan, device,
                             np.random.default_rng(SEED + 11), card)
         log(f"phase 11: launches {counts}")
+        print(card)
+        return 0
+    if mp_only:  # phase 12 alone: one rank a card on two or more cards
+        out = os.path.join(os.getcwd(), "traces")
+        os.makedirs(out, exist_ok=True)
+        counts = phase_multiprocess(torch, scan, card, trace_dir=out)
+        log(f"phase 12: launches summed over the ranks {counts}")
         print(card)
         return 0
     rng = np.random.default_rng(SEED)
@@ -3323,14 +4087,20 @@ def main() -> int:
     before_s = time.perf_counter() - t_start
     counts[11] = phase_mesh(torch, scan, device,
                             np.random.default_rng(SEED + 11), card)
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    counts[12] = phase_multiprocess(torch, scan, card)
     log(f"smoke wall time: {time.perf_counter() - t_start:.1f} s, of which "
-        f"phases 1-10 {before_s:.1f} s")
+        f"phases 1-10 {before_s:.1f} s, phase 12 "
+        f"{time.perf_counter() - t12:.1f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[phase][key], **rec[name],
-         # phase 11's launches of the row's kernel (the mesh stores)
-         **({"mesh_launches": counts[11].get(key, 0)}
+         # phase 11's launches of the row's kernel (the mesh stores) and
+         # phase 12's, every rank's (the stores across processes)
+         **({"mesh_launches": counts[11].get(key, 0),
+             "mp_launches": counts[12].get(key, 0)}
             if name in MESH_ROWS else {})}
         for name, (key, src, rep, phase) in KERNELS.items()
     ]

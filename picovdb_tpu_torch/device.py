@@ -21,7 +21,11 @@ of the mesh's first row: `vectors`, `vstore_scale` and `active` (and the
 cached filter masks) are lists of per-shard tensors of cap / shards rows,
 each on its shard's device; a slot's owner shard is slot // (cap /
 shards). The mirrors and the routes built on them are off there, and
-every query takes the sharded routes (parallel/sharded_query.py).
+every query takes the sharded routes (parallel/sharded_query.py). A mesh
+across processes (`parallel/multihost.pod_mesh`) holds only this rank's
+shards: the lists keep None at the others', rows that change owner
+between ranks (`grow`, `adopt_global`) travel through the process group,
+and `fetch_rows` returns every rank the same rows.
 
 Route names (`last_strategy`) are the JAX package's, so the two packages'
 dispatch decisions can be compared one to one.
@@ -58,6 +62,7 @@ from .ops.scan import (
     quantize_cols_i8,
     quantize_rows_i4,
     quantize_rows_i8,
+    unpack_i4,
     unpack_i4_np_into,
 )
 from .utils import round_up
@@ -66,13 +71,6 @@ _log = logging.getLogger("picovdb_tpu_torch")
 
 _FVIEW_MISS = object()  # distinguishes 'not cached' from a cached refusal
 _OFF = ("0", "false", "False")
-
-
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to picovdb_tpu_torch yet (ROADMAP.md queue 1, "
-        f"{item}); use picovdb_tpu for it"
-    )
 
 
 def _pad_rows(arr: np.ndarray, cap: int, fill=0) -> np.ndarray:
@@ -98,16 +96,21 @@ def _reshard(planes: list, rows: int, devices: list) -> list:
     rows a shard): shard s of the result holds global rows [s * rows,
     (s + 1) * rows), copied from whichever old shards held them, zeros
     past the old capacity. One allocation per shard; the old planes stay
-    untouched, so a failure leaves them as they were."""
-    old = planes[0].shape[0]
+    untouched, so a failure leaves them as they were. A device of None
+    (another rank's shard) gets None; rows held by another rank stay
+    zero here (`DeviceIndex._exchange` moves them)."""
+    proto = next(t for t in planes if t is not None)
+    old = proto.shape[0]
     out = []
     for s, dev in enumerate(devices):
-        t = planes[0].new_zeros((rows,) + tuple(planes[0].shape[1:]),
-                                device=dev)
+        if dev is None:
+            out.append(None)
+            continue
+        t = proto.new_zeros((rows,) + tuple(proto.shape[1:]), device=dev)
         lo, hi = s * rows, (s + 1) * rows
         for o in range(lo // old, min(len(planes), -(-hi // old))):
             a, b = max(lo, o * old), min(hi, (o + 1) * old)
-            if a < b:
+            if a < b and planes[o] is not None:
                 t[a - lo:b - lo] = planes[o][a - o * old:b - o * old].to(dev)
         out.append(t)
     return out
@@ -329,8 +332,14 @@ class DeviceIndex:
 
     @property
     def shard_devices(self) -> list:
-        """The device of each shard (the mesh's first row)."""
-        return self.mesh.row(0) if self.mesh is not None else [self._device]
+        """The device of each shard (the mesh's first row; None at another
+        rank's shard)."""
+        return (self.mesh.local_row(0) if self.mesh is not None
+                else [self._device])
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.mesh is not None and self.mesh.multiprocess
 
     @property
     def shard_rows(self) -> int:
@@ -349,6 +358,10 @@ class DeviceIndex:
         acts = (None if active_np is None
                 else self._split_mask(active_np, cap))
         for s, dev in enumerate(self.shard_devices):
+            if dev is None:
+                bufs.append(None)
+                scales.append(None)
+                continue
             buf = torch.zeros((rl, self.plane_cols), dtype=self._plane_dtype(),
                               device=dev)
             sc = (torch.zeros((rl,), dtype=torch.float32, device=dev)
@@ -363,7 +376,8 @@ class DeviceIndex:
             bufs.append(buf)
             scales.append(sc)
         if acts is None:
-            acts = [torch.arange(s * rl, (s + 1) * rl, device=dev) < n
+            acts = [None if dev is None else
+                    torch.arange(s * rl, (s + 1) * rl, device=dev) < n
                     for s, dev in enumerate(self.shard_devices)]
         self._commit(bufs, scales if self.quantized else None, acts, cap)
 
@@ -379,23 +393,29 @@ class DeviceIndex:
         cap = cap or self.cap
         m = _pad_rows(np.ascontiguousarray(mask_np, dtype=bool), cap)
         rl = cap // self.nshards
-        return [self._host_tensor(m[s * rl:(s + 1) * rl], dev)
+        return [None if dev is None else
+                self._host_tensor(m[s * rl:(s + 1) * rl], dev)
                 for s, dev in enumerate(self.shard_devices)]
 
-    def _by_shard(self, idxs: np.ndarray):
+    def _by_shard(self, idxs: np.ndarray, every: bool = False):
         """Group global slots by owner shard: yields (shard, positions in
-        `idxs`, local rows as an int64 tensor on the shard's device)."""
+        `idxs`, local rows as an int64 tensor on the shard's device) for
+        this rank's shards, and with `every` for the others' too (local
+        rows None there)."""
         rl = self.shard_rows
         owner = idxs // rl
         for s in np.unique(owner).tolist():
+            dev = self.shard_devices[s]
+            if dev is None and not every:
+                continue
             pos = np.nonzero(owner == s)[0]
-            yield s, pos, self._host_tensor(idxs[pos] - s * rl,
-                                            self.shard_devices[s])
+            yield s, pos, (None if dev is None else
+                           self._host_tensor(idxs[pos] - s * rl, dev))
 
     def _row_differs(self, r: int) -> bool:
         """Whether mesh row r's devices differ from the shards' (row 0's):
         such a row serves its part of a batch from its own copy."""
-        return self.mesh.row(r) != self.shard_devices
+        return self.mesh.local_row(r) != self.shard_devices
 
     def mesh_planes(self, plane):
         """A per-shard plane as one list per mesh row: row 0 holds the
@@ -411,7 +431,7 @@ class DeviceIndex:
             return [plane] * dp
         hit = self._replicas.get(id(plane))
         if hit is None or hit[0] is not plane:
-            rows = [[t.to(d, copy=True)
+            rows = [[None if t is None else t.to(d, copy=True)
                      for t, d in zip(plane, self.mesh.row(r))]
                     if differs[r] else plane for r in range(dp)]
             core = {id(self.vectors), id(self.vstore_scale), id(self.active)}
@@ -497,14 +517,20 @@ class DeviceIndex:
     def _mesh_grow(self, new_cap: int) -> bool:
         """`grow` of a mesh store. Shard boundaries move with the
         capacity, so each plane is re-split (`_reshard`: rows copied to
-        their new owner shard); peak memory is the old plus the new
-        planes. Out of device memory it ends as `grow` does: the corpus
-        fails -> nothing changed, False; the mask or the scales fail ->
-        every plane dropped, False."""
+        their new owner shard; across processes `_exchange` then moves the
+        rows whose owner is another rank); peak memory is the old plus the
+        new planes. Out of device memory it ends as `grow` does: the
+        corpus fails -> nothing changed, False; the mask or the scales fail
+        -> every plane dropped, False. Across processes the ranks agree on
+        the outcome before any row moves, so a failure on one rank ends
+        the grow on all of them the same way."""
         rl = new_cap // self.nshards
+        fail = 0
         try:
             vectors = _reshard(self.vectors, rl, self.shard_devices)
         except torch.cuda.OutOfMemoryError:
+            fail = 1
+        if self._agree(fail):
             _log.warning("mesh grow %d -> %d rows ran out of device memory; "
                          "store unchanged", self.cap, new_cap)
             return False
@@ -513,16 +539,57 @@ class DeviceIndex:
             scales = (None if self.vstore_scale is None else
                       _reshard(self.vstore_scale, rl, self.shard_devices))
         except torch.cuda.OutOfMemoryError:
+            fail = 1
+        if self._agree(fail):
             _log.warning("mesh grow %d -> %d rows ran out of device memory; "
                          "device planes dropped", self.cap, new_cap)
             self.vectors = self.active = self.vstore_scale = None
             self._planes_changed()
             return False
+        if self.multiprocess:
+            old_rl = self.shard_rows
+            for old, new in ((self.vectors, vectors), (self.active, active),
+                             (self.vstore_scale, scales)):
+                if new is not None:
+                    self._exchange(old, old_rl, new, rl, self.cap,
+                                   remote_only=True)
         self.vectors, self.active, self.vstore_scale = vectors, active, scales
         self.cap = new_cap
         self._planes_changed()
         self.last_sync_mode = "grow"
         return True
+
+    def _agree(self, fail: int) -> int:
+        """Across processes, the largest of every rank's failure code;
+        else `fail` itself."""
+        if not self.multiprocess:
+            return fail
+        from .parallel.multihost import agree_max
+
+        return agree_max(self.mesh, fail)
+
+    def _exchange(self, src: list, src_rows: int, dst: list, dst_rows: int,
+                  total: int, remote_only: bool = False) -> None:
+        """Copy global rows [0, total) from the per-shard planes `src`
+        (src_rows rows a shard) into `dst` (dst_rows rows a shard) across
+        the mesh's ranks, STREAM_CHUNK_ROWS rows at a time
+        (`multihost.move_rows`); `dst` takes `src`'s dtype on arrival."""
+        from .parallel.multihost import move_rows
+
+        proto = next(t for t in src if t is not None)
+        owners = self.mesh.owners
+
+        def read(o, a, b):
+            return src[o][a - o * src_rows:b - o * src_rows]
+
+        def write(s, a, b, rows):
+            t = dst[s]
+            t[a - s * dst_rows:b - s * dst_rows] = rows.to(t.device, t.dtype)
+
+        move_rows(self.mesh, total, src_rows, lambda o: int(owners[o]), read,
+                  dst_rows, len(dst), lambda s: int(owners[s]), write,
+                  tuple(proto.shape[1:]), proto.dtype,
+                  self.STREAM_CHUNK_ROWS, remote_only=remote_only)
 
     def full_upload(self, host_vectors: np.ndarray, active_np: np.ndarray) -> None:
         """Upload the whole corpus in STREAM_CHUNK_ROWS pieces, so the host
@@ -695,6 +762,34 @@ class DeviceIndex:
         self._mesh_fill(n, cap, fill)
         return shadow
 
+    def adopt_global(self, blocks: list, n: int, active_np: np.ndarray) -> None:
+        """Adopt a corpus assembled from every rank's checkpoint shard
+        (`parallel/multihost.load_host_shard`): `blocks` are this rank's
+        (n / shards, dim) float32 blocks in shard order, block j of the
+        shard axis holding global rows [j * n / shards, ...). Each plane
+        is cast to the storage dtype and padded to the aligned capacity;
+        rows whose shard at that capacity is another rank's travel through
+        the process group (`_exchange`), so no rank holds another's rows
+        beyond a STREAM_CHUNK_ROWS piece. float32 / bfloat16 storage only,
+        as in picovdb_tpu; the active mask is padded False."""
+        if self.storage_dtype in ("int8", "int4"):
+            raise NotImplementedError(
+                "adopt_global supports float32/bfloat16 storage; quantized "
+                "multi-process stores load via upload_prequantized"
+            )
+        cap = self._cap_with_headroom(n)
+        rl = cap // self.nshards
+        src = [None] * self.nshards
+        for s, b in zip(self.mesh.local_shards, blocks):
+            src[s] = b
+        planes = [None if dev is None else
+                  torch.zeros((rl, self.dim), dtype=self._plane_dtype(),
+                              device=dev)
+                  for dev in self.shard_devices]
+        self._exchange(src, n // self.nshards, planes, rl, n)
+        self._commit(planes, None, self._split_mask(
+            _pad_rows(np.asarray(active_np, dtype=bool), cap), cap), cap)
+
     def _mirror_budget(self) -> tuple:
         """(device budget bytes, bytes/element across resident planes)."""
         budget = int(
@@ -821,27 +916,53 @@ class DeviceIndex:
         out = np.empty((m, self.dim), dtype=np.float32)
         step = self.FETCH_CHUNK_ROWS
         if self.mesh is not None:
-            # one gather per owner shard, on its device
-            for sh, pos, local in self._by_shard(idxs):
-                scales = (None if self.vstore_scale is None
-                          else self.vstore_scale[sh])
+            # one gather per owner shard, on its device; across processes
+            # the owner rank broadcasts its rows to the others
+            for sh, pos, local in self._by_shard(idxs,
+                                                 every=self.multiprocess):
                 for a in range(0, pos.shape[0], step):
                     sel = pos[a:a + step]
+                    raw, sc = self._gather_shard(sh, local, a, a + step,
+                                                 sel.shape[0])
                     rows = np.empty((sel.shape[0], self.dim), np.float32)
-                    self._dequant_into(self.vectors[sh], scales,
-                                       local[a:a + step], rows)
+                    self._dequant_into(raw, sc, rows)
                     out[sel] = rows
             return out
         for s in range(0, m, step):
             e = min(m, s + step)
-            self._dequant_into(self.vectors, self.vstore_scale,
-                               self._host_tensor(idxs[s:e]), out[s:e])
+            ci = self._host_tensor(idxs[s:e])
+            self._dequant_into(
+                self.vectors[ci], None if self.vstore_scale is None
+                else self.vstore_scale[ci], out[s:e])
         return out
 
-    def _dequant_into(self, plane, scales, ci, out) -> None:
-        """Rows `ci` of one device plane, dequantized into the float32
-        host rows `out`."""
-        raw = plane[ci]
+    def _gather_shard(self, sh: int, local, a: int, b: int, m: int):
+        """Rows local[a:b] (m of them) of shard sh: (storage rows, row
+        scales or None) on the shard's device, or across processes on
+        every rank, broadcast by the rank that owns the shard."""
+        scales = self.vstore_scale
+        if local is not None:
+            ci = local[a:b]
+            raw = self.vectors[sh][ci]
+            sc = None if scales is None else scales[sh][ci]
+        else:
+            raw = sc = None
+        if not self.multiprocess:
+            return raw, sc
+        from .parallel.multihost import broadcast_from
+
+        src = int(self.mesh.owners[sh])
+        first = self.mesh.first
+        raw = broadcast_from(self.mesh, src, raw, (m, self.plane_cols),
+                             self._plane_dtype(), first)
+        if self.quantized:
+            sc = broadcast_from(self.mesh, src, sc, (m,), torch.float32,
+                                first)
+        return raw, sc
+
+    def _dequant_into(self, raw, scales, out) -> None:
+        """Storage rows `raw` (and their row scales) of one device plane,
+        dequantized into the float32 host rows `out`."""
         if self.storage_dtype == "bfloat16":
             raw = raw.float()
         raw = raw.cpu().numpy()
@@ -850,7 +971,39 @@ class DeviceIndex:
         else:
             out[:] = raw
         if scales is not None:
-            out *= scales[ci].cpu().numpy()[:, None]
+            out *= scales.cpu().numpy()[:, None]
+
+    def rank_file_rows(self, n: int, per: int) -> np.ndarray:
+        """This rank's file of a multi-process checkpoint: global rows
+        [rank * per, min(n, (rank + 1) * per)) dequantized to float32 on
+        the host. Rows held by other ranks arrive through the process
+        group in STREAM_CHUNK_ROWS pieces, dequantized by their owner."""
+        mesh = self.mesh
+        me = mesh.rank
+        lo = min(n, me * per)
+        out = np.zeros((min(n, (me + 1) * per) - lo, self.dim), np.float32)
+        rl = self.shard_rows
+
+        def read(o, a, b):
+            rows = self.vectors[o][a - o * rl:b - o * rl]
+            if self.storage_dtype == "int4":
+                rows = unpack_i4(rows)
+            rows = rows.float()
+            if self.vstore_scale is not None:
+                rows = rows * self.vstore_scale[o][a - o * rl:b - o * rl,
+                                                   None]
+            return rows
+
+        def write(f, a, b, rows):
+            out[a - lo:b - lo] = rows.cpu().numpy()
+
+        from .parallel.multihost import move_rows
+
+        owners = mesh.owners
+        move_rows(mesh, n, rl, lambda o: int(owners[o]), read,
+                  max(per, 1), mesh.world_size, lambda f: f, write,
+                  (self.dim,), torch.float32, self.STREAM_CHUNK_ROWS)
+        return out
 
     def iter_store_chunks(self, n: int, chunk: Optional[int] = None):
         """Yield the first n rows of an int8/int4 store as host
@@ -860,6 +1013,10 @@ class DeviceIndex:
             raise RuntimeError(
                 "iter_store_chunks requires a quantized device store")
         step = chunk or self.STREAM_CHUNK_ROWS
+        if self.multiprocess:
+            raise RuntimeError(
+                "iter_store_chunks reads every shard; a multi-process store "
+                "saves one float32 shard file per rank (engine.save)")
         if self.mesh is not None:
             rl = self.shard_rows
             for sh in range(self.nshards):

@@ -37,10 +37,14 @@ exact top-k_sel of the dense product plus the exact rescore.
 one process: the exact scan runs on every shard and merges on the mesh's
 first device (parallel/sharded_query.py), and the IVF tier becomes
 `parallel/ivf_mesh.ShardedIVF` (shared centroids, per-shard postings).
-Not in this slice, and raising NotImplementedError with the ROADMAP item
-that brings it: a mesh store in a multi-process program
-(`torch.distributed` initialised with more than one process: item 8's
-multi-process part, with its distributed loads and saves).
+A mesh across processes (`parallel/multihost.pod_mesh`, one rank a card)
+makes one logical store of every rank's shards: each rank loads only its
+file of a `save(shards=world)` checkpoint (`_load_distributed`), saves
+only its own (`_save_distributed`), and answers every query with the
+same merged result. Every rank issues the same calls in the same order
+(the SPMD contract). As in picovdb_tpu, such a store serves the exact
+scan only (`index="ivf"` warns and serves exact), never materializes the
+host matrix, and loads distributed in float32 / bfloat16 only.
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ from .constants import (
     RESCORE_MAX_Q,
     Float,
 )
-from .device import DeviceIndex, _not_in_slice
+from .device import DeviceIndex
 from .filters import TagIndex, compile_where_mask
 from .locking import RWLock
 from .ops import ivf as ivf_ops
@@ -261,12 +265,6 @@ class PicoVectorDB:
         self._host_f32_lossy: bool = False
         self._last_rescore: Optional[str] = None
 
-        if (mesh is not None and torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise _not_in_slice(
-                "a mesh store across processes (torch.distributed world "
-                "size > 1)", "item 8, multi-GPU: the multi-process part")
         self._dev = DeviceIndex(
             self.dim,
             device=device,
@@ -294,6 +292,14 @@ class PicoVectorDB:
         self._rescore_escalations: int = 0
         self._last_sync_mode: Optional[str] = None
 
+        if self._is_multiprocess() and self._index_kind != "exact":
+            # ShardedIVF's build is fed from the host matrix, which no rank
+            # of a multi-process store holds
+            if self._index_kind == "ivf":
+                logger.warning(
+                    "index='ivf' is not yet served on multi-process engines "
+                    "(the sharded build is host-fed); serving exact")
+            self._index_kind = "exact"
         self._load_or_init()
 
     # ------------------------------------------------------------------
@@ -326,6 +332,9 @@ class PicoVectorDB:
         if qinfo is not None:
             self._load_quantized(qinfo)
             return
+        if self._is_multiprocess() and persistence.find_shards(self._path):
+            self._load_distributed()
+            return
         logger.info("Loading existing DB …")
         self._ids = persistence.load_ids(self._path)
         count = len(self._ids)
@@ -349,6 +358,55 @@ class PicoVectorDB:
         self._dirty = False
         logger.info("Loaded %d active / %d total vectors",
                     int(self._active_indices.size), count)
+
+    def _is_multiprocess(self) -> bool:
+        """True when this engine is one rank of a store spread over
+        processes (a `pod_mesh` over more than one rank). Every rank must
+        then issue the same queries and mutations in the same order (the
+        SPMD contract): the routes and syncs run collectives."""
+        return self._dev.multiprocess
+
+    def _load_distributed(self) -> None:
+        """One logical store across processes, as picovdb_tpu's.
+
+        Each rank reads ONLY its own file of a `save(shards=world)`
+        checkpoint (parallel.multihost.load_host_shard) and adopts it on
+        its devices (`DeviceIndex.adopt_global`: rows whose shard is
+        another rank's move through the process group), so no rank holds
+        the whole matrix. Ids and docs (JSON, small) load on every rank;
+        the store comes back lazy, and mutations flow through the overlay
+        and scatter to their owner shards. float32 / bfloat16 storage."""
+        from .parallel.multihost import load_host_shard
+
+        mesh = self._dev.mesh
+        nproc = mesh.world_size
+        paths = persistence.find_shards(self._path)
+        if len(paths) != nproc:
+            raise ValueError(
+                f"multi-process load needs a save(shards={nproc}) layout; "
+                f"found {len(paths)} shard files for {self._path!r}"
+            )
+        logger.info("Loading existing DB (distributed, %d processes) …",
+                    nproc)
+        self._ids = persistence.load_ids(self._path)
+        count = len(self._ids)
+        self._load_slots(count)
+        self._host_vectors = None
+        self._host_lazy = True
+        if count:
+            blocks, rows = load_host_shard(self._path, self.dim, mesh,
+                                           shard_axis=self._dev.shard_axis)
+            if rows < count:
+                raise ValueError(
+                    f"shard files hold {rows} rows but the ids file has "
+                    f"{count} slots"
+                )
+            self._dev.adopt_global(blocks, rows, self._active_mask)
+            del blocks
+            self._last_sync_mode = "full"
+        self._dirty = False
+        logger.info("Loaded %d active / %d total vectors (process %d/%d)",
+                    int(self._active_indices.size), count, mesh.rank, nproc)
 
     def _load_ann_sidecar(self, host_vectors: Optional[np.ndarray]) -> None:
         """Adopt a persisted IVF sidecar that still matches the active rows
@@ -508,6 +566,15 @@ class PicoVectorDB:
         with self._rwlock.write_lock():
             if self._dirty:
                 self._sync_device_locked()
+            if self._is_multiprocess():
+                if quantized:
+                    logger.warning(
+                        "save(quantized=True) is single-process only; "
+                        "the multi-process checkpoint writes dequantized "
+                        "f32 shards instead"
+                    )
+                self._save_distributed(shards)
+                return
             if self._quantized_save_applies(quantized, shards):
                 n = len(self._ids)
                 persistence.save_quantized_atomic(
@@ -534,6 +601,42 @@ class PicoVectorDB:
                 self._host_vectors, self.dim, ann_blob=self._ann_blob(),
                 n_shards=shards,
             )
+
+    def _save_distributed(self, shards: Optional[int]) -> None:
+        """Persist a multi-process store: one float32 shard file per rank,
+        ids and meta from rank 0 (caller holds the write lock, device
+        synced). File f holds rows [f * per, (f + 1) * per) (the fixed-per
+        split, persistence.shard_split_rows); rank f writes it from its
+        shards and the rows other ranks send it, dequantized where the
+        storage is int8 / int4 (`DeviceIndex.rank_file_rows`). A barrier
+        closes the save, so no rank returns before the checkpoint is
+        whole."""
+        from .parallel.multihost import barrier
+
+        mesh = self._dev.mesh
+        nproc, pid = mesh.world_size, mesh.rank
+        if shards is not None and shards != nproc:
+            raise ValueError(
+                f"multi-process save writes one shard per process "
+                f"({nproc}); got shards={shards}"
+            )
+        n = len(self._ids)
+        per = persistence.shard_split_rows(n, nproc)
+        # an empty store still writes one (0, dim) file a process
+        rows = (self._dev.rank_file_rows(n, per) if n
+                else np.zeros((0, self.dim), dtype=Float))
+        persistence.save_shard_atomic(self._path, pid, nproc, rows)
+        del rows
+        if pid == 0:
+            persistence.save_ids_meta_atomic(
+                self._path, self._ids, self._docs, self._additional,
+                self.dim, ann_blob=None)
+            vfile = persistence.vecs_path(self._path)
+            if os.path.exists(vfile):
+                os.remove(vfile)  # stale single-file matrix
+        barrier(mesh)
+        logger.info("Saved %d vectors (distributed, shard %d/%d)",
+                    n, pid, nproc)
 
     def _quantized_save_applies(self, quantized: Optional[bool],
                                 shards: Optional[int]) -> bool:
@@ -930,6 +1033,15 @@ class PicoVectorDB:
         authentic float32, so the host rescore stands down afterwards."""
         if not self._host_lazy:
             return
+        if self._is_multiprocess():
+            raise RuntimeError(
+                "host materialization of a multi-process store is not "
+                "supported: each process holds only its corpus shard. "
+                "save() writes per-process shard files; keep mutation "
+                "sets under the incremental threshold "
+                "(faiss_incremental_threshold_ratio) so syncs stay "
+                "O(changed)."
+            )
         n = len(self._ids)
         rows = np.zeros((n, self.dim), dtype=Float)
         dev = self._dev

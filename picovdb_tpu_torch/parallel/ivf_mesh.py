@@ -23,6 +23,17 @@ Counterpart of picovdb_tpu/parallel/ivf_mesh.py (its single-process part):
     k x shards candidates merge as in parallel/sharded_query.py. Every
     shard's work is enqueued before any host read.
 
+Across processes (a `multihost.pod_mesh`) every rank builds from the
+whole host matrix, as picovdb_tpu's processes do: rank 0's centroids
+are broadcast so all ranks probe the same table, the host bookkeeping
+(placement, overflow fill, the int8-only layout's column scales) is the
+same on every rank, and each rank uploads and searches only its own
+shards; the searches' slabs merge through the process group
+(`sharded_query.merge_ranks`). The classic layout's opt-in int8 mirror
+then has no host copy of the other ranks' column scales, so its update
+re-derives each shard's mirror instead of requantizing (as picovdb_tpu
+does when the scales are not addressable).
+
 Sidecars keep the single-device schema (`to_blob` / `from_blob`), so an
 `index="ivf"` store moves between mesh and single-device processes, and
 between this package and picovdb_tpu. picovdb_tpu's `warm_update_path`
@@ -55,7 +66,7 @@ from ..ops.ivf import (
 )
 from ..ops.scan import quantize_cols_i8
 from ..utils import next_pow2, round_up
-from .sharded_query import merge_topk
+from .sharded_query import merge_ranks, merge_topk
 
 
 def _up(a: np.ndarray, device, dtype=None) -> torch.Tensor:
@@ -85,7 +96,7 @@ class ShardedIVF:
         self.dim = dim
         self.mesh = mesh
         self.shard_axis = shard_axis
-        self.devices = mesh.row(0)
+        self.devices = mesh.local_row(0)  # None at another rank's shard
         self.nshards = len(self.devices)
         # int8-only layout: the corpus capacity the owner placement was
         # laid out against (a re-padded corpus moved rows between shards)
@@ -115,10 +126,12 @@ class ShardedIVF:
     def _derive_mirror(self) -> None:
         """(Re)derive the classic layout's per-shard int8 mirror, each
         shard with its own column scales, and freeze them on the host."""
-        pairs = [quantize_cols_i8(v) for v in self.vectors]
+        pairs = [(None, None) if v is None else quantize_cols_i8(v)
+                 for v in self.vectors]
         self.vectors_i8c = [p[0] for p in pairs]
         self.cscale = [p[1] for p in pairs]
-        self._cscale_np = np.stack([c.cpu().numpy() for c in self.cscale])
+        self._cscale_np = (None if self.mesh.multiprocess else np.stack(
+            [c.cpu().numpy() for c in self.cscale]))
 
     # -- construction --------------------------------------------------------
 
@@ -140,9 +153,9 @@ class ShardedIVF:
         a multiple of the shard count, gives the corpus rows a shard), and
         the search rescores them from the engine's corpus by slot."""
         dim = int(dim if dim is not None else host_vectors.shape[1])
-        devices = mesh.row(0)
+        devices = mesh.local_row(0)
         nshards = len(devices)
-        first = devices[0]
+        first = mesh.first
         size = host_vectors.shape[0]
         act_rows = np.nonzero(active_mask[:size])[0]
         n_active = act_rows.shape[0]
@@ -162,7 +175,9 @@ class ShardedIVF:
             pick = act_rows[rng.choice(n_active, size=nlist, replace=False)]
             init = _up(rows_f32(pick), first)
             train_iters = iters
-        if train_iters:
+        if mesh.multiprocess and mesh.rank != 0:
+            centroids = None  # rank 0 trains; its table arrives below
+        elif train_iters:
             n_train = min(n_active, max(nlist * 50, 10_000))
             tr = (act_rows if n_train >= n_active else act_rows[
                 np.sort(rng.choice(n_active, size=n_train, replace=False))])
@@ -170,6 +185,12 @@ class ShardedIVF:
                                 train_iters)
         else:
             centroids = init
+        if mesh.multiprocess:  # every rank probes rank 0's table
+            from .multihost import broadcast_from
+
+            centroids = broadcast_from(
+                mesh, 0, None if centroids is None else centroids.contiguous(),
+                (nlist, dim), torch.float32, first)
         assign = np.empty(n_active, dtype=np.int64)
         a_chunk = 131_072
         for s in range(0, n_active, a_chunk):
@@ -218,16 +239,27 @@ class ShardedIVF:
             sorted_clusters = assign[sel_s][order]
             n_local = local_rows.shape[0]
             gsel = local_rows[order]
+            base = s * cap_shard
+            row_cluster_np[base:base + n_local] = sorted_clusters
+            n_used[s] = n_local
+            s2r[gsel] = base + np.arange(n_local)
+            # the int8-only layout's scales are every rank's host state
+            # (update's clip guard decides alike on all of them)
+            rows = (rows_f32(gsel) if dev is not None or (i8_only and n_local)
+                    else None)
+            if i8_only and n_local:
+                cs_np[s] = np.maximum(np.abs(rows).max(axis=0), 1e-30) / 127.0
+            if dev is None:  # another rank's shard
+                for name in lists:
+                    lists[name].append(None)
+                continue
             slots_np = np.full(cap_shard, -1, dtype=np.int64)
             act_np = np.zeros(cap_shard, dtype=bool)
             act_np[:n_local] = True
-            rows = rows_f32(gsel)
             if i8_only:
                 post = np.zeros((cap_shard, dim), dtype=np.int8)
                 if n_local:
-                    cs = np.maximum(np.abs(rows).max(axis=0), 1e-30) / 127.0
-                    cs_np[s] = cs
-                    post[:n_local] = np.clip(np.rint(rows / cs), -127,
+                    post[:n_local] = np.clip(np.rint(rows / cs_np[s]), -127,
                                              127).astype(np.int8)
                 slots_np[:n_local] = gsel - s * shard_rows_corpus
                 lists["i8"].append(_up(post, dev))
@@ -238,10 +270,6 @@ class ShardedIVF:
                 slots_np[:n_local] = gsel
                 lists["vec"].append(vec)
             del rows
-            base = s * cap_shard
-            row_cluster_np[base:base + n_local] = sorted_clusters
-            n_used[s] = n_local
-            s2r[gsel] = base + np.arange(n_local)
             starts = np.searchsorted(sorted_clusters, np.arange(nlist + 1))
             segs = np.concatenate([starts, [cap_shard]]).astype(np.int64)
             local_cluster = np.full(cap_shard, nlist, dtype=np.int64)
@@ -372,6 +400,8 @@ class ShardedIVF:
         self._blob_stale = True
 
         for s in np.unique(old_rows // self.cap_shard).tolist():
+            if self.devices[s] is None:
+                continue
             local = old_rows[old_rows // self.cap_shard == s] % self.cap_shard
             self.active[s].index_fill_(0, _up(local, self.devices[s]), False)
         if not n_new:
@@ -381,12 +411,15 @@ class ShardedIVF:
                      if i8_only else new_slots)
         self._row_cluster_np[new_rows] = self.nlist
         mirror_q8 = None
-        if not i8_only and self.vectors_i8c is not None:
+        if (not i8_only and self.vectors_i8c is not None
+                and self._cscale_np is not None):
             q8, clipped = _i8_requantize(new_f, self._cscale_np[new_shard])
             self.last_update_clip_fraction = clipped
             mirror_q8 = None if clipped > _i8_clip_max() else q8
         for s in np.unique(new_shard).tolist():
             dev = self.devices[s]
+            if dev is None:
+                continue
             sel = np.nonzero(new_shard == s)[0]
             local = _up(new_rows[sel] % self.cap_shard, dev)
             if i8_only:
@@ -491,7 +524,7 @@ class ShardedIVF:
         g_tiles = self.g_tiles(num_q, nprobe)
         if isinstance(queries, np.ndarray):
             queries = torch.from_numpy(np.ascontiguousarray(queries))
-        q = normalize_on_device(queries.to(self.devices[0],
+        q = normalize_on_device(queries.to(self.mesh.first,
                                            dtype=torch.float32))
         i8_only = self.vectors is None
         k_sel = k + _ivf_guard(i8_only or self.vectors_i8c is not None,
@@ -504,8 +537,10 @@ class ShardedIVF:
             corpus_scale = dev.vstore_scale
             packed_i4 = dev.storage_dtype == "int4"
         vals, slots = [], []
-        for s, d in enumerate(self.devices):
-            qs = q.to(d, non_blocking=True)
+        # every copy before any shard's scan (see sharded_query.stage)
+        staged = [(s, q.to(self.devices[s], non_blocking=True))
+                  for s in self.mesh.local_shards]
+        for s, qs in staged:
             extra = dict(
                 k=k, k_sel=k_sel, nprobe=nprobe, nlist=self.nlist,
                 g_tiles=g_tiles,
@@ -529,5 +564,7 @@ class ShardedIVF:
                     **extra)
             vals.append(v)
             slots.append(sl)
-        top_v, top_s = merge_topk(vals, slots, k, self.devices[0])
+        top_v, top_s = merge_topk(vals, slots, k, self.mesh.first)
+        if self.mesh.multiprocess:
+            top_v, top_s = merge_ranks(self.mesh, top_v, top_s, k)
         return top_v, top_s, num_q

@@ -6,6 +6,12 @@ name one device more than once: `[torch.device("cpu")] * 8` is how the CPU
 tests hold an eight-shard mesh, and `[cuda:0] * 4` is a four-shard mesh on
 one card (its shards run one after another on that card's stream). Shards
 on distinct cards run at the same time.
+
+A mesh may span processes (`multihost.pod_mesh`): it then names every
+rank's devices, carries the process group, this process's `rank` and the
+`world_size`, and which rank owns each shard column (`owners`); a rank
+touches only its own columns (`local_shards`). A mesh built by
+`make_mesh` is one process's: every column is local.
 """
 
 from __future__ import annotations
@@ -20,9 +26,14 @@ class Mesh:
     """A (dp, shard) grid of `torch.device`s with named axes.
 
     `devices` is a numpy object array of shape (dp, shards); `shape` maps
-    each axis name to its size (`mesh.shape["shard"]`, as in JAX)."""
+    each axis name to its size (`mesh.shape["shard"]`, as in JAX).
+    Across processes, `owners[s]` is the rank that holds shard column s
+    (in every row), `group` the process group the collectives run in
+    (whose ranks `rank` and `owners` count)."""
 
-    def __init__(self, devices, axis_names: Sequence[str]) -> None:
+    def __init__(self, devices, axis_names: Sequence[str],
+                 owners: Optional[Sequence[int]] = None, rank: int = 0,
+                 world_size: int = 1, group=None) -> None:
         grid = np.asarray(
             [[torch.device(d) for d in row] for row in devices], dtype=object)
         if grid.ndim != 2 or len(axis_names) != 2:
@@ -31,6 +42,36 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         self.shape = {axis_names[0]: grid.shape[0],
                       axis_names[1]: grid.shape[1]}
+        self.owners = (np.zeros(grid.shape[1], dtype=np.int64)
+                       if owners is None else np.asarray(owners, np.int64))
+        if self.owners.shape != (grid.shape[1],):
+            raise ValueError(f"{self.owners.shape[0]} owners for "
+                             f"{grid.shape[1]} shard columns")
+        self.rank = int(rank)
+        self.world_size = int(world_size)
+        self.group = group
+        self.local_shards = [int(s) for s in
+                             np.nonzero(self.owners == self.rank)[0]]
+        if not self.local_shards:
+            raise ValueError(f"rank {rank} owns no shard column")
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.world_size > 1
+
+    @property
+    def host_staged(self) -> bool:
+        """Whether the collectives stage tensors through host memory
+        (every backend of `group` but NCCL: gloo's CUDA collectives are
+        partial) rather than carry them on the card."""
+        if self.group is None:
+            return True
+        import torch.distributed as dist
+
+        return dist.get_backend(self.group) != "nccl"
+
+    def is_local(self, s: int) -> bool:
+        return int(self.owners[s]) == self.rank
 
     @property
     def size(self) -> int:
@@ -40,10 +81,17 @@ class Mesh:
         """The devices of mesh row `r`, one per shard."""
         return list(self.devices[r])
 
+    def local_row(self, r: int = 0) -> list:
+        """The devices of mesh row `r`, None where another rank owns the
+        column."""
+        return [d if self.is_local(s) else None
+                for s, d in enumerate(self.devices[r])]
+
     @property
     def first(self) -> torch.device:
-        """Where merged results and replicated state live."""
-        return self.devices[0, 0]
+        """Where merged results and replicated state live: this rank's
+        first device of row 0."""
+        return self.devices[0, self.local_shards[0]]
 
 
 def make_mesh(

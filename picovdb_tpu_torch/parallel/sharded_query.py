@@ -13,7 +13,15 @@ lower global slot: the order JAX's stable `lax.top_k` gives over its
 shard-ordered slab.
 
 Every shard's work is enqueued before anything is read back to the host,
-so shards on distinct cards run at the same time. With a `dp` axis the
+and the queries are copied to every shard's card before any shard's scan
+is enqueued (a cross-card copy runs on the source card's stream), so
+shards on distinct cards run at the same time.
+
+Across processes (a `multihost.pod_mesh`) each rank runs only its own
+shards, merges their slabs as above, and then one `all_gather` of the
+merged (Q, k) scores and global slots and the same selection over the
+ranks' slabs give every rank the same answer (`merge_ranks`); the
+planes hold None at the shards of other ranks. With a `dp` axis the
 query batch splits into dp contiguous parts, mesh row r serves part r from
 the planes given for row r, and the parts concatenate in order on the
 mesh's first device.
@@ -56,6 +64,22 @@ def merge_topk(vals: Sequence[torch.Tensor], slots: Sequence[torch.Tensor],
     k_final = min(k, v.shape[1])
     pos = torch.topk((hi << 32) | lo, k_final, dim=1).indices
     return v.gather(1, pos), s.gather(1, pos).to(torch.int32)
+
+
+def merge_ranks(mesh, vals: torch.Tensor, slots: torch.Tensor, k: int):
+    """Merge every rank's (Q, c) candidate slab through the mesh's process
+    group: one all_gather of the scores (bitcast) and slots side by side,
+    then `merge_topk` over the (Q, world * c) slab on `vals`' device, so
+    ties still go to the lower global slot."""
+    from .multihost import gather_slabs
+
+    nq, c = vals.shape
+    packed = torch.cat([vals.float().contiguous().view(torch.int32),
+                        slots.to(torch.int32)], dim=1)
+    every = gather_slabs(mesh, packed).view(nq, mesh.world_size, 2, c)
+    v = every[:, :, 0].reshape(nq, -1).contiguous().view(torch.float32)
+    s = every[:, :, 1].reshape(nq, -1)
+    return merge_topk([v], [s], k, vals.device)
 
 
 def _local_float(q, v, m, k, use_pallas, compute_dtype_name):
@@ -105,16 +129,25 @@ def make_sharded_topk(mesh, shard_axis: str, k: int,
     quant = storage_i8 or storage_i4
     dp = mesh.shape.get(dp_axis, 1)
 
-    def serve_row(r, q, planes):
+    def stage(r, q):
+        """Row r's queries (and their int8 form for the quantized kernels)
+        on each of this rank's shard devices. A copy across cards runs on
+        the source card's stream, behind whatever that stream already
+        holds, so every copy is enqueued before any shard's scan: made
+        after shard 0's scan, the copy to shard 1 would wait for it."""
         devices = mesh.row(r)
-        per = [p[r] for p in planes]
         q_i8 = quantize_rows_i8(q)[0] if quant and use_pallas else None
+        return [(s, q.to(devices[s], non_blocking=True),
+                 None if q_i8 is None
+                 else q_i8.to(devices[s], non_blocking=True))
+                for s in mesh.local_shards]
+
+    def serve_row(r, staged, planes):
+        per = [p[r] for p in planes]
         vals, slots = [], []
-        for s, dev in enumerate(devices):
-            qs = q.to(dev, non_blocking=True)
+        for s, qs, qi in staged:
             if quant:
                 vq, vs, m = per[0][s], per[1][s], per[2][s]
-                qi = None if q_i8 is None else q_i8.to(dev, non_blocking=True)
                 v_s, i_s = _local_quant(qs, qi, vq, vs, m, k, use_pallas,
                                         storage_i4)
             else:
@@ -123,17 +156,20 @@ def make_sharded_topk(mesh, shard_axis: str, k: int,
                                         compute_dtype_name)
             vals.append(v_s)
             slots.append(i_s + s * per[0][s].shape[0])
-        return merge_topk(vals, slots, k, devices[0])
+        top = merge_topk(vals, slots, k, mesh.row(r)[mesh.local_shards[0]])
+        return merge_ranks(mesh, *top, k) if mesh.multiprocess else top
 
     def fn(q, *planes):
         q = q.to(mesh.first, dtype=torch.float32)
         if normalize:
             q = normalize_on_device(q)
+        parts = ([(0, q)] if dp == 1 else
+                 [(r, p) for r, p in enumerate(torch.tensor_split(q, dp))
+                  if p.shape[0]])
+        staged = [(r, stage(r, p)) for r, p in parts]
+        outs = [serve_row(r, st, planes) for r, st in staged]
         if dp == 1:
-            return serve_row(0, q, planes)
-        parts = [(r, p) for r, p in enumerate(torch.tensor_split(q, dp))
-                 if p.shape[0]]
-        outs = [serve_row(r, p.to(mesh.row(r)[0]), planes) for r, p in parts]
+            return outs[0]
         return (torch.cat([o[0].to(mesh.first) for o in outs]),
                 torch.cat([o[1].to(mesh.first) for o in outs]))
 

@@ -415,6 +415,23 @@ def load_quantized(base: str) -> Optional[dict]:
     }
 
 
+def save_shard_atomic(base: str, i: int, n: int, rows: np.ndarray) -> str:
+    """Atomically write ONE vector shard file (multi-process saver: each
+    process persists its own slice of the corpus)."""
+    final = shard_path(base, i, n)
+    tmp_base = f"{final[:-4]}.tmp"
+    try:
+        np.save(tmp_base, np.ascontiguousarray(rows, dtype=Float))
+        os.replace(f"{tmp_base}.npy", final)
+    finally:
+        if os.path.exists(f"{tmp_base}.npy"):
+            try:
+                os.remove(f"{tmp_base}.npy")
+            except OSError:
+                pass
+    return final
+
+
 def shard_path(base: str, i: int, n: int) -> str:
     return f"{base}.vecs.shard{i:03d}of{n:03d}.npy"
 

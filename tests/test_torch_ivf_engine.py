@@ -367,20 +367,32 @@ def test_build_failures(tmp_path, monkeypatch, failure):
 
 
 @pytest.mark.parametrize("env", ["PICOVDB_SEGMAX_I8C", "PICOVDB_SMALLQ_I8C"])
-def test_out_of_slice_paths_still_raise(tmp_path, monkeypatch, env):
-    """A mesh store across processes still raises (item 8's
-    multi-process part); the opt-in column-scaled tiers (item 9) serve
-    beside the IVF tier: an index="ivf" store answers from the tier, and
-    its exact lanes may take the column-scaled mirror."""
-    from picovdb_tpu_torch.parallel import make_mesh
+def test_out_of_slice_paths_still_raise(tmp_path, monkeypatch, caplog, env):
+    """A mesh store across processes (item 8's multi-process part) warns
+    and serves index="ivf" exact, as picovdb_tpu does; a make_mesh store
+    stays one process's and keeps its IVF tier. The opt-in column-scaled
+    tiers (item 9) serve beside the IVF tier: an index="ivf" store
+    answers from the tier, and its exact lanes may take the
+    column-scaled mirror."""
+    import logging
+
+    from picovdb_tpu_torch.parallel import Mesh, make_mesh
 
     with monkeypatch.context() as m:
         m.setattr(torch.distributed, "is_initialized", lambda: True)
         m.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            picovdb_tpu_torch.PicoVectorDB(
-                embedding_dim=DIM, mesh=make_mesh(devices=["cpu"] * 4),
-                index="ivf", device="cpu", storage_file=f"{tmp_path}/m")
+        one = picovdb_tpu_torch.PicoVectorDB(
+            embedding_dim=DIM, mesh=make_mesh(devices=["cpu"] * 4),
+            index="ivf", device="cpu", storage_file=f"{tmp_path}/m")
+        assert one._index_kind == "ivf" and not one._is_multiprocess()
+    spread = Mesh([["cpu"] * 4], ("dp", "shard"), owners=[0, 0, 1, 1],
+                  world_size=2)
+    with caplog.at_level(logging.WARNING, logger="picovdb_tpu_torch"):
+        many = picovdb_tpu_torch.PicoVectorDB(
+            embedding_dim=DIM, mesh=spread, index="ivf",
+            storage_file=f"{tmp_path}/p")
+    assert many._index_kind == "exact"
+    assert "not yet served on multi-process engines" in caplog.text
     monkeypatch.setenv(env, "1")
     db = picovdb_tpu_torch.PicoVectorDB(embedding_dim=DIM, index="ivf",
                                         int8_tier=True, device="cpu",

@@ -116,8 +116,9 @@ def test_no_source_file_imports_jax():
 def test_out_of_slice_entry_points_raise(tmp_path, monkeypatch, kwargs, item):
     """Entry points of later ROADMAP items raise NotImplementedError
     naming their item. Items 7 (index="ivf"), 9 (scan_mode="approx") and
-    8's single-process mesh are ported: they serve; a mesh store in a
-    multi-process program (item 8's rest) raises."""
+    8 (meshes, in one process and across processes) are ported: they
+    serve. A make_mesh store stays one process's store in a multi-process
+    program (a store across processes is built on multihost.pod_mesh)."""
     if "mesh" in kwargs:
         from picovdb_tpu_torch.parallel import make_mesh
 
@@ -140,8 +141,10 @@ def test_out_of_slice_entry_points_raise(tmp_path, monkeypatch, kwargs, item):
     if item == "item 8":
         monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match=item):
-            make()
+        again = make()
+        assert not again._is_multiprocess()
+        again.upsert_columnar(vecs, ids=[str(i) for i in range(300)])
+        assert again.query(vecs[17], top_k=1)[0][picovdb_tpu_torch.K_ID] == "17"
 
 
 def test_out_of_slice_calls_raise(tmp_path, monkeypatch):

@@ -207,6 +207,37 @@ def test_shards_enqueue_before_any_host_read(monkeypatch):
     assert calls == [0] * 8
 
 
+@pytest.mark.parametrize("mesh_name", ["4", "dp2x4"])
+@pytest.mark.parametrize("storage", ["float32", "int8"])
+def test_queries_reach_every_shard_before_any_scan(monkeypatch, mesh_name,
+                                                    storage):
+    """Every copy of the queries to a shard's device is enqueued before
+    the first shard's scan: a copy across cards runs on the source card's
+    stream, so one made after shard 0's scan would wait for it and the
+    shards on the other cards would start only when it ends."""
+    events = []
+    real_to = torch.Tensor.to
+    monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **kw: (
+        events.append("copy"), real_to(self, *a, **kw))[1])
+    for name in ("_local_float", "_local_quant"):
+        real = getattr(tsq, name)
+        monkeypatch.setattr(tsq, name, lambda *a, _r=real: (
+            events.append("scan"), _r(*a))[1])
+    rng = np.random.default_rng(2)
+    queries, planes, mask = _topk_inputs(rng, 512, 32, storage)
+    mesh = port_mesh(mesh_name)
+    shards = mesh.shape["shard"]
+    fn = tsq.make_sharded_topk(mesh, "shard", 5, use_pallas=True,
+                               storage_i8=storage == "int8", normalize=False)
+    fn(torch.from_numpy(queries),
+       *per_row(mesh, *[split(p, shards) for p in planes], split(mask, shards)))
+    first = events.index("scan")
+    per_copy = 2 if storage == "int8" else 1  # the int8 queries go too
+    assert events[:first].count("copy") >= (
+        1 + per_copy * shards * mesh.shape["dp"])
+    assert events.count("scan") == shards * mesh.shape["dp"]
+
+
 # ---------------------------------------------------------------------------
 # engine: PicoVectorDB(mesh=...) against picovdb_tpu's mesh store
 # ---------------------------------------------------------------------------
@@ -500,12 +531,26 @@ def test_mesh_store_refuses_the_serial_loop_and_many_processes(tmp_path,
     db.query(np.ones(8, np.float32))
     with pytest.raises(ValueError, match="single-device"):
         db._dev.query_serial_loop(np.ones((2, 8), np.float32), 1)
+    # a make_mesh store is one process's, whatever torch.distributed says
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        picovdb_tpu_torch.PicoVectorDB(embedding_dim=8,
-                                       storage_file=f"{tmp_path}/u",
-                                       mesh=port_mesh("4"))
+    one = picovdb_tpu_torch.PicoVectorDB(embedding_dim=8,
+                                         storage_file=f"{tmp_path}/u",
+                                         mesh=port_mesh("4"))
+    assert not one._is_multiprocess()
+    # a store spread over processes refuses to gather the whole matrix on
+    # one host, as picovdb_tpu's does
+    from picovdb_tpu_torch.parallel import Mesh
+
+    spread = Mesh([[CPU] * 4], ("dp", "shard"), owners=[0, 0, 1, 1],
+                  rank=0, world_size=2)
+    many = picovdb_tpu_torch.PicoVectorDB(embedding_dim=8,
+                                          storage_file=f"{tmp_path}/v",
+                                          mesh=spread, index="ivf")
+    assert many._is_multiprocess() and many._index_kind == "exact"
+    many._host_lazy = True
+    with pytest.raises(RuntimeError, match="multi-process store"):
+        many._ensure_host_vectors()
 
 
 @pytest.mark.parametrize("storage", ["int8", "int4"])
