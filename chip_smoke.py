@@ -34,7 +34,17 @@ shard, a mutation epoch, the distributed save and reload; 12b int8
 storage upserted on every rank (K3 a local shard, host rescore); 12c 4M
 packed int4 rows through make_sharded_topk (K6 a local shard); 12d
 ShardedIVF across ranks (K7 a local shard). Launches are local shards x
-calls on every rank.
+calls on every rank. Phase 13 (its own generator, run after phase 10)
+drives the embedding model and the on-device RAG pipeline: (a)
+BertMeanPoolEncoder at MiniLM-L6's widths (`random_init`) embeds 131,072
+seeded chunks on the card, held to its host forward on 256 of them; (b)
+`ingest_device` of those vectors and self-retrieval of every chunk
+through `query_columnar`, the crowding mark held to the float64 oracle;
+(c) K1 + K2's own answers on a centred copy of that store and on an
+isotropic store, and K1-K4 at dim 384 against their plain versions; (d)
+text queries, a Q = 1 `query` (K3) and a `where=` batch (K4); (e) the
+`picovdb_tpu_torch.tools.rag_demo --device-pipeline` tool in a
+subprocess. `--rag` runs the build and phase 13 alone.
 Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
@@ -61,8 +71,9 @@ Output, in order: the phase lines (phase 10 adds one JSON line per
 probe), the card's name and power limit as `nvidia-smi` reports them,
 one JSON object with the per-kernel record (time, plain time, bound,
 library call, launches; K3 / K4 / K6 / K7 also `mesh_launches`, phase
-11's, and `mp_launches`, phase 12's summed over the ranks), and last
-`{"ok": true, "device": {...}}`.
+11's, and `mp_launches`, phase 12's summed over the ranks; K1-K4 also
+`rag_launches`, phase 13's, and `rag_384`, their times at dim 384), and
+last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -3985,6 +3996,570 @@ def trace_mesh_main(torch, card: str) -> int:
     return 0
 
 
+# Phase 13: the embedding model and the on-device RAG pipeline (its own
+# generator, SEED + 13). The encoder is BertConfig()'s MiniLM-L6 widths
+# with random_init's weights; its corpus feeds ingest_device and
+# query_columnar without leaving the card.
+RAG_N = 131_072  # chunks of the encoder's corpus, and rows of each store
+RAG_WORDS = 50_000  # made-up words the chunks are drawn from (Zipf)
+RAG_LEN = (40, 51)  # words a chunk (40-50)
+RAG_MAX_LEN = 128  # tokens the encoder reads a chunk
+RAG_BATCH = 512  # chunks a forward
+RAG_CHUNK = 2048  # queries a query_columnar chunk
+RAG_HOST = 256  # chunks held to the host forward
+RAG_ORACLE_Q = 512  # sampled self-retrieval queries held to the oracle
+RAG_STORE_Q = 8192  # queries served on each store of (c)
+RAG_TEXT_Q = 64  # text queries with words dropped, and the where batch
+RAG_ROWS = ("segmax_scan", "topk_packed_keys", "fused_topk_i8", "fused_topk")
+RAG_K, RAG_GUARD = 10, 6  # top-10; the segmax band: k_sel = k + 6
+F32_HOST_ATOL = 2e-5  # the encoder's float32 forward, card against host
+BF16_MIN_COS = 0.999  # its bf16 forward against the host's float32
+RAG_RECALL_FLOOR = 0.95  # the route's own answers: wrong rows miss it
+
+
+def rag_corpus(rng, n: int):
+    """n chunks of RAG_LEN words drawn by a Zipf law (s = 1.07) from
+    RAG_WORDS made-up lowercase words; returns (texts, tokens a chunk
+    without truncation, i.e. words + CLS + SEP)."""
+    wl = rng.integers(2, 10, RAG_WORDS)
+    letters = np.frombuffer(bytes(range(97, 123)), dtype=np.uint8)
+    chars = letters[rng.integers(0, 26, int(wl.sum()))].tobytes().decode()
+    cuts = np.concatenate([[0], np.cumsum(wl)])
+    words = np.asarray([chars[a:b] for a, b in zip(cuts[:-1], cuts[1:])],
+                       dtype=object)
+    p = 1.0 / np.arange(1, RAG_WORDS + 1) ** 1.07
+    lens = rng.integers(*RAG_LEN, n)
+    draws = words[rng.choice(RAG_WORDS, size=int(lens.sum()), p=p / p.sum())]
+    ends = np.cumsum(lens)
+    texts = [" ".join(draws[e - m:e]) for e, m in zip(ends, lens)]
+    return texts, lens + 2
+
+
+def bert_flops(cfg, batch: int, tokens: int) -> float:
+    """Multiply-adds x 2 of one BERT forward over (batch, tokens): the
+    dense layers and the two attention products, every layer."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    dense = 2 * batch * tokens * (4 * h * h + 2 * h * f)
+    attn = 2 * 2 * batch * tokens * tokens * h
+    return float(cfg.num_layers * (dense + attn))
+
+
+def oracle_band(torch, rows, queries, kk: int, live=None, step: int = 2048):
+    """Float64 top-kk (scores, rows) of each query over the unit `rows`
+    (float64 normalizations of both), on the card, `step` queries at a
+    time; rows outside `live` never qualify."""
+    v = rows.double()
+    v = v / v.norm(dim=1, keepdim=True)
+    vals, idx = [], []
+    for s in range(0, queries.shape[0], step):
+        q = queries[s:s + step].double()
+        sc = (q / q.norm(dim=1, keepdim=True)) @ v.T
+        if live is not None:
+            sc[:, ~live] = float("-inf")
+        top = torch.topk(sc, kk, dim=1)
+        vals.append(top.values)
+        idx.append(top.indices)
+        del sc
+    return torch.cat(vals), torch.cat(idx)
+
+
+class RouteTap:
+    """What a store's route returned for each query before the engine's
+    exact retry, and the inputs of its crowding mark: wraps the store's
+    `DeviceIndex.query_async` (the route's (vals, slots), a -inf marking
+    a query the engine re-serves) and `ops/scan.py::_mark_crowded` (each
+    band's exact k-th and last scores and the margin). Reads only; `close`
+    restores both."""
+
+    def __init__(self, torch, scan, db):
+        self.torch, self.scan, self.dev = torch, scan, db._dev
+        self.vals, self.slots, self.kth, self.bottom, self.margins = (
+            [], [], [], [], set())
+        self._dispatch, self._mark = db._dev.query_async, scan._mark_crowded
+
+        def query_async(chunk, k, *args, **kwargs):
+            vd, xd, nq, ke = self._dispatch(chunk, k, *args, **kwargs)
+            self.vals.append(vd[:nq, :ke])
+            self.slots.append(xd[:nq, :ke])
+            return vd, xd, nq, ke
+
+        def mark(vals_k, exact_full, k, margin):
+            if margin > 0.0:
+                self.kth.append(exact_full[:, k - 1])
+                self.bottom.append(exact_full[:, -1])
+                self.margins.add(margin)
+            return self._mark(vals_k, exact_full, k, margin)
+
+        db._dev.query_async, scan._mark_crowded = query_async, mark
+
+    def close(self):
+        del self.dev.query_async  # the instance attribute: the method again
+        self.scan._mark_crowded = self._mark
+
+    def take(self):
+        """(route vals, route slots, k-th and band-bottom exact scores,
+        the margin) of everything served since the last take."""
+        cat = self.torch.cat
+        out = (cat(self.vals), cat(self.slots), cat(self.kth),
+               cat(self.bottom), self.margins)
+        self.vals, self.slots, self.kth, self.bottom, self.margins = (
+            [], [], [], [], set())
+        return out
+
+
+def crowding_check(torch, tap_out, ov, what: str) -> str:
+    """Holds the route's crowding mark to the float64 oracle `ov` (each
+    query's exact top-k_sel scores over the store): a query is crowded
+    when its exact k-th minus k_sel-th score is under the margin the route
+    used. The set the route marked (and the engine re-served) must equal
+    the crowded set, except in the band of ties: queries whose exact gap
+    lies within TOL_SCORE of the margin, and queries whose band is not
+    the oracle's (its k-th or last exact score off the oracle's by more
+    than TOL_SCORE: the bf16 keys could not order the rows at the band's
+    edges, and took another row into it). Returns the counts."""
+    vals, _, kth, bottom, margins = tap_out
+    assert len(margins) == 1, margins
+    margin = margins.pop()
+    k, k_sel = RAG_K, RAG_K + RAG_GUARD
+    marked = torch.isneginf(vals).any(dim=1)
+    gap = ov[:, k - 1] - ov[:, k_sel - 1]
+    crowded = gap < margin
+    near = (gap - margin).abs() <= TOL_SCORE
+    off = (((kth.double() - ov[:, k - 1]).abs() > TOL_SCORE)
+           | ((bottom.double() - ov[:, k_sel - 1]).abs() > TOL_SCORE))
+    differ = marked != crowded
+    bad = int((differ & ~near & ~off).sum())
+    assert bad == 0, f"{what}: {bad} queries marked against the oracle"
+    return (f"marked {int(marked.sum())} of {marked.shape[0]} (the engine "
+            f"re-serves each chunk holding one), the oracle crowded "
+            f"{int(crowded.sum())} (margin {margin:.3g}); they differ "
+            f"on {int(differ.sum())}, all in the band of ties ({int(near.sum())}"
+            f" within {TOL_SCORE:g} of the margin, {int(off.sum())} whose bf16 "
+            f"band is not the oracle's)")
+
+
+def route_vs_oracle(torch, scan, vals, slots, ov, oi, keep, what: str):
+    """The route's own top-k (scores, slots) on the queries in `keep`
+    against the oracle: scores within TOL_SCORE, ids equal wherever the
+    exact k-th/(k+1)-th gap exceeds TOL_GAP. Queries whose oracle top-k
+    holds three or more rows of one 128-row segment are left out: K1 keeps
+    two rows a segment, as the TPU kernel does, so the route cannot return
+    them all. Returns (queries held, queries left out)."""
+    k = RAG_K
+    seg = torch.sort(oi[:, :k] // scan.SEG, dim=1).values
+    three = (seg[:, 2:] == seg[:, :-2]).any(dim=1)
+    keep = keep & ~three
+    v, s, o_v, o_i = vals[keep], slots[keep].long(), ov[keep], oi[keep]
+    err = float((v.double() - o_v[:, :k]).abs().max()) if v.numel() else 0.0
+    assert err <= TOL_SCORE, f"{what}: scores off the oracle by {err}"
+    wide = (o_v[:, k - 1] - o_v[:, k]) > TOL_GAP
+    same = (torch.sort(s, dim=1).values
+            == torch.sort(o_i[:, :k], dim=1).values).all(dim=1)
+    bad = int((wide & ~same).sum())
+    assert bad == 0, f"{what}: ids differ from the oracle on {bad} queries"
+    return int(keep.sum()), int(three.sum())
+
+
+def final_vs_oracle(torch, db, queries, ids, scores, ov, oi, what: str,
+                    strict: bool = True) -> str:
+    """A query_columnar / query answer (ids, scores) to `queries`, after
+    any retry, against the float64 oracle's (ov, oi) on the card: every
+    returned score within TOL_SCORE of its row's float64 score (the exact
+    rescore), and ids equal to the oracle's wherever the exact
+    k-th/(k+1)-th gap exceeds TOL_GAP (`strict`, where every band was
+    re-served exactly). Otherwise the answer is the route's own: its
+    recall@10 is reported beside the exact tiers' 0.99 limit (PERF.md §2),
+    and held only to RAG_RECALL_FLOOR, which wrong rows would miss (on a
+    nearly collinear store the crowding mark re-serves few bands whose
+    bf16 order is wrong: PERF.md §6-§7). Returns a summary."""
+    k = RAG_K
+    slot = {name: i for i, name in enumerate(db._ids_array())}
+    got = torch.tensor([[slot[x] for x in row] for row in ids],
+                       device=ov.device)
+    rows = db._dev.vectors[got.view(-1)].double().view(*got.shape, -1)
+    q = queries.double()
+    q = q / q.norm(dim=1, keepdim=True)
+    exact = torch.einsum("qd,qkd->qk", q, rows / rows.norm(dim=2,
+                                                          keepdim=True))
+    err = float((torch.from_numpy(np.asarray(scores, dtype=np.float64))
+                 .to(ov.device) - exact).abs().max())
+    assert err <= TOL_SCORE, f"{what}: scores off their rows' by {err}"
+    truth = oi[:, :k]
+    hit = (got[:, :, None] == truth[:, None, :]).any(dim=2)
+    recall = float(hit.float().mean())
+    same = hit.all(dim=1) | ((ov[:, k - 1] - ov[:, k]) <= TOL_GAP)
+    assert bool(same.all()) or not strict, (
+        f"{what}: {int((~same).sum())} queries differ from the oracle")
+    assert recall >= (0.99 if strict else RAG_RECALL_FLOOR), (
+        f"{what}: recall@10 {recall}")
+    return (f"= the oracle on {int(same.sum())}/{ids.shape[0]} (recall@10 "
+            f"{recall:.5f}{'' if recall >= 0.99 else ', under the 0.99 limit'})")
+
+
+def phase_rag(torch, scan, device, card: str, rec, n: int = RAG_N,
+              config=None, max_len: int = RAG_MAX_LEN, **db_kwargs) -> dict:
+    """Phase 13: BertMeanPoolEncoder at MiniLM-L6's widths embeds a seeded
+    corpus on the card, then (b) ingest_device + self-retrieval through
+    query_columnar with the crowding mark held to the float64 oracle, (c)
+    K1 + K2's own answers on a centred copy of the corpus and on an
+    isotropic store, and K1-K4 at dim 384 against their plain versions,
+    (d) text queries, Q = 1 and a where= batch, (e) the rag_demo tool.
+    Adds 'rag_384' entries to K1-K4's records in `rec`; returns the
+    launch counts of (b)-(d). `db_kwargs` go to every store it builds."""
+    from picovdb_tpu_torch import K_ID, K_METRICS, PicoVectorDB
+    from picovdb_tpu_torch.models import (BertConfig, BertMeanPoolEncoder,
+                                          init_params)
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    cfg = config or BertConfig()
+    k = RAG_K
+    sync = torch.cuda.synchronize
+
+    # (a) the corpus and the encoder
+    t0 = time.perf_counter()
+    texts, ntok = rag_corpus(rng, n)
+    t_corpus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = BertMeanPoolEncoder.random_init(cfg, seed=SEED, corpus_texts=texts,
+                                          max_len=max_len, device=device)
+    t_init = time.perf_counter() - t0
+    toks, msk = enc.tokenize(texts[:RAG_BATCH])
+    unk = float((toks == enc.tokenizer.UNK).sum() / msk.sum())
+    sync()
+    t0 = time.perf_counter()
+    corpus = torch.cat([enc.embed_device(texts[s:s + RAG_BATCH])
+                        for s in range(0, n, RAG_BATCH)])
+    sync()
+    t_embed = time.perf_counter() - t0
+    real = int(np.minimum(ntok, max_len).sum())
+    fwd_ms = cuda_ms(torch, lambda: enc.embed_tokens_device(toks, msk), 5)
+    tf = bert_flops(cfg, RAG_BATCH, max_len) / fwd_ms / 1e9
+    assert corpus.shape == (n, cfg.hidden_size) and corpus.device == device
+    assert bool(torch.isfinite(corpus).all())
+    norms = torch.linalg.vector_norm(corpus, dim=1)
+    assert float((norms - 1).abs().max()) <= 1e-5
+    # the host's forward on RAG_HOST chunks: the same weights in float32
+    pick = np.sort(rng.choice(n, RAG_HOST, replace=False))
+    params = init_params(cfg, SEED)
+    ht, hm = enc.tokenize([texts[i] for i in pick])
+    t0 = time.perf_counter()
+    host = BertMeanPoolEncoder(params, cfg, max_len=max_len,
+                               compute_dtype=None, device="cpu"
+                               ).embed_tokens_device(ht, hm)
+    t_host = time.perf_counter() - t0
+    f32 = BertMeanPoolEncoder(params, cfg, max_len=max_len, compute_dtype=None,
+                              device=device).embed_tokens_device(ht, hm)
+    f32_err = float((f32.cpu() - host).abs().max())
+    bf_cos = float((corpus[torch.from_numpy(pick).to(device)].cpu() * host)
+                   .sum(1).min())
+    assert f32_err <= F32_HOST_ATOL, f"encoder float32 card vs host {f32_err}"
+    assert bf_cos >= BF16_MIN_COS, f"encoder bf16 vs host cosine {bf_cos}"
+    del params, f32
+    log(f"phase 13: corpus {n} chunks of {RAG_LEN[0]}-{RAG_LEN[1] - 1} "
+        f"words ({sum(map(len, texts)) / 1e6:.1f} MB of text, {RAG_WORDS} "
+        f"Zipf words, made in {t_corpus:.1f} s); encoder BertConfig() "
+        f"(hidden {cfg.hidden_size}, {cfg.num_layers} layers, "
+        f"{cfg.num_heads} heads, FFN {cfg.intermediate_size}, vocab "
+        f"{cfg.vocab_size}) random_init(seed={SEED}) + WordVocabTokenizer "
+        f"fit on the corpus in {t_init:.1f} s ({100 * unk:.2f} % of a "
+        f"batch's tokens UNK)")
+    log(f"phase 13: encoder on {card}: {n / t_embed:.1f} chunks/s, "
+        f"{real / t_embed:.1f} tokens/s ({n * max_len / t_embed:.1f} padded) "
+        f"through embed_device (tokenizer included), {t_embed:.2f} s for the "
+        f"corpus; one {RAG_BATCH} x {max_len} forward {fwd_ms:.3f} ms = "
+        f"{tf:.1f} TF/s of the bf16 dense peak "
+        f"{PEAK_OPS_PER_S['bf16'] / 1e12:.0f} (CUDA events); card vs host on "
+        f"{RAG_HOST} chunks: float32 max |d| {f32_err:.3g}, bf16 min cosine "
+        f"{bf_cos:.6f} (host float32 {t_host:.1f} s)")
+
+    # (b) the device pipeline over the encoder's corpus
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    ids = [f"c{i}" for i in range(n)]
+    meta = [{"src": i % 8} for i in range(n)]
+    scan.reset_launch_counts()  # (b)-(d) are this phase's path
+    db = PicoVectorDB(embedding_dim=cfg.hidden_size,
+                      storage_file=os.path.join(tmp, "enc"), device=device,
+                      **db_kwargs)
+    t0 = time.perf_counter()
+    db.ingest_device(corpus, ids=ids, metadata=meta)
+    sync()
+    t_ingest = time.perf_counter() - t0
+    assert db.last_query_debug()["mirrors"] == {"bf16": True, "int8": True}
+    mean = corpus.mean(0)
+    coll = float(mean @ mean)
+    tap = RouteTap(torch, scan, db)
+    retries = db.stats()["exact_retries"]
+    t0 = time.perf_counter()
+    got, got_sc = db.query_columnar(corpus, top_k=k, batch_size=RAG_CHUNK)
+    t_self = time.perf_counter() - t0
+    route = db.last_query_debug()["strategy"]
+    assert route == "segmax_mixed_stream", route
+    chunks_retried = db.stats()["exact_retries"] - retries
+    b_out = tap.take()
+    ov, oi = oracle_band(torch, db._dev.vectors[:n], corpus, k + RAG_GUARD)
+    b_line = crowding_check(torch, b_out, ov, "(b) the encoder's store")
+    miss = sum(1 for i in range(n) if got[i][0] != ids[i])
+    assert miss == 0, f"self-retrieval missed {miss}"
+    samp = np.sort(rng.choice(n, RAG_ORACLE_Q, replace=False))
+    samp_t = torch.from_numpy(samp).to(device)
+    b_final = final_vs_oracle(torch, db, corpus[samp_t], got[samp],
+                              got_sc[samp], ov[samp_t], oi[samp_t],
+                              "(b) sampled")
+    with uncounted(scan):
+        t0 = time.perf_counter()
+        db.query_columnar(corpus, top_k=k, batch_size=RAG_CHUNK)
+        t_self2 = time.perf_counter() - t0
+        tap.take()
+    log(f"phase 13: store PicoVectorDB(embedding_dim={cfg.hidden_size}) "
+        f"ingest_device {t_ingest:.3f} s (mirrors bf16 + int8); |mean row|^2 "
+        f"{coll:.4f}; self-retrieval query_columnar over all {n} chunks "
+        f"({route}, {n // RAG_CHUNK} chunks of {RAG_CHUNK}): mismatches "
+        f"{miss}/{n}, {n / t_self:.1f} QPS counted pass, {n / t_self2:.1f} QPS "
+        f"second pass; exact retries in {chunks_retried} of "
+        f"{-(-n // RAG_CHUNK)} chunks (each re-serves its {RAG_CHUNK} "
+        f"queries); crowding mark vs the float64 oracle: "
+        f"{b_line}; {RAG_ORACLE_Q} sampled answers {b_final} (scores within "
+        f"{TOL_SCORE:g}, ids outside a {TOL_GAP:g} gap); card {card}")
+    del ov, oi
+
+    # (c1) the encoder's corpus centred and renormalised (this phase's own
+    # test data: the store is given unit rows, its semantics unchanged)
+    cen = normalize_on_device(corpus - mean)
+    c1 = PicoVectorDB(embedding_dim=cfg.hidden_size,
+                      storage_file=os.path.join(tmp, "c1"), device=device,
+                      **db_kwargs)
+    c1.ingest_device(cen, ids=ids)
+    qsel = torch.from_numpy(np.sort(rng.choice(n, RAG_STORE_Q, replace=False))
+                            ).to(device)
+    tap.close()
+    tap = RouteTap(torch, scan, c1)
+    c1.query_columnar(cen[qsel], top_k=k, batch_size=RAG_CHUNK)
+    assert c1.last_query_debug()["strategy"] == "segmax_mixed_stream"
+    c_out = tap.take()
+    ov, oi = oracle_band(torch, c1._dev.vectors[:n], cen[qsel], k + RAG_GUARD)
+    c1_line = crowding_check(torch, c_out, ov, "(c1) the centred store")
+    unmarked = ~torch.isneginf(c_out[0]).any(dim=1)
+    held, c1_three = route_vs_oracle(torch, scan, c_out[0], c_out[1], ov,
+                                     oi, unmarked, "(c1) K1 + K2 -> rescore")
+    del ov, oi
+    log(f"phase 13: centred store (the corpus mean subtracted, rows "
+        f"renormalised): query_columnar {RAG_STORE_Q} of its rows, "
+        f"{c1_line}; K1 + K2 -> rescore = the float64 oracle on the {held} "
+        f"queries not re-served (scores within {TOL_SCORE:g}, ids outside a "
+        f"{TOL_GAP:g} gap; {c1_three} queries left out, whose top-10 holds 3 "
+        f"rows of one segment); card {card}")
+
+    # (c2) an isotropic store, its queries its rows plus noise
+    g = torch.Generator(device=device).manual_seed(SEED + 13)
+    iso = normalize_on_device(torch.randn(n, cfg.hidden_size, generator=g,
+                                          device=device))
+    c2 = PicoVectorDB(embedding_dim=cfg.hidden_size,
+                      storage_file=os.path.join(tmp, "c2"), device=device,
+                      **db_kwargs)
+    c2.ingest_device(iso, ids=ids)
+    q2 = iso[:RAG_STORE_Q] + 0.01 * torch.randn(
+        RAG_STORE_Q, cfg.hidden_size, generator=g, device=device)
+    tap.close()
+    tap = RouteTap(torch, scan, c2)
+    retries = c2.stats()["exact_retries"]
+    t0 = time.perf_counter()
+    c2_ids, _ = c2.query_columnar(q2, top_k=k, batch_size=RAG_CHUNK)
+    t_c2 = time.perf_counter() - t0
+    assert c2.last_query_debug()["strategy"] == "segmax_mixed_stream"
+    c2_retries = c2.stats()["exact_retries"] - retries
+    c2_out = tap.take()
+    tap.close()
+    ov, oi = oracle_band(torch, c2._dev.vectors[:n], q2, k + RAG_GUARD)
+    c2_line = crowding_check(torch, c2_out, ov, "(c2) the isotropic store")
+    marked = int(torch.isneginf(c2_out[0]).any(dim=1).sum())
+    assert marked == 0 and c2_retries == 0, (marked, c2_retries)
+    held2, c2_three = route_vs_oracle(
+        torch, scan, c2_out[0], c2_out[1], ov, oi,
+        torch.ones(RAG_STORE_Q, dtype=torch.bool, device=device),
+        "(c2) K1 + K2 -> rescore")
+    truth = oi[:, :k].cpu().numpy()
+    recall = float(np.mean([
+        len({int(x[1:]) for x in c2_ids[i]} & set(truth[i].tolist())) / k
+        for i in range(RAG_STORE_Q)]))
+    assert recall >= 0.999, recall
+    del ov, oi
+    log(f"phase 13: isotropic store ({n} seeded rows at dim "
+        f"{cfg.hidden_size}): query_columnar {RAG_STORE_Q} "
+        f"(segmax_mixed_stream, K1 + K2 {RAG_STORE_Q // RAG_CHUNK} chunks) "
+        f"{RAG_STORE_Q / t_c2:.1f} QPS, {c2_line}, exact retries 0, "
+        f"recall@10 {recall:.5f}, K1 + K2 -> rescore = the float64 oracle "
+        f"on {held2}/{RAG_STORE_Q} ({c2_three} left out, whose top-10 holds 3 "
+        f"rows of one segment); card {card}")
+
+    # (d) the rest of the API on the encoder's store
+    pick = np.sort(rng.choice(n, RAG_TEXT_Q, replace=False))
+    qtexts = [" ".join(w for j, w in enumerate(texts[i].split()) if j % 3 != 1)
+              for i in pick]
+    retries = db.stats()["exact_retries"]
+    t0 = time.perf_counter()
+    tq = enc.embed_device(qtexts)
+    t_ids, t_sc = db.query_columnar(tq, top_k=k)
+    t_text = time.perf_counter() - t0
+    t_route = db.last_query_debug()["strategy"]
+    assert t_route == "segmax_mixed", t_route
+    ov, oi = oracle_band(torch, db._dev.vectors[:n], tq, k + 1)
+    t_line = final_vs_oracle(torch, db, tq, t_ids, t_sc, ov, oi,
+                             "(d) text queries", strict=False)
+    first = sum(1 for i, row in zip(pick, t_ids) if row[0] == ids[i])
+    one = tq[:1].cpu().numpy()[0]
+    r0, s0 = db.stats()["exact_retries"], scan.LAUNCHES["scan_topk_i8_sweep"]
+    res = db.query(one, top_k=k)
+    # K3's sweep served it; a crowded band re-runs it exact (that route's
+    # name is then the last)
+    assert scan.LAUNCHES["scan_topk_i8_sweep"] == s0 + 1, "Q=1 missed K3"
+    q1_retry = db.stats()["exact_retries"] - r0
+    assert q1_retry or db.last_query_debug()["strategy"] == "i8_fused_smallq"
+    q1_line = final_vs_oracle(
+        torch, db, tq[:1], np.asarray([[h[K_ID] for h in res]], dtype=object),
+        np.asarray([[h[K_METRICS] for h in res]]), ov[:1], oi[:1], "(d) Q=1",
+        strict=False)
+    src3 = torch.from_numpy(np.arange(n) % 8 == 3).to(device)
+    res_w = db.query(tq.cpu().numpy(), top_k=k, where={"src": 3})
+    w_route = db.last_query_debug()["strategy"]
+    assert w_route == "mixed_fused_batch_filtered", w_route
+    fv, fi = oracle_band(torch, db._dev.vectors[:n], tq, k + 1, live=src3)
+    assert all(h["src"] == 3 for hits in res_w for h in hits)
+    w_line = final_vs_oracle(
+        torch, db, tq, np.asarray([[h[K_ID] for h in hits] for hits in res_w],
+                                  dtype=object),
+        np.asarray([[h[K_METRICS] for h in hits] for hits in res_w]), fv, fi,
+        "(d) where=", strict=False)
+    d_retries = db.stats()["exact_retries"] - retries
+    counts = launch_counts(scan)
+    with uncounted(scan):
+        q1_ms = cuda_ms(torch, lambda: db.query(one, top_k=k), 20)
+        q1_text_ms = cuda_ms(torch, lambda: db.query_columnar(
+            enc.embed_device(qtexts[:1]), top_k=k), 20)
+        w_ms = cuda_ms(torch, lambda: db.query(tq.cpu().numpy(), top_k=k,
+                                               where={"src": 3}), 10)
+    for name in RAG_ROWS:
+        key = KERNELS[name][0]
+        assert counts[key] > 0, f"{name} never launched on phase 13's path"
+    log(f"phase 13: {RAG_TEXT_Q} text queries (a third of the words dropped) "
+        f"embed_device + query_columnar ({t_route}) {t_line}, source chunk "
+        f"first on {first}/{RAG_TEXT_Q}, {RAG_TEXT_Q / t_text:.1f} QPS text "
+        f"to ids; Q=1 query() (i8_fused_smallq, exact retries {q1_retry}) "
+        f"{q1_line}, {q1_ms:.4f} ms "
+        f"by CUDA events ({q1_text_ms:.4f} ms from the text through "
+        f"embed_device + query_columnar); where={{'src': 3}} Q={RAG_TEXT_Q} "
+        f"({w_route}) {w_line} (the filtered oracle), {w_ms:.4f} ms a batch; "
+        f"exact retries in (d) {d_retries}; card {card}; launches {counts}")
+
+    # K1-K4 at dim 384 against their plain versions (uncounted): K1 + K2 on
+    # (c2)'s planes at Q = 2048, K3 on the encoder's int8 mirror at Q = 1,
+    # K4 at the where batch's shape and at the exact retry's
+    parts, dim = [], cfg.hidden_size
+    with uncounted(scan):
+        dev = c2._dev
+        cap, live = dev.active.shape[0], int(dev.active.sum())
+        qf = normalize_on_device(q2[:RAG_CHUNK])
+        qb = qf.to(torch.bfloat16)
+        keys, keys_p, err1 = k1_on_mirror(torch, scan, dev, qf, qb,
+                                          "K1 at dim 384")
+        nq = qf.shape[0]
+        slab = keys.numel() * 4
+        e1 = entry(err1, cuda_ms(torch, lambda: scan.segmax_scan(
+            qb, dev.vectors_lp, dev.active)), cuda_ms(
+            torch, lambda: scan.segmax_scan_plain(qb, dev.vectors_lp,
+                                                  dev.active)),
+            nq * dim * 2 + live * dim * 2 + cap + slab, 2 * nq * live * dim,
+            "bf16")
+        ks = k + RAG_GUARD
+        tk, _ = scan.topk_packed_keys(keys, ks)
+        tk_p, _ = scan.topk_packed_keys_plain(keys, ks)
+        e2 = entry(exact_err(torch, tk, tk_p), cuda_ms(
+            torch, lambda: scan.topk_packed_keys(keys, ks)), cuda_ms(
+            torch, lambda: scan.topk_packed_keys_plain(keys, ks)),
+            slab + nq * ks * 8, 0, "int8",
+            cuda_ms(torch, lambda: torch.topk(keys, ks, dim=1)))
+        del keys, keys_p
+        dev = db._dev
+        cap, live = dev.active.shape[0], int(dev.active.sum())
+        q8, _ = scan.quantize_rows_i8(normalize_on_device(tq[:1]))
+        args = (q8, dev.vectors_i8, dev.vscale, dev.active, k + 4)
+        served3, t3 = k3_timed(torch, scan, args, 10)
+        assert served3 == "sweep", served3  # the K3 row is the sweep's
+        e3 = entry(0.0, t3[served3], cuda_ms(torch, lambda: scan.scan_topk_plain(
+            *args, chunk=131_072)), dim + live * (dim + 4) + cap + (k + 4) * 8,
+            2 * live * dim, "int8")
+        wmask = src3 & dev.active[:n]
+        wmask = torch.cat([wmask, dev.active[n:]])
+        qw = normalize_on_device(tq)
+        e4 = {}
+        for what, q, rows, msk in (
+                (f"Q={RAG_TEXT_Q} k_sel=14 filtered", qw, dev.vectors_lp,
+                 wmask),
+                (f"Q={RAG_CHUNK} k_sel=14 float32",
+                 normalize_on_device(corpus[:RAG_CHUNK]), dev.vectors,
+                 dev.active)):
+            served4, t4, err4 = k4_timed(torch, scan, q, rows, msk, k + 4, 10)
+            nl, es = int(msk.sum()), rows.element_size()
+            e4[what] = entry(
+                err4, t4[served4], cuda_ms(torch, lambda: scan.scan_topk_plain(
+                    q, rows, None, msk, k + 4, chunk=131_072), 3),
+                q.shape[0] * dim * 4 + nl * dim * es + cap
+                + q.shape[0] * (k + 4) * 8,
+                *tc_ops(torch, q.shape[0], nl, dim, rows.dtype, 3))
+            parts.append(f"fused_topk {what}: {t4[served4]:.4f} ms ({served4}; "
+                         + ", ".join(f"{nm} {ms:.4f}" for nm, ms in t4.items())
+                         + f"; plain {e4[what]['plain_ms']:.4f}; bound "
+                         f"{e4[what]['bound_ms']:.4f} by "
+                         f"{e4[what]['bound_by']}; max |err| {err4:.3g})")
+    new = {"segmax_scan": {f"Q={RAG_CHUNK}": e1},
+           "topk_packed_keys": {f"Q={RAG_CHUNK} k_sel={ks}": e2},
+           "fused_topk_i8": {"Q=1 k_sel=14": e3},
+           "fused_topk": e4}
+    for name, shapes in new.items():
+        row = rec.setdefault(name, {"max_abs_err": 0.0})
+        row["rag_384"] = shapes
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            e["max_abs_err"] for e in shapes.values()])
+    log(f"phase 13: kernels at dim {dim} (CUDA events, uncounted): "
+        f"segmax_scan Q={RAG_CHUNK} on the isotropic store's mirror: "
+        f"{e1['ms']:.4f} ms (plain {e1['plain_ms']:.4f}; bound "
+        f"{e1['bound_ms']:.4f} by {e1['bound_by']}; max |dkey value| "
+        f"{err1:.3g}); topk_packed_keys Q={RAG_CHUNK} k_sel={ks} over "
+        f"{slab // 4 // RAG_CHUNK} keys: {e2['ms']:.4f} ms (plain "
+        f"{e2['plain_ms']:.4f}, torch.topk {e2['library_ms']:.4f}; bound "
+        f"{e2['bound_ms']:.4f} by {e2['bound_by']}; max |err| "
+        f"{e2['max_abs_err']:.3g}); fused_topk_i8 Q=1 k_sel=14 on the "
+        f"encoder's int8 mirror: {e3['ms']:.4f} ms ({served3}; "
+        + ", ".join(f"{nm} {ms:.4f}" for nm, ms in t3.items())
+        + f"; plain {e3['plain_ms']:.4f}; bound {e3['bound_ms']:.4f} by "
+        f"{e3['bound_by']}; bit for bit); " + "; ".join(parts)
+        + f"; card {card}")
+
+    # (e) the tool, as a user runs it
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as work:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "picovdb_tpu_torch.tools.rag_demo",
+             "--device-pipeline", "--embedder", "bert-random", "--device",
+             device.type], cwd=work, env=env, capture_output=True, text=True,
+            timeout=600)
+        t_tool = time.perf_counter() - t0
+    assert out.returncode == 0, out.stderr[-3000:]
+    last = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("self-retrieval mismatches:")]
+    assert last and last[0].split()[2].startswith("0/"), out.stdout[-2000:]
+    log(f"phase 13: tools.rag_demo --device-pipeline --embedder bert-random "
+        f"(a subprocess, {t_tool:.1f} s): {last[0]}; card {card}")
+    shutil.rmtree(tmp)
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return counts
+
+
 def q64_latency_main(torch, n: int, dim: int) -> int:
     """`--q64-latency`: an n x dim int8 store with the host rescore, made
     from a generator of its own (SEED + 13), and `q64_latency` on 64 of its
@@ -4030,6 +4605,7 @@ def main() -> int:
     mesh_only = sys.argv[1:] == ["--mesh"]
     mp_only = sys.argv[1:] == ["--multiprocess"]
     trace_only = sys.argv[1:] == ["--trace-mesh"]
+    rag_only = sys.argv[1:] == ["--rag"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -4048,6 +4624,14 @@ def main() -> int:
         counts = phase_mesh(torch, scan, device,
                             np.random.default_rng(SEED + 11), card)
         log(f"phase 11: launches {counts}")
+        print(card)
+        return 0
+    if rag_only:  # phase 13 alone: the models and the device pipeline
+        rec = {}
+        counts = phase_rag(torch, scan, device, card, rec)
+        log("phase 13: kernels at dim 384 " + json.dumps(
+            {name: {**rec[name], "rag_launches": counts[KERNELS[name][0]]}
+             for name in RAG_ROWS}))
         print(card)
         return 0
     if mp_only:  # phase 12 alone: one rank a card on two or more cards
@@ -4085,13 +4669,16 @@ def main() -> int:
     counts[10] = phase_probes(torch, scan, device, card)
     torch.cuda.empty_cache()
     before_s = time.perf_counter() - t_start
+    counts[13] = phase_rag(torch, scan, device, card, rec)
+    torch.cuda.empty_cache()
+    rag_s = time.perf_counter() - t_start - before_s
     counts[11] = phase_mesh(torch, scan, device,
                             np.random.default_rng(SEED + 11), card)
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
     counts[12] = phase_multiprocess(torch, scan, card)
     log(f"smoke wall time: {time.perf_counter() - t_start:.1f} s, of which "
-        f"phases 1-10 {before_s:.1f} s, phase 12 "
+        f"phases 1-10 {before_s:.1f} s, phase 13 {rag_s:.1f} s, phase 12 "
         f"{time.perf_counter() - t12:.1f} s")
 
     kernels = [
@@ -4101,7 +4688,9 @@ def main() -> int:
          # phase 12's, every rank's (the stores across processes)
          **({"mesh_launches": counts[11].get(key, 0),
              "mp_launches": counts[12].get(key, 0)}
-            if name in MESH_ROWS else {})}
+            if name in MESH_ROWS else {}),
+         # phase 13's launches of K1-K4 (the encoder's stores)
+         **({"rag_launches": counts[13][key]} if name in RAG_ROWS else {})}
         for name, (key, src, rep, phase) in KERNELS.items()
     ]
     print(card)

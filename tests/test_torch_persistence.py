@@ -78,9 +78,11 @@ def test_import_adds_no_jax_module():
         "before = set(sys.modules)\n"
         "import picovdb_tpu_torch, picovdb_tpu_torch.ops.scan\n"
         "import picovdb_tpu_torch.ops._build, picovdb_tpu_torch.hostops\n"
+        "import picovdb_tpu_torch.models, picovdb_tpu_torch.tools.rag_demo\n"
         "added = set(sys.modules) - before\n"
         "bad = sorted(m for m in added if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ml_dtypes', 'picovdb_tpu'))\n"
+        "('jax', 'jaxlib', 'ml_dtypes', 'picovdb_tpu', 'flax', "
+        "'transformers', 'sentence_transformers'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ)
@@ -93,7 +95,7 @@ def test_import_adds_no_jax_module():
 
 
 def test_no_source_file_imports_jax():
-    forbidden = ("jax", "jaxlib", "ml_dtypes", "picovdb_tpu")
+    forbidden = ("jax", "jaxlib", "ml_dtypes", "picovdb_tpu", "flax")
     for path in sorted(PKG.rglob("*.py")):
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

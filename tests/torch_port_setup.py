@@ -85,3 +85,34 @@ def bf16_bytes(rng, rows, dim):
     """A (rows, dim) standard normal matrix as bf16, viewed as its bytes."""
     x = torch.from_numpy(rng.standard_normal((rows, dim)).astype(np.float32))
     return x.to(torch.bfloat16).view(torch.uint8).numpy().reshape(rows, 2 * dim)
+
+
+# The on-device RAG pipeline's check that no vector reaches the host
+
+
+def record_host_copies(monkeypatch, width: int) -> list:
+    """Patches torch.Tensor so that every host copy of a tensor whose last
+    dimension is `width` (an embedding's; ids, scores and tokens have other
+    widths) is recorded as (method, shape): `.cpu()`, `.numpy()`,
+    `.tolist()`, `__array__`, and a `.to()` from another device to the
+    CPU. Module parameters are not recorded. Returns the list it fills."""
+    seen = []
+
+    def wrap(name):
+        orig = getattr(torch.Tensor, name)
+
+        def rec(self, *args, **kwargs):
+            if (self.ndim and self.shape[-1] == width
+                    and not isinstance(self, torch.nn.Parameter)):
+                targets = (*args, kwargs.get("device"))
+                if name != "to" or (self.device.type != "cpu" and any(
+                        str(t).startswith("cpu") for t in targets
+                        if isinstance(t, (str, torch.device)))):
+                    seen.append((name, tuple(self.shape)))
+            return orig(self, *args, **kwargs)
+
+        monkeypatch.setattr(torch.Tensor, name, rec)
+
+    for name in ("cpu", "numpy", "tolist", "__array__", "to"):
+        wrap(name)
+    return seen
