@@ -44,13 +44,32 @@ through `query_columnar`, the crowding mark held to the float64 oracle;
 isotropic store, and K1-K4 at dim 384 against their plain versions; (d)
 text queries, a Q = 1 `query` (K3) and a `where=` batch (K4); (e) the
 `picovdb_tpu_torch.tools.rag_demo --device-pipeline` tool in a
-subprocess. `--rag` runs the build and phase 13 alone.
+subprocess. `--rag` runs the build and phase 13 alone. Phase 14 (its
+own generator, run last) drives the API tools and the entry points as a
+user runs them: (a) `python -m picovdb_tpu_torch.tools.upserts`,
+`queries` and `batch_queries` at 100,000 x 1024 and `many_upserts` at
+10,000 x 1024, each a subprocess that must exit 0 (the saved store
+reloads with every row); (b) the query profiler's `run_suite` at 100,000
+rows (numpy corpus) and 1,000,000 (made on the card, `ingest_device`),
+batch sizes 1 / 16 / 256, then every scenario x batch size on a store
+built from the same seed held to a float64 oracle over the rows its
+filter admits (the IVF tier's cells over the rows their probe scanned),
+with each cell's route and launches; (c) `graft_entry.entry()` (K4 at
+256 x 102,400 x 1024 against its plain step, the oracle, its bound and
+the library pair) and `dryrun_multichip(4)` over cuda:i % count
+(launches = shards x row-calls). `--tools` runs the build and phase 14
+alone.
 Launch counts are zeroed just before each path and read just after it.
 Where a kernel was redesigned, the kernel it replaced at those shapes is
 held to the same plain version and timed beside it on the same inputs
 (K9, K7, K6, K3, K4: the template; K10, K5: the mma.sync tile; K8: its
 first kernel; K1 at dims 1020 and 1019: the wmma tile); K2 is timed
-beside torch.topk at its launch shapes; phases 3 and 7 also time
+beside torch.topk at its launch shapes, and every other kernel of phase
+2 beside the PyTorch calls that compute its function on the same inputs
+(`library_ms`, `library_call`: the product alone for K1 / K5 / K10 / P1,
+the product + torch.topk for K3 / K4 / K9, a gather of the probed tiles'
+rows first for K7 / K8; none for K6, whose packed nibbles no PyTorch call
+multiplies); phases 3 and 7 also time
 K4's tensor-core scan and its template at Q = 1 ... 256, and phase 4 K3's
 sweep and tensor-core scan at Q = 1 ... 64 (the crossovers behind their
 ready rules). `python3 chip_smoke.py --q64-latency` times only the int8
@@ -70,10 +89,13 @@ and refuses to run without a card.
 Output, in order: the phase lines (phase 10 adds one JSON line per
 probe), the card's name and power limit as `nvidia-smi` reports them,
 one JSON object with the per-kernel record (time, plain time, bound,
-library call, launches; K3 / K4 / K6 / K7 also `mesh_launches`, phase
-11's, and `mp_launches`, phase 12's summed over the ranks; K1-K4 also
-`rag_launches`, phase 13's, and `rag_384`, their times at dim 384), and
-last `{"ok": true, "device": {...}}`.
+library call and its time, launches; K3 / K4 / K6 / K7 also
+`mesh_launches`, phase 11's, and `mp_launches`, phase 12's summed over
+the ranks; K1-K4 also `rag_launches`, phase 13's, and `rag_384`, their
+times at dim 384; K1-K4, K6-K8 `tools_launches`, phase 14's), and last
+`{"ok": true, "device": {...}}`. Phase 14 adds one JSON line of its
+numbers (`{"phase14": ...}`: the tools' parsed lines, the profiler's
+rows and checks, the entry's record) before the card's line.
 """
 
 from __future__ import annotations
@@ -81,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -216,17 +239,54 @@ KERNELS = {
 }
 
 
-def entry(err, ms, plain_ms, nbytes, ops, kind, library_ms=None) -> dict:
+def entry(err, ms, plain_ms, nbytes, ops, kind, library_ms=None,
+          library_call=None) -> dict:
     """One kernel's record at the shape it was timed: agreement with its
     plain version, times, and what its least time is computed from (bytes
     each input read once and each output written once; operations of
-    type `kind`), counting only the rows this run's mask leaves live."""
+    type `kind`), counting only the rows this run's mask leaves live; the
+    PyTorch calls that compute the same function (`library_call`) and
+    their time on the same inputs (`library_ms`)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "library_call": library_call}
+
+
+# What a kernel's library counterpart calls (`library_call` in the kernels
+# line): one product and one selection, as PyTorch offers them
+LIB_MATMUL = "torch.matmul (the bf16 product alone)"
+LIB_INT_MM = "torch._int_mm (the int8 product alone)"
+LIB_K4 = "torch.matmul + masked_fill + torch.topk"
+LIB_K3 = "torch._int_mm + row scales + masked_fill + torch.topk"
+LIB_K3_Q1 = ("torch._int_mm (M padded to 32 rows) + row scales + "
+             "masked_fill + torch.topk")
+LIB_K9 = "torch._int_mm (M padded to 32 rows) + masked_fill + torch.topk"
+LIB_IVF = "index_select of the probed tiles' rows + torch.matmul + torch.topk"
+LIB_IVF_SEG = ("index_select of the probed tiles' rows + torch.matmul + "
+               "torch.topk per 128-row segment")
+LIB_IVF_SEG_I8 = ("index_select of the probed tiles' rows + torch._int_mm + "
+                  "torch.topk per 128-row segment")
+LIB_NONE_I4 = "none: no PyTorch call multiplies packed int4 nibbles"
+
+
+def lib_topk(torch, scores_fn, notmask, k: int):
+    """The library pair's selection: the scores `scores_fn()` makes, the
+    masked-out rows at -inf, then torch.topk."""
+    def run():
+        s = scores_fn().masked_fill(notmask, float("-inf"))
+        return torch.topk(s, k, dim=1)
+    return run
+
+
+def int_mm_rows(torch, q8, nq: int):
+    """`q8`'s first nq rows zero-padded to 32 (torch._int_mm takes M > 16):
+    the padded rows' scores are computed and dropped."""
+    pad = torch.zeros((32, q8.shape[1]), dtype=torch.int8, device=q8.device)
+    pad[:nq] = q8[:nq]
+    return pad
 
 
 def tc_ops(torch, nq: int, live: int, dim: int, dtype, bf16_planes: int = 1):
@@ -730,12 +790,13 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["segmax_scan"] = entry(
         err1, cuda_ms(torch, lambda: scan.segmax_scan(qb, lp, mask)),
         cuda_ms(torch, lambda: scan.segmax_scan_plain(qb, lp, mask)),
-        nq * dim * 2 + live * dim * 2 + cap + slab, 2 * nq * live * dim, "bf16")
+        nq * dim * 2 + live * dim * 2 + cap + slab, 2 * nq * live * dim, "bf16",
+        cuda_ms(torch, lambda: torch.matmul(qb, lp.T)), LIB_MATMUL)
     rec["topk_packed_keys"] = entry(
         err2, cuda_ms(torch, lambda: scan.topk_packed_keys(keys, k + 6)),
         cuda_ms(torch, lambda: scan.topk_packed_keys_plain(keys, k + 6)),
         slab + nq * (k + 6) * 8, 0, "int8",
-        cuda_ms(torch, lambda: torch.topk(keys, k + 6, dim=1)))
+        cuda_ms(torch, lambda: torch.topk(keys, k + 6, dim=1)), "torch.topk")
     del keys, keys_p
     log(f"phase 2: K1 segmax_scan (TMA + wgmma) + K2 topk_packed_keys agree "
         f"at Q=2048 k={k} cap={cap} (K1 max |dkey value| {err1:.3g}, K2 "
@@ -770,7 +831,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             err_w, cuda_ms(torch, lambda: scan.segmax_scan(q2b, lp2, mask)),
             cuda_ms(torch, lambda: scan.segmax_scan_plain(q2b, lp2, mask)),
             nq * d2 * 2 + live * d2 * 2 + cap + slab, 2 * nq * live * d2,
-            "bf16")
+            "bf16", cuda_ms(torch, lambda: torch.matmul(q2b, lp2.T)),
+            LIB_MATMUL)
         others = ["pv_segmax_scan"] + (["pv_segmax_scan_realign"]
                                        if key == "segmax_cpasync" else [])
         for other in others:
@@ -823,7 +885,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["segmax_scan_i8"] = entry(
         err5, cuda_ms(torch, lambda: scan.segmax_scan_i8(q8, v8, vs, mask)),
         cuda_ms(torch, lambda: scan.segmax_scan_i8_plain(q8, v8, vs, mask)),
-        nq * dim + live * (dim + 4) + cap + slab, 2 * nq * live * dim, "int8")
+        nq * dim + live * (dim + 4) + cap + slab, 2 * nq * live * dim, "int8",
+        cuda_ms(torch, lambda: torch._int_mm(q8, v8.T)), LIB_INT_MM)
     tile5_ms = cuda_ms(torch, lambda: scan._segmax_i8_launch(q8, v8, vs, mask,
                                                              False))
     del keys, keys_p, keys_t
@@ -854,7 +917,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["segmax_scan_i8c"] = entry(
         err10, cuda_ms(torch, lambda: scan.segmax_scan_i8c(q8c, v8c, mask)),
         cuda_ms(torch, lambda: scan.segmax_scan_i8c_plain(q8c, v8c, mask)),
-        nq * dim + live * dim + cap + slab, 2 * nq * live * dim, "int8")
+        nq * dim + live * dim + cap + slab, 2 * nq * live * dim, "int8",
+        cuda_ms(torch, lambda: torch._int_mm(q8c, v8c.T)), LIB_INT_MM)
     tile_ms = cuda_ms(torch, lambda: scan._segmax_i8c_launch(q8c, v8c, mask,
                                                              False))
     del keys, keys_p, keys_t
@@ -889,12 +953,12 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         err_p1, cuda_ms(torch, lambda: probes.dot_rowmax(qb, lp)),
         cuda_ms(torch, lambda: probes.dot_rowmax_plain(qb, lp)),
         nq * dim * 2 + cap * dim * 2 + nq * 4, 2 * nq * cap * dim, "bf16",
-        cuda_ms(torch, lambda: torch.matmul(qb, lp.T)))
+        cuda_ms(torch, lambda: torch.matmul(qb, lp.T)), LIB_MATMUL)
     rec["dot_rowmax_i8"] = entry(
         err_p1i, cuda_ms(torch, lambda: probes.dot_rowmax(q8c, v8c)),
         cuda_ms(torch, lambda: probes.dot_rowmax_plain(q8c, v8c)),
         nq * dim + cap * dim + nq * 4, 2 * nq * cap * dim, "int8",
-        cuda_ms(torch, lambda: torch._int_mm(q8c, v8c.T)))
+        cuda_ms(torch, lambda: torch._int_mm(q8c, v8c.T)), LIB_INT_MM)
     p1i = rec["dot_rowmax_i8"]
     log(f"phase 2: P1 dot_rowmax agrees at Q=2048 cap={cap}: bf16 (wgmma) "
         f"{rec['dot_rowmax']['ms']:.4f} ms (max |d| {err_p1:.3g}; torch.matmul "
@@ -935,13 +999,17 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         k3[nq] = k3_timed(torch, scan, (q8, v8, vs, mask, 14), reps=10)
         pms.append(cuda_ms(torch, lambda: scan.scan_topk_plain(q8, v8, vs, mask, 14)))
         if nq == 1:
+            q81 = int_mm_rows(torch, q8, 1)
+            lib3 = cuda_ms(torch, lib_topk(
+                torch, lambda: torch._int_mm(q81, v8.T)[:1].float() * vs,
+                ~mask, 14))
             ms1 = cuda_ms(torch, lambda: scan.fused_topk_i8(q8, v8, vs, mask, 14))
             split3 = device_split(torch, lambda: scan.fused_topk_i8(
                 q8, v8, vs, mask, 14))
     assert k3[1][0] == "sweep", k3
     rec["fused_topk_i8"] = entry(max(errs), ms1, pms[0],
                                  dim + live * (dim + 4) + cap + 14 * 8,
-                                 2 * live * dim, "int8")
+                                 2 * live * dim, "int8", lib3, LIB_K3_Q1)
     # K3's tensor-core scan at the host-rescore band's batch (Q = 64,
     # k_sel 142), the small-batch band's k_sel 14, and a 2048-query batch
     # (the first queries of `q`: no new draw): the dispatch, the scan and
@@ -954,10 +1022,13 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         assert k3b[nq3, ksel][0] == "tensor-core scan", k3b
         if (nq3, ksel) == (64, 142):
             pms3 = cuda_ms(torch, lambda: scan.scan_topk_plain(*args3), reps=5)
+            lib3b = cuda_ms(torch, lib_topk(
+                torch, lambda: torch._int_mm(args3[0], v8.T).float() * vs,
+                ~mask, 142))
     rec["fused_topk_i8_wgmma"] = entry(
         0.0, k3b[64, 142][1]["tensor-core scan"], pms3,
         64 * dim + live * (dim + 4) + cap + 64 * 142 * 8,
-        2 * 64 * live * dim, "int8")
+        2 * 64 * live * dim, "int8", lib3b, LIB_K3)
     del q8b
     log(f"phase 2: K3 fused_topk_i8 = plain bit for bit at Q=1,8,16 "
         f"k_sel=14 (bound {rec['fused_topk_i8']['bound_ms']:.4f} ms at Q=1; "
@@ -1010,10 +1081,32 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     ms_f32 = cuda_ms(torch, lambda: scan.fused_topk(q64[:16], corpus, mask, 1024))
     pms_f32 = cuda_ms(
         torch, lambda: scan.scan_topk_plain(q64[:16], corpus, None, mask, 1024))
+    # the library pair at the row's shape (bf16 rows: the bf16 product of
+    # the bf16-rounded queries) and over the float32 rows at Q = 64, k_sel
+    # 36 and Q = 1, k_sel 14 (a GEMV), each beside the kernel's time
+    notm = ~mask
+    q64b = q64.to(torch.bfloat16)
+    lib4 = cuda_ms(torch, lib_topk(torch, lambda: torch.matmul(q64b, lp.T),
+                                   notm, 36))
+    q1 = q64[:1].contiguous()
+    lib4_f32 = {
+        "Q=64 k_sel=36": {
+            "ms": k4["float32", 64, 36]["tensor-core scan"],
+            "library_ms": cuda_ms(torch, lib_topk(
+                torch, lambda: torch.matmul(q64, corpus.T), notm, 36))},
+        "Q=1 k_sel=14": {
+            "ms": cuda_ms(torch, lambda: scan.fused_topk(q1, corpus, mask, 14)),
+            "library_ms": cuda_ms(torch, lib_topk(
+                torch, lambda: torch.matmul(q1, corpus.T), notm, 14))},
+        "Q=16 k_sel=1024 (the template)": {
+            "ms": ms_f32, "library_ms": cuda_ms(torch, lib_topk(
+                torch, lambda: torch.matmul(q64[:16], corpus.T), notm,
+                1024))}}
     rec["fused_topk"] = entry(
         max(errs + [e_f32]), k4["bfloat16", 64, 36]["tensor-core scan"], pms_bf,
         64 * dim * 4 + live * dim * 2 + cap + 64 * 36 * 8,
-        *tc_ops(torch, 64, live, dim, torch.bfloat16, 3))
+        *tc_ops(torch, 64, live, dim, torch.bfloat16, 3), lib4, LIB_K4)
+    rec["fused_topk"]["library_f32"] = lib4_f32
     bounds4 = {
         (dt, nq4): entry(0.0, 0, 0, nq4 * dim * 4 + live * dim * es + cap
                          + nq4 * 36 * 8, *tc_ops(torch, nq4, live, dim, dtype,
@@ -1030,7 +1123,10 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
                if (dt, nq4) in bounds4 else "")
             for (dt, nq4, ksel), times in k4.items())
         + f"; plain bf16 Q=64 k_sel=36 {pms_bf:.4f}; the template at f32 Q=16 "
-        f"k_sel=1024 {ms_f32:.4f} ms (plain {pms_f32:.4f})")
+        f"k_sel=1024 {ms_f32:.4f} ms (plain {pms_f32:.4f}); {LIB_K4}: bf16 "
+        f"Q=64 k_sel=36 {lib4:.4f}, " + ", ".join(
+            f"float32 {shape} {t['library_ms']:.4f} (K4 {t['ms']:.4f})"
+            for shape, t in lib4_f32.items()))
 
     # K6 over the packed int4 rows at k_sel = 14 (i4stor_fused at k = 10):
     # Q = 1, 8, 16 and Q = 2048 (a query_columnar batch), the dispatch and
@@ -1066,12 +1162,12 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
                     + 16 * 1024 * 8, 2 * 16 * live * dim, "int8")["bound_ms"]
     rec["fused_topk_i4"] = entry(max(errs), k6[1][1]["sweep"], pms[0],
                                  dim + live * (dim // 2 + 4) + cap + 14 * 8,
-                                 2 * live * dim, "int8")
+                                 2 * live * dim, "int8", None, LIB_NONE_I4)
     nq = 2048
     rec["fused_topk_i4_wgmma"] = entry(
         max(errs), k6[nq][1]["tensor-core scan"], pms[3],
         nq * dim + live * (dim // 2 + 4) + cap + nq * 14 * 8,
-        2 * nq * live * dim, "int8")
+        2 * nq * live * dim, "int8", None, LIB_NONE_I4)
     log(f"phase 2: K6 fused_topk_i4 = plain bit for bit at k_sel=14 "
         f"(bound {rec['fused_topk_i4']['bound_ms']:.4f} ms at Q=1, "
         f"{rec['fused_topk_i4_wgmma']['bound_ms']:.4f} at Q=2048; the kernel "
@@ -1108,9 +1204,13 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         if nq1 == 1:
             split9 = device_split(torch, lambda: scan.fused_topk_i8c(
                 q8, v8c, mask, 16))
+            q9 = int_mm_rows(torch, q8, 1)
+            lib9 = cuda_ms(torch, lib_topk(
+                torch, lambda: torch._int_mm(q9, v8c.T)[:1].float(), ~mask,
+                16))
     rec["fused_topk_i8c"] = entry(max(errs), ms[0], pms[0],
                                   dim + live * dim + cap + 16 * 8,
-                                  2 * live * dim, "int8")
+                                  2 * live * dim, "int8", lib9, LIB_K9)
     log(f"phase 2: K9 fused_topk_i8c (one-query sweep) = plain bit for bit "
         f"at Q=1,8,16 k_sel=16 (ms {', '.join(f'{m:.4f}' for m in ms)}; "
         f"bound {rec['fused_topk_i8c']['bound_ms']:.4f} ms at Q=1; the "
@@ -1203,16 +1303,24 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
                 line += " (template)"
             lines.append(f"{line}, plain {pms:.4f}")
             first.setdefault(kind, (ms, pms))
+            if kind == "f32" and (nq, k) == (1, 14):
+                q7 = qs  # the row's query, for its library pair
     hot_live = int((mask & live_rows).sum())  # the live hot tiles' live rows
+    # the probed tiles' rows, as the library pair gathers them
+    hot_idx = (hot[:40].long()[:, None] * bn
+               + torch.arange(bn, device=device)).reshape(-1)
+    hot_out = ~mask[hot_idx]
 
-    def k7_entry(kind, err):  # the Q = 1, k_sel 14 call of one kind
+    def k7_entry(kind, err, lib=None):  # the Q = 1, k_sel 14 call of one kind
         es = kinds[kind].element_size()
         return entry(err, *first[kind],
                      dim * es + hot_live * dim * es + cap + 14 * 8,
                      2 * hot_live * dim, {"f32": "f32", "bf16": "bf16",
-                                          "i8c": "int8"}[kind])
+                                          "i8c": "int8"}[kind], lib, LIB_IVF)
 
-    rec["ivf_scan_topk"] = k7_entry("f32", max(errs))
+    rec["ivf_scan_topk"] = k7_entry("f32", max(errs), cuda_ms(torch, lib_topk(
+        torch, lambda: torch.matmul(q7, post.index_select(0, hot_idx).T),
+        hot_out, 14)))
     bounds = ", ".join(f"{kind} {k7_entry(kind, 0.0)['bound_ms']:.4f}"
                        for kind in kinds)
     log(f"phase 2: K7 ivf_scan_topk agrees over {cap} x {dim} postings, 40 "
@@ -1264,13 +1372,28 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
             lines.append(f"{kind} per_seg={per_seg} {ms:.4f} ms (the first "
                          f"kernel {cuda_ms(torch, first_kernel):.4f}, plain "
                          f"{pms:.4f})")
-    for name, kind in (("ivf_segmax_scan", "f32"),
-                       ("ivf_segmax_scan_i8c", "i8c")):
+    def k8_lib(kind):  # per_seg 4 over the probed tiles' rows, segment-wise
+        qs, vv = scan_inputs(kind, q64), kinds[kind]
+        if kind == "i8c":
+            def scores():
+                return torch._int_mm(qs, vv.index_select(0, hot_idx).T).float()
+        else:
+            def scores():
+                return torch.matmul(qs, vv.index_select(0, hot_idx).T)
+
+        def run():
+            s = scores().masked_fill(hot_out, float("-inf"))
+            return torch.topk(s.view(64, -1, scan.SEG), 4, dim=2)
+        return cuda_ms(torch, run)
+
+    for name, kind, call in (("ivf_segmax_scan", "f32", LIB_IVF_SEG),
+                             ("ivf_segmax_scan_i8c", "i8c", LIB_IVF_SEG_I8)):
         es = kinds[kind].element_size()
         rec[name] = entry(
             errs[kind], *first[kind],
             64 * dim * es + hot_live * dim * es + cap + 64 * 64 * 4 * ns * 4,
-            *tc_ops(torch, 64, hot_live, dim, kinds[kind].dtype))
+            *tc_ops(torch, 64, hot_live, dim, kinds[kind].dtype),
+            k8_lib(kind), call)
     # what the limit must reject: the f32 plain version in TF32, and over
     # bf16-rounded inputs, against the f32 plain version
     ref = ivf.ivf_segmax_scan_plain(q64, post, mask, hot, n_hot, 8)
@@ -4560,6 +4683,361 @@ def phase_rag(torch, scan, device, card: str, rec, n: int = RAG_N,
     return counts
 
 
+# Phase 14: the API-driving tools (picovdb_tpu_torch/tools/) and the entry
+# points (picovdb_tpu_torch/graft_entry.py), each as a user runs it
+TOOLS_N = 100_000  # upserts, queries, batch_queries: the reference's sizes
+TOOLS_MANY_N = 10_000  # many_upserts: the reference's 10k single upserts
+PROFILER_STORES = ((100_000, "host"), (1_000_000, "device"))
+PROFILER_BS = (1, 16, 256)
+PROFILER_CALLS = 16  # timed calls a cell
+PROFILER_PIPELINE = 8
+PROFILER_CHECK_Q = 256  # queries a scenario holds to the oracle (bs 16, 256)
+PROFILER_RECALL = 0.99  # PERF.md §2's limit on the exact tiers
+# the kernels line's rows phase 14 reaches: K1-K4, K6, K7, and K8 on the
+# 1M store's IVF route at bs 16. K6's rows stay at 0: the dry run's dim
+# 64, Q = 8 shards take K6's template (counted under "scan_topk_i4").
+TOOLS_ROWS = ("segmax_scan", "topk_packed_keys", "fused_topk_i8",
+              "fused_topk_i8_wgmma", "fused_topk", "fused_topk_i4",
+              "fused_topk_i4_wgmma", "ivf_scan_topk", "ivf_segmax_scan")
+NUM_RE = r"(\d+(?:\.\d+)?)"
+
+
+def run_tool(name: str, args: list, cwd: str, card: str) -> list:
+    """`python -m picovdb_tpu_torch.tools.<name> <args>` in `cwd`, as a user
+    runs it (on the card: the tools' default); it must exit 0. Echoes and
+    returns its lines."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", f"picovdb_tpu_torch.tools.{name}", *args],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    took = time.perf_counter() - t0
+    assert out.returncode == 0, \
+        f"tools.{name} exited {out.returncode}: {out.stderr[-3000:]}"
+    lines = [ln.strip() for ln in out.stdout.splitlines() if ln.strip()]
+    for ln in lines:
+        log(f"phase 14: tools.{name} {' '.join(args)}: {ln}")
+    log(f"phase 14: tools.{name} exited 0 in {took:.1f} s (a subprocess, "
+        f"imports and the store included); card {card}")
+    return lines
+
+
+def tool_numbers(pattern: str, lines: list, name: str) -> list:
+    """The numbers `pattern` (NUM_RE groups) captures in a tool's lines."""
+    for ln in lines:
+        m = re.search(pattern, ln)
+        if m:
+            return [float(x) for x in m.groups()]
+    raise AssertionError(f"tools.{name} printed no line like {pattern!r}")
+
+
+def phase_tools_scripts(torch, device, work: str, card: str) -> dict:
+    """(a) The four simple tools at the reference's documented sizes, each
+    a subprocess in `work`; `upserts`' saved store reloads in this process
+    with every row."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    out = {}
+    n, d = str(TOOLS_N), str(DIM)
+    lines = run_tool("upserts", ["--n", n, "--dim", d], work, card)
+    _, _, ins_s, rate, save_s = tool_numbers(
+        rf"insert {NUM_RE}x{NUM_RE}: {NUM_RE} s \({NUM_RE} vec/s\), "
+        rf"save: {NUM_RE} s", lines, "upserts")
+    back = PicoVectorDB(embedding_dim=DIM, device=device,
+                        storage_file=os.path.join(work, "bench_upserts_db"))
+    assert back.count() == TOOLS_N, back.count()
+    del back
+    out["upserts"] = {"insert_s": ins_s, "vec_per_s": rate, "save_s": save_s,
+                      "reloaded_count": TOOLS_N}
+    lines = run_tool("queries", ["--n", n, "--dim", d], work, card)
+    total, p50, p95 = tool_numbers(
+        rf"100 single queries over {TOOLS_N}: {NUM_RE} s total, p50 "
+        rf"{NUM_RE} ms, p95 {NUM_RE} ms", lines, "queries")
+    out["queries"] = {"total_s": total, "p50_ms": p50, "p95_ms": p95}
+    lines = run_tool("batch_queries", ["--n", n, "--dim", d, "--batches",
+                                       "20", "--batch", "50"], work, card)
+    out["batch_queries"] = {
+        mode: tool_numbers(rf"^{mode} .*-> {NUM_RE} QPS", lines,
+                           "batch_queries")[0]
+        for mode in ("reference", "query_batched", "query_columnar")}
+    lines = run_tool("many_upserts", ["--n", str(TOOLS_MANY_N), "--dim", d],
+                     work, card)
+    total, per_call, rate = tool_numbers(
+        rf"{TOOLS_MANY_N} single upserts: {NUM_RE} s \({NUM_RE} us/call, "
+        rf"{NUM_RE} vec/s\)", lines, "many_upserts")
+    out["many_upserts"] = {"total_s": total, "us_per_call": per_call,
+                           "vec_per_s": rate}
+    return out
+
+
+def admitted_rows(torch, n: int, kwargs: dict, device):
+    """(n,) bool: the rows (= ids "0" ... str(n - 1)) a profiler scenario's
+    filter admits, from its query kwargs (the profiler's metadata is
+    bucket2 = i % 2, bucket10 = i % 10)."""
+    i = torch.arange(n, device=device)
+    keep = torch.ones(n, dtype=torch.bool, device=device)
+    for key, val in (kwargs.get("where") or {}).items():
+        keep &= i % {"bucket2": 2, "bucket10": 10}[key] == val
+    if kwargs.get("ids") is not None:
+        allow = torch.zeros(n, dtype=torch.bool, device=device)
+        allow[torch.tensor([int(x) for x in kwargs["ids"]], device=device)] = \
+            True
+        keep &= allow
+    return keep
+
+
+def profiler_rows(torch, qp, n: int, gen: str, seed: int, device):
+    """The profiled store's raw rows (on the card) and the queries
+    `run_suite` draws after them, made again from the seed as
+    `_make_store` and `run_suite` make them."""
+    rng = np.random.default_rng(seed)
+    if gen == "device":
+        rows = qp.device_corpus(n, DIM, rng, device)
+    else:
+        host = np.empty((n, DIM), dtype=np.float32)
+        for s in range(0, n, qp.GEN_CHUNK):
+            e = min(n, s + qp.GEN_CHUNK)
+            host[s:e] = rng.standard_normal((e - s, DIM), dtype=np.float32)
+        rows = torch.from_numpy(host).to(device)
+    queries = rng.standard_normal(
+        (max(PROFILER_BS) * PROFILER_CALLS, DIM), dtype=np.float32)
+    return rows, queries
+
+
+def check_profiler_cells(torch, scan, qp, n: int, gen: str, seed: int,
+                         device, card: str) -> list:
+    """Every scenario x batch size of the profiler on a store `_make_store`
+    builds from `seed`, held to a float64 oracle over the rows the
+    scenario admits (made again from the seed, on the card): each returned
+    score is its row's exact score within TOL_SCORE, `better_than` holds,
+    ids equal the oracle's wherever its k-th / (k + 1)-th gap exceeds
+    TOL_GAP, and recall@10 >= PROFILER_RECALL. A cell the IVF tier serves
+    is held to the oracle restricted to the rows its probe scanned (PERF.md
+    §2's IVF limit; recall over every row reported). Bs 1 checks the 16
+    timed queries one call each, bs 16 and 256 the first 256 queries.
+    Returns one record a cell: route(s), recall, ids, error, launches."""
+    from picovdb_tpu_torch import K_ID, K_METRICS
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    db = qp._make_store(n, DIM, np.random.default_rng(seed), gen, device)
+    rows, queries = profiler_rows(torch, qp, n, gen, seed, device)
+    db.query(queries[0], top_k=10)  # the first sync: upload, mirrors, IVF
+    assert np.array_equal(db._ids_array()[:n],
+                          np.arange(n).astype(str).astype(object)), \
+        "the profiled store's slots are not its rows"
+    step = 131_072
+    unit = torch.cat([normalize_on_device(rows[s:s + step])
+                      for s in range(0, n, step)])
+    del rows
+    chunks = [(s, unit[s:s + step]) for s in range(0, n, step)]
+    qdev = torch.from_numpy(queries[:PROFILER_CHECK_Q]).to(device)
+    qn = normalize_on_device(qdev)
+    cells = []
+    for scenario, kwargs_fn in qp.scenario_generators(n).items():
+        kw = kwargs_fn()
+        thr = kw.get("better_than")
+        adm = admitted_rows(torch, n, kw, device)
+        ov, oi = oracle_masked(torch, chunks, qdev,
+                               adm.expand(PROFILER_CHECK_Q, -1))
+        for bs in PROFILER_BS:
+            nq = PROFILER_CALLS if bs == 1 else PROFILER_CHECK_Q
+            got = np.full((nq, 10), -1, dtype=np.int64)
+            got_sc = np.full((nq, 10), -np.inf)
+            routes, probed = [], {}
+            before = dict(scan.LAUNCHES)
+            for a in range(0, nq, bs):
+                res = db.query(queries[a] if bs == 1 else queries[a:a + bs],
+                               top_k=10, **kw)
+                route = db.last_query_debug()["strategy"]
+                routes.append(route)
+                if route.startswith("ivf"):
+                    probed[a] = probed_slots(torch, db, qn[a:a + bs], n)
+                for j, hits in enumerate([res] if bs == 1 else res):
+                    got[a + j, :len(hits)] = [int(h[K_ID]) for h in hits]
+                    got_sc[a + j, :len(hits)] = [h[K_METRICS] for h in hits]
+            launches = {k: scan.LAUNCHES[k] - before[k] for k in scan.LAUNCHES
+                        if scan.LAUNCHES[k] != before[k]}
+            valid = got >= 0
+            assert valid.any(axis=1).all(), f"{scenario} bs={bs}: empty answer"
+            assert bool(adm[torch.from_numpy(got[valid]).to(device)].all()), \
+                f"{scenario} bs={bs}: a row the filter excludes"
+            if thr is not None:
+                assert (got_sc[valid] >= thr).all(), \
+                    f"{scenario} bs={bs}: better_than={thr} broken"
+            # each returned score against its row's float64 score
+            rid = torch.from_numpy(np.where(valid, got, 0)).to(device)
+            exact = torch.einsum("qd,qkd->qk", qn[:nq].double(),
+                                 unit[rid].double()).cpu().numpy()
+            err = float(np.abs(got_sc[valid] - exact[valid]).max())
+            assert err <= TOL_SCORE, f"{scenario} bs={bs}: scores off by {err}"
+            is_ivf = bool(probed)
+            if is_ivf:  # the oracle over the rows each call's probe scanned
+                assert all(r.startswith("ivf") for r in routes), routes
+                masks = torch.cat([probed[a][None].expand(min(bs, nq - a), -1)
+                                   for a in range(0, nq, bs)]) & adm
+                rv, ri = oracle_masked(torch, chunks, qdev[:nq], masks)
+            else:
+                rv, ri = ov[:nq], oi[:nq]
+            bad, hit, total = 0, 0, 0
+            for i in range(nq):
+                keep = ov[i, :10] >= (thr if thr is not None else -np.inf)
+                want = set(oi[i, :10][keep].tolist())
+                mine = set(got[i][valid[i]].tolist())
+                hit += len(mine & want)
+                total += len(want)
+                near = thr is not None and bool(
+                    (np.abs(rv[i, :11] - thr) <= TOL_SCORE).any())
+                if rv[i, 9] - rv[i, 10] > TOL_GAP and not near:
+                    rkeep = rv[i, :10] >= (thr if thr is not None else -np.inf)
+                    bad += mine != set(ri[i, :10][rkeep].tolist())
+            recall = hit / max(total, 1)
+            assert bad == 0, (f"{scenario} bs={bs}: {bad} of {nq} id sets "
+                              f"differ from the oracle outside the gap")
+            if not is_ivf:
+                assert recall >= PROFILER_RECALL, \
+                    f"{scenario} bs={bs}: recall@10 {recall} < {PROFILER_RECALL}"
+            cells.append({"db_size": n, "scenario": scenario, "batch_size": bs,
+                          "routes": sorted(set(routes)),
+                          "recall_at_10": recall, "ids_off": bad,
+                          "checked": nq, "max_abs_err": err,
+                          "oracle": ("restricted to the probed rows" if is_ivf
+                                     else "every admitted row"),
+                          "launches": launches})
+            log(f"phase 14: n={n} ({gen}) {scenario} bs={bs}: route "
+                f"{'/'.join(sorted(set(routes)))}; recall@10 {recall:.4f} "
+                f"({'over every row; ids against the probed rows' if is_ivf else 'float64 oracle'}), "
+                f"ids = oracle outside the gap on {nq - bad}/{nq}, max "
+                f"|dscore| {err:.3g}; launches {launches}; card {card}")
+    del db, unit, chunks
+    torch.cuda.empty_cache()
+    return cells
+
+
+def phase_entry_points(torch, scan, card: str) -> dict:
+    """(c) `graft_entry.entry()` on the card (one tensor-core K4 launch a
+    call, held to the same step over K4's plain version and to the float64
+    oracle, timed beside its bound and the library pair) and
+    `dryrun_multichip(4)` over cuda:i % count (launches = shards x
+    row-calls per kernel family)."""
+    from picovdb_tpu_torch import graft_entry
+
+    fn, (q, v, m) = graft_entry.entry()
+    num_q, cap, dim = q.shape[0], v.shape[0], v.shape[1]
+    before = scan.LAUNCHES["scan_topk_wgmma"]
+    vals, idxs = fn(q, v, m)
+    torch.cuda.synchronize()
+    assert scan.LAUNCHES["scan_topk_wgmma"] == before + 1, "entry missed K4"
+
+    def plain():
+        pv, pi = scan.scan_topk_plain(q, v, None, m, 14, chunk=131_072)
+        pv, pi = scan.rescore_exact(q, v, pv, pi)
+        return pv[:, :10], pi[:, :10]
+
+    pv, pi = plain()
+    err_p = float((vals - pv).abs().max())
+    assert err_p <= TOL_SCORE, f"entry vs its plain step: {err_p}"
+    ov, oi = oracle_masked(torch, [(s, v[s:s + 131_072])
+                                   for s in range(0, cap, 131_072)], q, None)
+    got = idxs.cpu().numpy()
+    gap = ov[:, 9] - ov[:, 10]
+    bad = sum(set(got[i]) != set(oi[i, :10]) for i in range(num_q)
+              if gap[i] > TOL_GAP)
+    recall = float(np.mean([len(set(got[i]) & set(oi[i, :10])) / 10
+                            for i in range(num_q)]))
+    assert bad == 0 and recall >= 0.99, (bad, recall)
+    exact = torch.einsum("qd,qkd->qk", q.double(), v[idxs.long()].double())
+    err_o = float((vals.double() - exact).abs().max())
+    assert err_o <= TOL_SCORE, f"entry vs the float64 oracle: {err_o}"
+    with uncounted(scan):
+        ms = cuda_ms(torch, lambda: fn(q, v, m))
+        plain_ms = cuda_ms(torch, plain)
+        lib_ms = cuda_ms(torch, lib_topk(torch, lambda: torch.matmul(q, v.T),
+                                         ~m, 10))
+    nbytes = cap * dim * 4 + num_q * dim * 4 + cap + num_q * 10 * 8
+    rec = entry(err_p, ms, plain_ms, nbytes,
+                *tc_ops(torch, num_q, cap, dim, torch.float32), lib_ms, LIB_K4)
+    rec["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    rec.update(recall_at_10=recall, oracle_err=err_o)
+    log(f"phase 14: graft_entry.entry() at {num_q} x {cap} x {dim} float32, "
+        f"top-10: one scan_topk_wgmma launch a call; = its plain step within "
+        f"{err_p:.3g} and the float64 oracle within {err_o:.3g} (recall@10 "
+        f"{recall:.4f}, ids outside the gap {num_q}/{num_q}); {ms:.4f} ms "
+        f"(CUDA events, median of 10), bound {rec['bound_ms']:.4f} ms by "
+        f"{rec['bound_by']} (the corpus read once: "
+        f"{rec['bytes_bound_ms']:.4f} ms), {LIB_K4} {lib_ms:.4f} ms, plain "
+        f"step {plain_ms:.4f} ms; card {card}")
+    del fn, q, v, m, vals, idxs
+    torch.cuda.empty_cache()
+
+    before = dict(scan.LAUNCHES)
+    out = graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    made = {k: scan.LAUNCHES[k] - before[k] for k in out["calls"]}
+    assert made == out["calls"], (made, out["calls"])
+    log(f"phase 14: graft_entry.dryrun_multichip(4) over "
+        f"{[str(d) for d in graft_entry.dry_run_devices(4)]} (dp "
+        f"{out['dp']} x {out['shards']} shards): the plain and kernel routes "
+        f"agree, ShardedIVF = the oracle, int8 / int4 overlap "
+        f"{out['overlap_i8']:.3f} / {out['overlap_i4']:.3f}; launches = "
+        f"shards x row-calls: {made}; card {card}")
+    return {"entry": rec, "dryrun_launches": made}
+
+
+def phase_tools(torch, scan, device, card: str) -> dict:
+    """Phase 14: (a) the four simple tools as subprocesses at the
+    reference's sizes; (b) the query profiler (`run_suite`) at 100,000
+    rows (--gen host) and 1,000,000 (--gen device), then every scenario x
+    batch size held to the float64 oracle on a store built from the same
+    seed; (c) the entry points. Launch counts are zeroed before (b) and
+    read after (c). Returns them; prints one JSON line of the numbers."""
+    from picovdb_tpu_torch.tools import query_profiler as qp
+
+    t_phase = time.perf_counter()
+    seed = SEED + 14  # the phase's own generator seeds the profiler
+    with tempfile.TemporaryDirectory(prefix="picovdb_smoke_",
+                                     dir=os.getcwd()) as work:
+        scripts = phase_tools_scripts(torch, device, work, card)
+    t_a = time.perf_counter() - t_phase
+    scan.reset_launch_counts()  # count (b) and (c)'s launches only
+    rows = []
+    for n, gen in PROFILER_STORES:
+        rows += qp.run_suite([n], DIM, PROFILER_CALLS, PROFILER_BS, 10,
+                             seed=seed, gen=gen, pipeline=PROFILER_PIPELINE,
+                             device=device)
+        torch.cuda.empty_cache()
+    for r in rows:
+        log(f"phase 14: profiler n={r['db_size']} {r['scenario']} "
+            f"bs={r['batch_size']}: route {r['strategy']}, k_eff "
+            f"{r['k_eff']}, mean {r['mean_ms']:.3f} ms, p50 "
+            + ("-" if r["p50_ms"] is None else f"{r['p50_ms']:.3f}")
+            + " ms, p95 "
+            + ("-" if r["p95_ms"] is None else f"{r['p95_ms']:.3f}")
+            + f" ms, {r['ops_per_sec']:.1f} q/s (host clock); card {card}")
+    cells = []
+    for n, gen in PROFILER_STORES:
+        cells += check_profiler_cells(torch, scan, qp, n, gen, seed, device,
+                                      card)
+    ep = phase_entry_points(torch, scan, card)
+    counts = launch_counts(scan)
+    for name in TOOLS_ROWS:
+        assert counts[KERNELS[name][0]] > 0 or name.startswith(
+            "fused_topk_i4"), f"{name} never launched in phase 14"
+    took = time.perf_counter() - t_phase
+    log(f"phase 14: launches (b) + (c) {counts}; {took:.1f} s, of which the "
+        f"four tools {t_a:.1f} s; card {card}")
+    print(json.dumps({"phase14": {
+        "card": card, "tools": scripts, "profiler": rows,
+        "profiler_checks": cells, "entry": ep["entry"],
+        "dryrun_launches": ep["dryrun_launches"],
+        "launches": {k: n for k, n in counts.items()
+                     if k != "shapes" and n},
+        "seconds": took}}), flush=True)
+    return counts
+
+
 def q64_latency_main(torch, n: int, dim: int) -> int:
     """`--q64-latency`: an n x dim int8 store with the host rescore, made
     from a generator of its own (SEED + 13), and `q64_latency` on 64 of its
@@ -4606,6 +5084,7 @@ def main() -> int:
     mp_only = sys.argv[1:] == ["--multiprocess"]
     trace_only = sys.argv[1:] == ["--trace-mesh"]
     rag_only = sys.argv[1:] == ["--rag"]
+    tools_only = sys.argv[1:] == ["--tools"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -4633,6 +5112,15 @@ def main() -> int:
             {name: {**rec[name], "rag_launches": counts[KERNELS[name][0]]}
              for name in RAG_ROWS}))
         print(card)
+        return 0
+    if tools_only:  # phase 14 alone: the tools and the entry points
+        counts = phase_tools(torch, scan, device, card)
+        log("phase 14: launches of the kernels line's rows " + json.dumps(
+            {name: counts[KERNELS[name][0]] for name in TOOLS_ROWS}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     if mp_only:  # phase 12 alone: one rank a card on two or more cards
         out = os.path.join(os.getcwd(), "traces")
@@ -4677,9 +5165,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
     counts[12] = phase_multiprocess(torch, scan, card)
+    t14 = time.perf_counter()
+    counts[14] = phase_tools(torch, scan, device, card)
     log(f"smoke wall time: {time.perf_counter() - t_start:.1f} s, of which "
         f"phases 1-10 {before_s:.1f} s, phase 13 {rag_s:.1f} s, phase 12 "
-        f"{time.perf_counter() - t12:.1f} s")
+        f"{t14 - t12:.1f} s, phase 14 {time.perf_counter() - t14:.1f} s")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4690,7 +5180,10 @@ def main() -> int:
              "mp_launches": counts[12].get(key, 0)}
             if name in MESH_ROWS else {}),
          # phase 13's launches of K1-K4 (the encoder's stores)
-         **({"rag_launches": counts[13][key]} if name in RAG_ROWS else {})}
+         **({"rag_launches": counts[13][key]} if name in RAG_ROWS else {}),
+         # phase 14's (the profiler's stores and the entry points)
+         **({"tools_launches": counts[14][key]} if name in TOOLS_ROWS
+            else {})}
         for name, (key, src, rep, phase) in KERNELS.items()
     ]
     print(card)
