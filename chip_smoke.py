@@ -70,7 +70,11 @@ beside torch.topk at its launch shapes, and every other kernel of phase
 the product + torch.topk for K3 / K4 / K9, a gather of the probed tiles'
 rows first for K7 / K8; none for K6, whose packed nibbles no PyTorch call
 multiplies); phases 3 and 7 also time
-K4's tensor-core scan and its template at Q = 1 ... 256, and phase 4 K3's
+K4's tensor-core scan and its template at Q = 1 ... 256; phase 2 holds
+K4's wide kind (128 < k_sel <= 1024) to the plain version under a mask,
+a filter and no live row and times it beside its template, and phase 3
+serves a top_k = 200 batch and the exact retry's k_sel 1000 on it through
+the public API, each held to a float64 oracle; and phase 4 K3's
 sweep and tensor-core scan at Q = 1 ... 64 (the crossovers behind their
 ready rules). `python3 chip_smoke.py --q64-latency` times only the int8
 store's Q = 64 host-rescored batches through the public API, on a store
@@ -189,8 +193,10 @@ KERNELS = {
     # segment scan (csrc/ivf_segmax_wgmma.cu): float32 on phase 7's
     # 32-query chunks, int8 on phase 8's. K4's row is its tensor-core scan
     # (csrc/scan_topk_wgmma.cu), which serves phase 3's Q = 64 batches and
-    # phase 7's Q = 256 batch; K5's the int8 instantiation of the
-    # mainloop, which serves phase 4's chunks.
+    # phase 7's Q = 256 batch, and its wide kind (csrc/topk_wide.cu), which
+    # serves phase 3's top_k = 200 batch and its exact retry at k_sel 1000;
+    # K5's the int8 instantiation of the mainloop, which serves phase 4's
+    # chunks.
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "segmax_scan_cpasync": ("segmax_cpasync",
@@ -210,6 +216,9 @@ KERNELS = {
     "fused_topk": ("scan_topk_wgmma",
                    "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
                    "picovdb_tpu/ops/pallas_scan.py:226", 3),
+    "fused_topk_wide": ("scan_topk_wide",
+                        "picovdb_tpu_torch/csrc/topk_wide.cu",
+                        "picovdb_tpu/ops/pallas_scan.py:226", 3),
     "segmax_scan_i8": ("segmax_i8_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                        "picovdb_tpu/ops/pallas_scan.py:960", 4),
     "fused_topk_i4": ("scan_topk_i4_sweep",
@@ -328,10 +337,12 @@ def card_line() -> str:
 # The instantiations whose registers and spills phase 1 reports: the
 # mainloop's (K1, K5, K10, P1), the one-query sweep's (K9, K7, K6 and K3
 # at small Q), K6's tensor-core scan's, K8's tensor-core segment scan's,
-# K4's tensor-core scan's and K2's split-row warp select's
+# K4's tensor-core scan's (its wide kind's pass A among them), K2's
+# split-row warp select's and the wide kind's radix select's
 PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel",
                  "ivf_segmax_wgmma_kernel", "scan_topk_wgmma_kernel",
-                 "warp_select_kernel")
+                 "warp_select_kernel", "hist_kernel", "collect_kernel",
+                 "finish_kernel")
 
 
 def ptxas_report(log_path) -> str:
@@ -360,7 +371,8 @@ def ptxas_report(log_path) -> str:
         if len(out) == len(names):
             names = [n.replace("pv::<unnamed>::", "").replace("(int)", "")
                      .replace("wg::", "").replace("i4::", "").replace("sg::", "")
-                     .replace("tk::", "").removeprefix("void ")
+                     .replace("tk::", "").replace("tw::", "")
+                     .removeprefix("void ")
                      .split(">(")[0] + ">" for n in out]
     parts = [f"{n} {regs} registers / {sp} spill bytes"
              for n, (_, regs, sp) in zip(names, rows)]
@@ -754,6 +766,61 @@ def k4_launches_ok(scan, counts) -> bool:
     return counts["scan_topk_wgmma"] == want
 
 
+# The (rows, Q, k_sel) shapes phase 2 holds and times K4's wide kind at:
+# the exact retry's widest (float32 Q = 16, k_sel 1024) and batches of 64
+# at top_k 200 and 512 (k_sel 204 and 516) over the float32 rows and the
+# bf16 mirror
+K4_WIDE_SHAPES = (("float32", 16, 1024), ("float32", 64, 204),
+                  ("float32", 64, 516), ("bfloat16", 64, 204),
+                  ("bfloat16", 64, 516))
+
+
+def k4_wide_table(torch, scan, q64, corpus, lp, mask, fmask, notm):
+    """K4's wide kind at K4_WIDE_SHAPES: through the dispatch under `mask`,
+    the filter `fmask` and no live row, each held to the plain version's
+    top-(k + 1) by `k4_check`; then, under `mask`, the wide kind, the
+    template it replaces and the library pair (the product of the queries
+    as the rows' type takes them + masked_fill + torch.topk) timed on the
+    same inputs, beside the bound (the live rows' bytes, or three TF32 /
+    bf16 products). Returns ({(dtype, Q, k_sel): record}, the device split
+    of the wide kind's kernels at the first two shapes)."""
+    live, cap, dim = int(mask.sum()), mask.shape[0], corpus.shape[1]
+    none = torch.zeros_like(mask)
+    out, splits = {}, []
+    for dt, nq, ksel in K4_WIDE_SHAPES:
+        rows = corpus if dt == "float32" else lp
+        kind = scan._KIND_F32 if dt == "float32" else scan._KIND_BF16
+        q = q64[:nq]
+        err = 0.0
+        for what, msk in (("mask", mask), ("30 % filter", fmask),
+                          ("no live row", none)):
+            before = scan.LAUNCHES["scan_topk_wide"]
+            got = scan.fused_topk(q, rows, msk, ksel)
+            assert scan.LAUNCHES["scan_topk_wide"] == before + 1, (dt, nq, ksel)
+            ref = scan.scan_topk_plain(q, rows, None, msk, ksel + 1,
+                                       chunk=131_072)
+            torch.cuda.synchronize()
+            err = max(err, k4_check(torch, got, ref, msk, ksel,
+                                    f"K4 wide {dt} Q={nq} k_sel={ksel} {what}"))
+        ql = q if dt == "float32" else q.to(torch.bfloat16)
+        rec = {
+            **entry(err, cuda_ms(torch, lambda: scan._topk_wide_launch(
+                q, rows, mask, ksel)), None,
+                nq * dim * 4 + live * dim * rows.element_size() + cap
+                + nq * ksel * 8, *tc_ops(torch, nq, live, dim, rows.dtype, 3),
+                cuda_ms(torch, lib_topk(torch, lambda: torch.matmul(
+                    ql, rows.T), notm, ksel)), LIB_K4),
+            "template_ms": cuda_ms(torch, lambda: scan._template_launch(
+                q, rows, None, mask, ksel, kind), reps=3)}
+        del rec["plain_ms"], rec["library_call"]
+        assert rec["ms"] < rec["template_ms"], (dt, nq, ksel, rec)
+        out[dt, nq, ksel] = rec
+        if len(splits) < 2:
+            splits.append(f"{dt} Q={nq} k_sel={ksel} " + device_split(
+                torch, lambda: scan._topk_wide_launch(q, rows, mask, ksel)))
+    return out, "; ".join(splits)
+
+
 def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     """Each kernel against its plain version on the card, at main-path
     shapes; returns {kernel: (max_abs_err, ms, plain_ms)}."""
@@ -1075,16 +1142,26 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     k4["bfloat16 filtered", 64, 36] = times
     errs.append(err)
     pms_bf = cuda_ms(torch, lambda: scan.scan_topk_plain(q64, lp, None, mask, 36))
-    # K4's template at k_sel = 1024 (the exact retry's widest)
+    notm = ~mask
+    # K4's wide kind at k_sel = 1024 (the exact retry's widest)
     e_f32 = check_scan("fused_topk f32", q64[:16], corpus, None, mask, 1024,
                        q64[:16])
-    ms_f32 = cuda_ms(torch, lambda: scan.fused_topk(q64[:16], corpus, mask, 1024))
     pms_f32 = cuda_ms(
         torch, lambda: scan.scan_topk_plain(q64[:16], corpus, None, mask, 1024))
+    wide, split_w = k4_wide_table(torch, scan, q64, corpus, lp, mask, fmask,
+                                  notm)
+    w16 = wide["float32", 16, 1024]
+    ms_f32 = w16["ms"]
+    rec["fused_topk_wide"] = {
+        "max_abs_err": max([e_f32] + [w["max_abs_err"] for w in wide.values()]),
+        "ms": ms_f32, "plain_ms": pms_f32, "bound_ms": w16["bound_ms"],
+        "bound_by": w16["bound_by"], "library_ms": w16["library_ms"],
+        "library_call": LIB_K4,
+        "shapes": {f"{dt} Q={nq} k_sel={kk}": w
+                   for (dt, nq, kk), w in wide.items()}}
     # the library pair at the row's shape (bf16 rows: the bf16 product of
     # the bf16-rounded queries) and over the float32 rows at Q = 64, k_sel
     # 36 and Q = 1, k_sel 14 (a GEMV), each beside the kernel's time
-    notm = ~mask
     q64b = q64.to(torch.bfloat16)
     lib4 = cuda_ms(torch, lib_topk(torch, lambda: torch.matmul(q64b, lp.T),
                                    notm, 36))
@@ -1098,12 +1175,10 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             "ms": cuda_ms(torch, lambda: scan.fused_topk(q1, corpus, mask, 14)),
             "library_ms": cuda_ms(torch, lib_topk(
                 torch, lambda: torch.matmul(q1, corpus.T), notm, 14))},
-        "Q=16 k_sel=1024 (the template)": {
-            "ms": ms_f32, "library_ms": cuda_ms(torch, lib_topk(
-                torch, lambda: torch.matmul(q64[:16], corpus.T), notm,
-                1024))}}
+        "Q=16 k_sel=1024 (the wide kind)": {
+            "ms": ms_f32, "library_ms": w16["library_ms"]}}
     rec["fused_topk"] = entry(
-        max(errs + [e_f32]), k4["bfloat16", 64, 36]["tensor-core scan"], pms_bf,
+        max(errs), k4["bfloat16", 64, 36]["tensor-core scan"], pms_bf,
         64 * dim * 4 + live * dim * 2 + cap + 64 * 36 * 8,
         *tc_ops(torch, 64, live, dim, torch.bfloat16, 3), lib4, LIB_K4)
     rec["fused_topk"]["library_f32"] = lib4_f32
@@ -1122,11 +1197,19 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             + (f" (bound {bounds4[dt, nq4]:.4f} at k_sel 36)"
                if (dt, nq4) in bounds4 else "")
             for (dt, nq4, ksel), times in k4.items())
-        + f"; plain bf16 Q=64 k_sel=36 {pms_bf:.4f}; the template at f32 Q=16 "
-        f"k_sel=1024 {ms_f32:.4f} ms (plain {pms_f32:.4f}); {LIB_K4}: bf16 "
+        + f"; plain bf16 Q=64 k_sel=36 {pms_bf:.4f}; {LIB_K4}: bf16 "
         f"Q=64 k_sel=36 {lib4:.4f}, " + ", ".join(
             f"float32 {shape} {t['library_ms']:.4f} (K4 {t['ms']:.4f})"
             for shape, t in lib4_f32.items()))
+    log(f"phase 2: K4 fused_topk (wide kind) = plain under the ~10 % mask, a "
+        f"30 % filter and no live row (scores within {TOL_SCORE:g}, ids "
+        f"outside the gap; each shape: the wide kind, the template it "
+        f"replaces, {LIB_K4}, bound, ms): " + "; ".join(
+            f"{shape}: {w['ms']:.4f} / template {w['template_ms']:.4f} / "
+            f"library {w['library_ms']:.4f} / bound {w['bound_ms']:.4f} "
+            f"({w['bound_by']})"
+            for shape, w in rec["fused_topk_wide"]["shapes"].items())
+        + f"; plain at f32 Q=16 k_sel=1024 {pms_f32:.4f}; {split_w}")
 
     # K6 over the packed int4 rows at k_sel = 14 (i4stor_fused at k = 10):
     # Q = 1, 8, 16 and Q = 2048 (a query_columnar batch), the dispatch and
@@ -1432,13 +1515,14 @@ def check_k8_keys(torch, scan, keys, ref, exact: bool, what: str) -> float:
     return err
 
 
-def oracle_top10(torch, corpus_dev, queries_dev, live_rows):
-    """Float64 top-10 rows per query over the live rows, on the card."""
+def oracle_topk(torch, corpus_dev, queries_dev, live_rows, kk: int):
+    """Float64 top-kk (scores, rows) per query over the live rows, on the
+    card, 131,072 rows at a time."""
     q = queries_dev.double()
     q = q / q.norm(dim=1, keepdim=True)
-    best_v = torch.full((q.shape[0], 10), float("-inf"), dtype=torch.float64,
+    best_v = torch.full((q.shape[0], kk), float("-inf"), dtype=torch.float64,
                         device=q.device)
-    best_i = torch.zeros((q.shape[0], 10), dtype=torch.int64, device=q.device)
+    best_i = torch.zeros((q.shape[0], kk), dtype=torch.int64, device=q.device)
     step = 131_072
     for s in range(0, corpus_dev.shape[0], step):
         sc = q @ corpus_dev[s:s + step].double().T
@@ -1446,9 +1530,124 @@ def oracle_top10(torch, corpus_dev, queries_dev, live_rows):
         v, i = torch.cat([best_v, sc], 1), torch.cat(
             [best_i, torch.arange(s, s + sc.shape[1], device=q.device)
              .expand(q.shape[0], -1)], 1)
-        best_v, pos = torch.topk(v, 10, dim=1)
+        best_v, pos = torch.topk(v, kk, dim=1)
         best_i = torch.gather(i, 1, pos)
-    return best_i.cpu().numpy()
+    return best_v, best_i
+
+
+def oracle_top10(torch, corpus_dev, queries_dev, live_rows):
+    """Float64 top-10 rows per query over the live rows, on the card."""
+    return oracle_topk(torch, corpus_dev, queries_dev, live_rows,
+                       10)[1].cpu().numpy()
+
+
+def wide_vs_oracle(torch, corpus_dev, queries_dev, rows, scores, k: int,
+                   what: str) -> str:
+    """An answer of k rows a query (`rows` (Q, k) int, `scores` (Q, k))
+    against the float64 oracle over every row: k distinct rows, each score
+    within TOL_SCORE of its row's float64 score, and the oracle's id set
+    wherever its k-th / (k + 1)-th gap exceeds TOL_GAP. Returns a summary."""
+    live = torch.ones(corpus_dev.shape[0], dtype=torch.bool,
+                      device=corpus_dev.device)
+    ov, oi = oracle_topk(torch, corpus_dev, queries_dev, live, k + 1)
+    got = torch.as_tensor(np.asarray(rows, dtype=np.int64),
+                          device=corpus_dev.device)
+    assert got.shape == (queries_dev.shape[0], k), (what, got.shape)
+    assert bool((torch.sort(got, 1).values.diff(dim=1) > 0).all()), what
+    q = queries_dev.double()
+    q = q / q.norm(dim=1, keepdim=True)
+    exact = torch.einsum("qd,qkd->qk", q, corpus_dev[got].double())
+    err = float((torch.as_tensor(np.asarray(scores, dtype=np.float64),
+                                 device=q.device) - exact).abs().max())
+    assert err <= TOL_SCORE, f"{what}: scores off their rows' by {err}"
+    wide = (ov[:, k - 1] - ov[:, k]) > TOL_GAP
+    same = (torch.sort(got, 1).values == torch.sort(oi[:, :k], 1).values
+            ).all(dim=1)
+    assert bool((same | ~wide).all()), (
+        f"{what}: ids differ from the oracle on {int((wide & ~same).sum())}")
+    return (f"{what}: scores within {err:.3g} of their rows', ids = the "
+            f"oracle on {int(same.sum())}/{got.shape[0]} ({int(wide.sum())} "
+            f"gaps over {TOL_GAP:g})")
+
+
+def phase_main_wide(torch, scan, db, corpus_dev, device) -> str:
+    """K4's wide kind through the public API on phase 3's store: a batch
+    of 64 queries at top_k = 200 (`mixed_fused_batch`, k_sel 204 over the
+    bf16 mirror) and, under the engine's read lock, 16 of them at k = 996
+    through `DeviceIndex.query_exact_snapshot` (the engine's exact retry:
+    k_sel 1000 over the float32 rows). The queries are rows plus noise
+    from a generator of their own (SEED + 3), so the later phases' data
+    stay what they were; each answer is held to the float64 oracle."""
+    from picovdb_tpu_torch import K_METRICS
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    g = np.random.default_rng(SEED + 3)
+    n = corpus_dev.shape[0]
+    near = corpus_dev[torch.from_numpy(g.integers(0, n, 64)).to(device)]
+    qw = near + 0.01 * torch.from_numpy(
+        g.standard_normal(tuple(near.shape), dtype=np.float32)).to(device)
+    dev = db._dev
+    routes = []  # (route, wide launches) of each DeviceIndex.query call
+
+    def tap(*args, **kwargs):
+        before = scan.LAUNCHES["scan_topk_wide"]
+        out = type(dev).query(dev, *args, **kwargs)
+        routes.append((dev.last_strategy,
+                       scan.LAUNCHES["scan_topk_wide"] - before))
+        return out
+
+    dev.query = tap
+    try:
+        res = db.query(qw.cpu().numpy(), top_k=200)
+    finally:
+        del dev.query
+    # the batch route over the bf16 mirror, then, where its crowding mark
+    # fired, the engine's exact retry of the batch over the float32 rows
+    # (`pallas_fused`, force_exact): both on the wide kind
+    assert routes[0] == ("mixed_fused_batch", 1), routes
+    assert routes[1:] in ([], [("pallas_fused", 1)]), routes
+    line = wide_vs_oracle(
+        torch, corpus_dev, qw, [[int(h["_id_"][1:]) for h in hits]
+                                for hits in res],
+        [[h[K_METRICS] for h in hits] for hits in res], 200,
+        "top_k=200 (routes " + ", ".join(r for r, _ in routes) + ")")
+    before = scan.LAUNCHES["scan_topk_wide"]
+    with db._rwlock.read_lock():
+        vals, slots = dev.query_exact_snapshot(
+            dev.snapshot(), normalize_on_device(qw[:16]), 996)
+    assert scan.LAUNCHES["scan_topk_wide"] == before + 1, "retry missed K4 wide"
+    line += "; " + wide_vs_oracle(
+        torch, corpus_dev, qw[:16], slots, vals, 996,
+        "query_exact_snapshot k=996 (k_sel 1000, float32 rows)")
+    # where the time goes (uncounted: not the path's launches): the
+    # batch's call, host-inclusive, and the wide kind alone at the two
+    # shapes on the store's own planes beside the library pair and bound
+    qh = qw.cpu().numpy()
+    with uncounted(scan):
+        call_ms = cuda_ms(torch, lambda: db.query(qh, top_k=200), reps=5)
+        qn = normalize_on_device(qw)
+        live, dim = int(dev.active.sum()), qw.shape[1]
+        parts = []
+        for rows, nq, ksel in ((dev.vectors_lp, 64, 204),
+                               (dev.vectors, 16, 1000)):
+            q = qn[:nq].contiguous()
+            ql = q.to(rows.dtype)
+            rec = entry(0.0, cuda_ms(torch, lambda: scan._topk_wide_launch(
+                q, rows, dev.active, ksel)), None,
+                nq * dim * 4 + live * dim * rows.element_size()
+                + dev.active.shape[0] + nq * ksel * 8,
+                *tc_ops(torch, nq, live, dim, rows.dtype, 3),
+                cuda_ms(torch, lib_topk(torch, lambda: torch.matmul(
+                    ql, rows.T), ~dev.active, ksel)))
+            parts.append(
+                f"{str(rows.dtype)[6:]} Q={nq} k_sel={ksel} {rec['ms']:.4f} "
+                f"ms (bound {rec['bound_ms']:.4f} by {rec['bound_by']}, "
+                f"{LIB_K4} {rec['library_ms']:.4f}; " + device_split(
+                    torch, lambda: scan._topk_wide_launch(
+                        q, rows, dev.active, ksel), reps=5) + ")")
+    return (line + f"; the top_k=200 call {call_ms:.3f} ms (CUDA events "
+            f"around PicoVectorDB.query, the retry included); the wide kind "
+            f"on the store's planes: " + "; ".join(parts))
 
 
 def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
@@ -1531,6 +1730,7 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
         for i in range(64)
     ])
     assert recall >= 0.99, recall
+    wide_line = phase_main_wide(torch, scan, db, corpus_dev, device)
 
     # delete 1000 ids, re-query: none of them comes back
     gone = [f"v{i}" for i in rng.choice(n, 1000, replace=False)]
@@ -1615,9 +1815,11 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     del qb, qf, q64f, fmask
     log(f"phase 3: main path at {n} x {dim}: routes segmax_mixed_stream, "
         f"i8_fused_smallq, fview_segmax, mixed_fused_batch_filtered, "
-        f"mixed_fused_batch; recall@10 {recall:.4f} vs float64 (filter view "
+        f"mixed_fused_batch (top_k 32 and 200), the exact retry's "
+        f"query_exact_snapshot; recall@10 {recall:.4f} vs float64 (filter view "
         f"{recall_f:.4f} vs the filtered oracle); delete ok; launches "
         f"{counts}")
+    log(f"phase 3: K4's wide kind through the public API: {wide_line}")
     log(f"phase 3: K1 (wgmma) keys at Q=2048 over the store's "
         f"{dev.vectors_lp.shape[0]}-row mirror agree with the plain version "
         f"(max |dkey value| {err1:.3g}, KEY_MIN pattern equal, K2 + rescored "

@@ -7,9 +7,11 @@
 // wherever TMA can read the rows and k <= 128 (ops/scan.py::
 // topk_wgmma_ready), and pallas_scan.py:fused_topk_i8 (`_scan_kernel_i8`)
 // at batches past the one-query sweep's limit wherever TMA can read both
-// operands and k <= 384 (ops/scan.py::i8_wgmma_ready); scan_topk.cu's
-// template keeps wider k (the exact retry up to k_sel 1024) and other
-// widths. It computes pv_scan_topk's kinds 0, 1 and 2: per query the k
+// operands and k <= 384 (ops/scan.py::i8_wgmma_ready). K4 at 128 < k <=
+// 1024 runs topk_wide.cu, whose pass A is this scan with a slab epilogue
+// (BUF 0: every live segment's keys written, nothing selected here);
+// scan_topk.cu's template keeps other widths. It computes pv_scan_topk's
+// kinds 0, 1 and 2: per query the k
 // best masked rows by the float32 score (q . v; for int8 rows
 // float32(int32 q . v) * vscale[row], one conversion and one multiply), as
 // (Q, k) float32 scores (-inf where a slot is empty) and (Q, k) int32 rows
@@ -230,7 +232,12 @@ __device__ __forceinline__ void retire(float (&part)[A], float (&acc)[A],
 // .. tq2: of the query planes (Q, dim), boxes of 128 bytes x N rows (F32
 // reads two, Int8R one); all 128B-swizzled. mask (cap,) uint8; vscale
 // (cap,) float32, Int8R's row scales. `partial` receives, per query of
-// this CTA's tile, k keys at ((q * ranges + range) * k).
+// this CTA's tile, k keys at ((q * ranges + range) * k). BUF == 0 (the
+// wide kind's pass A, topk_wide.cu) keeps no selection: `partial` is then
+// the slab, (Q, ld) uint32 with ld = cap rounded up to whole segments,
+// and every row below cap of a live segment gets its sortable score key
+// float_order(s) at (q * ld + row), whatever its mask byte (the readers
+// of the slab read the mask); rows of dead segments are not written.
 template <class T, int N, int S, int BUF>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
@@ -361,67 +368,87 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
     }
     n += k_iters;
 
-    // epilogue: admit, and compact + re-admit while an admission failed.
-    // pend bit 4 j + 2 h + e: a live (row, query) not yet admitted or
-    // dropped
-    uint32_t pend = 0;
+    if constexpr (BUF == 0) {  // the wide kind's slab: every key, no select
+      uint32_t* slab = reinterpret_cast<uint32_t*>(partial);
+      const long ld = segs * ROWS;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long r = r0 + m0 + 8 * h;  // the thread's row h
-      if (r < cap && mask[r])
+      for (int h = 0; h < 2; ++h) {
+        const long r = r0 + m0 + 8 * h;
+        if (r < cap)
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if ((qlive >> (2 * j + e)) & 1u)
+                slab[(long)(q0 + 8 * j + 2 * (lane % 4) + e) * ld + r] =
+                    float_order(acc[4 * j + 2 * h + e]);
+      }
+    } else {
+      // epilogue: admit, and compact + re-admit while an admission failed.
+      // pend bit 4 j + 2 h + e: a live (row, query) not yet admitted or
+      // dropped
+      uint32_t pend = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long r = r0 + m0 + 8 * h;  // the thread's row h
+        if (r < cap && mask[r])
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              pend |= ((qlive >> (2 * j + e)) & 1u) << (4 * j + 2 * h + e);
+      }
+      for (;;) {
 #pragma unroll
         for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            pend |= ((qlive >> (2 * j + e)) & 1u) << (4 * j + 2 * h + e);
-    }
-    for (;;) {
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 4 * j + 2 * h + e;
-            if (!((pend >> i) & 1u)) continue;
-            bool keep = false;
-            const float s = acc[i];
-            if (s >= ts[2 * j + e]) {
-              const int qq = 8 * j + 2 * (lane % 4) + e;
-              const u64 key = row_key(s, (uint32_t)(r0 + m0 + 8 * h));
-              if (key > tau[qq]) {
-                const int slot = atomicAdd(&cnt[qq], 1);
-                if (slot < BUF) buf[qq * BUF + slot] = key;
-                else keep = true;
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * h + e;
+              if (!((pend >> i) & 1u)) continue;
+              bool keep = false;
+              const float s = acc[i];
+              if (s >= ts[2 * j + e]) {
+                const int qq = 8 * j + 2 * (lane % 4) + e;
+                const u64 key = row_key(s, (uint32_t)(r0 + m0 + 8 * h));
+                if (key > tau[qq]) {
+                  const int slot = atomicAdd(&cnt[qq], 1);
+                  if (slot < BUF) buf[qq * BUF + slot] = key;
+                  else keep = true;
+                }
               }
+              if (!keep) pend &= ~(1u << i);
             }
-            if (!keep) pend &= ~(1u << i);
-          }
-      if (!ws::any_of(pend != 0, CONSUMER_BAR, CONSUMERS)) break;
-      ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+        if (!ws::any_of(pend != 0, CONSUMER_BAR, CONSUMERS)) break;
+        ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
 #pragma unroll
-      for (int t = 0; t < N / 4; ++t)
-        ts[t] = row_key_score(tau[8 * (t / 2) + 2 * (lane % 4) + t % 2]);
+        for (int t = 0; t < N / 4; ++t)
+          ts[t] = row_key_score(tau[8 * (t / 2) + 2 * (lane % 4) + t % 2]);
+      }
     }
   }
-  ws::named_sync(CONSUMER_BAR, CONSUMERS);
-  ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
-  for (int i = threadIdx.x; i < N * k; i += CONSUMERS) {
-    const int qq = i / k, j = i % k;
-    if (q0 + qq < Q)
-      partial[((long)(q0 + qq) * ranges + range) * k + j] = buf[qq * BUF + j];
+  if constexpr (BUF > 0) {
+    ws::named_sync(CONSUMER_BAR, CONSUMERS);
+    ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+    for (int i = threadIdx.x; i < N * k; i += CONSUMERS) {
+      const int qq = i / k, j = i % k;
+      if (q0 + qq < Q)
+        partial[((long)(q0 + qq) * ranges + range) * k + j] = buf[qq * BUF + j];
+    }
   }
 }
 
 // Encodes the maps, sizes the grid (ops/scan.py::topk_wgmma_partition at
-// a query tile of N), launches the scan with S stages and BUF keys a
-// query, then the merge. `planes` holds T::PLANES query planes of (Q, dim)
-// back to back.
+// a query tile of N) and launches the scan with S stages and BUF keys a
+// query; `*ranges` receives the grid's segment ranges. `planes` holds
+// T::PLANES query planes of (Q, dim), `plane` bytes apart.
 template <class T, int N, int S, int BUF>
-int launch(const void* planes, const void* v, const void* mask,
-           const float* vscale, void* partial, void* vals, void* idx, int Q,
-           long long cap, int dim, int k, cudaStream_t stream) {
-  if ((long long)dim * T::ELEM_BYTES % 16 ||
+int launch_scan(const void* planes, size_t plane, const void* v,
+                const void* mask, const float* vscale, void* partial, int Q,
+                long long cap, int dim, int k, int* ranges_out,
+                cudaStream_t stream) {
+  if ((long long)dim * T::ELEM_BYTES % 16 || plane % 16 ||
       ((uintptr_t)planes | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
   wg::EncodeTiled enc;
@@ -430,7 +457,6 @@ int launch(const void* planes, const void* v, const void* mask,
   CUtensorMap tv{}, tq[3]{};
   if (cap > 0 && (err = wg::encode_rows<T>(enc, &tv, v, cap, dim, ROWS)))
     return err;
-  const size_t plane = (size_t)Q * dim * T::ELEM_BYTES;  // bytes of a plane
   for (int p = 0; p < 3; ++p) {
     const int pp = p < T::PLANES ? p : 0;  // F32 reads two, Int8R one
     if ((err = wg::encode_rows<T>(
@@ -458,14 +484,57 @@ int launch(const void* planes, const void* v, const void* mask,
       <<<q_tiles * ranges, THREADS, smem, stream>>>(
           tv, tq[0], tq[1], tq[2], static_cast<const uint8_t*>(mask), vscale,
           part, Q, (long)cap, k, q_tiles, ranges, k_iters);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  return (int)launch_topk_merge(part, static_cast<float*>(vals),
+  *ranges_out = ranges;
+  return (int)cudaGetLastError();
+}
+
+// launch_scan with its planes back to back, then the merge of the
+// ranges' partials.
+template <class T, int N, int S, int BUF>
+int launch(const void* planes, const void* v, const void* mask,
+           const float* vscale, void* partial, void* vals, void* idx, int Q,
+           long long cap, int dim, int k, cudaStream_t stream) {
+  int ranges = 0;
+  const int err = launch_scan<T, N, S, BUF>(
+      planes, (size_t)Q * dim * T::ELEM_BYTES, v, mask, vscale, partial, Q,
+      cap, dim, k, &ranges, stream);
+  if (err) return err;
+  return (int)launch_topk_merge(static_cast<u64*>(partial),
+                                static_cast<float*>(vals),
                                 static_cast<int*>(idx), Q, ranges * k, k,
                                 stream, false);
 }
 
 }  // namespace tk
 }  // namespace
+
+// The wide kind's pass A (topk_wide.cu): the scan with the slab epilogue
+// (BUF 0) and four stages, N = 32 queries a CTA at Q <= 32 (half the
+// operand reads and products of N = 64, whose tile would be at least half
+// empty), else 64. kind 0: float32 rows, planes hi and lo; 1: bf16 rows,
+// three bf16 planes; `plane` bytes apart.
+int launch_scan_slab(int kind, const void* planes, size_t plane,
+                     const void* v, const void* mask, uint32_t* slab, int Q,
+                     long long cap, int dim, cudaStream_t stream) {
+  using namespace tk;
+  int ranges = 0;
+  if (kind == 0)
+    return Q <= 32 ? launch_scan<F32, 32, 4, 0>(planes, plane, v, mask,
+                                                nullptr, slab, Q, cap, dim, 0,
+                                                &ranges, stream)
+                   : launch_scan<F32, 64, 4, 0>(planes, plane, v, mask,
+                                                nullptr, slab, Q, cap, dim, 0,
+                                                &ranges, stream);
+  if (kind == 1)
+    return Q <= 32 ? launch_scan<Bf16, 32, 4, 0>(planes, plane, v, mask,
+                                                 nullptr, slab, Q, cap, dim, 0,
+                                                 &ranges, stream)
+                   : launch_scan<Bf16, 64, 4, 0>(planes, plane, v, mask,
+                                                 nullptr, slab, Q, cap, dim, 0,
+                                                 &ranges, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace pv
 
 // K4 on the tensor cores: pv_scan_topk's kinds 0 and 1 for k <= 128, rows

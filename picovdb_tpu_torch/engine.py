@@ -54,6 +54,7 @@ import itertools
 import logging
 import os
 import warnings
+import weakref
 from typing import Any, Callable, Literal, Optional, Union
 
 import numpy as np
@@ -148,6 +149,10 @@ class PicoVectorDB:
 
         # host-authoritative parallel state ----------------------------------
         self._host_vectors: np.ndarray = np.empty((0, self.dim), dtype=Float)
+        # single-row appends grow a backing array whose first n rows
+        # `_host_vectors` views (`_append_host_rows`)
+        self._host_backing: Optional[weakref.ref] = None
+        self._host_growths = 0
         # A device-born store (`ingest_device`) or a quantized checkpoint
         # leaves the host matrix unmaterialized: row mutations land in
         # `_host_overlay` (slot -> exact f32 row; zeros for deletions),
@@ -863,9 +868,11 @@ class PicoVectorDB:
                         "large datasets, consider pre-allocating capacity "
                         "or using a different growth strategy."
                     )
-                self._host_vectors = to_c_f32(
-                    np.vstack([self._host_vectors, stacked])
-                )
+                    self._host_vectors = to_c_f32(
+                        np.vstack([self._host_vectors, stacked])
+                    )
+                else:
+                    self._append_host_rows(stacked)
             start = n_slots
             self._ids.extend(new_ids)
             self._docs.extend(new_docs)
@@ -1016,6 +1023,25 @@ class PicoVectorDB:
             # device-born mirror current and uploads nothing
             self._dirty = self._ann_build_due()
             return {"update": [], "insert": list(ids)}
+
+    def _append_host_rows(self, rows: np.ndarray) -> None:
+        """Append rows to the in-memory host matrix in O(rows) amortized:
+        `_host_vectors` is the view of the first n rows of a backing array
+        whose capacity doubles when it fills (`_host_growths` counts the
+        reallocations: log2 of the rows a store grew by). A matrix set any
+        other way (adopted, loaded, compacted) is copied into a fresh
+        backing array at its first append, never written past its end."""
+        n, m = self._host_vectors.shape[0], rows.shape[0]
+        buf = self._host_backing() if self._host_backing else None
+        if (buf is None or self._host_vectors.base is not buf
+                or n + m > buf.shape[0]):
+            buf = np.empty((max(2 * (n + m), 16), self.dim), dtype=Float)
+            buf[:n] = self._host_vectors
+            # weak: a matrix set another way frees the old backing array
+            self._host_backing = weakref.ref(buf)
+            self._host_growths += 1
+        buf[n:n + m] = rows
+        self._host_vectors = buf[:n + m]
 
     def _write_host_row(self, idx: int, row: np.ndarray) -> None:
         """Record one mutated host row: lazy stores keep the exact f32 row

@@ -76,6 +76,12 @@ _SIGNATURES = {
     # cap, dim, k, stream (K4's tensor-core scan: k <= 128, rows of whole
     # 16 bytes; served at Q >= scan.TOPK_WGMMA_Q_MIN)
     "pv_scan_topk_wgmma": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+    # kind (0 f32, 1 bf16), q, v, mask, scratch, vals, idx, Q, cap, dim, k,
+    # q_tile, scratch bytes, stream (K4's wide kind: k <= 1024, rows of
+    # whole 16 bytes, a 4-byte aligned mask; served at 128 < k,
+    # scan.topk_wide_ready)
+    "pv_scan_topk_wide": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L,
+                          _P],
     # q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream (K3's
     # tensor-core scan: k <= 384, dim % 16 == 0; served at Q >
     # scan.I8_SWEEP_Q_MAX)

@@ -17,7 +17,10 @@ kernels those paths run:
                         csrc/scan_topk_wgmma.cu, see `i8_wgmma_ready`)
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
                         (k <= 128: csrc/scan_topk_wgmma.cu,
-                        see `topk_wgmma_ready`)
+                        see `topk_wgmma_ready`; 128 < k <= 1024: the
+                        wide kind, csrc/topk_wide.cu, see
+                        `topk_wide_ready`: that scan writing a slab of
+                        score keys, then a radix select a query)
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
                         (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`)
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
@@ -71,7 +74,9 @@ SEG = 128  # rows per segmax segment
 # counts every K10 launch), "segmax_i8_wgmma" K5's ("segmax_i8" every K5
 # launch).
 # "scan_topk" counts every K4 launch, "scan_topk_wgmma" those of its
-# tensor-core scan (`topk_wgmma_ready`). "scan_topk_i8c" counts every K9
+# tensor-core scan (`topk_wgmma_ready`), "scan_topk_wide" those of its wide
+# kind (`topk_wide_ready`: the slab pass and the radix select, one call).
+# "scan_topk_i8c" counts every K9
 # launch, "scan_topk_i8c_sweep" those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
 # K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
 # `ivf_sweep_ready`); "scan_topk_i4" every K6 launch, "scan_topk_i4_sweep"
@@ -84,6 +89,7 @@ SEG = 128  # rows per segmax segment
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "segmax_realign": 0,
             "topk_keys": 0, "scan_topk": 0, "scan_topk_wgmma": 0,
+            "scan_topk_wide": 0,
             "scan_topk_i8": 0, "scan_topk_i8_sweep": 0,
             "scan_topk_i8_wgmma": 0, "segmax_i8": 0,
             "segmax_i8_wgmma": 0,
@@ -738,6 +744,9 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     elif kind in (_KIND_F32, _KIND_BF16) and topk_wgmma_ready(q, vectors, k):
         vals, idx = _topk_wgmma_launch(q, vectors, mask, k, name)
         LAUNCHES["scan_topk_wgmma"] += 1
+    elif kind in (_KIND_F32, _KIND_BF16) and topk_wide_ready(q, vectors, k):
+        vals, idx = _topk_wide_launch(q, vectors, mask, k, name)
+        LAUNCHES["scan_topk_wide"] += 1
     else:
         vals, idx = _template_launch(q, vectors, vscale, mask, k, kind, name)
     _count(name, num_q, k)
@@ -836,6 +845,29 @@ def _topk_wgmma_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
     return vals, idx
 
 
+def _topk_wide_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
+    """K4's wide kind (csrc/topk_wide.cu) on checked CUDA operands,
+    uncounted: one library call splits the float32 queries into the
+    planes the rows' kind multiplies (as `split_tf32` / `split_bf16`), then,
+    a tile of `topk_wide_tile` queries at a time, runs the scan writing the
+    slab and the radix select over it, in one scratch buffer
+    (`topk_wide_scratch`); a mask view not 4-byte aligned is copied."""
+    num_q, dim = q.shape
+    cap = vectors.shape[0]
+    kind = _KIND_F32 if vectors.dtype == torch.float32 else _KIND_BF16
+    q_tile = topk_wide_tile(num_q, cap)
+    nbytes = topk_wide_scratch(num_q, cap, dim, kind, q_tile)
+    if mask.data_ptr() % 4:
+        mask = mask.clone()
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
+    vals, idx = _outputs(num_q, k, q.device)
+    _launch(q, name, "pv_scan_topk_wide", kind, q.data_ptr(),
+            vectors.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, q_tile,
+            nbytes)
+    return vals, idx
+
+
 def _i8_wgmma_launch(q, v_i8, vscale, mask, k: int,
                      name: str = "scan_topk_i8"):
     """K3's tensor-core scan (csrc/scan_topk_wgmma.cu, the int8 kind) on
@@ -893,13 +925,20 @@ def topk_wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor,
     float32 or bf16 rows (float32 queries), k <= 128, rows of whole 16
     bytes (float32 dim % 4 == 0, bf16 dim % 8 == 0), a 16-byte aligned
     base of the rows (the query planes are the launcher's own), and Q >=
-    TOPK_WGMMA_Q_MIN. Other shapes keep the template, `pv_scan_topk`
-    kinds 0 and 1."""
-    num_q, dim = queries.shape
+    TOPK_WGMMA_Q_MIN. Wider k takes `topk_wide_ready`'s kind, other
+    shapes the template, `pv_scan_topk` kinds 0 and 1."""
+    return (_k4_rows_ready(queries, vectors) and k <= TOPK_WGMMA_K_MAX
+            and queries.shape[0] >= TOPK_WGMMA_Q_MIN)
+
+
+def _k4_rows_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    """What K4's tensor-core mainloop reads by TMA: float32 or bf16 rows
+    of whole 16 bytes (float32 dim % 4 == 0, bf16 dim % 8 == 0) at a
+    16-byte aligned base, against float32 queries."""
     words = {torch.float32: 4, torch.bfloat16: 8}.get(vectors.dtype)
     return (words is not None and queries.dtype == torch.float32
-            and k <= TOPK_WGMMA_K_MAX and dim % words == 0
-            and vectors.data_ptr() % 16 == 0 and num_q >= TOPK_WGMMA_Q_MIN)
+            and queries.shape[1] % words == 0
+            and vectors.data_ptr() % 16 == 0)
 
 
 def topk_wgmma_partition(num_q: int, cap: int, sms: int,
@@ -914,6 +953,59 @@ def topk_wgmma_partition(num_q: int, cap: int, sms: int,
     q_tiles = -(-num_q // qtile)
     segs = max(1, -(-cap // SEG))
     return q_tiles, max(1, min(segs, sms // q_tiles))
+
+
+# K4's wide kind (csrc/topk_wide.cu): the tensor-core scan (32 or 64
+# queries a CTA) writes each live row's score key to a slab of q_tile x cap
+# uint32,
+# then a radix select a query reads it: three digit histograms of 2,048
+# bins (+ a candidate count) a query, and at most TOPK_WIDE_CAP candidates
+# a query sorted in one CTA's shared memory (the kernel's CAP)
+TOPK_WIDE_CAP = 8192
+TOPK_WIDE_HIST = 3 * 2048 + 4
+TOPK_WIDE_SLAB_BYTES = 256 << 20  # the slab's budget, as _scan_chunk's
+TOPK_WIDE_QTILE_MAX = 256  # queries a tile: bounds the candidates' 16 MiB
+
+
+def topk_wide_ready(queries: torch.Tensor, vectors: torch.Tensor,
+                    k: int) -> bool:
+    """Whether K4 runs its wide kind on these contiguous operands: float32
+    or bf16 rows (float32 queries), 128 < k <= SCAN_KSEL_MAX, rows of whole
+    16 bytes (float32 dim % 4 == 0, bf16 dim % 8 == 0), a 16-byte aligned
+    base of the rows, and one query's slab (cap rounded up to 128 rows, 4
+    bytes a row) within TOPK_WIDE_SLAB_BYTES (cap up to 64M rows). Other
+    shapes keep the template, `pv_scan_topk` kinds 0 and 1."""
+    ld = -(-vectors.shape[0] // SEG) * SEG
+    return (_k4_rows_ready(queries, vectors)
+            and TOPK_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
+            and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
+
+
+def topk_wide_scratch(num_q: int, cap: int, dim: int, kind: int,
+                      q_tile: int) -> int:
+    """Bytes of the wide kind's scratch, as csrc/topk_wide.cu lays it out:
+    the query planes (float32 hi and lo, or three bf16), then one tile's
+    slab (q_tile x cap rounded up to 128, uint32), histograms (q_tile x
+    TOPK_WIDE_HIST uint32) and candidates (q_tile x TOPK_WIDE_CAP uint64),
+    each from a 256-byte boundary."""
+    def up(b):
+        return -(-b // 256) * 256
+    per = 8 if kind == _KIND_F32 else 6  # plane bytes an element
+    return (up(num_q * dim * per) + up(q_tile * (-(-cap // SEG) * SEG) * 4)
+            + up(q_tile * TOPK_WIDE_HIST * 4) + q_tile * TOPK_WIDE_CAP * 8)
+
+
+def topk_wide_tile(num_q: int, cap: int) -> int:
+    """Queries the wide kind serves at a time over `cap` rows: as many as
+    keep the slab (q_tile x cap rounded up to 128, 4 bytes each) within
+    TOPK_WIDE_SLAB_BYTES, at most TOPK_WIDE_QTILE_MAX, and whole 64-query
+    tiles of the scan where a tile holds 64 or more and the batch does not
+    fit one (Q = 64 over 1M rows: one tile, the corpus read once)."""
+    per_q = 4 * (-(-cap // SEG) * SEG)
+    t = min(num_q, TOPK_WIDE_QTILE_MAX, max(1, TOPK_WIDE_SLAB_BYTES // per_q))
+    if TOPK_WGMMA_QTILE <= t < num_q:
+        t -= t % TOPK_WGMMA_QTILE
+    return t
 
 
 # The one-query sweep of K9 and K7 (csrc/sweep_topk.cu): its shapes and

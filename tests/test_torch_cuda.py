@@ -1076,8 +1076,9 @@ def test_fused_topk_wgmma_repeated_launches_agree(dev):
 
 
 def test_fused_topk_wgmma_ready_edges(dev):
-    """k 129, a row stride off 16 bytes and a misaligned view take the
-    template; all agree with the plain version."""
+    """k 129 (the wide kind), a row stride off 16 bytes and a misaligned
+    view (the template) miss the tensor-core scan; all agree with the
+    plain version."""
     q, v, mask = _k4_case(dev, "f32", 4224, 96, 64, seed=2)
     assert scan.topk_wgmma_ready(q, v, 128)
     assert not scan.topk_wgmma_ready(q, v, 129)

@@ -261,8 +261,9 @@ def test_topk_wgmma_ready_edges(monkeypatch, dtype, words, ragged, offset):
 def test_k4_dispatch_by_topk_wgmma_ready(recorded, dtype, dim, k, nq, tc):
     """K4 takes the tensor-core scan where `topk_wgmma_ready` holds (the
     query planes: hi and lo for float32 rows, three bf16 for bf16 rows),
-    the template otherwise; "scan_topk" counts both, "scan_topk_wgmma"
-    the scan, LAUNCH_SHAPES splits them by (Q, k)."""
+    the wide kind where `topk_wide_ready` does (k 129), the template
+    otherwise; "scan_topk" counts all, "scan_topk_wgmma" the scan,
+    "scan_topk_wide" the wide kind, LAUNCH_SHAPES splits them by (Q, k)."""
     cap = 4 * SEG + 64
     q = torch.randn(nq, dim)
     v = torch.zeros(cap, dim, dtype=dtype)
@@ -278,8 +279,11 @@ def test_k4_dispatch_by_topk_wgmma_ready(recorded, dtype, dim, k, nq, tc):
         assert args[0] == kind
         assert args[7:] == (nq, cap, dim, k)
     else:
-        assert entry == "pv_scan_topk"
+        wide = tscan.topk_wide_ready(q, v, k)
+        assert entry == ("pv_scan_topk_wide" if wide else "pv_scan_topk")
         assert args[0] == (0 if dtype == torch.float32 else 1)
+        assert tscan.LAUNCHES["scan_topk_wide"] == (
+            before["scan_topk_wide"] + wide)
     assert tscan.LAUNCHES["scan_topk"] == before["scan_topk"] + 1
     assert tscan.LAUNCHES["scan_topk_wgmma"] == before["scan_topk_wgmma"] + tc
     assert tscan.LAUNCH_SHAPES["scan_topk"][nq, k] >= 1
