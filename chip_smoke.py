@@ -23,9 +23,12 @@ last the mesh stores (phase 11, its own generator): `mesh=` over four
 devices (cuda:i % count: four shards on one card, one a card on four),
 2M x 1024 float32 with K4 on every shard beside the one-device store,
 the plain sharded scan and a dp = 2 x 2 mesh; int8 / int4 storage with K3
-/ K6 on every shard and the host rescore; a clustered 2M x 1024
-index="ivf" store (ShardedIVF, K7 on every shard). Each mesh store's
-launches must equal shards x the row-calls it made. Phase 12 (its own
+/ K6 on every shard and the host rescore (its k_sel 526 band on K6's
+wide kind, csrc/topk_i4_wide.cu, held again on shard 0's own plane); a
+clustered 2M x 1024 index="ivf" store (ShardedIVF, K7 on every shard:
+its Q > 16 calls on K7's tensor-core scan, csrc/ivf_scan_wgmma.cu, held
+again on shard 0's own postings at a 512-query batch's probe). Each mesh
+store's launches must equal shards x the row-calls it made. Phase 12 (its own
 generator) serves one store across processes: the script starts its
 ranks (`--mp-rank`), one a card under NCCL on two or more cards, else two
 on cuda:0 under gloo, and every rank must pass: 12a a 2M x 1024 float32
@@ -72,7 +75,9 @@ rows first for K7 / K8; none for K6, whose packed nibbles no PyTorch call
 multiplies); phases 3 and 7 also time
 K4's tensor-core scan and its template at Q = 1 ... 256; phase 2 holds
 K4's wide kind (128 < k_sel <= 1024) to the plain version under a mask,
-a filter and no live row and times it beside its template, and phase 3
+a filter and no live row and times it beside its template, K6's wide kind
+at k_sel 526 / 1024 and K7's tensor-core scan at Q = 64 / 512 in every
+postings kind the same way (K7's also beside its library pair), and phase 3
 serves a top_k = 200 batch and the exact retry's k_sel 1000 on it through
 the public API, each held to a float64 oracle; and phase 4 K3's
 sweep and tensor-core scan at Q = 1 ... 64 (the crossovers behind their
@@ -196,7 +201,10 @@ KERNELS = {
     # phase 7's Q = 256 batch, and its wide kind (csrc/topk_wide.cu), which
     # serves phase 3's top_k = 200 batch and its exact retry at k_sel 1000;
     # K5's the int8 instantiation of the mainloop, which serves phase 4's
-    # chunks.
+    # chunks. K7's tensor-core scan (csrc/ivf_scan_wgmma.cu) serves every
+    # Q > 16 call of phase 11d's ShardedIVF, K6's wide kind
+    # (csrc/topk_i4_wide.cu) every k_sel 526 call of phase 11c's host
+    # rescore: their rows count phase 11's launches.
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "segmax_scan_cpasync": ("segmax_cpasync",
@@ -230,6 +238,12 @@ KERNELS = {
     "ivf_scan_topk": ("ivf_scan_topk_sweep",
                       "picovdb_tpu_torch/csrc/sweep_topk.cu",
                       "picovdb_tpu/ops/ivf.py:1237", 7),
+    "ivf_scan_topk_wgmma": ("ivf_scan_topk_wgmma",
+                            "picovdb_tpu_torch/csrc/ivf_scan_wgmma.cu",
+                            "picovdb_tpu/ops/ivf.py:1237", 11),
+    "fused_topk_i4_wide": ("scan_topk_i4_wide",
+                           "picovdb_tpu_torch/csrc/topk_i4_wide.cu",
+                           "picovdb_tpu/ops/pallas_scan.py:1315", 11),
     "ivf_segmax_scan": ("ivf_segmax_wgmma",
                         "picovdb_tpu_torch/csrc/ivf_segmax_wgmma.cu",
                         "picovdb_tpu/ops/ivf.py:1492", 7),
@@ -279,6 +293,8 @@ LIB_IVF_SEG = ("index_select of the probed tiles' rows + torch.matmul + "
 LIB_IVF_SEG_I8 = ("index_select of the probed tiles' rows + torch._int_mm + "
                   "torch.topk per 128-row segment")
 LIB_NONE_I4 = "none: no PyTorch call multiplies packed int4 nibbles"
+LIB_IVF_TC = ("index_select of the live hot tiles' rows + torch.matmul "
+              "(int8: torch._int_mm) + masked_fill + torch.topk")
 
 
 def lib_topk(torch, scores_fn, notmask, k: int):
@@ -336,9 +352,10 @@ def card_line() -> str:
 
 # The instantiations whose registers and spills phase 1 reports: the
 # mainloop's (K1, K5, K10, P1), the one-query sweep's (K9, K7, K6 and K3
-# at small Q), K6's tensor-core scan's, K8's tensor-core segment scan's,
-# K4's tensor-core scan's (its wide kind's pass A among them), K2's
-# split-row warp select's and the wide kind's radix select's
+# at small Q), K6's tensor-core scan's (its wide kind's pass A, BUF 0,
+# among them), K8's tensor-core segment scan's, K4's tensor-core scan's
+# (K7's at Q > 16 and K4's wide kind's pass A among them), K2's split-row
+# warp select's and the wide kinds' radix select's
 PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel",
                  "ivf_segmax_wgmma_kernel", "scan_topk_wgmma_kernel",
                  "warp_select_kernel", "hist_kernel", "collect_kernel",
@@ -372,6 +389,7 @@ def ptxas_report(log_path) -> str:
             names = [n.replace("pv::<unnamed>::", "").replace("(int)", "")
                      .replace("wg::", "").replace("i4::", "").replace("sg::", "")
                      .replace("tk::", "").replace("tw::", "")
+                     .replace("rs::", "")
                      .removeprefix("void ")
                      .split(">(")[0] + ">" for n in out]
     parts = [f"{n} {regs} registers / {sp} spill bytes"
@@ -766,6 +784,16 @@ def k4_launches_ok(scan, counts) -> bool:
     return counts["scan_topk_wgmma"] == want
 
 
+# The (Q, k_sel) shapes phase 2 holds and times K7's tensor-core scan at:
+# the float and int8 guard bands at k = 10 (k_sel 14 and 32) at 64 queries
+# (phase 11d's Q = 64 calls) and 512 (its batches)
+K7_TC_SHAPES = tuple((nq, k) for nq in (64, 512) for k in (14, 32))
+# The (Q, k_sel) shapes phase 2 holds and times K6's wide kind at: the
+# mesh's int4 host-rescore band (k + 4 x RESCORE_GUARD + SHARD_GUARD = 526
+# at k = 10) and the widest k_sel, at phase 11c's batch sizes and Q = 16
+K6_WIDE_SHAPES = tuple((nq, k) for k in (526, 1024) for nq in (1, 16, 64, 128))
+
+
 # The (rows, Q, k_sel) shapes phase 2 holds and times K4's wide kind at:
 # the exact retry's widest (float32 Q = 16, k_sel 1024) and batches of 64
 # at top_k 200 and 512 (k_sel 204 and 516) over the float32 rows and the
@@ -818,6 +846,53 @@ def k4_wide_table(torch, scan, q64, corpus, lp, mask, fmask, notm):
         if len(splits) < 2:
             splits.append(f"{dt} Q={nq} k_sel={ksel} " + device_split(
                 torch, lambda: scan._topk_wide_launch(q, rows, mask, ksel)))
+    return out, "; ".join(splits)
+
+
+def k6_wide_table(torch, scan, q, v4, vs4, mask):
+    """K6's wide kind at K6_WIDE_SHAPES over the packed rows, for the first
+    Q of the float32 queries `q` (quantized as the int4 store's routes
+    quantize them): through the dispatch (one wide launch a call) under
+    `mask` and no live row, and its template, both bit for bit the plain
+    version; then the wide kind and the template timed on the same inputs
+    beside the bound (the live rows' packed bytes and scales, or their
+    int8 operations). Returns ({(Q, k_sel): record}, the device split of
+    the wide kind's kernels at Q = 16, k_sel 1024 and Q = 128, k_sel 526:
+    pass A `scan_i4_kernel`, pass B `hist_kernel`, `collect_kernel`, the
+    finish)."""
+    live, cap, dim = int(mask.sum()), mask.shape[0], q.shape[1]
+    none = torch.zeros_like(mask)
+    out, splits = {}, []
+    for nq, ksel in K6_WIDE_SHAPES:
+        q8, _ = scan.quantize_rows_i8(q[:nq])
+        for msk in (mask, none):
+            before = scan.LAUNCHES["scan_topk_i4_wide"]
+            got = scan.fused_topk_i4(q8, v4, vs4, msk, ksel)
+            assert scan.LAUNCHES["scan_topk_i4_wide"] == before + 1, \
+                f"K6 Q={nq} k_sel={ksel} missed the wide kind"
+            tmpl = scan._template_launch(q8, v4, vs4, msk, ksel,
+                                         scan._KIND_I4)
+            ref = scan.scan_topk_plain(q8, v4, vs4, msk, ksel, int4=True)
+            torch.cuda.synchronize()
+            for what, res in (("wide kind", got), ("template", tmpl)):
+                assert torch.equal(res[0], ref[0]) and torch.equal(
+                    res[1], ref[1]), \
+                    f"K6's {what} differs from the plain version at Q={nq}"
+            if msk is mask:
+                err = exact_err(torch, got[0], ref[0])
+        rec = entry(err, cuda_ms(torch, lambda: scan._i4_wide_launch(
+            q8, v4, vs4, mask, ksel)), None,
+            nq * dim + live * (dim // 2 + 4) + cap + nq * ksel * 8,
+            2 * nq * live * dim, "int8")
+        for key in ("plain_ms", "library_ms", "library_call"):
+            del rec[key]
+        rec["template_ms"] = timed_ms(torch, lambda: scan._template_launch(
+            q8, v4, vs4, mask, ksel, scan._KIND_I4), 3)
+        rec["faster_than_template"] = rec["ms"] < rec["template_ms"]
+        out[nq, ksel] = rec
+        if (nq, ksel) in ((16, 1024), (128, 526)):
+            splits.append(f"Q={nq} k_sel={ksel} " + device_split(
+                torch, lambda: scan._i4_wide_launch(q8, v4, vs4, mask, ksel)))
     return out, "; ".join(splits)
 
 
@@ -1238,7 +1313,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     q8, _ = scan.quantize_rows_i8(q64[:16])
     errs.append(check_scan("fused_topk_i4 wide", q8, v4, vs4, mask, 1024,
                            q64[:16], int4=True))
-    ms_w = cuda_ms(torch, lambda: scan.fused_topk_i4(q8, v4, vs4, mask, 1024))
+    ms_w = cuda_ms(torch, lambda: scan._template_launch(
+        q8, v4, vs4, mask, 1024, scan._KIND_I4))
     pms_w = cuda_ms(torch, lambda: scan.scan_topk_plain(
         q8, v4, vs4, mask, 1024, int4=True))
     bound_w = entry(0.0, 0, 0, 16 * dim + live * (dim // 2 + 4) + cap
@@ -1261,6 +1337,25 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         + f"; plain {', '.join(f'{m:.4f}' for m in pms)}; template at Q=16 "
         f"k_sel=1024 {ms_w:.4f} ms (bound {bound_w:.4f}, plain {pms_w:.4f}); "
         f"at Q=1 {split6}")
+
+    # K6's wide kind at K6_WIDE_SHAPES (the queries of the K1 batch above:
+    # no new draw), held bit for bit and timed beside its template
+    wide6, split_w6 = k6_wide_table(torch, scan, q, v4, vs4, mask)
+    w6 = wide6[128, 526]  # the row's shape: 11c's most frequent launch
+    q8w, _ = scan.quantize_rows_i8(q[:128])
+    rec["fused_topk_i4_wide"] = {
+        **w6, "plain_ms": cuda_ms(torch, lambda: scan.scan_topk_plain(
+            q8w, v4, vs4, mask, 526, int4=True), reps=3),
+        "library_ms": None, "library_call": LIB_NONE_I4,
+        "shapes": {f"Q={nq} k_sel={kk}": w for (nq, kk), w in wide6.items()}}
+    log(f"phase 2: K6 fused_topk_i4 (wide kind) = plain bit for bit under the "
+        f"~10 % mask and no live row (each shape: the wide kind, the template "
+        f"it replaces, bound, ms): " + "; ".join(
+            f"Q={nq} k_sel={kk}: {w['ms']:.4f} / template "
+            f"{w['template_ms']:.4f} / bound {w['bound_ms']:.4f} "
+            f"({w['bound_by']})" for (nq, kk), w in wide6.items())
+        + f"; plain at Q=128 k_sel=526 "
+        f"{rec['fused_topk_i4_wide']['plain_ms']:.4f}; {split_w6}")
 
     # K9 over the column-scaled int8 mirror at Q = 1, 8, 16, k_sel 16
     # (i8c_fused_smallq at k = 10: guard 6). It ranks the exact int32
@@ -1409,6 +1504,78 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
     log(f"phase 2: K7 ivf_scan_topk agrees over {cap} x {dim} postings, 40 "
         f"of 64 hot tiles live (bound ms at Q=1 k_sel=14: {bounds}): "
         + "; ".join(lines))
+
+    # K7's tensor-core scan (Q > 16) at K7_TC_SHAPES in every kind, its
+    # queries from a generator of its own (no new draw from `rng`): the
+    # dispatch, the scan and the template it replaces held to the plain
+    # version as above, each timed beside the library pair on the same
+    # inputs (the live hot tiles' rows gathered, the product in the
+    # postings' type, masked_fill, torch.topk) and the bound (the live hot
+    # rows' bytes, or three TF32 / one bf16 / one int8 product)
+    q_tc = normalize_on_device(torch.from_numpy(
+        np.random.default_rng(SEED + 7).standard_normal(
+            (max(n for n, _ in K7_TC_SHAPES), dim), dtype=np.float32))
+        .to(device))
+    tc, splits7 = {}, []
+    for kind in kinds:
+        vv = kinds[kind]
+        es = vv.element_size()
+        for nq, k in K7_TC_SHAPES:
+            qs = scan_inputs(kind, q_tc[:nq])
+            before = scan.LAUNCHES["ivf_scan_topk_wgmma"]
+            vals, idx = ivf.ivf_scan_topk(qs, vv, mask, hot, n_hot, k)
+            assert scan.LAUNCHES["ivf_scan_topk_wgmma"] == before + 1, \
+                f"K7 {kind} Q={nq} k_sel={k} missed the tensor-core scan"
+            rv, ri = ivf.ivf_scan_topk_plain(qs, vv, mask, hot, n_hot, k + 1)
+            torch.cuda.synchronize()
+            what = f"K7's tensor-core scan {kind} Q={nq} k_sel={k}"
+            err = check_k7(kind, vals, idx, rv, ri, k, what)
+
+            def tmpl():
+                return ivf._ivf_template_launch(qs, vv, mask, hot, n_hot, k,
+                                                bn)
+
+            tv, ti = tmpl()
+            torch.cuda.synchronize()
+            check_k7(kind, tv, ti, rv, ri, k, f"K7's template {kind} Q={nq}")
+            if kind == "i8c":
+                def prod():
+                    return torch._int_mm(qs, vv.index_select(0, hot_idx).T
+                                         ).float()
+            else:
+                def prod():
+                    return torch.matmul(qs, vv.index_select(0, hot_idx).T)
+            rec_s = entry(
+                err, cuda_ms(torch, lambda: ivf._ivf_wgmma_launch(
+                    qs, vv, mask, hot, n_hot, k, bn)),
+                cuda_ms(torch, lambda: ivf.ivf_scan_topk_plain(
+                    qs, vv, mask, hot, n_hot, k), reps=3),
+                nq * dim * es + hot_live * dim * es + cap + nq * k * 8,
+                *tc_ops(torch, nq, hot_live, dim, vv.dtype),
+                cuda_ms(torch, lib_topk(torch, prod, hot_out, k)), None)
+            del rec_s["library_call"]
+            rec_s["template_ms"] = timed_ms(torch, tmpl, 3)
+            rec_s["faster_than_template"] = rec_s["ms"] < rec_s["template_ms"]
+            tc[f"{kind} Q={nq} k_sel={k}"] = rec_s
+            if kind == "f32" and k == 14:
+                splits7.append(f"Q={nq} " + device_split(
+                    torch, lambda: ivf._ivf_wgmma_launch(qs, vv, mask, hot,
+                                                         n_hot, k, bn)))
+    head = tc["f32 Q=512 k_sel=14"]  # the row's shape: 11d's batches
+    rec["ivf_scan_topk_wgmma"] = {
+        **head, "library_call": LIB_IVF_TC,
+        "max_abs_err": max(t["max_abs_err"] for t in tc.values()),
+        "shapes": tc}
+    log(f"phase 2: K7's tensor-core scan (ivf_scan_topk_wgmma) agrees over "
+        f"{cap} x {dim} postings, 40 of 64 hot tiles live (int8 bit for bit; "
+        f"f32 / bf16 scores within {TOL_SCORE:g}, ids outside the gap; each "
+        f"shape: the scan, the template it replaces, {LIB_IVF_TC}, plain, "
+        f"bound, ms): " + "; ".join(
+            f"{shape}: {t['ms']:.4f} / template {t['template_ms']:.4f} / "
+            f"library {t['library_ms']:.4f} / plain {t['plain_ms']:.4f} / "
+            f"bound {t['bound_ms']:.4f} ({t['bound_by']})"
+            for shape, t in tc.items())
+        + "; f32 k_sel=14 " + "; ".join(splits7))
 
     # K8 at Q = 64 with per_seg 4 and 8
     q64 = normalize_on_device(torch.from_numpy(
@@ -3184,7 +3351,12 @@ def phase_probes(torch, scan, device, card: str):
 
 # the KERNELS rows phase 11 drives on every shard: K4, K3, K6, K7
 MESH_ROWS = ("fused_topk", "fused_topk_i8", "fused_topk_i8_wgmma",
-             "fused_topk_i4", "fused_topk_i4_wgmma", "ivf_scan_topk")
+             "fused_topk_i4", "fused_topk_i4_wgmma", "ivf_scan_topk",
+             "ivf_scan_topk_wgmma", "fused_topk_i4_wide")
+# phase 11d as this script measured it while K7's template served its
+# Q > 16 calls (an H100 80GB HBM3 at 700 W): the line prints it beside
+# this run's
+TEMPLATE_11D = {"qps": 1977.6, "q64_ms": 48.5}
 MESH_N = 2_000_000  # rows of phase 11's stores (512K a shard at 4 shards)
 MESH_SHARDS = 4
 MESH_Q = 8192  # batch-served queries a store, in 2048-query chunks
@@ -3387,7 +3559,157 @@ def mesh_oracle_check(got, ov, oi, what: str, floor: float) -> str:
     return f"recall@10 {recall:.4f}"
 
 
-def phase_mesh(torch, scan, device, rng, card: str) -> dict:
+def launched_over(counts, family: str, q_min: int = 0, k_min: int = 0):
+    """Launches of `family` whose query count exceeds q_min and whose k
+    exceeds k_min, from the counts' "shapes" ("Q=64 k=14")."""
+    n = 0
+    for shape, c in counts["shapes"].get(family, {}).items():
+        q, k = (int(part.split("=")[1]) for part in shape.split())
+        n += c if q > q_min and k > k_min else 0
+    return n
+
+
+def mesh_i4_wide(torch, scan, db, counts, qdev, rec) -> str:
+    """11c's K6 launches past k_sel 128 (the host rescore's band): every one
+    on the wide kind. Then the wide kind on shard 0's own plane, scales and
+    mask at the band's k_sel and 11c's batch sizes (uncounted), bit for bit
+    the plain version and timed beside the template it replaces."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    wide = launched_over(counts, "scan_topk_i4", k_min=scan.I4_WGMMA_K_MAX)
+    assert wide > 0 and counts["scan_topk_i4_wide"] == wide, (
+        f"11c: {counts['scan_topk_i4_wide']} of {wide} K6 launches past "
+        f"k_sel 128 on the wide kind")
+    ksel = max(int(shape.split()[1][2:])
+               for shape in counts["shapes"]["scan_topk_i4"])
+    dev = db._dev
+    v4, vs, act = dev.vectors[0], dev.vstore_scale[0], dev.active[0]
+    q8, _ = scan.quantize_rows_i8(normalize_on_device(
+        qdev[:128].to(dev.shard_devices[0])))
+    live, dim = int(act.sum()), q8.shape[1]
+    shapes = {}
+    with uncounted(scan):
+        for nq in (1, 64, 128):
+            args = (q8[:nq], v4, vs, act, ksel)
+            got = scan._i4_wide_launch(*args)
+            tmpl = scan._template_launch(*args, scan._KIND_I4)
+            ref = scan.scan_topk_plain(*args, int4=True)
+            torch.cuda.synchronize()
+            for what, res in (("wide kind", got), ("template", tmpl)):
+                assert torch.equal(res[0], ref[0]) and torch.equal(
+                    res[1], ref[1]), f"11c: K6's {what} on shard 0, Q={nq}"
+            r = entry(exact_err(torch, got[0], ref[0]),
+                      cuda_ms(torch, lambda: scan._i4_wide_launch(*args)),
+                      None, nq * dim + live * (dim // 2 + 4) + act.shape[0]
+                      + nq * ksel * 8, 2 * nq * live * dim, "int8")
+            r["template_ms"] = timed_ms(torch, lambda: scan._template_launch(
+                *args, scan._KIND_I4), 3)
+            r["faster_than_template"] = r["ms"] < r["template_ms"]
+            for key in ("plain_ms", "library_ms", "library_call"):
+                del r[key]
+            shapes[f"Q={nq} k_sel={ksel}"] = r
+    if "fused_topk_i4_wide" in rec:
+        rec["fused_topk_i4_wide"]["mesh_shard"] = shapes
+    return (f"every K6 launch past k_sel 128 ({wide}) on the wide kind; on "
+            f"shard 0's own {v4.shape[0]} packed rows the wide kind = plain "
+            f"bit for bit (each shape: the wide kind, the template it "
+            f"replaces, bound, ms): " + "; ".join(
+                f"{shape}: {r['ms']:.4f} / template {r['template_ms']:.4f} / "
+                f"bound {r['bound_ms']:.4f}" for shape, r in shapes.items()))
+
+
+def mesh_k7_hold(torch, scan, tivf, x, qn, nprobe: int, k: int, rec) -> str:
+    """K7's tensor-core scan on shard 0's own postings at 11d's batch
+    sizes, each at the probe of the first Q queries of `qn` (the route's
+    own preamble), uncounted: held to the plain version (scores within
+    TOL_SCORE, ids outside the gap), as is the template it replaces, and
+    timed beside it, the library pair (the live hot tiles' rows gathered,
+    torch.matmul, masked_fill, torch.topk) and the bound; the device split
+    at Q = 512."""
+    d = x.devices[0]
+    bn = tivf.IVF_BN
+    post = x.vectors[0]
+    out = {}
+    for nq in (64, 512):
+        q = qn[:nq].to(d)
+        row_mask, hot, n_hot, _ = tivf._probe_preamble(
+            q, x.centroids[0], x.active[0], x.seg_starts[0],
+            x.cluster2tile[0], nprobe=nprobe, nlist=x.nlist,
+            g_tiles=x.g_tiles(nq, nprobe), cap_ivf=x.cap_shard,
+            n_tiles=x.n_tiles, bn=bn)
+        qs = q.to(post.dtype)
+        dim = qs.shape[1]
+
+        def tc():
+            return tivf._ivf_wgmma_launch(qs, post, row_mask, hot, n_hot, k,
+                                          bn)
+
+        def tmpl():
+            return tivf._ivf_template_launch(qs, post, row_mask, hot, n_hot,
+                                             k, bn)
+
+        def plain():
+            return tivf.ivf_scan_topk_plain(qs, post, row_mask, hot, n_hot, k)
+
+        with uncounted(scan):
+            got, tm = tc(), tmpl()
+            rv, ri = tivf.ivf_scan_topk_plain(qs, post, row_mask, hot, n_hot,
+                                              k + 1)
+            torch.cuda.synchronize()
+            err = 0.0
+            for what, (vals, idx) in (("tensor-core scan", got),
+                                      ("template", tm)):
+                assert torch.equal(torch.isneginf(vals),
+                                   torch.isneginf(rv[:, :k]))
+                fin = torch.isfinite(vals)
+                e = float((vals[fin] - rv[:, :k][fin]).abs().max())
+                assert e <= TOL_SCORE, \
+                    f"11d: K7's {what} on shard 0 at Q={nq} off by {e}"
+                assert ids_agree(torch, idx, ri, rv, k) == 0.0, \
+                    f"11d: {what} at Q={nq}"
+                err = e if what == "tensor-core scan" else err
+            nh = int(n_hot)  # read on the host for the check and bound only
+            hot_idx = (hot[:nh].long()[:, None] * bn
+                       + torch.arange(bn, device=d)).reshape(-1)
+            dead = ~row_mask[hot_idx]
+            live = int((~dead).sum())
+            r = entry(err, cuda_ms(torch, tc), timed_ms(torch, plain, 3),
+                      nq * dim * 4 + live * dim * 4 + post.shape[0]
+                      + nq * k * 8, *tc_ops(torch, nq, live, dim, post.dtype),
+                      cuda_ms(torch, lib_topk(torch, lambda: torch.matmul(
+                          qs, post.index_select(0, hot_idx).T), dead, k)),
+                      LIB_IVF_TC)
+            r.update(template_ms=timed_ms(torch, tmpl, 3), n_hot=nh,
+                     live_rows=live)
+            if nq == 512:
+                r["split"] = device_split(torch, tc)
+                # K4's tensor-core scan over as many rows, all live: the
+                # same mainloop without the hot-tile map
+                every = torch.ones(live, dtype=torch.bool, device=d)
+                r["k4_same_rows_ms"] = cuda_ms(
+                    torch, lambda: scan._topk_wgmma_launch(
+                        qs, post[:live], every, k))
+        r["faster_than_template"] = r["ms"] < r["template_ms"]
+        out[f"Q={nq} k_sel={k}"] = r
+    if "ivf_scan_topk_wgmma" in rec:
+        rec["ivf_scan_topk_wgmma"]["mesh_shard"] = out
+    return (f"on shard 0's own {post.shape[0]} x {post.shape[1]} postings "
+            f"the tensor-core scan = plain (scores within "
+            f"{max(r['max_abs_err'] for r in out.values()):.3g}, ids outside "
+            f"the gap; the template too); each shape (live hot tiles, live "
+            f"rows): the scan, the template it replaces, {LIB_IVF_TC}, plain, "
+            f"bound, ms: " + "; ".join(
+                f"{shape} ({r['n_hot']}, {r['live_rows']}): {r['ms']:.4f} / "
+                f"template {r['template_ms']:.4f} / library "
+                f"{r['library_ms']:.4f} / plain {r['plain_ms']:.4f} / bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']})"
+                for shape, r in out.items())
+            + f"; at Q=512 K4's tensor-core scan over as many rows "
+            f"{out[f'Q=512 k_sel={k}']['k4_same_rows_ms']:.4f} ms, and "
+            f"{out[f'Q=512 k_sel={k}']['split']}")
+
+
+def phase_mesh(torch, scan, device, rng, card: str, rec=None) -> dict:
     """Phase 11: mesh stores (`mesh=`) of four shards, one at a time, each
     beside the same store on one device. 11a: 2M x 1024 float32, K4 on
     every shard (scan_mode="fused"), the plain sharded scan, and a dp = 2
@@ -3396,13 +3718,16 @@ def phase_mesh(torch, scan, device, rng, card: str) -> dict:
     held to the plain sharded route on the same store; 11d: a clustered
     2M x 1024 store, index="ivf", ShardedIVF with K7 on every shard, every
     default-probe answer held to the float64 oracle restricted to the rows
-    its batch scanned. Returns the launches of the counted sections,
-    summed."""
+    its batch scanned. 11c's launches past k_sel 128 must all take K6's
+    wide kind, 11d's past Q = 16 K7's tensor-core scan; each is then held
+    on shard 0's own data (records into `rec`). Returns the launches of
+    the counted sections, summed."""
     from picovdb_tpu_torch import PicoVectorDB
     from picovdb_tpu_torch.ops import ivf as tivf
     from picovdb_tpu_torch.ops.exact import normalize_on_device
 
     t_phase = time.perf_counter()
+    rec = {} if rec is None else rec
     n, dim = MESH_N, DIM
     dev0 = device
     where = ("one shard a card" if torch.cuda.device_count() >= MESH_SHARDS
@@ -3499,6 +3824,8 @@ def phase_mesh(torch, scan, device, rng, card: str) -> dict:
         launches = mesh_launches_ok(scan, mesh, MESH_FAMILY[sd], seen)
         add(counts)
         plain = mesh_plain_check(torch, scan, db, served, sd)
+        wide = ("; " + mesh_i4_wide(torch, scan, db, counts, qdev, rec)
+                if sd == "int4" else "")
         rec_s = mesh_oracle_check(got, ov, oi, f"11 {sd}", 0.99)
         rec_dev = recall_at_10(served[-1][1][0][:MESH_ORACLE_Q], oi[:, :10],
                                "m")
@@ -3510,7 +3837,7 @@ def phase_mesh(torch, scan, device, rng, card: str) -> dict:
             f"{rec_dev:.4f}); Q = 1, Q = 64 and the chunks at storage "
             f"precision {plain}; {fmt_times(t)} (one device, route {s_route}: "
             f"{fmt_times(s_times)}); launches {launches}, by shape "
-            f"{counts['shapes'].get(MESH_FAMILY[sd])}")
+            f"{counts['shapes'].get(MESH_FAMILY[sd])}{wide}")
         del db
         torch.cuda.empty_cache()
     del corpus, ids
@@ -3544,6 +3871,13 @@ def phase_mesh(torch, scan, device, rng, card: str) -> dict:
     counts = launch_counts(scan)
     launches = mesh_launches_ok(scan, mesh, "ivf_scan_topk", seen)
     assert [nq for kind, nq, _ in seen] == [1, 64] + [512] * 4 + [64], seen
+    tc = launched_over(counts, "ivf_scan_topk", q_min=scan.SWEEP_Q_MAX)
+    assert tc > 0 and counts["ivf_scan_topk_wgmma"] == tc, (
+        f"11d: {counts['ivf_scan_topk_wgmma']} of {tc} K7 launches past "
+        f"Q = 16 on the tensor-core scan")
+    assert counts["ivf_scan_topk"] == (counts["ivf_scan_topk_sweep"]
+                                       + counts["ivf_scan_topk_wgmma"]), \
+        "11d: a K7 launch took the template"
     add(counts)
     mix_dev = torch.from_numpy(mix).to(dev0)
     chunks = [(s, mix_dev[s:s + 131_072]) for s in range(0, n, 131_072)]
@@ -3565,6 +3899,8 @@ def phase_mesh(torch, scan, device, rng, card: str) -> dict:
         bad += ids_off_oracle(got, "m", *oracle_masked(
             torch, chunks, qn[lo:hi], rows.expand(hi - lo, n)))
     assert bad == 0, f"{bad} default-probe id sets differ (restricted)"
+    k_sel = 10 + tivf._ivf_guard(False, dim)
+    hold = mesh_k7_hold(torch, scan, tivf, x, qn, npb, k_sel, rec)
     del mix_dev, chunks
     t = mesh_times(torch, db, torch.from_numpy(qi).to(dev0), qi)
     line(
@@ -3575,11 +3911,17 @@ def phase_mesh(torch, scan, device, rng, card: str) -> dict:
         f"64/64; default probe recall@10 {recall:.4f}, ids = the oracle "
         f"restricted to each batch's scanned rows on 1 + 64 + 2048 queries "
         f"(Q = 1, Q = 64, 512-query batches); {fmt_times(t)} (2048 "
-        f"queries in 2048-query chunks); launches {launches}, by shape "
-        f"{counts['shapes'].get('ivf_scan_topk')}")
+        f"queries in 2048-query chunks; with K7's template at Q > 16: "
+        f"{TEMPLATE_11D['qps']} QPS, Q=64 {TEMPLATE_11D['q64_ms']} ms); "
+        f"launches {launches} (sweep {counts['ivf_scan_topk_sweep']}, "
+        f"tensor-core scan {counts['ivf_scan_topk_wgmma']}), by shape "
+        f"{counts['shapes'].get('ivf_scan_topk')}; {hold}")
     del db, x, mix
     torch.cuda.empty_cache()
     shutil.rmtree(tmp)
+    for name, (key, _, _, phase) in KERNELS.items():
+        if phase == 11:
+            assert total.get(key, 0) > 0, f"{name} never launched in phase 11"
     scope = ("" if torch.cuda.device_count() >= MESH_SHARDS else
              ": a run on one card checks the sharding, routing, per-shard "
              "launches and the merge, not scaling across cards")
@@ -4130,8 +4472,8 @@ def mp_ivf(torch, scan, mesh, cfg, say) -> dict:
     ov, oi = oracle_masked(torch, chunks(mix), torch.from_numpy(qi).to(
         mesh.first), None, k=13)
     searches = ((qi[:1], HNSW_EFS),  # Q = 1: K7's sweep
-                (qi, HNSW_EFS),  # Q = 64 at the default probe: its template
-                (qi, 10**6))  # the full probe
+                (qi, HNSW_EFS),  # Q = 64 at the default probe: its
+                (qi, 10**6))  # tensor-core scan, and the full probe
     scan.reset_launch_counts()
     got = [x.search(q, 10, ef=ef, dev=None) for q, ef in searches]
     torch.cuda.synchronize()
@@ -4139,6 +4481,8 @@ def mp_ivf(torch, scan, mesh, cfg, say) -> dict:
     local = len(mesh.local_shards)
     assert counts["ivf_scan_topk"] == 3 * local, counts["ivf_scan_topk"]
     assert counts["ivf_scan_topk_sweep"] == local, counts
+    # every Q > 16 launch on the tensor-core scan, none on the template
+    assert counts["ivf_scan_topk_wgmma"] == 2 * local, counts
     fs = got[2][1]
     bad = ids_off_oracle(np.array([[f"d{j}" for j in r] for r in fs]), "d",
                          ov, oi)
@@ -4174,7 +4518,9 @@ def mp_ivf(torch, scan, mesh, cfg, say) -> dict:
         f"and Q = 64 at the default probe, Q = 64 full) within "
         f"{err:.3g}; Q = 1 {one:.4f} ms, Q = 64 {q64:.4f} ms at the default "
         f"probe; launches {counts['ivf_scan_topk']} = {local} local shards x"
-        f" 3 searches, by shape {counts['shapes'].get('ivf_scan_topk')}")
+        f" 3 searches (sweep {counts['ivf_scan_topk_sweep']}, tensor-core "
+        f"scan {counts['ivf_scan_topk_wgmma']}), by shape "
+        f"{counts['shapes'].get('ivf_scan_topk')}")
     del x, mix
     return counts
 
@@ -5179,6 +5525,18 @@ def phase_entry_points(torch, scan, card: str) -> dict:
     torch.cuda.synchronize()
     made = {k: scan.LAUNCHES[k] - before[k] for k in out["calls"]}
     assert made == out["calls"], (made, out["calls"])
+    # at dim 64 (64 % 128 != 0) K6 keeps its template: no wide kind, no
+    # tensor-core scan; K7's launches go where the ready rules send them
+    sub = {k: scan.LAUNCHES[k] - before[k] for k in (
+        "scan_topk_i4_sweep", "scan_topk_i4_wgmma", "scan_topk_i4_wide",
+        "ivf_scan_topk_sweep", "ivf_scan_topk_wgmma")}
+    assert sub["scan_topk_i4_wide"] == sub["scan_topk_i4_wgmma"] == 0, sub
+    made["scan_topk_i4 template"] = (made.get("scan_topk_i4", 0)
+                                     - sub["scan_topk_i4_sweep"])
+    made["ivf_scan_topk template"] = (made.get("ivf_scan_topk", 0)
+                                      - sub["ivf_scan_topk_sweep"]
+                                      - sub["ivf_scan_topk_wgmma"])
+    made.update(sub)
     log(f"phase 14: graft_entry.dryrun_multichip(4) over "
         f"{[str(d) for d in graft_entry.dry_run_devices(4)]} (dp "
         f"{out['dp']} x {out['shards']} shards): the plain and kernel routes "
@@ -5302,9 +5660,11 @@ def main() -> int:
     if trace_only:
         return trace_mesh_main(torch, card)
     if mesh_only:  # phase 11 alone, for iterating on it
+        mesh_rec = {"ivf_scan_topk_wgmma": {}, "fused_topk_i4_wide": {}}
         counts = phase_mesh(torch, scan, device,
-                            np.random.default_rng(SEED + 11), card)
-        log(f"phase 11: launches {counts}")
+                            np.random.default_rng(SEED + 11), card, mesh_rec)
+        log(f"phase 11: launches {counts}; shard holds "
+            + json.dumps(mesh_rec))
         print(card)
         return 0
     if rag_only:  # phase 13 alone: the models and the device pipeline
@@ -5363,7 +5723,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rag_s = time.perf_counter() - t_start - before_s
     counts[11] = phase_mesh(torch, scan, device,
-                            np.random.default_rng(SEED + 11), card)
+                            np.random.default_rng(SEED + 11), card, rec)
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
     counts[12] = phase_multiprocess(torch, scan, card)

@@ -123,4 +123,14 @@ int launch_scan_slab(int kind, const void* planes, size_t plane,
                      const void* v, const void* mask, uint32_t* slab, int Q,
                      long long cap, int dim, cudaStream_t stream);
 
+// K6's tensor-core scan with the slab epilogue (scan_i4_wgmma.cu, 64
+// queries a CTA): the int4 wide kind's pass A, launched by
+// pv_scan_topk_i4_wide (topk_i4_wide.cu). q_perm (Q, dim) permuted int8
+// queries, v (cap, dim / 2) packed rows, vscale (cap,), mask (cap,); slab
+// (Q, ld = cap rounded up to 128) uint32 sortable score keys. Returns 0, a
+// cudaError_t, or minus the CUresult of a refused encode.
+int launch_i4_slab(const void* q_perm, const void* v, const void* vscale,
+                   const void* mask, uint32_t* slab, int Q, long long cap,
+                   int dim, cudaStream_t stream);
+
 }  // namespace pv

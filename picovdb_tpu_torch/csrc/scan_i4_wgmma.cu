@@ -171,7 +171,11 @@ __device__ __forceinline__ uint4 high_plane(uint4 x) {
 // swizzle; tv: of v (cap, dim / 2) packed bytes, boxes of 64 bytes x 256
 // rows, 64B swizzle (rows past cap zero). vscale (cap,), mask (cap,)
 // uint8; `partial` receives, per query of this CTA's tile, k keys at
-// ((q * ranges + range) * k). q_perm (for the query sums); dim % 128 == 0.
+// ((q * ranges + range) * k); BUF == 0 (the wide kind's pass A) keeps no
+// selection: `partial` is then the slab, (Q, ld) uint32 with ld = cap
+// rounded up to 128, and every live query's row below cap gets its
+// sortable score key float_order(s) at (q * ld + row), whatever its mask
+// byte. q_perm (for the query sums); dim % 128 == 0.
 template <int S1, int S2, int BUF>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
@@ -379,61 +383,97 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(empty2 + 8 * prev2);
     }
 
-    // epilogue: admit, and compact + re-admit while an admission failed
-    const float* ms = msc + (int)(tile % MSC_TILES) * BN + g * NW + 2 * (l % 4);
-    // row 8 j + 2 (l % 4) + e of the warpgroup's 128: bit 8 (j % 4) +
-    // 2 (l % 4) + e of its live word j / 4
-    uint32_t live[NW / 32];
-#pragma unroll
-    for (int i = 0; i < NW / 32; ++i)
-      live[i] = mlive[(int)(tile % MSC_TILES) * LIVE_WORDS + g * (NW / 32) + i];
-    const long r0 = tile * BN + g * NW + 2 * (l % 4);
-    uint64_t pend = ~0ull;  // bit 4 j + 2 h + e: not yet admitted or dropped
-    for (;;) {
+    if constexpr (BUF == 0) {
+      // the wide kind's slab (topk_i4_wide.cu): every (live query, row
+      // below cap) gets float_order(s), rows 8 j + 2 (l % 4) + {0, 1} as
+      // one 8-byte store (a quad writes 32 contiguous bytes); the readers
+      // of the slab read the mask
+      uint32_t* slab = reinterpret_cast<uint32_t*>(partial);
+      const long ld = (cap + SEG - 1) / SEG * SEG;
+      const float* ms =
+          msc + (int)(tile % MSC_TILES) * BN + g * NW + 2 * (l % 4);
+      const long r0 = tile * BN + g * NW + 2 * (l % 4);
 #pragma unroll
       for (int j = 0; j < ACC / 4; ++j) {
-        if (!((pend >> (4 * j)) & 0xFull)) continue;
         const float2 sc2 = *reinterpret_cast<const float2*>(ms + 8 * j);
+        const long r = r0 + 8 * j;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float sc = e ? sc2.y : sc2.x;
-          const bool row_live =
-              (live[j / 4] >> (8 * (j % 4) + 2 * (l % 4) + e)) & 1u;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = 4 * j + 2 * h + e;
-            if (!((pend >> i) & 1ull)) continue;
-            bool keep = false;
-            if (qlive[h] && row_live) {
-              const float s = __fmul_rn(__int2float_rn(acc[i] - bias[h]), sc);
-              if (s >= ts[h]) {
-                const u64 key = row_key(s, (uint32_t)(r0 + 8 * j + e));
-                if (key > tk[h]) {
-                  const int slot = atomicAdd(&cnt[qi[h]], 1);
-                  if (slot < BUF) buf[qi[h] * BUF + slot] = key;
-                  else keep = true;
-                }
-              }
-            }
-            if (!keep) pend &= ~(1ull << i);
-          }
+        for (int h = 0; h < 2; ++h) {
+          if (!qlive[h] || r >= cap) continue;
+          uint32_t* out = slab + (long)(q0 + qi[h]) * ld + r;
+          const uint32_t k0 = float_order(__fmul_rn(
+              __int2float_rn(acc[4 * j + 2 * h] - bias[h]), sc2.x));
+          const uint32_t k1 = float_order(__fmul_rn(
+              __int2float_rn(acc[4 * j + 2 * h + 1] - bias[h]), sc2.y));
+          if (r + 1 < cap)
+            *reinterpret_cast<uint2*>(out) = make_uint2(k0, k1);
+          else
+            *out = k0;
         }
       }
-      if (!ws::any_of(pend != 0, CONSUMER_BAR, CONSUMERS)) break;
-      ws::compact<BM, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+    } else {
+      // epilogue: admit, and compact + re-admit while an admission failed
+      const float* ms =
+          msc + (int)(tile % MSC_TILES) * BN + g * NW + 2 * (l % 4);
+      // row 8 j + 2 (l % 4) + e of the warpgroup's 128: bit 8 (j % 4) +
+      // 2 (l % 4) + e of its live word j / 4
+      uint32_t live[NW / 32];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        tk[h] = tau[qi[h]];
-        ts[h] = row_key_score(tk[h]);
+      for (int i = 0; i < NW / 32; ++i)
+        live[i] =
+            mlive[(int)(tile % MSC_TILES) * LIVE_WORDS + g * (NW / 32) + i];
+      const long r0 = tile * BN + g * NW + 2 * (l % 4);
+      // bit 4 j + 2 h + e: not yet admitted or dropped
+      uint64_t pend = ~0ull;
+      for (;;) {
+#pragma unroll
+        for (int j = 0; j < ACC / 4; ++j) {
+          if (!((pend >> (4 * j)) & 0xFull)) continue;
+          const float2 sc2 = *reinterpret_cast<const float2*>(ms + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float sc = e ? sc2.y : sc2.x;
+            const bool row_live =
+                (live[j / 4] >> (8 * (j % 4) + 2 * (l % 4) + e)) & 1u;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h + e;
+              if (!((pend >> i) & 1ull)) continue;
+              bool keep = false;
+              if (qlive[h] && row_live) {
+                const float s =
+                    __fmul_rn(__int2float_rn(acc[i] - bias[h]), sc);
+                if (s >= ts[h]) {
+                  const u64 key = row_key(s, (uint32_t)(r0 + 8 * j + e));
+                  if (key > tk[h]) {
+                    const int slot = atomicAdd(&cnt[qi[h]], 1);
+                    if (slot < BUF) buf[qi[h] * BUF + slot] = key;
+                    else keep = true;
+                  }
+                }
+              }
+              if (!keep) pend &= ~(1ull << i);
+            }
+          }
+        }
+        if (!ws::any_of(pend != 0, CONSUMER_BAR, CONSUMERS)) break;
+        ws::compact<BM, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          tk[h] = tau[qi[h]];
+          ts[h] = row_key_score(tk[h]);
+        }
       }
     }
   }
-  ws::named_sync(CONSUMER_BAR, CONSUMERS);
-  ws::compact<BM, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
-  for (int i = threadIdx.x; i < BM * k; i += CONSUMERS) {
-    const int qq = i / k, j = i % k;
-    if (q0 + qq < Q)
-      partial[((long)(q0 + qq) * ranges + range) * k + j] = buf[qq * BUF + j];
+  if constexpr (BUF > 0) {
+    ws::named_sync(CONSUMER_BAR, CONSUMERS);
+    ws::compact<BM, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+    for (int i = threadIdx.x; i < BM * k; i += CONSUMERS) {
+      const int qq = i / k, j = i % k;
+      if (q0 + qq < Q)
+        partial[((long)(q0 + qq) * ranges + range) * k + j] = buf[qq * BUF + j];
+    }
   }
 }
 
@@ -472,20 +512,73 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tv, const void* q_perm,
   return (int)cudaGetLastError();
 }
 
+// The maps and the grid of a launch over q_perm (Q, dim) and v (cap, dim
+// / 2): q_tiles = ceil(Q / 64) query tiles x `ranges` = max(1,
+// min(ceil(cap / 256), SMs / q_tiles)) corpus ranges (ops/scan.py::
+// i4_wgmma_partition). 0, a cudaError_t, or minus a refused encode's
+// CUresult.
+struct Plan {
+  CUtensorMap tq, tv;
+  int q_tiles, ranges;
+};
+int plan(Plan* p, const void* q_perm, const void* v, int Q, long long cap,
+         int dim) {
+  if (cap < 0 || dim <= 0 || dim % 128 ||
+      ((uintptr_t)q_perm | (uintptr_t)v) % 16)
+    return (int)cudaErrorInvalidValue;
+  wg::EncodeTiled enc;
+  int err = wg::encoder(&enc);
+  if (err) return err;
+  if ((err = wg::encode_rows<wg::Int8>(enc, &p->tq, q_perm, Q, dim, BM)))
+    return err;
+  if (cap > 0 && (err = encode_packed(enc, &p->tv, v, cap, dim))) return err;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  p->q_tiles = (Q + BM - 1) / BM;
+  const long long tiles = std::max(1LL, (cap + BN - 1) / BN);
+  p->ranges =
+      (int)std::max(1LL, std::min(tiles, (long long)(sms / p->q_tiles)));
+  if ((long long)p->q_tiles * p->ranges > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace i4
 }  // namespace
+
+// The wide kind's pass A (topk_i4_wide.cu): the scan with the slab
+// epilogue (BUF 0), three TMA slots and three B tiles (no buffers beside
+// them). q_perm (Q, dim) int8 permuted queries, v (cap, dim / 2) packed
+// rows, vscale (cap,) float32, mask (cap,) uint8; slab (Q, ld = cap
+// rounded up to 128) uint32 receives float_order(score) of every live
+// query's row below cap.
+int launch_i4_slab(const void* q_perm, const void* v, const void* vscale,
+                   const void* mask, uint32_t* slab, int Q, long long cap,
+                   int dim, cudaStream_t stream) {
+  using namespace i4;
+  if (Q <= 0 || cap <= 0) return (int)cudaSuccess;
+  if (!vscale) return (int)cudaErrorInvalidValue;
+  Plan p;
+  const int err = plan(&p, q_perm, v, Q, cap, dim);
+  if (err) return err;
+  return launch<3, 3, 0>(p.tq, p.tv, q_perm, vscale, mask,
+                         reinterpret_cast<u64*>(slab), Q, cap, dim, 0,
+                         p.q_tiles, p.ranges, stream);
+}
+
 }  // namespace pv
 
 // K6's tensor-core scan: q_perm (Q, dim) int8 queries with their columns
 // permuted (ops/scan.py::permute_i4_queries), v (cap, dim / 2) packed int4
 // rows, vscale (cap,) float32, mask (cap,) uint8; Q > 0, k <= 128, dim %
-// 128 == 0, 16-byte aligned q_perm and v. The grid is q_tiles = ceil(Q /
-// 64) query tiles x `ranges` = max(1, min(ceil(cap / 256), SMs / q_tiles))
-// corpus ranges (ops/scan.py::i4_wgmma_partition); `partial` is scratch of
-// Q * ranges * k uint64; vals (Q, k) float32 (the scaled scores) and idx
-// (Q, k) int32 receive the result (-inf / 0 where empty). Launches on the
-// current device. Returns 0, a cudaError_t, or minus the CUresult of a
-// refused tensor-map encode.
+// 128 == 0, 16-byte aligned q_perm and v. The grid is `Plan`'s;
+// `partial` is scratch of Q * ranges * k uint64; vals (Q, k) float32 (the
+// scaled scores) and idx (Q, k) int32 receive the result (-inf / 0 where
+// empty). Launches on the current device. Returns 0, a cudaError_t, or
+// minus the CUresult of a refused tensor-map encode.
 extern "C" int pv_scan_topk_i4_wgmma(const void* q_perm, const void* v,
                                      const void* vscale, const void* mask,
                                      void* partial, void* vals, void* idx,
@@ -494,36 +587,20 @@ extern "C" int pv_scan_topk_i4_wgmma(const void* q_perm, const void* v,
   using namespace pv;
   using namespace pv::i4;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
-  if (k > 128 || cap < 0 || dim <= 0 || dim % 128 || !vscale ||
-      ((uintptr_t)q_perm | (uintptr_t)v) % 16)
-    return (int)cudaErrorInvalidValue;
-  wg::EncodeTiled enc;
-  int err = wg::encoder(&enc);
+  if (k > 128 || !vscale) return (int)cudaErrorInvalidValue;
+  Plan p;
+  int err = plan(&p, q_perm, v, Q, cap, dim);
   if (err) return err;
-  CUtensorMap tq, tv;
-  if ((err = wg::encode_rows<wg::Int8>(enc, &tq, q_perm, Q, dim, BM)))
-    return err;
-  if (cap > 0 && (err = encode_packed(enc, &tv, v, cap, dim))) return err;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int q_tiles = (Q + BM - 1) / BM;
-  const long long tiles = std::max(1LL, (cap + BN - 1) / BN);
-  const int ranges =
-      (int)std::max(1LL, std::min(tiles, (long long)(sms / q_tiles)));
-  if ((long long)q_tiles * ranges > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   u64* part = static_cast<u64*>(partial);
   cudaStream_t s = (cudaStream_t)stream;
   // k <= 32: three TMA slots, three B tiles, 64-key buffers; up to 128:
   // two slots, one B tile, 256-key buffers (shared memory holds no more)
-  err = k <= 32 ? launch<3, 3, 64>(tq, tv, q_perm, vscale, mask, part, Q, cap,
-                                   dim, k, q_tiles, ranges, s)
-                : launch<2, 1, 256>(tq, tv, q_perm, vscale, mask, part, Q,
-                                    cap, dim, k, q_tiles, ranges, s);
+  err = k <= 32 ? launch<3, 3, 64>(p.tq, p.tv, q_perm, vscale, mask, part, Q,
+                                   cap, dim, k, p.q_tiles, p.ranges, s)
+                : launch<2, 1, 256>(p.tq, p.tv, q_perm, vscale, mask, part, Q,
+                                    cap, dim, k, p.q_tiles, p.ranges, s);
   if (err) return err;
   return (int)launch_topk_merge(part, static_cast<float*>(vals),
-                                static_cast<int*>(idx), Q, ranges * k, k, s,
+                                static_cast<int*>(idx), Q, p.ranges * k, k, s,
                                 false);
 }

@@ -1,0 +1,102 @@
+// K6 fused_topk_i4 at 128 < k <= 1024 (the wide kind): K6's tensor-core
+// scan writing every live row's sortable score key to a slab, then the
+// per-query radix select over the slab.
+//
+// Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i4 (`_scan_kernel_i4`)
+// at k_sel 129-1024 wherever the tensor-core scan can read the operands
+// (ops/scan.py::i4_wide_ready: dim % 128 == 0, 16-byte aligned bases): the
+// int4 store's host-rescore band, k + 4 RESCORE_GUARD + SHARD_GUARD = 526
+// at k = 10 on every shard of a mesh store, at every batch size. It
+// computes scan_topk_plain(..., int4=True) bit for bit: per query the k
+// best live rows by float32(q . lo + q . hi - 8 sum(q)) * vscale[row],
+// ties to the lower row (row_key), as (Q, k) float32 scores (-inf where a
+// slot is empty) and (Q, k) int32 rows (0 where empty).
+//
+// What bounds it on the H100: the packed plane's bytes at small batches
+// (131,072 x 1024: 67 MB, 0.020 ms at 3.35 TB/s) and its int8 operations
+// at large ones (2 Q cap dim at 1,979 T/s: 0.017 ms at Q = 128 over the
+// same rows); the slab adds q_tile x cap x 4 bytes written once and read
+// about twice (64 MB at Q = 128 over 131,072 rows). The template it
+// replaces (scan_topk.cu kind 3) ran two queries a CTA on CUDA-core
+// __dp4a, so it read the packed plane once per query pair, and kept 2,048
+// candidate slots a block.
+//
+// Design, as K4's wide kind (topk_wide.cu), for the reason given there:
+// per-query buffers of k = 1024 keys do not fit a CTA beside the ring.
+//  * Pass A (scan_i4_wgmma.cu, BUF 0): K6's tensor-core scan as it is (the
+//    permuted queries, the TMA ring, the expander warps' nibble planes,
+//    m64n128k32 s8 wgmma, exact int32 sums), whose epilogue stores
+//    float_order(float32(acc - 8 sum(q)) * vscale[row]) for each (live
+//    query, row below cap) to the slab (q_tile, ld), ld = cap rounded up to
+//    128. A tile of fewer than 64 queries runs one M tile, TMA zero-filling
+//    the query rows past it (Q = 1 included).
+//  * Pass B (radix_select.cuh), unchanged from K4's wide kind: three digit
+//    histograms read from the slab beside the mask, the keys at or above
+//    the k-th's bucket collected, sorted and decoded; ties past CAP taken
+//    in row order. The score key orders as row_key's high word, so the
+//    selection equals the plain version's on (score, row) keys.
+//  * The launcher walks the permuted queries in tiles of q_tile
+//    (ops/scan.py::topk_wide_tile keeps the slab under 256 MiB), zeroing a
+//    tile's histograms with one memset. One scratch buffer (slab,
+//    histograms, candidates: ops/scan.py::i4_wide_scratch) and one library
+//    call a batch.
+
+#include <algorithm>
+
+#include "radix_select.cuh"
+
+// K6's wide kind: q_perm (Q, dim) int8 queries with their columns permuted
+// (ops/scan.py::permute_i4_queries), v (cap, dim / 2) packed int4 rows,
+// vscale (cap,) float32, mask (cap,) uint8 4-byte aligned; dim % 128 == 0,
+// 16-byte aligned q_perm and v, k <= 1024 (served at 128 < k). `scratch`
+// (256-byte aligned) holds `scratch_bytes`, at least one tile of q_tile
+// queries' slab, histograms and candidates, each from a 256-byte boundary
+// (ops/scan.py::i4_wide_scratch). vals (Q, k) float32 and idx (Q, k) int32
+// receive the result (-inf / 0 where empty). Launches on the current
+// device. Returns 0, a cudaError_t, or minus the CUresult of a refused
+// tensor-map encode.
+extern "C" int pv_scan_topk_i4_wide(const void* q_perm, const void* v,
+                                    const void* vscale, const void* mask,
+                                    void* scratch, void* vals, void* idx,
+                                    int Q, long long cap, int dim, int k,
+                                    int q_tile, long long scratch_bytes,
+                                    void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
+  auto up256 = [](size_t b) { return (b + 255) / 256 * 256; };
+  const size_t hist_off = up256((size_t)q_tile * ld * sizeof(uint32_t));
+  const size_t cand_off = hist_off + up256(rs::hist_bytes(q_tile));
+  if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || dim % 128 ||
+      q_tile <= 0 || q_tile > 65535 || !vscale || (uintptr_t)mask % 4 ||
+      (uintptr_t)scratch % 256 ||
+      (size_t)scratch_bytes < cand_off + rs::cand_bytes(q_tile))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = rs::select_attributes();
+  if (e != cudaSuccess) return (int)e;
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  uint32_t* sl = reinterpret_cast<uint32_t*>(base);
+  uint32_t* hi = reinterpret_cast<uint32_t*>(base + hist_off);
+  u64* cd = reinterpret_cast<u64*>(base + cand_off);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  for (int q0 = 0; q0 < Q; q0 += q_tile) {
+    const int nq = std::min(q_tile, Q - q0);
+    e = cudaMemsetAsync(hi, 0, rs::hist_bytes(nq), s);
+    if (e != cudaSuccess) return (int)e;
+    const int err = launch_i4_slab(
+        static_cast<const int8_t*>(q_perm) + (size_t)q0 * dim, v, vscale,
+        mask, sl, nq, cap, dim, s);
+    if (err) return err;
+    e = rs::select_tile(sl, m, hi, cd,
+                        static_cast<float*>(vals) + (size_t)q0 * k,
+                        static_cast<int*>(idx) + (size_t)q0 * k, nq,
+                        (long)cap, ld, k, sms, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}

@@ -18,7 +18,8 @@ re-designed for a device-resident layout):
 
       K7 `ivf_scan_topk`   csrc/scan_topk.cu  exact top-k_run per query
                            (Q <= 16: csrc/sweep_topk.cu, see
-                           `ivf_sweep_ready`)
+                           `ivf_sweep_ready`; Q > 16:
+                           csrc/ivf_scan_wgmma.cu, see `ivf_wgmma_ready`)
       K8 `ivf_segmax_scan` csrc/segmax.cu     top-`per_seg` keys per segment
                            (rows TMA can read: csrc/ivf_segmax_wgmma.cu,
                            see `ivf_segmax_ready`)
@@ -257,8 +258,9 @@ def ivf_sweep_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
     (dim % 4 for float32, % 8 for bf16, % 16 for int8), 16-byte aligned
     bases, and the CTA's query block (the query tile `scan.sweep_tile(Q)`
     times a row's bytes) within `scan.SWEEP_QBLOCK_BYTES` (float32 at Q =
-    16: dim <= 1024). Other shapes (the k_sel = 544 host-rescore band,
-    groups above 16 queries) keep the template, `pv_ivf_scan_topk`."""
+    16: dim <= 1024). Groups above 16 queries take `ivf_wgmma_ready`'s
+    tensor-core scan; other shapes (the k_sel = 544 host-rescore band) keep
+    the template, `pv_ivf_scan_topk`."""
     num_q, dim = q.shape
     row_bytes = dim * q.element_size()
     return (num_q <= _scan.SWEEP_Q_MAX and k <= _scan.SWEEP_K_MAX
@@ -278,6 +280,32 @@ def ivf_sweep_partition(n_hot: int, bn: int, ctas: int):
     units = max(0, n_hot) * (bn // IVF_SWEEP_SHARE)
     return [(IVF_SWEEP_SHARE * (c * units // ctas),
              IVF_SWEEP_SHARE * ((c + 1) * units // ctas)) for c in range(ctas)]
+
+
+def ivf_wgmma_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
+    """Whether K7 runs its tensor-core scan (csrc/ivf_scan_wgmma.cu) on
+    these contiguous operands: Q > scan.SWEEP_Q_MAX (the sweep keeps Q <=
+    16), k <= 128, rows of whole 16 bytes (dim % 4 for float32, % 8 for
+    bf16, % 16 for int8: TMA reads them as they lie) and 16-byte aligned
+    bases. Other shapes (the k_sel = 544 host-rescore band, other widths,
+    misaligned views) keep the template, `pv_ivf_scan_topk`."""
+    num_q, dim = q.shape
+    return (num_q > _scan.SWEEP_Q_MAX and k <= _scan.TOPK_WGMMA_K_MAX
+            and (dim * q.element_size()) % 16 == 0
+            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
+
+
+def ivf_wgmma_partition(num_q: int, grid_b: int, bn: int, sms: int):
+    """The tensor-core scan's grid on a card of `sms` SMs: (q_tiles,
+    ranges), as K4's `scan.topk_wgmma_partition` over the hot table's
+    grid_b * bn / 128 segments. CTA c takes query tile c % q_tiles and
+    share c // q_tiles of `ranges` equal shares of the live steps'
+    segments, range r the logical segments [r S // ranges, (r + 1) S //
+    ranges) of the S = min(n_hot, grid_b) * bn / 128 live ones, which it
+    computes from n_hot on the device (csrc/scan_topk_wgmma.cuh
+    `num_segments`). The launcher's partial buffer holds Q x ranges x k
+    keys."""
+    return _scan.topk_wgmma_partition(num_q, grid_b * bn, sms)
 
 
 def _plain_over_shares(q, postings, mask, hot, n_hot, k: int, bn: int,
@@ -334,7 +362,8 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
     where empty; (Q, k) int32 IVF rows hot[b] * bn + lane, 0 where
     empty). Selection is exact on the scores (int8: the int32 sums), ties
     to the lower row. Runs the one-query sweep where `ivf_sweep_ready`
-    holds, else the template."""
+    holds, else the tensor-core scan where `ivf_wgmma_ready` holds, else
+    the template."""
     _ivf_checks("ivf_scan_topk", q, postings, mask, hot, n_hot, bn)
     _require(0 < k <= SCAN_KSEL_MAX,
              f"ivf_scan_topk: k {k} outside 1..{SCAN_KSEL_MAX}")
@@ -342,10 +371,13 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
         return ivf_scan_topk_plain(q, postings, mask, hot, n_hot, k, bn)
     q = q.contiguous()
     sweep = ivf_sweep_ready(q, postings, k)
-    launch = _ivf_sweep_launch if sweep else _ivf_template_launch
+    wgmma = not sweep and ivf_wgmma_ready(q, postings, k)
+    launch = (_ivf_sweep_launch if sweep else
+              _ivf_wgmma_launch if wgmma else _ivf_template_launch)
     vals, idx = launch(q, postings, mask, hot, n_hot, k, bn)
     _scan._count("ivf_scan_topk", q.shape[0], k)
     _scan.LAUNCHES["ivf_scan_topk_sweep"] += sweep
+    _scan.LAUNCHES["ivf_scan_topk_wgmma"] += wgmma
     return vals, idx
 
 
@@ -364,6 +396,29 @@ def _ivf_sweep_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
             n_hot.data_ptr(), partial.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), num_q, postings.shape[0], dim, k, bn,
             hot.shape[0], ctas)
+    return vals, idx
+
+
+def _ivf_wgmma_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
+    """K7's tensor-core scan on checked CUDA operands, uncounted: float32
+    queries split once into hi and lo (`split_tf32`), bf16 and int8
+    queries read as they are; CTAs over `ivf_wgmma_partition`'s (query
+    tile, segment share) pairs, the shares of the live steps computed on
+    the device; then the merge. One launch whatever Q."""
+    num_q, dim = q.shape
+    grid_b = hot.shape[0]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    _, ranges = ivf_wgmma_partition(num_q, grid_b, bn, sms)
+    planes = torch.stack(split_tf32(q)) if q.dtype == torch.float32 else q
+    partial = torch.empty((num_q * ranges * k,), dtype=torch.int64,
+                          device=q.device)
+    vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
+    _launch(q, "ivf_scan_topk", "pv_ivf_scan_topk_wgmma", _KINDS[q.dtype],
+            planes.data_ptr(), postings.data_ptr(), mask.data_ptr(),
+            hot.data_ptr(), n_hot.data_ptr(), partial.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), num_q, postings.shape[0], dim,
+            k, bn, grid_b)
     return vals, idx
 
 

@@ -25,7 +25,9 @@ kernels those paths run:
                         (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`)
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
                         (Q <= 4: csrc/sweep_topk.cu, see `i4_sweep_ready`;
-                        Q > 4: csrc/scan_i4_wgmma.cu, `i4_wgmma_ready`)
+                        Q > 4: csrc/scan_i4_wgmma.cu, `i4_wgmma_ready`;
+                        128 < k <= 1024: the wide kind,
+                        csrc/topk_i4_wide.cu, see `i4_wide_ready`)
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
                         (Q <= 16: csrc/sweep_topk.cu, see `sweep_ready`)
   K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
@@ -79,9 +81,11 @@ SEG = 128  # rows per segmax segment
 # "scan_topk_i8c" counts every K9
 # launch, "scan_topk_i8c_sweep" those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
 # K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
-# `ivf_sweep_ready`); "scan_topk_i4" every K6 launch, "scan_topk_i4_sweep"
+# `ivf_sweep_ready`), "ivf_scan_topk_wgmma" its tensor-core scan's
+# (`ivf_wgmma_ready`); "scan_topk_i4" every K6 launch, "scan_topk_i4_sweep"
 # those of the sweep's int4 kind (`i4_sweep_ready`), "scan_topk_i4_wgmma"
-# those of its tensor-core scan (`i4_wgmma_ready`); "scan_topk_i8" every K3
+# those of its tensor-core scan (`i4_wgmma_ready`), "scan_topk_i4_wide"
+# those of its wide kind (`i4_wide_ready`); "scan_topk_i8" every K3
 # launch, "scan_topk_i8_sweep" those of the sweep's row-scaled int8 kind
 # (`i8_sweep_ready`), "scan_topk_i8_wgmma" those of the tensor-core scan's
 # int8 kind (`i8_wgmma_ready`); "ivf_segmax" every K8 launch, "ivf_segmax_wgmma"
@@ -94,8 +98,9 @@ LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "scan_topk_i8_wgmma": 0, "segmax_i8": 0,
             "segmax_i8_wgmma": 0,
             "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
-            "scan_topk_i4_wgmma": 0,
+            "scan_topk_i4_wgmma": 0, "scan_topk_i4_wide": 0,
             "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
+            "ivf_scan_topk_wgmma": 0,
             "ivf_segmax": 0, "ivf_segmax_wgmma": 0,  # K8: ops/ivf.py
             "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
             "segmax_i8c_wgmma": 0,
@@ -741,6 +746,9 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     elif int4 and i4_wgmma_ready(q, vectors, k):
         vals, idx = _i4_wgmma_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i4_wgmma"] += 1
+    elif int4 and i4_wide_ready(q, vectors, k):
+        vals, idx = _i4_wide_launch(q, vectors, vscale, mask, k, name)
+        LAUNCHES["scan_topk_i4_wide"] += 1
     elif kind in (_KIND_F32, _KIND_BF16) and topk_wgmma_ready(q, vectors, k):
         vals, idx = _topk_wgmma_launch(q, vectors, mask, k, name)
         LAUNCHES["scan_topk_wgmma"] += 1
@@ -819,6 +827,30 @@ def _i4_wgmma_launch(q, v_i4, vscale, mask, k: int,
             v_i4.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
             partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
             dim, k)
+    return vals, idx
+
+
+def _i4_wide_launch(q, v_i4, vscale, mask, k: int,
+                    name: str = "scan_topk_i4"):
+    """K6's wide kind (csrc/topk_i4_wide.cu) on checked CUDA operands,
+    uncounted: the queries' columns permuted once (`permute_i4_queries`),
+    then one library call that, a tile of `topk_wide_tile` queries at a
+    time, runs the tensor-core scan writing the slab and the radix select
+    over it, in one scratch buffer (`i4_wide_scratch`); a mask view not
+    4-byte aligned is copied."""
+    num_q, dim = q.shape
+    cap = v_i4.shape[0]
+    q_tile = topk_wide_tile(num_q, cap)
+    nbytes = i4_wide_scratch(cap, q_tile)
+    if mask.data_ptr() % 4:
+        mask = mask.clone()
+    q_perm = permute_i4_queries(q)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
+    vals, idx = _outputs(num_q, k, q.device)
+    _launch(q, name, "pv_scan_topk_i4_wide", q_perm.data_ptr(),
+            v_i4.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
+            scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
+            dim, k, q_tile, nbytes)
     return vals, idx
 
 
@@ -981,18 +1013,28 @@ def topk_wide_ready(queries: torch.Tensor, vectors: torch.Tensor,
             and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
 
 
+def _up256(b: int) -> int:
+    return -(-b // 256) * 256
+
+
 def topk_wide_scratch(num_q: int, cap: int, dim: int, kind: int,
                       q_tile: int) -> int:
     """Bytes of the wide kind's scratch, as csrc/topk_wide.cu lays it out:
     the query planes (float32 hi and lo, or three bf16), then one tile's
-    slab (q_tile x cap rounded up to 128, uint32), histograms (q_tile x
-    TOPK_WIDE_HIST uint32) and candidates (q_tile x TOPK_WIDE_CAP uint64),
-    each from a 256-byte boundary."""
-    def up(b):
-        return -(-b // 256) * 256
+    slab, histograms and candidates (`i4_wide_scratch`), each from a
+    256-byte boundary."""
     per = 8 if kind == _KIND_F32 else 6  # plane bytes an element
-    return (up(num_q * dim * per) + up(q_tile * (-(-cap // SEG) * SEG) * 4)
-            + up(q_tile * TOPK_WIDE_HIST * 4) + q_tile * TOPK_WIDE_CAP * 8)
+    return _up256(num_q * dim * per) + i4_wide_scratch(cap, q_tile)
+
+
+def i4_wide_scratch(cap: int, q_tile: int) -> int:
+    """Bytes of one tile of a wide kind's select, as csrc/topk_i4_wide.cu
+    (K6's wide kind, whose whole scratch it is) and csrc/topk_wide.cu lay
+    it out: the slab (q_tile x cap rounded up to 128, uint32), histograms
+    (q_tile x TOPK_WIDE_HIST uint32) and candidates (q_tile x TOPK_WIDE_CAP
+    uint64), each from a 256-byte boundary."""
+    return (_up256(q_tile * (-(-cap // SEG) * SEG) * 4)
+            + _up256(q_tile * TOPK_WIDE_HIST * 4) + q_tile * TOPK_WIDE_CAP * 8)
 
 
 def topk_wide_tile(num_q: int, cap: int) -> int:
@@ -1136,6 +1178,20 @@ def i4_wgmma_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
     num_q, dim = q_i8.shape
     return (num_q > I4_SWEEP_Q_MAX and k <= I4_WGMMA_K_MAX
             and dim % I4_WGMMA_DIM_MULTIPLE == 0 and _aligned(q_i8, v_i4))
+
+
+def i4_wide_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
+    """Whether K6 runs its wide kind (csrc/topk_i4_wide.cu: the tensor-core
+    scan writing a slab, then the radix select) on these contiguous
+    operands: 128 < k <= SCAN_KSEL_MAX, dim % 128 == 0 (the scan's
+    k-stages), 16-byte aligned bases, and one query's slab (cap rounded up
+    to 128 rows, 4 bytes a row) within TOPK_WIDE_SLAB_BYTES. Any Q: a
+    batch under 64 queries runs one query tile. Other widths (the dry
+    run's dim 64) keep the template, `pv_scan_topk` kind 3."""
+    ld = -(-v_i4.shape[0] // SEG) * SEG
+    return (I4_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
+            and q_i8.shape[1] % I4_WGMMA_DIM_MULTIPLE == 0
+            and _aligned(q_i8, v_i4) and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
 
 
 def i4_wgmma_partition(num_q: int, cap: int, sms: int):

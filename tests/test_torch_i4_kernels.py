@@ -429,14 +429,17 @@ def recorded(monkeypatch):
 
 
 # (Q, dim, k, offset, kernel): the sweep first, then the tensor-core scan,
-# then the template (the sweep up to I4_SWEEP_Q_MAX = 4 queries)
+# then the template (the sweep up to I4_SWEEP_Q_MAX = 4 queries); at 128 <
+# k the template's place goes to the wide kind where `i4_wide_ready` holds
 DISPATCH = [(1, 1024, 14, 0, "sweep"), (4, 96, 128, 0, "sweep"),
             (4, 16384, 14, 0, "sweep"), (4, 16416, 14, 0, "template"),
             (5, 1024, 1024, 0, "template"), (1, 80, 14, 0, "template"),
             (5, 1024, 14, 0, "wgmma"), (16, 1024, 14, 0, "wgmma"),
             (17, 1024, 14, 0, "wgmma"), (2048, 1024, 128, 0, "wgmma"),
             (16, 96, 14, 0, "template"), (256, 1024, 129, 0, "template"),
-            (130, 1024, 14, 8, "template"), (4, 1024, 14, 8, "template")]
+            (130, 1024, 14, 8, "template"), (4, 1024, 14, 8, "template"),
+            (1, 1024, 526, 0, "template"), (5, 96, 1024, 0, "template"),
+            (64, 1024, 526, 8, "template"), (64, 64, 526, 0, "template")]
 
 
 @pytest.mark.parametrize("nq,dim,k,offset,kernel", DISPATCH)
@@ -448,20 +451,23 @@ def test_k6_dispatch_order(recorded, nq, dim, k, offset, kernel):
     vals, idx = tscan.fused_topk_i4(*map(_as_cuda, (q, v, vs, mask)), k)
     assert vals.shape == idx.shape == (nq, k)
     (entry, args), = recorded
+    if kernel == "template" and tscan.i4_wide_ready(q, v, k):
+        kernel = "wide"
     assert entry == {"sweep": "pv_sweep_topk_i4",
                      "wgmma": "pv_scan_topk_i4_wgmma",
+                     "wide": "pv_scan_topk_i4_wide",
                      "template": "pv_scan_topk"}[kernel]
     if kernel == "sweep":
         chunk, _ = tscan.sweep_partition(256, 132)
         assert args[:2] == (q.data_ptr(), v.data_ptr())
         assert args[7:] == (nq, 256, dim, k, chunk)
-    elif kernel == "wgmma":
+    elif kernel in ("wgmma", "wide"):  # the permuted queries, the rows
         assert args[0] != q.data_ptr() and args[1] == v.data_ptr()
-        assert args[7:] == (nq, 256, dim, k)
+        assert args[7:11] == (nq, 256, dim, k)
     else:
         assert args[0] == tscan._KIND_I4
     assert tscan.LAUNCHES["scan_topk_i4"] == before["scan_topk_i4"] + 1
-    for key in ("sweep", "wgmma"):
+    for key in ("sweep", "wgmma", "wide"):
         name = f"scan_topk_i4_{key}"
         assert tscan.LAUNCHES[name] == before[name] + (kernel == key), name
 

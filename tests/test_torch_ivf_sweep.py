@@ -151,8 +151,9 @@ def test_k10_dispatch_by_wgmma_i8_ready(recorded, dim, offset, wgmma):
                                              ("f32", 17, 14, False)])
 def test_k7_dispatch_by_ivf_sweep_ready(recorded, kind, nq, k, sweep):
     """K7 takes the sweep where `ivf_sweep_ready` holds, with two CTAs per
-    SM and scratch for their partials; the k_sel = 544 band and groups of
-    17 queries keep the template. "ivf_scan_topk" counts both,
+    SM and scratch for their partials; the k_sel = 544 band keeps the
+    template, and groups of 17 queries take the tensor-core scan
+    (`ivf_wgmma_ready`). "ivf_scan_topk" counts all three,
     "ivf_scan_topk_sweep" the sweep alone."""
     dt = DTYPES[kind]
     q = torch.zeros(nq, 64, dtype=dt)
@@ -169,6 +170,8 @@ def test_k7_dispatch_by_ivf_sweep_ready(recorded, kind, nq, k, sweep):
         assert entry == "pv_ivf_sweep_topk"
         assert args[0] == tivf._KINDS[dt]
         assert args[9:] == (nq, 4 * BN, 64, k, BN, 3, 264)
+    elif tivf.ivf_wgmma_ready(q, v, k):
+        assert entry == "pv_ivf_scan_topk_wgmma" and nq > tscan.SWEEP_Q_MAX
     else:
         assert entry == "pv_ivf_scan_topk"
     assert tscan.LAUNCHES["ivf_scan_topk"] == before["ivf_scan_topk"] + 1
