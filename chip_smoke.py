@@ -14,7 +14,11 @@ store with the host-f64 rescore and a quantized checkpoint (phase 4, its
 Q = 64 batches on K3's tensor-core scan), a device-born
 16M x 1024 int4 store (phase 5, an 8 GB packed plane), a 262,144 x 1024
 bfloat16 store (phase 6), the IVF tier's classic layout over a clustered
-2M x 1024 float32 store under index="auto" (phase 7), its int8-only
+2M x 1024 float32 store under index="auto" (phase 7), the host-rescore
+band of quantized IVF stores (phase 7b, its own generator: a clustered
+2M x 1024 mixture uploaded from the host into an int8, then an int4
+store with index="ivf", every K7 launch at k_sel 160 / 544 on K7's wide
+kind, csrc/ivf_scan_wide.cu), its int8-only
 layout over a device-born, clustered 8M x 1024 int4 store and a sidecar
 round trip (phase 8), the opt-in selection tiers A/B over one 1M x 1024
 float32 corpus (phase 9: defaults, PICOVDB_SEGMAX_I8, the column-scaled
@@ -76,12 +80,18 @@ multiplies); phases 3 and 7 also time
 K4's tensor-core scan and its template at Q = 1 ... 256; phase 2 holds
 K4's wide kind (128 < k_sel <= 1024) to the plain version under a mask,
 a filter and no live row and times it beside its template, K6's wide kind
-at k_sel 526 / 1024 and K7's tensor-core scan at Q = 64 / 512 in every
-postings kind the same way (K7's also beside its library pair), and phase 3
+at k_sel 526 / 1024, K3's wide kind (csrc/topk_i8_wide.cu) at k_sel 432 /
+1024, K7's tensor-core scan at Q = 64 / 512 and K7's wide kind at k_sel
+160 / 544 in every postings kind the same way (K3's and K7's also beside
+their library pairs), and phase 3
 serves a top_k = 200 batch and the exact retry's k_sel 1000 on it through
 the public API, each held to a float64 oracle; and phase 4 K3's
 sweep and tensor-core scan at Q = 1 ... 64 (the crossovers behind their
-ready rules). `python3 chip_smoke.py --q64-latency` times only the int8
+ready rules), K3's wide kind beside them at k_sel 142-384 on the store's
+1M rows and on int8 planes of 2M, 4M and 16M rows made on the card (the
+crossover behind I8_WIDE_K_MIN and `i8_wide_covers`), and top_k = 300
+(k_sel 432, the wide kind) through the public API, held to the float64
+oracle. `--k3-cross` runs the build and the larger planes' table alone. `python3 chip_smoke.py --q64-latency` times only the int8
 store's Q = 64 host-rescored batches through the public API, on a store
 of its own, so that a checkout without this script's other phases can be
 timed beside this one; `--mesh` runs the build and phase 11 alone (the
@@ -133,6 +143,8 @@ I4_CHUNK = 262_144  # rows generated and quantized on the card at a time
 BF16_N = 262_144  # bfloat16 store, phase 6
 IVF_N = 2_000_000  # float32 store, index="auto", phase 7 (8 GB of corpus)
 IVF_I4_N = 8_000_000  # int4 store, index="ivf", device-born, phase 8
+IVF_HOST_N = 2_000_000  # int8 / int4 stores, index="ivf", host-born, phase 7b
+SEED_7B = SEED + 72  # phase 7b's generator and mixture
 SIDECAR_N = 262_144  # float32 store, index="ivf", sidecar round trip
 TIERS_N = 1_000_000  # float32 store, the opt-in tiers' A/B, phase 9
 MIX_CENTRES = 4096  # gaussian-mixture centres of the IVF phases' data
@@ -155,7 +167,8 @@ K6_KERNELS = {"sweep": "scan_topk_i4_sweep",
               "tensor-core scan": "scan_topk_i4_wgmma"}
 # K3's kernels besides its template, by their launch counters
 K3_KERNELS = {"sweep": "scan_topk_i8_sweep",
-              "tensor-core scan": "scan_topk_i8_wgmma"}
+              "tensor-core scan": "scan_topk_i8_wgmma",
+              "wide kind": "scan_topk_i8_wide"}
 # The (Q, k_sel) shapes phase 3 holds and times K3 at on the store's int8
 # mirror: its Q = 1 route (k = 10 + 4), the small batches around the
 # sweep's limit, and the host-rescore band (k + 128 + 4)
@@ -169,6 +182,26 @@ K3_PHASE4 = ((1, 142), (17, 142), (64, 142), (128, 142), (64, 14),
              (2048, 14))
 K3_CROSSOVER = tuple((nq, k) for k in (14, 142)
                      for nq in (1, 2, 4, 8, 16, 17, 32, 64))
+# The (Q, k_sel) shapes phase 4 times K3's wide kind at beside the kernels
+# that serve them (the sweep at Q = 1, the tensor-core scan past it): the
+# host-rescore band (k_sel 142) and the wider k_sel up to the scan's limit,
+# at the band's batch sizes (the crossover behind I8_WIDE_K_MIN, where one
+# tile of the wide kind holds 64 queries)
+K3_WIDE_CROSS = tuple((nq, k) for k in (142, 256, 384)
+                      for nq in (1, 17, 64, 128))
+# Phase 4 also times K3's wide kind beside the sweep (Q <= 4) and the
+# tensor-core scan (Q > 4) on int8 planes larger than its store, prefixes
+# of one plane of K3_LARGE_CAPS[-1] x DIM made on the card: the wide
+# kind's query tile over them is 32, 16 and 4 queries (its slab budget),
+# at the host-rescore band's k_sel 142 and at k_sel 384, the sweep's and
+# the scan's limit (the crossover behind scan.i8_wide_covers)
+K3_LARGE_CAPS = (2 << 20, 4 << 20, 16 << 20)
+K3_LARGE_SHAPES = tuple((nq, k) for k in (142, 384)
+                        for nq in (1, 4, 17, 64, 128))
+# The (Q, k_sel) shapes phase 2 holds and times K3's wide kind at: the
+# int8 store's host-rescore band at top_k = 300 (k + 128 + 4 = 432) and
+# the widest k_sel, at Q = 1 / 16 / 64 / 128
+K3_WIDE_SHAPES = tuple((nq, k) for k in (432, 1024) for nq in (1, 16, 64, 128))
 # A kernel slower than this (ms) on its first timed run is timed once
 SLOW_MS = 100.0
 # The (Q, k_sel) shapes phases 3 and 7 time K4's tensor-core scan and its
@@ -191,10 +224,11 @@ KERNELS = {
     # 7 / 8. K6 has a row per kernel: the sweep's int4 kind serves phase
     # 5's Q = 1 calls, the tensor-core scan (csrc/scan_i4_wgmma.cu) its
     # 2048- and 256-query batches. K3's row is the sweep's row-scaled int8
-    # kind, which serves phase 3's Q = 1 calls (and phase 4's host-rescore
-    # band at Q = 1), and its tensor-core scan's int8 kind
-    # (csrc/scan_topk_wgmma.cu), which serves phase 4's Q = 64 batches of
-    # the host-rescore band. K8 has a row per postings kind, both on its tensor-core
+    # kind, which serves phase 3's Q = 1 calls, and its tensor-core scan's
+    # int8 kind (csrc/scan_topk_wgmma.cu), which serves phase 14's Q = 16
+    # batches at k_sel 14 (the host-rescore band's k_sel 142 over the
+    # 1M-row store takes K3's wide kind, `i8_wide_ready`). K8 has a row
+    # per postings kind, both on its tensor-core
     # segment scan (csrc/ivf_segmax_wgmma.cu): float32 on phase 7's
     # 32-query chunks, int8 on phase 8's. K4's row is its tensor-core scan
     # (csrc/scan_topk_wgmma.cu), which serves phase 3's Q = 64 batches and
@@ -204,7 +238,10 @@ KERNELS = {
     # chunks. K7's tensor-core scan (csrc/ivf_scan_wgmma.cu) serves every
     # Q > 16 call of phase 11d's ShardedIVF, K6's wide kind
     # (csrc/topk_i4_wide.cu) every k_sel 526 call of phase 11c's host
-    # rescore: their rows count phase 11's launches.
+    # rescore: their rows count phase 11's launches. K3's wide kind
+    # (csrc/topk_i8_wide.cu) serves phase 4's top_k = 300 calls (k_sel 432),
+    # K7's (csrc/ivf_scan_wide.cu) every call of phase 7b's host-uploaded
+    # int8 / int4 IVF stores (k_sel 160 / 544).
     "segmax_scan": ("segmax_wgmma", "picovdb_tpu_torch/csrc/segmax.cu",
                     "picovdb_tpu/ops/pallas_scan.py:443", 3),
     "segmax_scan_cpasync": ("segmax_cpasync",
@@ -220,7 +257,7 @@ KERNELS = {
                       "picovdb_tpu/ops/pallas_scan.py:865", 3),
     "fused_topk_i8_wgmma": ("scan_topk_i8_wgmma",
                             "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
-                            "picovdb_tpu/ops/pallas_scan.py:865", 4),
+                            "picovdb_tpu/ops/pallas_scan.py:865", 14),
     "fused_topk": ("scan_topk_wgmma",
                    "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
                    "picovdb_tpu/ops/pallas_scan.py:226", 3),
@@ -244,6 +281,12 @@ KERNELS = {
     "fused_topk_i4_wide": ("scan_topk_i4_wide",
                            "picovdb_tpu_torch/csrc/topk_i4_wide.cu",
                            "picovdb_tpu/ops/pallas_scan.py:1315", 11),
+    "fused_topk_i8_wide": ("scan_topk_i8_wide",
+                           "picovdb_tpu_torch/csrc/topk_i8_wide.cu",
+                           "picovdb_tpu/ops/pallas_scan.py:865", 4),
+    "ivf_scan_topk_wide": ("ivf_scan_topk_wide",
+                           "picovdb_tpu_torch/csrc/ivf_scan_wide.cu",
+                           "picovdb_tpu/ops/ivf.py:1237", "7b"),
     "ivf_segmax_scan": ("ivf_segmax_wgmma",
                         "picovdb_tpu_torch/csrc/ivf_segmax_wgmma.cu",
                         "picovdb_tpu/ops/ivf.py:1492", 7),
@@ -354,12 +397,13 @@ def card_line() -> str:
 # mainloop's (K1, K5, K10, P1), the one-query sweep's (K9, K7, K6 and K3
 # at small Q), K6's tensor-core scan's (its wide kind's pass A, BUF 0,
 # among them), K8's tensor-core segment scan's, K4's tensor-core scan's
-# (K7's at Q > 16 and K4's wide kind's pass A among them), K2's split-row
-# warp select's and the wide kinds' radix select's
+# (K7's at Q > 16 and the pass A of K4's, K3's and K7's wide kinds among
+# them), K2's split-row warp select's, the wide kinds' radix select's and
+# K7's wide kind's step order
 PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel",
                  "ivf_segmax_wgmma_kernel", "scan_topk_wgmma_kernel",
                  "warp_select_kernel", "hist_kernel", "collect_kernel",
-                 "finish_kernel")
+                 "finish_kernel", "ivf_rows_kernel")
 
 
 def ptxas_report(log_path) -> str:
@@ -389,7 +433,7 @@ def ptxas_report(log_path) -> str:
             names = [n.replace("pv::<unnamed>::", "").replace("(int)", "")
                      .replace("wg::", "").replace("i4::", "").replace("sg::", "")
                      .replace("tk::", "").replace("tw::", "")
-                     .replace("rs::", "")
+                     .replace("rs::", "").replace("iw::", "")
                      .removeprefix("void ")
                      .split(">(")[0] + ">" for n in out]
     parts = [f"{n} {regs} registers / {sp} spill bytes"
@@ -618,8 +662,9 @@ def k3_timed(torch, scan, args, reps: int):
     """K3 on `args` (int8 queries, int8 rows, row scales, mask, k_sel):
     the dispatch's result and each kernel that can take these operands,
     launched uncounted (the sweep's row-scaled int8 kind at Q <= 16, k <=
-    384; the tensor-core scan's int8 kind at k <= 384, any Q; the
-    template), held bit for bit to the plain version's result (exact int32
+    384; the tensor-core scan's int8 kind at k <= 384, any Q; the wide
+    kind past k = 128, any Q; the template), held bit for bit to the plain
+    version's result (exact int32
     sums, one conversion, one multiply, ties to the lower row; over
     131,072-row slices, then the merge). Returns the kernel the dispatch
     chose and each kernel's time (`timed_ms`)."""
@@ -634,6 +679,8 @@ def k3_timed(torch, scan, args, reps: int):
         runs["sweep"] = lambda: scan._sweep_launch(*args, "fused_topk_i8")
     if k <= scan.I8_WGMMA_K_MAX:
         runs["tensor-core scan"] = lambda: scan._i8_wgmma_launch(*args)
+    if k > scan.TOPK_WGMMA_K_MAX:
+        runs["wide kind"] = lambda: scan._i8_wide_launch(*args)
     runs["template"] = lambda: scan._template_launch(*args, scan._KIND_I8,
                                                      "scan_topk_i8")
     for name, out in [("dispatch", got)] + [(n, r()) for n, r in runs.items()]:
@@ -664,17 +711,69 @@ def k3_table(torch, scan, queries, v8, vs, mask, shapes, reps: int = 5) -> str:
     return "; ".join(parts)
 
 
-def k3_launches_ok(scan, counts) -> bool:
-    """Whether a path's K3 launches at Q > I8_SWEEP_Q_MAX and k_sel <=
-    I8_WGMMA_K_MAX (its `launch_counts` shapes, "Q=.. k=..") went through
-    the tensor-core scan, and only those (the path's rows are of whole 16
-    bytes)."""
-    want = 0
+def k3_large_table(torch, scan, device) -> str:
+    """K3's wide kind beside the kernel that serves each of K3_LARGE_SHAPES
+    where the wide kind does not (the sweep at Q <= I8_SWEEP_Q_MAX, the
+    tensor-core scan past it), on each K3_LARGE_CAPS prefix of one int8
+    plane made on the card from its own generator (rows uniform in
+    -127..127, row scales in [0.5, 1.5), every row live): the two launched
+    uncounted, bit for bit each other (each equals the plain version at
+    phases 2 and 4), each timed (`timed_ms`), beside the wide kind's query
+    tile and the kernel the dispatch picks there."""
+    g = torch.Generator(device=device).manual_seed(SEED + 41)
+    top = max(K3_LARGE_CAPS)
+    v8 = torch.randint(-127, 128, (top, DIM), generator=g, device=device,
+                       dtype=torch.int8)
+    vs = torch.rand(top, generator=g, device=device) + 0.5
+    mask = torch.ones(top, dtype=torch.bool, device=device)
+    q8 = torch.randint(-127, 128, (128, DIM), generator=g, device=device,
+                       dtype=torch.int8)
+    parts = []
+    for cap in K3_LARGE_CAPS:
+        for nq, k in K3_LARGE_SHAPES:
+            args = (q8[:nq].contiguous(), v8[:cap], vs[:cap], mask[:cap], k)
+            if nq <= scan.I8_SWEEP_Q_MAX:
+                other = "sweep"
+                run = lambda: scan._sweep_launch(*args, "fused_topk_i8")
+            else:
+                other = "tensor-core scan"
+                run = lambda: scan._i8_wgmma_launch(*args)
+            wide = lambda: scan._i8_wide_launch(*args)
+            a, b = wide(), run()
+            torch.cuda.synchronize()
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), \
+                f"K3's wide kind and {other} differ at cap={cap} Q={nq} k={k}"
+            picked = ("wide kind" if scan.i8_wide_ready(args[0], args[1], k)
+                      else other)
+            parts.append(
+                f"cap={cap} Q={nq} k_sel={k} (tile "
+                f"{scan.topk_wide_tile(nq, cap)}, {picked}): wide kind "
+                f"{timed_ms(torch, wide, 3):.4f}, {other} "
+                f"{timed_ms(torch, run, 3):.4f} ms")
+            del a, b
+    del v8, vs, mask, q8
+    torch.cuda.empty_cache()
+    return "; ".join(parts)
+
+
+def k3_launches_ok(scan, counts, cap: int) -> bool:
+    """Whether a path's K3 launches (its `launch_counts` shapes, "Q=..
+    k=..") over its `cap` rows went where the ready rules send them, and
+    only those (the path's rows are of whole 16 bytes, its slab within the
+    budget): k_sel past I8_SWEEP_K_MAX, or past I8_WIDE_K_MIN where
+    `i8_wide_covers` holds, to the wide kind, the rest at Q <=
+    I8_SWEEP_Q_MAX to the sweep and past it to the tensor-core scan."""
+    want = {"scan_topk_i8_sweep": 0, "scan_topk_i8_wgmma": 0,
+            "scan_topk_i8_wide": 0}
     for shape, n in counts["shapes"].get("scan_topk_i8", {}).items():
         q, k = (int(part.split("=")[1]) for part in shape.split())
-        want += n if (q > scan.I8_SWEEP_Q_MAX
-                      and k <= scan.I8_WGMMA_K_MAX) else 0
-    return counts["scan_topk_i8_wgmma"] == want
+        wide = k > scan.I8_SWEEP_K_MAX or (
+            k > scan.I8_WIDE_K_MIN and scan.i8_wide_covers(q, cap))
+        key = ("scan_topk_i8_wide" if wide
+               else "scan_topk_i8_sweep" if q <= scan.I8_SWEEP_Q_MAX
+               else "scan_topk_i8_wgmma")
+        want[key] += n
+    return all(counts[key] == n for key, n in want.items())
 
 
 @contextlib.contextmanager
@@ -788,6 +887,11 @@ def k4_launches_ok(scan, counts) -> bool:
 # the float and int8 guard bands at k = 10 (k_sel 14 and 32) at 64 queries
 # (phase 11d's Q = 64 calls) and 512 (its batches)
 K7_TC_SHAPES = tuple((nq, k) for nq in (64, 512) for k in (14, 32))
+# The (Q, k_sel) shapes phase 2 holds and times K7's wide kind at, in every
+# postings kind: the host-rescore bands of the int8 (k + 128 + 22 = 160)
+# and int4 (k + 4 x 128 + 22 = 544) IVF stores at top_k = 10, at Q = 1
+# (the host-rescored single query), 16, 64 and 128
+K7_WIDE_SHAPES = tuple((nq, k) for k in (160, 544) for nq in (1, 16, 64, 128))
 # The (Q, k_sel) shapes phase 2 holds and times K6's wide kind at: the
 # mesh's int4 host-rescore band (k + 4 x RESCORE_GUARD + SHARD_GUARD = 526
 # at k = 10) and the widest k_sel, at phase 11c's batch sizes and Q = 16
@@ -893,6 +997,62 @@ def k6_wide_table(torch, scan, q, v4, vs4, mask):
         if (nq, ksel) in ((16, 1024), (128, 526)):
             splits.append(f"Q={nq} k_sel={ksel} " + device_split(
                 torch, lambda: scan._i4_wide_launch(q8, v4, vs4, mask, ksel)))
+    return out, "; ".join(splits)
+
+
+def k3_lib_ms(torch, q8, v8, vs, notmask, k: int) -> float:
+    """K3's library pair on its inputs: torch._int_mm (its M padded to 32
+    rows at Q <= 16, `int_mm_rows`) + row scales + masked_fill +
+    torch.topk."""
+    nq = q8.shape[0]
+    qq = int_mm_rows(torch, q8, nq) if nq <= 16 else q8
+    return cuda_ms(torch, lib_topk(
+        torch, lambda: torch._int_mm(qq, v8.T)[:nq].float() * vs, notmask, k))
+
+
+def k3_wide_table(torch, scan, q, v8, vs, mask):
+    """K3's wide kind at K3_WIDE_SHAPES over the int8 rows, for the first Q
+    of the float32 queries `q` (quantized as the int8 store's routes
+    quantize them): through the dispatch (one wide launch a call) under
+    `mask` and no live row, and its template, both bit for bit the plain
+    version; then the wide kind, the template and the library pair
+    (`k3_lib_ms`) timed on the same inputs beside the bound (the live rows
+    and their scales, or their int8 operations). Returns ({(Q, k_sel):
+    record}, the device split of the wide kind's kernels at Q = 16, k_sel
+    1024 and Q = 64, k_sel 432: pass A `scan_topk_wgmma_kernel`, pass B
+    `hist_kernel`, `collect_kernel`, the finish)."""
+    live, cap, dim = int(mask.sum()), mask.shape[0], q.shape[1]
+    none = torch.zeros_like(mask)
+    out, splits = {}, []
+    for nq, ksel in K3_WIDE_SHAPES:
+        q8, _ = scan.quantize_rows_i8(q[:nq])
+        for msk in (mask, none):
+            before = scan.LAUNCHES["scan_topk_i8_wide"]
+            got = scan.fused_topk_i8(q8, v8, vs, msk, ksel)
+            assert scan.LAUNCHES["scan_topk_i8_wide"] == before + 1, \
+                f"K3 Q={nq} k_sel={ksel} missed the wide kind"
+            tmpl = scan._template_launch(q8, v8, vs, msk, ksel, scan._KIND_I8)
+            ref = scan.scan_topk_plain(q8, v8, vs, msk, ksel, chunk=131_072)
+            torch.cuda.synchronize()
+            for what, res in (("wide kind", got), ("template", tmpl)):
+                assert torch.equal(res[0], ref[0]) and torch.equal(
+                    res[1], ref[1]), \
+                    f"K3's {what} differs from the plain version at Q={nq}"
+            if msk is mask:
+                err = exact_err(torch, got[0], ref[0])
+        rec = entry(err, cuda_ms(torch, lambda: scan._i8_wide_launch(
+            q8, v8, vs, mask, ksel)), None,
+            nq * dim + live * (dim + 4) + cap + nq * ksel * 8,
+            2 * nq * live * dim, "int8",
+            k3_lib_ms(torch, q8, v8, vs, ~mask, ksel), LIB_K3)
+        del rec["plain_ms"], rec["library_call"]
+        rec["template_ms"] = timed_ms(torch, lambda: scan._template_launch(
+            q8, v8, vs, mask, ksel, scan._KIND_I8), 3)
+        rec["faster_than_template"] = rec["ms"] < rec["template_ms"]
+        out[nq, ksel] = rec
+        if (nq, ksel) in ((16, 1024), (64, 432)):
+            splits.append(f"Q={nq} k_sel={ksel} " + device_split(
+                torch, lambda: scan._i8_wide_launch(q8, v8, vs, mask, ksel)))
     return out, "; ".join(splits)
 
 
@@ -1152,25 +1312,27 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["fused_topk_i8"] = entry(max(errs), ms1, pms[0],
                                  dim + live * (dim + 4) + cap + 14 * 8,
                                  2 * live * dim, "int8", lib3, LIB_K3_Q1)
-    # K3's tensor-core scan at the host-rescore band's batch (Q = 64,
-    # k_sel 142), the small-batch band's k_sel 14, and a 2048-query batch
-    # (the first queries of `q`: no new draw): the dispatch, the scan and
-    # the template bit for bit the plain version, each timed
+    # K3's tensor-core scan at phase 14's batches (Q = 16, k_sel 14), Q =
+    # 64 and a 2048-query batch at k_sel 14, and at the host-rescore band's
+    # batch (Q = 64, k_sel 142), which the wide kind serves (the first
+    # queries of `q`: no new draw): the dispatch, the scan, the
+    # wide kind past k_sel 128 and the template bit for bit the plain
+    # version, each timed
     k3b = {}
     q8b, _ = scan.quantize_rows_i8(q)
-    for nq3, ksel in ((64, 142), (64, 14), (2048, 14)):
+    for nq3, ksel in ((16, 14), (64, 14), (2048, 14), (64, 142)):
         args3 = (q8b[:nq3].contiguous(), v8, vs, mask, ksel)
         k3b[nq3, ksel] = k3_timed(torch, scan, args3, reps=5)
-        assert k3b[nq3, ksel][0] == "tensor-core scan", k3b
-        if (nq3, ksel) == (64, 142):
+        assert k3b[nq3, ksel][0] == (
+            "wide kind" if scan.i8_wide_ready(args3[0], v8, ksel)
+            else "tensor-core scan"), k3b
+        if (nq3, ksel) == (16, 14):
             pms3 = cuda_ms(torch, lambda: scan.scan_topk_plain(*args3), reps=5)
-            lib3b = cuda_ms(torch, lib_topk(
-                torch, lambda: torch._int_mm(args3[0], v8.T).float() * vs,
-                ~mask, 142))
+            lib3b = k3_lib_ms(torch, args3[0], v8, vs, ~mask, 14)
     rec["fused_topk_i8_wgmma"] = entry(
-        0.0, k3b[64, 142][1]["tensor-core scan"], pms3,
-        64 * dim + live * (dim + 4) + cap + 64 * 142 * 8,
-        2 * 64 * live * dim, "int8", lib3b, LIB_K3)
+        0.0, k3b[16, 14][1]["tensor-core scan"], pms3,
+        16 * dim + live * (dim + 4) + cap + 16 * 14 * 8,
+        2 * 16 * live * dim, "int8", lib3b, LIB_K3_Q1)
     del q8b
     log(f"phase 2: K3 fused_topk_i8 = plain bit for bit at Q=1,8,16 "
         f"k_sel=14 (bound {rec['fused_topk_i8']['bound_ms']:.4f} ms at Q=1; "
@@ -1180,12 +1342,34 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             for n, (served, times) in k3.items())
         + f"; plain {', '.join(f'{m:.4f}' for m in pms)}; at Q=1 {split3}")
     log(f"phase 2: K3 fused_topk_i8 (tensor-core scan) = plain bit for bit "
-        f"(bound {rec['fused_topk_i8_wgmma']['bound_ms']:.4f} ms at Q=64 "
-        f"k_sel=142; the kernel the dispatch chose, then each kernel's ms): "
+        f"(bound {rec['fused_topk_i8_wgmma']['bound_ms']:.4f} ms at Q=16 "
+        f"k_sel=14; the kernel the dispatch chose, then each kernel's ms): "
         + "; ".join(f"Q={n} k_sel={kk} {served}: " + ", ".join(
             f"{name} {t:.4f}" for name, t in times.items())
             for (n, kk), (served, times) in k3b.items())
-        + f"; plain at Q=64 k_sel=142 {pms3:.4f}")
+        + f"; plain at Q=16 k_sel=14 {pms3:.4f}; {LIB_K3_Q1} "
+        f"{lib3b:.4f}")
+
+    # K3's wide kind at K3_WIDE_SHAPES (the queries of the K1 batch above:
+    # no new draw), held bit for bit and timed beside its template and the
+    # library pair
+    wide3, split_w3 = k3_wide_table(torch, scan, q, v8, vs, mask)
+    w3 = wide3[64, 432]  # the row's shape: phase 4's top_k = 300 batch
+    q8w, _ = scan.quantize_rows_i8(q[:64])
+    rec["fused_topk_i8_wide"] = {
+        **w3, "plain_ms": cuda_ms(torch, lambda: scan.scan_topk_plain(
+            q8w, v8, vs, mask, 432), reps=3),
+        "library_call": LIB_K3,
+        "shapes": {f"Q={nq} k_sel={kk}": w for (nq, kk), w in wide3.items()}}
+    log(f"phase 2: K3 fused_topk_i8 (wide kind) = plain bit for bit under the "
+        f"~10 % mask and no live row (each shape: the wide kind, the template "
+        f"it replaces, {LIB_K3}, bound, ms): " + "; ".join(
+            f"Q={nq} k_sel={kk}: {w['ms']:.4f} / template "
+            f"{w['template_ms']:.4f} / library {w['library_ms']:.4f} / bound "
+            f"{w['bound_ms']:.4f} ({w['bound_by']})"
+            for (nq, kk), w in wide3.items())
+        + f"; plain at Q=64 k_sel=432 "
+        f"{rec['fused_topk_i8_wide']['plain_ms']:.4f}; {split_w3}")
 
     # K4 at Q = 64 and 256, k_sel 14 and 36 (the batch routes' guard bands
     # at k = 10 and 32), over the float32 rows and the bf16 mirror, and at
@@ -1430,9 +1614,9 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
 
     # K7 at Q = 1 and 16 with k_sel 14 and 32 (the float and int8 guard
     # bands at k = 10) on its one-query sweep, and Q = 16, k_sel 544 (the
-    # int4 host-rescore band) on its template. Where the sweep serves, the
+    # int4 host-rescore band) on its wide kind. Where the sweep serves, the
     # template it replaced is held to the same plain result and timed on
-    # the same inputs (uncounted).
+    # the same inputs (uncounted); the wide kind's table follows.
     def check_k7(kind, vals, idx, rv, ri, k, what):
         assert torch.equal(torch.isneginf(vals), torch.isneginf(rv[:, :k])), what
         if kind == "i8c":  # integer scores, ties to the lower row
@@ -1454,10 +1638,12 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
                 rng.standard_normal((nq, dim), dtype=np.float32)).to(device))
             qs, vv = scan_inputs(kind, qf), kinds[kind]
             sweep = k <= scan.SWEEP_K_MAX
-            before = scan.LAUNCHES["ivf_scan_topk_sweep"]
+            before = dict(scan.LAUNCHES)
             vals, idx = ivf.ivf_scan_topk(qs, vv, mask, hot, n_hot, k)
-            assert scan.LAUNCHES["ivf_scan_topk_sweep"] == before + sweep, \
-                f"K7 {kind} Q={nq} k_sel={k}: sweep {sweep} expected"
+            for key, want in (("ivf_scan_topk_sweep", sweep),
+                              ("ivf_scan_topk_wide", not sweep)):
+                assert scan.LAUNCHES[key] == before[key] + want, \
+                    f"K7 {kind} Q={nq} k_sel={k}: {key} {want} expected"
             rv, ri = ivf.ivf_scan_topk_plain(qs, vv, mask, hot, n_hot, k + 1)
             torch.cuda.synchronize()
             errs.append(check_k7(kind, vals, idx, rv, ri, k, f"K7 {kind}"))
@@ -1478,7 +1664,7 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
                 check_k7(kind, tv, ti, rv, ri, k, f"K7's template {kind}")
                 line += f" (template {cuda_ms(torch, tmpl):.4f})"
             else:
-                line += " (template)"
+                line += " (wide kind)"
             lines.append(f"{line}, plain {pms:.4f}")
             first.setdefault(kind, (ms, pms))
             if kind == "f32" and (nq, k) == (1, 14):
@@ -1576,6 +1762,76 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
             f"bound {t['bound_ms']:.4f} ({t['bound_by']})"
             for shape, t in tc.items())
         + "; f32 k_sel=14 " + "; ".join(splits7))
+
+    # K7's wide kind (128 < k_sel) at K7_WIDE_SHAPES in every kind, on the
+    # queries of the tensor-core scan's table (no new draw from `rng`):
+    # through the dispatch, held to the plain version as above with the
+    # template it replaces, each timed beside the library pair and the
+    # bound
+    wide7, splits7w = {}, []
+    for kind in kinds:
+        vv = kinds[kind]
+        es = vv.element_size()
+        for nq, k in K7_WIDE_SHAPES:
+            qs = scan_inputs(kind, q_tc[:nq])
+            before = scan.LAUNCHES["ivf_scan_topk_wide"]
+            vals, idx = ivf.ivf_scan_topk(qs, vv, mask, hot, n_hot, k)
+            assert scan.LAUNCHES["ivf_scan_topk_wide"] == before + 1, \
+                f"K7 {kind} Q={nq} k_sel={k} missed the wide kind"
+            rv, ri = ivf.ivf_scan_topk_plain(qs, vv, mask, hot, n_hot, k + 1)
+            torch.cuda.synchronize()
+            what = f"K7's wide kind {kind} Q={nq} k_sel={k}"
+            err = check_k7(kind, vals, idx, rv, ri, k, what)
+
+            def tmpl():
+                return ivf._ivf_template_launch(qs, vv, mask, hot, n_hot, k,
+                                                bn)
+
+            tv, ti = tmpl()
+            torch.cuda.synchronize()
+            check_k7(kind, tv, ti, rv, ri, k, f"K7's template {kind} Q={nq}")
+            if kind == "i8c":
+                q_mm = int_mm_rows(torch, qs, nq) if nq <= 16 else qs
+
+                def prod():
+                    return torch._int_mm(q_mm, vv.index_select(0, hot_idx).T
+                                         )[:nq].float()
+            else:
+                def prod():
+                    return torch.matmul(qs, vv.index_select(0, hot_idx).T)
+            rec_w = entry(
+                err, cuda_ms(torch, lambda: ivf._ivf_wide_launch(
+                    qs, vv, mask, hot, n_hot, k, bn)), None,
+                nq * dim * es + hot_live * dim * es + cap + nq * k * 8,
+                *tc_ops(torch, nq, hot_live, dim, vv.dtype),
+                cuda_ms(torch, lib_topk(torch, prod, hot_out, k)), None)
+            del rec_w["plain_ms"], rec_w["library_call"]
+            rec_w["template_ms"] = timed_ms(torch, tmpl, 3)
+            rec_w["faster_than_template"] = rec_w["ms"] < rec_w["template_ms"]
+            wide7[f"{kind} Q={nq} k_sel={k}"] = rec_w
+            if (kind, nq, k) in (("i8c", 1, 160), ("f32", 16, 544),
+                                 ("i8c", 64, 544)):
+                splits7w.append(f"{kind} Q={nq} k_sel={k} " + device_split(
+                    torch, lambda: ivf._ivf_wide_launch(qs, vv, mask, hot,
+                                                        n_hot, k, bn)))
+    q1w = scan_inputs("i8c", q_tc[:1])
+    rec["ivf_scan_topk_wide"] = {
+        **wide7["i8c Q=1 k_sel=160"],  # the row's shape: the int8 store's call
+        "plain_ms": cuda_ms(torch, lambda: ivf.ivf_scan_topk_plain(
+            q1w, v8, mask, hot, n_hot, 160), reps=3),
+        "library_call": LIB_IVF_TC,
+        "max_abs_err": max(t["max_abs_err"] for t in wide7.values()),
+        "shapes": wide7}
+    log(f"phase 2: K7's wide kind (ivf_scan_topk_wide) agrees over {cap} x "
+        f"{dim} postings, 40 of 64 hot tiles live (int8 bit for bit; f32 / "
+        f"bf16 scores within {TOL_SCORE:g}, ids outside the gap; each shape: "
+        f"the wide kind, the template it replaces, {LIB_IVF_TC}, bound, ms): "
+        + "; ".join(
+            f"{shape}: {t['ms']:.4f} / template {t['template_ms']:.4f} / "
+            f"library {t['library_ms']:.4f} / bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']})" for shape, t in wide7.items())
+        + f"; plain at i8c Q=1 k_sel=160 "
+        f"{rec['ivf_scan_topk_wide']['plain_ms']:.4f}; " + "; ".join(splits7w))
 
     # K8 at Q = 64 with per_seg 4 and 8
     q64 = normalize_on_device(torch.from_numpy(
@@ -2208,6 +2464,31 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     assert recall >= 0.99 and recall_f >= 0.99, (recall, recall_f)
     with uncounted(scan):  # the Q = 64 batches' latency, not the path's
         lat = q64_latency(torch, db, q64)
+    # top_k = 300 through the public API, a single query and the Q = 64
+    # batch: the host rescore's band k_sel 300 + 128 + 4 = 432 on K3's wide
+    # kind, each answer held to the float64 oracle over the store's
+    # (normalized) rows
+    from picovdb_tpu_torch import K_METRICS
+
+    before_w = scan.LAUNCHES["scan_topk_i8_wide"]
+    res300 = [db.query(one, top_k=300)]
+    dbg = db.last_query_debug()
+    assert dbg["strategy"] == "i8stor_fused_exact" and dbg["rescore"] == "host"
+    res300 += db.query(q64, top_k=300)
+    dbg = db.last_query_debug()
+    assert dbg["strategy"] == "i8stor_fused_exact" and dbg["rescore"] == "host"
+    assert scan.LAUNCHES["scan_topk_i8_wide"] >= before_w + 2, \
+        "a top_k = 300 call missed K3's wide kind"
+    unit_dev = normalize_on_device(corpus_dev)
+    top300 = wide_vs_oracle(
+        torch, unit_dev, torch.cat([qdev[:1], qdev[:64]]),
+        [[int(h["_id_"][1:]) for h in hits] for hits in res300],
+        [[h[K_METRICS] for h in hits] for hits in res300], 300,
+        "top_k=300 (Q=1, then Q=64)")
+    del unit_dev
+    with uncounted(scan):
+        lat300 = (cuda_ms(torch, lambda: db.query(one, top_k=300), reps=10),
+                  cuda_ms(torch, lambda: db.query(q64, top_k=300), reps=5))
 
     # 2048-query chunks of CUDA-resident queries: K5 + K2, then the
     # dequantizing rescore (storage precision: no host rescore for tensors)
@@ -2253,10 +2534,13 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     assert counts["segmax_i8_wgmma"] == counts["segmax_i8"] > 0, \
         "a K5 launch missed the int8 mainloop"
     shapes4 = counts["shapes"]["scan_topk_i8"]
-    assert counts["scan_topk_i8_sweep"] >= shapes4.get("Q=1 k=142", 0) > 0, \
-        "the host-rescore band's Q = 1 calls missed K3's sweep"
-    assert shapes4.get("Q=64 k=142", 0) > 0 and k3_launches_ok(scan, counts), \
-        "a K3 launch at Q > I8_SWEEP_Q_MAX missed the tensor-core scan"
+    for shape in ("Q=1 k=142", "Q=64 k=142", "Q=1 k=432", "Q=64 k=432",
+                  "Q=1 k=14"):
+        assert shapes4.get(shape, 0) > 0, (shape, shapes4)
+    assert k3_launches_ok(scan, counts, db2._dev.active.shape[0]), \
+        "a K3 launch missed the kernel its ready rules name (the host-" \
+        "rescore band's k_sel 142 / 432: the wide kind; Q = 1, k_sel 14: " \
+        "the sweep)"
     # after the count: K3 at K3_PHASE4 (the host-rescore band's launch
     # shapes, Q = 1 and the Q = 64 batches at k_sel 142, and those around
     # them) and at K3_CROSSOVER (the sweep against the tensor-core scan,
@@ -2269,6 +2553,17 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
                        d2.active, K3_PHASE4)
     k3_cross = k3_table(torch, scan, qdev, d2.vectors, d2.vstore_scale,
                         d2.active, K3_CROSSOVER, reps=3)
+    # the wide kind against the kernels serving k_sel 142-384 today, and at
+    # top_k = 300's k_sel 432 beside the template (the crossover behind
+    # I8_WIDE_K_MIN), and the library pair at the band's Q = 64, k_sel 142
+    # and at k_sel 432
+    k3_wide = k3_table(torch, scan, qdev, d2.vectors, d2.vstore_scale,
+                       d2.active, K3_WIDE_CROSS + ((1, 432), (64, 432)),
+                       reps=3)
+    k3_large = k3_large_table(torch, scan, device)
+    q8_64, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:64]))
+    lib4 = {kk: k3_lib_ms(torch, q8_64, d2.vectors, d2.vstore_scale,
+                          ~d2.active, kk) for kk in (142, 432)}
     # the tensor-core scan's device time by kernel (the scan, the merge) at
     # the host-rescore band's batch and at k_sel 14
     k3_split = {}
@@ -2309,11 +2604,22 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
         f"(sweep limit I8_SWEEP_Q_MAX = {scan.I8_SWEEP_Q_MAX}): {k3_cross}; "
         f"the tensor-core scan at Q=64: " + "; ".join(
             f"k_sel={ksel} {split}" for ksel, split in k3_split.items()))
+    log(f"phase 4: K3's wide kind against the sweep and the tensor-core "
+        f"scan, which take k_sel <= {scan.I8_WGMMA_K_MAX}, on the store's "
+        f"plane (I8_WIDE_K_MIN = {scan.I8_WIDE_K_MIN}; the kernel the "
+        f"dispatch chose, then each kernel's ms): {k3_wide}; {LIB_K3} at "
+        f"Q=64: k_sel=142 {lib4[142]:.4f} ms, k_sel=432 {lib4[432]:.4f} ms")
+    log(f"phase 4: K3's wide kind against the sweep and the tensor-core "
+        f"scan on int8 planes of {', '.join(map(str, K3_LARGE_CAPS))} rows "
+        f"x {DIM} made on the card (the wide kind's query tile, the kernel "
+        f"the dispatch picks, then each kernel's ms): {k3_large}")
     log(f"phase 4: int8 storage at {n} x {dim}: routes i8stor_fused_exact "
         f"(host rescore), segmax_i8stor_stream, i8stor_fused_smallq; "
         f"recall@10 vs float64 {recall:.4f} (filtered {recall_f:.4f}) with "
         f"the host rescore, {recall_dev:.4f} at storage precision; "
         f"segmax_i8stor_stream ids = plain exact_topk_i8r outside the gap; "
+        f"{top300} (K3's wide kind at k_sel 432; latency Q=1 "
+        f"{lat300[0]:.4f} ms, Q=64 {lat300[1]:.4f} ms); "
         f"save(quantized=True) + reload ok; launches {counts}")
     log(f"phase 4: insert {n / insert_s:.1f} vec/s; batch "
         f"{4096 / batch_s:.1f} QPS (query_columnar, 4096 queries); Q=1 "
@@ -2865,6 +3171,152 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str,
     return counts
 
 
+def ivf_wide_on_store(torch, scan, db, qn, k_sel: int) -> str:
+    """K7's wide kind on the IVF store `db`'s own inputs at the user's
+    calls: the probe's hot table of the first of the normalized queries
+    `qn` (a single query) and of the first 64 (the batch), the int8
+    postings and folded queries the route scans, the host-rescore band
+    `k_sel`. The wide kind and the template it replaced, launched
+    uncounted, held bit for bit to the plain version and timed beside the
+    bound (the live hot rows' int8 bytes, or their operations)."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    x = db._ivf
+    parts = []
+    for nq in (1, 64):
+        row_mask, hot, n_hot, grid_b = store_probe(db, qn[:nq])
+        qs, vs = tivf._scan_inputs(qn[:nq], x.vectors, x.vectors_i8c, x.cscale)
+        assert vs.dtype == torch.int8, vs.dtype
+
+        def wide():
+            return tivf._ivf_wide_launch(qs, vs, row_mask, hot, n_hot, k_sel,
+                                         tivf.IVF_BN)
+
+        def template():
+            return tivf._ivf_template_launch(qs, vs, row_mask, hot, n_hot,
+                                             k_sel, tivf.IVF_BN)
+
+        ref = tivf.ivf_scan_topk_plain(qs, vs, row_mask, hot, n_hot, k_sel)
+        for what, out in (("wide kind", wide()), ("template", template())):
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), \
+                f"K7's {what} differs from the plain version on the store"
+        live = int(scanned_rows(torch, db, row_mask, hot, n_hot).sum())
+        dim = vs.shape[1]
+        bound = entry(0.0, 0, 0, nq * dim + live * dim + vs.shape[0]
+                      + nq * k_sel * 8, 2 * nq * live * dim, "int8")["bound_ms"]
+        part = (f"Q={nq} (grid_b {grid_b}, n_hot {int(n_hot)}, {live} live "
+                f"rows): wide kind {cuda_ms(torch, wide):.4f} ms, the template "
+                f"it replaced {timed_ms(torch, template, 3):.4f} ms, bound "
+                f"{bound:.4f} ms")
+        if nq == 1:
+            part += " [" + device_split(torch, wide) + "]"
+        parts.append(part)
+    return "; ".join(parts)
+
+
+def phase_ivf_host(torch, scan, device, n: int, dim: int, card: str):
+    """Phase 7b: the host-rescore band of quantized IVF stores. A clustered
+    n x dim mixture (its own generator, SEED_7B) uploaded from the host
+    with upsert_columnar into storage_dtype="int8", index="ivf", then
+    (after that store is freed) into "int4": each serves 64 single queries
+    and a Q = 64 query_columnar at top_k = 10 with the host rescore (route
+    ivf_i8: K7 over the int8-only layout's column-scaled int8 postings at
+    k_sel 10 + guard + 22: 160 for int8, 544 for int4), every K7 launch on
+    its wide kind and none on the template; ids held to the float64 oracle
+    over the rows each call scanned (`probed_slots`: at most 1 % of id
+    sets off), recall@10 against every row; Q = 1 and Q = 64 latency; the
+    wide kind and the template timed on the store's own hot tables
+    (`ivf_wide_on_store`)."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops import ivf as tivf
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    rng = np.random.default_rng(SEED_7B)
+    t_phase = time.perf_counter()
+    corpus = np.empty((n, dim), dtype=np.float32)
+    for s, rows in mixture_chunks(torch, device, n, dim, SEED_7B):
+        corpus[s:s + rows.shape[0]] = rows.cpu().numpy()
+    ids = [f"h{i}" for i in range(n)]
+    qs = (corpus[rng.integers(0, n, 64)] + 0.01 * rng.standard_normal(
+        (64, dim), dtype=np.float32))
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    chunks = [(s, corpus_dev[s:s + 131_072]) for s in range(0, n, 131_072)]
+    qn = normalize_on_device(torch.from_numpy(qs).to(device))
+    _, oi_all = oracle_masked(torch, chunks, qn, None)
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    scan.reset_launch_counts()
+    lines = []
+    keys7 = ("ivf_scan_topk", "ivf_scan_topk_sweep", "ivf_scan_topk_wgmma",
+             "ivf_scan_topk_wide")
+    for storage in ("int8", "int4"):
+        before = dict(scan.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        db = PicoVectorDB(embedding_dim=dim, index="ivf", device=device,
+                          storage_dtype=storage,
+                          storage_file=os.path.join(tmp, storage))
+        t0 = time.perf_counter()
+        db.upsert_columnar(corpus, ids=ids, copy=False)
+        db.query(qs[0], top_k=10)  # the first sync: upload + IVF build
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        dbg = db.last_query_debug()
+        op = dbg["ann_operating_point"]
+        assert dbg["strategy"] == "ivf_i8" and dbg["rescore"] == "host", dbg
+        assert op["layout"] == "int8_only", op
+        k_sel = 10 + db._rescore_guard + tivf._ivf_guard(True, dim)
+        got1 = serve_singles(db, qs, "ivf_i8")  # K7's wide kind at Q = 1
+        gotb, _ = db.query_columnar(qs, top_k=10)  # at Q = 64
+        dbg = db.last_query_debug()
+        assert dbg["strategy"] == "ivf_i8" and dbg["rescore"] == "host", dbg
+        made = {k: scan.LAUNCHES[k] - before[k] for k in keys7}
+        template = made["ivf_scan_topk"] - sum(made[k] for k in keys7[1:])
+        assert made["ivf_scan_topk_wide"] >= 66 and template == 0, (
+            f"7b {storage}: K7 launches {made}, {template} on the template")
+        shapes = scan.LAUNCH_SHAPES["ivf_scan_topk"]
+        assert shapes.get((1, k_sel), 0) >= 65 and shapes.get((64, k_sel)), \
+            (storage, k_sel, shapes)
+        m1 = torch.stack([probed_slots(torch, db, qn[i:i + 1], n)
+                          for i in range(64)])
+        bad1 = ids_off_oracle(got1, "h", *oracle_masked(torch, chunks, qn, m1))
+        del m1
+        mb = probed_slots(torch, db, qn, n)[None].expand(64, -1)
+        badb = ids_off_oracle(gotb, "h", *oracle_masked(torch, chunks, qn, mb))
+        del mb
+        assert bad1 <= 0.01 * 64 and badb <= 0.01 * 64, (storage, bad1, badb)
+        recall1 = recall_at_10(got1, oi_all[:, :10], "h")
+        recallb = recall_at_10(gotb, oi_all[:, :10], "h")
+        with uncounted(scan):  # the latencies and the kernels' times
+            q1_ms = cuda_ms(torch, lambda: db.query(qs[0], top_k=10), reps=20)
+            q64_ms = cuda_ms(torch, lambda: db.query_columnar(qs, top_k=10),
+                             reps=5)
+            kern = ivf_wide_on_store(torch, scan, db, qn, k_sel)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        lines.append(
+            f"{storage}: built at the first sync in {build_s:.2f} s (upload "
+            f"+ IVF build), nlist {op['nlist']}, nprobe "
+            f"{op['nprobe_default']}, postings {op['postings']}, layout "
+            f"{op['layout']}; route ivf_i8 with the host rescore, K7 at k_sel "
+            f"{k_sel} on its wide kind ({made['ivf_scan_topk_wide']} of "
+            f"{made['ivf_scan_topk']} launches, 0 on the template); ids = the "
+            f"restricted float64 oracle outside the gap on {64 - bad1}/64 "
+            f"single queries and {64 - badb}/64 of the batch; recall@10 vs "
+            f"every row {recall1:.4f} / {recallb:.4f}; Q=1 latency "
+            f"{q1_ms:.4f} ms (CUDA events, median of 20), Q=64 query_columnar "
+            f"{q64_ms:.4f} ms (median of 5); peak device memory {peak:.2f} "
+            f"GiB; K7 on the store's own hot tables: {kern}")
+        del db
+        torch.cuda.empty_cache()
+    counts = launch_counts(scan)
+    del corpus_dev, chunks
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    log(f"phase 7b: host-uploaded IVF stores over a clustered {n} x {dim} "
+        f"mixture ({time.perf_counter() - t_phase:.1f} s): " + " | ".join(lines)
+        + f"; launches {counts}; card {card}")
+    return counts
+
+
 def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str,
                    rec):
     """The IVF tier's int8-only layout over a device-born, clustered
@@ -3352,7 +3804,8 @@ def phase_probes(torch, scan, device, card: str):
 # the KERNELS rows phase 11 drives on every shard: K4, K3, K6, K7
 MESH_ROWS = ("fused_topk", "fused_topk_i8", "fused_topk_i8_wgmma",
              "fused_topk_i4", "fused_topk_i4_wgmma", "ivf_scan_topk",
-             "ivf_scan_topk_wgmma", "fused_topk_i4_wide")
+             "ivf_scan_topk_wgmma", "fused_topk_i4_wide",
+             "fused_topk_i8_wide")
 # phase 11d as this script measured it while K7's template served its
 # Q > 16 calls (an H100 80GB HBM3 at 700 W): the line prints it beside
 # this run's
@@ -4322,7 +4775,7 @@ def mp_int8(torch, scan, mesh, cfg, say) -> dict:
     with dispatch_log(db) as seen:
         db.query_columnar(qhost[:1], top_k=10)  # the sweep, host rescore
         assert db.last_query_debug()["rescore"] == "host"
-        db.query_columnar(qhost[:64], top_k=10)  # the tensor-core scan
+        db.query_columnar(qhost[:64], top_k=10)  # k_sel 142: the wide kind
         got = db.query_columnar(qhost[:128], top_k=10)[0]
         served = [(qdev[:1], db.query_columnar(qdev[:1], top_k=10)),
                   (qdev[:64], db.query_columnar(qdev[:64], top_k=10)),
@@ -4331,8 +4784,8 @@ def mp_int8(torch, scan, mesh, cfg, say) -> dict:
     counts = launch_counts(scan)
     assert db.last_query_debug()["strategy"] == "sharded_scan_i8stor_pallas"
     launches = mesh_launches_ok(scan, mesh, "scan_topk_i8", seen)
-    assert (counts["scan_topk_i8_sweep"] > 0
-            and counts["scan_topk_i8_wgmma"] > 0), counts
+    assert (counts["scan_topk_i8_sweep"] > 0 and counts["scan_topk_i8_wgmma"]
+            > 0 and counts["scan_topk_i8_wide"] > 0), counts
     rec = mesh_oracle_check(got, ov, oi, "12b", 0.99)
     assert ids_off_oracle(got, "b", ov, oi) == 0
     plain = mesh_plain_check(torch, scan, db, served, "int8")
@@ -4353,8 +4806,9 @@ def mp_int8(torch, scan, mesh, cfg, say) -> dict:
     for i in checked:
         assert db.query(corpus[i], top_k=1)[0][K_ID] == f"b{i}", i
     say(f"12b {n} x {dim} int8 upserted on every rank, route "
-        f"sharded_scan_i8stor_pallas (K3 a local shard: the sweep at Q = 1, "
-        f"the tensor-core scan at Q = 64): host-rescored {rec}; Q = 1, "
+        f"sharded_scan_i8stor_pallas (K3 a local shard: the wide kind at the "
+        f"host rescore's k_sel 142, the sweep at Q = 1 and the tensor-core "
+        f"scan at Q = 64 at k_sel 14): host-rescored {rec}; Q = 1, "
         f"Q = 64 and the chunks at storage precision {plain}; save {save_s:.2f}"
         f" s, this rank's float32 shard within {err:.4f} of its rows, the "
         f"reload ranks rows {checked} first; launches {launches}, by shape "
@@ -5645,6 +6099,7 @@ def main() -> int:
     trace_only = sys.argv[1:] == ["--trace-mesh"]
     rag_only = sys.argv[1:] == ["--rag"]
     tools_only = sys.argv[1:] == ["--tools"]
+    k3_only = sys.argv[1:] == ["--k3-cross"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -5659,6 +6114,11 @@ def main() -> int:
 
     if trace_only:
         return trace_mesh_main(torch, card)
+    if k3_only:  # phase 4's larger int8 planes alone
+        log(f"phase 4: K3 on larger planes: "
+            f"{k3_large_table(torch, scan, device)}")
+        print(card)
+        return 0
     if mesh_only:  # phase 11 alone, for iterating on it
         mesh_rec = {"ivf_scan_topk_wgmma": {}, "fused_topk_i4_wide": {}}
         counts = phase_mesh(torch, scan, device,
@@ -5707,6 +6167,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts[7] = phase_ivf_f32(torch, scan, device, IVF_N, DIM, rng, card,
                              rec)
+    torch.cuda.empty_cache()
+    counts["7b"] = phase_ivf_host(torch, scan, device, IVF_HOST_N, DIM, card)
     torch.cuda.empty_cache()
     counts[8] = phase_ivf_int4(torch, scan, device, IVF_I4_N, DIM, rng,
                               card, rec)

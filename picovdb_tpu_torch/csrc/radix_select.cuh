@@ -1,13 +1,15 @@
 // Pass B of the wide kinds (128 < k <= 1024): an exact per-query radix
 // select over a slab of 32-bit sortable score keys, reading the mask beside
 // them. K4's wide kind (topk_wide.cu, whose head comment sets out the
-// design) and K6's (topk_i4_wide.cu) run it on the slab their tensor-core
-// scan's pass A writes: `select_tile` launches, per tile of nq queries,
-// hist_kernel<0..2> (11 / 11 / 10-bit digit histograms, the deeper levels
-// only while more than CAP keys reach the k-th's bucket), collect_kernel
-// (the keys at or above that bucket as row_keys) and finish_kernel (their
-// sort, the ties past CAP taken in row order), writing the best k
-// decoded. Exact at every k, ties to the lower row.
+// design), K6's (topk_i4_wide.cu), K3's (topk_i8_wide.cu) and K7's
+// (ivf_scan_wide.cu) run it on the slab their tensor-core scan's pass A
+// writes: `select_tile` launches, per tile of nq queries, hist_kernel<0..2>
+// (11 / 11 / 10-bit digit histograms, the deeper levels only while more
+// than CAP keys reach the k-th's bucket), collect_kernel (the keys at or
+// above that bucket as row_keys) and finish_kernel (their sort, the ties
+// past CAP taken in row order), writing the best k decoded (`Decode`: the
+// key's score as float32 or int32, the slab row as itself or through a
+// hot-tile table). Exact at every k, ties to the lower slab row.
 
 #pragma once
 
@@ -352,6 +354,16 @@ __device__ void sort_desc(const u64* __restrict__ cq, int n, int P, u64* buf) {
   __syncthreads();
 }
 
+// How the finish writes a key: its score (the high word of a row_key, or
+// of an int_row_key where int_scores: K7's int8 postings rank the exact
+// int32 sum) and its row (the slab row, or where hot is set, slab row l is
+// IVF row hot[l / bn] * bn + l % bn: K7's slab is indexed by logical row).
+struct Decode {
+  const int* hot;
+  int bn;
+  int int_scores;
+};
+
 // One CTA a query: its candidates sorted by row_key (`sort_desc`; the
 // ties path appends the equal keys in row order behind the keys above
 // them), the best k written decoded to vals / idx (-inf / 0 past them).
@@ -360,7 +372,7 @@ finish_kernel(const uint32_t* __restrict__ slab,
               const uint8_t* __restrict__ mask,
               const uint32_t* __restrict__ hist, const u64* __restrict__ cand,
               float* __restrict__ vals, int* __restrict__ idx, long cap,
-              long ld, int k) {
+              long ld, int k, const Decode dec) {
   extern __shared__ u64 buf[];  // pad16(CAP) keys
   __shared__ int sm[40];
   const int q = blockIdx.x;
@@ -377,20 +389,24 @@ finish_kernel(const uint32_t* __restrict__ slab,
   __syncthreads();
   for (int j = threadIdx.x; j < k; j += FINISH) {
     const u64 key = j < total ? buf[j] : 0ull;
-    vals[(long)q * k + j] = row_key_score(key);
-    idx[(long)q * k + j] = row_key_row(key);
+    int row = row_key_row(key);
+    if (dec.hot && key) row = dec.hot[row / dec.bn] * dec.bn + row % dec.bn;
+    vals[(long)q * k + j] =
+        dec.int_scores ? int_row_key_score(key) : row_key_score(key);
+    idx[(long)q * k + j] = row;
   }
 }
 
 // A query tile's select: slab (nq, ld) keys of rows [0, cap) (ld = cap
 // rounded up to 128), mask (cap,) uint8 4-byte aligned, hist (nq, HIST)
 // zeroed before, cand (nq, CAP) scratch; vals / idx (nq, k) receive the
-// best k decoded (-inf / 0 past the live rows). ~4 reading CTAs an SM of
-// `sms`.
+// best k decoded by `dec` (-inf / 0 past the live rows). ~4 reading CTAs
+// an SM of `sms`.
 inline cudaError_t select_tile(const uint32_t* slab, const uint8_t* mask,
                                uint32_t* hist, u64* cand, float* vals,
                                int* idx, int nq, long cap, long ld, int k,
-                               int sms, cudaStream_t s) {
+                               int sms, cudaStream_t s,
+                               const Decode dec = {nullptr, 1, 0}) {
   if (cap > 0) {
     const long segs = ld / SEG;
     const long want = (4L * sms + nq - 1) / nq;  // ~4 CTAs an SM
@@ -406,15 +422,60 @@ inline cudaError_t select_tile(const uint32_t* slab, const uint8_t* mask,
     if (e != cudaSuccess) return e;
   }
   finish_kernel<<<nq, FINISH, FINISH_SMEM, s>>>(slab, mask, hist, cand, vals,
-                                                idx, cap, ld, k);
+                                                idx, cap, ld, k, dec);
   return cudaGetLastError();
 }
 
-// finish_kernel's dynamic shared memory, set once a launcher's call.
-inline cudaError_t select_attributes() {
-  return cudaFuncSetAttribute(finish_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              FINISH_SMEM);
+// The current device's SM count, and finish_kernel's dynamic shared
+// memory set on it: once a launcher's call.
+inline cudaError_t prepare(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(finish_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             FINISH_SMEM);
+  return e;
+}
+
+// The query planes pass A multiplies, from the float32 queries q (total
+// elements): kind 0 hi = q with its low 13 mantissa bits cleared and lo =
+// q - hi (ops/scan.py::split_tf32), kind 1 three bf16 planes q1 = bf16(q),
+// q2 = bf16(q - q1), q3 = bf16(q - q1 - q2) (ops/scan.py::split_bf16),
+// planes `total` elements apart. K4's and K7's wide kinds split their
+// float queries with it (K7 takes kind 0 alone: its bf16 kind multiplies
+// one plane, the queries as they are).
+__global__ void __launch_bounds__(256)
+planes_kernel(const float* __restrict__ q, void* __restrict__ planes,
+              long total, int kind) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    const float x = q[i];
+    if (kind == 0) {
+      float* f = static_cast<float*>(planes);
+      const float h = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+      f[i] = h;
+      f[total + i] = x - h;
+    } else {
+      __nv_bfloat16* b = static_cast<__nv_bfloat16*>(planes);
+      const __nv_bfloat16 q1 = __float2bfloat16_rn(x);
+      const float r = x - __bfloat162float(q1);
+      const __nv_bfloat16 q2 = __float2bfloat16_rn(r);
+      b[i] = q1;
+      b[total + i] = q2;
+      b[2 * total + i] = __float2bfloat16_rn(r - __bfloat162float(q2));
+    }
+  }
+}
+
+// planes_kernel over `total` elements, at most 4 CTAs an SM of `sms`.
+inline cudaError_t split_planes(const float* q, void* planes, long total,
+                                int kind, int sms, cudaStream_t s) {
+  planes_kernel<<<(int)std::min((total + 255) / 256, 4L * sms), 256, 0, s>>>(
+      q, planes, total, kind);
+  return cudaGetLastError();
 }
 
 // Bytes of one tile's histograms and candidates at q_tile queries.
@@ -423,6 +484,50 @@ inline size_t hist_bytes(int q_tile) {
 }
 inline size_t cand_bytes(int q_tile) {
   return (size_t)q_tile * CAP * sizeof(u64);
+}
+
+inline size_t up256(size_t b) { return (b + 255) / 256 * 256; }
+
+// One query tile's scratch: its slab (q_tile x ld keys), histograms and
+// candidates, each from a 256-byte boundary (ops/scan.py::
+// i4_wide_scratch restates it).
+struct Tile {
+  size_t hist, cand, bytes;  // offsets; the slab at 0
+};
+inline Tile tile_layout(int q_tile, long ld) {
+  Tile t;
+  t.hist = up256((size_t)q_tile * ld * sizeof(uint32_t));
+  t.cand = t.hist + up256(hist_bytes(q_tile));
+  t.bytes = t.cand + cand_bytes(q_tile);
+  return t;
+}
+
+// Every wide kind's walk over its Q queries in tiles of q_tile: a tile's
+// histograms zeroed with one memset, `pass_a(q0, nq, slab)` writing the
+// slab of queries [q0, q0 + nq) (returns 0 or an error), then their
+// select into rows [q0, q0 + nq) of vals / idx (Q, k). `tile` (256-byte
+// aligned) holds one tile's `tile_layout`; `sms` from `prepare`. Returns
+// 0, a cudaError_t, or pass A's error.
+template <class PassA>
+int walk_tiles(unsigned char* tile, const uint8_t* mask, float* vals,
+               int* idx, int Q, int q_tile, long cap, long ld, int k,
+               int sms, cudaStream_t s, PassA pass_a,
+               const Decode dec = {nullptr, 1, 0}) {
+  const Tile t = tile_layout(q_tile, ld);
+  uint32_t* slab = reinterpret_cast<uint32_t*>(tile);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(tile + t.hist);
+  u64* cand = reinterpret_cast<u64*>(tile + t.cand);
+  for (int q0 = 0; q0 < Q; q0 += q_tile) {
+    const int nq = std::min(q_tile, Q - q0);
+    cudaError_t e = cudaMemsetAsync(hist, 0, hist_bytes(nq), s);
+    if (e != cudaSuccess) return (int)e;
+    const int err = pass_a(q0, nq, slab);
+    if (err) return err;
+    e = select_tile(slab, mask, hist, cand, vals + (size_t)q0 * k,
+                    idx + (size_t)q0 * k, nq, cap, ld, k, sms, s, dec);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace rs

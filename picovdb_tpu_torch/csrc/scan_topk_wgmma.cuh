@@ -3,7 +3,8 @@
 // Rows as M, N queries as N, a TMA ring of 128-byte k-stages, a selection
 // per query in registers and shared memory, over either the rows [0, cap)
 // in 128-row segments or the live steps of an IVF hot-tile table
-// (`Rows`).
+// (`Rows`). With BUF 0 it is the wide kinds' pass A (K4: topk_wide.cu, K3:
+// topk_i8_wide.cu, K7: ivf_scan_wide.cu): every key goes to a slab.
 
 #pragma once
 
@@ -111,6 +112,13 @@ __device__ __forceinline__ float score_floor(u64 tau, float) {
 __device__ __forceinline__ int score_floor(u64 tau, int) {
   return tau ? (int)((uint32_t)(tau >> 32) ^ 0x80000000u) : INT_MIN;
 }
+// The slab's 32-bit sortable key of a score: the high word of its
+// selection key (row_key / int_row_key), so pass B's (key, row) keys order
+// as the selection keys do
+__device__ __forceinline__ uint32_t slab_key(float s) { return float_order(s); }
+__device__ __forceinline__ uint32_t slab_key(int s) {
+  return (uint32_t)s ^ 0x80000000u;
+}
 
 // Shared memory of kind T with N queries a CTA, S stages and BUF keys a
 // query: the ring (rows, then the query planes), F32's lo buffers (two a
@@ -216,12 +224,14 @@ __device__ __forceinline__ void retire(float (&part)[A], float (&acc)[A],
 // reads two, the one-plane kinds one); all 128B-swizzled. mask (cap,)
 // uint8; vscale (cap,) float32, Int8R's row scales; `map` the segments
 // walked. `partial` receives, per query of this CTA's tile, k keys at ((q
-// * ranges + range) * k). BUF == 0 (the wide kind's pass A, topk_wide.cu;
-// rows [0, cap) only) keeps no selection: `partial` is then the slab, (Q,
-// ld) uint32 with ld = cap rounded up to whole segments, and every row
-// below cap of a live segment gets its sortable score key float_order(s)
-// at (q * ld + row), whatever its mask byte (the readers of the slab read
-// the mask); rows of dead segments are not written.
+// * ranges + range) * k). BUF == 0 (the wide kinds' pass A) keeps no
+// selection: `partial` is then the slab, (Q, ld) uint32, and every row
+// below cap of a live segment gets its sortable score key slab_key(s),
+// whatever its mask byte (the readers of the slab read the mask); rows of
+// dead segments are not written. Over the rows [0, cap) (K4, K3) a row's
+// key lies at (q * ld + row), ld = cap rounded up to whole segments; over
+// a hot-tile table (K7) at its logical row, (q * ld + seg * 128 + lane)
+// for logical segment seg, ld = grid_b * bn.
 template <class T, int N, int S, int BUF>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
@@ -235,7 +245,6 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
   typedef Smem<T, N, S, BUF> L;
   typedef typename T::Score Sc;
   constexpr int ACC = N / 2;  // accumulators a thread
-  static_assert(BUF > 0 || std::is_same<Sc, float>::value, "float slab");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -359,9 +368,11 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
     }
     n += k_iters;
 
-    if constexpr (BUF == 0) {  // the wide kind's slab: every key, no select
+    if constexpr (BUF == 0) {  // the wide kinds' slab: every key, no select
       uint32_t* slab = reinterpret_cast<uint32_t*>(partial);
-      const long ld = (cap + ROWS - 1) / ROWS * ROWS;
+      const long ld = map.hot ? (long)map.grid_b * map.bn
+                              : (cap + ROWS - 1) / ROWS * ROWS;
+      const long l0 = map.hot ? seg * ROWS : r0;  // the segment's slab row
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const long r = r0 + m0 + 8 * h;
@@ -371,8 +382,8 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
 #pragma unroll
             for (int e = 0; e < 2; ++e)
               if ((qlive >> (2 * j + e)) & 1u)
-                slab[(long)(q0 + 8 * j + 2 * (lane % 4) + e) * ld + r] =
-                    float_order(acc[4 * j + 2 * h + e]);
+                slab[(long)(q0 + 8 * j + 2 * (lane % 4) + e) * ld + l0 + m0 +
+                     8 * h] = slab_key(acc[4 * j + 2 * h + e]);
       }
     } else {
       // epilogue: admit, and compact + re-admit while an admission failed.

@@ -36,10 +36,10 @@
 //    in row order. The score key orders as row_key's high word, so the
 //    selection equals the plain version's on (score, row) keys.
 //  * The launcher walks the permuted queries in tiles of q_tile
-//    (ops/scan.py::topk_wide_tile keeps the slab under 256 MiB), zeroing a
-//    tile's histograms with one memset. One scratch buffer (slab,
-//    histograms, candidates: ops/scan.py::i4_wide_scratch) and one library
-//    call a batch.
+//    (ops/scan.py::topk_wide_tile keeps the slab under 256 MiB;
+//    radix_select.cuh's `walk_tiles`), zeroing a tile's histograms with one
+//    memset. One scratch buffer (slab, histograms, candidates:
+//    ops/scan.py::i4_wide_scratch) and one library call a batch.
 
 #include <algorithm>
 
@@ -64,39 +64,21 @@ extern "C" int pv_scan_topk_i4_wide(const void* q_perm, const void* v,
   using namespace pv;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
   const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
-  auto up256 = [](size_t b) { return (b + 255) / 256 * 256; };
-  const size_t hist_off = up256((size_t)q_tile * ld * sizeof(uint32_t));
-  const size_t cand_off = hist_off + up256(rs::hist_bytes(q_tile));
   if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || dim % 128 ||
       q_tile <= 0 || q_tile > 65535 || !vscale || (uintptr_t)mask % 4 ||
       (uintptr_t)scratch % 256 ||
-      (size_t)scratch_bytes < cand_off + rs::cand_bytes(q_tile))
+      (size_t)scratch_bytes < rs::tile_layout(q_tile, ld).bytes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = rs::select_attributes();
+  int sms = 0;
+  const cudaError_t e = rs::prepare(&sms);
   if (e != cudaSuccess) return (int)e;
-  unsigned char* base = static_cast<unsigned char*>(scratch);
-  uint32_t* sl = reinterpret_cast<uint32_t*>(base);
-  uint32_t* hi = reinterpret_cast<uint32_t*>(base + hist_off);
-  u64* cd = reinterpret_cast<u64*>(base + cand_off);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  for (int q0 = 0; q0 < Q; q0 += q_tile) {
-    const int nq = std::min(q_tile, Q - q0);
-    e = cudaMemsetAsync(hi, 0, rs::hist_bytes(nq), s);
-    if (e != cudaSuccess) return (int)e;
-    const int err = launch_i4_slab(
-        static_cast<const int8_t*>(q_perm) + (size_t)q0 * dim, v, vscale,
-        mask, sl, nq, cap, dim, s);
-    if (err) return err;
-    e = rs::select_tile(sl, m, hi, cd,
-                        static_cast<float*>(vals) + (size_t)q0 * k,
-                        static_cast<int*>(idx) + (size_t)q0 * k, nq,
-                        (long)cap, ld, k, sms, s);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  const int8_t* qp = static_cast<const int8_t*>(q_perm);
+  return rs::walk_tiles(
+      static_cast<unsigned char*>(scratch), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(vals), static_cast<int*>(idx), Q, q_tile,
+      (long)cap, ld, k, sms, s, [&](int q0, int nq, uint32_t* slab) {
+        return launch_i4_slab(qp + (size_t)q0 * dim, v, vscale, mask, slab,
+                              nq, cap, dim, s);
+      });
 }

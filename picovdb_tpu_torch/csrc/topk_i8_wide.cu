@@ -1,0 +1,104 @@
+// K3 fused_topk_i8 at 128 < k <= 1024 (the wide kind): K3's tensor-core
+// scan writing every live row's sortable score key to a slab, then the
+// per-query radix select over the slab.
+//
+// Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i8 (`_scan_kernel_i8`)
+// past k_sel 128 wherever TMA can read both operands (ops/scan.py::
+// i8_wide_ready: dim % 16 == 0, 16-byte aligned bases): the int8 store's
+// host-rescore band k + RESCORE_GUARD + 4 (142 at top_k = 10, 432 at 300),
+// at every batch size past k_sel 384. Up to k_sel 384 the sweep and K3's
+// tensor-core scan take it too: the wide kind serves there only where its
+// query tile holds min(Q, 64) queries (ops/scan.py::i8_wide_covers), and
+// so reads the rows no more often than they do (the times phase 4 of
+// chip_smoke.py measured are at ops/scan.py::I8_WIDE_K_MIN).
+// It computes scan_topk_plain's int8 branch bit for bit: per query the k
+// best live rows by float32(int32 q . v) * vscale[row] (one conversion,
+// one multiply), ties to the lower row (row_key), as (Q, k) float32
+// scores (-inf where a slot is empty) and (Q, k) int32 rows (0 where
+// empty).
+//
+// What bounds it on the H100: the int8 rows and their scales, read once
+// per query tile of pass A (1M x 1024: 1.03 GB, 0.31 ms at 3.35 TB/s);
+// the s8 products (2 Q cap dim at 1,979 T/s: 0.07 ms at Q = 64 over 1M
+// rows) stay under that. The slab adds q_tile x cap x 4 bytes written
+// once and read about twice (256 MB at Q = 64 over 1M rows). The template
+// it replaces (scan_topk.cu kind 2) ran two queries a CTA at k > 128 on
+// CUDA-core __dp4a, so it read the rows once per query pair.
+//
+// Design, as K4's wide kind (topk_wide.cu), for the reason given there:
+// per-query buffers of k = 1024 keys do not fit a CTA beside the ring.
+//  * Pass A (scan_topk_wgmma.cuh, BUF 0): K3's tensor-core scan as it is
+//    (`Int8R`: the rows and the int8 queries as they lie, by TMA, four s8
+//    wgmmas a k-stage into one int32 sum a row over the whole width,
+//    converted and scaled once a segment), only segments with a live row,
+//    four stages, 32 queries a CTA at Q <= 32, else 64 (as K4's wide
+//    kind's pass A); its epilogue stores float_order(score) of every
+//    (query, row below cap) of a live segment to the slab (q_tile, ld),
+//    ld = cap rounded up to 128. A tile of fewer queries than the CTA's N
+//    runs one query tile, TMA zero-filling the query rows past it (Q = 1
+//    included).
+//  * Pass B (radix_select.cuh), unchanged: three digit histograms read
+//    from the slab beside the mask, the keys at or above the k-th's bucket
+//    collected, sorted and decoded; ties past CAP taken in row order. The
+//    score key orders as row_key's high word, so the selection equals the
+//    plain version's on (score, row) keys.
+//  * The launcher walks the queries in tiles of q_tile (ops/scan.py::
+//    topk_wide_tile keeps the slab under 256 MiB; radix_select.cuh's
+//    `walk_tiles`). One scratch buffer (slab, histograms, candidates:
+//    ops/scan.py::i4_wide_scratch) and one library call a batch.
+//  * Why it beats the scan it runs on past k = 128: the scan keeps 512
+//    keys a query in shared memory at 32 queries a CTA there, so a 64-query
+//    batch reads the rows twice and compacts its buffers again and again;
+//    the slab costs 4 bytes a (query, row) written and read about twice,
+//    under the int8 row's 1,024 read once per 64 queries.
+
+#include <algorithm>
+
+#include "radix_select.cuh"
+#include "scan_topk_wgmma.cuh"
+
+// K3's wide kind: q (Q, dim) int8 queries, v (cap, dim) int8 rows, vscale
+// (cap,) float32, mask (cap,) uint8 4-byte aligned; dim % 16 == 0, 16-byte
+// aligned q and v, k <= 1024 (served where ops/scan.py::i8_wide_ready).
+// `scratch` (256-byte aligned) holds `scratch_bytes`, at least one tile of
+// q_tile queries' slab, histograms and candidates, each from a 256-byte
+// boundary (ops/scan.py::i4_wide_scratch). vals (Q, k) float32 and idx (Q,
+// k) int32 receive the result (-inf / 0 where empty). Launches on the
+// current device. Returns 0, a cudaError_t, or minus the CUresult of a
+// refused tensor-map encode.
+extern "C" int pv_scan_topk_i8_wide(const void* q, const void* v,
+                                    const void* vscale, const void* mask,
+                                    void* scratch, void* vals, void* idx,
+                                    int Q, long long cap, int dim, int k,
+                                    int q_tile, long long scratch_bytes,
+                                    void* stream) {
+  using namespace pv;
+  using namespace pv::tk;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
+  if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || dim % 16 ||
+      q_tile <= 0 || q_tile > 65535 || !vscale || (uintptr_t)mask % 4 ||
+      (uintptr_t)scratch % 256 ||
+      (size_t)scratch_bytes < rs::tile_layout(q_tile, ld).bytes)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int sms = 0;
+  const cudaError_t e = rs::prepare(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const float* vs = static_cast<const float*>(vscale);
+  const Rows flat{};  // the rows [0, cap)
+  return rs::walk_tiles(
+      static_cast<unsigned char*>(scratch), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(vals), static_cast<int*>(idx), Q, q_tile,
+      (long)cap, ld, k, sms, s, [&](int q0, int nq, uint32_t* slab) {
+        if (cap == 0) return 0;
+        const void* qt = static_cast<const int8_t*>(q) + (size_t)q0 * dim;
+        const size_t plane = (size_t)nq * dim;
+        int r = 0;
+        return nq <= 32
+                   ? launch_scan<Int8R, 32, 4, 0>(qt, plane, v, mask, vs, slab,
+                                                  nq, cap, dim, 0, flat, &r, s)
+                   : launch_scan<Int8R, 64, 4, 0>(qt, plane, v, mask, vs, slab,
+                                                  nq, cap, dim, 0, flat, &r, s);
+      });
+}

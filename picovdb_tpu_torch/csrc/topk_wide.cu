@@ -56,68 +56,16 @@
 //    above it are collected and the equal ones taken in row order by a
 //    block-wide scan of the slab, so ties still go to the lower row:
 //    exact at every k.
-//  * The launcher splits the queries into pass A's planes (`planes_kernel`)
-//    in its own scratch, then walks them in tiles of `q_tile`
-//    (ops/scan.py::topk_wide_tile keeps the slab under 256 MiB), zeroing
-//    a tile's histograms and candidate count with one memset. One scratch
+//  * The launcher splits the queries into pass A's planes (radix_select.cuh's
+//    `split_planes`, K7's wide kind's too) in its own scratch, then walks
+//    them in tiles of `q_tile` (ops/scan.py::topk_wide_tile keeps the slab
+//    under 256 MiB; the walk, radix_select.cuh's `walk_tiles`, is every
+//    wide kind's), zeroing a tile's histograms and candidate count with
+//    one memset. One scratch
 //    buffer and one library call a batch: the host's enqueue stays short
 //    beside pass A (PERF.md §6).
 
-#include <algorithm>
-
 #include "radix_select.cuh"
-
-namespace pv {
-namespace {
-namespace tw {
-
-// The query planes pass A multiplies, from the float32 queries q (total
-// elements): kind 0 hi = q with its low 13 mantissa bits cleared and lo =
-// q - hi (ops/scan.py::split_tf32), kind 1 three bf16 planes q1 = bf16(q),
-// q2 = bf16(q - q1), q3 = bf16(q - q1 - q2) (ops/scan.py::split_bf16),
-// planes `total` elements apart.
-__global__ void __launch_bounds__(256)
-planes_kernel(const float* __restrict__ q, void* __restrict__ planes,
-              long total, int kind) {
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long)gridDim.x * blockDim.x) {
-    const float x = q[i];
-    if (kind == 0) {
-      float* f = static_cast<float*>(planes);
-      const float h = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-      f[i] = h;
-      f[total + i] = x - h;
-    } else {
-      __nv_bfloat16* b = static_cast<__nv_bfloat16*>(planes);
-      const __nv_bfloat16 q1 = __float2bfloat16_rn(x);
-      const float r = x - __bfloat162float(q1);
-      const __nv_bfloat16 q2 = __float2bfloat16_rn(r);
-      b[i] = q1;
-      b[total + i] = q2;
-      b[2 * total + i] = __float2bfloat16_rn(r - __bfloat162float(q2));
-    }
-  }
-}
-
-// The launcher's scratch, carved from one buffer (ops/scan.py::
-// topk_wide_scratch restates it): the query planes, then one tile's slab,
-// histograms and candidates, each at a 256-byte boundary.
-struct Scratch {
-  size_t slab, hist, cand, bytes;  // offsets; planes at 0
-};
-inline size_t up256(size_t b) { return (b + 255) / 256 * 256; }
-inline Scratch layout(int kind, int Q, long ld, int dim, int q_tile) {
-  Scratch s;
-  s.slab = up256((size_t)Q * dim * (kind == 0 ? 8 : 6));
-  s.hist = s.slab + up256((size_t)q_tile * ld * sizeof(uint32_t));
-  s.cand = s.hist + up256(rs::hist_bytes(q_tile));
-  s.bytes = s.cand + rs::cand_bytes(q_tile);
-  return s;
-}
-
-}  // namespace tw
-}  // namespace
-}  // namespace pv
 
 // K4's wide kind: pv_scan_topk's kinds 0 and 1 for 128 < k <= 1024 (the
 // launcher takes any k <= 1024), rows of whole 16 bytes and 16-byte
@@ -134,46 +82,33 @@ extern "C" int pv_scan_topk_wide(int kind, const void* q, const void* v,
                                  int k, int q_tile, long long scratch_bytes,
                                  void* stream) {
   using namespace pv;
-  using namespace pv::tw;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
   const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
-  const Scratch lay = layout(kind, Q, ld, dim, q_tile);
+  // the query planes (ops/scan.py::topk_wide_scratch), then one tile's
+  // slab, histograms and candidates
+  const size_t planes = rs::up256((size_t)Q * dim * (kind == 0 ? 8 : 6));
   if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || q_tile <= 0 ||
       q_tile > 65535 || (kind != 0 && kind != 1) || (uintptr_t)mask % 4 ||
-      (uintptr_t)scratch % 256 || (size_t)scratch_bytes < lay.bytes)
+      (uintptr_t)scratch % 256 ||
+      (size_t)scratch_bytes < planes + rs::tile_layout(q_tile, ld).bytes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int es = kind == 0 ? 4 : 2;  // bytes of a plane element
   const size_t plane = (size_t)Q * dim * es;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = rs::select_attributes();
+  int sms = 0;
+  cudaError_t e = rs::prepare(&sms);
   if (e != cudaSuccess) return (int)e;
   unsigned char* base = static_cast<unsigned char*>(scratch);
-  uint32_t* sl = reinterpret_cast<uint32_t*>(base + lay.slab);
-  uint32_t* hi = reinterpret_cast<uint32_t*>(base + lay.hist);
-  u64* cd = reinterpret_cast<u64*>(base + lay.cand);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
   const long total = (long)Q * dim;
-  planes_kernel<<<(int)std::min((total + 255) / 256, 4L * sms), 256, 0, s>>>(
-      static_cast<const float*>(q), base, total, kind);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  for (int q0 = 0; q0 < Q; q0 += q_tile) {
-    const int nq = std::min(q_tile, Q - q0);
-    e = cudaMemsetAsync(hi, 0, rs::hist_bytes(nq), s);
-    if (e != cudaSuccess) return (int)e;
-    if (cap > 0) {
-      const int err = launch_scan_slab(kind, base + (size_t)q0 * dim * es,
-                                       plane, v, mask, sl, nq, cap, dim, s);
-      if (err) return err;
-    }
-    e = rs::select_tile(sl, m, hi, cd,
-                        static_cast<float*>(vals) + (size_t)q0 * k,
-                        static_cast<int*>(idx) + (size_t)q0 * k, nq,
-                        (long)cap, ld, k, sms, s);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  if ((e = rs::split_planes(static_cast<const float*>(q), base, total, kind,
+                            sms, s)) != cudaSuccess)
+    return (int)e;
+  return rs::walk_tiles(
+      base + planes, static_cast<const uint8_t*>(mask),
+      static_cast<float*>(vals), static_cast<int*>(idx), Q, q_tile,
+      (long)cap, ld, k, sms, s, [&](int q0, int nq, uint32_t* slab) {
+        if (cap == 0) return 0;
+        return launch_scan_slab(kind, base + (size_t)q0 * dim * es, plane, v,
+                                mask, slab, nq, cap, dim, s);
+      });
 }

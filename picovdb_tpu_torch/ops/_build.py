@@ -87,6 +87,11 @@ _SIGNATURES = {
     # 4-byte aligned mask; served at 128 < k, scan.i4_wide_ready)
     "pv_scan_topk_i4_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                              _L, _P],
+    # q, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k, q_tile,
+    # scratch bytes, stream (K3's wide kind: k <= 1024, dim % 16 == 0, a
+    # 4-byte aligned mask; served where scan.i8_wide_ready)
+    "pv_scan_topk_i8_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
+                             _L, _P],
     # q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream (K3's
     # tensor-core scan: k <= 384, dim % 16 == 0; served at Q >
     # scan.I8_SWEEP_Q_MAX)
@@ -102,6 +107,12 @@ _SIGNATURES = {
     # whole 16 bytes; served at Q > scan.SWEEP_Q_MAX, ivf.ivf_wgmma_ready)
     "pv_ivf_scan_topk_wgmma": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
                                _I, _I, _I, _I, _P],
+    # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
+    # scratch, vals, idx, Q, cap, dim, k, bn, grid_b, q_tile, scratch bytes,
+    # stream (K7's wide kind: k <= 1024, rows of whole 16 bytes; served at
+    # 128 < k, ivf.ivf_wide_ready)
+    "pv_ivf_scan_topk_wide": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I,
+                              _I, _I, _I, _I, _L, _P],
     # kind, q, v, mask, hot, n_hot, partial, vals, idx, Q, cap, dim, k, bn,
     # grid_b, ctas, stream (K7's one-query sweep: Q <= 16, k <= 128)
     "pv_ivf_sweep_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,

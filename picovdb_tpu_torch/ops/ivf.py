@@ -19,7 +19,9 @@ re-designed for a device-resident layout):
       K7 `ivf_scan_topk`   csrc/scan_topk.cu  exact top-k_run per query
                            (Q <= 16: csrc/sweep_topk.cu, see
                            `ivf_sweep_ready`; Q > 16:
-                           csrc/ivf_scan_wgmma.cu, see `ivf_wgmma_ready`)
+                           csrc/ivf_scan_wgmma.cu, see `ivf_wgmma_ready`;
+                           128 < k <= 1024: csrc/ivf_scan_wide.cu, see
+                           `ivf_wide_ready`)
       K8 `ivf_segmax_scan` csrc/segmax.cu     top-`per_seg` keys per segment
                            (rows TMA can read: csrc/ivf_segmax_wgmma.cu,
                            see `ivf_segmax_ready`)
@@ -259,8 +261,9 @@ def ivf_sweep_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
     bases, and the CTA's query block (the query tile `scan.sweep_tile(Q)`
     times a row's bytes) within `scan.SWEEP_QBLOCK_BYTES` (float32 at Q =
     16: dim <= 1024). Groups above 16 queries take `ivf_wgmma_ready`'s
-    tensor-core scan; other shapes (the k_sel = 544 host-rescore band) keep
-    the template, `pv_ivf_scan_topk`."""
+    tensor-core scan, k > 128 (the quantized stores' host-rescore bands)
+    `ivf_wide_ready`'s wide kind; other shapes keep the template,
+    `pv_ivf_scan_topk`."""
     num_q, dim = q.shape
     row_bytes = dim * q.element_size()
     return (num_q <= _scan.SWEEP_Q_MAX and k <= _scan.SWEEP_K_MAX
@@ -287,12 +290,42 @@ def ivf_wgmma_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
     these contiguous operands: Q > scan.SWEEP_Q_MAX (the sweep keeps Q <=
     16), k <= 128, rows of whole 16 bytes (dim % 4 for float32, % 8 for
     bf16, % 16 for int8: TMA reads them as they lie) and 16-byte aligned
-    bases. Other shapes (the k_sel = 544 host-rescore band, other widths,
-    misaligned views) keep the template, `pv_ivf_scan_topk`."""
+    bases. k > 128 takes `ivf_wide_ready`'s wide kind; other widths and
+    misaligned views keep the template, `pv_ivf_scan_topk`."""
     num_q, dim = q.shape
     return (num_q > _scan.SWEEP_Q_MAX and k <= _scan.TOPK_WGMMA_K_MAX
             and (dim * q.element_size()) % 16 == 0
             and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
+
+
+def ivf_wide_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
+    """Whether K7 runs its wide kind (csrc/ivf_scan_wide.cu: the tensor-core
+    scan over the live hot tiles writing a slab, then the radix select) on
+    these contiguous operands: 128 < k <= SCAN_KSEL_MAX, rows of whole 16
+    bytes (dim % 4 for float32, % 8 for bf16, % 16 for int8), 16-byte
+    aligned bases, and one query's slab within scan.TOPK_WIDE_SLAB_BYTES
+    (4 bytes a row of the hot table, at most the postings' cap). Any Q: a
+    batch smaller than a query tile runs one tile. Other widths and
+    misaligned views keep the template, `pv_ivf_scan_topk`."""
+    dim = q.shape[1]
+    return (_scan.TOPK_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
+            and (dim * q.element_size()) % 16 == 0
+            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0
+            and 4 * postings.shape[0] <= _scan.TOPK_WIDE_SLAB_BYTES)
+
+
+def ivf_wide_scratch(num_q: int, dim: int, kind: int, grid_b: int, bn: int,
+                     q_tile: int) -> int:
+    """Bytes of the wide kind's scratch, as csrc/ivf_scan_wide.cu lays it
+    out: the float32 queries' TF32 hi and lo planes (kind 0 only), the
+    live tiles in ascending order (grid_b int32), the logical mask (grid_b
+    x bn bytes), then one tile's slab (q_tile x grid_b x bn keys),
+    histograms and candidates (`scan.i4_wide_scratch` over grid_b x bn
+    rows), each from a 256-byte boundary."""
+    up = _scan._up256
+    planes = up(num_q * dim * 8) if kind == 0 else 0
+    return (planes + up(grid_b * 4) + up(grid_b * bn)
+            + _scan.i4_wide_scratch(grid_b * bn, q_tile))
 
 
 def ivf_wgmma_partition(num_q: int, grid_b: int, bn: int, sms: int):
@@ -363,7 +396,7 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
     empty). Selection is exact on the scores (int8: the int32 sums), ties
     to the lower row. Runs the one-query sweep where `ivf_sweep_ready`
     holds, else the tensor-core scan where `ivf_wgmma_ready` holds, else
-    the template."""
+    the wide kind where `ivf_wide_ready` holds, else the template."""
     _ivf_checks("ivf_scan_topk", q, postings, mask, hot, n_hot, bn)
     _require(0 < k <= SCAN_KSEL_MAX,
              f"ivf_scan_topk: k {k} outside 1..{SCAN_KSEL_MAX}")
@@ -372,12 +405,15 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
     q = q.contiguous()
     sweep = ivf_sweep_ready(q, postings, k)
     wgmma = not sweep and ivf_wgmma_ready(q, postings, k)
+    wide = not (sweep or wgmma) and ivf_wide_ready(q, postings, k)
     launch = (_ivf_sweep_launch if sweep else
-              _ivf_wgmma_launch if wgmma else _ivf_template_launch)
+              _ivf_wgmma_launch if wgmma else
+              _ivf_wide_launch if wide else _ivf_template_launch)
     vals, idx = launch(q, postings, mask, hot, n_hot, k, bn)
     _scan._count("ivf_scan_topk", q.shape[0], k)
     _scan.LAUNCHES["ivf_scan_topk_sweep"] += sweep
     _scan.LAUNCHES["ivf_scan_topk_wgmma"] += wgmma
+    _scan.LAUNCHES["ivf_scan_topk_wide"] += wide
     return vals, idx
 
 
@@ -419,6 +455,29 @@ def _ivf_wgmma_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
             hot.data_ptr(), n_hot.data_ptr(), partial.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), num_q, postings.shape[0], dim,
             k, bn, grid_b)
+    return vals, idx
+
+
+def _ivf_wide_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
+    """K7's wide kind on checked CUDA operands, uncounted: one library call
+    that splits float32 queries into their TF32 planes, orders the live
+    steps by tile and gathers their mask, then, a tile of
+    `scan.topk_wide_tile` queries at a time over the hot table's grid_b x
+    bn rows, runs the tensor-core scan writing the slab and the radix
+    select over it, in one scratch buffer (`ivf_wide_scratch`)."""
+    num_q, dim = q.shape
+    grid_b = hot.shape[0]
+    kind = _KINDS[q.dtype]
+    q_tile = _scan.topk_wide_tile(num_q, grid_b * bn)
+    nbytes = ivf_wide_scratch(num_q, dim, kind, grid_b, bn, q_tile)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
+    vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
+    _launch(q, "ivf_scan_topk", "pv_ivf_scan_topk_wide", kind, q.data_ptr(),
+            postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
+            n_hot.data_ptr(), scratch.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), num_q, postings.shape[0], dim, k, bn, grid_b,
+            q_tile, nbytes)
     return vals, idx
 
 

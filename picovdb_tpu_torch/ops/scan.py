@@ -12,9 +12,11 @@ kernels those paths run:
                         realigning producer, see `realign_ready`)
   K2 `topk_packed_keys` csrc/topk_keys.cu  per-query top-k_sel of the keys
   K3 `fused_topk_i8`    csrc/scan_topk.cu  exact top-k over per-row int8
-                        (small Q, k <= 384: csrc/sweep_topk.cu,
-                        see `i8_sweep_ready`; larger Q, k <= 384:
-                        csrc/scan_topk_wgmma.cu, see `i8_wgmma_ready`)
+                        (past k 128 where it reads the rows no more
+                        often, and past k 384: csrc/topk_i8_wide.cu,
+                        see `i8_wide_ready`; else small Q, k <= 384:
+                        csrc/sweep_topk.cu, see `i8_sweep_ready`; larger
+                        Q: csrc/scan_topk_wgmma.cu, see `i8_wgmma_ready`)
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
                         (k <= 128: csrc/scan_topk_wgmma.cu,
                         see `topk_wgmma_ready`; 128 < k <= 1024: the
@@ -88,19 +90,22 @@ SEG = 128  # rows per segmax segment
 # those of its wide kind (`i4_wide_ready`); "scan_topk_i8" every K3
 # launch, "scan_topk_i8_sweep" those of the sweep's row-scaled int8 kind
 # (`i8_sweep_ready`), "scan_topk_i8_wgmma" those of the tensor-core scan's
-# int8 kind (`i8_wgmma_ready`); "ivf_segmax" every K8 launch, "ivf_segmax_wgmma"
-# those of its tensor-core segment scan (ops/ivf.py::`ivf_segmax_ready`).
+# int8 kind (`i8_wgmma_ready`), "scan_topk_i8_wide" those of its wide kind
+# (`i8_wide_ready`); "ivf_scan_topk_wide" those of K7's wide kind
+# (ops/ivf.py::`ivf_wide_ready`); "ivf_segmax" every K8 launch,
+# "ivf_segmax_wgmma" those of its tensor-core segment scan
+# (ops/ivf.py::`ivf_segmax_ready`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "segmax_realign": 0,
             "topk_keys": 0, "scan_topk": 0, "scan_topk_wgmma": 0,
             "scan_topk_wide": 0,
             "scan_topk_i8": 0, "scan_topk_i8_sweep": 0,
-            "scan_topk_i8_wgmma": 0, "segmax_i8": 0,
+            "scan_topk_i8_wgmma": 0, "scan_topk_i8_wide": 0, "segmax_i8": 0,
             "segmax_i8_wgmma": 0,
             "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
             "scan_topk_i4_wgmma": 0, "scan_topk_i4_wide": 0,
             "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
-            "ivf_scan_topk_wgmma": 0,
+            "ivf_scan_topk_wgmma": 0, "ivf_scan_topk_wide": 0,
             "ivf_segmax": 0, "ivf_segmax_wgmma": 0,  # K8: ops/ivf.py
             "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
             "segmax_i8c_wgmma": 0,
@@ -730,10 +735,14 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
              f"{name}: vectors and mask must be contiguous")
     q = queries.contiguous()
     # the ready rules are the only switch between kernels: the one-query
-    # sweep, else the tensor-core scan, else the template
+    # sweep, else the tensor-core scan, else the wide kind, else the
+    # template (K3 asks its wide kind first: `i8_wide_ready`)
     if i8c and sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, None, mask, k, name)
         LAUNCHES["scan_topk_i8c_sweep"] += 1
+    elif kind == _KIND_I8 and i8_wide_ready(q, vectors, k):
+        vals, idx = _i8_wide_launch(q, vectors, vscale, mask, k, name)
+        LAUNCHES["scan_topk_i8_wide"] += 1
     elif kind == _KIND_I8 and i8_sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i8_sweep"] += 1
@@ -834,23 +843,38 @@ def _i4_wide_launch(q, v_i4, vscale, mask, k: int,
                     name: str = "scan_topk_i4"):
     """K6's wide kind (csrc/topk_i4_wide.cu) on checked CUDA operands,
     uncounted: the queries' columns permuted once (`permute_i4_queries`),
-    then one library call that, a tile of `topk_wide_tile` queries at a
-    time, runs the tensor-core scan writing the slab and the radix select
-    over it, in one scratch buffer (`i4_wide_scratch`); a mask view not
-    4-byte aligned is copied."""
+    then `_scaled_wide_launch`."""
+    return _scaled_wide_launch("pv_scan_topk_i4_wide", permute_i4_queries(q),
+                               q, v_i4, vscale, mask, k, name)
+
+
+def _i8_wide_launch(q, v_i8, vscale, mask, k: int,
+                    name: str = "scan_topk_i8"):
+    """K3's wide kind (csrc/topk_i8_wide.cu) on checked CUDA operands,
+    uncounted: `_scaled_wide_launch` of the int8 queries as they are."""
+    return _scaled_wide_launch("pv_scan_topk_i8_wide", q, q, v_i8, vscale,
+                               mask, k, name)
+
+
+def _scaled_wide_launch(entry: str, q_arg, q, vectors, vscale, mask, k: int,
+                        name: str):
+    """The row-scaled wide kinds' launch (K6's, K3's): one library call
+    `entry` that, a tile of `topk_wide_tile` queries at a time, runs the
+    tensor-core scan on the queries `q_arg` writing the slab and the radix
+    select over it, in one scratch buffer (`i4_wide_scratch`); a mask view
+    not 4-byte aligned is copied."""
     num_q, dim = q.shape
-    cap = v_i4.shape[0]
+    cap = vectors.shape[0]
     q_tile = topk_wide_tile(num_q, cap)
     nbytes = i4_wide_scratch(cap, q_tile)
     if mask.data_ptr() % 4:
         mask = mask.clone()
-    q_perm = permute_i4_queries(q)
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
     vals, idx = _outputs(num_q, k, q.device)
-    _launch(q, name, "pv_scan_topk_i4_wide", q_perm.data_ptr(),
-            v_i4.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
-            scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
-            dim, k, q_tile, nbytes)
+    _launch(q, name, entry, q_arg.data_ptr(), vectors.data_ptr(),
+            vscale.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
+            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, q_tile,
+            nbytes)
     return vals, idx
 
 
@@ -1116,6 +1140,26 @@ def i4_sweep_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
 # the same k (its buffers of 512 keys at a 32-query tile).
 I8_SWEEP_K_MAX = 384
 I8_WGMMA_K_MAX = 384
+# K3's wide kind (csrc/topk_i8_wide.cu: the tensor-core scan's int8 kind
+# writing a slab, then the radix select) serves k_sel past this where its
+# query tile over the plane holds the batch's tensor-core tile
+# (`i8_wide_covers`), and every k_sel past I8_SWEEP_K_MAX; the sweep and the
+# tensor-core scan the rest. chip_smoke.py phase 4 times them on int8 planes
+# x 1024 at k_sel 142 / 384 (H100 80GB HBM3, 700 W). Over its 1M-row store
+# (a tile of 64) the wide kind takes 0.43 / 0.52 / 0.77 / 1.47 ms at Q = 1
+# / 17 / 64 / 128, k_sel 142, against the sweep's 0.56 at Q = 1 and the
+# scan's 0.91 / 1.24 / 1.71 (1.23-3.30 at k_sel 256-384). Over 2M rows
+# (tile 32): Q = 17 1.05 against the scan's 1.46, Q = 64 2.33 against
+# 1.87, Q = 128 4.54 against 2.89. Over 4M (tile 16): Q = 17 3.44 against
+# 2.12, Q = 128 14.76 against 4.58 (at k_sel 384 the rule gives away three
+# shapes: 2M, Q = 64 2.38 against the scan's 3.52; 2M, Q = 128 and 4M, Q
+# = 17 by 4-5 %). Over 16M (tile
+# 4): Q = 1 6.10 against the sweep's 5.90 (k_sel 384: 6.04 against 6.36),
+# Q = 4 6.49 against 6.74, Q = 17 / 64 / 128 30.8 / 99.1 / 197.5 against
+# the scan's 6.5 / 8.8 / 15.0. Below this bound the sweep's and the scan's
+# first instantiations serve (phase 4's k_sel 14 at Q = 1, phase 14's at
+# Q = 16).
+I8_WIDE_K_MIN = 128
 # K3's sweep limit on Q: up to this many queries the one-query sweep beats
 # the tensor-core scan's int8 kind over the same rows; past it the scan
 # takes every batch. chip_smoke.py phase 4 times both at Q = 1 ... 64,
@@ -1128,12 +1172,13 @@ I8_SWEEP_Q_MAX = 4
 
 
 def i8_sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
-    """Whether K3 runs the one-query sweep's row-scaled int8 kind on these
+    """Whether K3's one-query sweep's row-scaled int8 kind can take these
     contiguous operands: Q <= I8_SWEEP_Q_MAX, k <= I8_SWEEP_K_MAX, rows of
     whole 16-byte words (dim % 16 == 0), the query block (sweep_tile(Q) x
-    dim bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned bases. Larger
-    batches take `i8_wgmma_ready`'s scan; other shapes keep the template,
-    `pv_scan_topk` kind 2."""
+    dim bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned bases. The
+    dispatch asks `i8_wide_ready` first; larger batches take
+    `i8_wgmma_ready`'s scan; other shapes keep the template, `pv_scan_topk`
+    kind 2."""
     num_q, dim = q_i8.shape
     return (num_q <= I8_SWEEP_Q_MAX and k <= I8_SWEEP_K_MAX
             and dim % 16 == 0
@@ -1142,15 +1187,45 @@ def i8_sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
 
 
 def i8_wgmma_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
-    """Whether K3 runs the tensor-core scan's row-scaled int8 kind
-    (csrc/scan_topk_wgmma.cu) on these contiguous operands: Q >
+    """Whether K3's tensor-core scan's row-scaled int8 kind
+    (csrc/scan_topk_wgmma.cu) can take these contiguous operands: Q >
     I8_SWEEP_Q_MAX (smaller batches take the sweep), k <= I8_WGMMA_K_MAX,
     rows of whole 16 bytes (dim % 16 == 0) and 16-byte aligned bases of
-    both (TMA reads the queries and the rows as they lie). Other shapes
-    keep the template, `pv_scan_topk` kind 2."""
+    both (TMA reads the queries and the rows as they lie). The dispatch
+    asks `i8_wide_ready` first; other shapes keep the template,
+    `pv_scan_topk` kind 2."""
     num_q, dim = q_i8.shape
     return (num_q > I8_SWEEP_Q_MAX and k <= I8_WGMMA_K_MAX
             and dim % 16 == 0 and _aligned(q_i8, v_i8))
+
+
+def i8_wide_covers(num_q: int, cap: int) -> bool:
+    """Whether K3's wide kind's query tile over `cap` rows
+    (`topk_wide_tile`) holds min(Q, 64) queries, the batch's tensor-core
+    tile: the wide kind then reads the plane less often than the 32-query
+    scan, or once, as the sweep does. Over a larger plane its slab budget
+    cuts the tile (Q = 64 over 16M rows: 4 queries, the plane read 16
+    times, 11x the scan's time), and the sweep or the scan serves k_sel up
+    to their limit (the times at I8_WIDE_K_MIN)."""
+    return topk_wide_tile(num_q, cap) >= min(num_q, TOPK_WGMMA_QTILE)
+
+
+def i8_wide_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether K3 runs its wide kind (csrc/topk_i8_wide.cu) on these
+    contiguous operands, asked before the sweep and the scan: rows of whole
+    16 bytes (dim % 16 == 0), 16-byte aligned bases of both (TMA reads the
+    queries and the rows as they lie), one query's slab (cap rounded up to
+    128 rows, 4 bytes a row) within TOPK_WIDE_SLAB_BYTES, and k past
+    I8_SWEEP_K_MAX (up to SCAN_KSEL_MAX: only the template takes those
+    otherwise) or past I8_WIDE_K_MIN where `i8_wide_covers` holds. Any Q: a
+    batch smaller than a query tile runs one tile. Other shapes keep the
+    sweep, the scan or the template, `pv_scan_topk` kind 2."""
+    num_q, dim = q_i8.shape
+    cap = v_i8.shape[0]
+    ld = -(-cap // SEG) * SEG
+    return (I8_WIDE_K_MIN < k <= SCAN_KSEL_MAX and dim % 16 == 0
+            and _aligned(q_i8, v_i8) and 4 * ld <= TOPK_WIDE_SLAB_BYTES
+            and (k > I8_SWEEP_K_MAX or i8_wide_covers(num_q, cap)))
 
 
 def i8_wgmma_partition(num_q: int, cap: int, sms: int, k: int):

@@ -832,13 +832,14 @@ def _i8_store(dev, cap, dim, nq, seed):
 def test_fused_topk_i8_sweep_exact(dev, nq, k, cap, dim):
     """K3's sweep = the plain version bit for bit (ties to the lower row)
     at every query tile it has, through the dispatch where Q <=
-    I8_SWEEP_Q_MAX and launched uncounted past it (the dispatch then takes
-    the tensor-core scan, held to the same result); two launches in a
-    row."""
+    I8_SWEEP_Q_MAX and `i8_wide_ready` fails, and launched uncounted past
+    them (the dispatch then takes the tensor-core scan or the wide kind,
+    held to the same result); two launches in a row."""
     q8, v8, vs, mask = _i8_store(dev, cap, dim, nq, seed=nq + k)
     ref = scan.scan_topk_plain(q8, v8, vs, mask, k)
-    served = scan.i8_sweep_ready(q8, v8, k)
-    assert served == (nq <= scan.I8_SWEEP_Q_MAX)
+    assert scan.i8_sweep_ready(q8, v8, k) == (nq <= scan.I8_SWEEP_Q_MAX)
+    served = (scan.i8_sweep_ready(q8, v8, k)
+              and not scan.i8_wide_ready(q8, v8, k))
     for _ in range(2):
         before = scan.LAUNCHES["scan_topk_i8_sweep"]
         got = scan.fused_topk_i8(q8, v8, vs, mask, k)
@@ -1199,12 +1200,17 @@ def test_fused_topk_i8_wgmma_exact(dev, nq, k, cap, dim):
     (exact int32 sums, one conversion, one multiply, ties to the lower
     row): Q past the sweep's limit and off the query tile, k at each
     buffer size's edge (N = 32 past 128), cap % 256 == 128, live rows of
-    scale 0 and < 0, a masked 256-row block (two dead segments)."""
+    scale 0 and < 0, a masked 256-row block (two dead segments). Where
+    `i8_wide_ready` holds the dispatch takes the wide kind and the scan is
+    launched uncounted, both held to the plain version."""
     q8, v8, vs, mask = _i8_store(dev, cap, dim, nq, seed=nq + k)
     assert scan.i8_wgmma_ready(q8, v8, k)
+    served = not scan.i8_wide_ready(q8, v8, k)
     got, tc = _k3_launch(q8, v8, vs, mask, k)
-    assert tc == 1
+    assert tc == served
     ref = scan.scan_topk_plain(q8, v8, vs, mask, k)
+    if not served:
+        _k3_equal(scan._i8_wgmma_launch(q8, v8, vs, mask, k), ref)
     torch.cuda.synchronize()
     _k3_equal(got, ref)
     if k >= 4:
@@ -1227,10 +1233,11 @@ def test_fused_topk_i8_wgmma_sparse_masks(dev, k):
         if name != "sparse":
             keep[rows] = True
         got, tc = _k3_launch(q8, v8, vs, keep, k)
-        assert tc == 1
+        assert tc == (not scan.i8_wide_ready(q8, v8, k))
         ref = scan.scan_topk_plain(q8, v8, vs, keep, k)
         torch.cuda.synchronize()
         _k3_equal(got, ref)
+        _k3_equal(scan._i8_wgmma_launch(q8, v8, vs, keep, k), ref)
         live = min(k, int(keep.sum()))
         assert bool(torch.isfinite(got[0][:, :live]).all()), name
         assert bool(torch.isneginf(got[0][:, live:]).all()), name
@@ -1252,17 +1259,19 @@ def test_fused_topk_i8_wgmma_all_negative(dev, k):
     mask = torch.rand(cap, generator=g) > 0.2
     q8, v8, vs, mask = (t.to(dev) for t in (q8, v8, vs, mask))
     got, tc = _k3_launch(q8, v8, vs, mask, k)
-    assert tc == 1
+    assert tc == (not scan.i8_wide_ready(q8, v8, k))
     ref = scan.scan_topk_plain(q8, v8, vs, mask, k)
     torch.cuda.synchronize()
     _k3_equal(got, ref)
+    _k3_equal(scan._i8_wgmma_launch(q8, v8, vs, mask, k), ref)
     assert bool((got[0] < 0).all()) and bool((got[1] < cap).all())
 
 
 def test_fused_topk_i8_wgmma_ready_edges(dev):
     """k 385, a row stride off 16 bytes, a misaligned view and Q at the
-    sweep's limit leave the scan (the template, the sweep); all equal the
-    plain version; the scan launched (uncounted) at Q = 1 does too."""
+    sweep's limit leave the scan (the wide kind, the template, the sweep);
+    all equal the plain version; the scan launched (uncounted) at Q = 1
+    does too."""
     q8, v8, vs, mask = _i8_store(dev, 4224, 96, 64, seed=3)
     lim = scan.I8_SWEEP_Q_MAX
     assert scan.i8_wgmma_ready(q8, v8, 384)
@@ -1290,11 +1299,12 @@ def test_fused_topk_i8_wgmma_ready_edges(dev):
 
 def test_fused_topk_i8_wgmma_repeated_launches_agree(dev):
     """Ten launches at Q = 256, k_sel 142 give the same result (the
-    buffers' atomics, the compaction and re-admission)."""
+    buffers' atomics, the compaction and re-admission; the scan launched
+    uncounted: the dispatch takes the wide kind there)."""
     q8, v8, vs, mask = _i8_store(dev, 70_016, 1024, 256, seed=5)
-    first = scan.fused_topk_i8(q8, v8, vs, mask, 142)
+    first = scan._i8_wgmma_launch(q8, v8, vs, mask, 142)
     for _ in range(9):
-        _k3_equal(scan.fused_topk_i8(q8, v8, vs, mask, 142), first)
+        _k3_equal(scan._i8_wgmma_launch(q8, v8, vs, mask, 142), first)
 
 
 def test_k3_k1_on_second_card(dev):
@@ -1311,7 +1321,7 @@ def test_k3_k1_on_second_card(dev):
         d = torch.device(name)
         before = dict(scan.LAUNCHES)
         got = scan.fused_topk_i8(q8.to(d), v8.to(d), vs.to(d), mask.to(d),
-                                 142)
+                                 128)
         keys = scan.segmax_scan(q.to(d, torch.bfloat16),
                                 v.to(d, torch.bfloat16), m1.to(d))
         assert torch.cuda.current_device() == 0

@@ -96,14 +96,15 @@ def recorded(monkeypatch):
 
 @pytest.mark.parametrize("nq,k,dim,offset", [
     (1, 14, 96, 0), (1, 142, 1024, 0), (2, 384, 96, 0), (1, 385, 96, 0),
-    (1, 14, 104, 0), (1, 14, 96, 1), (17, 14, 96, 0)])
+    (1, 14, 104, 0), (1, 14, 96, 1), (17, 14, 96, 0), (1, 128, 1024, 0),
+    (4, 129, 96, 0), (1, 385, 104, 0)])
 def test_k3_dispatch_by_i8_sweep_ready(recorded, nq, k, dim, offset):
-    """K3 takes the sweep's row-scaled int8 kind where `i8_sweep_ready`
-    holds, over `sweep_partition`'s ranges with a partial of k keys a
-    CTA, the tensor-core scan's int8 kind where `i8_wgmma_ready` holds
-    (Q past the sweep's limit), and the template (`pv_scan_topk` kind 2)
-    otherwise; "scan_topk_i8" counts all three, "scan_topk_i8_sweep" the
-    sweep."""
+    """K3 takes its wide kind where `i8_wide_ready` holds (asked first),
+    else the sweep's row-scaled int8 kind where `i8_sweep_ready` holds,
+    over `sweep_partition`'s ranges with a partial of k keys a CTA, the
+    tensor-core scan's int8 kind where `i8_wgmma_ready` holds (Q past the
+    sweep's limit), and the template (`pv_scan_topk` kind 2) otherwise;
+    "scan_topk_i8" counts all four, "scan_topk_i8_sweep" the sweep."""
     q, v = _operands(dim, nq, offset, rows=4096)
     vs = torch.ones(4096)
     mask = torch.ones(4096, dtype=torch.bool)
@@ -113,11 +114,17 @@ def test_k3_dispatch_by_i8_sweep_ready(recorded, nq, k, dim, offset):
     tc = tscan.i8_wgmma_ready(q, v, k)
     assert tc == (nq > tscan.I8_SWEEP_Q_MAX and k <= 384
                   and dim % 16 == 0 and offset == 0)
+    wide = tscan.i8_wide_ready(q, v, k)
+    assert wide == (k > tscan.I8_WIDE_K_MIN and dim % 16 == 0
+                    and offset == 0)  # 4096 rows: one tile holds the batch
     before = dict(tscan.LAUNCHES)
     vals, idx = tscan.fused_topk_i8(*map(_as_cuda, (q, v, vs, mask)), k)
     assert vals.shape == idx.shape == (nq, k)
     (entry, args), = recorded
-    if sweep:
+    if wide:
+        assert entry == "pv_scan_topk_i8_wide"
+        assert args[7:11] == (nq, 4096, dim, k)
+    elif sweep:
         chunk, n = tscan.sweep_partition(4096, 132)
         assert entry == "pv_sweep_topk_i8"
         assert args[7:] == (nq, 4096, dim, k, chunk)
@@ -128,7 +135,9 @@ def test_k3_dispatch_by_i8_sweep_ready(recorded, nq, k, dim, offset):
         assert entry == "pv_scan_topk" and args[0] == tscan._KIND_I8
     assert tscan.LAUNCHES["scan_topk_i8"] == before["scan_topk_i8"] + 1
     assert (tscan.LAUNCHES["scan_topk_i8_sweep"]
-            == before["scan_topk_i8_sweep"] + sweep)
+            == before["scan_topk_i8_sweep"] + (sweep and not wide))
+    assert (tscan.LAUNCHES["scan_topk_i8_wide"]
+            == before["scan_topk_i8_wide"] + wide)
     assert tscan.LAUNCH_SHAPES["scan_topk_i8"][nq, k] >= 1
 
 

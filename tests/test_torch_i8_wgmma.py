@@ -258,15 +258,26 @@ def recorded(monkeypatch):
     (2048, 384, 96, 0, "scan"), (64, 385, 96, 0, "template"),
     (64, 14, 104, 0, "template"), (64, 14, 96, 1, "template"),
     (4, 142, 96, 0, "sweep"), (5, 142, 96, 0, "scan"),
-    (16, 142, 96, 0, "scan")])
+    (16, 142, 96, 0, "scan"), (64, 128, 1024, 0, "scan"),
+    (2048, 128, 96, 0, "scan"), (4, 128, 96, 0, "sweep"),
+    (5, 128, 96, 0, "scan"), (64, 142, 1024, 0, "wide"),
+    (2048, 384, 96, 0, "wide"), (64, 385, 96, 0, "wide"),
+    (4, 142, 96, 0, "wide"), (5, 142, 96, 0, "wide"),
+    (16, 142, 96, 0, "wide")])
 def test_k3_dispatch_by_i8_wgmma_ready(recorded, monkeypatch, nq, k, dim,
                                        offset, want):
-    """K3 takes the sweep at Q <= I8_SWEEP_Q_MAX, the tensor-core scan's
-    int8 kind past it (`pv_scan_topk_i8_wgmma` with q, v, vscale, mask,
-    a partial of Q x ranges x k keys, vals, idx, Q, cap, dim, k), the
-    template (`pv_scan_topk` kind 2) otherwise; "scan_topk_i8" counts all
-    three, "scan_topk_i8_wgmma" the scan, LAUNCH_SHAPES by (Q, k)."""
+    """K3 takes its wide kind past k 128 where `i8_wide_ready` holds (the
+    "wide" cases: 8320 rows, one tile holds the batch's 64 queries).
+    Where it cannot serve (the other cases: one query's slab over the
+    budget) K3 takes the sweep at Q <= I8_SWEEP_Q_MAX, the tensor-core
+    scan's int8 kind past it (`pv_scan_topk_i8_wgmma` with q, v, vscale,
+    mask, a partial of Q x ranges x k keys, vals, idx, Q, cap, dim, k),
+    the template (`pv_scan_topk` kind 2) otherwise; "scan_topk_i8" counts
+    all four, "scan_topk_i8_wgmma" the scan, LAUNCH_SHAPES by (Q, k).
+    tests/test_torch_i8_wide.py holds the wide kind's share by tile."""
     cap = 8320
+    if want != "wide":
+        monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4 * cap - 1)
     q, v = _operands(dim, nq, offset, rows=cap)
     vs, mask = torch.ones(cap), torch.ones(cap, dtype=torch.bool)
     sizes = []
@@ -280,10 +291,12 @@ def test_k3_dispatch_by_i8_wgmma_ready(recorded, monkeypatch, nq, k, dim,
 
     monkeypatch.setattr(tscan.torch, "empty", empty)
     before = dict(tscan.LAUNCHES)
+    assert tscan.i8_wide_ready(q, v, k) == (want == "wide")
     vals, idx = tscan.fused_topk_i8(*map(_as_cuda, (q, v, vs, mask)), k)
     assert vals.shape == idx.shape == (nq, k)
     (entry, args), = recorded
     assert entry == {"scan": "pv_scan_topk_i8_wgmma",
+                     "wide": "pv_scan_topk_i8_wide",
                      "template": "pv_scan_topk",
                      "sweep": "pv_sweep_topk_i8"}[want]
     if want == "scan":

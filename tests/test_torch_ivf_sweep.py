@@ -151,10 +151,10 @@ def test_k10_dispatch_by_wgmma_i8_ready(recorded, dim, offset, wgmma):
                                              ("f32", 17, 14, False)])
 def test_k7_dispatch_by_ivf_sweep_ready(recorded, kind, nq, k, sweep):
     """K7 takes the sweep where `ivf_sweep_ready` holds, with two CTAs per
-    SM and scratch for their partials; the k_sel = 544 band keeps the
-    template, and groups of 17 queries take the tensor-core scan
-    (`ivf_wgmma_ready`). "ivf_scan_topk" counts all three,
-    "ivf_scan_topk_sweep" the sweep alone."""
+    SM and scratch for their partials; the k_sel = 544 band takes the
+    wide kind (`ivf_wide_ready`), and groups of 17 queries take the
+    tensor-core scan (`ivf_wgmma_ready`). "ivf_scan_topk" counts every
+    kernel, "ivf_scan_topk_sweep" the sweep alone."""
     dt = DTYPES[kind]
     q = torch.zeros(nq, 64, dtype=dt)
     v = torch.zeros(4 * BN, 64, dtype=dt)
@@ -173,7 +173,8 @@ def test_k7_dispatch_by_ivf_sweep_ready(recorded, kind, nq, k, sweep):
     elif tivf.ivf_wgmma_ready(q, v, k):
         assert entry == "pv_ivf_scan_topk_wgmma" and nq > tscan.SWEEP_Q_MAX
     else:
-        assert entry == "pv_ivf_scan_topk"
+        assert tivf.ivf_wide_ready(q, v, k)
+        assert entry == "pv_ivf_scan_topk_wide" and k > 128
     assert tscan.LAUNCHES["ivf_scan_topk"] == before["ivf_scan_topk"] + 1
     assert (tscan.LAUNCHES["ivf_scan_topk_sweep"]
             == before["ivf_scan_topk_sweep"] + sweep)

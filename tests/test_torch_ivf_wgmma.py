@@ -302,14 +302,14 @@ def recorded(monkeypatch):
 
 
 # (kind, Q, dim, k, offset, kernel): the sweep, then the tensor-core scan,
-# then the template
+# then the wide kind (k > 128), then the template
 DISPATCH = [("f32", 16, 64, 14, 0, "sweep"), ("f32", 17, 64, 14, 0, "wgmma"),
             ("bf16", 64, 64, 32, 0, "wgmma"), ("i8c", 512, 64, 128, 0, "wgmma"),
             ("i8c", 2048, 1024, 14, 0, "wgmma"),
-            ("f32", 64, 64, 544, 0, "template"),
+            ("f32", 64, 64, 544, 0, "wide"),
             ("bf16", 64, 100, 14, 0, "template"),
             ("f32", 64, 64, 14, 1, "template"),
-            ("i8c", 16, 64, 544, 0, "template")]
+            ("i8c", 16, 64, 544, 0, "wide")]
 
 
 @pytest.mark.parametrize("kind,nq,dim,k,offset,kernel", DISPATCH)
@@ -327,6 +327,7 @@ def test_k7_dispatch_order(recorded, kind, nq, dim, k, offset, kernel):
     (entry, args), = recorded
     assert entry == {"sweep": "pv_ivf_sweep_topk",
                      "wgmma": "pv_ivf_scan_topk_wgmma",
+                     "wide": "pv_ivf_scan_topk_wide",
                      "template": "pv_ivf_scan_topk"}[kernel]
     if kernel == "wgmma":
         assert args[0] == tivf._KINDS[dt]
@@ -336,7 +337,7 @@ def test_k7_dispatch_order(recorded, kind, nq, dim, k, offset, kernel):
                              n_hot.data_ptr())
         assert args[9:] == (nq, 4 * BN, dim, k, BN, 3)
     assert tscan.LAUNCHES["ivf_scan_topk"] == before["ivf_scan_topk"] + 1
-    for key in ("sweep", "wgmma"):
+    for key in ("sweep", "wgmma", "wide"):
         name = f"ivf_scan_topk_{key}"
         assert tscan.LAUNCHES[name] == before[name] + (kernel == key), name
 
