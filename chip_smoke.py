@@ -302,7 +302,62 @@ KERNELS = {
                    "bench/segmax_sweep_probe.py:73", 10),
     "dot_rowmax_i8": ("dot_rowmax_i8_wgmma", "picovdb_tpu_torch/csrc/probe.cu",
                       "bench/segmax_sweep_probe.py:73", 10),
+    # K3's and K4's kinds over rows TMA cannot read (widths off whole 16
+    # bytes): phase 3b's 1020- and 1019-wide float32 stores drive them
+    # through the public API (K3 on the int8 mirror: the narrow sweep at
+    # Q = 1, the tensor-core scan fed by cp.async at dim 1020 and by the
+    # realigning producer at 1019 for the 16-query batch; K4 on the bf16
+    # mirror: the scan and the wide kind, cp.async at 1020, realigning at
+    # 1019), phase 3c's int8 stores at ann-benchmarks' widths K3's wide
+    # kind over such rows (the host-rescore band at Q = 1 and 64: cp.async
+    # at dim 100, the realigning producer at 25)
+    "fused_topk_i8_narrow": ("scan_topk_i8_narrow",
+                             "picovdb_tpu_torch/csrc/sweep_topk.cu",
+                             "picovdb_tpu/ops/pallas_scan.py:865", "3b"),
+    "fused_topk_i8_wgmma_cpasync": (
+        "scan_topk_i8_wgmma_cpasync",
+        "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
+        "picovdb_tpu/ops/pallas_scan.py:865", "3b"),
+    "fused_topk_i8_wgmma_realign": (
+        "scan_topk_i8_wgmma_realign",
+        "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
+        "picovdb_tpu/ops/pallas_scan.py:865", "3b"),
+    "fused_topk_i8_wide_cpasync": (
+        "scan_topk_i8_wide_cpasync",
+        "picovdb_tpu_torch/csrc/topk_i8_wide.cu",
+        "picovdb_tpu/ops/pallas_scan.py:865", "3c"),
+    "fused_topk_i8_wide_realign": (
+        "scan_topk_i8_wide_realign",
+        "picovdb_tpu_torch/csrc/topk_i8_wide.cu",
+        "picovdb_tpu/ops/pallas_scan.py:865", "3c"),
+    "fused_topk_cpasync": ("scan_topk_wgmma_cpasync",
+                           "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
+                           "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
+    "fused_topk_realign": ("scan_topk_wgmma_realign",
+                           "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
+                           "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
+    "fused_topk_wide_cpasync": ("scan_topk_wide_cpasync",
+                                "picovdb_tpu_torch/csrc/topk_wide.cu",
+                                "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
+    "fused_topk_wide_realign": ("scan_topk_wide_realign",
+                                "picovdb_tpu_torch/csrc/topk_wide.cu",
+                                "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
 }
+# Every K4 / K3 kind's launch key: a path's template launches are its
+# "scan_topk" / "scan_topk_i8" launches less these
+K4_KIND_KEYS = ("scan_topk_wgmma", "scan_topk_wgmma_cpasync",
+                "scan_topk_wgmma_realign", "scan_topk_wide",
+                "scan_topk_wide_cpasync", "scan_topk_wide_realign")
+K3_KIND_KEYS = ("scan_topk_i8_sweep", "scan_topk_i8_narrow",
+                "scan_topk_i8_wgmma", "scan_topk_i8_wgmma_cpasync",
+                "scan_topk_i8_wgmma_realign", "scan_topk_i8_wide",
+                "scan_topk_i8_wide_cpasync", "scan_topk_i8_wide_realign")
+# Phase 3c: two float32 stores at ann-benchmarks' glove-100-angular and
+# glove-25-angular shapes (1,183,514 rows x 100 / 25; the vectors are
+# seeded normal rows, not GloVe's), and an int8-storage store of the same
+# rows each
+ANN_N = 1_183_514
+ANN_DIMS = (100, 25)
 
 
 def entry(err, ms, plain_ms, nbytes, ops, kind, library_ms=None,
@@ -400,7 +455,8 @@ def card_line() -> str:
 # (K7's at Q > 16 and the pass A of K4's, K3's and K7's wide kinds among
 # them), K2's split-row warp select's, the wide kinds' radix select's and
 # K7's wide kind's step order
-PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "scan_i4_kernel",
+PTXAS_KERNELS = ("tiles_kernel", "sweep_topk_kernel", "sweep_narrow_kernel",
+                 "scan_i4_kernel",
                  "ivf_segmax_wgmma_kernel", "scan_topk_wgmma_kernel",
                  "warp_select_kernel", "hist_kernel", "collect_kernel",
                  "finish_kernel", "ivf_rows_kernel")
@@ -2303,6 +2359,7 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
                           storage_file=os.path.join(os.getcwd(), path),
                           **db_kwargs)
         db.upsert_columnar(corpus, ids=[f"{prefix}{i}" for i in range(nn)],
+                           metadata=[{"tag": i % 10} for i in range(nn)],
                            copy=False)
         got, _ = db.query_columnar(qdev, top_k=10, batch_size=2048)
         assert db.last_query_debug()["strategy"] == "segmax_mixed_stream"
@@ -2353,12 +2410,31 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
     qdev = torch.from_numpy(
         near + 0.01 * rng.standard_normal(near.shape, dtype=np.float32)
     ).to(device)
+    g = np.random.default_rng(SEED + 21)  # the new calls' draws
     db, counts, recall, err, k1_line = serve(corpus, qdev, "w",
                                              "picovdb_smoke_w")
     assert counts["segmax_cpasync"] == counts["segmax"] > 0, counts
     assert counts["segmax_wgmma"] == counts["segmax_realign"] == 0, counts
     cp = rec["segmax_scan_cpasync"]
     cp["max_abs_err"] = max(cp["max_abs_err"], err)
+    narrow = {}  # the new calls' launches, both stores
+
+    def narrow_calls(db, corpus, qdev, prefix, d):
+        allow = np.sort(g.choice(n, 3000, replace=False))
+        corpus_dev = torch.from_numpy(corpus).to(device)
+        c, line = narrow_serve(torch, scan, db, corpus_dev, qdev, prefix,
+                               allow, f"the {n} x {d} float32 store")
+        for k in K4_KIND_KEYS + K3_KIND_KEYS:
+            narrow[k] = narrow.get(k, 0) + c[k]
+        with uncounted(scan):
+            fmask = torch.zeros_like(db._dev.active)
+            fmask[torch.from_numpy(allow).to(device)] = True
+            fmask &= db._dev.active
+            holds = narrow_holds(torch, scan, db._dev, qdev, fmask, rec,
+                                 f"3b dim {d}")
+        log(f"phase 3b: {line}; on the store's mirrors: {holds}")
+
+    narrow_calls(db, corpus, qdev, "w", dim)
     passes = []
     for _ in range(7):
         torch.cuda.synchronize()
@@ -2390,6 +2466,7 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
     assert odd["segmax_wgmma"] == odd["segmax_cpasync"] == 0, odd
     ra = rec["segmax_scan_realign"]
     ra["max_abs_err"] = max(ra["max_abs_err"], err)
+    narrow_calls(db, corpus, qdev, "o", ODD_DIM)
     del db
     log(f"phase 3b: a {n} x {ODD_DIM} float32 store (rows of "
         f"{ODD_DIM * 2} bytes, odd): route segmax_mixed_stream through K1's "
@@ -2399,7 +2476,439 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
         f"rescored rows = plain outside the gap); at Q=2048 {k1_line}; "
         f"launches {odd}")
     counts["segmax_realign"] = odd["segmax_realign"]
+    counts.update(narrow)
     return counts
+
+
+def templates_launched(counts) -> dict:
+    """A path's launches of K4's and K3's templates (`pv_scan_topk` kinds
+    0 / 1 and 2): every launch less those of the kinds."""
+    return {"K4": counts["scan_topk"] - sum(counts[k] for k in K4_KIND_KEYS),
+            "K3": counts["scan_topk_i8"] - sum(counts[k]
+                                               for k in K3_KIND_KEYS)}
+
+
+def narrow_rec(rec, name: str, label: str, record: dict) -> None:
+    """One measurement of a kind over rows TMA cannot read: the kernels
+    line's row takes the latest (phase 3c's largest store), its "shapes"
+    keep every one; the row's max_abs_err is the largest seen."""
+    old = rec.get(name, {})
+    shapes = dict(old.get("shapes", {}))
+    shapes[label] = {k: record[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "template_ms")}
+    rec[name] = {**record, "max_abs_err": max(record["max_abs_err"],
+                                              old.get("max_abs_err", 0.0)),
+                 "shapes": shapes}
+
+
+def narrow_serve(torch, scan, db, corpus_dev, qdev, prefix: str, allow,
+                 what: str):
+    """The calls of phases 3b and 3c on a float32 store whose rows TMA
+    cannot read, through the public API, the launches counted from 0 to
+    just after them: 64 single `query` calls (i8_fused_smallq: K3's narrow
+    sweep over the int8 mirror), a 16-query `query_columnar` (the same
+    route: K3's tensor-core scan), 64 queries under a `where` filter and
+    under an id filter of the rows `allow` (K4 over the bf16 mirror where
+    the filter view is refused: mixed_fused_batch_filtered), top_k 32
+    (mixed_fused_batch: K4 at k_sel 36), top_k 200 (K4's wide kind at k_sel
+    204, then the exact retry over the float32 rows where the crowding mark
+    fires) and, under the read lock, the exact retry's
+    `query_exact_snapshot` at k = 996 (k_sel 1000 over the float32 rows).
+    Each answer is held to the float64 oracle: recall@10 >= 0.99, and the
+    wide answers' ids outside the gap (`wide_vs_oracle`). Returns the
+    launches and a summary."""
+    from picovdb_tpu_torch import K_METRICS
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    n = corpus_dev.shape[0]
+    dev = db._dev
+    q64 = qdev[:64].cpu().numpy()
+    allow_ids = [f"{prefix}{i}" for i in allow]
+    scan.reset_launch_counts()  # count these calls' launches only
+    routes = {}
+    singles = []
+    for i in range(64):
+        singles.append([h["_id_"] for h in db.query(q64[i], top_k=10)])
+        routes.setdefault("query", set()).add(
+            db.last_query_debug()["strategy"])
+    got16, _ = db.query_columnar(qdev[:16], top_k=10)
+    routes["columnar Q=16"] = db.last_query_debug()["strategy"]
+    res_w = db.query(q64, top_k=10, where={"tag": 3})
+    routes["where"] = db.last_query_debug()["strategy"]
+    res_i = db.query(q64, top_k=10, ids=allow_ids)
+    routes["ids"] = db.last_query_debug()["strategy"]
+    res32 = db.query(q64, top_k=32)
+    routes["top_k=32"] = db.last_query_debug()["strategy"]
+    res200 = db.query(q64, top_k=200)
+    routes["top_k=200"] = db.last_query_debug()["strategy"]
+    with db._rwlock.read_lock():
+        vals, slots = dev.query_exact_snapshot(
+            dev.snapshot(), normalize_on_device(qdev[:16]), 996)
+    torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    # a query the crowding mark flags is re-served by the engine's exact
+    # retry (`xla_topk` at Q <= 16, no kernel): the calls' route reports
+    # the retry, their launches the K3 call each made first
+    assert routes["query"] <= {"i8_fused_smallq", "xla_topk"}, routes
+    assert routes["columnar Q=16"] in ("i8_fused_smallq", "xla_topk"), routes
+    assert counts["scan_topk_i8_narrow"] == 64, counts
+    assert counts["shapes"]["scan_topk_i8"].get("Q=16 k=14") == 1, counts
+    assert routes["ids"] == "mixed_fused_batch_filtered", routes
+    assert routes["where"] in ("fview_segmax", "mixed_fused_batch_filtered")
+    assert routes["top_k=32"] == "mixed_fused_batch", routes
+    # no template launch; each new kind the store's mirrors take served
+    assert templates_launched(counts) == {"K4": 0, "K3": 0}, counts
+    want = ["scan_topk_i8_narrow"] + [
+        name + scan._PIECE_KEY[scan.rows_piece(rows)] for name, rows in (
+            ("scan_topk_i8_wgmma", dev.vectors_i8),
+            ("scan_topk_wgmma", dev.vectors_lp),
+            ("scan_topk_wide", dev.vectors_lp),
+            ("scan_topk_wide", dev.vectors))]
+    for key in want:
+        assert counts[key] > 0, (key, counts)
+    # the answers against the float64 oracle
+    live = torch.ones(n, dtype=torch.bool, device=corpus_dev.device)
+    recalls = {}
+    truth = oracle_top10(torch, corpus_dev, qdev[:64], live)
+    recalls["query"] = recall_at_10(singles, truth, prefix)
+    recalls["columnar Q=16"] = recall_at_10(got16, truth[:16], prefix)
+    tag3 = torch.from_numpy(np.arange(n) % 10 == 3).to(corpus_dev.device)
+    recalls["where"] = recall_at_10(
+        [[h["_id_"] for h in r] for r in res_w],
+        oracle_top10(torch, corpus_dev, qdev[:64], tag3), prefix)
+    keep = torch.zeros(n, dtype=torch.bool, device=corpus_dev.device)
+    keep[torch.as_tensor(np.asarray(allow), device=keep.device)] = True
+    recalls["ids"] = recall_at_10(
+        [[h["_id_"] for h in r] for r in res_i],
+        oracle_top10(torch, corpus_dev, qdev[:64], keep), prefix)
+    assert all(h["_id_"] in set(allow_ids) for r in res_i for h in r)
+    assert min(recalls.values()) >= 0.99, (what, recalls)
+    wides = []
+    for res, k in ((res32, 32), (res200, 200)):
+        wides.append(wide_vs_oracle(
+            torch, corpus_dev, qdev[:64],
+            [[int(h["_id_"][len(prefix):]) for h in r] for r in res],
+            [[h[K_METRICS] for h in r] for r in res], k,
+            f"top_k={k} ({routes[f'top_k={k}']})"))
+    wides.append(wide_vs_oracle(
+        torch, corpus_dev, qdev[:16], slots, vals, 996,
+        "query_exact_snapshot k=996"))
+    new = {k: counts[k] for k in K4_KIND_KEYS + K3_KIND_KEYS if counts[k]}
+    shown = {k: sorted(v) if isinstance(v, set) else v
+             for k, v in routes.items()}
+    line = (f"{what}: routes {shown}; recall@10 vs float64 "
+            + ", ".join(f"{k} {v:.4f}" for k, v in recalls.items())
+            + "; " + "; ".join(wides) + f"; template launches 0; kinds {new}")
+    return counts, line
+
+
+def narrow_holds(torch, scan, dev, qdev, fmask, rec, label: str) -> str:
+    """After the count (uncounted): each kind over rows TMA cannot read
+    that the store's path took, on the store's own mirrors at the path's
+    shapes, held to its plain version (K3 bit for bit; K4 by `k4_check`:
+    scores within TOL_SCORE, ids outside TOL_GAP, over 131,072-row slices)
+    and timed (CUDA events, median of 10) beside the template it replaces
+    (`timed_ms`: once past SLOW_MS) and the library pair on the same
+    inputs (torch._int_mm over operands zero-padded to a multiple of 8
+    columns, or torch.matmul, + masked_fill + torch.topk), with its
+    bound; recorded in `rec` under the kinds line's names."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    qn = normalize_on_device(qdev[:64])
+    act = dev.active
+    cap, live = act.shape[0], int(act.sum())
+    v8, vs = dev.vectors_i8, dev.vscale
+    dim = v8.shape[1]
+    parts = []
+    v8p = scan._pad_cols(v8, 8)  # torch._int_mm's K % 8 == 0
+    for nq, ksel, name, run in (
+            (1, 14, "fused_topk_i8_narrow",
+             lambda a: scan._sweep_launch(*a, "fused_topk_i8",
+                                          "pv_sweep_topk_i8_narrow")),
+            (16, 14, "fused_topk_i8_wgmma"
+             + scan._PIECE_KEY[scan.rows_piece(v8)],
+             lambda a: scan._i8_wgmma_launch(*a))):
+        q8, _ = scan.quantize_rows_i8(qn[:nq])
+        args = (q8, v8, vs, act, ksel)
+        got = run(args)
+        ref = scan.scan_topk_plain(*args, chunk=131_072)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+            f"{name} differs from the plain version ({label})"
+        ms = timed_ms(torch, lambda: run(args), 10)
+        tmpl = timed_ms(torch, lambda: scan._template_launch(
+            *args, scan._KIND_I8, "scan_topk_i8"), 10)
+        lib = k3_lib_ms(torch, scan._pad_cols(q8, 8), v8p, vs, ~act, ksel)
+        plain = timed_ms(torch, lambda: scan.scan_topk_plain(
+            *args, chunk=131_072), 3)
+        r = entry(0.0, ms, plain, nq * dim + live * (dim + 4) + cap
+                  + nq * ksel * 8, 2 * nq * live * dim, "int8", lib,
+                  LIB_K3_Q1 if nq <= 16 else LIB_K3)
+        r["template_ms"] = tmpl
+        narrow_rec(rec, name, f"{label} Q={nq} k_sel={ksel}", r)
+        parts.append(f"{name} Q={nq} k_sel={ksel}: {ms:.4f} ms, template "
+                     f"{tmpl:.4f}, library {lib:.4f}, bound "
+                     f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    del v8p
+    fl = int(fmask.sum())
+    for rows, nq, ksel, msk, wide in (
+            (dev.vectors_lp, 64, 36, act, False),
+            (dev.vectors_lp, 64, 14, fmask, False),
+            (dev.vectors_lp, 64, 204, act, True),
+            (dev.vectors, 16, 1000, act, True)):
+        kind = scan._PIECE_KEY[scan.rows_piece(rows)]
+        if not kind:
+            continue  # rows TMA reads: the kinds phase 3 times
+        name = ("fused_topk_wide" if wide else "fused_topk") + kind
+        q = qn[:nq].contiguous()
+        run = ((lambda: scan._topk_wide_launch(q, rows, msk, ksel))
+               if wide else
+               (lambda: scan._topk_wgmma_launch(q, rows, msk, ksel)))
+        got = run()
+        ref = scan.scan_topk_plain(q, rows, None, msk, ksel + 1,
+                                   chunk=131_072)
+        torch.cuda.synchronize()
+        err = k4_check(torch, got, ref, msk, ksel,
+                       f"{name} {str(rows.dtype)[6:]} ({label})")
+        del got, ref
+        kk = scan._KIND_F32 if rows.dtype == torch.float32 else scan._KIND_BF16
+        ms = timed_ms(torch, run, 10)
+        tmpl = timed_ms(torch, lambda: scan._template_launch(
+            q, rows, None, msk, ksel, kk), 10)
+        ql = q.to(rows.dtype)
+        lib = timed_ms(torch, lib_topk(torch, lambda: torch.matmul(
+            ql, rows.T), ~msk, ksel), 10)
+        nl = int(msk.sum())
+        plain = timed_ms(torch, lambda: scan.scan_topk_plain(
+            q, rows, None, msk, ksel, chunk=131_072), 3)
+        r = entry(err, ms, plain, nq * dim * 4 + nl * dim * rows.element_size()
+                  + cap + nq * ksel * 8,
+                  *tc_ops(torch, nq, nl, dim, rows.dtype, 3), lib, LIB_K4)
+        shape = (f"{str(rows.dtype)[6:]} Q={nq} k_sel={ksel}"
+                 + (f" over {fl} filtered rows" if msk is fmask else ""))
+        r["template_ms"] = tmpl
+        narrow_rec(rec, name, f"{label} {shape}", r)
+        parts.append(f"{name} {shape}: {ms:.4f} ms, template {tmpl:.4f}, "
+                     f"library {lib:.4f}, bound {r['bound_ms']:.4f} "
+                     f"({r['bound_by']}), max |dscore| {err:.3g}")
+    return "; ".join(parts)
+
+
+def int8_narrow_store(torch, scan, device, corpus, qdev, rec, label: str):
+    """An int8-storage store of phase 3c's rows (host upload; the host
+    rescore on the float32 rows): a single `query` and a 64-query
+    `query_columnar` at top_k 10 through the public API (launches counted
+    from 0: the host rescore's band k_sel 142 on K3's wide kind over rows
+    TMA cannot read at Q = 1 and, reading the plane no more often than the
+    scan would (`i8_wide_covers`), at Q = 64; no template launch),
+    recall@10 >= 0.99 against the float64 oracle; then (uncounted) the
+    kind the dispatch took at each of the two shapes, on the store's plane
+    with the path's quantized queries, bit for bit its plain version, timed
+    beside the template, the library pair and its bound, and at Q = 64 the
+    tensor-core scan it gave the batch away from, bit for bit too, with its
+    time. Returns (launches, summary)."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    n, dim = corpus.shape
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(tmp, "i8"),
+                      storage_dtype="int8")
+    db.upsert_columnar(corpus, ids=[f"a{i}" for i in range(n)])
+    db.rebuild_index()
+    q64 = qdev[:64].cpu().numpy()
+    scan.reset_launch_counts()
+    one = db.query(q64[0], top_k=10)
+    dbg = db.last_query_debug()
+    assert dbg["strategy"] == "i8stor_fused_exact" and dbg["rescore"] == "host"
+    got, _ = db.query_columnar(q64, top_k=10)
+    torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    assert templates_launched(counts) == {"K4": 0, "K3": 0}, counts
+    v8, vs, act = db._dev.vectors, db._dev.vstore_scale, db._dev.active
+    piece = scan._PIECE_KEY[scan.rows_piece(v8)]
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    live = torch.ones(n, dtype=torch.bool, device=device)
+    truth = oracle_top10(torch, corpus_dev, qdev[:64], live)
+    recall = recall_at_10([[h["_id_"] for h in one]] + list(got[1:]), truth,
+                          "a")
+    assert recall >= 0.99, (label, recall)
+    cap, live_n = act.shape[0], int(act.sum())
+    v8p = scan._pad_cols(v8, 8)  # torch._int_mm's K % 8 == 0
+    parts = []
+    for nq in (1, 64):
+        q8, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:nq]))
+        args = (q8, v8, vs, act, 142)
+        wide = scan.i8_wide_ready(q8, v8, 142)
+        key = ("scan_topk_i8_wide" if wide else "scan_topk_i8_wgmma") + piece
+        # the path launched this kind at this shape
+        assert counts["shapes"].get(key, {}).get(f"Q={nq} k=142"), (key,
+                                                                    counts)
+        runs = {key: lambda: scan._i8_wide_launch(*args)} if wide else {}
+        runs["scan_topk_i8_wgmma" + piece] = (
+            lambda: scan._i8_wgmma_launch(*args))
+        ref = scan.scan_topk_plain(*args, chunk=131_072)
+        for what, run in runs.items():
+            out = run()
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], ref[0]) and torch.equal(
+                out[1], ref[1]), (label, what, nq)
+        del out, ref
+        ms = timed_ms(torch, runs[key], 10)
+        tmpl = timed_ms(torch, lambda: scan._template_launch(
+            *args, scan._KIND_I8, "scan_topk_i8"), 10)
+        lib = k3_lib_ms(torch, scan._pad_cols(q8, 8), v8p, vs, ~act, 142)
+        plain = timed_ms(torch, lambda: scan.scan_topk_plain(
+            *args, chunk=131_072), 3)
+        r = entry(0.0, ms, plain, nq * dim + live_n * (dim + 4) + cap
+                  + nq * 142 * 8, 2 * nq * live_n * dim, "int8", lib,
+                  LIB_K3_Q1 if nq <= 16 else LIB_K3)
+        r["template_ms"] = tmpl
+        name = "fused_topk_" + key[len("scan_topk_"):]
+        narrow_rec(rec, name, f"{label} Q={nq} k_sel=142", r)
+        parts.append(f"{name} Q={nq} k_sel=142 on its plane = plain bit for "
+                     f"bit: {ms:.4f} ms, template {tmpl:.4f}, library "
+                     f"{lib:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})"
+                     + "".join(f", {what} {timed_ms(torch, run, 10):.4f} "
+                               f"(= plain bit for bit)"
+                               for what, run in runs.items() if what != key))
+    del db, corpus_dev, v8, v8p
+    shutil.rmtree(tmp)
+    new = {k: counts[k] for k in K3_KIND_KEYS if counts[k]}
+    return counts, (f"int8 store: recall@10 {recall:.4f} vs float64 (Q = 1 "
+                    f"and 64, host rescore); kinds {new}, template launches "
+                    f"0; " + "; ".join(parts))
+
+
+def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
+                     dims=ANN_DIMS) -> dict:
+    """Phase 3c: at ann-benchmarks' widths and scale, for each of `dims` a
+    float32 store of n seeded unit rows (its own generator, SEED + 31;
+    queries = rows + noise, as phase 3b makes them; only the shape is
+    glove-100 / glove-25-angular's), served as phase 3b's new calls
+    (`narrow_serve`), its kinds held and timed on its mirrors
+    (`narrow_holds`), Q = 1 latency and the id-filtered batch's ms (CUDA
+    events around PicoVectorDB.query), then an int8-storage store of the
+    same rows (`int8_narrow_store`). Returns the launches of every path,
+    summed."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    g = np.random.default_rng(SEED + 31)
+    total = {}
+    for dim in dims:
+        t0 = time.perf_counter()
+        corpus = g.standard_normal((n, dim), dtype=np.float32)
+        near = corpus[g.integers(0, n, 64)]
+        qdev = torch.from_numpy(
+            near + 0.01 * g.standard_normal(near.shape, dtype=np.float32)
+        ).to(device)
+        allow = np.sort(g.choice(n, 3000, replace=False))
+        tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+        db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                          storage_file=os.path.join(tmp, "f32"))
+        db.upsert_columnar(corpus, ids=[f"g{i}" for i in range(n)],
+                           metadata=[{"tag": i % 10} for i in range(n)],
+                           copy=False)  # `corpus` now holds the unit rows
+        db.rebuild_index()
+        corpus_dev = torch.from_numpy(corpus).to(device)
+        counts, line = narrow_serve(torch, scan, db, corpus_dev, qdev, "g",
+                                    allow, f"a {n} x {dim} float32 store")
+        with uncounted(scan):
+            fmask = torch.zeros_like(db._dev.active)
+            fmask[torch.from_numpy(allow).to(device)] = True
+            fmask &= db._dev.active
+            holds = narrow_holds(torch, scan, db._dev, qdev, fmask, rec,
+                                 f"3c dim {dim}")
+            one = qdev[0].cpu().numpy()
+            q1_ms = cuda_ms(torch, lambda: db.query(one, top_k=10), reps=20)
+            ids = [f"g{i}" for i in allow]
+            q64 = qdev.cpu().numpy()
+            filt_ms = cuda_ms(torch, lambda: db.query(q64, top_k=10, ids=ids),
+                              reps=5)
+        del db, corpus_dev, fmask
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp)
+        i8_counts, i8_line = int8_narrow_store(torch, scan, device, corpus,
+                                               qdev, rec, f"3c dim {dim}")
+        torch.cuda.empty_cache()
+        for c in (counts, i8_counts):
+            for k, v in c.items():
+                if k != "shapes":
+                    total[k] = total.get(k, 0) + v
+        log(f"phase 3c: {line}; Q=1 latency {q1_ms:.4f} ms, the 64-query "
+            f"id-filtered batch {filt_ms:.3f} ms (CUDA events around "
+            f"PicoVectorDB.query); on the store's mirrors: {holds}; "
+            f"{i8_line}; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# The narrow kinds' crossovers (`--narrow-cross`): int8 planes of these
+# row counts and widths made on the card, K3's narrow sweep against its
+# tensor-core scan over the same rows (the limit behind I8_SWEEP_Q_MAX) and
+# its wide kind past k 128 (the limits behind I8_WIDE_K_MIN and
+# `i8_wide_covers`: twice ANN_N rows cut the wide kind's tile to 28
+# queries), at the NARROW_CROSS (Q, k_sel) shapes
+NARROW_CROSS_CAPS = (131_072, ANN_N, 2 * ANN_N)
+NARROW_CROSS_DIMS = (25, 100, 1019)
+NARROW_CROSS = tuple(sorted(
+    {(nq, k) for k in (14, 142) for nq in (1, 2, 4, 5, 8, 16)}
+    | {(nq, k) for k in (142, 256, 384) for nq in (1, 4, 16, 64)}
+    | {(32, 142), (128, 142)},
+    key=lambda s: (s[1], s[0])))
+
+
+def narrow_cross(torch, scan, device) -> str:
+    """K3's kinds over int8 rows TMA cannot read, launched uncounted on
+    planes made on the card from their own generator (rows uniform in
+    -127..127, scales in [0.5, 1.5), every row live): at each shape the
+    narrow sweep (Q <= 16), the tensor-core scan and, past k 128, the wide
+    kind, bit for bit each other and each timed (`timed_ms`), beside the
+    kind the dispatch picks."""
+    g = torch.Generator(device=device).manual_seed(SEED + 43)
+    parts = []
+    for dim in NARROW_CROSS_DIMS:
+        top = max(NARROW_CROSS_CAPS)
+        v8 = torch.randint(-127, 128, (top, dim), generator=g, device=device,
+                           dtype=torch.int8)
+        vs = torch.rand(top, generator=g, device=device) + 0.5
+        mask = torch.ones(top, dtype=torch.bool, device=device)
+        q8 = torch.randint(-127, 128, (max(nq for nq, _ in NARROW_CROSS),
+                                      dim), generator=g, device=device,
+                           dtype=torch.int8)
+        for cap in NARROW_CROSS_CAPS:
+            for nq, k in NARROW_CROSS:
+                args = (q8[:nq].contiguous(), v8[:cap], vs[:cap], mask[:cap],
+                        k)
+                runs = {}
+                if k <= scan.I8_SWEEP_K_MAX and scan.narrow_fits(
+                        args[0], args[1], k):
+                    runs["narrow sweep"] = lambda: scan._sweep_launch(
+                        *args, "fused_topk_i8", "pv_sweep_topk_i8_narrow")
+                runs["scan"] = lambda: scan._i8_wgmma_launch(*args)
+                if k > scan.TOPK_WGMMA_K_MAX:
+                    runs["wide kind"] = lambda: scan._i8_wide_launch(
+                        *args)
+                outs = [r() for r in runs.values()]
+                torch.cuda.synchronize()
+                for o in outs[1:]:
+                    assert torch.equal(o[0], outs[0][0]) and torch.equal(
+                        o[1], outs[0][1]), (dim, cap, nq, k)
+                del outs
+                picked = next(
+                    name for name, rule in (
+                        ("wide kind", scan.i8_wide_ready),
+                        ("narrow sweep", scan.i8_narrow_ready),
+                        ("scan", scan.i8_wgmma_ready))
+                    if rule(args[0], args[1], k))
+                parts.append(f"dim={dim} cap={cap} Q={nq} k_sel={k} "
+                             f"({picked}): " + ", ".join(
+                                 f"{name} {timed_ms(torch, run, 5):.4f}"
+                                 for name, run in runs.items()) + " ms")
+        del v8, vs, mask, q8
+        torch.cuda.empty_cache()
+    return "; ".join(parts)
 
 
 def recall_at_10(got_ids, truth, prefix: str) -> float:
@@ -6100,6 +6609,7 @@ def main() -> int:
     rag_only = sys.argv[1:] == ["--rag"]
     tools_only = sys.argv[1:] == ["--tools"]
     k3_only = sys.argv[1:] == ["--k3-cross"]
+    narrow_only = sys.argv[1:] == ["--narrow-cross"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -6114,6 +6624,11 @@ def main() -> int:
 
     if trace_only:
         return trace_mesh_main(torch, card)
+    if narrow_only:  # the narrow kinds' crossovers alone
+        log(f"phase 3c: K3's narrow kinds' crossovers: "
+            f"{narrow_cross(torch, scan, device)}")
+        print(card)
+        return 0
     if k3_only:  # phase 4's larger int8 planes alone
         log(f"phase 4: K3 on larger planes: "
             f"{k3_large_table(torch, scan, device)}")
@@ -6158,6 +6673,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts["3b"] = phase_narrow_stores(torch, scan, device, WMMA_N, DIM - 4,
                                        rng, rec)
+    torch.cuda.empty_cache()
+    t3c = time.perf_counter()
+    counts["3c"] = phase_ann_widths(torch, scan, device, rec)
+    log(f"phase 3c: {time.perf_counter() - t3c:.1f} s")
     torch.cuda.empty_cache()
     counts[4] = phase_int8(torch, scan, device, I8_N, DIM, rng, card)
     torch.cuda.empty_cache()

@@ -113,16 +113,6 @@ cudaError_t launch_topk_merge(const u64* partial, float* vals, int* idx,
                               int nrows, int L, int k, cudaStream_t stream,
                               bool int_scores = false);
 
-// K4's tensor-core scan with the slab epilogue (scan_topk_wgmma.cu; 32
-// queries a CTA at Q <= 32, else 64): the wide kind's pass A, launched by
-// pv_scan_topk_wide (topk_wide.cu). kind 0 float32 rows, 1 bf16;
-// `planes` the queries' planes, `plane` bytes apart; slab (Q, ld = cap
-// rounded up to 128) uint32 sortable score keys. Returns 0, a cudaError_t,
-// or minus the CUresult of a refused encode.
-int launch_scan_slab(int kind, const void* planes, size_t plane,
-                     const void* v, const void* mask, uint32_t* slab, int Q,
-                     long long cap, int dim, cudaStream_t stream);
-
 // K6's tensor-core scan with the slab epilogue (scan_i4_wgmma.cu, 64
 // queries a CTA): the int4 wide kind's pass A, launched by
 // pv_scan_topk_i4_wide (topk_i4_wide.cu). q_perm (Q, dim) permuted int8

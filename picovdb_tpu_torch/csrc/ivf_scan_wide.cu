@@ -161,9 +161,8 @@ extern "C" int pv_ivf_scan_topk_wide(int kind, const void* q, const void* v,
   uint8_t* lmask = base + lmask_off;
   const void* planes = q;
   if (kind == 0) {
-    const long total = (long)Q * dim;
-    if ((e = rs::split_planes(static_cast<const float*>(q), base, total, 0,
-                              sms, s)) != cudaSuccess)
+    if ((e = rs::split_planes(static_cast<const float*>(q), base, Q, dim,
+                              dim, 0, sms, s)) != cudaSuccess)
       return (int)e;
     planes = base;
   }

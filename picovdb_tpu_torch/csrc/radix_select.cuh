@@ -440,19 +440,23 @@ inline cudaError_t prepare(int* sms) {
   return e;
 }
 
-// The query planes pass A multiplies, from the float32 queries q (total
-// elements): kind 0 hi = q with its low 13 mantissa bits cleared and lo =
-// q - hi (ops/scan.py::split_tf32), kind 1 three bf16 planes q1 = bf16(q),
-// q2 = bf16(q - q1), q3 = bf16(q - q1 - q2) (ops/scan.py::split_bf16),
-// planes `total` elements apart. K4's and K7's wide kinds split their
-// float queries with it (K7 takes kind 0 alone: its bf16 kind multiplies
-// one plane, the queries as they are).
+// The query planes pass A multiplies, from the float32 queries q (rows x
+// dim) written as rows x ld (ld >= dim, zeros past dim, so a plane row is
+// whole 16 bytes where TMA needs it): kind 0 hi = q with its low 13
+// mantissa bits cleared and lo = q - hi (ops/scan.py::split_tf32), kind 1
+// three bf16 planes q1 = bf16(q), q2 = bf16(q - q1), q3 = bf16(q - q1 -
+// q2) (ops/scan.py::split_bf16), planes `total` = rows x ld elements
+// apart. K4's and K7's wide kinds split their float queries with it (K7
+// takes kind 0 alone: its bf16 kind multiplies one plane, the queries as
+// they are).
 __global__ void __launch_bounds__(256)
 planes_kernel(const float* __restrict__ q, void* __restrict__ planes,
-              long total, int kind) {
+              long total, int dim, int ld, int kind) {
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (long)gridDim.x * blockDim.x) {
-    const float x = q[i];
+    const long row = i / ld;
+    const int col = (int)(i - row * ld);
+    const float x = col < dim ? q[row * dim + col] : 0.0f;
     if (kind == 0) {
       float* f = static_cast<float*>(planes);
       const float h = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
@@ -470,11 +474,13 @@ planes_kernel(const float* __restrict__ q, void* __restrict__ planes,
   }
 }
 
-// planes_kernel over `total` elements, at most 4 CTAs an SM of `sms`.
-inline cudaError_t split_planes(const float* q, void* planes, long total,
-                                int kind, int sms, cudaStream_t s) {
+// planes_kernel over rows x ld elements, at most 4 CTAs an SM of `sms`.
+inline cudaError_t split_planes(const float* q, void* planes, long rows,
+                                int dim, int ld, int kind, int sms,
+                                cudaStream_t s) {
+  const long total = rows * ld;
   planes_kernel<<<(int)std::min((total + 255) / 256, 4L * sms), 256, 0, s>>>(
-      q, planes, total, kind);
+      q, planes, total, dim, ld, kind);
   return cudaGetLastError();
 }
 

@@ -4,18 +4,20 @@
 // reading only the 128-row segments that hold a live row.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk (`_scan_kernel`)
-// wherever TMA can read the rows and k <= 128 (ops/scan.py::
-// topk_wgmma_ready), and pallas_scan.py:fused_topk_i8 (`_scan_kernel_i8`)
-// at batches past the one-query sweep's limit wherever TMA can read both
-// operands and k <= 384 (ops/scan.py::i8_wgmma_ready). K4 at 128 < k <=
-// 1024 runs topk_wide.cu, whose pass A is this scan with a slab epilogue
-// (BUF 0: every live segment's keys written, nothing selected here);
-// scan_topk.cu's template keeps other widths. It computes pv_scan_topk's
-// kinds 0, 1 and 2: per query the k
-// best masked rows by the float32 score (q . v; for int8 rows
-// float32(int32 q . v) * vscale[row], one conversion and one multiply), as
-// (Q, k) float32 scores (-inf where a slot is empty) and (Q, k) int32 rows
-// (0 where empty), ties to the lower row.
+// at k <= 128 (ops/scan.py::topk_wgmma_ready), and pallas_scan.py:
+// fused_topk_i8 (`_scan_kernel_i8`) at k <= 384 where the one-query
+// sweeps do not serve (ops/scan.py::i8_wgmma_ready), at every row width
+// and base: rows TMA cannot read (bytes not whole 16, or a base off 16
+// bytes: the glove-100 / -25 widths, odd bf16 mirrors, views) arrive by
+// the mainloop's cp.async or realigning producer (scan_topk_wgmma.cuh,
+// `PIECE`), where the template scan_topk.cu served them before. K4 at
+// 128 < k <= 1024 runs topk_wide.cu, K3 past k 128 topk_i8_wide.cu, whose
+// pass A is this scan with a slab epilogue (BUF 0: every live segment's
+// keys written, nothing selected here). It computes pv_scan_topk's kinds
+// 0, 1 and 2: per query the k best masked rows by the float32 score (q .
+// v; for int8 rows float32(int32 q . v) * vscale[row], one conversion and
+// one multiply), as (Q, k) float32 scores (-inf where a slot is empty) and
+// (Q, k) int32 rows (0 where empty), ties to the lower row.
 //
 // What bounds it on the H100: float32 rows run three TF32 products (2 Q
 // cap dim operations each at 495 T/s: 6.4 ms at Q = 256 over 2M x 1024
@@ -23,7 +25,9 @@
 // Q = 64 are bound by their bytes (1M x 1024: 0.61 ms; three bf16 products
 // 0.40 ms), and under a sparse filter by the bytes of the segments that
 // hold a live row. int8 rows at the host-rescore route's Q = 64 are bound
-// by their bytes (1M x 1024: 0.307 ms; the s8 product 0.07 ms). The
+// by their bytes (1M x 1024: 0.307 ms; the s8 product 0.07 ms). A narrow
+// row costs its k-stages whole: a 100-byte int8 row is one 128-byte stage,
+// 28 of its bytes zero. The
 // templates it replaces scored with CUDA-core FMAs through unpipelined
 // shared-memory tiles, re-read the corpus once per query tile (16 queries,
 // 2 at k > 128) and read every row whatever the mask.
@@ -31,11 +35,13 @@
 // Design:
 //  * Rows as M, queries as N (64; 32 for the int8 kind at k > 128). A
 //    128-row segment is two m64 tiles, one per consumer warpgroup; both
-//    operands are K-major as they lie and arrive by TMA in 128-byte
-//    k-stages, 128B-swizzled (32 float32, 64 bf16 or 128 int8 elements).
-//    One producer warp's lane 0 keeps a ring of S stages filled (the
-//    segment's rows, the query tile's planes) behind full / empty
-//    mbarriers.
+//    operands are K-major and fill a ring of S 128-byte k-stages,
+//    128B-swizzled (32 float32, 64 bf16 or 128 int8 elements), behind
+//    full / empty mbarriers. The query planes arrive by TMA (the launcher
+//    pads them to whole 16-byte rows where the queries are not); the rows
+//    by TMA from one producer warp's lane 0 where TMA reads them, else by
+//    a producer warpgroup's cp.async or realigning producer
+//    (scan_topk_wgmma.cuh), which writes the bytes TMA would.
 //  * Float32 rows run 3xTF32 as K8 does (hi.hi + hi.lo + lo.hi): the
 //    launcher splits the queries once into hi and lo planes, each consumer
 //    warpgroup splits its m64 tile of a stage in shared memory
@@ -87,7 +93,11 @@
 //    (226 / 210 KB). K3: k <= 32 four stages and BUF 64 (130 KB), k <= 64
 //    four and BUF 128 (162 KB), k <= 128 three and BUF 256 (202 KB), k <=
 //    384 N = 32, four stages and BUF 512 (209 KB; BUF 512 at N = 64 would
-//    take 256 KB of buffers alone). One CTA an SM.
+//    take 256 KB of buffers alone). The realigning producer adds two 18 KB
+//    staging slots: K4's bf16 rows past k 64 then run 32 queries a CTA and
+//    four stages (<Bf16, 32, 4, 256>: 213 KB; 64 queries and two stages
+//    would take 246 KB), K3's two stages past k 64 (<64, 2, 256>: 214 KB;
+//    <32, 2, 512>: 205 KB). One CTA an SM.
 //  * The kernel and its launcher live in scan_topk_wgmma.cuh, where K7's
 //    tensor-core scan (ivf_scan_wgmma.cu) runs them over an IVF hot-tile
 //    table.
@@ -95,106 +105,133 @@
 #include "scan_topk_wgmma.cuh"
 
 namespace pv {
+namespace {
 
-// The wide kind's pass A (topk_wide.cu): the scan with the slab epilogue
-// (BUF 0) and four stages, N = 32 queries a CTA at Q <= 32 (half the
-// operand reads and products of N = 64, whose tile would be at least half
-// empty), else 64. kind 0: float32 rows, planes hi and lo; 1: bf16 rows,
-// three bf16 planes; `plane` bytes apart.
-int launch_scan_slab(int kind, const void* planes, size_t plane,
-                     const void* v, const void* mask, uint32_t* slab, int Q,
-                     long long cap, int dim, cudaStream_t stream) {
+// K4's configurations at k with the rows' producer PIECE: three stages and
+// BUF 64 / 128 to k 64, then two stages and BUF 256; the realigning
+// producer's slots leave no room for 64 queries' buffers of 256 keys, so
+// past k 64 it runs 32 queries a CTA and four stages (ops/scan.py::
+// topk_wgmma_qtile).
+template <class T, int PIECE>
+int k4(const void* planes, int qld, const void* v, const void* mask,
+       void* partial, void* vals, void* idx, int Q, long long cap, int dim,
+       int k, cudaStream_t s) {
   using namespace tk;
   const Rows flat{};  // the rows [0, cap)
-  int r = 0;
-  if (kind == 0)
-    return Q <= 32 ? launch_scan<F32, 32, 4, 0>(planes, plane, v, mask, nullptr,
-                                                slab, Q, cap, dim, 0, flat, &r,
-                                                stream)
-                   : launch_scan<F32, 64, 4, 0>(planes, plane, v, mask, nullptr,
-                                                slab, Q, cap, dim, 0, flat, &r,
-                                                stream);
-  if (kind == 1)
-    return Q <= 32 ? launch_scan<Bf16, 32, 4, 0>(planes, plane, v, mask,
-                                                 nullptr, slab, Q, cap, dim, 0,
-                                                 flat, &r, stream)
-                   : launch_scan<Bf16, 64, 4, 0>(planes, plane, v, mask,
-                                                 nullptr, slab, Q, cap, dim, 0,
-                                                 flat, &r, stream);
-  return (int)cudaErrorInvalidValue;
+  if (k <= 32)
+    return launch_rows<T, 64, 3, 64, PIECE>(planes, qld, v, mask, nullptr,
+                                             partial, vals, idx, Q, cap, dim,
+                                             k, flat, s);
+  if (k <= 64)
+    return launch_rows<T, 64, 3, 128, PIECE>(planes, qld, v, mask, nullptr,
+                                              partial, vals, idx, Q, cap, dim,
+                                              k, flat, s);
+  constexpr bool RA = PIECE == 2;
+  return launch_rows<T, RA ? 32 : 64, RA ? 4 : 2, 256, PIECE>(
+      planes, qld, v, mask, nullptr, partial, vals, idx, Q, cap, dim, k, flat,
+      s);
 }
 
+// K3's configurations at k with the rows' producer PIECE: four stages and
+// BUF 64 / 128 to k 64, three and BUF 256 to k 128, then 32 queries a CTA,
+// four stages and BUF 512; two stages past k 64 beside the realigning
+// producer's slots.
+template <int PIECE>
+int k3(const void* q, int qld, const void* v, const float* vs,
+       const void* mask, void* partial, void* vals, void* idx, int Q,
+       long long cap, int dim, int k, cudaStream_t s) {
+  using namespace tk;
+  const Rows flat{};  // the rows [0, cap)
+  constexpr bool RA = PIECE == 2;
+  if (k <= 32)
+    return launch_rows<Int8R, 64, 4, 64, PIECE>(q, qld, v, mask, vs, partial,
+                                                 vals, idx, Q, cap, dim, k,
+                                                 flat, s);
+  if (k <= 64)
+    return launch_rows<Int8R, 64, 4, 128, PIECE>(q, qld, v, mask, vs, partial,
+                                                  vals, idx, Q, cap, dim, k,
+                                                  flat, s);
+  if (k <= 128)
+    return launch_rows<Int8R, 64, RA ? 2 : 3, 256, PIECE>(
+        q, qld, v, mask, vs, partial, vals, idx, Q, cap, dim, k, flat, s);
+  return launch_rows<Int8R, 32, RA ? 2 : 4, 512, PIECE>(
+      q, qld, v, mask, vs, partial, vals, idx, Q, cap, dim, k, flat, s);
+}
+
+}  // namespace
 }  // namespace pv
 
-// K4 on the tensor cores: pv_scan_topk's kinds 0 and 1 for k <= 128, rows
-// of whole 16 bytes (float32 dim % 4, bf16 dim % 8) and 16-byte aligned
-// bases. kind 0: v (cap, dim) float32 and `planes` (2, Q, dim) float32,
-// the queries' hi and lo (ops/scan.py::split_tf32); 1: v bfloat16 and
-// `planes` (3, Q, dim) bfloat16, the queries' three bf16 planes
-// (ops/scan.py::split_bf16). mask (cap,) uint8. The grid is q_tiles =
-// ceil(Q / 64) query tiles x `ranges` = max(1, min(ceil(cap / 128), SMs /
-// q_tiles)) segment ranges (ops/scan.py::topk_wgmma_partition); `partial`
-// is scratch of Q * ranges * k uint64; vals (Q, k) float32 and idx (Q, k)
-// int32 receive the result (-inf / 0 where empty). Launches on the current
-// device. Returns 0, a cudaError_t, or minus the CUresult of a refused
-// tensor-map encode.
-extern "C" int pv_scan_topk_wgmma(int kind, const void* planes, const void* v,
-                                  const void* mask, void* partial, void* vals,
-                                  void* idx, int Q, long long cap, int dim,
-                                  int k, void* stream) {
-  using namespace pv::tk;
-  const Rows flat{};  // the rows [0, cap)
+// K4 on the tensor cores: pv_scan_topk's kinds 0 and 1 for k <= 128.
+// piece: the rows' producer (ops/scan.py::rows_piece): 0 TMA (row bytes
+// and v's base multiples of 16), 8 or 4 cp.async (multiples of piece), 2
+// the realigning producer (kind 1 only, any width and base). kind 0: v
+// (cap, dim) float32 and `planes` (2, Q, qld) float32, the queries' hi and
+// lo (ops/scan.py::split_tf32); 1: v bfloat16 and `planes` (3, Q, qld)
+// bfloat16, the queries' three bf16 planes (ops/scan.py::split_bf16); qld
+// = dim rounded up to whole 16 bytes, zeros past dim, `planes` 16-byte
+// aligned. mask (cap,) uint8. The grid is q_tiles = ceil(Q / N) query
+// tiles (N = ops/scan.py::topk_wgmma_qtile) x `ranges` = max(1,
+// min(ceil(cap / 128), SMs / q_tiles)) segment ranges (ops/scan.py::
+// topk_wgmma_partition); `partial` is scratch of Q * ranges * k uint64;
+// vals (Q, k) float32 and idx (Q, k) int32 receive the result (-inf / 0
+// where empty). Launches on the current device. Returns 0, a cudaError_t,
+// or minus the CUresult of a refused tensor-map encode.
+extern "C" int pv_scan_topk_wgmma(int piece, int kind, const void* planes,
+                                  const void* v, const void* mask,
+                                  void* partial, void* vals, void* idx, int Q,
+                                  long long cap, int dim, int k,
+                                  void* stream) {
+  using namespace pv;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
-  if (k > 128 || cap < 0 || dim <= 0) return (int)cudaErrorInvalidValue;
+  if (k > 128 || cap < 0 || dim <= 0 || (kind != 0 && kind != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 0)
-    return k <= 32   ? launch<F32, 64, 3, 64>(planes, v, mask, nullptr, partial,
-                                              vals, idx, Q, cap, dim, k, flat, s)
-           : k <= 64 ? launch<F32, 64, 3, 128>(planes, v, mask, nullptr,
-                                               partial, vals, idx, Q, cap, dim,
-                                               k, flat, s)
-                     : launch<F32, 64, 2, 256>(planes, v, mask, nullptr,
-                                               partial, vals, idx, Q, cap, dim,
-                                               k, flat, s);
-  if (kind == 1)
-    return k <= 32   ? launch<Bf16, 64, 3, 64>(planes, v, mask, nullptr,
-                                               partial, vals, idx, Q, cap, dim,
-                                               k, flat, s)
-           : k <= 64 ? launch<Bf16, 64, 3, 128>(planes, v, mask, nullptr,
-                                                partial, vals, idx, Q, cap,
-                                                dim, k, flat, s)
-                     : launch<Bf16, 64, 2, 256>(planes, v, mask, nullptr,
-                                                partial, vals, idx, Q, cap,
-                                                dim, k, flat, s);
-  return (int)cudaErrorInvalidValue;
+  const int qld = tk::plane_ld(dim, kind == 0 ? 4 : 2);
+  return tk::with_piece(piece, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    if (kind == 1)
+      return k4<tk::Bf16, P>(planes, qld, v, mask, partial, vals, idx, Q, cap,
+                             dim, k, s);
+    if constexpr (P == 2)  // float32 rows are whole 4 bytes
+      return (int)cudaErrorInvalidValue;
+    else
+      return k4<tk::F32, P>(planes, qld, v, mask, partial, vals, idx, Q, cap,
+                            dim, k, s);
+  });
 }
 
-// K3 on the tensor cores: pv_scan_topk's kind 2 for k <= 384, rows of
-// whole 16 bytes (dim % 16) and 16-byte aligned bases. q (Q, dim) int8, v
-// (cap, dim) int8, vscale (cap,) float32, mask (cap,) uint8. The grid is
-// q_tiles = ceil(Q / N) query tiles (N = 64 for k <= 128, else 32) x
-// `ranges` = max(1, min(ceil(cap / 128), SMs / q_tiles)) segment ranges
-// (ops/scan.py::i8_wgmma_partition); `partial` is scratch of Q * ranges *
-// k uint64; vals (Q, k) float32 and idx (Q, k) int32 receive the result
-// (-inf / 0 where empty). Launches on the current device. Returns 0, a
-// cudaError_t, or minus the CUresult of a refused tensor-map encode.
-extern "C" int pv_scan_topk_i8_wgmma(const void* q, const void* v,
+// K3 on the tensor cores: pv_scan_topk's kind 2 for k <= 384. piece: the
+// rows' producer, as pv_scan_topk_wgmma's (2: any int8 width and base). q
+// (Q, dim) int8 queries (any base), v (cap, dim) int8, vscale (cap,)
+// float32, mask (cap,) uint8. `scratch` (256-byte aligned) holds the
+// queries as TMA reads them where q's rows are not (whole 16 bytes at a
+// 16-byte aligned base): ceil(Q qld / 256) x 256 bytes, qld = dim rounded
+// up to 16 (`tk::tma_queries`); then the partial results, Q * ranges * k
+// uint64. The grid is q_tiles = ceil(Q / N) query tiles (N = 64 for k <=
+// 128, else 32) x `ranges` = max(1, min(ceil(cap / 128), SMs / q_tiles))
+// segment ranges (ops/scan.py::i8_wgmma_partition); vals (Q, k) float32
+// and idx (Q, k) int32 receive the result (-inf / 0 where empty). Launches
+// on the current device. Returns 0, a cudaError_t, or minus the CUresult
+// of a refused tensor-map encode.
+extern "C" int pv_scan_topk_i8_wgmma(int piece, const void* q, const void* v,
                                      const void* vscale, const void* mask,
-                                     void* partial, void* vals, void* idx,
+                                     void* scratch, void* vals, void* idx,
                                      int Q, long long cap, int dim, int k,
                                      void* stream) {
-  using namespace pv::tk;
-  const Rows flat{};  // the rows [0, cap)
+  using namespace pv;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
-  if (k > 384 || cap < 0 || dim <= 0) return (int)cudaErrorInvalidValue;
+  if (k > 384 || cap < 0 || dim <= 0 || !vscale || (uintptr_t)scratch % 256)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* vs = static_cast<const float*>(vscale);
-  return k <= 32    ? launch<Int8R, 64, 4, 64>(q, v, mask, vs, partial, vals,
-                                               idx, Q, cap, dim, k, flat, s)
-         : k <= 64  ? launch<Int8R, 64, 4, 128>(q, v, mask, vs, partial, vals,
-                                                idx, Q, cap, dim, k, flat, s)
-         : k <= 128 ? launch<Int8R, 64, 3, 256>(q, v, mask, vs, partial, vals,
-                                                idx, Q, cap, dim, k, flat, s)
-                    : launch<Int8R, 32, 4, 512>(q, v, mask, vs, partial, vals,
-                                                idx, Q, cap, dim, k, flat, s);
+  const int qld = tk::plane_ld(dim, 1);
+  unsigned char* qp = static_cast<unsigned char*>(scratch);
+  void* partial = qp + ((size_t)Q * qld + 255) / 256 * 256;
+  const cudaError_t e = tk::tma_queries(&q, qp, Q, dim, s);
+  if (e != cudaSuccess) return (int)e;
+  const int ld = q == qp ? qld : dim;  // q's rows as TMA reads them
+  return tk::with_piece(piece, [&](auto p) {
+    return k3<decltype(p)::value>(q, ld, v, vs, mask, partial, vals, idx, Q,
+                                  cap, dim, k, s);
+  });
 }

@@ -1,14 +1,44 @@
 // The tensor-core masked top-k scan: K4 and K3 (scan_topk_wgmma.cu, whose
 // head comment sets out the design) and K7 at Q > 16 (ivf_scan_wgmma.cu).
-// Rows as M, N queries as N, a TMA ring of 128-byte k-stages, a selection
+// Rows as M, N queries as N, a ring of 128-byte k-stages, a selection
 // per query in registers and shared memory, over either the rows [0, cap)
 // in 128-row segments or the live steps of an IVF hot-tile table
 // (`Rows`). With BUF 0 it is the wide kinds' pass A (K4: topk_wide.cu, K3:
 // topk_i8_wide.cu, K7: ivf_scan_wide.cu): every key goes to a slab.
-
+//
+// The query planes always arrive by TMA (the launchers pad them to whole
+// 16 bytes). The rows take one of three producers (PIECE), as K1's
+// mainloop does (wgmma_tiles.cuh), each writing the very bytes TMA's 128B
+// swizzle lays out, so the consumers and the epilogues are the same:
+//  * PIECE 0: TMA, one producer warp, for rows of whole 16 bytes at a
+//    16-byte aligned base;
+//  * PIECE 8 / 4: a producer warpgroup copying each stage's 128 rows by
+//    cp.async in pieces of PIECE bytes (wg::cp_stage: zero-filled past the
+//    row's end and past cap), where the row bytes and the base are
+//    multiples of PIECE (float32 rows at every width, bf16 rows at even
+//    widths, int8 rows at dim % 4 == 0);
+//  * PIECE 2: the realigning producer, for any other rows (odd bf16
+//    widths, int8 widths not a multiple of 4, bases aligned to 1 or 2
+//    bytes). Rows j, j + 16, j + 32, ... of any matrix form a 2D tensor
+//    whose stride, 16 row bytes, TMA takes, based at row j's start
+//    aligned down to 16 bytes (`off` bytes before it); the producer's
+//    elected thread loads each class's 8 rows of a segment, 144 bytes of
+//    each row's span at k-stage kk, into a staging slot (two slots, TMA
+//    running a slot ahead), and the warpgroup shifts each row's 128 bytes
+//    into the ring's swizzled stage (wg::shift_pair at any byte offset).
+// The cp.async and realigning producers arrive on a stage's full barrier
+// once per thread (128) beside the elected thread's expect_tx for the
+// query planes; the consumers fence the generic-proxy writes for wgmma's
+// async proxy after their wait. With their warpgroup the kernel runs 384
+// threads, 168 registers each at launch; as K1's producers, they give
+// registers back (setmaxnreg: 40 a thread for cp.async, 72 for the
+// realigning producer's shifts) and the consumers take them (232 / 216),
+// which the float kinds' wide tiles (N = 64) need to keep their sums in
+// registers.
 #pragma once
 
 #include <climits>
+#include <mutex>
 #include <type_traits>
 
 #include "wgmma_scan.cuh"
@@ -31,9 +61,41 @@ constexpr int A_BYTES = ROWS * ROW_BYTES;      // 16 KB
 constexpr int HALF_BYTES = A_BYTES / 2;        // a warpgroup's m64 tile
 constexpr int CONSUMERS = 256;                 // warpgroups 0 and 1
 constexpr int CONSUMER_WARPS = 8;
-constexpr int THREADS = CONSUMERS + 32;        // and one producer warp
 constexpr int CONSUMER_BAR = 1;  // named barriers: 1 the consumers, 2 + g
-                                 // warpgroup g's split
+                                 // warpgroup g's split, 4 the producer
+constexpr int PRODUCER_BAR = 4;  // warpgroup's (PIECE 2)
+constexpr int PRODUCERS = 128;   // the cp.async / realigning warpgroup
+
+// Threads of the kernel with the rows' producer PIECE: one producer warp
+// for TMA, a warpgroup for the others.
+__host__ __device__ constexpr int threads_of(int piece) {
+  return CONSUMERS + (piece ? PRODUCERS : 32);
+}
+
+// The realigning producer (PIECE 2): RCLASSES classes of rows, 8 rows of
+// each a segment, each staged as its 144-byte span (128 bytes and up to 15
+// before them); two staging slots of 18 KB.
+constexpr int RCLASSES = 16;
+constexpr int RCLASS_ROWS = ROWS / RCLASSES;
+constexpr int RSTAGE_ROW = 144;
+constexpr int RSLOT = ROWS * RSTAGE_ROW;
+constexpr int RSLOTS = 2;
+
+// The rows' maps: TMA's (PIECE 0; unused by the cp.async producer), or
+// the realigning producer's class maps, each class's `off` (bytes between
+// its map's base and its first row; -1: the matrix has no row of the
+// class) and the bytes of a slot's boxes.
+struct RowTma {
+  CUtensorMap v;
+};
+struct RowClasses {
+  CUtensorMap v[RCLASSES];
+  int off[RCLASSES];
+  uint32_t slot_bytes;
+};
+template <int PIECE>
+using RowMapsOf =
+    typename std::conditional<PIECE == 2, RowClasses, RowTma>::type;
 
 // Row kinds: BK elements a k-stage, the TMA type, the query planes; INT:
 // s8 wgmma into one int32 sum a row, SCALED: times the row's scale into a
@@ -120,23 +182,28 @@ __device__ __forceinline__ uint32_t slab_key(int s) {
   return (uint32_t)s ^ 0x80000000u;
 }
 
-// Shared memory of kind T with N queries a CTA, S stages and BUF keys a
-// query: the ring (rows, then the query planes), F32's lo buffers (two a
-// warpgroup), the barriers, then the selection (tau, the buffers, their
-// counts); 1 KB to align the ring (swizzle atoms are 1024 B).
-template <class T, int N, int S, int BUF>
+// Shared memory of kind T with N queries a CTA, S stages, BUF keys a
+// query and the rows' producer PIECE: the ring (rows, then the query
+// planes), the realigning producer's staging slots, F32's lo buffers (two
+// a warpgroup), the barriers (full, empty, then the slots'), then the
+// selection (tau, the buffers, their counts); 1 KB to align the ring
+// (swizzle atoms are 1024 B).
+template <class T, int N, int S, int BUF, int PIECE = 0>
 struct Smem {
   static constexpr int PLANE_BYTES = N * ROW_BYTES;  // a query plane
   static constexpr int B_BYTES = T::PLANES * PLANE_BYTES;
   static constexpr int A_OFF = 0;
   static constexpr int B_OFF = S * A_BYTES;
-  static constexpr int LO_OFF = B_OFF + S * B_BYTES;
+  static constexpr int SLOT_OFF = B_OFF + S * B_BYTES;
+  static constexpr int LO_OFF = SLOT_OFF + (PIECE == 2 ? RSLOTS * RSLOT : 0);
   static constexpr int BAR_OFF = LO_OFF + (T::PLANES == 2 ? 4 * HALF_BYTES : 0);
-  static constexpr int TAU_OFF = BAR_OFF + 2 * S * 8;
+  static constexpr int TAU_OFF =
+      BAR_OFF + 8 * (2 * S + (PIECE == 2 ? RSLOTS : 0));
   static constexpr int BUF_OFF = TAU_OFF + N * 8;
   static constexpr int CNT_OFF = BUF_OFF + N * BUF * 8;
   static constexpr int BYTES = 1024 + CNT_OFF + N * 4;
-  static constexpr uint32_t TX = A_BYTES + B_BYTES;  // a stage's TMA bytes
+  // a stage's TMA bytes: the rows and the planes, or the planes alone
+  static constexpr uint32_t TX = (PIECE ? 0 : A_BYTES) + B_BYTES;
   static_assert(BYTES <= 232448, "shared memory of one CTA");
 };
 
@@ -145,13 +212,15 @@ struct Smem {
 // its two, and issue the stage's wgmmas into `part` as one commit group
 // (F32, Bf16: 12, three products; Bf16Q: 4). The other lo buffer and the
 // previous slot are still read by stage n - 1's wgmmas.
-template <class T, int N, int S, int BUF>
+template <class T, int N, int S, int BUF, int PIECE>
 __device__ __forceinline__ void issue(float (&part)[N / 2], uint32_t n,
                                       unsigned char* sm, int g) {
-  typedef Smem<T, N, S, BUF> L;
+  typedef Smem<T, N, S, BUF, PIECE> L;
   const int st = (int)(n % S);
   const uint32_t base = smem_u32(sm);
   mbar_wait(base + L::BAR_OFF + 8 * st, (n / S) & 1);
+  if constexpr (PIECE > 0)  // the producer's threads wrote the rows
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   const int a_off = L::A_OFF + st * A_BYTES + g * HALF_BYTES;
   const int lo_off = L::LO_OFF + (2 * g + (int)(n % 2)) * HALF_BYTES;
   const uint32_t bq = base + L::B_OFF + st * L::B_BYTES;
@@ -180,14 +249,16 @@ __device__ __forceinline__ void issue(float (&part)[N / 2], uint32_t n,
 // Consumer warpgroup g's k-stage n, int8 kinds: wait for its slot and
 // issue the stage's four s8 wgmmas into the segment's int32 sum (`first`:
 // the segment's first stage overwrites it) as one commit group.
-template <class T, int N, int S, int BUF>
+template <class T, int N, int S, int BUF, int PIECE>
 __device__ __forceinline__ void issue_s8(int (&sum)[N / 2], uint32_t n,
                                          unsigned char* sm, int g,
                                          bool first) {
-  typedef Smem<T, N, S, BUF> L;
+  typedef Smem<T, N, S, BUF, PIECE> L;
   const int st = (int)(n % S);
   const uint32_t base = smem_u32(sm);
   mbar_wait(base + L::BAR_OFF + 8 * st, (n / S) & 1);
+  if constexpr (PIECE > 0)  // the producer's threads wrote the rows
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   const uint64_t da =
       sw128_desc(base + L::A_OFF + st * A_BYTES + g * HALF_BYTES);
   const uint64_t db = sw128_desc(base + L::B_OFF + st * L::B_BYTES);
@@ -219,12 +290,83 @@ __device__ __forceinline__ void retire(float (&part)[A], float (&acc)[A],
   for (int i = 0; i < A; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
 }
 
-// tv: TMA map of the rows (cap, dim), boxes of 128 bytes x 128 rows; tq0
-// .. tq2: of the query planes (Q, dim), boxes of 128 bytes x N rows (F32
-// reads two, the one-plane kinds one); all 128B-swizzled. mask (cap,)
-// uint8; vscale (cap,) float32, Int8R's row scales; `map` the segments
-// walked. `partial` receives, per query of this CTA's tile, k keys at ((q
-// * ranges + range) * k). BUF == 0 (the wide kinds' pass A) keeps no
+// The realigning producer's elected thread: the classes' boxes of the
+// segment at row r0 (a multiple of 128), k-stage kk (BK elements), into
+// the slot at `slot`, reported to `bar`.
+__device__ __forceinline__ void stage_rows(const RowClasses& m, uint32_t slot,
+                                           uint32_t bar, long r0, int kk,
+                                           int bk) {
+  mbar_expect_tx(bar, m.slot_bytes);
+#pragma unroll 1
+  for (int c = 0; c < RCLASSES; ++c)
+    if (m.off[c] >= 0)
+      tma_load_2d(slot + c * RCLASS_ROWS * RSTAGE_ROW, &m.v[c], bar, kk * bk,
+                  (int)(r0 / RCLASSES));
+}
+
+// Thread t (of the producer warpgroup's 128) moves 16-byte piece c = t % 8
+// of the segment's rows j, j + 16, ..., j = t / 8 (all of class j, whose
+// box holds them at j * 8 * RSTAGE_ROW), from the slot at `src` to the
+// stage at `dst`, 128B-swizzled as TMA lays out a box of 128-byte rows:
+// row r at r * 128, its chunk c at chunk c ^ (r % 8). `off` (bytes) the
+// class's shift; < 0 where the class has no row: zeros.
+__device__ __forceinline__ void realign_rows(uint32_t dst, uint32_t src, int t,
+                                             int off) {
+  constexpr int BATCH = 4;  // rows whose shared loads issue together
+  const int c = t % 8, j = t / 8;
+  const uint32_t from = src + j * RCLASS_ROWS * RSTAGE_ROW + 16 * c;
+#pragma unroll
+  for (int i0 = 0; i0 < RCLASS_ROWS; i0 += BATCH) {
+    uint4 lo[BATCH], hi[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const uint32_t a = from + (i0 + u) * RSTAGE_ROW;
+      lo[u] = wg::ld_shared_v4(a);
+      hi[u] = wg::ld_shared_v4(a + 16);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int r = j + RCLASSES * (i0 + u);
+      const uint4 v = off >= 0 ? wg::shift_pair(lo[u], hi[u], off)
+                               : make_uint4(0, 0, 0, 0);
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       dst + r * ROW_BYTES + ((c ^ (r & 7)) << 4)),
+                   "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                   : "memory");
+    }
+  }
+}
+
+// A producer's walk over its range's segments that hold a live row, a
+// k-stage at a time: next() moves to the next (segment, k-stage) and
+// returns false past the range's end. Start at seg = first segment - 1,
+// kk = k_iters - 1. Every lane of a warp calls it together (the mask's
+// warp vote).
+struct Walk {
+  long seg, se, r0;
+  int kk, k_iters;
+  __device__ __forceinline__ bool next(const Rows& map,
+                                       const uint8_t* __restrict__ mask,
+                                       long cap, int lane) {
+    if (seg < se && ++kk < k_iters) return true;
+    kk = 0;
+    while (++seg < se) {
+      r0 = segment_row(map, seg);
+      bool live[4];
+      if (ws::segment_live(mask, r0, cap, lane, live)) return true;
+    }
+    return false;
+  }
+};
+
+// tv: the rows' maps (PIECE 0: TMA's of the rows (cap, dim), boxes of 128
+// bytes x 128 rows, 128B-swizzled; PIECE 2: the class maps; PIECE 8 / 4:
+// unused, the producer reads `vp`, the rows' base); tq0 .. tq2: TMA maps of
+// the query planes (Q, padded width), boxes of 128 bytes x N rows (F32
+// reads two, the one-plane kinds one), 128B-swizzled. mask (cap,) uint8;
+// vscale (cap,) float32, Int8R's row scales; `map` the segments walked.
+// `partial` receives, per query of this CTA's tile, k keys at ((q *
+// ranges + range) * k). BUF == 0 (the wide kinds' pass A) keeps no
 // selection: `partial` is then the slab, (Q, ld) uint32, and every row
 // below cap of a live segment gets its sortable score key slab_key(s),
 // whatever its mask byte (the readers of the slab read the mask); rows of
@@ -232,17 +374,19 @@ __device__ __forceinline__ void retire(float (&part)[A], float (&acc)[A],
 // key lies at (q * ld + row), ld = cap rounded up to whole segments; over
 // a hot-tile table (K7) at its logical row, (q * ld + seg * 128 + lane)
 // for logical segment seg, ld = grid_b * bn.
-template <class T, int N, int S, int BUF>
-__global__ void __launch_bounds__(THREADS, 1)
-scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
+template <class T, int N, int S, int BUF, int PIECE = 0>
+__global__ void __launch_bounds__(threads_of(PIECE), 1)
+scan_topk_wgmma_kernel(const __grid_constant__ RowMapsOf<PIECE> tv,
                        const __grid_constant__ CUtensorMap tq0,
                        const __grid_constant__ CUtensorMap tq1,
                        const __grid_constant__ CUtensorMap tq2,
+                       const unsigned char* __restrict__ vp,
                        const uint8_t* __restrict__ mask,
                        const float* __restrict__ vscale,
-                       u64* __restrict__ partial, int Q, long cap, int k,
-                       int q_tiles, int ranges, int k_iters, const Rows map) {
-  typedef Smem<T, N, S, BUF> L;
+                       u64* __restrict__ partial, int Q, long cap, int dim,
+                       int k, int q_tiles, int ranges, int k_iters,
+                       const Rows map) {
+  typedef Smem<T, N, S, BUF, PIECE> L;
   typedef typename T::Score Sc;
   constexpr int ACC = N / 2;  // accumulators a thread
   extern __shared__ unsigned char smem_raw[];
@@ -251,14 +395,19 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
   const uint32_t base = smem_u32(sm);
   const uint32_t a_ring = base + L::A_OFF, b_ring = base + L::B_OFF;
   const uint32_t full = base + L::BAR_OFF, empty = full + 8 * S;
+  const uint32_t staged = empty + 8 * S;  // PIECE 2: the slots' barriers
   u64* tau = reinterpret_cast<u64*>(sm + L::TAU_OFF);
   u64* buf = reinterpret_cast<u64*>(sm + L::BUF_OFF);
   int* cnt = reinterpret_cast<int*>(sm + L::CNT_OFF);
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(full + 8 * s, 1);  // the producer's expect_tx arrival
+      // the elected producer thread's expect_tx arrival, and each thread's
+      // of the cp.async and realigning producers
+      mbar_init(full + 8 * s, PIECE ? 1 + PRODUCERS : 1);
       mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
+    if (PIECE == 2)
+      for (int s = 0; s < RSLOTS; ++s) mbar_init(staged + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (threadIdx.x < N) {
@@ -268,36 +417,112 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
   __syncthreads();
 
   const int q0 = (blockIdx.x % q_tiles) * N, range = blockIdx.x / q_tiles;
+  const int nq = min(N, Q - q0);  // the tile's queries: the buffers sorted
   const long segs = num_segments(map, cap);  // none when cap == 0
   const long sb = range * segs / ranges, se = (range + 1) * segs / ranges;
   const int lane = threadIdx.x % 32;
 
-  if (threadIdx.x >= CONSUMERS) {  // the producer warp
+  // registers a thread keeps past the launch's 168 (PIECE > 0): the
+  // producer's, each consumer's (P + 2 C = 504, the 168 x 3 the launch
+  // gives)
+  constexpr int PREGS = PIECE == 2 ? 72 : 40, CREGS = (504 - PREGS) / 2;
+  if (threadIdx.x >= CONSUMERS) {  // the producer
+    if constexpr (PIECE > 0)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PREGS));
+    const int t = threadIdx.x - CONSUMERS;
+    // k-stage kk's query planes into stage st, with the stage's expect_tx
+    auto planes = [&](int st, int kk) {
+      mbar_expect_tx(full + 8 * st, L::TX);
+      const uint32_t b = b_ring + st * L::B_BYTES;
+      tma_load_2d(b, &tq0, full + 8 * st, kk * T::BK, q0);
+      if constexpr (T::PLANES >= 2)
+        tma_load_2d(b + L::PLANE_BYTES, &tq1, full + 8 * st, kk * T::BK, q0);
+      if constexpr (T::PLANES == 3)
+        tma_load_2d(b + 2 * L::PLANE_BYTES, &tq2, full + 8 * st, kk * T::BK,
+                    q0);
+    };
     uint32_t n = 0;
-    for (long seg = sb; seg < se; ++seg) {
-      const long r0 = segment_row(map, seg);
-      bool live[4];
-      if (!ws::segment_live(mask, r0, cap, lane, live)) continue;
-      if (lane == 0)
-        for (int kk = 0; kk < k_iters; ++kk, ++n) {
-          const int st = (int)(n % S);
-          mbar_wait(empty + 8 * st, ((n / S) & 1) ^ 1);  // first lap: free
-          mbar_expect_tx(full + 8 * st, L::TX);
-          const uint32_t b = b_ring + st * L::B_BYTES;
-          tma_load_2d(a_ring + st * A_BYTES, &tv, full + 8 * st, kk * T::BK,
-                      (int)r0);
-          tma_load_2d(b, &tq0, full + 8 * st, kk * T::BK, q0);
-          if constexpr (T::PLANES >= 2)
-            tma_load_2d(b + L::PLANE_BYTES, &tq1, full + 8 * st, kk * T::BK,
-                        q0);
-          if constexpr (T::PLANES == 3)
-            tma_load_2d(b + 2 * L::PLANE_BYTES, &tq2, full + 8 * st,
-                        kk * T::BK, q0);
+    if constexpr (PIECE == 0) {  // one warp; lane 0 issues the copies
+      for (long seg = sb; seg < se; ++seg) {
+        const long r0 = segment_row(map, seg);
+        bool live[4];
+        if (!ws::segment_live(mask, r0, cap, lane, live)) continue;
+        if (lane == 0)
+          for (int kk = 0; kk < k_iters; ++kk, ++n) {
+            const int st = (int)(n % S);
+            mbar_wait(empty + 8 * st, ((n / S) & 1) ^ 1);  // first lap: free
+            planes(st, kk);
+            tma_load_2d(a_ring + st * A_BYTES, &tv.v, full + 8 * st,
+                        kk * T::BK, (int)r0);
+          }
+        __syncwarp();
+      }
+    } else if constexpr (PIECE == 2) {
+      const uint32_t slots = base + L::SLOT_OFF;
+      const int off = tv.off[t / 8];  // this thread's rows' class shift
+      // one walk: the elected thread stages each (segment, k-stage) into
+      // the next slot as the walk reaches it, RSLOTS ahead of the shifts,
+      // and the slot keeps its k-stage (valid: the walk had not ended)
+      Walk w{sb - 1, se, 0, k_iters - 1, k_iters};
+      bool valid[RSLOTS];
+      int kks[RSLOTS];
+#pragma unroll
+      for (int s = 0; s < RSLOTS; ++s) {
+        valid[s] = w.next(map, mask, cap, lane);
+        kks[s] = w.kk;
+        if (valid[s] && t == 0)
+          stage_rows(tv, slots + s * RSLOT, staged + 8 * s, w.r0, w.kk,
+                     T::BK);
+      }
+      static_assert(RSLOTS == 2, "two slots, alternating");
+      uint32_t sphase = 0;
+      for (int slot = 0; valid[0] || valid[1]; slot ^= 1) {
+        const bool on = slot ? valid[1] : valid[0];
+        if (!on) break;  // the walk ended in this slot
+        const int kk = slot ? kks[1] : kks[0];
+        const int st = (int)(n % S);
+        const uint32_t from = slots + slot * RSLOT;
+        mbar_wait(staged + 8 * slot, sphase);          // the boxes landed
+        mbar_wait(empty + 8 * st, ((n / S) & 1) ^ 1);  // first lap: free
+        if (t == 0) planes(st, kk);
+        realign_rows(a_ring + st * A_BYTES, from, t, off);
+        // the stores, for wgmma's async proxy, then this thread's arrival
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(full + 8 * st);
+        ws::named_sync(PRODUCER_BAR, PRODUCERS);  // every thread read it
+        const bool more = w.next(map, mask, cap, lane);
+        if (more && t == 0) {
+          // the slot's generic reads before TMA's writes (async proxy)
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          stage_rows(tv, from, staged + 8 * slot, w.r0, w.kk, T::BK);
         }
-      __syncwarp();
+        if (slot) {
+          valid[1] = more;
+          kks[1] = w.kk;
+          sphase ^= 1;
+        } else {
+          valid[0] = more;
+          kks[0] = w.kk;
+        }
+        ++n;
+      }
+    } else {  // cp.async in pieces of PIECE bytes, then each thread arrives
+      Walk w{sb - 1, se, 0, k_iters - 1, k_iters};
+      const long row_bytes = (long)dim * T::ELEM_BYTES;
+      while (w.next(map, mask, cap, lane)) {
+        const int st = (int)(n % S);
+        mbar_wait(empty + 8 * st, ((n / S) & 1) ^ 1);  // first lap: free
+        if (t == 0) planes(st, w.kk);
+        wg::cp_stage<PIECE, ROWS>(a_ring + st * A_BYTES, vp + w.r0 * row_bytes,
+                                  cap - w.r0, row_bytes, w.kk, t);
+        wg::cp_async_arrive(full + 8 * st);
+        ++n;
+      }
     }
     return;
   }
+  if constexpr (PIECE > 0)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CREGS));
 
   // consumers: warpgroup g multiplies rows 64 g .. 64 g + 63 of the
   // segment by the query tile. Lane l of warp w holds rows 64 g + 16 w +
@@ -325,7 +550,7 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
 #pragma unroll
       for (int i = 0; i < ACC; ++i) sum[i] = 0;
       for (int kk = 0; kk < k_iters; ++kk) {
-        issue_s8<T, N, S, BUF>(sum, n + kk, sm, g, kk == 0);
+        issue_s8<T, N, S, BUF, PIECE>(sum, n + kk, sm, g, kk == 0);
         if (kk > 0) release<S, 1>(n + kk - 1, empty, lane);
       }
       release<S, 0>(n + k_iters - 1, empty, lane);
@@ -350,16 +575,16 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
       float p0[ACC], p1[ACC];
 #pragma unroll
       for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
-      issue<T, N, S, BUF>(p0, n, sm, g);
+      issue<T, N, S, BUF, PIECE>(p0, n, sm, g);
       int kk = 1;
       for (; kk + 1 < k_iters; kk += 2) {
-        issue<T, N, S, BUF>(p1, n + kk, sm, g);
+        issue<T, N, S, BUF, PIECE>(p1, n + kk, sm, g);
         retire<S, 1>(p0, acc, n + kk - 1, empty, lane);
-        issue<T, N, S, BUF>(p0, n + kk + 1, sm, g);
+        issue<T, N, S, BUF, PIECE>(p0, n + kk + 1, sm, g);
         retire<S, 1>(p1, acc, n + kk, empty, lane);
       }
       if (kk < k_iters) {  // an even count: the last stage in p1
-        issue<T, N, S, BUF>(p1, n + kk, sm, g);
+        issue<T, N, S, BUF, PIECE>(p1, n + kk, sm, g);
         retire<S, 1>(p0, acc, n + kk - 1, empty, lane);
         retire<S, 0>(p1, acc, n + kk, empty, lane);
       } else {
@@ -423,7 +648,7 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
               if (!keep) pend &= ~(1u << i);
             }
         if (!ws::any_of(pend != 0, CONSUMER_BAR, CONSUMERS)) break;
-        ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+        ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k, nq);
 #pragma unroll
         for (int t = 0; t < N / 4; ++t)
           ts[t] = score_floor(tau[8 * (t / 2) + 2 * (lane % 4) + t % 2], Sc());
@@ -432,7 +657,7 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
   }
   if constexpr (BUF > 0) {
     ws::named_sync(CONSUMER_BAR, CONSUMERS);
-    ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k);
+    ws::compact<N, BUF, CONSUMER_BAR, CONSUMERS>(buf, cnt, tau, k, nq);
     for (int i = threadIdx.x; i < N * k; i += CONSUMERS) {
       const int qq = i / k, j = i % k;
       if (q0 + qq < Q)
@@ -441,31 +666,155 @@ scan_topk_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
   }
 }
 
+// The realigning producer's map of class j of the (rows, dim) row-major
+// matrix of T's elements at `ptr` (any row bytes, any base): rows j, j +
+// RCLASSES, ... as a 2D tensor of stride RCLASSES row bytes, based at row
+// j's start aligned down to 16 bytes, read in boxes of RSTAGE_ROW bytes x
+// RCLASS_ROWS rows, unswizzled, out-of-bounds elements zero; `*off` the
+// bytes between its base and row j's start, -1 (and no map) where the
+// matrix has no row j. TMA reads only the 16-byte chunks that hold a byte
+// of the class's rows. 0, or minus the CUresult of a refused encode.
+template <class T>
+int encode_row_class(wg::EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                     long long rows, int dim, int j, int* off) {
+  if (rows <= j) {
+    *off = -1;
+    return 0;
+  }
+  const long long row_bytes = (long long)dim * T::ELEM_BYTES;
+  const uintptr_t start = (uintptr_t)ptr + j * row_bytes;
+  const uintptr_t base = start & ~(uintptr_t)15;
+  *off = (int)(start - base);
+  const cuuint64_t gdim[2] = {
+      (cuuint64_t)((row_bytes + *off) / T::ELEM_BYTES),
+      (cuuint64_t)((rows - j + RCLASSES - 1) / RCLASSES)};
+  const cuuint64_t gstride[1] = {(cuuint64_t)(RCLASSES * row_bytes)};
+  const cuuint32_t box[2] = {(cuuint32_t)(RSTAGE_ROW / T::ELEM_BYTES),
+                             (cuuint32_t)RCLASS_ROWS};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = enc(map, T::TMA_TYPE, 2, reinterpret_cast<void*>(base),
+                         gdim, gstride, box, estride,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// The realigning producer's class maps of the (cap, dim) rows at v. A
+// map holds only the base, the shape and the strides, so the last few
+// matrices' maps are kept and reused instead of sixteen host encodes a
+// launch: keyed by (v, cap, dim), a cache for each row type.
+template <class T>
+int row_classes(wg::EncodeTiled enc, RowClasses* out, const void* v,
+                long long cap, int dim) {
+  struct Entry {
+    const void* v;
+    long long cap;
+    int dim;
+    RowClasses maps;
+  };
+  static Entry cache[4];
+  static int used = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (cache[i].v == v && cache[i].cap == cap && cache[i].dim == dim) {
+      *out = cache[i].maps;
+      return 0;
+    }
+  RowClasses m{};
+  for (int j = 0; j < RCLASSES; ++j) {
+    const int err = encode_row_class<T>(enc, &m.v[j], v, cap, dim, j,
+                                        &m.off[j]);
+    if (err) return err;
+    if (m.off[j] >= 0) m.slot_bytes += RCLASS_ROWS * RSTAGE_ROW;
+  }
+  Entry& e = cache[used < 4 ? used++ : (int)(((uintptr_t)v >> 8) % 4)];
+  e = Entry{v, cap, dim, m};
+  *out = m;
+  return 0;
+}
+
+// K3's int8 queries (Q, dim) as TMA reads them: `*q` itself where its
+// rows are whole 16 bytes at a 16-byte aligned base; else copied to dst
+// as rows of dim rounded up to 16 bytes, zeros past dim (a memset and one
+// 2D copy on the stream, in the launcher's scratch), and `*q` set to dst.
+inline cudaError_t tma_queries(const void** q, void* dst, int Q, int dim,
+                               cudaStream_t s) {
+  if (dim % 16 == 0 && (uintptr_t)*q % 16 == 0) return cudaSuccess;
+  const int qld = (dim + 15) / 16 * 16;
+  cudaError_t e = cudaMemsetAsync(dst, 0, (size_t)Q * qld, s);
+  if (e == cudaSuccess)
+    e = cudaMemcpy2DAsync(dst, qld, *q, dim, dim, Q, cudaMemcpyDeviceToDevice,
+                          s);
+  if (e == cudaSuccess) *q = dst;
+  return e;
+}
+
+// Elements of a query plane's row for rows of `dim` elements of `es`
+// bytes: dim rounded up to whole 16 bytes, which TMA reads (the launchers
+// pad the planes to it, zeros past dim).
+inline int plane_ld(int dim, int es) {
+  const int per = 16 / es;
+  return (dim + per - 1) / per * per;
+}
+
+// Calls f with the rows' producer `piece` (0 TMA, 8 / 4 cp.async, 2 the
+// realigning producer; ops/scan.py::rows_piece) as a
+// std::integral_constant; any other piece is refused.
+template <class F>
+int with_piece(int piece, F&& f) {
+  switch (piece) {
+    case 0: return f(std::integral_constant<int, 0>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 2: return f(std::integral_constant<int, 2>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // Encodes the maps, sizes the grid (ops/scan.py::topk_wgmma_partition at
 // a query tile of N, over ceil(cap / 128) segments, or over the hot
 // table's grid_b * bn / 128 for `map`'s hot tiles: the live ones are
-// shared on the device) and launches the scan with S stages and BUF keys a
-// query; `*ranges` receives the grid's segment ranges. `planes` holds
-// T::PLANES query planes of (Q, dim), `plane` bytes apart.
-template <class T, int N, int S, int BUF>
-int launch_scan(const void* planes, size_t plane, const void* v,
-                const void* mask, const float* vscale, void* partial, int Q,
-                long long cap, int dim, int k, const Rows& map,
-                int* ranges_out, cudaStream_t stream) {
-  if ((long long)dim * T::ELEM_BYTES % 16 || plane % 16 ||
-      ((uintptr_t)planes | (uintptr_t)v) % 16)
+// shared on the device) and launches the scan with S stages, BUF keys a
+// query and the rows' producer PIECE (0 TMA: rows of whole 16 bytes at a
+// 16-byte aligned base; 8 / 4 cp.async: row bytes and base multiples of
+// PIECE; 2 the realigning producer: any rows, flat or hot-tile);
+// `*ranges` receives the grid's segment ranges. `planes` holds T::PLANES
+// query planes of (Q, qld), `plane` bytes apart, qld >= dim elements a
+// row of whole 16 bytes (zeros past dim).
+template <class T, int N, int S, int BUF, int PIECE>
+int launch_scan_rows(const void* planes, size_t plane, int qld, const void* v,
+                     const void* mask, const float* vscale, void* partial,
+                     int Q, long long cap, int dim, int k, const Rows& map,
+                     int* ranges_out, cudaStream_t stream) {
+  static_assert(PIECE == 0 || PIECE == 2 || PIECE == 4 || PIECE == 8,
+                "the rows' producers");
+  const long long row_bytes = (long long)dim * T::ELEM_BYTES;
+  const int align = PIECE == 0 ? 16 : PIECE == 2 ? 1 : PIECE;
+  if (qld < dim || (long long)qld * T::ELEM_BYTES % 16 || plane % 16 ||
+      (uintptr_t)planes % 16 || row_bytes % align || (uintptr_t)v % align)
     return (int)cudaErrorInvalidValue;
   wg::EncodeTiled enc;
   int err = wg::encoder(&enc);
   if (err) return err;
-  CUtensorMap tv{}, tq[3]{};
-  if (cap > 0 && (err = wg::encode_rows<T>(enc, &tv, v, cap, dim, ROWS)))
-    return err;
+  RowMapsOf<PIECE> tv{};
+  CUtensorMap tq[3]{};
+  if constexpr (PIECE == 0) {
+    if (cap > 0 && (err = wg::encode_rows<T>(enc, &tv.v, v, cap, dim, ROWS)))
+      return err;
+  } else if constexpr (PIECE == 2) {
+    if ((err = row_classes<T>(enc, &tv, v, cap, dim))) return err;
+  }
   for (int p = 0; p < 3; ++p) {
-    const int pp = p < T::PLANES ? p : 0;  // F32 reads two, the rest one
+    if (p >= T::PLANES) {  // F32 reads two planes, the rest one
+      tq[p] = tq[0];
+      continue;
+    }
     if ((err = wg::encode_rows<T>(
-             enc, &tq[p], static_cast<const unsigned char*>(planes) + pp * plane,
-             Q, dim, N)))
+             enc, &tq[p], static_cast<const unsigned char*>(planes) + p * plane,
+             Q, qld, N)))
       return err;
   }
   int dev = 0, sms = 0;
@@ -480,37 +829,59 @@ int launch_scan(const void* planes, size_t plane, const void* v,
   const int ranges =
       (int)std::max(1LL, std::min(segs, (long long)(sms / q_tiles)));
   if ((long long)q_tiles * ranges > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  const int k_iters = (dim * T::ELEM_BYTES + ROW_BYTES - 1) / ROW_BYTES;
-  constexpr int smem = Smem<T, N, S, BUF>::BYTES;
-  e = cudaFuncSetAttribute(scan_topk_wgmma_kernel<T, N, S, BUF>,
+  const int k_iters = (int)((row_bytes + ROW_BYTES - 1) / ROW_BYTES);
+  constexpr int smem = Smem<T, N, S, BUF, PIECE>::BYTES;
+  e = cudaFuncSetAttribute(scan_topk_wgmma_kernel<T, N, S, BUF, PIECE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   u64* part = static_cast<u64*>(partial);
-  scan_topk_wgmma_kernel<T, N, S, BUF>
-      <<<q_tiles * ranges, THREADS, smem, stream>>>(
-          tv, tq[0], tq[1], tq[2], static_cast<const uint8_t*>(mask), vscale,
-          part, Q, (long)cap, k, q_tiles, ranges, k_iters, map);
+  scan_topk_wgmma_kernel<T, N, S, BUF, PIECE>
+      <<<q_tiles * ranges, threads_of(PIECE), smem, stream>>>(
+          tv, tq[0], tq[1], tq[2], static_cast<const unsigned char*>(v),
+          static_cast<const uint8_t*>(mask), vscale, part, Q, (long)cap, dim,
+          k, q_tiles, ranges, k_iters, map);
   *ranges_out = ranges;
   return (int)cudaGetLastError();
 }
 
-// launch_scan with its planes back to back, then the merge of the
-// ranges' partials (Int8C's keys carry int32 scores).
+// launch_scan_rows by TMA, the planes of (Q, dim) as they lie.
 template <class T, int N, int S, int BUF>
-int launch(const void* planes, const void* v, const void* mask,
-           const float* vscale, void* partial, void* vals, void* idx, int Q,
-           long long cap, int dim, int k, const Rows& map,
-           cudaStream_t stream) {
+int launch_scan(const void* planes, size_t plane, const void* v,
+                const void* mask, const float* vscale, void* partial, int Q,
+                long long cap, int dim, int k, const Rows& map,
+                int* ranges_out, cudaStream_t stream) {
+  return launch_scan_rows<T, N, S, BUF, 0>(planes, plane, dim, v, mask, vscale,
+                                           partial, Q, cap, dim, k, map,
+                                           ranges_out, stream);
+}
+
+// launch_scan_rows with its planes (Q, qld) back to back, then the merge
+// of the ranges' partials (Int8C's keys carry int32 scores).
+template <class T, int N, int S, int BUF, int PIECE>
+int launch_rows(const void* planes, int qld, const void* v, const void* mask,
+                const float* vscale, void* partial, void* vals, void* idx,
+                int Q, long long cap, int dim, int k, const Rows& map,
+                cudaStream_t stream) {
   int ranges = 0;
-  const int err = launch_scan<T, N, S, BUF>(
-      planes, (size_t)Q * dim * T::ELEM_BYTES, v, mask, vscale, partial, Q,
-      cap, dim, k, map, &ranges, stream);
+  const int err = launch_scan_rows<T, N, S, BUF, PIECE>(
+      planes, (size_t)Q * qld * T::ELEM_BYTES, qld, v, mask, vscale, partial,
+      Q, cap, dim, k, map, &ranges, stream);
   if (err) return err;
   return (int)launch_topk_merge(static_cast<u64*>(partial),
                                 static_cast<float*>(vals),
                                 static_cast<int*>(idx), Q, ranges * k, k,
                                 stream,
                                 std::is_same<typename T::Score, int>::value);
+}
+
+// launch_rows by TMA, the planes of (Q, dim) as they lie.
+template <class T, int N, int S, int BUF>
+int launch(const void* planes, const void* v, const void* mask,
+           const float* vscale, void* partial, void* vals, void* idx, int Q,
+           long long cap, int dim, int k, const Rows& map,
+           cudaStream_t stream) {
+  return launch_rows<T, N, S, BUF, 0>(planes, dim, v, mask, vscale, partial,
+                                      vals, idx, Q, cap, dim, k, map, stream);
 }
 
 }  // namespace tk

@@ -7,9 +7,9 @@
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i8 (`_scan_kernel_i8`,
 //    K3), the default float32 store's Q = 1 route `i8_fused_smallq`
 //    (k_sel = k + 4) and the int8 store's host-rescore band
-//    `i8stor_fused_exact` (k + 128 + 4: 142 at k = 10), at every Q <= 16;
-//    pv_scan_topk kind 2 serves larger Q,
-//    k > 384 and widths the sweep does not take;
+//    `i8stor_fused_exact` (k + 128 + 4: 142 at k = 10), at every Q <= 16,
+//    and through `sweep_narrow_kernel` at every int8 width and base (the
+//    template, pv_scan_topk kind 2, served those until then);
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i4 (`_scan_kernel_i4`,
 //    K6), the int4 store's Q = 1 query and small batches (route
 //    `i4stor_fused` at k_sel = k + 4; served at Q <= 4, where it beats
@@ -63,6 +63,17 @@
 //    128-row tile at once (one ballot). No barrier inside a tile. A K7
 //    group maps to physical rows through the table once: shares start on
 //    a multiple of SHARE rows, so a group never crosses a hot tile.
+//  * K3's rows at any width and base (`sweep_narrow_kernel`, the narrow
+//    kind): a row of `dim` bytes lies at byte phase p = (v + row dim) % 16
+//    of its 16-byte words. The CTA keeps P = 16 / g phase copies of each
+//    query (g the largest power of two <= 16 dividing dim and v's base):
+//    copy j holds j g zero bytes, the query, zeros to W whole words. A warp
+//    reads each row as the aligned words that hold a byte of it, so a warp
+//    still reads contiguous 16-byte words, and meets them with the copy of
+//    the row's phase: the bytes of a neighbouring row in a shared word meet
+//    zeros. No read leaves the 16-byte chunks that hold a byte of the row.
+//    The int32 sums, keys and selection are Int8R's, so it is bit for bit
+//    the plain version too.
 //  * Selection behind a threshold: per query a shared buffer of BUF keys
 //    admits only keys above the running k-th best (`tau`); after each tile
 //    the CTA compacts (compact_buffers) when a buffer could overflow in
@@ -89,6 +100,9 @@ constexpr int BUF_K384 = 512;    // Int8R's, for 128 < k <= 384 (>= k + TR)
 constexpr int CTAS_PER_SM = 2;   // ops/scan.py SWEEP_CTAS_PER_SM
 constexpr int QBLOCK_BYTES = 65536;  // ops/scan.py SWEEP_QBLOCK_BYTES
 constexpr int SHARE = 16;        // ops/ivf.py IVF_SWEEP_SHARE: K7's share unit
+// the narrow kind's shared memory (query block, buffers, tau and counts):
+// two CTAs an SM (ops/scan.py NARROW_SMEM_BYTES)
+constexpr size_t NARROW_SMEM_BYTES = 112 << 10;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Element kinds: a 16-byte word of a row holds EPW elements; `dot` adds a
@@ -410,6 +424,246 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
   }
 }
 
+// K3's narrow kind: Int8R over int8 rows at any width and base. The
+// query block holds P phase copies of each of the QT queries, copy j at
+// (j QT + qq) W words: j g zero bytes, the query's dim bytes, zeros (lg:
+// log2 g, g = 16 / P). Row r's words are the W_r = ceil((p_r + dim) / 16)
+// aligned words from (v + r dim) / 16 on (`vw` the 16-byte aligned base
+// below v), met with copy p_r / g. L == 0: the row groups, the mask
+// ballot and the warp sums of sweep_topk_kernel<Int8R>. L > 0 (rows of
+// at most 16 words, W <= L, a power of two): a warp's 16 rows of
+// a tile in L / 2 steps of 32 / L rows, L lanes a row and a word a lane,
+// every step's word loaded before the first product, each sum over its L
+// lanes by xor shuffles: at dim 100 (7 words a row) the row-group layout
+// kept 7 of 32 lanes loading. The keys and the selection are Int8R's.
+template <int QT, int BUF>
+__global__ void __launch_bounds__(SW_THREADS, CTAS_PER_SM)
+sweep_narrow_kernel(const int8_t* __restrict__ q,
+                    const unsigned char* __restrict__ v,
+                    const float* __restrict__ vscale,
+                    const uint8_t* __restrict__ mask, const Rows rows,
+                    u64* __restrict__ partial, int Q, int dim, int lg, int W,
+                    int L, int k) {
+  // rows a warp step: 4 up to QT 2, else 2 (each row's own word range
+  // and phase copy take the registers a QT 4 tile of four rows spilled)
+  constexpr int RW = QT <= 2 ? 4 : 2;
+  constexpr int MAX_STEPS = 8;  // L / 2 steps of a packed tile, L <= 16
+  constexpr int GROUPS = WARP_ROWS / RW;
+  const int P = 16 >> lg;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* qs = reinterpret_cast<uint4*>(smem);           // P x QT x W words
+  u64* buf = reinterpret_cast<u64*>(qs + P * QT * W);  // QT x BUF keys
+  u64* tau = buf + QT * BUF;
+  int* cnt = reinterpret_cast<int*>(tau + QT);
+
+  // the phase copies, a byte a thread: byte b of copy (j, qq) is query
+  // byte b - j g
+  {
+    unsigned char* qb = smem;
+    const int wb = W * 16;
+    for (int i = threadIdx.x; i < P * QT * wb; i += SW_THREADS) {
+      const int cq = i / wb, b = i - cq * wb;
+      const int j = cq / QT, qq = cq - j * QT;
+      const int src = b - (j << lg);
+      qb[i] = qq < Q && src >= 0 && src < dim ? (unsigned char)q[qq * dim + src]
+                                              : (unsigned char)0;
+    }
+  }
+  if (threadIdx.x < QT) {
+    cnt[threadIdx.x] = 0;
+    tau[threadIdx.x] = 0ull;
+  }
+  __syncthreads();
+
+  const uintptr_t vb = (uintptr_t)v;
+  const uint4* vw = reinterpret_cast<const uint4*>(vb & ~(uintptr_t)15);
+  const long v0 = (long)(vb & 15);  // v's byte in its first word
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  long rbeg, rend;
+  rows.range(blockIdx.x, gridDim.x, &rbeg, &rend);
+  for (long t0 = rbeg; t0 < rend; t0 += TR) {
+    if (L) {  // packed: the warp's rows t0 + 16 warp + [0, 16)
+      const long rw0 = t0 + WARP_ROWS * warp;
+      const uint32_t live = __ballot_sync(
+          FULL, lane < WARP_ROWS && rw0 + lane < rend && mask[rw0 + lane] != 0);
+      const int G = 32 / L, steps = WARP_ROWS / G;
+      const int c = lane % L, gi = lane / L;  // the lane's word and row
+      uint4 x[MAX_STEPS];
+      float sc[MAX_STEPS];
+#pragma unroll
+      for (int st = 0; st < MAX_STEPS; ++st) {
+        x[st] = zero;
+        sc[st] = 0.0f;
+        const int rr = st * G + gi;
+        if (st < steps && ((live >> rr) & 1u)) {
+          const long b0 = v0 + (rw0 + rr) * dim;
+          if (c < (((int)(b0 & 15) + dim + 15) >> 4))
+            x[st] = __ldg(vw + (b0 >> 4) + c);
+          sc[st] = vscale[rw0 + rr];
+        }
+      }
+#pragma unroll
+      for (int st = 0; st < MAX_STEPS; ++st) {
+        if (st >= steps) break;  // uniform
+        const int rr = st * G + gi;
+        const int ph = (int)((v0 + (rw0 + rr) * dim) & 15);
+        const uint4* cp = qs + (ph >> lg) * QT * W + c;
+        int acc[QT];
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq)
+          acc[qq] = Int8R::dot(x[st], c < W ? cp[qq * W] : zero, 0);
+        for (int o = L >> 1; o > 0; o >>= 1)
+#pragma unroll
+          for (int qq = 0; qq < QT; ++qq)
+            acc[qq] += __shfl_xor_sync(FULL, acc[qq], o);
+        if ((live >> rr) & 1u)
+#pragma unroll
+          for (int qq = 0; qq < QT; ++qq)
+            if (qq % L == c && qq < Q) {  // the template's line
+              const u64 key = row_key(
+                  __fmul_rn(__int2float_rn(acc[qq]), sc[st]),
+                  (uint32_t)(rw0 + rr));
+              if (key > tau[qq]) buf[qq * BUF + atomicAdd(&cnt[qq], 1)] = key;
+            }
+      }
+    } else {
+    uint32_t live;
+    {
+      const long i = t0 + (lane / RW) * SW_WARPS * RW + warp * RW + lane % RW;
+      live = __ballot_sync(FULL, lane < WARP_ROWS && i < rend && mask[i] != 0);
+    }
+#pragma unroll 1
+    for (int g = 0; g < GROUPS; ++g) {
+      const uint32_t gl = (live >> (g * RW)) & ((1u << RW) - 1);
+      if (!gl) continue;  // uniform: no live row in the group
+      const long p0 = t0 + (long)g * SW_WARPS * RW + warp * RW;
+      float sc = 0.0f;
+      if ((gl >> (lane % RW)) & 1u) sc = vscale[p0 + lane % RW];
+      // each row's first word, its words and its phase copy
+      long w0[RW];
+      int nw[RW], cw[RW];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const long b0 = v0 + (p0 + r) * dim;
+        const int ph = (int)(b0 & 15);
+        w0[r] = b0 >> 4;
+        nw[r] = (ph + dim + 15) >> 4;
+        cw[r] = (ph >> lg) * QT * W;
+      }
+      int acc[QT][RW];
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq)
+#pragma unroll
+        for (int r = 0; r < RW; ++r) acc[qq][r] = 0;
+      for (int c = lane; c < W; c += 64) {
+        uint4 x0[RW], x1[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const bool on = (gl >> r) & 1u;
+          x0[r] = on && c < nw[r] ? __ldg(vw + w0[r] + c) : zero;
+          x1[r] = on && c + 32 < nw[r] ? __ldg(vw + w0[r] + c + 32) : zero;
+        }
+        const bool two = c + 32 < W;
+#pragma unroll
+        for (int qq = 0; qq < QT; ++qq)
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            const uint4* cp = qs + cw[r] + qq * W + c;
+            const uint4 w1 = two ? cp[32] : zero;
+            acc[qq][r] = Int8R::dot(x1[r], w1, Int8R::dot(x0[r], cp[0],
+                                                          acc[qq][r]));
+          }
+      }
+#pragma unroll
+      for (int qq = 0; qq < QT; ++qq)
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const int s = Int8R::sum(acc[qq][r]);
+          if (lane == (qq * RW + r) % 32 && ((gl >> r) & 1u) && qq < Q) {
+            // the template's line (scan_topk.cu)
+            const u64 key =
+                row_key(__fmul_rn(__int2float_rn(s), sc), (uint32_t)(p0 + r));
+            if (key > tau[qq]) buf[qq * BUF + atomicAdd(&cnt[qq], 1)] = key;
+          }
+        }
+    }
+    }
+    __syncthreads();
+    bool full = false;
+#pragma unroll
+    for (int s = 0; s < QT; ++s) full |= cnt[s] > BUF - TR;
+    __syncthreads();
+    if (full) compact_buffers(buf, cnt, tau, QT, BUF, k);
+  }
+  __syncthreads();
+  compact_buffers(buf, cnt, tau, QT, BUF, k);
+  for (int i = threadIdx.x; i < QT * k; i += SW_THREADS) {
+    const int qq = i / k, j = i % k;
+    if (qq < Q)
+      partial[((long)qq * gridDim.x + blockIdx.x) * k + j] = buf[qq * BUF + j];
+  }
+}
+
+// The narrow kind's phases and words: g the largest power of two <= 16
+// dividing dim and v's base (lg its log2), W = ceil((16 - g + dim) / 16)
+// words a copy (the widest phase's), and the query block's bytes.
+struct Narrow {
+  int lg, W;
+  __host__ Narrow(int dim, const void* v) {
+    lg = 4;
+    while (lg > 0 && ((dim | (int)((uintptr_t)v & 15)) & ((1 << lg) - 1))) --lg;
+    W = (16 - (1 << lg) + dim + 15) / 16;
+  }
+  size_t block(int qt) const { return (size_t)(16 >> lg) * qt * W * 16; }
+  // lanes a row of the packed layout: the power of two >= W (at least 2)
+  // for rows of at most 16 words, else 0
+  int lanes() const {
+    if (W > 16) return 0;
+    int l = 2;
+    while (l < W) l *= 2;
+    return l;
+  }
+};
+
+template <int QT, int BUF>
+cudaError_t launch_narrow_qt(const void* q, const void* v, const void* vscale,
+                             const void* mask, const Rows& rows, u64* partial,
+                             int Q, int dim, const Narrow& nw, int k, int ctas,
+                             cudaStream_t stream) {
+  const size_t smem = nw.block(QT) + (size_t)QT * BUF * 8 + QT * 12;
+  const cudaError_t e = cudaFuncSetAttribute(
+      sweep_narrow_kernel<QT, BUF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  sweep_narrow_kernel<QT, BUF><<<ctas, SW_THREADS, smem, stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const unsigned char*>(v),
+      static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
+      rows, partial, Q, dim, nw.lg, nw.W, nw.lanes(), k);
+  return cudaGetLastError();
+}
+
+template <int BUF>
+cudaError_t launch_narrow(int qt, const void* q, const void* v, const void* vs,
+                          const void* mask, const Rows& rows, u64* part, int Q,
+                          int dim, const Narrow& nw, int k, int ctas,
+                          cudaStream_t s) {
+  if (qt == 1)
+    return launch_narrow_qt<1, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
+                                    ctas, s);
+  if (qt == 2)
+    return launch_narrow_qt<2, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
+                                    ctas, s);
+  if (qt == 4)
+    return launch_narrow_qt<4, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
+                                    ctas, s);
+  if (qt == 8)
+    return launch_narrow_qt<8, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
+                                    ctas, s);
+  return launch_narrow_qt<16, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
+                                   ctas, s);
+}
+
 template <class K, int QT, int BUF>
 cudaError_t launch_qt(const void* q, const void* v, const void* vscale,
                       const void* mask, const Rows& rows, u64* partial, int Q,
@@ -542,6 +796,47 @@ extern "C" int pv_sweep_topk_i8(const void* q, const void* v,
   const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
   return (int)sweep<Int8R>(q, v, vscale, mask, rows, partial, vals, idx, Q,
                            dim, k, n > 1 ? (int)n : 1, (cudaStream_t)stream);
+}
+
+// K3's narrow kind on the one-query sweep: q (Q, dim) int8 queries (any
+// base), v (cap, dim) int8 rows at any width and base, vscale (cap,)
+// float32, mask (cap,) uint8; Q <= 16, k <= 384, and the query block (P
+// phase copies of the QT queries, W words each: ops/scan.py::
+// narrow_block_bytes) with the buffers within NARROW_SMEM_BYTES. Rows as
+// K9's: CTA c reads [c * chunk, min(cap, (c + 1) * chunk)) (chunk % 128 ==
+// 0); `partial` is scratch of max(1, ceil(cap / chunk)) * Q * k uint64;
+// vals (Q, k) float32 (the scaled scores) and idx (Q, k) int32 receive the
+// result (-inf / 0 where empty). Returns the cudaError_t of the launches.
+extern "C" int pv_sweep_topk_i8_narrow(const void* q, const void* v,
+                                       const void* vscale, const void* mask,
+                                       void* partial, void* vals, void* idx,
+                                       int Q, long long cap, int dim, int k,
+                                       long long chunk, void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (cap < 0 || chunk <= 0 || chunk % SEG || !vscale || Q > 16 ||
+      k > Int8R::K_MAX || dim <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
+  const int buf = k <= 128 ? BUF_K128 : BUF_K384;
+  const Narrow nw(dim, v);
+  if (nw.block(qt) + (size_t)qt * buf * 8 + qt * 12 > NARROW_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (cap + chunk - 1) / chunk;
+  const int ctas = n > 1 ? (int)n : 1;
+  const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
+  u64* part = static_cast<u64*>(partial);
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      buf == BUF_K128
+          ? launch_narrow<BUF_K128>(qt, q, v, vscale, mask, rows, part, Q, dim,
+                                    nw, k, ctas, s)
+          : launch_narrow<BUF_K384>(qt, q, v, vscale, mask, rows, part, Q, dim,
+                                    nw, k, ctas, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_topk_merge(part, static_cast<float*>(vals),
+                                static_cast<int*>(idx), Q, ctas * k, k, s,
+                                false);
 }
 
 // K7 on the one-query sweep. kind 0: postings and q float32; 1: both

@@ -3,14 +3,15 @@
 // per-query radix select over the slab.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i8 (`_scan_kernel_i8`)
-// past k_sel 128 wherever TMA can read both operands (ops/scan.py::
-// i8_wide_ready: dim % 16 == 0, 16-byte aligned bases): the int8 store's
+// past k_sel 128 (ops/scan.py::i8_wide_ready), at every int8 width and
+// base (rows TMA cannot read by cp.async or the realigning producer, the
+// queries padded to whole 16 bytes where they are not): the int8 store's
 // host-rescore band k + RESCORE_GUARD + 4 (142 at top_k = 10, 432 at 300),
 // at every batch size past k_sel 384. Up to k_sel 384 the sweep and K3's
 // tensor-core scan take it too: the wide kind serves there only where its
-// query tile holds min(Q, 64) queries (ops/scan.py::i8_wide_covers), and
-// so reads the rows no more often than they do (the times phase 4 of
-// chip_smoke.py measured are at ops/scan.py::I8_WIDE_K_MIN).
+// query tile holds min(Q, 64) queries over rows TMA reads, and where it
+// reads the others no more often than the scan's 32-query tiles do
+// (ops/scan.py::i8_wide_covers, with the times chip_smoke.py measured).
 // It computes scan_topk_plain's int8 branch bit for bit: per query the k
 // best live rows by float32(int32 q . v) * vscale[row] (one conversion,
 // one multiply), ties to the lower row (row_key), as (Q, k) float32
@@ -28,7 +29,8 @@
 // Design, as K4's wide kind (topk_wide.cu), for the reason given there:
 // per-query buffers of k = 1024 keys do not fit a CTA beside the ring.
 //  * Pass A (scan_topk_wgmma.cuh, BUF 0): K3's tensor-core scan as it is
-//    (`Int8R`: the rows and the int8 queries as they lie, by TMA, four s8
+//    (`Int8R`: the rows by the producer their width and base allow, the
+//    int8 queries by TMA, four s8
 //    wgmmas a k-stage into one int32 sum a row over the whole width,
 //    converted and scaled once a segment), only segments with a live row,
 //    four stages, 32 queries a CTA at Q <= 32, else 64 (as K4's wide
@@ -57,16 +59,21 @@
 #include "radix_select.cuh"
 #include "scan_topk_wgmma.cuh"
 
-// K3's wide kind: q (Q, dim) int8 queries, v (cap, dim) int8 rows, vscale
-// (cap,) float32, mask (cap,) uint8 4-byte aligned; dim % 16 == 0, 16-byte
-// aligned q and v, k <= 1024 (served where ops/scan.py::i8_wide_ready).
-// `scratch` (256-byte aligned) holds `scratch_bytes`, at least one tile of
-// q_tile queries' slab, histograms and candidates, each from a 256-byte
-// boundary (ops/scan.py::i4_wide_scratch). vals (Q, k) float32 and idx (Q,
-// k) int32 receive the result (-inf / 0 where empty). Launches on the
-// current device. Returns 0, a cudaError_t, or minus the CUresult of a
-// refused tensor-map encode.
-extern "C" int pv_scan_topk_i8_wide(const void* q, const void* v,
+// K3's wide kind: q (Q, dim) int8 queries (any base), v (cap, dim) int8
+// rows, vscale (cap,) float32, mask (cap,) uint8 4-byte aligned; k <=
+// 1024 (served where ops/scan.py::i8_wide_ready). piece: the rows'
+// producer (ops/scan.py::rows_piece): 0 TMA (dim and v's base multiples of
+// 16), 8 or 4 cp.async (multiples of piece), 2 the realigning producer
+// (any width and base). `scratch` (256-byte aligned) holds
+// `scratch_bytes`, at least one tile of q_tile queries' slab, histograms
+// and candidates, each from a 256-byte boundary (ops/scan.py::
+// i4_wide_scratch), rounded up to 256 bytes, then Q x qld bytes, qld = dim
+// rounded up to 16: the queries as TMA reads them where q's rows are not
+// (`tk::tma_queries`). vals (Q, k) float32 and idx (Q, k) int32 receive
+// the result (-inf / 0 where empty). Launches on the current device.
+// Returns 0, a cudaError_t, or minus the CUresult of a refused tensor-map
+// encode.
+extern "C" int pv_scan_topk_i8_wide(int piece, const void* q, const void* v,
                                     const void* vscale, const void* mask,
                                     void* scratch, void* vals, void* idx,
                                     int Q, long long cap, int dim, int k,
@@ -76,29 +83,39 @@ extern "C" int pv_scan_topk_i8_wide(const void* q, const void* v,
   using namespace pv::tk;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
   const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
-  if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || dim % 16 ||
-      q_tile <= 0 || q_tile > 65535 || !vscale || (uintptr_t)mask % 4 ||
+  const int qld = plane_ld(dim, 1);
+  const size_t tile = rs::up256(rs::tile_layout(q_tile, ld).bytes);
+  if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || q_tile <= 0 ||
+      q_tile > 65535 || !vscale || (uintptr_t)mask % 4 ||
       (uintptr_t)scratch % 256 ||
-      (size_t)scratch_bytes < rs::tile_layout(q_tile, ld).bytes)
+      (size_t)scratch_bytes < tile + (size_t)Q * qld)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int sms = 0;
-  const cudaError_t e = rs::prepare(&sms);
+  cudaError_t e = rs::prepare(&sms);
   if (e != cudaSuccess) return (int)e;
+  unsigned char* qp = static_cast<unsigned char*>(scratch) + tile;
+  if ((e = tma_queries(&q, qp, Q, dim, s)) != cudaSuccess) return (int)e;
+  const int qrow = q == qp ? qld : dim;  // q's rows as TMA reads them
   const float* vs = static_cast<const float*>(vscale);
   const Rows flat{};  // the rows [0, cap)
-  return rs::walk_tiles(
-      static_cast<unsigned char*>(scratch), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(vals), static_cast<int*>(idx), Q, q_tile,
-      (long)cap, ld, k, sms, s, [&](int q0, int nq, uint32_t* slab) {
-        if (cap == 0) return 0;
-        const void* qt = static_cast<const int8_t*>(q) + (size_t)q0 * dim;
-        const size_t plane = (size_t)nq * dim;
-        int r = 0;
-        return nq <= 32
-                   ? launch_scan<Int8R, 32, 4, 0>(qt, plane, v, mask, vs, slab,
-                                                  nq, cap, dim, 0, flat, &r, s)
-                   : launch_scan<Int8R, 64, 4, 0>(qt, plane, v, mask, vs, slab,
-                                                  nq, cap, dim, 0, flat, &r, s);
-      });
+  return with_piece(piece, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return rs::walk_tiles(
+        static_cast<unsigned char*>(scratch),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(vals),
+        static_cast<int*>(idx), Q, q_tile, (long)cap, ld, k, sms, s,
+        [&](int q0, int nq, uint32_t* slab) {
+          if (cap == 0) return 0;
+          const void* qt = static_cast<const int8_t*>(q) + (size_t)q0 * qrow;
+          const size_t plane = (size_t)nq * qrow;
+          int r = 0;
+          return nq <= 32 ? launch_scan_rows<Int8R, 32, 4, 0, P>(
+                                qt, plane, qrow, v, mask, vs, slab, nq, cap,
+                                dim, 0, flat, &r, s)
+                          : launch_scan_rows<Int8R, 64, 4, 0, P>(
+                                qt, plane, qrow, v, mask, vs, slab, nq, cap,
+                                dim, 0, flat, &r, s);
+        });
+  });
 }

@@ -3,10 +3,9 @@
 // per-query radix select over the slab.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk (`_scan_kernel`) at
-// k_sel 129-1024 wherever TMA can read the rows (ops/scan.py::
-// topk_wide_ready): the batch routes' wide top_k (k_sel = top_k + 4 over
-// the bf16 mirror) and the engine's exact retry (k_eff + 4 over the
-// float32 rows). Per query the k best masked rows by the float32 score, as
+// k_sel 129-1024 (ops/scan.py::topk_wide_ready), at every row width and
+// base: the batch routes' wide top_k (k_sel = top_k + 4 over the bf16
+// mirror) and the engine's exact retry (k_eff + 4 over the float32 rows). Per query the k best masked rows by the float32 score, as
 // (Q, k) float32 scores (-inf where a slot is empty) and (Q, k) int32 rows
 // (0 where empty), ties to the lower row (row_key: -0.0 ranks below +0.0).
 //
@@ -23,7 +22,9 @@
 // 512 KB for 64 queries, and with ~132 segment ranges over 131,072 rows a
 // range holds fewer rows than k, so every partial would be its whole range
 // and the merge would sort Q x cap keys. Here:
-//  * Pass A (scan_topk_wgmma.cu, BUF 0): K4's own mainloop and numerics
+//  * Pass A (scan_topk_wgmma.cuh, BUF 0): K4's own mainloop, its rows'
+//    producers (TMA, or cp.async / realignment over rows TMA cannot read)
+//    and numerics
 //    (3xTF32 for float32 rows, the float32 query's three bf16 planes for
 //    bf16 rows, each k-stage summed apart and added rounded to nearest),
 //    CTAs over topk_wgmma_partition's (query tile, segment range) pairs
@@ -57,7 +58,8 @@
 //    block-wide scan of the slab, so ties still go to the lower row:
 //    exact at every k.
 //  * The launcher splits the queries into pass A's planes (radix_select.cuh's
-//    `split_planes`, K7's wide kind's too) in its own scratch, then walks
+//    `split_planes`, K7's wide kind's too; rows padded with zeros to whole
+//    16 bytes, which TMA reads) in its own scratch, then walks
 //    them in tiles of `q_tile` (ops/scan.py::topk_wide_tile keeps the slab
 //    under 256 MiB; the walk, radix_select.cuh's `walk_tiles`, is every
 //    wide kind's), zeroing a tile's histograms and candidate count with
@@ -66,49 +68,90 @@
 //    beside pass A (PERF.md §6).
 
 #include "radix_select.cuh"
+#include "scan_topk_wgmma.cuh"
+
+namespace pv {
+namespace {
+
+// Pass A on one tile of nq queries: the scan with the slab epilogue (BUF
+// 0), four stages and the rows' producer PIECE, N = 32 queries a CTA at
+// nq <= 32 (half the operand reads and products of N = 64, whose tile
+// would be at least half empty), else 64. `planes` (T::PLANES planes of
+// (nq, qld), `plane` bytes apart).
+template <class T, int PIECE>
+int slab_pass(const void* planes, size_t plane, int qld, const void* v,
+              const void* mask, uint32_t* slab, int nq, long long cap,
+              int dim, cudaStream_t s) {
+  using namespace tk;
+  const Rows flat{};  // the rows [0, cap)
+  int r = 0;
+  return nq <= 32 ? launch_scan_rows<T, 32, 4, 0, PIECE>(
+                        planes, plane, qld, v, mask, nullptr, slab, nq, cap,
+                        dim, 0, flat, &r, s)
+                  : launch_scan_rows<T, 64, 4, 0, PIECE>(
+                        planes, plane, qld, v, mask, nullptr, slab, nq, cap,
+                        dim, 0, flat, &r, s);
+}
+
+}  // namespace
+}  // namespace pv
 
 // K4's wide kind: pv_scan_topk's kinds 0 and 1 for 128 < k <= 1024 (the
-// launcher takes any k <= 1024), rows of whole 16 bytes and 16-byte
-// aligned bases. q (Q, dim) float32 queries; kind 0: v (cap, dim) float32,
-// 1: v bfloat16. mask (cap,) uint8, 4-byte aligned. `scratch` holds
-// `scratch_bytes` (at least ops/scan.py::topk_wide_scratch's: the planes
-// and one tile of q_tile queries' slab, histograms and candidates). vals
-// (Q, k) float32 and idx (Q, k) int32 receive the result (-inf / 0 where
-// empty). Launches on the current device. Returns 0, a cudaError_t, or
-// minus the CUresult of a refused tensor-map encode.
-extern "C" int pv_scan_topk_wide(int kind, const void* q, const void* v,
-                                 const void* mask, void* scratch, void* vals,
-                                 void* idx, int Q, long long cap, int dim,
-                                 int k, int q_tile, long long scratch_bytes,
-                                 void* stream) {
+// launcher takes any k <= 1024). piece: the rows' producer
+// (ops/scan.py::rows_piece): 0 TMA (row bytes and v's base multiples of
+// 16), 8 or 4 cp.async (multiples of piece), 2 the realigning producer
+// (kind 1 only, any width and base). q (Q, dim) float32 queries; kind 0: v
+// (cap, dim) float32, 1: v bfloat16. mask (cap,) uint8, 4-byte aligned.
+// `scratch` (256-byte aligned) holds `scratch_bytes`, at least
+// ops/scan.py::topk_wide_scratch's at the planes' width qld (dim rounded
+// up to whole 16 bytes): the planes, then one tile of q_tile queries'
+// slab, histograms and candidates. vals (Q, k) float32 and idx (Q, k)
+// int32 receive the result (-inf / 0 where empty). Launches on the
+// current device. Returns 0, a cudaError_t, or minus the CUresult of a
+// refused tensor-map encode.
+extern "C" int pv_scan_topk_wide(int piece, int kind, const void* q,
+                                 const void* v, const void* mask,
+                                 void* scratch, void* vals, void* idx, int Q,
+                                 long long cap, int dim, int k, int q_tile,
+                                 long long scratch_bytes, void* stream) {
   using namespace pv;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
   const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
+  const int es = kind == 0 ? 4 : 2;  // bytes of a plane element
+  const int qld = tk::plane_ld(dim, es);
   // the query planes (ops/scan.py::topk_wide_scratch), then one tile's
   // slab, histograms and candidates
-  const size_t planes = rs::up256((size_t)Q * dim * (kind == 0 ? 8 : 6));
+  const size_t planes = rs::up256((size_t)Q * qld * (kind == 0 ? 8 : 6));
   if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || q_tile <= 0 ||
       q_tile > 65535 || (kind != 0 && kind != 1) || (uintptr_t)mask % 4 ||
       (uintptr_t)scratch % 256 ||
       (size_t)scratch_bytes < planes + rs::tile_layout(q_tile, ld).bytes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int es = kind == 0 ? 4 : 2;  // bytes of a plane element
-  const size_t plane = (size_t)Q * dim * es;
+  const size_t plane = (size_t)Q * qld * es;
   int sms = 0;
   cudaError_t e = rs::prepare(&sms);
   if (e != cudaSuccess) return (int)e;
   unsigned char* base = static_cast<unsigned char*>(scratch);
-  const long total = (long)Q * dim;
-  if ((e = rs::split_planes(static_cast<const float*>(q), base, total, kind,
-                            sms, s)) != cudaSuccess)
+  if ((e = rs::split_planes(static_cast<const float*>(q), base, Q, dim, qld,
+                            kind, sms, s)) != cudaSuccess)
     return (int)e;
-  return rs::walk_tiles(
-      base + planes, static_cast<const uint8_t*>(mask),
-      static_cast<float*>(vals), static_cast<int*>(idx), Q, q_tile,
-      (long)cap, ld, k, sms, s, [&](int q0, int nq, uint32_t* slab) {
-        if (cap == 0) return 0;
-        return launch_scan_slab(kind, base + (size_t)q0 * dim * es, plane, v,
-                                mask, slab, nq, cap, dim, s);
-      });
+  return tk::with_piece(piece, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return rs::walk_tiles(
+        base + planes, static_cast<const uint8_t*>(mask),
+        static_cast<float*>(vals), static_cast<int*>(idx), Q, q_tile,
+        (long)cap, ld, k, sms, s, [&](int q0, int nq, uint32_t* slab) {
+          if (cap == 0) return 0;
+          const void* pt = base + (size_t)q0 * qld * es;
+          if (kind == 1)
+            return slab_pass<tk::Bf16, P>(pt, plane, qld, v, mask, slab, nq,
+                                          cap, dim, s);
+          if constexpr (P == 2)  // float32 rows are whole 4 bytes
+            return (int)cudaErrorInvalidValue;
+          else
+            return slab_pass<tk::F32, P>(pt, plane, qld, v, mask, slab, nq,
+                                         cap, dim, s);
+        });
+  });
 }

@@ -140,17 +140,19 @@ __device__ __forceinline__ void split_tf32(unsigned char* tile,
 }
 
 // compact_buffers (common.cuh) run by the THREADS consumer threads alone,
-// behind named barrier BAR: each of the NQ buffers of BUF keys sorted
-// descending, its best k kept, tau raised to its k-th key.
+// behind named barrier BAR: each of the first nq (<= NQ) buffers of BUF
+// keys sorted descending, its best k kept, tau raised to its k-th key (a
+// tile's buffers past its last query stay empty: nq skips their sort).
 template <int NQ, int BUF, int BAR, int THREADS>
-__device__ __forceinline__ void compact(u64* buf, int* cnt, u64* tau, int k) {
+__device__ __forceinline__ void compact(u64* buf, int* cnt, u64* tau, int k,
+                                        int nq = NQ) {
   const int tid = threadIdx.x;
-  for (int t = tid; t < NQ * BUF; t += THREADS)
+  for (int t = tid; t < nq * BUF; t += THREADS)
     if (t % BUF >= cnt[t / BUF]) buf[t] = 0;
   named_sync(BAR, THREADS);
   for (int size = 2; size <= BUF; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < NQ * BUF / 2; t += THREADS) {
+      for (int t = tid; t < nq * BUF / 2; t += THREADS) {
         const int i = 2 * stride * (t / stride) + (t % stride);
         const int j = i + stride;
         const bool desc = ((i & (BUF - 1) & size) == 0);

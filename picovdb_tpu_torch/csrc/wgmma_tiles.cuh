@@ -337,9 +337,10 @@ template <int PIECE>
 using MapsOf =
     typename std::conditional<PIECE == 2, ClassMaps, TileMaps>::type;
 
-// The 16 bytes at byte `off` (even, 0..14) of the 32 bytes lo | hi, as
-// four words (little endian: byte i of the pair is byte i % 4 of word
-// i / 4). Selects, not an indexed array, so nothing goes to local memory.
+// The 16 bytes at byte `off` (0..15; K1's are even) of the 32 bytes lo |
+// hi, as four words (little endian: byte i of the pair is byte i % 4 of
+// word i / 4). Selects, not an indexed array, so nothing goes to local
+// memory.
 __device__ __forceinline__ uint4 shift_pair(uint4 lo, uint4 hi, int off) {
   const uint32_t z[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
   const bool w1 = off & 4, w2 = off & 8;
@@ -348,7 +349,7 @@ __device__ __forceinline__ uint4 shift_pair(uint4 lo, uint4 hi, int off) {
   for (int i = 0; i < 7; ++i) t[i] = w1 ? z[i + 1] : z[i];
 #pragma unroll
   for (int i = 0; i < 5; ++i) u[i] = w2 ? t[i + 2] : t[i];
-  const uint32_t sh = (off & 2) * 8;  // 0 or 16 bits
+  const uint32_t sh = (off & 3) * 8;  // 0, 8, 16 or 24 bits
   return make_uint4(__funnelshift_r(u[0], u[1], sh),
                     __funnelshift_r(u[1], u[2], sh),
                     __funnelshift_r(u[2], u[3], sh),

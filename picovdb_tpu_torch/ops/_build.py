@@ -68,34 +68,42 @@ _SIGNATURES = {
     # the same for K3's one-query sweep over per-row-scaled int8 rows (Q <=
     # 16, k <= 384, dim % 16 == 0; served at Q <= scan.I8_SWEEP_Q_MAX)
     "pv_sweep_topk_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    # the same for K3's narrow kind of the sweep over int8 rows at any
+    # width and base (Q <= 16, k <= 384, the query block's phase copies
+    # within scan.NARROW_SMEM_BYTES; served where scan.i8_narrow_ready)
+    "pv_sweep_topk_i8_narrow": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                                _L, _P],
     # q_perm, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream
     # (K6's tensor-core scan: any Q, k <= 128, dim % 128 == 0; served at
     # Q > scan.I4_SWEEP_Q_MAX)
     "pv_scan_topk_i4_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
-    # kind (0 f32, 1 bf16), query planes, v, mask, partial, vals, idx, Q,
-    # cap, dim, k, stream (K4's tensor-core scan: k <= 128, rows of whole
-    # 16 bytes; served at Q >= scan.TOPK_WGMMA_Q_MIN)
-    "pv_scan_topk_wgmma": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
-    # kind (0 f32, 1 bf16), q, v, mask, scratch, vals, idx, Q, cap, dim, k,
-    # q_tile, scratch bytes, stream (K4's wide kind: k <= 1024, rows of
-    # whole 16 bytes, a 4-byte aligned mask; served at 128 < k,
-    # scan.topk_wide_ready)
-    "pv_scan_topk_wide": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _L,
-                          _P],
+    # piece (the rows' producer, scan.rows_piece: 0 TMA, 8 / 4 cp.async, 2
+    # the realigning producer), kind (0 f32, 1 bf16), query planes (rows of
+    # dim rounded up to whole 16 bytes), v, mask, partial, vals, idx, Q,
+    # cap, dim, k, stream (K4's tensor-core scan: k <= 128; served where
+    # scan.topk_wgmma_ready)
+    "pv_scan_topk_wgmma": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                           _P],
+    # piece, kind (0 f32, 1 bf16), q, v, mask, scratch, vals, idx, Q, cap,
+    # dim, k, q_tile, scratch bytes, stream (K4's wide kind: k <= 1024, a
+    # 4-byte aligned mask; served at 128 < k, scan.topk_wide_ready)
+    "pv_scan_topk_wide": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
+                          _L, _P],
     # q_perm, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k, q_tile,
     # scratch bytes, stream (K6's wide kind: k <= 1024, dim % 128 == 0, a
     # 4-byte aligned mask; served at 128 < k, scan.i4_wide_ready)
     "pv_scan_topk_i4_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                              _L, _P],
-    # q, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k, q_tile,
-    # scratch bytes, stream (K3's wide kind: k <= 1024, dim % 16 == 0, a
-    # 4-byte aligned mask; served where scan.i8_wide_ready)
-    "pv_scan_topk_i8_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
-                             _L, _P],
-    # q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream (K3's
-    # tensor-core scan: k <= 384, dim % 16 == 0; served at Q >
-    # scan.I8_SWEEP_Q_MAX)
-    "pv_scan_topk_i8_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+    # piece, q, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k, q_tile,
+    # scratch bytes, stream (K3's wide kind: k <= 1024, a 4-byte aligned
+    # mask; the scratch's tile, then room for the queries padded to whole
+    # 16 bytes; served where scan.i8_wide_ready)
+    "pv_scan_topk_i8_wide": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                             _I, _L, _P],
+    # piece, q, v, vscale, mask, scratch (room for the queries padded to
+    # whole 16 bytes, then the partials), vals, idx, Q, cap, dim, k, stream
+    # (K3's tensor-core scan: k <= 384; served where scan.i8_wgmma_ready)
+    "pv_scan_topk_i8_wgmma": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                               _P],
     # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream

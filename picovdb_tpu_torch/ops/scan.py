@@ -91,7 +91,16 @@ SEG = 128  # rows per segmax segment
 # launch, "scan_topk_i8_sweep" those of the sweep's row-scaled int8 kind
 # (`i8_sweep_ready`), "scan_topk_i8_wgmma" those of the tensor-core scan's
 # int8 kind (`i8_wgmma_ready`), "scan_topk_i8_wide" those of its wide kind
-# (`i8_wide_ready`); "ivf_scan_topk_wide" those of K7's wide kind
+# (`i8_wide_ready`); "scan_topk_i8_narrow" those of the sweep's narrow
+# kind over int8 rows at any width and base (`i8_narrow_ready`). The
+# tensor-core scans and wide kinds of K4 and K3 read the rows by the
+# mainloop's producer `rows_piece` names: their keys count TMA's, and the
+# same keys ending in "_cpasync" count them fed by cp.async, "_realign" by
+# the realigning producer, over rows TMA cannot read
+# ("scan_topk_wgmma_cpasync", "scan_topk_wide_realign",
+# "scan_topk_i8_wgmma_realign", "scan_topk_i8_wide_cpasync", ...); each of
+# these keys and "scan_topk_i8_narrow" also has its launches by
+# shape in LAUNCH_SHAPES. "ivf_scan_topk_wide" those of K7's wide kind
 # (ops/ivf.py::`ivf_wide_ready`); "ivf_segmax" every K8 launch,
 # "ivf_segmax_wgmma" those of its tensor-core segment scan
 # (ops/ivf.py::`ivf_segmax_ready`).
@@ -99,8 +108,14 @@ LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "segmax_realign": 0,
             "topk_keys": 0, "scan_topk": 0, "scan_topk_wgmma": 0,
             "scan_topk_wide": 0,
+            "scan_topk_wgmma_cpasync": 0, "scan_topk_wgmma_realign": 0,
+            "scan_topk_wide_cpasync": 0, "scan_topk_wide_realign": 0,
             "scan_topk_i8": 0, "scan_topk_i8_sweep": 0,
-            "scan_topk_i8_wgmma": 0, "scan_topk_i8_wide": 0, "segmax_i8": 0,
+            "scan_topk_i8_wgmma": 0, "scan_topk_i8_wide": 0,
+            "scan_topk_i8_narrow": 0,
+            "scan_topk_i8_wgmma_cpasync": 0, "scan_topk_i8_wgmma_realign": 0,
+            "scan_topk_i8_wide_cpasync": 0, "scan_topk_i8_wide_realign": 0,
+            "segmax_i8": 0,
             "segmax_i8_wgmma": 0,
             "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
             "scan_topk_i4_wgmma": 0, "scan_topk_i4_wide": 0,
@@ -122,8 +137,9 @@ _I64_MIN = -(2**63)  # empty 64-bit selection key
 
 
 # Each kernel's launches by shape, e.g. LAUNCH_SHAPES["scan_topk_i4"]
-# [(2048, 14)]: the split of LAUNCHES[name] (not of its sub-kernel keys)
-# by the launch's query count and k (k_sel; per_seg for K8; None where a
+# [(2048, 14)]: the split of LAUNCHES[name] (not of its sub-kernel keys,
+# but for those of K3's narrow sweep and of the kinds over rows TMA cannot
+# read) by the launch's query count and k (k_sel; per_seg for K8; None where a
 # kernel takes no k), so a cost per launch is weighed at the shape the
 # launch was made at.
 LAUNCH_SHAPES: dict = {}
@@ -142,6 +158,7 @@ def _count(name: str, num_q: int, k: int | None = None) -> None:
     LAUNCHES[name] += 1
     per = LAUNCH_SHAPES.setdefault(name, {})
     per[num_q, k] = per.get((num_q, k), 0) + 1
+
 
 
 def _to_sortable(bits: torch.Tensor) -> torch.Tensor:
@@ -736,19 +753,25 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     q = queries.contiguous()
     # the ready rules are the only switch between kernels: the one-query
     # sweep, else the tensor-core scan, else the wide kind, else the
-    # template (K3 asks its wide kind first: `i8_wide_ready`)
+    # template (K3 asks its wide kind first: `i8_wide_ready`); the
+    # tensor-core kinds' counters name the rows' producer
+    piece = _PIECE_KEY[rows_piece(vectors)]
     if i8c and sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, None, mask, k, name)
         LAUNCHES["scan_topk_i8c_sweep"] += 1
     elif kind == _KIND_I8 and i8_wide_ready(q, vectors, k):
         vals, idx = _i8_wide_launch(q, vectors, vscale, mask, k, name)
-        LAUNCHES["scan_topk_i8_wide"] += 1
+        _count("scan_topk_i8_wide" + piece, num_q, k)
     elif kind == _KIND_I8 and i8_sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i8_sweep"] += 1
+    elif kind == _KIND_I8 and i8_narrow_ready(q, vectors, k):
+        vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name,
+                                  "pv_sweep_topk_i8_narrow")
+        _count("scan_topk_i8_narrow", num_q, k)
     elif kind == _KIND_I8 and i8_wgmma_ready(q, vectors, k):
         vals, idx = _i8_wgmma_launch(q, vectors, vscale, mask, k, name)
-        LAUNCHES["scan_topk_i8_wgmma"] += 1
+        _count("scan_topk_i8_wgmma" + piece, num_q, k)
     elif int4 and i4_sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i4_sweep"] += 1
@@ -760,10 +783,10 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
         LAUNCHES["scan_topk_i4_wide"] += 1
     elif kind in (_KIND_F32, _KIND_BF16) and topk_wgmma_ready(q, vectors, k):
         vals, idx = _topk_wgmma_launch(q, vectors, mask, k, name)
-        LAUNCHES["scan_topk_wgmma"] += 1
+        _count("scan_topk_wgmma" + piece, num_q, k)
     elif kind in (_KIND_F32, _KIND_BF16) and topk_wide_ready(q, vectors, k):
         vals, idx = _topk_wide_launch(q, vectors, mask, k, name)
-        LAUNCHES["scan_topk_wide"] += 1
+        _count("scan_topk_wide" + piece, num_q, k)
     else:
         vals, idx = _template_launch(q, vectors, vscale, mask, k, kind, name)
     _count(name, num_q, k)
@@ -795,11 +818,13 @@ def _template_launch(q, vectors, vscale, mask, k: int, kind: int,
     return vals, idx
 
 
-def _sweep_launch(q, vectors, vscale, mask, k: int, name: str):
+def _sweep_launch(q, vectors, vscale, mask, k: int, name: str,
+                  entry: str | None = None):
     """The one-query sweep (csrc/sweep_topk.cu) on checked CUDA operands,
     uncounted: K9 (`vscale` None, column-scaled int8 rows), K6 (packed
     int4 rows, half the queries' width, with their scales) or K3 (int8
-    rows with their scales), CTAs over `sweep_partition`'s ranges."""
+    rows with their scales; `entry` "pv_sweep_topk_i8_narrow": its narrow
+    kind, any width and base), CTAs over `sweep_partition`'s ranges."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -811,7 +836,8 @@ def _sweep_launch(q, vectors, vscale, mask, k: int, name: str):
     if vscale is None:
         entry = "pv_sweep_topk_i8c"
     else:
-        entry = "pv_sweep_topk_i8" if vectors.shape[1] == dim else "pv_sweep_topk_i4"
+        entry = entry or ("pv_sweep_topk_i8" if vectors.shape[1] == dim
+                          else "pv_sweep_topk_i4")
         head = head + (vscale.data_ptr(),)
     _launch(q, name, entry, *head, mask.data_ptr(), partial.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, chunk)
@@ -851,95 +877,134 @@ def _i4_wide_launch(q, v_i4, vscale, mask, k: int,
 def _i8_wide_launch(q, v_i8, vscale, mask, k: int,
                     name: str = "scan_topk_i8"):
     """K3's wide kind (csrc/topk_i8_wide.cu) on checked CUDA operands,
-    uncounted: `_scaled_wide_launch` of the int8 queries as they are."""
+    uncounted: `_scaled_wide_launch` of the int8 queries as they are, the
+    rows by the producer `rows_piece` names, the scratch's tile followed by
+    room for the queries, which the library call pads to whole 16 bytes
+    where TMA cannot read them as they lie."""
     return _scaled_wide_launch("pv_scan_topk_i8_wide", q, q, v_i8, vscale,
-                               mask, k, name)
+                               mask, k, name, rows_piece(v_i8))
 
 
 def _scaled_wide_launch(entry: str, q_arg, q, vectors, vscale, mask, k: int,
-                        name: str):
+                        name: str, piece: int | None = None):
     """The row-scaled wide kinds' launch (K6's, K3's): one library call
     `entry` that, a tile of `topk_wide_tile` queries at a time, runs the
     tensor-core scan on the queries `q_arg` writing the slab and the radix
-    select over it, in one scratch buffer (`i4_wide_scratch`); a mask view
-    not 4-byte aligned is copied."""
+    select over it, in one scratch buffer (`i4_wide_scratch`; with the
+    rows' producer `piece`, K3's, then Q rows of the width rounded up to 16
+    bytes for the padded queries); a mask view not 4-byte aligned is
+    copied."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     q_tile = topk_wide_tile(num_q, cap)
     nbytes = i4_wide_scratch(cap, q_tile)
+    head = ()
+    if piece is not None:
+        nbytes = _up256(nbytes) + num_q * _pad_to(dim, 16)
+        head = (piece,)
     if mask.data_ptr() % 4:
         mask = mask.clone()
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
     vals, idx = _outputs(num_q, k, q.device)
-    _launch(q, name, entry, q_arg.data_ptr(), vectors.data_ptr(),
+    _launch(q, name, entry, *head, q_arg.data_ptr(), vectors.data_ptr(),
             vscale.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, q_tile,
             nbytes)
     return vals, idx
 
 
+def _pad_to(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
+
+def _planes_ld(vectors: torch.Tensor) -> int:
+    """Elements of K4's query plane rows over these rows: the width rounded
+    up to whole 16 bytes of the plane's type (float32 hi / lo: 4 elements,
+    bf16 planes: 8), which TMA reads."""
+    return _pad_to(vectors.shape[1],
+                   4 if vectors.dtype == torch.float32 else 8)
+
+
 def _topk_wgmma_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
     """K4's tensor-core scan (csrc/scan_topk_wgmma.cu) on checked CUDA
-    operands, uncounted: the float32 queries split once into the planes
-    the rows' kind multiplies (`split_tf32` / `split_bf16`), CTAs over
-    `topk_wgmma_partition`'s (query tile, segment range) pairs, then the
-    merge."""
+    operands, uncounted: the float32 queries, zero-padded to `_planes_ld`
+    columns (`_pad_cols`), split once into the planes the rows' kind multiplies
+    (`split_tf32` / `split_bf16`), the rows by the producer `rows_piece`
+    names, CTAs over `topk_wgmma_partition`'s (query tile, segment range)
+    pairs at `topk_wgmma_qtile`, then the merge."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    _, ranges = topk_wgmma_partition(num_q, cap, sms)
+    _, ranges = topk_wgmma_partition(num_q, cap, sms,
+                                     topk_wgmma_qtile(vectors, k))
     if vectors.dtype == torch.float32:
-        kind, planes = _KIND_F32, torch.stack(split_tf32(q))
+        kind, planes = _KIND_F32, torch.stack(split_tf32(_pad_cols(q, 4)))
     else:
-        kind, planes = _KIND_BF16, torch.stack(split_bf16(q))
+        kind, planes = _KIND_BF16, torch.stack(split_bf16(_pad_cols(q, 8)))
     partial = torch.empty((num_q * ranges * k,), dtype=torch.int64,
                           device=q.device)
     vals, idx = _outputs(num_q, k, q.device)
-    _launch(q, name, "pv_scan_topk_wgmma", kind, planes.data_ptr(),
-            vectors.data_ptr(), mask.data_ptr(), partial.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k)
+    _launch(q, name, "pv_scan_topk_wgmma", rows_piece(vectors), kind,
+            planes.data_ptr(), vectors.data_ptr(), mask.data_ptr(),
+            partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
+            dim, k)
     return vals, idx
 
 
 def _topk_wide_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
     """K4's wide kind (csrc/topk_wide.cu) on checked CUDA operands,
     uncounted: one library call splits the float32 queries into the
-    planes the rows' kind multiplies (as `split_tf32` / `split_bf16`), then,
-    a tile of `topk_wide_tile` queries at a time, runs the scan writing the
-    slab and the radix select over it, in one scratch buffer
+    planes the rows' kind multiplies (as `split_tf32` / `split_bf16`, rows
+    of `_planes_ld` elements), then, a tile of `topk_wide_tile` queries at
+    a time, runs the scan writing the slab (the rows by the producer
+    `rows_piece` names) and the radix select over it, in one scratch buffer
     (`topk_wide_scratch`); a mask view not 4-byte aligned is copied."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     kind = _KIND_F32 if vectors.dtype == torch.float32 else _KIND_BF16
     q_tile = topk_wide_tile(num_q, cap)
-    nbytes = topk_wide_scratch(num_q, cap, dim, kind, q_tile)
+    nbytes = topk_wide_scratch(num_q, cap, _planes_ld(vectors), kind, q_tile)
     if mask.data_ptr() % 4:
         mask = mask.clone()
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
     vals, idx = _outputs(num_q, k, q.device)
-    _launch(q, name, "pv_scan_topk_wide", kind, q.data_ptr(),
-            vectors.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, q_tile,
-            nbytes)
+    _launch(q, name, "pv_scan_topk_wide", rows_piece(vectors), kind,
+            q.data_ptr(), vectors.data_ptr(), mask.data_ptr(),
+            scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
+            dim, k, q_tile, nbytes)
     return vals, idx
 
 
 def _i8_wgmma_launch(q, v_i8, vscale, mask, k: int,
                      name: str = "scan_topk_i8"):
     """K3's tensor-core scan (csrc/scan_topk_wgmma.cu, the int8 kind) on
-    checked CUDA operands, uncounted: CTAs over `i8_wgmma_partition`'s
-    (query tile, segment range) pairs, then the merge."""
+    checked CUDA operands, uncounted: the rows by the producer `rows_piece`
+    names, one scratch buffer (room for the queries, which the library call
+    pads to whole 16 bytes where TMA cannot read them as they lie, then the
+    partials), CTAs over `i8_wgmma_partition`'s (query tile, segment range)
+    pairs, then the merge."""
     num_q, dim = q.shape
     cap = v_i8.shape[0]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     _, ranges = i8_wgmma_partition(num_q, cap, sms, k)
-    partial = torch.empty((num_q * ranges * k,), dtype=torch.int64,
+    scratch = torch.empty((_up256(num_q * _pad_to(dim, 16))
+                           + num_q * ranges * k * 8,), dtype=torch.uint8,
                           device=q.device)
     vals, idx = _outputs(num_q, k, q.device)
-    _launch(q, name, "pv_scan_topk_i8_wgmma", q.data_ptr(), v_i8.data_ptr(),
-            vscale.data_ptr(), mask.data_ptr(), partial.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k)
+    _launch(q, name, "pv_scan_topk_i8_wgmma", rows_piece(v_i8), q.data_ptr(),
+            v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
+            scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
+            dim, k)
     return vals, idx
+
+
+def _pad_cols(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """x's rows as (rows, ld), zeros past x's width, ld its width rounded
+    up to a multiple of `mult` (x itself where it is one): K4's query rows
+    of whole 16 bytes, and torch._int_mm's operands in chip_smoke.py."""
+    dim = x.shape[1]
+    ld = _pad_to(dim, mult)
+    return x if ld == dim else torch.nn.functional.pad(x, (0, ld - dim))
 
 
 def split_tf32(q: torch.Tensor):
@@ -978,23 +1043,38 @@ TOPK_WGMMA_Q_MIN = 1
 def topk_wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor,
                      k: int) -> bool:
     """Whether K4 runs the tensor-core scan on these contiguous operands:
-    float32 or bf16 rows (float32 queries), k <= 128, rows of whole 16
-    bytes (float32 dim % 4 == 0, bf16 dim % 8 == 0), a 16-byte aligned
-    base of the rows (the query planes are the launcher's own), and Q >=
-    TOPK_WGMMA_Q_MIN. Wider k takes `topk_wide_ready`'s kind, other
-    shapes the template, `pv_scan_topk` kinds 0 and 1."""
-    return (_k4_rows_ready(queries, vectors) and k <= TOPK_WGMMA_K_MAX
+    float32 or bf16 rows (float32 queries) at any width and base (the rows
+    by the producer `rows_piece` names; the query planes are the
+    launcher's own), k <= 128, and Q >= TOPK_WGMMA_Q_MIN. Wider k takes
+    `topk_wide_ready`'s kind."""
+    return (queries.dtype == torch.float32
+            and vectors.dtype in (torch.float32, torch.bfloat16)
+            and k <= TOPK_WGMMA_K_MAX
             and queries.shape[0] >= TOPK_WGMMA_Q_MIN)
 
 
-def _k4_rows_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
-    """What K4's tensor-core mainloop reads by TMA: float32 or bf16 rows
-    of whole 16 bytes (float32 dim % 4 == 0, bf16 dim % 8 == 0) at a
-    16-byte aligned base, against float32 queries."""
-    words = {torch.float32: 4, torch.bfloat16: 8}.get(vectors.dtype)
-    return (words is not None and queries.dtype == torch.float32
-            and queries.shape[1] % words == 0
-            and vectors.data_ptr() % 16 == 0)
+def rows_piece(vectors: torch.Tensor) -> int:
+    """The producer of K4's and K3's tensor-core mainloop
+    (csrc/scan_topk_wgmma.cuh) for these contiguous rows: 0 TMA (the row
+    bytes and the base multiples of 16), 8 or 4 cp.async in pieces of that
+    many bytes (the row bytes and the base multiples of 8, else of 4), 2
+    the realigning producer (any other rows: odd bf16 widths, int8 widths
+    not a multiple of 4, bases aligned to 1 or 2 bytes)."""
+    bits = vectors.shape[1] * vectors.element_size() | vectors.data_ptr()
+    return (0 if bits % 16 == 0 else 8 if bits % 8 == 0
+            else 4 if bits % 4 == 0 else 2)
+
+
+# The LAUNCHES suffix of each producer's kinds (`rows_piece`)
+_PIECE_KEY = {0: "", 8: "_cpasync", 4: "_cpasync", 2: "_realign"}
+
+
+def topk_wgmma_qtile(vectors: torch.Tensor, k: int) -> int:
+    """Queries a CTA of K4's tensor-core scan over these rows at k: 64, but
+    32 for the realigning producer past k = 64, whose staging slots leave
+    no room for 64 queries' buffers of 256 keys (csrc/scan_topk_wgmma.cu)."""
+    return (32 if rows_piece(vectors) == 2 and k > 64
+            else TOPK_WGMMA_QTILE)
 
 
 def topk_wgmma_partition(num_q: int, cap: int, sms: int,
@@ -1026,13 +1106,14 @@ TOPK_WIDE_QTILE_MAX = 256  # queries a tile: bounds the candidates' 16 MiB
 def topk_wide_ready(queries: torch.Tensor, vectors: torch.Tensor,
                     k: int) -> bool:
     """Whether K4 runs its wide kind on these contiguous operands: float32
-    or bf16 rows (float32 queries), 128 < k <= SCAN_KSEL_MAX, rows of whole
-    16 bytes (float32 dim % 4 == 0, bf16 dim % 8 == 0), a 16-byte aligned
-    base of the rows, and one query's slab (cap rounded up to 128 rows, 4
-    bytes a row) within TOPK_WIDE_SLAB_BYTES (cap up to 64M rows). Other
-    shapes keep the template, `pv_scan_topk` kinds 0 and 1."""
+    or bf16 rows (float32 queries) at any width and base (the rows by the
+    producer `rows_piece` names), 128 < k <= SCAN_KSEL_MAX, and one
+    query's slab (cap rounded up to 128 rows, 4 bytes a row) within
+    TOPK_WIDE_SLAB_BYTES (cap up to 64M rows). Only a slab over the budget
+    keeps the template, `pv_scan_topk` kinds 0 and 1."""
     ld = -(-vectors.shape[0] // SEG) * SEG
-    return (_k4_rows_ready(queries, vectors)
+    return (queries.dtype == torch.float32
+            and vectors.dtype in (torch.float32, torch.bfloat16)
             and TOPK_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
             and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
 
@@ -1167,7 +1248,15 @@ I8_WIDE_K_MIN = 128
 # 700 W the sweep takes 0.42 / 0.43 / 0.50 / 0.78 ms at Q = 1 / 2 / 4 / 8
 # (k_sel 14; 0.56 / 0.58 / 0.69 / 1.02 at k_sel 142), the scan 0.53-0.56
 # (k_sel 14; 0.99-1.01 at k_sel 142) at every Q <= 32; the sweep's
-# 8-query tile serves Q = 5 ... 8 at its Q = 8 time.
+# 8-query tile serves Q = 5 ... 8 at its Q = 8 time. The narrow kind
+# (`i8_narrow_ready`) keeps the limit: chip_smoke.py --narrow-cross times
+# it against the scan over the same int8 rows of 131,072 and 1,183,514
+# rows (H100 80GB HBM3, 700 W; k_sel 14; PERF.md): at dim
+# 100 the sweep wins at Q <= 4 (1,183,514 rows: 0.166 / 0.217 ms at Q = 1
+# / 4 against 0.273 / 0.250) and loses past it (Q = 5 / 8: 0.304 / 0.357
+# against 0.250 / 0.260; over 131,072 rows a tie at Q = 5, 0.116 against
+# 0.117); at dim 25 it still wins at Q = 5 / 8 by 1-17 % (0.225 / 0.239
+# against 0.270 / 0.273), at Q = 16 it loses at both sizes.
 I8_SWEEP_Q_MAX = 4
 
 
@@ -1177,8 +1266,8 @@ def i8_sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
     whole 16-byte words (dim % 16 == 0), the query block (sweep_tile(Q) x
     dim bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned bases. The
     dispatch asks `i8_wide_ready` first; larger batches take
-    `i8_wgmma_ready`'s scan; other shapes keep the template, `pv_scan_topk`
-    kind 2."""
+    `i8_wgmma_ready`'s scan; other widths and bases `i8_narrow_ready`'s
+    narrow kind."""
     num_q, dim = q_i8.shape
     return (num_q <= I8_SWEEP_Q_MAX and k <= I8_SWEEP_K_MAX
             and dim % 16 == 0
@@ -1188,51 +1277,139 @@ def i8_sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
 
 def i8_wgmma_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
     """Whether K3's tensor-core scan's row-scaled int8 kind
-    (csrc/scan_topk_wgmma.cu) can take these contiguous operands: Q >
-    I8_SWEEP_Q_MAX (smaller batches take the sweep), k <= I8_WGMMA_K_MAX,
-    rows of whole 16 bytes (dim % 16 == 0) and 16-byte aligned bases of
-    both (TMA reads the queries and the rows as they lie). The dispatch
-    asks `i8_wide_ready` first; other shapes keep the template,
-    `pv_scan_topk` kind 2."""
-    num_q, dim = q_i8.shape
-    return (num_q > I8_SWEEP_Q_MAX and k <= I8_WGMMA_K_MAX
-            and dim % 16 == 0 and _aligned(q_i8, v_i8))
+    (csrc/scan_topk_wgmma.cu) takes these contiguous operands: k <=
+    I8_WGMMA_K_MAX where neither one-query sweep does (`i8_sweep_ready`,
+    `i8_narrow_ready`: Q past I8_SWEEP_Q_MAX, or a query block too large
+    for the sweep), at any width and base: the rows by the producer
+    `rows_piece` names, the queries padded to whole 16 bytes by the
+    library call where TMA cannot read them as they lie. The dispatch asks
+    `i8_wide_ready` first."""
+    return (k <= I8_WGMMA_K_MAX and not i8_sweep_ready(q_i8, v_i8, k)
+            and not i8_narrow_ready(q_i8, v_i8, k))
 
 
-def i8_wide_covers(num_q: int, cap: int) -> bool:
+# The tensor-core scan's query tile past k 128 (`i8_wgmma_partition`):
+# its buffers of 512 keys a query leave room for 32 queries a CTA
+I8_WGMMA_WIDE_QTILE = 32
+
+
+def i8_wide_covers(num_q: int, cap: int, piece: int = 0) -> bool:
     """Whether K3's wide kind's query tile over `cap` rows
-    (`topk_wide_tile`) holds min(Q, 64) queries, the batch's tensor-core
-    tile: the wide kind then reads the plane less often than the 32-query
-    scan, or once, as the sweep does. Over a larger plane its slab budget
-    cuts the tile (Q = 64 over 16M rows: 4 queries, the plane read 16
-    times, 11x the scan's time), and the sweep or the scan serves k_sel up
-    to their limit (the times at I8_WIDE_K_MIN)."""
-    return topk_wide_tile(num_q, cap) >= min(num_q, TOPK_WGMMA_QTILE)
+    (`topk_wide_tile`) lets it serve a batch of Q at k_sel 129-384. Over
+    rows TMA reads (`piece` 0) the tile must hold min(Q, 64) queries, the
+    batch's tensor-core tile: the wide kind then reads the plane less
+    often than the 32-query scan, or once, as the sweep does. Over a larger
+    plane its slab budget cuts the tile (Q = 64 over 16M rows: 4 queries,
+    the plane read 16 times, 11x the scan's time), and the sweep or the
+    scan serves k_sel up to their limit (the times at I8_WIDE_K_MIN).
+
+    Over rows TMA cannot read (`piece` > 0) it serves wherever it reads
+    the plane no more often than the scan's I8_WGMMA_WIDE_QTILE-query
+    tiles do (ceil(Q / tile) <= ceil(Q / 32)): the scan there is bound by
+    its 128-row segments, not the rows' bytes (a narrow row costs a whole
+    128-byte k-stage), so an equal number of reads costs the wide kind
+    less. chip_smoke.py --narrow-cross times both over int8 planes at dims
+    25 / 100 / 1019 (H100 80GB HBM3, 700 W; PERF.md): over 1,183,514 rows
+    (a tile of 56) the wide kind wins Q = 16 / 32 / 64 / 128 at k_sel 142
+    at every width (Q = 64: 0.781 / 0.744 / 2.556 ms against the scan's
+    1.136 / 1.192 / 2.968); over 2,367,028 rows (a tile of 28) it wins Q =
+    16, and at Q = 32 (two reads against one) it loses at dim 1019 (4.460
+    against 2.980) and wins by 7-17 % at dims 25 / 100, which this rule
+    gives away; at Q = 64 / 128 the scan wins at k_sel 142."""
+    tile = topk_wide_tile(num_q, cap)
+    if piece:
+        return -(-num_q // tile) <= -(-num_q // I8_WGMMA_WIDE_QTILE)
+    return tile >= min(num_q, TOPK_WGMMA_QTILE)
 
 
 def i8_wide_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
     """Whether K3 runs its wide kind (csrc/topk_i8_wide.cu) on these
-    contiguous operands, asked before the sweep and the scan: rows of whole
-    16 bytes (dim % 16 == 0), 16-byte aligned bases of both (TMA reads the
-    queries and the rows as they lie), one query's slab (cap rounded up to
-    128 rows, 4 bytes a row) within TOPK_WIDE_SLAB_BYTES, and k past
-    I8_SWEEP_K_MAX (up to SCAN_KSEL_MAX: only the template takes those
-    otherwise) or past I8_WIDE_K_MIN where `i8_wide_covers` holds. Any Q: a
-    batch smaller than a query tile runs one tile. Other shapes keep the
-    sweep, the scan or the template, `pv_scan_topk` kind 2."""
-    num_q, dim = q_i8.shape
+    contiguous operands, asked before the sweeps and the scan: any width
+    and base (the rows by the producer `rows_piece` names, the queries
+    padded by the library call where TMA cannot read them), one query's
+    slab (cap rounded up to 128 rows, 4 bytes a row) within
+    TOPK_WIDE_SLAB_BYTES, and k past I8_SWEEP_K_MAX (up to SCAN_KSEL_MAX:
+    only the template takes those otherwise) or past I8_WIDE_K_MIN where
+    `i8_wide_covers` holds. Any Q: a batch smaller than a query tile runs
+    one tile. Other shapes take the sweeps or the scan; a slab over the
+    budget (past 64M rows) and k past I8_SWEEP_K_MAX keep the template,
+    `pv_scan_topk` kind 2."""
+    num_q = q_i8.shape[0]
     cap = v_i8.shape[0]
     ld = -(-cap // SEG) * SEG
-    return (I8_WIDE_K_MIN < k <= SCAN_KSEL_MAX and dim % 16 == 0
-            and _aligned(q_i8, v_i8) and 4 * ld <= TOPK_WIDE_SLAB_BYTES
-            and (k > I8_SWEEP_K_MAX or i8_wide_covers(num_q, cap)))
+    return (I8_WIDE_K_MIN < k <= SCAN_KSEL_MAX
+            and 4 * ld <= TOPK_WIDE_SLAB_BYTES
+            and (k > I8_SWEEP_K_MAX
+                 or i8_wide_covers(num_q, cap, rows_piece(v_i8))))
+
+
+# The narrow kind's shared memory (csrc/sweep_topk.cu NARROW_SMEM_BYTES):
+# its query block of phase copies, the buffers, tau and counts within 112
+# KB keep two CTAs an SM
+NARROW_SMEM_BYTES = 112 << 10
+
+
+def narrow_phases(dim: int, ptr: int) -> int:
+    """The narrow kind's phase copies of a query for int8 rows of `dim`
+    bytes at base `ptr`: 16 / g, g the largest power of two <= 16 dividing
+    both (a row starts at byte j g of its 16-byte word)."""
+    g = 16
+    while g > 1 and (dim | ptr) % g:
+        g //= 2
+    return 16 // g
+
+
+def narrow_block_bytes(num_q: int, dim: int, ptr: int) -> int:
+    """The narrow kind's query block: sweep_tile(Q) queries x
+    `narrow_phases` copies x W words of 16 bytes, W = ceil((16 - g + dim)
+    / 16) (the widest phase's)."""
+    phases = narrow_phases(dim, ptr)
+    words = -(-(16 - 16 // phases + dim) // 16)
+    return sweep_tile(num_q) * phases * words * 16
+
+
+def i8_narrow_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether K3 runs the one-query sweep's narrow kind (csrc/
+    sweep_topk.cu `sweep_narrow_kernel`) on these contiguous operands: Q
+    <= I8_SWEEP_Q_MAX (the crossover it shares with the 16-byte sweep,
+    measured for it too: see the constant), k <= I8_SWEEP_K_MAX, operands
+    the 16-byte sweep cannot read (`_i8_tma_ready` fails: a width not a
+    multiple of 16, or a base not 16-byte aligned; the query is read a
+    byte at a time, the rows as the aligned words that hold them), and the
+    query block
+    (`narrow_block_bytes`) with the buffers within NARROW_SMEM_BYTES:
+    every width up to 1,505 at Q = 4 and k <= 384 (odd widths and 1-byte
+    aligned bases: 16 copies; 1,633 at k <= 128), wider at fewer phases or
+    queries. The rest takes `i8_wgmma_ready`'s scan."""
+    return (q_i8.shape[0] <= I8_SWEEP_Q_MAX and k <= I8_SWEEP_K_MAX
+            and not _i8_tma_ready(q_i8, v_i8)
+            and narrow_fits(q_i8, v_i8, k))
+
+
+def narrow_fits(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether the narrow kind's shared memory takes these operands: the
+    query block (`narrow_block_bytes`) and sweep_tile(Q) buffers of 256
+    keys (512 past k 128), tau and counts within NARROW_SMEM_BYTES (the
+    kernel refuses the rest)."""
+    num_q, dim = q_i8.shape
+    buf = 256 if k <= TOPK_WGMMA_K_MAX else 512
+    return (num_q <= SWEEP_Q_MAX
+            and narrow_block_bytes(num_q, dim, v_i8.data_ptr())
+            + sweep_tile(num_q) * (buf * 8 + 12) <= NARROW_SMEM_BYTES)
+
+
+def _i8_tma_ready(q_i8: torch.Tensor, v_i8: torch.Tensor) -> bool:
+    """What the 16-byte sweep reads: int8 rows of whole 16 bytes (dim % 16
+    == 0) and 16-byte aligned bases of both."""
+    return q_i8.shape[1] % 16 == 0 and _aligned(q_i8, v_i8)
 
 
 def i8_wgmma_partition(num_q: int, cap: int, sms: int, k: int):
     """The int8 scan's grid: `topk_wgmma_partition` at its query tile, 64
     queries a CTA, and 32 past k = 128, where each query's buffer takes
     512 keys (csrc/scan_topk_wgmma.cu)."""
-    qtile = TOPK_WGMMA_QTILE if k <= TOPK_WGMMA_K_MAX else 32
+    qtile = (TOPK_WGMMA_QTILE if k <= TOPK_WGMMA_K_MAX
+             else I8_WGMMA_WIDE_QTILE)
     return topk_wgmma_partition(num_q, cap, sms, qtile)
 
 

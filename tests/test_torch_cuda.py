@@ -1078,7 +1078,8 @@ def test_fused_topk_wgmma_repeated_launches_agree(dev):
 
 def test_fused_topk_wgmma_ready_edges(dev):
     """k 129 (the wide kind), a row stride off 16 bytes and a misaligned
-    view (the template) miss the tensor-core scan; all agree with the
+    view (the scan's rows by cp.async, counted as
+    "scan_topk_wgmma_cpasync") miss the scan by TMA; all agree with the
     plain version."""
     q, v, mask = _k4_case(dev, "f32", 4224, 96, 64, seed=2)
     assert scan.topk_wgmma_ready(q, v, 128)
@@ -1086,9 +1087,9 @@ def test_fused_topk_wgmma_ready_edges(dev):
     flat = torch.empty(v.numel() + 4, device=dev)
     vm = flat[1:1 + v.numel()].view(v.shape)
     vm.copy_(v)
-    assert not scan.topk_wgmma_ready(q, vm, 14)
+    assert scan.topk_wgmma_ready(q, vm, 14) and scan.rows_piece(vm) == 4
     q2, v2 = q[:, :94].contiguous(), v[:, :94].contiguous()
-    assert not scan.topk_wgmma_ready(q2, v2, 14)
+    assert scan.topk_wgmma_ready(q2, v2, 14) and scan.rows_piece(v2) == 8
     for qq, vv, k in ((q, v, 129), (q, vm, 14), (q2, v2, 14)):
         got, tc = _k4_launch(qq, vv, mask, k)
         assert tc == 0
@@ -1269,7 +1270,8 @@ def test_fused_topk_i8_wgmma_all_negative(dev, k):
 
 def test_fused_topk_i8_wgmma_ready_edges(dev):
     """k 385, a row stride off 16 bytes, a misaligned view and Q at the
-    sweep's limit leave the scan (the wide kind, the template, the sweep);
+    sweep's limit leave the scan by TMA (the wide kind, the scan's rows by
+    cp.async or the realigning producer, the sweep);
     all equal the plain version; the scan launched (uncounted) at Q = 1
     does too."""
     q8, v8, vs, mask = _i8_store(dev, 4224, 96, 64, seed=3)
@@ -1280,8 +1282,8 @@ def test_fused_topk_i8_wgmma_ready_edges(dev):
     vm = flat[1:1 + v8.numel()].view(v8.shape)
     vm.copy_(v8)
     q2, v2 = q8[:, :88].contiguous(), v8[:, :88].contiguous()
-    assert not scan.i8_wgmma_ready(q8, vm, 14)
-    assert not scan.i8_wgmma_ready(q2, v2, 14)
+    assert scan.i8_wgmma_ready(q8, vm, 14) and scan.rows_piece(vm) == 2
+    assert scan.i8_wgmma_ready(q2, v2, 14) and scan.rows_piece(v2) == 8
     assert not scan.i8_wgmma_ready(q8[:lim], v8, 14)
     assert scan.i8_wgmma_ready(q8[:lim + 1].contiguous(), v8, 14)
     for qq, vv, k in ((q8, v8, 385), (q8, vm, 14), (q2, v2, 14),
@@ -1438,9 +1440,10 @@ def test_segmax_odd_width_takes_wmma(dev, nq):
 @pytest.mark.parametrize("offset", [1, 2, 3])
 def test_template_misaligned_views(dev, offset):
     """Rows whose base is `offset` bytes off a 4-byte boundary (int8) or 2
-    bytes off (bf16) go through the template, whose word loads then read
-    element by element: the plain version's result, no misaligned-address
-    fault."""
+    bytes off (bf16), which the template served (its word loads then read
+    element by element), now go through the kinds over rows TMA cannot
+    read (the narrow sweep, the scans' realigning producer): the plain
+    version's result, no misaligned-address fault."""
     q8, v8, vs, mask = _i8_store(dev, 4224, 96, 20, seed=offset)
     flat = torch.empty(v8.numel() + 16, dtype=torch.int8, device=dev)
     vm = flat[offset:offset + v8.numel()].view(v8.shape)

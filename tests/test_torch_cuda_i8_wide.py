@@ -12,7 +12,9 @@ masked, at Q 1 / 16 / 64 / 128 and k 129 / 142 / 385 / 432 / 1024
 smaller than the batch; an all-masked plane; a plane where more than
 TOPK_WIDE_CAP rows share the best score (the ties path: rows in order);
 a mask view off a 4-byte boundary (copied); queries off a 16-byte
-boundary and dim 1000, which keep the template; the dispatch where a
+boundary and dim 1000, which the template served until the wide kind
+took every width and base (its rows by cp.async at dim 1000, the queries
+padded by the library call); the dispatch where a
 smaller slab budget cuts the wide kind's query tile (the scan at k_sel
 142 past Q = 1, the wide kind at 432); and a store on cuda:1
 while the current device is 0. Bit for bit the plain version (exact
@@ -128,17 +130,23 @@ def test_misaligned_mask_is_copied(dev):
 
 
 @pytest.mark.parametrize("case", ["misaligned queries", "dim 1000"])
-def test_other_shapes_keep_the_template(dev, case):
+def test_other_shapes_take_the_wide_kind(dev, case):
     if case == "dim 1000":
         q8, v8, vs, mask = _case(dev, 6_000, 1000, 8, seed=6)
     else:
         q8, v8, vs, mask = _case(dev, 6_000, 256, 8, seed=6)
         flat = torch.zeros(8 * 256 + 16, dtype=torch.int8, device=dev)
         q8 = flat[4:4 + 8 * 256].view(8, 256).copy_(q8)
-    assert not scan.i8_wide_ready(q8, v8, 432)
-    before = scan.LAUNCHES["scan_topk_i8_wide"]
+    assert scan.i8_wide_ready(q8, v8, 432)
+    # TMA cannot read them as they lie: the wide kind takes them, its rows
+    # by cp.async in 8-byte pieces (dim 1000), or by TMA beside the library
+    # call's padded copy of the queries
+    key = ("scan_topk_i8_wide_cpasync" if case == "dim 1000"
+           else "scan_topk_i8_wide")
+    before = dict(scan.LAUNCHES)
     got = scan.fused_topk_i8(q8, v8, vs, mask, 432)
-    assert scan.LAUNCHES["scan_topk_i8_wide"] == before
+    assert scan.LAUNCHES[key] == before[key] + 1
+    assert scan.LAUNCHES["scan_topk_i8"] == before["scan_topk_i8"] + 1
     ref = scan.scan_topk_plain(q8, v8, vs, mask, 432)
     torch.cuda.synchronize()
     _bit_for_bit(got, ref)

@@ -102,42 +102,53 @@ def test_k3_dispatch_by_i8_sweep_ready(recorded, nq, k, dim, offset):
     """K3 takes its wide kind where `i8_wide_ready` holds (asked first),
     else the sweep's row-scaled int8 kind where `i8_sweep_ready` holds,
     over `sweep_partition`'s ranges with a partial of k keys a CTA, the
-    tensor-core scan's int8 kind where `i8_wgmma_ready` holds (Q past the
-    sweep's limit), and the template (`pv_scan_topk` kind 2) otherwise;
-    "scan_topk_i8" counts all four, "scan_topk_i8_sweep" the sweep."""
+    sweep's narrow kind where `i8_narrow_ready` holds (rows TMA cannot
+    read: dim 104, a base 1 byte off, which the template (`pv_scan_topk`
+    kind 2) served before), and the tensor-core scan's int8 kind where
+    `i8_wgmma_ready` holds (Q past the sweeps' limit); the tensor-core
+    kinds read any rows, by the producer `rows_piece` names; "scan_topk_i8"
+    counts all, "scan_topk_i8_sweep" the sweep, "scan_topk_i8_narrow" the
+    narrow kind."""
     q, v = _operands(dim, nq, offset, rows=4096)
     vs = torch.ones(4096)
     mask = torch.ones(4096, dtype=torch.bool)
     sweep = tscan.i8_sweep_ready(q, v, k)
     assert sweep == (nq <= tscan.I8_SWEEP_Q_MAX and k <= 384
                      and dim % 16 == 0 and offset == 0)
+    narrow = tscan.i8_narrow_ready(q, v, k)
+    assert narrow == (nq <= tscan.I8_SWEEP_Q_MAX and k <= 384 and not sweep)
     tc = tscan.i8_wgmma_ready(q, v, k)
-    assert tc == (nq > tscan.I8_SWEEP_Q_MAX and k <= 384
-                  and dim % 16 == 0 and offset == 0)
+    assert tc == (k <= 384 and not sweep and not narrow)
     wide = tscan.i8_wide_ready(q, v, k)
-    assert wide == (k > tscan.I8_WIDE_K_MIN and dim % 16 == 0
-                    and offset == 0)  # 4096 rows: one tile holds the batch
-    before = dict(tscan.LAUNCHES)
+    assert wide == (k > tscan.I8_WIDE_K_MIN)  # 4096 rows: one tile holds
+    before = dict(tscan.LAUNCHES)            # the batch
     vals, idx = tscan.fused_topk_i8(*map(_as_cuda, (q, v, vs, mask)), k)
     assert vals.shape == idx.shape == (nq, k)
     (entry, args), = recorded
+    chunk, n = tscan.sweep_partition(4096, 132)
     if wide:
         assert entry == "pv_scan_topk_i8_wide"
-        assert args[7:11] == (nq, 4096, dim, k)
+        assert args[0] == tscan.rows_piece(v) and args[8:12] == (nq, 4096,
+                                                                 dim, k)
     elif sweep:
-        chunk, n = tscan.sweep_partition(4096, 132)
         assert entry == "pv_sweep_topk_i8"
+        assert args[7:] == (nq, 4096, dim, k, chunk)
+    elif narrow:
+        assert entry == "pv_sweep_topk_i8_narrow"
+        assert args[:2] == (q.data_ptr(), v.data_ptr())
         assert args[7:] == (nq, 4096, dim, k, chunk)
     elif tc:
         assert entry == "pv_scan_topk_i8_wgmma"
-        assert args[7:] == (nq, 4096, dim, k)
+        assert args[8:] == (nq, 4096, dim, k)
     else:
         assert entry == "pv_scan_topk" and args[0] == tscan._KIND_I8
+    assert (tscan.LAUNCHES["scan_topk_i8_narrow"]
+            == before["scan_topk_i8_narrow"] + (narrow and not wide))
     assert tscan.LAUNCHES["scan_topk_i8"] == before["scan_topk_i8"] + 1
     assert (tscan.LAUNCHES["scan_topk_i8_sweep"]
             == before["scan_topk_i8_sweep"] + (sweep and not wide))
-    assert (tscan.LAUNCHES["scan_topk_i8_wide"]
-            == before["scan_topk_i8_wide"] + wide)
+    key = "scan_topk_i8_wide" + tscan._PIECE_KEY[tscan.rows_piece(v)]
+    assert tscan.LAUNCHES[key] == before[key] + wide
     assert tscan.LAUNCH_SHAPES["scan_topk_i8"][nq, k] >= 1
 
 

@@ -215,11 +215,14 @@ def test_i8_wgmma_ready_edges():
         q, v = _operands(96, nq)
         assert tscan.i8_wgmma_ready(q, v, 14) == (nq > lim)
         assert tscan.i8_sweep_ready(q, v, 14) == (nq <= lim)
-    # rows of whole 16 bytes, both bases 16-byte aligned
-    assert not tscan.i8_wgmma_ready(*_operands(104, 64), 14)
-    assert tscan.i8_wgmma_ready(*_operands(112, 64), 14)
-    assert not tscan.i8_wgmma_ready(*_operands(96, 64, offset=8), 14)
-    assert not tscan.i8_wgmma_ready(*_operands(96, 64, qoffset=4), 14)
+    # any width and base: the rows by the producer `rows_piece` names (TMA
+    # at whole 16 bytes on a 16-byte aligned base, else cp.async), the
+    # queries padded by the library call where TMA cannot read them
+    for dim, off, qoff, piece in ((104, 0, 0, 8), (112, 0, 0, 0),
+                                  (96, 8, 0, 8), (96, 0, 4, 0)):
+        q, v = _operands(dim, 64, offset=off, qoffset=qoff)
+        assert tscan.i8_wgmma_ready(q, v, 14)
+        assert tscan.rows_piece(v) == piece
     # only the int8 kind: float queries or rows never take it here
     q, v = _operands(96, 64)
     assert not tscan.topk_wgmma_ready(q, v, 14)
@@ -256,7 +259,10 @@ def recorded(monkeypatch):
 @pytest.mark.parametrize("nq,k,dim,offset,want", [
     (17, 14, 96, 0, "scan"), (64, 142, 1024, 0, "scan"),
     (2048, 384, 96, 0, "scan"), (64, 385, 96, 0, "template"),
-    (64, 14, 104, 0, "template"), (64, 14, 96, 1, "template"),
+    # rows TMA cannot read, which the template served before: the scan over
+    # such rows (their ids name the kernel they took then)
+    pytest.param(64, 14, 104, 0, "rows", id="64-14-104-0-template"),
+    pytest.param(64, 14, 96, 1, "rows", id="64-14-96-1-template"),
     (4, 142, 96, 0, "sweep"), (5, 142, 96, 0, "scan"),
     (16, 142, 96, 0, "scan"), (64, 128, 1024, 0, "scan"),
     (2048, 128, 96, 0, "scan"), (4, 128, 96, 0, "sweep"),
@@ -270,10 +276,13 @@ def test_k3_dispatch_by_i8_wgmma_ready(recorded, monkeypatch, nq, k, dim,
     "wide" cases: 8320 rows, one tile holds the batch's 64 queries).
     Where it cannot serve (the other cases: one query's slab over the
     budget) K3 takes the sweep at Q <= I8_SWEEP_Q_MAX, the tensor-core
-    scan's int8 kind past it (`pv_scan_topk_i8_wgmma` with q, v, vscale,
-    mask, a partial of Q x ranges x k keys, vals, idx, Q, cap, dim, k),
-    the template (`pv_scan_topk` kind 2) otherwise; "scan_topk_i8" counts
-    all four, "scan_topk_i8_wgmma" the scan, LAUNCH_SHAPES by (Q, k).
+    scan's int8 kind past it (`pv_scan_topk_i8_wgmma` with the rows'
+    producer, q, v, vscale, mask, a scratch of the padded queries' room and
+    Q x ranges x k keys, vals, idx, Q, cap, dim, k), also over rows TMA
+    cannot read (dim 104: cp.async, a base 1 byte off: the realigning
+    producer), the template (`pv_scan_topk` kind 2) past k 384;
+    "scan_topk_i8" counts all, "scan_topk_i8_wgmma" the scan by TMA, its
+    "_cpasync" / "_realign" keys the others, LAUNCH_SHAPES by (Q, k).
     tests/test_torch_i8_wide.py holds the wide kind's share by tile."""
     cap = 8320
     if want != "wide":
@@ -285,7 +294,7 @@ def test_k3_dispatch_by_i8_wgmma_ready(recorded, monkeypatch, nq, k, dim,
 
     def empty(*shape, **kw):
         out = real_empty(*shape, **kw)
-        if kw.get("dtype") == torch.int64:
+        if kw.get("dtype") == torch.uint8:
             sizes.append(out.numel())
         return out
 
@@ -298,13 +307,21 @@ def test_k3_dispatch_by_i8_wgmma_ready(recorded, monkeypatch, nq, k, dim,
     assert entry == {"scan": "pv_scan_topk_i8_wgmma",
                      "wide": "pv_scan_topk_i8_wide",
                      "template": "pv_scan_topk",
+                     "rows": "pv_scan_topk_i8_wgmma",
                      "sweep": "pv_sweep_topk_i8"}[want]
-    if want == "scan":
+    if want in ("scan", "rows"):  # piece, q, v, vscale, mask, scratch, ...
+        piece = tscan.rows_piece(v)
+        assert (piece == 0) == (want == "scan")
         _, ranges = tscan.i8_wgmma_partition(nq, cap, 132, k)
-        assert args[:4] == (q.data_ptr(), v.data_ptr(), vs.data_ptr(),
+        assert args[:5] == (piece, q.data_ptr(), v.data_ptr(), vs.data_ptr(),
                             mask.data_ptr())
-        assert args[7:] == (nq, cap, dim, k)
-        assert sizes == [nq * ranges * k]
+        assert args[8:] == (nq, cap, dim, k)
+        # room for the padded queries, then Q x ranges x k keys
+        assert sizes == [tscan._up256(nq * -(-dim // 16) * 16)
+                         + nq * ranges * k * 8]
+        key = "scan_topk_i8_wgmma" + tscan._PIECE_KEY[piece]
+        assert tscan.LAUNCHES[key] == before[key] + 1
+        assert tscan.LAUNCH_SHAPES[key][nq, k] >= 1
     tc = want == "scan"
     assert tscan.LAUNCHES["scan_topk_i8"] == before["scan_topk_i8"] + 1
     assert (tscan.LAUNCHES["scan_topk_i8_wgmma"]

@@ -16,8 +16,8 @@ checked on the CPU.
   of 128, all rows masked, and more rows sharing the best score than the
   candidates' CAP holds.
 * `i8_wide_ready` at its edges (k 128 / 129 / 384 / 385 / 1024 / 1025:
-  I8_WIDE_K_MIN = 128, phase 4's crossover; dim % 16, misaligned bases,
-  the slab budget, and at 128 < k <= 384 the query tile that
+  I8_WIDE_K_MIN = 128, phase 4's crossover; any width and base, the slab
+  budget, and at 128 < k <= 384 the query tile that
   `i8_wide_covers` asks for), and K3's dispatch recorded by a stand-in
   for `scan._launch` on CPU tensors posing as CUDA ones against
   `_build._SIGNATURES`: the wide kind first, then the sweep, the
@@ -193,18 +193,19 @@ def _operands(dim, nq, offset=0, qoffset=0, rows=512):
 
 @pytest.mark.parametrize("nq", [1, 4, 5, 64, 2048])
 def test_i8_wide_ready_edges(monkeypatch, nq):
-    """I8_WIDE_K_MIN < k <= SCAN_KSEL_MAX, dim % 16 == 0, 16-byte aligned
-    bases of both, one query's slab within TOPK_WIDE_SLAB_BYTES; any Q;
-    at k <= I8_SWEEP_K_MAX only where the query tile holds min(Q, 64)."""
+    """I8_WIDE_K_MIN < k <= SCAN_KSEL_MAX, any width and base (the rows by
+    the producer `rows_piece` names), one query's slab within
+    TOPK_WIDE_SLAB_BYTES; any Q; at k <= I8_SWEEP_K_MAX only where the
+    query tile holds min(Q, 64) (over rows TMA reads)."""
     q, v = _operands(96, nq)
     for k in (128, 129, 384, 385, 1024, 1025):
         assert tscan.i8_wide_ready(q, v, k) == (
             tscan.I8_WIDE_K_MIN < k <= tscan.SCAN_KSEL_MAX), k
     assert tscan.I8_WIDE_K_MIN == 128  # phase 4's measured crossover
-    for dim, ok in ((16, True), (112, True), (104, False), (100, False)):
-        assert tscan.i8_wide_ready(*_operands(dim, nq), 432) == ok, dim
-    assert not tscan.i8_wide_ready(*_operands(96, nq, offset=8), 432)
-    assert not tscan.i8_wide_ready(*_operands(96, nq, qoffset=4), 432)
+    for dim in (16, 112, 104, 100):
+        assert tscan.i8_wide_ready(*_operands(dim, nq), 432), dim
+    assert tscan.i8_wide_ready(*_operands(96, nq, offset=8), 432)
+    assert tscan.i8_wide_ready(*_operands(96, nq, qoffset=4), 432)
     q, v = _operands(96, nq, rows=300)  # ld 384 rows
     monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4 * 384)
     assert tscan.i8_wide_ready(q, v, 432)
@@ -264,15 +265,23 @@ def test_k3_dispatch_by_wide_tile(recorded, monkeypatch, nq, k, slabs,
                      "scan": "pv_scan_topk_i8_wgmma",
                      "wide": "pv_scan_topk_i8_wide",
                      "template": "pv_scan_topk"}[kernel]
-    if kernel == "wide":
+    if kernel == "wide":  # piece, q, v, vscale, mask, scratch, ...
         q_tile = tscan.topk_wide_tile(nq, cap)
-        assert args[7:] == (nq, cap, dim, k, q_tile,
-                            tscan.i4_wide_scratch(cap, q_tile))
+        assert args[0] == tscan.rows_piece(v) == 0
+        assert args[8:] == (nq, cap, dim, k, q_tile, _wide_scratch(
+            nq, cap, dim, q_tile))
         assert q_tile >= min(nq, 64) or k > tscan.I8_SWEEP_K_MAX
     for key, name in (("sweep", "scan_topk_i8_sweep"),
                       ("scan", "scan_topk_i8_wgmma"),
                       ("wide", "scan_topk_i8_wide")):
         assert tscan.LAUNCHES[name] == before[name] + (kernel == key), name
+
+
+def _wide_scratch(nq, cap, dim, q_tile):
+    """The wide kind's scratch: a tile of the select, then room for the
+    queries' rows padded to whole 16 bytes."""
+    return (tscan._up256(tscan.i4_wide_scratch(cap, q_tile))
+            + nq * -(-dim // 16) * 16)
 
 
 class _AsCuda(torch.Tensor):
@@ -309,8 +318,16 @@ DISPATCH = [(1, 96, 128, 0, "sweep"), (64, 96, 128, 0, "scan"),
             (1, 96, 129, 0, "wide"), (1, 1024, 142, 0, "wide"),
             (64, 1024, 142, 0, "wide"), (4, 96, 384, 0, "wide"),
             (17, 96, 432, 0, "wide"), (64, 1024, 432, 0, "wide"),
-            (128, 96, 1024, 0, "wide"), (64, 104, 432, 0, "template"),
-            (64, 96, 142, 8, "template"), (1, 100, 1024, 0, "template")]
+            (128, 96, 1024, 0, "wide"),
+            # rows TMA cannot read, which the template served before: the
+            # wide kind, its rows by cp.async or the realigning producer
+            # (their ids name the kernel then)
+            pytest.param(64, 104, 432, 0, "wide",
+                         id="64-104-432-0-template"),
+            pytest.param(64, 96, 142, 8, "wide",
+                         id="64-96-142-8-template"),
+            pytest.param(1, 100, 1024, 0, "wide",
+                         id="1-100-1024-0-template")]
 
 
 @pytest.mark.parametrize("nq,dim,k,offset,kernel", DISPATCH)
@@ -327,16 +344,19 @@ def test_k3_dispatch_with_the_wide_kind(recorded, nq, dim, k, offset, kernel):
                      "scan": "pv_scan_topk_i8_wgmma",
                      "wide": "pv_scan_topk_i8_wide",
                      "template": "pv_scan_topk"}[kernel]
-    if kernel == "wide":
+    piece = tscan.rows_piece(v)
+    if kernel == "wide":  # piece, q, v, vscale, mask, scratch, ...
         q_tile = tscan.topk_wide_tile(nq, cap)
-        assert args[:4] == (q.data_ptr(), v.data_ptr(), vs.data_ptr(),
+        assert args[:5] == (piece, q.data_ptr(), v.data_ptr(), vs.data_ptr(),
                             mask.data_ptr())
-        assert args[7:] == (nq, cap, dim, k, q_tile,
-                            tscan.i4_wide_scratch(cap, q_tile))
+        assert args[8:] == (nq, cap, dim, k, q_tile, _wide_scratch(
+            nq, cap, dim, q_tile))
     assert tscan.LAUNCHES["scan_topk_i8"] == before["scan_topk_i8"] + 1
     for key, name in (("sweep", "scan_topk_i8_sweep"),
                       ("scan", "scan_topk_i8_wgmma"),
                       ("wide", "scan_topk_i8_wide")):
+        if key != "sweep":
+            name += tscan._PIECE_KEY[piece]
         assert tscan.LAUNCHES[name] == before[name] + (kernel == key), name
     assert tscan.LAUNCH_SHAPES["scan_topk_i8"][nq, k] >= 1
 
@@ -347,8 +367,8 @@ def test_wide_copies_a_misaligned_mask(recorded):
     mask = torch.ones(516, dtype=torch.bool)[1:513]
     tscan.fused_topk_i8(*map(_as_cuda, (q, v, torch.ones(512), mask)), 432)
     (entry, args), = recorded
-    assert entry == "pv_scan_topk_i8_wide" and args[3] % 4 == 0
-    assert args[3] != mask.data_ptr()
+    assert entry == "pv_scan_topk_i8_wide" and args[4] % 4 == 0
+    assert args[4] != mask.data_ptr()
 
 
 def test_counter_stays_zero_on_the_cpu():

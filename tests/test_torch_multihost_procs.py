@@ -28,7 +28,7 @@ import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu.parallel import make_mesh as jax_mesh
 from picovdb_tpu_torch.constants import ROW_PAD
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import cap_torch_threads, capped_env
 
 cap_torch_threads()
 
@@ -69,7 +69,7 @@ def _store(base, mode):
 
 def _run_workers(base, mode, kernels, out):
     port = _free_port()
-    env = dict(os.environ)
+    env = capped_env()
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     procs = [
         subprocess.Popen(

@@ -21,7 +21,7 @@ import pytest
 import picovdb_tpu
 import picovdb_tpu_torch
 from picovdb_tpu_torch.device import DeviceIndex
-from torch_port_setup import cap_torch_threads, cpu_kw
+from torch_port_setup import cap_torch_threads, capped_env, cpu_kw
 
 cap_torch_threads()
 
@@ -85,7 +85,7 @@ def test_import_adds_no_jax_module():
         "'transformers', 'sentence_transformers'))\n"
         "print(','.join(bad))\n"
     )
-    env = dict(os.environ)
+    env = capped_env()
     root = str(PKG.parent)
     env["PYTHONPATH"] = os.pathsep.join(
         [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])

@@ -43,7 +43,7 @@ from picovdb_tpu.models import bert_encoder as jax_bert
 from picovdb_tpu.ops.pallas_scan import _tie_margin
 from picovdb_tpu_torch.models import BertConfig, BertMeanPoolEncoder
 from picovdb_tpu_torch.tools import rag_demo
-from torch_port_setup import cap_torch_threads, record_host_copies
+from torch_port_setup import cap_torch_threads, capped_env, record_host_copies
 
 cap_torch_threads()
 
@@ -177,7 +177,7 @@ def test_device_pipeline_matches_jax(tmp_path, monkeypatch, embedded,
 
 def test_rag_demo_matches_jax_demo(tmp_path, monkeypatch):
     flags = ["--device-pipeline", "--embedder", "bert-random"]
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = capped_env(JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])

@@ -33,7 +33,7 @@ from picovdb_tpu_torch.tools import (
     query_profiler,
     upserts,
 )
-from torch_port_setup import cap_torch_threads
+from torch_port_setup import cap_torch_threads, capped_env
 
 cap_torch_threads()
 
@@ -241,7 +241,7 @@ def test_jax_script_prints_the_same_line_shape(name, tmp_path):
     """The regexes above are picovdb_tpu's scripts' line shapes: run each
     script (a subprocess, JAX on the CPU) at a small size."""
     _, argv, patterns = SIMPLE[name]
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = capped_env(JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, str(BENCH / f"{name}.py")] + argv,
                          capture_output=True, text=True, cwd=tmp_path,
                          env=env, timeout=240, check=True).stdout
@@ -279,7 +279,7 @@ def test_tools_import_no_jax():
         "('jax', 'jaxlib', 'ml_dtypes', 'picovdb_tpu', 'flax'))\n"
         "print(','.join(bad))\n"
     )
-    env = dict(os.environ)
+    env = capped_env()
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])

@@ -234,16 +234,20 @@ def _rows(dtype, cap, dim, offset=0):
 @pytest.mark.parametrize("dtype,words,ragged,offset", [
     (torch.float32, 96, 98, 1), (torch.bfloat16, 96, 100, 2)])
 def test_topk_wgmma_ready_edges(monkeypatch, dtype, words, ragged, offset):
-    """float32 / bf16 rows of whole 16 bytes (dim % 4 / % 8) at a 16-byte
-    aligned base, k <= 128, Q >= TOPK_WGMMA_Q_MIN; float32 queries."""
+    """float32 / bf16 rows at any width and base (TMA at whole 16 bytes,
+    dim % 4 / % 8, on a 16-byte aligned base; else cp.async: `rows_piece`),
+    k <= 128, Q >= TOPK_WGMMA_Q_MIN; float32 queries."""
     q = torch.zeros(64, words)
     v = _rows(dtype, 4 * SEG, words)
     assert tscan.topk_wgmma_ready(q, v, 128)
     assert not tscan.topk_wgmma_ready(q, v, 129)
-    assert not tscan.topk_wgmma_ready(torch.zeros(64, ragged),
-                                      _rows(dtype, 4 * SEG, ragged), 14)
-    assert not tscan.topk_wgmma_ready(q, _rows(dtype, 4 * SEG, words, offset),
-                                      14)
+    assert tscan.rows_piece(v) == 0
+    ragged_rows = _rows(dtype, 4 * SEG, ragged)
+    assert tscan.topk_wgmma_ready(torch.zeros(64, ragged), ragged_rows, 14)
+    assert tscan.rows_piece(ragged_rows) == 8
+    off_rows = _rows(dtype, 4 * SEG, words, offset)
+    assert tscan.topk_wgmma_ready(q, off_rows, 14)
+    assert tscan.rows_piece(off_rows) == 4
     assert not tscan.topk_wgmma_ready(q.to(torch.bfloat16), v, 14)
     assert not tscan.topk_wgmma_ready(q, _rows(torch.int8, 4 * SEG, words), 14)
     # a misaligned query view is fine: the launcher splits it into planes
@@ -257,35 +261,46 @@ def test_topk_wgmma_ready_edges(monkeypatch, dtype, words, ragged, offset):
 @pytest.mark.parametrize("dtype,dim,k,nq,tc", [
     (torch.float32, 96, 14, 64, True), (torch.bfloat16, 1024, 36, 65, True),
     (torch.float32, 96, 128, 1, True), (torch.float32, 96, 129, 64, False),
-    (torch.float32, 98, 14, 64, False), (torch.bfloat16, 100, 14, 64, False)])
+    # rows TMA cannot read, which the template served before: the scan,
+    # its rows by cp.async (their ids name the rule's answer then)
+    pytest.param(torch.float32, 98, 14, 64, True,
+                 id="dtype4-98-14-64-False"),
+    pytest.param(torch.bfloat16, 100, 14, 64, True,
+                 id="dtype5-100-14-64-False")])
 def test_k4_dispatch_by_topk_wgmma_ready(recorded, dtype, dim, k, nq, tc):
     """K4 takes the tensor-core scan where `topk_wgmma_ready` holds (the
-    query planes: hi and lo for float32 rows, three bf16 for bf16 rows),
-    the wide kind where `topk_wide_ready` does (k 129), the template
-    otherwise; "scan_topk" counts all, "scan_topk_wgmma" the scan,
-    "scan_topk_wide" the wide kind, LAUNCH_SHAPES splits them by (Q, k)."""
+    rows' producer `rows_piece`, the query planes: hi and lo for float32
+    rows, three bf16 for bf16 rows, padded to whole 16 bytes), at any
+    width (dim 98 float32 rows by cp.async in 8-byte pieces, dim 100 bf16
+    rows in 8-byte pieces: the template served them before), and the wide
+    kind where `topk_wide_ready` does (k 129); "scan_topk" counts all,
+    "scan_topk_wgmma" the scan by TMA, "scan_topk_wgmma_cpasync" the scan
+    fed by cp.async, "scan_topk_wide" the wide kind, LAUNCH_SHAPES splits
+    them by (Q, k)."""
     cap = 4 * SEG + 64
     q = torch.randn(nq, dim)
     v = torch.zeros(cap, dim, dtype=dtype)
     mask = torch.ones(cap, dtype=torch.bool)
     assert tscan.topk_wgmma_ready(q, v, k) == tc
+    assert tscan.topk_wide_ready(q, v, k) != tc
+    piece = tscan.rows_piece(v)
+    assert piece == (0 if dim in (96, 1024) else 8)
     before = dict(tscan.LAUNCHES)
     vals, idx = tscan.fused_topk(*map(_as_cuda, (q, v, mask)), k)
     assert vals.shape == idx.shape == (nq, k)
     (entry, args), = recorded
+    kind = 0 if dtype == torch.float32 else 1
+    # piece, kind, planes, v, mask, ..., Q, cap, dim, k
+    assert args[:2] == (piece, kind)
     if tc:
         assert entry == "pv_scan_topk_wgmma"
-        kind = 0 if dtype == torch.float32 else 1
-        assert args[0] == kind
-        assert args[7:] == (nq, cap, dim, k)
+        assert args[8:] == (nq, cap, dim, k)
     else:
-        wide = tscan.topk_wide_ready(q, v, k)
-        assert entry == ("pv_scan_topk_wide" if wide else "pv_scan_topk")
-        assert args[0] == (0 if dtype == torch.float32 else 1)
-        assert tscan.LAUNCHES["scan_topk_wide"] == (
-            before["scan_topk_wide"] + wide)
+        assert entry == "pv_scan_topk_wide"
+    suffix = tscan._PIECE_KEY[piece]
+    for name, took in (("scan_topk_wgmma", tc), ("scan_topk_wide", not tc)):
+        assert tscan.LAUNCHES[name + suffix] == before[name + suffix] + took
     assert tscan.LAUNCHES["scan_topk"] == before["scan_topk"] + 1
-    assert tscan.LAUNCHES["scan_topk_wgmma"] == before["scan_topk_wgmma"] + tc
     assert tscan.LAUNCH_SHAPES["scan_topk"][nq, k] >= 1
 
 

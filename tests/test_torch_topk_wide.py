@@ -296,19 +296,21 @@ def _rows(dtype, cap, dim, offset=0):
 @pytest.mark.parametrize("dtype,words,ragged,offset", [
     (torch.float32, 96, 98, 1), (torch.bfloat16, 96, 100, 2)])
 def test_topk_wide_ready_edges(dtype, words, ragged, offset):
-    """float32 / bf16 rows of whole 16 bytes at a 16-byte aligned base,
-    float32 queries, 128 < k <= SCAN_KSEL_MAX, one query's slab within
-    the budget."""
+    """float32 / bf16 rows at any width and base (the rows by the
+    producer `rows_piece` names), float32 queries, 128 < k <=
+    SCAN_KSEL_MAX, one query's slab within the budget."""
     q = torch.zeros(64, words)
     v = _rows(dtype, 4 * SEG, words)
     assert not tscan.topk_wide_ready(q, v, 128)
     assert tscan.topk_wide_ready(q, v, 129)
     assert tscan.topk_wide_ready(q, v, tscan.SCAN_KSEL_MAX)
     assert not tscan.topk_wide_ready(q, v, tscan.SCAN_KSEL_MAX + 1)
-    assert not tscan.topk_wide_ready(torch.zeros(64, ragged),
-                                     _rows(dtype, 4 * SEG, ragged), 200)
-    assert not tscan.topk_wide_ready(q, _rows(dtype, 4 * SEG, words, offset),
-                                     200)
+    ragged_rows = _rows(dtype, 4 * SEG, ragged)
+    assert tscan.topk_wide_ready(torch.zeros(64, ragged), ragged_rows, 200)
+    assert tscan.rows_piece(ragged_rows) == 8
+    off_rows = _rows(dtype, 4 * SEG, words, offset)
+    assert tscan.topk_wide_ready(q, off_rows, 200)
+    assert tscan.rows_piece(off_rows) == 4
     assert not tscan.topk_wide_ready(q.to(torch.bfloat16), v, 200)
     assert not tscan.topk_wide_ready(q, _rows(torch.int8, 4 * SEG, words), 200)
 
@@ -327,15 +329,24 @@ def test_topk_wide_ready_slab_budget(monkeypatch):
     (torch.bfloat16, 1024, 204, 0, "pv_scan_topk_wide"),
     (torch.float32, 96, 1024, 0, "pv_scan_topk_wide"),
     (torch.bfloat16, 96, 1024, 0, "pv_scan_topk_wide"),
-    (torch.float32, 98, 200, 0, "pv_scan_topk"),
-    (torch.bfloat16, 100, 1024, 0, "pv_scan_topk"),
-    (torch.float32, 96, 516, 1, "pv_scan_topk"),
-    (torch.bfloat16, 96, 204, 2, "pv_scan_topk")])
+    # rows TMA cannot read, which the template served before: the wide
+    # kind, its rows by cp.async (their ids name the entry they took then)
+    pytest.param(torch.float32, 98, 200, 0, "pv_scan_topk_wide",
+                 id="dtype5-98-200-0-pv_scan_topk"),
+    pytest.param(torch.bfloat16, 100, 1024, 0, "pv_scan_topk_wide",
+                 id="dtype6-100-1024-0-pv_scan_topk"),
+    pytest.param(torch.float32, 96, 516, 1, "pv_scan_topk_wide",
+                 id="dtype7-96-516-1-pv_scan_topk"),
+    pytest.param(torch.bfloat16, 96, 204, 2, "pv_scan_topk_wide",
+                 id="dtype8-96-204-2-pv_scan_topk")])
 def test_k4_dispatch_by_k(recorded, dtype, dim, k, offset, entry):
     """Which entry K4 takes, what it passes, and what it counts:
-    "scan_topk" every launch, "scan_topk_wide" the wide kind's, with the
-    float32 queries, the query tile and the scratch's bytes; rows whose
-    base is off 16 bytes take the template."""
+    "scan_topk" every launch, "scan_topk_wide" the wide kind's by TMA, with
+    the rows' producer (`rows_piece`), the float32 queries, the query tile
+    and the scratch's bytes (the planes at their width padded to whole 16
+    bytes); rows TMA cannot read (a width off whole 16 bytes, a base off
+    16 bytes) are counted by their producer's key
+    ("scan_topk_wide_cpasync" / "_realign")."""
     cap = 4 * SEG + 64
     nq = 70
     q = torch.randn(nq, dim)
@@ -347,16 +358,20 @@ def test_k4_dispatch_by_k(recorded, dtype, dim, k, offset, entry):
     (got, args), = recorded
     assert got == entry
     wide = entry == "pv_scan_topk_wide"
+    piece = tscan.rows_piece(v)
+    suffix = tscan._PIECE_KEY[piece]
     assert tscan.LAUNCHES["scan_topk"] == before["scan_topk"] + 1
-    assert tscan.LAUNCHES["scan_topk_wide"] == before["scan_topk_wide"] + wide
-    assert tscan.LAUNCHES["scan_topk_wgmma"] == (
-        before["scan_topk_wgmma"] + (entry == "pv_scan_topk_wgmma"))
+    for name, took in (("scan_topk_wide", wide),
+                       ("scan_topk_wgmma", entry == "pv_scan_topk_wgmma")):
+        assert tscan.LAUNCHES[name + suffix] == before[name + suffix] + took
     assert tscan.LAUNCH_SHAPES["scan_topk"][nq, k] >= 1
+    kind = 0 if dtype == torch.float32 else 1
+    assert args[:2] == (piece, kind)
     if wide:
-        kind = 0 if dtype == torch.float32 else 1
-        assert args[0] == kind
-        assert args[7:] == (nq, cap, dim, k, nq, tscan.topk_wide_scratch(
-            nq, cap, dim, kind, nq))
+        per = 4 if kind == 0 else 8  # plane elements of 16 bytes
+        qld = -(-dim // per) * per
+        assert args[8:] == (nq, cap, dim, k, nq, tscan.topk_wide_scratch(
+            nq, cap, qld, kind, nq))
 
 
 def test_k4_past_ksel_max_takes_the_plain_scan(recorded):
@@ -391,10 +406,10 @@ def test_wide_launch_scratch_and_aligned_mask(recorded, monkeypatch):
     assert mask.data_ptr() % 4
     tscan.fused_topk(*map(_as_cuda, (q, v, mask)), 300)
     (_, args), = recorded
-    assert args[3] % 4 == 0 and args[3] != mask.data_ptr()
-    q_tile, nbytes = args[11], args[12]
+    assert args[4] % 4 == 0 and args[4] != mask.data_ptr()
+    q_tile, nbytes = args[12], args[13]
     assert q_tile == tscan.topk_wide_tile(nq, cap) == 16
-    scratch, = (t for t in seen if t.data_ptr() == args[4])
+    scratch, = (t for t in seen if t.data_ptr() == args[5])
     assert scratch.dtype == torch.uint8 and scratch.numel() == nbytes
     planes = nq * dim * 8  # hi and lo, float32
     assert nbytes == (-(-planes // 256) * 256 + 16 * 1024 * 4

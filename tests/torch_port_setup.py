@@ -13,6 +13,7 @@ another device, and raise where there is none; the CPU tests name it
 (`device="cpu"`, or `cpu_kw(pkg)` where one loop builds both packages).
 """
 
+import os
 import types
 
 import numpy as np
@@ -23,6 +24,23 @@ TORCH_THREADS = 2  # per worker process: leaves the JAX rendezvous room
 
 def cap_torch_threads() -> None:
     torch.set_num_threads(TORCH_THREADS)
+
+
+def capped_env(**extra) -> dict:
+    """os.environ (with `extra`) for a Python subprocess a port test starts,
+    its thread pools capped as `cap_torch_threads` caps the worker's:
+    OpenMP and MKL (torch's intra-op pool, numpy's BLAS) to TORCH_THREADS,
+    and XLA's CPU client to one thread a computation
+    (`--xla_cpu_multi_thread_eigen=false`). An uncapped child spins a
+    thread per core beside the workers, and can starve the JAX sharded
+    tests' 40 s device rendezvous as an uncapped worker did."""
+    env = dict(os.environ, **extra)
+    env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = str(TORCH_THREADS)
+    flags = env.get("XLA_FLAGS", "")
+    if "xla_cpu_multi_thread_eigen" not in flags:
+        env["XLA_FLAGS"] = (flags + " --xla_cpu_multi_thread_eigen=false"
+                            ).strip()
+    return env
 
 
 def cpu_kw(pkg) -> dict:
