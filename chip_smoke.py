@@ -18,7 +18,12 @@ bfloat16 store (phase 6), the IVF tier's classic layout over a clustered
 band of quantized IVF stores (phase 7b, its own generator: a clustered
 2M x 1024 mixture uploaded from the host into an int8, then an int4
 store with index="ivf", every K7 launch at k_sel 160 / 544 on K7's wide
-kind, csrc/ivf_scan_wide.cu), its int8-only
+kind, csrc/ivf_scan_wide.cu), IVF stores at ann-benchmarks' widths
+(phase 7c, its own generator: 1,183,514 clustered rows at dims 25 and
+100 in float32, bf16 and int8 storage, whose postings TMA cannot read:
+K7's narrow sweep, tensor-core scan and wide kind and K8's segment scan
+fed by cp.async or the realigning producer, no launch of K7's template or
+K8's first kernel; `--ivf-ann` runs it alone after the build), its int8-only
 layout over a device-born, clustered 8M x 1024 int4 store and a sidecar
 round trip (phase 8), the opt-in selection tiers A/B over one 1M x 1024
 float32 corpus (phase 9: defaults, PICOVDB_SEGMAX_I8, the column-scaled
@@ -342,6 +347,34 @@ KERNELS = {
     "fused_topk_wide_realign": ("scan_topk_wide_realign",
                                 "picovdb_tpu_torch/csrc/topk_wide.cu",
                                 "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
+    # K7's and K8's kinds over IVF postings TMA cannot read: phase 7c's
+    # stores at ann-benchmarks' widths drive them through the public API
+    # (the narrow sweep at Q = 1 on the float stores; the tensor-core scan
+    # at top_k 64, the wide kind at top_k 200 and the int8 stores' host
+    # rescore, K8 on the float stores' 32-query chunks: cp.async on the
+    # float32 dim-25 and bf16 dim-100 stores, the realigning producer on
+    # the bf16 dim-25 one)
+    "ivf_scan_topk_narrow": ("ivf_scan_topk_narrow",
+                             "picovdb_tpu_torch/csrc/sweep_topk.cu",
+                             "picovdb_tpu/ops/ivf.py:1237", "7c"),
+    "ivf_scan_topk_wgmma_cpasync": ("ivf_scan_topk_wgmma_cpasync",
+                                    "picovdb_tpu_torch/csrc/ivf_scan_wgmma.cu",
+                                    "picovdb_tpu/ops/ivf.py:1237", "7c"),
+    "ivf_scan_topk_wgmma_realign": ("ivf_scan_topk_wgmma_realign",
+                                    "picovdb_tpu_torch/csrc/ivf_scan_wgmma.cu",
+                                    "picovdb_tpu/ops/ivf.py:1237", "7c"),
+    "ivf_scan_topk_wide_cpasync": ("ivf_scan_topk_wide_cpasync",
+                                   "picovdb_tpu_torch/csrc/ivf_scan_wide.cu",
+                                   "picovdb_tpu/ops/ivf.py:1237", "7c"),
+    "ivf_scan_topk_wide_realign": ("ivf_scan_topk_wide_realign",
+                                   "picovdb_tpu_torch/csrc/ivf_scan_wide.cu",
+                                   "picovdb_tpu/ops/ivf.py:1237", "7c"),
+    "ivf_segmax_scan_cpasync": ("ivf_segmax_wgmma_cpasync",
+                                "picovdb_tpu_torch/csrc/ivf_segmax_wgmma.cu",
+                                "picovdb_tpu/ops/ivf.py:1492", "7c"),
+    "ivf_segmax_scan_realign": ("ivf_segmax_wgmma_realign",
+                                "picovdb_tpu_torch/csrc/ivf_segmax_wgmma.cu",
+                                "picovdb_tpu/ops/ivf.py:1492", "7c"),
 }
 # Every K4 / K3 kind's launch key: a path's template launches are its
 # "scan_topk" / "scan_topk_i8" launches less these
@@ -1921,8 +1954,8 @@ def phase_ivf_kernels(torch, scan, device, cap: int, dim: int, rng, rec):
             errs[kind] = max(errs.get(kind, 0.0), err)
 
             def first_kernel():  # the kernel the segment scan replaced
-                return ivf._ivf_segmax_launch(qs, vv, mask, hot, n_hot,
-                                              per_seg, bn, False)
+                return ivf._ivf_segmax_first_launch(qs, vv, mask, hot,
+                                                    n_hot, per_seg, bn)
 
             check_k8_keys(torch, scan, first_kernel(), ref, kind == "i8c",
                           f"K8's first kernel {kind} per_seg={per_seg}")
@@ -2496,7 +2529,8 @@ def narrow_rec(rec, name: str, label: str, record: dict) -> None:
     shapes = dict(old.get("shapes", {}))
     shapes[label] = {k: record[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
-                                            "library_ms", "template_ms")}
+                                            "library_ms", "template_ms",
+                                            "tma_ms") if k in record}
     rec[name] = {**record, "max_abs_err": max(record["max_abs_err"],
                                               old.get("max_abs_err", 0.0)),
                  "shapes": shapes}
@@ -2911,6 +2945,58 @@ def narrow_cross(torch, scan, device) -> str:
     return "; ".join(parts)
 
 
+def narrow_ab(torch, scan, device) -> str:
+    """K3's and K4's kinds over rows TMA cannot read at phase 3c's shapes,
+    on planes made on the card (ANN_N rows at dims 100 and 25: bf16 for
+    K4, int8 with row scales for K3; every row live, and a 3,000-row
+    filter): the scan at Q = 64, k_sel 36 and 14 filtered, the wide kind
+    at k_sel 204 (K4); the narrow sweep at Q = 1, the scan at Q = 16,
+    k_sel 14, the wide kind at Q = 1 and 64, k_sel 142 (K3). Each through
+    its launcher, timed (CUDA events, median of 10): `--narrow-ab` prints
+    the line, and a copy of this script run in another checkout times
+    that tree's kernels on the same shapes."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+    parts = []
+    for dim in ANN_DIMS:
+        v = normalize_on_device(torch.randn(ANN_N, dim, generator=g,
+                                            device=device))
+        vb = v.to(torch.bfloat16)
+        v8, vs = scan.quantize_rows_i8(v)
+        del v
+        act = torch.ones(ANN_N, dtype=torch.bool, device=device)
+        filt = torch.zeros_like(act)
+        filt[torch.randperm(ANN_N, generator=g, device=device)[:3000]] = True
+        q = normalize_on_device(torch.randn(64, dim, generator=g,
+                                            device=device))
+        q8, _ = scan.quantize_rows_i8(q)
+        runs = {
+            "K4 scan Q=64 k_sel=36": lambda: scan._topk_wgmma_launch(
+                q, vb, act, 36),
+            "K4 scan Q=64 k_sel=14 filtered": lambda: scan._topk_wgmma_launch(
+                q, vb, filt, 14),
+            "K4 wide Q=64 k_sel=204": lambda: scan._topk_wide_launch(
+                q, vb, act, 204),
+            "K3 narrow sweep Q=1 k_sel=14": lambda: scan._sweep_launch(
+                q8[:1], v8, vs, act, 14, "scan_topk_i8",
+                "pv_sweep_topk_i8_narrow"),
+            "K3 scan Q=16 k_sel=14": lambda: scan._i8_wgmma_launch(
+                q8[:16].contiguous(), v8, vs, act, 14),
+            "K3 wide Q=1 k_sel=142": lambda: scan._i8_wide_launch(
+                q8[:1], v8, vs, act, 142),
+            "K3 wide Q=64 k_sel=142": lambda: scan._i8_wide_launch(
+                q8, v8, vs, act, 142)}
+        piece = {"K4": scan.rows_piece(vb), "K3": scan.rows_piece(v8)}
+        parts.append(f"dim {dim} (K4 piece {piece['K4']}, K3 piece "
+                     f"{piece['K3']}): " + ", ".join(
+                         f"{name} {cuda_ms(torch, run):.4f}"
+                         for name, run in runs.items()) + " ms")
+        del vb, v8, vs, act, filt
+        torch.cuda.empty_cache()
+    return "; ".join(parts)
+
+
 def recall_at_10(got_ids, truth, prefix: str) -> float:
     """Mean overlap of returned ids ("<prefix><row>") with oracle rows."""
     return float(np.mean([
@@ -3314,7 +3400,7 @@ def store_probe(db, qn):
     from picovdb_tpu_torch.ops import ivf as tivf
 
     x = db._ivf
-    npb = tivf.ef_to_nprobe(db._ef_search, x.nlist)
+    npb = db._ivf_nprobe or tivf.ef_to_nprobe(db._ef_search, x.nlist)
     return tivf._probe_preamble(
         qn, x.centroids, x.active, x.seg_starts, x.cluster2tile, nprobe=npb,
         nlist=x.nlist, g_tiles=x.g_tiles(qn.shape[0], npb),
@@ -3399,7 +3485,7 @@ def ivf_kernels_on_store(torch, scan, db, qn, rec) -> str:
     ref = tivf.ivf_segmax_scan_plain(q32, vs, m8, h8, n8, depth)
 
     def first_kernel():  # the kernel the segment scan replaced, uncounted
-        return tivf._ivf_segmax_launch(q32, vs, m8, h8, n8, depth, bn, False)
+        return tivf._ivf_segmax_first_launch(q32, vs, m8, h8, n8, depth, bn)
 
     old = first_kernel()
     torch.cuda.synchronize()
@@ -3486,12 +3572,12 @@ def trace_call(torch, fn, reps: int = 5):
 def chunk_ab(torch, db, q32) -> str:
     """One 32-query chunk of the IVF store `db` (`query_columnar`, the
     segmax route) traced by `trace_call`, K8 on the tensor-core segment
-    scan against K8 on its first kernel (`ivf_segmax_ready` made false:
-    the route as it ran before the segment scan), alternated twice in one
-    process. Run after the path's count."""
+    scan against K8 on its first kernel (`_ivf_segmax_launch` swapped for
+    `_ivf_segmax_first_launch`: the route as it ran before the segment
+    scan), alternated twice in one process. Run after the path's count."""
     from picovdb_tpu_torch.ops import ivf as tivf
 
-    ready = tivf.ivf_segmax_ready
+    scan_launch = tivf._ivf_segmax_launch
 
     def chunk():
         return db.query_columnar(q32, top_k=10, batch_size=32)
@@ -3500,11 +3586,12 @@ def chunk_ab(torch, db, q32) -> str:
     try:
         for _ in range(2):
             for what in out:
-                tivf.ivf_segmax_ready = (ready if what == "segment scan"
-                                         else lambda q, p: False)
+                tivf._ivf_segmax_launch = (
+                    scan_launch if what == "segment scan"
+                    else tivf._ivf_segmax_first_launch)
                 out[what].append(trace_call(torch, chunk, reps))
     finally:
-        tivf.ivf_segmax_ready = ready
+        tivf._ivf_segmax_launch = scan_launch
     parts = []
     for what, runs in out.items():
         text = []
@@ -3548,11 +3635,17 @@ def oracle_masked(torch, chunks, queries, masks, k: int = 11):
 def ids_off_oracle(got_ids, prefix: str, ov, oi, k: int = 10) -> int:
     """Queries whose returned id set differs from the oracle's although
     the oracle's k-th/(k+1)-th gap exceeds TOL_GAP."""
-    bad = 0
+    return len(ids_off_rows(got_ids, prefix, ov, oi, k))
+
+
+def ids_off_rows(got_ids, prefix: str, ov, oi, k: int = 10) -> list:
+    """`ids_off_oracle`'s queries, as their indices."""
+    bad = []
     for i in range(ov.shape[0]):
         if ov[i, k - 1] - ov[i, k] > TOL_GAP:
             got = {int(x[len(prefix):]) for x in got_ids[i] if x is not None}
-            bad += got != set(oi[i, :k].tolist())
+            if got != set(oi[i, :k].tolist()):
+                bad.append(i)
     return bad
 
 
@@ -3824,6 +3917,483 @@ def phase_ivf_host(torch, scan, device, n: int, dim: int, card: str):
         f"mixture ({time.perf_counter() - t_phase:.1f} s): " + " | ".join(lines)
         + f"; launches {counts}; card {card}")
     return counts
+
+
+# Phase 7c: IVF stores at ann-benchmarks' widths (glove-25 / glove-100's
+# shapes, 1,183,514 rows; the rows are a seeded clustered mixture, not
+# GloVe's), whose postings TMA cannot read: (storage, dim) in build order,
+# its own generator SEED_7C
+SEED_7C = SEED + 73
+IVF_ANN_STORES = ((25, ("float32", "bfloat16", "int8")),
+                  (100, ("bfloat16", "int8")))
+# recall@10 of phase 7c's float stores against the float64 oracle over the
+# float32 rows uploaded: 0.95 (PERF.md §2), but the bf16 store at dim 25.
+# Its rows, rounded to 8 significant bits, move a query's scores by about
+# 1e-4, as much as the gaps among its ten nearest rows in this mixture, so
+# the store ranks its own rows (recall 1.0 against them) and misses about
+# one neighbour in nine of the float32 rows' (0.8859, PERF.md §6)
+IVF_ANN_RECALL = {("float32", 25): 0.95, ("bfloat16", 100): 0.95,
+                  ("bfloat16", 25): 0.85}
+# K7 over float32 rows past dim 1024 (the 16-byte sweep's query block
+# refuses Q 9-16 there): synthetic postings of this width on the card
+K7_CROSS_DIM = 1536
+K7_CROSS_SHAPES = (1, 4, 8, 9, 16)
+K7_KIND_KEYS = ("ivf_scan_topk_sweep", "ivf_scan_topk_narrow",
+                "ivf_scan_topk_wgmma", "ivf_scan_topk_wgmma_cpasync",
+                "ivf_scan_topk_wgmma_realign", "ivf_scan_topk_wide",
+                "ivf_scan_topk_wide_cpasync", "ivf_scan_topk_wide_realign")
+K8_KIND_KEYS = ("ivf_segmax_wgmma", "ivf_segmax_wgmma_cpasync",
+                "ivf_segmax_wgmma_realign")
+LIB_IVF_Q1 = ("index_select of the live hot tiles' rows + torch.matmul "
+              "(int8: torch._int_mm on M padded to 32 rows and K to 8 "
+              "columns) + masked_fill + torch.topk")
+
+
+def ivf_first_kernels(counts) -> dict:
+    """A path's launches of K7's template and K8's first kernel: every
+    launch less those of the kinds."""
+    return {"K7": counts["ivf_scan_topk"] - sum(counts[k]
+                                                for k in K7_KIND_KEYS),
+            "K8": counts["ivf_segmax"] - sum(counts[k] for k in K8_KIND_KEYS)}
+
+
+def ivf_lib_ms(torch, scan, qs, vs, rows, notm, k: int, per_seg=None):
+    """The library pair on a K7 / K8 call's inputs: index_select of the live
+    hot tiles' rows `rows`, their product with the queries (torch.matmul,
+    or torch._int_mm over operands padded to 8 columns and 32 query rows),
+    the masked rows at -inf, then torch.topk (K8: per 128-row segment)."""
+    nq = qs.shape[0]
+    if vs.dtype == torch.int8:
+        q8 = scan._pad_cols(qs, 8)
+        q8 = int_mm_rows(torch, q8, nq) if nq < 32 else q8
+        v8 = scan._pad_cols(vs, 8)
+
+        def prod():
+            return torch._int_mm(q8, v8.index_select(0, rows).T)[:nq].float()
+    else:
+        def prod():
+            return torch.matmul(qs, vs.index_select(0, rows).T)
+
+    def run():
+        s = prod().masked_fill(notm, float("-inf"))
+        if per_seg:
+            return torch.topk(s.view(nq, -1, scan.SEG), per_seg, dim=2)
+        return torch.topk(s, k, dim=1)
+    return cuda_ms(torch, run)
+
+
+def ann_ivf_holds(torch, scan, db, qn, rec, label: str) -> str:
+    """After the count (uncounted): each K7 kind the IVF store `db`'s calls
+    reach, and K8's segment scan, on the store's own hot tables at the
+    calls' shapes (float stores: the narrow sweep at Q = 1, k_sel 14, the
+    tensor-core scan at Q = 64, k_sel 68, the wide kind at Q = 16, k_sel
+    204; int8 stores the wide kind at the host-rescore band's Q = 1 and 64,
+    k_sel 144, and the other two kinds off their path; K8 at a 32-query
+    chunk, depth 8), each held to its plain version (int8 bit for bit;
+    floats: scores within TOL_SCORE, ids outside TOL_GAP; K8's keys) and
+    timed (CUDA events) beside the kernel it replaced (K7's template, K8's
+    first kernel), the library pair and the bound (the live hot rows'
+    bytes, or the tensor cores' operations); recorded in `rec` under the
+    kernels line's names (`narrow_rec`)."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    x = db._ivf
+    bn = tivf.IVF_BN
+    i8 = x.vectors is None
+    vs = x.vectors_i8c if i8 else x.vectors
+    piece = scan._PIECE_KEY[scan.rows_piece(vs)]
+    dim, es = vs.shape[1], vs.element_size()
+    kname = {torch.float32: "f32", torch.bfloat16: "bf16",
+             torch.int8: "int8"}[vs.dtype]
+    shapes = (((1, 16, "narrow"), (64, 68, "wgmma"), (1, 144, "wide"),
+               (64, 144, "wide")) if i8 else
+              ((1, 14, "narrow"), (64, 68, "wgmma"), (16, 204, "wide")))
+    launchers = {
+        "narrow": lambda *a: tivf._ivf_sweep_launch(
+            *a, "pv_ivf_sweep_topk_narrow"),
+        "wgmma": tivf._ivf_wgmma_launch, "wide": tivf._ivf_wide_launch}
+    ready = {"narrow": tivf.ivf_narrow_ready, "wgmma": tivf.ivf_wgmma_ready,
+             "wide": tivf.ivf_wide_ready}
+    names = {"narrow": "ivf_scan_topk_narrow",
+             "wgmma": "ivf_scan_topk_wgmma" + piece,
+             "wide": "ivf_scan_topk_wide" + piece}
+    # the TMA kinds at an equal byte count: the same postings, queries and
+    # hot tables padded with zeros to whole 16-byte rows (the 16-byte sweep
+    # for the narrow sweep)
+    vpad = scan._pad_cols(vs, 16 // es)
+    assert scan.rows_piece(vpad) == 0
+    launchers["sweep"] = tivf._ivf_sweep_launch
+    tma = {"narrow": "sweep", "wgmma": "wgmma", "wide": "wide"}
+    parts = []
+    for nq, k, kind in shapes:
+        m, h, nh, grid_b = store_probe(db, qn[:nq])
+        qs, _ = tivf._scan_inputs(qn[:nq], x.vectors, x.vectors_i8c, x.cscale)
+        qs = qs.contiguous()
+        assert ready[kind](qs, vs, k), (label, kind, nq, k)
+
+        def run():
+            return launchers[kind](qs, vs, m, h, nh, k, bn)
+
+        def template():
+            return tivf._ivf_template_launch(qs, vs, m, h, nh, k, bn)
+
+        got = run()
+        rv, ri = tivf.ivf_scan_topk_plain(qs, vs, m, h, nh, k + 1)
+        torch.cuda.synchronize()
+        what = f"{names[kind]} {label} Q={nq} k_sel={k}"
+        assert torch.equal(torch.isneginf(got[0]), torch.isneginf(rv[:, :k]))
+        if i8:
+            assert torch.equal(got[0], rv[:, :k]) and torch.equal(
+                got[1], ri[:, :k]), what
+            err = 0.0
+        else:
+            fin = torch.isfinite(got[0])
+            err = float((got[0][fin] - rv[:, :k][fin]).abs().max())
+            assert err <= TOL_SCORE, (what, err)
+            assert ids_agree(torch, got[1], ri, rv, k) == 0.0, what
+        del got, rv, ri
+        nl = int(nh)
+        rows = (h[:nl].long()[:, None] * bn
+                + torch.arange(bn, device=h.device)).reshape(-1)
+        live = int(m[rows].sum())
+        ms = cuda_ms(torch, run)
+        tmpl = timed_ms(torch, template, 3)
+        plain = timed_ms(torch, lambda: tivf.ivf_scan_topk_plain(
+            qs, vs, m, h, nh, k), 2)
+        lib = ivf_lib_ms(torch, scan, qs, vs, rows, ~m[rows][None, :], k)
+        qpad = scan._pad_cols(qs, 16 // es)
+        assert (tivf.ivf_sweep_ready if kind == "narrow" else ready[kind])(
+            qpad, vpad, k)
+        tma_ms = cuda_ms(torch, lambda: launchers[tma[kind]](
+            qpad, vpad, m, h, nh, k, bn))
+        ops = ((2 * nq * live * dim, kname) if kind == "narrow"
+               else tc_ops(torch, nq, live, dim, vs.dtype))
+        # bytes: the queries, the live rows, the mask over the hot tiles
+        # and the hot table (what the kernels read), the answers
+        r = entry(err, ms, plain, nq * dim * es + live * dim * es + nl * bn
+                  + 4 * grid_b + nq * k * 8, *ops, lib,
+                  LIB_IVF_Q1 if nq < 32 else LIB_IVF_TC)
+        r["template_ms"] = tmpl
+        r["tma_ms"] = tma_ms
+        narrow_rec(rec, names[kind], f"{label} Q={nq} k_sel={k}", r)
+        parts.append(f"{names[kind]} Q={nq} k_sel={k} (grid_b {grid_b}, n_hot "
+                     f"{nl}, {live} live rows): {ms:.4f} ms, the template "
+                     f"{tmpl:.4f}, library {lib:.4f}, plain {plain:.4f}, bound "
+                     f"{r['bound_ms']:.4f} ({r['bound_by']}), the TMA kind over "
+                     f"the rows padded to {vpad.shape[1]} {tma_ms:.4f}, max "
+                     f"|dscore| {err:.3g}"
+                     + (f" [{device_split(torch, run)}]" if kind == "wgmma"
+                        else ""))
+    # K8 on the first 32-query chunk's own hot table, depth 8
+    m8, h8, n8, g8 = store_probe(db, qn[:32])
+    q32, _ = tivf._scan_inputs(qn[:32], x.vectors, x.vectors_i8c, x.cscale)
+    q32 = q32.contiguous()
+    depth = tivf.SEGMAX_DEPTH
+
+    def seg():
+        return tivf._ivf_segmax_launch(q32, vs, m8, h8, n8, depth, bn)
+
+    def first_kernel():
+        return tivf._ivf_segmax_first_launch(q32, vs, m8, h8, n8, depth, bn)
+
+    ref = tivf.ivf_segmax_scan_plain(q32, vs, m8, h8, n8, depth)
+    err8 = check_k8_keys(torch, scan, seg(), ref, i8, f"K8 {label}")
+    check_k8_keys(torch, scan, first_kernel(), ref, i8,
+                  f"K8's first kernel {label}")
+    del ref
+    nl = int(n8)
+    rows = (h8[:nl].long()[:, None] * bn
+            + torch.arange(bn, device=h8.device)).reshape(-1)
+    live8 = int(m8[rows].sum())
+    ncol = g8 * depth * (bn // scan.SEG)
+    ms8 = cuda_ms(torch, seg)
+    first_ms = cuda_ms(torch, first_kernel)
+    plain8 = timed_ms(torch, lambda: tivf.ivf_segmax_scan_plain(
+        q32, vs, m8, h8, n8, depth), 2)
+    lib8 = ivf_lib_ms(torch, scan, q32, vs, rows, ~m8[rows][None, :], 0,
+                      per_seg=depth)
+    r8 = entry(err8, ms8, plain8, 32 * dim * es + live8 * dim * es + nl * bn
+               + 4 * g8 + 32 * ncol * 4, *tc_ops(torch, 32, live8, dim, vs.dtype),
+               lib8, LIB_IVF_SEG_I8 if i8 else LIB_IVF_SEG)
+    r8["template_ms"] = first_ms  # the first kernel it replaced
+    q32pad = scan._pad_cols(q32, 16 // es)
+    r8["tma_ms"] = cuda_ms(torch, lambda: tivf._ivf_segmax_launch(
+        q32pad, vpad, m8, h8, n8, depth, bn))
+    name8 = "ivf_segmax_scan" + piece
+    narrow_rec(rec, name8, f"{label} Q=32 per_seg={depth}", r8)
+    part = (f"{name8} Q=32 depth {depth} (grid_b {g8}, n_hot {nl}, {live8} "
+            f"live rows) = plain (max |dkey value| {err8:.3g}): {ms8:.4f} ms, "
+            f"the first kernel {first_ms:.4f}, library {lib8:.4f}, plain "
+            f"{plain8:.4f}, bound {r8['bound_ms']:.4f} ({r8['bound_by']}), "
+            f"the TMA kind over the padded rows {r8['tma_ms']:.4f}")
+    parts.append(part)
+    del vpad
+    return "; ".join(parts)
+
+
+def k7_wide_rows_cross(torch, scan, device) -> str:
+    """K7 over float32 postings of K7_CROSS_DIM columns (made on the card,
+    48 tiles, 40 live, 10 % masked): at Q = 1 / 4 / 8 the 16-byte sweep
+    beside the tensor-core scan, at Q = 9 / 16 (where the sweep's query
+    block refuses) the tensor-core scan beside the template, each held to
+    the plain version: the crossover behind `ivf_sweep_ready` keeping Q <=
+    8 at these widths."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    bn, dim = tivf.IVF_BN, K7_CROSS_DIM
+    g = torch.Generator(device=device).manual_seed(SEED_7C + dim)
+    v = normalize_on_device(torch.randn(48 * bn, dim, generator=g,
+                                        device=device))
+    mask = torch.rand(48 * bn, generator=g, device=device) > 0.1
+    hot = torch.randperm(48, generator=g, device=device).to(torch.int32)
+    nh = torch.tensor([40], dtype=torch.int32, device=device)
+    q = normalize_on_device(torch.randn(16, dim, generator=g, device=device))
+    parts = []
+    for nq in K7_CROSS_SHAPES:
+        qs = q[:nq].contiguous()
+        runs = {"tensor-core scan": lambda: tivf._ivf_wgmma_launch(
+            qs, v, mask, hot, nh, 14, bn)}
+        if tivf.ivf_sweep_ready(qs, v, 14):
+            runs["sweep"] = lambda: tivf._ivf_sweep_launch(qs, v, mask, hot,
+                                                           nh, 14, bn)
+        else:
+            assert tivf.ivf_wgmma_ready(qs, v, 14), nq
+            runs["template"] = lambda: tivf._ivf_template_launch(
+                qs, v, mask, hot, nh, 14, bn)
+        rv, ri = tivf.ivf_scan_topk_plain(qs, v, mask, hot, nh, 15)
+        for what, run in runs.items():
+            vals, idx = run()
+            torch.cuda.synchronize()
+            fin = torch.isfinite(vals)
+            assert float((vals[fin] - rv[:, :14][fin]).abs().max()) <= TOL_SCORE
+            assert ids_agree(torch, idx, ri, rv, 14) == 0.0, (what, nq)
+        parts.append(f"Q={nq} " + ", ".join(
+            f"{what} {cuda_ms(torch, run):.4f}" for what, run in runs.items())
+            + " ms")
+    del v, mask
+    torch.cuda.empty_cache()
+    return "; ".join(parts)
+
+
+def ann_ivf_store(torch, scan, device, storage: str, corpus, qs, rec,
+                  tmp: str) -> tuple:
+    """One IVF store of phase 7c: the rows `corpus` uploaded from the host
+    into `storage` with index="ivf" (int8: the int8-only layout and the
+    host rescore, PICOVDB_IVF_I8 on below dim 256; bf16: the device
+    rescore over its postings), then, launches counted
+    from 0, 64 single `query` calls, a 64-query `query_columnar` in
+    32-query chunks, a 64-query batch at top_k 64 and a 16-query batch at
+    top_k 200. Every K7 call on the narrow sweep, the tensor-core scan or
+    the wide kind fed by the producer `rows_piece` names, every K8 call on
+    the segment scan: no launch of K7's template or K8's first kernel. Ids
+    held to the float64 oracle over the rows each call scanned
+    (`probed_slots`; the bf16 store's over its bf16 rows): K7's float
+    answers all outside the gap, K8's and the host-rescored int8 ones at
+    most 1 % off; recall@10 against every float32 row uploaded, held at
+    IVF_ANN_RECALL on the float stores (the bf16 stores' also against
+    their bf16 rows, held at 0.95: what the probe misses). Then Q = 1 / 64
+    latency and `ann_ivf_holds`. Returns (launches, summary)."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops import ivf as tivf
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    n, dim = corpus.shape
+    t0 = time.perf_counter()
+    i8 = storage == "int8"
+    want = "ivf_i8" if i8 else "ivf"
+    # bf16 stores rescore on the device over their bf16 postings
+    # (rescore="device"): the default host rescore would widen every
+    # call's band by RESCORE_GUARD, onto K7's wide kind alone, and take K8
+    # off the path
+    kw = {"rescore": "device"} if storage == "bfloat16" else {}
+    db = PicoVectorDB(embedding_dim=dim, index="ivf", device=device,
+                      storage_dtype=storage,
+                      storage_file=os.path.join(tmp, f"{storage}{dim}"), **kw)
+    db.upsert_columnar(corpus, ids=[f"c{i}" for i in range(n)], copy=False)
+    db.query(qs[0], top_k=10)  # the first sync: upload + IVF build
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dbg = db.last_query_debug()
+    op = dbg["ann_operating_point"]
+    assert dbg["strategy"] == want, dbg
+    assert op["layout"] == ("int8_only" if i8 else "classic"), op
+    x = db._ivf
+    post = x.vectors_i8c if i8 else x.vectors
+    piece = scan._PIECE_KEY[scan.rows_piece(post)]
+    assert piece, f"phase 7c {storage} dim {dim}: TMA reads these postings"
+    scan.reset_launch_counts()  # count these calls' launches only
+    # an int8 store's host rescore re-serves a query whose band may be cut
+    # mid-tie once more at 4x the width (`rescore_escalations`): past IVF_BN
+    # that is the exact route, over every row; every other call keeps the
+    # route
+    esc0 = db.stats()["rescore_escalations"]
+    got1 = np.full((64, 10), None, dtype=object)
+    left = 0  # single calls that left the route
+    for i in range(64):
+        hits = db.query(qs[i], top_k=10)
+        left += db.last_query_debug()["strategy"] != want
+        got1[i, :len(hits)] = [h["_id_"] for h in hits]
+    routes = {}
+    gotc, _ = db.query_columnar(qs, top_k=10, batch_size=32)
+    routes["columnar"] = db.last_query_debug()["strategy"]
+    res64 = db.query(qs, top_k=64)
+    routes["top_k=64"] = db.last_query_debug()["strategy"]
+    res200 = db.query(qs[:16], top_k=200)
+    routes["top_k=200"] = db.last_query_debug()["strategy"]
+    torch.cuda.synchronize()
+    esc = db.stats()["rescore_escalations"] - esc0
+    assert left <= esc and (esc or set(routes.values()) == {want}), (
+        storage, dim, left, esc, routes)
+    counts = launch_counts(scan)
+    assert ivf_first_kernels(counts) == {"K7": 0, "K8": 0}, counts
+    sh = counts["shapes"]
+    if i8:  # every K7 call on the wide kind (escalations take the exact route)
+        k1 = 10 + db._rescore_guard + tivf._ivf_guard(True, dim)
+        assert counts["ivf_scan_topk_wide" + piece] == counts["ivf_scan_topk"]
+        assert sh["ivf_scan_topk_wide" + piece].get(f"Q=1 k={k1}") == 64, sh
+        assert counts["ivf_segmax"] == 0, counts
+    else:
+        assert sh.get("ivf_scan_topk_narrow") == {"Q=1 k=14": 64}, sh
+        assert sh["ivf_segmax_wgmma" + piece] == {"Q=32 k=8": 2}, sh
+        assert sh["ivf_scan_topk_wgmma" + piece] == {"Q=64 k=68": 1}, sh
+        assert sh["ivf_scan_topk_wide" + piece] == {"Q=16 k=204": 1}, sh
+        assert counts["ivf_scan_topk"] == 66 and counts["ivf_segmax"] == 2
+    # the float64 oracles: over the rows each call scanned, and every row
+    qn = normalize_on_device(torch.from_numpy(qs).to(device))
+    rows = torch.from_numpy(corpus).to(device)
+    if storage == "bfloat16":  # the store ranks and rescores its bf16 rows
+        rows = rows.to(torch.bfloat16).float()
+    chunks = [(s, rows[s:s + 131_072]) for s in range(0, n, 131_072)]
+
+    def ids_of(res):
+        return [[h["_id_"] for h in r] for r in res]
+
+    def off(got, q, masks, k):
+        """Queries off the oracle over the rows they scanned; with
+        escalations, off that and off the oracle over every row (the
+        exact route's) both."""
+        bad = set(ids_off_rows(got, "c", *oracle_masked(
+            torch, chunks, q, masks, k=k + 1), k=k))
+        if esc and bad:
+            bad &= set(ids_off_rows(got, "c", *oracle_masked(
+                torch, chunks, q, None, k=k + 1), k=k))
+        return len(bad)
+
+    m1 = torch.stack([probed_slots(torch, db, qn[i:i + 1], n)
+                      for i in range(64)])
+    bad1 = off(got1, qn, m1, 10)
+    del m1
+    mc = torch.cat([probed_slots(torch, db, qn[c:c + 32], n)[None]
+                    .expand(32, -1) for c in (0, 32)])
+    badc = off(gotc, qn, mc, 10)
+    del mc
+    bad64 = off(ids_of(res64), qn, probed_slots(torch, db, qn, n)[None]
+                .expand(64, -1), 64)
+    bad200 = off(ids_of(res200), qn[:16], probed_slots(
+        torch, db, qn[:16], n)[None].expand(16, -1), 200)
+    # recall against every float32 row uploaded; a bf16 store's also
+    # against its bf16 rows (what its probe misses: the rest is rounding)
+    f32 = torch.from_numpy(corpus).to(device)
+    _, of = oracle_masked(torch, [(s, f32[s:s + 131_072])
+                                  for s in range(0, n, 131_072)], qn, None)
+    del f32
+    recall = recall_at_10(got1, of[:, :10], "c")
+    recall_c = recall_at_10(gotc, of[:, :10], "c")
+    own = ""
+    if storage == "bfloat16":
+        _, oi = oracle_masked(torch, chunks, qn, None)
+        own1 = recall_at_10(got1, oi[:, :10], "c")
+        ownc = recall_at_10(gotc, oi[:, :10], "c")
+        assert own1 >= 0.95 and ownc >= 0.95, (storage, dim, own1, ownc)
+        own = f" (against its bf16 rows {own1:.4f} / {ownc:.4f})"
+    if i8:  # the host rescore's band on quantized postings (phase 7b's)
+        assert max(bad1, badc, bad64) <= 0.01 * 64 and bad200 <= 1, (
+            storage, dim, bad1, badc, bad64, bad200)
+    else:
+        assert bad1 == bad64 == bad200 == 0 and badc <= 0.01 * 64, (
+            storage, dim, bad1, badc, bad64, bad200)
+        floor = IVF_ANN_RECALL[storage, dim]
+        assert recall >= floor and recall_c >= floor, (
+            storage, dim, recall, recall_c, floor)
+    del chunks, rows
+    label = f"7c {storage} dim {dim}"
+    with uncounted(scan):
+        q1_ms = cuda_ms(torch, lambda: db.query(qs[0], top_k=10), reps=20)
+        q64_ms = cuda_ms(torch, lambda: db.query(qs, top_k=10), reps=5)
+        holds = ann_ivf_holds(torch, scan, db, qn, rec, label)
+    kinds = {k: counts[k] for k in K7_KIND_KEYS + K8_KIND_KEYS if counts[k]}
+    line = (f"{storage} dim {dim} ({post.shape[1] * post.element_size()}-byte "
+            f"postings rows, producer {piece[1:]}): built in {build_s:.2f} s "
+            f"(upload + IVF build, nlist {op['nlist']}, nprobe "
+            f"{op['nprobe_default']}); route {want} ({esc} host-rescore "
+            f"escalations, {left} singles re-served exact); kinds {kinds}, K7's "
+            f"template and K8's first kernel 0 launches; ids = the restricted "
+            f"float64 oracle outside the gap on {64 - bad1}/64 single queries, "
+            f"{64 - badc}/64 of the 32-query chunks, {64 - bad64}/64 at top_k "
+            f"64, {16 - bad200}/16 at top_k 200; recall@10 vs every float32 "
+            f"row {recall:.4f} (singles) / {recall_c:.4f} (chunks){own}"
+            + ("" if i8 else f", held at {IVF_ANN_RECALL[storage, dim]}")
+            + "; "
+            f"Q=1 latency "
+            f"{q1_ms:.4f} ms, Q=64 {q64_ms:.4f} ms (CUDA events around "
+            f"PicoVectorDB.query); on its hot tables: {holds}; "
+            f"{time.perf_counter() - t0:.1f} s")
+    del db
+    torch.cuda.empty_cache()
+    return counts, line
+
+
+def phase_ivf_ann(torch, scan, device, card: str, rec, n: int = ANN_N,
+                  stores=IVF_ANN_STORES) -> dict:
+    """Phase 7c: IVF at ann-benchmarks' widths. For each dim of `stores`, n
+    rows of a clustered mixture (`mixture_chunks`, own generator SEED_7C;
+    on isotropic rows IVF answers at recall 0.04-0.13) and 64 queries =
+    rows + noise, then an IVF store of each storage (`ann_ivf_store`:
+    float32 at dim 25, 100-byte rows; bf16 at 100 and 25, 200 and 50 bytes;
+    int8 at 100 and 25, the int8-only layout's 100- and 25-byte postings),
+    then K7 over 1536-wide float32 rows (`k7_wide_rows_cross`). Returns the
+    launches of every store's calls, summed."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    t_phase = time.perf_counter()
+    g = np.random.default_rng(SEED_7C)
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    total = {}
+    old = os.environ.get("PICOVDB_IVF_I8")
+    try:
+        for dim, storages in stores:
+            corpus = np.empty((n, dim), dtype=np.float32)
+            for s, rows in mixture_chunks(torch, device, n, dim, SEED_7C + dim):
+                corpus[s:s + rows.shape[0]] = rows.cpu().numpy()
+            qs = (corpus[g.integers(0, n, 64)] + 0.01 * g.standard_normal(
+                (64, dim), dtype=np.float32))
+            for storage in storages:
+                if storage == "int8" and dim < tivf.IVF_I8_MIN_DIM:
+                    os.environ["PICOVDB_IVF_I8"] = "1"
+                counts, line = ann_ivf_store(torch, scan, device, storage,
+                                             corpus, qs, rec, tmp)
+                if old is None:
+                    os.environ.pop("PICOVDB_IVF_I8", None)
+                else:
+                    os.environ["PICOVDB_IVF_I8"] = old
+                log(f"phase 7c: {line}")
+                for k, v in counts.items():
+                    if k != "shapes":
+                        total[k] = total.get(k, 0) + v
+            del corpus
+    finally:
+        if old is None:
+            os.environ.pop("PICOVDB_IVF_I8", None)
+        else:
+            os.environ["PICOVDB_IVF_I8"] = old
+        shutil.rmtree(tmp)
+    cross = k7_wide_rows_cross(torch, scan, device)
+    log(f"phase 7c: IVF at ann-benchmarks' widths, {n} rows a store, five "
+        f"stores above ({time.perf_counter() - t_phase:.1f} s); K7 over "
+        f"{K7_CROSS_DIM}-wide float32 postings (k_sel 14): {cross}; launches "
+        f"{total}; card {card}")
+    return total
 
 
 def phase_ivf_int4(torch, scan, device, n: int, dim: int, rng, card: str,
@@ -6610,6 +7180,8 @@ def main() -> int:
     tools_only = sys.argv[1:] == ["--tools"]
     k3_only = sys.argv[1:] == ["--k3-cross"]
     narrow_only = sys.argv[1:] == ["--narrow-cross"]
+    ivf_ann_only = sys.argv[1:] == ["--ivf-ann"]
+    narrow_ab_only = sys.argv[1:] == ["--narrow-ab"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -6627,6 +7199,18 @@ def main() -> int:
     if narrow_only:  # the narrow kinds' crossovers alone
         log(f"phase 3c: K3's narrow kinds' crossovers: "
             f"{narrow_cross(torch, scan, device)}")
+        print(card)
+        return 0
+    if narrow_ab_only:  # K3's and K4's narrow kinds at phase 3c's shapes
+        log(f"narrow kinds: {narrow_ab(torch, scan, device)}")
+        print(card)
+        return 0
+    if ivf_ann_only:  # phase 7c alone: IVF at ann-benchmarks' widths
+        rec = {}
+        counts = phase_ivf_ann(torch, scan, device, card, rec)
+        log("phase 7c: kernels " + json.dumps(
+            {name: {**rec[name], "launches": counts.get(key, 0)}
+             for name, (key, _, _, ph) in KERNELS.items() if ph == "7c"}))
         print(card)
         return 0
     if k3_only:  # phase 4's larger int8 planes alone
@@ -6688,6 +7272,8 @@ def main() -> int:
                              rec)
     torch.cuda.empty_cache()
     counts["7b"] = phase_ivf_host(torch, scan, device, IVF_HOST_N, DIM, card)
+    torch.cuda.empty_cache()
+    counts["7c"] = phase_ivf_ann(torch, scan, device, card, rec)
     torch.cuda.empty_cache()
     counts[8] = phase_ivf_int4(torch, scan, device, IVF_I4_N, DIM, rng,
                               card, rec)

@@ -3,9 +3,11 @@
 // logical row, then the per-query radix select over the slab.
 //
 // Replaces picovdb_tpu/ops/ivf.py:probe_scan_local (`_ivf_kernel`,
-// `_ivf_kernel_i8c`) at k_sel 129-1024 wherever TMA can read the operands
-// (ops/ivf.py::ivf_wide_ready: rows of whole 16 bytes, 16-byte aligned
-// bases), at every batch size: the host-rescore band of every quantized
+// `_ivf_kernel_i8c`) at k_sel 129-1024 (ops/ivf.py::ivf_wide_ready), at
+// every postings width and base (rows TMA cannot read by pass A's cp.async
+// or realigning producer, scan_topk_wgmma.cuh `PIECE`, the queries padded
+// to whole 16 bytes in the scratch) and every batch size, up to 64M rows
+// of postings: the host-rescore band of every quantized
 // IVF store (int8 storage: k + RESCORE_GUARD + the int8 postings' guard =
 // 160 at top_k = 10; int4: k + 4 RESCORE_GUARD + 22 = 544), and float
 // postings at top_k >= 125. It computes pv_ivf_scan_topk's function: per
@@ -50,7 +52,9 @@
 //    a logical row l to sorted[l / bn] * bn + l % bn, and int8 postings'
 //    keys to their int32 score.
 //  * The launcher splits float32 queries into TF32 hi / lo planes
-//    (radix_select.cuh's `split_planes`, as K4's wide kind) in its scratch, builds the step order, then
+//    (radix_select.cuh's `split_planes`, as K4's wide kind), and copies
+//    bf16 and int8 queries whose rows TMA cannot read (`ws::tma_rows`), in
+//    its scratch as rows of whole 16 bytes, builds the step order, then
 //    walks the queries in tiles of q_tile (ops/scan.py::topk_wide_tile
 //    over grid_b x bn rows; radix_select.cuh's `walk_tiles`). One scratch
 //    buffer (ops/ivf.py::ivf_wide_scratch) and one library call a batch.
@@ -97,20 +101,20 @@ ivf_rows_kernel(const int* __restrict__ hot, const int* __restrict__ n_hot,
     lmask[(long)rank * bn + i] = src[i];
 }
 
-// Pass A over the rows map, four stages, N = 32 queries a CTA at Q <= 32
-// (a tile of nq), else 64. `planes` holds T::PLANES query planes `plane`
-// bytes apart.
-template <class T>
-int scan_slab(const void* planes, size_t plane, const void* v,
+// Pass A over the rows map, four stages and the rows' producer PIECE, N =
+// 32 queries a CTA at Q <= 32 (a tile of nq), else 64. `planes` holds
+// T::PLANES query planes of (nq, qld) `plane` bytes apart.
+template <class T, int PIECE>
+int scan_slab(const void* planes, size_t plane, int qld, const void* v,
               const void* mask, uint32_t* slab, int nq, long long cap,
               int dim, const tk::Rows& map, cudaStream_t s) {
   int r = 0;
-  return nq <= 32 ? tk::launch_scan<T, 32, 4, 0>(planes, plane, v, mask,
-                                                 nullptr, slab, nq, cap, dim,
-                                                 0, map, &r, s)
-                  : tk::launch_scan<T, 64, 4, 0>(planes, plane, v, mask,
-                                                 nullptr, slab, nq, cap, dim,
-                                                 0, map, &r, s);
+  return nq <= 32 ? tk::launch_scan_rows<T, 32, 4, 0, PIECE>(
+                        planes, plane, qld, v, mask, nullptr, slab, nq, cap,
+                        dim, 0, map, &r, s)
+                  : tk::launch_scan_rows<T, 64, 4, 0, PIECE>(
+                        planes, plane, qld, v, mask, nullptr, slab, nq, cap,
+                        dim, 0, map, &r, s);
 }
 
 }  // namespace iw
@@ -118,24 +122,29 @@ int scan_slab(const void* planes, size_t plane, const void* v,
 }  // namespace pv
 
 // K7's wide kind: pv_ivf_scan_topk's contract for k <= 1024 (served at 128
-// < k), rows of whole 16 bytes and 16-byte aligned bases. kind 0: float32
-// postings and queries; 1: bf16 postings and queries; 2: column-scaled int8
-// postings and folded int8 queries. q (Q, dim), postings (cap, dim) with
-// cap % bn == 0 and bn % 128 == 0, mask (cap,) uint8, hot (grid_b,) int32
-// tile ids in [0, cap / bn), n_hot (1,) int32 on the device. `scratch`
-// (256-byte aligned) holds `scratch_bytes`, at least ops/ivf.py::
-// ivf_wide_scratch's: the float32 queries' TF32 planes (kind 0), the
+// < k), at every postings width and base. piece: the rows' producer
+// (ops/scan.py::rows_piece): 0 TMA (row bytes and v's base multiples of
+// 16), 8 or 4 cp.async (multiples of piece), 2 the realigning producer
+// (kinds 1 and 2). kind 0: float32 postings and queries; 1: bf16 postings
+// and queries; 2: column-scaled int8 postings and folded int8 queries. q
+// (Q, dim) (any base), postings (cap, dim) with cap % bn == 0 and bn %
+// 128 == 0, mask (cap,) uint8, hot (grid_b,) int32 tile ids in [0, cap /
+// bn), n_hot (1,) int32 on the device. `scratch` (256-byte aligned) holds
+// `scratch_bytes`, at least ops/ivf.py::ivf_wide_scratch's: the query
+// planes as rows of qld elements, qld = dim rounded up to whole 16 bytes
+// (kind 0 the TF32 hi and lo planes, kinds 1 and 2 the queries copied
+// there where their rows are not whole 16 bytes at an aligned base), the
 // sorted live tiles, the logical mask, then one tile of q_tile queries'
 // slab (q_tile x grid_b bn keys), histograms and candidates, each from a
 // 256-byte boundary. vals (Q, k) float32 and idx (Q, k) int32 receive the
 // result (-inf / 0 where empty). Launches on the current device. Returns
 // 0, a cudaError_t, or minus the CUresult of a refused tensor-map encode.
-extern "C" int pv_ivf_scan_topk_wide(int kind, const void* q, const void* v,
-                                     const void* mask, const void* hot,
-                                     const void* n_hot, void* scratch,
-                                     void* vals, void* idx, int Q,
-                                     long long cap, int dim, int k, int bn,
-                                     int grid_b, int q_tile,
+extern "C" int pv_ivf_scan_topk_wide(int piece, int kind, const void* q,
+                                     const void* v, const void* mask,
+                                     const void* hot, const void* n_hot,
+                                     void* scratch, void* vals, void* idx,
+                                     int Q, long long cap, int dim, int k,
+                                     int bn, int grid_b, int q_tile,
                                      long long scratch_bytes, void* stream) {
   using namespace pv;
   using namespace pv::iw;
@@ -146,8 +155,10 @@ extern "C" int pv_ivf_scan_topk_wide(int kind, const void* q, const void* v,
     return (int)cudaErrorInvalidValue;
   const long ld = (long)grid_b * bn;  // the slab's logical rows a query
   if (ld > 0x7FFFFFFFL) return (int)cudaErrorInvalidValue;
-  const size_t es = kind == 0 ? 4 : kind == 1 ? 2 : 1;
-  const size_t sorted_off = kind == 0 ? rs::up256((size_t)Q * dim * 8) : 0;
+  const int es = kind == 0 ? 4 : kind == 1 ? 2 : 1;
+  const int qld = tk::plane_ld(dim, es);
+  const size_t plane = (size_t)Q * qld * es;  // kind 0: hi, then lo
+  const size_t sorted_off = rs::up256(kind == 0 ? 2 * plane : plane);
   const size_t lmask_off = sorted_off + rs::up256((size_t)grid_b * 4);
   const size_t tile_off = lmask_off + rs::up256((size_t)ld);
   if ((size_t)scratch_bytes < tile_off + rs::tile_layout(q_tile, ld).bytes)
@@ -161,29 +172,40 @@ extern "C" int pv_ivf_scan_topk_wide(int kind, const void* q, const void* v,
   uint8_t* lmask = base + lmask_off;
   const void* planes = q;
   if (kind == 0) {
-    if ((e = rs::split_planes(static_cast<const float*>(q), base, Q, dim,
-                              dim, 0, sms, s)) != cudaSuccess)
-      return (int)e;
+    e = rs::split_planes(static_cast<const float*>(q), base, Q, dim, qld, 0,
+                         sms, s);
     planes = base;
+  } else {
+    e = ws::tma_rows(&planes, base, Q, dim, es, s);
   }
+  if (e != cudaSuccess) return (int)e;
+  const int qrow = planes == q ? dim : qld;  // the planes' rows as TMA reads
+  const size_t pl = (size_t)Q * qrow * es;
   ivf_rows_kernel<<<grid_b, 256, 0, s>>>(
       static_cast<const int*>(hot), static_cast<const int*>(n_hot),
       static_cast<const uint8_t*>(mask), sorted, lmask, bn, grid_b);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const tk::Rows map{sorted, static_cast<const int*>(n_hot), bn, grid_b};
-  const size_t plane = (size_t)Q * dim * es;  // kind 0: hi, then lo
-  return rs::walk_tiles(
-      base + tile_off, lmask, static_cast<float*>(vals),
-      static_cast<int*>(idx), Q, q_tile, ld, ld, k, sms, s,
-      [&](int q0, int nq, uint32_t* slab) {
-        const void* qt =
-            static_cast<const unsigned char*>(planes) + (size_t)q0 * dim * es;
-        return kind == 0 ? scan_slab<tk::F32>(qt, plane, v, mask, slab, nq,
-                                              cap, dim, map, s)
-               : kind == 1 ? scan_slab<tk::Bf16Q>(qt, plane, v, mask, slab,
-                                                  nq, cap, dim, map, s)
-                           : scan_slab<tk::Int8C>(qt, plane, v, mask, slab,
-                                                  nq, cap, dim, map, s);
-      },
-      rs::Decode{sorted, bn, kind == 2});
+  return tk::with_piece(piece, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return rs::walk_tiles(
+        base + tile_off, lmask, static_cast<float*>(vals),
+        static_cast<int*>(idx), Q, q_tile, ld, ld, k, sms, s,
+        [&](int q0, int nq, uint32_t* slab) {
+          const void* qt = static_cast<const unsigned char*>(planes) +
+                           (size_t)q0 * qrow * es;
+          if (kind == 1)
+            return scan_slab<tk::Bf16Q, P>(qt, pl, qrow, v, mask, slab, nq,
+                                           cap, dim, map, s);
+          if (kind == 2)
+            return scan_slab<tk::Int8C, P>(qt, pl, qrow, v, mask, slab, nq,
+                                           cap, dim, map, s);
+          if constexpr (P == 2)  // float32 rows are whole 4 bytes
+            return (int)cudaErrorInvalidValue;
+          else
+            return scan_slab<tk::F32, P>(qt, pl, qrow, v, mask, slab, nq, cap,
+                                         dim, map, s);
+        },
+        rs::Decode{sorted, bn, kind == 2});
+  });
 }

@@ -3,9 +3,11 @@
 // that hold a live row.
 //
 // Replaces picovdb_tpu/ops/ivf.py:probe_scan_segmax (`_ivf_segmax_kernel`,
-// `_ivf_segmax_kernel_i8c`) wherever TMA can read the operands
-// (ops/ivf.py::ivf_segmax_ready: rows of whole 16 bytes, 16-byte aligned
-// bases); segmax.cu's `ivf_segmax_kernel` keeps the other widths. It
+// `_ivf_segmax_kernel_i8c`) at every postings width and base
+// (ops/ivf.py::ivf_segmax_ready): rows TMA reads by TMA, the others by the
+// rows' producers K4's scan uses (wgmma_scan.cuh `produce_rows`: cp.async
+// in 8- or 4-byte pieces, or the realigning producer), where segmax.cu's
+// `ivf_segmax_kernel`, the first kernel, served them before. It
 // computes pv_ivf_segmax's function and slab: (Q, grid_b * per_seg * ns)
 // int32 keys, column b * per_seg * ns + r * ns + s for the r-th best of
 // segment s of hot tile hot[b]; a key is the score's order-preserving
@@ -58,8 +60,17 @@
 //    the mask (one warp ballot) and skip it alike, and the consumers write
 //    its KEY_MIN columns, as those of dead steps. No second launch.
 //  * A CTA holds two consumer warpgroups and one producer warp, whose lane
-//    0 keeps a ring of STAGES stages filled (the segment's 128 rows, the
-//    query tile's planes) behind full / empty mbarriers.
+//    0 keeps a ring of three stages filled (the segment's 128 rows, the
+//    query tile's planes) behind full / empty mbarriers. Over rows TMA
+//    cannot read (`PIECE`, ops/scan.py::rows_piece) a producer warpgroup
+//    takes its place: 384 threads, which give registers back by setmaxnreg
+//    (40 a producer thread for cp.async, the consumers taking 96; the
+//    realigning producer's shifts keep 72, its consumers the launch's 80),
+//    still up to two CTAs an SM. The query planes come padded to whole 16
+//    bytes (zeros past dim) and still arrive by TMA. The realigning
+//    producer's two 18 KB staging slots leave room for two CTAs an SM only
+//    at two stages (N = 32: 96 KB a CTA; three stages take 116 KB), so its
+//    ring is two stages deep (`REALIGN_STAGES`).
 //  * Epilogue: after a segment's last k-stage each consumer writes its
 //    accumulators as packed keys into a (N, 132) int32 tile in shared
 //    memory (conflict-free), then a warp per query runs `per_seg` warp-wide
@@ -95,11 +106,23 @@ constexpr int ROWS = SEG;                     // a segment: two m64 tiles
 constexpr int ROW_BYTES = 128;                // bytes of a row per k-stage
 constexpr int A_BYTES = ROWS * ROW_BYTES;     // 16 KB
 constexpr int HALF_BYTES = A_BYTES / 2;       // a warpgroup's m64 tile
-constexpr int STAGES = 3;
+constexpr int STAGES = 3;                     // the ring, but PIECE 2's:
+// two stages, two CTAs an SM, beat three stages, one CTA: 0.1790 / 0.1867
+// ms against 0.2165 / 0.2268 over 1,183,514 bf16 / int8 rows of dim 25,
+// 32-query chunks, depth 8 (chip_smoke.py phase 7c, H100 80GB HBM3, 700 W)
+constexpr int REALIGN_STAGES = 2;
 constexpr int CONSUMERS = 256;                // warpgroups 0 and 1
 constexpr int CONSUMER_WARPS = 8;
-constexpr int THREADS = CONSUMERS + 32;       // and one producer warp
 constexpr int LDS = ROWS + 4;                 // score tile row, in ints
+// registers a thread at launch with the producer warpgroup (384 threads,
+// two CTAs an SM: 65,536 / 768 rounded down to 8)
+constexpr int LAUNCH_REGS = 80;
+
+// Threads with the rows' producer PIECE: one producer warp for TMA, a
+// warpgroup for the others.
+__host__ __device__ constexpr int threads_of(int piece) {
+  return CONSUMERS + (piece ? ws::PRODUCERS : 32);
+}
 
 // Element kinds: BK elements a k-stage, the TMA type, and the query planes
 // (float32: hi and lo).
@@ -120,19 +143,25 @@ struct Int8 {
   static constexpr CUtensorMapDataType TMA_TYPE = CU_TENSOR_MAP_DATA_TYPE_UINT8;
 };
 
-// Shared memory of kind T at query tile N: the ring (A, then the planes of
-// B), F32's two lo buffers, the score tile, the barriers; 1 KB to align the
-// ring (swizzle atoms are 1024 B).
-template <class T, int N>
+// Shared memory of kind T at query tile N, S stages and the rows'
+// producer PIECE: the ring (A, then the planes of B), the realigning
+// producer's staging slots, F32's two lo buffers, the score tile, the
+// barriers (full, empty, then the slots'); 1 KB to align the ring (swizzle
+// atoms are 1024 B).
+template <class T, int N, int S, int PIECE>
 struct Smem {
   static constexpr int B_BYTES = T::PLANES * N * ROW_BYTES;
   static constexpr int A_OFF = 0;
-  static constexpr int B_OFF = STAGES * A_BYTES;
-  static constexpr int LO_OFF = B_OFF + STAGES * B_BYTES;
+  static constexpr int B_OFF = S * A_BYTES;
+  static constexpr int SLOT_OFF = B_OFF + S * B_BYTES;
+  static constexpr int LO_OFF =
+      SLOT_OFF + (PIECE == 2 ? ws::RSLOTS * ws::RSLOT : 0);
   static constexpr int S_OFF = LO_OFF + (T::PLANES == 2 ? 2 * HALF_BYTES : 0);
   static constexpr int BAR_OFF = S_OFF + N * LDS * 4;
-  static constexpr int BYTES = 1024 + BAR_OFF + 2 * STAGES * 8;
-  static constexpr uint32_t TX = A_BYTES + B_BYTES;  // a stage's TMA bytes
+  static constexpr int BYTES =
+      1024 + BAR_OFF + 8 * (2 * S + (PIECE == 2 ? ws::RSLOTS : 0));
+  // a stage's TMA bytes: the rows and the planes, or the planes alone
+  static constexpr uint32_t TX = (PIECE ? 0 : A_BYTES) + B_BYTES;
   static_assert(BYTES <= 232448, "shared memory of one CTA");
 };
 
@@ -158,22 +187,25 @@ __device__ __forceinline__ void share(long units, long* beg, long* end) {
   *end = (long)(blockIdx.x + 1) * units / gridDim.x;
 }
 
-// tv: TMA map of the postings (cap, dim), boxes of 128 bytes x 128 rows;
-// tq / tq_lo: of the query planes (Q, dim), boxes of 128 bytes x N rows
-// (float32: hi and lo; other kinds read tq alone); both 128B-swizzled.
-// mask (cap,) uint8, hot (grid_b,) int32, n_hot (1,) int32 on the device;
-// keys (Q, grid_b * per_seg * bn / 128) int32.
-template <class T, int N>
-__global__ void __launch_bounds__(THREADS, 2)
-ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
+// tv: the rows' maps (PIECE 0: TMA's of the postings (cap, dim), boxes of
+// 128 bytes x 128 rows, 128B-swizzled; PIECE 2: the realigning producer's
+// class maps; PIECE 8 / 4: unused, the producer reads `vp`, the postings'
+// base, rows of `row_bytes`); tq / tq_lo: of the query planes (Q, qld),
+// boxes of 128 bytes x N rows (float32: hi and lo; other kinds read tq
+// alone), 128B-swizzled. mask (cap,) uint8, hot (grid_b,) int32, n_hot
+// (1,) int32 on the device; keys (Q, grid_b * per_seg * bn / 128) int32.
+template <class T, int N, int S, int PIECE>
+__global__ void __launch_bounds__(threads_of(PIECE), 2)
+ivf_segmax_wgmma_kernel(const __grid_constant__ ws::RowMapsOf<PIECE> tv,
                         const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tq_lo,
+                        const unsigned char* __restrict__ vp,
                         const uint8_t* __restrict__ mask,
                         const int* __restrict__ hot,
                         const int* __restrict__ n_hot, int* __restrict__ keys,
-                        int Q, int bn, int grid_b, int per_seg, int q_tiles,
-                        int k_iters) {
-  typedef Smem<T, N> L;
+                        int Q, long cap, long row_bytes, int bn, int grid_b,
+                        int per_seg, int q_tiles, int k_iters) {
+  typedef Smem<T, N, S, PIECE> L;
   typedef typename T::Acc Acc;
   constexpr int ACC = N / 2;
   extern __shared__ unsigned char smem_raw[];
@@ -181,12 +213,17 @@ ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t base = smem_u32(sm);
   const uint32_t a_ring = base + L::A_OFF, b_ring = base + L::B_OFF;
-  const uint32_t full = base + L::BAR_OFF, empty = full + 8 * STAGES;
+  const uint32_t full = base + L::BAR_OFF, empty = full + 8 * S;
+  const uint32_t staged = empty + 8 * S;  // PIECE 2: the slots' barriers
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);  // the producer's expect_tx arrival
+    for (int s = 0; s < S; ++s) {
+      // the elected producer thread's expect_tx arrival, and each thread's
+      // of the cp.async and realigning producers
+      mbar_init(full + 8 * s, PIECE ? 1 + ws::PRODUCERS : 1);
       mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
+    if (PIECE == 2)
+      for (int s = 0; s < ws::RSLOTS; ++s) mbar_init(staged + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -198,30 +235,68 @@ ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
   share((long)live_steps * ns * q_tiles, &ub, &ue);
   const int lane = threadIdx.x % 32;
 
-  if (threadIdx.x >= CONSUMERS) {  // the producer warp
-    uint32_t n = 0;
-    for (long u = ub; u < ue; ++u) {
-      const int seg = (int)(u / q_tiles), q0 = (int)(u % q_tiles) * N;
-      const long r0 = (long)hot[seg / ns] * bn + (long)(seg % ns) * SEG;
-      bool live[4];
-      if (!segment_live(mask, r0, r0 + SEG, lane, live)) continue;
-      if (lane == 0)
-        for (int k = 0; k < k_iters; ++k, ++n) {
-          const int st = (int)(n % STAGES);
-          mbar_wait(empty + 8 * st, ((n / STAGES) & 1) ^ 1);  // first lap: free
-          mbar_expect_tx(full + 8 * st, L::TX);
-          const uint32_t b = b_ring + st * L::B_BYTES;
-          tma_load_2d(a_ring + st * A_BYTES, &tv, full + 8 * st, k * T::BK,
-                      (int)r0);
-          tma_load_2d(b, &tq, full + 8 * st, k * T::BK, q0);
-          if constexpr (T::PLANES == 2)
-            tma_load_2d(b + N * ROW_BYTES, &tq_lo, full + 8 * st, k * T::BK,
-                        q0);
+  // registers a thread keeps past the launch's (PIECE > 0): the
+  // producer's, each consumer's (P + 2 C within 3 x LAUNCH_REGS)
+  constexpr int PREGS = PIECE == 2 ? 72 : 40;
+  constexpr int CREGS = (3 * LAUNCH_REGS - PREGS) / 2 / 8 * 8;
+  if (threadIdx.x >= CONSUMERS) {  // the producer
+    // stage st's query planes of the item at p, with the stage's expect_tx
+    auto planes = [&](int st, const ws::Pos& p) {
+      mbar_expect_tx(full + 8 * st, L::TX);
+      const uint32_t b = b_ring + st * L::B_BYTES;
+      tma_load_2d(b, &tq, full + 8 * st, p.kk * T::BK, p.q0);
+      if constexpr (T::PLANES == 2)
+        tma_load_2d(b + N * ROW_BYTES, &tq_lo, full + 8 * st, p.kk * T::BK,
+                    p.q0);
+    };
+    if constexpr (PIECE == 0) {  // one warp; lane 0 issues the copies
+      uint32_t n = 0;
+      for (long u = ub; u < ue; ++u) {
+        const int seg = (int)(u / q_tiles), q0 = (int)(u % q_tiles) * N;
+        const long r0 = (long)hot[seg / ns] * bn + (long)(seg % ns) * SEG;
+        bool live[4];
+        if (!segment_live(mask, r0, r0 + SEG, lane, live)) continue;
+        if (lane == 0)
+          for (int k = 0; k < k_iters; ++k, ++n) {
+            const int st = (int)(n % S);
+            mbar_wait(empty + 8 * st, ((n / S) & 1) ^ 1);  // first lap: free
+            planes(st, ws::Pos{r0, k, q0});
+            tma_load_2d(a_ring + st * A_BYTES, &tv.v, full + 8 * st,
+                        k * T::BK, (int)r0);
+          }
+        __syncwarp();
+      }
+    } else {  // cp.async or the realigning producer (wgmma_scan.cuh)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PREGS));
+      // the walk over the items with a live row, a k-stage at a time
+      long u = ub - 1;
+      int kk = k_iters - 1;
+      auto next = [&](ws::Pos& p) {
+        if (u >= ub && u < ue && ++kk < k_iters) {
+          p.kk = kk;
+          return true;
         }
-      __syncwarp();
+        kk = 0;
+        while (++u < ue) {
+          const int seg = (int)(u / q_tiles);
+          const long r0 = (long)hot[seg / ns] * bn + (long)(seg % ns) * SEG;
+          bool live[4];
+          if (segment_live(mask, r0, r0 + SEG, lane, live)) {
+            p = ws::Pos{r0, 0, (int)(u % q_tiles) * N};
+            return true;
+          }
+        }
+        return false;
+      };
+      ws::produce_rows<PIECE, S>(tv, next, planes, a_ring, full, empty,
+                                 base + L::SLOT_OFF, staged, vp, cap,
+                                 row_bytes, T::BK,
+                                 (int)threadIdx.x - CONSUMERS);
     }
     return;
   }
+  if constexpr (PIECE > 0 && CREGS > LAUNCH_REGS)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CREGS));
 
   // consumers: warpgroup g multiplies rows 64 g .. 64 g + 63 of the
   // segment by the query tile. Lane l of warp w holds rows 64 g + 16 w +
@@ -248,8 +323,10 @@ ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
 #pragma unroll
     for (int i = 0; i < ACC; ++i) acc[i] = part[i] = 0;
     for (int k = 0; k < k_iters; ++k, ++n) {
-      const int st = (int)(n % STAGES);
-      mbar_wait(full + 8 * st, (n / STAGES) & 1);
+      const int st = (int)(n % S);
+      mbar_wait(full + 8 * st, (n / S) & 1);
+      if constexpr (PIECE > 0)  // the producer's threads wrote the rows
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       const uint32_t a = a_ring + st * A_BYTES + g * HALF_BYTES;
       const uint32_t bq = b_ring + st * L::B_BYTES;
       if constexpr (T::PLANES == 2)  // 3xTF32: split the warpgroup's rows
@@ -325,9 +402,9 @@ ivf_segmax_wgmma_kernel(const __grid_constant__ CUtensorMap tv,
 
 // The persistent grid's CTAs on the current device: as many as fit an SM
 // (at most two: launch bounds) times the SM count. Worked out at a
-// device's first launch of <T, N> and kept: the attribute and occupancy
-// queries take the host longer than the launch itself.
-template <class T, int N>
+// device's first launch of an instantiation and kept: the attribute and
+// occupancy queries take the host longer than the launch itself.
+template <class T, int N, int S, int PIECE>
 int grid_ctas(int* ctas) {
   constexpr int MAX_DEVICES = 64;
   static std::atomic<int> known[MAX_DEVICES];  // 0: not yet worked out
@@ -335,16 +412,16 @@ int grid_ctas(int* ctas) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < MAX_DEVICES && (*ctas = known[dev].load()) > 0) return 0;
-  constexpr int smem = Smem<T, N>::BYTES;
-  auto kernel = ivf_segmax_wgmma_kernel<T, N>;
+  constexpr int smem = Smem<T, N, S, PIECE>::BYTES;
+  auto kernel = ivf_segmax_wgmma_kernel<T, N, S, PIECE>;
   int sms = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                      smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, threads_of(PIECE), smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   *ctas = std::min(per_sm, 2) * sms;
@@ -352,47 +429,65 @@ int grid_ctas(int* ctas) {
   return 0;
 }
 
-// Encodes the maps (tv: boxes of 128 bytes x 128 rows; tq and, for
-// float32, tq_lo: 128 bytes x N rows) and launches the persistent grid.
-template <class T, int N>
-int launch(const void* q, const void* q_lo, const void* v, const void* mask,
-           const void* hot, const void* n_hot, void* keys, int Q,
-           long long cap, int dim, int bn, int grid_b, int per_seg,
+// Encodes the maps (tv: TMA's, boxes of 128 bytes x 128 rows, or the
+// realigning producer's class maps; tq and, for float32, tq_lo: 128 bytes
+// x N rows of the planes (Q, qld)) and launches the persistent grid.
+template <class T, int N, int S, int PIECE>
+int launch(const void* q, const void* q_lo, int qld, const void* v,
+           const void* mask, const void* hot, const void* n_hot, void* keys,
+           int Q, long long cap, int dim, int bn, int grid_b, int per_seg,
            cudaStream_t stream) {
   wg::EncodeTiled enc;
   int err = wg::encoder(&enc);
   if (err) return err;
-  CUtensorMap tv, tq, tq_lo;
-  if ((err = wg::encode_rows<T>(enc, &tv, v, cap, dim, ROWS))) return err;
-  if ((err = wg::encode_rows<T>(enc, &tq, q, Q, dim, N))) return err;
+  ws::RowMapsOf<PIECE> tv{};
+  CUtensorMap tq, tq_lo;
+  if constexpr (PIECE == 0) {
+    if ((err = wg::encode_rows<T>(enc, &tv.v, v, cap, dim, ROWS))) return err;
+  } else if constexpr (PIECE == 2) {
+    if ((err = ws::row_classes<T>(enc, &tv, v, cap, dim))) return err;
+  }
+  if ((err = wg::encode_rows<T>(enc, &tq, q, Q, qld, N))) return err;
   if constexpr (T::PLANES == 2) {
-    if ((err = wg::encode_rows<T>(enc, &tq_lo, q_lo, Q, dim, N))) return err;
+    if ((err = wg::encode_rows<T>(enc, &tq_lo, q_lo, Q, qld, N))) return err;
   } else {
     tq_lo = tq;  // not read
   }
   int ctas = 0;
-  if ((err = grid_ctas<T, N>(&ctas))) return err;
+  if ((err = grid_ctas<T, N, S, PIECE>(&ctas))) return err;
   const int q_tiles = (Q + N - 1) / N;
-  const int k_iters = (dim * T::ELEM_BYTES + ROW_BYTES - 1) / ROW_BYTES;
-  ivf_segmax_wgmma_kernel<T, N><<<ctas, THREADS, Smem<T, N>::BYTES, stream>>>(
-      tv, tq, tq_lo, static_cast<const uint8_t*>(mask),
-      static_cast<const int*>(hot), static_cast<const int*>(n_hot),
-      static_cast<int*>(keys), Q, bn, grid_b, per_seg, q_tiles, k_iters);
+  const long long row_bytes = (long long)dim * T::ELEM_BYTES;
+  const int k_iters = (int)((row_bytes + ROW_BYTES - 1) / ROW_BYTES);
+  ivf_segmax_wgmma_kernel<T, N, S, PIECE>
+      <<<ctas, threads_of(PIECE), Smem<T, N, S, PIECE>::BYTES, stream>>>(
+          tv, tq, tq_lo, static_cast<const unsigned char*>(v),
+          static_cast<const uint8_t*>(mask), static_cast<const int*>(hot),
+          static_cast<const int*>(n_hot), static_cast<int*>(keys), Q,
+          (long)cap, (long)row_bytes, bn, grid_b, per_seg, q_tiles, k_iters);
   return (int)cudaGetLastError();
 }
 
-template <class T>
+// The query tile (N = 32 at Q <= 32, the route's chunks; else 64) and the
+// ring depth: three stages, two for the realigning producer. The planes
+// (Q, qld), qld = dim rounded up to whole 16 bytes, 16-byte aligned; the
+// rows' bytes and base multiples of the piece (16 for TMA, 2: any).
+template <class T, int PIECE>
 int launch_kind(const void* q, const void* q_lo, const void* v,
                 const void* mask, const void* hot, const void* n_hot,
                 void* keys, int Q, long long cap, int dim, int bn, int grid_b,
                 int per_seg, cudaStream_t s) {
-  if ((long long)dim * T::ELEM_BYTES % 16 ||
-      ((uintptr_t)q | (uintptr_t)v | (uintptr_t)(T::PLANES == 2 ? q_lo : q)) % 16)
+  constexpr int S = PIECE == 2 ? REALIGN_STAGES : STAGES;
+  const int qld = ws::plane_ld(dim, T::ELEM_BYTES);
+  const int align = PIECE == 0 ? 16 : PIECE == 2 ? 1 : PIECE;
+  if ((long long)dim * T::ELEM_BYTES % align || (uintptr_t)v % align ||
+      ((uintptr_t)q | (uintptr_t)(T::PLANES == 2 ? q_lo : q)) % 16)
     return (int)cudaErrorInvalidValue;
-  return Q <= 32 ? launch<T, 32>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
-                                 dim, bn, grid_b, per_seg, s)
-                 : launch<T, 64>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
-                                 dim, bn, grid_b, per_seg, s);
+  return Q <= 32 ? launch<T, 32, S, PIECE>(q, q_lo, qld, v, mask, hot, n_hot,
+                                           keys, Q, cap, dim, bn, grid_b,
+                                           per_seg, s)
+                 : launch<T, 64, S, PIECE>(q, q_lo, qld, v, mask, hot, n_hot,
+                                           keys, Q, cap, dim, bn, grid_b,
+                                           per_seg, s);
 }
 
 }  // namespace sg
@@ -400,36 +495,44 @@ int launch_kind(const void* q, const void* q_lo, const void* v,
 }  // namespace pv
 
 // K8 on the tensor cores: pv_ivf_segmax's contract (ops/ivf.py::
-// ivf_segmax_scan), for rows of whole 16 bytes and 16-byte aligned bases.
-// kind 0: float32 postings, q the queries' hi plane and q_lo their lo
-// plane (ops/scan.py::split_tf32); 1: bf16 postings and q; 2: column-scaled
-// int8 postings and folded int8 q (q_lo unused). postings (cap, dim) with
-// cap % bn == 0 and bn % 128 == 0, mask (cap,) uint8, hot (grid_b,) int32
-// tile ids in [0, cap / bn), n_hot (1,) int32 on the device -> keys (Q,
-// grid_b * per_seg * bn / 128) int32; per_seg in 1..8. Returns 0, a
-// cudaError_t, or minus the CUresult of a refused tensor-map encode.
-extern "C" int pv_ivf_segmax_wgmma(int kind, const void* q, const void* q_lo,
-                                   const void* v, const void* mask,
-                                   const void* hot, const void* n_hot,
-                                   void* keys, int Q, long long cap, int dim,
-                                   int bn, int grid_b, int per_seg,
-                                   void* stream) {
+// ivf_segmax_scan) at every postings width and base. piece: the rows'
+// producer (ops/scan.py::rows_piece): 0 TMA (row bytes and v's base
+// multiples of 16), 8 or 4 cp.async (multiples of piece), 2 the realigning
+// producer (kinds 1 and 2, any width and base). kind 0: float32 postings,
+// q the queries' hi plane and q_lo their lo plane (ops/scan.py::
+// split_tf32); 1: bf16 postings and q; 2: column-scaled int8 postings and
+// folded int8 q (q_lo unused); the planes
+// (Q, qld), qld = dim rounded up to whole 16 bytes, zeros past dim,
+// 16-byte aligned. postings (cap, dim) with cap % bn == 0 and bn % 128 ==
+// 0, mask (cap,) uint8, hot (grid_b,) int32 tile ids in [0, cap / bn),
+// n_hot (1,) int32 on the device -> keys (Q, grid_b * per_seg * bn / 128)
+// int32; per_seg in 1..8. Returns 0, a cudaError_t, or minus the CUresult
+// of a refused tensor-map encode.
+extern "C" int pv_ivf_segmax_wgmma(int piece, int kind, const void* q,
+                                   const void* q_lo, const void* v,
+                                   const void* mask, const void* hot,
+                                   const void* n_hot, void* keys, int Q,
+                                   long long cap, int dim, int bn, int grid_b,
+                                   int per_seg, void* stream) {
   using namespace pv;
   using namespace pv::sg;
   if (Q <= 0 || grid_b <= 0) return (int)cudaSuccess;
   if (bn <= 0 || bn % SEG || cap % bn || per_seg < 1 || per_seg > 8 ||
-      dim <= 0)
+      dim <= 0 || kind < 0 || kind > 2 || (kind == 0 && !q_lo))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (kind == 0)
-    return q_lo ? launch_kind<F32>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
-                                   dim, bn, grid_b, per_seg, s)
-                : (int)cudaErrorInvalidValue;
-  if (kind == 1)
-    return launch_kind<Bf16>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap, dim,
-                             bn, grid_b, per_seg, s);
-  if (kind == 2)
-    return launch_kind<Int8>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap, dim,
-                             bn, grid_b, per_seg, s);
-  return (int)cudaErrorInvalidValue;
+  return ws::with_piece(piece, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    if (kind == 1)
+      return launch_kind<Bf16, P>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
+                                  dim, bn, grid_b, per_seg, s);
+    if (kind == 2)
+      return launch_kind<Int8, P>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
+                                  dim, bn, grid_b, per_seg, s);
+    if constexpr (P == 2)  // float32 rows are whole 4 bytes
+      return (int)cudaErrorInvalidValue;
+    else
+      return launch_kind<F32, P>(q, q_lo, v, mask, hot, n_hot, keys, Q, cap,
+                                 dim, bn, grid_b, per_seg, s);
+  });
 }

@@ -40,8 +40,10 @@
 // A first, simple kernel: no tensor cores, no TMA, no pipelining yet.
 //
 // K7 ivf_scan_topk (pv_ivf_scan_topk, below) is the same kernel over the
-// IVF tier's hot tiles, for the shapes its one-query sweep (sweep_topk.cu:
-// Q <= 16, k <= 128, rows of 16-byte words) does not take. It replaces
+// IVF tier's hot tiles, K7's first port: up to 64M postings rows its
+// sweeps, tensor-core scan and wide kind take every shape at every width
+// and base (ops/ivf.py's ready rules), so it serves only k > 128 past
+// that slab budget, and chip_smoke.py times the kinds against it. It replaces
 // picovdb_tpu/ops/ivf.py:probe_scan_local (`_ivf_kernel`,
 // `_ivf_kernel_i8c`): a "chunk" is one postings tile of
 // `bn` rows, named by the device table hot[c]; blocks with c >= *n_hot

@@ -9,7 +9,9 @@
 // The query planes always arrive by TMA (the launchers pad them to whole
 // 16 bytes). The rows take one of three producers (PIECE), as K1's
 // mainloop does (wgmma_tiles.cuh), each writing the very bytes TMA's 128B
-// swizzle lays out, so the consumers and the epilogues are the same:
+// swizzle lays out, so the consumers and the epilogues are the same (the
+// cp.async and realigning producers are wgmma_scan.cuh's `produce_rows`,
+// which K8's segment scan shares):
 //  * PIECE 0: TMA, one producer warp, for rows of whole 16 bytes at a
 //    16-byte aligned base;
 //  * PIECE 8 / 4: a producer warpgroup copying each stage's 128 rows by
@@ -63,39 +65,17 @@ constexpr int CONSUMERS = 256;                 // warpgroups 0 and 1
 constexpr int CONSUMER_WARPS = 8;
 constexpr int CONSUMER_BAR = 1;  // named barriers: 1 the consumers, 2 + g
                                  // warpgroup g's split, 4 the producer
-constexpr int PRODUCER_BAR = 4;  // warpgroup's (PIECE 2)
-constexpr int PRODUCERS = 128;   // the cp.async / realigning warpgroup
+using ws::PRODUCERS;             // warpgroup's (PIECE 2: ws::PRODUCER_BAR)
+using ws::RowClasses;
+using ws::RowMapsOf;
+using ws::RSLOT;
+using ws::RSLOTS;
 
 // Threads of the kernel with the rows' producer PIECE: one producer warp
 // for TMA, a warpgroup for the others.
 __host__ __device__ constexpr int threads_of(int piece) {
   return CONSUMERS + (piece ? PRODUCERS : 32);
 }
-
-// The realigning producer (PIECE 2): RCLASSES classes of rows, 8 rows of
-// each a segment, each staged as its 144-byte span (128 bytes and up to 15
-// before them); two staging slots of 18 KB.
-constexpr int RCLASSES = 16;
-constexpr int RCLASS_ROWS = ROWS / RCLASSES;
-constexpr int RSTAGE_ROW = 144;
-constexpr int RSLOT = ROWS * RSTAGE_ROW;
-constexpr int RSLOTS = 2;
-
-// The rows' maps: TMA's (PIECE 0; unused by the cp.async producer), or
-// the realigning producer's class maps, each class's `off` (bytes between
-// its map's base and its first row; -1: the matrix has no row of the
-// class) and the bytes of a slot's boxes.
-struct RowTma {
-  CUtensorMap v;
-};
-struct RowClasses {
-  CUtensorMap v[RCLASSES];
-  int off[RCLASSES];
-  uint32_t slot_bytes;
-};
-template <int PIECE>
-using RowMapsOf =
-    typename std::conditional<PIECE == 2, RowClasses, RowTma>::type;
 
 // Row kinds: BK elements a k-stage, the TMA type, the query planes; INT:
 // s8 wgmma into one int32 sum a row, SCALED: times the row's scale into a
@@ -290,53 +270,6 @@ __device__ __forceinline__ void retire(float (&part)[A], float (&acc)[A],
   for (int i = 0; i < A; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
 }
 
-// The realigning producer's elected thread: the classes' boxes of the
-// segment at row r0 (a multiple of 128), k-stage kk (BK elements), into
-// the slot at `slot`, reported to `bar`.
-__device__ __forceinline__ void stage_rows(const RowClasses& m, uint32_t slot,
-                                           uint32_t bar, long r0, int kk,
-                                           int bk) {
-  mbar_expect_tx(bar, m.slot_bytes);
-#pragma unroll 1
-  for (int c = 0; c < RCLASSES; ++c)
-    if (m.off[c] >= 0)
-      tma_load_2d(slot + c * RCLASS_ROWS * RSTAGE_ROW, &m.v[c], bar, kk * bk,
-                  (int)(r0 / RCLASSES));
-}
-
-// Thread t (of the producer warpgroup's 128) moves 16-byte piece c = t % 8
-// of the segment's rows j, j + 16, ..., j = t / 8 (all of class j, whose
-// box holds them at j * 8 * RSTAGE_ROW), from the slot at `src` to the
-// stage at `dst`, 128B-swizzled as TMA lays out a box of 128-byte rows:
-// row r at r * 128, its chunk c at chunk c ^ (r % 8). `off` (bytes) the
-// class's shift; < 0 where the class has no row: zeros.
-__device__ __forceinline__ void realign_rows(uint32_t dst, uint32_t src, int t,
-                                             int off) {
-  constexpr int BATCH = 4;  // rows whose shared loads issue together
-  const int c = t % 8, j = t / 8;
-  const uint32_t from = src + j * RCLASS_ROWS * RSTAGE_ROW + 16 * c;
-#pragma unroll
-  for (int i0 = 0; i0 < RCLASS_ROWS; i0 += BATCH) {
-    uint4 lo[BATCH], hi[BATCH];
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const uint32_t a = from + (i0 + u) * RSTAGE_ROW;
-      lo[u] = wg::ld_shared_v4(a);
-      hi[u] = wg::ld_shared_v4(a + 16);
-    }
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const int r = j + RCLASSES * (i0 + u);
-      const uint4 v = off >= 0 ? wg::shift_pair(lo[u], hi[u], off)
-                               : make_uint4(0, 0, 0, 0);
-      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       dst + r * ROW_BYTES + ((c ^ (r & 7)) << 4)),
-                   "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-                   : "memory");
-    }
-  }
-}
-
 // A producer's walk over its range's segments that hold a live row, a
 // k-stage at a time: next() moves to the next (segment, k-stage) and
 // returns false past the range's end. Start at seg = first segment - 1,
@@ -441,8 +374,8 @@ scan_topk_wgmma_kernel(const __grid_constant__ RowMapsOf<PIECE> tv,
         tma_load_2d(b + 2 * L::PLANE_BYTES, &tq2, full + 8 * st, kk * T::BK,
                     q0);
     };
-    uint32_t n = 0;
     if constexpr (PIECE == 0) {  // one warp; lane 0 issues the copies
+      uint32_t n = 0;
       for (long seg = sb; seg < se; ++seg) {
         const long r0 = segment_row(map, seg);
         bool live[4];
@@ -457,67 +390,18 @@ scan_topk_wgmma_kernel(const __grid_constant__ RowMapsOf<PIECE> tv,
           }
         __syncwarp();
       }
-    } else if constexpr (PIECE == 2) {
-      const uint32_t slots = base + L::SLOT_OFF;
-      const int off = tv.off[t / 8];  // this thread's rows' class shift
-      // one walk: the elected thread stages each (segment, k-stage) into
-      // the next slot as the walk reaches it, RSLOTS ahead of the shifts,
-      // and the slot keeps its k-stage (valid: the walk had not ended)
+    } else {  // cp.async or the realigning producer (wgmma_scan.cuh)
       Walk w{sb - 1, se, 0, k_iters - 1, k_iters};
-      bool valid[RSLOTS];
-      int kks[RSLOTS];
-#pragma unroll
-      for (int s = 0; s < RSLOTS; ++s) {
-        valid[s] = w.next(map, mask, cap, lane);
-        kks[s] = w.kk;
-        if (valid[s] && t == 0)
-          stage_rows(tv, slots + s * RSLOT, staged + 8 * s, w.r0, w.kk,
-                     T::BK);
-      }
-      static_assert(RSLOTS == 2, "two slots, alternating");
-      uint32_t sphase = 0;
-      for (int slot = 0; valid[0] || valid[1]; slot ^= 1) {
-        const bool on = slot ? valid[1] : valid[0];
-        if (!on) break;  // the walk ended in this slot
-        const int kk = slot ? kks[1] : kks[0];
-        const int st = (int)(n % S);
-        const uint32_t from = slots + slot * RSLOT;
-        mbar_wait(staged + 8 * slot, sphase);          // the boxes landed
-        mbar_wait(empty + 8 * st, ((n / S) & 1) ^ 1);  // first lap: free
-        if (t == 0) planes(st, kk);
-        realign_rows(a_ring + st * A_BYTES, from, t, off);
-        // the stores, for wgmma's async proxy, then this thread's arrival
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        mbar_arrive(full + 8 * st);
-        ws::named_sync(PRODUCER_BAR, PRODUCERS);  // every thread read it
-        const bool more = w.next(map, mask, cap, lane);
-        if (more && t == 0) {
-          // the slot's generic reads before TMA's writes (async proxy)
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          stage_rows(tv, from, staged + 8 * slot, w.r0, w.kk, T::BK);
-        }
-        if (slot) {
-          valid[1] = more;
-          kks[1] = w.kk;
-          sphase ^= 1;
-        } else {
-          valid[0] = more;
-          kks[0] = w.kk;
-        }
-        ++n;
-      }
-    } else {  // cp.async in pieces of PIECE bytes, then each thread arrives
-      Walk w{sb - 1, se, 0, k_iters - 1, k_iters};
-      const long row_bytes = (long)dim * T::ELEM_BYTES;
-      while (w.next(map, mask, cap, lane)) {
-        const int st = (int)(n % S);
-        mbar_wait(empty + 8 * st, ((n / S) & 1) ^ 1);  // first lap: free
-        if (t == 0) planes(st, w.kk);
-        wg::cp_stage<PIECE, ROWS>(a_ring + st * A_BYTES, vp + w.r0 * row_bytes,
-                                  cap - w.r0, row_bytes, w.kk, t);
-        wg::cp_async_arrive(full + 8 * st);
-        ++n;
-      }
+      auto next = [&](ws::Pos& p) {
+        if (!w.next(map, mask, cap, lane)) return false;
+        p.r0 = w.r0;
+        p.kk = w.kk;
+        return true;
+      };
+      ws::produce_rows<PIECE, S>(
+          tv, next, [&](int st, const ws::Pos& p) { planes(st, p.kk); },
+          a_ring, full, empty, base + L::SLOT_OFF, staged, vp, cap,
+          (long)dim * T::ELEM_BYTES, T::BK, t);
     }
     return;
   }
@@ -666,113 +550,14 @@ scan_topk_wgmma_kernel(const __grid_constant__ RowMapsOf<PIECE> tv,
   }
 }
 
-// The realigning producer's map of class j of the (rows, dim) row-major
-// matrix of T's elements at `ptr` (any row bytes, any base): rows j, j +
-// RCLASSES, ... as a 2D tensor of stride RCLASSES row bytes, based at row
-// j's start aligned down to 16 bytes, read in boxes of RSTAGE_ROW bytes x
-// RCLASS_ROWS rows, unswizzled, out-of-bounds elements zero; `*off` the
-// bytes between its base and row j's start, -1 (and no map) where the
-// matrix has no row j. TMA reads only the 16-byte chunks that hold a byte
-// of the class's rows. 0, or minus the CUresult of a refused encode.
-template <class T>
-int encode_row_class(wg::EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                     long long rows, int dim, int j, int* off) {
-  if (rows <= j) {
-    *off = -1;
-    return 0;
-  }
-  const long long row_bytes = (long long)dim * T::ELEM_BYTES;
-  const uintptr_t start = (uintptr_t)ptr + j * row_bytes;
-  const uintptr_t base = start & ~(uintptr_t)15;
-  *off = (int)(start - base);
-  const cuuint64_t gdim[2] = {
-      (cuuint64_t)((row_bytes + *off) / T::ELEM_BYTES),
-      (cuuint64_t)((rows - j + RCLASSES - 1) / RCLASSES)};
-  const cuuint64_t gstride[1] = {(cuuint64_t)(RCLASSES * row_bytes)};
-  const cuuint32_t box[2] = {(cuuint32_t)(RSTAGE_ROW / T::ELEM_BYTES),
-                             (cuuint32_t)RCLASS_ROWS};
-  const cuuint32_t estride[2] = {1, 1};
-  const CUresult r = enc(map, T::TMA_TYPE, 2, reinterpret_cast<void*>(base),
-                         gdim, gstride, box, estride,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_NONE,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
-}
-
-// The realigning producer's class maps of the (cap, dim) rows at v. A
-// map holds only the base, the shape and the strides, so the last few
-// matrices' maps are kept and reused instead of sixteen host encodes a
-// launch: keyed by (v, cap, dim), a cache for each row type.
-template <class T>
-int row_classes(wg::EncodeTiled enc, RowClasses* out, const void* v,
-                long long cap, int dim) {
-  struct Entry {
-    const void* v;
-    long long cap;
-    int dim;
-    RowClasses maps;
-  };
-  static Entry cache[4];
-  static int used = 0;
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i)
-    if (cache[i].v == v && cache[i].cap == cap && cache[i].dim == dim) {
-      *out = cache[i].maps;
-      return 0;
-    }
-  RowClasses m{};
-  for (int j = 0; j < RCLASSES; ++j) {
-    const int err = encode_row_class<T>(enc, &m.v[j], v, cap, dim, j,
-                                        &m.off[j]);
-    if (err) return err;
-    if (m.off[j] >= 0) m.slot_bytes += RCLASS_ROWS * RSTAGE_ROW;
-  }
-  Entry& e = cache[used < 4 ? used++ : (int)(((uintptr_t)v >> 8) % 4)];
-  e = Entry{v, cap, dim, m};
-  *out = m;
-  return 0;
-}
-
-// K3's int8 queries (Q, dim) as TMA reads them: `*q` itself where its
-// rows are whole 16 bytes at a 16-byte aligned base; else copied to dst
-// as rows of dim rounded up to 16 bytes, zeros past dim (a memset and one
-// 2D copy on the stream, in the launcher's scratch), and `*q` set to dst.
+// K3's int8 queries (Q, dim) as TMA reads them (ws::tma_rows).
 inline cudaError_t tma_queries(const void** q, void* dst, int Q, int dim,
                                cudaStream_t s) {
-  if (dim % 16 == 0 && (uintptr_t)*q % 16 == 0) return cudaSuccess;
-  const int qld = (dim + 15) / 16 * 16;
-  cudaError_t e = cudaMemsetAsync(dst, 0, (size_t)Q * qld, s);
-  if (e == cudaSuccess)
-    e = cudaMemcpy2DAsync(dst, qld, *q, dim, dim, Q, cudaMemcpyDeviceToDevice,
-                          s);
-  if (e == cudaSuccess) *q = dst;
-  return e;
+  return ws::tma_rows(q, dst, Q, dim, 1, s);
 }
 
-// Elements of a query plane's row for rows of `dim` elements of `es`
-// bytes: dim rounded up to whole 16 bytes, which TMA reads (the launchers
-// pad the planes to it, zeros past dim).
-inline int plane_ld(int dim, int es) {
-  const int per = 16 / es;
-  return (dim + per - 1) / per * per;
-}
-
-// Calls f with the rows' producer `piece` (0 TMA, 8 / 4 cp.async, 2 the
-// realigning producer; ops/scan.py::rows_piece) as a
-// std::integral_constant; any other piece is refused.
-template <class F>
-int with_piece(int piece, F&& f) {
-  switch (piece) {
-    case 0: return f(std::integral_constant<int, 0>());
-    case 8: return f(std::integral_constant<int, 8>());
-    case 4: return f(std::integral_constant<int, 4>());
-    case 2: return f(std::integral_constant<int, 2>());
-  }
-  return (int)cudaErrorInvalidValue;
-}
+using ws::plane_ld;
+using ws::with_piece;
 
 // Encodes the maps, sizes the grid (ops/scan.py::topk_wgmma_partition at
 // a query tile of N, over ceil(cap / 128) segments, or over the hot
@@ -805,7 +590,7 @@ int launch_scan_rows(const void* planes, size_t plane, int qld, const void* v,
     if (cap > 0 && (err = wg::encode_rows<T>(enc, &tv.v, v, cap, dim, ROWS)))
       return err;
   } else if constexpr (PIECE == 2) {
-    if ((err = row_classes<T>(enc, &tv, v, cap, dim))) return err;
+    if ((err = ws::row_classes<T>(enc, &tv, v, cap, dim))) return err;
   }
   for (int p = 0; p < 3; ++p) {
     if (p >= T::PLANES) {  // F32 reads two planes, the rest one
@@ -844,17 +629,6 @@ int launch_scan_rows(const void* planes, size_t plane, int qld, const void* v,
   return (int)cudaGetLastError();
 }
 
-// launch_scan_rows by TMA, the planes of (Q, dim) as they lie.
-template <class T, int N, int S, int BUF>
-int launch_scan(const void* planes, size_t plane, const void* v,
-                const void* mask, const float* vscale, void* partial, int Q,
-                long long cap, int dim, int k, const Rows& map,
-                int* ranges_out, cudaStream_t stream) {
-  return launch_scan_rows<T, N, S, BUF, 0>(planes, plane, dim, v, mask, vscale,
-                                           partial, Q, cap, dim, k, map,
-                                           ranges_out, stream);
-}
-
 // launch_scan_rows with its planes (Q, qld) back to back, then the merge
 // of the ranges' partials (Int8C's keys carry int32 scores).
 template <class T, int N, int S, int BUF, int PIECE>
@@ -872,16 +646,6 @@ int launch_rows(const void* planes, int qld, const void* v, const void* mask,
                                 static_cast<int*>(idx), Q, ranges * k, k,
                                 stream,
                                 std::is_same<typename T::Score, int>::value);
-}
-
-// launch_rows by TMA, the planes of (Q, dim) as they lie.
-template <class T, int N, int S, int BUF>
-int launch(const void* planes, const void* v, const void* mask,
-           const float* vscale, void* partial, void* vals, void* idx, int Q,
-           long long cap, int dim, int k, const Rows& map,
-           cudaStream_t stream) {
-  return launch_rows<T, N, S, BUF, 0>(planes, dim, v, mask, vscale, partial,
-                                      vals, idx, Q, cap, dim, k, map, stream);
 }
 
 }  // namespace tk

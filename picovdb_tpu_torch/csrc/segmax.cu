@@ -286,7 +286,10 @@ segmax_i8c_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
 // `per_seg` packed keys.
 //
 // Replaces picovdb_tpu/ops/ivf.py:probe_scan_segmax (`_ivf_segmax_kernel`,
-// `_ivf_segmax_kernel_i8c`). A block scores BQ queries against segment s of
+// `_ivf_segmax_kernel_i8c`): K8's first port, which serves no dispatch
+// since the tensor-core segment scan (ivf_segmax_wgmma.cu) takes every
+// postings width and base; chip_smoke.py times that scan against it. A
+// block scores BQ queries against segment s of
 // postings tile hot[b] (rows hot[b] * bn + s * 128 ..), the tile named by a
 // device table, and keeps each query's `per_seg` (<= 8) largest keys of
 // the segment. Keys are K1's: sortable float32 bits (the int8 kind: the

@@ -20,8 +20,10 @@
 //    the serial Q = 1 loop; pv_scan_topk kind 4 serves its other shapes;
 //  * picovdb_tpu/ops/ivf.py:probe_scan_local (`_ivf_kernel`,
 //    `_ivf_kernel_i8c`, K7), the IVF ladder over the hot tiles that a
-//    device table names, at Q <= 16 (a Q = 1 probe and the small batches);
-//    pv_ivf_scan_topk (scan_topk.cu) serves k > 128 and Q > 16.
+//    device table names, at Q <= 16 (a Q = 1 probe and the small batches),
+//    and through `sweep_narrow_kernel` at every postings width and base
+//    (ivf_scan_wgmma.cu and ivf_scan_wide.cu serve larger batches and k >
+//    128).
 // All compute what their templates compute: per query the k best masked
 // rows, one partial of k keys per CTA, merged by launch_topk_merge. Five
 // element kinds: column-scaled int8 rows x folded int8 queries ranked on
@@ -63,17 +65,20 @@
 //    128-row tile at once (one ballot). No barrier inside a tile. A K7
 //    group maps to physical rows through the table once: shares start on
 //    a multiple of SHARE rows, so a group never crosses a hot tile.
-//  * K3's rows at any width and base (`sweep_narrow_kernel`, the narrow
-//    kind): a row of `dim` bytes lies at byte phase p = (v + row dim) % 16
-//    of its 16-byte words. The CTA keeps P = 16 / g phase copies of each
-//    query (g the largest power of two <= 16 dividing dim and v's base):
-//    copy j holds j g zero bytes, the query, zeros to W whole words. A warp
-//    reads each row as the aligned words that hold a byte of it, so a warp
-//    still reads contiguous 16-byte words, and meets them with the copy of
-//    the row's phase: the bytes of a neighbouring row in a shared word meet
-//    zeros. No read leaves the 16-byte chunks that hold a byte of the row.
-//    The int32 sums, keys and selection are Int8R's, so it is bit for bit
-//    the plain version too.
+//  * K3's and K7's rows at any width and base (`sweep_narrow_kernel`, the
+//    narrow kind; K7's float32, bf16 and column-scaled int8 postings over
+//    the hot tiles' shares): a row of `rb` bytes lies at byte phase p = (v
+//    + row rb) % 16 of its 16-byte words. The CTA keeps P = 16 / g phase
+//    copies of each query (g the largest power of two <= 16 dividing rb
+//    and v's base, a multiple of the element's bytes): copy j holds j g
+//    zero bytes, the query, zeros to W whole words. A warp reads each row
+//    as the aligned words that hold a byte of it, so a warp still reads
+//    contiguous 16-byte words, and meets them with the copy of the row's
+//    phase: the bytes of a neighbouring row in a shared word meet zeros
+//    (the float kinds zero them in the word too: 0 x NaN is NaN). No read
+//    leaves the 16-byte chunks that hold a byte of the row. The sums, keys
+//    and selection are the kind's, so it is bit for bit the plain version
+//    for the int8 kinds too.
 //  * Selection behind a threshold: per query a shared buffer of BUF keys
 //    admits only keys above the running k-th best (`tau`); after each tile
 //    the CTA compacts (compact_buffers) when a buffer could overflow in
@@ -103,6 +108,10 @@ constexpr int SHARE = 16;        // ops/ivf.py IVF_SWEEP_SHARE: K7's share unit
 // the narrow kind's shared memory (query block, buffers, tau and counts):
 // two CTAs an SM (ops/scan.py NARROW_SMEM_BYTES)
 constexpr size_t NARROW_SMEM_BYTES = 112 << 10;
+// K7's kinds in the packed layout: steps whose words a lane loads
+// together, and queries a group of sums (K3's: every step, every query)
+constexpr int NARROW_LOADS = 4;
+constexpr int NARROW_QG = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Element kinds: a 16-byte word of a row holds EPW elements; `dot` adds a
@@ -424,30 +433,84 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
   }
 }
 
-// K3's narrow kind: Int8R over int8 rows at any width and base. The
-// query block holds P phase copies of each of the QT queries, copy j at
-// (j QT + qq) W words: j g zero bytes, the query's dim bytes, zeros (lg:
-// log2 g, g = 16 / P). Row r's words are the W_r = ceil((p_r + dim) / 16)
-// aligned words from (v + r dim) / 16 on (`vw` the 16-byte aligned base
-// below v), met with copy p_r / g. L == 0: the row groups, the mask
-// ballot and the warp sums of sweep_topk_kernel<Int8R>. L > 0 (rows of
-// at most 16 words, W <= L, a power of two): a warp's 16 rows of
-// a tile in L / 2 steps of 32 / L rows, L lanes a row and a word a lane,
-// every step's word loaded before the first product, each sum over its L
-// lanes by xor shuffles: at dim 100 (7 words a row) the row-group layout
-// kept 7 of 32 lanes loading. The keys and the selection are Int8R's.
-template <int QT, int BUF>
-__global__ void __launch_bounds__(SW_THREADS, CTAS_PER_SM)
-sweep_narrow_kernel(const int8_t* __restrict__ q,
+// Zeros the bytes of a 16-byte word outside [lo, hi) (float kinds: the
+// narrow sweep's row words may hold a neighbour's elements, which meet
+// zero query bytes but could carry a NaN's or an infinity's bits; the
+// integer kinds' products with zero are zero, so they keep the word).
+template <class K>
+__device__ __forceinline__ uint4 clip_word(uint4 x, int lo, int hi) {
+  if constexpr (std::is_same<typename K::Acc, int>::value) {
+    return x;
+  } else {
+    if (lo <= 0 && hi >= 16) return x;
+    uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int a = min(max(lo - 4 * i, 0), 4), b = min(max(hi - 4 * i, 0), 4);
+      const uint32_t up = b >= 4 ? 0xffffffffu : (1u << (8 * b)) - 1u;
+      const uint32_t dn = a >= 4 ? 0xffffffffu : (1u << (8 * a)) - 1u;
+      w[i] &= up & ~dn;
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// A (query, row) sum's selection key: Int8R's scaled score (the
+// template's line, scan_topk.cu), else the kind's key.
+template <class K>
+__device__ __forceinline__ u64 narrow_key(typename K::Acc s, float sc,
+                                          uint32_t row) {
+  if constexpr (K::ROW_SCALE)
+    return row_key(__fmul_rn(__int2float_rn(s), sc), row);
+  else
+    return K::key(s, row);
+}
+
+// CTAs an SM the narrow sweep's registers leave room for: two, but one
+// for K7's kinds at a 16-query tile, whose sums and query words do not fit
+// the 128 registers two CTAs of 256 threads allow.
+template <class K>
+__host__ __device__ constexpr int narrow_ctas_per_sm(int qt) {
+  return qt >= 16 && !K::ROW_SCALE ? 1 : CTAS_PER_SM;
+}
+
+// The narrow sweep: kind K (Int8R: K3's per-row-scaled int8 rows; Int8C,
+// F32, Bf16: K7's column-scaled int8, float32 and bf16 postings) over rows
+// of `rb` bytes at any base, the rows `rows` names (K3 flat ranges, K7 a
+// share of the live hot tiles, whose 16-row units keep a warp's rows in one
+// tile). The query block holds P phase copies of each of the QT queries,
+// copy j at (j QT + qq) W words: j g zero bytes, the query's rb bytes,
+// zeros (lg: log2 g, g = 16 / P, a multiple of the element's bytes). Row
+// r's words are the W_r = ceil((p_r + rb) / 16) aligned words from (v + r
+// rb) / 16 on (`vw` the 16-byte aligned base below v), met with copy p_r /
+// g; a float kind zeroes the bytes of its first and last word that are not
+// the row's (`clip_word`). L == 0: the row groups, the mask ballot and the
+// warp sums of sweep_topk_kernel. L > 0 (rows of at most 16 words, W <=
+// L, a power of two): a warp's 16 rows of a tile in L / 2 steps of 32 / L
+// rows, L lanes a row and a word a lane, every step's word loaded before
+// the first product, each sum over its L lanes by xor shuffles: at 100
+// bytes (7 words a row) the row-group layout kept 7 of 32 lanes loading.
+// The keys and the selection are the kind's.
+template <class K, int QT, int BUF>
+__global__ void __launch_bounds__(SW_THREADS, narrow_ctas_per_sm<K>(QT))
+sweep_narrow_kernel(const unsigned char* __restrict__ q,
                     const unsigned char* __restrict__ v,
                     const float* __restrict__ vscale,
                     const uint8_t* __restrict__ mask, const Rows rows,
-                    u64* __restrict__ partial, int Q, int dim, int lg, int W,
+                    u64* __restrict__ partial, int Q, int rb, int lg, int W,
                     int L, int k) {
-  // rows a warp step: 4 up to QT 2, else 2 (each row's own word range
-  // and phase copy take the registers a QT 4 tile of four rows spilled)
-  constexpr int RW = QT <= 2 ? 4 : 2;
+  typedef typename K::Acc Acc;
+  // rows a warp step of the row-group layout: K3's 4 up to QT 2, else 2
+  // (each row's own word range and phase copy take the registers a QT 4
+  // tile of four rows spilled); K7's 2, and 1 from QT 8 on
+  constexpr int RW = K::ROW_SCALE ? (QT <= 2 ? 4 : 2) : QT < 8 ? 2 : 1;
   constexpr int MAX_STEPS = 8;  // L / 2 steps of a packed tile, L <= 16
+  // steps whose words a lane loads before their products, and queries
+  // summed together: all of them for K3's kind; NARROW_LOADS and NARROW_QG
+  // for K7's, whose smaller loop bodies the compiler otherwise pipelines
+  // past the registers (ptxas spilled 16-308 bytes)
+  constexpr int LOADS = K::ROW_SCALE ? MAX_STEPS : NARROW_LOADS;
+  constexpr int QG = K::ROW_SCALE || QT <= NARROW_QG ? QT : NARROW_QG;
   constexpr int GROUPS = WARP_ROWS / RW;
   const int P = 16 >> lg;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -465,8 +528,8 @@ sweep_narrow_kernel(const int8_t* __restrict__ q,
       const int cq = i / wb, b = i - cq * wb;
       const int j = cq / QT, qq = cq - j * QT;
       const int src = b - (j << lg);
-      qb[i] = qq < Q && src >= 0 && src < dim ? (unsigned char)q[qq * dim + src]
-                                              : (unsigned char)0;
+      qb[i] = qq < Q && src >= 0 && src < rb ? q[(long)qq * rb + src]
+                                             : (unsigned char)0;
     }
   }
   if (threadIdx.x < QT) {
@@ -485,73 +548,89 @@ sweep_narrow_kernel(const int8_t* __restrict__ q,
   for (long t0 = rbeg; t0 < rend; t0 += TR) {
     if (L) {  // packed: the warp's rows t0 + 16 warp + [0, 16)
       const long rw0 = t0 + WARP_ROWS * warp;
+      const long pw0 = rw0 < rend ? rows.phys(rw0) : 0;  // one tile's rows
       const uint32_t live = __ballot_sync(
-          FULL, lane < WARP_ROWS && rw0 + lane < rend && mask[rw0 + lane] != 0);
+          FULL, lane < WARP_ROWS && rw0 + lane < rend && mask[pw0 + lane] != 0);
       const int G = 32 / L, steps = WARP_ROWS / G;
       const int c = lane % L, gi = lane / L;  // the lane's word and row
-      uint4 x[MAX_STEPS];
-      float sc[MAX_STEPS];
 #pragma unroll
-      for (int st = 0; st < MAX_STEPS; ++st) {
-        x[st] = zero;
-        sc[st] = 0.0f;
-        const int rr = st * G + gi;
-        if (st < steps && ((live >> rr) & 1u)) {
-          const long b0 = v0 + (rw0 + rr) * dim;
-          if (c < (((int)(b0 & 15) + dim + 15) >> 4))
-            x[st] = __ldg(vw + (b0 >> 4) + c);
-          sc[st] = vscale[rw0 + rr];
+      for (int s0 = 0; s0 < MAX_STEPS; s0 += LOADS) {
+        if (s0 >= steps) break;  // uniform
+        uint4 x[LOADS];
+        float sc[LOADS];
+#pragma unroll
+        for (int u = 0; u < LOADS; ++u) {
+          x[u] = zero;
+          sc[u] = 0.0f;
+          const int rr = (s0 + u) * G + gi;
+          if (s0 + u < steps && ((live >> rr) & 1u)) {
+            const long b0 = v0 + (pw0 + rr) * rb;
+            const int ph = (int)(b0 & 15);
+            if (c < ((ph + rb + 15) >> 4))
+              x[u] = clip_word<K>(__ldg(vw + (b0 >> 4) + c), ph - 16 * c,
+                                  ph + rb - 16 * c);
+            if constexpr (K::ROW_SCALE) sc[u] = vscale[pw0 + rr];
+          }
         }
-      }
 #pragma unroll
-      for (int st = 0; st < MAX_STEPS; ++st) {
-        if (st >= steps) break;  // uniform
-        const int rr = st * G + gi;
-        const int ph = (int)((v0 + (rw0 + rr) * dim) & 15);
-        const uint4* cp = qs + (ph >> lg) * QT * W + c;
-        int acc[QT];
+        for (int u = 0; u < LOADS; ++u) {
+          if (s0 + u >= steps) break;  // uniform
+          const int rr = (s0 + u) * G + gi;
+          const int ph = (int)((v0 + (pw0 + rr) * rb) & 15);
+          const uint4* cp = qs + (ph >> lg) * QT * W + c;
+          // the queries QG at a time: a group's query words, sums and
+          // shuffles stay within the registers
+#pragma unroll 1
+          for (int g0 = 0; g0 < QT; g0 += QG) {
+            Acc acc[QG];
 #pragma unroll
-        for (int qq = 0; qq < QT; ++qq)
-          acc[qq] = Int8R::dot(x[st], c < W ? cp[qq * W] : zero, 0);
-        for (int o = L >> 1; o > 0; o >>= 1)
+            for (int qq = 0; qq < QG; ++qq)
+              acc[qq] = K::dot(x[u], c < W ? cp[(g0 + qq) * W] : zero, Acc(0));
+            for (int o = L >> 1; o > 0; o >>= 1)
 #pragma unroll
-          for (int qq = 0; qq < QT; ++qq)
-            acc[qq] += __shfl_xor_sync(FULL, acc[qq], o);
-        if ((live >> rr) & 1u)
+              for (int qq = 0; qq < QG; ++qq)
+                acc[qq] += __shfl_xor_sync(FULL, acc[qq], o);
+            if ((live >> rr) & 1u)
 #pragma unroll
-          for (int qq = 0; qq < QT; ++qq)
-            if (qq % L == c && qq < Q) {  // the template's line
-              const u64 key = row_key(
-                  __fmul_rn(__int2float_rn(acc[qq]), sc[st]),
-                  (uint32_t)(rw0 + rr));
-              if (key > tau[qq]) buf[qq * BUF + atomicAdd(&cnt[qq], 1)] = key;
-            }
+              for (int qq = 0; qq < QG; ++qq) {
+                const int qi = g0 + qq;
+                if (qi % L == c && qi < Q) {
+                  const u64 key =
+                      narrow_key<K>(acc[qq], sc[u], (uint32_t)(pw0 + rr));
+                  if (key > tau[qi])
+                    buf[qi * BUF + atomicAdd(&cnt[qi], 1)] = key;
+                }
+              }
+          }
+        }
       }
     } else {
     uint32_t live;
     {
       const long i = t0 + (lane / RW) * SW_WARPS * RW + warp * RW + lane % RW;
-      live = __ballot_sync(FULL, lane < WARP_ROWS && i < rend && mask[i] != 0);
+      live = __ballot_sync(FULL, lane < WARP_ROWS && i < rend &&
+                                     mask[rows.phys(i)] != 0);
     }
 #pragma unroll 1
     for (int g = 0; g < GROUPS; ++g) {
       const uint32_t gl = (live >> (g * RW)) & ((1u << RW) - 1);
       if (!gl) continue;  // uniform: no live row in the group
-      const long p0 = t0 + (long)g * SW_WARPS * RW + warp * RW;
+      const long p0 = rows.phys(t0 + (long)g * SW_WARPS * RW + warp * RW);
       float sc = 0.0f;
-      if ((gl >> (lane % RW)) & 1u) sc = vscale[p0 + lane % RW];
+      if constexpr (K::ROW_SCALE)
+        if ((gl >> (lane % RW)) & 1u) sc = vscale[p0 + lane % RW];
       // each row's first word, its words and its phase copy
       long w0[RW];
-      int nw[RW], cw[RW];
+      int nw[RW], cw[RW], ph[RW];
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
-        const long b0 = v0 + (p0 + r) * dim;
-        const int ph = (int)(b0 & 15);
+        const long b0 = v0 + (p0 + r) * rb;
+        ph[r] = (int)(b0 & 15);
         w0[r] = b0 >> 4;
-        nw[r] = (ph + dim + 15) >> 4;
-        cw[r] = (ph >> lg) * QT * W;
+        nw[r] = (ph[r] + rb + 15) >> 4;
+        cw[r] = (ph[r] >> lg) * QT * W;
       }
-      int acc[QT][RW];
+      Acc acc[QT][RW];
 #pragma unroll
       for (int qq = 0; qq < QT; ++qq)
 #pragma unroll
@@ -561,8 +640,15 @@ sweep_narrow_kernel(const int8_t* __restrict__ q,
 #pragma unroll
         for (int r = 0; r < RW; ++r) {
           const bool on = (gl >> r) & 1u;
-          x0[r] = on && c < nw[r] ? __ldg(vw + w0[r] + c) : zero;
-          x1[r] = on && c + 32 < nw[r] ? __ldg(vw + w0[r] + c + 32) : zero;
+          x0[r] = on && c < nw[r]
+                      ? clip_word<K>(__ldg(vw + w0[r] + c), ph[r] - 16 * c,
+                                     ph[r] + rb - 16 * c)
+                      : zero;
+          x1[r] = on && c + 32 < nw[r]
+                      ? clip_word<K>(__ldg(vw + w0[r] + c + 32),
+                                     ph[r] - 16 * (c + 32),
+                                     ph[r] + rb - 16 * (c + 32))
+                      : zero;
         }
         const bool two = c + 32 < W;
 #pragma unroll
@@ -571,19 +657,16 @@ sweep_narrow_kernel(const int8_t* __restrict__ q,
           for (int r = 0; r < RW; ++r) {
             const uint4* cp = qs + cw[r] + qq * W + c;
             const uint4 w1 = two ? cp[32] : zero;
-            acc[qq][r] = Int8R::dot(x1[r], w1, Int8R::dot(x0[r], cp[0],
-                                                          acc[qq][r]));
+            acc[qq][r] = K::dot(x1[r], w1, K::dot(x0[r], cp[0], acc[qq][r]));
           }
       }
 #pragma unroll
       for (int qq = 0; qq < QT; ++qq)
 #pragma unroll
         for (int r = 0; r < RW; ++r) {
-          const int s = Int8R::sum(acc[qq][r]);
+          const Acc s = K::sum(acc[qq][r]);
           if (lane == (qq * RW + r) % 32 && ((gl >> r) & 1u) && qq < Q) {
-            // the template's line (scan_topk.cu)
-            const u64 key =
-                row_key(__fmul_rn(__int2float_rn(s), sc), (uint32_t)(p0 + r));
+            const u64 key = narrow_key<K>(s, sc, (uint32_t)(p0 + r));
             if (key > tau[qq]) buf[qq * BUF + atomicAdd(&cnt[qq], 1)] = key;
           }
         }
@@ -605,15 +688,16 @@ sweep_narrow_kernel(const int8_t* __restrict__ q,
   }
 }
 
-// The narrow kind's phases and words: g the largest power of two <= 16
-// dividing dim and v's base (lg its log2), W = ceil((16 - g + dim) / 16)
-// words a copy (the widest phase's), and the query block's bytes.
+// The narrow kind's phases and words for rows of `rb` bytes at v: g the
+// largest power of two <= 16 dividing rb and v's base (lg its log2), W =
+// ceil((16 - g + rb) / 16) words a copy (the widest phase's), and the
+// query block's bytes.
 struct Narrow {
   int lg, W;
-  __host__ Narrow(int dim, const void* v) {
+  __host__ Narrow(int rb, const void* v) {
     lg = 4;
-    while (lg > 0 && ((dim | (int)((uintptr_t)v & 15)) & ((1 << lg) - 1))) --lg;
-    W = (16 - (1 << lg) + dim + 15) / 16;
+    while (lg > 0 && ((rb | (int)((uintptr_t)v & 15)) & ((1 << lg) - 1))) --lg;
+    W = (16 - (1 << lg) + rb + 15) / 16;
   }
   size_t block(int qt) const { return (size_t)(16 >> lg) * qt * W * 16; }
   // lanes a row of the packed layout: the power of two >= W (at least 2)
@@ -626,42 +710,61 @@ struct Narrow {
   }
 };
 
-template <int QT, int BUF>
+template <class K, int QT, int BUF>
 cudaError_t launch_narrow_qt(const void* q, const void* v, const void* vscale,
                              const void* mask, const Rows& rows, u64* partial,
-                             int Q, int dim, const Narrow& nw, int k, int ctas,
+                             int Q, int rb, const Narrow& nw, int k, int ctas,
                              cudaStream_t stream) {
   const size_t smem = nw.block(QT) + (size_t)QT * BUF * 8 + QT * 12;
   const cudaError_t e = cudaFuncSetAttribute(
-      sweep_narrow_kernel<QT, BUF>,
+      sweep_narrow_kernel<K, QT, BUF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  sweep_narrow_kernel<QT, BUF><<<ctas, SW_THREADS, smem, stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const unsigned char*>(v),
-      static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
-      rows, partial, Q, dim, nw.lg, nw.W, nw.lanes(), k);
+  sweep_narrow_kernel<K, QT, BUF><<<ctas, SW_THREADS, smem, stream>>>(
+      static_cast<const unsigned char*>(q),
+      static_cast<const unsigned char*>(v), static_cast<const float*>(vscale),
+      static_cast<const uint8_t*>(mask), rows, partial, Q, rb, nw.lg, nw.W,
+      nw.lanes(), k);
   return cudaGetLastError();
 }
 
-template <int BUF>
-cudaError_t launch_narrow(int qt, const void* q, const void* v, const void* vs,
-                          const void* mask, const Rows& rows, u64* part, int Q,
-                          int dim, const Narrow& nw, int k, int ctas,
-                          cudaStream_t s) {
+// The narrow sweep of kind K, the query tile sized to Q, BUF slots a
+// query, then the merge of the CTAs' partials into vals / idx. Refuses
+// (cudaErrorInvalidValue) Q > 16, k > BUF - 128, rows or a base off the
+// element's bytes, and a query block with buffers above NARROW_SMEM_BYTES.
+template <class K, int BUF>
+cudaError_t narrow(const void* q, const void* v, const void* vs,
+                   const void* mask, const Rows& rows, void* partial,
+                   void* vals, void* idx, int Q, int rb, int es, int k,
+                   int ctas, cudaStream_t s) {
+  if (Q > 16 || k > BUF - TR || rb <= 0 || rb % es || (uintptr_t)v % es ||
+      ctas <= 0)
+    return cudaErrorInvalidValue;
+  const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
+  const Narrow nw(rb, v);
+  if (nw.block(qt) + (size_t)qt * BUF * 8 + qt * 12 > NARROW_SMEM_BYTES)
+    return cudaErrorInvalidValue;
+  u64* part = static_cast<u64*>(partial);
+  cudaError_t err;
   if (qt == 1)
-    return launch_narrow_qt<1, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
-                                    ctas, s);
-  if (qt == 2)
-    return launch_narrow_qt<2, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
-                                    ctas, s);
-  if (qt == 4)
-    return launch_narrow_qt<4, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
-                                    ctas, s);
-  if (qt == 8)
-    return launch_narrow_qt<8, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
-                                    ctas, s);
-  return launch_narrow_qt<16, BUF>(q, v, vs, mask, rows, part, Q, dim, nw, k,
-                                   ctas, s);
+    err = launch_narrow_qt<K, 1, BUF>(q, v, vs, mask, rows, part, Q, rb, nw, k,
+                                      ctas, s);
+  else if (qt == 2)
+    err = launch_narrow_qt<K, 2, BUF>(q, v, vs, mask, rows, part, Q, rb, nw, k,
+                                      ctas, s);
+  else if (qt == 4)
+    err = launch_narrow_qt<K, 4, BUF>(q, v, vs, mask, rows, part, Q, rb, nw, k,
+                                      ctas, s);
+  else if (qt == 8)
+    err = launch_narrow_qt<K, 8, BUF>(q, v, vs, mask, rows, part, Q, rb, nw, k,
+                                      ctas, s);
+  else
+    err = launch_narrow_qt<K, 16, BUF>(q, v, vs, mask, rows, part, Q, rb, nw,
+                                       k, ctas, s);
+  if (err != cudaSuccess) return err;
+  return launch_topk_merge(part, static_cast<float*>(vals),
+                           static_cast<int*>(idx), Q, ctas * k, k, s,
+                           std::is_same<K, Int8C>::value);
 }
 
 template <class K, int QT, int BUF>
@@ -814,29 +917,18 @@ extern "C" int pv_sweep_topk_i8_narrow(const void* q, const void* v,
                                        long long chunk, void* stream) {
   using namespace pv;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
-  if (cap < 0 || chunk <= 0 || chunk % SEG || !vscale || Q > 16 ||
-      k > Int8R::K_MAX || dim <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
-  const int buf = k <= 128 ? BUF_K128 : BUF_K384;
-  const Narrow nw(dim, v);
-  if (nw.block(qt) + (size_t)qt * buf * 8 + qt * 12 > NARROW_SMEM_BYTES)
+  if (cap < 0 || chunk <= 0 || chunk % SEG || !vscale || k > Int8R::K_MAX)
     return (int)cudaErrorInvalidValue;
   const long long n = (cap + chunk - 1) / chunk;
   const int ctas = n > 1 ? (int)n : 1;
   const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
-  u64* part = static_cast<u64*>(partial);
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err =
-      buf == BUF_K128
-          ? launch_narrow<BUF_K128>(qt, q, v, vscale, mask, rows, part, Q, dim,
-                                    nw, k, ctas, s)
-          : launch_narrow<BUF_K384>(qt, q, v, vscale, mask, rows, part, Q, dim,
-                                    nw, k, ctas, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_topk_merge(part, static_cast<float*>(vals),
-                                static_cast<int*>(idx), Q, ctas * k, k, s,
-                                false);
+  return (int)(k <= 128 ? narrow<Int8R, BUF_K128>(q, v, vscale, mask, rows,
+                                                  partial, vals, idx, Q, dim,
+                                                  1, k, ctas, s)
+                        : narrow<Int8R, BUF_K384>(q, v, vscale, mask, rows,
+                                                  partial, vals, idx, Q, dim,
+                                                  1, k, ctas, s));
 }
 
 // K7 on the one-query sweep. kind 0: postings and q float32; 1: both
@@ -873,4 +965,39 @@ extern "C" int pv_ivf_sweep_topk(int kind, const void* q, const void* v,
     return (int)sweep<Int8C>(q, v, nullptr, mask, rows, partial, vals, idx, Q, dim, k,
                              ctas, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K7 on the narrow sweep: pv_ivf_sweep_topk's contract at every postings
+// width and base (kind 0: float32 postings and q; 1: both bfloat16; 2:
+// column-scaled int8 postings and folded int8 q, raw int32 scores), q at
+// any base, the query block of phase copies (ops/ivf.py::ivf_narrow_ready:
+// ops/scan.py::narrow_block_bytes over the row bytes) with the buffers
+// within NARROW_SMEM_BYTES; Q <= 16, k <= 128. `ctas` CTAs share the live
+// rows (ops/ivf.py::ivf_sweep_partition); `partial` is scratch of Q *
+// ctas * k uint64; vals (Q, k) float32 and idx (Q, k) int32 receive the
+// result (-inf / 0 where empty). Returns the cudaError_t of the launches.
+extern "C" int pv_ivf_sweep_topk_narrow(int kind, const void* q,
+                                        const void* v, const void* mask,
+                                        const void* hot, const void* n_hot,
+                                        void* partial, void* vals, void* idx,
+                                        int Q, long long cap, int dim, int k,
+                                        int bn, int grid_b, int ctas,
+                                        void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (bn <= 0 || bn % SHARE || grid_b <= 0 || cap % bn || dim <= 0 ||
+      kind < 0 || kind > 2 || k > 128)
+    return (int)cudaErrorInvalidValue;
+  const Rows rows{static_cast<const int*>(hot), static_cast<const int*>(n_hot),
+                  (long)cap, 0, bn, grid_b};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int es = kind == 0 ? 4 : kind == 1 ? 2 : 1;
+  if (kind == 0)
+    return (int)narrow<F32, BUF_K128>(q, v, nullptr, mask, rows, partial,
+                                      vals, idx, Q, dim * es, es, k, ctas, s);
+  if (kind == 1)
+    return (int)narrow<Bf16, BUF_K128>(q, v, nullptr, mask, rows, partial,
+                                       vals, idx, Q, dim * es, es, k, ctas, s);
+  return (int)narrow<Int8C, BUF_K128>(q, v, nullptr, mask, rows, partial,
+                                      vals, idx, Q, dim * es, es, k, ctas, s);
 }

@@ -109,30 +109,36 @@ _SIGNATURES = {
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
     "pv_ivf_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                          _L, _I, _I, _P],
-    # kind (0 f32, 1 bf16, 2 column-scaled int8), query planes (f32: hi
-    # and lo; else q), v, mask, hot, n_hot, partial, vals, idx, Q, cap,
-    # dim, k, bn, grid_b, stream (K7's tensor-core scan: k <= 128, rows of
-    # whole 16 bytes; served at Q > scan.SWEEP_Q_MAX, ivf.ivf_wgmma_ready)
-    "pv_ivf_scan_topk_wgmma": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
-                               _I, _I, _I, _I, _P],
-    # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
-    # scratch, vals, idx, Q, cap, dim, k, bn, grid_b, q_tile, scratch bytes,
-    # stream (K7's wide kind: k <= 1024, rows of whole 16 bytes; served at
-    # 128 < k, ivf.ivf_wide_ready)
-    "pv_ivf_scan_topk_wide": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I,
-                              _I, _I, _I, _I, _L, _P],
+    # piece, kind (0 f32, 1 bf16, 2 column-scaled int8), query planes
+    # (f32: hi and lo; else q; rows of whole 16 bytes), v, mask, hot,
+    # n_hot, partial, vals, idx, Q, cap, dim, k, bn, grid_b, stream (K7's
+    # tensor-core scan: k <= 128, any width and base; served where
+    # ivf.ivf_wgmma_ready)
+    "pv_ivf_scan_topk_wgmma": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _L, _I, _I, _I, _I, _P],
+    # piece, kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot,
+    # n_hot, scratch, vals, idx, Q, cap, dim, k, bn, grid_b, q_tile,
+    # scratch bytes, stream (K7's wide kind: k <= 1024, any width and base;
+    # served at 128 < k, ivf.ivf_wide_ready)
+    "pv_ivf_scan_topk_wide": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                              _I, _I, _I, _I, _I, _L, _P],
     # kind, q, v, mask, hot, n_hot, partial, vals, idx, Q, cap, dim, k, bn,
-    # grid_b, ctas, stream (K7's one-query sweep: Q <= 16, k <= 128)
+    # grid_b, ctas, stream (K7's one-query sweep: Q <= 16, k <= 128; and
+    # its narrow kind over rows the 16-byte sweep cannot read,
+    # ivf.ivf_narrow_ready)
     "pv_ivf_sweep_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                           _I, _I, _I, _P],
+    "pv_ivf_sweep_topk_narrow": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                                 _I, _I, _I, _I, _I, _P],
     # kind, q, v, mask, hot, n_hot, keys, Q, cap, dim, bn, grid_b, per_seg,
     # stream
     "pv_ivf_segmax": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P],
-    # kind, q (float32: its hi plane), q_lo (float32: the lo plane, else
-    # null), v, mask, hot, n_hot, keys, Q, cap, dim, bn, grid_b, per_seg,
-    # stream (K8's tensor-core segment scan)
-    "pv_ivf_segmax_wgmma": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
-                            _I, _I, _P],
+    # piece, kind, q (float32: its hi plane), q_lo (float32: the lo plane,
+    # else null), v, mask, hot, n_hot, keys, Q, cap, dim, bn, grid_b,
+    # per_seg, stream (K8's tensor-core segment scan, any width and base;
+    # the planes' rows of whole 16 bytes)
+    "pv_ivf_segmax_wgmma": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I,
+                            _I, _I, _I, _P],
     # kind (0 bf16, 1 int8), q, v, out, Q, cap, dim, stream (P1)
     "pv_dot_rowmax": [_I, _P, _P, _P, _I, _L, _I, _P],
     # kind (0 bf16, 1 int8), q, v, out, Q, cap, dim, stream (P1 on the TMA +

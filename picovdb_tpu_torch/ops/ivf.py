@@ -16,15 +16,20 @@ re-designed for a device-resident layout):
     list (`_probe_preamble`). Two hand-written kernels then read only the
     hot tiles:
 
-      K7 `ivf_scan_topk`   csrc/scan_topk.cu  exact top-k_run per query
-                           (Q <= 16: csrc/sweep_topk.cu, see
-                           `ivf_sweep_ready`; Q > 16:
-                           csrc/ivf_scan_wgmma.cu, see `ivf_wgmma_ready`;
-                           128 < k <= 1024: csrc/ivf_scan_wide.cu, see
-                           `ivf_wide_ready`)
-      K8 `ivf_segmax_scan` csrc/segmax.cu     top-`per_seg` keys per segment
-                           (rows TMA can read: csrc/ivf_segmax_wgmma.cu,
-                           see `ivf_segmax_ready`)
+      K7 `ivf_scan_topk`   exact top-k_run per query: Q <= 16 the
+                           one-query sweep csrc/sweep_topk.cu (rows of
+                           16-byte words, `ivf_sweep_ready`; its narrow
+                           kind at any width and base, `ivf_narrow_ready`),
+                           else k <= 128 the tensor-core scan
+                           csrc/ivf_scan_wgmma.cu (`ivf_wgmma_ready`),
+                           128 < k <= 1024 its wide kind
+                           csrc/ivf_scan_wide.cu (`ivf_wide_ready`); the
+                           first port, csrc/scan_topk.cu, only past 64M
+                           rows at a wide k
+      K8 `ivf_segmax_scan` top-`per_seg` keys per segment: the tensor-core
+                           segment scan csrc/ivf_segmax_wgmma.cu at every
+                           width and base; the first port, csrc/segmax.cu,
+                           serves no dispatch
 
     followed by an exact rescore (of the storage-dtype postings, or, in
     the int8-only layout, of the engine corpus by slot id).
@@ -254,22 +259,51 @@ def _tile_scores(q, postings, hot_b, bn):
 IVF_SWEEP_SHARE = 16
 
 
+def _ivf_tma_ready(q: torch.Tensor, postings: torch.Tensor) -> bool:
+    """What the 16-byte sweep and TMA read as they lie: rows of whole 16
+    bytes (dim % 4 for float32, % 8 for bf16, % 16 for int8) at 16-byte
+    aligned bases of both operands."""
+    return ((q.shape[1] * q.element_size()) % 16 == 0
+            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
+
+
 def ivf_sweep_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
     """Whether K7 runs the one-query sweep (csrc/sweep_topk.cu) on these
     contiguous operands: Q <= 16, k <= 128, rows of whole 16-byte words
-    (dim % 4 for float32, % 8 for bf16, % 16 for int8), 16-byte aligned
-    bases, and the CTA's query block (the query tile `scan.sweep_tile(Q)`
-    times a row's bytes) within `scan.SWEEP_QBLOCK_BYTES` (float32 at Q =
-    16: dim <= 1024). Groups above 16 queries take `ivf_wgmma_ready`'s
-    tensor-core scan, k > 128 (the quantized stores' host-rescore bands)
-    `ivf_wide_ready`'s wide kind; other shapes keep the template,
-    `pv_ivf_scan_topk`."""
+    at 16-byte aligned bases (`_ivf_tma_ready`), and the CTA's query block
+    (the query tile `scan.sweep_tile(Q)` times a row's bytes) within
+    `scan.SWEEP_QBLOCK_BYTES` (float32 at Q = 16: dim <= 1024). Other rows
+    take `ivf_narrow_ready`'s narrow kind; a query block too large for
+    the sweep (float32 past dim 1024 at 9-16 queries) and groups above 16
+    queries `ivf_wgmma_ready`'s tensor-core scan; k > 128 (the quantized
+    stores' host-rescore bands) `ivf_wide_ready`'s wide kind."""
     num_q, dim = q.shape
     row_bytes = dim * q.element_size()
     return (num_q <= _scan.SWEEP_Q_MAX and k <= _scan.SWEEP_K_MAX
-            and row_bytes % 16 == 0
-            and _scan.sweep_tile(num_q) * row_bytes <= _scan.SWEEP_QBLOCK_BYTES
-            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
+            and _ivf_tma_ready(q, postings)
+            and _scan.sweep_tile(num_q) * row_bytes <= _scan.SWEEP_QBLOCK_BYTES)
+
+
+def ivf_narrow_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
+    """Whether K7 runs the one-query sweep's narrow kind (csrc/
+    sweep_topk.cu `sweep_narrow_kernel`, K3's over int8 rows, here over
+    float32, bf16 and column-scaled int8 postings and the hot tiles'
+    shares) on these contiguous operands: Q <= 16, k <= 128, operands the
+    16-byte sweep cannot read (`_ivf_tma_ready` fails: a row off whole 16
+    bytes, or a base off 16 bytes; the query is read a byte at a time, the
+    rows as the aligned words that hold them), and the query block of
+    phase copies (`scan.narrow_block_bytes` over the row bytes) with the
+    buffers within `scan.NARROW_SMEM_BYTES` (at every base: widths up to
+    313 float32, 305 bf16 or 289 int8 elements at Q = 16, 761 / 753 / 737
+    at Q = 8, 1,657 / 1,649 / 1,633 at Q = 4). The rest takes
+    `ivf_wgmma_ready`'s scan."""
+    num_q, dim = q.shape
+    row_bytes = dim * q.element_size()
+    tile = _scan.sweep_tile(num_q)
+    return (num_q <= _scan.SWEEP_Q_MAX and k <= _scan.SWEEP_K_MAX
+            and not _ivf_tma_ready(q, postings)
+            and _scan.narrow_block_bytes(num_q, row_bytes, postings.data_ptr())
+            + tile * (256 * 8 + 12) <= _scan.NARROW_SMEM_BYTES)
 
 
 def ivf_sweep_partition(n_hot: int, bn: int, ctas: int):
@@ -287,58 +321,74 @@ def ivf_sweep_partition(n_hot: int, bn: int, ctas: int):
 
 def ivf_wgmma_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
     """Whether K7 runs its tensor-core scan (csrc/ivf_scan_wgmma.cu) on
-    these contiguous operands: Q > scan.SWEEP_Q_MAX (the sweep keeps Q <=
-    16), k <= 128, rows of whole 16 bytes (dim % 4 for float32, % 8 for
-    bf16, % 16 for int8: TMA reads them as they lie) and 16-byte aligned
-    bases. k > 128 takes `ivf_wide_ready`'s wide kind; other widths and
-    misaligned views keep the template, `pv_ivf_scan_topk`."""
-    num_q, dim = q.shape
-    return (num_q > _scan.SWEEP_Q_MAX and k <= _scan.TOPK_WGMMA_K_MAX
-            and (dim * q.element_size()) % 16 == 0
-            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
+    these contiguous operands: k <= 128 where neither one-query sweep
+    takes them (`ivf_sweep_ready`, `ivf_narrow_ready`: Q > 16, or a query
+    block too large for them), at any width and base: the rows by the
+    producer `scan.rows_piece` names, the query planes padded to whole 16
+    bytes by the launcher. k > 128 takes `ivf_wide_ready`'s wide kind."""
+    return (k <= _scan.TOPK_WGMMA_K_MAX and not ivf_sweep_ready(q, postings, k)
+            and not ivf_narrow_ready(q, postings, k))
 
 
 def ivf_wide_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
     """Whether K7 runs its wide kind (csrc/ivf_scan_wide.cu: the tensor-core
     scan over the live hot tiles writing a slab, then the radix select) on
-    these contiguous operands: 128 < k <= SCAN_KSEL_MAX, rows of whole 16
-    bytes (dim % 4 for float32, % 8 for bf16, % 16 for int8), 16-byte
-    aligned bases, and one query's slab within scan.TOPK_WIDE_SLAB_BYTES
-    (4 bytes a row of the hot table, at most the postings' cap). Any Q: a
-    batch smaller than a query tile runs one tile. Other widths and
-    misaligned views keep the template, `pv_ivf_scan_topk`."""
-    dim = q.shape[1]
+    these contiguous operands: 128 < k <= SCAN_KSEL_MAX and one query's
+    slab within scan.TOPK_WIDE_SLAB_BYTES (4 bytes a row of the hot table,
+    at most the postings' cap: up to 64M rows), at any width and base (the
+    rows by the producer `scan.rows_piece` names, the queries padded to
+    whole 16 bytes in the scratch). Any Q: a batch smaller than a query
+    tile runs one tile. Only a slab over the budget keeps the template,
+    `pv_ivf_scan_topk`."""
     return (_scan.TOPK_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
-            and (dim * q.element_size()) % 16 == 0
-            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0
             and 4 * postings.shape[0] <= _scan.TOPK_WIDE_SLAB_BYTES)
+
+
+_ES = {0: 4, 1: 2, 2: 1}  # bytes of an element of each kind
 
 
 def ivf_wide_scratch(num_q: int, dim: int, kind: int, grid_b: int, bn: int,
                      q_tile: int) -> int:
     """Bytes of the wide kind's scratch, as csrc/ivf_scan_wide.cu lays it
-    out: the float32 queries' TF32 hi and lo planes (kind 0 only), the
-    live tiles in ascending order (grid_b int32), the logical mask (grid_b
-    x bn bytes), then one tile's slab (q_tile x grid_b x bn keys),
-    histograms and candidates (`scan.i4_wide_scratch` over grid_b x bn
-    rows), each from a 256-byte boundary."""
+    out: the query planes as rows of dim rounded up to whole 16 bytes (the
+    float32 queries' TF32 hi and lo planes, or room for the bf16 / int8
+    queries copied there where TMA cannot read them as they lie), the live
+    tiles in ascending order (grid_b int32), the logical mask (grid_b x bn
+    bytes), then one tile's slab (q_tile x grid_b x bn keys), histograms
+    and candidates (`scan.i4_wide_scratch` over grid_b x bn rows), each
+    from a 256-byte boundary."""
     up = _scan._up256
-    planes = up(num_q * dim * 8) if kind == 0 else 0
+    es = _ES[kind]
+    qld = _scan._pad_to(dim, 16 // es)
+    planes = up(num_q * qld * (8 if kind == 0 else es))
     return (planes + up(grid_b * 4) + up(grid_b * bn)
             + _scan.i4_wide_scratch(grid_b * bn, q_tile))
 
 
-def ivf_wgmma_partition(num_q: int, grid_b: int, bn: int, sms: int):
+def ivf_wgmma_partition(num_q: int, grid_b: int, bn: int, sms: int,
+                        qtile: int = _scan.TOPK_WGMMA_QTILE):
     """The tensor-core scan's grid on a card of `sms` SMs: (q_tiles,
     ranges), as K4's `scan.topk_wgmma_partition` over the hot table's
-    grid_b * bn / 128 segments. CTA c takes query tile c % q_tiles and
-    share c // q_tiles of `ranges` equal shares of the live steps'
-    segments, range r the logical segments [r S // ranges, (r + 1) S //
-    ranges) of the S = min(n_hot, grid_b) * bn / 128 live ones, which it
-    computes from n_hot on the device (csrc/scan_topk_wgmma.cuh
-    `num_segments`). The launcher's partial buffer holds Q x ranges x k
-    keys."""
-    return _scan.topk_wgmma_partition(num_q, grid_b * bn, sms)
+    grid_b * bn / 128 segments at `qtile` queries a CTA (64; 32 for the
+    realigning producer past k 64, `scan.topk_wgmma_qtile`). CTA c takes
+    query tile c % q_tiles and share c // q_tiles of `ranges` equal shares
+    of the live steps' segments, range r the logical segments [r S //
+    ranges, (r + 1) S // ranges) of the S = min(n_hot, grid_b) * bn / 128
+    live ones, which it computes from n_hot on the device
+    (csrc/scan_topk_wgmma.cuh `num_segments`). The launcher's partial
+    buffer holds Q x ranges x k keys."""
+    return _scan.topk_wgmma_partition(num_q, grid_b * bn, sms, qtile)
+
+
+def _tma_planes(q: torch.Tensor):
+    """The query planes the tensor-core kinds read by TMA: rows of whole 16
+    bytes (zeros past dim) at a 16-byte aligned base; float32 queries
+    split into their TF32 hi and lo planes (`split_tf32`), bf16 and int8
+    queries as they are. Returns (planes, lo plane or None)."""
+    if q.dtype == torch.float32:
+        return split_tf32(_scan._pad_cols(q, 4))
+    p = _scan._pad_cols(q, 16 // q.element_size())
+    return (p if p.data_ptr() % 16 == 0 else p.clone()), None
 
 
 def _plain_over_shares(q, postings, mask, hot, n_hot, k: int, bn: int,
@@ -395,30 +445,51 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
     where empty; (Q, k) int32 IVF rows hot[b] * bn + lane, 0 where
     empty). Selection is exact on the scores (int8: the int32 sums), ties
     to the lower row. Runs the one-query sweep where `ivf_sweep_ready`
-    holds, else the tensor-core scan where `ivf_wgmma_ready` holds, else
-    the wide kind where `ivf_wide_ready` holds, else the template."""
+    holds, else its narrow kind where `ivf_narrow_ready` holds, else the
+    tensor-core scan where `ivf_wgmma_ready` holds, else the wide kind
+    where `ivf_wide_ready` holds, else the template. The tensor-core
+    kinds' counters name the rows' producer (`scan.rows_piece`)."""
     _ivf_checks("ivf_scan_topk", q, postings, mask, hot, n_hot, bn)
     _require(0 < k <= SCAN_KSEL_MAX,
              f"ivf_scan_topk: k {k} outside 1..{SCAN_KSEL_MAX}")
     if not q.is_cuda:
         return ivf_scan_topk_plain(q, postings, mask, hot, n_hot, k, bn)
     q = q.contiguous()
-    sweep = ivf_sweep_ready(q, postings, k)
-    wgmma = not sweep and ivf_wgmma_ready(q, postings, k)
-    wide = not (sweep or wgmma) and ivf_wide_ready(q, postings, k)
-    launch = (_ivf_sweep_launch if sweep else
-              _ivf_wgmma_launch if wgmma else
-              _ivf_wide_launch if wide else _ivf_template_launch)
-    vals, idx = launch(q, postings, mask, hot, n_hot, k, bn)
-    _scan._count("ivf_scan_topk", q.shape[0], k)
-    _scan.LAUNCHES["ivf_scan_topk_sweep"] += sweep
-    _scan.LAUNCHES["ivf_scan_topk_wgmma"] += wgmma
-    _scan.LAUNCHES["ivf_scan_topk_wide"] += wide
+    num_q = q.shape[0]
+    piece = _scan._PIECE_KEY[_scan.rows_piece(postings)]
+    if ivf_sweep_ready(q, postings, k):
+        vals, idx = _ivf_sweep_launch(q, postings, mask, hot, n_hot, k, bn)
+        _scan.LAUNCHES["ivf_scan_topk_sweep"] += 1
+    elif ivf_narrow_ready(q, postings, k):
+        vals, idx = _ivf_sweep_launch(q, postings, mask, hot, n_hot, k, bn,
+                                      "pv_ivf_sweep_topk_narrow")
+        _scan._count("ivf_scan_topk_narrow", num_q, k)
+    elif ivf_wgmma_ready(q, postings, k):
+        vals, idx = _ivf_wgmma_launch(q, postings, mask, hot, n_hot, k, bn)
+        _count_kind("ivf_scan_topk_wgmma" + piece, num_q, k)
+    elif ivf_wide_ready(q, postings, k):
+        vals, idx = _ivf_wide_launch(q, postings, mask, hot, n_hot, k, bn)
+        _count_kind("ivf_scan_topk_wide" + piece, num_q, k)
+    else:
+        vals, idx = _ivf_template_launch(q, postings, mask, hot, n_hot, k, bn)
+    _scan._count("ivf_scan_topk", num_q, k)
     return vals, idx
 
 
-def _ivf_sweep_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
-    """K7's one-query sweep on checked CUDA operands, uncounted:
+def _count_kind(key: str, num_q: int, k: int) -> None:
+    """A launch of a K7 / K8 tensor-core kind: the TMA kinds' counters
+    alone, the kinds over rows TMA cannot read (keys ending in
+    "_cpasync" / "_realign") also by shape in LAUNCH_SHAPES."""
+    if key.endswith(("_cpasync", "_realign")):
+        _scan._count(key, num_q, k)
+    else:
+        _scan.LAUNCHES[key] += 1
+
+
+def _ivf_sweep_launch(q, postings, mask, hot, n_hot, k: int, bn: int,
+                      entry: str = "pv_ivf_sweep_topk"):
+    """K7's one-query sweep on checked CUDA operands, uncounted (`entry`
+    "pv_ivf_sweep_topk_narrow": its narrow kind, any width and base):
     SWEEP_CTAS_PER_SM CTAs per SM share the live rows."""
     num_q, dim = q.shape
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -427,7 +498,7 @@ def _ivf_sweep_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
                           device=q.device)
     vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
-    _launch(q, "ivf_scan_topk", "pv_ivf_sweep_topk", _KINDS[q.dtype],
+    _launch(q, "ivf_scan_topk", entry, _KINDS[q.dtype],
             q.data_ptr(), postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
             n_hot.data_ptr(), partial.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), num_q, postings.shape[0], dim, k, bn,
@@ -436,35 +507,40 @@ def _ivf_sweep_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
 
 
 def _ivf_wgmma_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
-    """K7's tensor-core scan on checked CUDA operands, uncounted: float32
-    queries split once into hi and lo (`split_tf32`), bf16 and int8
-    queries read as they are; CTAs over `ivf_wgmma_partition`'s (query
-    tile, segment share) pairs, the shares of the live steps computed on
-    the device; then the merge. One launch whatever Q."""
+    """K7's tensor-core scan on checked CUDA operands, uncounted: the query
+    planes as TMA reads them (`_tma_planes`: float32 queries split once
+    into hi and lo), the rows by the producer `scan.rows_piece` names, CTAs
+    over `ivf_wgmma_partition`'s (query tile, segment share) pairs at
+    `scan.topk_wgmma_qtile`, the shares of the live steps computed on the
+    device; then the merge. One launch whatever Q."""
     num_q, dim = q.shape
     grid_b = hot.shape[0]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    _, ranges = ivf_wgmma_partition(num_q, grid_b, bn, sms)
-    planes = torch.stack(split_tf32(q)) if q.dtype == torch.float32 else q
+    _, ranges = ivf_wgmma_partition(num_q, grid_b, bn, sms,
+                                    _scan.topk_wgmma_qtile(postings, k))
+    hi, lo = _tma_planes(q)
+    planes = hi if lo is None else torch.stack((hi, lo))
     partial = torch.empty((num_q * ranges * k,), dtype=torch.int64,
                           device=q.device)
     vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
-    _launch(q, "ivf_scan_topk", "pv_ivf_scan_topk_wgmma", _KINDS[q.dtype],
-            planes.data_ptr(), postings.data_ptr(), mask.data_ptr(),
-            hot.data_ptr(), n_hot.data_ptr(), partial.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), num_q, postings.shape[0], dim,
-            k, bn, grid_b)
+    _launch(q, "ivf_scan_topk", "pv_ivf_scan_topk_wgmma",
+            _scan.rows_piece(postings), _KINDS[q.dtype], planes.data_ptr(),
+            postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
+            n_hot.data_ptr(), partial.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), num_q, postings.shape[0], dim, k, bn, grid_b)
     return vals, idx
 
 
 def _ivf_wide_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
     """K7's wide kind on checked CUDA operands, uncounted: one library call
-    that splits float32 queries into their TF32 planes, orders the live
-    steps by tile and gathers their mask, then, a tile of
+    that splits float32 queries into their TF32 planes (bf16 and int8
+    queries copied to rows of whole 16 bytes where TMA cannot read them),
+    orders the live steps by tile and gathers their mask, then, a tile of
     `scan.topk_wide_tile` queries at a time over the hot table's grid_b x
-    bn rows, runs the tensor-core scan writing the slab and the radix
-    select over it, in one scratch buffer (`ivf_wide_scratch`)."""
+    bn rows, runs the tensor-core scan writing the slab (the rows by the
+    producer `scan.rows_piece` names) and the radix select over it, in one
+    scratch buffer (`ivf_wide_scratch`)."""
     num_q, dim = q.shape
     grid_b = hot.shape[0]
     kind = _KINDS[q.dtype]
@@ -473,7 +549,8 @@ def _ivf_wide_launch(q, postings, mask, hot, n_hot, k: int, bn: int):
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
     vals = torch.empty((num_q, k), dtype=torch.float32, device=q.device)
     idx = torch.empty((num_q, k), dtype=torch.int32, device=q.device)
-    _launch(q, "ivf_scan_topk", "pv_ivf_scan_topk_wide", kind, q.data_ptr(),
+    _launch(q, "ivf_scan_topk", "pv_ivf_scan_topk_wide",
+            _scan.rows_piece(postings), kind, q.data_ptr(),
             postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
             n_hot.data_ptr(), scratch.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), num_q, postings.shape[0], dim, k, bn, grid_b,
@@ -539,16 +616,6 @@ def ivf_segmax_scan_plain(q, postings, mask, hot, n_hot, per_seg: int,
     return torch.cat(out, dim=1)
 
 
-def ivf_segmax_ready(q: torch.Tensor, postings: torch.Tensor) -> bool:
-    """Whether K8 runs the tensor-core segment scan
-    (csrc/ivf_segmax_wgmma.cu) on these contiguous operands: TMA needs a
-    row stride of whole 16 bytes (dim % 4 == 0 for float32, % 8 for bf16,
-    % 16 for int8) and 16-byte aligned bases. Other widths keep the first
-    kernel, `pv_ivf_segmax` (csrc/segmax.cu)."""
-    return ((q.shape[1] * q.element_size()) % 16 == 0
-            and q.data_ptr() % 16 == 0 and postings.data_ptr() % 16 == 0)
-
-
 def ivf_segmax_scan(q, postings, mask, hot, n_hot, per_seg: int,
                     bn: int = IVF_BN):
     """Per 128-row segment of each hot tile, its top-`per_seg` packed keys
@@ -559,39 +626,53 @@ def ivf_segmax_scan(q, postings, mask, hot, n_hot, per_seg: int,
     segment s of hot tile hot[b]. A key is the sortable float32 bits of
     the score (int8: the raw int32 score) with its low 7 bits replaced by
     the row's lane; masked rows, exhausted ranks and dead steps b >= n_hot
-    carry KEY_MIN. Runs the tensor-core segment scan where
-    `ivf_segmax_ready` holds, else the first kernel."""
+    carry KEY_MIN. Runs the tensor-core segment scan at every width and
+    base, its counter naming the rows' producer."""
     _ivf_checks("ivf_segmax_scan", q, postings, mask, hot, n_hot, bn)
     _require(1 <= per_seg <= 8, f"ivf_segmax_scan: per_seg {per_seg} not in 1..8")
     if not q.is_cuda:
         return ivf_segmax_scan_plain(q, postings, mask, hot, n_hot, per_seg, bn)
     q = q.contiguous()
-    tc = ivf_segmax_ready(q, postings)
-    keys = _ivf_segmax_launch(q, postings, mask, hot, n_hot, per_seg, bn, tc)
+    keys = _ivf_segmax_launch(q, postings, mask, hot, n_hot, per_seg, bn)
     _scan._count("ivf_segmax", q.shape[0], per_seg)
-    _scan.LAUNCHES["ivf_segmax_wgmma"] += tc
+    _count_kind("ivf_segmax_wgmma"
+                + _scan._PIECE_KEY[_scan.rows_piece(postings)],
+                q.shape[0], per_seg)
     return keys
 
 
-def _ivf_segmax_launch(q, postings, mask, hot, n_hot, per_seg: int, bn: int,
-                       tc: bool):
-    """K8 on checked CUDA operands, uncounted: the tensor-core segment scan
-    (`tc`; float32 queries split by `split_tf32`) or the first kernel."""
+def _ivf_segmax_keys(q, postings, hot, per_seg: int, bn: int):
+    """K8's output slab and the arguments after q, v of both K8 kernels."""
     num_q, dim = q.shape
     grid_b = hot.shape[0]
     keys = torch.empty((num_q, grid_b * per_seg * (bn // SEG)),
                        dtype=torch.int32, device=q.device)
-    tail = (mask.data_ptr(), hot.data_ptr(), n_hot.data_ptr(), keys.data_ptr(),
-            num_q, postings.shape[0], dim, bn, grid_b, per_seg)
-    if not tc:
-        _launch(q, "ivf_segmax_scan", "pv_ivf_segmax", _KINDS[q.dtype],
-                q.data_ptr(), postings.data_ptr(), *tail)
-        return keys
-    planes = split_tf32(q) if q.dtype == torch.float32 else (q, None)
-    _launch(q, "ivf_segmax_scan", "pv_ivf_segmax_wgmma", _KINDS[q.dtype],
-            planes[0].data_ptr(),
-            None if planes[1] is None else planes[1].data_ptr(),
-            postings.data_ptr(), *tail)
+    return keys, (keys.data_ptr(), num_q, postings.shape[0], dim, bn, grid_b,
+                  per_seg)
+
+
+def _ivf_segmax_launch(q, postings, mask, hot, n_hot, per_seg: int, bn: int):
+    """K8's tensor-core segment scan on checked CUDA operands, uncounted:
+    the query planes as TMA reads them (`_tma_planes`), the rows by the
+    producer `scan.rows_piece` names."""
+    keys, tail = _ivf_segmax_keys(q, postings, hot, per_seg, bn)
+    hi, lo = _tma_planes(q)
+    _launch(q, "ivf_segmax_scan", "pv_ivf_segmax_wgmma",
+            _scan.rows_piece(postings), _KINDS[q.dtype], hi.data_ptr(),
+            None if lo is None else lo.data_ptr(), postings.data_ptr(),
+            mask.data_ptr(), hot.data_ptr(), n_hot.data_ptr(), *tail)
+    return keys
+
+
+def _ivf_segmax_first_launch(q, postings, mask, hot, n_hot, per_seg: int,
+                             bn: int):
+    """K8's first kernel, `pv_ivf_segmax` (csrc/segmax.cu), on checked CUDA
+    operands, uncounted. It serves no dispatch: chip_smoke.py times the
+    segment scan against it."""
+    keys, tail = _ivf_segmax_keys(q, postings, hot, per_seg, bn)
+    _launch(q, "ivf_segmax_scan", "pv_ivf_segmax", _KINDS[q.dtype],
+            q.data_ptr(), postings.data_ptr(), mask.data_ptr(), hot.data_ptr(),
+            n_hot.data_ptr(), *tail)
     return keys
 
 

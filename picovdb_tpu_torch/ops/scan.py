@@ -92,18 +92,20 @@ SEG = 128  # rows per segmax segment
 # (`i8_sweep_ready`), "scan_topk_i8_wgmma" those of the tensor-core scan's
 # int8 kind (`i8_wgmma_ready`), "scan_topk_i8_wide" those of its wide kind
 # (`i8_wide_ready`); "scan_topk_i8_narrow" those of the sweep's narrow
-# kind over int8 rows at any width and base (`i8_narrow_ready`). The
-# tensor-core scans and wide kinds of K4 and K3 read the rows by the
-# mainloop's producer `rows_piece` names: their keys count TMA's, and the
+# kind over int8 rows at any width and base (`i8_narrow_ready`);
+# "ivf_scan_topk_narrow" those of K7's narrow sweep (ops/ivf.py::
+# `ivf_narrow_ready`). The tensor-core scans and wide kinds of K4, K3 and
+# K7 and K8's segment scan read the rows by the mainloop's producer
+# `rows_piece` names: their keys count TMA's, and the
 # same keys ending in "_cpasync" count them fed by cp.async, "_realign" by
 # the realigning producer, over rows TMA cannot read
 # ("scan_topk_wgmma_cpasync", "scan_topk_wide_realign",
 # "scan_topk_i8_wgmma_realign", "scan_topk_i8_wide_cpasync", ...); each of
-# these keys and "scan_topk_i8_narrow" also has its launches by
-# shape in LAUNCH_SHAPES. "ivf_scan_topk_wide" those of K7's wide kind
+# these keys, "scan_topk_i8_narrow" and "ivf_scan_topk_narrow" also has
+# its launches by shape in LAUNCH_SHAPES. "ivf_scan_topk_wide" those of K7's wide kind
 # (ops/ivf.py::`ivf_wide_ready`); "ivf_segmax" every K8 launch,
-# "ivf_segmax_wgmma" those of its tensor-core segment scan
-# (ops/ivf.py::`ivf_segmax_ready`).
+# "ivf_segmax_wgmma" those of its tensor-core segment scan over rows TMA
+# reads (ops/ivf.py::`ivf_segmax_scan`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "segmax_realign": 0,
             "topk_keys": 0, "scan_topk": 0, "scan_topk_wgmma": 0,
@@ -121,7 +123,11 @@ LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "scan_topk_i4_wgmma": 0, "scan_topk_i4_wide": 0,
             "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
             "ivf_scan_topk_wgmma": 0, "ivf_scan_topk_wide": 0,
+            "ivf_scan_topk_narrow": 0,
+            "ivf_scan_topk_wgmma_cpasync": 0, "ivf_scan_topk_wgmma_realign": 0,
+            "ivf_scan_topk_wide_cpasync": 0, "ivf_scan_topk_wide_realign": 0,
             "ivf_segmax": 0, "ivf_segmax_wgmma": 0,  # K8: ops/ivf.py
+            "ivf_segmax_wgmma_cpasync": 0, "ivf_segmax_wgmma_realign": 0,
             "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
             "segmax_i8c_wgmma": 0,
             "dot_rowmax": 0, "dot_rowmax_wgmma": 0,  # P1: probes.py

@@ -404,8 +404,9 @@ def _ivf_data(dev, kind, dim, nq, n_tiles=16, grid_b=10, n_hot=7, seed=1):
 
 
 # (kind, Q, k): K7's one-query sweep where `ivf_sweep_ready` holds (Q <=
-# 16, k <= 128, dim 96; dim 50 rows are not whole 16-byte words) and its
-# template otherwise (k 300 / 544 / 200, Q 17), all three kinds
+# 16, k <= 128, dim 96; dim 50 rows are not whole 16-byte words: its narrow
+# kind) and its other kinds otherwise (k 300 / 544 / 200, Q 17), all three
+# kinds
 @pytest.mark.parametrize("dim", DIMS)
 @pytest.mark.parametrize("kind,nq,k", [("f32", 1, 14), ("bf16", 16, 32),
                                        ("i8c", 16, 36), ("f32", 16, 300),
@@ -930,14 +931,13 @@ def test_ivf_segmax_wgmma(dev, kind, dim, nq, per_seg, n_hot):
     from picovdb_tpu_torch.ops import ivf
 
     q, v, mask, hot, n = _k8_case(dev, kind, dim, nq, n_hot, seed=nq + dim)
-    assert ivf.ivf_segmax_ready(q, v)
     before = dict(scan.LAUNCHES)
     keys = ivf.ivf_segmax_scan(q, v, mask, hot, n, per_seg)
     assert scan.LAUNCHES["ivf_segmax_wgmma"] == before["ivf_segmax_wgmma"] + 1
     assert scan.LAUNCHES["ivf_segmax"] == before["ivf_segmax"] + 1
     ref = ivf.ivf_segmax_scan_plain(q, v, mask, hot, n, per_seg)
-    old = ivf._ivf_segmax_launch(q, v, mask, hot, n, per_seg, ivf.IVF_BN,
-                                 False)
+    old = ivf._ivf_segmax_first_launch(q, v, mask, hot, n, per_seg,
+                                       ivf.IVF_BN)
     torch.cuda.synchronize()
     assert keys.shape == ref.shape
     _k8_agrees(keys, ref, kind)

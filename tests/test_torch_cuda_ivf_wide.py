@@ -186,9 +186,11 @@ def test_ties_past_cap_over_out_of_order_tiles(dev):
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "i8c"])
-def test_misaligned_view_takes_the_template(dev, kind):
-    """Postings 4 bytes off a 16-byte boundary: the ready rule refuses, K7
-    runs its template, and the answer is still the plain version's."""
+def test_misaligned_view_takes_the_cpasync_kind(dev, kind):
+    """Postings 4 bytes off a 16-byte boundary: TMA cannot read them, and
+    K7 takes the same kind fed by cp.async in 4-byte pieces (`rows_piece`),
+    counted under its "_cpasync" key, not the template; the answer is the
+    plain version's."""
     v, mask, inputs = _store(dev, kind)
     es = v.element_size()
     flat = torch.zeros(v.numel() + 16, dtype=v.dtype, device=dev)
@@ -198,10 +200,12 @@ def test_misaligned_view_takes_the_template(dev, kind):
     q = inputs(_queries(dev, 16, 256, 1))
     hot = torch.tensor(HOT, dtype=torch.int32, device=dev)
     nh = torch.tensor([7], dtype=torch.int32, device=dev)
-    assert not ivf.ivf_wide_ready(q, view, 544)
-    before = scan.LAUNCHES["ivf_scan_topk_wide"]
+    assert ivf.ivf_wide_ready(q, view, 544) and scan.rows_piece(view) == 4
+    before = dict(scan.LAUNCHES)
     got = ivf.ivf_scan_topk(q, view, mask, hot, nh, 544)
-    assert scan.LAUNCHES["ivf_scan_topk_wide"] == before
+    assert scan.LAUNCHES["ivf_scan_topk_wide"] == before["ivf_scan_topk_wide"]
+    assert (scan.LAUNCHES["ivf_scan_topk_wide_cpasync"]
+            == before["ivf_scan_topk_wide_cpasync"] + 1)
     ref = ivf.ivf_scan_topk_plain(q, view, mask, hot, nh, 545)
     torch.cuda.synchronize()
     _held(kind, got, ref, mask, hot, 7, 544)

@@ -12,9 +12,9 @@ the CPU.
   keep it.
 * The shares (the kernel's `share`, restated): every (query tile, live segment)
   once, every dead step's segment once, no live item on a dead step.
-* Which kernel a launch takes (`ivf_segmax_ready`) and what it is passed,
-  recorded by a stand-in for `scan._launch` on CPU tensors that report
-  themselves as CUDA tensors, with the counters.
+* What a launch is passed (the rows' producer `rows_piece`, the padded
+  query planes), recorded by a stand-in for `scan._launch` on CPU tensors
+  that report themselves as CUDA tensors, with the counters.
 * On the CPU the wrapper runs the plain version: the new counter stays 0.
 """
 
@@ -190,34 +190,23 @@ def _operands(kind, dim, offset=0, nq=5, tiles=4):
     return q, flat[offset:offset + tiles * BN * dim].view(tiles * BN, dim)
 
 
-# kind: (a row of whole 16 bytes, one that is not)
-WIDTHS = {"f32": (96, 98), "bf16": (96, 100), "i8c": (96, 104)}
-
-
-@pytest.mark.parametrize("kind", list(WIDTHS))
-def test_ivf_segmax_ready_rule(kind):
-    """TMA reads rows whose stride is whole 16 bytes from 16-byte aligned
-    bases: f32 dim % 4, bf16 % 8, int8 % 16."""
-    words, ragged = WIDTHS[kind]
-    for nq in (1, 32, 33, 300):
-        assert tivf.ivf_segmax_ready(*_operands(kind, words, nq=nq))
-    assert not tivf.ivf_segmax_ready(*_operands(kind, ragged))
-    assert not tivf.ivf_segmax_ready(*_operands(kind, words, offset=1))
-    q, v = _operands(kind, words)
-    assert not tivf.ivf_segmax_ready(
-        torch.zeros(5 * words + 1, dtype=q.dtype)[1:].view(5, words), v)
-
-
-@pytest.mark.parametrize("kind,dim,offset,tc", [
+@pytest.mark.parametrize("kind,dim,offset,tma", [
     ("f32", 96, 0, True), ("f32", 98, 0, False), ("bf16", 1024, 0, True),
     ("bf16", 100, 0, False), ("i8c", 96, 0, True), ("i8c", 96, 1, False),
-    ("i8c", 104, 0, False)])
-def test_k8_dispatch_by_ivf_segmax_ready(recorded, kind, dim, offset, tc):
-    """K8 takes the tensor-core segment scan where `ivf_segmax_ready`
-    holds (float32 queries as their hi and lo planes), the first kernel
-    otherwise; "ivf_segmax" counts both, "ivf_segmax_wgmma" the scan."""
+    ("i8c", 104, 0, False), ("f32", 96, 1, False), ("bf16", 96, 1, False),
+    ("i8c", 98, 0, False)])
+def test_k8_dispatch_by_ivf_segmax_ready(recorded, kind, dim, offset, tma):
+    """K8 takes the tensor-core segment scan at every width and base, its
+    rows by the producer `rows_piece` names (TMA where `tma`: rows of
+    whole 16 bytes from a 16-byte aligned base; cp.async where the row
+    bytes and the base are multiples of 4 or 8; the realigning producer
+    the rest), float32 queries as their hi and lo planes, every plane
+    padded to whole 16 bytes; "ivf_segmax" counts every launch,
+    "ivf_segmax_wgmma" the TMA kind's, the same key ending in "_cpasync" /
+    "_realign" the others'."""
     q, v = _operands(kind, dim, offset)
-    assert tivf.ivf_segmax_ready(q, v) == tc
+    piece = tscan.rows_piece(v)
+    assert piece in ((0,) if tma else (8, 4, 2))
     mask = torch.ones(v.shape[0], dtype=torch.bool)
     hot = torch.tensor([3, 1, 2], dtype=torch.int32)
     n_hot = torch.tensor([2], dtype=torch.int32)
@@ -225,18 +214,17 @@ def test_k8_dispatch_by_ivf_segmax_ready(recorded, kind, dim, offset, tc):
     keys = tivf.ivf_segmax_scan(*map(_as_cuda, (q, v, mask, hot, n_hot)), 8)
     assert keys.shape == (5, 3 * 8 * NS) and keys.dtype == torch.int32
     (entry, args), = recorded
-    assert args[0] == tivf._KINDS[DTYPES[kind]]
-    if tc:
-        assert entry == "pv_ivf_segmax_wgmma"
-        assert (args[2] is not None) == (kind == "f32")  # the lo plane
-        assert args[8:] == (5, 4 * BN, dim, BN, 3, 8)
-    else:
-        assert entry == "pv_ivf_segmax"
-        assert args[7:] == (5, 4 * BN, dim, BN, 3, 8)
+    assert entry == "pv_ivf_segmax_wgmma"
+    assert args[:2] == (piece, tivf._KINDS[DTYPES[kind]])
+    assert (args[3] is not None) == (kind == "f32")  # the lo plane
+    assert args[4] == v.data_ptr()
+    assert args[9:] == (5, 4 * BN, dim, BN, 3, 8)
+    key = "ivf_segmax_wgmma" + tscan._PIECE_KEY[piece]
     assert tscan.LAUNCHES["ivf_segmax"] == before["ivf_segmax"] + 1
-    assert (tscan.LAUNCHES["ivf_segmax_wgmma"]
-            == before["ivf_segmax_wgmma"] + tc)
+    assert tscan.LAUNCHES[key] == before[key] + 1
     assert tscan.LAUNCH_SHAPES["ivf_segmax"][5, 8] >= 1
+    if not tma:
+        assert tscan.LAUNCH_SHAPES[key][5, 8] >= 1
 
 
 def test_counter_stays_zero_on_the_cpu():

@@ -251,21 +251,24 @@ RULE_CASES = {"f32": (1024, 98), "bf16": (1024, 100), "i8c": (1024, 104)}
 
 @pytest.mark.parametrize("kind", list(RULE_CASES))
 def test_ivf_wgmma_ready_edges(kind):
-    """Q > 16 (the sweep keeps Q <= 16), k <= 128, rows of whole 16 bytes,
-    16-byte aligned bases of both operands."""
+    """k <= 128 where neither one-query sweep takes the operands: every
+    width and base past 16 queries (rows TMA cannot read by the producer
+    `rows_piece` names), none at Q <= 16 where the sweep or its narrow
+    kind holds them."""
     dt = DTYPES[kind]
     words, ragged = RULE_CASES[kind]
     for nq in (17, 64, 2048):
         q, v = _operands(words, dt, nq=nq)
         assert tivf.ivf_wgmma_ready(q, v, 1) and tivf.ivf_wgmma_ready(q, v, 128)
         assert not tivf.ivf_wgmma_ready(q, v, 129)
-        assert not tivf.ivf_wgmma_ready(*_operands(ragged, dt, nq=nq), 14)
-        assert not tivf.ivf_wgmma_ready(*_operands(words, dt, nq=nq,
-                                                   offset=1), 14)
+        assert tivf.ivf_wgmma_ready(*_operands(ragged, dt, nq=nq), 14)
+        assert tivf.ivf_wgmma_ready(*_operands(words, dt, nq=nq,
+                                               offset=1), 14)
         qq = torch.zeros(nq * words + 16, dtype=dt)[1:1 + nq * words]
-        assert not tivf.ivf_wgmma_ready(qq.view(nq, words), v, 14)
+        assert tivf.ivf_wgmma_ready(qq.view(nq, words), v, 14)
     for nq in (1, 16):
         assert not tivf.ivf_wgmma_ready(*_operands(words, dt, nq=nq), 14)
+        assert not tivf.ivf_wgmma_ready(*_operands(ragged, dt, nq=nq), 14)
     assert tivf.ivf_wgmma_ready(*_operands(words, dt, nq=17), 14)
 
 
@@ -301,15 +304,19 @@ def recorded(monkeypatch):
     return calls
 
 
-# (kind, Q, dim, k, offset, kernel): the sweep, then the tensor-core scan,
-# then the wide kind (k > 128), then the template
+# (kind, Q, dim, k, offset, kernel): the sweep, then its narrow kind, then
+# the tensor-core scan, then the wide kind (k > 128); rows TMA cannot read
+# (a ragged width, a base off 16 bytes) take the same kinds
 DISPATCH = [("f32", 16, 64, 14, 0, "sweep"), ("f32", 17, 64, 14, 0, "wgmma"),
             ("bf16", 64, 64, 32, 0, "wgmma"), ("i8c", 512, 64, 128, 0, "wgmma"),
             ("i8c", 2048, 1024, 14, 0, "wgmma"),
             ("f32", 64, 64, 544, 0, "wide"),
-            ("bf16", 64, 100, 14, 0, "template"),
-            ("f32", 64, 64, 14, 1, "template"),
-            ("i8c", 16, 64, 544, 0, "wide")]
+            ("bf16", 64, 100, 14, 0, "wgmma"),
+            ("f32", 64, 64, 14, 1, "wgmma"),
+            ("i8c", 16, 64, 544, 0, "wide"),
+            ("bf16", 16, 100, 14, 0, "narrow"),
+            ("f32", 1, 64, 14, 1, "narrow"),
+            ("f32", 16, 1536, 14, 0, "wgmma")]
 
 
 @pytest.mark.parametrize("kind,nq,dim,k,offset,kernel", DISPATCH)
@@ -326,20 +333,28 @@ def test_k7_dispatch_order(recorded, kind, nq, dim, k, offset, kernel):
     assert vals.shape == idx.shape == (nq, k)
     (entry, args), = recorded
     assert entry == {"sweep": "pv_ivf_sweep_topk",
+                     "narrow": "pv_ivf_sweep_topk_narrow",
                      "wgmma": "pv_ivf_scan_topk_wgmma",
                      "wide": "pv_ivf_scan_topk_wide",
                      "template": "pv_ivf_scan_topk"}[kernel]
+    piece = tscan.rows_piece(v)
     if kernel == "wgmma":
-        assert args[0] == tivf._KINDS[dt]
+        assert args[:2] == (piece, tivf._KINDS[dt])
         # float32 queries pass their hi / lo planes, the others themselves
-        assert (args[1] == q.data_ptr()) == (kind != "f32")
-        assert args[2:6] == (v.data_ptr(), mask.data_ptr(), hot.data_ptr(),
+        # where their rows are whole 16 bytes (else padded copies)
+        whole = dim * q.element_size() % 16 == 0
+        assert (args[2] == q.data_ptr()) == (kind != "f32" and whole)
+        assert args[3:7] == (v.data_ptr(), mask.data_ptr(), hot.data_ptr(),
                              n_hot.data_ptr())
-        assert args[9:] == (nq, 4 * BN, dim, k, BN, 3)
+        assert args[10:] == (nq, 4 * BN, dim, k, BN, 3)
+    if kernel == "wide":
+        assert args[0] == piece
     assert tscan.LAUNCHES["ivf_scan_topk"] == before["ivf_scan_topk"] + 1
-    for key in ("sweep", "wgmma", "wide"):
+    suffix = tscan._PIECE_KEY[piece]
+    for key in ("sweep", "narrow", "wgmma" + suffix, "wide" + suffix):
         name = f"ivf_scan_topk_{key}"
-        assert tscan.LAUNCHES[name] == before[name] + (kernel == key), name
+        assert (tscan.LAUNCHES[name]
+                == before[name] + (key.split("_")[0] == kernel)), name
 
 
 def test_wgmma_launch_partials(recorded, monkeypatch):

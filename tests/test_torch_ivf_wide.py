@@ -277,20 +277,21 @@ RULE_CASES = {"f32": (1024, 98), "bf16": (1024, 100), "i8c": (1024, 104)}
 
 @pytest.mark.parametrize("kind", list(RULE_CASES))
 def test_ivf_wide_ready_edges(monkeypatch, kind):
-    """128 < k <= SCAN_KSEL_MAX, rows of whole 16 bytes, 16-byte aligned
-    bases of both operands, one query's slab within TOPK_WIDE_SLAB_BYTES;
-    any Q."""
+    """128 < k <= SCAN_KSEL_MAX and one query's slab within
+    TOPK_WIDE_SLAB_BYTES, at every width and base of both operands (rows
+    TMA cannot read by the producer `rows_piece` names, the queries padded
+    in the scratch); any Q."""
     dt = DTYPES[kind]
     words, ragged = RULE_CASES[kind]
     for nq in (1, 16, 17, 2048):
         q, v = _operands(words, dt, nq=nq)
         for k in (128, 129, 384, 385, 1024, 1025):
             assert tivf.ivf_wide_ready(q, v, k) == (128 < k <= 1024), k
-        assert not tivf.ivf_wide_ready(*_operands(ragged, dt, nq=nq), 544)
-        assert not tivf.ivf_wide_ready(*_operands(words, dt, nq=nq,
-                                                  offset=1), 544)
-        assert not tivf.ivf_wide_ready(*_operands(words, dt, nq=nq,
-                                                  qoffset=1), 544)
+        assert tivf.ivf_wide_ready(*_operands(ragged, dt, nq=nq), 544)
+        assert tivf.ivf_wide_ready(*_operands(words, dt, nq=nq, offset=1), 544)
+        assert tivf.ivf_wide_ready(*_operands(words, dt, nq=nq, qoffset=1),
+                                   544)
+        assert not tivf.ivf_wide_ready(*_operands(ragged, dt, nq=nq), 128)
     q, v = _operands(words, dt, rows=2 * BN)
     monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4 * 2 * BN)
     assert tivf.ivf_wide_ready(q, v, 544)
@@ -301,19 +302,23 @@ def test_ivf_wide_ready_edges(monkeypatch, kind):
 @pytest.mark.parametrize("nq,kind,grid_b", [(1, 0, 40), (64, 0, 700),
                                             (128, 2, 2000), (4096, 1, 64)])
 def test_scratch_layout(nq, kind, grid_b):
-    """The planes (float32 queries only), the sorted tiles, the logical
+    """The query planes (float32: hi and lo; bf16 and int8: room for the
+    queries as rows of whole 16 bytes), the sorted tiles, the logical
     mask, then one query tile's slab, histograms and candidates, each from
     a 256-byte boundary (csrc/ivf_scan_wide.cu's layout); the tile keeps
     the slab within its budget."""
-    dim = 1024
     ld = grid_b * BN
     t = tscan.topk_wide_tile(nq, ld)
     assert t * ld * 4 <= tscan.TOPK_WIDE_SLAB_BYTES or t == 1
     up = lambda b: -(-b // 256) * 256  # noqa: E731
-    want = ((up(nq * dim * 8) if kind == 0 else 0) + up(grid_b * 4)
-            + up(grid_b * BN) + up(t * ld * 4)
-            + up(t * tscan.TOPK_WIDE_HIST * 4) + t * tscan.TOPK_WIDE_CAP * 8)
-    assert tivf.ivf_wide_scratch(nq, dim, kind, grid_b, BN, t) == want
+    es = {0: 4, 1: 2, 2: 1}[kind]
+    for dim in (1024, 25, 100, 1019):
+        qld = -(-dim * es // 16) * 16 // es
+        want = ((up(nq * qld * 8) if kind == 0 else up(nq * qld * es))
+                + up(grid_b * 4) + up(grid_b * BN) + up(t * ld * 4)
+                + up(t * tscan.TOPK_WIDE_HIST * 4)
+                + t * tscan.TOPK_WIDE_CAP * 8)
+        assert tivf.ivf_wide_scratch(nq, dim, kind, grid_b, BN, t) == want
 
 
 class _AsCuda(torch.Tensor):
@@ -346,13 +351,15 @@ def recorded(monkeypatch):
 
 
 # (kind, Q, dim, k, offset, kernel): the sweep, the tensor-core scan, the
-# wide kind, the template
+# wide kind; rows TMA cannot read (a ragged width, a base off 16 bytes)
+# take the same kinds, the template only a slab over its budget
 DISPATCH = [("f32", 16, 64, 128, 0, "sweep"), ("i8c", 17, 64, 128, 0, "wgmma"),
             ("i8c", 1, 1024, 160, 0, "wide"), ("i8c", 64, 256, 160, 0, "wide"),
             ("i8c", 1, 256, 544, 0, "wide"), ("f32", 16, 64, 544, 0, "wide"),
             ("bf16", 128, 64, 1024, 0, "wide"),
-            ("bf16", 64, 100, 544, 0, "template"),
-            ("f32", 1, 64, 160, 1, "template")]
+            ("bf16", 64, 100, 544, 0, "wide"),
+            ("f32", 1, 64, 160, 1, "wide"),
+            ("i8c", 1, 25, 144, 3, "wide")]
 
 
 @pytest.mark.parametrize("kind,nq,dim,k,offset,kernel", DISPATCH)
@@ -373,17 +380,20 @@ def test_k7_dispatch_with_the_wide_kind(recorded, kind, nq, dim, k, offset,
                      "wgmma": "pv_ivf_scan_topk_wgmma",
                      "wide": "pv_ivf_scan_topk_wide",
                      "template": "pv_ivf_scan_topk"}[kernel]
+    piece = tscan.rows_piece(v)
     if kernel == "wide":
         q_tile = tscan.topk_wide_tile(nq, 3 * BN)
-        assert args[:6] == (tivf._KINDS[dt], q.data_ptr(), v.data_ptr(),
+        assert args[:7] == (piece, tivf._KINDS[dt], q.data_ptr(), v.data_ptr(),
                             mask.data_ptr(), hot.data_ptr(), n_hot.data_ptr())
-        assert args[9:] == (nq, 4 * BN, dim, k, BN, 3, q_tile,
-                            tivf.ivf_wide_scratch(nq, dim, tivf._KINDS[dt], 3,
-                                                  BN, q_tile))
+        assert args[10:] == (nq, 4 * BN, dim, k, BN, 3, q_tile,
+                             tivf.ivf_wide_scratch(nq, dim, tivf._KINDS[dt],
+                                                   3, BN, q_tile))
     assert tscan.LAUNCHES["ivf_scan_topk"] == before["ivf_scan_topk"] + 1
-    for key in ("sweep", "wgmma", "wide"):
+    suffix = tscan._PIECE_KEY[piece]
+    for key in ("sweep", "wgmma" + suffix, "wide" + suffix):
         name = f"ivf_scan_topk_{key}"
-        assert tscan.LAUNCHES[name] == before[name] + (kernel == key), name
+        assert (tscan.LAUNCHES[name]
+                == before[name] + (key.split("_")[0] == kernel)), name
     assert tscan.LAUNCH_SHAPES["ivf_scan_topk"][nq, k] >= 1
 
 
