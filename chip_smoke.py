@@ -12,7 +12,13 @@ rows TMA cannot read, served by K1's mainloop fed by cp.async, and a
 realigning producer (phase 3b), a 1M x 1024 int8
 store with the host-f64 rescore and a quantized checkpoint (phase 4, its
 Q = 64 batches on K3's tensor-core scan), a device-born
-16M x 1024 int4 store (phase 5, an 8 GB packed plane), a 262,144 x 1024
+16M x 1024 int4 store (phase 5, an 8 GB packed plane), int4 stores at
+ann-benchmarks' shapes (phase 5b, its own generator: glove-100 /
+glove-200 / gist-960's rows x widths, host-uploaded, served with the host
+rescore on K6's wide kind and a 256-query chunk on its tensor-core scan,
+and a device-born store at dim 100 on K6's narrow sweep, over packed rows
+TMA cannot read or whose last k-stage is partial: no launch of K6's
+template; `--int4-ann` runs it alone after the build), a 262,144 x 1024
 bfloat16 store (phase 6), the IVF tier's classic layout over a clustered
 2M x 1024 float32 store under index="auto" (phase 7), the host-rescore
 band of quantized IVF stores (phase 7b, its own generator: a clustered
@@ -80,8 +86,8 @@ beside torch.topk at its launch shapes, and every other kernel of phase
 2 beside the PyTorch calls that compute its function on the same inputs
 (`library_ms`, `library_call`: the product alone for K1 / K5 / K10 / P1,
 the product + torch.topk for K3 / K4 / K9, a gather of the probed tiles'
-rows first for K7 / K8; none for K6, whose packed nibbles no PyTorch call
-multiplies); phases 3 and 7 also time
+rows first for K7 / K8; the nibbles unpacked first for K6, which no
+PyTorch call multiplies packed); phases 3 and 7 also time
 K4's tensor-core scan and its template at Q = 1 ... 256; phase 2 holds
 K4's wide kind (128 < k_sel <= 1024) to the plain version under a mask,
 a filter and no live row and times it beside its template, K6's wide kind
@@ -375,6 +381,30 @@ KERNELS = {
     "ivf_segmax_scan_realign": ("ivf_segmax_wgmma_realign",
                                 "picovdb_tpu_torch/csrc/ivf_segmax_wgmma.cu",
                                 "picovdb_tpu/ops/ivf.py:1492", "7c"),
+    # K6's kinds at every even width and base: phase 5b's int4 stores at
+    # ann-benchmarks' shapes drive them through the public API (the narrow
+    # sweep at Q = 1 ... 4 on the device-born dim-100 store; the
+    # tensor-core scan on a 256-query chunk and the wide kind on the host
+    # rescore's k_sel 526, fed by the expanders' 4-byte reads at dim 200
+    # and their realigning reads at dim 100; gist-960's partial last
+    # k-stage counts under the TMA rows' keys)
+    "fused_topk_i4_narrow": ("scan_topk_i4_narrow",
+                             "picovdb_tpu_torch/csrc/sweep_topk.cu",
+                             "picovdb_tpu/ops/pallas_scan.py:1315", "5b"),
+    "fused_topk_i4_wgmma_cpasync": ("scan_topk_i4_wgmma_cpasync",
+                                    "picovdb_tpu_torch/csrc/scan_i4_wgmma.cu",
+                                    "picovdb_tpu/ops/pallas_scan.py:1315",
+                                    "5b"),
+    "fused_topk_i4_wgmma_realign": ("scan_topk_i4_wgmma_realign",
+                                    "picovdb_tpu_torch/csrc/scan_i4_wgmma.cu",
+                                    "picovdb_tpu/ops/pallas_scan.py:1315",
+                                    "5b"),
+    "fused_topk_i4_wide_cpasync": ("scan_topk_i4_wide_cpasync",
+                                   "picovdb_tpu_torch/csrc/topk_i4_wide.cu",
+                                   "picovdb_tpu/ops/pallas_scan.py:1315", "5b"),
+    "fused_topk_i4_wide_realign": ("scan_topk_i4_wide_realign",
+                                   "picovdb_tpu_torch/csrc/topk_i4_wide.cu",
+                                   "picovdb_tpu/ops/pallas_scan.py:1315", "5b"),
 }
 # Every K4 / K3 kind's launch key: a path's template launches are its
 # "scan_topk" / "scan_topk_i8" launches less these
@@ -385,6 +415,10 @@ K3_KIND_KEYS = ("scan_topk_i8_sweep", "scan_topk_i8_narrow",
                 "scan_topk_i8_wgmma", "scan_topk_i8_wgmma_cpasync",
                 "scan_topk_i8_wgmma_realign", "scan_topk_i8_wide",
                 "scan_topk_i8_wide_cpasync", "scan_topk_i8_wide_realign")
+K6_KIND_KEYS = ("scan_topk_i4_sweep", "scan_topk_i4_narrow",
+                "scan_topk_i4_wgmma", "scan_topk_i4_wgmma_cpasync",
+                "scan_topk_i4_wgmma_realign", "scan_topk_i4_wide",
+                "scan_topk_i4_wide_cpasync", "scan_topk_i4_wide_realign")
 # Phase 3c: two float32 stores at ann-benchmarks' glove-100-angular and
 # glove-25-angular shapes (1,183,514 rows x 100 / 25; the vectors are
 # seeded normal rows, not GloVe's), and an int8-storage store of the same
@@ -423,7 +457,8 @@ LIB_IVF_SEG = ("index_select of the probed tiles' rows + torch.matmul + "
                "torch.topk per 128-row segment")
 LIB_IVF_SEG_I8 = ("index_select of the probed tiles' rows + torch._int_mm + "
                   "torch.topk per 128-row segment")
-LIB_NONE_I4 = "none: no PyTorch call multiplies packed int4 nibbles"
+LIB_K6 = ("unpack_i4 + torch._int_mm (M padded to 32 rows, K to 8) + row "
+          "scales + masked_fill + torch.topk")
 LIB_IVF_TC = ("index_select of the live hot tiles' rows + torch.matmul "
               "(int8: torch._int_mm) + masked_fill + torch.topk")
 
@@ -435,6 +470,22 @@ def lib_topk(torch, scores_fn, notmask, k: int):
         s = scores_fn().masked_fill(notmask, float("-inf"))
         return torch.topk(s, k, dim=1)
     return run
+
+
+def k6_lib_ms(torch, scan, q8, v4, vs, notmask, k: int) -> float:
+    """K6's library yardstick on its inputs (LIB_K6): the packed nibbles
+    unpacked to int8 values (nibble - 8: the same integer sum as the
+    kernels' biased planes less 8 sum(q)), torch._int_mm (M padded to 32
+    rows at Q <= 16, K to a multiple of 8), row scales, masked_fill,
+    torch.topk. A yardstick only: no route calls it."""
+    nq = q8.shape[0]
+    qq = scan._pad_cols(int_mm_rows(torch, q8, nq) if nq <= 16 else q8, 8)
+
+    def scores():
+        v = scan._pad_cols(scan.unpack_i4(v4), 8)
+        return torch._int_mm(qq, v.T)[:nq].float() * vs
+
+    return cuda_ms(torch, lib_topk(torch, scores, notmask, k))
 
 
 def int_mm_rows(torch, q8, nq: int):
@@ -1592,14 +1643,19 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         q8, v4, vs4, mask, 1024, int4=True))
     bound_w = entry(0.0, 0, 0, 16 * dim + live * (dim // 2 + 4) + cap
                     + 16 * 1024 * 8, 2 * 16 * live * dim, "int8")["bound_ms"]
+    # the library yardstick on the K1 batch's first query (no new draw)
+    q8l, _ = scan.quantize_rows_i8(q[:1])
+    lib1 = k6_lib_ms(torch, scan, q8l, v4, vs4, ~mask, 14)
     rec["fused_topk_i4"] = entry(max(errs), k6[1][1]["sweep"], pms[0],
                                  dim + live * (dim // 2 + 4) + cap + 14 * 8,
-                                 2 * live * dim, "int8", None, LIB_NONE_I4)
+                                 2 * live * dim, "int8", lib1, LIB_K6)
     nq = 2048
+    q8l, _ = scan.quantize_rows_i8(q)
     rec["fused_topk_i4_wgmma"] = entry(
         max(errs), k6[nq][1]["tensor-core scan"], pms[3],
         nq * dim + live * (dim // 2 + 4) + cap + nq * 14 * 8,
-        2 * nq * live * dim, "int8", None, LIB_NONE_I4)
+        2 * nq * live * dim, "int8",
+        k6_lib_ms(torch, scan, q8l, v4, vs4, ~mask, 14), LIB_K6)
     log(f"phase 2: K6 fused_topk_i4 = plain bit for bit at k_sel=14 "
         f"(bound {rec['fused_topk_i4']['bound_ms']:.4f} ms at Q=1, "
         f"{rec['fused_topk_i4_wgmma']['bound_ms']:.4f} at Q=2048; the kernel "
@@ -1619,7 +1675,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["fused_topk_i4_wide"] = {
         **w6, "plain_ms": cuda_ms(torch, lambda: scan.scan_topk_plain(
             q8w, v4, vs4, mask, 526, int4=True), reps=3),
-        "library_ms": None, "library_call": LIB_NONE_I4,
+        "library_ms": k6_lib_ms(torch, scan, q8w, v4, vs4, ~mask, 526),
+        "library_call": LIB_K6,
         "shapes": {f"Q={nq} k_sel={kk}": w for (nq, kk), w in wide6.items()}}
     log(f"phase 2: K6 fused_topk_i4 (wide kind) = plain bit for bit under the "
         f"~10 % mask and no live row (each shape: the wide kind, the template "
@@ -2514,11 +2571,13 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
 
 
 def templates_launched(counts) -> dict:
-    """A path's launches of K4's and K3's templates (`pv_scan_topk` kinds
-    0 / 1 and 2): every launch less those of the kinds."""
+    """A path's launches of K4's, K3's and K6's templates (`pv_scan_topk`
+    kinds 0 / 1, 2 and 3): every launch less those of the kinds."""
     return {"K4": counts["scan_topk"] - sum(counts[k] for k in K4_KIND_KEYS),
             "K3": counts["scan_topk_i8"] - sum(counts[k]
-                                               for k in K3_KIND_KEYS)}
+                                               for k in K3_KIND_KEYS),
+            "K6": counts["scan_topk_i4"] - sum(counts[k]
+                                               for k in K6_KIND_KEYS)}
 
 
 def narrow_rec(rec, name: str, label: str, record: dict) -> None:
@@ -2592,7 +2651,7 @@ def narrow_serve(torch, scan, db, corpus_dev, qdev, prefix: str, allow,
     assert routes["where"] in ("fview_segmax", "mixed_fused_batch_filtered")
     assert routes["top_k=32"] == "mixed_fused_batch", routes
     # no template launch; each new kind the store's mirrors take served
-    assert templates_launched(counts) == {"K4": 0, "K3": 0}, counts
+    assert templates_launched(counts) == {"K4": 0, "K3": 0, "K6": 0}, counts
     want = ["scan_topk_i8_narrow"] + [
         name + scan._PIECE_KEY[scan.rows_piece(rows)] for name, rows in (
             ("scan_topk_i8_wgmma", dev.vectors_i8),
@@ -2760,7 +2819,7 @@ def int8_narrow_store(torch, scan, device, corpus, qdev, rec, label: str):
     got, _ = db.query_columnar(q64, top_k=10)
     torch.cuda.synchronize()
     counts = launch_counts(scan)
-    assert templates_launched(counts) == {"K4": 0, "K3": 0}, counts
+    assert templates_launched(counts) == {"K4": 0, "K3": 0, "K6": 0}, counts
     v8, vs, act = db._dev.vectors, db._dev.vstore_scale, db._dev.active
     piece = scan._PIECE_KEY[scan.rows_piece(v8)]
     corpus_dev = torch.from_numpy(corpus).to(device)
@@ -3332,6 +3391,7 @@ def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
     assert counts["scan_topk_i4_sweep"] == 12, "Q=1 missed the sweep"
     assert counts["scan_topk_i4_wgmma"] == 3, \
         "the batches missed the tensor-core scan"
+    assert templates_launched(counts)["K6"] == 0, counts
     # K6 after the count, at k_sel = k + 4 over the store's own plane,
     # scales and mask, at the shapes above and at those between them that
     # place the ready rules' limits: what the dispatch returns, bit for bit
@@ -3373,6 +3433,366 @@ def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
         f" card {card}")
     del db
     return counts
+
+
+# Phase 5b: int4 stores at ann-benchmarks' shapes (rows x width of
+# glove-100-angular, glove-200-angular and gist-960-euclidean; the vectors
+# are seeded normal rows, not the datasets'): host uploads, served with the
+# host rescore (k_sel 526 at Q <= RESCORE_MAX_Q on K6's wide kind, k_sel 14
+# past it on the tensor-core scan), over packed rows of 50 / 100 / 480
+# bytes (the expanders' realigning reads, their 4-byte reads, TMA with a
+# partial last k-stage); then glove-100's width once more as a device-born
+# store (Q = 1 ... 4 on the narrow sweep, Q = 16 on the scan). Its own
+# generator, seeded from SEED and the phase's name.
+SEED_5B = (SEED, *b"5b")
+I4_ANN_STORES = (("glove-100", ANN_N, 100), ("glove-200", ANN_N, 200),
+                 ("gist-960", 1_000_000, 960))
+I4_ANN_COLUMNAR = 256  # one query_columnar chunk past RESCORE_MAX_Q
+I4_ANN_WIDE_K = 10 + 4 * 128 + 4  # the int4 store's host-rescore band
+# The narrow sweep against the tensor-core scan (the limit behind
+# scan.I4_NARROW_Q_MAX) over packed planes made on the card at these
+# widths (50- to 511-byte rows: the narrow kind's packed and row-group
+# layouts), each and its first 131,072 rows, at k_sel 14
+I4_NARROW_CROSS_Q = (1, 2, 4, 5, 8, 16)
+I4_NARROW_CROSS_CAPS = (131_072, ANN_N)
+I4_NARROW_CROSS_DIMS = (100, 300, 784, 1022)
+
+
+def i4_padded(torch, q8, v4):
+    """The same queries and packed rows at the width rounded up to 128
+    elements: each packed row followed by zero bytes, each half of each
+    query followed by zero columns, so every score is the same integer (the
+    bias 8 sum(q) too) and the TMA kinds read whole k-stages."""
+    dim = q8.shape[1]
+    half, dp = dim // 2, -(-dim // 128) * 128
+    v4p = torch.zeros((v4.shape[0], dp // 2), dtype=torch.int8,
+                      device=v4.device)
+    v4p[:, :half] = v4
+    q8p = torch.zeros((q8.shape[0], dp), dtype=torch.int8, device=q8.device)
+    q8p[:, :half] = q8[:, :half]
+    q8p[:, dp // 2:dp // 2 + half] = q8[:, half:]
+    return q8p, v4p
+
+
+def i4_kind_hold(torch, scan, kind: str, args, padded, rec, label: str):
+    """K6's `kind` ("narrow", "scan", "wide") on `args` (int8 queries,
+    the store's packed plane, scales, mask, k_sel), launched uncounted: bit
+    for bit the plain version, as are its template and the TMA kind over
+    `padded` (the same rows and queries at a width of whole 128 elements,
+    `i4_padded`); then each timed on the same inputs beside the library
+    yardstick (LIB_K6), the plain version and the bound. The kernels
+    line's row (`narrow_rec`) takes it, the TMA rows' partial-stage cases
+    under "partial_stage". Returns (the row's name, the record)."""
+    q8, v4, vs, act, k = args
+    q8p, v4p = padded
+    run, tma = {
+        "narrow": (lambda a: scan._sweep_launch(*a, "fused_topk_i4",
+                                                "pv_sweep_topk_i4_narrow"),
+                   lambda a: scan._sweep_launch(*a, "fused_topk_i4")),
+        "scan": (lambda a: scan._i4_wgmma_launch(*a),
+                 lambda a: scan._i4_wgmma_launch(*a)),
+        "wide": (lambda a: scan._i4_wide_launch(*a),
+                 lambda a: scan._i4_wide_launch(*a))}[kind]
+    targs = (q8p, v4p, vs, act, k)
+    if kind == "narrow":
+        assert scan.i4_sweep_ready(q8p, v4p, k), "the 16-byte sweep"
+    else:
+        assert scan.rows_piece(v4p) == 0
+    ref = scan.scan_topk_plain(*args, chunk=131_072, int4=True)
+    err = 0.0
+    for what, fn in (("kind", lambda: run(args)), ("TMA kind",
+                                                   lambda: tma(targs)),
+                     ("template", lambda: scan._template_launch(
+                         *args, scan._KIND_I4))):
+        out = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]), \
+            f"5b {label}: K6's {kind} ({what}) differs from the plain version"
+        if what == "kind":
+            err = exact_err(torch, out[0], ref[0])
+    del out, ref
+    nq, dim = q8.shape
+    cap, live = act.shape[0], int(act.sum())
+    ms = timed_ms(torch, lambda: run(args), 10)
+    r = entry(err, ms, timed_ms(torch, lambda: scan.scan_topk_plain(
+        *args, chunk=131_072, int4=True), 3),
+        nq * dim + live * (dim // 2 + 4) + cap + nq * k * 8,
+        2 * nq * live * dim, "int8",
+        k6_lib_ms(torch, scan, q8, v4, vs, ~act, k), LIB_K6)
+    r["template_ms"] = timed_ms(torch, lambda: scan._template_launch(
+        *args, scan._KIND_I4), 3)
+    r["tma_ms"] = timed_ms(torch, lambda: tma(targs), 10)
+    name = {"narrow": "fused_topk_i4_narrow", "scan": "fused_topk_i4_wgmma",
+            "wide": "fused_topk_i4_wide"}[kind]
+    if kind != "narrow":
+        name += scan._PIECE_KEY[scan.rows_piece(v4)]
+    shape = f"{label} Q={nq} k_sel={k}"
+    if name in ("fused_topk_i4_wgmma", "fused_topk_i4_wide"):
+        # TMA's rows with a partial last stage: beside the row's own shape
+        row = rec.setdefault(name, {})
+        row.setdefault("partial_stage", {})[shape] = r
+    else:
+        narrow_rec(rec, name, shape, r)
+    return name, r
+
+
+def i4_hold_line(name: str, r, label: str) -> str:
+    return (f"{name} {label}: {r['ms']:.4f} ms, template "
+            f"{r['template_ms']:.4f}, the TMA kind over rows padded to 128 "
+            f"elements {r['tma_ms']:.4f}, library {r['library_ms']:.4f}, "
+            f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}), = plain bit for bit")
+
+
+def int4_ann_store(torch, scan, device, name: str, n: int, dim: int, g, rec):
+    """One host-uploaded int4 store of phase 5b: n seeded unit rows,
+    queries = 64 rows + noise (and 256 for the chunk); through the public
+    API, launches counted from 0: 64 single `query` calls and one 64-query
+    `query` (the host rescore's band, k_sel 526: K6's wide kind), one
+    256-query `query_columnar` (past RESCORE_MAX_Q: k_sel 14 on the
+    tensor-core scan); no template launch. The host-rescored answers at
+    recall@10 >= 0.99 and ids = the float64 oracle outside TOL_GAP; the
+    chunk's ids = its route composed of plain versions (K6's plain version
+    at k_sel 14, the dequantizing rescore). Then each kind at
+    the path's shapes on the store's own plane (`i4_kind_hold`). Returns
+    (launches, line)."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    t0 = time.perf_counter()
+    corpus = g.standard_normal((n, dim), dtype=np.float32)
+    near = corpus[g.integers(0, n, I4_ANN_COLUMNAR)]
+    qdev = torch.from_numpy(
+        near + 0.01 * g.standard_normal(near.shape, dtype=np.float32)
+    ).to(device)
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(tmp, "i4"),
+                      storage_dtype="int4")
+    db.upsert_columnar(corpus, ids=[f"a{i}" for i in range(n)], copy=False)
+    db.rebuild_index()  # `corpus` now holds the unit rows
+    made_s = time.perf_counter() - t0
+    qh = qdev.cpu().numpy()
+    scan.reset_launch_counts()
+    singles = serve_singles(db, qh[:64], "i4stor_fused")
+    assert db.last_query_debug()["rescore"] == "host"
+    batch = db.query(qh[:64], top_k=10)
+    assert db.last_query_debug()["strategy"] == "i4stor_fused"
+    cols, _ = db.query_columnar(qh, top_k=10, batch_size=I4_ANN_COLUMNAR)
+    torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    dev = db._dev
+    v4, vs, act = dev.vectors, dev.vstore_scale, dev.active
+    piece = scan._PIECE_KEY[scan.rows_piece(v4)]
+    wide, tc = "scan_topk_i4_wide" + piece, "scan_topk_i4_wgmma" + piece
+    shapes = counts["shapes"]
+    assert templates_launched(counts)["K6"] == 0, counts
+    assert shapes.get(wide) == {f"Q=1 k={I4_ANN_WIDE_K}": 64,
+                                f"Q=64 k={I4_ANN_WIDE_K}": 1}, shapes
+    assert shapes.get(tc) == {f"Q={I4_ANN_COLUMNAR} k=14": 1}, shapes
+    # the host-rescored answers against the float64 oracle over the rows
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    live = torch.ones(n, dtype=torch.bool, device=device)
+    ov, oi = (t.cpu().numpy() for t in oracle_topk(
+        torch, corpus_dev, qdev[:64], live, 11))
+    got = [[h["_id_"] for h in hits] for hits in batch]
+    for ids, what in ((singles, "singles"), (got, "the 64-query batch")):
+        assert ids_off_oracle(ids, "a", ov, oi) == 0, (name, what)
+        recall = recall_at_10(ids, oi[:, :10], "a")
+        assert recall >= 0.99, (name, what, recall)
+    # the chunk's answers (storage precision: K6 at k + 4 over the int8
+    # queries, then the dequantizing rescore, never marked crowded) = that
+    # route composed of plain versions, outside the gap; its recall@10
+    # against the float64 oracle over the rows is printed, not held
+    qn = normalize_on_device(qdev)
+    pv, pi = scan.scan_topk_plain(scan.quantize_rows_i8(qn)[0], v4, vs, act,
+                                  14, chunk=131_072, int4=True)
+    pv, pi = (t.cpu().numpy() for t in scan.rescore_exact_i4r(
+        qn, v4, vs, pv, pi))
+    assert ids_off_oracle(cols, "a", pv, pi) == 0, (name, "the chunk")
+    cv, ci = oracle_topk(torch, corpus_dev, qdev, live, 10)
+    chunk_recall = recall_at_10(cols, ci.cpu().numpy(), "a")
+    del corpus_dev, qn
+    # each kind at the path's shapes on the store's own plane
+    parts = []
+    with uncounted(scan):
+        for kind, nq, k in (("wide", 1, I4_ANN_WIDE_K),
+                            ("wide", 64, I4_ANN_WIDE_K),
+                            ("scan", I4_ANN_COLUMNAR, 14)):
+            q8, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:nq]))
+            row, r = i4_kind_hold(torch, scan, kind, (q8, v4, vs, act, k),
+                                  i4_padded(torch, q8, v4), rec, name)
+            parts.append(i4_hold_line(row, r, f"Q={nq} k_sel={k}"))
+    del db
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return counts, (f"{name} ({n} x {dim}, {dim // 2}-byte packed rows, "
+                    f"producer {scan.rows_piece(v4)}; made and uploaded in "
+                    f"{made_s:.1f} s): 64 singles and a 64-query batch on "
+                    f"the host rescore = the float64 oracle outside the gap, "
+                    f"recall@10 >= 0.99; the {I4_ANN_COLUMNAR}-query chunk = "
+                    f"its route's plain composition (recall@10 "
+                    f"{chunk_recall:.4f} vs float64, storage precision); "
+                    f"launches "
+                    f"{ {k: counts[k] for k in K6_KIND_KEYS if counts[k]} }, "
+                    f"template 0; " + "; ".join(parts))
+
+
+def int4_device_store(torch, scan, device, n: int, dim: int, seed: int,
+                      rec) -> tuple:
+    """Phase 5b's device-born store at glove-100's width: rows made on the
+    card from `seed`, quantized and packed there, adopted by
+    ingest_device (no host rows: the routes rank at storage precision,
+    k_sel 14). Through the public API, launches counted from 0: 16 single
+    queries and one call each at Q = 2, 3, 4 (K6's narrow sweep), two
+    16-query calls (the tensor-core scan), the singles' ids = their route
+    composed of plain versions outside TOL_GAP, no template launch. Then the
+    narrow sweep at Q = 1 and 4 on the store's plane (`i4_kind_hold`).
+    Returns (launches, line)."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    gt = torch.Generator(device=device).manual_seed(seed)
+    packed = torch.empty((n, dim // 2), dtype=torch.int8, device=device)
+    scales = torch.empty((n,), dtype=torch.float32, device=device)
+    for s in range(0, n, I4_CHUNK):
+        rows = normalize_on_device(torch.randn(min(I4_CHUNK, n - s), dim,
+                                               generator=gt, device=device))
+        packed[s:s + rows.shape[0]], scales[s:s + rows.shape[0]] = \
+            scan.quantize_rows_i4(rows)
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(tmp, "i4d"),
+                      storage_dtype="int4")
+    db.ingest_device(packed, [f"d{i}" for i in range(n)], scales=scales,
+                     normalize=False)
+    del packed, scales
+    dev = db._dev
+    v4, vs, act = dev.vectors, dev.vstore_scale, dev.active
+    src = torch.randint(0, n, (16,), generator=gt, device=device)
+    qdev = scan.unpack_i4(v4[src]).float() * vs[src, None]
+    qdev = qdev + 0.01 * torch.randn(qdev.shape, generator=gt, device=device)
+    qh = qdev.cpu().numpy()
+    scan.reset_launch_counts()
+    got = [r for r in serve_singles(db, qh, "i4stor_fused")]
+    for nq in (2, 3, 4):
+        db.query(qh[:nq], top_k=10)
+        assert db.last_query_debug()["strategy"] == "i4stor_fused"
+    for _ in range(2):
+        db.query(qh, top_k=10)
+    torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    shapes = counts["shapes"]
+    tc = "scan_topk_i4_wgmma" + scan._PIECE_KEY[scan.rows_piece(v4)]
+    assert templates_launched(counts)["K6"] == 0, counts
+    assert shapes.get("scan_topk_i4_narrow") == {
+        "Q=1 k=14": 16, "Q=2 k=14": 1, "Q=3 k=14": 1, "Q=4 k=14": 1}, shapes
+    assert shapes.get(tc) == {"Q=16 k=14": 2}, shapes
+    # the singles = their route composed of plain versions (no host rows:
+    # storage precision), outside the gap; recall@10 against the float64
+    # oracle over the dequantized rows printed
+    qn = normalize_on_device(qdev)
+    pv, pi = scan.scan_topk_plain(scan.quantize_rows_i8(qn)[0], v4, vs, act,
+                                  14, chunk=131_072, int4=True)
+    pv, pi = (t.cpu().numpy() for t in scan.rescore_exact_i4r(
+        qn, v4, vs, pv, pi))
+    assert ids_off_oracle(got, "d", pv, pi) == 0, "5b device-born singles"
+    deq = [(s, scan.unpack_i4(v4[s:s + 131_072]).float()
+            * vs[s:s + 131_072, None]) for s in range(0, n, 131_072)]
+    _, di = oracle_masked(torch, deq, qdev, None)
+    deq_recall = recall_at_10(got, di[:, :10], "d")
+    del deq, qn
+    parts = []
+    with uncounted(scan):
+        for nq in (1, 4):
+            q8, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:nq]))
+            row, r = i4_kind_hold(torch, scan, "narrow",
+                                  (q8, v4, vs, act, 14),
+                                  i4_padded(torch, q8, v4), rec,
+                                  "glove-100 device")
+            parts.append(i4_hold_line(row, r, f"Q={nq} k_sel=14"))
+    del db, v4, vs, act
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return counts, (f"device-born {n} x {dim} (ingest_device): 16 singles "
+                    f"and Q = 2 / 3 / 4 on the narrow sweep, two Q = 16 "
+                    f"calls on {tc}, ids = the route's plain composition "
+                    f"outside the gap (recall@10 {deq_recall:.4f} vs the "
+                    f"float64 oracle over the dequantized rows), template "
+                    f"0; " + "; ".join(parts))
+
+
+def i4_narrow_cross(torch, scan, device, seed: int) -> str:
+    """K6's narrow sweep against its tensor-core scan, launched uncounted
+    over packed int4 planes made on the card from `seed` (random bytes,
+    scales in [0.5, 1.5), every row live) at I4_NARROW_CROSS_DIMS, over
+    each plane and its prefix (I4_NARROW_CROSS_CAPS rows), at
+    I4_NARROW_CROSS_Q queries and k_sel 14, where the narrow kind's
+    shared memory takes the queries: the two bit for bit each other (both
+    exact, as the CUDA tests hold each to the plain version), each timed
+    (the crossover behind scan.I4_NARROW_Q_MAX)."""
+    gt = torch.Generator(device=device).manual_seed(seed)
+    n, top = max(I4_NARROW_CROSS_CAPS), max(I4_NARROW_CROSS_Q)
+    out = []
+    with uncounted(scan):
+        for dim in I4_NARROW_CROSS_DIMS:
+            v4 = torch.randint(-128, 128, (n, dim // 2), dtype=torch.int8,
+                               generator=gt, device=device)
+            vs = torch.rand(n, generator=gt, device=device) + 0.5
+            act = torch.ones(n, dtype=torch.bool, device=device)
+            q8 = torch.randint(-127, 128, (top, dim), dtype=torch.int8,
+                               generator=gt, device=device)
+            for cap in I4_NARROW_CROSS_CAPS:
+                row = []
+                for nq in I4_NARROW_CROSS_Q:
+                    if (scan.i4_narrow_bytes(nq, dim, v4.data_ptr())
+                            > scan.NARROW_SMEM_BYTES):
+                        continue
+                    args = (q8[:nq], v4[:cap], vs[:cap], act[:cap], 14)
+                    runs = {"narrow": lambda: scan._sweep_launch(
+                                *args, "fused_topk_i4",
+                                "pv_sweep_topk_i4_narrow"),
+                            "scan": lambda: scan._i4_wgmma_launch(*args)}
+                    a, b = (fn() for fn in runs.values())
+                    torch.cuda.synchronize()
+                    assert torch.equal(a[0], b[0]) and torch.equal(
+                        a[1], b[1]), f"5b crossover dim {dim} Q={nq}"
+                    t = {what: cuda_ms(torch, fn) for what, fn in runs.items()}
+                    row.append(f"Q={nq} {t['narrow']:.4f} / {t['scan']:.4f}")
+                out.append(f"dim {dim}, {cap} rows: " + ", ".join(row))
+            del v4, vs, act, q8
+    torch.cuda.empty_cache()
+    return ("K6's narrow sweep / its tensor-core scan at k_sel 14, ms, bit "
+            "for bit each other: " + "; ".join(out))
+
+
+def phase_int4_ann(torch, scan, device, card: str, rec) -> dict:
+    """Phase 5b (`--int4-ann` alone): the int4 stores of I4_ANN_STORES
+    (`int4_ann_store`), then the device-born store (`int4_device_store`).
+    Returns the launches of every path, summed."""
+    t0 = time.perf_counter()
+    g = np.random.default_rng(SEED_5B)
+    total = {}
+    for name, n, dim in I4_ANN_STORES:
+        counts, line = int4_ann_store(torch, scan, device, name, n, dim, g,
+                                      rec)
+        log(f"phase 5b: {line}; card {card}")
+        for k, v in counts.items():
+            if k != "shapes":
+                total[k] = total.get(k, 0) + v
+    counts, line = int4_device_store(torch, scan, device, ANN_N, 100,
+                                     int(g.integers(1 << 62)), rec)
+    log(f"phase 5b: {line}; card {card}")
+    cross = i4_narrow_cross(torch, scan, device, int(g.integers(1 << 62)))
+    log(f"phase 5b: {cross}; card {card}")
+    for k, v in counts.items():
+        if k != "shapes":
+            total[k] = total.get(k, 0) + v
+    for name, (key, _, _, ph) in KERNELS.items():
+        if ph == "5b":
+            assert total.get(key, 0) > 0, f"{name} never launched in 5b"
+    log(f"phase 5b: {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def mixture_chunks(torch, device, n: int, dim: int, seed: int,
@@ -3472,13 +3892,17 @@ def ivf_kernels_on_store(torch, scan, db, qn, rec) -> str:
     live = int(scanned_rows(torch, db, row_mask, hot, n_hot).sum())
     es, dim = vs.element_size(), vs.shape[1]
     kind = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
-    bound = entry(0.0, ms, pms, dim * es + live * dim * es + vs.shape[0]
-                  + k * 8, 2 * live * dim, kind[vs.dtype])["bound_ms"]
+    bn = tivf.IVF_BN
+    # bytes: the query, the live rows, the mask over the live hot tiles
+    # and the hot table (what the kernel reads), the answers
+    bound = entry(0.0, ms, pms, dim * es + live * dim * es
+                  + min(int(n_hot), grid_b) * bn + 4 * grid_b + k * 8,
+                  2 * live * dim, kind[vs.dtype])["bound_ms"]
     # K8 on the first 32-query chunk's own inputs (the segmax route's
     # depth, keys out), held to its plain version
     m8, h8, n8, g8 = store_probe(db, qn[:32])
     q32, _ = tivf._scan_inputs(qn[:32], x.vectors, x.vectors_i8c, x.cscale)
-    depth, bn = tivf.SEGMAX_DEPTH, tivf.IVF_BN
+    depth = tivf.SEGMAX_DEPTH
     before = scan.LAUNCHES["ivf_segmax_wgmma"]
     keys = tivf.ivf_segmax_scan(q32, vs, m8, h8, n8, depth)
     assert scan.LAUNCHES["ivf_segmax_wgmma"] == before + 1, "K8 segment scan"
@@ -3509,12 +3933,14 @@ def ivf_kernels_on_store(torch, scan, db, qn, rec) -> str:
         split_host = f", of which the query split {us:.1f}"
     live8 = int(scanned_rows(torch, db, m8, h8, n8).sum())
     ncol = g8 * depth * (bn // scan.SEG)
+    nl = min(int(n8), g8)
+    # bytes: the queries, the live rows, the mask over the live hot tiles
+    # and the hot table, the keys
     k8_bound = entry(0.0, 0, 0, 32 * dim * es + live8 * dim * es
-                     + vs.shape[0] + 32 * ncol * 4,
+                     + nl * bn + 4 * g8 + 32 * ncol * 4,
                      *tc_ops(torch, 32, live8, dim, vs.dtype))["bound_ms"]
     # what a kernel that skips dead segments must read: the live steps'
     # 128-row segments that hold at least one live row
-    nl = int(n8)
     rows = (h8[:nl].long()[:, None] * bn
             + torch.arange(bn, device=m8.device)).reshape(-1)
     seg_live = m8[rows].view(-1, scan.SEG).any(1)
@@ -5109,6 +5535,7 @@ def mesh_i4_wide(torch, scan, db, counts, qdev, rec) -> str:
     from picovdb_tpu_torch.ops.exact import normalize_on_device
 
     wide = launched_over(counts, "scan_topk_i4", k_min=scan.I4_WGMMA_K_MAX)
+    assert templates_launched(counts)["K6"] == 0, counts
     assert wide > 0 and counts["scan_topk_i4_wide"] == wide, (
         f"11c: {counts['scan_topk_i4_wide']} of {wide} K6 launches past "
         f"k_sel 128 on the wide kind")
@@ -7058,17 +7485,16 @@ def phase_entry_points(torch, scan, card: str) -> dict:
     torch.cuda.synchronize()
     made = {k: scan.LAUNCHES[k] - before[k] for k in out["calls"]}
     assert made == out["calls"], (made, out["calls"])
-    # at dim 64 (64 % 128 != 0) K6 keeps its template: no wide kind, no
-    # tensor-core scan; K7's launches go where the ready rules send them
-    sub = {k: scan.LAUNCHES[k] - before[k] for k in (
-        "scan_topk_i4_sweep", "scan_topk_i4_wgmma", "scan_topk_i4_wide",
-        "ivf_scan_topk_sweep", "ivf_scan_topk_wgmma")}
-    assert sub["scan_topk_i4_wide"] == sub["scan_topk_i4_wgmma"] == 0, sub
-    made["scan_topk_i4 template"] = (made.get("scan_topk_i4", 0)
-                                     - sub["scan_topk_i4_sweep"])
+    # at dim 64 (a partial k-stage) K6 takes its Hopper kinds, no template
+    # launch; K7's launches go where the ready rules send them
+    delta = {k: scan.LAUNCHES[k] - before[k] for k in scan.LAUNCHES}
+    sub = {k: delta[k] for k in K6_KIND_KEYS + (
+        "ivf_scan_topk_sweep", "ivf_scan_topk_wgmma") if delta[k]}
+    made["scan_topk_i4 template"] = templates_launched(delta)["K6"]
+    assert made["scan_topk_i4 template"] == 0, (made, sub)
     made["ivf_scan_topk template"] = (made.get("ivf_scan_topk", 0)
-                                      - sub["ivf_scan_topk_sweep"]
-                                      - sub["ivf_scan_topk_wgmma"])
+                                      - delta["ivf_scan_topk_sweep"]
+                                      - delta["ivf_scan_topk_wgmma"])
     made.update(sub)
     log(f"phase 14: graft_entry.dryrun_multichip(4) over "
         f"{[str(d) for d in graft_entry.dry_run_devices(4)]} (dp "
@@ -7181,6 +7607,7 @@ def main() -> int:
     k3_only = sys.argv[1:] == ["--k3-cross"]
     narrow_only = sys.argv[1:] == ["--narrow-cross"]
     ivf_ann_only = sys.argv[1:] == ["--ivf-ann"]
+    int4_ann_only = sys.argv[1:] == ["--int4-ann"]
     narrow_ab_only = sys.argv[1:] == ["--narrow-ab"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
@@ -7211,6 +7638,17 @@ def main() -> int:
         log("phase 7c: kernels " + json.dumps(
             {name: {**rec[name], "launches": counts.get(key, 0)}
              for name, (key, _, _, ph) in KERNELS.items() if ph == "7c"}))
+        print(card)
+        return 0
+    if int4_ann_only:  # phase 5b alone: int4 at ann-benchmarks' widths
+        rec = {}
+        counts = phase_int4_ann(torch, scan, device, card, rec)
+        log("phase 5b: kernels " + json.dumps(
+            {name: {**rec[name], "launches": counts.get(key, 0)}
+             for name, (key, _, _, ph) in KERNELS.items() if ph == "5b"}))
+        log("phase 5b: the TMA kinds' partial last stage " + json.dumps(
+            {name: rec[name]["partial_stage"] for name in (
+                "fused_topk_i4_wgmma", "fused_topk_i4_wide")}))
         print(card)
         return 0
     if k3_only:  # phase 4's larger int8 planes alone
@@ -7265,6 +7703,8 @@ def main() -> int:
     counts[4] = phase_int8(torch, scan, device, I8_N, DIM, rng, card)
     torch.cuda.empty_cache()
     counts[5] = phase_int4(torch, scan, device, I4_N, DIM, rng, card)
+    torch.cuda.empty_cache()
+    counts["5b"] = phase_int4_ann(torch, scan, device, card, rec)
     torch.cuda.empty_cache()
     phase_bf16(torch, scan, device, BF16_N, DIM, rng)
     torch.cuda.empty_cache()

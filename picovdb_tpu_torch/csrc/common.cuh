@@ -115,12 +115,14 @@ cudaError_t launch_topk_merge(const u64* partial, float* vals, int* idx,
 
 // K6's tensor-core scan with the slab epilogue (scan_i4_wgmma.cu, 64
 // queries a CTA): the int4 wide kind's pass A, launched by
-// pv_scan_topk_i4_wide (topk_i4_wide.cu). q_perm (Q, dim) permuted int8
-// queries, v (cap, dim / 2) packed rows, vscale (cap,), mask (cap,); slab
-// (Q, ld = cap rounded up to 128) uint32 sortable score keys. Returns 0, a
-// cudaError_t, or minus the CUresult of a refused encode.
-int launch_i4_slab(const void* q_perm, const void* v, const void* vscale,
-                   const void* mask, uint32_t* slab, int Q, long long cap,
-                   int dim, cudaStream_t stream);
+// pv_scan_topk_i4_wide (topk_i4_wide.cu). piece the rows' producer
+// (ops/scan.py::rows_piece), q_perm (Q, dim_p) permuted int8 queries (each
+// half padded to whole 64-byte stages), v (cap, dim / 2) packed rows,
+// vscale (cap,), mask (cap,); slab (Q, ld = cap rounded up to 128) uint32
+// sortable score keys. Returns 0, a cudaError_t, or minus the CUresult of a
+// refused encode.
+int launch_i4_slab(int piece, const void* q_perm, const void* v,
+                   const void* vscale, const void* mask, uint32_t* slab,
+                   int Q, long long cap, int dim, cudaStream_t stream);
 
 }  // namespace pv

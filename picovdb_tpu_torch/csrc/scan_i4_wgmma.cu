@@ -1,9 +1,11 @@
-// K6 fused_topk_i4 at batch sizes (Q > 4, k <= 128) on Hopper's tensor
-// cores: exact masked top-k over a packed int4 corpus with a per-row scale.
+// K6 fused_topk_i4 at batch sizes (k <= 128 where no sweep serves) on
+// Hopper's tensor cores: exact masked top-k over a packed int4 corpus with
+// a per-row scale, at every even width and base.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i4
 // (`_scan_kernel_i4`) on the int4 store's batches (route `i4stor_fused`,
-// every `query_columnar` chunk of more than 4 queries). The TPU kernel
+// every `query_columnar` chunk of more than 4 queries, and smaller ones
+// where neither sweep takes the operands). The TPU kernel
 // unpacks the nibbles into two biased int8 planes in VMEM, runs two int8
 // matrix-unit products per tile, then its k-pass ladder and a merge into
 // the running top-k. This kernel computes the same function: the biased
@@ -23,14 +25,20 @@
 //  * The queries' columns are permuted once per call (ops/scan.py::
 //    permute_i4_queries), so that k-stage j (128 bytes) is q[:, 64 j ..]
 //    followed by q[:, dim/2 + 64 j ..]: the elements the low and the high
-//    nibbles of packed bytes [64 j, 64 j + 64) hold. The A operand is then
-//    one ordinary TMA box a stage (64 queries x 128 bytes, 128B swizzle),
-//    and one packed 64-byte slice of a row expands into exactly that
-//    stage's 128-byte B row: low nibbles in bytes 0-63, high in 64-127.
+//    nibbles of packed bytes [64 j, 64 j + 64) hold. Each half is padded
+//    with zeros to whole stages on its own, so a row of dim/2 packed bytes
+//    takes ceil(dim/2 / 64) stages and the last one's bytes past the row
+//    (TMA's zero fill, or a neighbour row's bytes) meet zero columns in
+//    both planes. The A operand is then one ordinary TMA box a stage (64
+//    queries x 128 bytes, 128B swizzle), and one packed 64-byte slice of a
+//    row expands into exactly that stage's 128-byte B row: low nibbles in
+//    bytes 0-63, high in 64-127.
 //  * Expanded in shared memory, never in device memory. A CTA holds three
 //    warpgroups. In warpgroup 2 one thread keeps a ring of S1 slots filled
-//    by TMA: the A box and the packed 64-byte slice of the tile's 256 rows
-//    (64B swizzle, rows past cap zero filled). Its three other warps are
+//    by TMA: the A box and, for rows TMA reads (PIECE 0: dim/2 a multiple
+//    of 16 bytes at a 16-byte aligned base), the packed 64-byte slice of
+//    the tile's 256 rows (64B swizzle, rows past cap and bytes past the
+//    row zero filled). Its three other warps are
 //    the expanders: they read a slice (16-byte chunk c of row r at chunk
 //    c ^ ((r >> 1) & 3)), mask the two nibble planes, and write them into
 //    one of S2 B tiles in the 128B-swizzled layout TMA would produce
@@ -42,6 +50,24 @@
 //    against its 128 of the 256 rows, four wgmmas a stage, accumulators in
 //    registers (64 a thread), and releases the slot and the B tile once
 //    its products completed.
+//  * Rows TMA cannot read (PIECE 8 / 4: dim/2 and the base multiples of 8
+//    or 4 bytes; PIECE 2: any other even width or base; ops/scan.py::
+//    rows_piece). Of the two ways to feed them -- a producer warpgroup
+//    staging the packed slice as K4's and K3's scans do (wgmma_scan.cuh
+//    `produce_rows`), or the expanders reading the packed bytes from
+//    device memory themselves -- this kernel takes the second: the
+//    expanders touch every byte anyway to unpack it, so reading it from
+//    device memory at its own alignment costs no staging slot and no
+//    barrier, keeps one ring shape for every row class (the realigning
+//    producer's 2 x 18 KB of staging slots do not fit beside the k <= 32
+//    ring), and TMA then brings the A box alone. Chunk c of a row's stage
+//    is loaded as 8-byte (PIECE 8) or 4-byte (PIECE 4) words, or as five
+//    4-byte words shifted into place (PIECE 2, __funnelshift_r), each word
+//    only where it holds a byte of the row: no read leaves the aligned
+//    words that hold the operand's bytes, and bytes of the next row in a
+//    shared word meet zero query columns. The loads of a stage are issued
+//    before the wait for its B tile, so their latency hides behind the
+//    consumers' products.
 //  * A running selection per query, so the grid is not tiles_kernel's:
 //    CTA c owns query tile c % q_tiles for its lifetime and walks the
 //    contiguous corpus range c / q_tiles (ops/scan.py::
@@ -70,6 +96,8 @@
 //    tiles (the expanders run two stages ahead of the products' releases)
 //    and buffers of 64 keys; k <= 128 two slots, one B tile (the
 //    expansion and the products take turns) and buffers of 256.
+
+#include <cstring>
 
 #include "wgmma_scan.cuh"
 
@@ -167,24 +195,67 @@ __device__ __forceinline__ uint4 high_plane(uint4 x) {
                     (x.w >> 4) & m);
 }
 
-// tq: TMA map of q_perm (Q, dim) int8, boxes of 128 bytes x 64 rows, 128B
-// swizzle; tv: of v (cap, dim / 2) packed bytes, boxes of 64 bytes x 256
-// rows, 64B swizzle (rows past cap zero). vscale (cap,), mask (cap,)
+// Bytes [off, off + 16) of a packed row of `rb` bytes at `row` (its first
+// byte), off < rb, for rows TMA cannot read: PIECE 8 / 4 as 8- / 4-byte
+// words (row and off at their alignment), PIECE 2 as the five 4-byte words
+// from the one below the chunk, shifted into place. A word is loaded only
+// where it holds a byte of the row (else 0): bytes past the row's end are
+// the next row's, which meet zero query columns.
+template <int PIECE>
+__device__ __forceinline__ uint4 load_chunk(const uint8_t* row, int rb,
+                                            int off) {
+  const uint8_t* a = row + off;
+  const uint8_t* end = row + rb;
+  if constexpr (PIECE == 8) {
+    const uint2* w = reinterpret_cast<const uint2*>(a);
+    const uint2 z = make_uint2(0u, 0u);
+    const uint2 x0 = __ldg(w), x1 = a + 8 < end ? __ldg(w + 1) : z;
+    return make_uint4(x0.x, x0.y, x1.x, x1.y);
+  } else if constexpr (PIECE == 4) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(a);
+    uint32_t x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = a + 4 * i < end ? __ldg(w + i) : 0u;
+    return make_uint4(x[0], x[1], x[2], x[3]);
+  } else {
+    const uintptr_t ua = reinterpret_cast<uintptr_t>(a);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(ua & ~(uintptr_t)3);
+    const uint32_t sh = 8u * (uint32_t)(ua & 3);
+    const uint8_t* w0 = reinterpret_cast<const uint8_t*>(w);
+    uint32_t x[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      x[i] = w0 + 4 * i < end && (i < 4 || sh) ? __ldg(w + i) : 0u;
+    return make_uint4(__funnelshift_r(x[0], x[1], sh),
+                      __funnelshift_r(x[1], x[2], sh),
+                      __funnelshift_r(x[2], x[3], sh),
+                      __funnelshift_r(x[3], x[4], sh));
+  }
+}
+
+// tq: TMA map of q_perm (Q, dim_p) int8, dim_p = 128 ceil(dim/2 / 64) (each
+// half padded to whole stages), boxes of 128 bytes x 64 rows, 128B swizzle;
+// PIECE 0: tv, of v (cap, dim / 2) packed bytes, boxes of 64 bytes x 256
+// rows, 64B swizzle (rows past cap and bytes past dim / 2 zero); PIECE 8 /
+// 4 / 2: the expanders read v (`v`) from device memory (`load_chunk`).
+// vscale (cap,), mask (cap,)
 // uint8; `partial` receives, per query of this CTA's tile, k keys at
 // ((q * ranges + range) * k); BUF == 0 (the wide kind's pass A) keeps no
 // selection: `partial` is then the slab, (Q, ld) uint32 with ld = cap
 // rounded up to 128, and every live query's row below cap gets its
 // sortable score key float_order(s) at (q * ld + row), whatever its mask
-// byte. q_perm (for the query sums); dim % 128 == 0.
-template <int S1, int S2, int BUF>
+// byte. q_perm (for the query sums); dim even.
+template <int S1, int S2, int BUF, int PIECE>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tv,
                const int8_t* __restrict__ q_perm,
+               const uint8_t* __restrict__ v,
                const float* __restrict__ vscale,
                const uint8_t* __restrict__ mask, u64* __restrict__ partial,
                int Q, long cap, int dim, int k, int q_tiles, int ranges) {
   typedef Ring<S1, S2, BUF> R;
+  constexpr bool TMA_ROWS = PIECE == 0;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -205,14 +276,18 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = (blockIdx.x % q_tiles) * BM, range = blockIdx.x / q_tiles;
   const long tiles = (cap + BN - 1) / BN;  // none when cap == 0
   const long tb = range * tiles / ranges, te = (range + 1) * tiles / ranges;
-  const int k_iters = dim / ROW_BYTES;
+  const int rb = dim / 2;  // packed bytes a row
+  const int k_iters = (rb + PACKED - 1) / PACKED;
+  const int dim_p = k_iters * ROW_BYTES;  // q_perm's row
   const long steps = (te - tb) * k_iters;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S1; ++s) {
       mbar_init(loaded + 8 * s, 1);  // the TMA thread's expect_tx
-      // the three expander warps and the eight consumer warps
-      mbar_init(empty1 + 8 * s, EXPANDERS / 32 + CONSUMER_WARPS);
+      // the eight consumer warps, and the three expander warps where the
+      // slot holds the packed slice
+      mbar_init(empty1 + 8 * s,
+                CONSUMER_WARPS + (TMA_ROWS ? EXPANDERS / 32 : 0));
     }
     for (int s = 0; s < S2; ++s) {
       mbar_init(full2 + 8 * s, EXPANDERS);
@@ -233,29 +308,46 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
         for (long n = 0; n < steps; ++n) {
           const int s1 = (int)(n % S1);
           mbar_wait(empty1 + 8 * s1, (uint32_t)((n / S1) & 1) ^ 1);
-          mbar_expect_tx(loaded + 8 * s1, A_BYTES + P_BYTES);
+          mbar_expect_tx(loaded + 8 * s1, A_BYTES + (TMA_ROWS ? P_BYTES : 0));
           const int kk = (int)(n % k_iters);
           tma_load_2d(a_ring + s1 * A_BYTES, &tq, loaded + 8 * s1,
                       kk * ROW_BYTES, q0);
-          tma_load_2d(p_ring + s1 * P_BYTES, &tv, loaded + 8 * s1,
-                      kk * PACKED, (int)((tb + n / k_iters) * BN));
+          if (TMA_ROWS)
+            tma_load_2d(p_ring + s1 * P_BYTES, &tv, loaded + 8 * s1,
+                        kk * PACKED, (int)((tb + n / k_iters) * BN));
         }
       return;
     }
     // warps 1-3 expand: 16-byte chunk c of row r of the packed slice
-    // (stored by TMA at chunk c ^ ((r >> 1) & 3)) into chunks c (low
-    // nibbles) and c + 4 (high) of B row r, 128B-swizzled (chunk ^ r % 8).
-    // A quarter warp takes one chunk of 8 consecutive rows: conflict-free
-    // reads and writes.
+    // (stored by TMA at chunk c ^ ((r >> 1) & 3), or read from device
+    // memory) into chunks c (low nibbles) and c + 4 (high) of B row r,
+    // 128B-swizzled (chunk ^ r % 8). A quarter warp takes one chunk of 8
+    // consecutive rows: conflict-free reads and writes.
     const int e = t - 32;
     for (long n = 0; n < steps; ++n) {
       const int s1 = (int)(n % S1), s2 = (int)(n % S2);
-      mbar_wait(loaded + 8 * s1, (uint32_t)((n / S1) & 1));
+      const int kk = (int)(n % k_iters);
+      const bool first = kk == 0;
+      const long tile = tb + n / k_iters;
+      uint4 x[PER];  // every read issued before the first write
+      if constexpr (!TMA_ROWS) {
+        // the stage's chunks from device memory, before the wait for the
+        // B tile: their latency hides behind the consumers' products
+#pragma unroll
+        for (int m = 0; m < PER; ++m) {
+          const int i = e + m * EXPANDERS, row = (i % 8) + 8 * (i / 32);
+          const int off = kk * PACKED + 16 * ((i / 8) % 4);
+          const long r = tile * BN + row;
+          x[m] = make_uint4(0u, 0u, 0u, 0u);
+          if (i < ITEMS && r < cap && off < rb)
+            x[m] = load_chunk<PIECE>(v + r * rb, rb, off);
+        }
+      } else {
+        mbar_wait(loaded + 8 * s1, (uint32_t)((n / S1) & 1));
+      }
       mbar_wait(empty2 + 8 * s2, (uint32_t)((n / S2) & 1) ^ 1);
       // at a tile's first stage, its row scales for the epilogue: loaded
       // here, stored after the expansion has hidden the loads' latency
-      const bool first = n % k_iters == 0;
-      const long tile = tb + n / k_iters;
       float sc[(BN + EXPANDERS - 1) / EXPANDERS];
       uint32_t lw[(BN + EXPANDERS - 1) / EXPANDERS];
 #pragma unroll
@@ -271,13 +363,14 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
       }
       const unsigned char* pt = sm + R::P_OFF + s1 * P_BYTES;
       unsigned char* bt = sm + R::B_OFF + s2 * B_BYTES;
-      uint4 x[PER];  // every read issued before the first write
+      if constexpr (TMA_ROWS) {
 #pragma unroll
-      for (int m = 0; m < PER; ++m) {
-        const int i = e + m * EXPANDERS, row = (i % 8) + 8 * (i / 32);
-        if (i < ITEMS)
-          x[m] = *reinterpret_cast<const uint4*>(
-              pt + row * PACKED + 16 * (((i / 8) % 4) ^ ((row >> 1) & 3)));
+        for (int m = 0; m < PER; ++m) {
+          const int i = e + m * EXPANDERS, row = (i % 8) + 8 * (i / 32);
+          if (i < ITEMS)
+            x[m] = *reinterpret_cast<const uint4*>(
+                pt + row * PACKED + 16 * (((i / 8) % 4) ^ ((row >> 1) & 3)));
+        }
       }
 #pragma unroll
       for (int m = 0; m < PER; ++m) {
@@ -303,8 +396,10 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
       // through the async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_arrive(full2 + 8 * s2);
-      __syncwarp();
-      if (e % 32 == 0) mbar_arrive(empty1 + 8 * s1);  // the slice is read
+      if constexpr (TMA_ROWS) {
+        __syncwarp();
+        if (e % 32 == 0) mbar_arrive(empty1 + 8 * s1);  // the slice is read
+      }
     }
     return;
   }
@@ -327,9 +422,9 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
     // sum(q): the quad's four lanes split the row, then add across it
     int s = 0;
     if (qlive[h])
-      for (int e = (l % 4) * 16; e < dim; e += 64) {
+      for (int e = (l % 4) * 16; e < dim_p; e += 64) {
         const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-            q_perm + (long)(q0 + qi[h]) * dim + e));
+            q_perm + (long)(q0 + qi[h]) * dim_p + e));
         s = __dp4a((int)u.x, 0x01010101, s);
         s = __dp4a((int)u.y, 0x01010101, s);
         s = __dp4a((int)u.z, 0x01010101, s);
@@ -478,8 +573,8 @@ scan_i4_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // The tensor map of the packed rows v (cap, dim / 2) read in boxes of 64
-// bytes x 256 rows, 64B-swizzled, rows past cap zero. 0, or minus the
-// CUresult of a refused encode.
+// bytes x 256 rows, 64B-swizzled, rows past cap and bytes past dim / 2
+// zero. 0, or minus the CUresult of a refused encode.
 int encode_packed(wg::EncodeTiled enc, CUtensorMap* map, const void* v,
                   long long cap, int dim) {
   const cuuint64_t gdim[2] = {(cuuint64_t)(dim / 2), (cuuint64_t)cap};
@@ -495,43 +590,54 @@ int encode_packed(wg::EncodeTiled enc, CUtensorMap* map, const void* v,
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
-template <int S1, int S2, int BUF>
-int launch(const CUtensorMap& tq, const CUtensorMap& tv, const void* q_perm,
-           const void* vscale, const void* mask, u64* partial, int Q,
-           long long cap, int dim, int k, int q_tiles, int ranges,
-           cudaStream_t stream) {
+template <int S1, int S2, int BUF, int PIECE>
+int launch_piece(const CUtensorMap& tq, const CUtensorMap& tv,
+                 const void* q_perm, const void* v, const void* vscale,
+                 const void* mask, u64* partial, int Q, long long cap,
+                 int dim, int k, int q_tiles, int ranges,
+                 cudaStream_t stream) {
   constexpr int smem = Ring<S1, S2, BUF>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
-      scan_i4_kernel<S1, S2, BUF>,
+      scan_i4_kernel<S1, S2, BUF, PIECE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  scan_i4_kernel<S1, S2, BUF><<<q_tiles * ranges, THREADS, smem, stream>>>(
-      tq, tv, static_cast<const int8_t*>(q_perm),
-      static_cast<const float*>(vscale), static_cast<const uint8_t*>(mask),
-      partial, Q, (long)cap, dim, k, q_tiles, ranges);
+  scan_i4_kernel<S1, S2, BUF, PIECE>
+      <<<q_tiles * ranges, THREADS, smem, stream>>>(
+          tq, tv, static_cast<const int8_t*>(q_perm),
+          static_cast<const uint8_t*>(v), static_cast<const float*>(vscale),
+          static_cast<const uint8_t*>(mask), partial, Q, (long)cap, dim, k,
+          q_tiles, ranges);
   return (int)cudaGetLastError();
 }
 
-// The maps and the grid of a launch over q_perm (Q, dim) and v (cap, dim
-// / 2): q_tiles = ceil(Q / 64) query tiles x `ranges` = max(1,
-// min(ceil(cap / 256), SMs / q_tiles)) corpus ranges (ops/scan.py::
-// i4_wgmma_partition). 0, a cudaError_t, or minus a refused encode's
-// CUresult.
+// The maps and the grid of a launch over q_perm (Q, dim_p) and v (cap, dim
+// / 2) by the rows' producer `piece` (ops/scan.py::rows_piece of v: 0 TMA,
+// 8 / 4 / 2 the expanders' reads): q_tiles = ceil(Q / 64) query tiles x
+// `ranges` = max(1, min(ceil(cap / 256), SMs / q_tiles)) corpus ranges
+// (ops/scan.py::i4_wgmma_partition). 0, a cudaError_t, or minus a refused
+// encode's CUresult.
 struct Plan {
   CUtensorMap tq, tv;
-  int q_tiles, ranges;
+  int q_tiles, ranges, piece;
 };
-int plan(Plan* p, const void* q_perm, const void* v, int Q, long long cap,
-         int dim) {
-  if (cap < 0 || dim <= 0 || dim % 128 ||
-      ((uintptr_t)q_perm | (uintptr_t)v) % 16)
+int plan(Plan* p, int piece, const void* q_perm, const void* v, int Q,
+         long long cap, int dim) {
+  const uintptr_t bits = (uintptr_t)(dim / 2) | (uintptr_t)v;
+  const int align = piece == 0 ? 16 : piece == 2 ? 1 : piece;
+  if (cap < 0 || dim <= 0 || dim % 2 || (uintptr_t)q_perm % 16 ||
+      (piece != 0 && piece != 8 && piece != 4 && piece != 2) ||
+      bits % align)
     return (int)cudaErrorInvalidValue;
+  p->piece = piece;
+  std::memset(&p->tv, 0, sizeof(p->tv));  // the expanders read v themselves
   wg::EncodeTiled enc;
   int err = wg::encoder(&enc);
   if (err) return err;
-  if ((err = wg::encode_rows<wg::Int8>(enc, &p->tq, q_perm, Q, dim, BM)))
+  const int dim_p = (dim / 2 + PACKED - 1) / PACKED * ROW_BYTES;
+  if ((err = wg::encode_rows<wg::Int8>(enc, &p->tq, q_perm, Q, dim_p, BM)))
     return err;
-  if (cap > 0 && (err = encode_packed(enc, &p->tv, v, cap, dim))) return err;
+  if (piece == 0 && cap > 0 && (err = encode_packed(enc, &p->tv, v, cap, dim)))
+    return err;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -546,59 +652,89 @@ int plan(Plan* p, const void* q_perm, const void* v, int Q, long long cap,
   return 0;
 }
 
+// The ring shape <S1, S2, BUF> with the plan's producer.
+template <int S1, int S2, int BUF>
+int launch(const Plan& p, const void* q_perm, const void* v,
+           const void* vscale, const void* mask, u64* partial, int Q,
+           long long cap, int dim, int k, cudaStream_t s) {
+  switch (p.piece) {
+    case 0:
+      return launch_piece<S1, S2, BUF, 0>(p.tq, p.tv, q_perm, v, vscale, mask,
+                                          partial, Q, cap, dim, k, p.q_tiles,
+                                          p.ranges, s);
+    case 8:
+      return launch_piece<S1, S2, BUF, 8>(p.tq, p.tv, q_perm, v, vscale, mask,
+                                          partial, Q, cap, dim, k, p.q_tiles,
+                                          p.ranges, s);
+    case 4:
+      return launch_piece<S1, S2, BUF, 4>(p.tq, p.tv, q_perm, v, vscale, mask,
+                                          partial, Q, cap, dim, k, p.q_tiles,
+                                          p.ranges, s);
+    default:
+      return launch_piece<S1, S2, BUF, 2>(p.tq, p.tv, q_perm, v, vscale, mask,
+                                          partial, Q, cap, dim, k, p.q_tiles,
+                                          p.ranges, s);
+  }
+}
+
 }  // namespace i4
 }  // namespace
 
 // The wide kind's pass A (topk_i4_wide.cu): the scan with the slab
 // epilogue (BUF 0), three TMA slots and three B tiles (no buffers beside
-// them). q_perm (Q, dim) int8 permuted queries, v (cap, dim / 2) packed
-// rows, vscale (cap,) float32, mask (cap,) uint8; slab (Q, ld = cap
-// rounded up to 128) uint32 receives float_order(score) of every live
-// query's row below cap.
-int launch_i4_slab(const void* q_perm, const void* v, const void* vscale,
-                   const void* mask, uint32_t* slab, int Q, long long cap,
-                   int dim, cudaStream_t stream) {
+// them), the rows by the producer `piece` names. q_perm (Q, dim_p) int8
+// permuted queries, v (cap, dim / 2) packed rows, vscale (cap,) float32,
+// mask (cap,) uint8; slab (Q, ld = cap rounded up to 128) uint32 receives
+// float_order(score) of every live query's row below cap.
+int launch_i4_slab(int piece, const void* q_perm, const void* v,
+                   const void* vscale, const void* mask, uint32_t* slab,
+                   int Q, long long cap, int dim, cudaStream_t stream) {
   using namespace i4;
   if (Q <= 0 || cap <= 0) return (int)cudaSuccess;
   if (!vscale) return (int)cudaErrorInvalidValue;
   Plan p;
-  const int err = plan(&p, q_perm, v, Q, cap, dim);
+  const int err = plan(&p, piece, q_perm, v, Q, cap, dim);
   if (err) return err;
-  return launch<3, 3, 0>(p.tq, p.tv, q_perm, vscale, mask,
+  return launch<3, 3, 0>(p, q_perm, v, vscale, mask,
                          reinterpret_cast<u64*>(slab), Q, cap, dim, 0,
-                         p.q_tiles, p.ranges, stream);
+                         stream);
 }
 
 }  // namespace pv
 
-// K6's tensor-core scan: q_perm (Q, dim) int8 queries with their columns
-// permuted (ops/scan.py::permute_i4_queries), v (cap, dim / 2) packed int4
-// rows, vscale (cap,) float32, mask (cap,) uint8; Q > 0, k <= 128, dim %
-// 128 == 0, 16-byte aligned q_perm and v. The grid is `Plan`'s;
+// K6's tensor-core scan: piece (the rows' producer, ops/scan.py::
+// rows_piece: 0 TMA, 8 / 4 / 2 the expanders' reads of 8- / 4-byte words or
+// of any bytes), q_perm (Q, dim_p) int8 queries with their columns
+// permuted and each half padded to whole stages (ops/scan.py::
+// permute_i4_queries; dim_p = 128 ceil(dim/2 / 64)), v (cap, dim / 2)
+// packed int4 rows, vscale (cap,) float32, mask (cap,) uint8; Q > 0, k <=
+// 128, dim even, 16-byte aligned q_perm, v and dim / 2 at the piece's
+// alignment. The grid is `Plan`'s;
 // `partial` is scratch of Q * ranges * k uint64; vals (Q, k) float32 (the
 // scaled scores) and idx (Q, k) int32 receive the result (-inf / 0 where
 // empty). Launches on the current device. Returns 0, a cudaError_t, or
 // minus the CUresult of a refused tensor-map encode.
-extern "C" int pv_scan_topk_i4_wgmma(const void* q_perm, const void* v,
-                                     const void* vscale, const void* mask,
-                                     void* partial, void* vals, void* idx,
-                                     int Q, long long cap, int dim, int k,
+extern "C" int pv_scan_topk_i4_wgmma(int piece, const void* q_perm,
+                                     const void* v, const void* vscale,
+                                     const void* mask, void* partial,
+                                     void* vals, void* idx, int Q,
+                                     long long cap, int dim, int k,
                                      void* stream) {
   using namespace pv;
   using namespace pv::i4;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
   if (k > 128 || !vscale) return (int)cudaErrorInvalidValue;
   Plan p;
-  int err = plan(&p, q_perm, v, Q, cap, dim);
+  int err = plan(&p, piece, q_perm, v, Q, cap, dim);
   if (err) return err;
   u64* part = static_cast<u64*>(partial);
   cudaStream_t s = (cudaStream_t)stream;
   // k <= 32: three TMA slots, three B tiles, 64-key buffers; up to 128:
   // two slots, one B tile, 256-key buffers (shared memory holds no more)
-  err = k <= 32 ? launch<3, 3, 64>(p.tq, p.tv, q_perm, vscale, mask, part, Q,
-                                   cap, dim, k, p.q_tiles, p.ranges, s)
-                : launch<2, 1, 256>(p.tq, p.tv, q_perm, vscale, mask, part, Q,
-                                    cap, dim, k, p.q_tiles, p.ranges, s);
+  err = k <= 32 ? launch<3, 3, 64>(p, q_perm, v, vscale, mask, part, Q, cap,
+                                   dim, k, s)
+                : launch<2, 1, 256>(p, q_perm, v, vscale, mask, part, Q, cap,
+                                    dim, k, s);
   if (err) return err;
   return (int)launch_topk_merge(part, static_cast<float*>(vals),
                                 static_cast<int*>(idx), Q, p.ranges * k, k, s,

@@ -13,8 +13,9 @@
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i4 (`_scan_kernel_i4`,
 //    K6), the int4 store's Q = 1 query and small batches (route
 //    `i4stor_fused` at k_sel = k + 4; served at Q <= 4, where it beats
-//    scan_i4_wgmma.cu, which takes larger Q); pv_scan_topk kind 3 serves
-//    k > 128 and widths neither takes;
+//    scan_i4_wgmma.cu, which takes larger Q), and through
+//    `sweep_narrow_kernel<Int4>` at every even width and base (the
+//    template, pv_scan_topk kind 3, served those until then);
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i8c (`_scan_kernel_i8c`,
 //    K9), on the routes `i8c_fused_smallq` (Q <= 16 at k_sel = k + 6) and
 //    the serial Q = 1 loop; pv_scan_topk kind 4 serves its other shapes;
@@ -65,13 +66,17 @@
 //    128-row tile at once (one ballot). No barrier inside a tile. A K7
 //    group maps to physical rows through the table once: shares start on
 //    a multiple of SHARE rows, so a group never crosses a hot tile.
-//  * K3's and K7's rows at any width and base (`sweep_narrow_kernel`, the
-//    narrow kind; K7's float32, bf16 and column-scaled int8 postings over
-//    the hot tiles' shares): a row of `rb` bytes lies at byte phase p = (v
+//  * K3's, K6's and K7's rows at any width and base (`sweep_narrow_kernel`,
+//    the narrow kind; K6's packed int4 rows; K7's float32, bf16 and
+//    column-scaled int8 postings over the hot tiles' shares): a row of `rb`
+//    bytes lies at byte phase p = (v
 //    + row rb) % 16 of its 16-byte words. The CTA keeps P = 16 / g phase
 //    copies of each query (g the largest power of two <= 16 dividing rb
 //    and v's base, a multiple of the element's bytes): copy j holds j g
-//    zero bytes, the query, zeros to W whole words. A warp reads each row
+//    zero bytes, the query, zeros to W whole words (K6: the query's two
+//    halves, each so, QW = 2: a packed byte's low nibble meets the first
+//    half, its high nibble the second, and a neighbour's nibbles in a
+//    shared word meet zeros in both planes). A warp reads each row
 //    as the aligned words that hold a byte of it, so a warp still reads
 //    contiguous 16-byte words, and meets them with the copy of the row's
 //    phase: the bytes of a neighbouring row in a shared word meet zeros
@@ -108,8 +113,9 @@ constexpr int SHARE = 16;        // ops/ivf.py IVF_SWEEP_SHARE: K7's share unit
 // the narrow kind's shared memory (query block, buffers, tau and counts):
 // two CTAs an SM (ops/scan.py NARROW_SMEM_BYTES)
 constexpr size_t NARROW_SMEM_BYTES = 112 << 10;
-// K7's kinds in the packed layout: steps whose words a lane loads
-// together, and queries a group of sums (K3's: every step, every query)
+// K6's and K7's kinds in the packed layout: steps whose words a lane
+// loads together, and queries a group of sums (K3's: every step, every
+// query)
 constexpr int NARROW_LOADS = 4;
 constexpr int NARROW_QG = 8;
 constexpr unsigned FULL = 0xffffffffu;
@@ -198,7 +204,9 @@ struct Bf16 {  // bf16 rows and queries, float32 sums
 // word c (the low plane) and query word cpr + c (the high plane): QW = 2
 // query words a row word. The masked planes are non-negative bytes, safe
 // as __dp4a's signed operand. The key is the template's: (sum - 8 sum(q))
-// converted once, times the row's scale, ranked by row_key.
+// converted once, times the row's scale, ranked by row_key. In the narrow
+// kind (rows of any even width at any base) row word c meets word c of the
+// phase copy of each half instead.
 struct Int4 {
   typedef int Acc;
   static constexpr int EPW = 32;
@@ -455,8 +463,22 @@ __device__ __forceinline__ uint4 clip_word(uint4 x, int lo, int hi) {
   }
 }
 
-// A (query, row) sum's selection key: Int8R's scaled score (the
-// template's line, scan_topk.cu), else the kind's key.
+// A row word of the narrow kind against its query copy at `cq`: the kind's
+// word product, Int4's two planes against the copy's halves (words cq[0]
+// and cq[W]).
+template <class K>
+__device__ __forceinline__ typename K::Acc narrow_dot(uint4 x, const uint4* cq,
+                                                      int W,
+                                                      typename K::Acc acc) {
+  if constexpr (K::QW == 2)
+    return K::dot(K::low(x), K::high(x), cq[0], cq[W], acc);
+  else
+    return K::dot(x, cq[0], acc);
+}
+
+// A (query, row) sum's selection key: Int8R's and Int4's scaled score (the
+// template's line, scan_topk.cu; Int4's sum already less 8 sum(q)), else
+// the kind's key.
 template <class K>
 __device__ __forceinline__ u64 narrow_key(typename K::Acc s, float sc,
                                           uint32_t row) {
@@ -474,12 +496,14 @@ __host__ __device__ constexpr int narrow_ctas_per_sm(int qt) {
   return qt >= 16 && !K::ROW_SCALE ? 1 : CTAS_PER_SM;
 }
 
-// The narrow sweep: kind K (Int8R: K3's per-row-scaled int8 rows; Int8C,
-// F32, Bf16: K7's column-scaled int8, float32 and bf16 postings) over rows
-// of `rb` bytes at any base, the rows `rows` names (K3 flat ranges, K7 a
-// share of the live hot tiles, whose 16-row units keep a warp's rows in one
-// tile). The query block holds P phase copies of each of the QT queries,
-// copy j at (j QT + qq) W words: j g zero bytes, the query's rb bytes,
+// The narrow sweep: kind K (Int8R: K3's per-row-scaled int8 rows; Int4:
+// K6's packed int4 rows, rb = dim / 2; Int8C, F32, Bf16: K7's
+// column-scaled int8, float32 and bf16 postings) over rows
+// of `rb` bytes at any base, the rows `rows` names (K3 and K6 flat ranges,
+// K7 a share of the live hot tiles, whose 16-row units keep a warp's rows
+// in one tile). The query block holds P phase copies of each of the QT
+// queries, copy j at (j QT + qq) QW W words: QW times (Int4's two halves,
+// each rb bytes of the query) j g zero bytes, rb query bytes,
 // zeros (lg: log2 g, g = 16 / P, a multiple of the element's bytes). Row
 // r's words are the W_r = ceil((p_r + rb) / 16) aligned words from (v + r
 // rb) / 16 on (`vw` the 16-byte aligned base below v), met with copy p_r /
@@ -500,36 +524,56 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
                     u64* __restrict__ partial, int Q, int rb, int lg, int W,
                     int L, int k) {
   typedef typename K::Acc Acc;
+  constexpr bool I4 = K::QW == 2;
+  // K3's kind (Int8R) takes the wide loop bodies below; K6's and K7's the
+  // narrow ones (Int4's two planes a word took the registers: 16-24 bytes
+  // spilled at QT 2 and 16 with K3's)
+  constexpr bool K3_BODY = K::ROW_SCALE && !I4;
   // rows a warp step of the row-group layout: K3's 4 up to QT 2, else 2
   // (each row's own word range and phase copy take the registers a QT 4
-  // tile of four rows spilled); K7's 2, and 1 from QT 8 on
-  constexpr int RW = K::ROW_SCALE ? (QT <= 2 ? 4 : 2) : QT < 8 ? 2 : 1;
+  // tile of four rows spilled); K6's and K7's 2, and 1 from QT 8 on
+  constexpr int RW = K3_BODY ? (QT <= 2 ? 4 : 2) : QT < 8 ? 2 : 1;
   constexpr int MAX_STEPS = 8;  // L / 2 steps of a packed tile, L <= 16
   // steps whose words a lane loads before their products, and queries
   // summed together: all of them for K3's kind; NARROW_LOADS and NARROW_QG
-  // for K7's, whose smaller loop bodies the compiler otherwise pipelines
-  // past the registers (ptxas spilled 16-308 bytes)
-  constexpr int LOADS = K::ROW_SCALE ? MAX_STEPS : NARROW_LOADS;
-  constexpr int QG = K::ROW_SCALE || QT <= NARROW_QG ? QT : NARROW_QG;
+  // for K6's and K7's, whose smaller loop bodies the compiler otherwise
+  // pipelines past the registers (ptxas spilled 16-308 bytes)
+  constexpr int LOADS = K3_BODY ? MAX_STEPS : NARROW_LOADS;
+  constexpr int QG = K3_BODY || QT <= NARROW_QG ? QT : NARROW_QG;
   constexpr int GROUPS = WARP_ROWS / RW;
   const int P = 16 >> lg;
+  const int QS = K::QW * W;  // words of one (phase, query) copy
   extern __shared__ __align__(16) unsigned char smem[];
-  uint4* qs = reinterpret_cast<uint4*>(smem);           // P x QT x W words
-  u64* buf = reinterpret_cast<u64*>(qs + P * QT * W);  // QT x BUF keys
+  uint4* qs = reinterpret_cast<uint4*>(smem);           // P x QT x QS words
+  u64* buf = reinterpret_cast<u64*>(qs + P * QT * QS);  // QT x BUF keys
   u64* tau = buf + QT * BUF;
   int* cnt = reinterpret_cast<int*>(tau + QT);
+  int* qsum = cnt + QT;  // Int4: each query's int8 sum
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // the phase copies, a byte a thread: byte b of copy (j, qq) is query
-  // byte b - j g
+  // the phase copies, a byte a thread: byte b of half h of copy (j, qq) is
+  // byte b - j g of the query's half h (rb bytes each)
   {
     unsigned char* qb = smem;
     const int wb = W * 16;
-    for (int i = threadIdx.x; i < P * QT * wb; i += SW_THREADS) {
-      const int cq = i / wb, b = i - cq * wb;
+    for (int i = threadIdx.x; i < P * QT * K::QW * wb; i += SW_THREADS) {
+      const int ch = i / wb, b = i - ch * wb;
+      const int h = ch % K::QW, cq = ch / K::QW;
       const int j = cq / QT, qq = cq - j * QT;
       const int src = b - (j << lg);
-      qb[i] = qq < Q && src >= 0 && src < rb ? q[(long)qq * rb + src]
-                                             : (unsigned char)0;
+      qb[i] = qq < Q && src >= 0 && src < rb
+                  ? q[((long)qq * K::QW + h) * rb + src]
+                  : (unsigned char)0;
+    }
+  }
+  if constexpr (I4) {  // warp w sums queries w, w + 8 (2 rb int8 bytes)
+    for (int qq = warp; qq < QT; qq += SW_WARPS) {
+      int s = 0;
+      if (qq < Q)
+        for (int b = lane; b < 2 * rb; b += 32)
+          s += (int)(signed char)q[(long)qq * 2 * rb + b];
+      s = __reduce_add_sync(FULL, s);
+      if (lane == 0) qsum[qq] = s;
     }
   }
   if (threadIdx.x < QT) {
@@ -541,7 +585,6 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
   const uintptr_t vb = (uintptr_t)v;
   const uint4* vw = reinterpret_cast<const uint4*>(vb & ~(uintptr_t)15);
   const long v0 = (long)(vb & 15);  // v's byte in its first word
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   long rbeg, rend;
   rows.range(blockIdx.x, gridDim.x, &rbeg, &rend);
@@ -577,7 +620,7 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
           if (s0 + u >= steps) break;  // uniform
           const int rr = (s0 + u) * G + gi;
           const int ph = (int)((v0 + (pw0 + rr) * rb) & 15);
-          const uint4* cp = qs + (ph >> lg) * QT * W + c;
+          const uint4* cp = qs + (ph >> lg) * QT * QS + c;
           // the queries QG at a time: a group's query words, sums and
           // shuffles stay within the registers
 #pragma unroll 1
@@ -585,7 +628,9 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
             Acc acc[QG];
 #pragma unroll
             for (int qq = 0; qq < QG; ++qq)
-              acc[qq] = K::dot(x[u], c < W ? cp[(g0 + qq) * W] : zero, Acc(0));
+              acc[qq] = c < W ? narrow_dot<K>(x[u], cp + (g0 + qq) * QS, W,
+                                              Acc(0))
+                              : Acc(0);
             for (int o = L >> 1; o > 0; o >>= 1)
 #pragma unroll
               for (int qq = 0; qq < QG; ++qq)
@@ -595,8 +640,8 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
               for (int qq = 0; qq < QG; ++qq) {
                 const int qi = g0 + qq;
                 if (qi % L == c && qi < Q) {
-                  const u64 key =
-                      narrow_key<K>(acc[qq], sc[u], (uint32_t)(pw0 + rr));
+                  const Acc s = I4 ? acc[qq] - 8 * qsum[qi] : acc[qq];
+                  const u64 key = narrow_key<K>(s, sc[u], (uint32_t)(pw0 + rr));
                   if (key > tau[qi])
                     buf[qi * BUF + atomicAdd(&cnt[qi], 1)] = key;
                 }
@@ -628,7 +673,7 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
         ph[r] = (int)(b0 & 15);
         w0[r] = b0 >> 4;
         nw[r] = (ph[r] + rb + 15) >> 4;
-        cw[r] = (ph[r] >> lg) * QT * W;
+        cw[r] = (ph[r] >> lg) * QT * QS;
       }
       Acc acc[QT][RW];
 #pragma unroll
@@ -655,9 +700,9 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
         for (int qq = 0; qq < QT; ++qq)
 #pragma unroll
           for (int r = 0; r < RW; ++r) {
-            const uint4* cp = qs + cw[r] + qq * W + c;
-            const uint4 w1 = two ? cp[32] : zero;
-            acc[qq][r] = K::dot(x1[r], w1, K::dot(x0[r], cp[0], acc[qq][r]));
+            const uint4* cp = qs + cw[r] + qq * QS + c;
+            acc[qq][r] = narrow_dot<K>(x0[r], cp, W, acc[qq][r]);
+            if (two) acc[qq][r] = narrow_dot<K>(x1[r], cp + 32, W, acc[qq][r]);
           }
       }
 #pragma unroll
@@ -666,7 +711,8 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
         for (int r = 0; r < RW; ++r) {
           const Acc s = K::sum(acc[qq][r]);
           if (lane == (qq * RW + r) % 32 && ((gl >> r) & 1u) && qq < Q) {
-            const u64 key = narrow_key<K>(s, sc, (uint32_t)(p0 + r));
+            const u64 key = narrow_key<K>(I4 ? s - 8 * qsum[qq] : s, sc,
+                                          (uint32_t)(p0 + r));
             if (key > tau[qq]) buf[qq * BUF + atomicAdd(&cnt[qq], 1)] = key;
           }
         }
@@ -699,7 +745,15 @@ struct Narrow {
     while (lg > 0 && ((rb | (int)((uintptr_t)v & 15)) & ((1 << lg) - 1))) --lg;
     W = (16 - (1 << lg) + rb + 15) / 16;
   }
-  size_t block(int qt) const { return (size_t)(16 >> lg) * qt * W * 16; }
+  // (qw query copies a phase: Int4's two halves)
+  size_t block(int qt, int qw = 1) const {
+    return (size_t)(16 >> lg) * qt * qw * W * 16;
+  }
+  // the whole shared memory: block, buffers, tau and counts (Int4: sums)
+  size_t smem(int qt, int qw, int buf) const {
+    return block(qt, qw) + (size_t)qt * buf * 8 + qt * 12 +
+           (qw == 2 ? qt * 4 : 0);
+  }
   // lanes a row of the packed layout: the power of two >= W (at least 2)
   // for rows of at most 16 words, else 0
   int lanes() const {
@@ -715,7 +769,7 @@ cudaError_t launch_narrow_qt(const void* q, const void* v, const void* vscale,
                              const void* mask, const Rows& rows, u64* partial,
                              int Q, int rb, const Narrow& nw, int k, int ctas,
                              cudaStream_t stream) {
-  const size_t smem = nw.block(QT) + (size_t)QT * BUF * 8 + QT * 12;
+  const size_t smem = nw.smem(QT, K::QW, BUF);
   const cudaError_t e = cudaFuncSetAttribute(
       sweep_narrow_kernel<K, QT, BUF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -728,7 +782,8 @@ cudaError_t launch_narrow_qt(const void* q, const void* v, const void* vscale,
   return cudaGetLastError();
 }
 
-// The narrow sweep of kind K, the query tile sized to Q, BUF slots a
+// The narrow sweep of kind K over rows of rb bytes (Int4: queries of 2 rb
+// bytes), the query tile sized to Q, BUF slots a
 // query, then the merge of the CTAs' partials into vals / idx. Refuses
 // (cudaErrorInvalidValue) Q > 16, k > BUF - 128, rows or a base off the
 // element's bytes, and a query block with buffers above NARROW_SMEM_BYTES.
@@ -742,7 +797,7 @@ cudaError_t narrow(const void* q, const void* v, const void* vs,
     return cudaErrorInvalidValue;
   const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
   const Narrow nw(rb, v);
-  if (nw.block(qt) + (size_t)qt * BUF * 8 + qt * 12 > NARROW_SMEM_BYTES)
+  if (nw.smem(qt, K::QW, BUF) > NARROW_SMEM_BYTES)
     return cudaErrorInvalidValue;
   u64* part = static_cast<u64*>(partial);
   cudaError_t err;
@@ -929,6 +984,33 @@ extern "C" int pv_sweep_topk_i8_narrow(const void* q, const void* v,
                         : narrow<Int8R, BUF_K384>(q, v, vscale, mask, rows,
                                                   partial, vals, idx, Q, dim,
                                                   1, k, ctas, s));
+}
+
+// K6's narrow kind on the one-query sweep: q (Q, dim) int8 queries (any
+// base), v (cap, dim / 2) packed int4 rows at any even width and base,
+// vscale (cap,) float32, mask (cap,) uint8; Q <= 16, k <= 128, and the
+// query block (P phase copies of both halves of the QT queries, W words
+// each: ops/scan.py::i4_narrow_bytes) with the buffers within
+// NARROW_SMEM_BYTES. Rows as K9's: CTA c reads [c * chunk, min(cap, (c +
+// 1) * chunk)) (chunk % 128 == 0); `partial` is scratch of max(1, ceil(cap
+// / chunk)) * Q * k uint64; vals (Q, k) float32 (the scaled scores) and
+// idx (Q, k) int32 receive the result (-inf / 0 where empty). Returns the
+// cudaError_t of the launches.
+extern "C" int pv_sweep_topk_i4_narrow(const void* q, const void* v,
+                                       const void* vscale, const void* mask,
+                                       void* partial, void* vals, void* idx,
+                                       int Q, long long cap, int dim, int k,
+                                       long long chunk, void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (cap < 0 || chunk <= 0 || chunk % SEG || !vscale || k > Int4::K_MAX ||
+      dim <= 0 || dim % 2)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (cap + chunk - 1) / chunk;
+  const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
+  return (int)narrow<Int4, BUF_K128>(q, v, vscale, mask, rows, partial, vals,
+                                     idx, Q, dim / 2, 1, k, n > 1 ? (int)n : 1,
+                                     (cudaStream_t)stream);
 }
 
 // K7 on the one-query sweep. kind 0: postings and q float32; 1: both

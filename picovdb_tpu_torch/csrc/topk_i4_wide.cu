@@ -3,10 +3,11 @@
 // per-query radix select over the slab.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i4 (`_scan_kernel_i4`)
-// at k_sel 129-1024 wherever the tensor-core scan can read the operands
-// (ops/scan.py::i4_wide_ready: dim % 128 == 0, 16-byte aligned bases): the
-// int4 store's host-rescore band, k + 4 RESCORE_GUARD + SHARD_GUARD = 526
-// at k = 10 on every shard of a mesh store, at every batch size. It
+// at k_sel 129-1024 at every even width and base up to 64M rows
+// (ops/scan.py::i4_wide_ready): the int4 store's host-rescore band, k +
+// 4 RESCORE_GUARD + SHARD_GUARD = 526 at k = 10 (k + 512 + 4 on a
+// host-uploaded store at Q <= RESCORE_MAX_Q), on every shard of a mesh
+// store, at every batch size. It
 // computes scan_topk_plain(..., int4=True) bit for bit: per query the k
 // best live rows by float32(q . lo + q . hi - 8 sum(q)) * vscale[row],
 // ties to the lower row (row_key), as (Q, k) float32 scores (-inf where a
@@ -24,7 +25,9 @@
 // Design, as K4's wide kind (topk_wide.cu), for the reason given there:
 // per-query buffers of k = 1024 keys do not fit a CTA beside the ring.
 //  * Pass A (scan_i4_wgmma.cu, BUF 0): K6's tensor-core scan as it is (the
-//    permuted queries, the TMA ring, the expander warps' nibble planes,
+//    permuted queries, each half padded to whole stages, the TMA ring, the
+//    expander warps' nibble planes -- from TMA's slice, or read by the
+//    expanders from device memory where TMA cannot read the rows --,
 //    m64n128k32 s8 wgmma, exact int32 sums), whose epilogue stores
 //    float_order(float32(acc - 8 sum(q)) * vscale[row]) for each (live
 //    query, row below cap) to the slab (q_tile, ld), ld = cap rounded up to
@@ -45,26 +48,30 @@
 
 #include "radix_select.cuh"
 
-// K6's wide kind: q_perm (Q, dim) int8 queries with their columns permuted
-// (ops/scan.py::permute_i4_queries), v (cap, dim / 2) packed int4 rows,
-// vscale (cap,) float32, mask (cap,) uint8 4-byte aligned; dim % 128 == 0,
-// 16-byte aligned q_perm and v, k <= 1024 (served at 128 < k). `scratch`
+// K6's wide kind: piece (the rows' producer, ops/scan.py::rows_piece: 0
+// TMA, 8 / 4 / 2 the expanders' reads), q_perm (Q, dim_p) int8 queries
+// with their columns permuted and each half padded to whole 64-byte stages
+// (ops/scan.py::permute_i4_queries; dim_p = 128 ceil(dim/2 / 64)), v (cap,
+// dim / 2) packed int4 rows, vscale (cap,) float32, mask (cap,) uint8
+// 4-byte aligned; dim even, 16-byte aligned q_perm, v and dim / 2 at the
+// piece's alignment, k <= 1024 (served at 128 < k). `scratch`
 // (256-byte aligned) holds `scratch_bytes`, at least one tile of q_tile
 // queries' slab, histograms and candidates, each from a 256-byte boundary
 // (ops/scan.py::i4_wide_scratch). vals (Q, k) float32 and idx (Q, k) int32
 // receive the result (-inf / 0 where empty). Launches on the current
 // device. Returns 0, a cudaError_t, or minus the CUresult of a refused
 // tensor-map encode.
-extern "C" int pv_scan_topk_i4_wide(const void* q_perm, const void* v,
-                                    const void* vscale, const void* mask,
-                                    void* scratch, void* vals, void* idx,
-                                    int Q, long long cap, int dim, int k,
+extern "C" int pv_scan_topk_i4_wide(int piece, const void* q_perm,
+                                    const void* v, const void* vscale,
+                                    const void* mask, void* scratch,
+                                    void* vals, void* idx, int Q,
+                                    long long cap, int dim, int k,
                                     int q_tile, long long scratch_bytes,
                                     void* stream) {
   using namespace pv;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
   const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
-  if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || dim % 128 ||
+  if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || dim % 2 ||
       q_tile <= 0 || q_tile > 65535 || !vscale || (uintptr_t)mask % 4 ||
       (uintptr_t)scratch % 256 ||
       (size_t)scratch_bytes < rs::tile_layout(q_tile, ld).bytes)
@@ -74,11 +81,12 @@ extern "C" int pv_scan_topk_i4_wide(const void* q_perm, const void* v,
   const cudaError_t e = rs::prepare(&sms);
   if (e != cudaSuccess) return (int)e;
   const int8_t* qp = static_cast<const int8_t*>(q_perm);
+  const int dim_p = (dim / 2 + 63) / 64 * 128;  // a permuted query row
   return rs::walk_tiles(
       static_cast<unsigned char*>(scratch), static_cast<const uint8_t*>(mask),
       static_cast<float*>(vals), static_cast<int*>(idx), Q, q_tile,
       (long)cap, ld, k, sms, s, [&](int q0, int nq, uint32_t* slab) {
-        return launch_i4_slab(qp + (size_t)q0 * dim, v, vscale, mask, slab,
-                              nq, cap, dim, s);
+        return launch_i4_slab(piece, qp + (size_t)q0 * dim_p, v, vscale,
+                              mask, slab, nq, cap, dim, s);
       });
 }

@@ -73,10 +73,19 @@ _SIGNATURES = {
     # within scan.NARROW_SMEM_BYTES; served where scan.i8_narrow_ready)
     "pv_sweep_topk_i8_narrow": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                                 _L, _P],
-    # q_perm, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream
-    # (K6's tensor-core scan: any Q, k <= 128, dim % 128 == 0; served at
-    # Q > scan.I4_SWEEP_Q_MAX)
-    "pv_scan_topk_i4_wgmma": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+    # the same for K6's narrow kind of the sweep over packed int4 rows at
+    # any even width and base (Q <= 16, k <= 128, both halves' phase
+    # copies within scan.NARROW_SMEM_BYTES; served where
+    # scan.i4_narrow_ready)
+    "pv_sweep_topk_i4_narrow": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                                _L, _P],
+    # piece (the rows' producer, scan.rows_piece: 0 TMA, 8 / 4 / 2 the
+    # expanders' reads), q_perm (each half padded to whole 64-byte
+    # stages), v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream
+    # (K6's tensor-core scan: any Q, k <= 128, any even dim; served where
+    # scan.i4_wgmma_ready)
+    "pv_scan_topk_i4_wgmma": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                              _P],
     # piece (the rows' producer, scan.rows_piece: 0 TMA, 8 / 4 cp.async, 2
     # the realigning producer), kind (0 f32, 1 bf16), query planes (rows of
     # dim rounded up to whole 16 bytes), v, mask, partial, vals, idx, Q,
@@ -89,11 +98,11 @@ _SIGNATURES = {
     # 4-byte aligned mask; served at 128 < k, scan.topk_wide_ready)
     "pv_scan_topk_wide": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
                           _L, _P],
-    # q_perm, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k, q_tile,
-    # scratch bytes, stream (K6's wide kind: k <= 1024, dim % 128 == 0, a
-    # 4-byte aligned mask; served at 128 < k, scan.i4_wide_ready)
-    "pv_scan_topk_i4_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
-                             _L, _P],
+    # piece, q_perm, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k,
+    # q_tile, scratch bytes, stream (K6's wide kind: k <= 1024, any even
+    # dim, a 4-byte aligned mask; served at 128 < k, scan.i4_wide_ready)
+    "pv_scan_topk_i4_wide": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                             _I, _L, _P],
     # piece, q, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k, q_tile,
     # scratch bytes, stream (K3's wide kind: k <= 1024, a 4-byte aligned
     # mask; the scratch's tile, then room for the queries padded to whole

@@ -26,9 +26,10 @@ kernels those paths run:
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
                         (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`)
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
-                        (Q <= 4: csrc/sweep_topk.cu, see `i4_sweep_ready`;
-                        Q > 4: csrc/scan_i4_wgmma.cu, `i4_wgmma_ready`;
-                        128 < k <= 1024: the wide kind,
+                        (Q <= 4: csrc/sweep_topk.cu, see `i4_sweep_ready`
+                        and, at any even width and base,
+                        `i4_narrow_ready`; else csrc/scan_i4_wgmma.cu,
+                        `i4_wgmma_ready`; 128 < k <= 1024: the wide kind,
                         csrc/topk_i4_wide.cu, see `i4_wide_ready`)
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
                         (Q <= 16: csrc/sweep_topk.cu, see `sweep_ready`)
@@ -85,7 +86,9 @@ SEG = 128  # rows per segmax segment
 # K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
 # `ivf_sweep_ready`), "ivf_scan_topk_wgmma" its tensor-core scan's
 # (`ivf_wgmma_ready`); "scan_topk_i4" every K6 launch, "scan_topk_i4_sweep"
-# those of the sweep's int4 kind (`i4_sweep_ready`), "scan_topk_i4_wgmma"
+# those of the sweep's int4 kind (`i4_sweep_ready`), "scan_topk_i4_narrow"
+# those of the sweep's narrow int4 kind at any even width and base
+# (`i4_narrow_ready`), "scan_topk_i4_wgmma"
 # those of its tensor-core scan (`i4_wgmma_ready`), "scan_topk_i4_wide"
 # those of its wide kind (`i4_wide_ready`); "scan_topk_i8" every K3
 # launch, "scan_topk_i8_sweep" those of the sweep's row-scaled int8 kind
@@ -94,14 +97,16 @@ SEG = 128  # rows per segmax segment
 # (`i8_wide_ready`); "scan_topk_i8_narrow" those of the sweep's narrow
 # kind over int8 rows at any width and base (`i8_narrow_ready`);
 # "ivf_scan_topk_narrow" those of K7's narrow sweep (ops/ivf.py::
-# `ivf_narrow_ready`). The tensor-core scans and wide kinds of K4, K3 and
-# K7 and K8's segment scan read the rows by the mainloop's producer
-# `rows_piece` names: their keys count TMA's, and the
+# `ivf_narrow_ready`). The tensor-core scans and wide kinds of K4, K3, K6
+# and K7 and K8's segment scan read the rows by the producer
+# `rows_piece` names (K6's: its expanders' reads): their keys count TMA's,
+# and the
 # same keys ending in "_cpasync" count them fed by cp.async, "_realign" by
 # the realigning producer, over rows TMA cannot read
 # ("scan_topk_wgmma_cpasync", "scan_topk_wide_realign",
 # "scan_topk_i8_wgmma_realign", "scan_topk_i8_wide_cpasync", ...); each of
-# these keys, "scan_topk_i8_narrow" and "ivf_scan_topk_narrow" also has
+# these keys, "scan_topk_i8_narrow", "scan_topk_i4_narrow" and
+# "ivf_scan_topk_narrow" also has
 # its launches by shape in LAUNCH_SHAPES. "ivf_scan_topk_wide" those of K7's wide kind
 # (ops/ivf.py::`ivf_wide_ready`); "ivf_segmax" every K8 launch,
 # "ivf_segmax_wgmma" those of its tensor-core segment scan over rows TMA
@@ -121,6 +126,9 @@ LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "segmax_i8_wgmma": 0,
             "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
             "scan_topk_i4_wgmma": 0, "scan_topk_i4_wide": 0,
+            "scan_topk_i4_narrow": 0,
+            "scan_topk_i4_wgmma_cpasync": 0, "scan_topk_i4_wgmma_realign": 0,
+            "scan_topk_i4_wide_cpasync": 0, "scan_topk_i4_wide_realign": 0,
             "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
             "ivf_scan_topk_wgmma": 0, "ivf_scan_topk_wide": 0,
             "ivf_scan_topk_narrow": 0,
@@ -144,8 +152,8 @@ _I64_MIN = -(2**63)  # empty 64-bit selection key
 
 # Each kernel's launches by shape, e.g. LAUNCH_SHAPES["scan_topk_i4"]
 # [(2048, 14)]: the split of LAUNCHES[name] (not of its sub-kernel keys,
-# but for those of K3's narrow sweep and of the kinds over rows TMA cannot
-# read) by the launch's query count and k (k_sel; per_seg for K8; None where a
+# but for those of K3's and K6's narrow sweeps, K6's tensor-core kinds and
+# the kinds over rows TMA cannot read) by the launch's query count and k (k_sel; per_seg for K8; None where a
 # kernel takes no k), so a cost per launch is weighed at the shape the
 # launch was made at.
 LAUNCH_SHAPES: dict = {}
@@ -758,9 +766,10 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
              f"{name}: vectors and mask must be contiguous")
     q = queries.contiguous()
     # the ready rules are the only switch between kernels: the one-query
-    # sweep, else the tensor-core scan, else the wide kind, else the
-    # template (K3 asks its wide kind first: `i8_wide_ready`); the
-    # tensor-core kinds' counters name the rows' producer
+    # sweep, else its narrow kind, else the tensor-core scan, else the
+    # wide kind, else the template (K3 asks its wide kind first:
+    # `i8_wide_ready`); the tensor-core kinds' counters name the rows'
+    # producer
     piece = _PIECE_KEY[rows_piece(vectors)]
     if i8c and sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, None, mask, k, name)
@@ -781,12 +790,16 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     elif int4 and i4_sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name)
         LAUNCHES["scan_topk_i4_sweep"] += 1
+    elif int4 and i4_narrow_ready(q, vectors, k):
+        vals, idx = _sweep_launch(q, vectors, vscale, mask, k, name,
+                                  "pv_sweep_topk_i4_narrow")
+        _count("scan_topk_i4_narrow", num_q, k)
     elif int4 and i4_wgmma_ready(q, vectors, k):
         vals, idx = _i4_wgmma_launch(q, vectors, vscale, mask, k, name)
-        LAUNCHES["scan_topk_i4_wgmma"] += 1
+        _count("scan_topk_i4_wgmma" + piece, num_q, k)
     elif int4 and i4_wide_ready(q, vectors, k):
         vals, idx = _i4_wide_launch(q, vectors, vscale, mask, k, name)
-        LAUNCHES["scan_topk_i4_wide"] += 1
+        _count("scan_topk_i4_wide" + piece, num_q, k)
     elif kind in (_KIND_F32, _KIND_BF16) and topk_wgmma_ready(q, vectors, k):
         vals, idx = _topk_wgmma_launch(q, vectors, mask, k, name)
         _count("scan_topk_wgmma" + piece, num_q, k)
@@ -828,9 +841,11 @@ def _sweep_launch(q, vectors, vscale, mask, k: int, name: str,
                   entry: str | None = None):
     """The one-query sweep (csrc/sweep_topk.cu) on checked CUDA operands,
     uncounted: K9 (`vscale` None, column-scaled int8 rows), K6 (packed
-    int4 rows, half the queries' width, with their scales) or K3 (int8
-    rows with their scales; `entry` "pv_sweep_topk_i8_narrow": its narrow
-    kind, any width and base), CTAs over `sweep_partition`'s ranges."""
+    int4 rows, half the queries' width, with their scales; `entry`
+    "pv_sweep_topk_i4_narrow": its narrow kind, any even width and base)
+    or K3 (int8 rows with their scales; `entry` "pv_sweep_topk_i8_narrow":
+    its narrow kind, any width and base), CTAs over `sweep_partition`'s
+    ranges."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -853,9 +868,11 @@ def _sweep_launch(q, vectors, vscale, mask, k: int, name: str,
 def _i4_wgmma_launch(q, v_i4, vscale, mask, k: int,
                      name: str = "scan_topk_i4"):
     """K6's tensor-core scan (csrc/scan_i4_wgmma.cu) on checked CUDA
-    operands, uncounted: the queries' columns permuted once
-    (`permute_i4_queries`), CTAs over `i4_wgmma_partition`'s (query tile,
-    corpus range) pairs, then the merge."""
+    operands, uncounted: the queries' columns permuted once, each half
+    padded to whole stages (`permute_i4_queries`), the rows by the producer
+    `rows_piece` names (TMA, or the expanders' reads), CTAs over
+    `i4_wgmma_partition`'s (query tile, corpus range) pairs, then the
+    merge."""
     num_q, dim = q.shape
     cap = v_i4.shape[0]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -864,8 +881,9 @@ def _i4_wgmma_launch(q, v_i4, vscale, mask, k: int,
     partial = torch.empty((num_q * ranges * k,), dtype=torch.int64,
                           device=q.device)
     vals, idx = _outputs(num_q, k, q.device)
-    _launch(q, name, "pv_scan_topk_i4_wgmma", q_perm.data_ptr(),
-            v_i4.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
+    _launch(q, name, "pv_scan_topk_i4_wgmma", rows_piece(v_i4),
+            q_perm.data_ptr(), v_i4.data_ptr(), vscale.data_ptr(),
+            mask.data_ptr(),
             partial.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
             dim, k)
     return vals, idx
@@ -874,10 +892,12 @@ def _i4_wgmma_launch(q, v_i4, vscale, mask, k: int,
 def _i4_wide_launch(q, v_i4, vscale, mask, k: int,
                     name: str = "scan_topk_i4"):
     """K6's wide kind (csrc/topk_i4_wide.cu) on checked CUDA operands,
-    uncounted: the queries' columns permuted once (`permute_i4_queries`),
-    then `_scaled_wide_launch`."""
+    uncounted: the queries' columns permuted once, each half padded to
+    whole stages (`permute_i4_queries`), then `_scaled_wide_launch` with
+    the rows by the producer `rows_piece` names."""
     return _scaled_wide_launch("pv_scan_topk_i4_wide", permute_i4_queries(q),
-                               q, v_i4, vscale, mask, k, name)
+                               q, v_i4, vscale, mask, k, name,
+                               rows_piece(v_i4), pad_queries=False)
 
 
 def _i8_wide_launch(q, v_i8, vscale, mask, k: int,
@@ -892,22 +912,21 @@ def _i8_wide_launch(q, v_i8, vscale, mask, k: int,
 
 
 def _scaled_wide_launch(entry: str, q_arg, q, vectors, vscale, mask, k: int,
-                        name: str, piece: int | None = None):
+                        name: str, piece: int, pad_queries: bool = True):
     """The row-scaled wide kinds' launch (K6's, K3's): one library call
     `entry` that, a tile of `topk_wide_tile` queries at a time, runs the
-    tensor-core scan on the queries `q_arg` writing the slab and the radix
-    select over it, in one scratch buffer (`i4_wide_scratch`; with the
-    rows' producer `piece`, K3's, then Q rows of the width rounded up to 16
-    bytes for the padded queries); a mask view not 4-byte aligned is
-    copied."""
+    tensor-core scan on the queries `q_arg` (the rows by the producer
+    `piece`) writing the slab and the radix select over it, in one scratch
+    buffer (`i4_wide_scratch`; K3's, `pad_queries`, then Q rows of the
+    width rounded up to 16 bytes for the padded queries); a mask view not
+    4-byte aligned is copied."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     q_tile = topk_wide_tile(num_q, cap)
     nbytes = i4_wide_scratch(cap, q_tile)
-    head = ()
-    if piece is not None:
+    head = (piece,)
+    if pad_queries:
         nbytes = _up256(nbytes) + num_q * _pad_to(dim, 16)
-        head = (piece,)
     if mask.data_ptr() % 4:
         mask = mask.clone()
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
@@ -1215,11 +1234,75 @@ def i4_sweep_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
     operands: Q <= I4_SWEEP_Q_MAX, k <= 128, packed rows of whole 16-byte
     words (dim % 32 == 0: 32 elements a word), the query block
     (sweep_tile(Q) x dim bytes) within SWEEP_QBLOCK_BYTES, 16-byte aligned
-    bases."""
+    bases. Other widths and bases take `i4_narrow_ready`'s narrow kind,
+    larger batches and query blocks the tensor-core scan."""
     num_q, dim = q_i8.shape
-    return (num_q <= I4_SWEEP_Q_MAX and k <= SWEEP_K_MAX and dim % 32 == 0
-            and sweep_tile(num_q) * dim <= SWEEP_QBLOCK_BYTES
-            and _aligned(q_i8, v_i4))
+    return (num_q <= I4_SWEEP_Q_MAX and k <= SWEEP_K_MAX
+            and _i4_tma_ready(q_i8, v_i4)
+            and sweep_tile(num_q) * dim <= SWEEP_QBLOCK_BYTES)
+
+
+# K6's narrow sweep limits (csrc/sweep_topk.cu `sweep_narrow_kernel
+# <Int4>`): up to I4_NARROW_Q_MAX queries its narrow kind beats the
+# tensor-core scan over packed rows of at most 16 words (its packed
+# layout: dim / 2 <= 240 + g bytes), up to I4_NARROW_WIDE_Q_MAX over longer
+# rows (its row-group layout). chip_smoke.py phase 5b times both at k_sel
+# 14 over planes of 131,072 and 1,183,514 rows (H100 80GB HBM3, 700 W;
+# PERF.md): at dim 100 the sweep wins at every Q <= 16 (1,183,514 rows,
+# Q = 1 / 4 / 8 / 16: 0.169 / 0.229 / 0.319 / 0.510 ms against the scan's
+# 0.525 / 0.542 / 0.549 / 0.574); at dim 300 up to Q = 8 (0.752 against
+# 0.926) and not at Q = 16 (1.342 against 0.948); at dim 784 (25 words)
+# up to Q = 4 over 1,183,514 rows (0.748 against 0.887) and not at Q = 5
+# (1.133 against 0.890), though over 131,072 rows it still wins at Q = 8;
+# at dim 1022 at Q = 4 by 2.3x. The limits follow the larger store.
+I4_NARROW_Q_MAX = 8
+I4_NARROW_WIDE_Q_MAX = 4
+
+
+def i4_narrow_words(dim: int, ptr: int) -> int:
+    """Words W of a phase copy for packed rows of dim / 2 bytes at base
+    `ptr`: ceil((16 - g + dim / 2) / 16), g = 16 / `narrow_phases`."""
+    rb = dim // 2
+    return -(-(16 - 16 // narrow_phases(rb, ptr) + rb) // 16)
+
+
+def i4_narrow_bytes(num_q: int, dim: int, ptr: int) -> int:
+    """The int4 narrow kind's shared memory over packed rows of dim / 2
+    bytes at base `ptr`: the query block of `narrow_phases` copies of both
+    halves of sweep_tile(Q) queries, `i4_narrow_words` each (2 x P x QT x
+    W x 16 bytes), then QT buffers of 256 keys, tau, counts and query sums
+    (csrc/sweep_topk.cu `Narrow::smem`)."""
+    phases = narrow_phases(dim // 2, ptr)
+    qt = sweep_tile(num_q)
+    return (2 * phases * qt * i4_narrow_words(dim, ptr) * 16
+            + qt * (256 * 8 + 16))
+
+
+def _i4_tma_ready(q_i8: torch.Tensor, v_i4: torch.Tensor) -> bool:
+    """What the 16-byte sweep and TMA read: packed rows of whole 16 bytes
+    (dim % 32 == 0) and 16-byte aligned bases of both."""
+    return q_i8.shape[1] % 32 == 0 and _aligned(q_i8, v_i4)
+
+
+def i4_narrow_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
+    """Whether K6 runs the one-query sweep's narrow int4 kind (csrc/
+    sweep_topk.cu `sweep_narrow_kernel<Int4>`) on these contiguous
+    operands: k <= 128, operands the 16-byte sweep cannot read
+    (`_i4_tma_ready` fails: dim % 32 != 0, or a base off 16 bytes; the
+    query is read a byte at a time, the rows as the aligned words that
+    hold them), Q up to I4_NARROW_Q_MAX over rows of at most 16 words
+    (`i4_narrow_words`), else up to I4_NARROW_WIDE_Q_MAX, and the phase
+    copies of both halves with the buffers within NARROW_SMEM_BYTES
+    (`i4_narrow_bytes`: every even width up to 1,602 at Q = 4 with 16
+    copies, odd row bytes or a 1-byte aligned base; wider at fewer phases
+    or queries). The rest takes `i4_wgmma_ready`'s scan."""
+    num_q, dim = q_i8.shape
+    ptr = v_i4.data_ptr()
+    top = (I4_NARROW_Q_MAX if i4_narrow_words(dim, ptr) <= 16
+           else I4_NARROW_WIDE_Q_MAX)
+    return (num_q <= top and k <= SWEEP_K_MAX
+            and not _i4_tma_ready(q_i8, v_i4)
+            and i4_narrow_bytes(num_q, dim, ptr) <= NARROW_SMEM_BYTES)
 
 
 # K3's sweep limit on k: 384, its second buffer size, for the int8 store's
@@ -1424,32 +1507,33 @@ def i8_wgmma_partition(num_q: int, cap: int, sms: int, k: int):
 I4_WGMMA_BM = 64
 I4_WGMMA_BN = 256
 I4_WGMMA_K_MAX = 128
-I4_WGMMA_DIM_MULTIPLE = 128  # a k-stage: 64 packed bytes, 128 expanded
+I4_STAGE_BYTES = 64  # a k-stage: 64 packed bytes of a row, 128 expanded
 
 
 def i4_wgmma_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
     """Whether K6 runs the tensor-core scan on these contiguous operands:
-    Q > I4_SWEEP_Q_MAX (smaller batches take the sweep), k <= 128, dim %
-    128 == 0 (a k-stage is 64 packed bytes of a row, so the packed row is
-    whole stages and the permuted query row whole 128-byte TMA boxes),
-    16-byte aligned bases."""
-    num_q, dim = q_i8.shape
-    return (num_q > I4_SWEEP_Q_MAX and k <= I4_WGMMA_K_MAX
-            and dim % I4_WGMMA_DIM_MULTIPLE == 0 and _aligned(q_i8, v_i4))
+    k <= 128 where neither sweep takes them (`i4_sweep_ready`,
+    `i4_narrow_ready`: Q past their limits, or a query block too large), at
+    any even width and base: a packed row takes ceil(dim / 2 / 64) k-stages
+    against the permuted queries, each half padded to whole stages
+    (`permute_i4_queries`); the rows by the producer `rows_piece` names
+    (TMA where the row bytes and the base are multiples of 16, else the
+    expanders read them from device memory)."""
+    return (k <= I4_WGMMA_K_MAX and not i4_sweep_ready(q_i8, v_i4, k)
+            and not i4_narrow_ready(q_i8, v_i4, k))
 
 
 def i4_wide_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
     """Whether K6 runs its wide kind (csrc/topk_i4_wide.cu: the tensor-core
     scan writing a slab, then the radix select) on these contiguous
-    operands: 128 < k <= SCAN_KSEL_MAX, dim % 128 == 0 (the scan's
-    k-stages), 16-byte aligned bases, and one query's slab (cap rounded up
-    to 128 rows, 4 bytes a row) within TOPK_WIDE_SLAB_BYTES. Any Q: a
-    batch under 64 queries runs one query tile. Other widths (the dry
-    run's dim 64) keep the template, `pv_scan_topk` kind 3."""
+    operands: 128 < k <= SCAN_KSEL_MAX at any even width and base (the
+    scan's producers), and one query's slab (cap rounded up to 128 rows, 4
+    bytes a row) within TOPK_WIDE_SLAB_BYTES. Any Q: a batch under 64
+    queries runs one query tile. Only a slab over the budget (past 64M
+    rows) keeps the template, `pv_scan_topk` kind 3."""
     ld = -(-v_i4.shape[0] // SEG) * SEG
     return (I4_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
-            and q_i8.shape[1] % I4_WGMMA_DIM_MULTIPLE == 0
-            and _aligned(q_i8, v_i4) and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
+            and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
 
 
 def i4_wgmma_partition(num_q: int, cap: int, sms: int):
@@ -1465,12 +1549,22 @@ def i4_wgmma_partition(num_q: int, cap: int, sms: int):
 
 def permute_i4_queries(q_i8: torch.Tensor) -> torch.Tensor:
     """The int8 queries with their columns reordered for the tensor-core
-    scan: k-stage j (128 bytes) is q[:, 64 j:64 j + 64] then q[:, dim/2 +
-    64 j:dim/2 + 64 j + 64], the elements that the low and the high
-    nibbles of packed bytes [64 j, 64 j + 64) hold (dim % 128 == 0)."""
+    scan, (Q, 128 S), S = ceil(dim / 2 / 64) k-stages: stage j (128 bytes)
+    is q[:, 64 j:64 j + 64] then q[:, dim/2 + 64 j:dim/2 + 64 j + 64], the
+    elements that the low and the high nibbles of packed bytes [64 j, 64 j
+    + 64) hold. Each half is padded with zeros to 64 S columns on its own,
+    so the last stage's bytes past a row's dim / 2 (TMA's zero fill, or a
+    neighbour row's bytes) meet zero columns in both planes; padding the
+    row's end instead would pair high-plane columns with low nibbles."""
     num_q, dim = q_i8.shape
-    return (q_i8.reshape(num_q, 2, dim // 128, 64).transpose(1, 2)
-            .reshape(num_q, dim).contiguous())
+    half = dim // 2
+    stages = -(-half // I4_STAGE_BYTES)
+    halves = q_i8.reshape(num_q, 2, half)
+    if stages * I4_STAGE_BYTES != half:
+        halves = torch.nn.functional.pad(
+            halves, (0, stages * I4_STAGE_BYTES - half))
+    return (halves.reshape(num_q, 2, stages, I4_STAGE_BYTES).transpose(1, 2)
+            .reshape(num_q, 2 * stages * I4_STAGE_BYTES).contiguous())
 
 
 def scan_topk_plain(queries, vectors, vscale, mask, k: int,

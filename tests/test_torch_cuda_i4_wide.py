@@ -10,7 +10,7 @@ Packed int4 rows at dims 1024 and 256, cap off a multiple of 256, ~20 %
 masked, at Q 1 / 16 / 64 / 128 and k 129 / 526 / 1024; query tiles
 smaller than the batch; an all-masked plane; a plane where more than
 TOPK_WIDE_CAP rows share the best score (the ties path: rows in order);
-and dim 64, which keeps the template. Bit for bit the plain version
+and dim 64, a partial k-stage. Bit for bit the plain version
 (exact int32 sums, one conversion and one multiply, ties to the lower
 row).
 """
@@ -113,12 +113,12 @@ def test_wide_tiles_and_repeats(dev, monkeypatch):
         _bit_for_bit(scan.fused_topk_i4(q8, v4, vs, mask, 526), first)
 
 
-def test_dim_64_keeps_the_template(dev):
+def test_dim_64_takes_the_wide_kind(dev):
+    """dim 64 (32-byte rows: one k-stage TMA reads half of) kept the
+    template until the scan took partial stages: now the wide kind."""
     q8, v4, vs, mask = _case(dev, 3_000, 64, 8, seed=5)
-    assert not scan.i4_wide_ready(q8, v4, 526)
-    before = scan.LAUNCHES["scan_topk_i4_wide"]
-    got = scan.fused_topk_i4(q8, v4, vs, mask, 526)
-    assert scan.LAUNCHES["scan_topk_i4_wide"] == before
+    assert scan.i4_wide_ready(q8, v4, 526)
+    got = _wide(q8, v4, vs, mask, 526)
     ref = scan.scan_topk_plain(q8, v4, vs, mask, 526, int4=True)
     torch.cuda.synchronize()
     _bit_for_bit(got, ref)

@@ -2,10 +2,12 @@
 
 * Which kernel K6 launches: the rules `i4_sweep_ready` (the one-query
   sweep's int4 kind, Q <= I4_SWEEP_Q_MAX) and `i4_wgmma_ready` (the
-  tensor-core scan, larger Q), clause by clause, and the dispatch order (the sweep, then the
-  tensor-core scan, then the template) with the entry points and
-  arguments the wrapper passes, recorded by a stand-in for `scan._launch`
-  on CPU tensors that report themselves as CUDA tensors.
+  tensor-core scan wherever neither sweep serves, at any even width and
+  base), clause by clause, and the dispatch order (the sweep, its narrow
+  kind, the tensor-core scan, the wide kind; the template past 64M rows
+  only) with the entry points and arguments the wrapper passes, recorded
+  by a stand-in for `scan._launch` on CPU tensors that report themselves
+  as CUDA tensors.
 * Each kernel's tile algorithm emulated in numpy, equal bit for bit to
   `scan_topk_plain(..., int4=True)` (vals and idx; ties to the lower row):
   the sweep's int4 word dot (a 16-byte row word against query words c and
@@ -373,18 +375,31 @@ def test_i4_sweep_ready_rule():
 
 
 def test_i4_wgmma_ready_rule():
+    """k <= 128 wherever neither sweep takes the operands: past the
+    sweeps' Q limits at every even width and base (dims off 128, 16-byte
+    rows, bases off 16 bytes), and at small Q only where the narrow kind's
+    phase copies do not fit its shared memory."""
     top = tscan.I4_SWEEP_Q_MAX
-    for nq in (top + 1, 16, 17, 64, 130, 2048):
+    assert tscan.I4_NARROW_Q_MAX >= top
+    for nq in (tscan.I4_NARROW_Q_MAX + 1, 16, 17, 64, 130, 2048):
         q, v = _operands(nq, 1024, rows=4)
         assert tscan.i4_wgmma_ready(q, v, 1)
         assert tscan.i4_wgmma_ready(q, v, 128)
         assert not tscan.i4_wgmma_ready(q, v, 129)
-        assert not tscan.i4_wgmma_ready(*_operands(nq, 1056, rows=4), 14)
-        assert not tscan.i4_wgmma_ready(*_operands(nq, 1024, offset=8,
-                                                   rows=4), 14)
+        assert tscan.i4_wgmma_ready(*_operands(nq, 1056, rows=4), 14)
+        assert tscan.i4_wgmma_ready(*_operands(nq, 1024, offset=8,
+                                               rows=4), 14)
+        assert tscan.i4_wgmma_ready(*_operands(nq, 100, offset=2, rows=4),
+                                    14)
     assert tscan.i4_wgmma_ready(*_operands(top + 1, 128), 14)
-    assert not tscan.i4_wgmma_ready(*_operands(top, 1024), 14)
-    assert not tscan.i4_wgmma_ready(*_operands(64, 96), 14)
+    assert not tscan.i4_wgmma_ready(*_operands(top, 1024), 14)  # the sweep
+    assert tscan.i4_wgmma_ready(*_operands(64, 96), 14)
+    assert not tscan.i4_wgmma_ready(*_operands(top, 100), 14)  # narrow
+    # 803 packed bytes a row: 16 phase copies of both halves overflow the
+    # narrow kind at a 4-query tile, so the scan takes Q = 1 ... 4 there
+    wide = _operands(top, 1606, rows=2)
+    assert not tscan.i4_narrow_ready(*wide, 14)
+    assert tscan.i4_wgmma_ready(*wide, 14)
 
 
 def test_i4_wgmma_partition():
@@ -428,18 +443,20 @@ def recorded(monkeypatch):
     return calls
 
 
-# (Q, dim, k, offset, kernel): the sweep first, then the tensor-core scan,
-# then the template (the sweep up to I4_SWEEP_Q_MAX = 4 queries); at 128 <
-# k the template's place goes to the wide kind where `i4_wide_ready` holds
+# (Q, dim, k, offset, kernel): the sweep first (up to I4_SWEEP_Q_MAX = 4
+# queries), then its narrow kind (the widths and bases the sweep cannot
+# read), then the tensor-core scan (also where the sweep's query block
+# overflows), then at 128 < k the wide kind; the template serves none of
+# these (tests/test_torch_i4_narrow.py: only past 64M rows)
 DISPATCH = [(1, 1024, 14, 0, "sweep"), (4, 96, 128, 0, "sweep"),
-            (4, 16384, 14, 0, "sweep"), (4, 16416, 14, 0, "template"),
-            (5, 1024, 1024, 0, "template"), (1, 80, 14, 0, "template"),
+            (4, 16384, 14, 0, "sweep"), (4, 16416, 14, 0, "wgmma"),
+            (5, 1024, 1024, 0, "wide"), (1, 80, 14, 0, "narrow"),
             (5, 1024, 14, 0, "wgmma"), (16, 1024, 14, 0, "wgmma"),
             (17, 1024, 14, 0, "wgmma"), (2048, 1024, 128, 0, "wgmma"),
-            (16, 96, 14, 0, "template"), (256, 1024, 129, 0, "template"),
-            (130, 1024, 14, 8, "template"), (4, 1024, 14, 8, "template"),
-            (1, 1024, 526, 0, "template"), (5, 96, 1024, 0, "template"),
-            (64, 1024, 526, 8, "template"), (64, 64, 526, 0, "template")]
+            (16, 96, 14, 0, "wgmma"), (256, 1024, 129, 0, "wide"),
+            (130, 1024, 14, 8, "wgmma"), (4, 1024, 14, 8, "narrow"),
+            (1, 1024, 526, 0, "wide"), (5, 96, 1024, 0, "wide"),
+            (64, 1024, 526, 8, "wide"), (64, 64, 526, 0, "wide")]
 
 
 @pytest.mark.parametrize("nq,dim,k,offset,kernel", DISPATCH)
@@ -451,24 +468,24 @@ def test_k6_dispatch_order(recorded, nq, dim, k, offset, kernel):
     vals, idx = tscan.fused_topk_i4(*map(_as_cuda, (q, v, vs, mask)), k)
     assert vals.shape == idx.shape == (nq, k)
     (entry, args), = recorded
-    if kernel == "template" and tscan.i4_wide_ready(q, v, k):
-        kernel = "wide"
     assert entry == {"sweep": "pv_sweep_topk_i4",
+                     "narrow": "pv_sweep_topk_i4_narrow",
                      "wgmma": "pv_scan_topk_i4_wgmma",
-                     "wide": "pv_scan_topk_i4_wide",
-                     "template": "pv_scan_topk"}[kernel]
-    if kernel == "sweep":
+                     "wide": "pv_scan_topk_i4_wide"}[kernel]
+    piece = tscan.rows_piece(v)
+    if kernel in ("sweep", "narrow"):
         chunk, _ = tscan.sweep_partition(256, 132)
         assert args[:2] == (q.data_ptr(), v.data_ptr())
         assert args[7:] == (nq, 256, dim, k, chunk)
-    elif kernel in ("wgmma", "wide"):  # the permuted queries, the rows
-        assert args[0] != q.data_ptr() and args[1] == v.data_ptr()
-        assert args[7:11] == (nq, 256, dim, k)
-    else:
-        assert args[0] == tscan._KIND_I4
+    else:  # the rows' producer, the permuted queries, the rows
+        assert args[0] == piece and args[1] != q.data_ptr()
+        assert args[2] == v.data_ptr()
+        assert args[8:12] == (nq, 256, dim, k)
     assert tscan.LAUNCHES["scan_topk_i4"] == before["scan_topk_i4"] + 1
-    for key in ("sweep", "wgmma", "wide"):
+    for key in ("sweep", "narrow", "wgmma", "wide"):
         name = f"scan_topk_i4_{key}"
+        if key in ("wgmma", "wide"):
+            name += tscan._PIECE_KEY[piece]
         assert tscan.LAUNCHES[name] == before[name] + (kernel == key), name
 
 

@@ -15,9 +15,10 @@ CPU.
   candidates' CAP holds.
 * `i4_wide_ready` at its edges, and K6's dispatch recorded by a stand-in
   for `scan._launch` on CPU tensors posing as CUDA ones against
-  `_build._SIGNATURES`: the sweep, the tensor-core scan, the wide kind,
-  then the template; its scratch and query tile; k past SCAN_KSEL_MAX on
-  the plain dense scan. On the CPU the new counter stays 0.
+  `_build._SIGNATURES`: the sweep, the tensor-core scan, the wide kind at
+  every even width and base (the rows' producer first); its scratch and
+  query tile; k past SCAN_KSEL_MAX on the plain dense scan. On the CPU the
+  new counter stays 0.
 * The port (its plain version on the CPU, which the CUDA tests hold the
   kernel to) against the JAX package's `fused_topk_i4` in interpret mode
   at k_sel 526 and Q 1 / 17 on a small store whose scores are distinct
@@ -151,21 +152,20 @@ def _operands(nq, dim, offset=0, rows=256):
 
 
 def test_i4_wide_ready_edges(monkeypatch):
-    """128 < k <= SCAN_KSEL_MAX, dim % 128 == 0, 16-byte aligned bases, one
-    query's slab within TOPK_WIDE_SLAB_BYTES; any Q."""
+    """128 < k <= SCAN_KSEL_MAX and one query's slab within
+    TOPK_WIDE_SLAB_BYTES, at any even width and base; any Q."""
     for nq in (1, 4, 5, 64, 2048):
         q, v = _operands(nq, 1024)
         assert not tscan.i4_wide_ready(q, v, 128)
         assert tscan.i4_wide_ready(q, v, 129)
         assert tscan.i4_wide_ready(q, v, 1024)
         assert not tscan.i4_wide_ready(q, v, 1025)
-    for dim, ok in ((128, True), (256, True), (64, False), (192, False),
-                    (96, False)):
-        assert tscan.i4_wide_ready(*_operands(8, dim), 526) == ok, dim
-    assert not tscan.i4_wide_ready(*_operands(8, 1024, offset=8), 526)
+    for dim in (128, 256, 64, 192, 96, 100, 2):
+        assert tscan.i4_wide_ready(*_operands(8, dim), 526), dim
+    assert tscan.i4_wide_ready(*_operands(8, 1024, offset=8), 526)
+    assert tscan.i4_wide_ready(*_operands(8, 100, offset=2), 526)
     qq = torch.zeros(8 * 1024 + 16, dtype=torch.int8)[4:4 + 8 * 1024]
-    assert not tscan.i4_wide_ready(qq.view(8, 1024), _operands(8, 1024)[1],
-                                   526)
+    assert tscan.i4_wide_ready(qq.view(8, 1024), _operands(8, 1024)[1], 526)
     q, v = _operands(8, 1024, rows=300)  # ld 384 rows
     monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4 * 384)
     assert tscan.i4_wide_ready(q, v, 526)
@@ -202,12 +202,12 @@ def recorded(monkeypatch):
 
 
 # (Q, dim, k, offset, kernel): the sweep, the tensor-core scan, the wide
-# kind, the template
+# kind (at every even width and base: the template keeps none of these)
 DISPATCH = [(1, 1024, 14, 0, "sweep"), (64, 1024, 128, 0, "wgmma"),
             (1, 1024, 129, 0, "wide"), (1, 1024, 526, 0, "wide"),
             (64, 1024, 526, 0, "wide"), (128, 1024, 526, 0, "wide"),
-            (2048, 256, 1024, 0, "wide"), (64, 64, 526, 0, "template"),
-            (64, 1024, 526, 8, "template"), (4, 192, 526, 0, "template")]
+            (2048, 256, 1024, 0, "wide"), (64, 64, 526, 0, "wide"),
+            (64, 1024, 526, 8, "wide"), (4, 192, 526, 0, "wide")]
 
 
 @pytest.mark.parametrize("nq,dim,k,offset,kernel", DISPATCH)
@@ -221,17 +221,20 @@ def test_k6_dispatch_with_the_wide_kind(recorded, nq, dim, k, offset, kernel):
     (entry, args), = recorded
     assert entry == {"sweep": "pv_sweep_topk_i4",
                      "wgmma": "pv_scan_topk_i4_wgmma",
-                     "wide": "pv_scan_topk_i4_wide",
-                     "template": "pv_scan_topk"}[kernel]
+                     "wide": "pv_scan_topk_i4_wide"}[kernel]
+    piece = tscan.rows_piece(v)
     if kernel == "wide":
         q_tile = tscan.topk_wide_tile(nq, 256)
-        assert args[0] != q.data_ptr()  # the permuted queries
-        assert args[1:4] == (v.data_ptr(), vs.data_ptr(), mask.data_ptr())
-        assert args[7:] == (nq, 256, dim, k, q_tile,
+        # the rows' producer, the permuted queries
+        assert args[0] == piece and args[1] != q.data_ptr()
+        assert args[2:5] == (v.data_ptr(), vs.data_ptr(), mask.data_ptr())
+        assert args[8:] == (nq, 256, dim, k, q_tile,
                             tscan.i4_wide_scratch(256, q_tile))
     assert tscan.LAUNCHES["scan_topk_i4"] == before["scan_topk_i4"] + 1
     for key in ("sweep", "wgmma", "wide"):
         name = f"scan_topk_i4_{key}"
+        if key != "sweep":
+            name += tscan._PIECE_KEY[piece]
         assert tscan.LAUNCHES[name] == before[name] + (kernel == key), name
 
 
@@ -244,8 +247,8 @@ def test_wide_copies_a_misaligned_mask_and_k_past_the_bound(recorded):
     mask = torch.ones(260, dtype=torch.bool)[1:257]
     tscan.fused_topk_i4(*map(_as_cuda, (q, v, vs, mask)), 526)
     (entry, args), = recorded
-    assert entry == "pv_scan_topk_i4_wide" and args[3] % 4 == 0
-    assert args[3] != mask.data_ptr()
+    assert entry == "pv_scan_topk_i4_wide" and args[4] % 4 == 0
+    assert args[4] != mask.data_ptr()
     before = tscan.WIDE_K_FALLBACKS["scan_topk_i4"]
     vals, _ = tscan.fused_topk_i4(q, v, vs, mask, 1025)
     assert vals.shape[0] == 16 and len(recorded) == 1
