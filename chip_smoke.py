@@ -9,7 +9,13 @@ paths through the public `PicoVectorDB` API and checks what comes back:
 a 1M x 1024 float32 store (phase 3), a 131,072 x 1020 float32 store whose
 rows TMA cannot read, served by K1's mainloop fed by cp.async, and a
 131,072 x 1019 one (odd width) served by K1's mainloop fed by its
-realigning producer (phase 3b), a 1M x 1024 int8
+realigning producer (phase 3b), 1,183,514-row stores at glove-100 /
+glove-25's widths (phase 3c, its own generator: float32 and int8 storage
+over rows TMA cannot read, K3's and K4's kinds, and a 2048-query batch a
+width through K5's and K10's int8 mainloop fed by cp.async at dim 100 and
+by the realigning producer at 25, on the int8 store and under
+PICOVDB_SEGMAX_I8 / PICOVDB_SEGMAX_I8C, no launch of the mma.sync tile;
+`--i8-narrow` runs that part alone after the build), a 1M x 1024 int8
 store with the host-f64 rescore and a quantized checkpoint (phase 4, its
 Q = 64 batches on K3's tensor-core scan), a device-born
 16M x 1024 int4 store (phase 5, an 8 GB packed plane), int4 stores at
@@ -405,6 +411,23 @@ KERNELS = {
     "fused_topk_i4_wide_realign": ("scan_topk_i4_wide_realign",
                                    "picovdb_tpu_torch/csrc/topk_i4_wide.cu",
                                    "picovdb_tpu/ops/pallas_scan.py:1315", "5b"),
+    # K5's and K10's kinds over int8 rows TMA cannot read: phase 3c's
+    # 2048-query batches drive them through the public API (the int8
+    # mainloop fed by cp.async at dim 100, by the realigning producer at
+    # 25: K5 on the int8 stores and under PICOVDB_SEGMAX_I8, K10 under
+    # PICOVDB_SEGMAX_I8C)
+    "segmax_scan_i8_cpasync": ("segmax_i8_cpasync",
+                               "picovdb_tpu_torch/csrc/segmax.cu",
+                               "picovdb_tpu/ops/pallas_scan.py:960", "3c"),
+    "segmax_scan_i8_realign": ("segmax_i8_realign",
+                               "picovdb_tpu_torch/csrc/segmax.cu",
+                               "picovdb_tpu/ops/pallas_scan.py:960", "3c"),
+    "segmax_scan_i8c_cpasync": ("segmax_i8c_cpasync",
+                                "picovdb_tpu_torch/csrc/segmax.cu",
+                                "picovdb_tpu/ops/pallas_scan.py:1528", "3c"),
+    "segmax_scan_i8c_realign": ("segmax_i8c_realign",
+                                "picovdb_tpu_torch/csrc/segmax.cu",
+                                "picovdb_tpu/ops/pallas_scan.py:1528", "3c"),
 }
 # Every K4 / K3 kind's launch key: a path's template launches are its
 # "scan_topk" / "scan_topk_i8" launches less these
@@ -419,6 +442,10 @@ K6_KIND_KEYS = ("scan_topk_i4_sweep", "scan_topk_i4_narrow",
                 "scan_topk_i4_wgmma", "scan_topk_i4_wgmma_cpasync",
                 "scan_topk_i4_wgmma_realign", "scan_topk_i4_wide",
                 "scan_topk_i4_wide_cpasync", "scan_topk_i4_wide_realign")
+# The entry points of K5's and K10's first kernels (the mma.sync tile),
+# which serve no dispatch: timed beside the kinds that replaced them
+TILE_I8 = "pv_segmax_scan_i8"
+TILE_I8C = "pv_segmax_scan_i8c"
 # Phase 3c: two float32 stores at ann-benchmarks' glove-100-angular and
 # glove-25-angular shapes (1,183,514 rows x 100 / 25; the vectors are
 # seeded normal rows, not GloVe's), and an int8-storage store of the same
@@ -1307,7 +1334,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     keys = scan.segmax_scan_i8(q8, v8, vs, mask)
     assert scan.LAUNCHES["segmax_i8_wgmma"] == before + 1, "K5 missed wgmma"
     keys_p = scan.segmax_scan_i8_plain(q8, v8, vs, mask)
-    keys_t = scan._segmax_i8_launch(q8, v8, vs, mask, False)
+    keys_t = scan._segmax_i8_launch(q8, v8, vs, mask, TILE_I8)
     torch.cuda.synchronize()
     assert torch.equal(keys, keys_p), "segmax_scan_i8 keys differ"
     assert torch.equal(keys_t, keys_p), "K5's mma.sync tile keys differ"
@@ -1330,7 +1357,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         nq * dim + live * (dim + 4) + cap + slab, 2 * nq * live * dim, "int8",
         cuda_ms(torch, lambda: torch._int_mm(q8, v8.T)), LIB_INT_MM)
     tile5_ms = cuda_ms(torch, lambda: scan._segmax_i8_launch(q8, v8, vs, mask,
-                                                             False))
+                                                             TILE_I8))
     del keys, keys_p, keys_t
     k5 = rec["segmax_scan_i8"]
     log(f"phase 2: K5 segmax_scan_i8 (int8 TMA + wgmma) keys = plain bit for "
@@ -1349,7 +1376,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     keys = scan.segmax_scan_i8c(q8c, v8c, mask)
     assert scan.LAUNCHES["segmax_i8c_wgmma"] == before + 1, "K10 missed wgmma"
     keys_p = scan.segmax_scan_i8c_plain(q8c, v8c, mask)
-    keys_t = scan._segmax_i8c_launch(q8c, v8c, mask, False)
+    keys_t = scan._segmax_i8c_launch(q8c, v8c, mask, TILE_I8C)
     torch.cuda.synchronize()
     assert torch.equal(keys, keys_p), "segmax_scan_i8c keys differ"
     assert torch.equal(keys_t, keys_p), "K10's mma.sync tile keys differ"
@@ -1362,7 +1389,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         nq * dim + live * dim + cap + slab, 2 * nq * live * dim, "int8",
         cuda_ms(torch, lambda: torch._int_mm(q8c, v8c.T)), LIB_INT_MM)
     tile_ms = cuda_ms(torch, lambda: scan._segmax_i8c_launch(q8c, v8c, mask,
-                                                             False))
+                                                             TILE_I8C))
     del keys, keys_p, keys_t
     k10 = rec["segmax_scan_i8c"]
     log(f"phase 2: K10 segmax_scan_i8c (int8 TMA + wgmma) keys = plain bit "
@@ -2589,7 +2616,8 @@ def narrow_rec(rec, name: str, label: str, record: dict) -> None:
     shapes[label] = {k: record[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms", "template_ms",
-                                            "tma_ms") if k in record}
+                                            "tile_ms", "tma_ms")
+                      if k in record}
     rec[name] = {**record, "max_abs_err": max(record["max_abs_err"],
                                               old.get("max_abs_err", 0.0)),
                  "shapes": shapes}
@@ -2875,6 +2903,281 @@ def int8_narrow_store(torch, scan, device, corpus, qdev, rec, label: str):
                     f"0; " + "; ".join(parts))
 
 
+# Phase 3c's K5 / K10 batches: 2048 queries a dimension from a generator of
+# their own (rows + noise, as phase 3c makes them), served by an int8
+# store and by float32 stores under the opt-in tiers (env; K5's or K10's
+# launch family, which is also the route's name; the plane its route reads)
+I8_NARROW_Q = 2048
+SEED_I8_NARROW = SEED + 33
+I8_NARROW_TIERS = (({"PICOVDB_SEGMAX_I8": "1"}, "segmax_i8", "vectors_i8"),
+                   ({"PICOVDB_SEGMAX_I8C": "1"}, "segmax_i8c", "vectors_i8c"))
+# 131,072-row planes made on the card (dim, byte offset of the rows' base):
+# cp.async in 8-byte pieces at dim 200, a 1-byte aligned view at 100, and
+# the realigning producer over eight k-stages at dim 1019
+I8_NARROW_PLANES = ((200, 0), (100, 1), (1019, 0))
+
+
+def segmax_plain_sliced(torch, scan, family: str):
+    """K5's (family "segmax_i8": q, v, vscale, mask) or K10's ("segmax_i8c":
+    q, v, mask) plain version over 131,072-row slices of the plane, joined:
+    keys are per 128-row segment, so the slab is the whole plane's."""
+    plain = (scan.segmax_scan_i8_plain if family == "segmax_i8"
+             else scan.segmax_scan_i8c_plain)
+
+    def run(q, v, *rest):
+        step = 131_072
+        return torch.cat([plain(q, v[s:s + step], *(a[s:s + step]
+                                                    for a in rest))
+                          for s in range(0, v.shape[0], step)], dim=1)
+    return run
+
+
+@contextlib.contextmanager
+def plain_segmax(torch, scan):
+    """K5's, K10's and K2's plain versions in the batch routes' place (K5
+    and K10 over 131,072-row slices); nothing is launched or counted."""
+    real = (scan.segmax_scan_i8, scan.segmax_scan_i8c, scan.topk_packed_keys)
+    scan.segmax_scan_i8 = segmax_plain_sliced(torch, scan, "segmax_i8")
+    scan.segmax_scan_i8c = segmax_plain_sliced(torch, scan, "segmax_i8c")
+    scan.topk_packed_keys = scan.topk_packed_keys_plain
+    try:
+        yield
+    finally:
+        (scan.segmax_scan_i8, scan.segmax_scan_i8c,
+         scan.topk_packed_keys) = real
+
+
+def i8_segmax_hold(torch, scan, family: str, q8, v8, vs, act, rec,
+                   label: str) -> str:
+    """K5 (family "segmax_i8", row scales `vs`) or K10 ("segmax_i8c") at a
+    batch's shape on a plane (uncounted): the kind its ready rules name,
+    bit for bit its plain version (over 131,072-row slices), the mma.sync
+    tile it replaced and the TMA kind over the rows and queries padded to
+    whole 16 bytes; timed (`timed_ms`) beside them, torch._int_mm on the
+    operands zero-padded to 8 columns (the product alone) and the plain
+    version, with its bound; recorded in `rec` under the kernels line's
+    name of the kind. Returns its line."""
+    k5 = family == "segmax_i8"
+    kind = scan._i8_producer(q8, v8)
+    nq, dim = q8.shape
+    cap, live = act.shape[0], int(act.sum())
+    extra = (vs,) if k5 else ()
+    launch = scan._segmax_i8_launch if k5 else scan._segmax_i8c_launch
+    tile = TILE_I8 if k5 else TILE_I8C
+    plain = segmax_plain_sliced(torch, scan, family)
+
+    def run(q, v, entry_point):
+        return launch(q, v, *extra, act, entry_point)
+
+    qp, vp = scan._pad_cols(q8, 16), scan._pad_cols(v8, 16)
+    keys = run(q8, v8, tile + kind)
+    ref = plain(q8, v8, *extra, act)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, ref), f"{family}{kind} differs from plain ({label})"
+    del ref
+    for what, out in (("the mma.sync tile", run(q8, v8, tile)),
+                      ("the TMA kind over padded rows",
+                       run(qp, vp, tile + "_wgmma"))):
+        torch.cuda.synchronize()
+        assert torch.equal(out, keys), f"{family}: {what} differs ({label})"
+        del out
+    del keys
+    ms = timed_ms(torch, lambda: run(q8, v8, tile + kind), 10)
+    tile_ms = timed_ms(torch, lambda: run(q8, v8, tile), 10)
+    tma_ms = timed_ms(torch, lambda: run(qp, vp, tile + "_wgmma"), 10)
+    del qp, vp
+    ql, vl = scan._pad_cols(q8, 8), scan._pad_cols(v8, 8)
+    lib = timed_ms(torch, lambda: torch._int_mm(ql, vl.T), 5)
+    del ql, vl
+    plain_ms = timed_ms(torch, lambda: plain(q8, v8, *extra, act), 3)
+    slab = nq * 2 * (cap // scan.SEG) * 4
+    r = entry(0.0, ms, plain_ms, nq * dim + live * (dim + 4 * k5) + cap
+              + slab, 2 * nq * live * dim, "int8", lib, LIB_INT_MM)
+    r["tile_ms"], r["tma_ms"] = tile_ms, tma_ms
+    name = ("segmax_scan_i8" if k5 else "segmax_scan_i8c") + kind
+    narrow_rec(rec, name, label, r)
+    return (f"{name} Q={nq} on {label} = plain bit for bit: {ms:.4f} ms, "
+            f"the mma.sync tile {tile_ms:.4f} ({tile_ms / ms:.2f}x), TMA "
+            f"over padded rows {tma_ms:.4f}, torch._int_mm {lib:.4f}, plain "
+            f"{plain_ms:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']})")
+
+
+def i8_narrow_planes(torch, scan, device, rec) -> str:
+    """K5's and K10's kinds on 131,072-row int8 planes made on the card
+    (I8_NARROW_PLANES: rows uniform in -127..127, scales in [0.5, 1.5),
+    about 10 % masked; 2048 queries), each through `i8_segmax_hold`."""
+    g = torch.Generator(device=device).manual_seed(SEED_I8_NARROW)
+    cap, parts = 131_072, []
+    for dim, off in I8_NARROW_PLANES:
+        flat = torch.empty(cap * dim + 16, dtype=torch.int8, device=device)
+        v8 = flat[off:off + cap * dim].view(cap, dim)
+        v8.copy_(torch.randint(-127, 128, (cap, dim), generator=g,
+                               device=device, dtype=torch.int8))
+        vs = torch.rand(cap, generator=g, device=device) + 0.5
+        act = torch.rand(cap, generator=g, device=device) > 0.1
+        q8 = torch.randint(-127, 128, (I8_NARROW_Q, dim), generator=g,
+                           device=device, dtype=torch.int8)
+        for family in ("segmax_i8", "segmax_i8c"):
+            parts.append(i8_segmax_hold(
+                torch, scan, family, q8, v8, vs, act, rec,
+                f"3c plane {cap} x {dim}" + (f" off {off}" if off else "")))
+        del flat, v8, vs, act, q8
+        torch.cuda.empty_cache()
+    return "; ".join(parts)
+
+
+def i8_segmax_batches(torch, scan, device, corpus, queries, rec,
+                      label: str):
+    """Phase 3c's 2048-query batch of `queries` (host float32) over the
+    unit rows `corpus`, through the public API: an int8-storage store's
+    `query_columnar` (segmax_i8stor[_stream]: K5 + K2 + the dequantizing
+    rescore), then float32 stores under PICOVDB_SEGMAX_I8=1 (K5) and
+    PICOVDB_SEGMAX_I8C=1 (K10), each env saved and restored. Launches are
+    counted from 0 around each call: K5's / K10's kind is the one its
+    ready rules name on the plane the route read, and the mma.sync tile is
+    launched 0 times. The int8 store's ids = its route composed of plain
+    versions outside TOL_GAP (recall@10 against the float rows printed);
+    the float32 stores' recall@10 >= 0.99 against the float64 oracle.
+    Then (uncounted) each kind on each store's plane (`i8_segmax_hold`).
+    Returns (launches of the three calls, summed; line)."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    n, dim = corpus.shape
+    ids = [f"a{i}" for i in range(n)]
+    qdev = torch.from_numpy(queries).to(device)
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    live = torch.ones(n, dtype=torch.bool, device=device)
+    truth = oracle_top10(torch, corpus_dev, qdev, live)
+    del corpus_dev
+    total, parts, holds = {}, [], []
+    tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+
+    def served(db, route: str, family: str, plane: str):
+        scan.reset_launch_counts()
+        got, _ = db.query_columnar(qdev, top_k=10, batch_size=I8_NARROW_Q)
+        torch.cuda.synchronize()
+        strategy = db.last_query_debug()["strategy"]
+        counts = launch_counts(scan)
+        assert strategy in (route, route + "_stream"), (label, strategy)
+        # the plane the route read (K10's mirror is built at its dispatch)
+        kind = scan._i8_producer(scan.quantize_rows_i8(qdev[:1])[0],
+                                 getattr(db._dev, plane))
+        assert kind != "_wgmma", (label, "rows TMA reads")
+        kinds = {k: counts[family + k] for k in ("_wgmma", "_cpasync",
+                                                 "_realign")}
+        assert kinds[kind] == counts[family] > 0, (label, family, counts)
+        assert counts[family] - sum(kinds.values()) == 0, "a tile launch"
+        for k, v in counts.items():
+            if k != "shapes":
+                total[k] = total.get(k, 0) + v
+        return got, strategy, kind
+
+    # the int8 store: its route against the same route on plain versions
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(tmp, "i8"),
+                      storage_dtype="int8")
+    db.upsert_columnar(corpus, ids=ids)
+    db.rebuild_index()
+    dev = db._dev
+    got, strategy, kind = served(db, "segmax_i8stor", "segmax_i8",
+                                 "vectors")
+    with plain_segmax(torch, scan):
+        pids, pvals = db.query_columnar(qdev, top_k=11,
+                                        batch_size=I8_NARROW_Q)
+    rows = np.array([[int(x[1:]) if x is not None else -1 for x in r]
+                     for r in pids])
+    off = ids_off_oracle(got, "a", pvals.astype(np.float64), rows)
+    assert off == 0, (label, "int8 store's ids off its plain route", off)
+    recall = recall_at_10(got, truth, "a")
+    parts.append(f"int8 store {strategy} (K5{kind}): ids = its route on "
+                 f"plain versions outside the gap, recall@10 {recall:.4f} "
+                 f"vs float64 over the float rows")
+    q8, _ = scan.quantize_rows_i8(normalize_on_device(qdev))
+    holds.append(i8_segmax_hold(torch, scan, "segmax_i8", q8, dev.vectors,
+                                dev.vstore_scale, dev.active, rec,
+                                f"{label} int8 store"))
+    del db, dev, q8
+    torch.cuda.empty_cache()
+    # the float32 stores under the opt-in tiers
+    for envs, family, plane in I8_NARROW_TIERS:
+        saved = {e: os.environ.get(e) for e in envs}
+        os.environ.update(envs)
+        try:
+            db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                              storage_file=os.path.join(tmp, family))
+            db.upsert_columnar(corpus, ids=ids)
+            db.rebuild_index()
+            got, strategy, kind = served(db, family, family, plane)
+            dev = db._dev
+        finally:
+            for e, v in saved.items():
+                if v is None:
+                    os.environ.pop(e, None)
+                else:
+                    os.environ[e] = v
+        recall = recall_at_10(got, truth, "a")
+        assert recall >= 0.99, (label, strategy, recall)
+        parts.append(f"float32 store under {next(iter(envs))}=1: {strategy} "
+                     f"(K{5 if family == 'segmax_i8' else 10}{kind}) "
+                     f"recall@10 {recall:.4f} vs float64")
+        qn = normalize_on_device(qdev)
+        q8 = (scan.quantize_rows_i8(qn)[0] if family == "segmax_i8"
+              else scan.fold_queries_i8(qn, dev.cscale))
+        holds.append(i8_segmax_hold(
+            torch, scan, family, q8, getattr(dev, plane), dev.vscale,
+            dev.active, rec, f"{label} float32 store's mirror"))
+        del db, dev, q8, qn
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp)
+    return total, ("2048-query batch (its own generator): " + "; ".join(parts)
+                   + "; mma.sync tile launches 0; on the planes: "
+                   + "; ".join(holds))
+
+
+def ann_rows(g, n: int, dim: int):
+    """Phase 3c's draws for one dimension from its generator: the rows,
+    64 queries (rows + noise) and the 3,000 ids of its id filter."""
+    corpus = g.standard_normal((n, dim), dtype=np.float32)
+    near = corpus[g.integers(0, n, 64)]
+    queries = near + 0.01 * g.standard_normal(near.shape, dtype=np.float32)
+    allow = np.sort(g.choice(n, 3000, replace=False))
+    return corpus, queries, allow
+
+
+def i8_narrow_queries(g, corpus):
+    """I8_NARROW_Q queries over the unit rows `corpus`: rows + noise."""
+    near = corpus[g.integers(0, corpus.shape[0], I8_NARROW_Q)]
+    return near + 0.01 * g.standard_normal(near.shape, dtype=np.float32)
+
+
+def phase_i8_narrow(torch, scan, device, rec, n: int = ANN_N,
+                    dims=ANN_DIMS) -> dict:
+    """Phase 3c's K5 / K10 part alone (`--i8-narrow`): the planes
+    (`i8_narrow_planes`), then per dimension phase 3c's rows (the same
+    draws, normalized on the host) and their 2048-query batch
+    (`i8_segmax_batches`). Returns the launches, summed."""
+    log(f"phase 3c: K5 / K10 on 131,072-row planes: "
+        f"{i8_narrow_planes(torch, scan, device, rec)}")
+    g = np.random.default_rng(SEED + 31)
+    g33 = np.random.default_rng(SEED_I8_NARROW)
+    total = {}
+    for dim in dims:
+        t0 = time.perf_counter()
+        corpus = ann_rows(g, n, dim)[0]
+        corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+        counts, line = i8_segmax_batches(torch, scan, device, corpus,
+                                         i8_narrow_queries(g33, corpus), rec,
+                                         f"3c dim {dim}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        log(f"phase 3c: dim {dim}: {line}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        del corpus
+        torch.cuda.empty_cache()
+    return total
+
+
 def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
                      dims=ANN_DIMS) -> dict:
     """Phase 3c: at ann-benchmarks' widths and scale, for each of `dims` a
@@ -2884,20 +3187,22 @@ def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
     (`narrow_serve`), its kinds held and timed on its mirrors
     (`narrow_holds`), Q = 1 latency and the id-filtered batch's ms (CUDA
     events around PicoVectorDB.query), then an int8-storage store of the
-    same rows (`int8_narrow_store`). Returns the launches of every path,
+    same rows (`int8_narrow_store`), and a 2048-query batch (its own
+    generator, SEED + 33) through K5's and K10's kinds over rows TMA
+    cannot read (`i8_segmax_batches`), after those kinds on 131,072-row
+    planes (`i8_narrow_planes`). Returns the launches of every path,
     summed."""
     from picovdb_tpu_torch import PicoVectorDB
 
+    log(f"phase 3c: K5 / K10 on 131,072-row planes: "
+        f"{i8_narrow_planes(torch, scan, device, rec)}")
     g = np.random.default_rng(SEED + 31)
+    g33 = np.random.default_rng(SEED_I8_NARROW)
     total = {}
     for dim in dims:
         t0 = time.perf_counter()
-        corpus = g.standard_normal((n, dim), dtype=np.float32)
-        near = corpus[g.integers(0, n, 64)]
-        qdev = torch.from_numpy(
-            near + 0.01 * g.standard_normal(near.shape, dtype=np.float32)
-        ).to(device)
-        allow = np.sort(g.choice(n, 3000, replace=False))
+        corpus, queries, allow = ann_rows(g, n, dim)
+        qdev = torch.from_numpy(queries).to(device)
         tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
         db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
                           storage_file=os.path.join(tmp, "f32"))
@@ -2926,14 +3231,19 @@ def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
         i8_counts, i8_line = int8_narrow_store(torch, scan, device, corpus,
                                                qdev, rec, f"3c dim {dim}")
         torch.cuda.empty_cache()
-        for c in (counts, i8_counts):
+        k5_counts, k5_line = i8_segmax_batches(
+            torch, scan, device, corpus, i8_narrow_queries(g33, corpus), rec,
+            f"3c dim {dim}")
+        torch.cuda.empty_cache()
+        for c in (counts, i8_counts, k5_counts):
             for k, v in c.items():
                 if k != "shapes":
                     total[k] = total.get(k, 0) + v
         log(f"phase 3c: {line}; Q=1 latency {q1_ms:.4f} ms, the 64-query "
             f"id-filtered batch {filt_ms:.3f} ms (CUDA events around "
             f"PicoVectorDB.query); on the store's mirrors: {holds}; "
-            f"{i8_line}; {time.perf_counter() - t0:.1f} s")
+            f"{i8_line}; K5 / K10: {k5_line}; "
+            f"{time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -3233,7 +3543,7 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
         ref = scan.segmax_scan_i8_plain(q8_2048, *(a[s:s + step] for a in args))
         got = keys[:, 2 * s // scan.SEG:][:, :ref.shape[1]]
         assert torch.equal(got, ref), f"K5 keys differ in rows {s}.."
-    assert torch.equal(scan._segmax_i8_launch(q8_2048, *args, False), keys), \
+    assert torch.equal(scan._segmax_i8_launch(q8_2048, *args, TILE_I8), keys), \
         "K5's mma.sync tile differs on the store's plane"
     # K2 after a K5 chunk (segmax_i8stor: k_sel 16) on that chunk's slab
     k2_line = k2_timed(torch, scan, keys, 16)
@@ -3247,7 +3557,7 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
         k5.append(
             f"Q={nq} {cuda_ms(torch, lambda: scan.segmax_scan_i8(q8n, *args)):.4f}"
             f" ms (the mma.sync tile "
-            f"{cuda_ms(torch, lambda: scan._segmax_i8_launch(q8n, *args, False)):.4f}"
+            f"{cuda_ms(torch, lambda: scan._segmax_i8_launch(q8n, *args, TILE_I8)):.4f}"
             f", bound {bound:.4f})")
     log(f"phase 4: K3 fused_topk_i8 = plain bit for bit on the store's "
         f"{cap4}-row plane (the kernel the dispatch chose, then each "
@@ -5069,10 +5379,10 @@ def check_i8c_on_store(torch, scan, dev, qdev, new, rec) -> str:
         assert torch.equal(got, ref), f"K10 keys differ in rows {s}.."
         err10 = max(err10, exact_err(torch, got, ref))
     # the mma.sync tile K10 ran before, on the same chunk (uncounted)
-    assert torch.equal(scan._segmax_i8c_launch(qq, v8c, act, False), keys)
+    assert torch.equal(scan._segmax_i8c_launch(qq, v8c, act, TILE_I8C), keys)
     del keys
     tile_ms = cuda_ms(torch, lambda: scan._segmax_i8c_launch(qq, v8c, act,
-                                                             False))
+                                                             TILE_I8C))
     # K10 at the 1,000-upsert check's Q = 1000 (one chunk)
     q1000 = scan.fold_queries_i8(normalize_on_device(
         torch.from_numpy(new).to(qq.device)), dev.cscale)
@@ -7608,6 +7918,7 @@ def main() -> int:
     narrow_only = sys.argv[1:] == ["--narrow-cross"]
     ivf_ann_only = sys.argv[1:] == ["--ivf-ann"]
     int4_ann_only = sys.argv[1:] == ["--int4-ann"]
+    i8_narrow_only = sys.argv[1:] == ["--i8-narrow"]
     narrow_ab_only = sys.argv[1:] == ["--narrow-ab"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
@@ -7649,6 +7960,15 @@ def main() -> int:
         log("phase 5b: the TMA kinds' partial last stage " + json.dumps(
             {name: rec[name]["partial_stage"] for name in (
                 "fused_topk_i4_wgmma", "fused_topk_i4_wide")}))
+        print(card)
+        return 0
+    if i8_narrow_only:  # phase 3c's K5 / K10 batches and planes alone
+        rec = {}
+        counts = phase_i8_narrow(torch, scan, device, rec)
+        log("phase 3c: kernels " + json.dumps(
+            {name: {**rec[name], "launches": counts.get(key, 0)}
+             for name, (key, _, _, ph) in KERNELS.items()
+             if ph == "3c" and name.startswith("segmax_scan_i8")}))
         print(card)
         return 0
     if k3_only:  # phase 4's larger int8 planes alone

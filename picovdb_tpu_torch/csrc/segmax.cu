@@ -39,10 +39,12 @@
 // K5 segmax_scan_i8 and K10 segmax_scan_i8c (below) are K1 over a per-row
 // int8 corpus and over the column-scaled int8 mirror. Both run the int8
 // instantiation of the same mainloop, K10 with SegmaxTileEpi<int>, K5 with
-// SegmaxTileEpi<int, true> (the row scales); at widths TMA cannot read
-// they keep the mma.sync score tile. The wmma and
-// mma.sync score tiles live in tiles.cuh, shared with K8 and the dot-floor
-// probe P1, whose two kinds also run on wgmma_tiles.cuh.
+// SegmaxTileEpi<int, true> (the row scales), fed as K1's is: by TMA, by
+// cp.async at int8 widths and bases of whole 4 bytes, else by the
+// realigning producer with sixteen row classes (any byte). Their first
+// kernels, over the mma.sync tile, serve no dispatch. The wmma and
+// mma.sync score tiles live in tiles.cuh, shared with K8's first kernel
+// and the dot-floor probe P1, whose two kinds also run on wgmma_tiles.cuh.
 
 #include "tiles.cuh"
 #include "wgmma_tiles.cuh"
@@ -210,23 +212,23 @@ segmax_kernel(const __nv_bfloat16* __restrict__ q,
 // K5 segmax_scan_i8: K1 over a per-row int8 corpus.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:segmax_scan_i8
-// (`_segmax_kernel_i8`). The block shape, output layout and epilogue are
-// those of K1's wmma kernel; the product is s8 x s8 -> s32 on the tensor
-// cores with
-// mma.sync.m16n8k32 (fragments loaded by hand from shared memory: each
-// thread's A and B registers are 4 consecutive bytes of one row, so every
-// fragment register is one 32-bit shared load), and the epilogue scales
-// the exact int32 sums by the row scales before packing the keys.
+// (`_segmax_kernel_i8`). The epilogue scales the exact int32 sums by the
+// row scales before packing the keys.
 //
 // What bounds it on the H100: at the main-path shape (Q = 2048 per chunk,
 // 1024-wide rows) it is a 4.3 TOP integer product whose output is 2/128 of
 // the score matrix, bound by the tensor cores' int8 rate (1,979 TOP/s) as
-// K10 is. Where TMA can read the operands (dim % 16 == 0, 16-byte aligned
-// bases) it runs K10's int8 TMA + wgmma mainloop (wgmma_tiles.cuh) with
+// K10 is. It runs K10's int8 mainloop (wgmma_tiles.cuh) with
 // SegmaxTileEpi<int, true>, whose keys are the int32 sum converted to
-// float32 and times the row's scale, bit for bit this first kernel's
-// (pv_segmax_scan_i8_wgmma). Other widths keep this first kernel, which
-// feeds the tensor cores from unpipelined shared-memory tiles (tiles.cuh).
+// float32 and times the row's scale: by TMA where it can read the
+// operands (dim % 16 == 0, 16-byte aligned bases; pv_segmax_scan_i8_wgmma),
+// by cp.async at widths and bases of whole 4 bytes (glove-100's 100-byte
+// rows; pv_segmax_scan_i8_cpasync), else by the realigning producer
+// (glove-25's 25-byte rows, 1- and 2-byte aligned views;
+// pv_segmax_scan_i8_realign). The first kernel below (K1's block shape and
+// layout, s8 x s8 -> s32 with mma.sync.m16n8k32 from unpipelined
+// shared-memory tiles, tiles.cuh) serves no dispatch; it stays as
+// pv_segmax_scan_i8, timed beside the kinds that replaced it.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
@@ -260,12 +262,12 @@ segmax_i8_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ v,
 // What bounds it on the H100: at the main-path shape (Q = 2048 per chunk,
 // 1M x 1024 mirror) a 4.3 TOP int8 product whose output is 2/128 of the
 // score matrix: the tensor cores' int8 rate (1,979 TOP/s), twice K1's.
-// Where TMA can read the operands (dim % 16 == 0, 16-byte aligned bases)
-// it runs the int8 instantiation of K1's mainloop (wgmma_tiles.cuh,
+// It runs the int8 instantiation of K1's mainloop (wgmma_tiles.cuh,
 // wgmma.m64n256k32 s8 -> s32, exact sums) with K1's register epilogue
-// over the int32 accumulators, SegmaxTileEpi<int>
-// (pv_segmax_scan_i8c_wgmma). Other widths keep this first kernel: K5's
-// block over unpipelined shared-memory tiles, without the row scale.
+// over the int32 accumulators, SegmaxTileEpi<int>, fed by K5's producers
+// (pv_segmax_scan_i8c_wgmma / _cpasync / _realign). The first kernel below
+// (K5's over the mma.sync tile, without the row scale) serves no
+// dispatch; it stays as pv_segmax_scan_i8c, timed beside them.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(THREADS)
@@ -513,6 +515,34 @@ extern "C" int pv_segmax_scan_i8(const void* q, const void* v,
   return (int)cudaGetLastError();
 }
 
+namespace pv {
+namespace {
+
+// K5's (SCALED) or K10's launch on the int8 mainloop fed by `piece`: 0
+// TMA, -1 cp.async in 8-byte pieces where dim and both bases are
+// multiples of 8, else in 4-byte pieces, 2 the realigning producer.
+template <bool SCALED>
+int segmax_i8_tiles(int piece, const void* q, const void* v,
+                    const void* vscale, const void* mask, void* keys, int Q,
+                    long long cap, int dim, cudaStream_t s) {
+  if (cap % SEG) return (int)cudaErrorInvalidValue;
+  typedef SegmaxTileEpi<int, SCALED> Epi;
+  const Epi epi{static_cast<const uint8_t*>(mask), static_cast<int*>(keys),
+                (long)(2 * (cap / SEG)), static_cast<const float*>(vscale)};
+  if (piece < 0)
+    piece = ((uintptr_t)q | (uintptr_t)v | (uintptr_t)dim) % 8 ? 4 : 8;
+  switch (piece) {
+    case 0: return wg::launch_tiles<wg::Int8, Epi, 0>(q, v, epi, Q, cap, dim, s);
+    case 8: return wg::launch_tiles<wg::Int8, Epi, 8>(q, v, epi, Q, cap, dim, s);
+    case 4: return wg::launch_tiles<wg::Int8, Epi, 4>(q, v, epi, Q, cap, dim, s);
+    case 2: return wg::launch_tiles<wg::Int8, Epi, 2>(q, v, epi, Q, cap, dim, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace pv
+
 // K5 on the int8 TMA + wgmma mainloop: pv_segmax_scan_i8's contract, for
 // dim % 16 == 0 and 16-byte aligned q and v. Returns 0, a cudaError_t, or
 // minus the CUresult of a refused tensor-map encode.
@@ -520,14 +550,31 @@ extern "C" int pv_segmax_scan_i8_wgmma(const void* q, const void* v,
                                        const void* vscale, const void* mask,
                                        void* keys, int Q, long long cap,
                                        int dim, void* stream) {
-  using namespace pv;
-  if (cap % SEG) return (int)cudaErrorInvalidValue;
-  const SegmaxTileEpi<int, true> epi{static_cast<const uint8_t*>(mask),
-                                     static_cast<int*>(keys),
-                                     (long)(2 * (cap / SEG)),
-                                     static_cast<const float*>(vscale)};
-  return wg::launch_tiles<wg::Int8>(q, v, epi, Q, cap, dim,
-                                    (cudaStream_t)stream);
+  return pv::segmax_i8_tiles<true>(0, q, v, vscale, mask, keys, Q, cap, dim,
+                                   (cudaStream_t)stream);
+}
+
+// K5 on the same mainloop fed by cp.async, at int8 widths TMA cannot read:
+// pv_segmax_scan_i8's contract for dim % 4 == 0 with q and v 4-byte
+// aligned (8-byte pieces where dim and both bases are multiples of 8).
+// Returns 0 or a cudaError_t.
+extern "C" int pv_segmax_scan_i8_cpasync(const void* q, const void* v,
+                                         const void* vscale, const void* mask,
+                                         void* keys, int Q, long long cap,
+                                         int dim, void* stream) {
+  return pv::segmax_i8_tiles<true>(-1, q, v, vscale, mask, keys, Q, cap, dim,
+                                   (cudaStream_t)stream);
+}
+
+// K5 on the same mainloop fed by its realigning producer: pv_segmax_scan_i8's
+// contract for any dim and any bases. Returns 0, a cudaError_t, or minus
+// the CUresult of a refused tensor-map encode.
+extern "C" int pv_segmax_scan_i8_realign(const void* q, const void* v,
+                                         const void* vscale, const void* mask,
+                                         void* keys, int Q, long long cap,
+                                         int dim, void* stream) {
+  return pv::segmax_i8_tiles<true>(2, q, v, vscale, mask, keys, Q, cap, dim,
+                                   (cudaStream_t)stream);
 }
 
 // K10. q (Q, dim) folded int8, v (cap, dim) column-scaled int8 with
@@ -553,13 +600,28 @@ extern "C" int pv_segmax_scan_i8c(const void* q, const void* v,
 extern "C" int pv_segmax_scan_i8c_wgmma(const void* q, const void* v,
                                         const void* mask, void* keys, int Q,
                                         long long cap, int dim, void* stream) {
-  using namespace pv;
-  if (cap % SEG) return (int)cudaErrorInvalidValue;
-  const SegmaxTileEpi<int> epi{static_cast<const uint8_t*>(mask),
-                               static_cast<int*>(keys),
-                               (long)(2 * (cap / SEG)), nullptr};
-  return wg::launch_tiles<wg::Int8>(q, v, epi, Q, cap, dim,
-                                    (cudaStream_t)stream);
+  return pv::segmax_i8_tiles<false>(0, q, v, nullptr, mask, keys, Q, cap,
+                                    dim, (cudaStream_t)stream);
+}
+
+// K10 on the mainloop fed by cp.async (pv_segmax_scan_i8_cpasync's widths
+// and bases) and by its realigning producer (any), with
+// pv_segmax_scan_i8c's contract. Return 0, a cudaError_t, or minus the
+// CUresult of a refused tensor-map encode.
+extern "C" int pv_segmax_scan_i8c_cpasync(const void* q, const void* v,
+                                          const void* mask, void* keys, int Q,
+                                          long long cap, int dim,
+                                          void* stream) {
+  return pv::segmax_i8_tiles<false>(-1, q, v, nullptr, mask, keys, Q, cap,
+                                    dim, (cudaStream_t)stream);
+}
+
+extern "C" int pv_segmax_scan_i8c_realign(const void* q, const void* v,
+                                          const void* mask, void* keys, int Q,
+                                          long long cap, int dim,
+                                          void* stream) {
+  return pv::segmax_i8_tiles<false>(2, q, v, nullptr, mask, keys, Q, cap,
+                                    dim, (cudaStream_t)stream);
 }
 
 // K8. kind 0: postings and q float32; 1: both bfloat16; 2: column-scaled

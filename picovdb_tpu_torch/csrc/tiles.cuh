@@ -3,12 +3,12 @@
 // corpus segment from shared-memory tiles that all 256 threads load with
 // synchronous 16-byte copies, on the tensor cores (bf16 wmma 16x16x16 ->
 // f32, or int8 mma.sync m16n8k32 -> s32), and leaves the (BQ, 128) score
-// tile in shared memory for the caller's epilogue. The int8 tile serves
-// K5, K10, K8's int8 kind and P1-int8 at widths TMA cannot read (dim % 16
-// != 0); the bf16 tile serves K8's bf16 kind, P1-bf16 at widths TMA cannot
-// read (dim % 8 != 0) and K1 at odd widths and 2-byte aligned views (K1's
-// other widths take the mainloop's cp.async producer). K1 and P1
-// otherwise run the TMA + wgmma mainloop of wgmma_tiles.cuh.
+// tile in shared memory for the caller's epilogue. Of the dispatches, they
+// serve only P1 at widths TMA cannot read (int8 dim % 16 != 0, bf16 dim %
+// 8 != 0); P1 otherwise, K1, K5 and K10 at every width run the mainloop of
+// wgmma_tiles.cuh, and K8 at every width its segment scan
+// (ivf_segmax_wgmma.cu). The first kernels of K1, K5, K10 (segmax.cu) and
+// K8 keep them, timed beside the kinds that replaced them.
 #pragma once
 
 #include <mma.h>

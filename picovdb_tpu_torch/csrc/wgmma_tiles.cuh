@@ -43,17 +43,19 @@
 // the stage themselves, 128 arrivals on its full barrier in place of one
 // expect_tx, the consumers fencing the writes (generic proxy) for wgmma's
 // async proxy after the wait:
-//  * PIECE 2, the realigning producer, for bf16 rows that are only 2-byte
-//    aligned (odd widths, 2-byte aligned views): TMA loads each row's
-//    aligned 144-byte span of the k-slice into a staging slot, rows j, j +
-//    8, ... read as one 2D tensor (a stride of 8 rows is a multiple of 16
-//    bytes) from row j's start aligned down (see ClassMaps), and the
-//    producer warpgroup shifts each slice into the ring's swizzled stage
-//    in shared memory; its 128 threads then arrive as below. Two ring
-//    stages and two staging slots fill the shared memory. K1 takes it:
-//    cp.async has no 2-byte copy, a box must start on a 16-byte boundary,
-//    and producers that moved the bytes from device memory through the
-//    threads measured 6-8 ms where TMA takes 0.9.
+//  * PIECE 2, the realigning producer, for rows whose bases or widths
+//    cp.async cannot copy either (bf16: odd widths, 2-byte aligned views;
+//    int8: widths and bases off 4 bytes, as glove-25's 25-byte rows): TMA
+//    loads each row's aligned 144-byte span of the k-slice into a staging
+//    slot, rows j, j + C, ... read as one 2D tensor (a stride of C rows is
+//    a multiple of 16 bytes: C = 8 for bf16's even row bytes, 16 for int8's
+//    any) from row j's start aligned down (see ClassMaps), and the producer
+//    warpgroup shifts each slice into the ring's swizzled stage in shared
+//    memory by any byte; its 128 threads then arrive as below. Two ring
+//    stages and two staging slots fill the shared memory. cp.async has no
+//    2- or 1-byte copy, a box must start on a 16-byte boundary, and
+//    producers that moved the bytes from device memory through the
+//    threads measured 6-8 ms where TMA takes 0.9 (K1).
 //  * PIECE 8 or 4, the cp.async producer: the whole producer warpgroup
 //    copies each stage in pieces of PIECE bytes (8 where the row bytes and
 //    both bases are multiples of 8, else 4) to the very offsets TMA's 128B
@@ -62,11 +64,11 @@
 //    PIECE divides the row bytes. Each producer thread arrives with
 //    cp.async.mbarrier.arrive.noinc once its copies have landed. K1 takes
 //    it at even bf16 widths TMA cannot read directly (dim 1020, 300, 100,
-//    50; 4- and 8-byte aligned views).
-// P1-bf16 and the int8 kinds at widths TMA cannot read keep the first
-// score tiles of tiles.cuh. The launcher reads the current device (SM
-// count, shared-memory attribute): callers launch under their tensors'
-// device.
+//    50; 4- and 8-byte aligned views), K5 and K10 at int8 widths of whole
+//    4 bytes (glove-100's 100 bytes, glove-200's 200, dim 1020).
+// P1 at widths TMA cannot read keeps the first score tiles of tiles.cuh.
+// The launcher reads the current device (SM count, shared-memory
+// attribute): callers launch under their tensors' device.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda call is linked
@@ -121,6 +123,7 @@ struct Bf16 {
   typedef float Acc;
   static constexpr int BK = 64;       // elements per k-stage (128 B)
   static constexpr int ELEM_BYTES = 2;
+  static constexpr int CLASSES = 8;   // realigning producer's row classes
   static constexpr CUtensorMapDataType TMA_TYPE =
       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
@@ -152,6 +155,7 @@ struct Int8 {
   typedef int Acc;
   static constexpr int BK = 128;       // elements per k-stage (128 B)
   static constexpr int ELEM_BYTES = 1;
+  static constexpr int CLASSES = 16;   // realigning producer's row classes
   // TMA has no signed 8-bit type; bytes copy as they are and the
   // out-of-bounds zero fill is int8 0
   static constexpr CUtensorMapDataType TMA_TYPE =
@@ -298,22 +302,22 @@ __device__ __forceinline__ void cp_stage(uint32_t dst,
   }
 }
 
-// The realigning producer (PIECE 2) reads rows that are only 2-byte
-// aligned. TMA cannot read them as one 2D tensor (their stride is no
-// multiple of 16 bytes), and a box must start on a 16-byte boundary. But
-// rows j, j + CLASSES, j + 2 CLASSES, ... of a matrix of even row bytes
-// form a 2D tensor whose row stride, CLASSES x row bytes, is a multiple of
-// 16 bytes; its map is based at row j's start aligned down to 16 bytes
-// (`off` elements before it). One box of 72 elements (STAGE_ROW = 144
-// bytes) at column 64 k of that map holds each of the class's rows' 128-
-// byte slice k at byte 2 off, and zeros past the row's end and past the
+// The realigning producer (PIECE 2) reads rows that cp.async cannot copy
+// (bf16 rows only 2-byte aligned, int8 rows whose bytes or bases are off
+// 4). TMA cannot read them as one 2D tensor (their stride is no multiple
+// of 16 bytes), and a box must start on a 16-byte boundary. But rows j,
+// j + C, j + 2 C, ... form a 2D tensor whose row stride, C x row bytes, is
+// a multiple of 16 bytes for T::CLASSES = C row classes (8 for bf16's even
+// row bytes, 16 for int8's any); its map is based at row j's start
+// aligned down to 16 bytes (`off` bytes before it). One box of STAGE_ROW =
+// 144 bytes at byte 128 k of that map holds each of the class's rows'
+// 128-byte slice k at byte off, and zeros past the row's end and past the
 // class's rows; TMA reads no 16-byte chunk that holds no byte of a row.
 // Per stage the producer's elected thread loads the classes' boxes into a
 // staging slot (no swizzle; two slots), and the 128 threads of the
 // producer warpgroup move each row's slice out of it into the ring's
 // swizzled stage, in the rows' own order, by two 16-byte shared loads, a
-// shift by 2 off bytes and one 16-byte store a piece.
-constexpr int CLASSES = 8;
+// shift by off bytes and one 16-byte store a piece.
 constexpr int STAGE_ROW = 144;             // bytes of a staged row's span
 constexpr int SLOT_A = BM * STAGE_ROW;     // a slot's A boxes: 18 KB
 constexpr int SLOT_BYTES = SLOT_A + BN * STAGE_ROW;  // 54 KB
@@ -327,17 +331,18 @@ struct TileMaps {  // the TMA producer's: q and v
   CUtensorMap q, v;
 };
 
-struct ClassMaps {  // the realigning producer's: classes of q and of v
-  CUtensorMap q[CLASSES], v[CLASSES];
-  int qoff[CLASSES], voff[CLASSES];  // off of each class; -1: no such row
+template <int C>
+struct ClassMaps {  // the realigning producer's: C classes of q and of v
+  CUtensorMap q[C], v[C];
+  int qoff[C], voff[C];  // off of each class (bytes); -1: no such row
   uint32_t slot_bytes;  // bytes of a slot's boxes (classes that hold a row)
 };
 
-template <int PIECE>
-using MapsOf =
-    typename std::conditional<PIECE == 2, ClassMaps, TileMaps>::type;
+template <class T, int PIECE>
+using MapsOf = typename std::conditional<PIECE == 2, ClassMaps<T::CLASSES>,
+                                         TileMaps>::type;
 
-// The 16 bytes at byte `off` (0..15; K1's are even) of the 32 bytes lo |
+// The 16 bytes at byte `off` (0..15; bf16's are even) of the 32 bytes lo |
 // hi, as four words (little endian: byte i of the pair is byte i % 4 of
 // word i / 4). Selects, not an indexed array, so nothing goes to local
 // memory.
@@ -366,25 +371,24 @@ __device__ __forceinline__ uint4 ld_shared_v4(uint32_t a) {
 
 // Thread t (of the producer warpgroup's 128) moves 16-byte piece c = t % 8
 // of rows t / 8, + 16, ... of a box of ROWS rows from the staging slot at
-// `src` (class j's box of ROWS / CLASSES rows at j ROWS / CLASSES
-// STAGE_ROW) to the stage at `dst`, swizzled as TMA's 128B swizzle lays a
-// box of 128-byte rows out. A thread's rows are all of class (t / 8) % 8,
-// so one offset `off` (bytes: 2 off elements; < 0 where the class has no
-// row, whose pieces are zero) serves them all.
-template <int ROWS>
+// `src` (class j's box of ROWS / C rows at j ROWS / C STAGE_ROW) to the
+// stage at `dst`, swizzled as TMA's 128B swizzle lays a box of 128-byte
+// rows out. A thread's rows are all of class (t / 8) % C (C = 8 or 16
+// divides 16), so one offset `off` (bytes; < 0 where the class has no row,
+// whose pieces are zero) serves them all.
+template <int ROWS, int C>
 __device__ __forceinline__ void realign_box(uint32_t dst, uint32_t src, int t,
                                             int off) {
-  constexpr int PER = ROWS / CLASSES;  // rows of a class in the box
-  constexpr int BATCH = 4;             // passes whose loads issue together
-  const int c = t % 8, r0 = t / 8, j = r0 % CLASSES;
-  const uint32_t from =
-      src + (j * PER + r0 / CLASSES) * STAGE_ROW + 16 * c;
+  constexpr int PER = ROWS / C;  // rows of a class in the box
+  constexpr int BATCH = 4;       // passes whose loads issue together
+  const int c = t % 8, r0 = t / 8, j = r0 % C;
+  const uint32_t from = src + (j * PER + r0 / C) * STAGE_ROW + 16 * c;
 #pragma unroll
   for (int p0 = 0; p0 < ROWS / 16; p0 += BATCH) {
     uint4 lo[BATCH], hi[BATCH];
 #pragma unroll
-    for (int u = 0; u < BATCH; ++u) {  // row r / 8 of its class: r0 / 8 + 2 p
-      const uint32_t a = from + 2 * (p0 + u) * STAGE_ROW;
+    for (int u = 0; u < BATCH; ++u) {  // row r / C of its class: + 16 / C a pass
+      const uint32_t a = from + (16 / C) * (p0 + u) * STAGE_ROW;
       lo[u] = ld_shared_v4(a);
       hi[u] = ld_shared_v4(a + 16);
     }
@@ -403,19 +407,21 @@ __device__ __forceinline__ void realign_box(uint32_t dst, uint32_t src, int t,
 
 // The realigning producer's elected thread: the classes' boxes of tile
 // `tile`'s k-stage k into the slot at `slot`, reported to `bar`.
-__device__ __forceinline__ void stage_boxes(const ClassMaps& maps,
+template <class T>
+__device__ __forceinline__ void stage_boxes(const ClassMaps<T::CLASSES>& maps,
                                             uint32_t slot, uint32_t bar,
                                             int tile, int k, int q_tiles) {
-  const int m_q = (tile % q_tiles) * (BM / CLASSES);
-  const int m_v = (tile / q_tiles) * (BN / CLASSES);
+  constexpr int C = T::CLASSES;
+  const int m_q = (tile % q_tiles) * (BM / C);
+  const int m_v = (tile / q_tiles) * (BN / C);
   mbar_expect_tx(bar, maps.slot_bytes);
 #pragma unroll
-  for (int c = 0; c < CLASSES; ++c) {
+  for (int c = 0; c < C; ++c) {
     if (maps.qoff[c] >= 0)
-      tma_load_2d(slot + c * (BM / CLASSES) * STAGE_ROW, &maps.q[c], bar,
-                  k * 64, m_q);
-    tma_load_2d(slot + SLOT_A + c * (BN / CLASSES) * STAGE_ROW, &maps.v[c],
-                bar, k * 64, m_v);
+      tma_load_2d(slot + c * (BM / C) * STAGE_ROW, &maps.q[c], bar,
+                  k * T::BK, m_q);
+    tma_load_2d(slot + SLOT_A + c * (BN / C) * STAGE_ROW, &maps.v[c], bar,
+                k * T::BK, m_v);
   }
 }
 
@@ -425,11 +431,11 @@ __device__ __forceinline__ void stage_boxes(const ClassMaps& maps,
 // m64nNk32 alike): lane l of warp w of consumer warpgroup g holds tile
 // rows 64 g + 16 w + l / 4 (h = 0) and + 8 (h = 1), at columns
 // 8 j + 2 (l % 4) + e, in acc[4 j + 2 h + e]. PIECE 0: the TMA producer
-// (maps.q, maps.v); 2: the realigning producer (ClassMaps; bf16 only);
+// (maps.q, maps.v); 2: the realigning producer (ClassMaps of T::CLASSES);
 // 4 or 8: the cp.async producer (pointers qp, vp).
 template <class T, class Epi, int PIECE>
 __global__ void __launch_bounds__(THREADS, 1)
-tiles_kernel(const __grid_constant__ MapsOf<PIECE> maps,
+tiles_kernel(const __grid_constant__ MapsOf<T, PIECE> maps,
              const unsigned char* __restrict__ qp,
              const unsigned char* __restrict__ vp, const Epi epi, int Q,
              long cap, int dim) {
@@ -466,16 +472,15 @@ tiles_kernel(const __grid_constant__ MapsOf<PIECE> maps,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PREGS));
     if constexpr (RA) {
       const int t = threadIdx.x - 2 * 128;
-      // this thread's rows are of class (t / 8) % 8: their offsets (bytes)
-      const int cls = (t / 8) % CLASSES;
-      const int qoff = maps.qoff[cls] < 0 ? -1 : 2 * maps.qoff[cls];
-      const int voff = 2 * maps.voff[cls];
+      // this thread's rows are of class (t / 8) % C: their offsets (bytes)
+      const int cls = (t / 8) % T::CLASSES;
+      const int qoff = maps.qoff[cls], voff = maps.voff[cls];
       // the elected thread runs SLOTS stages ahead: (next_tile, next_k)
       int next_tile = blockIdx.x, next_k = 0;
       if (t == 0)
         for (int s = 0; s < SLOTS && next_tile < tiles; ++s) {
-          stage_boxes(maps, slots + s * SLOT_BYTES, staged + 8 * s,
-                      next_tile, next_k, q_tiles);
+          stage_boxes<T>(maps, slots + s * SLOT_BYTES, staged + 8 * s,
+                         next_tile, next_k, q_tiles);
           if (++next_k == k_iters) {
             next_k = 0;
             next_tile += gridDim.x;
@@ -488,8 +493,10 @@ tiles_kernel(const __grid_constant__ MapsOf<PIECE> maps,
           const uint32_t from = slots + slot * SLOT_BYTES;
           mbar_wait(staged + 8 * slot, sphase);     // the boxes have landed
           mbar_wait(empty + 8 * stage, phase ^ 1);  // first lap: free
-          realign_box<BM>(a_ring + stage * A_BYTES, from, t, qoff);
-          realign_box<BN>(b_ring + stage * B_BYTES, from + SLOT_A, t, voff);
+          realign_box<BM, T::CLASSES>(a_ring + stage * A_BYTES, from, t,
+                                      qoff);
+          realign_box<BN, T::CLASSES>(b_ring + stage * B_BYTES, from + SLOT_A,
+                                      t, voff);
           // the stores, for wgmma's async proxy, then this thread's arrival
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
           mbar_arrive(full + 8 * stage);
@@ -498,8 +505,8 @@ tiles_kernel(const __grid_constant__ MapsOf<PIECE> maps,
           if (t == 0 && next_tile < tiles) {
             // the slot's generic reads before TMA's writes (async proxy)
             asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-            stage_boxes(maps, from, staged + 8 * slot, next_tile, next_k,
-                        q_tiles);
+            stage_boxes<T>(maps, from, staged + 8 * slot, next_tile, next_k,
+                           q_tiles);
             if (++next_k == k_iters) {
               next_k = 0;
               next_tile += gridDim.x;
@@ -641,15 +648,16 @@ int encode_rows(EncodeTiled enc, CUtensorMap* map, const void* ptr,
 }
 
 // The map of class j of a (rows, dim) row-major matrix of T's elements at
-// `ptr` (even row bytes, a 2-byte aligned base): rows j, j + CLASSES, ...
-// as a 2D tensor (see ClassMaps) from row j's start aligned down to 16
-// bytes, read in boxes of STAGE_ROW bytes x box_rows rows, unswizzled,
-// out-of-bounds elements zero; `*off` the elements between its base and
-// row j's start, -1 (and no map) where the matrix has no row j. 0, or
-// minus the CUresult of a refused encode.
+// `ptr` (a base aligned to T's element): rows j, j + T::CLASSES, ... as a
+// 2D tensor (see ClassMaps) from row j's start aligned down to 16 bytes,
+// read in boxes of STAGE_ROW bytes x box_rows rows, unswizzled,
+// out-of-bounds elements zero; `*off` the bytes between its base and row
+// j's start, -1 (and no map) where the matrix has no row j. 0, or minus
+// the CUresult of a refused encode.
 template <class T>
 int encode_class(EncodeTiled enc, CUtensorMap* map, const void* ptr,
                  long long rows, int dim, int j, int box_rows, int* off) {
+  constexpr int C = T::CLASSES;
   if (rows <= j) {
     *off = -1;
     return 0;
@@ -657,11 +665,11 @@ int encode_class(EncodeTiled enc, CUtensorMap* map, const void* ptr,
   const long long row_bytes = (long long)dim * T::ELEM_BYTES;
   const uintptr_t start = (uintptr_t)ptr + j * row_bytes;
   const uintptr_t base = start & ~(uintptr_t)15;
-  *off = (int)((start - base) / T::ELEM_BYTES);
+  *off = (int)(start - base);
   const cuuint64_t gdim[2] = {
-      (cuuint64_t)(dim + *off),
-      (cuuint64_t)((rows - j + CLASSES - 1) / CLASSES)};
-  const cuuint64_t gstride[1] = {(cuuint64_t)(CLASSES * row_bytes)};
+      (cuuint64_t)((row_bytes + *off) / T::ELEM_BYTES),
+      (cuuint64_t)((rows - j + C - 1) / C)};
+  const cuuint64_t gstride[1] = {(cuuint64_t)(C * row_bytes)};
   const cuuint32_t box[2] = {(cuuint32_t)(STAGE_ROW / T::ELEM_BYTES),
                              (cuuint32_t)box_rows};
   const cuuint32_t estride[2] = {1, 1};
@@ -678,18 +686,18 @@ int encode_class(EncodeTiled enc, CUtensorMap* map, const void* ptr,
 // T's type, on the current device (one CTA per SM, fewer when there are
 // fewer tiles): PIECE 0 encodes their TMA maps (rows of whole 16 bytes,
 // 16-byte aligned bases), PIECE 2 their class maps for the realigning
-// producer (bf16: even row bytes, 2-byte aligned bases), PIECE 4 or 8
-// feeds the ring by cp.async (the row bytes and both bases multiples of
+// producer (any row bytes of T, bases aligned to its element), PIECE 4 or
+// 8 feeds the ring by cp.async (the row bytes and both bases multiples of
 // PIECE). Returns 0, a cudaError_t, or minus a CUresult of the encode.
 template <class T, class Epi, int PIECE = 0>
 int launch_tiles(const void* q, const void* v, const Epi& epi, int Q,
                  long long cap, int dim, cudaStream_t stream) {
   if (Q <= 0 || cap <= 0) return (int)cudaSuccess;
-  const int align = PIECE ? PIECE : 16;
+  const int align = PIECE == 2 ? T::ELEM_BYTES : PIECE ? PIECE : 16;
   if (dim <= 0 || (long long)dim * T::ELEM_BYTES % align ||
       ((uintptr_t)q | (uintptr_t)v) % align)
     return (int)cudaErrorInvalidValue;
-  MapsOf<PIECE> maps{};
+  MapsOf<T, PIECE> maps{};
   if constexpr (PIECE == 0 || PIECE == 2) {
     EncodeTiled enc;
     int err = encoder(&enc);
@@ -698,16 +706,16 @@ int launch_tiles(const void* q, const void* v, const Epi& epi, int Q,
       if ((err = encode_rows<T>(enc, &maps.q, q, Q, dim, BM))) return err;
       if ((err = encode_rows<T>(enc, &maps.v, v, cap, dim, BN))) return err;
     } else {
-      static_assert(PIECE != 2 || T::ELEM_BYTES == 2, "bf16 rows");
+      constexpr int C = T::CLASSES;
       maps.slot_bytes = BN * STAGE_ROW;
-      for (int j = 0; j < CLASSES; ++j) {
-        if ((err = encode_class<T>(enc, &maps.q[j], q, Q, dim, j,
-                                   BM / CLASSES, &maps.qoff[j])))
+      for (int j = 0; j < C; ++j) {
+        if ((err = encode_class<T>(enc, &maps.q[j], q, Q, dim, j, BM / C,
+                                   &maps.qoff[j])))
           return err;
-        if ((err = encode_class<T>(enc, &maps.v[j], v, cap, dim, j,
-                                   BN / CLASSES, &maps.voff[j])))
+        if ((err = encode_class<T>(enc, &maps.v[j], v, cap, dim, j, BN / C,
+                                   &maps.voff[j])))
           return err;
-        if (maps.qoff[j] >= 0) maps.slot_bytes += BM / CLASSES * STAGE_ROW;
+        if (maps.qoff[j] >= 0) maps.slot_bytes += BM / C * STAGE_ROW;
       }
     }
   }

@@ -44,13 +44,19 @@ _SIGNATURES = {
     "pv_segmax_scan_cpasync": [_P, _P, _P, _P, _I, _L, _I, _P],
     "pv_segmax_scan_realign": [_P, _P, _P, _P, _I, _L, _I, _P],
     # q, v, vscale, mask, keys, Q, cap, dim, stream (K5: the mma.sync tile,
-    # and the int8 TMA + wgmma mainloop)
+    # served by no dispatch, and the int8 mainloop fed by TMA, by cp.async
+    # or by the realigning producer)
     "pv_segmax_scan_i8": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     "pv_segmax_scan_i8_wgmma": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
-    # q, v, mask, keys, Q, cap, dim, stream (K10: the mma.sync tile, and
-    # the int8 TMA + wgmma mainloop)
+    "pv_segmax_scan_i8_cpasync": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
+    "pv_segmax_scan_i8_realign": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
+    # q, v, mask, keys, Q, cap, dim, stream (K10: the mma.sync tile, served
+    # by no dispatch, and the int8 mainloop fed by TMA, by cp.async or by
+    # the realigning producer)
     "pv_segmax_scan_i8c": [_P, _P, _P, _P, _I, _L, _I, _P],
     "pv_segmax_scan_i8c_wgmma": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "pv_segmax_scan_i8c_cpasync": [_P, _P, _P, _P, _I, _L, _I, _P],
+    "pv_segmax_scan_i8c_realign": [_P, _P, _P, _P, _I, _L, _I, _P],
     # keys, out_keys, out_cols, scratch (null where a row is one chunk), Q,
     # C, k, chunk, stream (K2's split-row warp select)
     "pv_topk_packed_keys": [_P, _P, _P, _P, _I, _L, _I, _L, _P],

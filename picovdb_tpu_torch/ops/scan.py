@@ -24,7 +24,8 @@ kernels those paths run:
                         `topk_wide_ready`: that scan writing a slab of
                         score keys, then a radix select a query)
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
-                        (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`)
+                        (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`,
+                        `cpasync_i8_ready`, `realign_i8_ready`)
   K6 `fused_topk_i4`    csrc/scan_topk.cu  exact top-k over packed int4 rows
                         (Q <= 4: csrc/sweep_topk.cu, see `i4_sweep_ready`
                         and, at any even width and base,
@@ -34,7 +35,7 @@ kernels those paths run:
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
                         (Q <= 16: csrc/sweep_topk.cu, see `sweep_ready`)
   K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
-                        (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`)
+                        (product: csrc/wgmma_tiles.cuh, K5's producers)
 
 Each wrapper checks its inputs, allocates the outputs, and for a CUDA
 tensor launches its kernel on that tensor's device and its current stream
@@ -77,7 +78,11 @@ SEG = 128  # rows per segmax segment
 # realigning producer (`realign_ready`): "dot_rowmax_wgmma" P1-bf16's,
 # "dot_rowmax_i8_wgmma" P1-int8's, "segmax_i8c_wgmma" K10's ("segmax_i8c"
 # counts every K10 launch), "segmax_i8_wgmma" K5's ("segmax_i8" every K5
-# launch).
+# launch); "segmax_i8_cpasync" / "segmax_i8_realign" and
+# "segmax_i8c_cpasync" / "segmax_i8c_realign" count K5's and K10's int8
+# mainloop fed by cp.async (`cpasync_i8_ready`) or by the realigning
+# producer (`realign_i8_ready`), each with its launches by shape in
+# LAUNCH_SHAPES as K5's and K10's TMA kind ("_wgmma").
 # "scan_topk" counts every K4 launch, "scan_topk_wgmma" those of its
 # tensor-core scan (`topk_wgmma_ready`), "scan_topk_wide" those of its wide
 # kind (`topk_wide_ready`: the slab pass and the radix select, one call).
@@ -123,7 +128,8 @@ LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "scan_topk_i8_wgmma_cpasync": 0, "scan_topk_i8_wgmma_realign": 0,
             "scan_topk_i8_wide_cpasync": 0, "scan_topk_i8_wide_realign": 0,
             "segmax_i8": 0,
-            "segmax_i8_wgmma": 0,
+            "segmax_i8_wgmma": 0, "segmax_i8_cpasync": 0,
+            "segmax_i8_realign": 0,
             "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
             "scan_topk_i4_wgmma": 0, "scan_topk_i4_wide": 0,
             "scan_topk_i4_narrow": 0,
@@ -137,7 +143,8 @@ LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "ivf_segmax": 0, "ivf_segmax_wgmma": 0,  # K8: ops/ivf.py
             "ivf_segmax_wgmma_cpasync": 0, "ivf_segmax_wgmma_realign": 0,
             "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
-            "segmax_i8c_wgmma": 0,
+            "segmax_i8c_wgmma": 0, "segmax_i8c_cpasync": 0,
+            "segmax_i8c_realign": 0,
             "dot_rowmax": 0, "dot_rowmax_wgmma": 0,  # P1: probes.py
             "dot_rowmax_i8_wgmma": 0}
 # Requests whose k_sel exceeded SCAN_KSEL_MAX and went to the plain exact
@@ -152,8 +159,9 @@ _I64_MIN = -(2**63)  # empty 64-bit selection key
 
 # Each kernel's launches by shape, e.g. LAUNCH_SHAPES["scan_topk_i4"]
 # [(2048, 14)]: the split of LAUNCHES[name] (not of its sub-kernel keys,
-# but for those of K3's and K6's narrow sweeps, K6's tensor-core kinds and
-# the kinds over rows TMA cannot read) by the launch's query count and k (k_sel; per_seg for K8; None where a
+# but for those of K3's and K6's narrow sweeps, K6's tensor-core kinds, K5's
+# and K10's kinds and the kinds over rows TMA cannot read) by the launch's
+# query count and k (k_sel; per_seg for K8; None where a
 # kernel takes no k), so a cost per launch is weighed at the shape the
 # launch was made at.
 LAUNCH_SHAPES: dict = {}
@@ -430,10 +438,12 @@ def wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
 
 def cpasync_piece(queries: torch.Tensor, vectors: torch.Tensor) -> int:
     """The bytes a cp.async copy of the mainloop's second producer moves
-    on these bf16 operands: 8 where the row bytes (2 dim) and both bases
-    are multiples of 8, 4 where they are multiples of 4 (dim even), 0
-    where neither holds. Mirrors pv_segmax_scan_cpasync's choice."""
-    bits = 2 * queries.shape[1] | queries.data_ptr() | vectors.data_ptr()
+    on these bf16 or int8 operands: 8 where the row bytes and both bases
+    are multiples of 8, 4 where they are multiples of 4, 0 where neither
+    holds. Mirrors pv_segmax_scan_cpasync's and
+    pv_segmax_scan_i8[c]_cpasync's choice."""
+    bits = (queries.shape[1] * queries.element_size() | queries.data_ptr()
+            | vectors.data_ptr())
     return 8 if bits % 8 == 0 else 4 if bits % 4 == 0 else 0
 
 
@@ -464,11 +474,46 @@ def realign_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
 
 
 def wgmma_i8_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
-    """Whether K5, K10 and P1-int8 run the mainloop's int8 instantiation on
-    these contiguous int8 operands: rows of int8 are a multiple of 16 bytes
-    at dim % 16 == 0, and both bases 16-byte aligned. Otherwise they run
-    the mma.sync tile (csrc/tiles.cuh `score_tile_i8`)."""
+    """Whether K5, K10 and P1-int8 run the mainloop's int8 instantiation fed
+    by TMA on these contiguous int8 operands: rows of int8 are a multiple
+    of 16 bytes at dim % 16 == 0, and both bases 16-byte aligned.
+    Otherwise K5 and K10 take `cpasync_i8_ready`'s producer or
+    `realign_i8_ready`'s, P1-int8 the mma.sync tile (csrc/tiles.cuh
+    `score_tile_i8`)."""
     return _tma_ready(queries, vectors, 16)
+
+
+def cpasync_i8_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    """Whether K5 and K10 run the int8 mainloop fed by its cp.async
+    producer on these contiguous int8 operands: TMA cannot read them
+    (`wgmma_i8_ready` fails), yet cp.async can copy their rows in 8- or
+    4-byte pieces (dim % 4 == 0 and 4-byte aligned bases, `cpasync_piece`:
+    glove-100's 100-byte rows, glove-200's 200, dim 1020)."""
+    return (not wgmma_i8_ready(queries, vectors)
+            and cpasync_piece(queries, vectors) > 0)
+
+
+def realign_i8_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    """Whether K5 and K10 run the int8 mainloop fed by its realigning
+    producer on these contiguous int8 operands: every pair the other two
+    producers refuse (a width or a base off 4 bytes: glove-25's 25-byte
+    rows, dim 1019, 1- and 2-byte aligned views). TMA stages each row's
+    aligned span (rows j, j + 16, ... as one 2D tensor each, whose stride
+    of 16 rows TMA takes at any width) and the producer warpgroup shifts
+    the slices into place by any byte. With `wgmma_i8_ready` and
+    `cpasync_i8_ready` it covers every pair, and neither K5 nor K10 ever
+    dispatches to the mma.sync tile."""
+    return (not wgmma_i8_ready(queries, vectors)
+            and not cpasync_i8_ready(queries, vectors))
+
+
+def _i8_producer(queries: torch.Tensor, vectors: torch.Tensor) -> str:
+    """The suffix of K5's and K10's entry point and launch key for the
+    producer their ready rules name: "_wgmma" (TMA), "_cpasync" or
+    "_realign"."""
+    return ("_wgmma" if wgmma_i8_ready(queries, vectors)
+            else "_cpasync" if cpasync_i8_ready(queries, vectors)
+            else "_realign")
 
 
 def _segmax_checks(name, queries, vectors, mask):
@@ -574,24 +619,27 @@ def segmax_scan_i8(q_i8: torch.Tensor, v_i8: torch.Tensor,
     _require(v_i8.is_contiguous() and mask.is_contiguous()
              and vscale.is_contiguous(),
              "segmax_scan_i8: vectors, scales and mask must be contiguous")
-    wgmma = wgmma_i8_ready(q, v_i8)
-    keys = _segmax_i8_launch(q, v_i8, vscale, mask, wgmma)
+    kind = _i8_producer(q, v_i8)
+    keys = _segmax_i8_launch(q, v_i8, vscale, mask,
+                             "pv_segmax_scan_i8" + kind)
     _count("segmax_i8", num_q)
-    LAUNCHES["segmax_i8_wgmma"] += wgmma
+    _count("segmax_i8" + kind, num_q)
     return keys
 
 
-def _segmax_i8_launch(q, v_i8, vscale, mask, wgmma: bool) -> torch.Tensor:
-    """K5's launch on checked CUDA operands, uncounted: the int8 TMA +
-    wgmma mainloop (`wgmma`) or the mma.sync tile."""
+def _segmax_i8_launch(q, v_i8, vscale, mask, entry: str) -> torch.Tensor:
+    """K5's launch on checked CUDA operands through `entry`, uncounted:
+    the int8 mainloop fed by TMA (`pv_segmax_scan_i8_wgmma`), by cp.async
+    (`pv_segmax_scan_i8_cpasync`) or by its realigning producer
+    (`pv_segmax_scan_i8_realign`), or the mma.sync tile they replaced
+    (`pv_segmax_scan_i8`, served by no dispatch)."""
     num_q, dim = q.shape
     cap = v_i8.shape[0]
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
                        device=q.device)
-    _launch(q, "segmax_scan_i8",
-            "pv_segmax_scan_i8_wgmma" if wgmma else "pv_segmax_scan_i8",
-            q.data_ptr(), v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
-            keys.data_ptr(), num_q, cap, dim)
+    _launch(q, "segmax_scan_i8", entry, q.data_ptr(), v_i8.data_ptr(),
+            vscale.data_ptr(), mask.data_ptr(), keys.data_ptr(), num_q, cap,
+            dim)
     return keys
 
 
@@ -619,24 +667,25 @@ def segmax_scan_i8c(q_i8: torch.Tensor, v_i8: torch.Tensor,
     q = q_i8.contiguous()
     _require(v_i8.is_contiguous() and mask.is_contiguous(),
              "segmax_scan_i8c: vectors and mask must be contiguous")
-    wgmma = wgmma_i8_ready(q, v_i8)
-    keys = _segmax_i8c_launch(q, v_i8, mask, wgmma)
+    kind = _i8_producer(q, v_i8)
+    keys = _segmax_i8c_launch(q, v_i8, mask, "pv_segmax_scan_i8c" + kind)
     _count("segmax_i8c", num_q)
-    LAUNCHES["segmax_i8c_wgmma"] += wgmma
+    _count("segmax_i8c" + kind, num_q)
     return keys
 
 
-def _segmax_i8c_launch(q, v_i8, mask, wgmma: bool) -> torch.Tensor:
-    """K10's launch on checked CUDA operands, uncounted: the int8 TMA +
-    wgmma mainloop (`wgmma`) or the mma.sync tile."""
+def _segmax_i8c_launch(q, v_i8, mask, entry: str) -> torch.Tensor:
+    """K10's launch on checked CUDA operands through `entry`, uncounted:
+    the int8 mainloop fed by TMA, by cp.async or by its realigning
+    producer (`pv_segmax_scan_i8c_wgmma` / `_cpasync` / `_realign`), or
+    the mma.sync tile they replaced (`pv_segmax_scan_i8c`, served by no
+    dispatch)."""
     num_q, dim = q.shape
     cap = v_i8.shape[0]
     keys = torch.empty((num_q, 2 * (cap // SEG)), dtype=torch.int32,
                        device=q.device)
-    _launch(q, "segmax_scan_i8c",
-            "pv_segmax_scan_i8c_wgmma" if wgmma else "pv_segmax_scan_i8c",
-            q.data_ptr(), v_i8.data_ptr(), mask.data_ptr(), keys.data_ptr(),
-            num_q, cap, dim)
+    _launch(q, "segmax_scan_i8c", entry, q.data_ptr(), v_i8.data_ptr(),
+            mask.data_ptr(), keys.data_ptr(), num_q, cap, dim)
     return keys
 
 

@@ -639,8 +639,9 @@ def test_fused_topk_i8c_sweep_few_live_rows(dev):
 
 @pytest.mark.parametrize("dim", DIMS + [1024])
 def test_segmax_scan_i8c_keys_exact(dev, dim):
-    """K10's keys bit for bit the plain version's: on the int8 mainloop at
-    dim % 16 == 0 (96, 1024), on the mma.sync tile at dim 50."""
+    """K10's keys bit for bit the plain version's: on the int8 mainloop fed
+    by TMA at dim % 16 == 0 (96, 1024), by its realigning producer at dim
+    50 (50-byte rows: cp.async takes whole 4 bytes)."""
     q, v, mask = _data(dev, dim=dim, nq=200)
     v8, cs = scan.quantize_cols_i8(v)
     q8 = scan.fold_queries_i8(q, cs)
@@ -649,6 +650,8 @@ def test_segmax_scan_i8c_keys_exact(dev, dim):
     assert scan.LAUNCHES["segmax_i8c"] == before["segmax_i8c"] + 1
     assert (scan.LAUNCHES["segmax_i8c_wgmma"] - before["segmax_i8c_wgmma"]
             == (dim % 16 == 0))
+    assert (scan.LAUNCHES["segmax_i8c_realign"] - before["segmax_i8c_realign"]
+            == (dim % 4 != 0))
     ref = scan.segmax_scan_i8c_plain(q8, v8, mask)
     torch.cuda.synchronize()
     assert torch.equal(keys, ref)
@@ -678,8 +681,8 @@ def test_segmax_scan_i8c_wgmma(dev, dim, nq):
 def test_segmax_scan_i8c_all_negative(dev):
     """Every sum negative, at cap % 256 == 128 and Q = 17: the zero-filled
     rows past cap and past Q (sums of 0) must never enter a key. A view 1
-    byte off 16-byte alignment takes the mma.sync tile; both bit for bit
-    the plain version."""
+    byte off 16-byte alignment takes the realigning producer; both bit for
+    bit the plain version."""
     q, v, mask = _data(dev, cap=4224, dim=768, nq=17)
     q8 = -scan.quantize_rows_i8(q)[0].abs()
     v8 = scan.quantize_rows_i8(v)[0].abs()
@@ -696,9 +699,11 @@ def test_segmax_scan_i8c_all_negative(dev):
     flat = torch.empty(v8.numel() + 16, dtype=torch.int8, device=dev)
     vm = flat[1:1 + v8.numel()].view(v8.shape)
     vm.copy_(v8)
-    assert not scan.wgmma_i8_ready(q8, vm)
+    assert scan.realign_i8_ready(q8, vm)
+    realigned = scan.LAUNCHES["segmax_i8c_realign"]
     keys = scan.segmax_scan_i8c(q8, vm, mask)
     assert scan.LAUNCHES["segmax_i8c_wgmma"] == before + 1
+    assert scan.LAUNCHES["segmax_i8c_realign"] == realigned + 1
     torch.cuda.synchronize()
     assert torch.equal(keys, ref)
 
@@ -1104,7 +1109,7 @@ def test_segmax_scan_i8_wgmma(dev, dim, nq):
     """K5 on the int8 mainloop: partial 128-query tiles (17, 200) and the
     serving chunk (2048), cap % 256 == 128, a fully masked segment; keys
     bit for bit the plain version's, and the mma.sync tile's (launched
-    uncounted on the same inputs)."""
+    uncounted on the same inputs, served by no dispatch)."""
     q, v, mask = _data(dev, cap=8320, dim=dim, nq=nq, seed=nq)
     mask[256:384] = False
     q8, _ = scan.quantize_rows_i8(q)
@@ -1115,7 +1120,7 @@ def test_segmax_scan_i8_wgmma(dev, dim, nq):
     assert scan.LAUNCHES["segmax_i8_wgmma"] == before["segmax_i8_wgmma"] + 1
     assert scan.LAUNCHES["segmax_i8"] == before["segmax_i8"] + 1
     ref = scan.segmax_scan_i8_plain(q8, v8, vs, mask)
-    tile = scan._segmax_i8_launch(q8, v8, vs, mask, False)
+    tile = scan._segmax_i8_launch(q8, v8, vs, mask, "pv_segmax_scan_i8")
     torch.cuda.synchronize()
     assert torch.equal(keys, ref)
     assert torch.equal(tile, ref)
@@ -1125,8 +1130,8 @@ def test_segmax_scan_i8_wgmma(dev, dim, nq):
 def test_segmax_scan_i8_all_negative(dev):
     """Every scaled score negative, at cap % 256 == 128 and Q = 17: the
     zero-filled rows past cap and past Q never enter a key. A view 1 byte
-    off 16-byte alignment takes the mma.sync tile; both bit for bit the
-    plain version."""
+    off 16-byte alignment takes the realigning producer; both bit for bit
+    the plain version."""
     q, v, mask = _data(dev, cap=4224, dim=768, nq=17)
     q8 = -scan.quantize_rows_i8(q)[0].abs()
     v8, vs = scan.quantize_rows_i8(v)
@@ -1144,9 +1149,11 @@ def test_segmax_scan_i8_all_negative(dev):
     flat = torch.empty(v8.numel() + 16, dtype=torch.int8, device=dev)
     vm = flat[1:1 + v8.numel()].view(v8.shape)
     vm.copy_(v8)
-    assert not scan.wgmma_i8_ready(q8, vm)
+    assert scan.realign_i8_ready(q8, vm)
+    realigned = scan.LAUNCHES["segmax_i8_realign"]
     keys = scan.segmax_scan_i8(q8, vm, vs, mask)
     assert scan.LAUNCHES["segmax_i8_wgmma"] == before + 1
+    assert scan.LAUNCHES["segmax_i8_realign"] == realigned + 1
     torch.cuda.synchronize()
     assert torch.equal(keys, ref)
 

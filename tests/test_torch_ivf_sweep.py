@@ -126,9 +126,11 @@ def recorded(monkeypatch):
                                               (40, 0, False),
                                               (96, 1, False)])
 def test_k10_dispatch_by_wgmma_i8_ready(recorded, dim, offset, wgmma):
-    """K10 takes the int8 mainloop where `wgmma_i8_ready` holds (dim % 16
-    == 0, aligned bases), the mma.sync tile otherwise; "segmax_i8c"
-    counts both, "segmax_i8c_wgmma" the mainloop alone."""
+    """K10 takes the int8 mainloop fed by TMA where `wgmma_i8_ready` holds
+    (dim % 16 == 0, aligned bases), else fed by cp.async (dim 40) or by
+    the realigning producer (a base 1 byte off), never the mma.sync tile;
+    "segmax_i8c" counts every launch, "segmax_i8c_wgmma" / "_cpasync" /
+    "_realign" each producer's."""
     q, v = _operands(dim, torch.int8, offset=offset, rows=256)
     assert tscan.wgmma_i8_ready(q, v) == wgmma
     mask = torch.ones(256, dtype=torch.bool)
@@ -136,12 +138,13 @@ def test_k10_dispatch_by_wgmma_i8_ready(recorded, dim, offset, wgmma):
     keys = tscan.segmax_scan_i8c(_as_cuda(q), _as_cuda(v), _as_cuda(mask))
     assert keys.shape == (16, 4)
     (entry, args), = recorded
-    assert entry == ("pv_segmax_scan_i8c_wgmma" if wgmma
-                     else "pv_segmax_scan_i8c")
+    kind = "_wgmma" if wgmma else "_realign" if offset % 4 else "_cpasync"
+    assert entry == "pv_segmax_scan_i8c" + kind
     assert args[4:] == (16, 256, dim)
     assert tscan.LAUNCHES["segmax_i8c"] == before["segmax_i8c"] + 1
-    assert (tscan.LAUNCHES["segmax_i8c_wgmma"]
-            == before["segmax_i8c_wgmma"] + wgmma)
+    for k in ("_wgmma", "_cpasync", "_realign"):
+        assert (tscan.LAUNCHES["segmax_i8c" + k]
+                == before["segmax_i8c" + k] + (k == kind))
 
 
 @pytest.mark.parametrize("kind,nq,k,sweep", [("f32", 1, 14, True),

@@ -332,9 +332,12 @@ def test_k4_passes_the_split_planes(recorded, monkeypatch):
 @pytest.mark.parametrize("dim,offset,tc", [(96, 0, True), (1024, 0, True),
                                            (96, 1, False), (104, 0, False)])
 def test_k5_dispatch_by_wgmma_i8_ready(recorded, dim, offset, tc):
-    """K5 takes the int8 mainloop (`pv_segmax_scan_i8_wgmma`) where
-    `wgmma_i8_ready` holds, the mma.sync tile otherwise, with the same
-    arguments; "segmax_i8" counts both, "segmax_i8_wgmma" the mainloop."""
+    """K5 takes the int8 mainloop fed by TMA (`pv_segmax_scan_i8_wgmma`)
+    where `wgmma_i8_ready` holds, else the same mainloop fed by cp.async
+    (dim 104 on an aligned base) or by the realigning producer (a base 1
+    byte off), with the same arguments, never the mma.sync tile;
+    "segmax_i8" counts every launch, "segmax_i8_wgmma" / "_cpasync" /
+    "_realign" each producer's."""
     cap = 2 * SEG
     q = torch.zeros(17, dim, dtype=torch.int8)
     v = torch.zeros(cap * dim + 16, dtype=torch.int8)[offset:offset + cap * dim]
@@ -346,10 +349,13 @@ def test_k5_dispatch_by_wgmma_i8_ready(recorded, dim, offset, tc):
     keys = tscan.segmax_scan_i8(*map(_as_cuda, (q, v, vs, mask)))
     assert keys.shape == (17, 2 * cap // SEG)
     (entry, args), = recorded
-    assert entry == ("pv_segmax_scan_i8_wgmma" if tc else "pv_segmax_scan_i8")
+    kind = "_wgmma" if tc else "_realign" if offset % 4 else "_cpasync"
+    assert entry == "pv_segmax_scan_i8" + kind
     assert args[5:] == (17, cap, dim)
     assert tscan.LAUNCHES["segmax_i8"] == before["segmax_i8"] + 1
-    assert tscan.LAUNCHES["segmax_i8_wgmma"] == before["segmax_i8_wgmma"] + tc
+    for k in ("_wgmma", "_cpasync", "_realign"):
+        assert (tscan.LAUNCHES["segmax_i8" + k]
+                == before["segmax_i8" + k] + (k == kind))
 
 
 def test_counters_stay_zero_on_the_cpu():
