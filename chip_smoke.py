@@ -108,7 +108,12 @@ ready rules), K3's wide kind beside them at k_sel 142-384 on the store's
 1M rows and on int8 planes of 2M, 4M and 16M rows made on the card (the
 crossover behind I8_WIDE_K_MIN and `i8_wide_covers`), and top_k = 300
 (k_sel 432, the wide kind) through the public API, held to the float64
-oracle. `--k3-cross` runs the build and the larger planes' table alone. `python3 chip_smoke.py --q64-latency` times only the int8
+oracle. `--k3-cross` runs the build and the larger planes' table alone.
+K4 at Q <= 16 runs its one-query sweep (or the sweep's narrow kind over
+rows TMA cannot read) beside the tensor-core scan in phases 2, 3, 3b, 3c
+and 7, and phases 3, 3b, 3c and 11a serve it through the public API;
+`--k4-cross` runs the build and the crossovers behind its limits alone,
+on planes made on the card. `python3 chip_smoke.py --q64-latency` times only the int8
 store's Q = 64 host-rescored batches through the public API, on a store
 of its own, so that a checkout without this script's other phases can be
 timed beside this one; `--mesh` runs the build and phase 11 alone (the
@@ -359,6 +364,19 @@ KERNELS = {
     "fused_topk_wide_realign": ("scan_topk_wide_realign",
                                 "picovdb_tpu_torch/csrc/topk_wide.cu",
                                 "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
+    # K4's one-query sweep (csrc/sweep_topk.cu `F32` / `Bf16F`): phase 3's
+    # store without the int8 tier drives it through the public API
+    # (mixed_fused_smallq: Q = 1 and 4 over the bf16 mirror), phase 11a's
+    # pallas_fused and mesh stores at Q = 1; its narrow kind over rows the
+    # 16-byte sweep cannot read, phase 3b's and 3c's stores (Q = 1 and 4
+    # through mixed_fused_smallq over their bf16 mirrors and pallas_fused
+    # over their float32 rows at dims 1019 and 25)
+    "fused_topk_sweep": ("scan_topk_sweep",
+                         "picovdb_tpu_torch/csrc/sweep_topk.cu",
+                         "picovdb_tpu/ops/pallas_scan.py:226", 3),
+    "fused_topk_narrow": ("scan_topk_narrow",
+                          "picovdb_tpu_torch/csrc/sweep_topk.cu",
+                          "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
     # K7's and K8's kinds over IVF postings TMA cannot read: phase 7c's
     # stores at ann-benchmarks' widths drive them through the public API
     # (the narrow sweep at Q = 1 on the float stores; the tensor-core scan
@@ -431,7 +449,8 @@ KERNELS = {
 }
 # Every K4 / K3 kind's launch key: a path's template launches are its
 # "scan_topk" / "scan_topk_i8" launches less these
-K4_KIND_KEYS = ("scan_topk_wgmma", "scan_topk_wgmma_cpasync",
+K4_KIND_KEYS = ("scan_topk_sweep", "scan_topk_narrow",
+                "scan_topk_wgmma", "scan_topk_wgmma_cpasync",
                 "scan_topk_wgmma_realign", "scan_topk_wide",
                 "scan_topk_wide_cpasync", "scan_topk_wide_realign")
 K3_KIND_KEYS = ("scan_topk_i8_sweep", "scan_topk_i8_narrow",
@@ -987,20 +1006,60 @@ def k4_check(torch, got, ref, mask, k: int, what: str) -> float:
     return err
 
 
+def k4_sweep_run(torch, scan, q, rows, mask, k: int):
+    """K4's one-query sweep that can take these operands, launched
+    uncounted (the 16-byte sweep where `_topk_tma_ready` holds, else its
+    narrow kind), as (name, run), or None where neither takes the shape
+    (Q past 16, k past 128, a query block or phase copies past their
+    shared memory)."""
+    nq, dim = q.shape
+    if nq > scan.SWEEP_Q_MAX or k > scan.SWEEP_K_MAX:
+        return None
+    if scan._topk_tma_ready(q, rows):
+        if scan.sweep_tile(nq) * dim * 4 > scan.SWEEP_QBLOCK_BYTES:
+            return None
+        return "sweep", lambda: scan._topk_sweep_launch(q, rows, mask, k)
+    if (scan.topk_narrow_bytes(nq, dim, rows.element_size(), rows.data_ptr())
+            > scan.NARROW_SMEM_BYTES):
+        return None
+    return "narrow sweep", lambda: scan._topk_sweep_launch(
+        q, rows, mask, k, "scan_topk", "pv_sweep_topk_f32_narrow")
+
+
+# K4's kinds by their launch keys (the rows' producer's suffix aside)
+K4_SERVED = (("scan_topk_sweep", "sweep"), ("scan_topk_narrow", "narrow sweep"),
+             ("scan_topk_wgmma", "tensor-core scan"),
+             ("scan_topk_wide", "wide kind"))
+
+
+def k4_served(scan, before) -> str:
+    """The kind a K4 dispatch took, from the launch counters since
+    `before`."""
+    for key, name in K4_SERVED:
+        if any(scan.LAUNCHES[key + sfx] > before[key + sfx]
+               for sfx in set(scan._PIECE_KEY.values())
+               if key + sfx in scan.LAUNCHES):
+            return name
+    return "template"
+
+
 def k4_timed(torch, scan, q, rows, mask, k: int, reps: int):
     """K4 on float32 queries `q` over `rows` (float32 or bf16): the
     dispatch's result, and each kernel that can take these operands
-    launched uncounted (the tensor-core scan at k <= 128, the template),
-    held to the plain version (run over 131,072-row slices) by `k4_check`
-    and timed. Returns the kernel the dispatch chose, each kernel's time
-    and the max |dscore|."""
-    before = scan.LAUNCHES["scan_topk_wgmma"]
+    launched uncounted (the one-query sweep or its narrow kind at Q <= 16
+    and k <= 128, the tensor-core scan at k <= 128, the template), held to
+    the plain version (run over 131,072-row slices) by `k4_check` and
+    timed. Returns the kernel the dispatch chose, each kernel's time and
+    the max |dscore|."""
+    before = dict(scan.LAUNCHES)
     got = scan.fused_topk(q, rows, mask, k)
-    served = ("tensor-core scan" if scan.LAUNCHES["scan_topk_wgmma"] > before
-              else "template")
+    served = k4_served(scan, before)
     ref = scan.scan_topk_plain(q, rows, None, mask, k + 1, chunk=131_072)
     kind = scan._KIND_F32 if rows.dtype == torch.float32 else scan._KIND_BF16
     runs = {}
+    sweep = k4_sweep_run(torch, scan, q, rows, mask, k)
+    if sweep is not None:
+        runs[sweep[0]] = sweep[1]
     if k <= scan.TOPK_WGMMA_K_MAX:
         runs["tensor-core scan"] = lambda: scan._topk_wgmma_launch(q, rows,
                                                                    mask, k)
@@ -1039,15 +1098,154 @@ def k4_table(torch, scan, queries, rows, mask, shapes, reps: int = 3):
 
 
 def k4_launches_ok(scan, counts) -> bool:
-    """Whether a path's K4 launches at Q >= TOPK_WGMMA_Q_MIN and k_sel <=
-    128 (its `launch_counts` shapes, "Q=.. k=..") went through the
-    tensor-core scan, and only those (the paths' rows are of whole 16
-    bytes)."""
-    want = 0
+    """Whether a path's K4 launches at k_sel <= 128 (its `launch_counts`
+    shapes, "Q=.. k=..") went through the kind the ready rules name for
+    rows of whole 16 bytes (the paths' rows): the one-query sweep up to
+    TOPK_SWEEP_Q_MAX queries, shape for shape, the tensor-core scan past
+    it, and only those."""
+    want = {"scan_topk_sweep": {}, "scan_topk_wgmma": 0}
     for shape, n in counts["shapes"].get("scan_topk", {}).items():
         q, k = (int(part.split("=")[1]) for part in shape.split())
-        want += n if q >= scan.TOPK_WGMMA_Q_MIN and k <= 128 else 0
-    return counts["scan_topk_wgmma"] == want
+        if k > 128:
+            continue
+        if q <= scan.TOPK_SWEEP_Q_MAX:
+            want["scan_topk_sweep"][shape] = n
+        elif q >= scan.TOPK_WGMMA_Q_MIN:
+            want["scan_topk_wgmma"] += n
+    return (counts["scan_topk_wgmma"] == want["scan_topk_wgmma"]
+            and counts["shapes"].get("scan_topk_sweep", {})
+            == want["scan_topk_sweep"])
+
+
+# K4's one-query sweeps against its tensor-core scan (the limits behind
+# scan.TOPK_SWEEP_Q_MAX and TOPK_NARROW_Q_MAX): the sweep's query tiles
+# 1 ... 16 at the routes' k_sel 14 (k = 10 + 4) and 36 (k = 32 + 4) and at
+# the sweep's widest, 128
+K4_SWEEP_SHAPES = tuple((nq, k) for k in (14, 36, 128)
+                        for nq in (1, 2, 4, 8, 16))
+K4_NARROW_SHAPES = tuple((nq, 14) for nq in (1, 2, 4, 8, 16))
+# the same on each of phases 3b's and 3c's stores (`narrow_holds`): the
+# limit's query tile and the next
+K4_NARROW_HOLD_SHAPES = ((1, 14), (4, 14), (8, 14))
+
+
+def k4_small_q_cross(torch, scan, queries, rows, mask, shapes,
+                     reps: int = 10, lib: bool = False):
+    """K4's one-query sweep over `rows` (the 16-byte sweep, or its narrow
+    kind where the 16-byte sweep cannot read them) beside the tensor-core
+    scan at each (Q, k_sel) of `shapes`, on the first Q of the normalized
+    `queries`: both held to the plain version (over 131,072-row slices) by
+    `k4_check` and timed (CUDA events, median of `reps`), with the bound
+    (the live rows' bytes, the sweep's float32 FMAs) and the kind the
+    ready rules give the shape; with `lib`, the library pair at Q = 1
+    (LIB_K4: torch.matmul of the rows' dtype). Returns ({(Q, k): record},
+    the line, the max |dscore|)."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    live, cap, dim = int(mask.sum()), rows.shape[0], rows.shape[1]
+    es = rows.element_size()
+    out, parts, err = {}, [], 0.0
+    for nq, k in shapes:
+        q = normalize_on_device(queries[:nq])
+        ref = scan.scan_topk_plain(q, rows, None, mask, k + 1, chunk=131_072)
+        runs = {}
+        sweep = k4_sweep_run(torch, scan, q, rows, mask, k)
+        if sweep is not None:
+            runs[sweep[0]] = sweep[1]
+        runs["tensor-core scan"] = lambda: scan._topk_wgmma_launch(q, rows,
+                                                                   mask, k)
+        r = {}
+        for name, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            err = max(err, k4_check(torch, got, ref, mask, k,
+                                    f"K4 {name} {str(rows.dtype)[6:]} Q={nq} "
+                                    f"k_sel={k} dim {dim}"))
+            del got
+            r[name] = cuda_ms(torch, run, reps)
+        del ref
+        b = entry(0.0, 0, 0, nq * dim * 4 + live * dim * es + cap
+                  + nq * k * 8, 2 * nq * live * dim, "f32")
+        r["bound_ms"], r["bound_by"] = b["bound_ms"], b["bound_by"]
+        r["served"] = ("sweep" if scan.topk_sweep_ready(q, rows, k)
+                       else "narrow sweep" if scan.topk_narrow_ready(q, rows, k)
+                       else "tensor-core scan")
+        if lib and nq == 1:
+            ql = q.to(rows.dtype)
+            r["library_ms"] = cuda_ms(torch, lib_topk(
+                torch, lambda: torch.matmul(ql, rows.T), ~mask, k), reps)
+        out[nq, k] = r
+        parts.append(f"Q={nq} k_sel={k} ({r['served']}): " + ", ".join(
+            f"{name} {r[name]:.4f}" for name in runs)
+            + (f", library {r['library_ms']:.4f}" if "library_ms" in r else "")
+            + f" ms, bound {r['bound_ms']:.4f}")
+    return out, "; ".join(parts), err
+
+
+def k4_cross_record(out, name: str, plain_ms) -> dict:
+    """A kernels-line record of K4's sweep kind `name` from a
+    `k4_small_q_cross` table: its Q = 1, k_sel 14 numbers, every shape's
+    under "shapes"."""
+    r = out[1, 14]
+    shapes = {f"Q={nq} k_sel={k}": {
+        "ms": v.get(name), "tensor_core_ms": v["tensor-core scan"],
+        "bound_ms": v["bound_ms"], "served": v["served"]}
+        for (nq, k), v in out.items()}
+    return {"max_abs_err": 0.0, "ms": r[name], "plain_ms": plain_ms,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"), "library_call": LIB_K4,
+            "tensor_core_ms": r["tensor-core scan"], "shapes": shapes}
+
+
+# `--k4-cross`: K4's one-query sweeps against its tensor-core scan on
+# planes made on the card (its own generator, SEED + 25): float32 rows of
+# phase 2's and phase 7's sizes, bf16 rows of phase 2's and phase 3's (the
+# mirror), at K4_SWEEP_SHAPES; and rows TMA cannot read at phase 3b's
+# widths and size and phase 3c's (with their first 131,072 rows), in both
+# dtypes, at K4_NARROW_SHAPES
+K4_CROSS_WIDE = (("float32", IVF_N), ("bfloat16", MAIN_N))
+K4_CROSS_NARROW = ((1020, WMMA_N), (ODD_DIM, WMMA_N), (100, ANN_N),
+                   (25, ANN_N))
+
+
+def k4_cross(torch, scan, device) -> str:
+    """The crossovers behind TOPK_SWEEP_Q_MAX and TOPK_NARROW_Q_MAX
+    (`k4_small_q_cross` on each plane and its first PHASE2_CAP rows, ~10 %
+    of the rows masked out). Returns the lines."""
+    g = torch.Generator(device=device).manual_seed(SEED + 25)
+    lines = []
+
+    def plane(n, dim):
+        v = torch.randn(n, dim, generator=g, device=device)
+        return torch.nn.functional.normalize(v, dim=1)
+
+    def table(label, rows, mask, queries, shapes, sizes):
+        for n in sizes:
+            _, line, err = k4_small_q_cross(torch, scan, queries, rows[:n],
+                                            mask[:n], shapes, lib=True)
+            lines.append(f"{label}, {n} rows (max |dscore| {err:.3g}): {line}")
+            log(f"K4 sweep crossover: {lines[-1]}")
+
+    f32 = plane(IVF_N, DIM)
+    mask = torch.rand(IVF_N, generator=g, device=device) >= 0.1
+    queries = torch.randn(16, DIM, generator=g, device=device)
+    for dt, n in K4_CROSS_WIDE:
+        rows = f32 if dt == "float32" else f32[:n].to(torch.bfloat16)
+        table(f"{dt} x {DIM}", rows, mask, queries, K4_SWEEP_SHAPES,
+              (PHASE2_CAP, n))
+        del rows
+    del f32, mask
+    torch.cuda.empty_cache()
+    for dim, n in K4_CROSS_NARROW:
+        v = plane(n, dim)
+        mask = torch.rand(n, generator=g, device=device) >= 0.1
+        queries = torch.randn(16, dim, generator=g, device=device)
+        for rows in (v, v.to(torch.bfloat16)):
+            table(f"{str(rows.dtype)[6:]} x {dim}", rows, mask, queries,
+                  K4_NARROW_SHAPES, sorted({PHASE2_CAP, n}))
+        del v, mask
+        torch.cuda.empty_cache()
+    return " | ".join(lines)
 
 
 # The (Q, k_sel) shapes phase 2 holds and times K7's tensor-core scan at:
@@ -1603,6 +1801,28 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
                 torch, lambda: torch.matmul(q1, corpus.T), notm, 14))},
         "Q=16 k_sel=1024 (the wide kind)": {
             "ms": ms_f32, "library_ms": w16["library_ms"]}}
+    lib4_f32["Q=1 k_sel=14"]["tensor_core_ms"] = cuda_ms(
+        torch, lambda: scan._topk_wgmma_launch(q1, corpus, mask, 14))
+    # K4's one-query sweep beside the tensor-core scan at K4_SWEEP_SHAPES
+    # over the float32 rows and the bf16 mirror (the crossover behind
+    # TOPK_SWEEP_Q_MAX at phase 2's size); the kernels line's row is the
+    # float32 rows' Q = 1, k_sel 14 (the library pair's GEMV beside it)
+    sw, sw_lines, sw_err = {}, [], 0.0
+    for rows in (corpus, lp):
+        dt = str(rows.dtype)[6:]
+        out, line, err = k4_small_q_cross(torch, scan, q256, rows, mask,
+                                          K4_SWEEP_SHAPES, lib=True)
+        sw[dt] = out
+        sw_lines.append(f"{dt}: {line}")
+        sw_err = max(sw_err, err)
+    pms_sw = cuda_ms(torch, lambda: scan.scan_topk_plain(q1, corpus, None,
+                                                         mask, 14))
+    rec["fused_topk_sweep"] = k4_cross_record(sw["float32"], "sweep", pms_sw)
+    rec["fused_topk_sweep"]["max_abs_err"] = sw_err
+    rec["fused_topk_sweep"]["shapes"] = {
+        f"{dt} {shape}": v for dt, out in sw.items()
+        for shape, v in k4_cross_record(out, "sweep", None)["shapes"].items()}
+    lib4_f32["Q=1 k_sel=14"]["sweep_ms"] = sw["float32"][1, 14]["sweep"]
     rec["fused_topk"] = entry(
         max(errs), k4["bfloat16", 64, 36]["tensor-core scan"], pms_bf,
         64 * dim * 4 + live * dim * 2 + cap + 64 * 36 * 8,
@@ -1625,8 +1845,15 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             for (dt, nq4, ksel), times in k4.items())
         + f"; plain bf16 Q=64 k_sel=36 {pms_bf:.4f}; {LIB_K4}: bf16 "
         f"Q=64 k_sel=36 {lib4:.4f}, " + ", ".join(
-            f"float32 {shape} {t['library_ms']:.4f} (K4 {t['ms']:.4f})"
+            f"float32 {shape} {t['library_ms']:.4f} (K4 {t['ms']:.4f}"
+            + (f": the sweep {t['sweep_ms']:.4f}, the tensor-core scan "
+               f"{t['tensor_core_ms']:.4f}" if "sweep_ms" in t else "") + ")"
             for shape, t in lib4_f32.items()))
+    log(f"phase 2: K4's one-query sweep (16-byte kinds F32 / Bf16F) agrees "
+        f"within {sw_err:.3g} (limit {TOL_SCORE:g}), ids = plain outside the "
+        f"gap; beside the tensor-core scan (ms; the kind the dispatch gives "
+        f"the shape; library = {LIB_K4} at Q = 1; plain at float32 Q=1 "
+        f"k_sel=14 {pms_sw:.4f}): " + " | ".join(sw_lines))
     log(f"phase 2: K4 fused_topk (wide kind) = plain under the ~10 % mask, a "
         f"30 % filter and no live row (scores within {TOL_SCORE:g}, ids "
         f"outside the gap; each shape: the wide kind, the template it "
@@ -1670,6 +1897,7 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
         q8, v4, vs4, mask, 1024, int4=True))
     bound_w = entry(0.0, 0, 0, 16 * dim + live * (dim // 2 + 4) + cap
                     + 16 * 1024 * 8, 2 * 16 * live * dim, "int8")["bound_ms"]
+    lib_w = k6_lib_ms(torch, scan, q8, v4, vs4, ~mask, 1024)
     # the library yardstick on the K1 batch's first query (no new draw)
     q8l, _ = scan.quantize_rows_i8(q[:1])
     lib1 = k6_lib_ms(torch, scan, q8l, v4, vs4, ~mask, 14)
@@ -1691,7 +1919,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
             f"{name} {t:.4f}" for name, t in times.items())
             for n, (served, times, _) in k6.items())
         + f"; plain {', '.join(f'{m:.4f}' for m in pms)}; template at Q=16 "
-        f"k_sel=1024 {ms_w:.4f} ms (bound {bound_w:.4f}, plain {pms_w:.4f}); "
+        f"k_sel=1024 {ms_w:.4f} ms (bound {bound_w:.4f}, plain {pms_w:.4f}, "
+        f"{LIB_K6} {lib_w:.4f}); "
         f"at Q=1 {split6}")
 
     # K6's wide kind at K6_WIDE_SHAPES (the queries of the K1 batch above:
@@ -2336,9 +2565,9 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     assert not (set(back[back != None].tolist()) & set(gone))  # noqa: E711
     counts = launch_counts(scan)
     for name, (key, _, _, phase) in KERNELS.items():
-        if phase == 3:
+        if phase == 3 and name != "fused_topk_sweep":  # (its own store's)
             assert counts[key] > 0, f"{name} never launched on the main path"
-    assert k4_launches_ok(scan, counts), "a K4 launch missed the tensor-core scan"
+    assert k4_launches_ok(scan, counts), "a K4 launch missed its kind"
     # K1 alone at one 2048-query chunk on the store's own mirror and mask
     # (after the count: not the path's): held against its plain version,
     # run over 131,072-row slices (its keys are per 128-row segment), and
@@ -2408,6 +2637,14 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
     k4_line, err = k4_table(torch, scan, qdev, dev.vectors_lp, dev.active,
                             K4_SHAPES)
     rec["fused_topk"]["max_abs_err"] = max(rec["fused_topk"]["max_abs_err"], err)
+    # the sweep's widest k_sel beside the scan over the same mirror (k_sel
+    # 14 and 36 are K4_SHAPES' rows above)
+    _, k4_128, err = k4_small_q_cross(
+        torch, scan, qdev, dev.vectors_lp, dev.active,
+        tuple((nq, 128) for nq in (1, 2, 4, 8, 16)))
+    rec["fused_topk_sweep"]["max_abs_err"] = max(
+        rec["fused_topk_sweep"]["max_abs_err"], err)
+    k4_line += "; at k_sel 128: " + k4_128
     del qb, qf, q64f, fmask
     log(f"phase 3: main path at {n} x {dim}: routes segmax_mixed_stream, "
         f"i8_fused_smallq, fview_segmax, mixed_fused_batch_filtered, "
@@ -2448,6 +2685,22 @@ def phase_main(torch, scan, device, n: int, dim: int, rng, card: str, rec,
         f"({100 * k1_ms / chunk_ms:.1f} %, CUDA events on the store's "
         f"{dev.vectors_lp.shape[0]}-row bf16 mirror); Q=1 latency "
         f"{q1_ms:.4f} ms (CUDA events around PicoVectorDB.query); card {card}")
+    del db2, dev
+    torch.cuda.empty_cache()
+    # K4 at small Q through the public API: a store of the same rows
+    # without the int8 tier (mixed_fused_smallq: the sweep's Bf16F kind
+    # over the bf16 mirror); its launches join the phase's
+    small, line = small_q_serve(torch, scan, device, corpus, qdev, "v", tmp,
+                                f"a {n} x {dim} float32 store",
+                                SMALL_Q_STORES[:1], rec, "3")
+    for key in K4_KIND_KEYS + ("scan_topk",):
+        counts[key] += small[key]
+    for key, per in small["shapes"].items():
+        agg = counts["shapes"].setdefault(key, {})
+        for shape, m in per.items():
+            agg[shape] = agg.get(shape, 0) + m
+    assert counts["scan_topk_sweep"] > 0, "K4's sweep never launched"
+    log(f"phase 3: K4 at small Q through the public API: {line}")
     shutil.rmtree(tmp)
     return counts
 
@@ -2543,6 +2796,14 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
                                allow, f"the {n} x {d} float32 store")
         for k in K4_KIND_KEYS + K3_KIND_KEYS:
             narrow[k] = narrow.get(k, 0) + c[k]
+        tmp = tempfile.mkdtemp(prefix="picovdb_smoke_", dir=os.getcwd())
+        sq, sq_line = small_q_serve(torch, scan, device, corpus, qdev,
+                                    prefix, tmp, f"the {n} x {d} rows",
+                                    rec=rec, label=f"3b dim {d}")
+        shutil.rmtree(tmp)
+        for k in K4_KIND_KEYS:
+            narrow[k] = narrow.get(k, 0) + sq[k]
+        log(f"phase 3b: K4 at small Q through the public API: {sq_line}")
         with uncounted(scan):
             fmask = torch.zeros_like(db._dev.active)
             fmask[torch.from_numpy(allow).to(device)] = True
@@ -2594,7 +2855,137 @@ def phase_narrow_stores(torch, scan, device, n: int, dim: int, rng, rec,
         f"launches {odd}")
     counts["segmax_realign"] = odd["segmax_realign"]
     counts.update(narrow)
+    assert counts["scan_topk_narrow"] > 0, "K4's narrow sweep never launched"
     return counts
+
+
+# K4's small-Q routes through the public API (`small_q_serve`): stores of
+# the phase's rows built for them, by route: a store without the int8
+# tier (K4 over the bf16 mirror) and one under scan_mode="fused" (K4 over
+# the float32 rows)
+SMALL_Q_STORES = (("mixed_fused_smallq", {"int8_tier": False}),
+                  ("pallas_fused", {"scan_mode": "fused"}))
+SMALL_Q_SINGLES = 16  # single `query` calls a store
+
+
+def small_q_serve(torch, scan, device, corpus, qdev, prefix: str, tmp: str,
+                  what: str, routes=SMALL_Q_STORES, rec=None, label=None):
+    """K4 at small Q through the public API on stores of `corpus` (host
+    float32 unit rows) built for it, one a route of `routes`, each path's
+    launches counted from 0 to just after its calls: SMALL_Q_SINGLES
+    single `query` calls and a 4-query `query_batched` (top_k 10, k_sel
+    14). mixed_fused_smallq (int8_tier=False) takes K4 over the bf16
+    mirror, pallas_fused (scan_mode="fused") over the float32 rows (the
+    16-byte sweep over rows of whole 16 bytes, else its narrow kind). Each
+    path's K4 launches at k_sel <= 128 take the kind the ready rules name
+    for their shape (the engine's exact retry of a crowded call included:
+    K4 over the float32 rows at the call's Q), none the template, and the
+    expected sweep kind served every single call (its launches at Q = 1,
+    k = 14); recall@10 against the float64 oracle >= 0.99. After the
+    count (uncounted), with `rec`, the kind each store's rows take at Q =
+    1 and 4, k_sel 14, held to the plain version and timed beside the
+    tensor-core scan and the library pair (`k4_small_q_cross`), recorded
+    under the kernels line's names (`narrow_rec`, shapes labelled
+    `label`). Returns the launches summed over the paths and a line."""
+    from picovdb_tpu_torch import PicoVectorDB
+
+    n, dim = corpus.shape
+    ids = [f"{prefix}{i}" for i in range(n)]
+    q16 = qdev[:SMALL_Q_SINGLES].cpu().numpy()
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    truth = oracle_top10(torch, corpus_dev, qdev[:SMALL_Q_SINGLES],
+                         torch.ones(n, dtype=torch.bool, device=device))
+    del corpus_dev
+    total, parts = {"shapes": {}}, []
+    for route, kw in routes:
+        db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                          storage_file=os.path.join(tmp, f"{prefix}_{route}"),
+                          **kw)
+        db.upsert_columnar(corpus, ids=ids, copy=True)
+        db.rebuild_index()
+        torch.cuda.synchronize()
+        dev = db._dev
+        rows = dev.vectors_lp if route == "mixed_fused_smallq" else dev.vectors
+        scan.reset_launch_counts()  # count this path's launches only
+        seen, singles = set(), []
+        for i in range(SMALL_Q_SINGLES):
+            singles.append([h["_id_"] for h in db.query(q16[i], top_k=10)])
+            seen.add(db.last_query_debug()["strategy"])
+        batch = db.query_batched(q16[:4], top_k=10)
+        seen.add(db.last_query_debug()["strategy"])
+        torch.cuda.synchronize()
+        counts = launch_counts(scan)
+        # a crowded call's exact retry reports its own route
+        assert route in seen and seen <= {route, "pallas_fused", "xla_topk"}, \
+            (route, seen)
+        assert templates_launched(counts)["K4"] == 0, counts
+        sh = counts["shapes"]
+
+        def kind_at(nq):  # the K4 kind the ready rules give Q over `rows`
+            probe = torch.zeros(nq, dim, device=device)
+            return ("scan_topk_sweep" if scan.topk_sweep_ready(probe, rows, 14)
+                    else "scan_topk_narrow"
+                    if scan.topk_narrow_ready(probe, rows, 14)
+                    else "scan_topk_wgmma" + scan._PIECE_KEY[
+                        scan.rows_piece(rows)])
+
+        first = kind_at(1)
+        assert not first.startswith("scan_topk_wgmma"), first
+        assert sh.get(first, {}).get("Q=1 k=14", 0) >= SMALL_Q_SINGLES, sh
+        assert sh.get(kind_at(4), {}).get("Q=4 k=14", 0) >= 1, sh
+        q1_all = sh["scan_topk"].get("Q=1 k=14", 0)
+        q1_sweeps = (sh.get("scan_topk_sweep", {}).get("Q=1 k=14", 0)
+                     + sh.get("scan_topk_narrow", {}).get("Q=1 k=14", 0))
+        assert q1_sweeps == q1_all, sh  # every Q = 1 launch on a sweep
+        r1 = recall_at_10(singles, truth, prefix)
+        r4 = recall_at_10([[h["_id_"] for h in r] for r in batch], truth[:4],
+                          prefix)
+        assert min(r1, r4) >= 0.99, (what, route, r1, r4)
+        for key, v in counts.items():
+            if key != "shapes":
+                total[key] = total.get(key, 0) + v
+        for key, per in sh.items():
+            agg = total["shapes"].setdefault(key, {})
+            for shape, m in per.items():
+                agg[shape] = agg.get(shape, 0) + m
+        q1_ms = cuda_ms(torch, lambda: db.query(q16[0], top_k=10), reps=20)
+        held = ""
+        if rec is not None:
+            with uncounted(scan):
+                dt = str(rows.dtype)[6:]
+                out, line, err = k4_small_q_cross(
+                    torch, scan, qdev, rows, dev.active, ((1, 14), (4, 14)),
+                    lib=True)
+                name = ("fused_topk_sweep" if first == "scan_topk_sweep"
+                        else "fused_topk_narrow")
+                kind = "sweep" if name == "fused_topk_sweep" else "narrow sweep"
+                q1 = qdev[:1]
+                plain = timed_ms(torch, lambda: scan.scan_topk_plain(
+                    q1, rows, None, dev.active, 14, chunk=131_072), 3)
+                r = entry(err, out[1, 14][kind], plain, 0, 0, "f32",
+                          out[1, 14].get("library_ms"), LIB_K4)
+                r["bound_ms"] = out[1, 14]["bound_ms"]
+                r["bound_by"] = out[1, 14]["bound_by"]
+                r["tensor_core_ms"] = out[1, 14]["tensor-core scan"]
+                shape = f"{label} {dt} Q=1 k_sel=14 ({route})"
+                if name == "fused_topk_sweep":  # phase 2's row, a shape more
+                    row = rec[name]
+                    row["shapes"][shape] = r
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                else:
+                    narrow_rec(rec, name, shape, r)
+                held = f"; on the store's {dt} rows: {line}"
+        parts.append(
+            f"{route} ({'K4 over the ' + str(rows.dtype)[6:] + ' rows'}): "
+            f"routes {sorted(seen)}, K4 launches by kind "
+            + json.dumps({k: sh[k] for k in ("scan_topk", "scan_topk_sweep",
+                                             "scan_topk_narrow",
+                                             "scan_topk_wgmma") if k in sh})
+            + f", recall@10 vs float64 singles {r1:.4f} / Q=4 {r4:.4f}, "
+            f"Q=1 latency {q1_ms:.4f} ms{held}")
+        del db, dev, rows
+        torch.cuda.empty_cache()
+    return total, f"{what}: " + "; ".join(parts)
 
 
 def templates_launched(counts) -> dict:
@@ -2616,7 +3007,8 @@ def narrow_rec(rec, name: str, label: str, record: dict) -> None:
     shapes[label] = {k: record[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms", "template_ms",
-                                            "tile_ms", "tma_ms")
+                                            "tile_ms", "tma_ms",
+                                            "tensor_core_ms")
                       if k in record}
     rec[name] = {**record, "max_abs_err": max(record["max_abs_err"],
                                               old.get("max_abs_err", 0.0)),
@@ -2772,6 +3164,15 @@ def narrow_holds(torch, scan, dev, qdev, fmask, rec, label: str) -> str:
                      f"{tmpl:.4f}, library {lib:.4f}, bound "
                      f"{r['bound_ms']:.4f} ({r['bound_by']})")
     del v8p
+    # K4's one-query sweeps over the store's float32 rows and bf16 mirror
+    # (the 16-byte sweep where they are whole 16 bytes, else the narrow
+    # kind) beside the tensor-core scan: the crossover behind
+    # TOPK_NARROW_Q_MAX at this width
+    for rows in (dev.vectors, dev.vectors_lp):
+        _, line, err = k4_small_q_cross(torch, scan, qdev, rows, act,
+                                        K4_NARROW_HOLD_SHAPES)
+        parts.append(f"K4's sweep over the {str(rows.dtype)[6:]} rows "
+                     f"(max |dscore| {err:.3g}): {line}")
     fl = int(fmask.sum())
     for rows, nq, ksel, msk, wide in (
             (dev.vectors_lp, 64, 36, act, False),
@@ -3227,6 +3628,9 @@ def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
                               reps=5)
         del db, corpus_dev, fmask
         torch.cuda.empty_cache()
+        sq_counts, sq_line = small_q_serve(torch, scan, device, corpus, qdev,
+                                           "g", tmp, f"the {n} x {dim} rows",
+                                           rec=rec, label=f"3c dim {dim}")
         shutil.rmtree(tmp)
         i8_counts, i8_line = int8_narrow_store(torch, scan, device, corpus,
                                                qdev, rec, f"3c dim {dim}")
@@ -3235,13 +3639,14 @@ def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
             torch, scan, device, corpus, i8_narrow_queries(g33, corpus), rec,
             f"3c dim {dim}")
         torch.cuda.empty_cache()
-        for c in (counts, i8_counts, k5_counts):
+        for c in (counts, sq_counts, i8_counts, k5_counts):
             for k, v in c.items():
                 if k != "shapes":
                     total[k] = total.get(k, 0) + v
         log(f"phase 3c: {line}; Q=1 latency {q1_ms:.4f} ms, the 64-query "
             f"id-filtered batch {filt_ms:.3f} ms (CUDA events around "
-            f"PicoVectorDB.query); on the store's mirrors: {holds}; "
+            f"PicoVectorDB.query); on the store's mirrors: {holds}; K4 at "
+            f"small Q through the public API: {sq_line}; "
             f"{i8_line}; K5 / K10: {k5_line}; "
             f"{time.perf_counter() - t0:.1f} s")
     return total
@@ -3528,6 +3933,9 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
     q8_64, _ = scan.quantize_rows_i8(normalize_on_device(qdev[:64]))
     lib4 = {kk: k3_lib_ms(torch, q8_64, d2.vectors, d2.vstore_scale,
                           ~d2.active, kk) for kk in (142, 432)}
+    # the plain version at the template's old row's shape (Q = 64, k_sel 142)
+    plain4 = timed_ms(torch, lambda: scan.scan_topk_plain(
+        q8_64, d2.vectors, d2.vstore_scale, d2.active, 142), 3)
     # the tensor-core scan's device time by kernel (the scan, the merge) at
     # the host-rescore band's batch and at k_sel 14
     k3_split = {}
@@ -3572,7 +3980,8 @@ def phase_int8(torch, scan, device, n: int, dim: int, rng, card: str,
         f"scan, which take k_sel <= {scan.I8_WGMMA_K_MAX}, on the store's "
         f"plane (I8_WIDE_K_MIN = {scan.I8_WIDE_K_MIN}; the kernel the "
         f"dispatch chose, then each kernel's ms): {k3_wide}; {LIB_K3} at "
-        f"Q=64: k_sel=142 {lib4[142]:.4f} ms, k_sel=432 {lib4[432]:.4f} ms")
+        f"Q=64: k_sel=142 {lib4[142]:.4f} ms, k_sel=432 {lib4[432]:.4f} ms; "
+        f"plain at Q=64 k_sel=142 {plain4:.4f} ms")
     log(f"phase 4: K3's wide kind against the sweep and the tensor-core "
         f"scan on int8 planes of {', '.join(map(str, K3_LARGE_CAPS))} rows "
         f"x {DIM} made on the card (the wide kind's query tile, the kernel "
@@ -4438,7 +4847,7 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str,
     for name, (key, _, _, phase) in KERNELS.items():
         if phase == 7:
             assert counts[key] > 0, f"{name} never launched on the IVF path"
-    assert k4_launches_ok(scan, counts), "a K4 launch missed the tensor-core scan"
+    assert k4_launches_ok(scan, counts), "a K4 launch missed its kind"
 
     # float64 oracles: restricted to the rows each dispatch scanned (the
     # ids must agree outside the gap), and over every row (recall)
@@ -4476,6 +4885,13 @@ def phase_ivf_f32(torch, scan, device, n: int, dim: int, rng, card: str,
                               sel, dev.active, K4_SHAPES)
     rec["fused_topk"]["max_abs_err"] = max(rec["fused_topk"]["max_abs_err"],
                                            err, err_t)
+    # the sweep's widest k_sel beside the scan over the same rows
+    _, k4_128, err_s = k4_small_q_cross(
+        torch, scan, torch.from_numpy(qs).to(device), sel, dev.active,
+        tuple((nq, 128) for nq in (1, 2, 4, 8, 16)))
+    rec["fused_topk_sweep"]["max_abs_err"] = max(
+        rec["fused_topk_sweep"]["max_abs_err"], err_s)
+    k4_line += "; at k_sel 128: " + k4_128
     k7 += (f"; K4 at the {exact_route} route's Q=256 k_sel=14 over "
            f"{sel.dtype} rows within {max(err, err_t):.3g} of the plain "
            f"version, ids = plain outside the gap ({served}): " + ", ".join(
@@ -5617,7 +6033,8 @@ def phase_probes(torch, scan, device, card: str):
 
 
 # the KERNELS rows phase 11 drives on every shard: K4, K3, K6, K7
-MESH_ROWS = ("fused_topk", "fused_topk_i8", "fused_topk_i8_wgmma",
+MESH_ROWS = ("fused_topk", "fused_topk_sweep", "fused_topk_i8",
+             "fused_topk_i8_wgmma",
              "fused_topk_i4", "fused_topk_i4_wgmma", "ivf_scan_topk",
              "ivf_scan_topk_wgmma", "fused_topk_i4_wide",
              "fused_topk_i8_wide")
@@ -6034,8 +6451,13 @@ def phase_mesh(torch, scan, device, rng, card: str, rec=None) -> dict:
 
     # 11a: float32, K4 on every shard, beside one device and the plain scan
     single = store("single", device=dev0, scan_mode="fused")
+    scan.reset_launch_counts()
     s_ids, _, _ = mesh_serve(torch, scan, single, qdev, qhost, False)
     assert single.last_query_debug()["strategy"] == "pallas_fused"
+    s_counts = launch_counts(scan)
+    assert k4_launches_ok(scan, s_counts), "a K4 launch missed its kind"
+    # the one-device store's two Q = 1 calls: K4's one-query sweep
+    assert s_counts["shapes"]["scan_topk_sweep"]["Q=1 k=14"] == 2, s_counts
     s_times = mesh_times(torch, single, qdev, qhost)
     del single
     torch.cuda.empty_cache()
@@ -6046,7 +6468,11 @@ def phase_mesh(torch, scan, device, rng, card: str, rec=None) -> dict:
         got, _, seen = mesh_serve(torch, scan, db, qdev, qhost, False)
         counts = launch_counts(scan)
         assert db.last_query_debug()["strategy"] == "sharded_scan_pallas"
-        assert k4_launches_ok(scan, counts), "a K4 launch missed the wgmma scan"
+        assert k4_launches_ok(scan, counts), "a K4 launch missed its kind"
+        # the two Q = 1 calls: K4's one-query sweep on every shard of the
+        # mesh row that serves them
+        q1 = counts["shapes"]["scan_topk_sweep"]["Q=1 k=14"]
+        assert q1 == 2 * len(mesh.local_shards), counts
         launches = mesh_launches_ok(scan, mesh, "scan_topk", seen)
         add(counts)
         rec_s = mesh_oracle_check(got, ov, oi, f"11a dp={dp}", 0.99)
@@ -6070,7 +6496,8 @@ def phase_mesh(torch, scan, device, rng, card: str, rec=None) -> dict:
             f"ids = float64 oracle and = the one-device store outside the "
             f"gap on {MESH_ORACLE_Q}/{MESH_ORACLE_Q}; {fmt_times(t)} (one "
             f"device, route pallas_fused: {fmt_times(s_times)}); launches "
-            f"{launches}{extra}")
+            f"{launches}, K4's sweep at Q=1 {q1} (one device: "
+            f"{s_counts['shapes']['scan_topk_sweep']}){extra}")
         del db
         torch.cuda.empty_cache()
 
@@ -6491,7 +6918,7 @@ def mp_f32(torch, scan, mesh, cfg, say) -> dict:
     got, served, seen = mesh_serve(torch, scan, db, qdev, qhost, False)
     counts = launch_counts(scan)
     assert db.last_query_debug()["strategy"] == "sharded_scan_pallas"
-    assert k4_launches_ok(scan, counts), "a K4 launch missed the wgmma scan"
+    assert k4_launches_ok(scan, counts), "a K4 launch missed its kind"
     launches = mesh_launches_ok(scan, mesh, "scan_topk", seen)
     rec = mesh_oracle_check(got, ov, oi, "12a", 0.99)
     bad = ids_off_oracle(got, "m", ov, oi)
@@ -7920,6 +8347,7 @@ def main() -> int:
     int4_ann_only = sys.argv[1:] == ["--int4-ann"]
     i8_narrow_only = sys.argv[1:] == ["--i8-narrow"]
     narrow_ab_only = sys.argv[1:] == ["--narrow-ab"]
+    k4_cross_only = sys.argv[1:] == ["--k4-cross"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -7929,7 +8357,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.2f} s"
-        f" (nvcc {_build.build_seconds if _build.build_seconds else 0.0:.2f} s)")
+        f" (nvcc {_build.build_seconds if _build.build_seconds else 0.0:.2f} s"
+        + ("; the slowest sources " + ", ".join(
+            f"{name} {sec:.1f}" for name, sec in sorted(
+                _build.source_seconds.items(), key=lambda x: -x[1])[:4])
+           if _build.source_seconds else "") + ")")
     log(f"phase 1: ptxas: {ptxas_report(_build.build().parent / 'ptxas.log')}")
 
     if trace_only:
@@ -7937,6 +8369,10 @@ def main() -> int:
     if narrow_only:  # the narrow kinds' crossovers alone
         log(f"phase 3c: K3's narrow kinds' crossovers: "
             f"{narrow_cross(torch, scan, device)}")
+        print(card)
+        return 0
+    if k4_cross_only:  # K4's one-query sweeps against its scan alone
+        k4_cross(torch, scan, device)
         print(card)
         return 0
     if narrow_ab_only:  # K3's and K4's narrow kinds at phase 3c's shapes
@@ -8009,56 +8445,51 @@ def main() -> int:
         print(card)
         return 0
     rng = np.random.default_rng(SEED)
-    rec = phase_kernels(torch, scan, device, PHASE2_CAP, DIM, rng)
-    phase_ivf_kernels(torch, scan, device, PHASE2_CAP, DIM, rng, rec)
-    counts = {3: phase_main(torch, scan, device, MAIN_N, DIM, rng, card, rec)}
-    torch.cuda.empty_cache()
-    counts["3b"] = phase_narrow_stores(torch, scan, device, WMMA_N, DIM - 4,
-                                       rng, rec)
-    torch.cuda.empty_cache()
-    t3c = time.perf_counter()
-    counts["3c"] = phase_ann_widths(torch, scan, device, rec)
-    log(f"phase 3c: {time.perf_counter() - t3c:.1f} s")
-    torch.cuda.empty_cache()
-    counts[4] = phase_int8(torch, scan, device, I8_N, DIM, rng, card)
-    torch.cuda.empty_cache()
-    counts[5] = phase_int4(torch, scan, device, I4_N, DIM, rng, card)
-    torch.cuda.empty_cache()
-    counts["5b"] = phase_int4_ann(torch, scan, device, card, rec)
-    torch.cuda.empty_cache()
-    phase_bf16(torch, scan, device, BF16_N, DIM, rng)
-    torch.cuda.empty_cache()
-    counts[7] = phase_ivf_f32(torch, scan, device, IVF_N, DIM, rng, card,
-                             rec)
-    torch.cuda.empty_cache()
-    counts["7b"] = phase_ivf_host(torch, scan, device, IVF_HOST_N, DIM, card)
-    torch.cuda.empty_cache()
-    counts["7c"] = phase_ivf_ann(torch, scan, device, card, rec)
-    torch.cuda.empty_cache()
-    counts[8] = phase_ivf_int4(torch, scan, device, IVF_I4_N, DIM, rng,
-                              card, rec)
-    torch.cuda.empty_cache()
-    phase_sidecar(torch, device, SIDECAR_N, DIM)
-    torch.cuda.empty_cache()
-    counts[9] = phase_tiers(torch, scan, device, TIERS_N, DIM, rng, card,
-                           rec)["c"]
-    torch.cuda.empty_cache()
-    counts[10] = phase_probes(torch, scan, device, card)
-    torch.cuda.empty_cache()
+    phase_s = {}  # each phase's wall seconds
+
+    def run(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = round(time.perf_counter() - t, 1)
+        torch.cuda.empty_cache()
+        return out
+
+    rec = run("2", phase_kernels, torch, scan, device, PHASE2_CAP, DIM, rng)
+    run("2 ivf", phase_ivf_kernels, torch, scan, device, PHASE2_CAP, DIM, rng,
+        rec)
+    counts = {3: run("3", phase_main, torch, scan, device, MAIN_N, DIM, rng,
+                     card, rec)}
+    counts["3b"] = run("3b", phase_narrow_stores, torch, scan, device, WMMA_N,
+                       DIM - 4, rng, rec)
+    counts["3c"] = run("3c", phase_ann_widths, torch, scan, device, rec)
+    counts[4] = run("4", phase_int8, torch, scan, device, I8_N, DIM, rng, card)
+    counts[5] = run("5", phase_int4, torch, scan, device, I4_N, DIM, rng, card)
+    counts["5b"] = run("5b", phase_int4_ann, torch, scan, device, card, rec)
+    run("6", phase_bf16, torch, scan, device, BF16_N, DIM, rng)
+    counts[7] = run("7", phase_ivf_f32, torch, scan, device, IVF_N, DIM, rng,
+                    card, rec)
+    counts["7b"] = run("7b", phase_ivf_host, torch, scan, device, IVF_HOST_N,
+                       DIM, card)
+    counts["7c"] = run("7c", phase_ivf_ann, torch, scan, device, card, rec)
+    counts[8] = run("8", phase_ivf_int4, torch, scan, device, IVF_I4_N, DIM,
+                    rng, card, rec)
+    run("sidecar", phase_sidecar, torch, device, SIDECAR_N, DIM)
+    counts[9] = run("9", phase_tiers, torch, scan, device, TIERS_N, DIM, rng,
+                    card, rec)["c"]
+    counts[10] = run("10", phase_probes, torch, scan, device, card)
     before_s = time.perf_counter() - t_start
-    counts[13] = phase_rag(torch, scan, device, card, rec)
-    torch.cuda.empty_cache()
-    rag_s = time.perf_counter() - t_start - before_s
-    counts[11] = phase_mesh(torch, scan, device,
-                            np.random.default_rng(SEED + 11), card, rec)
-    torch.cuda.empty_cache()
+    counts[13] = run("13", phase_rag, torch, scan, device, card, rec)
+    rag_s = phase_s["13"]
+    counts[11] = run("11", phase_mesh, torch, scan, device,
+                     np.random.default_rng(SEED + 11), card, rec)
     t12 = time.perf_counter()
-    counts[12] = phase_multiprocess(torch, scan, card)
+    counts[12] = run("12", phase_multiprocess, torch, scan, card)
     t14 = time.perf_counter()
-    counts[14] = phase_tools(torch, scan, device, card)
+    counts[14] = run("14", phase_tools, torch, scan, device, card)
     log(f"smoke wall time: {time.perf_counter() - t_start:.1f} s, of which "
         f"phases 1-10 {before_s:.1f} s, phase 13 {rag_s:.1f} s, phase 12 "
-        f"{t14 - t12:.1f} s, phase 14 {time.perf_counter() - t14:.1f} s")
+        f"{t14 - t12:.1f} s, phase 14 {time.perf_counter() - t14:.1f} s; "
+        f"by phase (s): {json.dumps(phase_s)}")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,7 +1,7 @@
 // One-query sweeps of K9 fused_topk_i8c, K7 ivf_scan_topk, K6
-// fused_topk_i4 and K3 fused_topk_i8 at their serving shapes (Q <= 16,
-// k <= 128; K3 k <= 384; rows of 16-byte words): every row read once from
-// device memory, at HBM rate.
+// fused_topk_i4, K3 fused_topk_i8 and K4 fused_topk at their serving
+// shapes (Q <= 16, k <= 128; K3 k <= 384; rows of 16-byte words): every
+// row read once from device memory, at HBM rate.
 //
 // Replaces, on those shapes:
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i8 (`_scan_kernel_i8`,
@@ -24,17 +24,24 @@
 //    device table names, at Q <= 16 (a Q = 1 probe and the small batches),
 //    and through `sweep_narrow_kernel` at every postings width and base
 //    (ivf_scan_wgmma.cu and ivf_scan_wide.cu serve larger batches and k >
-//    128).
+//    128);
+//  * picovdb_tpu/ops/pallas_scan.py:fused_topk (`_scan_kernel`, K4) over
+//    float32 rows and the bf16 mirror at small Q (ops/scan.py::
+//    TOPK_SWEEP_Q_MAX; the Q = 1 exact retry, `mixed_fused_smallq`,
+//    `pallas_fused`, a mesh shard's Q = 1 call), and through
+//    `sweep_narrow_kernel` at every width and base (scan_topk_wgmma.cu
+//    served those shapes until then, and serves larger batches).
 // All compute what their templates compute: per query the k best masked
-// rows, one partial of k keys per CTA, merged by launch_topk_merge. Five
+// rows, one partial of k keys per CTA, merged by launch_topk_merge. Six
 // element kinds: column-scaled int8 rows x folded int8 queries ranked on
 // the raw int32 sum (int_row_key, ties to the lower row; bit for bit the
 // plain versions, whose keys are distinct per row, so the merged set does
 // not depend on the row shares); float32 rows x float32 queries and bf16
-// rows x bf16 queries (the TPU kernel casts q to the postings' dtype),
-// float32 sums ranked by row_key; packed int4 rows x int8 queries and
-// per-row-scaled int8 rows x int8 queries, the template's scaled score
-// ranked by row_key (see `Int4`, `Int8R`).
+// rows x bf16 queries (the TPU kernel casts q to the postings' dtype), and
+// bf16 rows x float32 queries (`Bf16F`, K4's mirror), float32 sums ranked
+// by row_key; packed int4 rows x int8 queries and per-row-scaled int8 rows
+// x int8 queries, the template's scaled score ranked by row_key (see
+// `Int4`, `Int8R`).
 //
 // What bounds it on the H100: the bytes. At Q = 1 a 16-byte word of a row
 // is 4 FMAs (f32), 8 (bf16), 4 __dp4a (int8) or 8 (int4), so the sweep of
@@ -197,6 +204,39 @@ struct Bf16 {  // bf16 rows and queries, float32 sums
   }
 };
 
+// bf16 rows (K4's mirror) against the float32 query (K4 keeps the query in
+// float32; K7's `Bf16` rounds it, as its TPU kernel does): a 16-byte row
+// word holds 8 bf16, met by two float32 query words, QW = 2. The query
+// block holds each query deinterleaved: word c of its first half the
+// query's floats [8 c, 8 c + 4), word c of its second half [8 c + 4, 8 c +
+// 8), so row word c meets words c and cpr + c (Int4's layout) and a warp's
+// reads of either half are contiguous (`query_word`). In the narrow kind
+// row word c meets word c of both halves of the phase copy. bf16 -> float32
+// is exact, so the sums are the plain version's float32 products, summed
+// in another order.
+struct Bf16F {
+  typedef float Acc;
+  static constexpr int EPW = 8;
+  static constexpr int QW = 2;
+  static constexpr bool ROW_SCALE = false;
+  static constexpr int K_MAX = 128;
+  static __device__ __forceinline__ float dot(uint4 a, uint4 lo, uint4 hi,
+                                              float acc) {
+    acc = fmaf(bf_lo(a.x), __uint_as_float(lo.x), acc);
+    acc = fmaf(bf_hi(a.x), __uint_as_float(lo.y), acc);
+    acc = fmaf(bf_lo(a.y), __uint_as_float(lo.z), acc);
+    acc = fmaf(bf_hi(a.y), __uint_as_float(lo.w), acc);
+    acc = fmaf(bf_lo(a.z), __uint_as_float(hi.x), acc);
+    acc = fmaf(bf_hi(a.z), __uint_as_float(hi.y), acc);
+    acc = fmaf(bf_lo(a.w), __uint_as_float(hi.z), acc);
+    return fmaf(bf_hi(a.w), __uint_as_float(hi.w), acc);
+  }
+  static __device__ __forceinline__ float sum(float s) { return warp_sum(s); }
+  static __device__ __forceinline__ u64 key(float s, uint32_t row) {
+    return row_key(s, row);
+  }
+};
+
 // Packed int4 rows (K6) against int8 queries: a 16-byte row word holds 16
 // packed bytes, 32 elements. Byte b of word c carries element 16 c + b of
 // the row's first half in its low nibble and element dim/2 + 16 c + b in
@@ -296,6 +336,18 @@ struct Sweep {
   }
 };
 
+// Word j of a query row in the 16-byte sweep's query block, read from the
+// query's word query_word<K>(j, cpr): Bf16F's deinterleaved halves (half
+// j / cpr, word j % cpr: the query's word 2 (j % cpr) + j / cpr), the
+// query as it is for the other kinds.
+template <class K>
+__device__ __forceinline__ int query_word(int j, int cpr) {
+  if constexpr (std::is_same<K, Bf16F>::value)
+    return 2 * (j % cpr) + j / cpr;
+  else
+    return j;
+}
+
 template <class K, int QT, int BUF>
 __global__ void __launch_bounds__(SW_THREADS, CTAS_PER_SM)
 sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
@@ -305,7 +357,7 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
   typedef typename K::Acc Acc;
   constexpr int RW = Sweep<QT>::RW;
   constexpr int GROUPS = WARP_ROWS / RW;  // a warp's row groups per tile
-  constexpr bool I4 = K::QW == 2;
+  constexpr bool I4 = std::is_same<K, Int4>::value;
   const int qwords = K::QW * cpr;  // 16-byte words of a query row
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* qs = reinterpret_cast<uint4*>(smem);           // QT x qwords
@@ -315,8 +367,12 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
   int* qsum = cnt + QT;  // Int4: each query's int8 sum
 
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = threadIdx.x; i < QT * qwords; i += SW_THREADS)
-    qs[i] = i / qwords < Q ? __ldg(q + i) : zero;
+  for (int i = threadIdx.x; i < QT * qwords; i += SW_THREADS) {
+    const int qq = i / qwords;
+    qs[i] = qq < Q ? __ldg(q + qq * qwords + query_word<K>(i - qq * qwords,
+                                                           cpr))
+                   : zero;
+  }
   if (threadIdx.x < QT) {
     cnt[threadIdx.x] = 0;
     tau[threadIdx.x] = 0ull;
@@ -399,11 +455,22 @@ sweep_topk_kernel(const uint4* __restrict__ q, const uint4* __restrict__ v,
           }
 #pragma unroll
           for (int qq = 0; qq < QT; ++qq) {
-            const uint4 w0 = qs[qq * qwords + c];
-            const uint4 w1 = two ? qs[qq * qwords + c + 32] : zero;
+            const uint4* qr = qs + qq * qwords + c;
+            if constexpr (K::QW == 2) {  // Bf16F: words c and cpr + c
+              const uint4 l0 = qr[0], h0 = qr[cpr];
+              const uint4 l1 = two ? qr[32] : zero;
+              const uint4 h1 = two ? qr[cpr + 32] : zero;
 #pragma unroll
-            for (int r = 0; r < RW; ++r)
-              acc[qq][r] = K::dot(x1[r], w1, K::dot(x0[r], w0, acc[qq][r]));
+              for (int r = 0; r < RW; ++r)
+                acc[qq][r] =
+                    K::dot(x1[r], l1, h1, K::dot(x0[r], l0, h0, acc[qq][r]));
+            } else {
+              const uint4 w0 = qr[0];
+              const uint4 w1 = two ? qr[32] : zero;
+#pragma unroll
+              for (int r = 0; r < RW; ++r)
+                acc[qq][r] = K::dot(x1[r], w1, K::dot(x0[r], w0, acc[qq][r]));
+            }
           }
         }
       }
@@ -464,14 +531,16 @@ __device__ __forceinline__ uint4 clip_word(uint4 x, int lo, int hi) {
 }
 
 // A row word of the narrow kind against its query copy at `cq`: the kind's
-// word product, Int4's two planes against the copy's halves (words cq[0]
-// and cq[W]).
+// word product, Int4's two planes and Bf16F's word against the copy's
+// halves (words cq[0] and cq[W]).
 template <class K>
 __device__ __forceinline__ typename K::Acc narrow_dot(uint4 x, const uint4* cq,
                                                       int W,
                                                       typename K::Acc acc) {
-  if constexpr (K::QW == 2)
+  if constexpr (std::is_same<K, Int4>::value)
     return K::dot(K::low(x), K::high(x), cq[0], cq[W], acc);
+  else if constexpr (K::QW == 2)
+    return K::dot(x, cq[0], cq[W], acc);
   else
     return K::dot(x, cq[0], acc);
 }
@@ -498,13 +567,16 @@ __host__ __device__ constexpr int narrow_ctas_per_sm(int qt) {
 
 // The narrow sweep: kind K (Int8R: K3's per-row-scaled int8 rows; Int4:
 // K6's packed int4 rows, rb = dim / 2; Int8C, F32, Bf16: K7's
-// column-scaled int8, float32 and bf16 postings) over rows
-// of `rb` bytes at any base, the rows `rows` names (K3 and K6 flat ranges,
-// K7 a share of the live hot tiles, whose 16-row units keep a warp's rows
-// in one tile). The query block holds P phase copies of each of the QT
-// queries, copy j at (j QT + qq) QW W words: QW times (Int4's two halves,
-// each rb bytes of the query) j g zero bytes, rb query bytes,
-// zeros (lg: log2 g, g = 16 / P, a multiple of the element's bytes). Row
+// column-scaled int8, float32 and bf16 postings; F32 and Bf16F: K4's
+// float32 rows and bf16 mirror against the float32 query) over rows
+// of `rb` bytes at any base, the rows `rows` names (K3, K4 and K6 flat
+// ranges, K7 a share of the live hot tiles, whose 16-row units keep a
+// warp's rows in one tile). The query block holds P phase copies of each
+// of the QT queries, copy j at (j QT + qq) QW W words: QW times (Int4's
+// two halves, each rb bytes of the query; Bf16F's two halves of the
+// float32 query, word c of half h meeting the bf16 elements 4 h ... 4 h +
+// 3 of row word c) j g zero bytes (Bf16F: j g / 2 zero floats), rb query
+// bytes, zeros (lg: log2 g, g = 16 / P, a multiple of the element's bytes). Row
 // r's words are the W_r = ceil((p_r + rb) / 16) aligned words from (v + r
 // rb) / 16 on (`vw` the 16-byte aligned base below v), met with copy p_r /
 // g; a float kind zeroes the bytes of its first and last word that are not
@@ -524,7 +596,7 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
                     u64* __restrict__ partial, int Q, int rb, int lg, int W,
                     int L, int k) {
   typedef typename K::Acc Acc;
-  constexpr bool I4 = K::QW == 2;
+  constexpr bool I4 = std::is_same<K, Int4>::value;
   // K3's kind (Int8R) takes the wide loop bodies below; K6's and K7's the
   // narrow ones (Int4's two planes a word took the registers: 16-24 bytes
   // spilled at QT 2 and 16 with K3's)
@@ -551,9 +623,25 @@ sweep_narrow_kernel(const unsigned char* __restrict__ q,
   int* qsum = cnt + QT;  // Int4: each query's int8 sum
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // the phase copies, a byte a thread: byte b of half h of copy (j, qq) is
-  // byte b - j g of the query's half h (rb bytes each)
-  {
+  if constexpr (std::is_same<K, Bf16F>::value) {
+    // the phase copies of the float32 queries (rb / 2 elements), a float a
+    // thread: float f of word c of half h of copy (j, qq) meets the bf16 at
+    // byte 2 (4 h + f) of the row's word c, so it is the query's element 8
+    // c + 4 h + f - j g / 2 (copy j: j g / 2 zero elements first)
+    float* qf = reinterpret_cast<float*>(smem);
+    const float* qsrc = reinterpret_cast<const float*>(q);
+    const int n = rb / 2, wf = W * 4;
+    for (int i = threadIdx.x; i < P * QT * 2 * wf; i += SW_THREADS) {
+      const int ch = i / wf, e = i - ch * wf;
+      const int h = ch % 2, cq = ch / 2;
+      const int j = cq / QT, qq = cq - j * QT;
+      const int src = 2 * (e & ~3) + 4 * h + (e & 3) - ((j << lg) >> 1);
+      qf[i] = qq < Q && src >= 0 && src < n ? __ldg(qsrc + (long)qq * n + src)
+                                            : 0.0f;
+    }
+  } else {
+    // the phase copies, a byte a thread: byte b of half h of copy (j, qq)
+    // is byte b - j g of the query's half h (rb bytes each)
     unsigned char* qb = smem;
     const int wb = W * 16;
     for (int i = threadIdx.x; i < P * QT * K::QW * wb; i += SW_THREADS) {
@@ -1082,4 +1170,60 @@ extern "C" int pv_ivf_sweep_topk_narrow(int kind, const void* q,
                                        vals, idx, Q, dim * es, es, k, ctas, s);
   return (int)narrow<Int8C, BUF_K128>(q, v, nullptr, mask, rows, partial,
                                       vals, idx, Q, dim * es, es, k, ctas, s);
+}
+
+// K4 on the one-query sweep. kind 0: float32 rows (`F32`); 1: bf16 rows
+// (`Bf16F`); the queries float32 in both. q (Q, dim), v (cap, dim), mask
+// (cap,) uint8; Q <= 16, k <= 128, rows of 16-byte words (dim % 4 == 0 /
+// dim % 8 == 0) with the query block (QT x dim floats) <= 64 KB, 16-byte
+// aligned q and v. Rows as K9's: CTA c reads [c * chunk, min(cap, (c + 1)
+// * chunk)) (chunk % 128 == 0); `partial` is scratch of max(1, ceil(cap /
+// chunk)) * Q * k uint64; vals (Q, k) float32 and idx (Q, k) int32 receive
+// the result (-inf / 0 where empty). Returns the cudaError_t of the
+// launches.
+extern "C" int pv_sweep_topk_f32(int kind, const void* q, const void* v,
+                                 const void* mask, void* partial, void* vals,
+                                 void* idx, int Q, long long cap, int dim,
+                                 int k, long long chunk, void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (cap < 0 || chunk <= 0 || chunk % SEG || kind < 0 || kind > 1)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (cap + chunk - 1) / chunk;
+  const int ctas = n > 1 ? (int)n : 1;
+  const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 0)
+    return (int)sweep<F32>(q, v, nullptr, mask, rows, partial, vals, idx, Q,
+                           dim, k, ctas, s);
+  return (int)sweep<Bf16F>(q, v, nullptr, mask, rows, partial, vals, idx, Q,
+                           dim, k, ctas, s);
+}
+
+// K4's narrow kind on the one-query sweep: pv_sweep_topk_f32's contract
+// over rows at any width and base (kind 0: float32 rows, 1: bf16 rows;
+// float32 queries at any 4-byte aligned base), the query block of phase
+// copies (ops/scan.py::topk_narrow_bytes) with the buffers within
+// NARROW_SMEM_BYTES; Q <= 16, k <= 128. Rows as K9's; `partial` is scratch
+// of max(1, ceil(cap / chunk)) * Q * k uint64. Returns the cudaError_t of
+// the launches.
+extern "C" int pv_sweep_topk_f32_narrow(int kind, const void* q,
+                                        const void* v, const void* mask,
+                                        void* partial, void* vals, void* idx,
+                                        int Q, long long cap, int dim, int k,
+                                        long long chunk, void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (cap < 0 || chunk <= 0 || chunk % SEG || kind < 0 || kind > 1 ||
+      dim <= 0 || k > 128 || (uintptr_t)q % 4)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (cap + chunk - 1) / chunk;
+  const int ctas = n > 1 ? (int)n : 1;
+  const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 0)
+    return (int)narrow<F32, BUF_K128>(q, v, nullptr, mask, rows, partial,
+                                      vals, idx, Q, dim * 4, 4, k, ctas, s);
+  return (int)narrow<Bf16F, BUF_K128>(q, v, nullptr, mask, rows, partial,
+                                      vals, idx, Q, dim * 2, 2, k, ctas, s);
 }

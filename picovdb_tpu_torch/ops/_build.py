@@ -31,6 +31,7 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
+source_seconds = {}  # each source's nvcc seconds in that build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,6 +86,15 @@ _SIGNATURES = {
     # scan.i4_narrow_ready)
     "pv_sweep_topk_i4_narrow": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                                 _L, _P],
+    # kind (0 f32 rows, 1 bf16 rows; float32 queries), q, v, mask, partial,
+    # vals, idx, Q, cap, dim, k, chunk, stream (K4's one-query sweep: Q <=
+    # 16, k <= 128, rows of whole 16 bytes; served where
+    # scan.topk_sweep_ready) and its narrow kind over rows at any width and
+    # base (the phase copies within scan.NARROW_SMEM_BYTES; served where
+    # scan.topk_narrow_ready)
+    "pv_sweep_topk_f32": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    "pv_sweep_topk_f32_narrow": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                                 _L, _P],
     # piece (the rows' producer, scan.rows_piece: 0 TMA, 8 / 4 / 2 the
     # expanders' reads), q_perm (each half padded to whole 64-byte
     # stages), v, vscale, mask, partial, vals, idx, Q, cap, dim, k, stream
@@ -202,21 +212,31 @@ def build() -> Path:
     tag = f"{os.getpid()}.tmp"
     tmp = out_dir / f"libpicovdb_kernels.so.{tag}"
     nvcc = _nvcc()
-    # one nvcc per source, all at once, then one link
+    # one nvcc per source, all at once (each writing its report to a file,
+    # so that each one's seconds are seen), then one link
     t0 = time.perf_counter()
     jobs = []
     for src in (p for p in srcs if p.suffix == ".cu"):
         obj = out_dir / f"{src.stem}.{os.getpid()}.o"  # nvcc goes by suffix
+        rep = out_dir / f"{src.stem}.{os.getpid()}.txt"
         cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        with open(rep, "w") as fh:
+            proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+        jobs.append((cmd, src, obj, rep, proc))
+    source_seconds.clear()
+    while len(source_seconds) < len(jobs):
+        for _, src, _, _, proc in jobs:
+            if src.name not in source_seconds and proc.poll() is not None:
+                source_seconds[src.name] = time.perf_counter() - t0
+        time.sleep(0.05)
     log, failed = [], []
-    for cmd, _, proc in jobs:
-        out = proc.communicate()[0]
+    for cmd, _, _, rep, proc in jobs:
+        out = rep.read_text()
+        rep.unlink()
         log.append(out)
         if proc.returncode != 0:
             failed.append(" ".join(cmd) + "\n" + out[-4000:])
-    objs = [obj for _, obj, _ in jobs]
+    objs = [obj for _, _, obj, _, _ in jobs]
     if not failed:
         cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,

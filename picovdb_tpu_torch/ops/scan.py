@@ -18,7 +18,10 @@ kernels those paths run:
                         csrc/sweep_topk.cu, see `i8_sweep_ready`; larger
                         Q: csrc/scan_topk_wgmma.cu, see `i8_wgmma_ready`)
   K4 `fused_topk`       csrc/scan_topk.cu  exact top-k over f32 / bf16 rows
-                        (k <= 128: csrc/scan_topk_wgmma.cu,
+                        (small Q, k <= 128: csrc/sweep_topk.cu, see
+                        `topk_sweep_ready` and, at any width and base,
+                        `topk_narrow_ready`; else k <= 128:
+                        csrc/scan_topk_wgmma.cu,
                         see `topk_wgmma_ready`; 128 < k <= 1024: the
                         wide kind, csrc/topk_wide.cu, see
                         `topk_wide_ready`: that scan writing a slab of
@@ -83,9 +86,13 @@ SEG = 128  # rows per segmax segment
 # mainloop fed by cp.async (`cpasync_i8_ready`) or by the realigning
 # producer (`realign_i8_ready`), each with its launches by shape in
 # LAUNCH_SHAPES as K5's and K10's TMA kind ("_wgmma").
-# "scan_topk" counts every K4 launch, "scan_topk_wgmma" those of its
-# tensor-core scan (`topk_wgmma_ready`), "scan_topk_wide" those of its wide
-# kind (`topk_wide_ready`: the slab pass and the radix select, one call).
+# "scan_topk" counts every K4 launch, "scan_topk_sweep" those of its
+# one-query sweep (`topk_sweep_ready`), "scan_topk_narrow" those of the
+# sweep's narrow kind at any width and base (`topk_narrow_ready`), both
+# with their launches by shape in LAUNCH_SHAPES, "scan_topk_wgmma" those of
+# its tensor-core scan (`topk_wgmma_ready`), "scan_topk_wide" those of its
+# wide kind (`topk_wide_ready`: the slab pass and the radix select, one
+# call).
 # "scan_topk_i8c" counts every K9
 # launch, "scan_topk_i8c_sweep" those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
 # K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
@@ -119,7 +126,7 @@ SEG = 128  # rows per segmax segment
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "segmax_realign": 0,
             "topk_keys": 0, "scan_topk": 0, "scan_topk_wgmma": 0,
-            "scan_topk_wide": 0,
+            "scan_topk_wide": 0, "scan_topk_sweep": 0, "scan_topk_narrow": 0,
             "scan_topk_wgmma_cpasync": 0, "scan_topk_wgmma_realign": 0,
             "scan_topk_wide_cpasync": 0, "scan_topk_wide_realign": 0,
             "scan_topk_i8": 0, "scan_topk_i8_sweep": 0,
@@ -849,6 +856,13 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     elif int4 and i4_wide_ready(q, vectors, k):
         vals, idx = _i4_wide_launch(q, vectors, vscale, mask, k, name)
         _count("scan_topk_i4_wide" + piece, num_q, k)
+    elif kind in (_KIND_F32, _KIND_BF16) and topk_sweep_ready(q, vectors, k):
+        vals, idx = _topk_sweep_launch(q, vectors, mask, k, name)
+        _count("scan_topk_sweep", num_q, k)
+    elif kind in (_KIND_F32, _KIND_BF16) and topk_narrow_ready(q, vectors, k):
+        vals, idx = _topk_sweep_launch(q, vectors, mask, k, name,
+                                       "pv_sweep_topk_f32_narrow")
+        _count("scan_topk_narrow", num_q, k)
     elif kind in (_KIND_F32, _KIND_BF16) and topk_wgmma_ready(q, vectors, k):
         vals, idx = _topk_wgmma_launch(q, vectors, mask, k, name)
         _count("scan_topk_wgmma" + piece, num_q, k)
@@ -911,6 +925,27 @@ def _sweep_launch(q, vectors, vscale, mask, k: int, name: str,
         head = head + (vscale.data_ptr(),)
     _launch(q, name, entry, *head, mask.data_ptr(), partial.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, chunk)
+    return vals, idx
+
+
+def _topk_sweep_launch(q, vectors, mask, k: int, name: str = "scan_topk",
+                       entry: str = "pv_sweep_topk_f32"):
+    """K4's one-query sweep (csrc/sweep_topk.cu: `F32` over float32 rows,
+    `Bf16F` over the bf16 mirror, both against the float32 queries) on
+    checked CUDA operands, uncounted; `entry` "pv_sweep_topk_f32_narrow":
+    its narrow kind, any width and base. CTAs over `sweep_partition`'s
+    ranges, then the merge."""
+    num_q, dim = q.shape
+    cap = vectors.shape[0]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk, nchunks = sweep_partition(cap, sms)
+    partial = torch.empty((num_q * nchunks * k,), dtype=torch.int64,
+                          device=q.device)
+    vals, idx = _outputs(num_q, k, q.device)
+    kind = _KIND_F32 if vectors.dtype == torch.float32 else _KIND_BF16
+    _launch(q, name, entry, kind, q.data_ptr(), vectors.data_ptr(),
+            mask.data_ptr(), partial.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), num_q, cap, dim, k, chunk)
     return vals, idx
 
 
@@ -1105,13 +1140,21 @@ def split_bf16(q: torch.Tensor):
 # and walks a contiguous range of 128-row segments
 TOPK_WGMMA_QTILE = 64
 TOPK_WGMMA_K_MAX = 128
-# K4's crossover: from this many queries on the tensor-core scan beats the
-# template. chip_smoke.py times both at Q = 1 ... 256, k_sel 14 and 36, on
-# phase 3's 1M x 1024 bf16 mirror and phase 7's 2M x 1024 float32 rows:
-# on an H100 80GB HBM3 at 700 W the scan wins at every Q (1M bf16, Q = 1:
-# 1.85 against 4.07 ms; 2M f32, Q = 1: 4.01 against 11.33), so it takes
-# every batch.
+# K4's crossover with its template: from this many queries on the
+# tensor-core scan beats it. chip_smoke.py times both at Q = 1 ... 256,
+# k_sel 14 and 36, on phase 3's 1M x 1024 bf16 mirror and phase 7's 2M x
+# 1024 float32 rows: on an H100 80GB HBM3 at 700 W the scan wins at every Q
+# (1M bf16, Q = 1: 1.85 against 4.07 ms; 2M f32, Q = 1: 4.01 against
+# 11.33). It stays at 1: the dispatch asks the one-query sweeps first
+# (`topk_sweep_ready`, `topk_narrow_ready`, which `topk_wgmma_ready`
+# excludes), so the scan takes the small batches only where neither sweep
+# does (a query block or phase copies past their shared memory).
 TOPK_WGMMA_Q_MIN = 1
+
+
+def _float_rows(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    return (queries.dtype == torch.float32
+            and vectors.dtype in (torch.float32, torch.bfloat16))
 
 
 def topk_wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor,
@@ -1119,12 +1162,15 @@ def topk_wgmma_ready(queries: torch.Tensor, vectors: torch.Tensor,
     """Whether K4 runs the tensor-core scan on these contiguous operands:
     float32 or bf16 rows (float32 queries) at any width and base (the rows
     by the producer `rows_piece` names; the query planes are the
-    launcher's own), k <= 128, and Q >= TOPK_WGMMA_Q_MIN. Wider k takes
+    launcher's own), k <= 128, Q >= TOPK_WGMMA_Q_MIN, where neither
+    one-query sweep takes them (`topk_sweep_ready`, `topk_narrow_ready`:
+    Q past their limits, or a query block too large). Wider k takes
     `topk_wide_ready`'s kind."""
-    return (queries.dtype == torch.float32
-            and vectors.dtype in (torch.float32, torch.bfloat16)
+    return (_float_rows(queries, vectors)
             and k <= TOPK_WGMMA_K_MAX
-            and queries.shape[0] >= TOPK_WGMMA_Q_MIN)
+            and queries.shape[0] >= TOPK_WGMMA_Q_MIN
+            and not topk_sweep_ready(queries, vectors, k)
+            and not topk_narrow_ready(queries, vectors, k))
 
 
 def rows_piece(vectors: torch.Tensor) -> int:
@@ -1534,6 +1580,95 @@ def narrow_fits(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
     return (num_q <= SWEEP_Q_MAX
             and narrow_block_bytes(num_q, dim, v_i8.data_ptr())
             + sweep_tile(num_q) * (buf * 8 + 12) <= NARROW_SMEM_BYTES)
+
+
+# K4's sweep limits (csrc/sweep_topk.cu `F32` / `Bf16F` over float32 rows
+# and the bf16 mirror, float32 queries): up to TOPK_SWEEP_Q_MAX queries the
+# 16-byte sweep beats the tensor-core scan over the same rows, up to
+# TOPK_NARROW_Q_MAX its narrow kind over rows the 16-byte sweep cannot
+# read. `python3 chip_smoke.py --k4-cross` times both on planes made on
+# the card (H100 80GB HBM3, 700 W; PERF.md), ~10 % of the rows masked.
+# The 16-byte sweep at Q = 1 / 4 / 8 / 16, k_sel 14, against the scan:
+# float32 x 1024, 131,072 rows 0.220 / 0.274 / 0.315 / 0.454 ms against
+# 0.525 / 0.448 / 0.436 / 0.425, 2M rows 2.54 / 2.48 / 3.14 / 4.71 against
+# 4.27 / 3.99 / 4.24 / 4.55; bf16 x 1024, 131,072 rows 0.141 / 0.173 /
+# 0.287 / 0.464 against 0.305 / 0.286 / 0.380 / 0.388, 1M rows 0.749 /
+# 0.802 / 1.287 / 2.401 against 1.986 / 1.058 / 1.194 / 1.465; float32 x
+# 100 over 1,183,514 rows 0.290 / 0.561 / 0.963 against 0.536 / 0.578 /
+# 0.545 (k_sel 36 and 128 alike). It wins at Q <= 4 on every plane and
+# loses at Q = 16 on all but one; at Q = 5 ... 8 (its 8-query tile) it
+# wins over float32 rows of 1024 (by 25-35 %) and loses over the 1M bf16
+# mirror (by 7-15 %) and float32 rows of 100 (1.8x): the limit follows the
+# larger stores. The narrow kind at Q = 1 / 2 / 4 / 8 against the scan
+# over 131,072 rows at dims 1020 / 1019 and 1,183,514 at 100 / 25:
+# float32 x 1019 0.267 / 0.281 / 0.337 against 0.609 / 0.595 / 0.667 (Q 8:
+# its phase copies do not fit), bf16 x 1019 0.193 / 0.220 against 0.492 /
+# 0.484 (Q 4 does not fit), bf16 x 1020 0.188 / 0.219 / 0.250 / 0.361
+# against 0.393 / 0.426 / 0.346 / 0.364, bf16 x 100 0.362 / 0.421 / 0.511
+# / 0.761 against 0.439 / 0.549 / 0.498 / 0.498, float32 x 25 0.233 /
+# 0.253 / 0.286 / 0.395 against 0.405 / 0.431 / 0.426 / 0.431, bf16 x 25
+# 0.171 / 0.190 / 0.240 / 0.321 against 0.457 / 0.518 / 0.501 / 0.492: it
+# wins up to Q = 4 but at bf16 x 100 (3 % slower at Q = 4), and at Q = 8
+# loses over bf16 x 100 (1.5x), which the limit follows.
+TOPK_SWEEP_Q_MAX = 4
+TOPK_NARROW_Q_MAX = 4
+
+
+def _topk_tma_ready(queries: torch.Tensor, vectors: torch.Tensor) -> bool:
+    """What K4's 16-byte sweep reads: rows of whole 16 bytes (dim % 4 ==
+    0 for float32 rows, % 8 for bf16) and 16-byte aligned bases of both."""
+    per = 4 if vectors.dtype == torch.float32 else 8
+    return queries.shape[1] % per == 0 and _aligned(queries, vectors)
+
+
+def topk_sweep_ready(queries: torch.Tensor, vectors: torch.Tensor,
+                     k: int) -> bool:
+    """Whether K4 runs the one-query sweep (csrc/sweep_topk.cu `F32` /
+    `Bf16F`) on these contiguous operands: float32 or bf16 rows against
+    float32 queries, Q <= TOPK_SWEEP_Q_MAX, k <= 128, rows of whole 16
+    bytes at 16-byte aligned bases (`_topk_tma_ready`), and the query block
+    (sweep_tile(Q) x dim float32) within SWEEP_QBLOCK_BYTES (dim 4096 at
+    a tile of 4). Other widths and bases take `topk_narrow_ready`'s narrow
+    kind, larger batches and query blocks the tensor-core scan."""
+    num_q, dim = queries.shape
+    return (_float_rows(queries, vectors) and num_q <= TOPK_SWEEP_Q_MAX
+            and k <= SWEEP_K_MAX and _topk_tma_ready(queries, vectors)
+            and sweep_tile(num_q) * dim * 4 <= SWEEP_QBLOCK_BYTES)
+
+
+def topk_narrow_bytes(num_q: int, dim: int, es: int, ptr: int) -> int:
+    """K4's narrow kind's shared memory over rows of dim elements of `es`
+    bytes at base `ptr` (csrc/sweep_topk.cu `Narrow::smem`): the query
+    block of `narrow_phases` copies of sweep_tile(Q) float32 queries, W =
+    ceil((16 - g + row bytes) / 16) words each, twice over bf16 rows
+    (`Bf16F`: a row word meets two query words), then QT buffers of 256
+    keys, tau and counts (and, as K6's two halves, a sum a query)."""
+    rb = dim * es
+    phases = narrow_phases(rb, ptr)
+    words = -(-(16 - 16 // phases + rb) // 16)
+    qw = 2 if es == 2 else 1
+    qt = sweep_tile(num_q)
+    return (qw * phases * qt * words * 16
+            + qt * (256 * 8 + 12 + (4 if qw == 2 else 0)))
+
+
+def topk_narrow_ready(queries: torch.Tensor, vectors: torch.Tensor,
+                      k: int) -> bool:
+    """Whether K4 runs the one-query sweep's narrow kind (csrc/
+    sweep_topk.cu `sweep_narrow_kernel<F32 | Bf16F>`) on these contiguous
+    operands: float32 or bf16 rows against float32 queries, operands the
+    16-byte sweep cannot read (`_topk_tma_ready` fails: a width off whole
+    16 bytes, or a base off 16 bytes; the query is copied into phase copies
+    from any base, the rows read as the aligned words that hold them), Q
+    <= TOPK_NARROW_Q_MAX, k <= 128, and the phase copies with the buffers
+    within NARROW_SMEM_BYTES (`topk_narrow_bytes`: bf16 rows at dim 1019,
+    eight copies of 33 KB a query, take Q <= 2). The rest takes
+    `topk_wgmma_ready`'s scan."""
+    num_q, dim = queries.shape
+    return (_float_rows(queries, vectors) and num_q <= TOPK_NARROW_Q_MAX
+            and k <= SWEEP_K_MAX and not _topk_tma_ready(queries, vectors)
+            and topk_narrow_bytes(num_q, dim, vectors.element_size(),
+                                  vectors.data_ptr()) <= NARROW_SMEM_BYTES)
 
 
 def _i8_tma_ready(q_i8: torch.Tensor, v_i8: torch.Tensor) -> bool:

@@ -1004,6 +1004,8 @@ def _k4_launch(q, v, mask, k):
     before = dict(scan.LAUNCHES)
     got = scan.fused_topk(q, v, mask, k)
     tc = scan.LAUNCHES["scan_topk_wgmma"] - before["scan_topk_wgmma"]
+    sweep = scan.LAUNCHES["scan_topk_sweep"] - before["scan_topk_sweep"]
+    assert sweep == scan.topk_sweep_ready(q, v, k)
     assert scan.LAUNCHES["scan_topk"] == before["scan_topk"] + 1
     return got, tc
 
@@ -1015,26 +1017,37 @@ def _k4_launch(q, v, mask, k):
 def test_fused_topk_wgmma(dev, kind, cap, dim, k, nq):
     """K4's tensor-core scan against the plain version: Q off the 64-query
     tile, cap % 256 == 128, k at each ring size's edge, and two segments
-    masked out entirely (skipped: no copy, no product)."""
+    masked out entirely (skipped: no copy, no product). Up to
+    TOPK_SWEEP_Q_MAX queries the one-query sweep takes the dispatch; the
+    scan is then launched alone and held to the same plain version."""
     q, v, mask = _k4_case(dev, kind, cap, dim, nq, seed=nq + k)
     mask[:128] = False
     mask[1024:1152] = False
-    assert scan.topk_wgmma_ready(q, v, k) == (nq >= scan.TOPK_WGMMA_Q_MIN)
+    sweep = scan.topk_sweep_ready(q, v, k)
+    assert sweep == (nq <= scan.TOPK_SWEEP_Q_MAX)
+    assert scan.topk_wgmma_ready(q, v, k) == (nq >= scan.TOPK_WGMMA_Q_MIN
+                                              and not sweep)
     got, tc = _k4_launch(q, v, mask, k)
-    assert tc == (nq >= scan.TOPK_WGMMA_Q_MIN)
+    assert tc == (nq >= scan.TOPK_WGMMA_Q_MIN and not sweep)
     ref = scan.scan_topk_plain(q, v, None, mask, k + 1)
     torch.cuda.synchronize()
     _k4_agrees(got, ref, mask, k)
+    if sweep:
+        direct = scan._topk_wgmma_launch(q, v, mask, k)
+        torch.cuda.synchronize()
+        _k4_agrees(direct, ref, mask, k)
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 def test_fused_topk_wgmma_at_the_crossover(dev, kind):
-    """The ready rule's Q limit: from TOPK_WGMMA_Q_MIN queries on the
-    tensor-core scan, below it the template; both agree with the plain
-    version, and so does the tensor-core scan launched (uncounted) below
-    the limit."""
-    lim = scan.TOPK_WGMMA_Q_MIN
-    for nq in sorted({max(1, lim - 1), lim}):
+    """The ready rules' Q limit: up to TOPK_SWEEP_Q_MAX queries the
+    one-query sweep, past it the tensor-core scan (TOPK_WGMMA_Q_MIN stays
+    below the sweep's limit: the dispatch asks the sweep first); both
+    agree with the plain version, and so does the tensor-core scan
+    launched (uncounted) at the sweep's limit."""
+    lim = scan.TOPK_SWEEP_Q_MAX + 1
+    assert scan.TOPK_WGMMA_Q_MIN < lim
+    for nq in (lim - 1, lim):
         q, v, mask = _k4_case(dev, kind, 8320, 1024, nq, seed=nq)
         got, tc = _k4_launch(q, v, mask, 14)
         assert tc == (nq >= lim)

@@ -15,7 +15,8 @@ k_sel 142 / 432 / 1024; widths 25, 50, 100, 300, 1018, 1019, 1020 and
 bases off 16 bytes by 1, 2, 4 and 8; bit for bit the plain version
 (exact int32 sums, one conversion and one multiply, ties to the lower
 row). K4 (float32 queries over float32 or bf16 rows): the tensor-core scan
-(k_sel 14, 36, 100) and the wide kind (k_sel 200, 1024) at widths 25, 98,
+(k_sel 14, 36, 100; launched directly where the narrow sweep takes the
+dispatch) and the wide kind (k_sel 200, 1024) at widths 25, 98,
 100, 1019, 1020, 1022 and bases off by one element; scores within 1e-5
 of the plain version's, the same ids outside a 1e-4 gap. Each dispatch
 adds one to the kind's counter and none to the template's.
@@ -190,10 +191,21 @@ def test_k4_scan_rows(dev, dtype, dim, off, nq, k):
     rows = _at(v.to(dtype), off)
     piece = scan.rows_piece(rows)
     assert piece != 0
+    ref = scan.scan_topk_plain(q, rows, None, mask, k + 1)
     key = "scan_topk_wgmma" + scan._PIECE_KEY[piece]
-    got, grew = _launched(key, lambda: scan.fused_topk(q, rows, mask, k))
-    assert grew == {"scan_topk", key}, grew
-    _k4_check(got, scan.scan_topk_plain(q, rows, None, mask, k + 1), mask, k)
+    if scan.topk_narrow_ready(q, rows, k):
+        # the narrow sweep takes the dispatch at small Q (held to the plain
+        # version in tests/test_torch_cuda_topk_sweep.py): the scan alone
+        got, grew = _launched("scan_topk_narrow",
+                              lambda: scan.fused_topk(q, rows, mask, k))
+        assert grew == {"scan_topk", "scan_topk_narrow"}, grew
+        _k4_check(got, ref, mask, k)
+        got = scan._topk_wgmma_launch(q, rows, mask, k)
+        torch.cuda.synchronize()
+    else:
+        got, grew = _launched(key, lambda: scan.fused_topk(q, rows, mask, k))
+        assert grew == {"scan_topk", key}, grew
+    _k4_check(got, ref, mask, k)
 
 
 @pytest.mark.parametrize("dtype,dim,off", K4_ROWS)

@@ -8,8 +8,10 @@ for `scan._launch` records against `_build._SIGNATURES`.
   rows, bases off by whole elements) exactly one kind up to 64M rows: no
   call reaches the template (`pv_scan_topk`). The tensor-core kinds
   (`topk_wgmma_ready`, `topk_wide_ready`, `i8_wgmma_ready`,
-  `i8_wide_ready`) take every width and base; only the 16-byte sweep
-  (`i8_sweep_ready`) asks for rows of whole 16 bytes.
+  `i8_wide_ready`) take every width and base; only the 16-byte sweeps
+  (`i8_sweep_ready`, `topk_sweep_ready`) ask for rows of whole 16 bytes,
+  and their narrow kinds (`i8_narrow_ready`, `topk_narrow_ready`) take
+  the small batches over the others.
 * Each launch takes its kind's entry with the arguments the entry's
   signature names: the tensor-core kinds' the rows' producer first
   (`rows_piece`: 0 TMA, 8 / 4 cp.async, 2 the realigning producer), K4's
@@ -83,6 +85,9 @@ K3_KINDS = [
      "scan_topk_i8_wgmma+")]
 
 K4_KINDS = [
+    ("sweep", tscan.topk_sweep_ready, "pv_sweep_topk_f32", "scan_topk_sweep"),
+    ("narrow", tscan.topk_narrow_ready, "pv_sweep_topk_f32_narrow",
+     "scan_topk_narrow"),
     ("scan", tscan.topk_wgmma_ready, "pv_scan_topk_wgmma", "scan_topk_wgmma+"),
     ("wide", tscan.topk_wide_ready, "pv_scan_topk_wide", "scan_topk_wide+")]
 
@@ -162,14 +167,16 @@ def test_k4_every_width_and_base_takes_one_kind(recorded, dtype, dim):
         for nq in (1, 16, 64, 70):
             q = torch.zeros(nq, dim)
             for k in (14, 64, 65, 128, 129, 204, 1024):
-                assert (tscan.topk_wgmma_ready(q, v, k)
-                        + tscan.topk_wide_ready(q, v, k)) == 1
+                assert sum(kind[1](q, v, k) for kind in K4_KINDS) == 1
                 before = dict(tscan.LAUNCHES)
                 seen.add(_check(
                     recorded, lambda: tscan.fused_topk(
                         *map(_as_cuda, (q, v, mask)), k),
                     K4_KINDS, q, v, k, before, nq))
-    assert seen == {"scan", "wide"}
+    # Q = 1 takes a one-query sweep: the narrow kind over rows off whole
+    # 16 bytes or a base off 16 bytes, the 16-byte sweep over the others
+    sweep = {"sweep"} if dim % (16 // es) == 0 else set()
+    assert seen == {"scan", "wide", "narrow"} | sweep
 
 
 def test_k4_rows_launch_pads_the_planes(recorded, monkeypatch):

@@ -236,7 +236,8 @@ def _rows(dtype, cap, dim, offset=0):
 def test_topk_wgmma_ready_edges(monkeypatch, dtype, words, ragged, offset):
     """float32 / bf16 rows at any width and base (TMA at whole 16 bytes,
     dim % 4 / % 8, on a 16-byte aligned base; else cp.async: `rows_piece`),
-    k <= 128, Q >= TOPK_WGMMA_Q_MIN; float32 queries."""
+    k <= 128, Q >= TOPK_WGMMA_Q_MIN where neither one-query sweep takes
+    the operands; float32 queries."""
     q = torch.zeros(64, words)
     v = _rows(dtype, 4 * SEG, words)
     assert tscan.topk_wgmma_ready(q, v, 128)
@@ -253,36 +254,53 @@ def test_topk_wgmma_ready_edges(monkeypatch, dtype, words, ragged, offset):
     # a misaligned query view is fine: the launcher splits it into planes
     qm = torch.zeros(64 * words + 1)[1:].view(64, words)
     assert tscan.topk_wgmma_ready(qm, v, 14)
+    # the sweeps take Q up to their limits, the scan every larger batch
+    lim = tscan.TOPK_SWEEP_Q_MAX
+    assert not tscan.topk_wgmma_ready(q[:lim], v, 14)
+    assert tscan.topk_wgmma_ready(q[:lim + 1], v, 14)
+    assert not tscan.topk_wgmma_ready(q[:1], off_rows, 14)  # narrow sweep
+    # TOPK_WGMMA_Q_MIN's edge, with the sweeps' limits below it
+    monkeypatch.setattr(tscan, "TOPK_SWEEP_Q_MAX", 4)
+    monkeypatch.setattr(tscan, "TOPK_NARROW_Q_MAX", 4)
     monkeypatch.setattr(tscan, "TOPK_WGMMA_Q_MIN", 8)
     assert tscan.topk_wgmma_ready(q[:8], v, 14)
     assert not tscan.topk_wgmma_ready(q[:7], v, 14)
 
 
-@pytest.mark.parametrize("dtype,dim,k,nq,tc", [
-    (torch.float32, 96, 14, 64, True), (torch.bfloat16, 1024, 36, 65, True),
-    (torch.float32, 96, 128, 1, True), (torch.float32, 96, 129, 64, False),
+@pytest.mark.parametrize("dtype,dim,k,nq,took", [
+    pytest.param(torch.float32, 96, 14, 64, "scan", id="dtype0-96-14-64-True"),
+    pytest.param(torch.bfloat16, 1024, 36, 65, "scan",
+                 id="dtype1-1024-36-65-True"),
+    # one query: K4's one-query sweep since it has one (the scan before)
+    pytest.param(torch.float32, 96, 128, 1, "sweep",
+                 id="dtype2-96-128-1-True"),
+    pytest.param(torch.float32, 96, 129, 64, "wide",
+                 id="dtype3-96-129-64-False"),
     # rows TMA cannot read, which the template served before: the scan,
     # its rows by cp.async (their ids name the rule's answer then)
-    pytest.param(torch.float32, 98, 14, 64, True,
+    pytest.param(torch.float32, 98, 14, 64, "scan",
                  id="dtype4-98-14-64-False"),
-    pytest.param(torch.bfloat16, 100, 14, 64, True,
+    pytest.param(torch.bfloat16, 100, 14, 64, "scan",
                  id="dtype5-100-14-64-False")])
-def test_k4_dispatch_by_topk_wgmma_ready(recorded, dtype, dim, k, nq, tc):
+def test_k4_dispatch_by_topk_wgmma_ready(recorded, dtype, dim, k, nq, took):
     """K4 takes the tensor-core scan where `topk_wgmma_ready` holds (the
     rows' producer `rows_piece`, the query planes: hi and lo for float32
     rows, three bf16 for bf16 rows, padded to whole 16 bytes), at any
     width (dim 98 float32 rows by cp.async in 8-byte pieces, dim 100 bf16
-    rows in 8-byte pieces: the template served them before), and the wide
-    kind where `topk_wide_ready` does (k 129); "scan_topk" counts all,
+    rows in 8-byte pieces: the template served them before), the wide
+    kind where `topk_wide_ready` does (k 129), and the one-query sweep
+    where `topk_sweep_ready` does (Q = 1); "scan_topk" counts all,
     "scan_topk_wgmma" the scan by TMA, "scan_topk_wgmma_cpasync" the scan
-    fed by cp.async, "scan_topk_wide" the wide kind, LAUNCH_SHAPES splits
-    them by (Q, k)."""
+    fed by cp.async, "scan_topk_wide" the wide kind, "scan_topk_sweep" the
+    sweep, LAUNCH_SHAPES splits them by (Q, k)."""
     cap = 4 * SEG + 64
     q = torch.randn(nq, dim)
     v = torch.zeros(cap, dim, dtype=dtype)
     mask = torch.ones(cap, dtype=torch.bool)
+    tc = took == "scan"
     assert tscan.topk_wgmma_ready(q, v, k) == tc
-    assert tscan.topk_wide_ready(q, v, k) != tc
+    assert tscan.topk_wide_ready(q, v, k) == (took == "wide")
+    assert tscan.topk_sweep_ready(q, v, k) == (took == "sweep")
     piece = tscan.rows_piece(v)
     assert piece == (0 if dim in (96, 1024) else 8)
     before = dict(tscan.LAUNCHES)
@@ -290,16 +308,24 @@ def test_k4_dispatch_by_topk_wgmma_ready(recorded, dtype, dim, k, nq, tc):
     assert vals.shape == idx.shape == (nq, k)
     (entry, args), = recorded
     kind = 0 if dtype == torch.float32 else 1
-    # piece, kind, planes, v, mask, ..., Q, cap, dim, k
-    assert args[:2] == (piece, kind)
+    if took == "sweep":
+        # kind, q, v, mask, partial, vals, idx, Q, cap, dim, k, chunk
+        assert entry == "pv_sweep_topk_f32"
+        assert args[0] == kind
+        assert args[7:11] == (nq, cap, dim, k)
+    else:
+        # piece, kind, planes, v, mask, ..., Q, cap, dim, k
+        assert args[:2] == (piece, kind)
     if tc:
         assert entry == "pv_scan_topk_wgmma"
         assert args[8:] == (nq, cap, dim, k)
-    else:
+    elif took == "wide":
         assert entry == "pv_scan_topk_wide"
     suffix = tscan._PIECE_KEY[piece]
-    for name, took in (("scan_topk_wgmma", tc), ("scan_topk_wide", not tc)):
-        assert tscan.LAUNCHES[name + suffix] == before[name + suffix] + took
+    for name, hit in (("scan_topk_wgmma" + suffix, tc),
+                      ("scan_topk_wide" + suffix, took == "wide"),
+                      ("scan_topk_sweep", took == "sweep")):
+        assert tscan.LAUNCHES[name] == before[name] + hit
     assert tscan.LAUNCHES["scan_topk"] == before["scan_topk"] + 1
     assert tscan.LAUNCH_SHAPES["scan_topk"][nq, k] >= 1
 
