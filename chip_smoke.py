@@ -11,9 +11,11 @@ rows TMA cannot read, served by K1's mainloop fed by cp.async, and a
 131,072 x 1019 one (odd width) served by K1's mainloop fed by its
 realigning producer (phase 3b), 1,183,514-row stores at glove-100 /
 glove-25's widths (phase 3c, its own generator: float32 and int8 storage
-over rows TMA cannot read, K3's and K4's kinds, and a 2048-query batch a
-width through K5's and K10's int8 mainloop fed by cp.async at dim 100 and
-by the realigning producer at 25, on the int8 store and under
+over rows TMA cannot read, K3's and K4's kinds, K9's narrow sweep through
+i8c_fused_smallq under PICOVDB_SMALLQ_I8C=1 and its tensor-core scan and
+wide kind on direct calls, no launch of K9's template, and a 2048-query
+batch a width through K5's and K10's int8 mainloop fed by cp.async at dim
+100 and by the realigning producer at 25, on the int8 store and under
 PICOVDB_SEGMAX_I8 / PICOVDB_SEGMAX_I8C, no launch of the mma.sync tile;
 `--i8-narrow` runs that part alone after the build), a 1M x 1024 int8
 store with the host-f64 rescore and a quantized checkpoint (phase 4, its
@@ -113,7 +115,8 @@ K4 at Q <= 16 runs its one-query sweep (or the sweep's narrow kind over
 rows TMA cannot read) beside the tensor-core scan in phases 2, 3, 3b, 3c
 and 7, and phases 3, 3b, 3c and 11a serve it through the public API;
 `--k4-cross` runs the build and the crossovers behind its limits alone,
-on planes made on the card. `python3 chip_smoke.py --q64-latency` times only the int8
+on planes made on the card, and `--k9-cross` those behind K9's
+(I8C_SWEEP_Q_MAX, I8C_NARROW_Q_MAX). `python3 chip_smoke.py --q64-latency` times only the int8
 store's Q = 64 host-rescored batches through the public API, on a store
 of its own, so that a checkout without this script's other phases can be
 timed beside this one; `--mesh` runs the build and phase 11 alone (the
@@ -446,6 +449,32 @@ KERNELS = {
     "segmax_scan_i8c_realign": ("segmax_i8c_realign",
                                 "picovdb_tpu_torch/csrc/segmax.cu",
                                 "picovdb_tpu/ops/pallas_scan.py:1528", "3c"),
+    # K9's kinds over phase 3c's column-scaled mirrors (100 / 25 bytes a
+    # row): the store under PICOVDB_SMALLQ_I8C=1 drives the narrow sweep
+    # through the public API (i8c_fused_smallq's singles and the serial
+    # loop, the 16-query batch up to I8C_NARROW_Q_MAX), its direct
+    # fused_topk_i8c calls the tensor-core scan (Q = 64, k_sel 14) and the
+    # wide kind (k_sel 160 / 544): cp.async at dim 100, the realigning
+    # producer at 25
+    "fused_topk_i8c_narrow": ("scan_topk_i8c_narrow",
+                              "picovdb_tpu_torch/csrc/sweep_topk.cu",
+                              "picovdb_tpu/ops/pallas_scan.py:1705", "3c"),
+    "fused_topk_i8c_wgmma_cpasync": (
+        "scan_topk_i8c_wgmma_cpasync",
+        "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
+        "picovdb_tpu/ops/pallas_scan.py:1705", "3c"),
+    "fused_topk_i8c_wgmma_realign": (
+        "scan_topk_i8c_wgmma_realign",
+        "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
+        "picovdb_tpu/ops/pallas_scan.py:1705", "3c"),
+    "fused_topk_i8c_wide_cpasync": ("scan_topk_i8c_wide_cpasync",
+                                    "picovdb_tpu_torch/csrc/topk_i8_wide.cu",
+                                    "picovdb_tpu/ops/pallas_scan.py:1705",
+                                    "3c"),
+    "fused_topk_i8c_wide_realign": ("scan_topk_i8c_wide_realign",
+                                    "picovdb_tpu_torch/csrc/topk_i8_wide.cu",
+                                    "picovdb_tpu/ops/pallas_scan.py:1705",
+                                    "3c"),
 }
 # Every K4 / K3 kind's launch key: a path's template launches are its
 # "scan_topk" / "scan_topk_i8" launches less these
@@ -461,6 +490,10 @@ K6_KIND_KEYS = ("scan_topk_i4_sweep", "scan_topk_i4_narrow",
                 "scan_topk_i4_wgmma", "scan_topk_i4_wgmma_cpasync",
                 "scan_topk_i4_wgmma_realign", "scan_topk_i4_wide",
                 "scan_topk_i4_wide_cpasync", "scan_topk_i4_wide_realign")
+K9_KIND_KEYS = ("scan_topk_i8c_sweep", "scan_topk_i8c_narrow",
+                "scan_topk_i8c_wgmma", "scan_topk_i8c_wgmma_cpasync",
+                "scan_topk_i8c_wgmma_realign", "scan_topk_i8c_wide",
+                "scan_topk_i8c_wide_cpasync", "scan_topk_i8c_wide_realign")
 # The entry points of K5's and K10's first kernels (the mma.sync tile),
 # which serve no dispatch: timed beside the kinds that replaced them
 TILE_I8 = "pv_segmax_scan_i8"
@@ -1945,17 +1978,20 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
 
     # K9 over the column-scaled int8 mirror at Q = 1, 8, 16, k_sel 16
     # (i8c_fused_smallq at k = 10: guard 6). It ranks the exact int32
-    # sums, ties to the lower row: bit for bit the plain version.
-    errs, ms, pms, tms = [], [], [], []
+    # sums, ties to the lower row: bit for bit the plain version. The sweep
+    # serves Q <= I8C_SWEEP_Q_MAX, the tensor-core scan the larger batches.
+    errs, ms, pms, tms, kinds9 = [], [], [], [], []
     for nq1 in (1, 8, 16):
         qf = normalize_on_device(
             torch.from_numpy(rng.standard_normal((nq1, dim), dtype=np.float32))
             .to(device))
         q8 = scan.fold_queries_i8(qf, cs)
-        before = scan.LAUNCHES["scan_topk_i8c_sweep"]
+        key9 = k9_key(scan, q8, v8c, 16)
+        kinds9.append(key9[len("scan_topk_i8c_"):])
+        before = scan.LAUNCHES[key9]
         got = scan.fused_topk_i8c(q8, v8c, mask, 16)
-        assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before + 1, \
-            f"K9 missed the sweep at Q={nq1}"
+        assert scan.LAUNCHES[key9] == before + 1, \
+            f"K9 missed {key9} at Q={nq1}"
         ref = scan.fused_topk_i8c_plain(q8, v8c, mask, 16)
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
@@ -1975,8 +2011,8 @@ def phase_kernels(torch, scan, device, cap: int, dim: int, rng):
     rec["fused_topk_i8c"] = entry(max(errs), ms[0], pms[0],
                                   dim + live * dim + cap + 16 * 8,
                                   2 * live * dim, "int8", lib9, LIB_K9)
-    log(f"phase 2: K9 fused_topk_i8c (one-query sweep) = plain bit for bit "
-        f"at Q=1,8,16 k_sel=16 (ms {', '.join(f'{m:.4f}' for m in ms)}; "
+    log(f"phase 2: K9 fused_topk_i8c ({', '.join(kinds9)}) = plain bit for "
+        f"bit at Q=1,8,16 k_sel=16 (ms {', '.join(f'{m:.4f}' for m in ms)}; "
         f"bound {rec['fused_topk_i8c']['bound_ms']:.4f} ms at Q=1; the "
         f"template it replaced {', '.join(f'{m:.4f}' for m in tms)}; plain "
         f"{', '.join(f'{m:.4f}' for m in pms)}; K3 at Q=1 "
@@ -2989,13 +3025,16 @@ def small_q_serve(torch, scan, device, corpus, qdev, prefix: str, tmp: str,
 
 
 def templates_launched(counts) -> dict:
-    """A path's launches of K4's, K3's and K6's templates (`pv_scan_topk`
-    kinds 0 / 1, 2 and 3): every launch less those of the kinds."""
+    """A path's launches of K4's, K3's, K6's and K9's templates
+    (`pv_scan_topk` kinds 0 / 1, 2, 3 and 4): every launch less those of
+    the kinds."""
     return {"K4": counts["scan_topk"] - sum(counts[k] for k in K4_KIND_KEYS),
             "K3": counts["scan_topk_i8"] - sum(counts[k]
                                                for k in K3_KIND_KEYS),
             "K6": counts["scan_topk_i4"] - sum(counts[k]
-                                               for k in K6_KIND_KEYS)}
+                                               for k in K6_KIND_KEYS),
+            "K9": counts["scan_topk_i8c"] - sum(counts[k]
+                                                for k in K9_KIND_KEYS)}
 
 
 def narrow_rec(rec, name: str, label: str, record: dict) -> None:
@@ -3071,7 +3110,7 @@ def narrow_serve(torch, scan, db, corpus_dev, qdev, prefix: str, allow,
     assert routes["where"] in ("fview_segmax", "mixed_fused_batch_filtered")
     assert routes["top_k=32"] == "mixed_fused_batch", routes
     # no template launch; each new kind the store's mirrors take served
-    assert templates_launched(counts) == {"K4": 0, "K3": 0, "K6": 0}, counts
+    assert not any(templates_launched(counts).values()), counts
     want = ["scan_topk_i8_narrow"] + [
         name + scan._PIECE_KEY[scan.rows_piece(rows)] for name, rows in (
             ("scan_topk_i8_wgmma", dev.vectors_i8),
@@ -3248,7 +3287,7 @@ def int8_narrow_store(torch, scan, device, corpus, qdev, rec, label: str):
     got, _ = db.query_columnar(q64, top_k=10)
     torch.cuda.synchronize()
     counts = launch_counts(scan)
-    assert templates_launched(counts) == {"K4": 0, "K3": 0, "K6": 0}, counts
+    assert not any(templates_launched(counts).values()), counts
     v8, vs, act = db._dev.vectors, db._dev.vstore_scale, db._dev.active
     piece = scan._PIECE_KEY[scan.rows_piece(v8)]
     corpus_dev = torch.from_numpy(corpus).to(device)
@@ -3302,6 +3341,202 @@ def int8_narrow_store(torch, scan, device, corpus, qdev, rec, label: str):
     return counts, (f"int8 store: recall@10 {recall:.4f} vs float64 (Q = 1 "
                     f"and 64, host rescore); kinds {new}, template launches "
                     f"0; " + "; ".join(parts))
+
+
+# Phase 3c's K9 calls (`i8c_smallq_serve`): the direct calls of
+# fused_topk_i8c on the store's column-scaled mirror after its public
+# calls, (Q, k_sel): the tensor-core scan at a 64-query batch, the wide
+# kind at Q = 1 and 64 past k_sel 128 (the int8 IVF band's 160, the int4
+# band's 544)
+K9_DIRECT = ((64, 14), (1, 160), (64, 160), (1, 544), (64, 544))
+K9_SMALLQ = 16  # single `query` calls, the batch's and the loop's queries
+
+
+def k9_key(scan, q8, v8, k: int) -> str:
+    """The launch key of the K9 kind the ready rules give these operands
+    (the tensor-core kinds suffixed by the rows' producer); "template"
+    where none does."""
+    piece = scan._PIECE_KEY[scan.rows_piece(v8)]
+    for key, rule in (("scan_topk_i8c_sweep", scan.sweep_ready),
+                      ("scan_topk_i8c_narrow", scan.i8c_narrow_ready),
+                      ("scan_topk_i8c_wgmma" + piece, scan.i8c_wgmma_ready),
+                      ("scan_topk_i8c_wide" + piece, scan.i8c_wide_ready)):
+        if rule(q8, v8, k):
+            return key
+    return "template"
+
+
+def k9_run(scan, key: str, q8, v8, act, k: int):
+    """The K9 kind `key` launched alone (uncounted) on these operands."""
+    if key == "scan_topk_i8c_sweep":
+        return lambda: scan._sweep_launch(q8, v8, None, act, k,
+                                          "fused_topk_i8c")
+    if key == "scan_topk_i8c_narrow":
+        return lambda: scan._sweep_launch(q8, v8, None, act, k,
+                                          "fused_topk_i8c",
+                                          "pv_sweep_topk_i8c_narrow")
+    if key.startswith("scan_topk_i8c_wgmma"):
+        return lambda: scan._i8_wgmma_launch(q8, v8, None, act, k,
+                                             "fused_topk_i8c")
+    return lambda: scan._i8_wide_launch(q8, v8, None, act, k,
+                                        "fused_topk_i8c")
+
+
+def k9_hold(torch, scan, q8, v8, v8p, act, k: int, rec, label: str) -> str:
+    """After a path's count (uncounted): the K9 kind the ready rules give
+    (Q, k) over `v8`, held to `fused_topk_i8c_plain` bit for bit and
+    timed (CUDA events, median of 10) beside the template it replaces
+    (`timed_ms`: once past SLOW_MS), the library pair (LIB_K9:
+    torch._int_mm on `v8p`, the rows zero-padded to a multiple of 8
+    columns, the queries' M padded to 32 rows below 17, + masked_fill +
+    torch.topk) and its bound from bytes (the queries, the live rows,
+    the mask, the results); recorded in `rec` under the kernels line's
+    name."""
+    nq, dim = q8.shape
+    key = k9_key(scan, q8, v8, k)
+    assert key != "template", (label, nq, k)
+    run = k9_run(scan, key, q8, v8, act, k)
+    got = run()
+    ref = scan.fused_topk_i8c_plain(q8, v8, act, k, chunk=131_072)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+        f"{key} differs from the plain version ({label} Q={nq} k_sel={k})"
+    del got, ref
+    ms = timed_ms(torch, run, 10)
+    tmpl = timed_ms(torch, lambda: scan._template_launch(
+        q8, v8, None, act, k, scan._KIND_I8C, "fused_topk_i8c"), 10)
+    qq = scan._pad_cols(int_mm_rows(torch, q8, nq) if nq <= 16 else q8, 8)
+    lib = timed_ms(torch, lib_topk(
+        torch, lambda: torch._int_mm(qq, v8p.T)[:nq].float(), ~act, k), 10)
+    plain = timed_ms(torch, lambda: scan.fused_topk_i8c_plain(
+        q8, v8, act, k, chunk=131_072), 3)
+    cap, live = act.shape[0], int(act.sum())
+    r = entry(0.0, ms, plain, nq * dim + live * dim + cap + nq * k * 8,
+              2 * nq * live * dim, "int8", lib, LIB_K9)
+    r["template_ms"] = tmpl
+    name = "fused_topk_" + key[len("scan_topk_"):]
+    narrow_rec(rec, name, f"{label} Q={nq} k_sel={k}", r)
+    return (f"{name} Q={nq} k_sel={k} = plain bit for bit: {ms:.4f} ms, "
+            f"template {tmpl:.4f}, library {lib:.4f}, plain {plain:.4f}, "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+
+
+def i8c_smallq_serve(torch, scan, device, corpus, qdev, tmp: str, rec,
+                     label: str):
+    """K9 over phase 3c's column-scaled mirror: a float32 store of
+    `corpus` (host unit rows) under PICOVDB_SMALLQ_I8C=1 (the env saved
+    and restored), through the public API: K9_SMALLQ single `query` calls
+    and one K9_SMALLQ-query batch (route i8c_fused_smallq, k_sel 16), one
+    `query_serial_loop` of the same queries (i8c_fused_smallq_loop), then
+    the direct fused_topk_i8c calls of K9_DIRECT on the store's mirror,
+    launches counted from 0 to just after them. Every K9 launch takes the
+    kind its ready rules name (the narrow kind over these rows at Q = 1;
+    the batch by I8C_NARROW_Q_MAX), none the template; the singles', the
+    batch's and the loop's ids equal the route composed over K9's plain
+    version on the same mirror; recall@10 >= 0.99 against the float64
+    oracle. Then (uncounted) each shape's kind on the mirror (`k9_hold`).
+    Returns (launches, line)."""
+    from picovdb_tpu_torch import PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    n, dim = corpus.shape
+    q16 = qdev[:K9_SMALLQ].cpu().numpy()
+    saved = os.environ.get("PICOVDB_SMALLQ_I8C")
+    os.environ["PICOVDB_SMALLQ_I8C"] = "1"
+    try:
+        db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                          storage_file=os.path.join(tmp, "i8c"))
+        db.upsert_columnar(corpus, ids=[f"c{i}" for i in range(n)],
+                           copy=True)
+        db.rebuild_index()
+    finally:
+        if saved is None:
+            os.environ.pop("PICOVDB_SMALLQ_I8C", None)
+        else:
+            os.environ["PICOVDB_SMALLQ_I8C"] = saved
+    torch.cuda.synchronize()
+    dev = db._dev
+    scan.reset_launch_counts()  # count this path's launches only
+    singles, routes = [], []
+    for i in range(K9_SMALLQ):
+        singles.append([h["_id_"] for h in db.query(q16[i], top_k=10)])
+        routes.append(db.last_query_debug()["strategy"])
+    batch = db.query_batched(q16, top_k=10)
+    routes.append(db.last_query_debug()["strategy"])
+    _, loop_slots = db.query_serial_loop(q16, top_k=10)
+    loop_route = dev.last_strategy
+    v8c, act = dev.vectors_i8c, dev.active
+    qn = normalize_on_device(qdev[:64])
+    q8 = scan.fold_queries_i8(qn, dev.cscale)
+    direct = {}
+    for nq, k in K9_DIRECT:
+        direct[nq, k] = scan.fused_topk_i8c(q8[:nq], v8c, act, k)
+    torch.cuda.synchronize()
+    counts = launch_counts(scan)
+    # a crowded call's exact retry reports its own route
+    assert routes.count("i8c_fused_smallq") >= K9_SMALLQ - 2, routes
+    assert set(routes) <= {"i8c_fused_smallq", "xla_topk", "pallas_fused"}
+    assert loop_route == "i8c_fused_smallq_loop", loop_route
+    assert not any(templates_launched(counts).values()), counts
+    sh = counts["shapes"]
+    k1 = k9_key(scan, q8[:1], v8c, 16)
+    kb = k9_key(scan, q8[:K9_SMALLQ], v8c, 16)
+    assert k1 == "scan_topk_i8c_narrow", k1
+    assert sh[k1].get("Q=1 k=16", 0) == 2 * K9_SMALLQ, sh  # singles, loop
+    assert sh[kb].get(f"Q={K9_SMALLQ} k=16", 0) == 1, sh
+    assert counts["scan_topk_i8c"] == 2 * K9_SMALLQ + 1 + len(K9_DIRECT)
+    for nq, k in K9_DIRECT:
+        key = k9_key(scan, q8[:nq], v8c, k)
+        assert key.startswith("scan_topk_i8c_wgmma" if k <= 128
+                              else "scan_topk_i8c_wide"), key
+        assert sh[key].get(f"Q={nq} k={k}", 0) == 1, (key, sh)
+    # the route composed over K9's plain version on the same mirror
+    with uncounted(scan):
+        real = scan.fused_topk_i8c
+        scan.fused_topk_i8c = scan.fused_topk_i8c_plain
+        try:
+            _, pslots = scan.make_fused_topk_i8c(10)(
+                qdev[:K9_SMALLQ], v8c, dev.cscale, dev.vectors, act)
+        finally:
+            scan.fused_topk_i8c = real
+        for (nq, k), got in direct.items():
+            ref = scan.fused_topk_i8c_plain(q8[:nq], v8c, act, k,
+                                            chunk=131_072)
+            assert torch.equal(got[0], ref[0]) and torch.equal(
+                got[1], ref[1]), (label, nq, k)
+    plain_ids = [[db._ids[s] for s in row] for row in pslots.tolist()]
+    for i in range(K9_SMALLQ):
+        if routes[i] == "i8c_fused_smallq":
+            assert set(singles[i]) == set(plain_ids[i]), (label, i)
+        assert set(db._ids[s] for s in loop_slots[i]) == set(plain_ids[i])
+    if routes[-1] == "i8c_fused_smallq":
+        assert [set(h["_id_"] for h in r) for r in batch] == [
+            set(p) for p in plain_ids], label
+    corpus_dev = torch.from_numpy(corpus).to(device)
+    live = torch.ones(n, dtype=torch.bool, device=device)
+    truth = oracle_top10(torch, corpus_dev, qdev[:K9_SMALLQ], live)
+    del corpus_dev
+    r1 = recall_at_10(singles, truth, "c")
+    rb = recall_at_10([[h["_id_"] for h in r] for r in batch], truth, "c")
+    rl = recall_at_10([[db._ids[s] for s in row] for row in loop_slots],
+                      truth, "c")
+    assert min(r1, rb, rl) >= 0.99, (label, r1, rb, rl)
+    holds = []
+    with uncounted(scan):
+        v8p = scan._pad_cols(v8c, 8)  # torch._int_mm's K % 8 == 0
+        for nq, k in ((1, 16), (K9_SMALLQ, 16)) + K9_DIRECT:
+            holds.append(k9_hold(torch, scan, q8[:nq], v8c, v8p, act, k, rec,
+                                 label))
+        del v8p
+    del db, dev, v8c, q8, qn, direct
+    torch.cuda.empty_cache()
+    kinds = {k: counts[k] for k in K9_KIND_KEYS if counts[k]}
+    return counts, (f"K9 under PICOVDB_SMALLQ_I8C=1: routes "
+                    f"{sorted(set(routes))} + {loop_route}, recall@10 vs "
+                    f"float64 singles {r1:.4f} / Q={K9_SMALLQ} {rb:.4f} / "
+                    f"loop {rl:.4f}, ids = the route over K9's plain "
+                    f"version; K9 kinds {kinds}, template launches 0; "
+                    + "; ".join(holds))
 
 
 # Phase 3c's K5 / K10 batches: 2048 queries a dimension from a generator of
@@ -3587,7 +3822,10 @@ def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
     glove-100 / glove-25-angular's), served as phase 3b's new calls
     (`narrow_serve`), its kinds held and timed on its mirrors
     (`narrow_holds`), Q = 1 latency and the id-filtered batch's ms (CUDA
-    events around PicoVectorDB.query), then an int8-storage store of the
+    events around PicoVectorDB.query), K4 at small Q (`small_q_serve`),
+    K9 on a store under PICOVDB_SMALLQ_I8C=1 (`i8c_smallq_serve`: its
+    narrow kind, tensor-core scan and wide kind), then an int8-storage
+    store of the
     same rows (`int8_narrow_store`), and a 2048-query batch (its own
     generator, SEED + 33) through K5's and K10's kinds over rows TMA
     cannot read (`i8_segmax_batches`), after those kinds on 131,072-row
@@ -3631,6 +3869,10 @@ def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
         sq_counts, sq_line = small_q_serve(torch, scan, device, corpus, qdev,
                                            "g", tmp, f"the {n} x {dim} rows",
                                            rec=rec, label=f"3c dim {dim}")
+        t9 = time.perf_counter()
+        k9_counts, k9_line = i8c_smallq_serve(torch, scan, device, corpus,
+                                              qdev, tmp, rec, f"3c dim {dim}")
+        k9_s = time.perf_counter() - t9
         shutil.rmtree(tmp)
         i8_counts, i8_line = int8_narrow_store(torch, scan, device, corpus,
                                                qdev, rec, f"3c dim {dim}")
@@ -3639,15 +3881,15 @@ def phase_ann_widths(torch, scan, device, rec, n: int = ANN_N,
             torch, scan, device, corpus, i8_narrow_queries(g33, corpus), rec,
             f"3c dim {dim}")
         torch.cuda.empty_cache()
-        for c in (counts, sq_counts, i8_counts, k5_counts):
+        for c in (counts, sq_counts, k9_counts, i8_counts, k5_counts):
             for k, v in c.items():
                 if k != "shapes":
                     total[k] = total.get(k, 0) + v
         log(f"phase 3c: {line}; Q=1 latency {q1_ms:.4f} ms, the 64-query "
             f"id-filtered batch {filt_ms:.3f} ms (CUDA events around "
             f"PicoVectorDB.query); on the store's mirrors: {holds}; K4 at "
-            f"small Q through the public API: {sq_line}; "
-            f"{i8_line}; K5 / K10: {k5_line}; "
+            f"small Q through the public API: {sq_line}; {k9_line} "
+            f"({k9_s:.1f} s); {i8_line}; K5 / K10: {k5_line}; "
             f"{time.perf_counter() - t0:.1f} s")
     return total
 
@@ -3717,6 +3959,70 @@ def narrow_cross(torch, scan, device) -> str:
         del v8, vs, mask, q8
         torch.cuda.empty_cache()
     return "; ".join(parts)
+
+
+# `--k9-cross`: K9's sweeps against its tensor-core scan at k_sel 16 (the
+# i8c_fused_smallq band at k = 10) on column-scaled int8 planes made on
+# the card: the 16-byte sweep over K9_CROSS_WIDE (phase 9's 1M x 1024
+# mirror's shape and a 4M-row plane), the narrow kind over K9_CROSS_NARROW
+# (phase 3c's 1,183,514 rows at its widths, and 1019)
+K9_CROSS_Q = (1, 2, 4, 5, 8, 16)
+K9_CROSS_WIDE = ((TIERS_N, DIM), (4 << 20, DIM))
+K9_CROSS_NARROW = ((ANN_N, 25), (ANN_N, 100), (ANN_N, ODD_DIM))
+
+
+def k9_cross(torch, scan, device) -> str:
+    """The crossovers behind I8C_SWEEP_Q_MAX and I8C_NARROW_Q_MAX: on each
+    plane (rows uniform in -127..127, ~10 % masked out; its own generator,
+    SEED + 26), at each Q of K9_CROSS_Q, the sweep the plane's rows take
+    (the 16-byte sweep or the narrow kind, launched past the limits) and
+    the tensor-core scan, bit for bit each other and the plain version at
+    Q = 1, each timed (CUDA events, median of 10), with the kind the ready
+    rules pick (the narrow kind only where its phase copies fit,
+    `narrow_fits`). Returns the lines."""
+    g = torch.Generator(device=device).manual_seed(SEED + 26)
+    lines = []
+    for cap, dim in K9_CROSS_WIDE + K9_CROSS_NARROW:
+        v8 = torch.randint(-127, 128, (cap, dim), generator=g, device=device,
+                           dtype=torch.int8)
+        act = torch.rand(cap, generator=g, device=device) >= 0.1
+        q8 = torch.randint(-127, 128, (16, dim), generator=g, device=device,
+                           dtype=torch.int8)
+        wide = dim % 16 == 0
+        parts = []
+        for nq in K9_CROSS_Q:
+            q = q8[:nq]
+            picked = k9_key(scan, q, v8, 16)
+            tc = k9_run(scan, "scan_topk_i8c_wgmma", q, v8, act, 16)
+            if not wide and not scan.narrow_fits(q, v8, 16):
+                b = tc()  # the phase copies past the narrow kind's memory
+                torch.cuda.synchronize()
+                parts.append(f"Q={nq} ({picked[len('scan_topk_i8c_'):]}): "
+                             f"narrow does not fit, scan "
+                             f"{cuda_ms(torch, tc):.4f}")
+                continue
+            sweep = k9_run(scan, "scan_topk_i8c_sweep" if wide
+                           else "scan_topk_i8c_narrow", q, v8, act, 16)
+            a, b = sweep(), tc()
+            torch.cuda.synchronize()
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), \
+                (cap, dim, nq)
+            if nq == 1:
+                ref = scan.fused_topk_i8c_plain(q, v8, act, 16,
+                                                chunk=131_072)
+                assert torch.equal(a[0], ref[0]) and torch.equal(
+                    a[1], ref[1]), (cap, dim)
+            del a, b
+            parts.append(f"Q={nq} ({picked[len('scan_topk_i8c_'):]}): "
+                         f"{'sweep' if wide else 'narrow'} "
+                         f"{cuda_ms(torch, sweep):.4f}, scan "
+                         f"{cuda_ms(torch, tc):.4f}")
+        lines.append(f"{cap} x {dim} (piece {scan.rows_piece(v8)}): "
+                     + ", ".join(parts) + " ms")
+        log(f"K9 sweep crossover: {lines[-1]}")
+        del v8, act, q8
+        torch.cuda.empty_cache()
+    return " | ".join(lines)
 
 
 def narrow_ab(torch, scan, device) -> str:
@@ -5808,11 +6114,13 @@ def check_i8c_on_store(torch, scan, dev, qdev, new, rec) -> str:
                       + cap9 + 1000 * 2 * (cap9 // scan.SEG) * 4,
                       2 * 1000 * live9 * v8c.shape[1], "int8")["bound_ms"]
     del q1000
-    err9, sweep_ms, tmpl_ms = 0.0, [], []
+    err9, sweep_ms, tmpl_ms, kinds9 = 0.0, [], [], []
     for nq in (1, 16):
-        before = scan.LAUNCHES["scan_topk_i8c_sweep"]
+        key9 = k9_key(scan, qq[:nq], v8c, 16)  # the sweep, or past its
+        kinds9.append(key9[len("scan_topk_i8c_"):])  # limit the scan
+        before = scan.LAUNCHES[key9]
         got = scan.fused_topk_i8c(qq[:nq], v8c, act, 16)
-        assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before + 1
+        assert scan.LAUNCHES[key9] == before + 1, key9
         ref = scan.fused_topk_i8c_plain(qq[:nq], v8c, act, 16)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
             f"K9 differs at Q={nq} on the store's mirror"
@@ -5823,8 +6131,9 @@ def check_i8c_on_store(torch, scan, dev, qdev, new, rec) -> str:
         tmpl_ms.append(k9_template_ms(torch, scan, q1, v8c, act, 16))
     for name, err in (("segmax_scan_i8c", err10), ("fused_topk_i8c", err9)):
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-    return (f"; K10 keys (2048 queries, int8 TMA + wgmma) and K9 (one-query "
-            f"sweep, Q=1, 16, k_sel 16) = plain bit for bit over the store's "
+    return (f"; K10 keys (2048 queries, int8 TMA + wgmma) and K9 "
+            f"({', '.join(kinds9)}, Q=1, 16, k_sel 16) = plain bit for bit "
+            f"over the store's "
             f"{v8c.shape[0]}-row mirror, the mma.sync tile K10 replaced "
             f"{tile_ms:.4f} ms a chunk (same keys), K9 at Q=1, 16 "
             f"{sweep_ms[0]:.4f}, "
@@ -8348,6 +8657,7 @@ def main() -> int:
     i8_narrow_only = sys.argv[1:] == ["--i8-narrow"]
     narrow_ab_only = sys.argv[1:] == ["--narrow-ab"]
     k4_cross_only = sys.argv[1:] == ["--k4-cross"]
+    k9_cross_only = sys.argv[1:] == ["--k9-cross"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -8373,6 +8683,10 @@ def main() -> int:
         return 0
     if k4_cross_only:  # K4's one-query sweeps against its scan alone
         k4_cross(torch, scan, device)
+        print(card)
+        return 0
+    if k9_cross_only:  # K9's sweeps against its scan alone
+        k9_cross(torch, scan, device)
         print(card)
         return 0
     if narrow_ab_only:  # K3's and K4's narrow kinds at phase 3c's shapes

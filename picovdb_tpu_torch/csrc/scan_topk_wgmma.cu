@@ -1,23 +1,30 @@
-// K4 fused_topk and K3 fused_topk_i8 on Hopper's tensor cores: exact
-// masked top-k over float32 or bfloat16 rows against float32 queries (K4),
-// or over int8 rows times their float32 scales against int8 queries (K3),
-// reading only the 128-row segments that hold a live row.
+// K4 fused_topk, K3 fused_topk_i8 and K9 fused_topk_i8c on Hopper's
+// tensor cores: exact masked top-k over float32 or bfloat16 rows against
+// float32 queries (K4), over int8 rows times their float32 scales against
+// int8 queries (K3), or over column-scaled int8 rows against folded int8
+// queries ranked on the exact int32 sum (K9, `Int8C`: K3's scan with no
+// row scale, K7's key), reading only the 128-row segments that hold a live
+// row.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk (`_scan_kernel`)
 // at k <= 128 (ops/scan.py::topk_wgmma_ready), and pallas_scan.py:
 // fused_topk_i8 (`_scan_kernel_i8`) at k <= 384 where the one-query
-// sweeps do not serve (ops/scan.py::i8_wgmma_ready), at every row width
-// and base: rows TMA cannot read (bytes not whole 16, or a base off 16
-// bytes: the glove-100 / -25 widths, odd bf16 mirrors, views) arrive by
-// the mainloop's cp.async or realigning producer (scan_topk_wgmma.cuh,
+// sweeps do not serve (ops/scan.py::i8_wgmma_ready), and pallas_scan.py:
+// fused_topk_i8c (`_scan_kernel_i8c`) at k <= 128 where neither of K9's
+// sweeps serves (ops/scan.py::i8c_wgmma_ready: Q past their limits, widths
+// past the 16-byte sweep's query block), at every row width and base:
+// rows TMA cannot read (bytes not whole 16, or a base off 16 bytes: the
+// glove-100 / -25 widths, odd bf16 mirrors, views) arrive by the
+// mainloop's cp.async or realigning producer (scan_topk_wgmma.cuh,
 // `PIECE`), where the template scan_topk.cu served them before. K4 at
-// 128 < k <= 1024 runs topk_wide.cu, K3 past k 128 topk_i8_wide.cu, whose
-// pass A is this scan with a slab epilogue (BUF 0: every live segment's
-// keys written, nothing selected here). It computes pv_scan_topk's kinds
-// 0, 1 and 2: per query the k best masked rows by the float32 score (q .
-// v; for int8 rows float32(int32 q . v) * vscale[row], one conversion and
-// one multiply), as (Q, k) float32 scores (-inf where a slot is empty) and
-// (Q, k) int32 rows (0 where empty), ties to the lower row.
+// 128 < k <= 1024 runs topk_wide.cu, K3 and K9 past k 128
+// topk_i8_wide.cu, whose pass A is this scan with a slab epilogue (BUF 0:
+// every live segment's keys written, nothing selected here). It computes
+// pv_scan_topk's kinds 0, 1, 2 and 4: per query the k best masked rows by
+// the float32 score (q . v; for int8 rows float32(int32 q . v) *
+// vscale[row], one conversion and one multiply; K9 the int32 sum itself),
+// as (Q, k) float32 scores (-inf where a slot is empty) and (Q, k) int32
+// rows (0 where empty), ties to the lower row.
 //
 // What bounds it on the H100: float32 rows run three TF32 products (2 Q
 // cap dim operations each at 495 T/s: 6.4 ms at Q = 256 over 2M x 1024
@@ -135,8 +142,9 @@ int k4(const void* planes, int qld, const void* v, const void* mask,
 // K3's configurations at k with the rows' producer PIECE: four stages and
 // BUF 64 / 128 to k 64, three and BUF 256 to k 128, then 32 queries a CTA,
 // four stages and BUF 512; two stages past k 64 beside the realigning
-// producer's slots.
-template <int PIECE>
+// producer's slots. T: `Int8R` (K3, `vs` the row scales) or `Int8C` (K9,
+// no scale, up to k 128: its wide kind takes k past it).
+template <class T, int PIECE>
 int k3(const void* q, int qld, const void* v, const float* vs,
        const void* mask, void* partial, void* vals, void* idx, int Q,
        long long cap, int dim, int k, cudaStream_t s) {
@@ -144,18 +152,40 @@ int k3(const void* q, int qld, const void* v, const float* vs,
   const Rows flat{};  // the rows [0, cap)
   constexpr bool RA = PIECE == 2;
   if (k <= 32)
-    return launch_rows<Int8R, 64, 4, 64, PIECE>(q, qld, v, mask, vs, partial,
-                                                 vals, idx, Q, cap, dim, k,
-                                                 flat, s);
+    return launch_rows<T, 64, 4, 64, PIECE>(q, qld, v, mask, vs, partial,
+                                             vals, idx, Q, cap, dim, k, flat,
+                                             s);
   if (k <= 64)
-    return launch_rows<Int8R, 64, 4, 128, PIECE>(q, qld, v, mask, vs, partial,
-                                                  vals, idx, Q, cap, dim, k,
-                                                  flat, s);
+    return launch_rows<T, 64, 4, 128, PIECE>(q, qld, v, mask, vs, partial,
+                                              vals, idx, Q, cap, dim, k, flat,
+                                              s);
   if (k <= 128)
-    return launch_rows<Int8R, 64, RA ? 2 : 3, 256, PIECE>(
+    return launch_rows<T, 64, RA ? 2 : 3, 256, PIECE>(
         q, qld, v, mask, vs, partial, vals, idx, Q, cap, dim, k, flat, s);
-  return launch_rows<Int8R, 32, RA ? 2 : 4, 512, PIECE>(
-      q, qld, v, mask, vs, partial, vals, idx, Q, cap, dim, k, flat, s);
+  if constexpr (T::SCALED)
+    return launch_rows<T, 32, RA ? 2 : 4, 512, PIECE>(
+        q, qld, v, mask, vs, partial, vals, idx, Q, cap, dim, k, flat, s);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+// The int8 kinds' queries, padded where TMA cannot read them as they lie
+// (`tk::tma_queries`, at the head of `scratch`), then k3<T> with the
+// partials after them.
+template <class T>
+int int8_scan(int piece, const void* q, const void* v, const float* vs,
+              const void* mask, void* scratch, void* vals, void* idx, int Q,
+              long long cap, int dim, int k, cudaStream_t s) {
+  const int qld = tk::plane_ld(dim, 1);
+  unsigned char* qp = static_cast<unsigned char*>(scratch);
+  void* partial = qp + ((size_t)Q * qld + 255) / 256 * 256;
+  const cudaError_t e = tk::tma_queries(&q, qp, Q, dim, s);
+  if (e != cudaSuccess) return (int)e;
+  const int ld = q == qp ? qld : dim;  // q's rows as TMA reads them
+  return tk::with_piece(piece, [&](auto p) {
+    return k3<T, decltype(p)::value>(q, ld, v, vs, mask, partial, vals, idx,
+                                     Q, cap, dim, k, s);
+  });
 }
 
 }  // namespace
@@ -222,16 +252,31 @@ extern "C" int pv_scan_topk_i8_wgmma(int piece, const void* q, const void* v,
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
   if (k > 384 || cap < 0 || dim <= 0 || !vscale || (uintptr_t)scratch % 256)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* vs = static_cast<const float*>(vscale);
-  const int qld = tk::plane_ld(dim, 1);
-  unsigned char* qp = static_cast<unsigned char*>(scratch);
-  void* partial = qp + ((size_t)Q * qld + 255) / 256 * 256;
-  const cudaError_t e = tk::tma_queries(&q, qp, Q, dim, s);
-  if (e != cudaSuccess) return (int)e;
-  const int ld = q == qp ? qld : dim;  // q's rows as TMA reads them
-  return tk::with_piece(piece, [&](auto p) {
-    return k3<decltype(p)::value>(q, ld, v, vs, mask, partial, vals, idx, Q,
-                                  cap, dim, k, s);
-  });
+  return int8_scan<tk::Int8R>(piece, q, v, static_cast<const float*>(vscale),
+                             mask, scratch, vals, idx, Q, cap, dim, k,
+                             (cudaStream_t)stream);
+}
+
+// K9 on the tensor cores: pv_scan_topk's kind 4 for k <= 128, K3's scan
+// at `Int8C` (no row scale: the exact int32 sum ranks, int_row_key, ties
+// to the lower row; vals carry the sums as float32). piece: the rows'
+// producer, as pv_scan_topk_i8_wgmma's (2: any int8 width and base). q
+// (Q, dim) folded int8 queries (any base), v (cap, dim) column-scaled int8
+// rows, mask (cap,) uint8. `scratch` as pv_scan_topk_i8_wgmma's: the
+// queries as TMA reads them, ceil(Q qld / 256) x 256 bytes, then Q *
+// ranges * k uint64 partials. The grid is ceil(Q / 64) query tiles x
+// `ranges` segment ranges (ops/scan.py::i8_wgmma_partition). Launches on
+// the current device. Returns 0, a cudaError_t, or minus the CUresult of
+// a refused tensor-map encode.
+extern "C" int pv_scan_topk_i8c_wgmma(int piece, const void* q, const void* v,
+                                      const void* mask, void* scratch,
+                                      void* vals, void* idx, int Q,
+                                      long long cap, int dim, int k,
+                                      void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (k > 128 || cap < 0 || dim <= 0 || (uintptr_t)scratch % 256)
+    return (int)cudaErrorInvalidValue;
+  return int8_scan<tk::Int8C>(piece, q, v, nullptr, mask, scratch, vals, idx,
+                              Q, cap, dim, k, (cudaStream_t)stream);
 }

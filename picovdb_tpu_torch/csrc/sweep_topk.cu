@@ -18,7 +18,11 @@
 //    template, pv_scan_topk kind 3, served those until then);
 //  * picovdb_tpu/ops/pallas_scan.py:fused_topk_i8c (`_scan_kernel_i8c`,
 //    K9), on the routes `i8c_fused_smallq` (Q <= 16 at k_sel = k + 6) and
-//    the serial Q = 1 loop; pv_scan_topk kind 4 serves its other shapes;
+//    the serial Q = 1 loop, up to ops/scan.py::I8C_SWEEP_Q_MAX over rows
+//    of whole 16-byte words, and through `sweep_narrow_kernel<Int8C>` up
+//    to I8C_NARROW_Q_MAX at every other width and base (glove-100's 100
+//    bytes, glove-25's 25; the template, pv_scan_topk kind 4, served those
+//    until then); scan_topk_wgmma.cu and topk_i8_wide.cu serve the rest;
 //  * picovdb_tpu/ops/ivf.py:probe_scan_local (`_ivf_kernel`,
 //    `_ivf_kernel_i8c`, K7), the IVF ladder over the hot tiles that a
 //    device table names, at Q <= 16 (a Q = 1 probe and the small batches),
@@ -73,9 +77,10 @@
 //    128-row tile at once (one ballot). No barrier inside a tile. A K7
 //    group maps to physical rows through the table once: shares start on
 //    a multiple of SHARE rows, so a group never crosses a hot tile.
-//  * K3's, K6's and K7's rows at any width and base (`sweep_narrow_kernel`,
-//    the narrow kind; K6's packed int4 rows; K7's float32, bf16 and
-//    column-scaled int8 postings over the hot tiles' shares): a row of `rb`
+//  * K3's, K4's, K6's, K7's and K9's rows at any width and base
+//    (`sweep_narrow_kernel`, the narrow kind; K6's packed int4 rows; K7's
+//    float32, bf16 and column-scaled int8 postings over the hot tiles'
+//    shares, K9's column-scaled int8 rows over flat ranges): a row of `rb`
 //    bytes lies at byte phase p = (v
 //    + row rb) % 16 of its 16-byte words. The CTA keeps P = 16 / g phase
 //    copies of each query (g the largest power of two <= 16 dividing rb
@@ -100,7 +105,13 @@
 //    host-rescore band): its buffers take 64 KB at QT = 16, so the query
 //    block and the buffers stay within 80 KB at dim 1024 and two CTAs
 //    still share an SM.
+//  * Tiles up to each kind's served limit only (`QT_MAX`, `NARROW_QT_MAX`:
+//    K3's 4, K4's `Bf16F` 4, K6's 4 and 8; K9 and K7 reach 16): a
+//    kind's entry takes up to 16 queries all the same, in passes of its
+//    largest tile, each reading the rows again (the crossover calls of
+//    chip_smoke.py time those past the limits).
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -136,6 +147,10 @@ struct Int8C {  // column-scaled int8 rows, folded int8 queries
   static constexpr int QW = 1;  // query words a row word meets
   static constexpr bool ROW_SCALE = false;  // the key scales by vscale[row]
   static constexpr int K_MAX = 128;
+  // the largest query tile of the 16-byte sweep and of the narrow kind:
+  // K9's and K7's limits reach 16 (a kind served only below 16 caps its
+  // tiles, and its entries take more queries in passes of the cap)
+  static constexpr int QT_MAX = 16, NARROW_QT_MAX = 16;
   static __device__ __forceinline__ int dot(uint4 a, uint4 b, int acc) {
     acc = __dp4a((int)a.x, (int)b.x, acc);
     acc = __dp4a((int)a.y, (int)b.y, acc);
@@ -162,6 +177,7 @@ struct F32 {  // float32 rows and queries
   static constexpr int QW = 1;
   static constexpr bool ROW_SCALE = false;
   static constexpr int K_MAX = 128;
+  static constexpr int QT_MAX = 16, NARROW_QT_MAX = 16;  // K7's
   static __device__ __forceinline__ float dot(uint4 a, uint4 b, float acc) {
     acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
     acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
@@ -192,6 +208,7 @@ struct Bf16 {  // bf16 rows and queries, float32 sums
   static constexpr int QW = 1;
   static constexpr bool ROW_SCALE = false;
   static constexpr int K_MAX = 128;
+  static constexpr int QT_MAX = 16, NARROW_QT_MAX = 16;  // K7's
   static __device__ __forceinline__ float dot(uint4 a, uint4 b, float acc) {
     acc = bf_fma2(a.x, b.x, acc);
     acc = bf_fma2(a.y, b.y, acc);
@@ -220,6 +237,8 @@ struct Bf16F {
   static constexpr int QW = 2;
   static constexpr bool ROW_SCALE = false;
   static constexpr int K_MAX = 128;
+  // ops/scan.py TOPK_SWEEP_Q_MAX, TOPK_NARROW_Q_MAX
+  static constexpr int QT_MAX = 4, NARROW_QT_MAX = 4;
   static __device__ __forceinline__ float dot(uint4 a, uint4 lo, uint4 hi,
                                               float acc) {
     acc = fmaf(bf_lo(a.x), __uint_as_float(lo.x), acc);
@@ -253,6 +272,8 @@ struct Int4 {
   static constexpr int QW = 2;
   static constexpr bool ROW_SCALE = true;
   static constexpr int K_MAX = 128;
+  // ops/scan.py I4_SWEEP_Q_MAX, I4_NARROW_Q_MAX
+  static constexpr int QT_MAX = 4, NARROW_QT_MAX = 8;
   // the planes of a row word, split once and met by every query
   static __device__ __forceinline__ uint4 low(uint4 a) {
     const uint32_t m = 0x0F0F0F0Fu;
@@ -286,6 +307,8 @@ struct Int4 {
 struct Int8R : Int8C {
   static constexpr bool ROW_SCALE = true;
   static constexpr int K_MAX = 384;
+  // ops/scan.py I8_SWEEP_Q_MAX (the narrow kind's limit too)
+  static constexpr int QT_MAX = 4, NARROW_QT_MAX = 4;
 };
 
 // Which rows CTA c of n reads, as logical rows [beg, end) and their
@@ -870,41 +893,60 @@ cudaError_t launch_narrow_qt(const void* q, const void* v, const void* vscale,
   return cudaGetLastError();
 }
 
+// The query tile for nq queries: 1, 2, 4, 8 or 16, the smallest >= nq.
+__host__ inline int tile_of(int nq) {
+  return nq == 1 ? 1 : nq == 2 ? 2 : nq <= 4 ? 4 : nq <= 8 ? 8 : 16;
+}
+
+// f(std::integral_constant<int, QT>()) for the tile qt = tile_of(nq), nq
+// <= QMAX: only the tiles up to QMAX are instantiated.
+template <int QMAX, class F>
+cudaError_t with_tile(int qt, F&& f) {
+  if (qt == 1) return f(std::integral_constant<int, 1>());
+  if (qt == 2) return f(std::integral_constant<int, 2>());
+  if constexpr (QMAX <= 4) {
+    return f(std::integral_constant<int, 4>());
+  } else {
+    if (qt == 4) return f(std::integral_constant<int, 4>());
+    if constexpr (QMAX <= 8)
+      return f(std::integral_constant<int, 8>());
+    else
+      return qt == 8 ? f(std::integral_constant<int, 8>())
+                     : f(std::integral_constant<int, 16>());
+  }
+}
+
 // The narrow sweep of kind K over rows of rb bytes (Int4: queries of 2 rb
-// bytes), the query tile sized to Q, BUF slots a
-// query, then the merge of the CTAs' partials into vals / idx. Refuses
-// (cudaErrorInvalidValue) Q > 16, k > BUF - 128, rows or a base off the
-// element's bytes, and a query block with buffers above NARROW_SMEM_BYTES.
+// bytes), BUF slots a query, then the merge of the CTAs' partials into
+// vals / idx. The queries go in passes of K::NARROW_QT_MAX (one pass up
+// to the kind's limit), each with the query tile sized to its queries and
+// its partials at its queries' rows. Refuses (cudaErrorInvalidValue) Q >
+// 16, k > BUF - 128, rows or a base off the element's bytes, and a query
+// block with buffers above NARROW_SMEM_BYTES.
 template <class K, int BUF>
 cudaError_t narrow(const void* q, const void* v, const void* vs,
                    const void* mask, const Rows& rows, void* partial,
                    void* vals, void* idx, int Q, int rb, int es, int k,
                    int ctas, cudaStream_t s) {
+  constexpr int QMAX = K::NARROW_QT_MAX;
   if (Q > 16 || k > BUF - TR || rb <= 0 || rb % es || (uintptr_t)v % es ||
       ctas <= 0)
     return cudaErrorInvalidValue;
-  const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
   const Narrow nw(rb, v);
-  if (nw.smem(qt, K::QW, BUF) > NARROW_SMEM_BYTES)
+  if (nw.smem(tile_of(std::min(Q, QMAX)), K::QW, BUF) > NARROW_SMEM_BYTES)
     return cudaErrorInvalidValue;
   u64* part = static_cast<u64*>(partial);
-  cudaError_t err;
-  if (qt == 1)
-    err = launch_narrow_qt<K, 1, BUF>(q, v, vs, mask, rows, part, Q, rb, nw, k,
-                                      ctas, s);
-  else if (qt == 2)
-    err = launch_narrow_qt<K, 2, BUF>(q, v, vs, mask, rows, part, Q, rb, nw, k,
-                                      ctas, s);
-  else if (qt == 4)
-    err = launch_narrow_qt<K, 4, BUF>(q, v, vs, mask, rows, part, Q, rb, nw, k,
-                                      ctas, s);
-  else if (qt == 8)
-    err = launch_narrow_qt<K, 8, BUF>(q, v, vs, mask, rows, part, Q, rb, nw, k,
-                                      ctas, s);
-  else
-    err = launch_narrow_qt<K, 16, BUF>(q, v, vs, mask, rows, part, Q, rb, nw,
-                                       k, ctas, s);
-  if (err != cudaSuccess) return err;
+  for (int q0 = 0; q0 < Q; q0 += QMAX) {
+    const int nq = std::min(QMAX, Q - q0);
+    const void* qp =
+        static_cast<const unsigned char*>(q) + (size_t)q0 * K::QW * rb;
+    u64* pp = part + (size_t)q0 * ctas * k;
+    const cudaError_t err = with_tile<QMAX>(tile_of(nq), [&](auto t) {
+      return launch_narrow_qt<K, decltype(t)::value, BUF>(
+          qp, v, vs, mask, rows, pp, nq, rb, nw, k, ctas, s);
+    });
+    if (err != cudaSuccess) return err;
+  }
   return launch_topk_merge(part, static_cast<float*>(vals),
                            static_cast<int*>(idx), Q, ctas * k, k, s,
                            std::is_same<K, Int8C>::value);
@@ -926,49 +968,41 @@ cudaError_t launch_qt(const void* q, const void* v, const void* vscale,
   return cudaGetLastError();
 }
 
-// The query tile sized to Q (qt: 1, 2, 4, 8 or 16), BUF slots a query.
-template <class K, int BUF>
-cudaError_t launch_buf(int qt, const void* q, const void* v,
-                       const void* vs, const void* mask, const Rows& rows,
-                       u64* part, int Q, int cpr, int k, int ctas,
-                       cudaStream_t s) {
-  if (qt == 1)
-    return launch_qt<K, 1, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
-  if (qt == 2)
-    return launch_qt<K, 2, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
-  if (qt == 4)
-    return launch_qt<K, 4, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
-  if (qt == 8)
-    return launch_qt<K, 8, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
-  return launch_qt<K, 16, BUF>(q, v, vs, mask, rows, part, Q, cpr, k, ctas, s);
-}
-
-// The sweep of kind K with the query tile sized to Q, then the merge of
-// the CTAs' partials into vals / idx. Refuses (cudaErrorInvalidValue) what
-// the sweep does not take: Q > 16, k > K::K_MAX, rows that are not whole
-// 16-byte words, misaligned q or v, a query block above QBLOCK_BYTES.
+// The sweep of kind K, then the merge of the CTAs' partials into vals /
+// idx. The queries go in passes of K::QT_MAX (one pass up to the kind's
+// limit), each with the query tile sized to its queries and its partials
+// at its queries' rows. Refuses (cudaErrorInvalidValue) what the sweep
+// does not take: Q > 16, k > K::K_MAX, rows that are not whole 16-byte
+// words, misaligned q or v, a query block above QBLOCK_BYTES.
 template <class K>
 cudaError_t sweep(const void* q, const void* v, const void* vscale,
                   const void* mask, const Rows& rows, void* partial,
                   void* vals, void* idx, int Q, int dim, int k, int ctas,
                   cudaStream_t s) {
+  constexpr int QMAX = K::QT_MAX;
   if (Q > 16 || k > K::K_MAX || ctas <= 0 || dim <= 0 || dim % K::EPW ||
       ((uintptr_t)q | (uintptr_t)v) % 16)
     return cudaErrorInvalidValue;
-  const int qt = Q == 1 ? 1 : Q == 2 ? 2 : Q <= 4 ? 4 : Q <= 8 ? 8 : 16;
   const int cpr = dim / K::EPW;
-  if ((long)qt * K::QW * cpr * 16 > QBLOCK_BYTES) return cudaErrorInvalidValue;
+  if ((long)tile_of(std::min(Q, QMAX)) * K::QW * cpr * 16 > QBLOCK_BYTES)
+    return cudaErrorInvalidValue;
   u64* part = static_cast<u64*>(partial);
-  cudaError_t err;
-  if constexpr (K::K_MAX > 128)
-    err = k <= 128 ? launch_buf<K, BUF_K128>(qt, q, v, vscale, mask, rows, part,
-                                             Q, cpr, k, ctas, s)
-                   : launch_buf<K, BUF_K384>(qt, q, v, vscale, mask, rows, part,
-                                             Q, cpr, k, ctas, s);
-  else
-    err = launch_buf<K, BUF_K128>(qt, q, v, vscale, mask, rows, part, Q, cpr,
-                                  k, ctas, s);
-  if (err != cudaSuccess) return err;
+  for (int q0 = 0; q0 < Q; q0 += QMAX) {
+    const int nq = std::min(QMAX, Q - q0);
+    const void* qp =
+        static_cast<const uint4*>(q) + (size_t)q0 * K::QW * cpr;
+    u64* pp = part + (size_t)q0 * ctas * k;
+    const cudaError_t err = with_tile<QMAX>(tile_of(nq), [&](auto t) {
+      constexpr int QT = decltype(t)::value;
+      if constexpr (K::K_MAX > 128)
+        if (k > 128)
+          return launch_qt<K, QT, BUF_K384>(qp, v, vscale, mask, rows, pp, nq,
+                                            cpr, k, ctas, s);
+      return launch_qt<K, QT, BUF_K128>(qp, v, vscale, mask, rows, pp, nq,
+                                        cpr, k, ctas, s);
+    });
+    if (err != cudaSuccess) return err;
+  }
   return launch_topk_merge(part, static_cast<float*>(vals),
                            static_cast<int*>(idx), Q, ctas * k, k, s,
                            std::is_same<K, Int8C>::value);
@@ -996,6 +1030,33 @@ extern "C" int pv_sweep_topk_i8c(const void* q, const void* v,
   const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
   return (int)sweep<Int8C>(q, v, nullptr, mask, rows, partial, vals, idx, Q,
                            dim, k, n > 1 ? (int)n : 1, (cudaStream_t)stream);
+}
+
+// K9's narrow kind on the one-query sweep: q (Q, dim) folded int8 queries
+// (any base), v (cap, dim) column-scaled int8 rows at any width and base,
+// mask (cap,) uint8; Q <= 16, k <= 128, and the query block (P phase
+// copies of the QT queries, W words each: ops/scan.py::narrow_block_bytes)
+// with the buffers within NARROW_SMEM_BYTES. `sweep_narrow_kernel<Int8C>`,
+// K7's instantiation, over K9's flat ranges: CTA c reads rows [c * chunk,
+// min(cap, (c + 1) * chunk)) (chunk % 128 == 0); `partial` is scratch of
+// max(1, ceil(cap / chunk)) * Q * k uint64; vals (Q, k) float32 (the int32
+// sums) and idx (Q, k) int32 receive the result (-inf / 0 where empty).
+// Returns the cudaError_t of the launches.
+extern "C" int pv_sweep_topk_i8c_narrow(const void* q, const void* v,
+                                        const void* mask, void* partial,
+                                        void* vals, void* idx, int Q,
+                                        long long cap, int dim, int k,
+                                        long long chunk, void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  if (cap < 0 || chunk <= 0 || chunk % SEG || k > Int8C::K_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (cap + chunk - 1) / chunk;
+  const Rows rows{nullptr, nullptr, (long)cap, (long)chunk, 0, 0};
+  return (int)narrow<Int8C, BUF_K128>(q, v, nullptr, mask, rows, partial,
+                                      vals, idx, Q, dim, 1, k,
+                                      n > 1 ? (int)n : 1,
+                                      (cudaStream_t)stream);
 }
 
 // K6 on the one-query sweep: q (Q, dim) int8 queries, v (cap, dim / 2)

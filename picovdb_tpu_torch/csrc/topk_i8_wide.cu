@@ -1,6 +1,14 @@
-// K3 fused_topk_i8 at 128 < k <= 1024 (the wide kind): K3's tensor-core
-// scan writing every live row's sortable score key to a slab, then the
-// per-query radix select over the slab.
+// K3 fused_topk_i8 and K9 fused_topk_i8c at 128 < k <= 1024 (the wide
+// kinds): K3's tensor-core scan writing every live row's sortable score
+// key to a slab, then the per-query radix select over the slab.
+//
+// K9's (`pv_scan_topk_i8c_wide`) replaces picovdb_tpu/ops/pallas_scan.py:
+// fused_topk_i8c (`_scan_kernel_i8c`) past k_sel 128 at every width and
+// base up to 64M rows (ops/scan.py::i8c_wide_ready; the template, kind 4,
+// served it): pass A is the scan at `Int8C` (no row scale, the slab key
+// the sign-flipped int32 sum, as K7's wide kind over int8 postings,
+// ivf_scan_wide.cu), the finish decodes the keys to the sums. Below,
+// K3's.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk_i8 (`_scan_kernel_i8`)
 // past k_sel 128 (ops/scan.py::i8_wide_ready), at every int8 width and
@@ -55,9 +63,65 @@
 //    under the int8 row's 1,024 read once per 64 queries.
 
 #include <algorithm>
+#include <type_traits>
 
 #include "radix_select.cuh"
 #include "scan_topk_wgmma.cuh"
+
+namespace pv {
+namespace {
+
+// The int8 wide kinds' call: the queries padded where TMA cannot read them
+// (after the tile in `scratch`), then `rs::walk_tiles` with pass A the
+// scan of kind T (`Int8R`: K3, `vs` the row scales; `Int8C`: K9, the
+// int32 sums as the keys, decoded as such) over the rows [0, cap), 32
+// queries a CTA at a tile of <= 32, else 64, four stages, the rows'
+// producer `piece`.
+template <class T>
+int int8_wide(int piece, const void* q, const void* v, const float* vs,
+              const void* mask, void* scratch, void* vals, void* idx, int Q,
+              long long cap, int dim, int k, int q_tile,
+              long long scratch_bytes, cudaStream_t s) {
+  using namespace tk;
+  const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
+  const int qld = plane_ld(dim, 1);
+  const size_t tile = rs::up256(rs::tile_layout(q_tile, ld).bytes);
+  if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || q_tile <= 0 ||
+      q_tile > 65535 || (uintptr_t)mask % 4 || (uintptr_t)scratch % 256 ||
+      (size_t)scratch_bytes < tile + (size_t)Q * qld)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = rs::prepare(&sms);
+  if (e != cudaSuccess) return (int)e;
+  unsigned char* qp = static_cast<unsigned char*>(scratch) + tile;
+  if ((e = tma_queries(&q, qp, Q, dim, s)) != cudaSuccess) return (int)e;
+  const int qrow = q == qp ? qld : dim;  // q's rows as TMA reads them
+  const Rows flat{};  // the rows [0, cap)
+  const rs::Decode dec{nullptr, 1, std::is_same<T, tk::Int8C>::value};
+  return with_piece(piece, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    return rs::walk_tiles(
+        static_cast<unsigned char*>(scratch),
+        static_cast<const uint8_t*>(mask), static_cast<float*>(vals),
+        static_cast<int*>(idx), Q, q_tile, (long)cap, ld, k, sms, s,
+        [&](int q0, int nq, uint32_t* slab) {
+          if (cap == 0) return 0;
+          const void* qt = static_cast<const int8_t*>(q) + (size_t)q0 * qrow;
+          const size_t plane = (size_t)nq * qrow;
+          int r = 0;
+          return nq <= 32 ? launch_scan_rows<T, 32, 4, 0, P>(
+                                qt, plane, qrow, v, mask, vs, slab, nq, cap,
+                                dim, 0, flat, &r, s)
+                          : launch_scan_rows<T, 64, 4, 0, P>(
+                                qt, plane, qrow, v, mask, vs, slab, nq, cap,
+                                dim, 0, flat, &r, s);
+        },
+        dec);
+  });
+}
+
+}  // namespace
+}  // namespace pv
 
 // K3's wide kind: q (Q, dim) int8 queries (any base), v (cap, dim) int8
 // rows, vscale (cap,) float32, mask (cap,) uint8 4-byte aligned; k <=
@@ -80,42 +144,30 @@ extern "C" int pv_scan_topk_i8_wide(int piece, const void* q, const void* v,
                                     int q_tile, long long scratch_bytes,
                                     void* stream) {
   using namespace pv;
-  using namespace pv::tk;
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
-  const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
-  const int qld = plane_ld(dim, 1);
-  const size_t tile = rs::up256(rs::tile_layout(q_tile, ld).bytes);
-  if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || q_tile <= 0 ||
-      q_tile > 65535 || !vscale || (uintptr_t)mask % 4 ||
-      (uintptr_t)scratch % 256 ||
-      (size_t)scratch_bytes < tile + (size_t)Q * qld)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int sms = 0;
-  cudaError_t e = rs::prepare(&sms);
-  if (e != cudaSuccess) return (int)e;
-  unsigned char* qp = static_cast<unsigned char*>(scratch) + tile;
-  if ((e = tma_queries(&q, qp, Q, dim, s)) != cudaSuccess) return (int)e;
-  const int qrow = q == qp ? qld : dim;  // q's rows as TMA reads them
-  const float* vs = static_cast<const float*>(vscale);
-  const Rows flat{};  // the rows [0, cap)
-  return with_piece(piece, [&](auto p) {
-    constexpr int P = decltype(p)::value;
-    return rs::walk_tiles(
-        static_cast<unsigned char*>(scratch),
-        static_cast<const uint8_t*>(mask), static_cast<float*>(vals),
-        static_cast<int*>(idx), Q, q_tile, (long)cap, ld, k, sms, s,
-        [&](int q0, int nq, uint32_t* slab) {
-          if (cap == 0) return 0;
-          const void* qt = static_cast<const int8_t*>(q) + (size_t)q0 * qrow;
-          const size_t plane = (size_t)nq * qrow;
-          int r = 0;
-          return nq <= 32 ? launch_scan_rows<Int8R, 32, 4, 0, P>(
-                                qt, plane, qrow, v, mask, vs, slab, nq, cap,
-                                dim, 0, flat, &r, s)
-                          : launch_scan_rows<Int8R, 64, 4, 0, P>(
-                                qt, plane, qrow, v, mask, vs, slab, nq, cap,
-                                dim, 0, flat, &r, s);
-        });
-  });
+  if (!vscale) return (int)cudaErrorInvalidValue;
+  return int8_wide<tk::Int8R>(piece, q, v, static_cast<const float*>(vscale),
+                              mask, scratch, vals, idx, Q, cap, dim, k,
+                              q_tile, scratch_bytes, (cudaStream_t)stream);
+}
+
+// K9's wide kind: pv_scan_topk_i8_wide's contract over column-scaled int8
+// rows against folded int8 queries, no scales (served where ops/scan.py::
+// i8c_wide_ready: 128 < k <= 1024, any width and base, one query's slab
+// within its budget). Pass A is K3's scan at `Int8C`, whose slab keys are
+// the sign-flipped int32 sums (slab_key), decoded by the select's finish
+// to the sums as float32 (rs::Decode int_scores), ties to the lower row.
+// Returns 0, a cudaError_t, or minus the CUresult of a refused tensor-map
+// encode.
+extern "C" int pv_scan_topk_i8c_wide(int piece, const void* q, const void* v,
+                                     const void* mask, void* scratch,
+                                     void* vals, void* idx, int Q,
+                                     long long cap, int dim, int k,
+                                     int q_tile, long long scratch_bytes,
+                                     void* stream) {
+  using namespace pv;
+  if (Q <= 0 || k <= 0) return (int)cudaSuccess;
+  return int8_wide<tk::Int8C>(piece, q, v, nullptr, mask, scratch, vals, idx,
+                              Q, cap, dim, k, q_tile, scratch_bytes,
+                              (cudaStream_t)stream);
 }

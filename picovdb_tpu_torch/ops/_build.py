@@ -66,8 +66,14 @@ _SIGNATURES = {
     # chunk, stream
     "pv_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
     # q, v, mask, partial, vals, idx, Q, cap, dim, k, chunk, stream (K9's
-    # one-query sweep: Q <= 16, k <= 128, dim % 16 == 0)
+    # one-query sweep: Q <= 16, k <= 128, dim % 16 == 0; served at Q <=
+    # scan.I8C_SWEEP_Q_MAX)
     "pv_sweep_topk_i8c": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P],
+    # the same for K9's narrow kind over column-scaled int8 rows at any
+    # width and base (Q <= 16, k <= 128, the phase copies within
+    # scan.NARROW_SMEM_BYTES; served where scan.i8c_narrow_ready)
+    "pv_sweep_topk_i8c_narrow": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L,
+                                 _P],
     # q, v, vscale, mask, partial, vals, idx, Q, cap, dim, k, chunk, stream
     # (K6's one-query sweep: Q <= 16, k <= 128, dim % 32 == 0; served at
     # Q <= scan.I4_SWEEP_Q_MAX)
@@ -130,6 +136,17 @@ _SIGNATURES = {
     # (K3's tensor-core scan: k <= 384; served where scan.i8_wgmma_ready)
     "pv_scan_topk_i8_wgmma": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                               _P],
+    # piece, q, v, mask, scratch (the padded queries, then the partials),
+    # vals, idx, Q, cap, dim, k, stream (K9's tensor-core scan: k <= 128;
+    # served where scan.i8c_wgmma_ready)
+    "pv_scan_topk_i8c_wgmma": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
+                               _P],
+    # piece, q, v, mask, scratch, vals, idx, Q, cap, dim, k, q_tile,
+    # scratch bytes, stream (K9's wide kind: k <= 1024, a 4-byte aligned
+    # mask, the scratch as pv_scan_topk_i8_wide's; served where
+    # scan.i8c_wide_ready)
+    "pv_scan_topk_i8c_wide": [_I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
+                              _L, _P],
     # kind (0 f32, 1 bf16, 2 column-scaled int8), q, v, mask, hot, n_hot,
     # partial, vals, idx, Q, cap, dim, k, bn, grid_b, split, stream
     "pv_ivf_scan_topk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,

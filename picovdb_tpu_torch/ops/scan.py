@@ -36,7 +36,12 @@ kernels those paths run:
                         `i4_wgmma_ready`; 128 < k <= 1024: the wide kind,
                         csrc/topk_i4_wide.cu, see `i4_wide_ready`)
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
-                        (Q <= 16: csrc/sweep_topk.cu, see `sweep_ready`)
+                        (small Q, k <= 128: csrc/sweep_topk.cu, see
+                        `sweep_ready` and, at any width and base,
+                        `i8c_narrow_ready`; else k <= 128:
+                        csrc/scan_topk_wgmma.cu, see `i8c_wgmma_ready`;
+                        128 < k <= 1024: csrc/topk_i8_wide.cu, see
+                        `i8c_wide_ready`)
   K10 `segmax_scan_i8c` csrc/segmax.cu     K1 over column-scaled int8, int keys
                         (product: csrc/wgmma_tiles.cuh, K5's producers)
 
@@ -94,7 +99,11 @@ SEG = 128  # rows per segmax segment
 # wide kind (`topk_wide_ready`: the slab pass and the radix select, one
 # call).
 # "scan_topk_i8c" counts every K9
-# launch, "scan_topk_i8c_sweep" those of its one-query sweep (see `sweep_ready`); "ivf_scan_topk" every
+# launch, "scan_topk_i8c_sweep" those of its one-query sweep (see
+# `sweep_ready`), "scan_topk_i8c_narrow" those of the sweep's narrow kind
+# at any width and base (`i8c_narrow_ready`), "scan_topk_i8c_wgmma" those
+# of its tensor-core scan (`i8c_wgmma_ready`), "scan_topk_i8c_wide" those
+# of its wide kind (`i8c_wide_ready`); "ivf_scan_topk" every
 # K7 launch, "ivf_scan_topk_sweep" its sweep's (ops/ivf.py::
 # `ivf_sweep_ready`), "ivf_scan_topk_wgmma" its tensor-core scan's
 # (`ivf_wgmma_ready`); "scan_topk_i4" every K6 launch, "scan_topk_i4_sweep"
@@ -109,16 +118,16 @@ SEG = 128  # rows per segmax segment
 # (`i8_wide_ready`); "scan_topk_i8_narrow" those of the sweep's narrow
 # kind over int8 rows at any width and base (`i8_narrow_ready`);
 # "ivf_scan_topk_narrow" those of K7's narrow sweep (ops/ivf.py::
-# `ivf_narrow_ready`). The tensor-core scans and wide kinds of K4, K3, K6
-# and K7 and K8's segment scan read the rows by the producer
+# `ivf_narrow_ready`). The tensor-core scans and wide kinds of K4, K3, K6,
+# K7 and K9 and K8's segment scan read the rows by the producer
 # `rows_piece` names (K6's: its expanders' reads): their keys count TMA's,
 # and the
 # same keys ending in "_cpasync" count them fed by cp.async, "_realign" by
 # the realigning producer, over rows TMA cannot read
 # ("scan_topk_wgmma_cpasync", "scan_topk_wide_realign",
 # "scan_topk_i8_wgmma_realign", "scan_topk_i8_wide_cpasync", ...); each of
-# these keys, "scan_topk_i8_narrow", "scan_topk_i4_narrow" and
-# "ivf_scan_topk_narrow" also has
+# these keys, "scan_topk_i8_narrow", "scan_topk_i4_narrow",
+# "scan_topk_i8c_narrow" and "ivf_scan_topk_narrow" also has
 # its launches by shape in LAUNCH_SHAPES. "ivf_scan_topk_wide" those of K7's wide kind
 # (ops/ivf.py::`ivf_wide_ready`); "ivf_segmax" every K8 launch,
 # "ivf_segmax_wgmma" those of its tensor-core segment scan over rows TMA
@@ -149,7 +158,11 @@ LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "ivf_scan_topk_wide_cpasync": 0, "ivf_scan_topk_wide_realign": 0,
             "ivf_segmax": 0, "ivf_segmax_wgmma": 0,  # K8: ops/ivf.py
             "ivf_segmax_wgmma_cpasync": 0, "ivf_segmax_wgmma_realign": 0,
-            "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0, "segmax_i8c": 0,
+            "scan_topk_i8c": 0, "scan_topk_i8c_sweep": 0,
+            "scan_topk_i8c_narrow": 0, "scan_topk_i8c_wgmma": 0,
+            "scan_topk_i8c_wgmma_cpasync": 0, "scan_topk_i8c_wgmma_realign": 0,
+            "scan_topk_i8c_wide": 0, "scan_topk_i8c_wide_cpasync": 0,
+            "scan_topk_i8c_wide_realign": 0, "segmax_i8c": 0,
             "segmax_i8c_wgmma": 0, "segmax_i8c_cpasync": 0,
             "segmax_i8c_realign": 0,
             "dot_rowmax": 0, "dot_rowmax_wgmma": 0,  # P1: probes.py
@@ -830,6 +843,16 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     if i8c and sweep_ready(q, vectors, k):
         vals, idx = _sweep_launch(q, vectors, None, mask, k, name)
         LAUNCHES["scan_topk_i8c_sweep"] += 1
+    elif i8c and i8c_narrow_ready(q, vectors, k):
+        vals, idx = _sweep_launch(q, vectors, None, mask, k, name,
+                                  "pv_sweep_topk_i8c_narrow")
+        _count("scan_topk_i8c_narrow", num_q, k)
+    elif i8c and i8c_wgmma_ready(q, vectors, k):
+        vals, idx = _i8_wgmma_launch(q, vectors, None, mask, k, name)
+        _count("scan_topk_i8c_wgmma" + piece, num_q, k)
+    elif i8c and i8c_wide_ready(q, vectors, k):
+        vals, idx = _i8_wide_launch(q, vectors, None, mask, k, name)
+        _count("scan_topk_i8c_wide" + piece, num_q, k)
     elif kind == _KIND_I8 and i8_wide_ready(q, vectors, k):
         vals, idx = _i8_wide_launch(q, vectors, vscale, mask, k, name)
         _count("scan_topk_i8_wide" + piece, num_q, k)
@@ -903,8 +926,9 @@ def _template_launch(q, vectors, vscale, mask, k: int, kind: int,
 def _sweep_launch(q, vectors, vscale, mask, k: int, name: str,
                   entry: str | None = None):
     """The one-query sweep (csrc/sweep_topk.cu) on checked CUDA operands,
-    uncounted: K9 (`vscale` None, column-scaled int8 rows), K6 (packed
-    int4 rows, half the queries' width, with their scales; `entry`
+    uncounted: K9 (`vscale` None, column-scaled int8 rows; `entry`
+    "pv_sweep_topk_i8c_narrow": its narrow kind, any width and base), K6
+    (packed int4 rows, half the queries' width, with their scales; `entry`
     "pv_sweep_topk_i4_narrow": its narrow kind, any even width and base)
     or K3 (int8 rows with their scales; `entry` "pv_sweep_topk_i8_narrow":
     its narrow kind, any width and base), CTAs over `sweep_partition`'s
@@ -918,7 +942,7 @@ def _sweep_launch(q, vectors, vscale, mask, k: int, name: str,
     vals, idx = _outputs(num_q, k, q.device)
     head = (q.data_ptr(), vectors.data_ptr())
     if vscale is None:
-        entry = "pv_sweep_topk_i8c"
+        entry = entry or "pv_sweep_topk_i8c"
     else:
         entry = entry or ("pv_sweep_topk_i8" if vectors.shape[1] == dim
                           else "pv_sweep_topk_i4")
@@ -990,14 +1014,18 @@ def _i8_wide_launch(q, v_i8, vscale, mask, k: int,
     uncounted: `_scaled_wide_launch` of the int8 queries as they are, the
     rows by the producer `rows_piece` names, the scratch's tile followed by
     room for the queries, which the library call pads to whole 16 bytes
-    where TMA cannot read them as they lie."""
-    return _scaled_wide_launch("pv_scan_topk_i8_wide", q, q, v_i8, vscale,
-                               mask, k, name, rows_piece(v_i8))
+    where TMA cannot read them as they lie. `vscale` None: K9's
+    (`pv_scan_topk_i8c_wide`, column-scaled rows, the int32 sums)."""
+    entry = ("pv_scan_topk_i8c_wide" if vscale is None
+             else "pv_scan_topk_i8_wide")
+    return _scaled_wide_launch(entry, q, q, v_i8, vscale, mask, k, name,
+                               rows_piece(v_i8))
 
 
 def _scaled_wide_launch(entry: str, q_arg, q, vectors, vscale, mask, k: int,
                         name: str, piece: int, pad_queries: bool = True):
-    """The row-scaled wide kinds' launch (K6's, K3's): one library call
+    """The int wide kinds' launch (K6's, K3's; K9's, `vscale` None, whose
+    call takes no scales): one library call
     `entry` that, a tile of `topk_wide_tile` queries at a time, runs the
     tensor-core scan on the queries `q_arg` (the rows by the producer
     `piece`) writing the slab and the radix select over it, in one scratch
@@ -1015,8 +1043,9 @@ def _scaled_wide_launch(entry: str, q_arg, q, vectors, vscale, mask, k: int,
         mask = mask.clone()
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
     vals, idx = _outputs(num_q, k, q.device)
+    scales = () if vscale is None else (vscale.data_ptr(),)
     _launch(q, name, entry, *head, q_arg.data_ptr(), vectors.data_ptr(),
-            vscale.data_ptr(), mask.data_ptr(), scratch.data_ptr(),
+            *scales, mask.data_ptr(), scratch.data_ptr(),
             vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, q_tile,
             nbytes)
     return vals, idx
@@ -1091,7 +1120,8 @@ def _i8_wgmma_launch(q, v_i8, vscale, mask, k: int,
     names, one scratch buffer (room for the queries, which the library call
     pads to whole 16 bytes where TMA cannot read them as they lie, then the
     partials), CTAs over `i8_wgmma_partition`'s (query tile, segment range)
-    pairs, then the merge."""
+    pairs, then the merge. `vscale` None: K9's (`pv_scan_topk_i8c_wgmma`,
+    the `Int8C` kind: column-scaled rows, the int32 sums, k <= 128)."""
     num_q, dim = q.shape
     cap = v_i8.shape[0]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -1100,10 +1130,11 @@ def _i8_wgmma_launch(q, v_i8, vscale, mask, k: int,
                            + num_q * ranges * k * 8,), dtype=torch.uint8,
                           device=q.device)
     vals, idx = _outputs(num_q, k, q.device)
-    _launch(q, name, "pv_scan_topk_i8_wgmma", rows_piece(v_i8), q.data_ptr(),
-            v_i8.data_ptr(), vscale.data_ptr(), mask.data_ptr(),
-            scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
-            dim, k)
+    entry, scales = (("pv_scan_topk_i8c_wgmma", ()) if vscale is None else
+                     ("pv_scan_topk_i8_wgmma", (vscale.data_ptr(),)))
+    _launch(q, name, entry, rows_piece(v_i8), q.data_ptr(), v_i8.data_ptr(),
+            *scales, mask.data_ptr(), scratch.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), num_q, cap, dim, k)
     return vals, idx
 
 
@@ -1290,14 +1321,80 @@ def sweep_tile(num_q: int) -> int:
     return min(SWEEP_Q_MAX, 1 << max(0, num_q - 1).bit_length())
 
 
+# K9's sweep limits (csrc/sweep_topk.cu `Int8C`): up to I8C_SWEEP_Q_MAX
+# queries the 16-byte sweep beats K9's tensor-core scan over the same rows,
+# up to I8C_NARROW_Q_MAX its narrow kind over rows the 16-byte sweep
+# cannot read; K7 keeps SWEEP_Q_MAX. `python3 chip_smoke.py --k9-cross`
+# times them at k_sel 16 on planes made on the card (H100 80GB HBM3,
+# 700 W; PERF.md). The 16-byte sweep at Q = 1 / 2 / 4 / 5 / 8 / 16 against
+# the scan: 1M x 1024 0.452 / 0.459 / 0.496 / 0.656 / 0.722 / 1.142 ms
+# against 0.476 / 0.502 / 0.506 / 0.519 / 0.480 / 0.482; 4M x 1024 1.392
+# / 1.441 / 1.519 / 2.307 / 2.454 / 4.190 against 1.597 / 1.619 / 1.674 /
+# 1.718 / 1.570 / 1.569: it wins up to Q = 4 on both (its 8-query tile
+# serves Q = 5 at Q = 8's cost). The narrow kind over 1,183,514 rows:
+# dim 100 0.168 / 0.197 / 0.240 / 0.351 / 0.376 / 1.135 against 0.246 /
+# 0.265 / 0.257 / 0.266 / 0.298 / 0.308, dim 25 0.115 / 0.158 / 0.188 /
+# 0.248 / 0.271 / 0.707 against 0.272 / 0.283 / 0.273 / 0.285 / 0.291 /
+# 0.306: it wins up to Q = 4 at dim 100 and up to Q = 8 at dim 25 (by
+# 7-13 % at Q = 5-8, which the limit gives away); at dim 1019 (16 phase
+# copies) it fits only Q <= 4, and wins there 2.2x / 2.1x / 1.6x (0.567 /
+# 0.603 / 0.793 against 1.247 / 1.246 / 1.248). A second run repeated
+# every verdict, its times within 0-14 % of these.
+I8C_SWEEP_Q_MAX = 4
+I8C_NARROW_Q_MAX = 4
+I8C_WGMMA_K_MAX = 128  # K9's tensor-core scan; its wide kind past it
+
+
 def sweep_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
     """Whether K9 runs its one-query sweep on these contiguous operands:
-    Q <= 16, k <= 128, rows of 16-byte words (dim % 16 == 0, dim <= 4096)
-    and 16-byte aligned bases. Other shapes keep `pv_scan_topk` kind 4."""
+    Q <= I8C_SWEEP_Q_MAX, k <= 128, rows of 16-byte words (dim % 16 == 0,
+    dim <= 4096) and 16-byte aligned bases. Other widths and bases take
+    `i8c_narrow_ready`'s narrow kind, larger batches and widths the
+    tensor-core scan (`i8c_wgmma_ready`), k past 128 the wide kind
+    (`i8c_wide_ready`)."""
     num_q, dim = q_i8.shape
-    return (num_q <= SWEEP_Q_MAX and k <= SWEEP_K_MAX and dim % 16 == 0
+    return (num_q <= I8C_SWEEP_Q_MAX and k <= SWEEP_K_MAX and dim % 16 == 0
             and dim <= SWEEP_DIM_MAX and q_i8.data_ptr() % 16 == 0
             and v_i8.data_ptr() % 16 == 0)
+
+
+def i8c_narrow_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether K9 runs the one-query sweep's narrow kind (csrc/
+    sweep_topk.cu `sweep_narrow_kernel<Int8C>`, K7's instantiation over
+    flat ranges) on these contiguous operands: Q <= I8C_NARROW_Q_MAX, k <=
+    128, operands the 16-byte sweep cannot read (`_i8_tma_ready` fails: a
+    width not a multiple of 16, or a base not 16-byte aligned: glove-100's
+    100 bytes, glove-25's 25), and the phase copies with the buffers within
+    NARROW_SMEM_BYTES (`narrow_fits`). The rest takes `i8c_wgmma_ready`'s
+    scan."""
+    return (q_i8.shape[0] <= I8C_NARROW_Q_MAX and k <= SWEEP_K_MAX
+            and not _i8_tma_ready(q_i8, v_i8)
+            and narrow_fits(q_i8, v_i8, k))
+
+
+def i8c_wgmma_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether K9 runs its tensor-core scan (csrc/scan_topk_wgmma.cu,
+    `pv_scan_topk_i8c_wgmma`: K3's scan at `Int8C`) on these contiguous
+    operands: k <= I8C_WGMMA_K_MAX where neither sweep takes them (Q past
+    their limits, a query block or phase copies past their shared memory,
+    widths past 4096), at any width and base: the rows by the producer
+    `rows_piece` names, the queries padded to whole 16 bytes by the library
+    call where TMA cannot read them as they lie."""
+    return (k <= I8C_WGMMA_K_MAX and not sweep_ready(q_i8, v_i8, k)
+            and not i8c_narrow_ready(q_i8, v_i8, k))
+
+
+def i8c_wide_ready(q_i8: torch.Tensor, v_i8: torch.Tensor, k: int) -> bool:
+    """Whether K9 runs its wide kind (csrc/topk_i8_wide.cu,
+    `pv_scan_topk_i8c_wide`: the scan at `Int8C` writing a slab of the
+    sign-flipped int32 sums, then the radix select) on these contiguous
+    operands: I8C_WGMMA_K_MAX < k <= SCAN_KSEL_MAX at any width and base,
+    any Q, and one query's slab (cap rounded up to 128 rows, 4 bytes a row)
+    within TOPK_WIDE_SLAB_BYTES. Only a slab over the budget (past 64M
+    rows) keeps the template, `pv_scan_topk` kind 4."""
+    ld = -(-v_i8.shape[0] // SEG) * SEG
+    return (I8C_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
+            and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
 
 
 def sweep_partition(cap: int, sms: int):

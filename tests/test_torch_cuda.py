@@ -568,18 +568,21 @@ def test_ivf_scan_topk_bounded_partials(dev, kind, monkeypatch):
 def test_fused_topk_i8c_exact(dev, dim, nq, k):
     """K9 ranks the raw int32 sums, ties to the lower row: bit for bit its
     plain version, on the one-query sweep wherever `sweep_ready` holds
-    (Q <= 16, k <= 128, dim % 16 == 0: here dim 96 and 1024 at Q 1 and
-    16), else on the template (dim 50, k 300, Q 17)."""
+    (Q <= I8C_SWEEP_Q_MAX, k <= 128, dim % 16 == 0: here dim 96 and 1024
+    at Q 1), else on another of its kinds (dim 50: the narrow kind; k 300:
+    the wide kind; Q 17: the tensor-core scan), never the template."""
     q, v, mask = _data(dev, dim=dim, nq=nq)
     v8, cs = scan.quantize_cols_i8(v)
     q8 = scan.fold_queries_i8(q, cs)
-    sweep = nq <= 16 and dim % 16 == 0 and k <= 128
+    sweep = nq <= scan.I8C_SWEEP_Q_MAX and dim % 16 == 0 and k <= 128
     assert scan.sweep_ready(q8, v8, k) == sweep
+    kinds = [n for n in scan.LAUNCHES if n.startswith("scan_topk_i8c_")]
     before = dict(scan.LAUNCHES)
     vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
     assert scan.LAUNCHES["scan_topk_i8c"] == before["scan_topk_i8c"] + 1
     assert (scan.LAUNCHES["scan_topk_i8c_sweep"]
             - before["scan_topk_i8c_sweep"] == sweep)
+    assert sum(scan.LAUNCHES[n] - before[n] for n in kinds) == 1
     rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, k)
     torch.cuda.synchronize()
     assert torch.equal(vals, rv) and torch.equal(idx, ri)
@@ -610,12 +613,17 @@ def _sweep_case(dev, dim, nq, cap, seed):
 def test_fused_topk_i8c_sweep(dev, dim, nq, k):
     """K9's one-query sweep, bit for bit its plain version, with ties
     across a range boundary (the lower row first) and a range with no live
-    row; the sweep's counter moves."""
+    row; the sweep's counter moves (past I8C_SWEEP_Q_MAX, where the
+    tensor-core scan takes the dispatch, the sweep launched alone)."""
     q8, v8, mask, c = _sweep_case(dev, dim, nq, 300 * 128 + 40, nq + k)
-    assert scan.sweep_ready(q8, v8, k)
-    before = scan.LAUNCHES["scan_topk_i8c_sweep"]
-    vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
-    assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before + 1
+    assert scan.sweep_ready(q8, v8, k) == (nq <= scan.I8C_SWEEP_Q_MAX)
+    if nq <= scan.I8C_SWEEP_Q_MAX:
+        before = scan.LAUNCHES["scan_topk_i8c_sweep"]
+        vals, idx = scan.fused_topk_i8c(q8, v8, mask, k)
+        assert scan.LAUNCHES["scan_topk_i8c_sweep"] == before + 1
+    else:
+        vals, idx = scan._sweep_launch(q8, v8, None, mask, k,
+                                       "fused_topk_i8c")
     rv, ri = scan.fused_topk_i8c_plain(q8, v8, mask, k)
     torch.cuda.synchronize()
     assert torch.equal(vals, rv) and torch.equal(idx, ri)

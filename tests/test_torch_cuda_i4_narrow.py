@@ -108,8 +108,8 @@ def test_narrow_sweep_exact(dev, dim, off, nq, k):
 def test_narrow_sweep_launched_past_its_limit(dev, dim, off, nq):
     """chip_smoke.py times the narrow kind past its limits (its
     crossover with the scan): launched directly, still the plain
-    version (dim 960 at a 16-query tile: the row-group layout's widest
-    query tile that fits)."""
+    version (the kind's tiles stop at its limit of 8: 16 queries run in
+    two passes of 8, dim 960 in the row-group layout)."""
     q8, v4, vs, mask = _store(dev, 4100, dim, nq, off, seed=nq)
     got = scan._sweep_launch(q8, v4, vs, mask, 14, "fused_topk_i4",
                              "pv_sweep_topk_i4_narrow")

@@ -9,7 +9,8 @@ present (the CPU test runs), and runs on the card with
 
 float32 queries over float32 rows and the bf16 mirror, at every query
 tile (Q 1, 2, 3, 4, 5, 8, 9, 16: launched directly past the dispatch's
-limits) and k 1 / 14 / 36 / 128; the 16-byte sweep at widths 96 / 1024 /
+limits; over bf16 rows, `Bf16F`'s tiles stop at its limit of 4 and the
+launcher takes more queries in passes of 4) and k 1 / 14 / 36 / 128; the 16-byte sweep at widths 96 / 1024 /
 4096 (the query block at its 64 KB edge), the narrow kind at widths 25,
 98, 100, 1019, 1020, 1022 and bases off 16 bytes by whole elements, its
 rows' neighbours poisoned with NaN (a row word's bytes that are not the
@@ -115,16 +116,21 @@ def test_sweep(dev, dtype, dim, nq, k):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_sweep_query_block_edge(dev, dtype):
     """dim 4096: the query block of a 4-query tile is exactly 64 KB (the
-    sweep's); at 5 queries the 8-query tile is refused by the rule and by
-    the launcher alike."""
+    sweep's); at 5 queries the 8-query tile is refused by the rule and, for
+    float32 rows, by the launcher; over bf16 rows the launcher, whose
+    tiles stop at 4, serves them in passes of 4 and 1."""
     q, rows, mask = _case(dev, dtype, 3_000, 4096, 5, seed=4)
     assert scan.topk_sweep_ready(q[:4], rows, 14) == (
         4 <= scan.TOPK_SWEEP_Q_MAX)
     assert not scan.topk_sweep_ready(q, rows, 14)
     got = _run(q[:4], rows, mask, 14, narrow=False)
     _check(got, scan.scan_topk_plain(q[:4], rows, None, mask, 15), mask, 14)
-    with pytest.raises(RuntimeError):
-        scan._topk_sweep_launch(q, rows, mask, 14)
+    if dtype == torch.float32:
+        with pytest.raises(RuntimeError):
+            scan._topk_sweep_launch(q, rows, mask, 14)
+    else:
+        got = scan._topk_sweep_launch(q, rows, mask, 14)
+        _check(got, scan.scan_topk_plain(q, rows, None, mask, 15), mask, 14)
 
 
 NARROW = [(torch.float32, 25, 0), (torch.float32, 25, 4),
@@ -142,9 +148,13 @@ def test_narrow(dev, dtype, dim, off, nq, k):
     q, rows, mask = _case(dev, dtype, 9_000, dim, nq, seed=dim + off + nq + k,
                           off=off)
     assert not scan._topk_tma_ready(q, rows)
-    if (scan.topk_narrow_bytes(nq, dim, rows.element_size(), rows.data_ptr())
-            > scan.NARROW_SMEM_BYTES):
+    es, ptr = rows.element_size(), rows.data_ptr()
+    if scan.topk_narrow_bytes(nq, dim, es, ptr) > scan.NARROW_SMEM_BYTES:
         assert not scan.topk_narrow_ready(q, rows, k)
+    # the launcher's largest tile: `Bf16F`'s stops at its limit (passes of
+    # TOPK_NARROW_Q_MAX queries)
+    qt = nq if dtype == torch.float32 else min(nq, scan.TOPK_NARROW_Q_MAX)
+    if scan.topk_narrow_bytes(qt, dim, es, ptr) > scan.NARROW_SMEM_BYTES:
         with pytest.raises(RuntimeError):  # the launcher refuses it too
             scan._topk_sweep_launch(q, rows, mask, k, "fused_topk",
                                     "pv_sweep_topk_f32_narrow")

@@ -147,11 +147,15 @@ def test_wgmma_i8_dispatch_rule():
 
 @pytest.mark.parametrize("nq", [1, 8, 16])
 def test_sweep_dispatch_rule(nq):
-    """K9's one-query sweep: Q <= 16 with k <= 128 at dim 1024; Q = 17,
-    k = 300, dim 40 and a misaligned view keep the template."""
+    """K9's one-query sweep: Q <= I8C_SWEEP_Q_MAX with k <= 128 at dim
+    1024 (Q 8 and 16 past it take the tensor-core scan); Q = 17, k =
+    300, dim 40 and a misaligned view take K9's other kinds."""
     i8 = torch.int8
     q, v = _operands(1024, i8, nq=nq)
-    assert tscan.sweep_ready(q, v, 1) and tscan.sweep_ready(q, v, 128)
+    sweep = nq <= tscan.I8C_SWEEP_Q_MAX
+    assert tscan.sweep_ready(q, v, 1) == sweep
+    assert tscan.sweep_ready(q, v, 128) == sweep
+    assert tscan.i8c_wgmma_ready(q, v, 16) != sweep
     assert not tscan.sweep_ready(q, v, 300)
     assert not tscan.sweep_ready(*_operands(1024, i8, nq=17), 16)
     assert not tscan.sweep_ready(*_operands(40, i8, nq=nq), 16)
