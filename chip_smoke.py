@@ -116,7 +116,13 @@ rows TMA cannot read) beside the tensor-core scan in phases 2, 3, 3b, 3c
 and 7, and phases 3, 3b, 3c and 11a serve it through the public API;
 `--k4-cross` runs the build and the crossovers behind its limits alone,
 on planes made on the card, and `--k9-cross` those behind K9's
-(I8C_SWEEP_Q_MAX, I8C_NARROW_Q_MAX). `python3 chip_smoke.py --q64-latency` times only the int8
+(I8C_SWEEP_Q_MAX, I8C_NARROW_Q_MAX). Past the 64M-row slab line, phases
+3d and 5c (their own generators) serve 70,000,640-row float32 x 96 and
+int4 x 384 stores through the public API at top_k 200 on K4's and K6's
+range walk (no template launch), and phase 7d holds K7's wide kind over
+70,000,640-row int8 postings under a probe's hot table; `--wide-big` runs
+the three alone after the build, `--wide-cross` the range walk's
+crossover. `python3 chip_smoke.py --q64-latency` times only the int8
 store's Q = 64 host-rescored batches through the public API, on a store
 of its own, so that a checkout without this script's other phases can be
 timed beside this one; `--mesh` runs the build and phase 11 alone (the
@@ -145,6 +151,7 @@ rows and checks, the entry's record) before the card's line.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -153,6 +160,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -361,6 +369,17 @@ KERNELS = {
     "fused_topk_realign": ("scan_topk_wgmma_realign",
                            "picovdb_tpu_torch/csrc/scan_topk_wgmma.cu",
                            "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
+    # K4's and K6's wide kinds walking the rows in ranges past 64M rows:
+    # phase 3d's float32 store (a 64-query query_batched at top_k 200 on
+    # pallas_fused) and phase 5c's int4 store (16 singles and a 64-query
+    # batch at top_k 200 on i4stor_fused) drive them through the public API
+    "fused_topk_wide_ranges": ("scan_topk_wide_ranges",
+                               "picovdb_tpu_torch/csrc/topk_wide.cu",
+                               "picovdb_tpu/ops/pallas_scan.py:226", "3d"),
+    "fused_topk_i4_wide_ranges": ("scan_topk_i4_wide_ranges",
+                                  "picovdb_tpu_torch/csrc/topk_i4_wide.cu",
+                                  "picovdb_tpu/ops/pallas_scan.py:1315",
+                                  "5c"),
     "fused_topk_wide_cpasync": ("scan_topk_wide_cpasync",
                                 "picovdb_tpu_torch/csrc/topk_wide.cu",
                                 "picovdb_tpu/ops/pallas_scan.py:226", "3b"),
@@ -4429,7 +4448,7 @@ def phase_int4(torch, scan, device, n: int, dim: int, rng, card: str,
         qq = q256 if nq == 256 else qdev[:nq]
         q8s, _ = scan.quantize_rows_i8(normalize_on_device(qq))
         args = (q8s, dev.vectors, dev.vstore_scale, dev.active, 14)
-        ref = scan.scan_topk_plain(*args, int4=True)
+        ref = scan.scan_topk_plain(*args, chunk=131_072, int4=True)
         served, times, _ = k6_timed(torch, scan, args, ref,
                                     reps=3 if nq >= 256 else 5)
         k6[nq] = (served, times, entry(
@@ -8603,6 +8622,580 @@ def phase_tools(torch, scan, device, card: str) -> dict:
     return counts
 
 
+# Phases 3d and 5c and K7's postings past 64M rows (phase 7d): stores and
+# planes of BIG_N rows, past the 64M rows (TOPK_WIDE_SLAB_BYTES / 4) where
+# one query's slab over the plane passed the wide kinds' budget and K4 / K6
+# fell to their template until their range walk. The scale is cut from a
+# 100M-row store (Deep-100M's rows) to 70M for the smoke's time and the
+# host memory of 70M ids and documents (PERF.md §4), rounded up to whole
+# 8,192-row pads (ROW_PAD), so ingest_device adopts the plane made on the
+# card without a copy; the widths are the configurations' own.
+BIG_N = 70_000_640
+BIG_F32_DIM = 96  # 3d: Deep-100M's width
+BIG_I4_DIM = 384  # 5c: MiniLM-L6's width (models.BertConfig().hidden_size)
+BIG_K7_DIM = 100  # 7d: glove-100's width
+BIG_CHUNK = 1 << 20  # rows a chunk of generation, plain versions and oracles
+BIG_SINGLES = 16  # 5c's single `query` calls
+BIG_Q = 64  # the query_batched call's queries
+BIG_K = 200  # top_k through the public API (k_sel BIG_K + 4)
+K4_BIG_DIRECT = ((16, 204), (16, 1000), (64, 204), (64, 1000))
+K6_BIG_DIRECT = ((1, 204), (64, 204), (1, 526), (64, 526))
+K7_BIG_DIRECT = ((1, 138), (1, 522), (64, 138), (64, 522))
+K7_BIG_NPROBE = 16  # ef_to_nprobe of the default ef (32)
+SEED_3D, SEED_5C, SEED_7D = SEED + 34, SEED + 53, SEED + 74
+LIB_RANGES = (" over ranges of 1,048,576 rows (BIG_CHUNK), then torch.topk "
+              "over the ranges' candidates")
+
+
+def big_rows(torch, device, seed: int, lo: int, hi: int, dim: int):
+    """Rows [lo, hi) of a seeded normal plane made on the card, L2
+    normalized: chunk c of BIG_CHUNK rows from generator seed + c, so any
+    chunk is made again alone."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    g = torch.Generator(device=device)
+    for s in range(lo - lo % BIG_CHUNK, hi, BIG_CHUNK):
+        g.manual_seed(seed + s // BIG_CHUNK)
+        rows = normalize_on_device(torch.randn(BIG_CHUNK, dim, generator=g,
+                                               device=device))
+        a, b = max(lo, s), min(hi, s + BIG_CHUNK)
+        yield a, rows[a - s:b - s]
+
+
+@functools.lru_cache(maxsize=1)
+def big_ids(n: int) -> list:
+    """The stores' ids: the row numbers as strings, made once for phases 3d
+    and 5c (13 s of host work at 70M rows) and dropped at 5c's end."""
+    return list(map(str, range(n)))
+
+
+def big_queries(torch, rows_of, n: int, nq: int, seed: int):
+    """nq queries near rows drawn by a seeded generator (the rows plus 0.01
+    noise), normalized on the card; `rows_of(idx)` gives the rows."""
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    g = np.random.default_rng(seed)
+    src = torch.from_numpy(g.integers(0, n, nq))
+    q = rows_of(src)
+    return normalize_on_device(q + 0.01 * torch.from_numpy(
+        g.standard_normal(tuple(q.shape), dtype=np.float32)).to(q.device))
+
+
+def range_lib_ms(torch, scan, cap: int, k: int, scores_of) -> float:
+    """The library pair over ranges of BIG_CHUNK rows (a (Q, cap) score
+    matrix would not fit the card): for each range `scores_of(r0, r1)` (Q,
+    rows) masked scores, torch.topk of its k best; then torch.topk of the
+    ranges' candidates. Timed once after a warm-up where a call passes
+    SLOW_MS (`timed_ms`)."""
+
+    def run():
+        vals, idx = [], []
+        for r0, r1 in scan.wide_ranges(cap, BIG_CHUNK):
+            v, i = torch.topk(scores_of(r0, r1), min(k, r1 - r0), dim=1)
+            vals.append(v)
+            idx.append(i + r0)
+        v, pos = torch.topk(torch.cat(vals, 1), k, dim=1)
+        return v, torch.gather(torch.cat(idx, 1), 1, pos)
+
+    return timed_ms(torch, run, 3)
+
+
+def once(torch, run):
+    """(run(), its time by CUDA events): the calls past 64M rows that take
+    seconds (the templates, the plain versions) run once, timed as they
+    make the answer held."""
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = run()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def big_hold(torch, got, ref, k: int, what: str, exact: bool) -> float:
+    """A kernel's answer against a reference on the same inputs: exact (K6,
+    K7's int8 sums) bit for bit, else scores within TOL_SCORE and ids
+    outside the TOL_GAP gap (`ref` holding k + 1 columns). Returns the
+    largest score difference."""
+    if exact:
+        assert torch.equal(got[0], ref[0][:, :k]) and torch.equal(
+            got[1], ref[1][:, :k]), f"{what}: differs"
+        return 0.0
+    fin = torch.isfinite(got[0])
+    assert torch.equal(fin, torch.isfinite(ref[0][:, :k])), what
+    err = float((got[0][fin] - ref[0][:, :k][fin]).abs().max())
+    assert err <= TOL_SCORE, (what, err)
+    assert ids_agree(torch, got[1], ref[1], ref[0], k) == 0.0, what
+    return err
+
+
+def phase_int4_big(torch, scan, device, card: str, rec) -> dict:
+    """Phase 5c: K6's wide kind past 64M rows. A device-born int4 store of
+    BIG_N x BIG_I4_DIM (rows made and packed on the card, ingest_device)
+    serves BIG_SINGLES `query(top_k=200)` calls and a BIG_Q-query
+    `query_batched` at top_k 200 (route i4stor_fused, k_sel 204) on the
+    range walk: its launches counted, 0 template launches, each answer held
+    to the route's float64 oracle over the stored rows. Then K6 direct on
+    the store's planes at K6_BIG_DIRECT, held to its template and the plain
+    version (chunked) and timed beside them, the library pair and the
+    bound."""
+    from picovdb_tpu_torch import K_METRICS, PicoVectorDB
+    from picovdb_tpu_torch.ops.exact import normalize_on_device
+
+    n, dim = BIG_N, BIG_I4_DIM
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    packed = torch.empty((n, dim // 2), dtype=torch.int8, device=device)
+    scales = torch.empty((n,), dtype=torch.float32, device=device)
+    for s, rows in big_rows(torch, device, SEED_5C, 0, n, dim):
+        packed[s:s + rows.shape[0]], scales[s:s + rows.shape[0]] = \
+            scan.quantize_rows_i4(rows)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids = big_ids(n)
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(os.getcwd(),
+                                                "picovdb_smoke_i4_big"),
+                      storage_dtype="int4")
+    db.ingest_device(packed, ids, scales=scales, normalize=False)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    dev = db._dev
+    v4, vs, act = dev.vectors, dev.vstore_scale, dev.active
+    adopted = v4.data_ptr() == packed.data_ptr()
+    del packed, scales, ids
+    torch.cuda.empty_cache()
+    cap = v4.shape[0]
+
+    def deq(idx):
+        t = idx.to(device)
+        return scan.unpack_i4(v4[t]).float() * vs[t, None]
+
+    qn = big_queries(torch, deq, n, BIG_Q, SEED_5C)
+    scan.reset_launch_counts()  # count the public path's launches only
+    singles = []
+    for i in range(BIG_SINGLES):
+        singles.append(db.query(qn[i].cpu().numpy(), top_k=BIG_K))
+        assert db.last_query_debug()["strategy"] == "i4stor_fused"
+    batch = db.query_batched(qn, top_k=BIG_K)
+    assert db.last_query_debug()["strategy"] == "i4stor_fused"
+    counts = launch_counts(scan)
+    ksel = BIG_K + 4
+    shapes = counts["shapes"]["scan_topk_i4_wide_ranges"]
+    assert shapes == {f"Q=1 k={ksel}": BIG_SINGLES,
+                      f"Q={BIG_Q} k={ksel}": 1}, shapes
+    assert counts["scan_topk_i4_wide"] == BIG_SINGLES + 1, counts
+    assert templates_launched(counts)["K6"] == 0, counts
+    # the route's float64 oracle over the stored rows: K6's k_sel best by
+    # the int8 query's exact scores (the plain version, chunked), then the
+    # best 200 of those by the float query over the dequantized rows; and
+    # the float64 oracle over every dequantized row (recall@10 held, the
+    # top-200 id sets outside the gap printed)
+    q8, _ = scan.quantize_rows_i8(qn)
+    cand = scan.scan_topk_plain(q8, v4, vs, act, ksel, chunk=BIG_CHUNK,
+                                int4=True)[1].long()
+    qd = qn.double()
+    exact = torch.einsum("qd,qkd->qk", qd, torch.stack(
+        [deq(cand[i]).double() for i in range(BIG_Q)]))
+    rv, pos = torch.topk(exact, BIG_K + 1, dim=1)
+    ri = torch.gather(cand, 1, pos)
+
+    def dequant_chunks():
+        for s in range(0, cap, BIG_CHUNK):
+            e = min(cap, s + BIG_CHUNK)
+            yield s, (scan.unpack_i4(v4[s:e]).double()
+                      * vs[s:e, None].double()).masked_fill(
+                          ~act[s:e, None], 0.0)
+
+    ov, oi = oracle_masked(torch, dequant_chunks(), qn, None, BIG_K + 1)
+    answers = singles + batch
+    got = [[int(h["_id_"]) for h in hits] for hits in answers]
+    qq = list(range(BIG_SINGLES)) + list(range(BIG_Q))
+    rvn, rin = rv.cpu().numpy(), ri.cpu().numpy()
+    route_off = [j for j, i in enumerate(qq)
+                 if rvn[i, BIG_K - 1] - rvn[i, BIG_K] > TOL_GAP
+                 and set(got[j]) != set(rin[i, :BIG_K].tolist())]
+    assert not route_off, \
+        f"5c: {len(route_off)} answers off the route's oracle"
+    # each score is its row's: the float query against the dequantized row
+    gt = torch.tensor(got, device=device)
+    own = torch.einsum("qd,qkd->qk", qd[qq], deq(gt.reshape(-1)).double()
+                       .reshape(len(qq), BIG_K, dim))
+    got_sc = torch.tensor([[h[K_METRICS] for h in hits] for hits in answers],
+                          dtype=torch.float64, device=device)
+    sc_err = float((got_sc - own).abs().max())
+    assert sc_err <= TOL_SCORE, f"5c: scores off their rows' by {sc_err}"
+    full_off = sum(1 for j, i in enumerate(qq)
+                   if ov[i, BIG_K - 1] - ov[i, BIG_K] > TOL_GAP
+                   and set(got[j]) != set(oi[i, :BIG_K].tolist()))
+    gaps = sum(1 for i in qq if ov[i, BIG_K - 1] - ov[i, BIG_K] > TOL_GAP)
+    recall = float(np.mean([len(set(got[j][:10]) & set(oi[i, :10].tolist()))
+                            / 10 for j, i in enumerate(qq)]))
+    assert recall >= 0.99, f"5c: recall@10 {recall:.4f}"
+    # as phase 5 holds its store: the top-10 id sets equal the float64
+    # oracle's over every dequantized row wherever its gap passes TOL_GAP
+    gaps10 = [j for j, i in enumerate(qq) if ov[i, 9] - ov[i, 10] > TOL_GAP]
+    off10 = [j for j in gaps10
+             if set(got[j][:10]) != set(oi[qq[j], :10].tolist())]
+    assert not off10, f"5c: top-10 off the oracle on {len(off10)} answers"
+    # K6 direct on the store's planes (uncounted)
+    live = int(act.sum())
+    parts = []
+    with uncounted(scan):
+        for nq, k in K6_BIG_DIRECT:
+            args = (q8[:nq], v4, vs, act, k)
+            got_k = scan.fused_topk_i4(*args)
+            tmpl, t_ms = once(torch, lambda: scan._template_launch(
+                *args, scan._KIND_I4))
+            ref, p_ms = once(torch, lambda: scan.scan_topk_plain(
+                *args, chunk=BIG_CHUNK, int4=True))
+            big_hold(torch, got_k, ref, k, f"5c K6 Q={nq} k_sel={k}", True)
+            big_hold(torch, tmpl, ref, k, f"5c template Q={nq} k_sel={k}",
+                     True)
+            del got_k, tmpl, ref
+            q_tile, rows, ranges = scan.wide_walk(nq, cap)
+            ms = cuda_ms(torch, lambda: scan._i4_wide_launch(*args), reps=5)
+            qq8 = scan._pad_cols(int_mm_rows(torch, q8, nq) if nq <= 16
+                                 else q8[:nq], 8)
+
+            def scores(r0, r1, nq=nq, qq8=qq8):
+                v = scan._pad_cols(scan.unpack_i4(v4[r0:r1]), 8)
+                return (torch._int_mm(qq8, v.T)[:nq].float()
+                        * vs[r0:r1]).masked_fill(~act[r0:r1], float("-inf"))
+
+            lib = range_lib_ms(torch, scan, cap, k, scores)
+            r = entry(0.0, ms, p_ms, nq * dim + live * (dim // 2 + 4) + cap
+                      + nq * k * 8, 2 * nq * live * dim, "int8", lib,
+                      LIB_K6 + LIB_RANGES)
+            r["template_ms"] = t_ms
+            split = (device_split(torch, lambda: scan._i4_wide_launch(*args),
+                                  reps=3) if (nq, k) == (64, 204) else "")
+            if (nq, k) == (BIG_Q, ksel):
+                rec["fused_topk_i4_wide_ranges"] = dict(r, shape=f"Q={nq} "
+                                                        f"k_sel={k}")
+            parts.append(
+                f"Q={nq} k_sel={k} ({ranges} ranges of {rows} rows, tiles of "
+                f"{q_tile}): {ms:.4f} ms, bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}), template {t_ms:.3f}, plain {p_ms:.3f}, "
+                f"library {lib:.3f}" + (f" [{split}]" if split else ""))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 5c: int4 storage, device-born, {n} x {dim} (cap {cap}, "
+        f"{v4.numel() / 2**30:.2f} GiB packed): rows made + packed on the "
+        f"card "
+        f"in {make_s:.2f} s, ingest_device (ids and documents on the host; "
+        f"the plane {'adopted' if adopted else 'copied'}) {ingest_s:.2f} s; "
+        f"{BIG_SINGLES} query(top_k={BIG_K}) and one "
+        f"{BIG_Q}-query query_batched on i4stor_fused (k_sel {ksel}), every "
+        f"launch K6's range walk ({counts['scan_topk_i4_wide_ranges']}; 0 "
+        f"template); ids = the route's float64 oracle outside the gap on all "
+        f"{len(qq)}, scores within {sc_err:.3g} of their rows'; the float64 "
+        f"oracle "
+        f"over every dequantized row: top-10 ids equal on all {len(gaps10)} "
+        f"answers whose gap passes {TOL_GAP:g}, recall@10 {recall:.4f}, "
+        f"top-{BIG_K} id "
+        f"sets off it on {full_off} of the {gaps} answers whose gap passes "
+        f"{TOL_GAP:g} (the route ranks by the int8 query, k_sel = k + 4); "
+        f"peak device memory {peak:.2f} GiB; card {card}")
+    log(f"phase 5c: K6 on the store's planes ({live} live rows), each = its "
+        f"template and the plain version bit for bit: " + "; ".join(parts))
+    del db, v4, vs, act
+    big_ids.cache_clear()  # 70M strings: not held through the later phases
+    return counts
+
+
+def phase_f32_big(torch, scan, device, card: str, rec) -> dict:
+    """Phase 3d: K4's wide kind past 64M rows. A device-born float32 store
+    of BIG_N x BIG_F32_DIM (no mirror: the plane passes the mirrors'
+    budget) serves a BIG_Q-query `query_batched` at top_k 200 (route
+    pallas_fused, k_sel 204 over the float32 rows) on the range walk: its
+    launches counted, 0 template launches, held to the float64 oracle
+    (scores within TOL_SCORE of their rows', ids outside the gap, recall@10
+    >= 0.99). Then K4 direct on the store's plane at K4_BIG_DIRECT, held to
+    its template and the plain version (chunked) and timed beside them,
+    the library pair and the bound."""
+    from picovdb_tpu_torch import K_METRICS, PicoVectorDB
+
+    n, dim = BIG_N, BIG_F32_DIM
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = torch.empty((n, dim), dtype=torch.float32, device=device)
+    for s, r in big_rows(torch, device, SEED_3D, 0, n, dim):
+        rows[s:s + r.shape[0]] = r
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids = big_ids(n)
+    db = PicoVectorDB(embedding_dim=dim, index="exact", device=device,
+                      storage_file=os.path.join(os.getcwd(),
+                                                "picovdb_smoke_f32_big"))
+    db.ingest_device(rows, ids, normalize=False)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    dev = db._dev
+    v, act = dev.vectors, dev.active
+    adopted = v.data_ptr() == rows.data_ptr()
+    del rows, ids
+    torch.cuda.empty_cache()
+    cap = v.shape[0]
+    assert dev.vectors_lp is None and dev.vectors_i8 is None, "mirrors built"
+    qn = big_queries(torch, lambda i: v[i.to(device)], n, BIG_Q, SEED_3D)
+    scan.reset_launch_counts()  # count the public path's launches only
+    batch = db.query_batched(qn, top_k=BIG_K)
+    assert db.last_query_debug()["strategy"] == "pallas_fused"
+    counts = launch_counts(scan)
+    ksel = BIG_K + 4
+    assert counts["shapes"]["scan_topk_wide_ranges"] == {
+        f"Q={BIG_Q} k={ksel}": 1}, counts["shapes"]
+    assert counts["scan_topk_wide"] == 1, counts
+    assert templates_launched(counts)["K4"] == 0, counts
+    ov, oi = oracle_masked(torch, ((s, v[s:s + BIG_CHUNK].masked_fill(
+        ~act[s:s + BIG_CHUNK, None], 0.0)) for s in range(0, cap, BIG_CHUNK)),
+        qn, None, BIG_K + 1)
+    got = torch.tensor([[int(h["_id_"]) for h in hits] for hits in batch],
+                       device=device)
+    got_sc = torch.tensor([[h[K_METRICS] for h in hits] for hits in batch],
+                          dtype=torch.float64, device=device)
+    exact = torch.einsum("qd,qkd->qk", qn.double(), v[got].double())
+    sc_err = float((got_sc - exact).abs().max())
+    assert sc_err <= TOL_SCORE, f"3d: scores off their rows' by {sc_err}"
+    gn = got.cpu().numpy()
+    wide = ov[:, BIG_K - 1] - ov[:, BIG_K] > TOL_GAP
+    off = [i for i in range(BIG_Q)
+           if wide[i] and set(gn[i].tolist()) != set(oi[i, :BIG_K].tolist())]
+    assert not off, f"3d: {len(off)} id sets off the oracle"
+    recall = float(np.mean([len(set(gn[i, :10].tolist())
+                                & set(oi[i, :10].tolist())) / 10
+                            for i in range(BIG_Q)]))
+    assert recall >= 0.99, f"3d: recall@10 {recall:.4f}"
+    live = int(act.sum())
+    parts = []
+    with uncounted(scan):
+        for nq, k in K4_BIG_DIRECT:
+            args = (qn[:nq].contiguous(), v, act, k)
+            got_k = scan.fused_topk(*args)
+            tmpl, t_ms = once(torch, lambda: scan._template_launch(
+                args[0], v, None, act, k, scan._KIND_F32))
+            ref, p_ms = once(torch, lambda: scan.scan_topk_plain(
+                args[0], v, None, act, k + 1, chunk=BIG_CHUNK))
+            err = big_hold(torch, got_k, ref, k, f"3d K4 Q={nq} k_sel={k}",
+                           False)
+            big_hold(torch, tmpl, ref, k, f"3d template Q={nq} k_sel={k}",
+                     False)
+            del got_k, tmpl, ref
+            q_tile, rows, ranges = scan.wide_walk(nq, cap)
+            ms = cuda_ms(torch, lambda: scan._topk_wide_launch(*args), reps=5)
+
+            def scores(r0, r1, q=args[0]):
+                return torch.matmul(q, v[r0:r1].T).masked_fill(
+                    ~act[r0:r1], float("-inf"))
+
+            lib = range_lib_ms(torch, scan, cap, k, scores)
+            r = entry(err, ms, p_ms, nq * dim * 4 + live * dim * 4 + cap
+                      + nq * k * 8, *tc_ops(torch, nq, live, dim,
+                                            torch.float32), lib,
+                      LIB_K4 + LIB_RANGES)
+            r["template_ms"] = t_ms
+            split = (device_split(torch, lambda: scan._topk_wide_launch(
+                *args), reps=3) if (nq, k) == (64, 204) else "")
+            if (nq, k) == (BIG_Q, ksel):
+                rec["fused_topk_wide_ranges"] = dict(r, shape=f"Q={nq} "
+                                                     f"k_sel={k}")
+            parts.append(
+                f"Q={nq} k_sel={k} ({ranges} ranges of {rows} rows, tiles of "
+                f"{q_tile}): {ms:.4f} ms, bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}), template {t_ms:.3f}, plain {p_ms:.3f}, "
+                f"library {lib:.3f}, max |dscore| {err:.3g}"
+                + (f" [{split}]" if split else ""))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 3d: float32, device-born, {n} x {dim} (cap {cap}, "
+        f"{v.numel() * 4 / 2**30:.2f} GiB, no mirror): rows made on the card "
+        f"in {make_s:.2f} s, ingest_device (ids and documents on the host; "
+        f"the plane {'adopted' if adopted else 'copied'}) {ingest_s:.2f} s; "
+        f"a {BIG_Q}-query query_batched(top_k={BIG_K}) on "
+        f"pallas_fused (k_sel {ksel}), K4's range walk "
+        f"({counts['scan_topk_wide_ranges']} launch; 0 template): scores "
+        f"within {sc_err:.3g} of their rows' float64 scores, ids = the "
+        f"float64 "
+        f"oracle on every answer whose gap passes {TOL_GAP:g} "
+        f"({int(wide.sum())} of {BIG_Q}), recall@10 {recall:.4f}; peak device "
+        f"memory {peak:.2f} GiB; card {card}")
+    log(f"phase 3d: K4 on the store's plane ({live} live rows), each held to "
+        f"its template and the plain version: " + "; ".join(parts))
+    del db, v, act
+    return counts
+
+
+def k7_big_postings(torch, scan, device, card: str) -> dict:
+    """Phase 7d: K7's wide kind over column-scaled int8 postings of BIG_N x
+    BIG_K7_DIM (made on the card), whose postings pass 64M rows while a
+    probe's hot table (g_tiles(1, K7_BIG_NPROBE) tiles at the store's
+    nlist, drawn at random) stays a few percent of them: `ivf_wide_ready`
+    sizes the slab by the hot table. K7 at K7_BIG_DIRECT through
+    `ivf_scan_topk`, launches counted (the wide kind, 0 template), each
+    bit for bit its template and `ivf_scan_topk_plain`, timed beside them,
+    the library pair and the bound."""
+    from picovdb_tpu_torch.ops import ivf as tivf
+
+    torch.cuda.reset_peak_memory_stats()
+    bn, dim = tivf.IVF_BN, BIG_K7_DIM
+    n_tiles = -(-BIG_N // bn)
+    cap = n_tiles * bn
+    cs = torch.full((dim,), 0.4 / 127, device=device)  # column scales
+    post = torch.empty((cap, dim), dtype=torch.int8, device=device)
+    for s, r in big_rows(torch, device, SEED_7D, 0, cap, dim):
+        post[s:s + r.shape[0]] = scan.quantize_cols_scaled_i8(r, cs)
+    g = torch.Generator(device=device).manual_seed(SEED_7D)
+    mask = torch.rand(cap, generator=g, device=device) > 0.1
+    ns = types.SimpleNamespace(nlist=tivf.default_nlist(BIG_N),
+                               n_tiles=n_tiles)
+    grid_b = tivf.IVFIndex.g_tiles(ns, 1, K7_BIG_NPROBE)
+    hot = torch.randperm(n_tiles, generator=g, device=device)[:grid_b].to(
+        torch.int32)
+    n_hot = torch.tensor([grid_b], dtype=torch.int32, device=device)
+    rows = (hot.long()[:, None] * bn
+            + torch.arange(bn, device=device)).reshape(-1)
+    live = int(mask[rows].sum())
+    qf = torch.nn.functional.normalize(post[rows[torch.randint(
+        0, rows.numel(), (64,), generator=g, device=device)]].float(), dim=1)
+    q8 = scan.quantize_cols_scaled_i8(qf, torch.full(
+        (dim,), float(qf.abs().max()) / 127, device=device))
+    assert not tivf.ivf_wide_ready(q8, post, 522), "the postings' cap fits"
+    scan.reset_launch_counts()
+    outs = {}
+    for nq, k in K7_BIG_DIRECT:
+        assert tivf.ivf_wide_ready(q8[:nq], post, k, hot, bn)
+        outs[nq, k] = tivf.ivf_scan_topk(q8[:nq], post, mask, hot, n_hot, k,
+                                         bn)
+    counts = launch_counts(scan)
+    piece = scan._PIECE_KEY[scan.rows_piece(post)]
+    assert counts["ivf_scan_topk_wide" + piece] == len(K7_BIG_DIRECT), counts
+    assert ivf_first_kernels(counts)["K7"] == 0, counts
+    parts = []
+    with uncounted(scan):
+        for nq, k in K7_BIG_DIRECT:
+            args = (q8[:nq], post, mask, hot, n_hot, k, bn)
+            tmpl = tivf._ivf_template_launch(*args)
+            ref, p_ms = once(torch, lambda: tivf.ivf_scan_topk_plain(
+                *args[:6]))
+            big_hold(torch, outs[nq, k], ref, k, f"7d K7 Q={nq} k_sel={k}",
+                     True)
+            big_hold(torch, tmpl, ref, k, f"7d template Q={nq} k_sel={k}",
+                     True)
+            del tmpl, ref
+            ms = cuda_ms(torch, lambda: tivf._ivf_wide_launch(*args))
+            t_ms = timed_ms(torch, lambda: tivf._ivf_template_launch(*args), 3)
+            lib = ivf_lib_ms(torch, scan, q8[:nq], post, rows,
+                             ~mask[rows][None, :], k)
+            r = entry(0.0, ms, p_ms, nq * dim + live * dim + rows.numel()
+                      + 4 * grid_b + nq * k * 8, 2 * nq * live * dim, "int8",
+                      lib, LIB_IVF_TC)
+            parts.append(
+                f"Q={nq} k_sel={k}: {ms:.4f} ms, bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}), template {t_ms:.4f}, plain {p_ms:.3f}, "
+                f"library {lib:.4f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 7d: K7 over column-scaled int8 postings of {cap} x {dim} "
+        f"({post.numel() / 2**30:.2f} GiB), a hot table of {grid_b} tiles "
+        f"(g_tiles(1, {K7_BIG_NPROBE}) at nlist {ns.nlist}: {rows.numel()} "
+        f"rows, {live} live): every call on the wide kind "
+        f"({counts['ivf_scan_topk_wide' + piece]} launches, 0 template), each "
+        f"bit for bit its template and the plain version: "
+        + "; ".join(parts) + f"; peak device memory {peak:.2f} GiB; card "
+        f"{card}")
+    del post, mask
+    return counts
+
+
+# `--wide-cross`: the range walk's crossovers (`scan.topk_wide_plan`, the
+# rule and its times beside it): K6 over int4 planes at
+# BIG_I4_DIM and K4 over float32 planes at BIG_F32_DIM made on the card, at
+# three caps (phase 5b's 1,183,514 rows, 16M, BIG_N), Q and k_sel below;
+# the plan's walk beside ranges of a quarter and a sixteenth as many rows
+# (slabs of 64 / 16 MiB where the plan's fills 256 MiB: nearer the 50 MB
+# L2) and, where the plan splits a plane whose one-query slab fits the
+# budget (up to 64M rows), the walk of one plane in its narrowed tiles.
+WIDE_CROSS_CAPS = (ANN_N, 16 << 20, BIG_N)
+WIDE_CROSS_Q = (1, 16, 64, 128)
+WIDE_CROSS_K = (204, 526, 1000)
+SEED_CROSS = SEED + 97
+
+
+def wide_cross(torch, scan, device) -> str:
+    """Times K6's and K4's wide kinds over planes made on the card at
+    WIDE_CROSS_CAPS x WIDE_CROSS_Q x WIDE_CROSS_K, each walk held to the
+    plan's (K6 bit for bit; K4 scores within TOL_SCORE). Prints one JSON
+    line a plane and returns a summary of where the plan's walk lost."""
+    lost = []
+    for kind, dim in (("int4", BIG_I4_DIM), ("float32", BIG_F32_DIM)):
+        for cap in WIDE_CROSS_CAPS:
+            t0 = time.perf_counter()
+            if kind == "int4":
+                v = torch.empty((cap, dim // 2), dtype=torch.int8,
+                                device=device)
+                vs = torch.empty((cap,), dtype=torch.float32, device=device)
+                for s, r in big_rows(torch, device, SEED_CROSS, 0, cap, dim):
+                    v[s:s + r.shape[0]], vs[s:s + r.shape[0]] = \
+                        scan.quantize_rows_i4(r)
+            else:
+                v, vs = torch.empty((cap, dim), dtype=torch.float32,
+                                    device=device), None
+                for s, r in big_rows(torch, device, SEED_CROSS, 0, cap, dim):
+                    v[s:s + r.shape[0]] = r
+            g = torch.Generator(device=device).manual_seed(SEED_CROSS)
+            mask = torch.rand(cap, generator=g, device=device) > 0.1
+            qf = next(big_rows(torch, device, SEED_CROSS + 1, 0, 128, dim))[1]
+            q = scan.quantize_rows_i8(qf)[0] if kind == "int4" else qf
+            make_s = time.perf_counter() - t0
+            ld = -(-cap // scan.SEG) * scan.SEG
+            table = []
+            for nq in WIDE_CROSS_Q:
+                for k in WIDE_CROSS_K:
+                    _, rows, n = scan.wide_walk(nq, cap)
+                    walks = {"plan": rows}
+                    for div in (4, 16):  # the plan's ranges split further
+                        walks[f"plan/{div}"] = max(
+                            scan.SEG, min(rows, ld) // div // scan.SEG
+                            * scan.SEG)
+                    if n > 1 and 4 * ld <= scan.TOPK_WIDE_SLAB_BYTES:
+                        walks["one plane"] = ld
+                    row = {"Q": nq, "k_sel": k, "ranges": n, "rows": rows}
+                    ref = None
+                    for name, rr in walks.items():
+                        if kind == "int4":
+                            def run(rr=rr):
+                                return scan._i4_wide_launch(
+                                    q[:nq], v, vs, mask, k, range_rows=rr)
+                        else:
+                            def run(rr=rr):
+                                return scan._topk_wide_launch(
+                                    q[:nq], v, mask, k, range_rows=rr)
+                        got = run()
+                        if ref is None:
+                            ref = got
+                        elif kind == "int4":
+                            assert torch.equal(got[0], ref[0]) and \
+                                torch.equal(got[1], ref[1]), (cap, nq, k, name)
+                        else:
+                            err = float((got[0] - ref[0]).abs().max())
+                            assert err <= TOL_SCORE, (cap, nq, k, name, err)
+                        row[name] = round(cuda_ms(torch, run, reps=5), 4)
+                        row[name + " tile"] = scan.wide_walk(nq, cap, rr)[0]
+                    best = min((n_ for n_ in walks), key=lambda n_: row[n_])
+                    if best != "plan":
+                        lost.append(f"{kind} {cap} Q={nq} k={k}: {best} "
+                                    f"{row[best]} < plan {row['plan']}")
+                    table.append(row)
+            log(f"wide-cross {kind} {cap} x {dim} (made in {make_s:.1f} s): "
+                + json.dumps(table))
+            del v, vs, mask
+            torch.cuda.empty_cache()
+    summary = ("the plan's walk fastest at every shape" if not lost
+               else "faster than the plan's walk: " + "; ".join(lost))
+    log(f"wide-cross: {summary}")
+    return summary
+
+
 def q64_latency_main(torch, n: int, dim: int) -> int:
     """`--q64-latency`: an n x dim int8 store with the host rescore, made
     from a generator of its own (SEED + 13), and `q64_latency` on 64 of its
@@ -8658,6 +9251,8 @@ def main() -> int:
     narrow_ab_only = sys.argv[1:] == ["--narrow-ab"]
     k4_cross_only = sys.argv[1:] == ["--k4-cross"]
     k9_cross_only = sys.argv[1:] == ["--k9-cross"]
+    wide_cross_only = sys.argv[1:] == ["--wide-cross"]
+    wide_big_only = sys.argv[1:] == ["--wide-big"]
     t_start = time.perf_counter()
     from picovdb_tpu_torch.ops import _build, scan
 
@@ -8687,6 +9282,23 @@ def main() -> int:
         return 0
     if k9_cross_only:  # K9's sweeps against its scan alone
         k9_cross(torch, scan, device)
+        print(card)
+        return 0
+    if wide_cross_only:  # the wide kinds' range walk against its variants
+        wide_cross(torch, scan, device)
+        print(card)
+        return 0
+    if wide_big_only:  # phases 3d, 5c and 7d alone: 70M-row stores
+        rec = {}
+        counts = {"3d": phase_f32_big(torch, scan, device, card, rec)}
+        torch.cuda.empty_cache()
+        counts["5c"] = phase_int4_big(torch, scan, device, card, rec)
+        torch.cuda.empty_cache()
+        k7_big_postings(torch, scan, device, card)
+        log("phases 3d / 5c: kernels " + json.dumps(
+            {name: {**rec[name], "launches": counts[ph][key]}
+             for name, (key, _, _, ph) in KERNELS.items()
+             if ph in ("3d", "5c")}))
         print(card)
         return 0
     if narrow_ab_only:  # K3's and K4's narrow kinds at phase 3c's shapes
@@ -8776,15 +9388,18 @@ def main() -> int:
     counts["3b"] = run("3b", phase_narrow_stores, torch, scan, device, WMMA_N,
                        DIM - 4, rng, rec)
     counts["3c"] = run("3c", phase_ann_widths, torch, scan, device, rec)
+    counts["3d"] = run("3d", phase_f32_big, torch, scan, device, card, rec)
     counts[4] = run("4", phase_int8, torch, scan, device, I8_N, DIM, rng, card)
     counts[5] = run("5", phase_int4, torch, scan, device, I4_N, DIM, rng, card)
     counts["5b"] = run("5b", phase_int4_ann, torch, scan, device, card, rec)
+    counts["5c"] = run("5c", phase_int4_big, torch, scan, device, card, rec)
     run("6", phase_bf16, torch, scan, device, BF16_N, DIM, rng)
     counts[7] = run("7", phase_ivf_f32, torch, scan, device, IVF_N, DIM, rng,
                     card, rec)
     counts["7b"] = run("7b", phase_ivf_host, torch, scan, device, IVF_HOST_N,
                        DIM, card)
     counts["7c"] = run("7c", phase_ivf_ann, torch, scan, device, card, rec)
+    counts["7d"] = run("7d", k7_big_postings, torch, scan, device, card)
     counts[8] = run("8", phase_ivf_int4, torch, scan, device, IVF_I4_N, DIM,
                     rng, card, rec)
     run("sidecar", phase_sidecar, torch, device, SIDECAR_N, DIM)

@@ -6,10 +6,11 @@
 // `_ivf_kernel_i8c`) at k_sel 129-1024 (ops/ivf.py::ivf_wide_ready), at
 // every postings width and base (rows TMA cannot read by pass A's cp.async
 // or realigning producer, scan_topk_wgmma.cuh `PIECE`, the queries padded
-// to whole 16 bytes in the scratch) and every batch size, up to 64M rows
-// of postings: the host-rescore band of every quantized
-// IVF store (int8 storage: k + RESCORE_GUARD + the int8 postings' guard =
-// 160 at top_k = 10; int4: k + 4 RESCORE_GUARD + 22 = 544), and float
+// to whole 16 bytes in the scratch) and every batch size, over hot tables
+// of up to 64M rows (postings of any cap): the host-rescore band of every
+// quantized IVF store (int8 storage: k + RESCORE_GUARD + the int8
+// postings' guard = 160 at top_k = 10; int4: k + 4 RESCORE_GUARD + 22 =
+// 544), and float
 // postings at top_k >= 125. It computes pv_ivf_scan_topk's function: per
 // query the k best masked rows of the hot tiles hot[b], b < *n_hot (read
 // on the device), as (Q, k) float32 scores (-inf where a slot is empty)

@@ -10,6 +10,15 @@
 // past CAP taken in row order), writing the best k decoded (`Decode`: the
 // key's score as float32 or int32, the slab row as itself or through a
 // hot-tile table). Exact at every k, ties to the lower slab row.
+//
+// `walk_ranges` runs it over a plane's rows in ranges of R rows (R a whole
+// number of 128-row segments, sized by ops/scan.py::topk_wide_plan so a
+// query tile's slab keeps within its budget past 64M rows): per range
+// pass A and pass B as above, the finish writing each range's best k as
+// 64-bit selection keys with the range's first row added, then one
+// launch_topk_merge a query tile over the (tile, ranges, k) partial. The
+// keys order by (score, row) across ranges as within one, so ties still go
+// to the lower row.
 
 #pragma once
 
@@ -359,14 +368,20 @@ __device__ void sort_desc(const u64* __restrict__ cq, int n, int P, u64* buf) {
 // int32 sum) and its row (the slab row, or where hot is set, slab row l is
 // IVF row hot[l / bn] * bn + l % bn: K7's slab is indexed by logical row).
 struct Decode {
-  const int* hot;
-  int bn;
-  int int_scores;
+  const int* hot = nullptr;
+  int bn = 1;
+  int int_scores = 0;
+  // where set (a range walk), the best k go as selection keys to
+  // keys[q * key_ld + j] (0 past them), rows offset by row0, not decoded
+  u64* keys = nullptr;
+  long key_ld = 0;
+  long row0 = 0;
 };
 
 // One CTA a query: its candidates sorted by row_key (`sort_desc`; the
 // ties path appends the equal keys in row order behind the keys above
-// them), the best k written decoded to vals / idx (-inf / 0 past them).
+// them), the best k written decoded to vals / idx (-inf / 0 past them), or
+// as keys where `dec.keys` is set.
 __global__ void __launch_bounds__(FINISH)
 finish_kernel(const uint32_t* __restrict__ slab,
               const uint8_t* __restrict__ mask,
@@ -391,6 +406,13 @@ finish_kernel(const uint32_t* __restrict__ slab,
     const u64 key = j < total ? buf[j] : 0ull;
     int row = row_key_row(key);
     if (dec.hot && key) row = dec.hot[row / dec.bn] * dec.bn + row % dec.bn;
+    if (dec.keys) {
+      dec.keys[(long)q * dec.key_ld + j] =
+          key ? (key & 0xFFFFFFFF00000000ull) |
+                    (u64)(0xFFFFFFFFu - (uint32_t)(row + dec.row0))
+              : 0ull;
+      continue;
+    }
     vals[(long)q * k + j] =
         dec.int_scores ? int_row_key_score(key) : row_key_score(key);
     idx[(long)q * k + j] = row;
@@ -406,7 +428,7 @@ inline cudaError_t select_tile(const uint32_t* slab, const uint8_t* mask,
                                uint32_t* hist, u64* cand, float* vals,
                                int* idx, int nq, long cap, long ld, int k,
                                int sms, cudaStream_t s,
-                               const Decode dec = {nullptr, 1, 0}) {
+                               const Decode dec = {}) {
   if (cap > 0) {
     const long segs = ld / SEG;
     const long want = (4L * sms + nq - 1) / nq;  // ~4 CTAs an SM
@@ -508,32 +530,89 @@ inline Tile tile_layout(int q_tile, long ld) {
   return t;
 }
 
-// Every wide kind's walk over its Q queries in tiles of q_tile: a tile's
-// histograms zeroed with one memset, `pass_a(q0, nq, slab)` writing the
-// slab of queries [q0, q0 + nq) (returns 0 or an error), then their
-// select into rows [q0, q0 + nq) of vals / idx (Q, k). `tile` (256-byte
-// aligned) holds one tile's `tile_layout`; `sms` from `prepare`. Returns
-// 0, a cudaError_t, or pass A's error.
+inline long up_seg(long rows) { return (rows + SEG - 1) / SEG * SEG; }
+
+// Ranges of range_rows rows over [0, cap): one where range_rows >= cap.
+inline long range_count(long cap, long range_rows) {
+  return cap > range_rows ? (cap + range_rows - 1) / range_rows : 1;
+}
+
+// Bytes of a walk's scratch past the query planes (ops/scan.py::
+// wide_walk_scratch restates it): one tile's `tile_layout` over a range's
+// rows, then, where there are several ranges, the tile's partial of
+// q_tile x ranges x k keys from a 256-byte boundary.
+inline size_t walk_bytes(int q_tile, long cap, long range_rows, int k) {
+  const long ranges = range_count(cap, range_rows);
+  const size_t b = tile_layout(q_tile, ranges == 1 ? up_seg(cap)
+                                                   : range_rows).bytes;
+  return ranges == 1 ? b : up256(b) + (size_t)q_tile * ranges * k * 8;
+}
+
+// Every wide kind's walk over its Q queries in tiles of q_tile and its cap
+// rows in ranges of range_rows (a multiple of SEG; one range where it is at
+// least cap, ld then the slab's row length): for each query tile and range
+// the tile's histograms zeroed with one memset, `pass_a(q0, nq, r0, rows,
+// slab)` writing the slab of queries [q0, q0 + nq) over rows [r0, r0 +
+// rows) (returns 0 or an error), then their select over the range's mask.
+// One range: the select writes rows [q0, q0 + nq) of vals / idx (Q, k)
+// decoded by `dec`. Several: it writes each range's best k as keys, rows
+// offset by r0, to the tile's partial, and launch_topk_merge merges them
+// into vals / idx. `tile` (256-byte aligned) holds `walk_bytes`; `sms` from
+// `prepare`. Returns 0, a cudaError_t, or pass A's error.
+template <class PassA>
+int walk_ranges(unsigned char* tile, const uint8_t* mask, float* vals,
+                int* idx, int Q, int q_tile, long cap, long ld,
+                long range_rows, int k, int sms, cudaStream_t s,
+                PassA pass_a, const Decode dec = {}) {
+  const long ranges = range_count(cap, range_rows);
+  const Tile t = tile_layout(q_tile, ranges == 1 ? ld : range_rows);
+  uint32_t* slab = reinterpret_cast<uint32_t*>(tile);
+  uint32_t* hist = reinterpret_cast<uint32_t*>(tile + t.hist);
+  u64* cand = reinterpret_cast<u64*>(tile + t.cand);
+  u64* partial = reinterpret_cast<u64*>(tile + up256(t.bytes));
+  for (int q0 = 0; q0 < Q; q0 += q_tile) {
+    const int nq = std::min(q_tile, Q - q0);
+    for (long r = 0; r < ranges; ++r) {
+      const long r0 = r * range_rows;
+      const long rows = ranges == 1 ? cap : std::min(range_rows, cap - r0);
+      cudaError_t e = cudaMemsetAsync(hist, 0, hist_bytes(nq), s);
+      if (e != cudaSuccess) return (int)e;
+      const int err = pass_a(q0, nq, r0, rows, slab);
+      if (err) return err;
+      Decode d = dec;
+      if (ranges > 1) {
+        d.keys = partial + r * k;
+        d.key_ld = ranges * k;
+        d.row0 = r0;
+      }
+      e = select_tile(slab, mask + r0, hist, cand, vals + (size_t)q0 * k,
+                      idx + (size_t)q0 * k, nq, rows,
+                      ranges == 1 ? ld : up_seg(rows), k, sms, s, d);
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (ranges > 1) {
+      const cudaError_t e = launch_topk_merge(
+          partial, vals + (size_t)q0 * k, idx + (size_t)q0 * k, nq,
+          (int)(ranges * k), k, s, dec.int_scores != 0);
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  return (int)cudaSuccess;
+}
+
+// `walk_ranges` over one range: the slab rows [0, cap) of length ld, pass
+// A called as `pass_a(q0, nq, slab)` (K3's, K9's and K7's wide kinds).
 template <class PassA>
 int walk_tiles(unsigned char* tile, const uint8_t* mask, float* vals,
                int* idx, int Q, int q_tile, long cap, long ld, int k,
                int sms, cudaStream_t s, PassA pass_a,
-               const Decode dec = {nullptr, 1, 0}) {
-  const Tile t = tile_layout(q_tile, ld);
-  uint32_t* slab = reinterpret_cast<uint32_t*>(tile);
-  uint32_t* hist = reinterpret_cast<uint32_t*>(tile + t.hist);
-  u64* cand = reinterpret_cast<u64*>(tile + t.cand);
-  for (int q0 = 0; q0 < Q; q0 += q_tile) {
-    const int nq = std::min(q_tile, Q - q0);
-    cudaError_t e = cudaMemsetAsync(hist, 0, hist_bytes(nq), s);
-    if (e != cudaSuccess) return (int)e;
-    const int err = pass_a(q0, nq, slab);
-    if (err) return err;
-    e = select_tile(slab, mask, hist, cand, vals + (size_t)q0 * k,
-                    idx + (size_t)q0 * k, nq, cap, ld, k, sms, s, dec);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+               const Decode dec = {}) {
+  return walk_ranges(
+      tile, mask, vals, idx, Q, q_tile, cap, ld, std::max(cap, 1L), k, sms,
+      s, [&](int q0, int nq, long, long, uint32_t* slab) {
+        return pass_a(q0, nq, slab);
+      },
+      dec);
 }
 
 }  // namespace rs

@@ -12,11 +12,11 @@
 // k_sel <= 1024 is served here, so the exact retry never needs a dense
 // (Q, cap) score matrix; wider k goes to the plain exact scan.
 //
-// Where they were redesigned, these templates keep the other shapes: K4
-// runs the tensor-core scan scan_topk_wgmma.cu where ops/scan.py::
-// topk_wgmma_ready holds (k <= 128, rows of whole 16 bytes, the batch at
-// or above its measured crossover), K3 the sweep's row-scaled int8 kind
-// and K6 the sweep's int4 kind or scan_i4_wgmma.cu (sweep_topk.cu).
+// Every kind has since been redesigned: K4 and K6 reach these templates
+// at no shape (their wide kinds walk the rows in ranges past a slab's
+// budget, topk_wide.cu / topk_i4_wide.cu), K3 only past 64M rows at k_sel
+// > 384 and K9 (kind 4) past 64M rows at k_sel > 128 (ops/scan.py::
+// _template_launch); chip_smoke.py times the kinds against all of them.
 //
 // What bounds it on the H100: on the main path Q <= 16 (K3, 1 B/element;
 // K6, 0.5 B/element) or Q = 64 (K4 on the 2 B bf16 mirror), so arithmetic
@@ -40,11 +40,11 @@
 // A first, simple kernel: no tensor cores, no TMA, no pipelining yet.
 //
 // K7 ivf_scan_topk (pv_ivf_scan_topk, below) is the same kernel over the
-// IVF tier's hot tiles, K7's first port: up to 64M postings rows its
-// sweeps, tensor-core scan and wide kind take every shape at every width
-// and base (ops/ivf.py's ready rules), so it serves only k > 128 past
-// that slab budget, and chip_smoke.py times the kinds against it. It replaces
-// picovdb_tpu/ops/ivf.py:probe_scan_local (`_ivf_kernel`,
+// IVF tier's hot tiles, K7's first port: its sweeps, tensor-core scan and
+// wide kind take every shape at every width and base over hot tables of
+// up to 64M rows (ops/ivf.py's ready rules), so it serves only k > 128
+// past that slab budget, and chip_smoke.py times the kinds against it. It
+// replaces picovdb_tpu/ops/ivf.py:probe_scan_local (`_ivf_kernel`,
 // `_ivf_kernel_i8c`): a "chunk" is one postings tile of
 // `bn` rows, named by the device table hot[c]; blocks with c >= *n_hot
 // (read on the device) score nothing and write an empty partial, which

@@ -3,8 +3,8 @@
 // per-query radix select over the slab.
 //
 // Replaces picovdb_tpu/ops/pallas_scan.py:fused_topk (`_scan_kernel`) at
-// k_sel 129-1024 (ops/scan.py::topk_wide_ready), at every row width and
-// base: the batch routes' wide top_k (k_sel = top_k + 4 over the bf16
+// k_sel 129-1024 (ops/scan.py::topk_wide_ready), at every row width, base
+// and cap: the batch routes' wide top_k (k_sel = top_k + 4 over the bf16
 // mirror) and the engine's exact retry (k_eff + 4 over the float32 rows). Per query the k best masked rows by the float32 score, as
 // (Q, k) float32 scores (-inf where a slot is empty) and (Q, k) int32 rows
 // (0 where empty), ties to the lower row (row_key: -0.0 ranks below +0.0).
@@ -60,12 +60,15 @@
 //  * The launcher splits the queries into pass A's planes (radix_select.cuh's
 //    `split_planes`, K7's wide kind's too; rows padded with zeros to whole
 //    16 bytes, which TMA reads) in its own scratch, then walks
-//    them in tiles of `q_tile` (ops/scan.py::topk_wide_tile keeps the slab
-//    under 256 MiB; the walk, radix_select.cuh's `walk_tiles`, is every
-//    wide kind's), zeroing a tile's histograms and candidate count with
-//    one memset. One scratch
-//    buffer and one library call a batch: the host's enqueue stays short
-//    beside pass A (PERF.md §6).
+//    them in tiles of `q_tile` and the rows in ranges of range_rows
+//    (ops/scan.py::topk_wide_plan keeps a tile's slab under 256 MiB at
+//    every cap: past 64M rows, or where the plane would cut the tile below
+//    min(Q, 64) queries, the rows go in ranges, each range's best k kept
+//    as keys and merged by launch_topk_merge; the walk, radix_select.cuh's
+//    `walk_ranges`, is every wide kind's), zeroing a tile's histograms and
+//    candidate count with one memset. One scratch buffer and one library
+//    call a batch: the host's enqueue stays short beside pass A (PERF.md
+//    §6).
 
 #include "radix_select.cuh"
 #include "scan_topk_wgmma.cuh"
@@ -93,39 +96,25 @@ int slab_pass(const void* planes, size_t plane, int qld, const void* v,
                         dim, 0, flat, &r, s);
 }
 
-}  // namespace
-}  // namespace pv
-
-// K4's wide kind: pv_scan_topk's kinds 0 and 1 for 128 < k <= 1024 (the
-// launcher takes any k <= 1024). piece: the rows' producer
-// (ops/scan.py::rows_piece): 0 TMA (row bytes and v's base multiples of
-// 16), 8 or 4 cp.async (multiples of piece), 2 the realigning producer
-// (kind 1 only, any width and base). q (Q, dim) float32 queries; kind 0: v
-// (cap, dim) float32, 1: v bfloat16. mask (cap,) uint8, 4-byte aligned.
-// `scratch` (256-byte aligned) holds `scratch_bytes`, at least
-// ops/scan.py::topk_wide_scratch's at the planes' width qld (dim rounded
-// up to whole 16 bytes): the planes, then one tile of q_tile queries'
-// slab, histograms and candidates. vals (Q, k) float32 and idx (Q, k)
-// int32 receive the result (-inf / 0 where empty). Launches on the
-// current device. Returns 0, a cudaError_t, or minus the CUresult of a
-// refused tensor-map encode.
-extern "C" int pv_scan_topk_wide(int piece, int kind, const void* q,
-                                 const void* v, const void* mask,
-                                 void* scratch, void* vals, void* idx, int Q,
-                                 long long cap, int dim, int k, int q_tile,
-                                 long long scratch_bytes, void* stream) {
-  using namespace pv;
+// K4's wide kind over rows [0, cap) in ranges of range_rows (a multiple
+// of SEG; at least cap: one range, the walk of one plane), the contract of
+// pv_scan_topk_wide below.
+int topk_wide(int piece, int kind, const void* q, const void* v,
+              const void* mask, void* scratch, void* vals, void* idx, int Q,
+              long long cap, int dim, int k, int q_tile, long long range_rows,
+              long long scratch_bytes, void* stream) {
   if (Q <= 0 || k <= 0) return (int)cudaSuccess;
-  const long ld = (long)((cap + SEG - 1) / SEG) * SEG;
-  const int es = kind == 0 ? 4 : 2;  // bytes of a plane element
+  const int es = kind == 0 ? 4 : 2;  // bytes of a plane element and a row's
   const int qld = tk::plane_ld(dim, es);
-  // the query planes (ops/scan.py::topk_wide_scratch), then one tile's
-  // slab, histograms and candidates
+  // the query planes (ops/scan.py::topk_wide_scratch), then the walk's
+  // tile (and partial)
   const size_t planes = rs::up256((size_t)Q * qld * (kind == 0 ? 8 : 6));
   if (k > 1024 || cap < 0 || cap > 0x7FFFFFFFLL || dim <= 0 || q_tile <= 0 ||
-      q_tile > 65535 || (kind != 0 && kind != 1) || (uintptr_t)mask % 4 ||
+      q_tile > 65535 || range_rows <= 0 || range_rows % SEG ||
+      (kind != 0 && kind != 1) || (uintptr_t)mask % 4 ||
       (uintptr_t)scratch % 256 ||
-      (size_t)scratch_bytes < planes + rs::tile_layout(q_tile, ld).bytes)
+      (size_t)scratch_bytes <
+          planes + rs::walk_bytes(q_tile, (long)cap, (long)range_rows, k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t plane = (size_t)Q * qld * es;
@@ -136,22 +125,58 @@ extern "C" int pv_scan_topk_wide(int piece, int kind, const void* q,
   if ((e = rs::split_planes(static_cast<const float*>(q), base, Q, dim, qld,
                             kind, sms, s)) != cudaSuccess)
     return (int)e;
+  const unsigned char* rows = static_cast<const unsigned char*>(v);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
   return tk::with_piece(piece, [&](auto p) {
     constexpr int P = decltype(p)::value;
-    return rs::walk_tiles(
-        base + planes, static_cast<const uint8_t*>(mask),
-        static_cast<float*>(vals), static_cast<int*>(idx), Q, q_tile,
-        (long)cap, ld, k, sms, s, [&](int q0, int nq, uint32_t* slab) {
-          if (cap == 0) return 0;
+    return rs::walk_ranges(
+        base + planes, m, static_cast<float*>(vals), static_cast<int*>(idx),
+        Q, q_tile, (long)cap, rs::up_seg((long)cap), (long)range_rows, k,
+        sms, s, [&](int q0, int nq, long r0, long n, uint32_t* slab) {
+          if (n == 0) return 0;
+          // a range starts on a whole segment: its rows keep the plane's
+          // alignment class, so the plane's producer reads them
           const void* pt = base + (size_t)q0 * qld * es;
+          const void* vr = rows + (size_t)r0 * dim * es;
           if (kind == 1)
-            return slab_pass<tk::Bf16, P>(pt, plane, qld, v, mask, slab, nq,
-                                          cap, dim, s);
+            return slab_pass<tk::Bf16, P>(pt, plane, qld, vr, m + r0, slab,
+                                          nq, n, dim, s);
           if constexpr (P == 2)  // float32 rows are whole 4 bytes
             return (int)cudaErrorInvalidValue;
           else
-            return slab_pass<tk::F32, P>(pt, plane, qld, v, mask, slab, nq,
-                                         cap, dim, s);
+            return slab_pass<tk::F32, P>(pt, plane, qld, vr, m + r0, slab,
+                                         nq, n, dim, s);
         });
   });
+}
+
+}  // namespace
+}  // namespace pv
+
+// K4's wide kind: pv_scan_topk's kinds 0 and 1 for 128 < k <= 1024 (the
+// launcher takes any k <= 1024). piece: the rows' producer
+// (ops/scan.py::rows_piece): 0 TMA (row bytes and v's base multiples of
+// 16), 8 or 4 cp.async (multiples of piece), 2 the realigning producer
+// (kind 1 only, any width and base). q (Q, dim) float32 queries; kind 0: v
+// (cap, dim) float32, 1: v bfloat16. mask (cap,) uint8, 4-byte aligned.
+// The rows go in ranges of range_rows (a multiple of 128, ops/scan.py::
+// topk_wide_plan; at least cap: one range, the walk of one plane), the
+// queries in tiles of q_tile within each; a range starting on a multiple
+// of 128 rows keeps the plane's producer and the mask's 4-byte alignment.
+// `scratch` (256-byte aligned) holds `scratch_bytes`, at least
+// ops/scan.py::topk_wide_scratch's at the planes' width qld (dim rounded
+// up to whole 16 bytes): the planes, then one tile of q_tile queries'
+// slab, histograms and candidates over a range's rows, then past one
+// range the tile's partial of q_tile x ranges x k keys. vals (Q, k)
+// float32 and idx (Q, k) int32 receive the result (-inf / 0 where empty).
+// Launches on the current device. Returns 0, a cudaError_t, or minus the
+// CUresult of a refused tensor-map encode.
+extern "C" int pv_scan_topk_wide(int piece, int kind, const void* q,
+                                 const void* v, const void* mask,
+                                 void* scratch, void* vals, void* idx, int Q,
+                                 long long cap, int dim, int k, int q_tile,
+                                 long long range_rows,
+                                 long long scratch_bytes, void* stream) {
+  return pv::topk_wide(piece, kind, q, v, mask, scratch, vals, idx, Q, cap,
+                       dim, k, q_tile, range_rows, scratch_bytes, stream);
 }

@@ -116,15 +116,18 @@ _SIGNATURES = {
     "pv_scan_topk_wgmma": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
                            _P],
     # piece, kind (0 f32, 1 bf16), q, v, mask, scratch, vals, idx, Q, cap,
-    # dim, k, q_tile, scratch bytes, stream (K4's wide kind: k <= 1024, a
-    # 4-byte aligned mask; served at 128 < k, scan.topk_wide_ready)
+    # dim, k, q_tile, range_rows, scratch bytes, stream (K4's wide kind: k
+    # <= 1024, a 4-byte aligned mask, the rows in ranges of range_rows, a
+    # multiple of 128, scan.topk_wide_plan; served at 128 < k,
+    # scan.topk_wide_ready)
     "pv_scan_topk_wide": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I,
-                          _L, _P],
+                          _L, _L, _P],
     # piece, q_perm, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k,
-    # q_tile, scratch bytes, stream (K6's wide kind: k <= 1024, any even
-    # dim, a 4-byte aligned mask; served at 128 < k, scan.i4_wide_ready)
+    # q_tile, range_rows, scratch bytes, stream (K6's wide kind: k <= 1024,
+    # any even dim, a 4-byte aligned mask, K4's ranges; served at 128 < k,
+    # scan.i4_wide_ready)
     "pv_scan_topk_i4_wide": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I,
-                             _I, _L, _P],
+                             _I, _L, _L, _P],
     # piece, q, v, vscale, mask, scratch, vals, idx, Q, cap, dim, k, q_tile,
     # scratch bytes, stream (K3's wide kind: k <= 1024, a 4-byte aligned
     # mask; the scratch's tile, then room for the queries padded to whole

@@ -24,8 +24,8 @@ re-designed for a device-resident layout):
                            csrc/ivf_scan_wgmma.cu (`ivf_wgmma_ready`),
                            128 < k <= 1024 its wide kind
                            csrc/ivf_scan_wide.cu (`ivf_wide_ready`); the
-                           first port, csrc/scan_topk.cu, only past 64M
-                           rows at a wide k
+                           first port, csrc/scan_topk.cu, only over hot
+                           tables past 64M rows at a wide k
       K8 `ivf_segmax_scan` top-`per_seg` keys per segment: the tensor-core
                            segment scan csrc/ivf_segmax_wgmma.cu at every
                            width and base; the first port, csrc/segmax.cu,
@@ -330,18 +330,23 @@ def ivf_wgmma_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
             and not ivf_narrow_ready(q, postings, k))
 
 
-def ivf_wide_ready(q: torch.Tensor, postings: torch.Tensor, k: int) -> bool:
+def ivf_wide_ready(q: torch.Tensor, postings: torch.Tensor, k: int,
+                   hot: Optional[torch.Tensor] = None,
+                   bn: Optional[int] = None) -> bool:
     """Whether K7 runs its wide kind (csrc/ivf_scan_wide.cu: the tensor-core
     scan over the live hot tiles writing a slab, then the radix select) on
     these contiguous operands: 128 < k <= SCAN_KSEL_MAX and one query's
-    slab within scan.TOPK_WIDE_SLAB_BYTES (4 bytes a row of the hot table,
-    at most the postings' cap: up to 64M rows), at any width and base (the
-    rows by the producer `scan.rows_piece` names, the queries padded to
-    whole 16 bytes in the scratch). Any Q: a batch smaller than a query
-    tile runs one tile. Only a slab over the budget keeps the template,
-    `pv_ivf_scan_topk`."""
+    slab as `ivf_wide_scratch` sizes it, the hot table's grid_b x bn rows
+    at 4 bytes a row (`hot` (grid_b,), `bn`; without them the largest
+    table, the postings' cap), within scan.TOPK_WIDE_SLAB_BYTES: a probe's
+    hot table over postings of any cap, up to 64M rows of its own. At any
+    width and base (the rows by the producer `scan.rows_piece` names, the
+    queries padded to whole 16 bytes in the scratch). Any Q: a batch
+    smaller than a query tile runs one tile. Only a hot table past the
+    budget keeps the template, `pv_ivf_scan_topk`."""
+    rows = postings.shape[0] if hot is None else hot.shape[0] * bn
     return (_scan.TOPK_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
-            and 4 * postings.shape[0] <= _scan.TOPK_WIDE_SLAB_BYTES)
+            and 4 * rows <= _scan.TOPK_WIDE_SLAB_BYTES)
 
 
 _ES = {0: 4, 1: 2, 2: 1}  # bytes of an element of each kind
@@ -467,7 +472,7 @@ def ivf_scan_topk(q, postings, mask, hot, n_hot, k: int, bn: int = IVF_BN):
     elif ivf_wgmma_ready(q, postings, k):
         vals, idx = _ivf_wgmma_launch(q, postings, mask, hot, n_hot, k, bn)
         _count_kind("ivf_scan_topk_wgmma" + piece, num_q, k)
-    elif ivf_wide_ready(q, postings, k):
+    elif ivf_wide_ready(q, postings, k, hot, bn):
         vals, idx = _ivf_wide_launch(q, postings, mask, hot, n_hot, k, bn)
         _count_kind("ivf_scan_topk_wide" + piece, num_q, k)
     else:

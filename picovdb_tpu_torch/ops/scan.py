@@ -25,7 +25,9 @@ kernels those paths run:
                         see `topk_wgmma_ready`; 128 < k <= 1024: the
                         wide kind, csrc/topk_wide.cu, see
                         `topk_wide_ready`: that scan writing a slab of
-                        score keys, then a radix select a query)
+                        score keys, then a radix select a query, over
+                        the rows in ranges past a slab's budget, see
+                        `topk_wide_plan`)
   K5 `segmax_scan_i8`   csrc/segmax.cu     K1 over per-row int8 rows
                         (product: csrc/wgmma_tiles.cuh, see `wgmma_i8_ready`,
                         `cpasync_i8_ready`, `realign_i8_ready`)
@@ -34,7 +36,8 @@ kernels those paths run:
                         and, at any even width and base,
                         `i4_narrow_ready`; else csrc/scan_i4_wgmma.cu,
                         `i4_wgmma_ready`; 128 < k <= 1024: the wide kind,
-                        csrc/topk_i4_wide.cu, see `i4_wide_ready`)
+                        csrc/topk_i4_wide.cu, see `i4_wide_ready`, in
+                        ranges as K4's)
   K9 `fused_topk_i8c`   csrc/scan_topk.cu  exact top-k over column-scaled int8
                         (small Q, k <= 128: csrc/sweep_topk.cu, see
                         `sweep_ready` and, at any width and base,
@@ -111,7 +114,9 @@ SEG = 128  # rows per segmax segment
 # those of the sweep's narrow int4 kind at any even width and base
 # (`i4_narrow_ready`), "scan_topk_i4_wgmma"
 # those of its tensor-core scan (`i4_wgmma_ready`), "scan_topk_i4_wide"
-# those of its wide kind (`i4_wide_ready`); "scan_topk_i8" every K3
+# those of its wide kind (`i4_wide_ready`), "scan_topk_i4_wide_ranges"
+# those of them that walked the rows in ranges (`topk_wide_plan`), as
+# "scan_topk_wide_ranges" K4's wide kind's; "scan_topk_i8" every K3
 # launch, "scan_topk_i8_sweep" those of the sweep's row-scaled int8 kind
 # (`i8_sweep_ready`), "scan_topk_i8_wgmma" those of the tensor-core scan's
 # int8 kind (`i8_wgmma_ready`), "scan_topk_i8_wide" those of its wide kind
@@ -127,15 +132,16 @@ SEG = 128  # rows per segmax segment
 # ("scan_topk_wgmma_cpasync", "scan_topk_wide_realign",
 # "scan_topk_i8_wgmma_realign", "scan_topk_i8_wide_cpasync", ...); each of
 # these keys, "scan_topk_i8_narrow", "scan_topk_i4_narrow",
-# "scan_topk_i8c_narrow" and "ivf_scan_topk_narrow" also has
-# its launches by shape in LAUNCH_SHAPES. "ivf_scan_topk_wide" those of K7's wide kind
-# (ops/ivf.py::`ivf_wide_ready`); "ivf_segmax" every K8 launch,
+# "scan_topk_i8c_narrow", "ivf_scan_topk_narrow" and the two "_ranges"
+# keys also has its launches by shape in LAUNCH_SHAPES. "ivf_scan_topk_wide"
+# those of K7's wide kind (ops/ivf.py::`ivf_wide_ready`); "ivf_segmax" every K8 launch,
 # "ivf_segmax_wgmma" those of its tensor-core segment scan over rows TMA
 # reads (ops/ivf.py::`ivf_segmax_scan`).
 LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "segmax_realign": 0,
             "topk_keys": 0, "scan_topk": 0, "scan_topk_wgmma": 0,
-            "scan_topk_wide": 0, "scan_topk_sweep": 0, "scan_topk_narrow": 0,
+            "scan_topk_wide": 0, "scan_topk_wide_ranges": 0,
+            "scan_topk_sweep": 0, "scan_topk_narrow": 0,
             "scan_topk_wgmma_cpasync": 0, "scan_topk_wgmma_realign": 0,
             "scan_topk_wide_cpasync": 0, "scan_topk_wide_realign": 0,
             "scan_topk_i8": 0, "scan_topk_i8_sweep": 0,
@@ -148,7 +154,7 @@ LAUNCHES = {"segmax": 0, "segmax_wgmma": 0, "segmax_cpasync": 0,
             "segmax_i8_realign": 0,
             "scan_topk_i4": 0, "scan_topk_i4_sweep": 0,
             "scan_topk_i4_wgmma": 0, "scan_topk_i4_wide": 0,
-            "scan_topk_i4_narrow": 0,
+            "scan_topk_i4_wide_ranges": 0, "scan_topk_i4_narrow": 0,
             "scan_topk_i4_wgmma_cpasync": 0, "scan_topk_i4_wgmma_realign": 0,
             "scan_topk_i4_wide_cpasync": 0, "scan_topk_i4_wide_realign": 0,
             "ivf_scan_topk": 0, "ivf_scan_topk_sweep": 0,  # K7: ops/ivf.py
@@ -813,6 +819,12 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     if not queries.is_cuda:
         if i8c:
             return fused_topk_i8c_plain(queries, vectors, mask, k)
+        if k > TOPK_WGMMA_K_MAX and (int4 or vscale is None):
+            # K4's and K6's wide kinds: the rows in the kernel's ranges
+            _, rows, ranges = wide_walk(num_q, cap)
+            if ranges > 1:
+                return scan_topk_ranges_plain(queries, vectors, vscale, mask,
+                                              k, rows, int4=int4)
         return scan_topk_plain(queries, vectors, vscale, mask, k, int4=int4)
     if i8c:
         kind = _KIND_I8C
@@ -879,6 +891,8 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     elif int4 and i4_wide_ready(q, vectors, k):
         vals, idx = _i4_wide_launch(q, vectors, vscale, mask, k, name)
         _count("scan_topk_i4_wide" + piece, num_q, k)
+        if wide_walk(num_q, cap)[2] > 1:
+            _count("scan_topk_i4_wide_ranges", num_q, k)
     elif kind in (_KIND_F32, _KIND_BF16) and topk_sweep_ready(q, vectors, k):
         vals, idx = _topk_sweep_launch(q, vectors, mask, k, name)
         _count("scan_topk_sweep", num_q, k)
@@ -892,6 +906,8 @@ def _scan_topk(queries, vectors, vscale, mask, k: int, name: str,
     elif kind in (_KIND_F32, _KIND_BF16) and topk_wide_ready(q, vectors, k):
         vals, idx = _topk_wide_launch(q, vectors, mask, k, name)
         _count("scan_topk_wide" + piece, num_q, k)
+        if wide_walk(num_q, cap)[2] > 1:
+            _count("scan_topk_wide_ranges", num_q, k)
     else:
         vals, idx = _template_launch(q, vectors, vscale, mask, k, kind, name)
     _count(name, num_q, k)
@@ -907,7 +923,11 @@ def _template_launch(q, vectors, vscale, mask, k: int, kind: int,
                      name: str = "scan_topk"):
     """`pv_scan_topk` (csrc/scan_topk.cu) on checked CUDA operands,
     uncounted: the 16-query template (2 queries at k > 128) over chunks
-    spread across every SM, then the merge."""
+    spread across every SM, then the merge. It serves only K3 past 64M
+    rows at k > 384 (kind 2, `i8_wide_ready`) and K9 past 64M rows at k >
+    128 (kind 4, `i8c_wide_ready`): every other kind has a Hopper kernel at
+    every shape, and kinds 0, 1 and 3 (K4, K6) stay for chip_smoke.py's
+    comparisons alone."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     q_tiles = -(-num_q // (16 if k <= 128 else 2))
@@ -998,14 +1018,19 @@ def _i4_wgmma_launch(q, v_i4, vscale, mask, k: int,
 
 
 def _i4_wide_launch(q, v_i4, vscale, mask, k: int,
-                    name: str = "scan_topk_i4"):
+                    name: str = "scan_topk_i4", range_rows=None):
     """K6's wide kind (csrc/topk_i4_wide.cu) on checked CUDA operands,
     uncounted: the queries' columns permuted once, each half padded to
     whole stages (`permute_i4_queries`), then `_scaled_wide_launch` with
-    the rows by the producer `rows_piece` names."""
+    the rows by the producer `rows_piece` names, walked as `wide_walk`
+    plans. `range_rows` is a measurement hook: only chip_smoke.py's
+    `--wide-cross` sets it (ranges of that many rows); every other caller
+    leaves it None and takes `topk_wide_plan`'s."""
     return _scaled_wide_launch("pv_scan_topk_i4_wide", permute_i4_queries(q),
                                q, v_i4, vscale, mask, k, name,
-                               rows_piece(v_i4), pad_queries=False)
+                               rows_piece(v_i4), pad_queries=False,
+                               walk=wide_walk(q.shape[0], v_i4.shape[0],
+                                              range_rows))
 
 
 def _i8_wide_launch(q, v_i8, vscale, mask, k: int,
@@ -1023,7 +1048,8 @@ def _i8_wide_launch(q, v_i8, vscale, mask, k: int,
 
 
 def _scaled_wide_launch(entry: str, q_arg, q, vectors, vscale, mask, k: int,
-                        name: str, piece: int, pad_queries: bool = True):
+                        name: str, piece: int, pad_queries: bool = True,
+                        walk=None):
     """The int wide kinds' launch (K6's, K3's; K9's, `vscale` None, whose
     call takes no scales): one library call
     `entry` that, a tile of `topk_wide_tile` queries at a time, runs the
@@ -1031,14 +1057,20 @@ def _scaled_wide_launch(entry: str, q_arg, q, vectors, vscale, mask, k: int,
     `piece`) writing the slab and the radix select over it, in one scratch
     buffer (`i4_wide_scratch`; K3's, `pad_queries`, then Q rows of the
     width rounded up to 16 bytes for the padded queries); a mask view not
-    4-byte aligned is copied."""
+    4-byte aligned is copied. `walk` (K6's: `wide_walk`'s (q_tile,
+    range_rows, ranges)): the entry takes the rows in ranges of range_rows,
+    the scratch `wide_walk_scratch`'s. K3's and K9's entries (walk None)
+    take no range_rows argument yet: this branch and the second argument
+    list go when they take the range walk (ROADMAP, "Configurations still
+    on the template")."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
-    q_tile = topk_wide_tile(num_q, cap)
-    nbytes = i4_wide_scratch(cap, q_tile)
+    q_tile, range_rows, _ = walk or (topk_wide_tile(num_q, cap), 0, 1)
+    nbytes = wide_walk_scratch(cap, q_tile, range_rows, k)
     head = (piece,)
     if pad_queries:
         nbytes = _up256(nbytes) + num_q * _pad_to(dim, 16)
+    tail = (q_tile, nbytes) if walk is None else (q_tile, range_rows, nbytes)
     if mask.data_ptr() % 4:
         mask = mask.clone()
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
@@ -1046,8 +1078,7 @@ def _scaled_wide_launch(entry: str, q_arg, q, vectors, vscale, mask, k: int,
     scales = () if vscale is None else (vscale.data_ptr(),)
     _launch(q, name, entry, *head, q_arg.data_ptr(), vectors.data_ptr(),
             *scales, mask.data_ptr(), scratch.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, q_tile,
-            nbytes)
+            vals.data_ptr(), idx.data_ptr(), num_q, cap, dim, k, *tail)
     return vals, idx
 
 
@@ -1089,19 +1120,24 @@ def _topk_wgmma_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
     return vals, idx
 
 
-def _topk_wide_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
+def _topk_wide_launch(q, vectors, mask, k: int, name: str = "scan_topk",
+                      range_rows=None):
     """K4's wide kind (csrc/topk_wide.cu) on checked CUDA operands,
     uncounted: one library call splits the float32 queries into the
     planes the rows' kind multiplies (as `split_tf32` / `split_bf16`, rows
-    of `_planes_ld` elements), then, a tile of `topk_wide_tile` queries at
-    a time, runs the scan writing the slab (the rows by the producer
-    `rows_piece` names) and the radix select over it, in one scratch buffer
-    (`topk_wide_scratch`); a mask view not 4-byte aligned is copied."""
+    of `_planes_ld` elements), then, a tile of queries at a time over the
+    rows in ranges as `wide_walk` plans (`range_rows`, set only by
+    chip_smoke.py's `--wide-cross`: ranges of that many rows; None
+    everywhere else), runs the scan writing the slab (the rows by the
+    producer `rows_piece` names) and the radix select over it, in one
+    scratch buffer (`topk_wide_scratch`); a mask view not 4-byte aligned is
+    copied. Past one range each range's best k are merged."""
     num_q, dim = q.shape
     cap = vectors.shape[0]
     kind = _KIND_F32 if vectors.dtype == torch.float32 else _KIND_BF16
-    q_tile = topk_wide_tile(num_q, cap)
-    nbytes = topk_wide_scratch(num_q, cap, _planes_ld(vectors), kind, q_tile)
+    q_tile, rows, _ = wide_walk(num_q, cap, range_rows)
+    nbytes = topk_wide_scratch(num_q, cap, _planes_ld(vectors), kind, q_tile,
+                               rows, k)
     if mask.data_ptr() % 4:
         mask = mask.clone()
     scratch = torch.empty((nbytes,), dtype=torch.uint8, device=q.device)
@@ -1109,7 +1145,7 @@ def _topk_wide_launch(q, vectors, mask, k: int, name: str = "scan_topk"):
     _launch(q, name, "pv_scan_topk_wide", rows_piece(vectors), kind,
             q.data_ptr(), vectors.data_ptr(), mask.data_ptr(),
             scratch.data_ptr(), vals.data_ptr(), idx.data_ptr(), num_q, cap,
-            dim, k, q_tile, nbytes)
+            dim, k, q_tile, rows, nbytes)
     return vals, idx
 
 
@@ -1258,15 +1294,12 @@ def topk_wide_ready(queries: torch.Tensor, vectors: torch.Tensor,
                     k: int) -> bool:
     """Whether K4 runs its wide kind on these contiguous operands: float32
     or bf16 rows (float32 queries) at any width and base (the rows by the
-    producer `rows_piece` names), 128 < k <= SCAN_KSEL_MAX, and one
-    query's slab (cap rounded up to 128 rows, 4 bytes a row) within
-    TOPK_WIDE_SLAB_BYTES (cap up to 64M rows). Only a slab over the budget
-    keeps the template, `pv_scan_topk` kinds 0 and 1."""
-    ld = -(-vectors.shape[0] // SEG) * SEG
+    producer `rows_piece` names), 128 < k <= SCAN_KSEL_MAX, at every cap:
+    past a slab's budget the rows go in ranges (`topk_wide_plan`). The
+    template (`pv_scan_topk` kinds 0 and 1) serves no K4 shape."""
     return (queries.dtype == torch.float32
             and vectors.dtype in (torch.float32, torch.bfloat16)
-            and TOPK_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
-            and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
+            and TOPK_WGMMA_K_MAX < k <= SCAN_KSEL_MAX)
 
 
 def _up256(b: int) -> int:
@@ -1274,13 +1307,15 @@ def _up256(b: int) -> int:
 
 
 def topk_wide_scratch(num_q: int, cap: int, dim: int, kind: int,
-                      q_tile: int) -> int:
+                      q_tile: int, range_rows: int = 0, k: int = 0) -> int:
     """Bytes of the wide kind's scratch, as csrc/topk_wide.cu lays it out:
-    the query planes (float32 hi and lo, or three bf16), then one tile's
-    slab, histograms and candidates (`i4_wide_scratch`), each from a
+    the query planes (float32 hi and lo, or three bf16), then the walk's
+    (`wide_walk_scratch`: one tile's slab, histograms and candidates, and
+    past one range of `range_rows` rows the tile's partial), each from a
     256-byte boundary."""
     per = 8 if kind == _KIND_F32 else 6  # plane bytes an element
-    return _up256(num_q * dim * per) + i4_wide_scratch(cap, q_tile)
+    return (_up256(num_q * dim * per)
+            + wide_walk_scratch(cap, q_tile, range_rows, k))
 
 
 def i4_wide_scratch(cap: int, q_tile: int) -> int:
@@ -1291,6 +1326,85 @@ def i4_wide_scratch(cap: int, q_tile: int) -> int:
     uint64), each from a 256-byte boundary."""
     return (_up256(q_tile * (-(-cap // SEG) * SEG) * 4)
             + _up256(q_tile * TOPK_WIDE_HIST * 4) + q_tile * TOPK_WIDE_CAP * 8)
+
+
+def wide_range_count(cap: int, range_rows: int) -> int:
+    """Ranges of `range_rows` rows over [0, cap): one where range_rows is
+    0 or at least cap (csrc/radix_select.cuh `range_count`)."""
+    return -(-cap // range_rows) if 0 < range_rows < cap else 1
+
+
+def wide_ranges(cap: int, range_rows: int):
+    """The rows [r0, r1) of each range the walk takes, in order: whole
+    128-row segments from 0 (range_rows a multiple of SEG), the last cut at
+    cap."""
+    n = wide_range_count(cap, range_rows)
+    if n == 1:
+        return [(0, cap)]
+    return [(r0, min(cap, r0 + range_rows))
+            for r0 in range(0, n * range_rows, range_rows)]
+
+
+def wide_walk_scratch(cap: int, q_tile: int, range_rows: int,
+                      k: int) -> int:
+    """Bytes of a wide kind's walk (csrc/radix_select.cuh `walk_bytes`):
+    one tile of q_tile queries over a range's rows (`i4_wide_scratch`),
+    then, past one range, the tile's partial of q_tile x ranges x k 64-bit
+    keys from a 256-byte boundary."""
+    ranges = wide_range_count(cap, range_rows)
+    if ranges == 1:
+        return i4_wide_scratch(cap, q_tile)
+    return (_up256(i4_wide_scratch(range_rows, q_tile))
+            + q_tile * ranges * k * 8)
+
+
+# The range walk of K4's and K6's wide kinds (csrc/radix_select.cuh
+# `walk_ranges`): where a tile of min(Q, TOPK_WGMMA_QTILE) queries' slab
+# over the whole plane would pass TOPK_WIDE_SLAB_BYTES (past 64M rows at Q
+# = 1, 4M at Q = 16, 1M at Q >= 64), the rows go in ranges of the most
+# whole segments that keep that tile's slab within the budget, so each
+# range is read once per query tile instead of the plane once per narrowed
+# tile; each range's best k are merged. `chip_smoke.py --wide-cross` times
+# the rule on planes made on the card (H100 80GB HBM3, 700 W; int4 x 384
+# and float32 x 96 at 1,183,514 / 16M / 70M rows, Q 1-128, k_sel 204 /
+# 526 / 1000; PERF.md §6): against the walk of one plane in its narrowed
+# tiles the ranges win 2.8-3.0x at Q = 16 and 4.5-5.5x at Q = 64 over 16M
+# rows (int4 Q = 64, k_sel 204: 9.12 against 45.22 ms) and 1.10-1.31x at Q
+# = 64 over 1,183,514 rows, and tie at Q = 128 there (0.99-1.09x); ranges
+# a quarter or a sixteenth as long (slabs of 64 / 16 MiB) lose at every Q
+# <= 64, by 1.02-3.9x (70M int4, Q = 64, k_sel 204: 48.31 / 76.20 against
+# 37.08 ms: a range's fixed cost outweighs a slab nearer the L2), and win
+# by at most 7 % at Q = 128 (a 128-query tile), within the 10-14 % kernel
+# times repeat. So the ranges fill the slab's budget.
+
+
+def topk_wide_plan(num_q: int, cap: int):
+    """(q_tile, range_rows) of K4's and K6's wide kinds over `cap` rows at
+    Q: one range (range_rows the cap rounded up to whole segments) and
+    `topk_wide_tile`'s tile where a tile of min(Q, TOPK_WGMMA_QTILE)
+    queries' slab over the whole plane fits TOPK_WIDE_SLAB_BYTES (the walk
+    of one plane, unchanged); else ranges of the most whole segments whose
+    slab at that tile fits it, walked in `topk_wide_tile` query tiles over
+    a range."""
+    ld = max(SEG, -(-cap // SEG) * SEG)
+    full = min(num_q, TOPK_WGMMA_QTILE)
+    if full * 4 * ld <= TOPK_WIDE_SLAB_BYTES:
+        return topk_wide_tile(num_q, cap), ld
+    rows = max(SEG, TOPK_WIDE_SLAB_BYTES // (4 * full) // SEG * SEG)
+    return topk_wide_tile(num_q, rows), rows
+
+
+def wide_walk(num_q: int, cap: int, range_rows=None):
+    """(q_tile, range_rows, ranges) of a wide kind's walk: `topk_wide_plan`'s,
+    or ranges of `range_rows` rows where given. Only chip_smoke.py's
+    `--wide-cross` gives it, to time ranges the plan would not choose; the
+    dispatch always takes the plan's."""
+    if range_rows is None:
+        q_tile, rows = topk_wide_plan(num_q, cap)
+    else:
+        rows = range_rows
+        q_tile = topk_wide_tile(num_q, min(max(cap, 1), rows))
+    return q_tile, rows, wide_range_count(cap, rows)
 
 
 def topk_wide_tile(num_q: int, cap: int) -> int:
@@ -1808,13 +1922,11 @@ def i4_wide_ready(q_i8: torch.Tensor, v_i4: torch.Tensor, k: int) -> bool:
     """Whether K6 runs its wide kind (csrc/topk_i4_wide.cu: the tensor-core
     scan writing a slab, then the radix select) on these contiguous
     operands: 128 < k <= SCAN_KSEL_MAX at any even width and base (the
-    scan's producers), and one query's slab (cap rounded up to 128 rows, 4
-    bytes a row) within TOPK_WIDE_SLAB_BYTES. Any Q: a batch under 64
-    queries runs one query tile. Only a slab over the budget (past 64M
-    rows) keeps the template, `pv_scan_topk` kind 3."""
-    ld = -(-v_i4.shape[0] // SEG) * SEG
-    return (I4_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
-            and 4 * ld <= TOPK_WIDE_SLAB_BYTES)
+    scan's producers) and any cap: past a slab's budget the rows go in
+    ranges (`topk_wide_plan`). Any Q: a batch under 64 queries runs one
+    query tile. The template (`pv_scan_topk` kind 3) serves no K6
+    shape."""
+    return I4_WGMMA_K_MAX < k <= SCAN_KSEL_MAX
 
 
 def i4_wgmma_partition(num_q: int, cap: int, sms: int):
@@ -1890,13 +2002,38 @@ def scan_topk_plain(queries, vectors, vscale, mask, k: int,
     return vals, idx.to(torch.int32)
 
 
+def scan_topk_ranges_plain(queries, vectors, vscale, mask, k: int,
+                           range_rows: int, int4: bool = False):
+    """Plain version of K4's and K6's range walk (csrc/radix_select.cuh
+    `walk_ranges`): `scan_topk_plain` over each range of
+    `wide_ranges(cap, range_rows)`, its best k as (score, row) keys with
+    the range's first row added, then the kernels' merge
+    (`_merge_sel_keys`). A row of the whole plane's best k is among its
+    range's best k, and the keys order (score, row) across ranges as within
+    one, so it equals the whole plane's plain version (ties to the lower
+    row)."""
+    cap = vectors.shape[0]
+    bounds = wide_ranges(cap, range_rows)
+    if len(bounds) == 1:
+        return scan_topk_plain(queries, vectors, vscale, mask, k, int4=int4)
+    cand = []
+    for r0, r1 in bounds:
+        vals, idx = scan_topk_plain(
+            queries, vectors[r0:r1], None if vscale is None else vscale[r0:r1],
+            mask[r0:r1], k, int4=int4)
+        keys = _sel_keys(vals, idx.to(torch.int64) + r0)
+        cand.append(torch.where(torch.isneginf(vals), _I64_MIN, keys))
+    return _merge_sel_keys(cand, k, int_scores=False)
+
+
 def _sel_keys(sc, rows):
     """(score, row) selection keys as int64: higher score first, then the
     lower row, exactly the kernels' 64-bit key order (int scores ranked
-    as integers, float scores by their sortable bits)."""
+    as integers, float scores by their sortable bits). `rows` (cols,) for
+    every query, or each key's own (Q, cols)."""
     hi = sc if sc.dtype == torch.int64 else _to_sortable(
         sc.contiguous().view(torch.int32)).to(torch.int64)
-    return (hi << 32) | (0xFFFFFFFF - rows)[None, :]
+    return (hi << 32) | (0xFFFFFFFF - rows).expand(sc.shape)
 
 
 def _merge_sel_keys(cand, k: int, int_scores: bool):

@@ -123,6 +123,11 @@ def _launch_one(recorded, q, v, k, nq, dim, cap):
         assert entry == "pv_scan_topk" and args[0] == tscan._KIND_I4
         return kind, piece
     name, key = KINDS[kind]
+    if kind == "wide":  # the rows in ranges (`topk_wide_plan`), counted
+        q_tile, rows, ranges = tscan.wide_walk(nq, cap)
+        assert args[12:14] == (q_tile, rows)
+        rkey = "scan_topk_i4_wide_ranges"
+        assert tscan.LAUNCHES[rkey] == before[rkey] + (ranges > 1)
     assert entry == name, (kind, entry)
     if kind in ("scan", "wide"):
         key += tscan._PIECE_KEY[piece]
@@ -171,8 +176,9 @@ def test_every_even_width_and_base_takes_one_kind(recorded, dim):
 @pytest.mark.parametrize("dim", [50, 100, 1024])
 def test_template_only_past_the_slab_budget(recorded, monkeypatch, dim):
     """One query's slab over TOPK_WIDE_SLAB_BYTES (64M rows; here the
-    budget is lowered below this plane's slab) keeps the template at
-    k > 128 and nothing else."""
+    budget is lowered below this plane's slab) no longer keeps the
+    template: k > 128 takes the wide kind walking the rows in ranges
+    (`scan_topk_i4_wide_ranges`), k <= 128 the kinds it took."""
     ld = -(-CAP // SEG) * SEG
     monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4 * ld - 1)
     for off in (0, 2):
@@ -181,7 +187,10 @@ def test_template_only_past_the_slab_budget(recorded, monkeypatch, dim):
             q = _view(nq, dim, 0)
             for k in (14, 128, 129, 1024):
                 kind, _ = _launch_one(recorded, q, v, k, nq, dim, CAP)
-                assert (kind == "template") == (k > 128), (off, nq, k, kind)
+                assert kind != "template", (off, nq, k)
+                assert (kind == "wide") == (k > 128), (off, nq, k, kind)
+                if k > 128:
+                    assert tscan.wide_walk(nq, CAP)[2] > 1
 
 
 def test_narrow_rule_edges():

@@ -152,8 +152,8 @@ def _operands(nq, dim, offset=0, rows=256):
 
 
 def test_i4_wide_ready_edges(monkeypatch):
-    """128 < k <= SCAN_KSEL_MAX and one query's slab within
-    TOPK_WIDE_SLAB_BYTES, at any even width and base; any Q."""
+    """128 < k <= SCAN_KSEL_MAX at any even width, base and cap (a slab
+    past TOPK_WIDE_SLAB_BYTES walks the rows in ranges); any Q."""
     for nq in (1, 4, 5, 64, 2048):
         q, v = _operands(nq, 1024)
         assert not tscan.i4_wide_ready(q, v, 128)
@@ -169,8 +169,10 @@ def test_i4_wide_ready_edges(monkeypatch):
     q, v = _operands(8, 1024, rows=300)  # ld 384 rows
     monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4 * 384)
     assert tscan.i4_wide_ready(q, v, 526)
+    assert tscan.wide_walk(1, 300)[2] == 1
     monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4 * 384 - 1)
-    assert not tscan.i4_wide_ready(q, v, 526)
+    assert tscan.i4_wide_ready(q, v, 526)
+    assert tscan.wide_walk(1, 300)[2] > 1
 
 
 class _AsCuda(torch.Tensor):
@@ -225,10 +227,10 @@ def test_k6_dispatch_with_the_wide_kind(recorded, nq, dim, k, offset, kernel):
     piece = tscan.rows_piece(v)
     if kernel == "wide":
         q_tile = tscan.topk_wide_tile(nq, 256)
-        # the rows' producer, the permuted queries
+        # the rows' producer, the permuted queries; one range, the plane
         assert args[0] == piece and args[1] != q.data_ptr()
         assert args[2:5] == (v.data_ptr(), vs.data_ptr(), mask.data_ptr())
-        assert args[8:] == (nq, 256, dim, k, q_tile,
+        assert args[8:] == (nq, 256, dim, k, q_tile, 256,
                             tscan.i4_wide_scratch(256, q_tile))
     assert tscan.LAUNCHES["scan_topk_i4"] == before["scan_topk_i4"] + 1
     for key in ("sweep", "wgmma", "wide"):

@@ -226,8 +226,8 @@ def test_k4_rows_launch_pads_the_planes(recorded, monkeypatch):
 
 def test_past_64m_rows_the_template(recorded, monkeypatch):
     """One query's slab over the budget (a store past 64M rows, here
-    shrunk): K4 past k 128 and K3 past k 384 keep the template, at narrow
-    widths as at TMA's."""
+    shrunk): K3 past k 384 keeps the template, and K4 past k 128 takes its
+    wide kind walking the rows in ranges, at narrow widths as at TMA's."""
     monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4 * CAP - 1)
     mask = torch.ones(CAP, dtype=torch.bool)
     for dim in (1019, 1024):
@@ -235,7 +235,9 @@ def test_past_64m_rows_the_template(recorded, monkeypatch):
         recorded.clear()
         tscan.fused_topk(*map(_as_cuda, (torch.zeros(4, dim), v, mask)), 200)
         (entry, args), = recorded
-        assert entry == "pv_scan_topk" and args[0] == tscan._KIND_BF16
+        assert entry == "pv_scan_topk_wide"
+        assert args[:2] == (tscan.rows_piece(v), tscan._KIND_BF16)
+        assert args[12:14] == tscan.wide_walk(4, CAP)[:2]
         v8 = torch.zeros(CAP, dim, dtype=torch.int8)
         recorded.clear()
         tscan.fused_topk_i8(*map(_as_cuda, (torch.zeros(4, dim,

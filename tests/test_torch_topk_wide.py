@@ -316,11 +316,15 @@ def test_topk_wide_ready_edges(dtype, words, ragged, offset):
 
 
 def test_topk_wide_ready_slab_budget(monkeypatch):
+    """A slab past the budget no longer refuses the wide kind: the walk
+    takes the rows in ranges instead."""
     q = torch.zeros(1, 8)
     v = torch.zeros(1000, 8)  # 1024 rows a slab row: 4 KiB
     assert tscan.topk_wide_ready(q, v, 200)
+    assert tscan.wide_walk(1, 1000) == (1, 1024, 1)
     monkeypatch.setattr(tscan, "TOPK_WIDE_SLAB_BYTES", 4095)
-    assert not tscan.topk_wide_ready(q, v, 200)
+    assert tscan.topk_wide_ready(q, v, 200)
+    assert tscan.wide_walk(1, 1000) == (1, 896, 2)
 
 
 @pytest.mark.parametrize("dtype,dim,k,offset,entry", [
@@ -370,7 +374,9 @@ def test_k4_dispatch_by_k(recorded, dtype, dim, k, offset, entry):
     if wide:
         per = 4 if kind == 0 else 8  # plane elements of 16 bytes
         qld = -(-dim // per) * per
-        assert args[8:] == (nq, cap, dim, k, nq, tscan.topk_wide_scratch(
+        rows = tscan.wide_walk(nq, cap)[1]  # one range: the whole plane
+        assert rows >= cap
+        assert args[8:] == (nq, cap, dim, k, nq, rows, tscan.topk_wide_scratch(
             nq, cap, qld, kind, nq))
 
 
@@ -386,9 +392,11 @@ def test_k4_past_ksel_max_takes_the_plain_scan(recorded):
 
 def test_wide_launch_scratch_and_aligned_mask(recorded, monkeypatch):
     """The launcher's one scratch buffer holds the query planes and one
-    tile's slab (q_tile x cap rounded up to 128), histograms and
-    candidates, each from a 256-byte boundary; a mask view off 4 bytes is
-    copied to an aligned one."""
+    tile's slab (q_tile x a range's rows), histograms and candidates, and
+    the tile's partial of the ranges' keys, each from a 256-byte boundary;
+    a mask view off 4 bytes is copied to an aligned one. Here the budget
+    holds 16 queries' slab over the plane, so the walk takes ranges of 256
+    rows that hold a tile of 64."""
     seen = []
     real_empty = torch.empty
 
@@ -405,18 +413,20 @@ def test_wide_launch_scratch_and_aligned_mask(recorded, monkeypatch):
     mask = flat[1:]
     assert mask.data_ptr() % 4
     tscan.fused_topk(*map(_as_cuda, (q, v, mask)), 300)
-    (_, args), = recorded
+    (entry, args), = recorded
+    assert entry == "pv_scan_topk_wide"
     assert args[4] % 4 == 0 and args[4] != mask.data_ptr()
-    q_tile, nbytes = args[12], args[13]
-    assert q_tile == tscan.topk_wide_tile(nq, cap) == 16
+    q_tile, rows, nbytes = args[12], args[13], args[14]
+    assert (q_tile, rows) == tscan.topk_wide_plan(nq, cap) == (64, 256)
+    assert q_tile == tscan.topk_wide_tile(nq, rows)
     scratch, = (t for t in seen if t.data_ptr() == args[5])
     assert scratch.dtype == torch.uint8 and scratch.numel() == nbytes
     planes = nq * dim * 8  # hi and lo, float32
-    assert nbytes == (-(-planes // 256) * 256 + 16 * 1024 * 4
-                      + -(-16 * tscan.TOPK_WIDE_HIST * 4 // 256) * 256
-                      + 16 * tscan.TOPK_WIDE_CAP * 8)
-    assert tscan.topk_wide_scratch(nq, cap, dim, 1, q_tile) == nbytes - (
-        -(-planes // 256) * 256) + -(-nq * dim * 6 // 256) * 256
+    assert nbytes == (-(-planes // 256) * 256 + 64 * 256 * 4
+                      + -(-64 * tscan.TOPK_WIDE_HIST * 4 // 256) * 256
+                      + 64 * tscan.TOPK_WIDE_CAP * 8 + 64 * 4 * 300 * 8)
+    assert tscan.topk_wide_scratch(nq, cap, dim, 1, q_tile, rows, 300) == (
+        nbytes - -(-planes // 256) * 256 + -(-nq * dim * 6 // 256) * 256)
 
 
 @pytest.mark.parametrize("nq,cap,tile", [
